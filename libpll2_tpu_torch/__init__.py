@@ -1,14 +1,18 @@
 """libpll2_tpu_torch — the PyTorch + CUDA port of libpll2_tpu.
 
-The first slice carries the main path: an alignment goes into a `Partition`
+The ported slices carry the main path: an alignment goes into a `Partition`
 (explicit `device` and `dtype`), and `TreeEngine(part, tree)` evaluates the
 full-tree log-likelihood and guarded Newton steps on the root branch through
 one hand-written CUDA kernel for the whole postorder traversal
-(ops/fused.py, csrc/fused_traversal.cu). Module paths and names mirror
-libpll2_tpu/, which stays the reference the port is tested against.
+(ops/fused.py): csrc/fused_traversal.cu for small alphabets (DNA),
+csrc/fused_traversal_rows.cu for 16 to 32 states (proteins under the
+empirical models of `models`, with `TreeEngine(mxu=...)`). Module paths and
+names mirror libpll2_tpu/, which stays the reference the port is tested
+against.
 
 The package imports torch, numpy and scipy, and never jax: the host modules
-it needs (constants, io/maps, trees, ops/gamma, ops/eigen) are carried over.
+it needs (constants, io/maps, trees, models, utils/simulate, ops/gamma,
+ops/eigen) are carried over.
 """
 from . import constants
 from .constants import AscBias, PllError

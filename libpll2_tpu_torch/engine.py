@@ -34,17 +34,19 @@ def _fused_loglikelihood(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
                          branches, table, tip_codes, root_mat: int,
                          pattern_weights, invariant, n_slots: int,
                          scale_threshold: float, scale_factor: float,
-                         traversal=ops_fused.fused_traversal):
+                         traversal=ops_fused.fused_traversal,
+                         mxu: str = "split"):
     """branches[e] is ordered by pmatrix index e. Returns (total logL,
     per-site weighted logL, root rows (clv_p, clv_c, sc_p, sc_c)).
     `traversal` is the fused traversal to run: the dispatching
-    wrapper, or its plain version for a comparison on the card."""
+    wrapper, or its plain version for a comparison on the card; `mxu` its
+    contraction mode (ops/fused.py)."""
     pmatrix = ops_pmatrix.update_prob_matrices(
         eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
         params_idx_rates, branches)
     rows = traversal(tip_codes, pmatrix, table, rates=pmatrix.shape[1],
                      states=pmatrix.shape[2], n_slots=n_slots,
-                     threshold=scale_threshold, factor=scale_factor)
+                     threshold=scale_threshold, factor=scale_factor, mxu=mxu)
     clv_p, clv_c, sc_p, sc_c = rows
     total, per = ops_likelihood.edge_loglikelihood(
         clv_p, clv_c, sc_p, sc_c, pmatrix[root_mat], freqs, prop_invar,
@@ -58,7 +60,8 @@ def _fused_newton_step(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
                        branches, table, tip_codes, root_mat: int,
                        pattern_weights, invariant, n_slots: int,
                        scale_threshold: float, scale_factor: float,
-                       traversal=ops_fused.fused_traversal):
+                       traversal=ops_fused.fused_traversal,
+                       mxu: str = "split"):
     """Evaluate the tree, then Newton-update the root branch length from
     d1/d2 (reference examples/newton/newton.c:66-96, fused). Returns
     (total, d1, d2, new branches)."""
@@ -66,7 +69,7 @@ def _fused_newton_step(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
         eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
         rate_weights, freqs, params_idx_rates, branches, table, tip_codes,
         root_mat, pattern_weights, invariant, n_slots, scale_threshold,
-        scale_factor, traversal=traversal)
+        scale_factor, traversal=traversal, mxu=mxu)
     clv_p, clv_c, sc_p, sc_c = rows
     sumtable = ops_derivatives.update_sumtable(
         clv_p, clv_c, sc_p, sc_c, inv_eigenvecs, eigenvecs, freqs,
@@ -96,12 +99,19 @@ class TreeEngine:
                  branches: Optional[Sequence[float]] = None,
                  pmatrix_indices: Optional[Sequence[int]] = None,
                  root=None, params_index: int = 0,
-                 edge_params=None, mxu: Optional[str] = None):
+                 edge_params=None, mxu: str = "split"):
+        """`mxu` picks the traversal's contraction mode for 16+-state
+        alphabets, under libpll2_tpu's names: 'split' (default) and
+        'highest' run exact float32, 'bf16' rounds the operands to bf16
+        (ops/fused.py). Smaller alphabets always contract exactly."""
         if edge_params is not None:
             raise not_ported("per-edge rate matrices (edge_params "
                              "heterotachy)")
-        if mxu is not None:
-            raise not_ported("mxu= contraction modes")
+        if mxu not in ops_fused.MXU_MODES:
+            raise C.PllError(C.ERROR_PARAM_INVALID,
+                             f"mxu must be 'split', 'bf16' or 'highest', "
+                             f"got {mxu!r}")
+        self.mxu = mxu
         self.partition = partition
         self.device = partition.device
         self.dtype = partition.dtype
@@ -222,11 +232,12 @@ class TreeEngine:
                     f"({self.partition.prob_matrices},), got "
                     f"{tuple(branches.shape)}")
             self.branches = branches
-        total, per, _ = _fused_loglikelihood(*self._args())
+        total, per, _ = _fused_loglikelihood(*self._args(), mxu=self.mxu)
         return total, per
 
     def newton_step(self):
         """Evaluate + one Newton update of the root branch; returns
         (logL, d1, d2)."""
-        total, d1, d2, self.branches = _fused_newton_step(*self._args())
+        total, d1, d2, self.branches = _fused_newton_step(*self._args(),
+                                                          mxu=self.mxu)
         return float(total), float(d1), float(d2)

@@ -1,9 +1,10 @@
 """Build, load and launch the port's CUDA kernels.
 
 The sources under `libpll2_tpu_torch/csrc/` are compiled with nvcc for
-Hopper (`sm_90a`) into one shared library with a plain C interface, at first
-use, into `libpll2_tpu_torch/_build/` (listed in .gitignore). The library's
-file name carries a hash of the sources and flags, so an edit rebuilds it.
+Hopper (`sm_90a`), one nvcc process per source in parallel, and linked into
+one shared library with a plain C interface, at first use, into
+`libpll2_tpu_torch/_build/` (listed in .gitignore). The library's file name
+carries a hash of the sources and flags, so an edit rebuilds it.
 It is loaded with ctypes: pointers come from `Tensor.data_ptr()`, the
 stream from `torch.cuda.current_stream().cuda_stream`, and each C entry
 returns `cudaGetLastError()` after its launch.
@@ -26,8 +27,9 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -46,8 +48,9 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Path of the built library for the current sources (built if
-    missing). The compiler's report (`-Xptxas -v`: registers, spills) is
-    kept beside it as `<name>.log`."""
+    missing): one nvcc per source, all started together, then one link.
+    The compiler's report (`-Xptxas -v`: registers, spills) is kept beside
+    it as `<name>.log`."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources + sorted(CSRC.glob("*.cuh")):
@@ -57,14 +60,33 @@ def library_path() -> Path:
     if out.exists():
         return out
     BUILD.mkdir(exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
+    tag = f"tmp{os.getpid()}"
+    objs = [out.with_suffix(f".{src.stem}.{tag}.o") for src in sources]
+    nvcc = _nvcc()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    log, failed = [], []
+    for src, proc in zip(sources, procs):
+        text = proc.communicate()[0]
+        log.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{text[-4000:]}")
+    tmp = out.with_suffix(f".{tag}.so")
+    if not failed:
+        res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True)
+        log.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr[-4000:]}")
+    out.with_suffix(".log").write_text("".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stderr[-4000:]}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)        # atomic against a concurrent build
     return out
 
@@ -84,12 +106,54 @@ def library() -> ctypes.CDLL:
         _P,                # stream
     ]
     lib.pll_fused_traversal.restype = _I
+    lib.pll_fused_traversal_rows.argtypes = (
+        lib.pll_fused_traversal.argtypes[:-1] + [_I, _P])   # + bf16 flag
+    lib.pll_fused_traversal_rows.restype = _I
     return lib
 
 
-def _check(cond: bool, msg: str) -> None:
+def _check(cond: bool, msg: str, name: str = "fused_traversal") -> None:
     if not cond:
-        raise ValueError(f"fused_traversal: {msg}")
+        raise ValueError(f"{name}: {msg}")
+
+
+def _check_inputs(name: str, tip_codes: torch.Tensor, pmatrix: torch.Tensor,
+                  table: torch.Tensor, rates: int, states: int,
+                  n_slots: int) -> None:
+    """The argument checks both traversal kernels share."""
+    dev = pmatrix.device
+    _check(dev.type == "cuda", f"expected CUDA tensors, got {dev}", name)
+    for what, t in (("tip_codes", tip_codes), ("table", table)):
+        _check(isinstance(t, torch.Tensor) and t.device == dev,
+               f"{what} must be a tensor on {dev}", name)
+    _check(pmatrix.dtype == torch.float32,
+           f"the kernel takes float32 P-matrices, got {pmatrix.dtype}", name)
+    _check(tip_codes.dtype == torch.int32 and table.dtype == torch.int32,
+           "tip_codes and table must be int32", name)
+    _check(pmatrix.dim() == 4 and tuple(pmatrix.shape[1:])
+           == (rates, states, states),
+           f"pmatrix shape {tuple(pmatrix.shape)} is not [E, {rates}, "
+           f"{states}, {states}]", name)
+    _check(tip_codes.dim() == 2 and tip_codes.shape[1] > 0,
+           f"tip_codes shape {tuple(tip_codes.shape)} is not [tips, sites]",
+           name)
+    _check(table.dim() == 2 and table.shape[1] == 8 and table.shape[0] >= 1,
+           f"table shape {tuple(table.shape)} is not [n_ops+1, 8]", name)
+    _check(1 <= states <= 32, f"states={states}: tip codes are 32-bit masks",
+           name)
+    _check(rates >= 1 and n_slots >= 1, "rates and n_slots must be >= 1",
+           name)
+    for what, t in (("tip_codes", tip_codes), ("pmatrix", pmatrix),
+                    ("table", table)):
+        _check(t.is_contiguous(), f"{what} must be contiguous", name)
+
+
+def _outputs(rates: int, states: int, sites: int, dev):
+    f32, i32 = torch.float32, torch.int32
+    return (torch.empty((rates, states, sites), dtype=f32, device=dev),
+            torch.empty((rates, states, sites), dtype=f32, device=dev),
+            torch.empty(sites, dtype=i32, device=dev),
+            torch.empty(sites, dtype=i32, device=dev))
 
 
 def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
@@ -97,40 +161,16 @@ def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
                            n_slots: int, threshold: float, factor: float):
     """Launch csrc/fused_traversal.cu on the current stream; see
     ops/fused.py:fused_traversal for the contract."""
+    _check_inputs("fused_traversal", tip_codes, pmatrix, table, rates,
+                  states, n_slots)
     dev = pmatrix.device
-    _check(dev.type == "cuda", f"expected CUDA tensors, got {dev}")
-    for name, t in (("tip_codes", tip_codes), ("table", table)):
-        _check(isinstance(t, torch.Tensor) and t.device == dev,
-               f"{name} must be a tensor on {dev}")
-    _check(pmatrix.dtype == torch.float32,
-           f"the kernel takes float32 P-matrices, got {pmatrix.dtype}")
-    _check(tip_codes.dtype == torch.int32 and table.dtype == torch.int32,
-           "tip_codes and table must be int32")
-    _check(pmatrix.dim() == 4 and tuple(pmatrix.shape[1:])
-           == (rates, states, states),
-           f"pmatrix shape {tuple(pmatrix.shape)} is not [E, {rates}, "
-           f"{states}, {states}]")
-    _check(tip_codes.dim() == 2 and tip_codes.shape[1] > 0,
-           f"tip_codes shape {tuple(tip_codes.shape)} is not [tips, sites]")
-    _check(table.dim() == 2 and table.shape[1] == 8 and table.shape[0] >= 1,
-           f"table shape {tuple(table.shape)} is not [n_ops+1, 8]")
-    _check(1 <= states <= 32, f"states={states}: tip codes are 32-bit masks")
-    _check(rates >= 1 and n_slots >= 1, "rates and n_slots must be >= 1")
-    for name, t in (("tip_codes", tip_codes), ("pmatrix", pmatrix),
-                    ("table", table)):
-        _check(t.is_contiguous(), f"{name} must be contiguous")
-
     sites = tip_codes.shape[1]
-    rs = rates * states
-    f32, i32 = torch.float32, torch.int32
-    out_p = torch.empty((rates, states, sites), dtype=f32, device=dev)
-    out_c = torch.empty((rates, states, sites), dtype=f32, device=dev)
-    sc_p = torch.empty(sites, dtype=i32, device=dev)
-    sc_c = torch.empty(sites, dtype=i32, device=dev)
+    out_p, out_c, sc_p, sc_c = _outputs(rates, states, sites, dev)
     # one spare slot: the generic (runtime-size) instantiation builds each
     # parent there before copying it into its own slot
-    slots = torch.empty((n_slots + 1, rs, sites), dtype=f32, device=dev)
-    slot_sc = torch.empty((n_slots, sites), dtype=i32, device=dev)
+    slots = torch.empty((n_slots + 1, rates * states, sites),
+                        dtype=torch.float32, device=dev)
+    slot_sc = torch.empty((n_slots, sites), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_fused_traversal(
@@ -142,4 +182,43 @@ def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused_traversal kernel launch failed: CUDA "
                            f"error {err}")
+    return out_p, out_c, sc_p, sc_c
+
+
+# the rows kernel keeps one op's [rates * states, 32 sites] float32 output
+# tile in shared memory beside its staging buffers (fused_traversal_rows.cu)
+ROWS_MAX_RS = 1024
+
+
+def launch_fused_traversal_rows(tip_codes: torch.Tensor,
+                                pmatrix: torch.Tensor, table: torch.Tensor,
+                                rates: int, states: int, n_slots: int,
+                                threshold: float, factor: float,
+                                bf16: bool):
+    """Launch csrc/fused_traversal_rows.cu on the current stream; see
+    ops/fused.py:fused_traversal_rows for the contract. `bf16` rounds P
+    and inner-child CLVs to bf16 (the 'bf16' contraction mode)."""
+    name = "fused_traversal_rows"
+    _check_inputs(name, tip_codes, pmatrix, table, rates, states, n_slots)
+    _check(rates * states <= ROWS_MAX_RS,
+           f"rates * states = {rates * states} exceeds the kernel's "
+           f"shared-memory tile ({ROWS_MAX_RS})", name)
+    dev = pmatrix.device
+    sites = tip_codes.shape[1]
+    out_p, out_c, sc_p, sc_c = _outputs(rates, states, sites, dev)
+    slots = torch.empty((n_slots, rates * states, sites),
+                        dtype=torch.float32, device=dev)
+    slot_sc = torch.empty((n_slots, sites), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = library().pll_fused_traversal_rows(
+            table.data_ptr(), table.shape[0] - 1, pmatrix.data_ptr(),
+            tip_codes.data_ptr(), sites, rates, states,
+            slots.data_ptr(), slot_sc.data_ptr(), n_slots,
+            out_p.data_ptr(), out_c.data_ptr(), sc_p.data_ptr(),
+            sc_c.data_ptr(), float(threshold), float(factor), int(bf16),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"fused_traversal_rows kernel launch failed: "
+                           f"CUDA error {err}")
     return out_p, out_c, sc_p, sc_c

@@ -6,16 +6,33 @@ an op table whose inner CLVs live in a small set of reusable slots
 returns only the root edge's two CLVs and their scaler counts. Tips enter
 as int32 state bitmasks (`tip_code_matrix`) and are decoded on the fly.
 
-`fused_traversal` is the entry point: for CUDA tensors it launches the
-hand-written kernel (csrc/fused_traversal.cu) and counts the launch in
-`fused_traversal.launches`; for CPU tensors it runs
-`fused_traversal_reference`, the plain PyTorch version of the same walk.
+`fused_traversal` is the entry point. For CPU tensors it runs
+`fused_traversal_reference`, the plain PyTorch version of the walk. For
+CUDA tensors it launches a hand-written kernel: alphabets below
+`ROWS_STATES_MIN` states take csrc/fused_traversal.cu (counted in
+`fused_traversal.launches`), larger ones (proteins) take
+csrc/fused_traversal_rows.cu through `fused_traversal_rows` (counted in
+`fused_traversal_rows.launches`).
 
 Semantics (per op row [pslot, l_is_tip, l_idx, m1, r_is_tip, r_idx, m2,
 has_scaler]): x = (P[m1] . left) * (P[m2] . right) per rate; when
 has_scaler and max over all rates and states of x < threshold, the site is
 multiplied by `factor` and its count grows by one; counts of the children
 are added, tips count 0.
+
+Contraction modes (`mxu`, libpll2_tpu's names; they act on float32 with
+`ROWS_STATES_MIN` or more states, as in JAX, and smaller alphabets always
+contract exactly):
+  'split', 'highest' -- exact float32 products and sums. On the TPU 'split'
+      was a hi/lo bf16 triple pass that recovers fp32-class accuracy from a
+      bf16 matrix unit; a CUDA core's float32 FMA gives that directly, so
+      both names run the same code and give the same answer.
+  'bf16' -- the TPU's throughput mode, numerics kept: P and every
+      inner-child CLV value are rounded to bf16 (half-up, `round_bf16`, as
+      libpll2_tpu's split_bf16 hi part); tip 0/1 indicators are exact;
+      products and sums stay float32.
+float64 (the CPU-only certified path) contracts exactly in every mode, as
+libpll2_tpu's float64 path does.
 """
 from __future__ import annotations
 
@@ -23,7 +40,27 @@ import numpy as np
 import torch
 
 __all__ = ["pack_fused_schedule", "tip_code_matrix", "fused_traversal",
-           "fused_traversal_reference"]
+           "fused_traversal_rows", "fused_traversal_reference",
+           "round_bf16", "MXU_MODES", "ROWS_STATES_MIN"]
+
+MXU_MODES = ("split", "bf16", "highest")
+# alphabets from this size on take the row-layout kernel and the mxu modes
+# (libpll2_tpu/ops/pallas_fused.py:PLANE_STATES_MAX)
+ROWS_STATES_MIN = 16
+
+
+def _check_mxu(mxu: str) -> None:
+    if mxu not in MXU_MODES:
+        raise ValueError(f"mxu must be one of {MXU_MODES}, got {mxu!r}")
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to bf16 precision, kept as float32: the top
+    16 bits after a half-up carry, `(bits + 0x8000) & 0xFFFF0000`
+    (libpll2_tpu/ops/pallas_fused.py:split_bf16's hi part). The rows
+    kernel rounds with the same bit operation."""
+    bits = x.contiguous().view(torch.int32)
+    return torch.bitwise_and(bits + 0x8000, -0x10000).view(torch.float32)
 
 
 def pack_fused_schedule(operations, n_tips: int, root_pair):
@@ -117,11 +154,14 @@ def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32
                               pmatrix: torch.Tensor,     # [E, R, s, s]
                               table,                     # [n_ops+1, 8] int
                               rates: int, states: int, n_slots: int,
-                              threshold: float, factor: float):
+                              threshold: float, factor: float,
+                              mxu: str = "split"):
     """Plain PyTorch version of the fused traversal, in the dtype of
     `pmatrix` (float32 or float64) and on its device: the op table is
-    walked in Python, each op vectorised over sites. Returns (clv_p, clv_c
-    [R, s, S], sc_p, sc_c [S] int32) for the root edge."""
+    walked in Python, each op vectorised over sites. `mxu` is the
+    contraction mode (module docstring). Returns (clv_p, clv_c [R, s, S],
+    sc_p, sc_c [S] int32) for the root edge."""
+    _check_mxu(mxu)
     dtype, device = pmatrix.dtype, pmatrix.device
     sites = tip_codes.shape[1]
     rows = torch.as_tensor(table).cpu().tolist()
@@ -131,6 +171,10 @@ def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32
     fac = torch.tensor(factor, dtype=dtype, device=device)
     one = torch.ones((), dtype=dtype, device=device)
     slots: list = [None] * n_slots
+    bf16 = (mxu == "bf16" and states >= ROWS_STATES_MIN
+            and dtype == torch.float32)
+    if bf16:
+        pmatrix = round_bf16(pmatrix)
 
     def child(is_tip, idx):
         if is_tip:
@@ -139,9 +183,13 @@ def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32
             return bits.to(dtype).expand(rates, states, sites), zero_sc
         return slots[idx]
 
+    def operand(is_tip, idx):
+        clv, sc = child(is_tip, idx)
+        return (round_bf16(clv) if bf16 and not is_tip else clv), sc
+
     for row in rows[:n_ops]:
-        left, lsc = child(row[1], row[2])
-        right, rsc = child(row[4], row[5])
+        left, lsc = operand(row[1], row[2])
+        right, rsc = operand(row[4], row[5])
         x = (torch.einsum('rij,rjs->ris', pmatrix[row[3]], left)
              * torch.einsum('rij,rjs->ris', pmatrix[row[6]], right))
         sc = lsc + rsc
@@ -162,19 +210,27 @@ def fused_traversal(tip_codes: torch.Tensor,   # [n_tips, S] int32 bitmasks
                     pmatrix: torch.Tensor,     # [E, R, s, s]
                     table: torch.Tensor,       # [n_ops+1, 8] int32
                     rates: int, states: int, n_slots: int,
-                    threshold: float, factor: float):
+                    threshold: float, factor: float, mxu: str = "split"):
     """One full postorder; returns (clv_p, clv_c, sc_p, sc_c) for the root
-    edge: CLVs [R, s, S], scaler counts [S] int32.
+    edge: CLVs [R, s, S], scaler counts [S] int32. `mxu` is the contraction
+    mode (module docstring); below `ROWS_STATES_MIN` states it is ignored.
 
-    CUDA tensors launch the hand-written kernel (float32 only) on the
-    current stream, without synchronising, or raise. CPU tensors run
-    `fused_traversal_reference`. The table's indices are trusted: callers
-    build it with `pack_fused_schedule`, whose tip and slot indices are in
-    range by construction, and check its matrix indices against
-    `pmatrix` (the engine does so when it packs a topology)."""
+    CUDA tensors launch a hand-written kernel (float32 only) on the
+    current stream, without synchronising, or raise: fused_traversal.cu
+    below `ROWS_STATES_MIN` states, else `fused_traversal_rows`. CPU
+    tensors run `fused_traversal_reference`. The table's indices are
+    trusted: callers build it with `pack_fused_schedule`, whose tip and
+    slot indices are in range by construction, and check its matrix
+    indices against `pmatrix` (the engine does so when it packs a
+    topology)."""
+    _check_mxu(mxu)
     if pmatrix.device.type == "cpu" and tip_codes.device.type == "cpu":
         return fused_traversal_reference(tip_codes, pmatrix, table, rates,
-                                         states, n_slots, threshold, factor)
+                                         states, n_slots, threshold, factor,
+                                         mxu)
+    if states >= ROWS_STATES_MIN:
+        return fused_traversal_rows(tip_codes, pmatrix, table, rates, states,
+                                    n_slots, threshold, factor, mxu)
     from . import _kernels
     out = _kernels.launch_fused_traversal(tip_codes, pmatrix, table, rates,
                                           states, n_slots, threshold, factor)
@@ -183,3 +239,31 @@ def fused_traversal(tip_codes: torch.Tensor,   # [n_tips, S] int32 bitmasks
 
 
 fused_traversal.launches = 0
+
+
+def fused_traversal_rows(tip_codes: torch.Tensor,   # [n_tips, S] int32
+                         pmatrix: torch.Tensor,     # [E, R, s, s]
+                         table: torch.Tensor,       # [n_ops+1, 8] int32
+                         rates: int, states: int, n_slots: int,
+                         threshold: float, factor: float,
+                         mxu: str = "split"):
+    """The same walk through the row-layout kernel
+    (csrc/fused_traversal_rows.cu, any states <= 32, one thread block per
+    tile of sites), which replaces libpll2_tpu's `_fused_kernel`.
+    `fused_traversal` sends alphabets of `ROWS_STATES_MIN` or more states
+    here. CUDA tensors launch the kernel (float32 only) or raise; CPU
+    tensors run `fused_traversal_reference`."""
+    _check_mxu(mxu)
+    if pmatrix.device.type == "cpu" and tip_codes.device.type == "cpu":
+        return fused_traversal_reference(tip_codes, pmatrix, table, rates,
+                                         states, n_slots, threshold, factor,
+                                         mxu)
+    from . import _kernels
+    out = _kernels.launch_fused_traversal_rows(
+        tip_codes, pmatrix, table, rates, states, n_slots, threshold, factor,
+        bf16=(mxu == "bf16" and states >= ROWS_STATES_MIN))
+    fused_traversal_rows.launches += 1
+    return out
+
+
+fused_traversal_rows.launches = 0

@@ -26,6 +26,9 @@ from .ops import eigen as ops_eigen
 
 __all__ = ["Operation", "Partition"]
 
+# both traversal kernels and tip_code_matrix carry tip states as int32 masks
+MAX_STATES = 32
+
 
 @dataclass
 class Operation:
@@ -87,9 +90,10 @@ class Partition:
             raise not_ported("site repeats (site_repeats=True)")
         if mesh is not None:
             raise not_ported("site sharding over a device mesh")
-        if states >= 16:
-            raise not_ported(f"{states}-state alphabets (the row-layout "
-                             f"kernel, states >= 16)")
+        if states > MAX_STATES:
+            raise not_ported(f"{states}-state alphabets (tip states travel "
+                             f"to the kernels as 32-bit masks, so at most "
+                             f"{MAX_STATES} states)")
         self.dtype = dtype
         if dtype == torch.float64:
             self.scale_threshold = C.SCALE_THRESHOLD

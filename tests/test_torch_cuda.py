@@ -5,16 +5,21 @@ Run on a machine with an NVIDIA GPU and nvcc, from the repository root:
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py
 
 (`--noconftest`: tests/conftest.py imports jax, which that machine need not
-have; this file imports only torch and the port.) The kernel is held against
-its plain PyTorch version on the same CUDA tensors: scaler counts equal,
-root CLVs to 1e-5 of each site's largest entry (FMA contraction vs
-PyTorch's summation order)."""
+have; this file imports only torch and the port.) Each kernel is held
+against its plain PyTorch version on the same CUDA tensors: scaler counts
+equal, root CLVs to 1e-5 of each site's largest entry (FMA contraction vs
+PyTorch's summation order). In the rows kernel's 'bf16' mode both versions
+round the same operands to bf16, but a last-bit difference of a float32
+sum can round a value to the other bf16 neighbour, so that mode is held at
+the logL level, to 1e-4 relative."""
 import numpy as np
 import pytest
 import torch
 
 from libpll2_tpu_torch import Partition, TreeEngine, compute_gamma_cats
+from libpll2_tpu_torch.engine import _fused_loglikelihood
 from libpll2_tpu_torch.io import maps
+from libpll2_tpu_torch.models import load_aa_model
 from libpll2_tpu_torch.ops import fused
 from libpll2_tpu_torch.ops.pmatrix import update_prob_matrices
 from libpll2_tpu_torch.trees import (parse_newick, random_alignment,
@@ -26,6 +31,17 @@ CHARMAP5 = np.zeros(256, np.uint64)
 for _i, _ch in enumerate("ACGTX"):
     CHARMAP5[ord(_ch)] = 1 << _i
 CHARMAP5[ord("-")] = 31
+LETTERS32 = "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdef"
+AA_NOISY = "ARNDCQEGHILKMFPSTWYVARNDCQEGHILKMFPSTWYVBZX-"
+
+
+def _charmap(states):
+    """States 0..s-1 as the first s of LETTERS32; '-' is every state."""
+    cm = np.zeros(256, np.uint64)
+    for i, ch in enumerate(LETTERS32[:states]):
+        cm[ord(ch)] = 1 << i
+    cm[ord("-")] = (1 << states) - 1
+    return cm
 
 
 @pytest.fixture
@@ -43,13 +59,19 @@ def _engine(tree, sites, device, dtype=torch.float32, rates=4, states=4,
     part = Partition(tree.tip_count, tree.inner_count, states, sites, 1,
                      tree.edge_count, rates, tree.inner_count, device=device,
                      dtype=dtype)
-    charmap = maps.map_nt if states == 4 else CHARMAP5
+    charmap = {4: maps.map_nt, 5: CHARMAP5, 20: maps.map_aa}.get(
+        states, None)
+    if charmap is None:
+        charmap = _charmap(states)
     for tip in tree.tips():
         part.set_tip_states(tip.clv_index, charmap, by[tip.label])
     rng = np.random.default_rng(seed)
-    part.set_frequencies(0, rng.dirichlet(np.ones(states) * 10))
-    part.set_subst_params(0, rng.uniform(0.5, 2.0,
-                                         size=states * (states - 1) // 2))
+    if states == 20:
+        load_aa_model(part, "lg")
+    else:
+        part.set_frequencies(0, rng.dirichlet(np.ones(states) * 10))
+        part.set_subst_params(0, rng.uniform(0.5, 2.0,
+                                             size=states * (states - 1) // 2))
     part.set_category_rates(compute_gamma_cats(0.8, rates))
     return part, TreeEngine(part, tree)
 
@@ -121,3 +143,86 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
     for name, args in bad.items():
         with pytest.raises(ValueError):
             fused.fused_traversal(*args, **kw)
+
+
+def _protein_case(case, device):
+    tree = random_utree([f"t{i}" for i in range(16)], seed=3)
+    if case == "caterpillar":
+        return _engine(_caterpillar(80), 700, device, states=20,
+                       alphabet=AA_NOISY)
+    if case == "rates3":
+        return _engine(tree, 1000, device, states=20, rates=3,
+                       alphabet=AA_NOISY)
+    if case in ("states16", "states32"):
+        s = int(case[6:])
+        return _engine(tree, 1000, device, states=s,
+                       alphabet=LETTERS32[:s] + "-")
+    return _engine(tree, 1000, device, states=20, alphabet=AA_NOISY)
+
+
+@pytest.mark.parametrize("mode", ["highest", "bf16"])
+@pytest.mark.parametrize("case", ["ragged", "caterpillar", "rates3",
+                                  "states16", "states32"])
+def test_rows_kernel_matches_plain_on_card(cuda, case, mode):
+    part, eng = _protein_case(case, cuda)
+    args, kw = _inputs(part, eng)
+    before = (fused.fused_traversal.launches,
+              fused.fused_traversal_rows.launches)
+    got = fused.fused_traversal(*args, mxu=mode, **kw)
+    assert (fused.fused_traversal.launches,
+            fused.fused_traversal_rows.launches) == (before[0],
+                                                     before[1] + 1)
+    want = fused.fused_traversal_reference(*args, mxu=mode, **kw)
+    torch.cuda.synchronize()
+    if case == "caterpillar":
+        assert int(want[2].max()) > 0
+    if mode == "bf16":
+        # held at the logL level (module docstring)
+        lk = [float(_fused_loglikelihood(*eng._args(), traversal=t,
+                                         mxu=mode)[0])
+              for t in (fused.fused_traversal,
+                        fused.fused_traversal_reference)]
+        assert abs(lk[0] - lk[1]) / abs(lk[1]) < 1e-4
+        return
+    for g, w in zip(got[2:], want[2:]):
+        assert torch.equal(g, w)
+    for g, w in zip(got[:2], want[:2]):
+        site_max = w.abs().amax(dim=(0, 1)).clamp(min=1e-30)
+        assert float(((g - w).abs() / site_max).max()) <= 1e-5
+    # 'split' is the same exact contraction as 'highest'
+    for g, w in zip(fused.fused_traversal(*args, mxu="split", **kw), got):
+        assert torch.equal(g, w)
+
+
+def test_protein_engine_on_card_matches_cpu_float64(cuda):
+    tree = random_utree([f"t{i}" for i in range(24)], seed=5)
+    _, gpu = _engine(tree, 3000, cuda, states=20, alphabet=AA_NOISY)
+    _, cpu = _engine(tree, 3000, "cpu", dtype=torch.float64, states=20,
+                     alphabet=AA_NOISY)
+    before = fused.fused_traversal_rows.launches
+    got, want = gpu.loglikelihood(), cpu.loglikelihood()
+    assert abs(got - want) / abs(want) < 5e-5
+    for _ in range(3):
+        (gl, g1, g2), (wl, w1, w2) = gpu.newton_step(), cpu.newton_step()
+        assert abs(gl - wl) / abs(wl) < 5e-5
+        for g, w in ((g1, w1), (g2, w2)):
+            assert abs(g - w) / max(abs(w), 10.0) < 5e-3
+    assert fused.fused_traversal_rows.launches == before + 4
+
+
+def test_rows_wrapper_rejects_what_it_cannot_take(cuda):
+    tree = random_utree([f"t{i}" for i in range(6)], seed=1)
+    part, eng = _engine(tree, 64, cuda, states=20, alphabet=AA_NOISY)
+    (codes, pm, table), kw = _inputs(part, eng)
+    bad = {
+        "float64": ((codes, pm.double(), table), kw),
+        "non-contiguous": ((codes, pm.transpose(2, 3), table), kw),
+        "host table": ((codes, pm, table.cpu()), kw),
+        "int64 codes": ((codes.long(), pm, table), kw),
+        "33 states": ((codes, torch.zeros(pm.shape[:2] + (33, 33),
+                                          device=cuda), table),
+                      dict(kw, states=33)),
+    }
+    for name, (args, kwargs) in bad.items():
+        with pytest.raises(ValueError):
+            fused.fused_traversal_rows(*args, **kwargs)

@@ -214,12 +214,11 @@ OUT_OF_SLICE = {
                                         asc_bias=tp.AscBias.LEWIS),
     "site_repeats": lambda mp: tp.Partition(*SIZES, site_repeats=True),
     "mesh": lambda mp: tp.Partition(*SIZES, mesh=object()),
-    "states_20": lambda mp: tp.Partition(4, 2, 20, 10, 1, 5, 4, 2),
+    "states_33": lambda mp: tp.Partition(4, 2, 33, 10, 1, 5, 4, 2),
     "fp64_cuda": _fp64_on_cuda,
     "set_tip_clv": lambda mp: tp.Partition(*SIZES).set_tip_clv(
         0, np.full((10, 4), 0.25)),
     "edge_params": lambda mp: _small_engine(edge_params=np.zeros(7, int)),
-    "mxu": lambda mp: _small_engine(mxu="split"),
     "partial_traversal": lambda mp: _partial_traversal(),
     "convert_tip_clv": lambda mp: _converted_tip_clv(),
 }

@@ -162,7 +162,8 @@ def test_update_eigen_matches(seed, states):
 
 def test_import_leaves_no_jax():
     code = ("import sys, libpll2_tpu_torch, libpll2_tpu_torch.convert, "
-            "libpll2_tpu_torch.ops._kernels; "
+            "libpll2_tpu_torch.ops._kernels, libpll2_tpu_torch.models, "
+            "libpll2_tpu_torch.utils; "
             "bad = [m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.')]; "
             "assert not bad, bad")
