@@ -37,14 +37,37 @@ each fatal on failure:
      launches, and the same problem through the plain path in float64 on
      the card;
   8. times at 128 x 8192: the rows kernel and its plain version per mode,
-     one loglikelihood() and one newton_step().
+     one loglikelihood() and one newton_step();
+  9. level kernel vs plain: ops/levels.py:level_update (csrc/level_update.cu)
+     against level_update_reference over whole op lists on the card,
+     float32, from the same buffers: 16 x 1000 ragged DNA, 3 categories,
+     the 80-taxon caterpillar (scaling must trigger), 20 and 32 states, ops
+     without a scaler buffer, a partial op list, and 128 x 16384; scaler
+     rows equal and CLV rows within TOL_CLV;
+ 10. the dense paths at full width (DNA 128 x 16384 GTR+G4, protein 128 x
+     8192 LG+G4), through the level kernel: the step-by-step chain
+     (Partition(device="cuda") -> update_prob_matrices -> update_partials ->
+     compute_edge_loglikelihood, compute_node_ancestral -> update_sumtable ->
+     compute_likelihood_derivatives), a partial traversal after one branch
+     length changes (equal to the full one), TreeEngine(pallas=
+     "levels-kernel") with loglikelihood() and three newton_step()s, the
+     DNA tree rooted for compute_root_loglikelihood, and LG4X through
+     update_prob_matrices([0, 1, 2, 3], ...); each against the float64
+     plain path on the card, with the level-kernel launches counted (one
+     per level of each traversal);
+ 11. times of the level kernel over one traversal and its plain version,
+     one loglikelihood() on the levels-kernel path and one step-by-step
+     traversal, at both sizes; and of the level kernel and its plain
+     version over the 80-taxon caterpillar (78 levels of one op each) at
+     16384 sites.
 
 The last three lines are the card's name and power limit, one JSON object
-listing every kernel, and {"ok": true, "device": ...}.
+listing every kernel (with its bound at the card's peaks), and {"ok": true,
+"device": ...}.
 Exits non-zero, printing no result, when there is no CUDA device.
 `--profile DIR` also writes a torch.profiler breakdown of one
-loglikelihood() and one newton_step() of each main path to
-DIR/profile.txt.
+loglikelihood() and one newton_step() of each main path (fused and
+levels-kernel) to DIR/profile.txt.
 """
 from __future__ import annotations
 
@@ -77,8 +100,15 @@ ATOL_D1 = 5e-2
 # bf16, but a last-bit difference of a float32 sum can round a value to the
 # other bf16 neighbour, so the two are held at the logL level
 TOL_BF16_LOGL = 1e-4
+# ancestral state probabilities (normalised per site), float32 step-by-step
+# path vs the float64 plain path, absolute
+TOL_ANC = 1e-4
 REPS = 25
 WARMUP = 3
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and float32 FLOP/s
+# outside the tensor cores
+H100_BYTES_PER_S = 3.35e12
+H100_F32_FLOP_PER_S = 67e12
 
 
 class SmokeFailure(Exception):
@@ -108,11 +138,12 @@ def caterpillar_newick(n: int = 80) -> str:
     return f"(t0:0.1,t1:0.1,{text});"
 
 
-def build_engine(tree, by_label, sites, device, rate_cats=4):
-    """bench.py:39-60's problem on `device` in float32."""
+def dna_partition(tree, by_label, sites, device, rate_cats=4):
+    """bench.py:39-60's problem on `device` in float32 (`tree` rooted or
+    unrooted)."""
     import numpy as np
     import torch
-    from libpll2_tpu_torch import Partition, TreeEngine, compute_gamma_cats
+    from libpll2_tpu_torch import Partition, compute_gamma_cats
     from libpll2_tpu_torch.io import maps
 
     part = Partition(tree.tip_count, tree.inner_count, 4, sites, 1,
@@ -124,6 +155,14 @@ def build_engine(tree, by_label, sites, device, rate_cats=4):
     part.set_frequencies(0, rng.dirichlet(np.ones(4) * 10))
     part.set_subst_params(0, rng.uniform(0.5, 2.0, size=6))
     part.set_category_rates(compute_gamma_cats(0.8, rate_cats))
+    return part
+
+
+def build_engine(tree, by_label, sites, device, rate_cats=4):
+    """`dna_partition` and a TreeEngine on its default (fused) path."""
+    from libpll2_tpu_torch import TreeEngine
+
+    part = dna_partition(tree, by_label, sites, device, rate_cats)
     return part, TreeEngine(part, tree)
 
 
@@ -187,11 +226,11 @@ def plain_float64(part, eng, branches):
         part.eigenvals, part.inv_eigenvecs, part.eigenvecs, part.prop_invar,
         part.rates, part.rate_weights, part.frequencies)]
     pw, inv = eng._site_args()
-    total, d1, d2, _ = _fused_newton_step(
+    total, d1, d2 = _fused_newton_step(
         *model, eng.params_idx_rates, branches.to(f64), eng.table,
         eng._tip_codes(), eng.root_idx[4], pw, inv, eng.fused_slots,
         C.SCALE_THRESHOLD, C.SCALE_FACTOR,
-        traversal=fused_traversal_reference)
+        traversal=fused_traversal_reference)[:3]
     return float(total), float(d1), float(d2)
 
 
@@ -272,23 +311,26 @@ def charmap(states: int):
     return cm
 
 
-def build_protein_engine(tree, by_label, sites, device, states=20,
-                         rate_cats=4):
+def protein_partition(tree, by_label, sites, device, states=20,
+                      rate_cats=4, mixture=None):
     """LG+G4 (alpha 0.9) on `device` in float32, tips installed in one
-    batch; other alphabets get random GTR parameters from SEED."""
+    batch; other alphabets get random GTR parameters from SEED. `mixture`
+    ('lg4x') installs one matrix per category instead (rate_matrices 4)."""
     import numpy as np
     import torch
-    from libpll2_tpu_torch import Partition, TreeEngine, compute_gamma_cats
-    from libpll2_tpu_torch.models import load_aa_model
+    from libpll2_tpu_torch import Partition, compute_gamma_cats
+    from libpll2_tpu_torch.models import load_aa_model, load_mixture_model
 
-    part = Partition(tree.tip_count, tree.inner_count, states, sites, 1,
-                     tree.edge_count, rate_cats, tree.inner_count,
-                     device=device, dtype=torch.float32)
+    part = Partition(tree.tip_count, tree.inner_count, states, sites,
+                     4 if mixture else 1, tree.edge_count, rate_cats,
+                     tree.inner_count, device=device, dtype=torch.float32)
     tips = list(tree.tips())
     part.set_tip_states_batch(charmap(states),
                               [by_label[t.label] for t in tips],
                               [t.clv_index for t in tips])
-    if states == 20:
+    if mixture:
+        load_mixture_model(part, mixture)
+    elif states == 20:
         load_aa_model(part, "lg")
     else:
         rng = np.random.default_rng(SEED)
@@ -296,6 +338,16 @@ def build_protein_engine(tree, by_label, sites, device, states=20,
         part.set_subst_params(0, rng.uniform(0.5, 2.0,
                                              states * (states - 1) // 2))
     part.set_category_rates(compute_gamma_cats(0.9, rate_cats))
+    return part
+
+
+def build_protein_engine(tree, by_label, sites, device, states=20,
+                         rate_cats=4):
+    """`protein_partition` and a TreeEngine on its default (fused) path."""
+    from libpll2_tpu_torch import TreeEngine
+
+    part = protein_partition(tree, by_label, sites, device, states,
+                             rate_cats)
     return part, TreeEngine(part, tree)
 
 
@@ -338,8 +390,8 @@ def compare_rows_case(name, tree, by_label, sites, device, states=20,
     # 'bf16': the kernel path against the plain path, at the logL level
     lk, rows = [], []
     for trav in (fused_traversal, fused_traversal_reference):
-        total, _, r = _fused_loglikelihood(*eng._args(), traversal=trav,
-                                           mxu="bf16")
+        total, _, r, _ = _fused_loglikelihood(*eng._args(), traversal=trav,
+                                              mxu="bf16")
         lk.append(float(total))
         rows.append(r)
     torch.cuda.synchronize()
@@ -432,6 +484,439 @@ def protein_main_path(device, tree, by_label):
     check(err_bf16 > err_split, "mxu='bf16' is not looser than 'split'")
     torch.cuda.synchronize()
     return eng, part, launches
+
+
+def run_levels(part, ops, level):
+    """`ops` through ops/levels.py level by level on `part`'s buffers, each
+    level run by `level` (the wrapper or its plain version); returns the
+    number of levels."""
+    from libpll2_tpu_torch.ops import levels
+
+    tables = levels.tables_to_device(levels.pack_pallas_levels(
+        ops, part.tips, part.scale_buffers + 1, part.scale_buffers),
+        part.device)
+    levels.update_partials_kernel(part.clv, part.scale_buffer, part.pmatrix,
+                                  tables, part.scale_threshold,
+                                  part.scale_factor, level=level)
+    return len(tables)
+
+
+def traversal_ops(part, tree):
+    """(ops, branches, pmatrix indices) of the full postorder, with the
+    partition's P-matrices set from them."""
+    from libpll2_tpu_torch.trees import create_operations, traverse
+
+    ops, br, pidx = create_operations(traverse(tree.vroot))
+    part.update_prob_matrices([0] * part.rate_cats, pidx, br)
+    return ops, br, pidx
+
+
+def compare_level_case(name, part, ops, first=None, must_scale=False):
+    """Level kernel vs its plain version over a whole op list on the
+    card, from the same buffers (after `first`, the list that must run
+    before a partial one). Returns (max relative error, max absolute
+    error)."""
+    import torch
+    from libpll2_tpu_torch.ops import levels
+
+    if first is not None:
+        run_levels(part, first, levels.level_update)
+    clv, sc = part.clv.clone(), part.scale_buffer.clone()
+    n_levels = run_levels(part, ops, levels.level_update)
+    got_clv, got_sc = part.clv.clone(), part.scale_buffer.clone()
+    part.clv.copy_(clv)
+    part.scale_buffer.copy_(sc)
+    run_levels(part, ops, levels.level_update_reference)
+    torch.cuda.synchronize()
+    k, n = part.scale_buffers, part.nodes
+    diff = int((got_sc[:k] != part.scale_buffer[:k]).sum())
+    check(diff == 0, f"{name}: scaler rows differ at {diff} entries")
+    check(not bool(got_sc[k + 1].any()), f"{name}: the zero row was written")
+    check(bool(torch.isfinite(got_clv[:n]).all()), f"{name}: non-finite CLVs")
+    want = part.clv[:n]
+    err = (got_clv[:n] - want).abs()
+    site_max = want.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
+    rel, abs_err = float((err / site_max).max()), float(err.max())
+    scaled = int(part.scale_buffer[:k].max())
+    print(f"level kernel vs plain [{name}]: {part.tips} taxa x {part.sites} "
+          f"sites, {part.states} states, {part.rate_cats} rates, {len(ops)} "
+          f"ops in {n_levels} levels: scaler rows equal (max {scaled}), "
+          f"max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}", flush=True)
+    check(rel <= TOL_CLV, f"{name}: max_rel_err {rel:.3e} > {TOL_CLV}")
+    if must_scale:
+        check(scaled > 0, f"{name}: scaling never triggered")
+    return rel, abs_err
+
+
+def level_cases(device, small, small_by, cat, cat_by, aa_by, big, big_by):
+    """Phase 9. Returns the largest absolute error."""
+    from libpll2_tpu_torch.trees import random_alignment
+
+    max_abs = 0.0
+    headers, seqs = random_alignment(16, 1000, seed=3,
+                                     alphabet=LETTERS32 + "-")
+    by32 = dict(zip(headers, seqs))
+
+    def case(name, part, tree, **kw):
+        nonlocal max_abs
+        ops, _, _ = traversal_ops(part, tree)
+        if kw.pop("no_scaler", False):
+            for op in ops[::3]:
+                op.parent_scaler_index = -1
+        if kw.pop("partial", False):
+            kw["first"], ops = ops, ops[len(ops) // 2:]
+        max_abs = max(max_abs, compare_level_case(name, part, ops, **kw)[1])
+
+    case("ragged", dna_partition(small, small_by, 1000, device), small)
+    case("3 rates", dna_partition(small, small_by, 1000, device, 3), small)
+    case("caterpillar", dna_partition(cat, cat_by, 1000, device), cat,
+         must_scale=True)
+    for states, by in ((20, aa_by), (32, by32)):
+        case(f"{states} states", protein_partition(small, by, 1000, device,
+                                                   states), small)
+    case("ops without a scaler", dna_partition(small, small_by, 1000,
+                                               device), small,
+         no_scaler=True)
+    case("partial op list", dna_partition(small, small_by, 1000, device),
+         small, partial=True)
+    case("main-path shape", dna_partition(big, big_by, N_SITES, device),
+         big)
+    return max_abs
+
+
+def plain_dense_f64(part, ops, branches, params):
+    """`ops` through the plain level-batched path (ops/partials.py) in
+    float64 on the card, from `part`'s tips and model, with P-matrices
+    from `branches` (pmatrix order). Returns (clv, scaler, P, model tensors
+    in the engine's order, pattern weights, invariant)."""
+    import torch
+    from libpll2_tpu_torch import constants as C
+    from libpll2_tpu_torch.ops import partials, pmatrix
+    from libpll2_tpu_torch.partition import pack_level_operations
+
+    f64, dev = torch.float64, part.device
+    part._ensure_eigen(params)
+    model = tuple(torch.tensor(a, dtype=f64, device=dev) for a in (
+        part.eigenvals, part.inv_eigenvecs, part.eigenvecs, part.prop_invar,
+        part.rates, part.rate_weights, part.frequencies)) + (
+        torch.tensor(params, device=dev),)
+    pm = pmatrix.update_prob_matrices(*model[:5], model[7],
+                                      branches.to(dev, f64))
+    clv = part.clv.double()
+    scaler = torch.zeros_like(part.scale_buffer)
+    plan = pack_level_operations(ops, part.tips, part.nodes, device=dev)
+    partials.update_partials_levels(clv, scaler, pm, *plan,
+                                    C.SCALE_THRESHOLD, C.SCALE_FACTOR)
+    site = (torch.tensor(part.pattern_weights, device=dev),
+            torch.tensor(part.invariant, dtype=torch.long, device=dev))
+    return clv, scaler, pm, model, site
+
+
+def f64_edge(part, ops, branches, params, root):
+    """(logL, d1, d2) across the root edge at its length, and the
+    ancestral probabilities at `root`, through `plain_dense_f64`."""
+    from libpll2_tpu_torch import constants as C
+    from libpll2_tpu_torch.engine import _root_newton
+    from libpll2_tpu_torch.ops import likelihood
+
+    clv, sc, pm, model, site = plain_dense_f64(part, ops, branches, params)
+    rows = (clv[root.clv_index], clv[root.back.clv_index],
+            sc[root.scaler_index], sc[root.back.scaler_index])
+    mat = root.pmatrix_index
+    total, _ = likelihood.edge_loglikelihood(
+        *rows, pm[mat], model[6], model[3], model[5], model[7], *site,
+        C.SCALE_THRESHOLD)
+    d1, d2, _ = _root_newton(rows, branches.to(clv.device, clv.dtype), mat,
+                             *model, *site, C.SCALE_THRESHOLD)
+    anc = likelihood.node_ancestral(rows[0], rows[1], rows[2], rows[3],
+                                    pm[mat], model[6], model[5], model[7],
+                                    C.SCALE_THRESHOLD)
+    return float(total), float(d1), float(d2), anc
+
+
+def check_logl(what, got, ref, d=None, dref=None):
+    """Print and hold one float32 result against its float64 reference."""
+    rel = abs(got - ref) / abs(ref)
+    line = f"  {what}: logL {got!r}, float64 {ref!r} (rel {rel:.2e})"
+    check(math.isfinite(got) and rel < TOL_LOGL,
+          f"{what}: logL rel err {rel:.2e} >= {TOL_LOGL}")
+    if d is not None:
+        errs = [abs(g - w) / max(abs(w), ATOL_D1 / TOL_D1)
+                for g, w in zip(d, dref)]
+        line += (f"; d1 {d[0]!r} / {dref[0]!r}, d2 {d[1]!r} / {dref[1]!r} "
+                 f"(err {max(errs):.2e})")
+        check(max(errs) < TOL_D1, f"{what}: d1/d2 err {max(errs):.2e} >= "
+              f"{TOL_D1}")
+    print(line, flush=True)
+
+
+def dense_main_path(device, label, tree, by_label, sites, make):
+    """Phase 10 for one problem: the step-by-step chain, a partial
+    traversal, TreeEngine(pallas='levels-kernel'), all through the level
+    kernel, each held against the float64 plain path on the card. `make`
+    builds the float32 partition on the card. Returns (level-kernel
+    launches, levels per full traversal, partition, engine, ops)."""
+    import torch
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.ops import fused, levels
+    from libpll2_tpu_torch.trees import create_operations, traverse
+
+    part = make(tree, by_label, sites, device)
+    ops, br, pidx = create_operations(traverse(tree.vroot))
+    r = tree.vroot
+    params = [0] * part.rate_cats
+    edge = (r.clv_index, r.scaler_index, r.back.clv_index,
+            r.back.scaler_index, r.pmatrix_index)
+    blen = torch.zeros(part.prob_matrices, dtype=torch.float64)
+    blen[pidx] = torch.tensor(br, dtype=torch.float64)
+    n_levels = len(levels.schedule_levels(ops, part.tips))
+    print(f"dense {label} path: {part.tips} taxa x {sites} sites, "
+          f"{len(ops)} ops in {n_levels} levels, buffers "
+          f"{part.clv_bytes() / 1e6:.1f} MB", flush=True)
+
+    levels.level_update.launches = 0
+    fused.fused_traversal.launches = 0
+    fused.fused_traversal_rows.launches = 0
+    # the step-by-step chain
+    part.update_prob_matrices(params, pidx, br)
+    part.update_partials(ops)
+    lnl = part.compute_edge_loglikelihood(*edge, params)
+    anc = part.compute_node_ancestral(*edge, params)
+    st = part.update_sumtable(r.clv_index, r.back.clv_index, r.scaler_index,
+                              r.back.scaler_index, params)
+    d = part.compute_likelihood_derivatives(st, params,
+                                            float(blen[r.pmatrix_index]))
+    # a partial traversal after one branch length changes, then the full
+    # list over the same P-matrices: every row must come out equal
+    mat = next(o.child1_matrix_index for o in ops
+               if o.child1_clv_index < part.tips)
+    bad = set()
+    for o in ops:
+        if (mat in (o.child1_matrix_index, o.child2_matrix_index)
+                or o.child1_clv_index in bad or o.child2_clv_index in bad):
+            bad.add(o.parent_clv_index)
+    partial, _, _ = create_operations(traverse(
+        r, cbtrav=lambda n: not n.is_tip() and n.clv_index in bad))
+    blen2 = blen.clone()
+    blen2[mat] *= 3.0
+    part.update_prob_matrices(params, [mat], [float(blen2[mat])])
+    part.update_partials(partial)
+    lnl_partial = part.compute_edge_loglikelihood(*edge, params)
+    clv_partial = part.clv.clone()
+    sc_partial = part.scale_buffer.clone()
+    part.update_partials(ops)
+    lnl_full = part.compute_edge_loglikelihood(*edge, params)
+    partial_equal = (lnl_partial == lnl_full
+                     and torch.equal(clv_partial[:part.nodes],
+                                     part.clv[:part.nodes])
+                     and torch.equal(sc_partial, part.scale_buffer))
+    del clv_partial, sc_partial
+    n_partial = len(levels.schedule_levels(partial, part.tips))
+    # TreeEngine on the levels-kernel path, at the original lengths
+    eng = TreeEngine(part, tree, pallas="levels-kernel")
+    check(eng.execution_path == "levels-kernel",
+          f"execution_path is {eng.execution_path!r}")
+    inputs = [eng.branches.clone()]
+    lnl_eng = eng.loglikelihood()
+    steps = []
+    for _ in range(3):
+        inputs.append(eng.branches.clone())
+        steps.append(eng.newton_step())
+    torch.cuda.synchronize()
+    launches = levels.level_update.launches
+    expected = 6 * n_levels + n_partial
+    print(f"  level-kernel launches: {launches} (2 step-by-step traversals + "
+          f"1 partial of {len(partial)} ops in {n_partial} levels + 4 "
+          f"engine evaluations; expected {expected}); fused kernel "
+          f"launches {fused.fused_traversal.launches} + "
+          f"{fused.fused_traversal_rows.launches}", flush=True)
+    check(launches == expected, f"{launches} level-kernel launches, "
+          f"expected {expected}")
+    check(fused.fused_traversal.launches
+          + fused.fused_traversal_rows.launches == 0,
+          "the dense path launched a fused kernel")
+
+    ref = f64_edge(part, ops, blen, params, r)
+    check_logl("step-by-step edge", lnl, ref[0], d, ref[1:3])
+    anc_err = float(abs(torch.as_tensor(anc) - ref[3].cpu()).max())
+    print(f"  node ancestral: max abs err {anc_err:.2e}", flush=True)
+    check(anc_err < TOL_ANC, f"ancestral err {anc_err:.2e} >= {TOL_ANC}")
+    check(partial_equal, f"partial traversal: logL {lnl_partial!r}, CLV "
+          f"or scaler rows differ from the full one's ({lnl_full!r})")
+    check_logl(f"partial traversal ({len(partial)} of {len(ops)} ops, "
+               f"equal to the full one)", lnl_partial,
+               f64_edge(part, ops, blen2, params, r)[0])
+    for i, (b, (lk, d1, d2)) in enumerate(zip(
+            inputs, [(lnl_eng, None, None)] + steps)):
+        ref = f64_edge(part, ops, b.cpu().double(), params, r)
+        what = "engine loglikelihood()" if i == 0 else f"newton_step {i}"
+        check_logl(what, lk, ref[0], None if d1 is None else (d1, d2),
+                   None if d1 is None else ref[1:3])
+    return launches, n_levels, part, eng, ops
+
+
+def rooted_dna(device, tree, by_label):
+    """compute_root_loglikelihood of the DNA problem rooted on its root
+    edge (root branch length 0), against the float64 plain path. Returns
+    the level-kernel launches."""
+    import torch
+    from libpll2_tpu_torch import constants as C
+    from libpll2_tpu_torch.ops import levels, likelihood
+    from libpll2_tpu_torch.trees import (export_newick, parse_newick_rooted,
+                                         rtree)
+
+    rooted = parse_newick_rooted(export_newick(tree.vroot, rooted=True))
+    part = dna_partition(rooted, by_label, N_SITES, device)
+    ops, br, pidx = rtree.create_operations(rtree.traverse(rooted.root))
+    params = [0] * part.rate_cats
+    levels.level_update.launches = 0
+    part.update_prob_matrices(params, pidx, br)
+    part.update_partials(ops)
+    root = rooted.root
+    lnl = part.compute_root_loglikelihood(root.clv_index, root.scaler_index,
+                                          params)
+    launches = levels.level_update.launches
+    check(launches == len(levels.schedule_levels(ops, part.tips)),
+          f"rooted: {launches} level-kernel launches")
+    blen = torch.zeros(part.prob_matrices, dtype=torch.float64)
+    blen[pidx] = torch.tensor(br, dtype=torch.float64)
+    clv, sc, _, model, site = plain_dense_f64(part, ops, blen, params)
+    ref, _ = likelihood.root_loglikelihood(
+        clv[root.clv_index], sc[root.scaler_index], model[6], model[3],
+        model[5], model[7], *site, C.SCALE_THRESHOLD)
+    check_logl(f"rooted tree ({rooted.tip_count} taxa), "
+               f"compute_root_loglikelihood, {launches} launches", lnl,
+               float(ref))
+    return launches
+
+
+def lg4x_path(device, tree, by_label):
+    """LG4X through update_prob_matrices([0, 1, 2, 3], ...) at the protein
+    problem's size, against the float64 plain path. Returns the
+    level-kernel launches."""
+    import torch
+    from libpll2_tpu_torch.ops import levels
+    from libpll2_tpu_torch.trees import create_operations, traverse
+
+    part = protein_partition(tree, by_label, AA_SITES, device,
+                             mixture="lg4x")
+    ops, br, pidx = create_operations(traverse(tree.vroot))
+    params = [0, 1, 2, 3]
+    r = tree.vroot
+    edge = (r.clv_index, r.scaler_index, r.back.clv_index,
+            r.back.scaler_index, r.pmatrix_index)
+    levels.level_update.launches = 0
+    part.update_prob_matrices(params, pidx, br)
+    part.update_partials(ops)
+    lnl = part.compute_edge_loglikelihood(*edge, params)
+    launches = levels.level_update.launches
+    blen = torch.zeros(part.prob_matrices, dtype=torch.float64)
+    blen[pidx] = torch.tensor(br, dtype=torch.float64)
+    check_logl(f"LG4X mixture, {launches} launches", lnl,
+               f64_edge(part, ops, blen, params, r)[0])
+    check(launches > 0, "LG4X launched no level kernel")
+    return launches
+
+
+def bound_ms(n_bytes: int, flops: int):
+    """(least time in ms at the card's peaks, 'bytes' or 'operations')."""
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def traversal_flops(n_ops: int, sites: int, rates: int, states: int) -> int:
+    """Per op, site and rate: two matrix-vector products (2 s^2 FMAs, 4 s^2
+    FLOP) and their elementwise product (s)."""
+    return n_ops * sites * rates * states * (4 * states + 1)
+
+
+def fused_bound(eng, part):
+    """One fused traversal: tip codes, P and the op table read once, the
+    root edge's two CLVs and counts written once."""
+    n_ops = eng.table.shape[0] - 1
+    S, R, s = part.sites, part.rate_cats, part.states
+    n_bytes = (part.tips * S * 4 + part.prob_matrices * R * s * s * 4
+               + eng.table.numel() * 4 + 2 * R * s * S * 4 + 2 * S * 4)
+    return bound_ms(n_bytes, traversal_flops(n_ops, S, R, s))
+
+
+def level_bound(part, ops):
+    """One traversal through the level kernel: every CLV and scaler row it
+    reads and does not write (the tips) read once, every row it writes
+    written once, P and the level tables read once."""
+    written = {o.parent_clv_index for o in ops}
+    read = {c for o in ops
+            for c in (o.child1_clv_index, o.child2_clv_index)} - written
+    sc_w = {o.parent_scaler_index for o in ops if o.parent_scaler_index >= 0}
+    sc_r = {x for o in ops for x in (o.child1_scaler_index,
+                                     o.child2_scaler_index) if x >= 0} - sc_w
+    S, R, s = part.sites, part.rate_cats, part.states
+    n_bytes = ((len(read) + len(written)) * R * s * S * 4
+               + (len(sc_r) + len(sc_w)) * S * 4
+               + part.prob_matrices * R * s * s * 4 + 9 * len(ops) * 4)
+    return bound_ms(n_bytes, traversal_flops(len(ops), S, R, s))
+
+
+def level_times(label, part, eng, ops, gpu):
+    """Phase 11 for one problem: medians (ms) of the level kernel over one
+    whole traversal (all levels, tables on the card) and of its plain
+    version, of one loglikelihood() on the levels-kernel path, and of one
+    step-by-step traversal (update_partials + compute_edge_loglikelihood)."""
+    from libpll2_tpu_torch.ops import levels
+
+    tables = levels.tables_to_device(levels.pack_pallas_levels(
+        ops, part.tips, part.scale_buffers + 1, part.scale_buffers),
+        part.device)
+    args = (part.clv, part.scale_buffer, part.pmatrix, tables,
+            part.scale_threshold, part.scale_factor)
+    kernel = median_ms(lambda: levels.update_partials_kernel(*args))
+    plain = median_ms(lambda: levels.update_partials_kernel(
+        *args, level=levels.level_update_reference))
+    logl = median_ms(eng.loglikelihood)
+    root = eng.root_idx
+    params = [0] * part.rate_cats
+
+    def step():
+        part.update_partials(ops)
+        part.compute_edge_loglikelihood(*root, params)
+
+    step_ms = median_ms(step)
+    bound, by = level_bound(part, ops)
+    print(f"level times, {label} {part.tips} x {part.sites} (median of "
+          f"{REPS}, CUDA events; {gpu}): kernel over {len(tables)} levels "
+          f"{kernel:.4f} ms ({len(ops) * part.sites / kernel / 1e6:.3f} G "
+          f"CLV site-updates/s; bound {bound:.4f} ms by {by}), plain "
+          f"{plain:.4f} ms; loglikelihood() {logl:.4f} ms; step-by-step "
+          f"traversal {step_ms:.4f} ms", flush=True)
+    return kernel, plain, logl, step_ms
+
+
+def caterpillar_times(device, gpu):
+    """The level kernel's worst case: the 80-taxon caterpillar at the DNA
+    main path's width, 78 ops in 78 levels of one op each. Medians (ms) of
+    one traversal through the kernel and through its plain version."""
+    from libpll2_tpu_torch.ops import levels
+    from libpll2_tpu_torch.trees import parse_newick, random_alignment
+
+    tree = parse_newick(caterpillar_newick(80))
+    headers, seqs = random_alignment(80, N_SITES, seed=3)
+    part = dna_partition(tree, dict(zip(headers, seqs)), N_SITES, device)
+    ops, _, _ = traversal_ops(part, tree)
+    tables = levels.tables_to_device(levels.pack_pallas_levels(
+        ops, part.tips, part.scale_buffers + 1, part.scale_buffers),
+        part.device)
+    args = (part.clv, part.scale_buffer, part.pmatrix, tables,
+            part.scale_threshold, part.scale_factor)
+    kernel = median_ms(lambda: levels.update_partials_kernel(*args))
+    plain = median_ms(lambda: levels.update_partials_kernel(
+        *args, level=levels.level_update_reference))
+    bound, by = level_bound(part, ops)
+    print(f"level times, caterpillar 80 x {N_SITES} ({len(ops)} ops in "
+          f"{len(tables)} levels; {gpu}): kernel {kernel:.4f} ms "
+          f"({len(ops) * N_SITES / kernel / 1e6:.3f} G CLV site-updates/s; "
+          f"bound {bound:.4f} ms by {by}), plain {plain:.4f} ms",
+          flush=True)
 
 
 def median_ms(fn) -> float:
@@ -551,17 +1036,19 @@ def main() -> int:
     # 3. kernel vs plain on the card
     headers, seqs = random_alignment(16, 1000, alphabet="ACGT-NRY", seed=3)
     small = random_utree(headers, seed=3)
-    compare_case("ragged", small, dict(zip(headers, seqs)), 1000, device)
-    compare_case("runtime-size variant, 3 rates", small,
-                 dict(zip(headers, seqs)), 1000, device, rate_cats=3)
+    small_by = dict(zip(headers, seqs))
+    compare_case("ragged", small, small_by, 1000, device)
+    compare_case("runtime-size variant, 3 rates", small, small_by, 1000,
+                 device, rate_cats=3)
     cat = parse_newick(caterpillar_newick(80))
     headers, seqs = random_alignment(80, 1000, seed=3)
-    compare_case("caterpillar", cat, dict(zip(headers, seqs)), 1000, device,
-                 must_scale=True)
-    headers, seqs = random_alignment(N_TAXA, N_SITES, seed=SEED)
-    _, max_abs = compare_case("main-path shape", random_utree(headers,
+    cat_by = dict(zip(headers, seqs))
+    compare_case("caterpillar", cat, cat_by, 1000, device, must_scale=True)
+    headers_big, seqs = random_alignment(N_TAXA, N_SITES, seed=SEED)
+    big_by = dict(zip(headers_big, seqs))
+    _, max_abs = compare_case("main-path shape", random_utree(headers_big,
                                                               seed=SEED),
-                              dict(zip(headers, seqs)), N_SITES, device)
+                              big_by, N_SITES, device)
 
     # 4. main path
     eng, part, launches = main_path(device)
@@ -571,9 +1058,10 @@ def main() -> int:
 
     # 6. rows kernel vs plain on the card
     headers, seqs = random_alignment(16, 1000, alphabet=AA_NOISY, seed=3)
-    by = dict(zip(headers, seqs))
-    compare_rows_case("ragged AA", small, by, 1000, device)
-    compare_rows_case("3 rates", small, by, 1000, device, rate_cats=3)
+    aa_small_by = dict(zip(headers, seqs))
+    compare_rows_case("ragged AA", small, aa_small_by, 1000, device)
+    compare_rows_case("3 rates", small, aa_small_by, 1000, device,
+                      rate_cats=3)
     for states in (16, 32):
         headers, seqs = random_alignment(16, 1000, seed=3,
                                          alphabet=LETTERS32[:states] + "-")
@@ -594,25 +1082,67 @@ def main() -> int:
     # 8. times
     rows_ms = times(aa_eng, aa_part, gpu, AA_TAXA, AA_SITES,
                     modes=("split", "bf16"))
+    bounds = {"fused_traversal": fused_bound(eng, part),
+              "fused_traversal_rows": fused_bound(aa_eng, aa_part)}
+
+    # 9. level kernel vs plain on the card
+    big = random_utree(headers_big, seed=SEED)
+    level_max_abs = level_cases(device, small, small_by, cat, cat_by,
+                                aa_small_by, big, big_by)
+
+    # 10. the dense paths at full width, through the level kernel
+    dna = dense_main_path(device, "DNA", big, big_by, N_SITES,
+                          dna_partition)
+    rooted_launches = rooted_dna(device, big, big_by)
+    prot = dense_main_path(device, "protein", aa_tree, aa_by, AA_SITES,
+                           protein_partition)
+    lg4x_launches = lg4x_path(device, aa_tree, aa_by)
+    level_launches = dna[0] + prot[0]
+    print(f"level-kernel launches on the dense main paths: "
+          f"{level_launches} (DNA {dna[0]}, protein {prot[0]}); rooted "
+          f"DNA {rooted_launches}, LG4X {lg4x_launches}", flush=True)
+
+    # 11. times of the level kernel and the dense paths
+    lv_ms = level_times("DNA", *dna[2:5], gpu)
+    lv_aa_ms = level_times("protein", *prot[2:5], gpu)
+    caterpillar_times(device, gpu)
+    bounds["level_update"] = level_bound(dna[2], dna[4])
+    aa_level_bound = level_bound(prot[2], prot[4])
     if args.profile:
-        profile([("DNA main path", eng), ("protein main path", aa_eng)],
-                args.profile)
+        profile([("DNA main path", eng), ("protein main path", aa_eng),
+                 ("DNA levels-kernel path", dna[3]),
+                 ("protein levels-kernel path", prot[3])], args.profile)
 
     print(gpu, flush=True)
+
+    def bound(name):
+        return {"bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "library_ms": None}
 
     print(json.dumps({"kernels": [{
         "name": "fused_traversal", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal.cu",
         "replaces": "libpll2_tpu/ops/pallas_fused.py:299",
         "launches": launches, "max_abs_err": max_abs,
-        "ms": ms_kernel, "plain_ms": ms_plain}, {
+        "ms": ms_kernel, "plain_ms": ms_plain,
+        **bound("fused_traversal")}, {
         "name": "fused_traversal_rows", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal_rows.cu",
         "replaces": "libpll2_tpu/ops/pallas_fused.py:419",
         "launches": rows_launches, "max_abs_err": rows_max_abs,
         "ms": rows_ms["split"][0], "plain_ms": rows_ms["split"][1],
+        **bound("fused_traversal_rows"),
         "bf16_ms": rows_ms["bf16"][0],
-        "bf16_plain_ms": rows_ms["bf16"][1]}]}), flush=True)
+        "bf16_plain_ms": rows_ms["bf16"][1]}, {
+        "name": "level_update", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/level_update.cu",
+        "replaces": ["libpll2_tpu/ops/pallas_partials.py:48",
+                     "libpll2_tpu/ops/pallas_partials.py:170"],
+        "launches": level_launches, "max_abs_err": level_max_abs,
+        "ms": lv_ms[0], "plain_ms": lv_ms[1], **bound("level_update"),
+        "protein_ms": lv_aa_ms[0], "protein_plain_ms": lv_aa_ms[1],
+        "protein_bound_ms": aa_level_bound[0],
+        "protein_bound_by": aa_level_bound[1]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,1 +1,2 @@
-from . import derivatives, eigen, fused, gamma, likelihood, pmatrix
+from . import (derivatives, eigen, fused, gamma, levels, likelihood,
+               partials, pmatrix)

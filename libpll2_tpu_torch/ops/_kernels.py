@@ -109,6 +109,14 @@ def library() -> ctypes.CDLL:
     lib.pll_fused_traversal_rows.argtypes = (
         lib.pll_fused_traversal.argtypes[:-1] + [_I, _P])   # + bf16 flag
     lib.pll_fused_traversal_rows.restype = _I
+    lib.pll_level_update.argtypes = [
+        _P, _P, _P,        # clv, scaler, pmatrix
+        _P, _I, _I,        # table, its leading dimension, ops
+        _I, _I, _I,        # sites, rates, states
+        _F, _F,            # threshold, factor
+        _P,                # stream
+    ]
+    lib.pll_level_update.restype = _I
     return lib
 
 
@@ -222,3 +230,61 @@ def launch_fused_traversal_rows(tip_codes: torch.Tensor,
         raise RuntimeError(f"fused_traversal_rows kernel launch failed: "
                            f"CUDA error {err}")
     return out_p, out_c, sc_p, sc_c
+
+
+# a level's ops are the launch grid's y dimension
+LEVEL_MAX_OPS = 65535
+
+
+def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
+                        pmatrix: torch.Tensor, table: torch.Tensor,
+                        rates: int, states: int, threshold: float,
+                        factor: float) -> None:
+    """Launch csrc/level_update.cu on the current stream: one level, parent
+    and scaler rows written into `clv2d` and `scaler` in place; see
+    ops/levels.py:level_update for the contract. `table` may be a column
+    slice of a larger [9, n] tensor: its row stride is passed as the
+    kernel's leading dimension."""
+    name = "level_update"
+    dev = clv2d.device
+    _check(dev.type == "cuda", f"expected CUDA tensors, got {dev}", name)
+    for what, t in (("scaler", scaler), ("pmatrix", pmatrix),
+                    ("table", table)):
+        _check(isinstance(t, torch.Tensor) and t.device == dev,
+               f"{what} must be a tensor on {dev}", name)
+    _check(clv2d.dtype == torch.float32 and pmatrix.dtype == torch.float32,
+           f"the kernel takes float32 CLVs and P-matrices, got "
+           f"{clv2d.dtype} and {pmatrix.dtype}", name)
+    _check(scaler.dtype == torch.int32 and table.dtype == torch.int32,
+           "scaler and table must be int32", name)
+    _check(1 <= states <= 32 and rates >= 1,
+           f"rates={rates}, states={states}: needs rates >= 1 and "
+           f"1 <= states <= 32", name)
+    _check(clv2d.dim() == 3 and clv2d.shape[1] == rates * states
+           and clv2d.shape[2] > 0,
+           f"clv shape {tuple(clv2d.shape)} is not [nodes+1, "
+           f"{rates * states}, sites]", name)
+    sites = clv2d.shape[2]
+    _check(scaler.dim() == 2 and scaler.shape[1] == sites,
+           f"scaler shape {tuple(scaler.shape)} is not [K+2, {sites}]", name)
+    _check(pmatrix.dim() == 4 and tuple(pmatrix.shape[1:])
+           == (rates, states, states),
+           f"pmatrix shape {tuple(pmatrix.shape)} is not [E, {rates}, "
+           f"{states}, {states}]", name)
+    _check(table.dim() == 2 and table.shape[0] == 9
+           and 1 <= table.shape[1] <= LEVEL_MAX_OPS and table.stride(1) == 1,
+           f"table shape {tuple(table.shape)} (strides {table.stride()}) is "
+           f"not [9, W] with 1 <= W <= {LEVEL_MAX_OPS} and unit column "
+           f"stride", name)
+    for what, t in (("clv", clv2d), ("scaler", scaler),
+                    ("pmatrix", pmatrix)):
+        _check(t.is_contiguous(), f"{what} must be contiguous", name)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = library().pll_level_update(
+            clv2d.data_ptr(), scaler.data_ptr(), pmatrix.data_ptr(),
+            table.data_ptr(), table.stride(0), table.shape[1], sites, rates,
+            states, float(threshold), float(factor), stream)
+    if err != 0:
+        raise RuntimeError(f"level_update kernel launch failed: CUDA error "
+                           f"{err}")

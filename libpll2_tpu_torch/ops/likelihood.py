@@ -1,8 +1,9 @@
-"""Edge-based log-likelihood evaluation, in PyTorch.
+"""Root- and edge-based log-likelihood evaluation, marginal ancestral states
+and per-site rate posteriors, in PyTorch.
 
 Port of libpll2_tpu/ops/likelihood.py (reference: libpll-2
-src/core_likelihood.c:1192-1497 edge ii; per-rate scaler handling as in
-src/core_likelihood_avx.c:320-523):
+src/core_likelihood.c:25-209 root, :1192-1497 edge ii; per-rate scaler
+handling as in src/core_likelihood_avx.c:320-523):
 
   site_lk = sum_r w_r * [ L_r(site) * (1 - pinv_r) + pinv_r * f_r(inv_state) ]
   logL    = sum_sites weight_s * log(site_lk)  (+ scaler * log(threshold))
@@ -27,7 +28,8 @@ import torch
 from ..constants import (AB_FELSENSTEIN, AB_LEWIS, AB_NONE, AB_STAMATAKIS,
                          SCALE_RATE_MAXDIFF)
 
-__all__ = ["cap_pow", "edge_loglikelihood"]
+__all__ = ["cap_pow", "root_loglikelihood", "edge_loglikelihood",
+           "node_ancestral", "rate_posteriors"]
 
 
 def cap_pow(threshold: float, rel: torch.Tensor,
@@ -132,6 +134,40 @@ def _mix_rates(terma_r, rate_factor, freqs_r, pinv_r, rate_weights,
     return terma, terminv
 
 
+def root_loglikelihood(clv: torch.Tensor,            # [R, s, S]
+                       scaler: torch.Tensor,         # [S] or [R, S] int
+                       freqs: torch.Tensor,          # [M, s]
+                       prop_invar: torch.Tensor,     # [M]
+                       rate_weights: torch.Tensor,   # [R]
+                       params_idx: torch.Tensor,     # [R] int
+                       pattern_weights: torch.Tensor,  # [S]
+                       invariant: torch.Tensor,      # [S] int (-1 variable)
+                       scale_threshold: float,
+                       rate_scalers: bool = False,
+                       has_scaler: bool = True,
+                       asc_type: int = AB_NONE,
+                       n_real: int = -1):
+    """Likelihood at a root CLV (rooted trees); returns (total logL,
+    per-site weighted logL [S])."""
+    dtype = clv.dtype
+    f = freqs[params_idx].to(dtype)                          # [R, s]
+    pinv = prop_invar[params_idx]
+    term_r = torch.einsum('ris,ri->rs', clv, f)
+    if has_scaler:
+        site_sc, rate_factor = _site_scalings(scaler, rate_scalers,
+                                              scale_threshold, dtype)
+    else:
+        site_sc = torch.zeros(clv.shape[-1], dtype=torch.int32,
+                              device=clv.device)
+        rate_factor = None
+    terma, terminv = _mix_rates(term_r, rate_factor, f, pinv, rate_weights,
+                                invariant, dtype)
+    site_lk = _finalize_site_lk(terma, terminv, site_sc, scale_threshold,
+                                dtype)
+    return _apply_asc(site_lk, terma, site_sc, pattern_weights, asc_type,
+                      n_real, clv.shape[1], scale_threshold, dtype)
+
+
 def edge_loglikelihood(clv_parent: torch.Tensor,     # [R, s, S]
                        clv_child: torch.Tensor,      # [R, s, S]
                        pscaler: torch.Tensor,        # [S] or [R, S] int
@@ -177,3 +213,98 @@ def edge_loglikelihood(clv_parent: torch.Tensor,     # [R, s, S]
                                 dtype)
     return _apply_asc(site_lk, terma, site_sc, pattern_weights, asc_type,
                       n_real, clv_parent.shape[1], scale_threshold, dtype)
+
+
+def node_ancestral(clv_node: torch.Tensor,           # [R, s, S]
+                   clv_other: torch.Tensor,          # [R, s, S]
+                   nscaler: torch.Tensor,
+                   oscaler: torch.Tensor,
+                   pmatrix: torch.Tensor,            # [R, s, s]
+                   freqs: torch.Tensor,              # [M, s]
+                   rate_weights: torch.Tensor,       # [R]
+                   params_idx: torch.Tensor,         # [R] int
+                   scale_threshold: float,
+                   rate_scalers: bool = False,
+                   has_nscaler: bool = True,
+                   has_oscaler: bool = True) -> torch.Tensor:
+    """Marginal ancestral state probabilities at a node, viewed across the
+    edge to `other` (reference: likelihood.c:639-757):
+
+        anc[site, i] ~ sum_r w_r * freq[i] * clv_node[r,i,site]
+                                           * (P_r @ clv_other[r,:,site])[i]
+
+    normalized over states per site. Per-site scalers cancel in the
+    normalization; in per-rate mode the relative scaler differences are
+    undone with the likelihood path's capped factors (libpll2_tpu's
+    deliberate divergence from the reference). Returns anc [S, s]."""
+    dtype = clv_node.dtype
+    f = freqs[params_idx].to(dtype)                          # [R, s]
+    combined = clv_node * torch.einsum('rjk,rks->rjs', pmatrix.to(dtype),
+                                       clv_other)
+    if rate_scalers:
+        sc = None
+        if has_nscaler:
+            sc = nscaler
+        if has_oscaler:
+            sc = oscaler if sc is None else sc + oscaler
+        if sc is not None:
+            _, rate_factor = _site_scalings(sc, True, scale_threshold, dtype)
+            combined = combined * rate_factor[:, None, :]
+    anc = torch.einsum('r,rjs,rj->sj', rate_weights.to(dtype), combined, f)
+    return anc / torch.sum(anc, dim=1, keepdim=True)
+
+
+def rate_posteriors(clv_parent, clv_child, pscaler, cscaler,
+                    pmatrix,                 # [R, s, s] root edge
+                    freqs, prop_invar, rates, rate_weights, params_idx,
+                    invariant,               # [S] int (-1 = variable)
+                    scale_threshold: float = 2.0 ** -256,
+                    rate_scalers: bool = False):
+    """Empirical-Bayes per-site posteriors over the R rate categories plus
+    the +I invariant category, across the root edge:
+
+        post[r, s] = w_r (1-pinv) L_r(s) / Z(s)     r < R
+        post[R, s] = pinv f(inv_state_s) / Z(s)     (0 when pinv = 0 or
+                                                     the site varies)
+
+    in log space, so scaler counts mix exactly with the unscaled invariant
+    term. Returns (post [R+1, S], site_rate [S]), site_rate being the
+    posterior mean (the invariant category has rate 0)."""
+    dtype = clv_parent.dtype
+    tiny = torch.finfo(dtype).tiny
+    f = freqs[params_idx].to(dtype)                          # [R, s]
+    pinv = prop_invar[params_idx].to(dtype)                  # [R]
+    termb = torch.einsum('rjk,rks->rjs', pmatrix.to(dtype), clv_child)
+    term_r = torch.einsum('rjs,rj->rs', clv_parent * termb, f)   # [R, S]
+
+    sc = pscaler + cscaler
+    log_t = math.log(scale_threshold)
+    if rate_scalers:
+        site_sc = torch.amin(sc, dim=0)
+        rel = torch.clamp(sc - site_sc[None, :], max=SCALE_RATE_MAXDIFF)
+        log_scale = (site_sc[None, :] + rel).to(dtype) * log_t
+    else:
+        log_scale = sc[None, :].to(dtype) * log_t            # [1, S]
+
+    w = rate_weights[:, None].to(dtype) * (1.0 - pinv)[:, None]
+    log_var = (torch.log(torch.clamp(w, min=tiny))
+               + torch.log(torch.clamp(term_r, min=0.0)) + log_scale)
+
+    inv_ok = invariant >= 0
+    inv_state = torch.clamp(invariant, min=0).long()
+    inv_freq = torch.sum((f * pinv[:, None]
+                          * rate_weights[:, None].to(dtype))[:, inv_state],
+                         dim=0)                              # [S]
+    log_inv = torch.where(inv_ok & (inv_freq > 0),
+                          torch.log(torch.clamp(inv_freq, min=tiny)),
+                          torch.full_like(inv_freq, -math.inf))
+
+    logs = torch.cat([log_var, log_inv[None, :]], dim=0)
+    peak = torch.amax(logs, dim=0, keepdim=True)
+    peak = torch.where(torch.isfinite(peak), peak, torch.zeros_like(peak))
+    expd = torch.exp(logs - peak)
+    post = expd / torch.clamp(torch.sum(expd, dim=0, keepdim=True), min=tiny)
+    cat_rates = torch.cat([rates.to(dtype),
+                           torch.zeros(1, dtype=dtype, device=rates.device)])
+    site_rate = torch.sum(post * cat_rates[:, None], dim=0)
+    return post, site_rate

@@ -1,14 +1,32 @@
-"""Partition: alignment, model and site data of one partition, in PyTorch.
+"""Partition: alignment, model, site data and likelihood buffers of one
+partition, in PyTorch.
 
 Port of libpll2_tpu/partition.py (reference: libpll-2 src/pll.c:424-1206,
-models.c). The fused path reads only the tip state bitmasks and the model,
-so this slice keeps the host mirrors of the JAX partition and no dense CLV
-buffer: the engine turns the mirrors into tensors on `device`, in `dtype`.
+partials.c, likelihood.c, derivatives.c, models.c). As in the JAX package,
+the reference's per-index buffer tables are leading axes of dense tensors on
+`device`, allocated at construction:
 
-`dtype` is explicit and defaults to torch.float32, whose 2**-32 rescaling
-window keeps threshold**2 above float32's smallest normal; torch.float64
-uses the reference's 2**-256 window. float64 runs only on the CPU in this
-slice.
+  * `clv` [nodes+1, rates, states, sites]: tips hold bit-decoded indicator
+    CLVs (ambiguity codes set several states); the last row is scratch;
+  * `scale_buffer` [scale_buffers+2, sites] int32: row K absorbs the counts
+    of ops without a parent scaler (trash), row K+1 stays zero and serves
+    every SCALE_BUFFER_NONE read;
+  * `pmatrix` [prob_matrices, rates, states, states].
+
+The step-by-step API (`update_prob_matrices` -> `update_partials` ->
+`compute_edge_loglikelihood` / `compute_root_loglikelihood` /
+`compute_node_ancestral` -> `update_sumtable` ->
+`compute_likelihood_derivatives`) works on these buffers; `update_partials`
+runs its op list level by level through the level kernel (ops/levels.py).
+The fused path of `TreeEngine` reads only the tip state bitmasks and the
+model, and writes back the root edge's rows. The host mirrors (model,
+pattern weights, tip masks) are numpy, as in the JAX package.
+
+`device` defaults to "cuda" and raises without a CUDA device; the CPU runs
+only when asked for (`device="cpu"`). `dtype` is explicit and defaults to
+torch.float32, whose 2**-32 rescaling window keeps threshold**2 above
+float32's smallest normal; torch.float64 uses the reference's 2**-256
+window and runs only on the CPU (the kernels are float32).
 
 Features outside this slice raise NotImplementedError naming the feature
 (ROADMAP.md lists the module or kernel that lifts each one).
@@ -17,14 +35,22 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from typing import Sequence
+
 import numpy as np
 import torch
 
 from . import constants as C
 from .io import maps as state_maps
+from .ops import derivatives as ops_derivatives
 from .ops import eigen as ops_eigen
+from .ops import levels as ops_levels
+from .ops import likelihood as ops_likelihood
+from .ops import pmatrix as ops_pmatrix
+from .ops.partials import Operations
 
-__all__ = ["Operation", "Partition"]
+__all__ = ["Operation", "Partition", "pack_operations",
+           "pack_level_operations", "resolve_device"]
 
 # both traversal kernels and tip_code_matrix carry tip states as int32 masks
 MAX_STATES = 32
@@ -48,6 +74,59 @@ def not_ported(feature: str) -> NotImplementedError:
         f"{feature} is not ported to libpll2_tpu_torch yet (see ROADMAP.md)")
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device: CUDA raises RuntimeError when no CUDA
+    device is available (no quiet fall back to the CPU), anything but CPU
+    or CUDA raises PllError."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device={device!r} needs a CUDA device, and "
+                               f"none is available (pass device='cpu' to "
+                               f"run on the CPU)")
+    elif dev.type != "cpu":
+        raise C.PllError(C.ERROR_PARAM_INVALID,
+                         f"device must be cpu or cuda, got {device!r}")
+    return dev
+
+
+def _fields(op: Operation):
+    return (op.parent_clv_index, op.parent_scaler_index,
+            op.child1_clv_index, op.child1_matrix_index,
+            op.child1_scaler_index, op.child2_clv_index,
+            op.child2_matrix_index, op.child2_scaler_index)
+
+
+def pack_operations(operations: Sequence[Operation], *,
+                    device) -> Operations:
+    """Host operations as the structure-of-arrays format of
+    ops/partials.py:update_partials (int64 tensors [n] on `device`)."""
+    arr = np.array([_fields(op) for op in operations],
+                   dtype=np.int64).reshape(-1, 8)
+    t = torch.as_tensor(arr.T.copy(), device=device)
+    return Operations(*t)
+
+
+def pack_level_operations(operations: Sequence[Operation], n_tips: int,
+                          scratch_clv: int, *, device):
+    """Group operations into levels (ops/levels.py:schedule_levels) and
+    pad to a rectangle. Returns (Operations of [L, W] tensors, valid [L, W]
+    bool) for `update_partials_levels`: padded slots write the scratch CLV
+    row and no scaler row."""
+    levels = ops_levels.schedule_levels(operations, n_tips)
+    n_levels = len(levels)
+    width = max((len(lv) for lv in levels), default=0)
+    pad = (scratch_clv, -1, 0, 0, -1, 0, 0, -1)
+    arr = np.array([[_fields(op) for op in lv] + [pad] * (width - len(lv))
+                    for lv in levels], dtype=np.int64)
+    arr = arr.reshape(n_levels, width, 8)
+    valid = np.zeros((n_levels, width), dtype=bool)
+    for i, lv in enumerate(levels):
+        valid[i, :len(lv)] = True
+    t = torch.as_tensor(arr.transpose(2, 0, 1).copy(), device=device)
+    return Operations(*t), torch.as_tensor(valid, device=device)
+
+
 class Partition:
     """Likelihood computation state for one alignment partition."""
 
@@ -61,27 +140,19 @@ class Partition:
                  rate_cats: int,
                  scale_buffers: int,
                  *,
-                 device="cpu",
+                 device="cuda",
                  dtype: torch.dtype = torch.float32,
                  rate_scalers: bool = False,
                  asc_bias: C.AscBias = C.AscBias.NONE,
                  site_repeats: bool = False,
                  mesh=None):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if dtype not in (torch.float32, torch.float64):
             raise C.PllError(C.ERROR_PARAM_INVALID,
                              f"dtype must be torch.float32 or torch.float64, "
                              f"got {dtype!r}")
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("Partition(device='cuda') needs a CUDA "
-                                   "device, and none is available")
-            if dtype == torch.float64:
-                raise not_ported("float64 on CUDA (the fused kernel is "
-                                 "float32)")
-        elif self.device.type != "cpu":
-            raise C.PllError(C.ERROR_PARAM_INVALID,
-                             f"device must be cpu or cuda, got {device!r}")
+        if self.device.type == "cuda" and dtype == torch.float64:
+            raise not_ported("float64 on CUDA (the kernels are float32)")
         if rate_scalers:
             raise not_ported("per-rate scalers (rate_scalers=True)")
         if asc_bias != C.AscBias.NONE:
@@ -115,6 +186,15 @@ class Partition:
         self.sites_padded = sites
 
         S, R, s = self.sites_padded, rate_cats, states
+        # +1 scratch CLV row; scalers get +2 rows: row K absorbs writes of
+        # scaler-less ops (trash), row K+1 stays zero and serves every
+        # SCALE_BUFFER_NONE read
+        self.clv = torch.zeros((self.nodes + 1, R, s, S), dtype=dtype,
+                               device=self.device)
+        self.scale_buffer = torch.zeros((scale_buffers + 2, S),
+                                        dtype=torch.int32, device=self.device)
+        self.pmatrix = torch.zeros((prob_matrices, R, s, s), dtype=dtype,
+                                   device=self.device)
         # model parameters (host mirrors; tiny)
         self.frequencies = np.zeros((rate_matrices, s))
         self.subst_params = np.zeros((rate_matrices, s * (s - 1) // 2))
@@ -134,7 +214,7 @@ class Partition:
         self.pattern_weights = pw
         self.invariant = np.full(S, -1, dtype=np.int32)
         self._invariant_valid = False
-        # per-tip state bitmasks: the fused kernel's tip input
+        # per-tip state bitmasks: the fused kernels' tip input
         self.tip_states = np.zeros((tips, S), dtype=np.uint64)
         self._tips_set = np.zeros(tips, dtype=bool)
         self._tips_clv_set = np.zeros(tips, dtype=bool)
@@ -188,13 +268,26 @@ class Partition:
                 f"Illegal state code in tip \"{seqs[ti][si]}\"")
         self._set_tip_masks(tip_indices, masks)
 
-    def _set_tip_masks(self, tip_indices: np.ndarray,
-                       masks: np.ndarray) -> None:
+    def _set_tip_masks(self, tip_indices: np.ndarray, masks: np.ndarray,
+                       chunk: int = 64) -> None:
+        """Install decoded state bitmasks [n, sites] of `tip_indices`: the
+        host mirror, and the tips' dense CLV rows (indicators, the same for
+        every rate), in chunks of `chunk` tips per device copy."""
         self.tip_states[tip_indices, :self.sites] = masks
         self._tips_set[tip_indices] = True
         self._tips_clv_set[tip_indices] = False
         self._tip_version += 1
         self._invariant_valid = False
+        R, s = self.rate_cats, self.states
+        for c0 in range(0, len(tip_indices), chunk):
+            idx = torch.as_tensor(tip_indices[c0:c0 + chunk],
+                                  device=self.device)
+            m = masks[c0:c0 + chunk]
+            ind = state_maps.bits_to_clv(m.reshape(-1), s).reshape(
+                len(m), self.sites, s)
+            rows = torch.as_tensor(ind.transpose(0, 2, 1), dtype=self.dtype)
+            rows = rows.to(self.device)
+            self.clv[idx] = rows[:, None].expand(len(m), R, s, self.sites)
 
     def set_tip_clv(self, tip_index: int, clv, padded: bool = False) -> None:
         raise not_ported("raw tip CLVs (set_tip_clv)")
@@ -272,3 +365,212 @@ class Partition:
         for p in set(int(i) for i in params_indices):
             if not self.eigen_decomp_valid[p]:
                 self.update_eigen(p)
+
+    # ----------------------------------------------------------- to device
+    def _dev(self, a, dtype=None) -> torch.Tensor:
+        """A host array as a tensor on the partition's device (the model
+        mirrors in the partition's dtype)."""
+        return torch.as_tensor(np.asarray(a), dtype=dtype or self.dtype,
+                               device=self.device)
+
+    def _index(self, a, what: str, limit: int, low: int = 0) -> np.ndarray:
+        idx = np.asarray(a, dtype=np.int64).reshape(-1)
+        if idx.size and (idx.min() < low or idx.max() >= limit):
+            raise C.PllError(C.ERROR_PARAM_INVALID,
+                             f"{what} out of range [{low}, {limit})")
+        return idx
+
+    def _check_operations(self, operations: Sequence[Operation]) -> None:
+        """Raise PllError unless every index of every op is in range: the
+        kernels trust them."""
+        f = np.array([_fields(op) for op in operations],
+                     dtype=np.int64).reshape(-1, 8)
+        self._index(f[:, [0, 2, 5]], "CLV index", self.nodes)
+        self._index(f[:, [3, 6]], "matrix index", self.prob_matrices)
+        self._index(f[:, [1, 4, 7]], "scaler index", self.scale_buffers,
+                    low=C.SCALE_BUFFER_NONE)
+
+    # -------------------------------------------------------------- pmatrix
+    def update_prob_matrices(self, params_indices, matrix_indices,
+                             branch_lengths) -> None:
+        """models.c:412-443, batched over all requested edges at once.
+        `params_indices` holds one rate-matrix index per rate category
+        (mixtures such as LG4X use [0, 1, 2, 3])."""
+        pidx = self._index(params_indices, "params index",
+                           self.rate_matrices)
+        if pidx.size != self.rate_cats:
+            raise C.PllError(C.ERROR_PARAM_INVALID,
+                             f"params_indices needs {self.rate_cats} "
+                             f"entries, got {pidx.size}")
+        midx = self._index(matrix_indices, "matrix index",
+                           self.prob_matrices)
+        blen = np.asarray(branch_lengths, dtype=np.float64).reshape(-1)
+        if blen.size != midx.size:
+            raise C.PllError(C.ERROR_PARAM_INVALID,
+                             f"{midx.size} matrix indices but {blen.size} "
+                             f"branch lengths")
+        self._ensure_eigen(pidx)
+        pmat = ops_pmatrix.update_prob_matrices(
+            self._dev(self.eigenvals), self._dev(self.inv_eigenvecs),
+            self._dev(self.eigenvecs), self._dev(self.prop_invar),
+            self._dev(self.rates), self._dev(pidx, torch.long),
+            self._dev(blen))
+        self.pmatrix[self._dev(midx, torch.long)] = pmat
+
+    # -------------------------------------------------------------- partials
+    def update_partials(self, operations: Sequence[Operation]) -> None:
+        """partials.c:237-291. The op list runs level by level
+        (ops/levels.py:schedule_levels: its dependency levels, or one op
+        per level where they would not equal the serial list), each level
+        one launch of the level kernel on CUDA, or its plain version on the
+        CPU; parent rows and scaler rows are written in place."""
+        operations = list(operations)
+        self._check_operations(operations)
+        tables = ops_levels.pack_pallas_levels(
+            operations, self.tips, zero_scaler_row=self.scale_buffers + 1,
+            trash_scaler_row=self.scale_buffers)
+        ops_levels.update_partials_kernel(
+            self.clv, self.scale_buffer, self.pmatrix,
+            ops_levels.tables_to_device(tables, self.device),
+            self.scale_threshold, self.scale_factor)
+
+    # ------------------------------------------------------------ likelihood
+    def _scaler_row(self, index: int):
+        if index == C.SCALE_BUFFER_NONE:
+            # the guaranteed-zero row (never written)
+            return self.scale_buffer[self.scale_buffers + 1], False
+        self._index([index], "scaler index", self.scale_buffers)
+        return self.scale_buffer[index], True
+
+    def _node_view(self, clv_index: int, scaler_index: int):
+        """(clv [R, s, S], scaler [S], has_scaler) of one node."""
+        self._index([clv_index], "CLV index", self.nodes)
+        scaler, has = self._scaler_row(scaler_index)
+        return self.clv[clv_index], scaler, has
+
+    def _site_tensors(self):
+        return (self._dev(self.pattern_weights, torch.long),
+                self._dev(self.invariant, torch.long))
+
+    def _persite(self, total, per, persite: bool):
+        if persite:
+            return float(total), per.cpu().numpy()[:self.sites]
+        return float(total)
+
+    def compute_root_loglikelihood(self, clv_index: int, scaler_index: int,
+                                   freqs_indices, persite: bool = False):
+        """likelihood.c:122-190: the likelihood at a root CLV (rooted
+        trees). Returns logL, or (logL, per-site weighted logL) with
+        `persite`."""
+        clv_node, scaler, has_scaler = self._node_view(clv_index,
+                                                       scaler_index)
+        pidx = self._index(freqs_indices, "params index", self.rate_matrices)
+        total, per = ops_likelihood.root_loglikelihood(
+            clv_node, scaler, self._dev(self.frequencies),
+            self._dev(self.prop_invar), self._dev(self.rate_weights),
+            self._dev(pidx, torch.long), *self._site_tensors(),
+            self.scale_threshold, has_scaler=has_scaler)
+        return self._persite(total, per, persite)
+
+    def compute_edge_loglikelihood(self, parent_clv_index: int,
+                                   parent_scaler_index: int,
+                                   child_clv_index: int,
+                                   child_scaler_index: int,
+                                   matrix_index: int,
+                                   freqs_indices,
+                                   persite: bool = False):
+        """likelihood.c:586-700: the likelihood across the edge (parent,
+        child) with P-matrix `matrix_index`."""
+        pclv, pscaler, has_p = self._node_view(parent_clv_index,
+                                               parent_scaler_index)
+        cclv, cscaler, has_c = self._node_view(child_clv_index,
+                                               child_scaler_index)
+        self._index([matrix_index], "matrix index", self.prob_matrices)
+        pidx = self._index(freqs_indices, "params index", self.rate_matrices)
+        total, per = ops_likelihood.edge_loglikelihood(
+            pclv, cclv, pscaler, cscaler, self.pmatrix[matrix_index],
+            self._dev(self.frequencies), self._dev(self.prop_invar),
+            self._dev(self.rate_weights), self._dev(pidx, torch.long),
+            *self._site_tensors(), self.scale_threshold,
+            has_pscaler=has_p, has_cscaler=has_c)
+        return self._persite(total, per, persite)
+
+    def compute_node_ancestral(self, node_clv_index: int,
+                               node_scaler_index: int,
+                               other_clv_index: int,
+                               other_scaler_index: int,
+                               matrix_index: int,
+                               freqs_indices) -> np.ndarray:
+        """Marginal ancestral state probabilities [sites, states] at `node`,
+        combining its CLV with the neighbour's across the connecting edge
+        (likelihood.c:758-830, pll_compute_node_ancestral)."""
+        nclv, nscaler, has_n = self._node_view(node_clv_index,
+                                               node_scaler_index)
+        oclv, oscaler, has_o = self._node_view(other_clv_index,
+                                               other_scaler_index)
+        self._index([matrix_index], "matrix index", self.prob_matrices)
+        pidx = self._index(freqs_indices, "params index", self.rate_matrices)
+        anc = ops_likelihood.node_ancestral(
+            nclv, oclv, nscaler, oscaler, self.pmatrix[matrix_index],
+            self._dev(self.frequencies), self._dev(self.rate_weights),
+            self._dev(pidx, torch.long), self.scale_threshold,
+            has_nscaler=has_n, has_oscaler=has_o)
+        return anc.cpu().numpy()[:self.sites]
+
+    # ----------------------------------------------------------- derivatives
+    def update_sumtable(self, parent_clv_index: int, child_clv_index: int,
+                        parent_scaler_index: int, child_scaler_index: int,
+                        params_indices) -> torch.Tensor:
+        """derivatives.c:239-330 (phase 1, once per edge): the sumtable
+        [R, s, S] on the partition's device."""
+        pclv, pscaler, has_p = self._node_view(parent_clv_index,
+                                               parent_scaler_index)
+        cclv, cscaler, has_c = self._node_view(child_clv_index,
+                                               child_scaler_index)
+        pidx = self._index(params_indices, "params index",
+                           self.rate_matrices)
+        self._ensure_eigen(pidx)
+        return ops_derivatives.update_sumtable(
+            pclv, cclv, pscaler, cscaler, self._dev(self.inv_eigenvecs),
+            self._dev(self.eigenvecs), self._dev(self.frequencies),
+            self._dev(pidx, torch.long), self.scale_threshold,
+            has_pscaler=has_p, has_cscaler=has_c)
+
+    def compute_likelihood_derivatives(self, sumtable: torch.Tensor,
+                                       params_indices,
+                                       branch_length: float,
+                                       parent_scaler_index: int =
+                                       C.SCALE_BUFFER_NONE,
+                                       child_scaler_index: int =
+                                       C.SCALE_BUFFER_NONE):
+        """derivatives.c:333-416 (phase 2, per candidate length): (d1, d2)
+        of -logL. The scaler indices serve the Lewis/Felsenstein asc
+        corrections in the JAX package; asc bias is not ported, so they are
+        accepted for the same signature and not read."""
+        pidx = self._index(params_indices, "params index",
+                           self.rate_matrices)
+        self._ensure_eigen(pidx)
+        d1, d2 = ops_derivatives.likelihood_derivatives(
+            sumtable, self._dev(self.eigenvals), self._dev(self.prop_invar),
+            self._dev(self.frequencies), self._dev(self.rates),
+            self._dev(self.rate_weights), self._dev(pidx, torch.long),
+            *self._site_tensors(), self._dev(branch_length),
+            scale_threshold=self.scale_threshold)
+        return float(d1), float(d2)
+
+    # ------------------------------------------------------------- debugging
+    def get_clv(self, index: int) -> np.ndarray:
+        """CLV as [sites, rate_cats, states] (reference memory order)."""
+        block = self.clv[index, :, :, :self.sites].cpu().numpy()
+        return np.transpose(block, (2, 0, 1))
+
+    def clv_bytes(self) -> int:
+        """Allocated CLV + scaler bytes."""
+        return (self.clv.numel() * self.clv.element_size()
+                + self.scale_buffer.numel() * self.scale_buffer.element_size())
+
+    def get_pmatrix(self, index: int) -> np.ndarray:
+        return self.pmatrix[index].cpu().numpy()
+
+    def get_scaler(self, index: int) -> np.ndarray:
+        return self.scale_buffer[index, :self.sites].cpu().numpy()

@@ -14,7 +14,7 @@ and buffer indices are interchangeable with the reference:
     entry point, own clv index otherwise).
 
 Carried over from libpll2_tpu/trees/utree.py so that the port imports no
-jax (the parsimony and level-schedule helpers come with their slices).
+jax (the parsimony helpers come with their slice).
 """
 from __future__ import annotations
 
@@ -207,3 +207,23 @@ def create_operations(trav: Sequence[UNode]):
                 child2_scaler_index=c2.scaler_index,
             ))
     return operations, branches, pmatrix_indices
+
+
+def compile_levels(operations: Sequence[Operation],
+                   n_tips: int) -> List[List[Operation]]:
+    """Group operations into dependency levels for batched execution.
+
+    An operation is ready once both children are tips or already-computed
+    parents. Level k holds all operations whose longest dependency chain is
+    k — executing levels in order is equivalent to the serial list."""
+    level_of = {}
+    levels: List[List[Operation]] = []
+    for op in operations:
+        def lvl(idx):
+            return -1 if idx < n_tips else level_of.get(idx, -1)
+        mylevel = 1 + max(lvl(op.child1_clv_index), lvl(op.child2_clv_index))
+        level_of[op.parent_clv_index] = mylevel
+        while len(levels) <= mylevel:
+            levels.append([])
+        levels[mylevel].append(op)
+    return levels

@@ -11,7 +11,9 @@ equal, root CLVs to 1e-5 of each site's largest entry (FMA contraction vs
 PyTorch's summation order). In the rows kernel's 'bf16' mode both versions
 round the same operands to bf16, but a last-bit difference of a float32
 sum can round a value to the other bf16 neighbour, so that mode is held at
-the logL level, to 1e-4 relative."""
+the logL level, to 1e-4 relative. The level kernel (csrc/level_update.cu)
+is held to equal scaler rows and CLV rows to 1e-5 of each site's largest
+entry over a whole traversal, level by level."""
 import numpy as np
 import pytest
 import torch
@@ -20,10 +22,11 @@ from libpll2_tpu_torch import Partition, TreeEngine, compute_gamma_cats
 from libpll2_tpu_torch.engine import _fused_loglikelihood
 from libpll2_tpu_torch.io import maps
 from libpll2_tpu_torch.models import load_aa_model
-from libpll2_tpu_torch.ops import fused
+from libpll2_tpu_torch.ops import fused, levels
 from libpll2_tpu_torch.ops.pmatrix import update_prob_matrices
-from libpll2_tpu_torch.trees import (parse_newick, random_alignment,
-                                     random_utree)
+from libpll2_tpu_torch.trees import (create_operations, parse_newick,
+                                     random_alignment, random_utree,
+                                     traverse)
 
 pytestmark = pytest.mark.gpu
 
@@ -226,3 +229,134 @@ def test_rows_wrapper_rejects_what_it_cannot_take(cuda):
     for name, (args, kwargs) in bad.items():
         with pytest.raises(ValueError):
             fused.fused_traversal_rows(*args, **kwargs)
+
+
+LEVEL_CASES = ["ragged", "rates3", "states20", "states32", "caterpillar",
+               "no_scaler", "partial"]
+
+
+def _level_case(case, device, dtype=torch.float32):
+    """(partition with P-matrices set, the op list to run, the full list
+    that must run first or None) for one level-kernel case."""
+    tree = random_utree([f"t{i}" for i in range(16)], seed=3)
+    kw = dict(dtype=dtype)
+    if case == "caterpillar":
+        tree, kw = _caterpillar(80), dict(kw, alphabet="ACGT")
+    elif case == "rates3":
+        kw["rates"] = 3
+    elif case in ("states20", "states32"):
+        s = int(case[6:])
+        kw.update(states=s, alphabet=AA_NOISY if s == 20
+                  else LETTERS32[:s] + "-")
+    part, _ = _engine(tree, 700 if case == "caterpillar" else 1000, device,
+                      **kw)
+    ops, br, pidx = create_operations(traverse(tree.vroot))
+    part.update_prob_matrices([0] * part.rate_cats, pidx, br)
+    if case == "no_scaler":
+        for op in ops[::3]:
+            op.parent_scaler_index = -1
+    if case == "partial":
+        return part, ops[len(ops) // 2:], ops
+    return part, ops, None
+
+
+def _run_levels(part, ops, level):
+    tables = levels.tables_to_device(levels.pack_pallas_levels(
+        ops, part.tips, part.scale_buffers + 1, part.scale_buffers),
+        part.device)
+    levels.update_partials_kernel(part.clv, part.scale_buffer, part.pmatrix,
+                                  tables, part.scale_threshold,
+                                  part.scale_factor, level=level)
+    return len(tables)
+
+
+@pytest.mark.parametrize("case", LEVEL_CASES)
+def test_level_kernel_matches_plain_on_card(cuda, case):
+    part, ops, first = _level_case(case, cuda)
+    if first is not None:
+        _run_levels(part, first, levels.level_update)
+    clv, sc = part.clv.clone(), part.scale_buffer.clone()
+    before = levels.level_update.launches
+    n = _run_levels(part, ops, levels.level_update)
+    assert levels.level_update.launches == before + n
+    got_clv, got_sc = part.clv.clone(), part.scale_buffer.clone()
+    part.clv.copy_(clv)
+    part.scale_buffer.copy_(sc)
+    _run_levels(part, ops, levels.level_update_reference)
+    torch.cuda.synchronize()
+    k = part.scale_buffers
+    assert torch.equal(got_sc[:k], part.scale_buffer[:k])
+    assert not got_sc[k + 1].any()
+    want = part.clv[:part.nodes]
+    site_max = want.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
+    rel = ((got_clv[:part.nodes] - want).abs() / site_max).max()
+    assert float(rel) <= 1e-5
+    if case == "caterpillar":
+        assert int(part.scale_buffer[:k].max()) > 0
+
+
+@pytest.mark.parametrize("states", [4, 20])
+def test_levels_kernel_engine_on_card_matches_cpu_float64(cuda, states):
+    tree = random_utree([f"t{i}" for i in range(24)], seed=5)
+    kw = dict(states=states, alphabet=AA_NOISY) if states == 20 else {}
+    gpu_part, _ = _engine(tree, 3000, cuda, **kw)
+    cpu_part, _ = _engine(tree, 3000, "cpu", dtype=torch.float64, **kw)
+    gpu = TreeEngine(gpu_part, tree, pallas="levels-kernel")
+    cpu = TreeEngine(cpu_part, tree, pallas="levels-kernel")
+    assert gpu.execution_path == "levels-kernel"
+    before = levels.level_update.launches
+    got, want = gpu.loglikelihood(), cpu.loglikelihood()
+    assert levels.level_update.launches == before + len(gpu._ops)
+    assert abs(got - want) / abs(want) < 5e-5
+    for _ in range(3):
+        (gl, g1, g2), (wl, w1, w2) = gpu.newton_step(), cpu.newton_step()
+        assert abs(gl - wl) / abs(wl) < 5e-5
+        for g, w in ((g1, w1), (g2, w2)):
+            assert abs(g - w) / max(abs(w), 10.0) < 5e-3
+
+
+def test_step_by_step_api_on_card_matches_cpu_float64(cuda):
+    tree = random_utree([f"t{i}" for i in range(24)], seed=5)
+    r = tree.vroot
+    edge = (r.clv_index, r.scaler_index, r.back.clv_index,
+            r.back.scaler_index, r.pmatrix_index, [0] * 4)
+    out = []
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        part, _ = _engine(tree, 3000, device, dtype=dtype)
+        ops, br, pidx = create_operations(traverse(tree.vroot))
+        part.update_prob_matrices([0] * 4, pidx, br)
+        before = levels.level_update.launches
+        part.update_partials(ops)
+        if device == cuda:
+            assert levels.level_update.launches > before
+        st = part.update_sumtable(*edge[:1], edge[2], edge[1], edge[3],
+                                  edge[5])
+        out.append((part.compute_edge_loglikelihood(*edge),
+                    part.compute_likelihood_derivatives(st, [0] * 4, 0.1)))
+    (gl, (g1, g2)), (wl, (w1, w2)) = out
+    assert abs(gl - wl) / abs(wl) < 5e-5
+    for g, w in ((g1, w1), (g2, w2)):
+        assert abs(g - w) / max(abs(w), 10.0) < 5e-3
+
+
+def test_level_wrapper_rejects_what_it_cannot_take(cuda):
+    part, ops, _ = _level_case("ragged", cuda)
+    table = levels.tables_to_device(levels.pack_pallas_levels(
+        ops, part.tips, part.scale_buffers + 1, part.scale_buffers),
+        cuda)[0]
+    n = part.clv.shape[0]
+    clv2d = part.clv.view(n, -1, part.sites)
+    args = (clv2d, part.scale_buffer, part.pmatrix, table)
+    kw = dict(rates=4, states=4, threshold=part.scale_threshold,
+              factor=part.scale_factor)
+    bad = {
+        "float64": ((clv2d.double(),) + args[1:], kw),
+        "non-contiguous P": (args[:2] + (part.pmatrix.transpose(2, 3),)
+                             + args[3:], kw),
+        "host table": (args[:3] + (table.cpu(),), kw),
+        "int64 table": (args[:3] + (table.long(),), kw),
+        "33 states": (args, dict(kw, states=33)),
+    }
+    for name, (a, k) in bad.items():
+        with pytest.raises(ValueError):
+            levels.level_update(*a, **k)

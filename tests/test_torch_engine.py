@@ -26,7 +26,7 @@ from libpll2_tpu.trees import random_alignment, random_utree
 import libpll2_tpu_torch as tp
 from libpll2_tpu_torch import convert
 from libpll2_tpu_torch.io import maps as tmaps
-from libpll2_tpu_torch.trees import UTree, create_operations, traverse
+from libpll2_tpu_torch.trees import UTree
 from libpll2_tpu_torch.trees import random_utree as t_random_utree
 
 N_TAXA, SITES, SEED = 24, 1000, 7
@@ -72,7 +72,8 @@ def _d_err(got, want):
 def test_engine_f64_matches_jax_xla(pinv):
     jp, tree = _jax_partition(jnp.float64, pinv)
     je = JTreeEngine(jp, tree, pallas=False)
-    part = convert.partition_from_numpy(_state(jp), dtype=torch.float64)
+    part = convert.partition_from_numpy(_state(jp), device="cpu",
+                                        dtype=torch.float64)
     te = tp.TreeEngine(part, tree)
     assert te.execution_path == "fused"
     np.testing.assert_allclose(te.loglikelihood(), je.loglikelihood(),
@@ -92,7 +93,7 @@ def test_engine_f64_matches_jax_xla(pinv):
                                    float(je.branches[root_mat]), rtol=1e-10)
     # the JAX engine's branch vector carried across gives the same logL
     b = convert.engine_branches_from_numpy(np.asarray(je.branches),
-                                           dtype=torch.float64)
+                                           device="cpu", dtype=torch.float64)
     np.testing.assert_allclose(te.loglikelihood(branches=b),
                                je.loglikelihood(), rtol=1e-12)
 
@@ -101,7 +102,8 @@ def test_engine_f32_matches_jax_pallas_interpret():
     jp, tree = _jax_partition(jnp.float32)
     je = JTreeEngine(jp, tree, pallas="interpret")
     assert je.execution_path == "fused"
-    part = convert.partition_from_numpy(_state(jp), dtype=torch.float32)
+    part = convert.partition_from_numpy(_state(jp), device="cpu",
+                                        dtype=torch.float32)
     te = tp.TreeEngine(part, tree)
     got, want = te.loglikelihood(), je.loglikelihood()
     assert abs(got - want) / abs(want) < TOL_LOGL
@@ -115,7 +117,8 @@ def test_engine_set_topology_reroots_to_same_logl():
     """Rerooting at another inner node keeps the logL (reversible model)
     and exercises set_topology's repack."""
     jp, tree = _jax_partition(jnp.float64)
-    part = convert.partition_from_numpy(_state(jp), dtype=torch.float64)
+    part = convert.partition_from_numpy(_state(jp), device="cpu",
+                                        dtype=torch.float64)
     te = tp.TreeEngine(part, tree)
     want = te.loglikelihood()
     inner = [n for n in tree.nodes() if not n.is_tip()]
@@ -134,7 +137,7 @@ def test_partition_setters_match_jax_mirrors():
     headers, seqs = _alignment()
     part = tp.Partition(tree.tip_count, tree.inner_count, 4, SITES, 1,
                         tree.edge_count, 4, tree.inner_count,
-                        dtype=torch.float64)
+                        device="cpu", dtype=torch.float64)
     by = dict(zip(headers, seqs))
     tips = tree.tips()
     part.set_tip_states_batch(tmaps.map_nt, [by[t.label] for t in tips],
@@ -154,7 +157,7 @@ def test_partition_setters_match_jax_mirrors():
 
 def test_engine_rejects_branch_vector_of_wrong_size():
     jp, tree = _jax_partition(jnp.float64)
-    te = tp.TreeEngine(convert.partition_from_numpy(_state(jp),
+    te = tp.TreeEngine(convert.partition_from_numpy(_state(jp), device="cpu",
                                                     dtype=torch.float64),
                        tree)
     with pytest.raises(tp.PllError, match="branches"):
@@ -169,28 +172,18 @@ def test_partition_cuda_raises_without_cuda():
 
 
 def test_partition_dtype_is_explicit():
-    part = tp.Partition(4, 2, 4, 10, 1, 5, 4, 2)
+    part = tp.Partition(4, 2, 4, 10, 1, 5, 4, 2, device="cpu")
     assert part.dtype == torch.float32
     assert part.scale_threshold == tp.constants.SCALE_THRESHOLD_F32
     with pytest.raises(tp.PllError):
-        tp.Partition(4, 2, 4, 10, 1, 5, 4, 2, dtype=np.float64)
+        tp.Partition(4, 2, 4, 10, 1, 5, 4, 2, device="cpu", dtype=np.float64)
 
 
 def _small_engine(**engine_kw):
     tree = t_random_utree([f"t{i}" for i in range(5)], seed=1)
     part = tp.Partition(tree.tip_count, tree.inner_count, 4, 8, 1,
-                        tree.edge_count, 4, tree.inner_count)
+                        tree.edge_count, 4, tree.inner_count, device="cpu")
     return tp.TreeEngine(part, tree, **engine_kw)
-
-
-def _partial_traversal():
-    tree = t_random_utree([f"t{i}" for i in range(5)], seed=1)
-    part = tp.Partition(tree.tip_count, tree.inner_count, 4, 8, 1,
-                        tree.edge_count, 4, tree.inner_count)
-    ops, branches, pidx = create_operations(traverse(tree.vroot))
-    ops[0].parent_scaler_index = -1
-    tp.TreeEngine(part, operations=ops, branches=branches,
-                  pmatrix_indices=pidx, root=tree.vroot)
 
 
 def _fp64_on_cuda(monkeypatch):
@@ -204,22 +197,25 @@ def _converted_tip_clv():
     state = _state(jp)
     state["_tips_clv_set"] = state["_tips_clv_set"].copy()
     state["_tips_clv_set"][0] = True
-    convert.partition_from_numpy(state, dtype=torch.float64)
+    convert.partition_from_numpy(state, device="cpu", dtype=torch.float64)
 
 
 SIZES = (4, 2, 4, 10, 1, 5, 4, 2)
+CPU = {"device": "cpu"}
 OUT_OF_SLICE = {
-    "rate_scalers": lambda mp: tp.Partition(*SIZES, rate_scalers=True),
-    "asc_bias": lambda mp: tp.Partition(*SIZES,
+    "rate_scalers": lambda mp: tp.Partition(*SIZES, **CPU,
+                                                rate_scalers=True),
+    "asc_bias": lambda mp: tp.Partition(*SIZES, **CPU,
                                         asc_bias=tp.AscBias.LEWIS),
-    "site_repeats": lambda mp: tp.Partition(*SIZES, site_repeats=True),
-    "mesh": lambda mp: tp.Partition(*SIZES, mesh=object()),
-    "states_33": lambda mp: tp.Partition(4, 2, 33, 10, 1, 5, 4, 2),
+    "site_repeats": lambda mp: tp.Partition(*SIZES, **CPU,
+                                                site_repeats=True),
+    "mesh": lambda mp: tp.Partition(*SIZES, **CPU, mesh=object()),
+    "states_33": lambda mp: tp.Partition(4, 2, 33, 10, 1, 5, 4, 2, **CPU),
     "fp64_cuda": _fp64_on_cuda,
-    "set_tip_clv": lambda mp: tp.Partition(*SIZES).set_tip_clv(
+    "set_tip_clv": lambda mp: tp.Partition(*SIZES, **CPU).set_tip_clv(
         0, np.full((10, 4), 0.25)),
     "edge_params": lambda mp: _small_engine(edge_params=np.zeros(7, int)),
-    "partial_traversal": lambda mp: _partial_traversal(),
+    "pallas_pool": lambda mp: _small_engine(pallas="pool"),
     "convert_tip_clv": lambda mp: _converted_tip_clv(),
 }
 

@@ -121,7 +121,7 @@ def test_tip_code_matrix_identical():
     args = (tree.tip_count, tree.inner_count, 4, 150, 1, tree.edge_count, 4,
             tree.inner_count)
     jp = JPartition(*args, dtype=jnp.float32)
-    tp = TPartition(*args, dtype=torch.float32)
+    tp = TPartition(*args, device="cpu", dtype=torch.float32)
     by = dict(zip(headers, seqs))
     for tip in tree.tips():
         jp.set_tip_states(tip.clv_index, jmaps.map_nt, by[tip.label])
@@ -163,7 +163,8 @@ def test_update_eigen_matches(seed, states):
 def test_import_leaves_no_jax():
     code = ("import sys, libpll2_tpu_torch, libpll2_tpu_torch.convert, "
             "libpll2_tpu_torch.ops._kernels, libpll2_tpu_torch.models, "
-            "libpll2_tpu_torch.utils; "
+            "libpll2_tpu_torch.utils, libpll2_tpu_torch.ops.levels, "
+            "libpll2_tpu_torch.ops.partials; "
             "bad = [m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.')]; "
             "assert not bad, bad")

@@ -115,14 +115,15 @@ def test_unknown_models_raise():
 @pytest.mark.parametrize("name", jmodels.MIXTURE_MODEL_NAMES)
 def test_load_mixture_model_installs_like_jax(name):
     args = (4, 2, 20, 10, 4, 5, 4, 2)
-    jp, part = JPartition(*args, dtype=jnp.float64), tp.Partition(*args)
+    jp = JPartition(*args, dtype=jnp.float64)
+    part = tp.Partition(*args, device="cpu")
     jmodels.load_mixture_model(jp, name)
     tmodels.load_mixture_model(part, name)
     for key in ("subst_params", "frequencies"):
         np.testing.assert_array_equal(getattr(part, key), getattr(jp, key))
     with pytest.raises(ValueError):
-        tmodels.load_mixture_model(tp.Partition(4, 2, 20, 10, 1, 5, 4, 2),
-                                   name)
+        tmodels.load_mixture_model(
+            tp.Partition(4, 2, 20, 10, 1, 5, 4, 2, device="cpu"), name)
 
 
 @pytest.mark.parametrize("states,seed", [(4, 3), (20, 11)])
@@ -151,7 +152,8 @@ def _aa_partitions(sites=120, seed=2):
     tree = random_utree(labels, seed=seed)
     args = (tree.tip_count, tree.inner_count, 20, sites, 1, tree.edge_count,
             4, tree.inner_count)
-    jp, part = JPartition(*args, dtype=jnp.float32), tp.Partition(*args)
+    jp = JPartition(*args, dtype=jnp.float32)
+    part = tp.Partition(*args, device="cpu")
     for i, s in enumerate(seqs):
         jp.set_tip_states(i, jmaps.map_aa, s)
         part.set_tip_states(i, tmaps.map_aa, s)
@@ -199,7 +201,7 @@ def _traversal_problem(tree, sites, states=20, seed=SEED):
     seqs = ["".join(c if rng.random() > 0.05 else rng.choice(list(noise))
                     for c in s) for s in seqs]
     part = tp.Partition(tree.tip_count, tree.inner_count, states, sites, 1,
-                        tree.edge_count, 4, tree.inner_count)
+                        tree.edge_count, 4, tree.inner_count, device="cpu")
     by = dict(zip(headers, seqs))
     for tip in tree.tips():
         part.set_tip_states(tip.clv_index, cm, by[tip.label])
@@ -323,7 +325,8 @@ def _port_partition(dtype, pinv=0.0):
     as tests/test_torch_engine.py does)."""
     tree, headers, seqs = _alignment()
     part = tp.Partition(tree.tip_count, tree.inner_count, 20, SITES, 1,
-                        tree.edge_count, 4, tree.inner_count, dtype=dtype)
+                        tree.edge_count, 4, tree.inner_count, device="cpu",
+                        dtype=dtype)
     by = dict(zip(headers, seqs))
     tips = tree.tips()
     part.set_tip_states_batch(tmaps.map_aa, [by[t.label] for t in tips],
@@ -341,7 +344,8 @@ def _port_partition(dtype, pinv=0.0):
 def test_engine_f64_matches_jax_xla(pinv):
     jp, tree = _jax_partition(jnp.float64, pinv)
     je = JTreeEngine(jp, tree, pallas=False)
-    part = convert.partition_from_numpy(_state(jp), dtype=torch.float64)
+    part = convert.partition_from_numpy(_state(jp), device="cpu",
+                                        dtype=torch.float64)
     te = tp.TreeEngine(part, tree)
     np.testing.assert_allclose(te.loglikelihood(), je.loglikelihood(),
                                rtol=1e-12)
@@ -370,7 +374,8 @@ def test_port_setters_and_models_match_jax_partition():
 
 def test_convert_carries_20_state_partition():
     jp, tree = _jax_partition(jnp.float32, pinv=0.1)
-    part = convert.partition_from_numpy(_state(jp), dtype=torch.float32)
+    part = convert.partition_from_numpy(_state(jp), device="cpu",
+                                        dtype=torch.float32)
     assert (part.states, part.sites, part.rate_cats) == (20, SITES, 4)
     for key in convert.MIRROR_KEYS:
         np.testing.assert_array_equal(getattr(part, key), getattr(jp, key))
@@ -382,7 +387,8 @@ def test_engine_f32_matches_jax_pallas_interpret(mode):
     jp, tree = _jax_partition(jnp.float32)
     je = JTreeEngine(jp, tree, pallas="interpret", mxu=mode)
     assert je.execution_path == "fused"
-    part = convert.partition_from_numpy(_state(jp), dtype=torch.float32)
+    part = convert.partition_from_numpy(_state(jp), device="cpu",
+                                        dtype=torch.float32)
     te = tp.TreeEngine(part, tree, mxu=mode)
     assert te.mxu == mode and te.execution_path == "fused"
     got, want = te.loglikelihood(), je.loglikelihood()
@@ -434,8 +440,8 @@ def test_mxu_validation():
 
 @pytest.mark.parametrize("states", [16, 32])
 def test_partition_takes_16_to_32_states(states):
-    part = tp.Partition(4, 2, states, 10, 1, 5, 4, 2)
+    part = tp.Partition(4, 2, states, 10, 1, 5, 4, 2, device="cpu")
     assert part.states == states
     with pytest.raises(NotImplementedError, match="32-bit"):
-        tp.Partition(4, 2, states + 17, 10, 1, 5, 4, 2)
+        tp.Partition(4, 2, states + 17, 10, 1, 5, 4, 2, device="cpu")
 
