@@ -59,7 +59,34 @@ each fatal on failure:
      one loglikelihood() on the levels-kernel path and one step-by-step
      traversal, at both sizes; and of the level kernel and its plain
      version over the 80-taxon caterpillar (78 levels of one op each) at
-     16384 sites.
+     16384 sites;
+ 12. pool kernel vs plain: ops/pool.py:pool_update (csrc/pool_update.cu)
+     against pool_update_reference over whole op lists on site-repeats
+     partitions, float32, from the same buffers: 24 x 600 DNA, the
+     150-taxon caterpillar x 300 (scaling must trigger), 3 categories, 20
+     conserved states, a partial op list, ops without a scaler buffer,
+     bench.py's 128 x 16384 random columns (repeats off at most inner
+     nodes: identity ops at full width), the 246 x 4465 conserved problem
+     and the 128 x 8192 conserved protein; scaler regions equal and class
+     columns within TOL_CLV of each column's max;
+ 13. the site-repeats paths at full width: tools/benchmarks.py:221-254's
+     246 taxa x 4465 conserved sites, GTR+G4, through the step-by-step
+     chain on Partition(site_repeats=True, device="cuda"), a partial
+     traversal (equal to the full one), TreeEngine(pallas="pool") with
+     loglikelihood() and three newton_step()s, the default TreeEngine
+     ('repeats-dense-fused': fused-kernel launches counted, and the kernel
+     held against its plain version at this shape) and edge_params with
+     two rate matrices; and the conserved 128 x 8192 LG+G4 protein on
+     'pool-pallas'; each against the float64 plain dense path on the card,
+     pool-kernel launches counted (one per level of each traversal), with
+     the class columns' share of plain work, the pooled buffers' size
+     against the dense ones and the host schedule time;
+ 14. times at 246 x 4465: the pool kernel over one traversal and its plain
+     version (and its bound from the class counts), the fused kernel and
+     its plain version on the 'repeats-dense-fused' inputs,
+     loglikelihood() on 'pool-pallas', 'repeats-dense-fused' and a dense
+     partition's fused path, one step-by-step traversal; and torch.matmul
+     of tools/mxu_probe.py's [80, 80] @ [80, 512] in float32 and bf16.
 
 The last three lines are the card's name and power limit, one JSON object
 listing every kernel (with its bound at the card's peaks), and {"ok": true,
@@ -181,14 +208,21 @@ def compare_case(name, tree, by_label, sites, device, rate_cats=4,
                  must_scale=False):
     """Kernel vs plain traversal on one problem; returns (max relative
     error, max absolute error)."""
+    part, eng = build_engine(tree, by_label, sites, device, rate_cats)
+    return compare_traversal(name, part, eng, must_scale)
+
+
+def compare_traversal(name, part, eng, must_scale=False):
+    """Kernel vs plain traversal on the inputs a fused engine hands the
+    kernel; returns (max relative error, max absolute error)."""
     import torch
     from libpll2_tpu_torch.ops.fused import (fused_traversal,
                                              fused_traversal_reference)
 
-    part, eng = build_engine(tree, by_label, sites, device, rate_cats)
     codes, pm, table = traversal_inputs(eng)
-    kw = dict(rates=rate_cats, states=4, n_slots=eng.fused_slots,
-              threshold=part.scale_threshold, factor=part.scale_factor)
+    kw = dict(rates=part.rate_cats, states=part.states,
+              n_slots=eng.fused_slots, threshold=part.scale_threshold,
+              factor=part.scale_factor)
     got = fused_traversal(codes, pm, table, **kw)
     want = fused_traversal_reference(codes, pm, table, **kw)
     torch.cuda.synchronize()
@@ -203,10 +237,10 @@ def compare_case(name, tree, by_label, sites, device, rate_cats=4,
         rel = max(rel, float(((g - w).abs() / site_max).max()))
         abs_err = max(abs_err, float((g - w).abs().max()))
     scaled = int(max(want[2].max(), want[3].max()))
-    print(f"kernel vs plain [{name}]: {tree.tip_count} taxa x {sites} sites,"
-          f" {rate_cats} rates, {eng.fused_slots} slots: scaler counts "
-          f"equal (max {scaled}), max_rel_err {rel:.3e}, max_abs_err "
-          f"{abs_err:.3e}", flush=True)
+    print(f"kernel vs plain [{name}]: {part.tips} taxa x {part.sites} sites,"
+          f" {part.rate_cats} rates, {len(table) - 1} ops, "
+          f"{eng.fused_slots} slots: scaler counts equal (max {scaled}), "
+          f"max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}", flush=True)
     check(rel <= TOL_CLV, f"{name}: max_rel_err {rel:.3e} > {TOL_CLV}")
     if must_scale:
         check(scaled > 0, f"{name}: scaling never triggered")
@@ -584,10 +618,11 @@ def level_cases(device, small, small_by, cat, cat_by, aa_by, big, big_by):
     return max_abs
 
 
-def plain_dense_f64(part, ops, branches, params):
+def plain_dense_f64(part, ops, branches, params, edge_params=None):
     """`ops` through the plain level-batched path (ops/partials.py) in
     float64 on the card, from `part`'s tips and model, with P-matrices
-    from `branches` (pmatrix order). Returns (clv, scaler, P, model tensors
+    from `branches` (pmatrix order; per edge with `edge_params`, the rate
+    matrix of every P-matrix slot). Returns (clv, scaler, P, model tensors
     in the engine's order, pattern weights, invariant)."""
     import torch
     from libpll2_tpu_torch import constants as C
@@ -600,8 +635,18 @@ def plain_dense_f64(part, ops, branches, params):
         part.eigenvals, part.inv_eigenvecs, part.eigenvecs, part.prop_invar,
         part.rates, part.rate_weights, part.frequencies)) + (
         torch.tensor(params, device=dev),)
-    pm = pmatrix.update_prob_matrices(*model[:5], model[7],
-                                      branches.to(dev, f64))
+    if edge_params is None:
+        pm = pmatrix.update_prob_matrices(*model[:5], model[7],
+                                          branches.to(dev, f64))
+    else:
+        part._ensure_eigen(edge_params)
+        model = tuple(torch.tensor(a, dtype=f64, device=dev) for a in (
+            part.eigenvals, part.inv_eigenvecs, part.eigenvecs,
+            part.prop_invar)) + model[4:]
+        ep = torch.tensor(edge_params, device=dev)[:, None].expand(
+            -1, part.rate_cats)
+        pm = pmatrix.update_prob_matrices_per_edge(
+            *model[:5], ep, branches.to(dev, f64))
     clv = part.clv.double()
     scaler = torch.zeros_like(part.scale_buffer)
     plan = pack_level_operations(ops, part.tips, part.nodes, device=dev)
@@ -612,14 +657,15 @@ def plain_dense_f64(part, ops, branches, params):
     return clv, scaler, pm, model, site
 
 
-def f64_edge(part, ops, branches, params, root):
+def f64_edge(part, ops, branches, params, root, edge_params=None):
     """(logL, d1, d2) across the root edge at its length, and the
     ancestral probabilities at `root`, through `plain_dense_f64`."""
     from libpll2_tpu_torch import constants as C
     from libpll2_tpu_torch.engine import _root_newton
     from libpll2_tpu_torch.ops import likelihood
 
-    clv, sc, pm, model, site = plain_dense_f64(part, ops, branches, params)
+    clv, sc, pm, model, site = plain_dense_f64(part, ops, branches, params,
+                                               edge_params)
     rows = (clv[root.clv_index], clv[root.back.clv_index],
             sc[root.scaler_index], sc[root.back.scaler_index])
     mat = root.pmatrix_index
@@ -818,6 +864,529 @@ def lg4x_path(device, tree, by_label):
     return launches
 
 
+# ----------------------------------------------------------- site repeats
+REP_TAXA, REP_SITES, REP_SEED = 246, 4465, 13    # tools/benchmarks.py:221-254
+SUBST_24 = [1.2, 3.0, 0.8, 1.1, 2.6, 1.0]        # tests/test_pallas_repeats.py
+FREQS_24 = [0.3, 0.25, 0.2, 0.25]
+
+
+def conserve(tree, scale, floor, clamp=False):
+    """Shorten every branch to scale * len + floor (max(scale * len, floor)
+    with `clamp`), so that the data is conserved and the class tables
+    compress."""
+    seen = set()
+    for nd in tree.nodes():
+        for h in ([nd] if nd.is_tip() else list(nd.ring())):
+            if h.back is not None and id(h) not in seen:
+                seen.update((id(h), id(h.back)))
+                h.length = h.back.length = (
+                    max(h.length * scale, floor) if clamp
+                    else h.length * scale + floor)
+    return tree
+
+
+def simulated(tree, sites, seed, states=4, freqs=None, subst=None,
+              alpha=0.8):
+    """{label: sequence} simulated on `tree` (utils.simulate_alignment);
+    20 states with equal rates and frequencies."""
+    from libpll2_tpu_torch.utils import simulate_alignment
+
+    if states == 20:
+        freqs, subst = [1 / 20] * 20, [1.0] * 190
+    headers, seqs = simulate_alignment(tree, sites, freqs, subst,
+                                       alpha=alpha, seed=seed)
+    return dict(zip(headers, seqs))
+
+
+def repeats_partition(tree, by_label, sites, device, states=4, rate_cats=4,
+                      repeats=True, model=(FREQS_24, SUBST_24), alpha=0.8,
+                      rate_matrices=1):
+    """A float32 partition on `device` with site repeats (or dense, for the
+    references), tips installed in one batch; 20 states under LG, DNA under
+    `model` (a second matrix from SEED with `rate_matrices` 2)."""
+    import numpy as np
+    import torch
+    from libpll2_tpu_torch import Partition, compute_gamma_cats
+    from libpll2_tpu_torch.io import maps
+    from libpll2_tpu_torch.models import load_aa_model
+
+    part = Partition(tree.tip_count, tree.inner_count, states, sites,
+                     rate_matrices, tree.edge_count, rate_cats,
+                     tree.inner_count, device=device, dtype=torch.float32,
+                     site_repeats=repeats)
+    tips = list(tree.tips())
+    part.set_tip_states_batch(maps.map_aa if states == 20 else maps.map_nt,
+                              [by_label[t.label] for t in tips],
+                              [t.clv_index for t in tips])
+    if states == 20:
+        load_aa_model(part, "lg")
+    else:
+        part.set_frequencies(0, model[0])
+        part.set_subst_params(0, model[1])
+        if rate_matrices == 2:
+            rng = np.random.default_rng(SEED)
+            part.set_frequencies(1, rng.dirichlet(np.ones(4) * 10))
+            part.set_subst_params(1, rng.uniform(0.5, 2.0, size=6))
+    part.set_category_rates(compute_gamma_cats(alpha, rate_cats))
+    return part
+
+
+def flagship_repeats():
+    """tools/benchmarks.py:221-254: 246 taxa x 4465 sites, GTR (1,2,1,1,2,1)
+    with equal frequencies, Gamma(0.7) x 4, seed 13, on a random tree whose
+    branches are shortened to 0.15 len + 0.001. Returns (tree, by_label,
+    partition maker)."""
+    from libpll2_tpu_torch.trees import random_utree
+
+    tree = conserve(random_utree([f"t{i}" for i in range(REP_TAXA)],
+                                 seed=REP_SEED), 0.15, 0.001)
+    model = ([0.25] * 4, [1, 2, 1, 1, 2, 1.0])
+    by = simulated(tree, REP_SITES, REP_SEED, freqs=model[0],
+                   subst=model[1], alpha=0.7)
+
+    def make(device, repeats=True, rate_matrices=1):
+        return repeats_partition(tree, by, REP_SITES, device,
+                                 repeats=repeats, model=model, alpha=0.7,
+                                 rate_matrices=rate_matrices)
+    return tree, by, make
+
+
+def conserved_protein(aa_tree, aa_by):
+    """tools/benchmarks.py:38-66 with conserved=True at 128 x 8192: the
+    protein problem's columns drawn with repetition from its first quarter
+    (seed 11 + 100). Returns (by_label, partition maker)."""
+    import numpy as np
+
+    rng = np.random.default_rng(AA_SEED + 100)
+    src = rng.integers(0, AA_SITES // 4, size=AA_SITES)
+    by = {k: "".join(np.asarray(list(v))[src]) for k, v in aa_by.items()}
+
+    def make(device, repeats=True):
+        return repeats_partition(aa_tree, by, AA_SITES, device, states=20,
+                                 repeats=repeats, alpha=0.9)
+    return by, make
+
+
+def run_pool(part, ops, level):
+    """`ops` through ops/pool.py level by level on `part`'s pooled buffers,
+    each level run by `level` (the wrapper or its plain version); returns
+    the number of levels."""
+    from libpll2_tpu_torch.ops import pool
+
+    plan = part._pool_plan(ops, True)
+    pool.update_partials_pool(part.clv_flat, part.sc_flat, part.pmatrix,
+                              plan, part.scale_threshold, part.scale_factor,
+                              level=level)
+    return len(plan.tables)
+
+
+def compare_pool_case(name, part, ops, first=None, must_scale=False):
+    """Pool kernel vs its plain version over a whole op list on the card,
+    from the same buffers (after `first`, the list that must run before a
+    partial one): scaler regions equal (the trash region aside: ops without
+    a scaler buffer of one level write it at once), the zero region zero,
+    class columns within TOL_CLV of each column's max. Returns (max relative
+    error, max absolute error)."""
+    import torch
+    from libpll2_tpu_torch.ops import pool
+
+    if first is not None:
+        run_pool(part, first, pool.pool_update)
+    part._pool_plan(ops, True)              # lays the pool out, computes none
+    clv, sc = part.clv_flat.clone(), part.sc_flat.clone()
+    n_levels = run_pool(part, ops, pool.pool_update)
+    got_clv, got_sc = part.clv_flat.clone(), part.sc_flat.clone()
+    part.clv_flat.copy_(clv)
+    part.sc_flat.copy_(sc)
+    run_pool(part, ops, pool.pool_update_reference)
+    torch.cuda.synchronize()
+    lay = part._flat
+    keep = torch.ones_like(got_sc, dtype=torch.bool)
+    keep[lay.sc_trash:lay.sc_zero] = False
+    diff = int((got_sc[keep] != part.sc_flat[keep]).sum())
+    check(diff == 0, f"{name}: scaler regions differ at {diff} entries")
+    check(not bool(got_sc[lay.sc_zero:].any()),
+          f"{name}: the zero region was written")
+    check(bool(torch.isfinite(got_clv).all()), f"{name}: non-finite CLVs")
+    want = part.clv_flat
+    err = (got_clv - want).abs()
+    col_max = want.abs().amax(dim=(0, 1), keepdim=True).clamp(min=1e-30)
+    rel, abs_err = float((err / col_max).max()), float(err.max())
+    scaled = int(part.sc_flat[:lay.sc_trash].max()) if lay.sc_trash else 0
+    widths = part._repeat_schedule.widths
+    print(f"pool kernel vs plain [{name}]: {part.tips} taxa x {part.sites} "
+          f"sites, {part.states} states, {part.rate_cats} rates, {len(ops)} "
+          f"ops in {n_levels} levels (widest {max(widths)}), pool "
+          f"{lay.total} columns: scaler regions equal (max {scaled}), "
+          f"max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}", flush=True)
+    check(rel <= TOL_CLV, f"{name}: max_rel_err {rel:.3e} > {TOL_CLV}")
+    if must_scale:
+        check(scaled > 0, f"{name}: scaling never triggered")
+    return rel, abs_err
+
+
+def pool_cases(device, big, big_by, flagship, aa_make):
+    """Phase 12. Returns the largest absolute error."""
+    from libpll2_tpu_torch.trees import parse_newick, random_utree
+
+    max_abs = 0.0
+
+    def case(name, part, tree, no_scaler=False, partial=False, **kw):
+        nonlocal max_abs
+        ops, _, _ = traversal_ops(part, tree)
+        if no_scaler:
+            for op in ops[::3]:
+                op.parent_scaler_index = -1
+        if partial:
+            kw["first"], ops = ops, ops[len(ops) // 2:]
+        max_abs = max(max_abs, compare_pool_case(name, part, ops, **kw)[1])
+
+    t24 = random_utree([f"t{i}" for i in range(24)], seed=11)
+    by24 = simulated(t24, 600, 11, freqs=FREQS_24, subst=SUBST_24)
+    case("24 x 600 DNA", repeats_partition(t24, by24, 600, device), t24)
+    cat = parse_newick(caterpillar_newick(150))
+    case("caterpillar 150 x 300", repeats_partition(
+        cat, simulated(cat, 300, 13, freqs=FREQS_24, subst=SUBST_24), 300,
+        device), cat, must_scale=True)
+    case("3 rates", repeats_partition(t24, by24, 600, device, rate_cats=3),
+         t24)
+    aa = conserve(random_utree([f"t{i}" for i in range(24)], seed=13), 0.3,
+                  0.02, clamp=True)
+    case("20 states, conserved", repeats_partition(
+        aa, simulated(aa, 640, 13, states=20, alpha=0.9), 640, device,
+        states=20, alpha=0.9), aa)
+    case("partial op list", repeats_partition(t24, by24, 600, device), t24,
+         partial=True)
+    case("ops without a scaler", repeats_partition(t24, by24, 600, device),
+         t24, no_scaler=True)
+    case("128 x 16384 random columns (identity ops)", repeats_partition(
+        big, big_by, N_SITES, device), big)
+    tree, _, make = flagship
+    case(f"{REP_TAXA} x {REP_SITES} conserved", make(device), tree)
+    aa_tree, make_aa = aa_make
+    case(f"protein {AA_TAXA} x {AA_SITES} conserved", make_aa(device),
+         aa_tree)
+    return max_abs
+
+
+def pool_bound(part, levels):
+    """One traversal through the pool kernel, from the actual class counts,
+    each column once (as `level_bound` counts rows): the class columns and
+    counts it reads and does not write (the tips' columns; scaler counts of
+    nodes outside the list) read once, every parent's class columns and
+    counts written once (4 * R * s and 4 bytes a column), the two gather
+    int32s of every parent column, P and the op tables read once; against
+    4 * R * s^2 + R * s FLOP a parent column."""
+    from libpll2_tpu_torch.ops import pool
+
+    ops = [(op, gl.size) for lv in levels for _, op, gl, _ in lv]
+    written = {op.parent_clv_index: n for op, n in ops}
+    sc_w = {op.parent_scaler_index: n for op, n in ops
+            if op.parent_scaler_index >= 0}
+    read = {c for op, _ in ops
+            for c in (op.child1_clv_index, op.child2_clv_index)
+            if c not in written}
+    sc_r = {k: part.repeats.classes(c) for op, _ in ops
+            for c, k in ((op.child1_clv_index, op.child1_scaler_index),
+                         (op.child2_clv_index, op.child2_scaler_index))
+            if k >= 0 and k not in sc_w}
+    cols = sum(n for _, n in ops)
+    R, s = part.rate_cats, part.states
+    n_bytes = ((sum(part.repeats.classes(c) for c in read)
+                + sum(written.values())) * 4 * R * s
+               + (sum(sc_r.values()) + sum(sc_w.values())) * 4
+               + cols * 2 * 4 + len(ops) * pool.POOL_ROWS * 8
+               + part.prob_matrices * R * s * s * 4)
+    return bound_ms(n_bytes, cols * (4 * R * s * s + R * s))
+
+
+def repeats_main_path(device, tree, make, label, dense_ref):
+    """Phase 13 for one problem: the step-by-step chain on
+    Partition(site_repeats=True), a partial traversal equal to the full one,
+    TreeEngine(pallas="pool") with loglikelihood() and three newton_step()s,
+    the default TreeEngine ('repeats-dense-fused'), and edge_params with two
+    rate matrices, each held against the float64 plain dense path on the
+    card (`dense_ref`, a dense partition of the same data); the fused
+    kernel on the default engine's inputs is held against its plain
+    version. Returns (pool launches, levels per traversal, partition,
+    engines, ops, levels, (fused-kernel launches on 'repeats-dense-fused',
+    its max abs error against the plain version))."""
+    import copy
+
+    import numpy as np
+    import torch
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.ops import fused, levels as lv, pool
+    from libpll2_tpu_torch.trees import create_operations, traverse
+
+    part = make(device)
+    ops, br, pidx = create_operations(traverse(tree.vroot))
+    r = tree.vroot
+    params = [0] * part.rate_cats
+    edge = (r.clv_index, r.scaler_index, r.back.clv_index,
+            r.back.scaler_index, r.pmatrix_index)
+    blen = torch.zeros(part.prob_matrices, dtype=torch.float64)
+    blen[pidx] = torch.tensor(br, dtype=torch.float64)
+    t0 = time.perf_counter()
+    layout, levels = pool.schedule_pool_levels(
+        copy.deepcopy(part.repeats), ops, part.tips, part.sites,
+        part.scale_buffers)
+    pool.pack_pool_levels(layout, levels)
+    sched_ms = (time.perf_counter() - t0) * 1e3
+    n_levels = len(levels)
+    cols, work = pool.pool_work(levels)
+    plain_cols = len(ops) * part.sites
+    print(f"repeats {label} path: {part.tips} taxa x {part.sites} sites, "
+          f"{len(ops)} ops in {n_levels} levels; class columns "
+          f"{cols} = {cols / plain_cols:.4f} of plain work ({work} computed "
+          f"with the bucket widths, {work / plain_cols:.4f}); host schedule "
+          f"{sched_ms:.1f} ms", flush=True)
+
+    pool.pool_update.launches = 0
+    fused.fused_traversal.launches = 0
+    fused.fused_traversal_rows.launches = 0
+    lv.level_update.launches = 0
+    # the step-by-step chain
+    part.update_prob_matrices(params, pidx, br)
+    part.update_partials(ops)
+    lnl = part.compute_edge_loglikelihood(*edge, params)
+    anc = part.compute_node_ancestral(*edge, params)
+    st = part.update_sumtable(r.clv_index, r.back.clv_index, r.scaler_index,
+                              r.back.scaler_index, params)
+    d = part.compute_likelihood_derivatives(st, params,
+                                            float(blen[r.pmatrix_index]))
+    # a partial traversal after one branch length changes, then the full
+    # list: the root edge's per-site rows must come out equal
+    mat = next(o.child1_matrix_index for o in ops
+               if o.child1_clv_index < part.tips)
+    bad = set()
+    for o in ops:
+        if (mat in (o.child1_matrix_index, o.child2_matrix_index)
+                or o.child1_clv_index in bad or o.child2_clv_index in bad):
+            bad.add(o.parent_clv_index)
+    partial, _, _ = create_operations(traverse(
+        r, cbtrav=lambda n: not n.is_tip() and n.clv_index in bad))
+    blen2 = blen.clone()
+    blen2[mat] *= 3.0
+    part.update_prob_matrices(params, [mat], [float(blen2[mat])])
+    part.update_partials(partial)
+    lnl_partial = part.compute_edge_loglikelihood(*edge, params)
+    rows_partial = [t.clone() for i in (0, 2) for t in part._node_view(
+        edge[i], edge[i + 1])[:2]]
+    part.update_partials(ops)
+    lnl_full = part.compute_edge_loglikelihood(*edge, params)
+    rows_full = [t for i in (0, 2) for t in part._node_view(
+        edge[i], edge[i + 1])[:2]]
+    partial_equal = lnl_partial == lnl_full and all(
+        torch.equal(a, b) for a, b in zip(rows_partial, rows_full))
+    n_partial = len(lv.schedule_levels(partial, part.tips))
+    # TreeEngine on the pooled kernel path, at the original lengths
+    eng = TreeEngine(part, tree, pallas="pool")
+    check(eng.execution_path == "pool-pallas",
+          f"execution_path is {eng.execution_path!r}")
+    inputs = [eng.branches.clone()]
+    lnl_eng = eng.loglikelihood()
+    steps = []
+    for _ in range(3):
+        inputs.append(eng.branches.clone())
+        steps.append(eng.newton_step())
+    # per-branch heterotachy on the pooled kernel path
+    ep = np.arange(part.prob_matrices) % 2
+    part2 = make(device, rate_matrices=2)
+    eng_ep = TreeEngine(part2, tree, pallas="pool", edge_params=ep)
+    lnl_ep = eng_ep.loglikelihood()
+    torch.cuda.synchronize()
+    launches = pool.pool_update.launches
+    expected = 7 * n_levels + n_partial
+    fused_launches = (fused.fused_traversal.launches
+                      + fused.fused_traversal_rows.launches)
+    print(f"  pool-kernel launches: {launches} (2 step-by-step traversals + "
+          f"1 partial of {len(partial)} ops in {n_partial} levels + 4 "
+          f"engine evaluations + 1 with edge_params; expected {expected}); "
+          f"fused {fused_launches}, level {lv.level_update.launches}",
+          flush=True)
+    check(launches == expected, f"{launches} pool-kernel launches, expected "
+          f"{expected}")
+    check(fused_launches + lv.level_update.launches == 0,
+          "the pooled path launched another kernel")
+    # the default engine: the fused kernel over the repeats partition, one
+    # launch per evaluation
+    eng_rdf = TreeEngine(part, tree)
+    check(eng_rdf.execution_path == "repeats-dense-fused",
+          f"default execution_path is {eng_rdf.execution_path!r}")
+    fused.fused_traversal.launches = 0
+    fused.fused_traversal_rows.launches = 0
+    lv.level_update.launches = 0
+    pool.pool_update.launches = 0
+    lnl_rdf = eng_rdf.loglikelihood()
+    step_rdf = eng_rdf.newton_step()
+    torch.cuda.synchronize()
+    rdf_launches = fused.fused_traversal.launches
+    others = (fused.fused_traversal_rows.launches
+              + lv.level_update.launches + pool.pool_update.launches)
+    print(f"  repeats-dense-fused: fused-kernel launches in loglikelihood() "
+          f"+ newton_step() = {rdf_launches}, other kernels {others}",
+          flush=True)
+    check(rdf_launches == 2, f"{rdf_launches} fused-kernel launches on "
+          f"'repeats-dense-fused', expected 2")
+    check(others == 0, "'repeats-dense-fused' launched another kernel")
+    check(part.clv is None, "the dense-fused engine allocated dense rows")
+    # the fused kernel against its plain version at this path's shape
+    rdf_err = compare_traversal(f"repeats-dense-fused {label} shape", part,
+                                eng_rdf)[1]
+
+    ref = f64_edge(dense_ref, ops, blen, params, r)
+    check_logl("step-by-step edge", lnl, ref[0], d, ref[1:3])
+    anc_err = float(abs(torch.as_tensor(anc) - ref[3].cpu()).max())
+    print(f"  node ancestral: max abs err {anc_err:.2e}", flush=True)
+    check(anc_err < TOL_ANC, f"ancestral err {anc_err:.2e} >= {TOL_ANC}")
+    check(partial_equal, f"partial traversal: logL {lnl_partial!r} or the "
+          f"root rows differ from the full one's ({lnl_full!r})")
+    check_logl(f"partial traversal ({len(partial)} of {len(ops)} ops, "
+               f"equal to the full one)", lnl_partial,
+               f64_edge(dense_ref, ops, blen2, params, r)[0])
+    for i, (b, (lk, d1, d2)) in enumerate(zip(
+            inputs, [(lnl_eng, None, None)] + steps)):
+        ref = f64_edge(dense_ref, ops, b.cpu().double(), params, r)
+        what = ("pool-pallas loglikelihood()" if i == 0
+                else f"pool-pallas newton_step {i}")
+        check_logl(what, lk, ref[0], None if d1 is None else (d1, d2),
+                   None if d1 is None else ref[1:3])
+    ref = f64_edge(dense_ref, ops, blen, params, r)
+    check_logl("repeats-dense-fused loglikelihood()", lnl_rdf, ref[0])
+    check_logl("repeats-dense-fused newton_step", step_rdf[0], ref[0],
+               step_rdf[1:], ref[1:3])
+    if dense_ref.states == 4:
+        dense2 = make(device, repeats=False, rate_matrices=2)
+        rm = int(ep[r.pmatrix_index])
+        check_logl("edge_params, two rate matrices", lnl_ep, f64_edge(
+            dense2, ops, blen, [rm] * part.rate_cats, r, edge_params=ep)[0])
+    return (launches, n_levels, part, (eng, eng_rdf), ops, levels,
+            (rdf_launches, rdf_err))
+
+
+def protein_repeats_path(device, aa_tree, make_aa):
+    """Phase 13, protein: the 128 x 8192 conserved LG+G4 partition on
+    'pool-pallas' (loglikelihood() and one newton_step()) against the
+    float64 plain dense path. Returns (pool launches, class share)."""
+    import torch
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.ops import pool
+    from libpll2_tpu_torch.trees import create_operations, traverse
+
+    part = make_aa(device)
+    eng = TreeEngine(part, aa_tree, pallas="pool")
+    check(eng.execution_path == "pool-pallas",
+          f"execution_path is {eng.execution_path!r}")
+    pool.pool_update.launches = 0
+    b0 = eng.branches.clone()
+    lnl = eng.loglikelihood()
+    b1 = eng.branches.clone()
+    step = eng.newton_step()
+    torch.cuda.synchronize()
+    launches = pool.pool_update.launches
+    check(launches == 2 * len(eng._ops.tables),
+          f"{launches} pool launches for 2 evaluations of "
+          f"{len(eng._ops.tables)} levels")
+    ops, _, _ = create_operations(traverse(aa_tree.vroot))
+    dense = make_aa(device, repeats=False)
+    r = aa_tree.vroot
+    params = [0] * part.rate_cats
+    ref0 = f64_edge(dense, ops, b0.cpu().double(), params, r)
+    ref1 = f64_edge(dense, ops, b1.cpu().double(), params, r)
+    print(f"repeats protein path: {part.tips} taxa x {part.sites} sites "
+          f"LG+G4 conserved, {len(eng._ops.tables)} levels, buffers "
+          f"{part.clv_bytes() / 1e6:.1f} MB vs dense "
+          f"{dense.clv_bytes() / 1e6:.1f} MB; {launches} pool launches",
+          flush=True)
+    check_logl("protein pool-pallas loglikelihood()", lnl, ref0[0])
+    check_logl("protein pool-pallas newton_step", step[0], ref1[0],
+               step[1:], ref1[1:3])
+    return launches
+
+
+def repeats_times(part, engines, dense, levels, tree, gpu):
+    """Phase 14 at 246 x 4465: medians (ms) of the pool kernel over one
+    traversal and of its plain version, of the fused kernel and its plain
+    version on the 'repeats-dense-fused' engine's inputs, of loglikelihood()
+    on 'pool-pallas', on 'repeats-dense-fused' and on a dense partition's
+    'fused' path, and of one step-by-step traversal. Returns (pool kernel,
+    plain, pool bound, (fused kernel, plain, fused bound))."""
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.ops import fused, pool
+    from libpll2_tpu_torch.trees import create_operations, traverse
+
+    ops, _, _ = create_operations(traverse(tree.vroot))
+    plan = part._pool_plan(ops, True)
+    args = (part.clv_flat, part.sc_flat, part.pmatrix, plan,
+            part.scale_threshold, part.scale_factor)
+    kernel = median_ms(lambda: pool.update_partials_pool(*args))
+    plain = median_ms(lambda: pool.update_partials_pool(
+        *args, level=pool.pool_update_reference))
+    eng_pool, eng_rdf = engines
+    codes, pm, table = traversal_inputs(eng_rdf)
+    kw = dict(rates=part.rate_cats, states=part.states,
+              n_slots=eng_rdf.fused_slots, threshold=part.scale_threshold,
+              factor=part.scale_factor)
+    f_kernel = median_ms(lambda: fused.fused_traversal(codes, pm, table,
+                                                       **kw))
+    f_plain = median_ms(lambda: fused.fused_traversal_reference(
+        codes, pm, table, **kw))
+    f_bound = fused_bound(eng_rdf, part)
+    eng_dense = TreeEngine(dense, tree)
+    check(eng_dense.execution_path == "fused", "dense engine not fused")
+    ms = interleaved_ms({"pool-pallas": eng_pool.loglikelihood,
+                         "repeats-dense-fused": eng_rdf.loglikelihood,
+                         "fused (dense partition)": eng_dense.loglikelihood})
+    r = tree.vroot
+    edge = (r.clv_index, r.scaler_index, r.back.clv_index,
+            r.back.scaler_index, r.pmatrix_index, [0] * part.rate_cats)
+
+    def step():
+        part.update_partials(ops)
+        part.compute_edge_loglikelihood(*edge)
+
+    step_ms = median_ms(step)
+    bound, by = pool_bound(part, levels)
+    cols, _ = pool.pool_work(levels)
+    print(f"repeats times, {part.tips} x {part.sites} (median of {REPS}, "
+          f"CUDA events; {gpu}): pool kernel over {len(plan.tables)} levels "
+          f"{kernel:.4f} ms ({cols / kernel / 1e6:.3f} G class-column "
+          f"updates/s; bound {bound:.4f} ms by {by}), plain {plain:.4f} ms; "
+          f"fused kernel on the repeats-dense-fused inputs {f_kernel:.4f} ms "
+          f"(bound {f_bound[0]:.4f} ms by {f_bound[1]}), plain "
+          f"{f_plain:.4f} ms; "
+          + "; ".join(f"loglikelihood() {k} {v:.4f} ms" for k, v in
+                      ms.items()) + f" (in turns, {REPS} rounds)"
+          + f"; step-by-step traversal {step_ms:.4f} ms; buffers "
+          f"{part.clv_bytes() / 1e6:.2f} MB pooled vs "
+          f"{dense.clv_bytes() / 1e6:.2f} MB dense "
+          f"({part.clv_bytes() / dense.clv_bytes():.4f})", flush=True)
+    return kernel, plain, (bound, by), (f_kernel, f_plain, f_bound)
+
+
+def matmul_times(gpu):
+    """tools/mxu_probe.py's product [80, 80] @ [80, 512] as one torch.matmul
+    in float32 and bf16: ms per call, averaged over 100 calls in a row
+    between two CUDA events (median of REPS such runs)."""
+    import torch
+
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        a = torch.randn(80, 80, device="cuda").to(dt)
+        b = torch.randn(80, 512, device="cuda").to(dt)
+
+        def run():
+            for _ in range(100):
+                torch.matmul(a, b)
+
+        out[str(dt).split(".")[1]] = median_ms(run) / 100
+    print(f"mxu_probe yardstick ({gpu}): torch.matmul [80,80]@[80,512] "
+          f"float32 {out['float32']:.5f} ms, bf16 {out['bfloat16']:.5f} ms "
+          f"per call (100 calls between two CUDA events)", flush=True)
+    return out
+
+
 def bound_ms(n_bytes: int, flops: int):
     """(least time in ms at the card's peaks, 'bytes' or 'operations')."""
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
@@ -917,6 +1486,30 @@ def caterpillar_times(device, gpu):
           f"({len(ops) * N_SITES / kernel / 1e6:.3f} G CLV site-updates/s; "
           f"bound {bound:.4f} ms by {by}), plain {plain:.4f} ms",
           flush=True)
+
+
+def interleaved_ms(fns: dict) -> dict:
+    """Medians (ms, CUDA events) of each of `fns` timed in turns: REPS
+    rounds, the order reversed every other round (a, b, c, c, b, a, ...),
+    so that drift of the host or the card reaches every one alike."""
+    import torch
+
+    for fn in fns.values():
+        for _ in range(WARMUP):
+            fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    for r in range(REPS):
+        order = list(fns.items())
+        for name, fn in (order if r % 2 == 0 else order[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def median_ms(fn) -> float:
@@ -1108,10 +1701,33 @@ def main() -> int:
     caterpillar_times(device, gpu)
     bounds["level_update"] = level_bound(dna[2], dna[4])
     aa_level_bound = level_bound(prot[2], prot[4])
+
+    # 12. pool kernel vs plain on the card
+    flagship = flagship_repeats()
+    rep_tree, _, rep_make = flagship
+    aa_make = conserved_protein(aa_tree, aa_by)[1]
+    pool_max_abs = pool_cases(device, big, big_by, flagship,
+                              (aa_tree, aa_make))
+
+    # 13. the site-repeats paths at full width
+    rep_dense = rep_make(device, repeats=False)
+    rep = repeats_main_path(device, rep_tree, rep_make, "DNA", rep_dense)
+    pool_launches = rep[0] + protein_repeats_path(device, aa_tree, aa_make)
+    print(f"pool-kernel launches on the repeats main paths: {pool_launches}; "
+          f"fused-kernel launches on 'repeats-dense-fused': {rep[6][0]}",
+          flush=True)
+
+    # 14. times at 246 x 4465, and the mxu_probe yardstick
+    pool_ms = repeats_times(rep[2], rep[3], rep_dense, rep[5], rep_tree,
+                            gpu)
+    bounds["pool_update"] = pool_ms[2]
+    matmul_times(gpu)
     if args.profile:
         profile([("DNA main path", eng), ("protein main path", aa_eng),
                  ("DNA levels-kernel path", dna[3]),
-                 ("protein levels-kernel path", prot[3])], args.profile)
+                 ("protein levels-kernel path", prot[3]),
+                 ("DNA repeats pool-pallas path", rep[3][0]),
+                 ("DNA repeats-dense-fused path", rep[3][1])], args.profile)
 
     print(gpu, flush=True)
 
@@ -1125,7 +1741,11 @@ def main() -> int:
         "replaces": "libpll2_tpu/ops/pallas_fused.py:299",
         "launches": launches, "max_abs_err": max_abs,
         "ms": ms_kernel, "plain_ms": ms_plain,
-        **bound("fused_traversal")}, {
+        **bound("fused_traversal"),
+        "repeats_launches": rep[6][0], "repeats_max_abs_err": rep[6][1],
+        "repeats_ms": pool_ms[3][0], "repeats_plain_ms": pool_ms[3][1],
+        "repeats_bound_ms": pool_ms[3][2][0],
+        "repeats_bound_by": pool_ms[3][2][1]}, {
         "name": "fused_traversal_rows", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal_rows.cu",
         "replaces": "libpll2_tpu/ops/pallas_fused.py:419",
@@ -1142,7 +1762,13 @@ def main() -> int:
         "ms": lv_ms[0], "plain_ms": lv_ms[1], **bound("level_update"),
         "protein_ms": lv_aa_ms[0], "protein_plain_ms": lv_aa_ms[1],
         "protein_bound_ms": aa_level_bound[0],
-        "protein_bound_by": aa_level_bound[1]}]}), flush=True)
+        "protein_bound_by": aa_level_bound[1]}, {
+        "name": "pool_update", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/pool_update.cu",
+        "replaces": "libpll2_tpu/ops/pallas_repeats.py:45",
+        "launches": pool_launches, "max_abs_err": pool_max_abs,
+        "ms": pool_ms[0], "plain_ms": pool_ms[1],
+        **bound("pool_update")}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

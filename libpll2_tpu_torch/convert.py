@@ -8,6 +8,12 @@ from the JAX partition's own CLVs. The caller reads them off the JAX
 object, e.g. `{k: getattr(jp, k) for k in STATE_KEYS}`; this module never
 imports the JAX package. Both functions default to the CUDA device, as
 `Partition` does.
+
+A site-repeats partition of the JAX package also carries REPEATS_KEYS: its
+class table (`repeats`: site_id, id_site, ids), its tips' class columns
+(`_tip_cols`) and, where it has them, its pooled buffers (`clv_flat`,
+`sc_flat`) with their layout (`_flat`); the port's partition then starts
+from the same classes and pools.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 
 from . import constants as C
 from .partition import Partition, not_ported, resolve_device
+from .repeats import FlatLayout
 
 SIZE_KEYS = ("tips", "clv_buffers", "states", "sites", "rate_matrices",
              "prob_matrices", "rate_cats", "scale_buffers")
@@ -25,19 +32,30 @@ MIRROR_KEYS = ("tip_states", "_tips_set", "_tips_clv_set", "frequencies",
 # optional: the dense buffers, cast to the port partition's dtype
 BUFFER_KEYS = ("clv", "scale_buffer", "pmatrix")
 STATE_KEYS = SIZE_KEYS + MIRROR_KEYS + BUFFER_KEYS
+# a site-repeats partition's classes and pooled storage (`repeats` is None
+# on a dense partition; the others exist on repeats partitions only)
+REPEATS_KEYS = ("repeats", "_tip_cols", "clv_flat", "sc_flat", "_flat")
+LAYOUT_FIELDS = ("caps", "off", "total", "sc_caps", "sc_off", "sc_trash",
+                 "sc_zero", "sc_total")
 
 
 def partition_from_numpy(state: dict, *, device="cuda",
                          dtype: torch.dtype = torch.float32) -> Partition:
     """A port Partition holding the given sizes, host mirrors and, where
-    present, dense buffers. The eigensystem is recomputed on first use;
-    `_invariant_valid` is taken from `state` when present."""
+    present, dense buffers, or a repeats partition's classes and pools. The
+    eigensystem is recomputed on first use; `_invariant_valid` is taken
+    from `state` when present."""
     missing = [k for k in SIZE_KEYS + MIRROR_KEYS if k not in state]
     if missing:
         raise C.PllError(C.ERROR_PARAM_INVALID,
                          f"partition state lacks {missing}")
+    rep = state.get("repeats")
     part = Partition(*(int(state[k]) for k in SIZE_KEYS), device=device,
-                     dtype=dtype)
+                     dtype=dtype, site_repeats=rep is not None)
+    if (rep is None) != (part.repeats is None):
+        raise C.PllError(C.ERROR_PARAM_INVALID,
+                         "a repeats table for a partition too small for "
+                         "site repeats")
     if np.asarray(state["_tips_clv_set"]).any():
         raise not_ported("raw tip CLVs (set_tip_clv)")
     for key in MIRROR_KEYS:
@@ -50,19 +68,51 @@ def partition_from_numpy(state: dict, *, device="cuda",
                 f"no site padding and no asc columns)")
         setattr(part, key, src.astype(dst.dtype, copy=True))
     for key in BUFFER_KEYS:
-        if key not in state:
+        if state.get(key) is None:
             continue
         src = np.asarray(state[key])
         dst = getattr(part, key)
-        if src.shape != tuple(dst.shape):
+        if dst is None or src.shape != tuple(dst.shape):
             raise C.PllError(C.ERROR_PARAM_INVALID,
                              f"{key}: shape {src.shape} != "
-                             f"{tuple(dst.shape)}")
+                             f"{None if dst is None else tuple(dst.shape)}")
         dst.copy_(torch.tensor(src, dtype=dst.dtype))
+    if rep is not None:
+        _repeats_from_numpy(part, rep, state)
     part._invariant_valid = bool(state.get("_invariant_valid", False))
     part._tip_version += 1
     part._model_version += 1
     return part
+
+
+def _repeats_from_numpy(part: Partition, rep, state: dict) -> None:
+    """The class table, tip columns and, where given, pooled buffers of a
+    repeats partition's state, installed on `part`."""
+    table = part.repeats
+    for name in ("site_id", "id_site", "ids"):
+        src = np.asarray(getattr(rep, name))
+        if src.shape != getattr(table, name).shape:
+            raise C.PllError(C.ERROR_PARAM_INVALID,
+                             f"repeats.{name}: shape {src.shape} != "
+                             f"{getattr(table, name).shape}")
+        setattr(table, name, src.astype(np.int32, copy=True))
+    part._tip_cols = {int(t): np.array(c, dtype=np.float64)
+                      for t, c in (state.get("_tip_cols") or {}).items()}
+    if state.get("clv_flat") is None:
+        return
+    lay = state["_flat"]
+    layout = FlatLayout(**{f: np.asarray(getattr(lay, f), dtype=np.int64)
+                           if np.ndim(getattr(lay, f)) else
+                           int(getattr(lay, f)) for f in LAYOUT_FIELDS})
+    clv, sc = np.asarray(state["clv_flat"]), np.asarray(state["sc_flat"])
+    want = (part.rate_cats, part.states, layout.total)
+    if clv.shape != want or sc.shape != (layout.sc_total,):
+        raise C.PllError(C.ERROR_PARAM_INVALID,
+                         f"pooled buffers {clv.shape}, {sc.shape} do not "
+                         f"fit the layout ({want}, ({layout.sc_total},))")
+    part.clv_flat = torch.tensor(clv, dtype=part.dtype, device=part.device)
+    part.sc_flat = torch.tensor(sc, dtype=torch.int32, device=part.device)
+    part._flat = layout
 
 
 def engine_branches_from_numpy(branches, *, device="cuda",

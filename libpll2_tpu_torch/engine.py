@@ -1,24 +1,34 @@
 """Full-tree evaluation, in PyTorch.
 
-Port of libpll2_tpu/engine.py (`_fused_loglikelihood`, `_fused_newton_step`
-and `TreeEngine`), without its mesh, site-repeats, per-rate-scaler and
-per-edge-model parts:
+Port of libpll2_tpu/engine.py (`_fused_loglikelihood`, `_fused_newton_step`,
+`_repeats_loglikelihood`, a single repeats Newton step and `TreeEngine`),
+without its mesh, per-rate-scaler, candidate-scoring and k-chained loop
+parts:
 
     branches -> P-matrices -> CLVs -> root-edge logL
              (-> sumtable -> d1/d2 -> guarded Newton step on the root edge)
 
-The CLV step takes one of four paths (`TreeEngine.execution_path`):
+The CLV step takes one of seven paths (`TreeEngine.execution_path`):
   'fused'         one launch for the whole postorder (ops/fused.py); only
                   the root edge's rows leave the kernel, and they are
                   written back into the partition's dense buffers (its inner
                   rows stay stale, by design);
+  'repeats-dense-fused'  the same kernel for a site-repeats partition: it
+                  never reads class columns, and nothing is written back
+                  (the pooled partition has no dense rows);
   'levels-kernel' one launch of the level kernel per dependency level
                   (ops/levels.py), parent rows written in place into the
                   partition's CLV buffer;
+  'pool-pallas'   site repeats' pooled class columns, one launch of the pool
+                  kernel per dependency level (ops/pool.py);
+  'pool'          the same pooled levels through the pool kernel's plain
+                  version (ops/pool.py:pool_update_reference);
   'levels'/'scan' plain PyTorch (ops/partials.py), batched per level or one
                   op at a time.
 Everything else is plain tensor code on the partition's device, in its
-dtype.
+dtype. With `edge_params` (per-branch heterotachy) every path builds its
+P-matrices per edge (ops/pmatrix.py:update_prob_matrices_per_edge), and the
+root edge's rate matrix drives the likelihood and derivatives.
 """
 from __future__ import annotations
 
@@ -34,17 +44,31 @@ from .ops import levels as ops_levels
 from .ops import likelihood as ops_likelihood
 from .ops import partials as ops_partials
 from .ops import pmatrix as ops_pmatrix
-from .partition import (Operation, Partition, not_ported,
-                        pack_level_operations, pack_operations)
+from .ops import pool as ops_pool
+from .partition import (Operation, Partition, pack_level_operations,
+                        pack_operations)
 from .trees import create_operations, traverse
 
-__all__ = ["TreeEngine"]
+__all__ = ["TreeEngine", "pack_repeats"]
 
 # TreeEngine(pallas=...): the JAX package's names; the 'interpret' variants
 # ran the Pallas kernels in interpret mode on a CPU, which the port's
 # wrappers do by themselves for CPU tensors
 PALLAS_MODES = ("auto", True, "interpret", "levels-kernel",
-                "levels-interpret", False)
+                "levels-interpret", "pool", "pool-interpret", False)
+
+
+def _pmatrices(eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
+               params_idx_rates, branches, edge_params=None):
+    """P [E, R, s, s]: one rate matrix per category for every edge, or per
+    edge and category with `edge_params` [E, R]."""
+    if edge_params is not None:
+        return ops_pmatrix.update_prob_matrices_per_edge(
+            eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
+            edge_params, branches)
+    return ops_pmatrix.update_prob_matrices(
+        eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
+        params_idx_rates, branches)
 
 
 def _scatter_root_rows(clv, scaler, root_idx, rows) -> None:
@@ -91,15 +115,14 @@ def _fused_loglikelihood(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
                          pattern_weights, invariant, n_slots: int,
                          scale_threshold: float, scale_factor: float,
                          traversal=ops_fused.fused_traversal,
-                         mxu: str = "split"):
+                         mxu: str = "split", edge_params=None):
     """The fused path. branches[e] is ordered by pmatrix index e. Returns
     (total logL, per-site weighted logL, root rows (clv_p, clv_c, sc_p,
     sc_c), P-matrices). `traversal` is the fused traversal to run: the
     dispatching wrapper, or its plain version for a comparison on the card;
     `mxu` its contraction mode (ops/fused.py)."""
-    pmatrix = ops_pmatrix.update_prob_matrices(
-        eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
-        params_idx_rates, branches)
+    pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
+                         rates, params_idx_rates, branches, edge_params)
     rows = traversal(tip_codes, pmatrix, table, rates=pmatrix.shape[1],
                      states=pmatrix.shape[2], n_slots=n_slots,
                      threshold=scale_threshold, factor=scale_factor, mxu=mxu)
@@ -117,7 +140,7 @@ def _fused_newton_step(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
                        pattern_weights, invariant, n_slots: int,
                        scale_threshold: float, scale_factor: float,
                        traversal=ops_fused.fused_traversal,
-                       mxu: str = "split"):
+                       mxu: str = "split", edge_params=None):
     """Evaluate the tree on the fused path, then Newton-update the root
     branch length from d1/d2. Returns (total, d1, d2, new branches, root
     rows, P-matrices)."""
@@ -125,7 +148,7 @@ def _fused_newton_step(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
         eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
         rate_weights, freqs, params_idx_rates, branches, table, tip_codes,
         root_mat, pattern_weights, invariant, n_slots, scale_threshold,
-        scale_factor, traversal=traversal, mxu=mxu)
+        scale_factor, traversal=traversal, mxu=mxu, edge_params=edge_params)
     d1, d2, branches = _root_newton(
         rows, branches, root_mat, eigenvals, inv_eigenvecs, eigenvecs,
         prop_invar, rates, rate_weights, freqs, params_idx_rates,
@@ -138,7 +161,7 @@ def _dense_loglikelihood(clv, scaler, eigenvals, inv_eigenvecs, eigenvecs,
                          params_idx_rates, branches, path: str, plan,
                          root_idx, pattern_weights, invariant,
                          scale_threshold: float, scale_factor: float,
-                         level=ops_levels.level_update):
+                         level=ops_levels.level_update, edge_params=None):
     """A path over the dense buffers `clv` [N+1, R, s, S] and `scaler`
     [K+2, S], which it updates in place. `path` and `plan`:
     'levels-kernel' with the level tables on the device (each level run by
@@ -146,9 +169,8 @@ def _dense_loglikelihood(clv, scaler, eigenvals, inv_eigenvecs, eigenvecs,
     on the card), 'levels' with (Operations [L, W], valid), 'scan' with
     Operations [n]. Returns (total logL, per-site weighted logL, P-matrices,
     root rows)."""
-    pmatrix = ops_pmatrix.update_prob_matrices(
-        eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
-        params_idx_rates, branches)
+    pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
+                         rates, params_idx_rates, branches, edge_params)
     if path == "levels-kernel":
         ops_levels.update_partials_kernel(clv, scaler, pmatrix, plan,
                                           scale_threshold, scale_factor,
@@ -169,24 +191,60 @@ def _dense_loglikelihood(clv, scaler, eigenvals, inv_eigenvecs, eigenvecs,
     return total, per, pmatrix, rows
 
 
-def _dense_newton_step(clv, scaler, eigenvals, inv_eigenvecs, eigenvecs,
-                       prop_invar, rates, rate_weights, freqs,
-                       params_idx_rates, branches, path: str, plan,
-                       root_idx, pattern_weights, invariant,
-                       scale_threshold: float, scale_factor: float,
-                       level=ops_levels.level_update):
-    """`_dense_loglikelihood`, then the root edge's Newton step. Returns
-    (total, d1, d2, new branches, P-matrices)."""
-    total, _, pmatrix, rows = _dense_loglikelihood(
-        clv, scaler, eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
-        rate_weights, freqs, params_idx_rates, branches, path, plan,
-        root_idx, pattern_weights, invariant, scale_threshold, scale_factor,
-        level=level)
-    d1, d2, branches = _root_newton(
-        rows, branches, root_idx[4], eigenvals, inv_eigenvecs, eigenvecs,
-        prop_invar, rates, rate_weights, freqs, params_idx_rates,
-        pattern_weights, invariant, scale_threshold)
-    return total, d1, d2, branches, pmatrix
+def _repeats_loglikelihood(clv_flat, sc_flat, eigenvals, inv_eigenvecs,
+                           eigenvecs, prop_invar, rates, rate_weights, freqs,
+                           params_idx_rates, branches, path: str, plan,
+                           root_cols, root_mat: int, pattern_weights,
+                           invariant, scale_threshold: float,
+                           scale_factor: float, level=ops_pool.pool_update,
+                           edge_params=None):
+    """A path over a repeats partition's pooled buffers `clv_flat` [R, s,
+    T] and `sc_flat` [T2], which it updates in place. `plan` is a PoolPlan;
+    `path` 'pool-pallas' runs each level through `level` (the dispatching
+    wrapper, or its plain version for a comparison on the card), 'pool'
+    through the plain version. `root_cols` holds the root edge's absolute
+    per-site columns (clv and scaler, parent then child). Returns (total
+    logL, per-site weighted logL, P-matrices, root rows)."""
+    pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
+                         rates, params_idx_rates, branches, edge_params)
+    if path == "pool":
+        level = ops_pool.pool_update_reference
+    ops_pool.update_partials_pool(clv_flat, sc_flat, pmatrix, plan,
+                                  scale_threshold, scale_factor, level=level)
+    p_cols, p_sc_cols, c_cols, c_sc_cols = root_cols
+    rows = (clv_flat[:, :, p_cols], clv_flat[:, :, c_cols],
+            sc_flat[p_sc_cols], sc_flat[c_sc_cols])
+    total, per = ops_likelihood.edge_loglikelihood(
+        *rows, pmatrix[root_mat], freqs, prop_invar, rate_weights,
+        params_idx_rates, pattern_weights, invariant, scale_threshold)
+    return total, per, pmatrix, rows
+
+
+def pack_repeats(partition, operations, root_indices):
+    """The pooled schedule of one topology (libpll2_tpu's
+    `pack_repeats_canonical` without its power-of-two padding and merged
+    runs, which bounded XLA recompiles): classes the op list and installs
+    its layout on `partition` (carrying the pools over), through the
+    partition's own cached plan (`Partition._pool_plan`, which its
+    step-by-step API shares), and returns (PoolPlan, root_cols, root matrix
+    index, layout). root_cols are the root edge's absolute per-site columns
+    (parent clv, parent scaler, child clv, child scaler) on the partition's
+    device."""
+    p = partition
+    dev = p.device
+    plan = p._pool_plan(operations, True)
+    layout = p._flat
+
+    def cols(node, sc_idx):
+        sid = p.repeats.site_id[node].astype(np.int64)
+        has = sc_idx >= 0 and layout.sc_caps[sc_idx] > 0
+        base = layout.sc_off[sc_idx] if has else layout.sc_zero
+        return layout.off[node] + sid, base + sid
+
+    p_clv, p_sc, c_clv, c_sc, mat = root_indices
+    root_cols = tuple(torch.as_tensor(a, device=dev)
+                      for a in cols(p_clv, p_sc) + cols(c_clv, c_sc))
+    return plan, root_cols, mat, layout
 
 
 class TreeEngine:
@@ -206,75 +264,112 @@ class TreeEngine:
           'auto', True, 'interpret' -- the fused whole-traversal kernel
               when every tip is set and the op list is a postorder whose
               ops all have scaler buffers (`pack_fused_schedule`); else the
-              per-level kernel;
-          'levels-kernel', 'levels-interpret' -- the per-level kernel;
+              per-level kernel, or on a site-repeats partition the pool
+              kernel ('repeats-dense-fused' runs the fused kernel over a
+              repeats partition, which keeps its pooled storage);
+          'levels-kernel', 'levels-interpret' -- the per-level kernel (on a
+              repeats partition: the plain pooled path);
+          'pool', 'pool-interpret' -- on a repeats partition the pool
+              kernel; on a dense one the plain paths below;
           False -- plain PyTorch, level by level with `level_schedule`,
-              else one op at a time;
-          'pool', 'pool-interpret' -- site repeats' pooled path: not
-              ported.
+              else one op at a time; the plain pooled path on a repeats
+              partition.
         The kernels' wrappers run their plain versions for CPU tensors, so
         the 'interpret' names equal the others. `mxu` picks the fused
         traversal's contraction mode for 16+-state alphabets: 'split'
         (default) and 'highest' run exact float32, 'bf16' rounds the
-        operands to bf16 (ops/fused.py)."""
-        if edge_params is not None:
-            raise not_ported("per-edge rate matrices (edge_params "
-                             "heterotachy)")
+        operands to bf16 (ops/fused.py). `edge_params` [prob_matrices]
+        gives the rate-matrix index of every P-matrix slot (per-branch
+        heterotachy)."""
         if mxu not in ops_fused.MXU_MODES:
             raise C.PllError(C.ERROR_PARAM_INVALID,
                              f"mxu must be 'split', 'bf16' or 'highest', "
                              f"got {mxu!r}")
-        if pallas in ("pool", "pool-interpret"):
-            raise not_ported(f"the pooled compute path of site repeats "
-                             f"(pallas={pallas!r})")
         if not (isinstance(pallas, bool) or (isinstance(pallas, str)
                                              and pallas in PALLAS_MODES)):
             raise C.PllError(C.ERROR_PARAM_INVALID,
-                             f"pallas must be one of {PALLAS_MODES}, "
-                             f"'pool' or 'pool-interpret', got {pallas!r}")
+                             f"pallas must be one of {PALLAS_MODES}, got "
+                             f"{pallas!r}")
+        p = partition
         self.mxu = mxu
-        self.partition = partition
-        self.device = partition.device
-        self.dtype = partition.dtype
+        self.partition = p
+        self.device = p.device
+        self.dtype = p.dtype
         self.params_index = params_index
         self.levels = level_schedule
         want_fused = pallas in ("auto", True, "interpret")
-        self._fused_wanted = want_fused and bool(partition._tips_set.all())
-        self._levelk_wanted = want_fused or pallas in ("levels-kernel",
-                                                       "levels-interpret")
+        want_pool = pallas in ("pool", "pool-interpret")
+        tips_ok = bool(p._tips_set.all())
+        self.repeats_mode = p.repeats is not None
+        # the fused kernel over a repeats partition: it reads only tip codes
+        # and writes nothing back, so the pooled storage stays as it is
+        self.repeats_dense_fused = self.repeats_mode and want_fused \
+            and tips_ok
+        if self.repeats_dense_fused:
+            self.repeats_mode = False
+        self._fused_wanted = want_fused and tips_ok
+        self._levelk_wanted = p.repeats is None and (
+            want_fused or pallas in ("levels-kernel", "levels-interpret"))
+        self._pool_kernel_wanted = p.repeats is not None and (
+            want_fused or want_pool)
+        self._edge_params_host = None
+        self.edge_params = None
+        if edge_params is not None:
+            ep = np.asarray(edge_params, dtype=np.int64)
+            if ep.shape != (p.prob_matrices,):
+                raise C.PllError(C.ERROR_PARAM_INVALID,
+                                 f"edge_params must have shape "
+                                 f"({p.prob_matrices},), got {ep.shape}")
+            p._index(ep, "edge_params rate-matrix index", p.rate_matrices)
+            self._edge_params_host = ep
+            self.edge_params = torch.as_tensor(
+                np.repeat(ep[:, None], p.rate_cats, axis=1),
+                device=self.device)
+            p._ensure_eigen(np.unique(ep))
         if tree is not None:
             operations, branches, pmatrix_indices = create_operations(
                 traverse(tree.vroot))
             root = tree.vroot
-        self.params_idx_rates = torch.full(
-            (partition.rate_cats,), params_index, dtype=torch.long,
-            device=self.device)
         self._model_cache_version = None
         self._tip_codes_version = None
         self._pack_topology(operations, branches, pmatrix_indices, root)
-        partition._ensure_eigen([params_index])
+        p._ensure_eigen([params_index])
 
     @property
     def use_pallas(self) -> bool:
-        """True when a kernel path (fused or per-level) is active."""
+        """True when the fused or the per-level kernel path is active (as in
+        libpll2_tpu; the pool kernel is `use_pool_kernel`)."""
         return self.use_fused or self.use_levelkernel
 
     @property
+    def use_pool_kernel(self) -> bool:
+        """True on the 'pool-pallas' path."""
+        return self.repeats_mode and self._pool_kernel_wanted
+
+    @property
     def execution_path(self) -> str:
-        """The compute path this engine selected: 'fused',
-        'levels-kernel', 'levels' or 'scan'."""
+        """The compute path this engine selected: 'repeats-dense-fused',
+        'fused', 'levels-kernel', 'pool-pallas', 'pool', 'levels' or
+        'scan'."""
+        if self.repeats_dense_fused:
+            return "repeats-dense-fused"
         if self.use_fused:
             return "fused"
         if self.use_levelkernel:
             return "levels-kernel"
+        if self.repeats_mode:
+            return "pool-pallas" if self.use_pool_kernel else "pool"
         return "levels" if self.levels else "scan"
 
     def _model_args(self):
         """Model tensors on the partition's device, cached until a
-        Partition setter bumps its _model_version."""
+        Partition setter bumps its _model_version (or a repack changes the
+        root edge's rate matrix)."""
         p = self.partition
         if self._model_cache_version != p._model_version:
             p._ensure_eigen([self.params_index])
+            if self._edge_params_host is not None:
+                p._ensure_eigen(np.unique(self._edge_params_host))
             self._model_cache = tuple(
                 torch.tensor(a, dtype=self.dtype, device=self.device)
                 for a in (p.eigenvals, p.inv_eigenvecs, p.eigenvecs,
@@ -317,6 +412,22 @@ class TreeEngine:
                              f"of range [0, {p.prob_matrices})")
         self.use_fused = self.use_levelkernel = False
         self.table, self.fused_slots, self._ops = None, 0, None
+        blen = np.zeros(p.prob_matrices)
+        blen[np.asarray(pmatrix_indices)] = np.asarray(branches)
+        self.branches = torch.as_tensor(blen, dtype=self.dtype,
+                                        device=self.device)
+        self.root_idx = (root.clv_index, root.scaler_index,
+                         root.back.clv_index, root.back.scaler_index,
+                         root.pmatrix_index)
+        # the root edge's rate matrix drives the likelihood and derivatives
+        rm = self.params_index if self._edge_params_host is None else \
+            int(self._edge_params_host[root.pmatrix_index])
+        self.params_idx_rates = torch.full(
+            (p.rate_cats,), rm, dtype=torch.long, device=self.device)
+        self._model_cache_version = None
+        if self.repeats_mode:
+            self._pack_repeats(operations)
+            return
         if self._fused_wanted:
             table, n_slots = ops_fused.pack_fused_schedule(
                 operations, p.tips, (root.clv_index, root.back.clv_index))
@@ -324,6 +435,14 @@ class TreeEngine:
                 self.use_fused = True
                 self.table = torch.as_tensor(table, device=self.device)
                 self.fused_slots = n_slots
+            elif self.repeats_dense_fused:
+                # an op list the kernel cannot run (a partial traversal, a
+                # missing scaler): a pooled partition has no dense buffers
+                # to fall back on, so the pooled path takes it
+                self.repeats_dense_fused = False
+                self.repeats_mode = True
+                self._pack_repeats(operations)
+                return
         if not self.use_fused and self._levelk_wanted:
             self.use_levelkernel = True
             self._ops = ops_levels.tables_to_device(
@@ -336,17 +455,34 @@ class TreeEngine:
                                               device=self.device)
         elif not self.use_fused:
             self._ops = pack_operations(operations, device=self.device)
-        blen = np.zeros(p.prob_matrices)
-        blen[np.asarray(pmatrix_indices)] = np.asarray(branches)
-        self.branches = torch.as_tensor(blen, dtype=self.dtype,
-                                        device=self.device)
-        self.root_idx = (root.clv_index, root.scaler_index,
-                         root.back.clv_index, root.back.scaler_index,
-                         root.pmatrix_index)
+
+    def _pack_repeats(self, operations) -> None:
+        """The pooled path's plan for `operations` (`pack_repeats`), its
+        layout installed on the partition."""
+        p = self.partition
+        self._repeat_ops = operations
+        self._ops, self._root_cols, _, self._layout = pack_repeats(
+            p, operations, self.root_idx)
+        self._packed_tips = p._tip_version
+
+    def _repeats_args(self):
+        """The pooled paths' arguments, after repacking the class schedule
+        when the tips or the partition's pooled layout changed since it was
+        packed (a tip setter, or the step-by-step API on another op
+        list)."""
+        p = self.partition
+        if p._flat is not self._layout or p._tip_version != self._packed_tips:
+            self._pack_repeats(self._repeat_ops)
+        pw, inv = self._site_args()
+        return (p.clv_flat, p.sc_flat, *self._model_args(), self.branches,
+                self.execution_path, self._ops, self._root_cols,
+                self.root_idx[4], pw, inv, p.scale_threshold,
+                p.scale_factor)
 
     def set_topology(self, tree) -> None:
         """Rebind to a new topology of the same size: refreshes the op
-        tables, branches and root indices only."""
+        tables (on a repeats partition also its classes and pooled layout),
+        branches and root indices only."""
         operations, branches, pmatrix_indices = create_operations(
             traverse(tree.vroot))
         self._pack_topology(operations, branches, pmatrix_indices,
@@ -391,20 +527,32 @@ class TreeEngine:
 
     def _loglikelihood_dev(self, branches=None):
         """Full evaluation without a host sync: (total, per-site) as
-        tensors. The partition's P-matrices and the CLV and scaler rows the
-        path computes (all of them, or the root edge's on the fused path)
-        are updated."""
+        tensors."""
+        total, per, _ = self._evaluate(branches)
+        return total, per
+
+    def _evaluate(self, branches=None):
+        """One full evaluation: (total, per-site, root rows). The
+        partition's P-matrices and the CLV and scaler rows the path computes
+        (all of them; the root edge's on the fused path; none on
+        'repeats-dense-fused') are updated."""
         if branches is not None:
             self._set_branches(branches)
         p = self.partition
         if self.use_fused:
             total, per, rows, p.pmatrix = _fused_loglikelihood(
-                *self._args(), mxu=self.mxu)
-            _scatter_root_rows(p.clv, p.scale_buffer, self.root_idx, rows)
+                *self._args(), mxu=self.mxu, edge_params=self.edge_params)
+            if not self.repeats_dense_fused:
+                _scatter_root_rows(p.clv, p.scale_buffer, self.root_idx,
+                                   rows)
+        elif self.repeats_mode:
+            total, per, p.pmatrix, rows = _repeats_loglikelihood(
+                *self._repeats_args(), edge_params=self.edge_params)
         else:
-            total, per, p.pmatrix, _ = _dense_loglikelihood(
-                p.clv, p.scale_buffer, *self._dense_args())
-        return total, per
+            total, per, p.pmatrix, rows = _dense_loglikelihood(
+                p.clv, p.scale_buffer, *self._dense_args(),
+                edge_params=self.edge_params)
+        return total, per, rows
 
     def newton_step(self):
         """Evaluate + one Newton update of the root branch; returns
@@ -412,11 +560,16 @@ class TreeEngine:
         p = self.partition
         if self.use_fused:
             total, d1, d2, self.branches, rows, p.pmatrix = \
-                _fused_newton_step(*self._args(), mxu=self.mxu)
-            _scatter_root_rows(p.clv, p.scale_buffer, self.root_idx, rows)
-        else:
-            total, d1, d2, self.branches, p.pmatrix = _dense_newton_step(
-                p.clv, p.scale_buffer, *self._dense_args())
+                _fused_newton_step(*self._args(), mxu=self.mxu,
+                                   edge_params=self.edge_params)
+            if not self.repeats_dense_fused:
+                _scatter_root_rows(p.clv, p.scale_buffer, self.root_idx,
+                                   rows)
+            return float(total), float(d1), float(d2)
+        total, _, rows = self._evaluate()
+        d1, d2, self.branches = _root_newton(
+            rows, self.branches, self.root_idx[4], *self._model_args(),
+            *self._site_args(), p.scale_threshold)
         return float(total), float(d1), float(d2)
 
     def site_rate_posteriors(self):
@@ -428,12 +581,9 @@ class TreeEngine:
         p = self.partition
         (eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
          rate_weights, freqs, pidx) = self._model_args()
-        self.loglikelihood()       # refresh the root rows
-        p_clv, p_sc, c_clv, c_sc, mat = self.root_idx
-        # a missing scaler (-1) reads the last row, which stays zero
+        _, _, rows = self._evaluate()
         post, site_rate = ops_likelihood.rate_posteriors(
-            p.clv[p_clv], p.clv[c_clv], p.scale_buffer[p_sc],
-            p.scale_buffer[c_sc], p.pmatrix[mat], freqs, prop_invar, rates,
+            *rows, p.pmatrix[self.root_idx[4]], freqs, prop_invar, rates,
             rate_weights, pidx, self._site_args()[1],
             scale_threshold=p.scale_threshold)
         return post.cpu().numpy(), site_rate.cpu().numpy()

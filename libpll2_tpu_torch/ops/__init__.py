@@ -1,2 +1,2 @@
 from . import (derivatives, eigen, fused, gamma, levels, likelihood,
-               partials, pmatrix)
+               partials, pmatrix, pool)

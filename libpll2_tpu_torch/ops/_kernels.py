@@ -32,6 +32,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 
 
 def _nvcc() -> str:
@@ -117,6 +118,16 @@ def library() -> ctypes.CDLL:
         _P,                # stream
     ]
     lib.pll_level_update.restype = _I
+    lib.pll_pool_update.argtypes = [
+        _P, _P, _P,        # pool, scaler pool, pmatrix
+        _P, _I, _I, _I,    # table, its leading dimension, ops, max width
+        _L,                # pool columns
+        _P, _P,            # gl, gr
+        _I, _I,            # rates, states
+        _F, _F,            # threshold, factor
+        _P,                # stream
+    ]
+    lib.pll_pool_update.restype = _I
     return lib
 
 
@@ -287,4 +298,64 @@ def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
             states, float(threshold), float(factor), stream)
     if err != 0:
         raise RuntimeError(f"level_update kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
+                       pmatrix: torch.Tensor, table: torch.Tensor,
+                       width: int, gl: torch.Tensor, gr: torch.Tensor,
+                       rates: int, states: int, threshold: float,
+                       factor: float) -> None:
+    """Launch csrc/pool_update.cu on the current stream: one level, parent
+    columns and counts written into `pool2d` and `sc` in place; see
+    ops/pool.py:pool_update for the contract. `table` may be a column slice
+    of a larger [11, n] int64 tensor: its row stride is passed as the
+    kernel's leading dimension. `width` (the level's widest op) sizes the
+    grid."""
+    name = "pool_update"
+    dev = pool2d.device
+    _check(dev.type == "cuda", f"expected CUDA tensors, got {dev}", name)
+    for what, t in (("sc", sc), ("pmatrix", pmatrix), ("table", table),
+                    ("gl", gl), ("gr", gr)):
+        _check(isinstance(t, torch.Tensor) and t.device == dev,
+               f"{what} must be a tensor on {dev}", name)
+    _check(pool2d.dtype == torch.float32 and pmatrix.dtype == torch.float32,
+           f"the kernel takes float32 pools and P-matrices, got "
+           f"{pool2d.dtype} and {pmatrix.dtype}", name)
+    _check(sc.dtype == torch.int32 and gl.dtype == torch.int32
+           and gr.dtype == torch.int32, "sc, gl and gr must be int32", name)
+    _check(table.dtype == torch.int64, "table must be int64", name)
+    _check(1 <= states <= 32 and rates >= 1,
+           f"rates={rates}, states={states}: needs rates >= 1 and "
+           f"1 <= states <= 32", name)
+    _check(pool2d.dim() == 2 and pool2d.shape[0] == rates * states
+           and pool2d.shape[1] > 0,
+           f"pool shape {tuple(pool2d.shape)} is not [{rates * states}, "
+           f"columns]", name)
+    _check(sc.dim() == 1 and gl.dim() == 1 and gr.dim() == 1
+           and gl.shape == gr.shape, "sc, gl and gr must be 1-D, gl and gr "
+           "of one length", name)
+    _check(pmatrix.dim() == 4 and tuple(pmatrix.shape[1:])
+           == (rates, states, states),
+           f"pmatrix shape {tuple(pmatrix.shape)} is not [E, {rates}, "
+           f"{states}, {states}]", name)
+    _check(table.dim() == 2 and table.shape[0] == 11
+           and 1 <= table.shape[1] <= LEVEL_MAX_OPS and table.stride(1) == 1,
+           f"table shape {tuple(table.shape)} (strides {table.stride()}) is "
+           f"not [11, W] with 1 <= W <= {LEVEL_MAX_OPS} and unit column "
+           f"stride", name)
+    _check(1 <= width <= sc.shape[0],
+           f"width {width} is not in [1, {sc.shape[0]}]", name)
+    for what, t in (("pool", pool2d), ("sc", sc), ("pmatrix", pmatrix),
+                    ("gl", gl), ("gr", gr)):
+        _check(t.is_contiguous(), f"{what} must be contiguous", name)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = library().pll_pool_update(
+            pool2d.data_ptr(), sc.data_ptr(), pmatrix.data_ptr(),
+            table.data_ptr(), table.stride(0), table.shape[1], int(width),
+            pool2d.shape[1], gl.data_ptr(), gr.data_ptr(), rates, states,
+            float(threshold), float(factor), stream)
+    if err != 0:
+        raise RuntimeError(f"pool_update kernel launch failed: CUDA error "
                            f"{err}")

@@ -12,8 +12,10 @@ the inner-inner case:
 `update_partials` runs the operation list serially (JAX's `lax.scan`);
 `update_partials_levels` runs it level by level, each level batched over its
 ops. These serve `TreeEngine(pallas=False)` ('scan' / 'levels') and float64
-references; the hand-written level kernel is ops/levels.py. The site-repeats
-pool (`update_partials_repeats_pool`) comes with its slice.
+references; the hand-written level kernel is ops/levels.py. Site repeats'
+pooled class columns are updated by ops/pool.py (its plain version serves
+`TreeEngine(pallas=False)` on a repeats partition, 'pool');
+`gather_flat_view` expands pooled class columns to per-site order.
 
 Scaling (core_partials.c:707-789): per-site mode multiplies the whole site
 block by `scale_factor` when all states x rates entries fall below
@@ -23,7 +25,7 @@ rate category on its own. Parent scalers are the sum of the child scalers
 scaler (-1) is not rescaled; its count goes to the trash row K of the
 [K+2, ...] scaler buffer, and row K+1 stays zero for every -1 read.
 
-Unlike JAX's pure functions, both update `clv` and `scaler` in place (the
+Unlike JAX's pure functions, these update `clv` and `scaler` in place (the
 buffers are hundreds of MB at full width) and return them.
 """
 from __future__ import annotations
@@ -32,7 +34,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["Operations", "update_partials", "update_partials_levels"]
+__all__ = ["Operations", "update_partials", "update_partials_levels",
+           "gather_flat_view"]
 
 
 class Operations(NamedTuple):
@@ -119,3 +122,13 @@ def update_partials_levels(clv: torch.Tensor,
         clv[torch.where(ok, parent, n_nodes)] = torch.where(hs, scaled, x)
         scaler[torch.where(has_scaler, psc, trash)] = child_sc + mask
     return clv, scaler
+
+
+def gather_flat_view(clv_flat: torch.Tensor,     # [R, s, T]
+                     sc_flat: torch.Tensor,      # [T2]
+                     clv_cols: torch.Tensor,     # [S] absolute columns
+                     sc_cols: torch.Tensor):     # [S] absolute columns
+    """Per-site expansion of one node from the pooled storage (clv [R, s,
+    S], scaler [S]) for the likelihood and sumtable functions
+    (core_likelihood.c:211-349 repeats indexing)."""
+    return clv_flat[:, :, clv_cols], sc_flat[sc_cols]

@@ -13,14 +13,22 @@ the reference's per-index buffer tables are leading axes of dense tensors on
     every SCALE_BUFFER_NONE read;
   * `pmatrix` [prob_matrices, rates, states, states].
 
+With `site_repeats=True` (and at least C.REPEATS_MIN_SITES sites) the CLVs
+are pooled class columns instead (repeats.py): `clv` and `scale_buffer` are
+None, and `clv_flat` [rates, states, columns] and `sc_flat` [columns] int32
+hold every node's class columns and every scaler's counts in the regions of
+a `FlatLayout`, laid out when an op list is first scheduled (tips seed their
+regions from `_tip_cols`).
+
 The step-by-step API (`update_prob_matrices` -> `update_partials` ->
 `compute_edge_loglikelihood` / `compute_root_loglikelihood` /
 `compute_node_ancestral` -> `update_sumtable` ->
 `compute_likelihood_derivatives`) works on these buffers; `update_partials`
-runs its op list level by level through the level kernel (ops/levels.py).
-The fused path of `TreeEngine` reads only the tip state bitmasks and the
-model, and writes back the root edge's rows. The host mirrors (model,
-pattern weights, tip masks) are numpy, as in the JAX package.
+runs its op list level by level through the level kernel (ops/levels.py),
+or on a repeats partition through the pool kernel (ops/pool.py). The fused
+path of `TreeEngine` reads only the tip state bitmasks and the model, and
+writes back the root edge's rows. The host mirrors (model, pattern weights,
+tip masks) are numpy, as in the JAX package.
 
 `device` defaults to "cuda" and raises without a CUDA device; the CPU runs
 only when asked for (`device="cpu"`). `dtype` is explicit and defaults to
@@ -47,7 +55,9 @@ from .ops import eigen as ops_eigen
 from .ops import levels as ops_levels
 from .ops import likelihood as ops_likelihood
 from .ops import pmatrix as ops_pmatrix
-from .ops.partials import Operations
+from .ops import pool as ops_pool
+from .ops.partials import Operations, gather_flat_view
+from .repeats import RepeatsTable, build_flat_layout
 
 __all__ = ["Operation", "Partition", "pack_operations",
            "pack_level_operations", "resolve_device"]
@@ -157,8 +167,6 @@ class Partition:
             raise not_ported("per-rate scalers (rate_scalers=True)")
         if asc_bias != C.AscBias.NONE:
             raise not_ported("ascertainment bias correction")
-        if site_repeats:
-            raise not_ported("site repeats (site_repeats=True)")
         if mesh is not None:
             raise not_ported("site sharding over a device mesh")
         if states > MAX_STATES:
@@ -186,13 +194,28 @@ class Partition:
         self.sites_padded = sites
 
         S, R, s = self.sites_padded, rate_cats, states
-        # +1 scratch CLV row; scalers get +2 rows: row K absorbs writes of
-        # scaler-less ops (trash), row K+1 stays zero and serves every
-        # SCALE_BUFFER_NONE read
-        self.clv = torch.zeros((self.nodes + 1, R, s, S), dtype=dtype,
-                               device=self.device)
-        self.scale_buffer = torch.zeros((scale_buffers + 2, S),
-                                        dtype=torch.int32, device=self.device)
+        # repeats switch off below 16 sites, as in pll.c:441-449
+        self.repeats = None
+        if site_repeats and sites >= C.REPEATS_MIN_SITES:
+            self.repeats = RepeatsTable(self.nodes, sites)
+        if self.repeats is None:
+            # +1 scratch CLV row; scalers get +2 rows: row K absorbs writes
+            # of scaler-less ops (trash), row K+1 stays zero and serves
+            # every SCALE_BUFFER_NONE read
+            self.clv = torch.zeros((self.nodes + 1, R, s, S), dtype=dtype,
+                                   device=self.device)
+            self.scale_buffer = torch.zeros((scale_buffers + 2, S),
+                                            dtype=torch.int32,
+                                            device=self.device)
+        else:
+            # pooled class columns, laid out once class counts are known
+            # (first update_partials, or the first read)
+            self.clv = self.scale_buffer = None
+            self.clv_flat = self.sc_flat = None
+            self._flat = None
+            self._tip_cols = {}          # tip -> numpy [s, classes] columns
+            self._repeat_key = self._repeat_schedule = None
+            self._repeat_layout = None
         self.pmatrix = torch.zeros((prob_matrices, R, s, s), dtype=dtype,
                                    device=self.device)
         # model parameters (host mirrors; tiny)
@@ -272,13 +295,25 @@ class Partition:
                        chunk: int = 64) -> None:
         """Install decoded state bitmasks [n, sites] of `tip_indices`: the
         host mirror, and the tips' dense CLV rows (indicators, the same for
-        every rate), in chunks of `chunk` tips per device copy."""
+        every rate), in chunks of `chunk` tips per device copy. On a repeats
+        partition, the tips' classes and class columns instead; the pooled
+        layout and any cached schedule are then stale."""
         self.tip_states[tip_indices, :self.sites] = masks
         self._tips_set[tip_indices] = True
         self._tips_clv_set[tip_indices] = False
         self._tip_version += 1
         self._invariant_valid = False
         R, s = self.rate_cats, self.states
+        if self.repeats is not None:
+            self._flat = None
+            self._repeat_key = self._repeat_schedule = None
+            for tip, m in zip(tip_indices, masks):
+                tip = int(tip)
+                self.repeats.set_tip(tip, m)
+                rep = self.repeats.id_site[tip, :self.repeats.ids[tip]]
+                self._tip_cols[tip] = np.ascontiguousarray(
+                    state_maps.bits_to_clv(m[rep], s).T)
+            return
         for c0 in range(0, len(tip_indices), chunk):
             idx = torch.as_tensor(tip_indices[c0:c0 + chunk],
                                   device=self.device)
@@ -418,14 +453,28 @@ class Partition:
         self.pmatrix[self._dev(midx, torch.long)] = pmat
 
     # -------------------------------------------------------------- partials
-    def update_partials(self, operations: Sequence[Operation]) -> None:
+    def update_partials(self, operations: Sequence[Operation],
+                        update_repeats: bool = True) -> None:
         """partials.c:237-291. The op list runs level by level
         (ops/levels.py:schedule_levels: its dependency levels, or one op
         per level where they would not equal the serial list), each level
         one launch of the level kernel on CUDA, or its plain version on the
-        CPU; parent rows and scaler rows are written in place."""
+        CPU; parent rows and scaler rows are written in place.
+
+        On a repeats partition the levels run over the pooled class columns
+        through the pool kernel (ops/pool.py), one launch per level. The
+        class schedule is rebuilt when the op list (every field of every
+        op), the tips or the pooled layout changed; with `update_repeats`
+        False the class tables are left as they are
+        (pll_update_partials_rep with update_repeats=0)."""
         operations = list(operations)
         self._check_operations(operations)
+        if self.repeats is not None:
+            plan = self._pool_plan(operations, update_repeats)
+            ops_pool.update_partials_pool(
+                self.clv_flat, self.sc_flat, self.pmatrix, plan,
+                self.scale_threshold, self.scale_factor)
+            return
         tables = ops_levels.pack_pallas_levels(
             operations, self.tips, zero_scaler_row=self.scale_buffers + 1,
             trash_scaler_row=self.scale_buffers)
@@ -433,6 +482,67 @@ class Partition:
             self.clv, self.scale_buffer, self.pmatrix,
             ops_levels.tables_to_device(tables, self.device),
             self.scale_threshold, self.scale_factor)
+
+    def _pool_plan(self, operations, update_repeats: bool):
+        """The device plan of `operations` on the pooled storage, cached
+        until the op list, the tips or the installed layout changes."""
+        key = tuple(_fields(op) for op in operations)
+        if (self._repeat_schedule is None or key != self._repeat_key
+                or self._flat is not self._repeat_layout):
+            layout, levels = ops_pool.schedule_pool_levels(
+                self.repeats, operations, self.tips, self.sites,
+                self.scale_buffers, update_repeats=update_repeats,
+                previous=self._flat)
+            self._install_flat(layout)
+            self._repeat_schedule = ops_pool.plan_to_device(
+                *ops_pool.pack_pool_levels(layout, levels), self.device)
+            self._repeat_key, self._repeat_layout = key, layout
+        return self._repeat_schedule
+
+    # -------------------------------------------------------- flat storage
+    def _install_flat(self, layout) -> None:
+        """(Re)allocate the pooled buffers for `layout`: the tips' regions
+        seeded from their class columns, and every inner node's and
+        scaler's columns carried over from the previous layout (as many as
+        both regions hold), so that a partial traversal finds the children
+        it does not recompute. (The JAX package starts every new layout
+        from zeros.)"""
+        R, s = self.rate_cats, self.states
+        dev = self.device
+        clv = torch.zeros((R, s, layout.total), dtype=self.dtype, device=dev)
+        sc = torch.zeros(layout.sc_total, dtype=torch.int32, device=dev)
+        old = self._flat
+        if old is not None:
+            def cols(offs_old, offs_new, caps_old, caps_new, which):
+                src, dst = [], []
+                for n in which:
+                    w = int(min(caps_old[n], caps_new[n]))
+                    src.append(offs_old[n] + np.arange(w))
+                    dst.append(offs_new[n] + np.arange(w))
+                cat = (lambda a: torch.as_tensor(
+                    np.concatenate(a) if a else np.zeros(0, np.int64),
+                    device=dev))
+                return cat(src), cat(dst)
+
+            src, dst = cols(old.off, layout.off, old.caps, layout.caps,
+                            range(self.tips, self.nodes))
+            clv[:, :, dst] = self.clv_flat[:, :, src]
+            src, dst = cols(old.sc_off, layout.sc_off, old.sc_caps,
+                            layout.sc_caps, range(self.scale_buffers))
+            sc[dst] = self.sc_flat[src]
+        tips = sorted(self._tip_cols)
+        if tips:
+            cols = np.concatenate([self._tip_cols[t] for t in tips], axis=1)
+            dst = np.concatenate([layout.off[t] + np.arange(
+                self._tip_cols[t].shape[1]) for t in tips])
+            clv[:, :, torch.as_tensor(dst, device=dev)] = torch.as_tensor(
+                cols, dtype=self.dtype, device=dev)[None]
+        self.clv_flat, self.sc_flat, self._flat = clv, sc, layout
+
+    def _ensure_flat(self) -> None:
+        if self._flat is None:
+            self._install_flat(build_flat_layout(
+                self.repeats, {}, self.sites, self.scale_buffers))
 
     # ------------------------------------------------------------ likelihood
     def _scaler_row(self, index: int):
@@ -443,8 +553,24 @@ class Partition:
         return self.scale_buffer[index], True
 
     def _node_view(self, clv_index: int, scaler_index: int):
-        """(clv [R, s, S], scaler [S], has_scaler) of one node."""
+        """(clv [R, s, S], scaler [S], has_scaler) of one node; on a repeats
+        partition its pooled class columns expanded through site_id."""
         self._index([clv_index], "CLV index", self.nodes)
+        if self.repeats is not None:
+            if scaler_index != C.SCALE_BUFFER_NONE:
+                self._index([scaler_index], "scaler index",
+                            self.scale_buffers)
+            self._ensure_flat()
+            lay = self._flat
+            sid = self.repeats.site_id[clv_index].astype(np.int64)
+            has = (scaler_index != C.SCALE_BUFFER_NONE
+                   and lay.sc_caps[scaler_index] > 0)
+            sc_base = lay.sc_off[scaler_index] if has else lay.sc_zero
+            clv_node, scaler = gather_flat_view(
+                self.clv_flat, self.sc_flat,
+                self._dev(lay.off[clv_index] + sid, torch.long),
+                self._dev(sc_base + sid, torch.long))
+            return clv_node, scaler, has
         scaler, has = self._scaler_row(scaler_index)
         return self.clv[clv_index], scaler, has
 
@@ -560,17 +686,37 @@ class Partition:
 
     # ------------------------------------------------------------- debugging
     def get_clv(self, index: int) -> np.ndarray:
-        """CLV as [sites, rate_cats, states] (reference memory order)."""
-        block = self.clv[index, :, :, :self.sites].cpu().numpy()
+        """CLV as [sites, rate_cats, states] (reference memory order); on a
+        repeats partition the pooled class columns expanded per site."""
+        if self.repeats is not None:
+            self._ensure_flat()
+            o, c = int(self._flat.off[index]), int(self._flat.caps[index])
+            block = self.clv_flat[:, :, o:o + c].cpu().numpy()
+            block = block[:, :, self.repeats.site_id[index]]
+        else:
+            block = self.clv[index, :, :, :self.sites].cpu().numpy()
         return np.transpose(block, (2, 0, 1))
 
     def clv_bytes(self) -> int:
-        """Allocated CLV + scaler bytes."""
-        return (self.clv.numel() * self.clv.element_size()
-                + self.scale_buffer.numel() * self.scale_buffer.element_size())
+        """Allocated CLV + scaler bytes (the pooled buffers on a repeats
+        partition: the memory site repeats save shows here)."""
+        if self.repeats is not None:
+            self._ensure_flat()
+            bufs = (self.clv_flat, self.sc_flat)
+        else:
+            bufs = (self.clv, self.scale_buffer)
+        return sum(b.numel() * b.element_size() for b in bufs)
 
     def get_pmatrix(self, index: int) -> np.ndarray:
         return self.pmatrix[index].cpu().numpy()
 
     def get_scaler(self, index: int) -> np.ndarray:
+        """Scaler counts; on a repeats partition the raw class-layout
+        region of the pooled buffer (its width is the region's
+        capacity)."""
+        if self.repeats is not None:
+            self._ensure_flat()
+            lay = self._flat
+            o, c = int(lay.sc_off[index]), int(lay.sc_caps[index])
+            return self.sc_flat[o:o + c].cpu().numpy()
         return self.scale_buffer[index, :self.sites].cpu().numpy()

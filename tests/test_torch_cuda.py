@@ -13,7 +13,10 @@ round the same operands to bf16, but a last-bit difference of a float32
 sum can round a value to the other bf16 neighbour, so that mode is held at
 the logL level, to 1e-4 relative. The level kernel (csrc/level_update.cu)
 is held to equal scaler rows and CLV rows to 1e-5 of each site's largest
-entry over a whole traversal, level by level."""
+entry over a whole traversal, level by level; the pool kernel
+(csrc/pool_update.cu) to equal scaler regions (the trash region aside,
+which ops without a scaler buffer of one level write at once) and class
+columns to 1e-5 of each column's largest entry."""
 import numpy as np
 import pytest
 import torch
@@ -22,11 +25,12 @@ from libpll2_tpu_torch import Partition, TreeEngine, compute_gamma_cats
 from libpll2_tpu_torch.engine import _fused_loglikelihood
 from libpll2_tpu_torch.io import maps
 from libpll2_tpu_torch.models import load_aa_model
-from libpll2_tpu_torch.ops import fused, levels
+from libpll2_tpu_torch.ops import fused, levels, pool
 from libpll2_tpu_torch.ops.pmatrix import update_prob_matrices
 from libpll2_tpu_torch.trees import (create_operations, parse_newick,
                                      random_alignment, random_utree,
                                      traverse)
+from libpll2_tpu_torch.utils import simulate_alignment
 
 pytestmark = pytest.mark.gpu
 
@@ -360,3 +364,149 @@ def test_level_wrapper_rejects_what_it_cannot_take(cuda):
     for name, (a, k) in bad.items():
         with pytest.raises(ValueError):
             levels.level_update(*a, **k)
+
+
+POOL_CASES = ["dna", "rates3", "aa20", "caterpillar", "partial",
+              "no_scaler", "identity"]
+
+
+def _repeats_partition(tree, sites, device, states=4, rates=4, seed=11,
+                       conserved=True, dtype=torch.float32):
+    """A site-repeats partition of an alignment simulated on `tree`
+    (branches shortened to 0.15 len + 0.001 when `conserved`), or of random
+    columns (`conserved` False: repeats switch off at most inner nodes)."""
+    if conserved:
+        seen = set()
+        for nd in tree.nodes():
+            for h in ([nd] if nd.is_tip() else list(nd.ring())):
+                if h.back is not None and id(h) not in seen:
+                    seen.update((id(h), id(h.back)))
+                    h.length = h.back.length = h.length * 0.15 + 0.001
+        freqs = [1 / states] * states
+        headers, seqs = simulate_alignment(
+            tree, sites, freqs, [1.0] * (states * (states - 1) // 2),
+            alpha=0.8, seed=seed)
+    else:
+        headers, seqs = random_alignment(tree.tip_count, sites, seed=seed)
+    by = dict(zip(headers, seqs))
+    part = Partition(tree.tip_count, tree.inner_count, states, sites, 1,
+                     tree.edge_count, rates, tree.inner_count, device=device,
+                     dtype=dtype, site_repeats=True)
+    tips = list(tree.tips())
+    part.set_tip_states_batch(maps.map_aa if states == 20 else maps.map_nt,
+                              [by[t.label] for t in tips],
+                              [t.clv_index for t in tips])
+    if states == 20:
+        load_aa_model(part, "lg")
+    else:
+        part.set_frequencies(0, [0.3, 0.25, 0.2, 0.25])
+        part.set_subst_params(0, [1.2, 3.0, 0.8, 1.1, 2.6, 1.0])
+    part.set_category_rates(compute_gamma_cats(0.8, rates))
+    return part
+
+
+def _pool_case(case, device):
+    """(repeats partition with P-matrices set, the op list to run, the full
+    list that must run first or None) for one pool-kernel case."""
+    tree = random_utree([f"t{i}" for i in range(24)], seed=11)
+    kw = {"rates3": dict(rates=3), "aa20": dict(states=20)}.get(case, {})
+    sites = 600
+    if case == "caterpillar":
+        tree, sites = _caterpillar(150), 300
+    elif case == "identity":
+        tree, sites = random_utree([f"t{i}" for i in range(32)], seed=11), \
+            2048
+        kw = dict(conserved=False)
+    part = _repeats_partition(tree, sites, device, **kw)
+    ops, br, pidx = create_operations(traverse(tree.vroot))
+    part.update_prob_matrices([0] * part.rate_cats, pidx, br)
+    if case == "no_scaler":
+        for op in ops[::3]:
+            op.parent_scaler_index = -1
+    if case == "partial":
+        return part, ops[len(ops) // 2:], ops
+    return part, ops, None
+
+
+def _run_pool(part, ops, level):
+    plan = part._pool_plan(ops, True)
+    pool.update_partials_pool(part.clv_flat, part.sc_flat, part.pmatrix,
+                              plan, part.scale_threshold, part.scale_factor,
+                              level=level)
+    return len(plan.tables)
+
+
+@pytest.mark.parametrize("case", POOL_CASES)
+def test_pool_kernel_matches_plain_on_card(cuda, case):
+    part, ops, first = _pool_case(case, cuda)
+    if first is not None:
+        _run_pool(part, first, pool.pool_update)
+    part._pool_plan(ops, True)            # lays the pool out, computes none
+    clv, sc = part.clv_flat.clone(), part.sc_flat.clone()
+    before = pool.pool_update.launches
+    n = _run_pool(part, ops, pool.pool_update)
+    assert pool.pool_update.launches == before + n
+    got_clv, got_sc = part.clv_flat.clone(), part.sc_flat.clone()
+    part.clv_flat.copy_(clv)
+    part.sc_flat.copy_(sc)
+    _run_pool(part, ops, pool.pool_update_reference)
+    torch.cuda.synchronize()
+    lay = part._flat
+    keep = torch.ones_like(got_sc, dtype=torch.bool)
+    keep[lay.sc_trash:lay.sc_zero] = False
+    assert torch.equal(got_sc[keep], part.sc_flat[keep])
+    assert not got_sc[lay.sc_zero:].any()
+    want = part.clv_flat
+    col_max = want.abs().amax(dim=(0, 1), keepdim=True).clamp(min=1e-30)
+    assert float(((got_clv - want).abs() / col_max).max()) <= 1e-5
+    if case == "caterpillar":
+        assert int(part.sc_flat[:lay.sc_trash].max()) > 0
+    if case == "identity":
+        assert max(plan_w for plan_w in part._repeat_schedule.widths) == \
+            lay.caps.max()
+
+
+@pytest.mark.parametrize("pallas", ["auto", "pool"])
+def test_repeats_engine_on_card_matches_cpu_float64(cuda, pallas):
+    out = []
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        tree = random_utree([f"t{i}" for i in range(24)], seed=5)
+        part = _repeats_partition(tree, 3000, device, dtype=dtype)
+        out.append(TreeEngine(part, tree, pallas=pallas))
+    gpu, cpu = out
+    assert gpu.execution_path == ("repeats-dense-fused" if pallas == "auto"
+                                  else "pool-pallas")
+    before = pool.pool_update.launches
+    got, want = gpu.loglikelihood(), cpu.loglikelihood()
+    if pallas == "pool":
+        assert pool.pool_update.launches == before + len(gpu._ops.tables)
+    assert abs(got - want) / abs(want) < 5e-5
+    for _ in range(3):
+        (gl, g1, g2), (wl, w1, w2) = gpu.newton_step(), cpu.newton_step()
+        assert abs(gl - wl) / abs(wl) < 5e-5
+        for g, w in ((g1, w1), (g2, w2)):
+            assert abs(g - w) / max(abs(w), 10.0) < 5e-3
+
+
+def test_pool_wrapper_rejects_what_it_cannot_take(cuda):
+    part, ops, _ = _pool_case("dna", cuda)
+    plan = part._pool_plan(ops, True)
+    pool2d = part.clv_flat.view(16, -1)
+    table, width = plan.tables[0], plan.widths[0]
+    args = (pool2d, part.sc_flat, part.pmatrix, table, width, plan.gl,
+            plan.gr)
+    kw = dict(rates=4, states=4, threshold=part.scale_threshold,
+              factor=part.scale_factor)
+    bad = {
+        "float64": ((pool2d.double(),) + args[1:], kw),
+        "non-contiguous P": (args[:2] + (part.pmatrix.transpose(2, 3),)
+                             + args[3:], kw),
+        "host table": (args[:3] + (table.cpu(),) + args[4:], kw),
+        "int32 table": (args[:3] + (table.int(),) + args[4:], kw),
+        "int64 gathers": (args[:5] + (plan.gl.long(), plan.gr), kw),
+        "33 states": (args, dict(kw, states=33)),
+        "zero width": (args[:4] + (0,) + args[5:], kw),
+    }
+    for name, (a, k) in bad.items():
+        with pytest.raises(ValueError):
+            pool.pool_update(*a, **k)

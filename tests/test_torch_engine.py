@@ -27,7 +27,6 @@ import libpll2_tpu_torch as tp
 from libpll2_tpu_torch import convert
 from libpll2_tpu_torch.io import maps as tmaps
 from libpll2_tpu_torch.trees import UTree
-from libpll2_tpu_torch.trees import random_utree as t_random_utree
 
 N_TAXA, SITES, SEED = 24, 1000, 7
 TOL_LOGL, TOL_D1, ATOL_D1 = 5e-5, 5e-3, 5e-2      # bench_validate.py:61-63
@@ -179,13 +178,6 @@ def test_partition_dtype_is_explicit():
         tp.Partition(4, 2, 4, 10, 1, 5, 4, 2, device="cpu", dtype=np.float64)
 
 
-def _small_engine(**engine_kw):
-    tree = t_random_utree([f"t{i}" for i in range(5)], seed=1)
-    part = tp.Partition(tree.tip_count, tree.inner_count, 4, 8, 1,
-                        tree.edge_count, 4, tree.inner_count, device="cpu")
-    return tp.TreeEngine(part, tree, **engine_kw)
-
-
 def _fp64_on_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     tp.Partition(4, 2, 4, 10, 1, 5, 4, 2, device="cuda",
@@ -201,21 +193,27 @@ def _converted_tip_clv():
 
 
 SIZES = (4, 2, 4, 10, 1, 5, 4, 2)
+# enough sites (C.REPEATS_MIN_SITES) for site repeats to switch on
+REPEATS_SIZES = (4, 2, 4, 32, 1, 5, 4, 2)
 CPU = {"device": "cpu"}
 OUT_OF_SLICE = {
     "rate_scalers": lambda mp: tp.Partition(*SIZES, **CPU,
                                                 rate_scalers=True),
     "asc_bias": lambda mp: tp.Partition(*SIZES, **CPU,
                                         asc_bias=tp.AscBias.LEWIS),
-    "site_repeats": lambda mp: tp.Partition(*SIZES, **CPU,
-                                                site_repeats=True),
+    "site_repeats_rate_scalers": lambda mp: tp.Partition(
+        *REPEATS_SIZES, **CPU, site_repeats=True, rate_scalers=True),
+    "site_repeats_asc_bias": lambda mp: tp.Partition(
+        *REPEATS_SIZES, **CPU, site_repeats=True,
+        asc_bias=tp.AscBias.LEWIS),
     "mesh": lambda mp: tp.Partition(*SIZES, **CPU, mesh=object()),
     "states_33": lambda mp: tp.Partition(4, 2, 33, 10, 1, 5, 4, 2, **CPU),
     "fp64_cuda": _fp64_on_cuda,
     "set_tip_clv": lambda mp: tp.Partition(*SIZES, **CPU).set_tip_clv(
         0, np.full((10, 4), 0.25)),
-    "edge_params": lambda mp: _small_engine(edge_params=np.zeros(7, int)),
-    "pallas_pool": lambda mp: _small_engine(pallas="pool"),
+    "set_tip_clv_repeats": lambda mp: tp.Partition(
+        *REPEATS_SIZES, **CPU, site_repeats=True).set_tip_clv(
+            0, np.full((32, 4), 0.25)),
     "convert_tip_clv": lambda mp: _converted_tip_clv(),
 }
 

@@ -164,7 +164,8 @@ def test_import_leaves_no_jax():
     code = ("import sys, libpll2_tpu_torch, libpll2_tpu_torch.convert, "
             "libpll2_tpu_torch.ops._kernels, libpll2_tpu_torch.models, "
             "libpll2_tpu_torch.utils, libpll2_tpu_torch.ops.levels, "
-            "libpll2_tpu_torch.ops.partials; "
+            "libpll2_tpu_torch.ops.partials, libpll2_tpu_torch.ops.pool, "
+            "libpll2_tpu_torch.repeats; "
             "bad = [m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.')]; "
             "assert not bad, bad")
