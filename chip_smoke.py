@@ -127,6 +127,18 @@ ATOL_D1 = 5e-2
 # bf16, but a last-bit difference of a float32 sum can round a value to the
 # other bf16 neighbour, so the two are held at the logL level
 TOL_BF16_LOGL = 1e-4
+# mxu_probe kernel vs plain, relative to the output's largest entry: 'f32'
+# adds the same float32 products in another order; 'bf16' and 'split' go
+# through the tensor cores, whose float32 accumulation rounds toward zero
+# (a bias of ~1e-5 over the probe's sums), which also bounds 'split' against
+# the float64 product
+TOL_PROBE = 1e-5
+TOL_PROBE_MMA = 5e-5
+# Scaler counts, kernel vs plain version: equal, except at ties (a block max
+# within TOL_TIE of the threshold, which the two FMA orders round to opposite
+# sides: `match_counts`), at most MAX_TIES of them in one comparison
+TOL_TIE = 1e-5
+MAX_TIES = 8
 # ancestral state probabilities (normalised per site), float32 step-by-step
 # path vs the float64 plain path, absolute
 TOL_ANC = 1e-4
@@ -136,6 +148,7 @@ WARMUP = 3
 # outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOP_PER_S = 67e12
+H100_BF16_FLOP_PER_S = 989e12      # dense, tensor cores
 
 
 class SmokeFailure(Exception):
@@ -145,6 +158,39 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def match_counts(name, got_sc, want_sc, got_clv, want_clv, block, factor,
+                 threshold) -> int:
+    """Hold a kernel's scaler counts to its plain version's. They may
+    differ only at a tie: a block whose max lies within rounding of the
+    threshold, which the two versions' different FMA order puts on opposite
+    sides of it. There the counts differ by one, the block's values by
+    `factor` (to TOL_CLV), and the smaller of the two maxima is the
+    threshold to TOL_TIE; `want_clv` is brought to the kernel's scale in
+    place, so that the values can be compared after. At most MAX_TIES such
+    entries. `block(entry)` gives the index into the CLVs of the block a
+    count entry scales. Returns the number of ties."""
+    diff = got_sc.long() - want_sc.long()
+    entries = diff.nonzero().tolist()
+    check(len(entries) <= MAX_TIES, f"{name}: scaler counts differ at "
+          f"{len(entries)} entries")
+    for e in entries:
+        d = int(diff[tuple(e)])
+        b = block(tuple(e))
+        g, w = got_clv[b], want_clv[b] * factor ** d
+        rel = float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+        low = min(float(got_clv[b].max()), float(want_clv[b].max()))
+        tie = abs(low / threshold - 1.0)
+        print(f"  {name}: tie at count entry {e}: counts differ by {d}, "
+              f"values by factor**{d} to {rel:.2e}, unscaled max = "
+              f"threshold * (1 {'+' if low >= threshold else '-'} "
+              f"{tie:.1e})", flush=True)
+        check(abs(d) == 1 and rel <= TOL_CLV and tie <= TOL_TIE,
+              f"{name}: counts differ at {e} by {d}, not at a tie (values "
+              f"{rel:.2e}, max {tie:.2e} off the threshold)")
+        want_clv[b] = w
+    return len(entries)
 
 
 def gpu_name_and_power() -> str:
@@ -165,31 +211,38 @@ def caterpillar_newick(n: int = 80) -> str:
     return f"(t0:0.1,t1:0.1,{text});"
 
 
-def dna_partition(tree, by_label, sites, device, rate_cats=4):
-    """bench.py:39-60's problem on `device` in float32 (`tree` rooted or
-    unrooted)."""
+def dna_model():
+    """bench.py:39-60's GTR frequencies and rates (seed 7)."""
     import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    return rng.dirichlet(np.ones(4) * 10), rng.uniform(0.5, 2.0, size=6)
+
+
+def dna_partition(tree, by_label, sites, device, rate_cats=4, **options):
+    """bench.py:39-60's problem on `device` in float32 (`tree` rooted or
+    unrooted); `options` (rate_scalers, asc_bias) go to Partition."""
     import torch
     from libpll2_tpu_torch import Partition, compute_gamma_cats
     from libpll2_tpu_torch.io import maps
 
     part = Partition(tree.tip_count, tree.inner_count, 4, sites, 1,
                      tree.edge_count, rate_cats, tree.inner_count,
-                     device=device, dtype=torch.float32)
+                     device=device, dtype=torch.float32, **options)
     for tip in tree.tips():
         part.set_tip_states(tip.clv_index, maps.map_nt, by_label[tip.label])
-    rng = np.random.default_rng(SEED)
-    part.set_frequencies(0, rng.dirichlet(np.ones(4) * 10))
-    part.set_subst_params(0, rng.uniform(0.5, 2.0, size=6))
+    freqs, subst = dna_model()
+    part.set_frequencies(0, freqs)
+    part.set_subst_params(0, subst)
     part.set_category_rates(compute_gamma_cats(0.8, rate_cats))
     return part
 
 
-def build_engine(tree, by_label, sites, device, rate_cats=4):
+def build_engine(tree, by_label, sites, device, rate_cats=4, **options):
     """`dna_partition` and a TreeEngine on its default (fused) path."""
     from libpll2_tpu_torch import TreeEngine
 
-    part = dna_partition(tree, by_label, sites, device, rate_cats)
+    part = dna_partition(tree, by_label, sites, device, rate_cats, **options)
     return part, TreeEngine(part, tree)
 
 
@@ -205,31 +258,52 @@ def traversal_inputs(eng):
 
 
 def compare_case(name, tree, by_label, sites, device, rate_cats=4,
-                 must_scale=False):
+                 must_scale=False, **options):
     """Kernel vs plain traversal on one problem; returns (max relative
     error, max absolute error)."""
-    part, eng = build_engine(tree, by_label, sites, device, rate_cats)
+    part, eng = build_engine(tree, by_label, sites, device, rate_cats,
+                             **options)
     return compare_traversal(name, part, eng, must_scale)
+
+
+def root_block(part):
+    """`match_counts`' block of a root-row count entry: the site's rows of
+    all rates, or of the entry's rate with per-rate counts."""
+    if part.rate_scalers:
+        return lambda e: (e[0], slice(None), e[1])
+    return lambda e: (slice(None), slice(None), e[0])
+
+
+def traversal_kw(part, eng):
+    """The keyword arguments of the fused traversal for an engine's
+    partition: sizes, scaling, per-rate mode and raw tip rows."""
+    return dict(rates=part.rate_cats, states=part.states,
+                n_slots=eng.fused_slots, threshold=part.scale_threshold,
+                factor=part.scale_factor, rate_scalers=part.rate_scalers,
+                tip_clvs=eng._tip_clvs())
 
 
 def compare_traversal(name, part, eng, must_scale=False):
     """Kernel vs plain traversal on the inputs a fused engine hands the
-    kernel; returns (max relative error, max absolute error)."""
+    kernel, in the partition's modes (per-rate counts compared per rate;
+    with `must_scale` 'rates' in per-rate mode, some rate categories must
+    rescale at sites where others do not); returns (max relative error,
+    max absolute error)."""
     import torch
     from libpll2_tpu_torch.ops.fused import (fused_traversal,
                                              fused_traversal_reference)
 
     codes, pm, table = traversal_inputs(eng)
-    kw = dict(rates=part.rate_cats, states=part.states,
-              n_slots=eng.fused_slots, threshold=part.scale_threshold,
-              factor=part.scale_factor)
+    kw = traversal_kw(part, eng)
     got = fused_traversal(codes, pm, table, **kw)
     want = fused_traversal_reference(codes, pm, table, **kw)
     torch.cuda.synchronize()
-    for g, w, which in ((got[2], want[2], "parent"),
-                        (got[3], want[3], "child")):
-        check(torch.equal(g, w), f"{name}: {which} scaler counts differ "
-              f"at {int((g != w).sum())} sites")
+    ties = sum(match_counts(f"{name}, {which}", g_sc, w_sc, g_clv, w_clv,
+                            root_block(part), part.scale_factor,
+                            part.scale_threshold)
+               for g_sc, w_sc, g_clv, w_clv, which in (
+                   (got[2], want[2], got[0], want[0], "parent"),
+                   (got[3], want[3], got[1], want[1], "child")))
     rel, abs_err = 0.0, 0.0
     for g, w in zip(got[:2], want[:2]):
         check(bool(torch.isfinite(g).all()), f"{name}: non-finite CLVs")
@@ -237,13 +311,26 @@ def compare_traversal(name, part, eng, must_scale=False):
         rel = max(rel, float(((g - w).abs() / site_max).max()))
         abs_err = max(abs_err, float((g - w).abs().max()))
     scaled = int(max(want[2].max(), want[3].max()))
+    mixed = 0
+    if part.rate_scalers:     # sites where some rates rescaled, others not
+        mixed = int((want[2].amax(0) != want[2].amin(0)).sum())
+    raw = int((table[:-1, [1, 4]] == 2).sum())
     print(f"kernel vs plain [{name}]: {part.tips} taxa x {part.sites} sites,"
           f" {part.rate_cats} rates, {len(table) - 1} ops, "
-          f"{eng.fused_slots} slots: scaler counts equal (max {scaled}), "
-          f"max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}", flush=True)
+          f"{eng.fused_slots} slots"
+          + (", per-rate counts" if part.rate_scalers else "")
+          + (f", {raw} raw-tip children" if raw else "")
+          + f": scaler counts equal (max {scaled}"
+          + (f", rates differing at {mixed} sites" if part.rate_scalers
+             else "") + (f"; {ties} ties" if ties else "")
+          + f"), max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}",
+          flush=True)
     check(rel <= TOL_CLV, f"{name}: max_rel_err {rel:.3e} > {TOL_CLV}")
     if must_scale:
         check(scaled > 0, f"{name}: scaling never triggered")
+    if must_scale == "rates":
+        check(mixed > 0, f"{name}: the rate categories never rescaled "
+              f"apart")
     return rel, abs_err
 
 
@@ -264,7 +351,7 @@ def plain_float64(part, eng, branches):
         *model, eng.params_idx_rates, branches.to(f64), eng.table,
         eng._tip_codes(), eng.root_idx[4], pw, inv, eng.fused_slots,
         C.SCALE_THRESHOLD, C.SCALE_FACTOR,
-        traversal=fused_traversal_reference)[:3]
+        traversal=fused_traversal_reference, **eng._fused_kw())[:3]
     return float(total), float(d1), float(d2)
 
 
@@ -346,10 +433,11 @@ def charmap(states: int):
 
 
 def protein_partition(tree, by_label, sites, device, states=20,
-                      rate_cats=4, mixture=None):
+                      rate_cats=4, mixture=None, **options):
     """LG+G4 (alpha 0.9) on `device` in float32, tips installed in one
     batch; other alphabets get random GTR parameters from SEED. `mixture`
-    ('lg4x') installs one matrix per category instead (rate_matrices 4)."""
+    ('lg4x') installs one matrix per category instead (rate_matrices 4);
+    `options` (rate_scalers, asc_bias) go to Partition."""
     import numpy as np
     import torch
     from libpll2_tpu_torch import Partition, compute_gamma_cats
@@ -357,7 +445,8 @@ def protein_partition(tree, by_label, sites, device, states=20,
 
     part = Partition(tree.tip_count, tree.inner_count, states, sites,
                      4 if mixture else 1, tree.edge_count, rate_cats,
-                     tree.inner_count, device=device, dtype=torch.float32)
+                     tree.inner_count, device=device, dtype=torch.float32,
+                     **options)
     tips = list(tree.tips())
     part.set_tip_states_batch(charmap(states),
                               [by_label[t.label] for t in tips],
@@ -390,26 +479,33 @@ def compare_rows_case(name, tree, by_label, sites, device, states=20,
     """Rows kernel vs plain traversal on one problem: 'highest' (and
     'split', the same code) to equal counts and TOL_CLV, 'bf16' at the logL
     level. Returns (max relative error, max absolute error)."""
+    part, eng = build_protein_engine(tree, by_label, sites, device, states,
+                                     rate_cats)
+    return compare_rows_traversal(name, part, eng, must_scale)
+
+
+def compare_rows_traversal(name, part, eng, must_scale=False):
+    """`compare_rows_case` on the inputs a fused engine hands the rows
+    kernel, in the partition's modes (per-rate counts, raw tips)."""
     import torch
     from libpll2_tpu_torch.engine import _fused_loglikelihood
     from libpll2_tpu_torch.ops.fused import (fused_traversal,
                                              fused_traversal_reference)
 
-    part, eng = build_protein_engine(tree, by_label, sites, device, states,
-                                     rate_cats)
     codes, pm, table = traversal_inputs(eng)
-    kw = dict(rates=rate_cats, states=states, n_slots=eng.fused_slots,
-              threshold=part.scale_threshold, factor=part.scale_factor)
+    kw = traversal_kw(part, eng)
     got = fused_traversal(codes, pm, table, mxu="highest", **kw)
     split = fused_traversal(codes, pm, table, mxu="split", **kw)
     want = fused_traversal_reference(codes, pm, table, mxu="highest", **kw)
     torch.cuda.synchronize()
-    for g, w, which in ((got[2], want[2], "parent"),
-                        (got[3], want[3], "child")):
-        check(torch.equal(g, w), f"{name}: {which} scaler counts differ "
-              f"at {int((g != w).sum())} sites")
     check(all(torch.equal(a, b) for a, b in zip(split, got)),
           f"{name}: mxu='split' differs from mxu='highest'")
+    ties = sum(match_counts(f"{name}, {which}", g_sc, w_sc, g_clv, w_clv,
+                            root_block(part), part.scale_factor,
+                            part.scale_threshold)
+               for g_sc, w_sc, g_clv, w_clv, which in (
+                   (got[2], want[2], got[0], want[0], "parent"),
+                   (got[3], want[3], got[1], want[1], "child")))
     rel, abs_err = 0.0, 0.0
     for g, w in zip(got[:2], want[:2]):
         check(bool(torch.isfinite(g).all()), f"{name}: non-finite CLVs")
@@ -425,15 +521,20 @@ def compare_rows_case(name, tree, by_label, sites, device, states=20,
     lk, rows = [], []
     for trav in (fused_traversal, fused_traversal_reference):
         total, _, r, _ = _fused_loglikelihood(*eng._args(), traversal=trav,
-                                              mxu="bf16")
+                                              mxu="bf16", **eng._fused_kw())
         lk.append(float(total))
         rows.append(r)
     torch.cuda.synchronize()
     bf_rel = abs(lk[0] - lk[1]) / abs(lk[1])
     sc_diff = sum(int((rows[0][i] != rows[1][i]).sum()) for i in (2, 3))
-    print(f"rows kernel vs plain [{name}]: {tree.tip_count} taxa x {sites} "
-          f"sites, {states} states, {rate_cats} rates, {eng.fused_slots} "
-          f"slots: highest/split scaler counts equal (max {scaled}), "
+    raw = int((table[:-1, [1, 4]] == 2).sum())
+    print(f"rows kernel vs plain [{name}]: {part.tips} taxa x {part.sites} "
+          f"sites, {part.states} states, {part.rate_cats} rates, "
+          f"{eng.fused_slots} slots"
+          + (", per-rate counts" if part.rate_scalers else "")
+          + (f", {raw} raw-tip children" if raw else "")
+          + f": highest/split scaler counts equal (max {scaled}"
+          + (f"; {ties} ties" if ties else "") + "), "
           f"max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}; bf16 logL "
           f"rel {bf_rel:.3e}, bf16 scaler counts differing at {sc_diff} "
           f"sites", flush=True)
@@ -548,8 +649,9 @@ def traversal_ops(part, tree):
 def compare_level_case(name, part, ops, first=None, must_scale=False):
     """Level kernel vs its plain version over a whole op list on the
     card, from the same buffers (after `first`, the list that must run
-    before a partial one). Returns (max relative error, max absolute
-    error)."""
+    before a partial one): scaler rows equal but at ties (`match_counts`),
+    CLV rows within TOL_CLV of each site's max. Returns (max relative
+    error, max absolute error)."""
     import torch
     from libpll2_tpu_torch.ops import levels
 
@@ -563,8 +665,17 @@ def compare_level_case(name, part, ops, first=None, must_scale=False):
     run_levels(part, ops, levels.level_update_reference)
     torch.cuda.synchronize()
     k, n = part.scale_buffers, part.nodes
-    diff = int((got_sc[:k] != part.scale_buffer[:k]).sum())
-    check(diff == 0, f"{name}: scaler rows differ at {diff} entries")
+    writer = {o.parent_scaler_index: o.parent_clv_index for o in ops
+              if o.parent_scaler_index >= 0}
+    if part.rate_scalers:
+        def block(e):
+            return writer[e[0]], e[1], slice(None), e[2]
+    else:
+        def block(e):
+            return writer[e[0]], slice(None), slice(None), e[1]
+    ties = match_counts(name, got_sc[:k], part.scale_buffer[:k], got_clv,
+                        part.clv, block, part.scale_factor,
+                        part.scale_threshold)
     check(not bool(got_sc[k + 1].any()), f"{name}: the zero row was written")
     check(bool(torch.isfinite(got_clv[:n]).all()), f"{name}: non-finite CLVs")
     want = part.clv[:n]
@@ -573,8 +684,11 @@ def compare_level_case(name, part, ops, first=None, must_scale=False):
     rel, abs_err = float((err / site_max).max()), float(err.max())
     scaled = int(part.scale_buffer[:k].max())
     print(f"level kernel vs plain [{name}]: {part.tips} taxa x {part.sites} "
-          f"sites, {part.states} states, {part.rate_cats} rates, {len(ops)} "
-          f"ops in {n_levels} levels: scaler rows equal (max {scaled}), "
+          f"sites, {part.states} states, {part.rate_cats} rates"
+          + (" (per-rate counts)" if part.rate_scalers else "")
+          + f", {len(ops)} "
+          f"ops in {n_levels} levels: scaler rows equal (max {scaled}"
+          + (f"; {ties} ties" if ties else "") + f"), "
           f"max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}", flush=True)
     check(rel <= TOL_CLV, f"{name}: max_rel_err {rel:.3e} > {TOL_CLV}")
     if must_scale:
@@ -651,7 +765,8 @@ def plain_dense_f64(part, ops, branches, params, edge_params=None):
     scaler = torch.zeros_like(part.scale_buffer)
     plan = pack_level_operations(ops, part.tips, part.nodes, device=dev)
     partials.update_partials_levels(clv, scaler, pm, *plan,
-                                    C.SCALE_THRESHOLD, C.SCALE_FACTOR)
+                                    C.SCALE_THRESHOLD, C.SCALE_FACTOR,
+                                    rate_scalers=part.rate_scalers)
     site = (torch.tensor(part.pattern_weights, device=dev),
             torch.tensor(part.invariant, dtype=torch.long, device=dev))
     return clv, scaler, pm, model, site
@@ -659,7 +774,8 @@ def plain_dense_f64(part, ops, branches, params, edge_params=None):
 
 def f64_edge(part, ops, branches, params, root, edge_params=None):
     """(logL, d1, d2) across the root edge at its length, and the
-    ancestral probabilities at `root`, through `plain_dense_f64`."""
+    ancestral probabilities at `root`, through `plain_dense_f64`, in the
+    partition's modes."""
     from libpll2_tpu_torch import constants as C
     from libpll2_tpu_torch.engine import _root_newton
     from libpll2_tpu_torch.ops import likelihood
@@ -669,14 +785,16 @@ def f64_edge(part, ops, branches, params, root, edge_params=None):
     rows = (clv[root.clv_index], clv[root.back.clv_index],
             sc[root.scaler_index], sc[root.back.scaler_index])
     mat = root.pmatrix_index
+    modes = part._modes()
     total, _ = likelihood.edge_loglikelihood(
         *rows, pm[mat], model[6], model[3], model[5], model[7], *site,
-        C.SCALE_THRESHOLD)
+        C.SCALE_THRESHOLD, **modes)
     d1, d2, _ = _root_newton(rows, branches.to(clv.device, clv.dtype), mat,
-                             *model, *site, C.SCALE_THRESHOLD)
+                             *model, *site, C.SCALE_THRESHOLD, **modes)
     anc = likelihood.node_ancestral(rows[0], rows[1], rows[2], rows[3],
                                     pm[mat], model[6], model[5], model[7],
-                                    C.SCALE_THRESHOLD)
+                                    C.SCALE_THRESHOLD,
+                                    rate_scalers=part.rate_scalers)
     return float(total), float(d1), float(d2), anc
 
 
@@ -900,10 +1018,11 @@ def simulated(tree, sites, seed, states=4, freqs=None, subst=None,
 
 def repeats_partition(tree, by_label, sites, device, states=4, rate_cats=4,
                       repeats=True, model=(FREQS_24, SUBST_24), alpha=0.8,
-                      rate_matrices=1):
+                      rate_matrices=1, **options):
     """A float32 partition on `device` with site repeats (or dense, for the
     references), tips installed in one batch; 20 states under LG, DNA under
-    `model` (a second matrix from SEED with `rate_matrices` 2)."""
+    `model` (a second matrix from SEED with `rate_matrices` 2); `options`
+    (rate_scalers, asc_bias) go to Partition."""
     import numpy as np
     import torch
     from libpll2_tpu_torch import Partition, compute_gamma_cats
@@ -913,7 +1032,7 @@ def repeats_partition(tree, by_label, sites, device, states=4, rate_cats=4,
     part = Partition(tree.tip_count, tree.inner_count, states, sites,
                      rate_matrices, tree.edge_count, rate_cats,
                      tree.inner_count, device=device, dtype=torch.float32,
-                     site_repeats=repeats)
+                     site_repeats=repeats, **options)
     tips = list(tree.tips())
     part.set_tip_states_batch(maps.map_aa if states == 20 else maps.map_nt,
                               [by_label[t.label] for t in tips],
@@ -944,10 +1063,10 @@ def flagship_repeats():
     by = simulated(tree, REP_SITES, REP_SEED, freqs=model[0],
                    subst=model[1], alpha=0.7)
 
-    def make(device, repeats=True, rate_matrices=1):
+    def make(device, repeats=True, rate_matrices=1, **options):
         return repeats_partition(tree, by, REP_SITES, device,
                                  repeats=repeats, model=model, alpha=0.7,
-                                 rate_matrices=rate_matrices)
+                                 rate_matrices=rate_matrices, **options)
     return tree, by, make
 
 
@@ -983,10 +1102,10 @@ def run_pool(part, ops, level):
 def compare_pool_case(name, part, ops, first=None, must_scale=False):
     """Pool kernel vs its plain version over a whole op list on the card,
     from the same buffers (after `first`, the list that must run before a
-    partial one): scaler regions equal (the trash region aside: ops without
-    a scaler buffer of one level write it at once), the zero region zero,
-    class columns within TOL_CLV of each column's max. Returns (max relative
-    error, max absolute error)."""
+    partial one): scaler regions equal but at ties (`match_counts`; the
+    trash region aside: ops without a scaler buffer of one level write it
+    at once), the zero region zero, class columns within TOL_CLV of each
+    column's max. Returns (max relative error, max absolute error)."""
     import torch
     from libpll2_tpu_torch.ops import pool
 
@@ -1001,23 +1120,41 @@ def compare_pool_case(name, part, ops, first=None, must_scale=False):
     run_pool(part, ops, pool.pool_update_reference)
     torch.cuda.synchronize()
     lay = part._flat
-    keep = torch.ones_like(got_sc, dtype=torch.bool)
-    keep[lay.sc_trash:lay.sc_zero] = False
-    diff = int((got_sc[keep] != part.sc_flat[keep]).sum())
-    check(diff == 0, f"{name}: scaler regions differ at {diff} entries")
-    check(not bool(got_sc[lay.sc_zero:].any()),
+    # a scaler region holds the classes of the node that wrote it
+    col_of = torch.full((lay.sc_trash,), -1, dtype=torch.long)
+    for o in ops:
+        k = o.parent_scaler_index
+        if k >= 0:
+            w = int(lay.sc_caps[k])
+            col_of[lay.sc_off[k]:lay.sc_off[k] + w] = torch.arange(
+                w) + int(lay.off[o.parent_clv_index])
+    if part.rate_scalers:
+        def block(e):
+            return e[0], slice(None), int(col_of[e[1]])
+    else:
+        def block(e):
+            return slice(None), slice(None), int(col_of[e[0]])
+    ties = match_counts(name, got_sc[..., :lay.sc_trash],
+                        part.sc_flat[..., :lay.sc_trash], got_clv,
+                        part.clv_flat, block, part.scale_factor,
+                        part.scale_threshold)
+    check(not bool(got_sc[..., lay.sc_zero:].any()),
           f"{name}: the zero region was written")
     check(bool(torch.isfinite(got_clv).all()), f"{name}: non-finite CLVs")
     want = part.clv_flat
     err = (got_clv - want).abs()
     col_max = want.abs().amax(dim=(0, 1), keepdim=True).clamp(min=1e-30)
     rel, abs_err = float((err / col_max).max()), float(err.max())
-    scaled = int(part.sc_flat[:lay.sc_trash].max()) if lay.sc_trash else 0
+    scaled = int(part.sc_flat[..., :lay.sc_trash].max()) if lay.sc_trash \
+        else 0
     widths = part._repeat_schedule.widths
     print(f"pool kernel vs plain [{name}]: {part.tips} taxa x {part.sites} "
-          f"sites, {part.states} states, {part.rate_cats} rates, {len(ops)} "
+          f"sites, {part.states} states, {part.rate_cats} rates"
+          + (" (per-rate counts)" if part.rate_scalers else "")
+          + f", {len(ops)} "
           f"ops in {n_levels} levels (widest {max(widths)}), pool "
-          f"{lay.total} columns: scaler regions equal (max {scaled}), "
+          f"{lay.total} columns: scaler regions equal (max {scaled}"
+          + (f"; {ties} ties" if ties else "") + "), "
           f"max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}", flush=True)
     check(rel <= TOL_CLV, f"{name}: max_rel_err {rel:.3e} > {TOL_CLV}")
     if must_scale:
@@ -1092,9 +1229,10 @@ def pool_bound(part, levels):
             if k >= 0 and k not in sc_w}
     cols = sum(n for _, n in ops)
     R, s = part.rate_cats, part.states
+    sc_rows = R if part.rate_scalers else 1
     n_bytes = ((sum(part.repeats.classes(c) for c in read)
                 + sum(written.values())) * 4 * R * s
-               + (sum(sc_r.values()) + sum(sc_w.values())) * 4
+               + (sum(sc_r.values()) + sum(sc_w.values())) * 4 * sc_rows
                + cols * 2 * 4 + len(ops) * pool.POOL_ROWS * 8
                + part.prob_matrices * R * s * s * 4)
     return bound_ms(n_bytes, cols * (4 * R * s * s + R * s))
@@ -1365,32 +1503,11 @@ def repeats_times(part, engines, dense, levels, tree, gpu):
     return kernel, plain, (bound, by), (f_kernel, f_plain, f_bound)
 
 
-def matmul_times(gpu):
-    """tools/mxu_probe.py's product [80, 80] @ [80, 512] as one torch.matmul
-    in float32 and bf16: ms per call, averaged over 100 calls in a row
-    between two CUDA events (median of REPS such runs)."""
-    import torch
-
-    out = {}
-    for dt in (torch.float32, torch.bfloat16):
-        a = torch.randn(80, 80, device="cuda").to(dt)
-        b = torch.randn(80, 512, device="cuda").to(dt)
-
-        def run():
-            for _ in range(100):
-                torch.matmul(a, b)
-
-        out[str(dt).split(".")[1]] = median_ms(run) / 100
-    print(f"mxu_probe yardstick ({gpu}): torch.matmul [80,80]@[80,512] "
-          f"float32 {out['float32']:.5f} ms, bf16 {out['bfloat16']:.5f} ms "
-          f"per call (100 calls between two CUDA events)", flush=True)
-    return out
-
-
-def bound_ms(n_bytes: int, flops: int):
-    """(least time in ms at the card's peaks, 'bytes' or 'operations')."""
+def bound_ms(n_bytes: int, flops: int, peak=H100_F32_FLOP_PER_S):
+    """(least time in ms at the card's peaks, 'bytes' or 'operations');
+    `peak` the FLOP/s of the operations' type (float32 by default)."""
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1401,12 +1518,17 @@ def traversal_flops(n_ops: int, sites: int, rates: int, states: int) -> int:
 
 
 def fused_bound(eng, part):
-    """One fused traversal: tip codes, P and the op table read once, the
-    root edge's two CLVs and counts written once."""
+    """One fused traversal: the state-code tips' codes (4 bytes a site) and
+    the raw tips' rows (4 s bytes a site), P and the op table read once,
+    the root edge's two CLVs and counts (one per rate with per-rate
+    scalers) written once."""
     n_ops = eng.table.shape[0] - 1
-    S, R, s = part.sites, part.rate_cats, part.states
-    n_bytes = (part.tips * S * 4 + part.prob_matrices * R * s * s * 4
-               + eng.table.numel() * 4 + 2 * R * s * S * 4 + 2 * S * 4)
+    S, R, s = part.sites_padded, part.rate_cats, part.states
+    n_raw = int(part._tips_clv_set.sum())
+    sc_rows = R if part.rate_scalers else 1
+    n_bytes = ((part.tips - n_raw) * S * 4 + n_raw * s * S * 4
+               + part.prob_matrices * R * s * s * 4 + eng.table.numel() * 4
+               + 2 * R * s * S * 4 + 2 * sc_rows * S * 4)
     return bound_ms(n_bytes, traversal_flops(n_ops, S, R, s))
 
 
@@ -1420,9 +1542,10 @@ def level_bound(part, ops):
     sc_w = {o.parent_scaler_index for o in ops if o.parent_scaler_index >= 0}
     sc_r = {x for o in ops for x in (o.child1_scaler_index,
                                      o.child2_scaler_index) if x >= 0} - sc_w
-    S, R, s = part.sites, part.rate_cats, part.states
+    S, R, s = part.sites_padded, part.rate_cats, part.states
+    sc_rows = R if part.rate_scalers else 1
     n_bytes = ((len(read) + len(written)) * R * s * S * 4
-               + (len(sc_r) + len(sc_w)) * S * 4
+               + (len(sc_r) + len(sc_w)) * sc_rows * S * 4
                + part.prob_matrices * R * s * s * 4 + 9 * len(ops) * 4)
     return bound_ms(n_bytes, traversal_flops(len(ops), S, R, s))
 
@@ -1587,6 +1710,534 @@ def times(eng, part, gpu, taxa, sites, modes=("split",)):
     return out
 
 
+# ---------------------------------- per-rate scalers, raw tips, asc bias
+CATG_SEED = 7                       # the probabilistic MSA's noise
+ASC_WEIGHTS = [1200, 900, 1100, 800]  # invariant sites per state (STAM/FELS)
+
+
+def catg_values(seq, rng):
+    """CATG-style probabilities [sites, 4] of one aligned DNA sequence: 1 -
+    eps on the observed base and eps / 3 on the others, eps ~ U(0.001,
+    0.05) per site; a gap (any other character) is all ones."""
+    import numpy as np
+
+    idx = np.array(["ACGT".find(c) for c in seq])
+    eps = rng.uniform(0.001, 0.05, len(seq))
+    vals = np.repeat((eps / 3)[:, None], 4, axis=1)
+    seen = idx >= 0
+    vals[seen, idx[seen]] = 1.0 - eps[seen]
+    vals[~seen] = 1.0
+    return vals
+
+
+def aa_raw_values(sites, rng):
+    """Random amino-acid probability vectors [sites, 20] (a profile-like
+    raw tip): Dirichlet(0.3) per site."""
+    import numpy as np
+
+    return rng.dirichlet(np.full(20, 0.3), size=sites)
+
+
+def set_raw_tips(part, tree, by_label, every=1):
+    """set_tip_clv on every `every`-th tip (by clv index): CATG
+    probabilities of its sequence for DNA, random profiles for proteins,
+    from seed 7. Returns the number of raw tips."""
+    import numpy as np
+
+    rng = np.random.default_rng(CATG_SEED)
+    tips = sorted(tree.tips(), key=lambda t: t.clv_index)[::every]
+    for tip in tips:
+        vals = (catg_values(by_label[tip.label], rng) if part.states == 4
+                else aa_raw_values(part.sites, rng))
+        part.set_tip_clv(tip.clv_index, vals)
+    return len(tips)
+
+
+def snp_alignment(tree):
+    """The DNA main path's model (dna_model, Gamma 0.8) simulated on its
+    tree with utils/simulate.py (seed 7), keeping the first N_SITES
+    variable columns: a SNP alignment for the asc corrections."""
+    import numpy as np
+    from libpll2_tpu_torch.utils import simulate_alignment
+
+    freqs, subst = dna_model()
+    headers, seqs = simulate_alignment(tree, 2 * N_SITES, freqs, subst,
+                                       alpha=0.8, seed=SEED)
+    cols = np.frombuffer("".join(seqs).encode(), dtype=np.uint8).reshape(
+        len(seqs), -1)
+    var = np.flatnonzero((cols != cols[:1]).any(axis=0))
+    check(var.size >= N_SITES, f"only {var.size} variable columns")
+    keep = np.ascontiguousarray(cols[:, var[:N_SITES]])
+    return {h: keep[i].tobytes().decode() for i, h in enumerate(headers)}
+
+
+def reset_counts():
+    """Every kernel's launch count set to 0."""
+    from libpll2_tpu_torch.ops import fused, levels, pool
+
+    for fn in (fused.fused_traversal, fused.fused_traversal_rows,
+               levels.level_update, pool.pool_update):
+        fn.launches = 0
+
+
+def counts():
+    from libpll2_tpu_torch.ops import fused, levels, pool
+
+    return {"fused": fused.fused_traversal.launches,
+            "rows": fused.fused_traversal_rows.launches,
+            "level": levels.level_update.launches,
+            "pool": pool.pool_update.launches}
+
+
+def check_counts(what, got, want):
+    """The launches of one path: exactly `want` (kernel -> count), and no
+    other kernel."""
+    print(f"  {what}: launches {got}", flush=True)
+    for k, n in got.items():
+        check(n == want.get(k, 0), f"{what}: {n} {k}-kernel launches, "
+              f"expected {want.get(k, 0)}")
+
+
+def slice_kernel_cases(device, small, small_by, cat, cat_by, big, big_by,
+                       aa_tree, aa_by, flagship):
+    """Phase 15: every new variant of kernels 1, 2, 3 and 5 against its
+    plain version on the card, float32. Returns ({variant: max abs err},
+    {variant: (partition, engine)} of the full-width cases)."""
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.trees import parse_newick, random_alignment
+
+    err, keep = {}, {}
+
+    def note(key, value):
+        err[key] = max(err.get(key, 0.0), value)
+
+    # kernel 1: per-rate counts
+    note("fused_per_rate", compare_case(
+        "per-rate, ragged", small, small_by, 1000, device,
+        rate_scalers=True)[1])
+    note("fused_per_rate", compare_case(
+        "per-rate, runtime-size variant, 16 rates", small, small_by, 1000,
+        device, rate_cats=16, rate_scalers=True)[1])
+    cat150 = parse_newick(caterpillar_newick(150))
+    headers, seqs = random_alignment(150, 1000, seed=3)
+    note("fused_per_rate", compare_case(
+        "per-rate, caterpillar 150", cat150, dict(zip(headers, seqs)), 1000,
+        device, must_scale="rates", rate_scalers=True)[1])
+    part, eng = build_engine(big, big_by, N_SITES, device,
+                             rate_scalers=True)
+    note("fused_per_rate", compare_traversal("per-rate, main-path shape",
+                                             part, eng)[1])
+    keep["fused_per_rate"] = (part, eng)
+    # kernel 1: raw tips, all 128 and mixed with state codes and per-rate
+    part = dna_partition(big, big_by, N_SITES, device)
+    set_raw_tips(part, big, big_by)
+    eng = TreeEngine(part, big)
+    check(int((eng.table[:-1, [1, 4]] == 2).sum()) == N_TAXA,
+          "not every tip is a raw row")
+    note("fused_raw", compare_traversal("raw tips, all 128", part, eng)[1])
+    keep["fused_raw"] = (part, eng)
+    part = dna_partition(small, small_by, 1000, device, rate_scalers=True)
+    set_raw_tips(part, small, small_by, every=2)
+    note("fused_raw", compare_traversal(
+        "raw tips, every other tip, per-rate", part,
+        TreeEngine(part, small))[1])
+    part = dna_partition(cat, cat_by, 1000, device, 3, rate_scalers=True)
+    set_raw_tips(part, cat, cat_by, every=3)
+    note("fused_raw", compare_traversal(
+        "raw tips, runtime-size variant, caterpillar", part,
+        TreeEngine(part, cat), must_scale=True)[1])
+    # kernel 2: per-rate and raw tips at the protein main path's shape
+    part = protein_partition(aa_tree, aa_by, AA_SITES, device,
+                             rate_scalers=True)
+    eng = TreeEngine(part, aa_tree)
+    note("rows_per_rate", compare_rows_traversal(
+        "per-rate, main-path shape", part, eng)[1])
+    keep["rows_per_rate"] = (part, eng)
+    part = protein_partition(aa_tree, aa_by, AA_SITES, device,
+                             rate_scalers=True)
+    set_raw_tips(part, aa_tree, aa_by, every=2)
+    eng = TreeEngine(part, aa_tree)
+    note("rows_raw", compare_rows_traversal(
+        "raw tips (every other tip), per-rate, main-path shape", part,
+        eng)[1])
+    keep["rows_raw"] = (part, eng)
+    headers, seqs = random_alignment(80, 1000, alphabet=AA_NOISY, seed=3)
+    part = protein_partition(cat, dict(zip(headers, seqs)), 1000, device,
+                             rate_scalers=True)
+    note("rows_per_rate", compare_rows_traversal(
+        "per-rate, caterpillar", part, TreeEngine(part, cat),
+        must_scale=True)[1])
+    # kernel 3: per-rate level updates
+    part = dna_partition(big, big_by, N_SITES, device, rate_scalers=True)
+    ops, _, _ = traversal_ops(part, big)
+    note("level_per_rate", compare_level_case(
+        "per-rate, main-path shape", part, ops)[1])
+    keep["level_per_rate"] = (part, ops)
+    part = protein_partition(small, dict(zip(*random_alignment(
+        16, 1000, alphabet=AA_NOISY, seed=3))), 1000, device,
+        rate_scalers=True)
+    ops, _, _ = traversal_ops(part, small)
+    note("level_per_rate", compare_level_case("per-rate, 20 states", part,
+                                              ops)[1])
+    part = dna_partition(cat, cat_by, 1000, device, rate_scalers=True)
+    ops, _, _ = traversal_ops(part, cat)
+    note("level_per_rate", compare_level_case(
+        "per-rate, caterpillar", part, ops, must_scale=True)[1])
+    # kernel 5: per-rate pool levels
+    tree, _, make = flagship
+    part = make(device, rate_scalers=True)
+    ops, _, _ = traversal_ops(part, tree)
+    note("pool_per_rate", compare_pool_case(
+        f"per-rate, {REP_TAXA} x {REP_SITES} conserved", part, ops)[1])
+    keep["pool_per_rate"] = (part, ops)
+    part = repeats_partition(cat150, simulated(
+        cat150, 300, 13, freqs=FREQS_24, subst=SUBST_24), 300, device,
+        rate_scalers=True)
+    ops, _, _ = traversal_ops(part, cat150)
+    note("pool_per_rate", compare_pool_case(
+        "per-rate, caterpillar 150 x 300", part, ops, must_scale=True)[1])
+    return err, keep
+
+
+def fused_slice_path(label, part, eng):
+    """loglikelihood() and three newton_step()s of a fused engine (its
+    kernel's launches counted), the first two held against one float64
+    plain evaluation on the card. Returns (launches, engine)."""
+    import torch
+
+    check(eng.execution_path == "fused",
+          f"{label}: execution_path is {eng.execution_path!r}")
+    b0 = eng.branches.clone()
+    reset_counts()
+    lnl = eng.loglikelihood()
+    steps = [eng.newton_step() for _ in range(3)]
+    torch.cuda.synchronize()
+    got = counts()
+    kernel = "rows" if part.states >= 16 else "fused"
+    check_counts(f"{label}, loglikelihood() + 3 newton_step()", got,
+                 {kernel: 4})
+    ref = plain_float64(part, eng, b0)
+    check_logl(f"{label}, loglikelihood()", lnl, ref[0])
+    check_logl(f"{label}, newton_step 1", steps[0][0], ref[0], steps[0][1:],
+               ref[1:])
+    for i, (lk, d1, d2) in enumerate(steps[1:], 2):
+        check(all(map(math.isfinite, (lk, d1, d2))),
+              f"{label}: newton_step {i} is not finite")
+        print(f"  {label}, newton_step {i}: logL {lk!r} d1 {d1!r} d2 {d2!r}",
+              flush=True)
+    return got[kernel], eng
+
+
+def step_by_step(part, tree, params=None, derivatives=True):
+    """The step-by-step chain on the root edge: update_prob_matrices,
+    update_partials, compute_edge_loglikelihood, update_sumtable and
+    compute_likelihood_derivatives (with the edge's scaler indices).
+    Returns (ops, branch vector [pmatrix order], logL, (d1, d2))."""
+    import torch
+    from libpll2_tpu_torch.trees import create_operations, traverse
+
+    ops, br, pidx = create_operations(traverse(tree.vroot))
+    r = tree.vroot
+    params = params or [0] * part.rate_cats
+    blen = torch.zeros(part.prob_matrices, dtype=torch.float64)
+    blen[pidx] = torch.tensor(br, dtype=torch.float64)
+    part.update_prob_matrices(params, pidx, br)
+    part.update_partials(ops)
+    lnl, d = step_edge(part, tree, blen, params, derivatives)
+    return ops, blen, lnl, d
+
+
+def step_edge(part, tree, blen, params, derivatives=True):
+    """compute_edge_loglikelihood and (with `derivatives`) the sumtable's
+    d1/d2 of the root edge, from the partition's current buffers."""
+    r = tree.vroot
+    edge = (r.clv_index, r.scaler_index, r.back.clv_index,
+            r.back.scaler_index, r.pmatrix_index)
+    lnl = part.compute_edge_loglikelihood(*edge, params)
+    if not derivatives:
+        return lnl, None
+    st = part.update_sumtable(r.clv_index, r.back.clv_index, r.scaler_index,
+                              r.back.scaler_index, params)
+    d = part.compute_likelihood_derivatives(
+        st, params, float(blen[r.pmatrix_index]), r.scaler_index,
+        r.back.scaler_index)
+    return lnl, d
+
+
+def per_rate_dna_path(device, big, big_by):
+    """Phase 16: DNA GTR+G4 at 128 x 16384 with rate_scalers=True, on the
+    fused path, through the step-by-step chain and on 'levels-kernel', all
+    held against one float64 plain evaluation. Returns (fused launches,
+    level launches)."""
+    import torch
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.ops import levels
+
+    part, eng = build_engine(big, big_by, N_SITES, device,
+                             rate_scalers=True)
+    print(f"per-rate DNA path: {N_TAXA} x {N_SITES} GTR+G4, scaler buffer "
+          f"{tuple(part.scale_buffer.shape)}", flush=True)
+    fused_launches, _ = fused_slice_path("per-rate DNA fused", part, eng)
+    reset_counts()
+    ops, blen, lnl, d = step_by_step(part, big)
+    n_levels = len(levels.schedule_levels(ops, part.tips))
+    eng_lk = TreeEngine(part, big, pallas="levels-kernel")
+    check(eng_lk.execution_path == "levels-kernel",
+          f"execution_path is {eng_lk.execution_path!r}")
+    lk_lnl = eng_lk.loglikelihood()
+    lk_step = eng_lk.newton_step()
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts("per-rate DNA step-by-step + levels-kernel (3 traversals)",
+                 got, {"level": 3 * n_levels})
+    sc = part.scale_buffer[big.vroot.scaler_index]
+    mixed = int((sc.amax(0) != sc.amin(0)).sum())
+    print(f"  root scaler row: per-rate counts differ between rates at "
+          f"{mixed} sites (max {int(sc.max())})", flush=True)
+    ref = f64_edge(part, ops, blen, [0] * part.rate_cats, big.vroot)
+    check_logl("per-rate DNA step-by-step edge", lnl, ref[0], d, ref[1:3])
+    check_logl("per-rate DNA levels-kernel loglikelihood()", lk_lnl, ref[0])
+    check_logl("per-rate DNA levels-kernel newton_step", lk_step[0], ref[0],
+               lk_step[1:], ref[1:3])
+    return fused_launches, got["level"]
+
+
+def per_rate_protein_path(device, aa_tree, aa_by):
+    """Phase 16: protein LG+G4 at 128 x 8192 with rate_scalers=True on the
+    fused path (the rows kernel's per-rate mode), against one float64 plain
+    evaluation. Returns the rows-kernel launches."""
+    from libpll2_tpu_torch import TreeEngine
+
+    part = protein_partition(aa_tree, aa_by, AA_SITES, device,
+                             rate_scalers=True)
+    return fused_slice_path("per-rate protein LG+G4 fused", part,
+                            TreeEngine(part, aa_tree))[0]
+
+
+def raw_tip_dna_path(device, big, big_by):
+    """Phase 16: the DNA main path's alignment with every tip given by
+    set_tip_clv (CATG-style probabilities from seed 7) on the fused path,
+    against one float64 plain evaluation. Returns the fused launches."""
+    from libpll2_tpu_torch import TreeEngine
+
+    part = dna_partition(big, big_by, N_SITES, device)
+    n_raw = set_raw_tips(part, big, big_by)
+    eng = TreeEngine(part, big)
+    print(f"raw-tip DNA path: {n_raw} of {N_TAXA} tips from set_tip_clv, "
+          f"{int((eng.table[:-1, [1, 4]] == 2).sum())} raw-tip children in "
+          f"the op table", flush=True)
+    return fused_slice_path("raw-tip DNA fused", part, eng)[0]
+
+
+def asc_dna_path(device, big):
+    """Phase 16: a SNP alignment (snp_alignment) at 128 x 16384 under
+    GTR+G4+ASC_LEWIS on the fused path, then Felsenstein and Stamatakis
+    (with state weights) through the step-by-step API, each held against
+    one float64 plain evaluation. Returns (fused launches, level
+    launches)."""
+    import torch
+    from libpll2_tpu_torch import AscBias, TreeEngine
+    from libpll2_tpu_torch.ops import levels
+
+    by = snp_alignment(big)
+    part = dna_partition(big, by, N_SITES, device, asc_bias=AscBias.LEWIS)
+    eng = TreeEngine(part, big)
+    print(f"asc DNA path: {N_TAXA} x {N_SITES} variable columns + "
+          f"{part.asc_extra} synthetic, GTR+G4+ASC_LEWIS", flush=True)
+    fused_launches, _ = fused_slice_path("ASC_LEWIS fused", part, eng)
+    reset_counts()
+    part.set_asc_state_weights(ASC_WEIGHTS)
+    ops, blen, _, _ = step_by_step(part, big, derivatives=False)
+    n_levels = len(levels.schedule_levels(ops, part.tips))
+    for asc in (AscBias.FELSENSTEIN, AscBias.STAMATAKIS):
+        part.set_asc_bias_type(asc)
+        lnl, d = step_edge(part, big, blen, [0] * part.rate_cats)
+        ref = f64_edge(part, ops, blen, [0] * part.rate_cats, big.vroot)
+        check_logl(f"{asc.name} step-by-step edge (state weights "
+                   f"{ASC_WEIGHTS})", lnl, ref[0], d, ref[1:3])
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts("asc step-by-step (1 traversal)", got, {"level": n_levels})
+    return fused_launches, got["level"]
+
+
+def repeats_slice_paths(device, tree, make):
+    """Phase 16: the 246 x 4465 repeats problem with rate_scalers=True on
+    the default path ('repeats-dense-fused') and on 'pool-pallas', then
+    with ASC_LEWIS on both, each held against one float64 plain dense
+    evaluation. Returns (pool launches, fused launches)."""
+    import torch
+    from libpll2_tpu_torch import AscBias, TreeEngine
+    from libpll2_tpu_torch.trees import create_operations, traverse
+
+    ops, br, pidx = create_operations(traverse(tree.vroot))
+    pool_total = fused_total = 0
+    for label, options in (("per-rate", {"rate_scalers": True}),
+                           ("ASC_LEWIS", {"asc_bias": AscBias.LEWIS})):
+        part = make(device, **options)
+        blen = torch.zeros(part.prob_matrices, dtype=torch.float64)
+        blen[pidx] = torch.tensor(br, dtype=torch.float64)
+        eng_pool = TreeEngine(part, tree, pallas="pool")
+        eng_rdf = TreeEngine(part, tree)
+        check(eng_pool.execution_path == "pool-pallas"
+              and eng_rdf.execution_path == "repeats-dense-fused",
+              f"{label}: paths {eng_pool.execution_path!r}, "
+              f"{eng_rdf.execution_path!r}")
+        reset_counts()
+        results = {"pool-pallas loglikelihood()": (eng_pool.loglikelihood(),
+                                                   None),
+                   "pool-pallas newton_step": eng_pool.newton_step(),
+                   "repeats-dense-fused loglikelihood()": (
+                       eng_rdf.loglikelihood(), None),
+                   "repeats-dense-fused newton_step": eng_rdf.newton_step()}
+        torch.cuda.synchronize()
+        got = counts()
+        n_levels = len(eng_pool._ops.tables)
+        check_counts(f"repeats {label} (2 pooled + 2 dense-fused "
+                     f"evaluations)", got, {"pool": 2 * n_levels,
+                                            "fused": 2})
+        pool_total += got["pool"]
+        fused_total += got["fused"]
+        ref = f64_edge(make(device, repeats=False, **options), ops, blen,
+                       [0] * part.rate_cats, tree.vroot)
+        for what, res in results.items():
+            lk, d = (res[0], None) if res[1] is None else (res[0], res[1:])
+            check_logl(f"repeats {label} {what}", lk, ref[0], d,
+                       None if d is None else ref[1:3])
+    return pool_total, fused_total
+
+
+def slice_times(keep, gpu):
+    """Phase 17: medians (ms) of each new variant's kernel call and its
+    plain version at the full-width shapes, with its bound. Returns
+    {variant: (kernel, plain, (bound, by))}; the rows kernel's per-rate
+    and raw entries add their 'bf16' kernel and plain times."""
+    import copy
+
+    from libpll2_tpu_torch.ops import fused, levels, pool
+
+    out = {}
+    for key in ("fused_per_rate", "fused_raw", "rows_per_rate", "rows_raw"):
+        part, eng = keep[key]
+        codes, pm, table = traversal_inputs(eng)
+        kw = traversal_kw(part, eng)
+        row = []
+        for mode in (("split", "bf16") if key.startswith("rows")
+                     else ("split",)):
+            row += [median_ms(lambda: fused.fused_traversal(
+                codes, pm, table, mxu=mode, **kw)),
+                median_ms(lambda: fused.fused_traversal_reference(
+                    codes, pm, table, mxu=mode, **kw))]
+        out[key] = (row[0], row[1], fused_bound(eng, part), *row[2:])
+    part, ops = keep["level_per_rate"]
+    tables = levels.tables_to_device(levels.pack_pallas_levels(
+        ops, part.tips, part.scale_buffers + 1, part.scale_buffers),
+        part.device)
+    args = (part.clv, part.scale_buffer, part.pmatrix, tables,
+            part.scale_threshold, part.scale_factor)
+    out["level_per_rate"] = (
+        median_ms(lambda: levels.update_partials_kernel(*args)),
+        median_ms(lambda: levels.update_partials_kernel(
+            *args, level=levels.level_update_reference)),
+        level_bound(part, ops))
+    part, ops = keep["pool_per_rate"]
+    plan = part._pool_plan(ops, True)
+    args = (part.clv_flat, part.sc_flat, part.pmatrix, plan,
+            part.scale_threshold, part.scale_factor)
+    _, lv = pool.schedule_pool_levels(copy.deepcopy(part.repeats), ops,
+                                      part.tips, part.sites_padded,
+                                      part.scale_buffers)
+    out["pool_per_rate"] = (
+        median_ms(lambda: pool.update_partials_pool(*args)),
+        median_ms(lambda: pool.update_partials_pool(
+            *args, level=pool.pool_update_reference)),
+        pool_bound(part, lv))
+    for key, (k, p, (b, by), *bf) in out.items():
+        extra = (f"; bf16 kernel {bf[0]:.4f} ms, plain {bf[1]:.4f} ms"
+                 if bf else "")
+        print(f"slice times [{key}] ({gpu}): kernel {k:.4f} ms (bound "
+              f"{b:.4f} ms by {by}), plain {p:.4f} ms{extra}", flush=True)
+    return out
+
+
+def probe_phase(gpu):
+    """Phase 18: the matrix-unit probe (libpll2_tpu_torch/tools/
+    mxu_probe.py, csrc/mxu_probe.cu) against its plain version in every
+    mode at every probe shape ('split' also within float32-class error of
+    the float64 product), then its table at 8 and 264 column tiles with
+    torch.matmul's time beside each, its launches counted. Returns the
+    kernels-line entry."""
+    import numpy as np
+    import torch
+    from libpll2_tpu_torch.tools import mxu_probe as mp
+
+    max_abs, split_rel = 0.0, 0.0
+    for m, k, t, _, _ in mp.SHAPES:
+        a, x = mp.make(m, k, t, tiles=8, seed=1)
+        f64 = sum(a.double()[(i % 8) * m:(i % 8 + 1) * m] @ x.double()
+                  for i in range(7))
+        for mode in mp.MODES:
+            got = mp.probe(a, x, m, 7, mode)
+            want = mp.probe_reference(a, x, m, 7, mode)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            tol = TOL_PROBE if mode == "f32" else TOL_PROBE_MMA
+            check(bool(torch.isfinite(got).all()) and rel < tol,
+                  f"mxu_probe {mode} [{m},{k}]@[{k},{t}]: rel err "
+                  f"{rel:.2e} against its plain version")
+            max_abs = max(max_abs, err)
+            if mode == "split":
+                split_rel = max(split_rel, float(
+                    (got.double() - f64).abs().max() / f64.abs().max()))
+    print(f"mxu_probe kernel vs plain: 3 modes x {len(mp.SHAPES)} shapes, "
+          f"7 iterations, max abs err {max_abs:.3e}; 'split' against the "
+          f"float64 product: rel {split_rel:.2e}", flush=True)
+    check(split_rel < TOL_PROBE_MMA, f"'split' rel err {split_rel:.2e} is "
+          f"not float32-class")
+    # the plain version's time per product at the yardstick shape
+    a, x = mp.make(80, 80, 512, tiles=264)
+    plain = {mode: median_ms(lambda: mp.probe_reference(a, x, 80, 20, mode))
+             / (20 * 264) for mode in mp.MODES}
+    reps = 3
+    mp.probe.launches = 0
+    rows = mp.probe_table(tiles=(8, 264), reps=reps)
+    torch.cuda.synchronize()
+    launches = mp.probe.launches
+    print(f"mxu_probe table ({gpu}; per product [m,k]@[k,t] of one column "
+          f"tile; torch.matmul of the same product beside):", flush=True)
+    for r in rows:
+        print("  " + mp.format_row(r), flush=True)
+    # two trip counts a row, each a warm-up and `reps` timed launches
+    check(launches == 2 * (1 + reps) * len(rows), f"{launches} probe "
+          f"launches for {len(rows)} table rows")
+    main = {r["mode"]: r for r in rows
+            if (r["m"], r["k"], r["t"], r["tiles"]) == (80, 80, 512, 264)}
+    # per product, the bound of the table's longer call (500 iterations x
+    # 264 tiles of [80,80]@[80,512] in bf16) over its products: A, X read
+    # once and out written once (float32), 2 m k t FLOP a product at the
+    # bf16 tensor-core peak
+    n_prod, cols = 500 * 264, 512 * 264
+    bound = bound_ms((8 * 80 * 80 + 80 * cols + 80 * cols) * 4,
+                     2 * 80 * 80 * 512 * n_prod, H100_BF16_FLOP_PER_S)
+    bound = (bound[0] / n_prod, bound[1])
+    return {"name": "mxu_probe", "route": "cuda",
+            "source": "libpll2_tpu_torch/csrc/mxu_probe.cu",
+            "replaces": "tools/mxu_probe.py:34", "launches": launches,
+            "max_abs_err": max_abs, "shape": "bf16 [80,80]@[80,512], 264 "
+            "column tiles, per product",
+            "ms": main["bf16"]["us"] * 1e-3, "plain_ms": plain["bf16"],
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": main["bf16"]["matmul_us"] * 1e-3,
+            "f32_ms": main["f32"]["us"] * 1e-3,
+            "f32_plain_ms": plain["f32"],
+            "f32_library_ms": main["f32"]["matmul_us"] * 1e-3,
+            "split_ms": main["split"]["us"] * 1e-3,
+            "split_plain_ms": plain["split"],
+            "split_float64_rel_err": split_rel,
+            "tflops": {m: r["tflops"] for m, r in main.items()}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
@@ -1721,7 +2372,28 @@ def main() -> int:
     pool_ms = repeats_times(rep[2], rep[3], rep_dense, rep[5], rep_tree,
                             gpu)
     bounds["pool_update"] = pool_ms[2]
-    matmul_times(gpu)
+
+    # 15. the new variants of kernels 1, 2, 3 and 5 vs plain on the card
+    var_err, var_keep = slice_kernel_cases(
+        device, small, small_by, cat, cat_by, big, big_by, aa_tree, aa_by,
+        flagship)
+
+    # 16. the slice's paths at full width, launches counted
+    pr_fused, pr_level = per_rate_dna_path(device, big, big_by)
+    raw_fused = raw_tip_dna_path(device, big, big_by)
+    asc_fused, asc_level = asc_dna_path(device, big)
+    pr_rows = per_rate_protein_path(device, aa_tree, aa_by)
+    rep_pool, rep_fused = repeats_slice_paths(device, rep_tree, rep_make)
+    print(f"slice launches: fused kernel per-rate {pr_fused}, raw tips "
+          f"{raw_fused}, asc {asc_fused}, repeats {rep_fused}; rows kernel "
+          f"per-rate {pr_rows}; level kernel per-rate {pr_level}, asc "
+          f"{asc_level}; pool kernel {rep_pool}", flush=True)
+
+    # 17. times of the new variants
+    var_ms = slice_times(var_keep, gpu)
+
+    # 18. the matrix-unit probe
+    probe_entry = probe_phase(gpu)
     if args.profile:
         profile([("DNA main path", eng), ("protein main path", aa_eng),
                  ("DNA levels-kernel path", dna[3]),
@@ -1735,6 +2407,18 @@ def main() -> int:
         return {"bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                 "library_ms": None}
 
+    def variant(prefix, key, launches):
+        k, p, (b, by), *bf = var_ms[key]
+        out = {f"{prefix}_ms": k, f"{prefix}_plain_ms": p,
+               f"{prefix}_bound_ms": b, f"{prefix}_bound_by": by,
+               f"{prefix}_max_abs_err": var_err[key]}
+        if launches is not None:
+            out[f"{prefix}_launches"] = launches
+        if bf:
+            out.update({f"{prefix}_bf16_ms": bf[0],
+                        f"{prefix}_bf16_plain_ms": bf[1]})
+        return out
+
     print(json.dumps({"kernels": [{
         "name": "fused_traversal", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal.cu",
@@ -1745,7 +2429,11 @@ def main() -> int:
         "repeats_launches": rep[6][0], "repeats_max_abs_err": rep[6][1],
         "repeats_ms": pool_ms[3][0], "repeats_plain_ms": pool_ms[3][1],
         "repeats_bound_ms": pool_ms[3][2][0],
-        "repeats_bound_by": pool_ms[3][2][1]}, {
+        "repeats_bound_by": pool_ms[3][2][1],
+        **variant("per_rate", "fused_per_rate", pr_fused),
+        **variant("raw_tips", "fused_raw", raw_fused),
+        "asc_launches": asc_fused,
+        "repeats_slice_launches": rep_fused}, {
         "name": "fused_traversal_rows", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal_rows.cu",
         "replaces": "libpll2_tpu/ops/pallas_fused.py:419",
@@ -1753,7 +2441,9 @@ def main() -> int:
         "ms": rows_ms["split"][0], "plain_ms": rows_ms["split"][1],
         **bound("fused_traversal_rows"),
         "bf16_ms": rows_ms["bf16"][0],
-        "bf16_plain_ms": rows_ms["bf16"][1]}, {
+        "bf16_plain_ms": rows_ms["bf16"][1],
+        **variant("per_rate", "rows_per_rate", pr_rows),
+        **variant("raw_tips_per_rate", "rows_raw", None)}, {
         "name": "level_update", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/level_update.cu",
         "replaces": ["libpll2_tpu/ops/pallas_partials.py:48",
@@ -1762,13 +2452,17 @@ def main() -> int:
         "ms": lv_ms[0], "plain_ms": lv_ms[1], **bound("level_update"),
         "protein_ms": lv_aa_ms[0], "protein_plain_ms": lv_aa_ms[1],
         "protein_bound_ms": aa_level_bound[0],
-        "protein_bound_by": aa_level_bound[1]}, {
+        "protein_bound_by": aa_level_bound[1],
+        **variant("per_rate", "level_per_rate", pr_level),
+        "asc_launches": asc_level}, {
         "name": "pool_update", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/pool_update.cu",
         "replaces": "libpll2_tpu/ops/pallas_repeats.py:45",
         "launches": pool_launches, "max_abs_err": pool_max_abs,
         "ms": pool_ms[0], "plain_ms": pool_ms[1],
-        **bound("pool_update")}]}), flush=True)
+        **bound("pool_update"),
+        **variant("per_rate", "pool_per_rate", rep_pool)},
+        probe_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,12 +1,15 @@
 """Carry a partition's state across from libpll2_tpu.
 
-`partition_from_numpy` builds the port's Partition from the sizes and numpy
-mirrors of a libpll2_tpu Partition, under the same attribute names
-(libpll2_tpu/partition.py:148-233), and, where given, its dense buffers
-(`clv`, `scale_buffer`, `pmatrix`), so that a partial traversal can start
-from the JAX partition's own CLVs. The caller reads them off the JAX
-object, e.g. `{k: getattr(jp, k) for k in STATE_KEYS}`; this module never
-imports the JAX package. Both functions default to the CUDA device, as
+`partition_from_numpy` builds the port's Partition from the sizes, options
+(per-rate scalers, the asc correction) and numpy mirrors of a libpll2_tpu
+Partition, under the same attribute names (libpll2_tpu/partition.py:
+148-233), and, where given, its dense buffers (`clv`, `scale_buffer`,
+`pmatrix`), so that a partial traversal can start from the JAX partition's
+own CLVs. The asc columns and their state weights come with the mirrors
+(`pattern_weights` spans them); the tips set with set_tip_clv come with the
+dense `clv` rows, or on a repeats partition with `_tip_cols`. The caller
+reads them off the JAX object, e.g. `{k: getattr(jp, k) for k in
+STATE_KEYS}`; this module never imports the JAX package. Both functions default to the CUDA device, as
 `Partition` does.
 
 A site-repeats partition of the JAX package also carries REPEATS_KEYS: its
@@ -21,17 +24,19 @@ import numpy as np
 import torch
 
 from . import constants as C
-from .partition import Partition, not_ported, resolve_device
+from .partition import Partition, resolve_device
 from .repeats import FlatLayout
 
 SIZE_KEYS = ("tips", "clv_buffers", "states", "sites", "rate_matrices",
              "prob_matrices", "rate_cats", "scale_buffers")
+# optional: off when absent (`asc_bias` may be either package's AscBias)
+OPTION_KEYS = ("rate_scalers", "asc_bias")
 MIRROR_KEYS = ("tip_states", "_tips_set", "_tips_clv_set", "frequencies",
                "subst_params", "rates", "rate_weights", "prop_invar",
                "pattern_weights", "invariant")
 # optional: the dense buffers, cast to the port partition's dtype
 BUFFER_KEYS = ("clv", "scale_buffer", "pmatrix")
-STATE_KEYS = SIZE_KEYS + MIRROR_KEYS + BUFFER_KEYS
+STATE_KEYS = SIZE_KEYS + OPTION_KEYS + MIRROR_KEYS + BUFFER_KEYS
 # a site-repeats partition's classes and pooled storage (`repeats` is None
 # on a dense partition; the others exist on repeats partitions only)
 REPEATS_KEYS = ("repeats", "_tip_cols", "clv_flat", "sc_flat", "_flat")
@@ -50,14 +55,20 @@ def partition_from_numpy(state: dict, *, device="cuda",
         raise C.PllError(C.ERROR_PARAM_INVALID,
                          f"partition state lacks {missing}")
     rep = state.get("repeats")
+    asc = state.get("asc_bias", C.AscBias.NONE)
     part = Partition(*(int(state[k]) for k in SIZE_KEYS), device=device,
-                     dtype=dtype, site_repeats=rep is not None)
+                     dtype=dtype, site_repeats=rep is not None,
+                     rate_scalers=bool(state.get("rate_scalers", False)),
+                     asc_bias=C.AscBias(int(getattr(asc, "value", asc))))
     if (rep is None) != (part.repeats is None):
         raise C.PllError(C.ERROR_PARAM_INVALID,
                          "a repeats table for a partition too small for "
                          "site repeats")
-    if np.asarray(state["_tips_clv_set"]).any():
-        raise not_ported("raw tip CLVs (set_tip_clv)")
+    if (np.asarray(state["_tips_clv_set"]).any() and rep is None
+            and state.get("clv") is None):
+        raise C.PllError(C.ERROR_PARAM_INVALID,
+                         "tips set with set_tip_clv need the dense `clv` "
+                         "rows that hold their values")
     for key in MIRROR_KEYS:
         src = np.asarray(state[key])
         dst = getattr(part, key)
@@ -65,7 +76,7 @@ def partition_from_numpy(state: dict, *, device="cuda",
             raise C.PllError(
                 C.ERROR_PARAM_INVALID,
                 f"{key}: shape {src.shape} != {dst.shape} (the port keeps "
-                f"no site padding and no asc columns)")
+                f"no site padding)")
         setattr(part, key, src.astype(dst.dtype, copy=True))
     for key in BUFFER_KEYS:
         if state.get(key) is None:
@@ -106,10 +117,11 @@ def _repeats_from_numpy(part: Partition, rep, state: dict) -> None:
                            int(getattr(lay, f)) for f in LAYOUT_FIELDS})
     clv, sc = np.asarray(state["clv_flat"]), np.asarray(state["sc_flat"])
     want = (part.rate_cats, part.states, layout.total)
-    if clv.shape != want or sc.shape != (layout.sc_total,):
+    want_sc = part._sc_rows() + (layout.sc_total,)
+    if clv.shape != want or sc.shape != want_sc:
         raise C.PllError(C.ERROR_PARAM_INVALID,
                          f"pooled buffers {clv.shape}, {sc.shape} do not "
-                         f"fit the layout ({want}, ({layout.sc_total},))")
+                         f"fit the layout ({want}, {want_sc})")
     part.clv_flat = torch.tensor(clv, dtype=part.dtype, device=part.device)
     part.sc_flat = torch.tensor(sc, dtype=torch.int32, device=part.device)
     part._flat = layout

@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel libpll2_tpu/ops/pallas_fused.py:_fused_kernel, the
 // row-layout kernel that libpll2_tpu runs for alphabets of 16 or more states
-// (proteins), with per-site scalers and tips from state codes. Called through
+// (proteins), in all its modes: per-site or per-rate scalers, tips from state
+// codes and from raw probability rows. Called through
 // libpll2_tpu_torch/ops/fused.py:fused_traversal_rows, which also holds the
 // plain PyTorch version (fused_traversal_reference) that this must agree
 // with.
@@ -17,27 +18,38 @@
 //                                * (sum_j P[m2,r,i,j] right[r,j]).
 // If has_scaler and max over all (r, i) of x < threshold, x *= factor and the
 // site's count grows by one; counts of the children are added (tips count
-// 0). Tip children are int32 bitmasks (bit j = state j), the same for every
-// rate. Only the root edge's two CLVs [R, s, S] and counts [S] are written.
-// With `bf16` set (the 'bf16' contraction mode), P and every inner-child CLV
-// value are rounded to bf16 by (bits + 0x8000) & 0xFFFF0000 before use, the
-// same bit operation as ops/fused.py:round_bf16; a product of two such values
-// is exact in float32, so kernel and plain version differ only in the order
-// of their float32 sums, as in the exact mode.
+// 0). A child's is_tip says what it is: 0 a slot, 1 a tip given by an int32
+// bitmask (bit j = state j), 2 a row of the raw tip matrix ctips [n_ctips,
+// s, S] (set_tip_clv tips); tips of both kinds are the same for every rate.
+// In per-rate mode (rate_scalers != 0) each rate block's max is compared
+// with the threshold on its own and counts are kept per rate. Only the root
+// edge's two CLVs [R, s, S] and counts ([S], or [R, S] per rate) are
+// written. With `bf16` set (the 'bf16' contraction mode), P and every
+// inner-child CLV value are rounded to bf16 by (bits + 0x8000) & 0xFFFF0000
+// before use, the same bit operation as ops/fused.py:round_bf16, and raw tip
+// values to the nearest bf16, ties to even (ops/fused.py:round_bf16_rne, the
+// astype(bfloat16) of JAX's kernel); a product of two such values is exact
+// in float32, so kernel and plain version differ only in the order of their
+// float32 sums, as in the exact mode.
 //
 // Design. A block owns kTile = 32 consecutive sites, one per lane, and
 // kWarps = 8 warps. For each op, and for each chunk of rc rates (rc = R
 // unless the shared-memory tile of a large R * s needs chunks):
 //   1. stage the chunk's rate blocks of P[m1] and P[m2] in shared memory (rows
 //      padded to a multiple of 4 for float4 reads; 12.8 KB at LG+G4) and both
-//      children's [rc * s, 32] columns (a tip is decoded once into s rows
-//      that every rate reads);
+//      children's [rc * s, 32] columns (a tip is decoded, or a raw tip's s
+//      rows copied, once into s rows that every rate reads);
 //   2. __syncthreads(); each warp takes items (rate, block of kRowBlock
 //      output rows): both matvecs for its 32 sites, their product into the
 //      op's output tile x_sm [R * s, 32] in shared memory, and a running max;
 //   3. __syncthreads() before the next chunk overwrites the staging buffers.
-// Then the per-site max is reduced across warps in shared memory, and after
-// a barrier every warp scales its rows and stores the parent into its slot.
+// Then the per-site max is reduced across warps in shared memory (in
+// per-rate mode, after a barrier, each warp takes rates and reduces each
+// one's s rows of the output tile into a flag of a small [R, 32] shared
+// array), and after a barrier every warp scales its rows and stores the
+// parent into its slot. Per-rate counts of the children are read into a
+// second [R, 32] array at the start of the op, before any store, by the
+// warp that later stores the parent's count of that rate.
 // Inside a warp, P reads are one broadcast address and child reads 32
 // consecutive floats: no bank conflicts.
 //
@@ -78,21 +90,29 @@ struct Args {
   int n_ops;
   const float* pmat;   // [E, R, s, s]
   const int* tips;     // [n_tips, S]
+  const float* ctips;  // [n_ctips, s, S] raw tip rows, or null
   int sites;
   int rates, states;
   float* slots;        // [n_slots, R * s, S]
-  int* slot_sc;        // [n_slots, S]
+  int* slot_sc;        // [n_slots, SR, S], SR = R per rate, else 1
   float* out_p;        // [R * s, S]
   float* out_c;
-  int* sc_p;           // [S]
+  int* sc_p;           // [SR, S]
   int* sc_c;
   float threshold, factor;
+  int rate_scalers;
   int bf16;
   int rate_chunk;      // rc: rates staged at once
 };
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x8000u) & 0xFFFF0000u);
+}
+
+// to the nearest bf16, ties to even (finite x)
+__device__ __forceinline__ float round_bf16_rne(float x) {
+  const unsigned u = __float_as_uint(x);
+  return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
 }
 
 __device__ __forceinline__ float tip_bit(unsigned code, int j) {
@@ -104,10 +124,12 @@ __device__ __forceinline__ float tip_bit(unsigned code, int j) {
 //   c_sm [2][rc * s][kTile]
 //   x_sm [R * s][kTile]
 //   red  [kWarps][kTile]
+//   rflag, csc [R][kTile] int: per-rate rescale flags and children's counts
 __host__ __device__ inline size_t smem_floats(int rates, int states, int rc) {
   const int sp = (states + 3) & ~3;
   return (size_t)2 * rc * states * sp + (size_t)2 * rc * states * kTile +
-         (size_t)rates * states * kTile + (size_t)kWarps * kTile;
+         (size_t)rates * states * kTile + (size_t)kWarps * kTile +
+         (size_t)2 * rates * kTile;
 }
 
 __global__ void __launch_bounds__(kThreads) fused_rows(Args a) {
@@ -119,6 +141,8 @@ __global__ void __launch_bounds__(kThreads) fused_rows(Args a) {
   float* const c_sm = p_sm + 2 * RC * s * sp;
   float* const x_sm = c_sm + 2 * RC * s * kTile;
   float* const red = x_sm + RS * kTile;
+  int* const rflag = reinterpret_cast<int*>(red + kWarps * kTile);
+  int* const csc = rflag + R * kTile;
 
   const int lane = threadIdx.x % kTile, warp = threadIdx.x / kTile;
   const size_t S = a.sites;
@@ -131,11 +155,22 @@ __global__ void __launch_bounds__(kThreads) fused_rows(Args a) {
     const int is_tip[2] = {__ldg(row + 1), __ldg(row + 4)};
     const int idx[2] = {__ldg(row + 2), __ldg(row + 5)};
     const int mat[2] = {__ldg(row + 3), __ldg(row + 6)};
-    // the children's counts, read before any store of this op
+    // the children's counts, read before any store of this op: per site
+    // by warp 0, per rate by the warp that stores that rate's count
     int sc = 0;
-    if (warp == 0 && live) {
+    if (a.rate_scalers) {
+      for (int r = warp; r < R; r += kWarps) {
+        int c = 0;
+        for (int side = 0; side < 2; ++side) {
+          if (is_tip[side] == 0 && live) {
+            c += a.slot_sc[((size_t)idx[side] * R + r) * S + site];
+          }
+        }
+        csc[r * kTile + lane] = c;
+      }
+    } else if (warp == 0 && live) {
       for (int side = 0; side < 2; ++side) {
-        if (!is_tip[side]) sc += a.slot_sc[(size_t)idx[side] * S + site];
+        if (is_tip[side] == 0) sc += a.slot_sc[(size_t)idx[side] * S + site];
       }
     }
     float m = 0.0f;   // this thread's max over its rows (x is non-negative)
@@ -153,11 +188,17 @@ __global__ void __launch_bounds__(kThreads) fused_rows(Args a) {
           dst[q] = a.bf16 ? round_bf16(v) : v;
         }
         float* cdst = c_sm + side * RC * s * kTile;
-        if (is_tip[side]) {
+        if (is_tip[side] == 1) {
           const unsigned code =
               live ? static_cast<unsigned>(__ldg(a.tips + (size_t)idx[side] * S + site))
                    : 0u;
           for (int q = warp; q < s; q += kWarps) cdst[q * kTile + lane] = tip_bit(code, q);
+        } else if (is_tip[side] == 2) {
+          const float* csrc = a.ctips + (size_t)idx[side] * s * S + site;
+          for (int q = warp; q < s; q += kWarps) {
+            const float v = live ? __ldg(csrc + (size_t)q * S) : 0.0f;
+            cdst[q * kTile + lane] = a.bf16 ? round_bf16_rne(v) : v;
+          }
         } else {
           const float* csrc = a.slots + ((size_t)idx[side] * RS + (size_t)r0 * s) * S + site;
           for (int q = warp; q < rc * s; q += kWarps) {
@@ -218,39 +259,68 @@ __global__ void __launch_bounds__(kThreads) fused_rows(Args a) {
       }
     }
 
-    // 3. per-site max across warps, scale, store the parent
+    // 3. the max across warps (per site) or over each rate's rows (per
+    // rate), scale, store the parent
     red[warp * kTile + lane] = m;
     __syncthreads();
-    float mx = red[lane];
-    for (int w = 1; w < kWarps; ++w) {
-      const float v = red[w * kTile + lane];
-      mx = v > mx ? v : mx;
+    const int has = __ldg(row + 7);
+    bool scale = false;
+    if (a.rate_scalers) {
+      for (int r = warp; r < R; r += kWarps) {
+        float mr = 0.0f;
+        for (int i = 0; i < s; ++i) {
+          const float v = x_sm[(r * s + i) * kTile + lane];
+          mr = v > mr ? v : mr;
+        }
+        rflag[r * kTile + lane] = has && mr < a.threshold;
+      }
+      __syncthreads();
+    } else {
+      float mx = red[lane];
+      for (int w = 1; w < kWarps; ++w) {
+        const float v = red[w * kTile + lane];
+        mx = v > mx ? v : mx;
+      }
+      scale = has && mx < a.threshold;
     }
-    const bool scale = __ldg(row + 7) && mx < a.threshold;
-    const float f = scale ? a.factor : 1.0f;
     if (live) {
       const int pslot = __ldg(row);
       float* dst = a.slots + (size_t)pslot * RS * S + site;
-      for (int q = warp; q < RS; q += kWarps) dst[(size_t)q * S] = x_sm[q * kTile + lane] * f;
-      if (warp == 0) a.slot_sc[(size_t)pslot * S + site] = sc + (scale ? 1 : 0);
+      for (int q = warp; q < RS; q += kWarps) {
+        const bool sq = a.rate_scalers ? rflag[(q / s) * kTile + lane] != 0 : scale;
+        dst[(size_t)q * S] = x_sm[q * kTile + lane] * (sq ? a.factor : 1.0f);
+      }
+      if (a.rate_scalers) {
+        for (int r = warp; r < R; r += kWarps) {
+          a.slot_sc[((size_t)pslot * R + r) * S + site] =
+              csc[r * kTile + lane] + rflag[r * kTile + lane];
+        }
+      } else if (warp == 0) {
+        a.slot_sc[(size_t)pslot * S + site] = sc + (scale ? 1 : 0);
+      }
     }
   }
 
   __syncthreads();   // the last op's stores, made by other warps
   if (!live) return;
   const int* root = a.table + a.n_ops * kRow;
+  const int SR = a.rate_scalers ? R : 1;
   for (int end = 0; end < 2; ++end) {
     const int is_tip = __ldg(root + 2 * end), idx = __ldg(root + 2 * end + 1);
     float* out = (end ? a.out_c : a.out_p) + site;
     int* osc = end ? a.sc_c : a.sc_p;
-    if (is_tip) {
+    if (is_tip == 1) {
       const unsigned code = static_cast<unsigned>(__ldg(a.tips + (size_t)idx * S + site));
       for (int q = warp; q < RS; q += kWarps) out[(size_t)q * S] = tip_bit(code, q % s);
-      if (warp == 0) osc[site] = 0;
+    } else if (is_tip == 2) {
+      const float* src = a.ctips + (size_t)idx * s * S + site;
+      for (int q = warp; q < RS; q += kWarps) out[(size_t)q * S] = __ldg(src + (size_t)(q % s) * S);
     } else {
       const float* src = a.slots + (size_t)idx * RS * S + site;
       for (int q = warp; q < RS; q += kWarps) out[(size_t)q * S] = src[(size_t)q * S];
-      if (warp == 0) osc[site] = a.slot_sc[(size_t)idx * S + site];
+    }
+    for (int r = warp; r < SR; r += kWarps) {
+      osc[r * S + site] = is_tip ? 0 : a.slot_sc[((size_t)idx * SR + r) * S + site];
     }
   }
 }
@@ -261,11 +331,12 @@ __global__ void __launch_bounds__(kThreads) fused_rows(Args a) {
 // error code without launching when the shapes do not fit.
 extern "C" int pll_fused_traversal_rows(const int* table, int n_ops,
                                         const float* pmat, const int* tips,
-                                        int sites, int rates, int states,
-                                        float* slots, int* slot_sc, int n_slots,
-                                        float* out_p, float* out_c, int* sc_p,
-                                        int* sc_c, float threshold, float factor,
-                                        int bf16, void* stream) {
+                                        const float* ctips, int sites, int rates,
+                                        int states, float* slots, int* slot_sc,
+                                        int n_slots, float* out_p, float* out_c,
+                                        int* sc_p, int* sc_c, float threshold,
+                                        float factor, int rate_scalers, int bf16,
+                                        void* stream) {
   (void)n_slots;
   if (states < 1 || states > 32 || rates < 1 || sites < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -286,8 +357,8 @@ extern "C" int pll_fused_traversal_rows(const int* table, int n_ops,
                                static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  Args a{table, n_ops, pmat, tips, sites, rates, states, slots, slot_sc,
-         out_p, out_c, sc_p, sc_c, threshold, factor, bf16, rc};
+  Args a{table, n_ops, pmat, tips, ctips, sites, rates, states, slots, slot_sc,
+         out_p, out_c, sc_p, sc_c, threshold, factor, rate_scalers, bf16, rc};
   const dim3 grid((sites + kTile - 1) / kTile);
   fused_rows<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -17,7 +17,12 @@
 // If has_scaler and x < threshold for every (r, i), x *= factor and the
 // rescale counts 1. scaler[psc] = scaler[s1] + scaler[s2] + rescale. The
 // host maps a missing child scaler to the always-zero row and a missing
-// parent scaler to the trash row, so the kernel has no special cases.
+// parent scaler to the trash row, so the kernel has no special cases. In
+// per-rate mode (rate_scalers != 0; scaler [K+2, R, S]) each rate's block
+// is compared with the threshold and rescaled on its own, and every scaler
+// row holds one count per rate. libpll2_tpu's level kernel has no per-rate
+// mode (its per-rate step-by-step API runs XLA); the port's step-by-step API
+// always launches this kernel, so it has one.
 //
 // Why in place is safe. The host (ops/levels.py:schedule_levels) puts no
 // two ops in a level where one writes a row (CLV or scaler) that another
@@ -25,8 +30,9 @@
 // every child value a thread reads is read before the rows it came from can
 // be written (the 4x4 variant holds the whole op in registers; the generic
 // one stages a rate's child rows in shared memory before any of that rate's
-// parent rows is stored), so even an op whose parent is its own child is
-// right.
+// parent rows is stored, and rescales a rate's rows, per rate, before the
+// next rate's child rows are staged), so even an op whose parent is its own
+// child is right.
 //
 // What bounds it on an H100: bytes. Per op and site it reads 2 * R * s and
 // writes R * s floats, against 2 * R * s * s FMAs. A DNA traversal at 128
@@ -64,12 +70,13 @@ constexpr int kMaxStates = 32;
 
 struct Args {
   float* clv;          // [N+1, R * s, S]
-  int* scaler;         // [K+2, S]
+  int* scaler;         // [K+2, SR, S], SR = R per rate, else 1
   const float* pmat;   // [E, R, s, s]
   const int* table;    // [9, ld]: this level's ops in columns 0..W-1
   int ld;
   int sites, rates, states;
   float threshold, factor;
+  int rate_scalers;
 };
 
 struct Op {
@@ -91,19 +98,23 @@ __device__ __forceinline__ Op load_op(const Args& a, int w) {
   return op;
 }
 
-__device__ __forceinline__ void write_scaler(const Args& a, const Op& op,
+// count group q (a rate in per-rate mode, else 0) of the parent's scaler row
+__device__ __forceinline__ void write_scaler(const Args& a, const Op& op, int q,
                                              size_t site, int rescale) {
   const size_t S = a.sites;
-  a.scaler[(size_t)op.psc * S + site] =
-      a.scaler[(size_t)op.s1 * S + site] + a.scaler[(size_t)op.s2 * S + site] +
-      rescale;
+  const int SR = a.rate_scalers ? a.rates : 1;
+  a.scaler[((size_t)op.psc * SR + q) * S + site] =
+      a.scaler[((size_t)op.s1 * SR + q) * S + site] +
+      a.scaler[((size_t)op.s2 * SR + q) * S + site] + rescale;
 }
 
 // ---------------------------------------------------------------------------
 // Sizes known at compile time: one thread per site holds the op in registers.
-template <int S_, int R_>
+// NSC counts per site: 1, or R_ in per-rate mode.
+template <int S_, int R_, int NSC>
 __global__ void __launch_bounds__(kFixedBlock) level_fixed(Args a) {
   constexpr int RS = R_ * S_;
+  constexpr int G = RS / NSC;  // rows per count
   const Op op = load_op(a, blockIdx.y);
   const size_t site = (size_t)blockIdx.x * kFixedBlock + threadIdx.x;
   if (site >= (size_t)a.sites) return;
@@ -118,7 +129,6 @@ __global__ void __launch_bounds__(kFixedBlock) level_fixed(Args a) {
     l[k] = left[k * S];
     r[k] = right[k * S];
   }
-  float m = 0.0f;
 #pragma unroll
   for (int rate = 0; rate < R_; ++rate) {
 #pragma unroll
@@ -132,17 +142,20 @@ __global__ void __launch_bounds__(kFixedBlock) level_fixed(Args a) {
         ta += __ldg(p + j) * l[rate * S_ + j];
         tb += __ldg(q + j) * r[rate * S_ + j];
       }
-      const float v = ta * tb;
-      x[rate * S_ + i] = v;
-      m = v > m ? v : m;
+      x[rate * S_ + i] = ta * tb;
     }
   }
-  const int rescale = op.has && m < a.threshold;
-  const float f = rescale ? a.factor : 1.0f;
   float* dst = a.clv + (size_t)op.parent * RS * S + site;
 #pragma unroll
-  for (int k = 0; k < RS; ++k) dst[k * S] = rescale ? x[k] * f : x[k];
-  write_scaler(a, op, site, rescale);
+  for (int g = 0; g < NSC; ++g) {
+    float m = 0.0f;
+#pragma unroll
+    for (int k = g * G; k < (g + 1) * G; ++k) m = x[k] > m ? x[k] : m;
+    const int rescale = op.has && m < a.threshold;
+#pragma unroll
+    for (int k = g * G; k < (g + 1) * G; ++k) dst[k * S] = rescale ? x[k] * a.factor : x[k];
+    write_scaler(a, op, g, site, rescale);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -150,11 +163,11 @@ __global__ void __launch_bounds__(kFixedBlock) level_fixed(Args a) {
 // (one per lane) of one op; its 8 warps split the rows of one rate at a time.
 // Per rate: P[m1, r] and P[m2, r] and the children's s rows of the tile are
 // staged in shared memory, then each warp computes its rows and stores them
-// unscaled. After all rates, the per-site maximum is reduced across warps; a
-// site that must be rescaled has its stored rows multiplied by `factor`
-// (a global store by one thread is visible to the block after
-// __syncthreads()). x * factor is the same float whether multiplied before
-// or after the store.
+// unscaled. After all rates (per-rate mode: after each rate, over that
+// rate's rows), the maximum is reduced across warps; a site that must be
+// rescaled has its stored rows multiplied by `factor` (a global store by one
+// thread is visible to the block after __syncthreads()). x * factor is the
+// same float whether multiplied before or after the store.
 __global__ void __launch_bounds__(kWarps * 32) level_generic(Args a) {
   __shared__ float sp[2][kMaxStates * kMaxStates];
   __shared__ float sc[2][kMaxStates][kTile];
@@ -184,6 +197,7 @@ __global__ void __launch_bounds__(kWarps * 32) level_generic(Args a) {
       sc[1][j][lane] = in ? right[at] : 0.0f;
     }
     __syncthreads();
+    float mr = 0.0f;
     for (int i = warp; i < s; i += kWarps) {
       const float* p = sp[0] + i * s;
       const float* q = sp[1] + i * s;
@@ -194,10 +208,27 @@ __global__ void __launch_bounds__(kWarps * 32) level_generic(Args a) {
         tb += q[j] * sc[1][j][lane];
       }
       const float v = ta * tb;
-      m = v > m ? v : m;
+      mr = v > mr ? v : mr;
       if (in) dst[(size_t)(r * s + i) * S + site] = v;
     }
+    m = mr > m ? mr : m;
+    if (a.rate_scalers) {  // this rate's count and rescale
+      smax[warp][lane] = mr;
+      __syncthreads();
+      if (warp == 0) {
+        float mm = smax[0][lane];
+        for (int w = 1; w < kWarps; ++w) mm = smax[w][lane] > mm ? smax[w][lane] : mm;
+        const int rescale = op.has && mm < a.threshold;
+        sflag[lane] = rescale;
+        if (in) write_scaler(a, op, r, site, rescale);
+      }
+      __syncthreads();
+      if (in && sflag[lane]) {
+        for (int i = warp; i < s; i += kWarps) dst[(size_t)(r * s + i) * S + site] *= a.factor;
+      }
+    }
   }
+  if (a.rate_scalers) return;
   smax[warp][lane] = m;
   __syncthreads();
   if (warp == 0) {
@@ -205,7 +236,7 @@ __global__ void __launch_bounds__(kWarps * 32) level_generic(Args a) {
     for (int w = 1; w < kWarps; ++w) mm = smax[w][lane] > mm ? smax[w][lane] : mm;
     const int rescale = op.has && mm < a.threshold;
     sflag[lane] = rescale;
-    if (in) write_scaler(a, op, site, rescale);
+    if (in) write_scaler(a, op, 0, site, rescale);
   }
   __syncthreads();
   if (in && sflag[lane]) {
@@ -220,12 +251,17 @@ __global__ void __launch_bounds__(kWarps * 32) level_generic(Args a) {
 extern "C" int pll_level_update(float* clv, int* scaler, const float* pmat,
                                 const int* table, int ld, int n_ops, int sites,
                                 int rates, int states, float threshold,
-                                float factor, void* stream) {
-  Args a{clv, scaler, pmat, table, ld, sites, rates, states, threshold, factor};
+                                float factor, int rate_scalers, void* stream) {
+  Args a{clv, scaler, pmat, table, ld, sites, rates, states, threshold, factor,
+         rate_scalers};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (states == 4 && rates == 4) {
     const dim3 grid((sites + kFixedBlock - 1) / kFixedBlock, n_ops);
-    level_fixed<4, 4><<<grid, kFixedBlock, 0, st>>>(a);
+    if (rate_scalers) {
+      level_fixed<4, 4, 4><<<grid, kFixedBlock, 0, st>>>(a);
+    } else {
+      level_fixed<4, 4, 1><<<grid, kFixedBlock, 0, st>>>(a);
+    }
   } else {
     const dim3 grid((sites + kTile - 1) / kTile, n_ops);
     level_generic<<<grid, kWarps * 32, 0, st>>>(a);

@@ -22,7 +22,11 @@
 // If has and x < threshold for every (r, i), x *= factor and the rescale
 // counts 1; sc[psc_off + c] = sc[s1_off + gl] + sc[s2_off + gr] + rescale.
 // The host points a missing child scaler at the always-zero region and a
-// missing parent scaler at the trash region (has = 0: never rescaled).
+// missing parent scaler at the trash region (has = 0: never rescaled). In
+// per-rate mode (rate_scalers != 0; sc [R, T2]) each rate's block is
+// compared with the threshold and rescaled on its own, and every scaler
+// region holds one count row per rate. libpll2_tpu refuses per-rate scalers
+// in its pool kernel and runs XLA; this kernel has the mode.
 //
 // Why in place is safe. Every node and every scaler index owns its own
 // pooled region, and the host (ops/levels.py:schedule_levels) puts no two
@@ -62,7 +66,7 @@ constexpr int kMaxStates = 32;
 
 struct Args {
   float* pool;               // [R * s, T]
-  int* sc;                   // [T2]
+  int* sc;                   // [SR, T2], SR = R per rate, else 1
   const float* pmat;         // [E, R, s, s]
   const long long* table;    // [11, ld]: this level's ops in columns 0..n-1
   int ld;
@@ -71,6 +75,8 @@ struct Args {
   const int* gr;
   int rates, states;
   float threshold, factor;
+  long long T2;
+  int rate_scalers;
 };
 
 struct Op {
@@ -94,12 +100,21 @@ __device__ __forceinline__ Op load_op(const Args& a, int k) {
   return op;
 }
 
+// count group q (a rate in per-rate mode, else 0) of parent column c
+__device__ __forceinline__ void write_count(const Args& a, const Op& op, int q,
+                                            long long c, int gl, int gr,
+                                            int rescale) {
+  int* sc = a.sc + q * a.T2;
+  sc[op.psc + c] = sc[op.s1 + gl] + sc[op.s2 + gr] + rescale;
+}
+
 // ---------------------------------------------------------------------------
 // Sizes known at compile time: one thread per class column holds the op in
-// registers.
-template <int S_, int R_>
+// registers. NSC counts per column: 1, or R_ in per-rate mode.
+template <int S_, int R_, int NSC>
 __global__ void __launch_bounds__(kFixedBlock) pool_fixed(Args a) {
   constexpr int RS = R_ * S_;
+  constexpr int G = RS / NSC;  // rows per count
   const Op op = load_op(a, blockIdx.y);
   const long long c = (long long)blockIdx.x * kFixedBlock + threadIdx.x;
   if (c >= op.w) return;
@@ -116,7 +131,6 @@ __global__ void __launch_bounds__(kFixedBlock) pool_fixed(Args a) {
     l[k] = left[k * T];
     r[k] = right[k * T];
   }
-  float m = 0.0f;
 #pragma unroll
   for (int rate = 0; rate < R_; ++rate) {
 #pragma unroll
@@ -130,16 +144,20 @@ __global__ void __launch_bounds__(kFixedBlock) pool_fixed(Args a) {
         ta += __ldg(p + j) * l[rate * S_ + j];
         tb += __ldg(q + j) * r[rate * S_ + j];
       }
-      const float v = ta * tb;
-      x[rate * S_ + i] = v;
-      m = v > m ? v : m;
+      x[rate * S_ + i] = ta * tb;
     }
   }
-  const int rescale = op.has && m < a.threshold;
   float* dst = a.pool + op.p + c;
 #pragma unroll
-  for (int k = 0; k < RS; ++k) dst[k * T] = rescale ? x[k] * a.factor : x[k];
-  a.sc[op.psc + c] = a.sc[op.s1 + gl] + a.sc[op.s2 + gr] + rescale;
+  for (int g = 0; g < NSC; ++g) {
+    float m = 0.0f;
+#pragma unroll
+    for (int k = g * G; k < (g + 1) * G; ++k) m = x[k] > m ? x[k] : m;
+    const int rescale = op.has && m < a.threshold;
+#pragma unroll
+    for (int k = g * G; k < (g + 1) * G; ++k) dst[k * T] = rescale ? x[k] * a.factor : x[k];
+    write_count(a, op, g, c, gl, gr, rescale);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -147,10 +165,11 @@ __global__ void __launch_bounds__(kFixedBlock) pool_fixed(Args a) {
 // columns (one per lane) of one op; its 8 warps split the rows of one rate
 // at a time. Per rate: P[m1, r] and P[m2, r] and the gathered child columns'
 // s rows are staged in shared memory, then each warp computes its rows and
-// stores them unscaled. After all rates, the per-column maximum is reduced
-// across warps; a column that must be rescaled has its stored rows
-// multiplied by `factor` after a barrier (a global store by one thread is
-// visible to the block after __syncthreads()).
+// stores them unscaled. After all rates (per-rate mode: after each rate,
+// over that rate's rows), the per-column maximum is reduced across warps; a
+// column that must be rescaled has its stored rows multiplied by `factor`
+// after a barrier (a global store by one thread is visible to the block
+// after __syncthreads()).
 __global__ void __launch_bounds__(kWarps * 32) pool_generic(Args a) {
   __shared__ float sp[2][kMaxStates * kMaxStates];
   __shared__ float sx[2][kMaxStates][kTile];
@@ -184,6 +203,7 @@ __global__ void __launch_bounds__(kWarps * 32) pool_generic(Args a) {
       sx[1][j][lane] = in ? right[at] : 0.0f;
     }
     __syncthreads();
+    float mr = 0.0f;
     for (int i = warp; i < s; i += kWarps) {
       const float* p = sp[0] + i * s;
       const float* q = sp[1] + i * s;
@@ -194,10 +214,27 @@ __global__ void __launch_bounds__(kWarps * 32) pool_generic(Args a) {
         tb += q[j] * sx[1][j][lane];
       }
       const float v = ta * tb;
-      m = v > m ? v : m;
+      mr = v > mr ? v : mr;
       if (in) dst[(size_t)(r * s + i) * T] = v;
     }
+    m = mr > m ? mr : m;
+    if (a.rate_scalers) {  // this rate's count and rescale
+      smax[warp][lane] = mr;
+      __syncthreads();
+      if (warp == 0) {
+        float mm = smax[0][lane];
+        for (int w = 1; w < kWarps; ++w) mm = smax[w][lane] > mm ? smax[w][lane] : mm;
+        const int rescale = op.has && mm < a.threshold;
+        sflag[lane] = rescale;
+        if (in) write_count(a, op, r, c, gl, gr, rescale);
+      }
+      __syncthreads();
+      if (in && sflag[lane]) {
+        for (int i = warp; i < s; i += kWarps) dst[(size_t)(r * s + i) * T] *= a.factor;
+      }
+    }
   }
+  if (a.rate_scalers) return;
   smax[warp][lane] = m;
   __syncthreads();
   if (warp == 0) {
@@ -207,7 +244,7 @@ __global__ void __launch_bounds__(kWarps * 32) pool_generic(Args a) {
     }
     const int rescale = op.has && mm < a.threshold;
     sflag[lane] = rescale;
-    if (in) a.sc[op.psc + c] = a.sc[op.s1 + gl] + a.sc[op.s2 + gr] + rescale;
+    if (in) write_count(a, op, 0, c, gl, gr, rescale);
   }
   __syncthreads();
   if (in && sflag[lane]) {
@@ -218,18 +255,24 @@ __global__ void __launch_bounds__(kWarps * 32) pool_generic(Args a) {
 }  // namespace
 
 // Launches one level of `n_ops` ops, the widest `max_width` class columns
-// wide, on `stream` and returns cudaGetLastError() (0 on success).
+// wide, on `stream` and returns cudaGetLastError() (0 on success). T2 is the
+// scaler pool's column count (its row stride in per-rate mode).
 extern "C" int pll_pool_update(float* pool, int* sc, const float* pmat,
                                const long long* table, int ld, int n_ops,
                                int max_width, long long T, const int* gl,
                                const int* gr, int rates, int states,
-                               float threshold, float factor, void* stream) {
+                               float threshold, float factor, long long T2,
+                               int rate_scalers, void* stream) {
   Args a{pool, sc, pmat, table, ld, T, gl, gr, rates, states, threshold,
-         factor};
+         factor, T2, rate_scalers};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (states == 4 && rates == 4) {
     const dim3 grid((max_width + kFixedBlock - 1) / kFixedBlock, n_ops);
-    pool_fixed<4, 4><<<grid, kFixedBlock, 0, st>>>(a);
+    if (rate_scalers) {
+      pool_fixed<4, 4, 4><<<grid, kFixedBlock, 0, st>>>(a);
+    } else {
+      pool_fixed<4, 4, 1><<<grid, kFixedBlock, 0, st>>>(a);
+    }
   } else {
     const dim3 grid((max_width + kTile - 1) / kTile, n_ops);
     pool_generic<<<grid, kWarps * 32, 0, st>>>(a);

@@ -1,9 +1,9 @@
 """Full-tree evaluation, in PyTorch.
 
 Port of libpll2_tpu/engine.py (`_fused_loglikelihood`, `_fused_newton_step`,
-`_repeats_loglikelihood`, a single repeats Newton step and `TreeEngine`),
-without its mesh, per-rate-scaler, candidate-scoring and k-chained loop
-parts:
+`_repeats_loglikelihood`, a single repeats Newton step and `TreeEngine`,
+with per-rate scalers, raw tip CLVs and ascertainment-bias corrections),
+without its mesh, candidate-scoring and k-chained loop parts:
 
     branches -> P-matrices -> CLVs -> root-edge logL
              (-> sumtable -> d1/d2 -> guarded Newton step on the root edge)
@@ -26,7 +26,9 @@ The CLV step takes one of seven paths (`TreeEngine.execution_path`):
   'levels'/'scan' plain PyTorch (ops/partials.py), batched per level or one
                   op at a time.
 Everything else is plain tensor code on the partition's device, in its
-dtype. With `edge_params` (per-branch heterotachy) every path builds its
+dtype. A partition's per-rate scalers, raw tips and asc correction ride
+every path (`Partition._modes`, and the raw tip rows on the fused path).
+With `edge_params` (per-branch heterotachy) every path builds its
 P-matrices per edge (ops/pmatrix.py:update_prob_matrices_per_edge), and the
 root edge's rate matrix drives the likelihood and derivatives.
 """
@@ -87,20 +89,27 @@ def _scatter_root_rows(clv, scaler, root_idx, rows) -> None:
 def _root_newton(rows, branches, root_mat: int, eigenvals, inv_eigenvecs,
                  eigenvecs, prop_invar, rates, rate_weights, freqs,
                  params_idx_rates, pattern_weights, invariant,
-                 scale_threshold: float):
+                 scale_threshold: float, rate_scalers: bool = False,
+                 asc_type: int = C.AB_NONE, n_real: int = -1):
     """Sumtable and d1/d2 of the root edge's rows, then a guarded Newton
-    update of its length (reference examples/newton/newton.c:66-96).
-    Returns (d1, d2, new branches)."""
+    update of its length (reference examples/newton/newton.c:66-96). The
+    Lewis and Felsenstein corrections undo the synthetic columns' scaling
+    with the rows' counts (libpll2_tpu/engine.py:281-290). Returns (d1, d2,
+    new branches)."""
     clv_p, clv_c, sc_p, sc_c = rows
     sumtable = ops_derivatives.update_sumtable(
         clv_p, clv_c, sc_p, sc_c, inv_eigenvecs, eigenvecs, freqs,
-        params_idx_rates, scale_threshold, has_pscaler=True,
-        has_cscaler=True)
+        params_idx_rates, scale_threshold, rate_scalers=rate_scalers,
+        has_pscaler=True, has_cscaler=True)
     blen = branches[root_mat]
+    asc_scalers = None
+    if asc_type in (C.AB_LEWIS, C.AB_FELSENSTEIN):
+        asc_scalers = sc_p + sc_c
     d1, d2 = ops_derivatives.likelihood_derivatives(
         sumtable, eigenvals, prop_invar, freqs, rates, rate_weights,
         params_idx_rates, pattern_weights, invariant, blen,
-        scale_threshold=scale_threshold)
+        asc_scalers=asc_scalers, scale_threshold=scale_threshold,
+        asc_type=asc_type, n_real=n_real)
     new_len = ops_derivatives.newton_step(blen, d1, d2,
                                           C.OPT_MIN_BRANCH_LEN,
                                           C.OPT_MAX_BRANCH_LEN)
@@ -115,22 +124,28 @@ def _fused_loglikelihood(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
                          pattern_weights, invariant, n_slots: int,
                          scale_threshold: float, scale_factor: float,
                          traversal=ops_fused.fused_traversal,
-                         mxu: str = "split", edge_params=None):
+                         mxu: str = "split", edge_params=None,
+                         rate_scalers: bool = False, tip_clvs=None,
+                         asc_type: int = C.AB_NONE, n_real: int = -1):
     """The fused path. branches[e] is ordered by pmatrix index e. Returns
     (total logL, per-site weighted logL, root rows (clv_p, clv_c, sc_p,
     sc_c), P-matrices). `traversal` is the fused traversal to run: the
     dispatching wrapper, or its plain version for a comparison on the card;
-    `mxu` its contraction mode (ops/fused.py)."""
+    `mxu` its contraction mode, `rate_scalers` and `tip_clvs` (the raw tip
+    rows) its modes (ops/fused.py); `asc_type` and `n_real` the
+    likelihood's asc correction."""
     pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
                          rates, params_idx_rates, branches, edge_params)
     rows = traversal(tip_codes, pmatrix, table, rates=pmatrix.shape[1],
                      states=pmatrix.shape[2], n_slots=n_slots,
-                     threshold=scale_threshold, factor=scale_factor, mxu=mxu)
+                     threshold=scale_threshold, factor=scale_factor, mxu=mxu,
+                     rate_scalers=rate_scalers, tip_clvs=tip_clvs)
     clv_p, clv_c, sc_p, sc_c = rows
     total, per = ops_likelihood.edge_loglikelihood(
         clv_p, clv_c, sc_p, sc_c, pmatrix[root_mat], freqs, prop_invar,
         rate_weights, params_idx_rates, pattern_weights, invariant,
-        scale_threshold)
+        scale_threshold, rate_scalers=rate_scalers, asc_type=asc_type,
+        n_real=n_real)
     return total, per, rows, pmatrix
 
 
@@ -140,7 +155,9 @@ def _fused_newton_step(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
                        pattern_weights, invariant, n_slots: int,
                        scale_threshold: float, scale_factor: float,
                        traversal=ops_fused.fused_traversal,
-                       mxu: str = "split", edge_params=None):
+                       mxu: str = "split", edge_params=None,
+                       rate_scalers: bool = False, tip_clvs=None,
+                       asc_type: int = C.AB_NONE, n_real: int = -1):
     """Evaluate the tree on the fused path, then Newton-update the root
     branch length from d1/d2. Returns (total, d1, d2, new branches, root
     rows, P-matrices)."""
@@ -148,11 +165,14 @@ def _fused_newton_step(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
         eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
         rate_weights, freqs, params_idx_rates, branches, table, tip_codes,
         root_mat, pattern_weights, invariant, n_slots, scale_threshold,
-        scale_factor, traversal=traversal, mxu=mxu, edge_params=edge_params)
+        scale_factor, traversal=traversal, mxu=mxu, edge_params=edge_params,
+        rate_scalers=rate_scalers, tip_clvs=tip_clvs, asc_type=asc_type,
+        n_real=n_real)
     d1, d2, branches = _root_newton(
         rows, branches, root_mat, eigenvals, inv_eigenvecs, eigenvecs,
         prop_invar, rates, rate_weights, freqs, params_idx_rates,
-        pattern_weights, invariant, scale_threshold)
+        pattern_weights, invariant, scale_threshold,
+        rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real)
     return total, d1, d2, branches, rows, pmatrix
 
 
@@ -161,9 +181,12 @@ def _dense_loglikelihood(clv, scaler, eigenvals, inv_eigenvecs, eigenvecs,
                          params_idx_rates, branches, path: str, plan,
                          root_idx, pattern_weights, invariant,
                          scale_threshold: float, scale_factor: float,
-                         level=ops_levels.level_update, edge_params=None):
+                         level=ops_levels.level_update, edge_params=None,
+                         rate_scalers: bool = False,
+                         asc_type: int = C.AB_NONE, n_real: int = -1):
     """A path over the dense buffers `clv` [N+1, R, s, S] and `scaler`
-    [K+2, S], which it updates in place. `path` and `plan`:
+    [K+2, S] ([K+2, R, S] with `rate_scalers`), which it updates in
+    place. `path` and `plan`:
     'levels-kernel' with the level tables on the device (each level run by
     `level`: the dispatching wrapper, or its plain version for a comparison
     on the card), 'levels' with (Operations [L, W], valid), 'scan' with
@@ -177,17 +200,20 @@ def _dense_loglikelihood(clv, scaler, eigenvals, inv_eigenvecs, eigenvecs,
                                           level=level)
     elif path == "levels":
         ops_partials.update_partials_levels(clv, scaler, pmatrix, *plan,
-                                            scale_threshold, scale_factor)
+                                            scale_threshold, scale_factor,
+                                            rate_scalers=rate_scalers)
     else:
         ops_partials.update_partials(clv, scaler, pmatrix, plan,
-                                     scale_threshold, scale_factor)
+                                     scale_threshold, scale_factor,
+                                     rate_scalers=rate_scalers)
     p_clv, p_sc, c_clv, c_sc, mat = root_idx
     # a missing scaler (-1) reads the last row, which stays zero
     rows = (clv[p_clv], clv[c_clv], scaler[p_sc], scaler[c_sc])
     total, per = ops_likelihood.edge_loglikelihood(
         rows[0], rows[1], rows[2], rows[3], pmatrix[mat], freqs, prop_invar,
         rate_weights, params_idx_rates, pattern_weights, invariant,
-        scale_threshold)
+        scale_threshold, rate_scalers=rate_scalers, asc_type=asc_type,
+        n_real=n_real)
     return total, per, pmatrix, rows
 
 
@@ -197,9 +223,11 @@ def _repeats_loglikelihood(clv_flat, sc_flat, eigenvals, inv_eigenvecs,
                            root_cols, root_mat: int, pattern_weights,
                            invariant, scale_threshold: float,
                            scale_factor: float, level=ops_pool.pool_update,
-                           edge_params=None):
+                           edge_params=None, rate_scalers: bool = False,
+                           asc_type: int = C.AB_NONE, n_real: int = -1):
     """A path over a repeats partition's pooled buffers `clv_flat` [R, s,
-    T] and `sc_flat` [T2], which it updates in place. `plan` is a PoolPlan;
+    T] and `sc_flat` [T2] ([R, T2] with `rate_scalers`), which it updates
+    in place. `plan` is a PoolPlan;
     `path` 'pool-pallas' runs each level through `level` (the dispatching
     wrapper, or its plain version for a comparison on the card), 'pool'
     through the plain version. `root_cols` holds the root edge's absolute
@@ -213,10 +241,11 @@ def _repeats_loglikelihood(clv_flat, sc_flat, eigenvals, inv_eigenvecs,
                                   scale_threshold, scale_factor, level=level)
     p_cols, p_sc_cols, c_cols, c_sc_cols = root_cols
     rows = (clv_flat[:, :, p_cols], clv_flat[:, :, c_cols],
-            sc_flat[p_sc_cols], sc_flat[c_sc_cols])
+            sc_flat[..., p_sc_cols], sc_flat[..., c_sc_cols])
     total, per = ops_likelihood.edge_loglikelihood(
         *rows, pmatrix[root_mat], freqs, prop_invar, rate_weights,
-        params_idx_rates, pattern_weights, invariant, scale_threshold)
+        params_idx_rates, pattern_weights, invariant, scale_threshold,
+        rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real)
     return total, per, pmatrix, rows
 
 
@@ -262,9 +291,11 @@ class TreeEngine:
                  edge_params=None, mxu: str = "split"):
         """`pallas` selects the CLV path, under libpll2_tpu's names:
           'auto', True, 'interpret' -- the fused whole-traversal kernel
-              when every tip is set and the op list is a postorder whose
-              ops all have scaler buffers (`pack_fused_schedule`); else the
-              per-level kernel, or on a site-repeats partition the pool
+              when every tip is set (from state codes or set_tip_clv), the
+              op list is a postorder whose ops all have scaler buffers
+              (`pack_fused_schedule`) and, with per-rate scalers on a 16+
+              state alphabet, at most 8 rate categories (as in JAX); else
+              the per-level kernel, or on a site-repeats partition the pool
               kernel ('repeats-dense-fused' runs the fused kernel over a
               repeats partition, which keeps its pooled storage);
           'levels-kernel', 'levels-interpret' -- the per-level kernel (on a
@@ -280,7 +311,12 @@ class TreeEngine:
         (default) and 'highest' run exact float32, 'bf16' rounds the
         operands to bf16 (ops/fused.py). `edge_params` [prob_matrices]
         gives the rate-matrix index of every P-matrix slot (per-branch
-        heterotachy)."""
+        heterotachy).
+
+        Where libpll2_tpu falls back to XLA only because its level or pool
+        kernel has no per-rate scaler mode, the port's kernels run theirs:
+        'levels-kernel' where JAX says 'levels', 'pool-pallas' where it says
+        'pool'."""
         if mxu not in ops_fused.MXU_MODES:
             raise C.PllError(C.ERROR_PARAM_INVALID,
                              f"mxu must be 'split', 'bf16' or 'highest', "
@@ -299,15 +335,21 @@ class TreeEngine:
         self.levels = level_schedule
         want_fused = pallas in ("auto", True, "interpret")
         want_pool = pallas in ("pool", "pool-interpret")
-        tips_ok = bool(p._tips_set.all())
+        # every tip set, from state codes or raw probabilities (is_tip 2
+        # rows of the op table); the rows route keeps JAX's 8-category
+        # bound on per-rate scalers (libpll2_tpu/engine.py:835-839; the
+        # small-alphabet kernel takes any count)
+        fused_ok = bool(np.all(p._tips_set | p._tips_clv_set)) and (
+            not p.rate_scalers or p.states < ops_fused.ROWS_STATES_MIN
+            or p.rate_cats <= ops_fused.ROWS_RATE_SCALERS_MAX)
         self.repeats_mode = p.repeats is not None
         # the fused kernel over a repeats partition: it reads only tip codes
         # and writes nothing back, so the pooled storage stays as it is
         self.repeats_dense_fused = self.repeats_mode and want_fused \
-            and tips_ok
+            and fused_ok
         if self.repeats_dense_fused:
             self.repeats_mode = False
-        self._fused_wanted = want_fused and tips_ok
+        self._fused_wanted = want_fused and fused_ok
         self._levelk_wanted = p.repeats is None and (
             want_fused or pallas in ("levels-kernel", "levels-interpret"))
         self._pool_kernel_wanted = p.repeats is not None and (
@@ -332,6 +374,7 @@ class TreeEngine:
             root = tree.vroot
         self._model_cache_version = None
         self._tip_codes_version = None
+        self._packed_ctips = frozenset()
         self._pack_topology(operations, branches, pmatrix_indices, root)
         p._ensure_eigen([params_index])
 
@@ -386,18 +429,45 @@ class TreeEngine:
         self._model_args()
         return self._site_cache
 
-    def _tip_codes(self) -> torch.Tensor:
-        """int32 tip bitmask codes [tips, sites_padded] on the device,
-        cached until a tip setter bumps the partition's _tip_version."""
+    def _refresh_tips(self) -> None:
+        """The fused path's tip operands on the device, rebuilt when a tip
+        setter bumped the partition's _tip_version: int32 bitmask codes
+        [tips, sites_padded] and the raw tip rows (or None). Raises when
+        the set of raw tips changed since the op table was packed (it
+        encodes which tips are raw rows)."""
         p = self.partition
-        if self._tip_codes_version != p._tip_version:
-            if not p._tips_set.all():
-                raise C.PllError(C.ERROR_PARAM_INVALID,
-                                 "the fused traversal needs every tip set")
-            self._tip_codes_cache = torch.as_tensor(
-                ops_fused.tip_code_matrix(p), device=self.device)
-            self._tip_codes_version = p._tip_version
+        if self._tip_codes_version == p._tip_version:
+            return
+        if not np.all(p._tips_set | p._tips_clv_set):
+            raise C.PllError(C.ERROR_PARAM_INVALID,
+                             "the fused traversal needs every tip set")
+        if frozenset(np.flatnonzero(p._tips_clv_set).tolist()) \
+                != self._packed_ctips:
+            raise C.PllError(
+                C.ERROR_PARAM_INVALID,
+                "the set of raw-probability tips (set_tip_clv) changed "
+                "after this fused-kernel engine packed its schedule; "
+                "rebuild the TreeEngine (or call set_topology) so that the "
+                "op table says again which tips are raw rows")
+        self._tip_codes_cache = torch.as_tensor(
+            ops_fused.tip_code_matrix(p), device=self.device)
+        self._tip_clvs_cache = ops_fused.tip_clv_matrix(p)
+        self._tip_codes_version = p._tip_version
+
+    def _tip_codes(self) -> torch.Tensor:
+        """int32 tip bitmask codes [tips, sites_padded] on the device."""
+        self._refresh_tips()
         return self._tip_codes_cache
+
+    def _tip_clvs(self):
+        """The raw tip rows [n_ctips, states, sites_padded] of the tips set
+        with set_tip_clv, or None."""
+        self._refresh_tips()
+        return self._tip_clvs_cache
+
+    def _fused_kw(self) -> dict:
+        """The fused path's keyword arguments: modes and raw tip rows."""
+        return dict(self.partition._modes(), tip_clvs=self._tip_clvs())
 
     def _pack_topology(self, operations, branches, pmatrix_indices,
                        root) -> None:
@@ -430,11 +500,15 @@ class TreeEngine:
             return
         if self._fused_wanted:
             table, n_slots = ops_fused.pack_fused_schedule(
-                operations, p.tips, (root.clv_index, root.back.clv_index))
+                operations, p.tips, (root.clv_index, root.back.clv_index),
+                clv_tip_rows=ops_fused.ctip_rows(p))
             if table is not None:
                 self.use_fused = True
                 self.table = torch.as_tensor(table, device=self.device)
                 self.fused_slots = n_slots
+                self._packed_ctips = frozenset(
+                    np.flatnonzero(p._tips_clv_set).tolist())
+                self._tip_codes_version = None
             elif self.repeats_dense_fused:
                 # an op list the kernel cannot run (a partial traversal, a
                 # missing scaler): a pooled partition has no dense buffers
@@ -541,17 +615,19 @@ class TreeEngine:
         p = self.partition
         if self.use_fused:
             total, per, rows, p.pmatrix = _fused_loglikelihood(
-                *self._args(), mxu=self.mxu, edge_params=self.edge_params)
+                *self._args(), mxu=self.mxu, edge_params=self.edge_params,
+                **self._fused_kw())
             if not self.repeats_dense_fused:
                 _scatter_root_rows(p.clv, p.scale_buffer, self.root_idx,
                                    rows)
         elif self.repeats_mode:
             total, per, p.pmatrix, rows = _repeats_loglikelihood(
-                *self._repeats_args(), edge_params=self.edge_params)
+                *self._repeats_args(), edge_params=self.edge_params,
+                **p._modes())
         else:
             total, per, p.pmatrix, rows = _dense_loglikelihood(
                 p.clv, p.scale_buffer, *self._dense_args(),
-                edge_params=self.edge_params)
+                edge_params=self.edge_params, **p._modes())
         return total, per, rows
 
     def newton_step(self):
@@ -561,7 +637,8 @@ class TreeEngine:
         if self.use_fused:
             total, d1, d2, self.branches, rows, p.pmatrix = \
                 _fused_newton_step(*self._args(), mxu=self.mxu,
-                                   edge_params=self.edge_params)
+                                   edge_params=self.edge_params,
+                                   **self._fused_kw())
             if not self.repeats_dense_fused:
                 _scatter_root_rows(p.clv, p.scale_buffer, self.root_idx,
                                    rows)
@@ -569,7 +646,7 @@ class TreeEngine:
         total, _, rows = self._evaluate()
         d1, d2, self.branches = _root_newton(
             rows, self.branches, self.root_idx[4], *self._model_args(),
-            *self._site_args(), p.scale_threshold)
+            *self._site_args(), p.scale_threshold, **p._modes())
         return float(total), float(d1), float(d2)
 
     def site_rate_posteriors(self):
@@ -585,7 +662,7 @@ class TreeEngine:
         post, site_rate = ops_likelihood.rate_posteriors(
             *rows, p.pmatrix[self.root_idx[4]], freqs, prop_invar, rates,
             rate_weights, pidx, self._site_args()[1],
-            scale_threshold=p.scale_threshold)
+            scale_threshold=p.scale_threshold, rate_scalers=p.rate_scalers)
         return post.cpu().numpy(), site_rate.cpu().numpy()
 
     def apply_branches_to_tree(self, tree) -> None:

@@ -99,11 +99,12 @@ def library() -> ctypes.CDLL:
     lib.pll_fused_traversal.argtypes = [
         _P, _I,            # table, n_ops
         _P,                # pmatrix
-        _P, _I,            # tip codes, sites
+        _P, _P, _I,        # tip codes, raw tip rows (or null), sites
         _I, _I,            # rates, states
         _P, _P, _I,        # slots, slot scalers, n_slots
         _P, _P, _P, _P,    # out_p, out_c, sc_p, sc_c
         _F, _F,            # threshold, factor
+        _I,                # per-rate scalers
         _P,                # stream
     ]
     lib.pll_fused_traversal.restype = _I
@@ -115,6 +116,7 @@ def library() -> ctypes.CDLL:
         _P, _I, _I,        # table, its leading dimension, ops
         _I, _I, _I,        # sites, rates, states
         _F, _F,            # threshold, factor
+        _I,                # per-rate scalers
         _P,                # stream
     ]
     lib.pll_level_update.restype = _I
@@ -125,9 +127,18 @@ def library() -> ctypes.CDLL:
         _P, _P,            # gl, gr
         _I, _I,            # rates, states
         _F, _F,            # threshold, factor
+        _L, _I,            # scaler pool columns, per-rate scalers
         _P,                # stream
     ]
     lib.pll_pool_update.restype = _I
+    lib.pll_mxu_probe.argtypes = [
+        _P, _P, _P,        # a, x, out
+        _I, _I, _I,        # m, k, nmat
+        _I, _I, _I,        # tile width t, tiles, iters
+        _I,                # mode
+        _P,                # stream
+    ]
+    lib.pll_mxu_probe.restype = _I
     return lib
 
 
@@ -138,7 +149,7 @@ def _check(cond: bool, msg: str, name: str = "fused_traversal") -> None:
 
 def _check_inputs(name: str, tip_codes: torch.Tensor, pmatrix: torch.Tensor,
                   table: torch.Tensor, rates: int, states: int,
-                  n_slots: int) -> None:
+                  n_slots: int, tip_clvs) -> None:
     """The argument checks both traversal kernels share."""
     dev = pmatrix.device
     _check(dev.type == "cuda", f"expected CUDA tensors, got {dev}", name)
@@ -165,39 +176,56 @@ def _check_inputs(name: str, tip_codes: torch.Tensor, pmatrix: torch.Tensor,
     for what, t in (("tip_codes", tip_codes), ("pmatrix", pmatrix),
                     ("table", table)):
         _check(t.is_contiguous(), f"{what} must be contiguous", name)
+    if tip_clvs is not None:
+        _check(isinstance(tip_clvs, torch.Tensor) and tip_clvs.device == dev
+               and tip_clvs.dtype == torch.float32
+               and tip_clvs.is_contiguous() and tip_clvs.dim() == 3
+               and tuple(tip_clvs.shape[1:]) == (states,
+                                                 tip_codes.shape[1]),
+               f"tip_clvs must be a contiguous float32 tensor [n, {states}, "
+               f"{tip_codes.shape[1]}] on {dev}", name)
 
 
-def _outputs(rates: int, states: int, sites: int, dev):
+def _outputs(rates: int, states: int, sites: int, dev, rate_scalers: bool):
     f32, i32 = torch.float32, torch.int32
+    sc = (rates, sites) if rate_scalers else (sites,)
     return (torch.empty((rates, states, sites), dtype=f32, device=dev),
             torch.empty((rates, states, sites), dtype=f32, device=dev),
-            torch.empty(sites, dtype=i32, device=dev),
-            torch.empty(sites, dtype=i32, device=dev))
+            torch.empty(sc, dtype=i32, device=dev),
+            torch.empty(sc, dtype=i32, device=dev))
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
                            table: torch.Tensor, rates: int, states: int,
-                           n_slots: int, threshold: float, factor: float):
+                           n_slots: int, threshold: float, factor: float,
+                           rate_scalers: bool = False, tip_clvs=None):
     """Launch csrc/fused_traversal.cu on the current stream; see
     ops/fused.py:fused_traversal for the contract."""
     _check_inputs("fused_traversal", tip_codes, pmatrix, table, rates,
-                  states, n_slots)
+                  states, n_slots, tip_clvs)
     dev = pmatrix.device
     sites = tip_codes.shape[1]
-    out_p, out_c, sc_p, sc_c = _outputs(rates, states, sites, dev)
+    out_p, out_c, sc_p, sc_c = _outputs(rates, states, sites, dev,
+                                        rate_scalers)
     # one spare slot: the generic (runtime-size) instantiation builds each
     # parent there before copying it into its own slot
     slots = torch.empty((n_slots + 1, rates * states, sites),
                         dtype=torch.float32, device=dev)
-    slot_sc = torch.empty((n_slots, sites), dtype=torch.int32, device=dev)
+    slot_sc = torch.empty((n_slots, rates if rate_scalers else 1, sites),
+                          dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_fused_traversal(
             table.data_ptr(), table.shape[0] - 1, pmatrix.data_ptr(),
-            tip_codes.data_ptr(), sites, rates, states,
+            tip_codes.data_ptr(), _ptr(tip_clvs), sites, rates, states,
             slots.data_ptr(), slot_sc.data_ptr(), n_slots,
             out_p.data_ptr(), out_c.data_ptr(), sc_p.data_ptr(),
-            sc_c.data_ptr(), float(threshold), float(factor), stream)
+            sc_c.data_ptr(), float(threshold), float(factor),
+            int(rate_scalers), stream)
     if err != 0:
         raise RuntimeError(f"fused_traversal kernel launch failed: CUDA "
                            f"error {err}")
@@ -213,30 +241,35 @@ def launch_fused_traversal_rows(tip_codes: torch.Tensor,
                                 pmatrix: torch.Tensor, table: torch.Tensor,
                                 rates: int, states: int, n_slots: int,
                                 threshold: float, factor: float,
-                                bf16: bool):
+                                bf16: bool, rate_scalers: bool = False,
+                                tip_clvs=None):
     """Launch csrc/fused_traversal_rows.cu on the current stream; see
     ops/fused.py:fused_traversal_rows for the contract. `bf16` rounds P
-    and inner-child CLVs to bf16 (the 'bf16' contraction mode)."""
+    and inner-child CLVs (half-up) and raw tip rows (to nearest even) to
+    bf16 (the 'bf16' contraction mode)."""
     name = "fused_traversal_rows"
-    _check_inputs(name, tip_codes, pmatrix, table, rates, states, n_slots)
+    _check_inputs(name, tip_codes, pmatrix, table, rates, states, n_slots,
+                  tip_clvs)
     _check(rates * states <= ROWS_MAX_RS,
            f"rates * states = {rates * states} exceeds the kernel's "
            f"shared-memory tile ({ROWS_MAX_RS})", name)
     dev = pmatrix.device
     sites = tip_codes.shape[1]
-    out_p, out_c, sc_p, sc_c = _outputs(rates, states, sites, dev)
+    out_p, out_c, sc_p, sc_c = _outputs(rates, states, sites, dev,
+                                        rate_scalers)
     slots = torch.empty((n_slots, rates * states, sites),
                         dtype=torch.float32, device=dev)
-    slot_sc = torch.empty((n_slots, sites), dtype=torch.int32, device=dev)
+    slot_sc = torch.empty((n_slots, rates if rate_scalers else 1, sites),
+                          dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_fused_traversal_rows(
             table.data_ptr(), table.shape[0] - 1, pmatrix.data_ptr(),
-            tip_codes.data_ptr(), sites, rates, states,
+            tip_codes.data_ptr(), _ptr(tip_clvs), sites, rates, states,
             slots.data_ptr(), slot_sc.data_ptr(), n_slots,
             out_p.data_ptr(), out_c.data_ptr(), sc_p.data_ptr(),
-            sc_c.data_ptr(), float(threshold), float(factor), int(bf16),
-            stream)
+            sc_c.data_ptr(), float(threshold), float(factor),
+            int(rate_scalers), int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"fused_traversal_rows kernel launch failed: "
                            f"CUDA error {err}")
@@ -276,8 +309,11 @@ def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
            f"clv shape {tuple(clv2d.shape)} is not [nodes+1, "
            f"{rates * states}, sites]", name)
     sites = clv2d.shape[2]
-    _check(scaler.dim() == 2 and scaler.shape[1] == sites,
-           f"scaler shape {tuple(scaler.shape)} is not [K+2, {sites}]", name)
+    per_rate = scaler.dim() == 3
+    _check(scaler.shape[-1] == sites and (
+        scaler.dim() == 2 or (per_rate and scaler.shape[1] == rates)),
+           f"scaler shape {tuple(scaler.shape)} is not [K+2, {sites}] or "
+           f"[K+2, {rates}, {sites}]", name)
     _check(pmatrix.dim() == 4 and tuple(pmatrix.shape[1:])
            == (rates, states, states),
            f"pmatrix shape {tuple(pmatrix.shape)} is not [E, {rates}, "
@@ -295,7 +331,7 @@ def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
         err = library().pll_level_update(
             clv2d.data_ptr(), scaler.data_ptr(), pmatrix.data_ptr(),
             table.data_ptr(), table.stride(0), table.shape[1], sites, rates,
-            states, float(threshold), float(factor), stream)
+            states, float(threshold), float(factor), int(per_rate), stream)
     if err != 0:
         raise RuntimeError(f"level_update kernel launch failed: CUDA error "
                            f"{err}")
@@ -332,9 +368,11 @@ def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
            and pool2d.shape[1] > 0,
            f"pool shape {tuple(pool2d.shape)} is not [{rates * states}, "
            f"columns]", name)
-    _check(sc.dim() == 1 and gl.dim() == 1 and gr.dim() == 1
-           and gl.shape == gr.shape, "sc, gl and gr must be 1-D, gl and gr "
-           "of one length", name)
+    per_rate = sc.dim() == 2
+    _check((sc.dim() == 1 or (per_rate and sc.shape[0] == rates))
+           and gl.dim() == 1 and gr.dim() == 1 and gl.shape == gr.shape,
+           f"sc must be [T2] or [{rates}, T2], gl and gr 1-D of one length",
+           name)
     _check(pmatrix.dim() == 4 and tuple(pmatrix.shape[1:])
            == (rates, states, states),
            f"pmatrix shape {tuple(pmatrix.shape)} is not [E, {rates}, "
@@ -344,8 +382,8 @@ def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
            f"table shape {tuple(table.shape)} (strides {table.stride()}) is "
            f"not [11, W] with 1 <= W <= {LEVEL_MAX_OPS} and unit column "
            f"stride", name)
-    _check(1 <= width <= sc.shape[0],
-           f"width {width} is not in [1, {sc.shape[0]}]", name)
+    _check(1 <= width <= sc.shape[-1],
+           f"width {width} is not in [1, {sc.shape[-1]}]", name)
     for what, t in (("pool", pool2d), ("sc", sc), ("pmatrix", pmatrix),
                     ("gl", gl), ("gr", gr)):
         _check(t.is_contiguous(), f"{what} must be contiguous", name)
@@ -355,7 +393,47 @@ def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
             pool2d.data_ptr(), sc.data_ptr(), pmatrix.data_ptr(),
             table.data_ptr(), table.stride(0), table.shape[1], int(width),
             pool2d.shape[1], gl.data_ptr(), gr.data_ptr(), rates, states,
-            float(threshold), float(factor), stream)
+            float(threshold), float(factor), sc.shape[-1], int(per_rate),
+            stream)
     if err != 0:
         raise RuntimeError(f"pool_update kernel launch failed: CUDA error "
                            f"{err}")
+
+
+# the probe's contraction modes, as the C entry numbers them
+PROBE_MODES = {"f32": 0, "bf16": 1, "split": 2}
+
+
+def launch_mxu_probe(a: torch.Tensor, x: torch.Tensor, m: int, iters: int,
+                     mode: str, nmat: int, tiles: int) -> torch.Tensor:
+    """Launch csrc/mxu_probe.cu on the current stream and return its output
+    [m, tiles * t]; see tools/mxu_probe.py:probe for the contract."""
+    name = "mxu_probe"
+    dev = a.device
+    _check(dev.type == "cuda" and x.device == dev,
+           f"expected CUDA tensors on one device, got {dev}, {x.device}",
+           name)
+    _check(a.dtype == torch.float32 and x.dtype == torch.float32,
+           "a and x must be float32", name)
+    _check(mode in PROBE_MODES, f"mode must be one of {tuple(PROBE_MODES)}",
+           name)
+    _check(a.dim() == 2 and a.shape[0] == nmat * m and x.dim() == 2
+           and x.shape[0] == a.shape[1] and x.shape[1] % tiles == 0,
+           f"a {tuple(a.shape)} is not [{nmat} * {m}, k] or x "
+           f"{tuple(x.shape)} not [k, {tiles} * t]", name)
+    _check(1 <= m <= 128 and 1 <= a.shape[1] <= 256 and iters >= 0,
+           "the kernel takes 1 <= m <= 128, 1 <= k <= 256, iters >= 0",
+           name)
+    _check(a.is_contiguous() and x.is_contiguous(),
+           "a and x must be contiguous", name)
+    t = x.shape[1] // tiles
+    out = torch.empty((m, x.shape[1]), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = library().pll_mxu_probe(
+            a.data_ptr(), x.data_ptr(), out.data_ptr(), m, a.shape[1], nmat,
+            t, tiles, iters, PROBE_MODES[mode], stream)
+    if err != 0:
+        raise RuntimeError(f"mxu_probe kernel launch failed: CUDA error "
+                           f"{err}")
+    return out

@@ -19,7 +19,11 @@ write to the trash row K. For each op of a level and each site:
 
 and when has_scaler is set and x < threshold for every rate and state, the
 site is multiplied by `factor`; the parent's count is sc1 + sc2 + that
-rescale (0 or 1).
+rescale (0 or 1). Per-rate mode (a scaler buffer [K+2, R, S], the
+partition's `rate_scalers`) compares each rate's block with the threshold
+on its own and keeps one count per rate. libpll2_tpu's level kernel has no
+per-rate mode (its per-rate step-by-step API runs XLA); the port's kernel
+has one, because its step-by-step API always launches it.
 
 `level_update` is the dispatching wrapper: CPU tensors run
 `level_update_reference`, the plain PyTorch version; CUDA tensors launch the
@@ -130,14 +134,15 @@ def tables_to_device(tables: Sequence[np.ndarray], device) -> tuple:
 
 
 def level_update_reference(clv2d: torch.Tensor,     # [N+1, R*s, S]
-                           scaler: torch.Tensor,    # [K+2, S] int32
+                           scaler: torch.Tensor,    # [K+2, (R,) S] int32
                            pmatrix: torch.Tensor,   # [E, R, s, s]
                            table,                   # [9, W] int
                            rates: int, states: int,
                            threshold: float, factor: float) -> None:
     """Plain PyTorch version of one level, in the dtype of `clv2d`: gathers
     the W ops' children, computes the parents and writes them, and their
-    scaler rows, into `clv2d` and `scaler` in place."""
+    scaler rows, into `clv2d` and `scaler` in place. A scaler buffer with a
+    rate axis selects the per-rate mode."""
     t = torch.as_tensor(table, device=clv2d.device).long()
     parent, c1, c2, m1, m2, s1, s2, psc, has = t
     w, sites = t.shape[1], clv2d.shape[-1]
@@ -146,8 +151,12 @@ def level_update_reference(clv2d: torch.Tensor,     # [N+1, R*s, S]
                       clv2d[c1].view(shape))
          * torch.einsum('wrij,wrjs->wris', pmatrix[m2].to(clv2d.dtype),
                         clv2d[c2].view(shape)))
-    scale = (torch.amax(x, dim=(1, 2)) < threshold) & (has[:, None] > 0)
-    x = torch.where(scale[:, None, None, :], x * factor, x)
+    if scaler.dim() == 3:
+        scale = (torch.amax(x, dim=2) < threshold) & (has[:, None, None] > 0)
+        x = torch.where(scale[:, :, None, :], x * factor, x)
+    else:
+        scale = (torch.amax(x, dim=(1, 2)) < threshold) & (has[:, None] > 0)
+        x = torch.where(scale[:, None, None, :], x * factor, x)
     counts = scaler[s1] + scaler[s2] + scale.to(scaler.dtype)
     clv2d[parent] = x.reshape(w, rates * states, sites)
     scaler[psc] = counts
@@ -157,8 +166,9 @@ def level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
                  pmatrix: torch.Tensor, table, rates: int, states: int,
                  threshold: float, factor: float) -> None:
     """One level of independent ops, parent rows and scaler rows written in
-    place. CUDA tensors launch csrc/level_update.cu (float32) on the current
-    stream without synchronising, or raise; CPU tensors run
+    place; `scaler` [K+2, S], or [K+2, R, S] for the per-rate mode. CUDA
+    tensors launch csrc/level_update.cu (float32) on the current stream
+    without synchronising, or raise; CPU tensors run
     `level_update_reference`. The table's indices are trusted: callers
     build it with `pack_pallas_levels` from ops whose indices they have
     checked against the buffers (Partition and TreeEngine do)."""
@@ -176,7 +186,7 @@ level_update.launches = 0
 
 
 def update_partials_kernel(clv: torch.Tensor,      # [N+1, R, s, S]
-                           scaler: torch.Tensor,   # [K+2, S] int32
+                           scaler: torch.Tensor,   # [K+2, (R,) S] int32
                            pmatrix: torch.Tensor,  # [E, R, s, s]
                            tables: Sequence,       # [9, W_l] per level
                            threshold: float, factor: float,

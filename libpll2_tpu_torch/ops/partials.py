@@ -125,10 +125,10 @@ def update_partials_levels(clv: torch.Tensor,
 
 
 def gather_flat_view(clv_flat: torch.Tensor,     # [R, s, T]
-                     sc_flat: torch.Tensor,      # [T2]
+                     sc_flat: torch.Tensor,      # [T2] or [R, T2]
                      clv_cols: torch.Tensor,     # [S] absolute columns
                      sc_cols: torch.Tensor):     # [S] absolute columns
     """Per-site expansion of one node from the pooled storage (clv [R, s,
-    S], scaler [S]) for the likelihood and sumtable functions
-    (core_likelihood.c:211-349 repeats indexing)."""
-    return clv_flat[:, :, clv_cols], sc_flat[sc_cols]
+    S], scaler [S], or [R, S] per rate) for the likelihood and sumtable
+    functions (core_likelihood.c:211-349 repeats indexing)."""
+    return clv_flat[:, :, clv_cols], sc_flat[..., sc_cols]

@@ -36,6 +36,11 @@ with this wherever every op has a scaler buffer, as `create_operations`
 gives.) Padding classes (c at or past the parent's class count, below W)
 gather class 0, as in the JAX package.
 
+Per-rate mode (`sc` [R, T2], the partition's `rate_scalers`): each rate's
+block is compared with the threshold on its own and every scaler region
+holds one count row per rate. libpll2_tpu refuses per-rate scalers in its
+pool kernel and runs XLA; the port's kernel has the mode.
+
 `pool_update` is the dispatching wrapper: CPU tensors run
 `pool_update_reference`, the plain PyTorch version; CUDA tensors launch the
 kernel (float32) or raise. `pool_update.launches` counts the launches.
@@ -144,7 +149,7 @@ def plan_to_device(tables, widths, gl, gr, device) -> PoolPlan:
 
 
 def pool_update_reference(pool2d: torch.Tensor,    # [R*s, T]
-                          sc: torch.Tensor,        # [T2] int32
+                          sc: torch.Tensor,        # [T2] or [R, T2] int32
                           pmatrix: torch.Tensor,   # [E, R, s, s]
                           table, width: int,       # [11, W] int
                           gl: torch.Tensor, gr: torch.Tensor,
@@ -153,7 +158,8 @@ def pool_update_reference(pool2d: torch.Tensor,    # [R*s, T]
     """Plain PyTorch version of one level, in the dtype of `pool2d`: each
     op's parent class columns and counts are computed and written into
     `pool2d` and `sc` in place, one op after another (the ops of a level
-    are independent). `width` is not read: each op has its own W."""
+    are independent). `width` is not read: each op has its own W. A
+    scaler pool with a rate axis selects the per-rate mode."""
     rows = torch.as_tensor(table).cpu().tolist()
     dev = pool2d.device
     for (p_off, psc_off, c1_off, m1, s1_off, c2_off, m2, s2_off, w, g_off,
@@ -165,11 +171,16 @@ def pool_update_reference(pool2d: torch.Tensor,    # [R*s, T]
         x = (torch.einsum('rij,rjc->ric', pmatrix[m1].to(pool2d.dtype), left)
              * torch.einsum('rij,rjc->ric', pmatrix[m2].to(pool2d.dtype),
                             right))
-        scale = (torch.amax(x, dim=(0, 1)) < threshold) & bool(has)
-        x = torch.where(scale[None, None, :], x * factor, x)
-        counts = sc[s1_off + l_idx] + sc[s2_off + r_idx] + scale.to(sc.dtype)
+        if sc.dim() == 2:
+            scale = (torch.amax(x, dim=1) < threshold) & bool(has)  # [R, w]
+            x = torch.where(scale[:, None, :], x * factor, x)
+        else:
+            scale = (torch.amax(x, dim=(0, 1)) < threshold) & bool(has)
+            x = torch.where(scale[None, None, :], x * factor, x)
+        counts = (sc[..., s1_off + l_idx] + sc[..., s2_off + r_idx]
+                  + scale.to(sc.dtype))
         pool2d[:, p_off:p_off + w] = x.reshape(rates * states, w)
-        sc[psc_off:psc_off + w] = counts
+        sc[..., psc_off:psc_off + w] = counts
 
 
 def pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
@@ -177,7 +188,8 @@ def pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
                 gl: torch.Tensor, gr: torch.Tensor, rates: int, states: int,
                 threshold: float, factor: float) -> None:
     """One level of independent ops over the pooled class columns, parent
-    columns and counts written in place. CUDA tensors launch
+    columns and counts written in place; `sc` [T2], or [R, T2] for the
+    per-rate mode. CUDA tensors launch
     csrc/pool_update.cu (float32) on the current stream without
     synchronising, or raise; CPU tensors run `pool_update_reference`.
     `width` is the level's widest op (the launch grid). The table's offsets
@@ -197,7 +209,7 @@ pool_update.launches = 0
 
 
 def update_partials_pool(clv_flat: torch.Tensor,   # [R, s, T]
-                         sc_flat: torch.Tensor,    # [T2] int32
+                         sc_flat: torch.Tensor,    # [(R,) T2] int32
                          pmatrix: torch.Tensor,    # [E, R, s, s]
                          plan: PoolPlan,
                          threshold: float, factor: float,

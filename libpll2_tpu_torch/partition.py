@@ -6,19 +6,29 @@ partials.c, likelihood.c, derivatives.c, models.c). As in the JAX package,
 the reference's per-index buffer tables are leading axes of dense tensors on
 `device`, allocated at construction:
 
-  * `clv` [nodes+1, rates, states, sites]: tips hold bit-decoded indicator
-    CLVs (ambiguity codes set several states); the last row is scratch;
-  * `scale_buffer` [scale_buffers+2, sites] int32: row K absorbs the counts
-    of ops without a parent scaler (trash), row K+1 stays zero and serves
-    every SCALE_BUFFER_NONE read;
+  * `clv` [nodes+1, rates, states, sites_padded]: tips hold bit-decoded
+    indicator CLVs (ambiguity codes set several states), or the raw
+    probabilities of `set_tip_clv`, the same for every rate; the last row
+    is scratch;
+  * `scale_buffer` [scale_buffers+2, sites_padded] int32, or
+    [scale_buffers+2, rates, sites_padded] with `rate_scalers=True` (one
+    count per rate category, PLL_ATTRIB_RATE_SCALERS): row K absorbs the
+    counts of ops without a parent scaler (trash), row K+1 stays zero and
+    serves every SCALE_BUFFER_NONE read;
   * `pmatrix` [prob_matrices, rates, states, states].
 
+`sites_padded` is `sites`, plus `states` synthetic columns with an
+ascertainment-bias correction (`asc_bias`): column sites + k observes state
+k at every tip (pll.c:525-531), and its pattern weight is the state weight
+of `set_asc_state_weights`.
+
 With `site_repeats=True` (and at least C.REPEATS_MIN_SITES sites) the CLVs
-are pooled class columns instead (repeats.py): `clv` and `scale_buffer` are
-None, and `clv_flat` [rates, states, columns] and `sc_flat` [columns] int32
-hold every node's class columns and every scaler's counts in the regions of
-a `FlatLayout`, laid out when an op list is first scheduled (tips seed their
-regions from `_tip_cols`).
+are pooled class columns instead (repeats.py), classed over the real and the
+asc columns: `clv` and `scale_buffer` are None, and `clv_flat` [rates,
+states, columns] and `sc_flat` [columns] (or [rates, columns] per rate)
+int32 hold every node's class columns and every scaler's counts in the
+regions of a `FlatLayout`, laid out when an op list is first scheduled
+(tips seed their regions from `_tip_cols`).
 
 The step-by-step API (`update_prob_matrices` -> `update_partials` ->
 `compute_edge_loglikelihood` / `compute_root_loglikelihood` /
@@ -163,10 +173,11 @@ class Partition:
                              f"got {dtype!r}")
         if self.device.type == "cuda" and dtype == torch.float64:
             raise not_ported("float64 on CUDA (the kernels are float32)")
-        if rate_scalers:
-            raise not_ported("per-rate scalers (rate_scalers=True)")
-        if asc_bias != C.AscBias.NONE:
-            raise not_ported("ascertainment bias correction")
+        asc_bias = C.AscBias(asc_bias)
+        if asc_bias != C.AscBias.NONE and rate_scalers:
+            raise C.PllError(C.ERROR_AB_NOSUPPORT,
+                             "Per-rate scalers are not supported with asc "
+                             "bias correction")
         if mesh is not None:
             raise not_ported("site sharding over a device mesh")
         if states > MAX_STATES:
@@ -190,23 +201,29 @@ class Partition:
         self.prob_matrices = prob_matrices
         self.rate_cats = rate_cats
         self.scale_buffers = scale_buffers
-        # no site-grain padding: the kernel masks the ragged edge itself
-        self.sites_padded = sites
+        self.rate_scalers = bool(rate_scalers)
+        self.asc_bias = asc_bias
+        # the asc corrections append `states` synthetic all-state-k columns
+        # after the real sites (pll.c:525-531); no site-grain padding
+        # otherwise: the kernels mask the ragged edge themselves
+        self.asc_extra = states if asc_bias != C.AscBias.NONE else 0
+        self.sites_padded = sites + self.asc_extra
 
         S, R, s = self.sites_padded, rate_cats, states
-        # repeats switch off below 16 sites, as in pll.c:441-449
+        # repeats switch off below 16 sites, as in pll.c:441-449; the class
+        # domain spans the asc columns too (repeats.c:69,122,201)
         self.repeats = None
         if site_repeats and sites >= C.REPEATS_MIN_SITES:
-            self.repeats = RepeatsTable(self.nodes, sites)
+            self.repeats = RepeatsTable(self.nodes, S)
         if self.repeats is None:
             # +1 scratch CLV row; scalers get +2 rows: row K absorbs writes
             # of scaler-less ops (trash), row K+1 stays zero and serves
             # every SCALE_BUFFER_NONE read
             self.clv = torch.zeros((self.nodes + 1, R, s, S), dtype=dtype,
                                    device=self.device)
-            self.scale_buffer = torch.zeros((scale_buffers + 2, S),
-                                            dtype=torch.int32,
-                                            device=self.device)
+            self.scale_buffer = torch.zeros(
+                (scale_buffers + 2,) + self._sc_rows() + (S,),
+                dtype=torch.int32, device=self.device)
         else:
             # pooled class columns, laid out once class counts are known
             # (first update_partials, or the first read)
@@ -216,6 +233,9 @@ class Partition:
             self._tip_cols = {}          # tip -> numpy [s, classes] columns
             self._repeat_key = self._repeat_schedule = None
             self._repeat_layout = None
+            # scaler index -> the node whose classes its region holds (the
+            # parent of the last op that wrote it; repeats->perscale_ids)
+            self._scaler_writer = {}
         self.pmatrix = torch.zeros((prob_matrices, R, s, s), dtype=dtype,
                                    device=self.device)
         # model parameters (host mirrors; tiny)
@@ -243,6 +263,15 @@ class Partition:
         self._tips_clv_set = np.zeros(tips, dtype=bool)
         # bumped by tip setters; engines cache tip-code tensors on it
         self._tip_version = 0
+
+    def _sc_rows(self) -> tuple:
+        """The scaler buffers' rate axis: (rates,) with per-rate scalers."""
+        return (self.rate_cats,) if self.rate_scalers else ()
+
+    def _asc_cols(self) -> np.ndarray:
+        """[states, asc_extra] values of the synthetic asc columns at a tip:
+        column k observes state k."""
+        return np.eye(self.states)[:, :self.asc_extra]
 
     # ------------------------------------------------------------------ tips
     def set_tip_states(self, tip_index: int, charmap: np.ndarray,
@@ -295,20 +324,24 @@ class Partition:
                        chunk: int = 64) -> None:
         """Install decoded state bitmasks [n, sites] of `tip_indices`: the
         host mirror, and the tips' dense CLV rows (indicators, the same for
-        every rate), in chunks of `chunk` tips per device copy. On a repeats
-        partition, the tips' classes and class columns instead; the pooled
+        every rate; the asc columns' single states after the sites), in
+        chunks of `chunk` tips per device copy. On a repeats partition, the
+        tips' classes and class columns instead, classed over the sites and
+        the asc columns' single-state masks (repeats.c:189-254); the pooled
         layout and any cached schedule are then stale."""
         self.tip_states[tip_indices, :self.sites] = masks
         self._tips_set[tip_indices] = True
         self._tips_clv_set[tip_indices] = False
         self._tip_version += 1
         self._invariant_valid = False
-        R, s = self.rate_cats, self.states
+        R, s, S = self.rate_cats, self.states, self.sites_padded
         if self.repeats is not None:
             self._flat = None
             self._repeat_key = self._repeat_schedule = None
+            asc = np.uint64(1) << np.arange(self.asc_extra, dtype=np.uint64)
             for tip, m in zip(tip_indices, masks):
                 tip = int(tip)
+                m = np.concatenate([m, asc])
                 self.repeats.set_tip(tip, m)
                 rep = self.repeats.id_site[tip, :self.repeats.ids[tip]]
                 self._tip_cols[tip] = np.ascontiguousarray(
@@ -320,12 +353,38 @@ class Partition:
             m = masks[c0:c0 + chunk]
             ind = state_maps.bits_to_clv(m.reshape(-1), s).reshape(
                 len(m), self.sites, s)
-            rows = torch.as_tensor(ind.transpose(0, 2, 1), dtype=self.dtype)
-            rows = rows.to(self.device)
-            self.clv[idx] = rows[:, None].expand(len(m), R, s, self.sites)
+            rows = np.zeros((len(m), s, S))
+            rows[:, :, :self.sites] = ind.transpose(0, 2, 1)
+            rows[:, :, self.sites:] = self._asc_cols()
+            rows = torch.as_tensor(rows, dtype=self.dtype).to(self.device)
+            self.clv[idx] = rows[:, None].expand(len(m), R, s, S)
 
     def set_tip_clv(self, tip_index: int, clv, padded: bool = False) -> None:
-        raise not_ported("raw tip CLVs (set_tip_clv)")
+        """Set a tip CLV from [sites, states] values, the same for every
+        rate category (pll.c:1063 pll_set_tip_clv), plus the asc columns'
+        single states. The tip leaves invariant-site detection (its values
+        are no state masks). On a repeats partition the tip takes the
+        identity mapping (no classes to group probabilities by) and its
+        per-site columns; the pooled layout and any cached schedule are
+        then stale. `padded` is accepted for the reference's signature:
+        states_padded equals states here."""
+        self._index([tip_index], "tip index", self.tips)
+        arr = np.asarray(clv, dtype=np.float64).reshape(self.sites,
+                                                        self.states)
+        cols = np.concatenate([arr.T, self._asc_cols()], axis=1)
+        if self.repeats is not None:
+            self.repeats.reset_node(tip_index)
+            self._flat = None
+            self._repeat_key = self._repeat_schedule = None
+            self._tip_cols[tip_index] = np.ascontiguousarray(cols)
+        else:
+            rows = torch.as_tensor(cols, dtype=self.dtype).to(self.device)
+            self.clv[tip_index] = rows[None].expand(self.rate_cats,
+                                                    *rows.shape)
+        self._tips_set[tip_index] = False
+        self._tips_clv_set[tip_index] = True
+        self._tip_version += 1
+        self._invariant_valid = False
 
     # ----------------------------------------------------------------- model
     def set_frequencies(self, params_index: int, freqs) -> None:
@@ -356,9 +415,44 @@ class Partition:
         self._invariant_valid = False
         self._model_version += 1
 
+    def set_asc_bias_type(self, asc_bias: C.AscBias) -> None:
+        """Switch the correction type (pll.c:1126-1172). The partition must
+        have been created with asc_bias != NONE, so that the synthetic
+        columns exist."""
+        asc_bias = C.AscBias(asc_bias)
+        if not self.asc_extra:
+            raise C.PllError(C.ERROR_AB_NOSUPPORT,
+                             "Partition was not created with ascertainment "
+                             "bias support")
+        if asc_bias != C.AscBias.NONE and np.any(self.prop_invar > 0):
+            raise C.PllError(C.ERROR_INVAR_INCOMPAT,
+                             "Invariant sites are not compatible with asc "
+                             "bias correction")
+        if asc_bias != C.AscBias.NONE and self.rate_scalers:
+            raise C.PllError(C.ERROR_AB_NOSUPPORT,
+                             "Per-rate scalers are not supported with asc "
+                             "bias correction")
+        self.asc_bias = asc_bias
+
+    def set_asc_state_weights(self, state_weights) -> None:
+        """Weights of the synthetic per-state columns (pll.c:1174-1181):
+        for Stamatakis the per-state invariant-site counts, for Felsenstein
+        the number of invariant sites (on any column)."""
+        if not self.asc_extra:
+            raise C.PllError(C.ERROR_AB_NOSUPPORT,
+                             "Partition was not created with ascertainment "
+                             "bias support")
+        self.pattern_weights[self.sites:] = np.asarray(state_weights,
+                                                       dtype=np.int64)
+        self._model_version += 1
+
     def update_invariant_sites_proportion(self, params_index: int,
                                           prop_invar: float) -> None:
         """models.c:495-544."""
+        if prop_invar != 0.0 and self.asc_bias != C.AscBias.NONE:
+            raise C.PllError(C.ERROR_INVAR_INCOMPAT,
+                             "Invariant sites are not compatible with asc "
+                             "bias")
         if prop_invar < 0 or prop_invar >= 1:
             raise C.PllError(C.ERROR_INVAR_PROPORTION,
                              f"Invalid proportion of invariant sites "
@@ -466,11 +560,17 @@ class Partition:
         class schedule is rebuilt when the op list (every field of every
         op), the tips or the pooled layout changed; with `update_repeats`
         False the class tables are left as they are
-        (pll_update_partials_rep with update_repeats=0)."""
+        (pll_update_partials_rep with update_repeats=0). With per-rate
+        scalers both kernels run their per-rate mode (each rate category
+        rescales on its own, one count per rate)."""
         operations = list(operations)
         self._check_operations(operations)
         if self.repeats is not None:
             plan = self._pool_plan(operations, update_repeats)
+            for op in operations:
+                if op.parent_scaler_index >= 0:
+                    self._scaler_writer[op.parent_scaler_index] = \
+                        op.parent_clv_index
             ops_pool.update_partials_pool(
                 self.clv_flat, self.sc_flat, self.pmatrix, plan,
                 self.scale_threshold, self.scale_factor)
@@ -490,7 +590,7 @@ class Partition:
         if (self._repeat_schedule is None or key != self._repeat_key
                 or self._flat is not self._repeat_layout):
             layout, levels = ops_pool.schedule_pool_levels(
-                self.repeats, operations, self.tips, self.sites,
+                self.repeats, operations, self.tips, self.sites_padded,
                 self.scale_buffers, update_repeats=update_repeats,
                 previous=self._flat)
             self._install_flat(layout)
@@ -506,11 +606,12 @@ class Partition:
         scaler's columns carried over from the previous layout (as many as
         both regions hold), so that a partial traversal finds the children
         it does not recompute. (The JAX package starts every new layout
-        from zeros.)"""
+        from zeros.) Per-rate scalers carry all R rows of a region."""
         R, s = self.rate_cats, self.states
         dev = self.device
         clv = torch.zeros((R, s, layout.total), dtype=self.dtype, device=dev)
-        sc = torch.zeros(layout.sc_total, dtype=torch.int32, device=dev)
+        sc = torch.zeros(self._sc_rows() + (layout.sc_total,),
+                         dtype=torch.int32, device=dev)
         old = self._flat
         if old is not None:
             def cols(offs_old, offs_new, caps_old, caps_new, which):
@@ -529,7 +630,7 @@ class Partition:
             clv[:, :, dst] = self.clv_flat[:, :, src]
             src, dst = cols(old.sc_off, layout.sc_off, old.sc_caps,
                             layout.sc_caps, range(self.scale_buffers))
-            sc[dst] = self.sc_flat[src]
+            sc[..., dst] = self.sc_flat[..., src]
         tips = sorted(self._tip_cols)
         if tips:
             cols = np.concatenate([self._tip_cols[t] for t in tips], axis=1)
@@ -542,7 +643,7 @@ class Partition:
     def _ensure_flat(self) -> None:
         if self._flat is None:
             self._install_flat(build_flat_layout(
-                self.repeats, {}, self.sites, self.scale_buffers))
+                self.repeats, {}, self.sites_padded, self.scale_buffers))
 
     # ------------------------------------------------------------ likelihood
     def _scaler_row(self, index: int):
@@ -552,9 +653,23 @@ class Partition:
         self._index([index], "scaler index", self.scale_buffers)
         return self.scale_buffer[index], True
 
+    def _scaler_sites(self, index: int) -> torch.Tensor:
+        """Per-site counts [S] of scaler `index`, zero for SCALE_BUFFER_NONE:
+        its row, or on a repeats partition its region read through the
+        classes of the node that last wrote it (the reference's
+        perscale_ids; zero if no op wrote it)."""
+        if self.repeats is None:
+            return self._scaler_row(index)[0]
+        node = self._scaler_writer.get(index)
+        if node is None:
+            return torch.zeros(self.sites_padded, dtype=torch.int32,
+                               device=self.device)
+        return self._node_view(node, index)[1]
+
     def _node_view(self, clv_index: int, scaler_index: int):
-        """(clv [R, s, S], scaler [S], has_scaler) of one node; on a repeats
-        partition its pooled class columns expanded through site_id."""
+        """(clv [R, s, S], scaler [S] or [R, S], has_scaler) of one node; on
+        a repeats partition its pooled class columns expanded through
+        site_id."""
         self._index([clv_index], "CLV index", self.nodes)
         if self.repeats is not None:
             if scaler_index != C.SCALE_BUFFER_NONE:
@@ -583,6 +698,13 @@ class Partition:
             return float(total), per.cpu().numpy()[:self.sites]
         return float(total)
 
+    def _modes(self) -> dict:
+        """The per-rate and asc arguments of the likelihood functions (the
+        engine's paths and the step-by-step API alike; n_real marks the
+        first synthetic column, past the last column without asc)."""
+        return dict(rate_scalers=self.rate_scalers,
+                    asc_type=self.asc_bias.value, n_real=self.sites)
+
     def compute_root_loglikelihood(self, clv_index: int, scaler_index: int,
                                    freqs_indices, persite: bool = False):
         """likelihood.c:122-190: the likelihood at a root CLV (rooted
@@ -595,7 +717,7 @@ class Partition:
             clv_node, scaler, self._dev(self.frequencies),
             self._dev(self.prop_invar), self._dev(self.rate_weights),
             self._dev(pidx, torch.long), *self._site_tensors(),
-            self.scale_threshold, has_scaler=has_scaler)
+            self.scale_threshold, has_scaler=has_scaler, **self._modes())
         return self._persite(total, per, persite)
 
     def compute_edge_loglikelihood(self, parent_clv_index: int,
@@ -618,7 +740,7 @@ class Partition:
             self._dev(self.frequencies), self._dev(self.prop_invar),
             self._dev(self.rate_weights), self._dev(pidx, torch.long),
             *self._site_tensors(), self.scale_threshold,
-            has_pscaler=has_p, has_cscaler=has_c)
+            has_pscaler=has_p, has_cscaler=has_c, **self._modes())
         return self._persite(total, per, persite)
 
     def compute_node_ancestral(self, node_clv_index: int,
@@ -640,7 +762,8 @@ class Partition:
             nclv, oclv, nscaler, oscaler, self.pmatrix[matrix_index],
             self._dev(self.frequencies), self._dev(self.rate_weights),
             self._dev(pidx, torch.long), self.scale_threshold,
-            has_nscaler=has_n, has_oscaler=has_o)
+            rate_scalers=self.rate_scalers, has_nscaler=has_n,
+            has_oscaler=has_o)
         return anc.cpu().numpy()[:self.sites]
 
     # ----------------------------------------------------------- derivatives
@@ -660,7 +783,8 @@ class Partition:
             pclv, cclv, pscaler, cscaler, self._dev(self.inv_eigenvecs),
             self._dev(self.eigenvecs), self._dev(self.frequencies),
             self._dev(pidx, torch.long), self.scale_threshold,
-            has_pscaler=has_p, has_cscaler=has_c)
+            rate_scalers=self.rate_scalers, has_pscaler=has_p,
+            has_cscaler=has_c)
 
     def compute_likelihood_derivatives(self, sumtable: torch.Tensor,
                                        params_indices,
@@ -670,29 +794,35 @@ class Partition:
                                        child_scaler_index: int =
                                        C.SCALE_BUFFER_NONE):
         """derivatives.c:333-416 (phase 2, per candidate length): (d1, d2)
-        of -logL. The scaler indices serve the Lewis/Felsenstein asc
-        corrections in the JAX package; asc bias is not ported, so they are
-        accepted for the same signature and not read."""
+        of -logL. The Lewis and Felsenstein asc corrections need the
+        sumtable's edge's scaler indices, to undo the synthetic columns'
+        scaling."""
         pidx = self._index(params_indices, "params index",
                            self.rate_matrices)
         self._ensure_eigen(pidx)
+        asc_scalers = None
+        if self.asc_bias in (C.AscBias.LEWIS, C.AscBias.FELSENSTEIN):
+            asc_scalers = (self._scaler_sites(parent_scaler_index)
+                           + self._scaler_sites(child_scaler_index))
         d1, d2 = ops_derivatives.likelihood_derivatives(
             sumtable, self._dev(self.eigenvals), self._dev(self.prop_invar),
             self._dev(self.frequencies), self._dev(self.rates),
             self._dev(self.rate_weights), self._dev(pidx, torch.long),
             *self._site_tensors(), self._dev(branch_length),
-            scale_threshold=self.scale_threshold)
+            asc_scalers=asc_scalers, scale_threshold=self.scale_threshold,
+            asc_type=self.asc_bias.value, n_real=self.sites)
         return float(d1), float(d2)
 
     # ------------------------------------------------------------- debugging
     def get_clv(self, index: int) -> np.ndarray:
-        """CLV as [sites, rate_cats, states] (reference memory order); on a
-        repeats partition the pooled class columns expanded per site."""
+        """CLV of the real sites as [sites, rate_cats, states] (reference
+        memory order); on a repeats partition the pooled class columns
+        expanded per site."""
         if self.repeats is not None:
             self._ensure_flat()
             o, c = int(self._flat.off[index]), int(self._flat.caps[index])
             block = self.clv_flat[:, :, o:o + c].cpu().numpy()
-            block = block[:, :, self.repeats.site_id[index]]
+            block = block[:, :, self.repeats.site_id[index, :self.sites]]
         else:
             block = self.clv[index, :, :, :self.sites].cpu().numpy()
         return np.transpose(block, (2, 0, 1))
@@ -711,12 +841,12 @@ class Partition:
         return self.pmatrix[index].cpu().numpy()
 
     def get_scaler(self, index: int) -> np.ndarray:
-        """Scaler counts; on a repeats partition the raw class-layout
-        region of the pooled buffer (its width is the region's
-        capacity)."""
+        """Scaler counts of the real sites ([sites], or [rates, sites] per
+        rate); on a repeats partition the raw class-layout region of the
+        pooled buffer (its width is the region's capacity)."""
         if self.repeats is not None:
             self._ensure_flat()
             lay = self._flat
             o, c = int(lay.sc_off[index]), int(lay.sc_caps[index])
-            return self.sc_flat[o:o + c].cpu().numpy()
-        return self.scale_buffer[index, :self.sites].cpu().numpy()
+            return self.sc_flat[..., o:o + c].cpu().numpy()
+        return self.scale_buffer[index, ..., :self.sites].cpu().numpy()

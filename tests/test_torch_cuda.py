@@ -16,7 +16,12 @@ is held to equal scaler rows and CLV rows to 1e-5 of each site's largest
 entry over a whole traversal, level by level; the pool kernel
 (csrc/pool_update.cu) to equal scaler regions (the trash region aside,
 which ops without a scaler buffer of one level write at once) and class
-columns to 1e-5 of each column's largest entry."""
+columns to 1e-5 of each column's largest entry. Their per-rate and raw-tip
+modes are held the same way, counts compared per rate; the matrix-unit
+probe (csrc/mxu_probe.cu) to 1e-5 of its output's largest entry in 'f32'
+(the two versions add the same products in another order) and 5e-5 in
+'bf16' and 'split' (the tensor cores' float32 accumulation rounds toward
+zero)."""
 import numpy as np
 import pytest
 import torch
@@ -510,3 +515,158 @@ def test_pool_wrapper_rejects_what_it_cannot_take(cuda):
     for name, (a, k) in bad.items():
         with pytest.raises(ValueError):
             pool.pool_update(*a, **k)
+
+
+# ----------------------------------- per-rate scalers, raw tips, the probe
+def _mode_engine(case, device, dtype=torch.float32):
+    """A fused engine in one of the kernels' modes: per-rate scalers
+    ('rate'), raw tips from set_tip_clv ('raw', every other tip) or both,
+    on the 4x4 DNA variant, the runtime-size one (3 rates) or the rows
+    kernel (20 states)."""
+    states = 20 if case.startswith("aa") else 4
+    rates = 3 if "r3" in case else 4
+    tree = _caterpillar(60) if "cat" in case else random_utree(
+        [f"t{i}" for i in range(16)], seed=3)
+    headers, seqs = random_alignment(
+        tree.tip_count, 600, alphabet=AA_NOISY if states == 20 else "ACGT",
+        seed=3)
+    by = dict(zip(headers, seqs))
+    part = Partition(tree.tip_count, tree.inner_count, states, 600, 1,
+                     tree.edge_count, rates, tree.inner_count, device=device,
+                     dtype=dtype, rate_scalers="rate" in case)
+    for tip in tree.tips():
+        part.set_tip_states(tip.clv_index,
+                            maps.map_aa if states == 20 else maps.map_nt,
+                            by[tip.label])
+    if states == 20:
+        load_aa_model(part, "lg")
+    else:
+        part.set_frequencies(0, [0.3, 0.2, 0.2, 0.3])
+        part.set_subst_params(0, [1.0, 2.0, 1.0, 1.0, 2.0, 1.0])
+    part.set_category_rates(compute_gamma_cats(0.9, rates))
+    if "raw" in case:
+        rng = np.random.default_rng(7)
+        for tip in sorted(tree.tips(), key=lambda t: t.clv_index)[::2]:
+            part.set_tip_clv(tip.clv_index, rng.dirichlet(
+                np.ones(states), size=600))
+    return part, TreeEngine(part, tree)
+
+
+MODE_CASES = ["rate_cat", "rate_r3_cat", "raw", "raw_rate_r3_cat",
+              "aa_rate_cat", "aa_raw", "aa_raw_rate_r3"]
+
+
+@pytest.mark.parametrize("case", MODE_CASES)
+def test_fused_kernels_modes_match_plain_on_card(cuda, case):
+    """Kernels 1 and 2 in per-rate and raw-tip modes against their plain
+    version: counts equal (per rate), CLVs to 1e-5 of each site's max;
+    'bf16' of the rows kernel at the logL level."""
+    part, eng = _mode_engine(case, cuda)
+    args, kw = _inputs(part, eng)
+    kw.update(rate_scalers=part.rate_scalers, tip_clvs=eng._tip_clvs())
+    counter = (fused.fused_traversal_rows if part.states >= 16
+               else fused.fused_traversal)
+    before = counter.launches
+    got = fused.fused_traversal(*args, mxu="highest", **kw)
+    assert counter.launches == before + 1
+    want = fused.fused_traversal_reference(*args, mxu="highest", **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got[2:], want[2:]):
+        assert g.shape == w.shape and torch.equal(g, w)
+    for g, w in zip(got[:2], want[:2]):
+        site_max = w.abs().amax(dim=(0, 1)).clamp(min=1e-30)
+        assert float(((g - w).abs() / site_max).max()) <= 1e-5
+    if "cat" in case:
+        assert int(want[2].max()) > 0
+    if part.states >= 16:
+        lk = [float(_fused_loglikelihood(*eng._args(), traversal=t,
+                                         mxu="bf16", **eng._fused_kw())[0])
+              for t in (fused.fused_traversal,
+                        fused.fused_traversal_reference)]
+        assert abs(lk[0] - lk[1]) / abs(lk[1]) < 1e-4
+
+
+@pytest.mark.parametrize("states", [4, 20])
+def test_level_kernel_per_rate_matches_plain_on_card(cuda, states):
+    part, _ = _mode_engine("aa_rate_cat" if states == 20 else "rate_cat",
+                           cuda)
+    tree = _caterpillar(60)
+    ops, br, pidx = create_operations(traverse(tree.vroot))
+    part.update_prob_matrices([0] * 4, pidx, br)
+    assert part.scale_buffer.dim() == 3
+    clv, sc = part.clv.clone(), part.scale_buffer.clone()
+    _run_levels(part, ops, levels.level_update)
+    got = part.clv.clone(), part.scale_buffer.clone()
+    part.clv.copy_(clv)
+    part.scale_buffer.copy_(sc)
+    _run_levels(part, ops, levels.level_update_reference)
+    torch.cuda.synchronize()
+    k = part.scale_buffers
+    assert torch.equal(got[1][:k], part.scale_buffer[:k])
+    assert int(part.scale_buffer[:k].max()) > 0
+    want = part.clv[:part.nodes]
+    site_max = want.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
+    assert float(((got[0][:part.nodes] - want).abs() / site_max).max()) \
+        <= 1e-5
+
+
+def test_pool_kernel_per_rate_matches_plain_on_card(cuda):
+    tree = _caterpillar(60)
+    headers, seqs = simulate_alignment(tree, 400, [0.3, 0.2, 0.2, 0.3],
+                                       [1, 2, 1, 1, 2, 1.0], alpha=0.3,
+                                       seed=17)
+    by = dict(zip(headers, seqs))
+    part = Partition(tree.tip_count, tree.inner_count, 4, 400, 1,
+                     tree.edge_count, 4, tree.inner_count, device=cuda,
+                     site_repeats=True, rate_scalers=True)
+    for tip in tree.tips():
+        part.set_tip_states(tip.clv_index, maps.map_nt, by[tip.label])
+    part.set_frequencies(0, [0.3, 0.2, 0.2, 0.3])
+    part.set_subst_params(0, [1, 2, 1, 1, 2, 1.0])
+    part.set_category_rates(compute_gamma_cats(0.3, 4))
+    ops, br, pidx = create_operations(traverse(tree.vroot))
+    part.update_prob_matrices([0] * 4, pidx, br)
+    part._pool_plan(ops, True)
+    clv, sc = part.clv_flat.clone(), part.sc_flat.clone()
+    _run_pool(part, ops, pool.pool_update)
+    got = part.clv_flat.clone(), part.sc_flat.clone()
+    part.clv_flat.copy_(clv)
+    part.sc_flat.copy_(sc)
+    _run_pool(part, ops, pool.pool_update_reference)
+    torch.cuda.synchronize()
+    lay = part._flat
+    k = lay.sc_trash
+    assert torch.equal(got[1][:, :k], part.sc_flat[:, :k])
+    assert int(part.sc_flat.max()) > 0
+    col_max = part.clv_flat.abs().amax(dim=(0, 1), keepdim=True).clamp(
+        min=1e-30)
+    assert float(((got[0] - part.clv_flat).abs() / col_max).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["rate_cat", "raw", "aa_raw_rate_r3"])
+def test_mode_engines_on_card_match_cpu_float64(cuda, case):
+    _, gpu = _mode_engine(case, cuda)
+    _, cpu = _mode_engine(case, "cpu", dtype=torch.float64)
+    got, want = gpu.loglikelihood(), cpu.loglikelihood()
+    assert abs(got - want) / abs(want) < 5e-5
+    (gl, g1, g2), (wl, w1, w2) = gpu.newton_step(), cpu.newton_step()
+    assert abs(gl - wl) / abs(wl) < 5e-5
+    for g, w in ((g1, w1), (g2, w2)):
+        assert abs(g - w) / max(abs(w), 10.0) < 5e-3
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "split"])
+def test_mxu_probe_matches_plain_on_card(cuda, mode):
+    from libpll2_tpu_torch.tools import mxu_probe as mp
+
+    for m, k, t in ((80, 80, 512), (20, 20, 96), (128, 240, 64)):
+        a, x = mp.make(m, k, t, tiles=3, device=cuda)
+        before = mp.probe.launches
+        got = mp.probe(a, x, m, 9, mode, tiles=3)
+        assert mp.probe.launches == before + 1
+        want = mp.probe_reference(a, x, m, 9, mode)
+        torch.cuda.synchronize()
+        # the tensor cores' float32 accumulation rounds toward zero, a bias
+        # of ~1e-5 over these sums against the plain version's rounding
+        tol = 1e-5 if mode == "f32" else 5e-5
+        assert float((got - want).abs().max() / want.abs().max()) < tol

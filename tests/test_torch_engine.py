@@ -10,8 +10,9 @@ mode, within bench_validate.py's float32 budgets (TOL_LOGL 5e-5, TOL_D1
 5e-3 with an ATOL_D1 5e-2 floor): the float32 summation orders differ.
 
 The port's partition is built from the JAX partition's state through
-libpll2_tpu_torch.convert. Features outside the slice must raise
-NotImplementedError."""
+libpll2_tpu_torch.convert. Features outside the port must raise
+NotImplementedError, and what JAX refuses the port refuses with JAX's
+error."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ from libpll2_tpu.trees import random_alignment, random_utree
 import libpll2_tpu_torch as tp
 from libpll2_tpu_torch import convert
 from libpll2_tpu_torch.io import maps as tmaps
+from libpll2_tpu_torch.ops import fused as tfused
 from libpll2_tpu_torch.trees import UTree
 
 N_TAXA, SITES, SEED = 24, 1000, 7
@@ -184,41 +186,53 @@ def _fp64_on_cuda(monkeypatch):
                  dtype=torch.float64)
 
 
-def _converted_tip_clv():
-    jp, _ = _jax_partition(jnp.float64)
-    state = _state(jp)
-    state["_tips_clv_set"] = state["_tips_clv_set"].copy()
-    state["_tips_clv_set"][0] = True
-    convert.partition_from_numpy(state, device="cpu", dtype=torch.float64)
+def _rows_rate_scalers_above_8(mp):
+    """The rows route (20 states) with per-rate scalers at 9 categories."""
+    table = torch.tensor([[0, 1, 0, 0, 1, 1, 0, 1], [0, 0, 1, 2, 0, 0, 0, 0]],
+                         dtype=torch.int32)
+    tfused.fused_traversal(torch.ones((3, 8), dtype=torch.int32),
+                           torch.zeros(1, 9, 20, 20), table, rates=9,
+                           states=20, n_slots=1, threshold=0.5, factor=2.0,
+                           rate_scalers=True)
+
+
+def _asc_with_pinv(mp):
+    part = tp.Partition(*SIZES, **CPU, asc_bias=tp.AscBias.LEWIS)
+    part.update_invariant_sites_proportion(0, 0.2)
+
+
+def _asc_type_after_pinv(mp):
+    """tests/test_asc_m3.py:164: a correction switched on over p-inv."""
+    part = tp.Partition(*SIZES, **CPU, asc_bias=tp.AscBias.LEWIS)
+    part.set_asc_bias_type(tp.AscBias.NONE)
+    part.prop_invar[0] = 0.2
+    part.set_asc_bias_type(tp.AscBias.LEWIS)
 
 
 SIZES = (4, 2, 4, 10, 1, 5, 4, 2)
-# enough sites (C.REPEATS_MIN_SITES) for site repeats to switch on
-REPEATS_SIZES = (4, 2, 4, 32, 1, 5, 4, 2)
 CPU = {"device": "cpu"}
+# feature -> (call, the exception it raises: NotImplementedError where the
+# port lacks the feature, JAX's own error where JAX refuses it as well)
 OUT_OF_SLICE = {
-    "rate_scalers": lambda mp: tp.Partition(*SIZES, **CPU,
-                                                rate_scalers=True),
-    "asc_bias": lambda mp: tp.Partition(*SIZES, **CPU,
-                                        asc_bias=tp.AscBias.LEWIS),
-    "site_repeats_rate_scalers": lambda mp: tp.Partition(
-        *REPEATS_SIZES, **CPU, site_repeats=True, rate_scalers=True),
-    "site_repeats_asc_bias": lambda mp: tp.Partition(
-        *REPEATS_SIZES, **CPU, site_repeats=True,
-        asc_bias=tp.AscBias.LEWIS),
-    "mesh": lambda mp: tp.Partition(*SIZES, **CPU, mesh=object()),
-    "states_33": lambda mp: tp.Partition(4, 2, 33, 10, 1, 5, 4, 2, **CPU),
-    "fp64_cuda": _fp64_on_cuda,
-    "set_tip_clv": lambda mp: tp.Partition(*SIZES, **CPU).set_tip_clv(
-        0, np.full((10, 4), 0.25)),
-    "set_tip_clv_repeats": lambda mp: tp.Partition(
-        *REPEATS_SIZES, **CPU, site_repeats=True).set_tip_clv(
-            0, np.full((32, 4), 0.25)),
-    "convert_tip_clv": lambda mp: _converted_tip_clv(),
+    "mesh": (lambda mp: tp.Partition(*SIZES, **CPU, mesh=object()),
+             NotImplementedError),
+    "states_33": (lambda mp: tp.Partition(4, 2, 33, 10, 1, 5, 4, 2, **CPU),
+                  NotImplementedError),
+    "fp64_cuda": (_fp64_on_cuda, NotImplementedError),
+    "rate_scalers_with_asc": (lambda mp: tp.Partition(
+        *SIZES, **CPU, rate_scalers=True, asc_bias=tp.AscBias.LEWIS),
+        tp.PllError),
+    "asc_with_pinv": (_asc_with_pinv, tp.PllError),
+    "asc_type_after_pinv": (_asc_type_after_pinv, tp.PllError),
+    # tests/test_asc_m3.py:247: no synthetic columns were allocated
+    "asc_type_without_columns": (lambda mp: tp.Partition(
+        *SIZES, **CPU).set_asc_bias_type(tp.AscBias.LEWIS), tp.PllError),
+    "rows_rate_scalers_above_8": (_rows_rate_scalers_above_8, ValueError),
 }
 
 
 @pytest.mark.parametrize("feature", sorted(OUT_OF_SLICE))
 def test_out_of_slice_features_raise(feature, monkeypatch):
-    with pytest.raises(NotImplementedError):
-        OUT_OF_SLICE[feature](monkeypatch)
+    call, exc = OUT_OF_SLICE[feature]
+    with pytest.raises(exc):
+        call(monkeypatch)
