@@ -41,9 +41,13 @@ each fatal on failure:
   9. level kernel vs plain: ops/levels.py:level_update (csrc/level_update.cu)
      against level_update_reference over whole op lists on the card,
      float32, from the same buffers: 16 x 1000 ragged DNA, 3 categories,
-     the 80-taxon caterpillar (scaling must trigger), 20 and 32 states, ops
-     without a scaler buffer, a partial op list, and 128 x 16384; scaler
-     rows equal and CLV rows within TOL_CLV;
+     the 80-taxon caterpillar (scaling must trigger), 20, 32, 5 and 2
+     states, ops without a scaler buffer, a partial op list, an op that
+     writes its own child in place, 16 rates x 32 states with per-rate
+     counts (P beyond one 48 KB staging), 128 x 16384 DNA and the 128 x
+     8192 LG+G4 protein tree (the runtime-size variant's thread layouts
+     of the protein main path); scaler rows equal and CLV rows within
+     TOL_CLV;
  10. the dense paths at full width (DNA 128 x 16384 GTR+G4, protein 128 x
      8192 LG+G4), through the level kernel: the step-by-step chain
      (Partition(device="cuda") -> update_prob_matrices -> update_partials ->
@@ -57,9 +61,11 @@ each fatal on failure:
      per level of each traversal);
  11. times of the level kernel over one traversal and its plain version,
      one loglikelihood() on the levels-kernel path and one step-by-step
-     traversal, at both sizes; and of the level kernel and its plain
-     version over the 80-taxon caterpillar (78 levels of one op each) at
-     16384 sites;
+     traversal, at both sizes; of the level kernel and its plain version
+     over the 80-taxon caterpillar (78 levels of one op each) at 16384
+     sites; then, after those timings, the level kernels' device time over
+     one traversal at both sizes from torch.profiler, level by level beside
+     each level's byte bound;
  12. pool kernel vs plain: ops/pool.py:pool_update (csrc/pool_update.cu)
      against pool_update_reference over whole op lists on site-repeats
      partitions, float32, from the same buffers: 24 x 600 DNA, the
@@ -646,6 +652,19 @@ def traversal_ops(part, tree):
     return ops, br, pidx
 
 
+def self_child_op(ops, n_tips):
+    """One op that writes its own child1 in place (CLV and scaler row):
+    the last op of `ops` whose child1 is an inner node, its parent rows
+    redirected to that child's."""
+    import copy
+
+    op = copy.copy(next(o for o in reversed(ops)
+                        if o.child1_clv_index >= n_tips))
+    op.parent_clv_index = op.child1_clv_index
+    op.parent_scaler_index = op.child1_scaler_index
+    return op
+
+
 def compare_level_case(name, part, ops, first=None, must_scale=False):
     """Level kernel vs its plain version over a whole op list on the
     card, from the same buffers (after `first`, the list that must run
@@ -696,14 +715,22 @@ def compare_level_case(name, part, ops, first=None, must_scale=False):
     return rel, abs_err
 
 
-def level_cases(device, small, small_by, cat, cat_by, aa_by, big, big_by):
-    """Phase 9. Returns the largest absolute error."""
+def level_cases(device, small, small_by, cat, cat_by, aa_by, big, big_by,
+                aa_tree, aa_big_by):
+    """Phase 9. Returns the largest absolute error. The runtime-size
+    variant picks its threads from each level's ops x sites: the 16 x 1000
+    cases run one site a thread with a site's rates over 4 threads, the
+    protein main path's levels (128 x 8192, 40 down to 1 ops) also two
+    sites a thread and rates over 2 threads, so that tree is held here too,
+    level by level."""
     from libpll2_tpu_torch.trees import random_alignment
 
     max_abs = 0.0
-    headers, seqs = random_alignment(16, 1000, seed=3,
-                                     alphabet=LETTERS32 + "-")
-    by32 = dict(zip(headers, seqs))
+
+    def letters(states):
+        headers, seqs = random_alignment(16, 1000, seed=3,
+                                         alphabet=LETTERS32[:states] + "-")
+        return dict(zip(headers, seqs))
 
     def case(name, part, tree, **kw):
         nonlocal max_abs
@@ -713,13 +740,16 @@ def level_cases(device, small, small_by, cat, cat_by, aa_by, big, big_by):
                 op.parent_scaler_index = -1
         if kw.pop("partial", False):
             kw["first"], ops = ops, ops[len(ops) // 2:]
+        if kw.pop("self_child", False):
+            kw["first"], ops = ops, [self_child_op(ops, part.tips)]
         max_abs = max(max_abs, compare_level_case(name, part, ops, **kw)[1])
 
     case("ragged", dna_partition(small, small_by, 1000, device), small)
     case("3 rates", dna_partition(small, small_by, 1000, device, 3), small)
     case("caterpillar", dna_partition(cat, cat_by, 1000, device), cat,
          must_scale=True)
-    for states, by in ((20, aa_by), (32, by32)):
+    for states, by in ((20, aa_by), (32, letters(32)), (5, letters(5)),
+                       (2, letters(2))):
         case(f"{states} states", protein_partition(small, by, 1000, device,
                                                    states), small)
     case("ops without a scaler", dna_partition(small, small_by, 1000,
@@ -727,8 +757,16 @@ def level_cases(device, small, small_by, cat, cat_by, aa_by, big, big_by):
          no_scaler=True)
     case("partial op list", dna_partition(small, small_by, 1000, device),
          small, partial=True)
+    case("an op that writes its own child, 20 states",
+         protein_partition(small, aa_by, 1000, device), small,
+         self_child=True)
+    case("per-rate, 16 rates x 32 states (P in chunks)",
+         protein_partition(small, letters(32), 1000, device, 32,
+                           rate_cats=16, rate_scalers=True), small)
     case("main-path shape", dna_partition(big, big_by, N_SITES, device),
          big)
+    case("protein main-path shape, LG+G4",
+         protein_partition(aa_tree, aa_big_by, AA_SITES, device), aa_tree)
     return max_abs
 
 
@@ -1550,6 +1588,54 @@ def level_bound(part, ops):
     return bound_ms(n_bytes, traversal_flops(len(ops), S, R, s))
 
 
+def level_device_us(args, n_levels, reps=5):
+    """Device time (us) of each level's kernel over one traversal through
+    the level kernel (`args` of update_partials_kernel), from
+    torch.profiler: `reps` traversals, each profiled on its own, the median
+    per level. A traversal whose trace lacks some of its kernels (the
+    profiler can drop events) is profiled again, up to `reps` more times
+    in all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from libpll2_tpu_torch.ops import levels
+
+    levels.update_partials_kernel(*args)
+    torch.cuda.synchronize()
+    runs, tries = [], 0
+    while len(runs) < reps:
+        check(tries < 2 * reps, f"the profiler missed level kernels in "
+              f"{tries - len(runs)} of {tries} traversals")
+        tries += 1
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            levels.update_partials_kernel(*args)
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == DeviceType.CUDA
+                          and "level_" in e.name),
+                         key=lambda e: e.time_range.start)
+        if len(kernels) == n_levels:
+            runs.append([e.time_range.elapsed_us() for e in kernels])
+    if tries > reps:
+        print(f"  (the profiler missed level kernels in {tries - reps} of "
+              f"{tries} traversals, profiled again)", flush=True)
+    return [statistics.median(run[i] for run in runs)
+            for i in range(n_levels)]
+
+
+def level_tables(part, ops):
+    """The level tables of `ops` on the card, and the arguments of
+    update_partials_kernel over `part`'s buffers."""
+    from libpll2_tpu_torch.ops import levels
+
+    tables = levels.tables_to_device(levels.pack_pallas_levels(
+        ops, part.tips, part.scale_buffers + 1, part.scale_buffers),
+        part.device)
+    return tables, (part.clv, part.scale_buffer, part.pmatrix, tables,
+                    part.scale_threshold, part.scale_factor)
+
+
 def level_times(label, part, eng, ops, gpu):
     """Phase 11 for one problem: medians (ms) of the level kernel over one
     whole traversal (all levels, tables on the card) and of its plain
@@ -1557,11 +1643,7 @@ def level_times(label, part, eng, ops, gpu):
     step-by-step traversal (update_partials + compute_edge_loglikelihood)."""
     from libpll2_tpu_torch.ops import levels
 
-    tables = levels.tables_to_device(levels.pack_pallas_levels(
-        ops, part.tips, part.scale_buffers + 1, part.scale_buffers),
-        part.device)
-    args = (part.clv, part.scale_buffer, part.pmatrix, tables,
-            part.scale_threshold, part.scale_factor)
+    tables, args = level_tables(part, ops)
     kernel = median_ms(lambda: levels.update_partials_kernel(*args))
     plain = median_ms(lambda: levels.update_partials_kernel(
         *args, level=levels.level_update_reference))
@@ -1584,6 +1666,34 @@ def level_times(label, part, eng, ops, gpu):
     return kernel, plain, logl, step_ms
 
 
+def level_device(label, part, ops, gpu):
+    """Phase 11, after every timing (a profiler session could disturb
+    them): the level kernels' device time (ms) over one traversal, and of
+    the widest and the narrowest level (ms), from `level_device_us`; each
+    level's device time is printed beside its own byte bound."""
+    tables, args = level_tables(part, ops)
+    per_level = level_device_us(args, len(tables))
+    device = sum(per_level) * 1e-3
+    widths = [t.shape[1] for t in tables]
+    wide, narrow = widths.index(max(widths)), widths.index(min(widths))
+    # a level's own byte bound (us): each op reads two child rows and
+    # writes one
+    row = part.rate_cats * part.states * part.sites_padded * 4
+    level_bounds = [3 * w * row / H100_BYTES_PER_S * 1e6 for w in widths]
+    bound = level_bound(part, ops)[0]
+    print(f"level device time, {label} (torch.profiler, median of 5 "
+          f"traversals per level; {gpu}): {device:.4f} ms over "
+          f"{len(tables)} levels ({device / bound:.2f}x the bound); widest "
+          f"level ({widths[wide]} ops) {per_level[wide]:.1f} us, narrowest "
+          f"({widths[narrow]} op{'s' if widths[narrow] > 1 else ''}) "
+          f"{per_level[narrow]:.1f} us; by level (ops: us, its bound in us "
+          f"at 3 rows an op) "
+          + ", ".join(f"{w}: {t:.1f} / {b:.1f}"
+                      for w, t, b in zip(widths, per_level, level_bounds)),
+          flush=True)
+    return device, per_level[wide] * 1e-3, per_level[narrow] * 1e-3
+
+
 def caterpillar_times(device, gpu):
     """The level kernel's worst case: the 80-taxon caterpillar at the DNA
     main path's width, 78 ops in 78 levels of one op each. Medians (ms) of
@@ -1595,11 +1705,7 @@ def caterpillar_times(device, gpu):
     headers, seqs = random_alignment(80, N_SITES, seed=3)
     part = dna_partition(tree, dict(zip(headers, seqs)), N_SITES, device)
     ops, _, _ = traversal_ops(part, tree)
-    tables = levels.tables_to_device(levels.pack_pallas_levels(
-        ops, part.tips, part.scale_buffers + 1, part.scale_buffers),
-        part.device)
-    args = (part.clv, part.scale_buffer, part.pmatrix, tables,
-            part.scale_threshold, part.scale_factor)
+    tables, args = level_tables(part, ops)
     kernel = median_ms(lambda: levels.update_partials_kernel(*args))
     plain = median_ms(lambda: levels.update_partials_kernel(
         *args, level=levels.level_update_reference))
@@ -1879,6 +1985,11 @@ def slice_kernel_cases(device, small, small_by, cat, cat_by, big, big_by,
     ops, _, _ = traversal_ops(part, small)
     note("level_per_rate", compare_level_case("per-rate, 20 states", part,
                                               ops)[1])
+    part = protein_partition(aa_tree, aa_by, AA_SITES, device,
+                             rate_scalers=True)
+    ops, _, _ = traversal_ops(part, aa_tree)
+    note("level_per_rate", compare_level_case(
+        "per-rate, 20 states, protein main-path shape", part, ops)[1])
     part = dna_partition(cat, cat_by, 1000, device, rate_scalers=True)
     ops, _, _ = traversal_ops(part, cat)
     note("level_per_rate", compare_level_case(
@@ -2130,11 +2241,7 @@ def slice_times(keep, gpu):
                     codes, pm, table, mxu=mode, **kw))]
         out[key] = (row[0], row[1], fused_bound(eng, part), *row[2:])
     part, ops = keep["level_per_rate"]
-    tables = levels.tables_to_device(levels.pack_pallas_levels(
-        ops, part.tips, part.scale_buffers + 1, part.scale_buffers),
-        part.device)
-    args = (part.clv, part.scale_buffer, part.pmatrix, tables,
-            part.scale_threshold, part.scale_factor)
+    args = level_tables(part, ops)[1]
     out["level_per_rate"] = (
         median_ms(lambda: levels.update_partials_kernel(*args)),
         median_ms(lambda: levels.update_partials_kernel(
@@ -2273,7 +2380,9 @@ def main() -> int:
     log = lib_path.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if ("registers" in line or "spill" in line
+            if "Compiling entry function" in line:
+                print(f"  ptxas: {line.split(chr(39))[1]}", flush=True)
+            elif ("registers" in line or "spill" in line
                     or line.startswith("==")):
                 print(f"  ptxas: {line.strip()}", flush=True)
 
@@ -2332,7 +2441,7 @@ def main() -> int:
     # 9. level kernel vs plain on the card
     big = random_utree(headers_big, seed=SEED)
     level_max_abs = level_cases(device, small, small_by, cat, cat_by,
-                                aa_small_by, big, big_by)
+                                aa_small_by, big, big_by, aa_tree, aa_by)
 
     # 10. the dense paths at full width, through the level kernel
     dna = dense_main_path(device, "DNA", big, big_by, N_SITES,
@@ -2350,6 +2459,8 @@ def main() -> int:
     lv_ms = level_times("DNA", *dna[2:5], gpu)
     lv_aa_ms = level_times("protein", *prot[2:5], gpu)
     caterpillar_times(device, gpu)
+    lv_dev = level_device("DNA", dna[2], dna[4], gpu)
+    lv_aa_dev = level_device("protein", prot[2], prot[4], gpu)
     bounds["level_update"] = level_bound(dna[2], dna[4])
     aa_level_bound = level_bound(prot[2], prot[4])
 
@@ -2450,7 +2561,10 @@ def main() -> int:
                      "libpll2_tpu/ops/pallas_partials.py:170"],
         "launches": level_launches, "max_abs_err": level_max_abs,
         "ms": lv_ms[0], "plain_ms": lv_ms[1], **bound("level_update"),
-        "protein_ms": lv_aa_ms[0], "protein_plain_ms": lv_aa_ms[1],
+        "device_ms": lv_dev[0], "protein_ms": lv_aa_ms[0],
+        "protein_plain_ms": lv_aa_ms[1], "protein_device_ms": lv_aa_dev[0],
+        "protein_widest_level_device_ms": lv_aa_dev[1],
+        "protein_narrowest_level_device_ms": lv_aa_dev[2],
         "protein_bound_ms": aa_level_bound[0],
         "protein_bound_by": aa_level_bound[1],
         **variant("per_rate", "level_per_rate", pr_level),

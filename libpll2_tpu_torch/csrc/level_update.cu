@@ -26,13 +26,15 @@
 //
 // Why in place is safe. The host (ops/levels.py:schedule_levels) puts no
 // two ops in a level where one writes a row (CLV or scaler) that another
-// reads or writes; blocks of one op cover disjoint site tiles. Within an op,
-// every child value a thread reads is read before the rows it came from can
-// be written (the 4x4 variant holds the whole op in registers; the generic
-// one stages a rate's child rows in shared memory before any of that rate's
-// parent rows is stored, and rescales a rate's rows, per rate, before the
-// next rate's child rows are staged), so even an op whose parent is its own
-// child is right.
+// reads or writes; blocks of one op cover disjoint sites. Within an op, the
+// rows of one rate at one site are read and written by one thread only, and
+// it reads every child value of that rate into registers before it stores
+// any parent value of that rate (the 4x4 variant holds the whole op in
+// registers; the runtime-size one goes rate by rate, and rescales by
+// re-reading only rows it has stored itself). Nothing crosses threads but P,
+// staged in shared memory, and each thread's maximum for the rescale test.
+// So even an op whose parent is its own child is right, and no CLV load may
+// go through the read-only cache.
 //
 // What bounds it on an H100: bytes. Per op and site it reads 2 * R * s and
 // writes R * s floats, against 2 * R * s * s FMAs. A DNA traversal at 128
@@ -43,13 +45,47 @@
 // any traversal must move; chip_smoke.py reports that bound) it is 254
 // rows, 266 MB, 80 us. The protein traversal at 128 x 8192 (R = 4, s = 20,
 // a row 2.6 MB) moves 126 * 3 * 2.6 MB = 991 MB (296 us; 666 MB or 199 us
-// read and written once) against 6.6 GFLOP (99 us). The design does the
-// simple thing about it: every CLV value
-// is read and written once, by coalesced accesses (sites are the fastest
-// axis, one thread per site). P comes through the read-only cache (4x4) or
-// shared memory (generic). Width-1 levels (a caterpillar tree) leave most of
-// the card idle; overlapping levels, cp.async/TMA staging and tensor cores
-// are later work.
+// read and written once: chip_smoke.py's bound, 0.2005 ms with P and the
+// scaler rows) against 6.6 GFLOP (99 us).
+//
+// The design. 4x4 (DNA): one thread per site holds the op in registers, P
+// through the read-only cache. Runtime sizes (20-state proteins, any other
+// state count up to 32, any rate count):
+// - A thread owns one site of one op across its rates, or two sites (s0 and
+//   s0 + blockDim.x, each access coalesced) on a wide level. Per rate it
+//   loads its child columns L[r, .] and R[r, .] into registers
+//   (neighbouring lanes, neighbouring sites: 128 B a row a warp), then reads
+//   P four rows at a time as float4 broadcasts (one address for the whole
+//   warp, no bank conflicts), each feeding 4 FMAs a site, and stores x[r, i]
+//   unscaled.
+// - A block stages both P-matrices of its op, for all rates that fit in
+//   48 KB (all four at 20 states: 12.8 KB), zero-padded to SP x SP with SP
+//   a multiple of 4, once: more rates are staged in chunks. Its threads
+//   start at offsets that differ from block to block, since the blocks of
+//   one op read the same P at the same moment.
+// - The width W of the level sets the threads. A wide level (W * S at least
+//   1536 sites an SM) runs two sites a thread, one tile of 256 sites a
+//   block. Else one site a thread, and where that leaves an SM fewer than
+//   2048 threads, a site's rates are split over 2 or 4 threads
+//   (blockDim.y), so a narrow level runs more, shorter threads; blocks then
+//   loop over tiles so that the card is filled once and P is staged once a
+//   block.
+// - The thread keeps its own maximum (per rate in per-rate mode); split
+//   rates meet in shared memory once a tile. A rescale, which is rare,
+//   re-reads the thread's own rows and multiplies them.
+// - State counts are templates: 20 exactly, others padded to 4, 8, 16 or 32
+//   with masked loads (padded P and child entries are zero).
+// Dispatching the instructions at the protein shape, ~3200 FMAs and
+// 400-800 shared loads a site, takes 0.14-0.2 ms a traversal, under the
+// byte bound; the loss is latency: a warp waits on shared loads, on its FMA
+// chains and on device memory, with at most 12 warps an SM to hide it (3
+// blocks of 128 threads at ~166 registers).
+//
+// What is left: the tensor cores (3 x bf16 or 3 x TF32 for float32
+// accuracy); cp.async or TMA staging of the child columns, so that the next
+// rate's or tile's columns arrive while this one is computed without
+// holding registers; levels of width 1 to 3 (a caterpillar, the protein
+// tree's top) still cost 9-18 us each.
 //
 // Offsets into the CLV and scaler buffers are 64-bit: (N+1) * R * s * S
 // passes 2^31 at 1000 taxa x 20 states x 4 rates x 30000 sites.
@@ -64,9 +100,9 @@
 namespace {
 
 constexpr int kFixedBlock = 128;  // 4x4 variant: one thread per site
-constexpr int kTile = 32;         // generic variant: sites per block, one a lane
-constexpr int kWarps = 8;         // generic variant: warps per block
-constexpr int kMaxStates = 32;
+constexpr int kBlock = 128;       // runtime-size variant: most threads a block
+constexpr int kBlocksPerSm = 3;   // its blocks resident on one SM
+constexpr int kStageBytes = 48 * 1024;  // its shared memory, at most
 
 struct Args {
   float* clv;          // [N+1, R * s, S]
@@ -159,89 +195,264 @@ __global__ void __launch_bounds__(kFixedBlock) level_fixed(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// Sizes known at run time (any rates, states <= 32). A block owns 32 sites
-// (one per lane) of one op; its 8 warps split the rows of one rate at a time.
-// Per rate: P[m1, r] and P[m2, r] and the children's s rows of the tile are
-// staged in shared memory, then each warp computes its rows and stores them
-// unscaled. After all rates (per-rate mode: after each rate, over that
-// rate's rows), the maximum is reduced across warps; a site that must be
-// rescaled has its stored rows multiplied by `factor` (a global store by one
-// thread is visible to the block after __syncthreads()). x * factor is the
-// same float whether multiplied before or after the store.
-__global__ void __launch_bounds__(kWarps * 32) level_generic(Args a) {
-  __shared__ float sp[2][kMaxStates * kMaxStates];
-  __shared__ float sc[2][kMaxStates][kTile];
-  __shared__ float smax[kWarps][kTile];
-  __shared__ int sflag[kTile];
+// Sizes known at run time (any rates; states <= SP, SP a multiple of 4; EXACT:
+// states == SP, no masks). A thread owns SPT sites of one op (sites s0 and
+// s0 + blockDim.x); `rc` rates of both P-matrices are staged at a time, all
+// of them where they fit in kStageBytes. Rows are stored unscaled as they are
+// computed; a site (per-rate mode: a rate of a site) that must be rescaled
+// has its rows re-read and multiplied by `factor` by the thread that stored
+// them. x * factor is the same float whether multiplied before or after the
+// store.
+__device__ __forceinline__ void rescale_rows(float* dst, size_t S, size_t site,
+                                             int k0, int k1, float factor) {
+  for (int k = k0; k < k1; ++k) dst[(size_t)k * S + site] *= factor;
+}
+
+// Rates r0 .. r0+nr-1 of both P-matrices into `stage`, zero-padded to
+// SP x SP, by all threads of the block. Every thread's loads are started
+// before its stores (a few iterations unrolled), so a block pays about one
+// L2 latency for the staging, not one per element; where the padded layout
+// is P's own it is copied 16 bytes at a time. Blocks start at different
+// offsets (`rot`), so that the blocks of one op, which read the same P at
+// the same moment, spread over its cache lines.
+template <int SP, bool EXACT>
+__device__ __forceinline__ void stage_p(float4* stage, const float* pl,
+                                        const float* pr, int s, int r0,
+                                        int nr) {
+  constexpr int PP = SP * SP;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nt = blockDim.x * blockDim.y;
+  const bool vec = EXACT && ((reinterpret_cast<size_t>(pl) |
+                              reinterpret_cast<size_t>(pr)) & 15) == 0;
+  if (vec) {
+    const int n4 = nr * (PP / 4), n = 2 * n4;
+    const int rot = (int)(((size_t)blockIdx.x + blockIdx.y) * nt % n);
+    const float4* gl = reinterpret_cast<const float4*>(pl + (size_t)r0 * PP);
+    const float4* gr = reinterpret_cast<const float4*>(pr + (size_t)r0 * PP);
+#pragma unroll 4
+    for (int i = tid; i < n; i += nt) {
+      const int k = i + rot < n ? i + rot : i + rot - n;
+      stage[k] = __ldg(k < n4 ? gl + k : gr + (k - n4));
+    }
+    return;
+  }
+  float* sp = reinterpret_cast<float*>(stage);
+  const int n = 2 * nr * PP;
+  const int rot = (int)(((size_t)blockIdx.x + blockIdx.y) * nt % n);
+#pragma unroll 4
+  for (int i = tid; i < n; i += nt) {
+    const int k = i + rot < n ? i + rot : i + rot - n;
+    const int j = k % SP, row = (k / SP) % SP, cr = k / PP;
+    const int c = cr >= nr, r = r0 + cr - c * nr;
+    sp[k] = (EXACT || (row < s && j < s))
+                ? __ldg((c ? pr : pl) + ((size_t)r * s + row) * s + j)
+                : 0.0f;
+  }
+}
+
+// The thread's sites of tile `tile` (tiles of blockDim.x * SPT sites; the
+// thread's are threadIdx.x, + blockDim.x, ...) and whether each is a site.
+template <int SPT>
+__device__ __forceinline__ void tile_sites(size_t (&site)[SPT], bool (&in)[SPT],
+                                           int tile, size_t S) {
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) {
+    site[k] = ((size_t)tile * SPT + k) * blockDim.x + threadIdx.x;
+    in[k] = site[k] < S;
+  }
+}
+
+// Rate r of the child columns at the thread's sites into registers (zero
+// past the state count and the last site).
+template <int SP, int SPT, bool EXACT>
+__device__ __forceinline__ void load_children(
+    float (&cl)[SPT][SP], float (&cr)[SPT][SP], const float* left,
+    const float* right, const size_t (&site)[SPT], const bool (&in)[SPT],
+    int r, int s, size_t S) {
+#pragma unroll
+  for (int j = 0; j < SP; ++j) {
+    const size_t row = (size_t)(r * s + j) * S;
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) {
+      const bool ok = in[k] && (EXACT || j < s);
+      cl[k][j] = ok ? left[row + site[k]] : 0.0f;
+      cr[k][j] = ok ? right[row + site[k]] : 0.0f;
+    }
+  }
+}
+
+template <int SP, int SPT, bool EXACT>
+__global__ void __launch_bounds__(kBlock, kBlocksPerSm)
+    level_generic(Args a, int rc, int tiles) {
+  // [2][rc][SP][SP / 4] float4: P[m1], then P[m2]; then 2 x [blockDim.y]
+  // [sites of a tile] floats: each thread's maximum, for the cross-rate one
+  extern __shared__ float4 stage[];
+  constexpr int PP = SP * SP;
+  constexpr int kRows = SPT == 1 ? 4 : 2;  // rows of P a step
   const Op op = load_op(a, blockIdx.y);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int s = a.states, RS = a.rates * a.states;
+  const int s = EXACT ? SP : a.states;
+  const int RS = a.rates * s;
+  const int TY = blockDim.y, ty = threadIdx.y;
+  const int w = blockDim.x * SPT;  // sites a tile
   const size_t S = a.sites;
-  const size_t site = (size_t)blockIdx.x * kTile + lane;
-  const bool in = site < S;
   const float* left = a.clv + (size_t)op.c1 * RS * S;
   const float* right = a.clv + (size_t)op.c2 * RS * S;
   float* dst = a.clv + (size_t)op.parent * RS * S;
   const float* pl = a.pmat + (size_t)op.m1 * RS * s;
   const float* pr = a.pmat + (size_t)op.m2 * RS * s;
-  float m = 0.0f;
-  for (int r = 0; r < a.rates; ++r) {
-    __syncthreads();  // the previous rate's reads of sp and sc are done
-    for (int k = threadIdx.x; k < s * s; k += kWarps * 32) {
-      sp[0][k] = __ldg(pl + (size_t)r * s * s + k);
-      sp[1][k] = __ldg(pr + (size_t)r * s * s + k);
-    }
-    for (int j = warp; j < s; j += kWarps) {
-      const size_t at = (size_t)(r * s + j) * S + site;
-      sc[0][j][lane] = in ? left[at] : 0.0f;
-      sc[1][j][lane] = in ? right[at] : 0.0f;
-    }
-    __syncthreads();
-    float mr = 0.0f;
-    for (int i = warp; i < s; i += kWarps) {
-      const float* p = sp[0] + i * s;
-      const float* q = sp[1] + i * s;
-      float ta = p[0] * sc[0][0][lane];
-      float tb = q[0] * sc[1][0][lane];
-      for (int j = 1; j < s; ++j) {
-        ta += p[j] * sc[0][j][lane];
-        tb += q[j] * sc[1][j][lane];
+  float* smax = reinterpret_cast<float*>(stage + (size_t)rc * (PP / 2));
+  int staged = -1;  // the first rate of the chunk in `stage`
+  // One tile of w sites; `it` counts the block's tiles.
+  const auto run_tile = [&](int tile, int it) {
+    size_t site[SPT];
+    bool in[SPT];
+    float m[SPT];
+    tile_sites<SPT>(site, in, tile, S);
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) m[k] = 0.0f;
+    // The thread's rates are ty, ty + TY, ...: a rate's child columns are
+    // all read before any of its rows is stored, and the next rate's as
+    // soon as its last row is; the first tile's first rate is in flight
+    // while P is staged.
+    float cl[SPT][SP], cr[SPT][SP];
+    if (ty < a.rates)
+      load_children<SP, SPT, EXACT>(cl, cr, left, right, site, in, ty, s, S);
+    for (int r0 = 0; r0 < a.rates; r0 += rc) {
+      const int nr = min(rc, a.rates - r0);
+      if (staged != r0) {
+        if (staged >= 0) __syncthreads();  // every thread is done with it
+        stage_p<SP, EXACT>(stage, pl, pr, s, r0, nr);
+        __syncthreads();
+        staged = r0;
       }
-      const float v = ta * tb;
-      mr = v > mr ? v : mr;
-      if (in) dst[(size_t)(r * s + i) * S + site] = v;
+      // the thread's first rate in this chunk: the next of ty, ty + TY, ...
+      for (int r = r0 + ((ty - r0) % TY + TY) % TY; r < r0 + nr; r += TY) {
+        const float4* p = stage + (size_t)(r - r0) * (PP / 4);
+        const float4* q = stage + (size_t)(nr + r - r0) * (PP / 4);
+        float mr[SPT];
+#pragma unroll
+        for (int k = 0; k < SPT; ++k) mr[k] = 0.0f;
+        // kRows rows at a time: each step of 4 columns loads 2 * kRows
+        // float4 of P and feeds 8 * kRows * SPT independent FMAs
+#pragma unroll 1
+        for (int i0 = 0; i0 < SP; i0 += kRows) {
+          if (!EXACT && i0 >= s) break;
+          float ta[kRows][SPT], tb[kRows][SPT];
+#pragma unroll
+          for (int i = 0; i < kRows; ++i)
+#pragma unroll
+            for (int k = 0; k < SPT; ++k) ta[i][k] = tb[i][k] = 0.0f;
+#pragma unroll
+          for (int j = 0; j < SP / 4; ++j) {
+#pragma unroll
+            for (int i = 0; i < kRows; ++i) {
+              const float4 u = p[(i0 + i) * (SP / 4) + j];
+              const float4 v = q[(i0 + i) * (SP / 4) + j];
+#pragma unroll
+              for (int k = 0; k < SPT; ++k) {
+                ta[i][k] = fmaf(u.x, cl[k][4 * j], ta[i][k]);
+                tb[i][k] = fmaf(v.x, cr[k][4 * j], tb[i][k]);
+                ta[i][k] = fmaf(u.y, cl[k][4 * j + 1], ta[i][k]);
+                tb[i][k] = fmaf(v.y, cr[k][4 * j + 1], tb[i][k]);
+                ta[i][k] = fmaf(u.z, cl[k][4 * j + 2], ta[i][k]);
+                tb[i][k] = fmaf(v.z, cr[k][4 * j + 2], tb[i][k]);
+                ta[i][k] = fmaf(u.w, cl[k][4 * j + 3], ta[i][k]);
+                tb[i][k] = fmaf(v.w, cr[k][4 * j + 3], tb[i][k]);
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            if (!EXACT && i0 + i >= s) break;  // a padded row: not stored
+#pragma unroll
+            for (int k = 0; k < SPT; ++k) {
+              const float x = ta[i][k] * tb[i][k];
+              mr[k] = x > mr[k] ? x : mr[k];
+              if (in[k]) dst[(size_t)(r * s + i0 + i) * S + site[k]] = x;
+            }
+          }
+        }
+        if (r + TY < a.rates)
+          load_children<SP, SPT, EXACT>(cl, cr, left, right, site, in, r + TY, s, S);
+#pragma unroll
+        for (int k = 0; k < SPT; ++k) {
+          if (!a.rate_scalers) {
+            m[k] = mr[k] > m[k] ? mr[k] : m[k];
+          } else if (in[k]) {  // this rate's count and rescale
+            const int rescale = op.has && mr[k] < a.threshold;
+            if (rescale) rescale_rows(dst, S, site[k], r * s, (r + 1) * s, a.factor);
+            write_scaler(a, op, r, site[k], rescale);
+          }
+        }
+      }
     }
-    m = mr > m ? mr : m;
-    if (a.rate_scalers) {  // this rate's count and rescale
-      smax[warp][lane] = mr;
+    if (a.rate_scalers) return;
+    if (TY > 1) {  // the site's maximum over the threads of its rates
+      // two buffers by tile parity: a thread writes one only after the
+      // barrier of the tile between, which every reader of it has passed
+      float* mx = smax + (it & 1) * TY * w;
+#pragma unroll
+      for (int k = 0; k < SPT; ++k) mx[ty * w + k * blockDim.x + threadIdx.x] = m[k];
       __syncthreads();
-      if (warp == 0) {
-        float mm = smax[0][lane];
-        for (int w = 1; w < kWarps; ++w) mm = smax[w][lane] > mm ? smax[w][lane] : mm;
-        const int rescale = op.has && mm < a.threshold;
-        sflag[lane] = rescale;
-        if (in) write_scaler(a, op, r, site, rescale);
-      }
-      __syncthreads();
-      if (in && sflag[lane]) {
-        for (int i = warp; i < s; i += kWarps) dst[(size_t)(r * s + i) * S + site] *= a.factor;
-      }
+#pragma unroll
+      for (int k = 0; k < SPT; ++k)
+        for (int y = 0; y < TY; ++y) {
+          const float v = mx[y * w + k * blockDim.x + threadIdx.x];
+          m[k] = v > m[k] ? v : m[k];
+        }
     }
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) {
+      if (!in[k]) continue;
+      const int rescale = op.has && m[k] < a.threshold;
+      if (rescale)
+        for (int r = ty; r < a.rates; r += TY) rescale_rows(dst, S, site[k], r * s, (r + 1) * s, a.factor);
+      if (ty == 0) write_scaler(a, op, 0, site[k], rescale);
+    }
+  };
+  // At one site a thread a block takes tiles blockIdx.x, + gridDim.x, ...:
+  // with all rates in one chunk P is staged once for all of them. At two
+  // (wide levels, blocks enough) a block takes one tile, and keeps no loop
+  // state in its registers.
+  if constexpr (SPT == 1) {
+    for (int tile = blockIdx.x, it = 0; tile < tiles; tile += gridDim.x, ++it)
+      run_tile(tile, it);
+  } else {
+    run_tile(blockIdx.x, 0);
   }
-  if (a.rate_scalers) return;
-  smax[warp][lane] = m;
-  __syncthreads();
-  if (warp == 0) {
-    float mm = smax[0][lane];
-    for (int w = 1; w < kWarps; ++w) mm = smax[w][lane] > mm ? smax[w][lane] : mm;
-    const int rescale = op.has && mm < a.threshold;
-    sflag[lane] = rescale;
-    if (in) write_scaler(a, op, 0, site, rescale);
-  }
-  __syncthreads();
-  if (in && sflag[lane]) {
-    for (int k = warp; k < RS; k += kWarps) dst[(size_t)k * S + site] *= a.factor;
-  }
+}
+
+// One launch of the runtime-size variant: blocks of `tx` x `ty` threads,
+// `tx` over sites (SPT each), `ty` over rates, as many per op as fill the
+// card once (kBlocksPerSm blocks an SM, `sms` SMs), each over one or more
+// tiles of tx * SPT sites.
+template <int SP, int SPT, bool EXACT>
+void launch_generic(const Args& a, int n_ops, int tx, int ty, int sms,
+                    cudaStream_t st) {
+  constexpr int per_rate = 2 * SP * SP * (int)sizeof(float);
+  constexpr int maxima = 2 * kBlock * SPT * (int)sizeof(float);
+  const int rc = min(a.rates, (kStageBytes - maxima) / per_rate);
+  const int w = tx * SPT;
+  const int tiles = (a.sites + w - 1) / w;
+  const long long fill = (long long)kBlocksPerSm * (sms > 0 ? sms : 1);
+  const long long per_block =
+      SPT == 1 ? ((long long)tiles * n_ops + fill - 1) / fill : 1;
+  const int blocks = (int)((tiles + per_block - 1) / per_block);
+  const size_t smem = (size_t)rc * per_rate + 2 * (size_t)ty * w * sizeof(float);
+  level_generic<SP, SPT, EXACT><<<dim3(blocks, n_ops), dim3(tx, ty), smem, st>>>(a, rc, tiles);
+}
+
+// The current device's SM count, asked of the driver once per device (the
+// launches of a traversal are host-bound; every call writes the same value).
+int sm_count() {
+  constexpr int kDevices = 64;
+  static int cached[kDevices] = {};
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < kDevices && cached[dev] > 0) return cached[dev];
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (dev >= 0 && dev < kDevices) cached[dev] = sms;
+  return sms;
 }
 
 }  // namespace
@@ -263,8 +474,29 @@ extern "C" int pll_level_update(float* clv, int* scaler, const float* pmat,
       level_fixed<4, 4, 1><<<grid, kFixedBlock, 0, st>>>(a);
     }
   } else {
-    const dim3 grid((sites + kTile - 1) / kTile, n_ops);
-    level_generic<<<grid, kWarps * 32, 0, st>>>(a);
+    // Threads from the level's width: two sites a thread where the level
+    // has 1536 sites an SM (20 states only), else one; where one site a
+    // thread leaves an SM fewer than 2048 threads, a site's rates are split
+    // over up to four threads (blockDim.y), so that a narrow level has
+    // more, shorter threads.
+    const int sms = sm_count();
+    const long long threads = (long long)sites * n_ops;  // at one site each
+    int ty = 1;
+    while (ty < 4 && 2 * ty <= rates && threads * ty < 16LL * kBlock * sms) ty *= 2;
+    const int tx = kBlock / ty;
+    if (states == 20 && threads >= 12LL * kBlock * sms) {
+      launch_generic<20, 2, true>(a, n_ops, kBlock, 1, sms, st);
+    } else if (states == 20) {
+      launch_generic<20, 1, true>(a, n_ops, tx, ty, sms, st);
+    } else if (states <= 4) {
+      launch_generic<4, 1, false>(a, n_ops, tx, ty, sms, st);
+    } else if (states <= 8) {
+      launch_generic<8, 1, false>(a, n_ops, tx, ty, sms, st);
+    } else if (states <= 16) {
+      launch_generic<16, 1, false>(a, n_ops, tx, ty, sms, st);
+    } else {
+      launch_generic<32, 1, false>(a, n_ops, tx, ty, sms, st);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,6 +36,7 @@ from libpll2_tpu_torch.trees import (create_operations, parse_newick,
                                      random_alignment, random_utree,
                                      traverse)
 from libpll2_tpu_torch.utils import simulate_alignment
+from torch_level_ops import self_child_op
 
 pytestmark = pytest.mark.gpu
 
@@ -64,13 +65,13 @@ def cuda():
 
 
 def _engine(tree, sites, device, dtype=torch.float32, rates=4, states=4,
-            alphabet="ACGT-NRY", seed=3):
+            alphabet="ACGT-NRY", seed=3, rate_scalers=False):
     headers, seqs = random_alignment(tree.tip_count, sites,
                                      alphabet=alphabet, seed=seed)
     by = dict(zip(headers, seqs))
     part = Partition(tree.tip_count, tree.inner_count, states, sites, 1,
                      tree.edge_count, rates, tree.inner_count, device=device,
-                     dtype=dtype)
+                     dtype=dtype, rate_scalers=rate_scalers)
     charmap = {4: maps.map_nt, 5: CHARMAP5, 20: maps.map_aa}.get(
         states, None)
     if charmap is None:
@@ -241,24 +242,42 @@ def test_rows_wrapper_rejects_what_it_cannot_take(cuda):
 
 
 LEVEL_CASES = ["ragged", "rates3", "states20", "states32", "caterpillar",
-               "no_scaler", "partial"]
+               "no_scaler", "partial", "self_child", "states5", "states2",
+               "rates16_states32", "states20_wide", "per_rate_states20_wide",
+               "states32_wide"]
 
 
 def _level_case(case, device, dtype=torch.float32):
     """(partition with P-matrices set, the op list to run, the full list
-    that must run first or None) for one level-kernel case."""
+    that must run first or None) for one level-kernel case. The runtime-size
+    variant takes 'states20' exactly, 'states5' and 'states2' padded, and
+    'rates16_states32' (per-rate counts) with P's 128 KB staged in chunks.
+    It picks its threads from a level's ops x sites and the card's SM count:
+    at 60000 sites ('_wide') the 16-taxon tree's levels of 5, 3, 3, 2 and 1
+    ops take, on a 132-SM H100, what the 128 x 8192 protein tree's levels
+    take (20 states: two sites a thread on the widest level, one site with
+    its rates over 2 threads, then over 4; other counts over 1, 2, 4)."""
     tree = random_utree([f"t{i}" for i in range(16)], seed=3)
     kw = dict(dtype=dtype)
+    sites = 700 if case == "caterpillar" else 1000
+    if case.endswith("_wide"):
+        case, sites = case[:-len("_wide")], 60000
+    if case.startswith("per_rate_"):
+        case, kw["rate_scalers"] = case[len("per_rate_"):], True
     if case == "caterpillar":
         tree, kw = _caterpillar(80), dict(kw, alphabet="ACGT")
     elif case == "rates3":
         kw["rates"] = 3
-    elif case in ("states20", "states32"):
+    elif case == "self_child":
+        kw.update(states=20, alphabet=AA_NOISY)
+    elif case == "rates16_states32":
+        kw.update(states=32, rates=16, alphabet=LETTERS32 + "-",
+                  rate_scalers=True)
+    elif case.startswith("states"):
         s = int(case[6:])
-        kw.update(states=s, alphabet=AA_NOISY if s == 20
-                  else LETTERS32[:s] + "-")
-    part, _ = _engine(tree, 700 if case == "caterpillar" else 1000, device,
-                      **kw)
+        kw.update(states=s, alphabet={20: AA_NOISY, 5: "ACGTX-"}.get(
+            s, LETTERS32[:s] + "-"))
+    part, _ = _engine(tree, sites, device, **kw)
     ops, br, pidx = create_operations(traverse(tree.vroot))
     part.update_prob_matrices([0] * part.rate_cats, pidx, br)
     if case == "no_scaler":
@@ -266,6 +285,8 @@ def _level_case(case, device, dtype=torch.float32):
             op.parent_scaler_index = -1
     if case == "partial":
         return part, ops[len(ops) // 2:], ops
+    if case == "self_child":
+        return part, [self_child_op(ops, part.tips)], ops
     return part, ops, None
 
 

@@ -40,6 +40,7 @@ from libpll2_tpu_torch.trees import (compile_levels, create_operations,
                                      export_newick, parse_newick_rooted,
                                      traverse)
 from libpll2_tpu_torch.trees import rtree as trtree
+from torch_level_ops import self_child_op
 
 SEED = 7
 TOL_LOGL, TOL_D1, ATOL_D1 = 5e-5, 5e-3, 5e-2      # bench_validate.py:61-63
@@ -198,6 +199,41 @@ def test_level_function_matches_pallas_interpret_f32(kind):
         scaler = scaler.at[jt[7]].set(srows)
     if kind == "caterpillar":
         assert scaled > 0, "scaling never triggered"
+
+
+@pytest.mark.parametrize("kind", ["dna", "aa20"])
+def test_self_child_level_matches_pallas_interpret_f32(kind):
+    """A level of one op that writes its own child1 in place (CLV and
+    scaler row), after a full traversal: the port's plain level function
+    against JAX's Pallas level kernel (interpret mode). It pins what the
+    CUDA kernel must keep: the parent is computed from the child rows as
+    they were before the level."""
+    sites, states, rates = LEVEL_CASES[kind]
+    tree = _tree(kind)
+    jp, _ = _partitions(tree, sites, states, rates, f64=False)
+    ops, br, pidx = create_operations(traverse(tree.vroot))
+    jp.update_prob_matrices([0] * rates, pidx, br)
+    jp.update_partials(ops)
+    op = self_child_op(ops, jp.tips)
+    k, n, rs = _k(jp), jp.nodes + 1, rates * states
+    thr, fac = jp.scale_threshold, jp.scale_factor
+    (tt,) = tlevels.pack_pallas_levels([op], jp.tips, k + 1, k)
+    (jt,) = jpallas.pack_pallas_levels([op], jp.tips, jp.nodes, k + 1, k)
+    clv2d = jp.clv.reshape(n, rs, sites)
+    t_clv = torch.tensor(np.asarray(clv2d))
+    t_sc = torch.tensor(np.asarray(jp.scale_buffer))
+    child = t_clv[op.child1_clv_index].clone()
+    tlevels.level_update_reference(t_clv, t_sc,
+                                   torch.tensor(np.asarray(jp.pmatrix)), tt,
+                                   rates, states, thr, fac)
+    rows, srows = jpallas.level_update_pallas(
+        clv2d, jp.scale_buffer, jp.pmatrix, jt, rates, states, thr, fac,
+        interpret=True)
+    np.testing.assert_array_equal(t_sc[op.parent_scaler_index].numpy(),
+                                  np.asarray(srows)[0])
+    got = t_clv[op.parent_clv_index]
+    assert not torch.equal(got, child)
+    assert _site_rel(got[None].numpy(), np.asarray(rows)[:1]) <= TOL_CLV
 
 
 @pytest.mark.parametrize("kind", ["dna", "aa20", "caterpillar"])
