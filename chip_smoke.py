@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch + CUDA port (libpll2_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py --rows-only CHECKOUT
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit's nvcc and PyTorch built for CUDA; jax is not needed. Phases,
@@ -24,11 +25,16 @@ each fatal on failure:
   6. rows kernel vs plain: ops/fused.py:fused_traversal_rows (the CUDA
      kernel for 16 or more states) against the plain version on the card,
      float32: 16 taxa x 1000 ragged AA sites with B/Z/X/gaps, an 80-taxon
-     caterpillar where scaling must trigger, a 3-category case, 16- and
-     32-state alphabets through a custom charmap, and the protein main
-     path's 128 x 8192 shape. Mode 'highest' ('split' runs the same code;
-     its outputs must be equal) is held to equal scaler counts and TOL_CLV;
-     mode 'bf16' at the logL level (TOL_BF16_LOGL);
+     caterpillar where scaling must trigger, a 3-category case, 16-, 17-,
+     21- and 32-state alphabets through a custom charmap (17 and 21: P
+     padded to 20 and 24 states), 40003 sites (a tail tile of 3), the
+     spill plan (ops/_kernels.py:rows_plan) at 8 rates x 32 states with
+     per-rate counts and at 16 and 32 rates x 32 states (P staged in
+     chunks), and the protein main path's 128 x 8192 shape; each case
+     prints the plan it ran and must run the one expected. Mode 'highest'
+     ('split' runs the same code; its outputs must be equal) is held to
+     equal scaler counts and TOL_CLV; mode 'bf16' at the logL level
+     (TOL_BF16_LOGL);
   7. protein main path: tools/benchmarks.py:163's problem (128 taxa x 8192
      sites simulated with 20 equal-rate states, alpha 0.9, seed 11,
      evaluated under LG+G4) through Partition(device="cuda") and
@@ -37,7 +43,10 @@ each fatal on failure:
      launches, and the same problem through the plain path in float64 on
      the card;
   8. times at 128 x 8192: the rows kernel and its plain version per mode,
-     one loglikelihood() and one newton_step();
+     one loglikelihood() and one newton_step(); then the rows kernel's
+     device time over one traversal per mode from torch.profiler (and per
+     op), and the spill plan at 16 rates x 32 states on the protein tree
+     at 128 x 4096 (against its plain version, then timed);
   9. level kernel vs plain: ops/levels.py:level_update (csrc/level_update.cu)
      against level_update_reference over whole op lists on the card,
      float32, from the same buffers: 16 x 1000 ragged DNA, 3 categories,
@@ -98,6 +107,9 @@ The last three lines are the card's name and power limit, one JSON object
 listing every kernel (with its bound at the card's peaks), and {"ok": true,
 "device": ...}.
 Exits non-zero, printing no result, when there is no CUDA device.
+`--rows-only CHECKOUT` runs only phase 8's rows-kernel times on the protein
+main path, importing the port from CHECKOUT (a checkout of another commit),
+and prints them as one JSON line: two commits compared on one card.
 `--profile DIR` also writes a torch.profiler breakdown of one
 loglikelihood() and one newton_step() of each main path (fused and
 levels-kernel) to DIR/profile.txt.
@@ -481,16 +493,32 @@ def build_protein_engine(tree, by_label, sites, device, states=20,
 
 
 def compare_rows_case(name, tree, by_label, sites, device, states=20,
-                      rate_cats=4, must_scale=False):
+                      rate_cats=4, must_scale=False, plan="on-chip",
+                      **options):
     """Rows kernel vs plain traversal on one problem: 'highest' (and
     'split', the same code) to equal counts and TOL_CLV, 'bf16' at the logL
-    level. Returns (max relative error, max absolute error)."""
-    part, eng = build_protein_engine(tree, by_label, sites, device, states,
-                                     rate_cats)
-    return compare_rows_traversal(name, part, eng, must_scale)
+    level; the kernel must run `plan`. `options` (rate_scalers) go to
+    Partition. Returns (max relative error, max absolute error)."""
+    from libpll2_tpu_torch import TreeEngine
+
+    part = protein_partition(tree, by_label, sites, device, states,
+                             rate_cats, **options)
+    return compare_rows_traversal(name, part, TreeEngine(part, tree),
+                                  must_scale, plan)
 
 
-def compare_rows_traversal(name, part, eng, must_scale=False):
+def rows_plan_of(part, eng):
+    """The rows kernel's plan (ops/_kernels.py:rows_plan) for an engine's
+    traversal on the current device."""
+    from libpll2_tpu_torch.ops import _kernels
+
+    return _kernels.device_rows_plan(part.device, part.rate_cats,
+                                     part.states, eng.fused_slots,
+                                     part.rate_scalers, part.sites_padded)
+
+
+def compare_rows_traversal(name, part, eng, must_scale=False,
+                           plan="on-chip"):
     """`compare_rows_case` on the inputs a fused engine hands the rows
     kernel, in the partition's modes (per-rate counts, raw tips)."""
     import torch
@@ -500,6 +528,9 @@ def compare_rows_traversal(name, part, eng, must_scale=False):
 
     codes, pm, table = traversal_inputs(eng)
     kw = traversal_kw(part, eng)
+    ran = rows_plan_of(part, eng)
+    check(ran.plan == plan, f"{name}: the rows kernel runs the {ran.plan} "
+          f"plan, not {plan}")
     got = fused_traversal(codes, pm, table, mxu="highest", **kw)
     split = fused_traversal(codes, pm, table, mxu="split", **kw)
     want = fused_traversal_reference(codes, pm, table, mxu="highest", **kw)
@@ -536,7 +567,10 @@ def compare_rows_traversal(name, part, eng, must_scale=False):
     raw = int((table[:-1, [1, 4]] == 2).sum())
     print(f"rows kernel vs plain [{name}]: {part.tips} taxa x {part.sites} "
           f"sites, {part.states} states, {part.rate_cats} rates, "
-          f"{eng.fused_slots} slots"
+          f"{eng.fused_slots} slots, plan {ran.plan} ({ran.sites_per_thread} "
+          f"site(s) a thread, {ran.smem_bytes} "
+          f"bytes of shared memory, P padded to {ran.padded_states}, "
+          f"{ran.rate_chunk} rates staged at once)"
           + (", per-rate counts" if part.rate_scalers else "")
           + (f", {raw} raw-tip children" if raw else "")
           + f": highest/split scaler counts equal (max {scaled}"
@@ -1816,6 +1850,106 @@ def times(eng, part, gpu, taxa, sites, modes=("split",)):
     return out
 
 
+def kernel_device_us(fn, name: str, reps=5) -> float:
+    """Device time (us) of the one kernel whose name holds `name` in a call
+    of `fn`, from torch.profiler: `reps` calls, each profiled on its own,
+    the median. A trace that lacks the kernel (the profiler can drop
+    events) is profiled again, up to `reps` more times in all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    runs, tries = [], 0
+    while len(runs) < reps:
+        check(tries < 2 * reps, f"the profiler missed {name} in "
+              f"{tries - len(runs)} of {tries} calls")
+        tries += 1
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name]
+        if len(found) == 1:
+            runs.append(found[0].time_range.elapsed_us())
+    return statistics.median(runs)
+
+
+def rows_device(eng, part, gpu, modes=("split", "bf16")):
+    """Phase 8, after the timings: the rows kernel's device time (ms) over
+    one traversal of the protein main path per mode, and per op."""
+    from libpll2_tpu_torch.ops.fused import fused_traversal
+
+    codes, pm, table = traversal_inputs(eng)
+    kw = dict(rates=part.rate_cats, states=part.states,
+              n_slots=eng.fused_slots, threshold=part.scale_threshold,
+              factor=part.scale_factor)
+    n_ops = len(eng.table) - 1
+    out = {mode: kernel_device_us(lambda: fused_traversal(
+        codes, pm, table, mxu=mode, **kw), "fused_rows") * 1e-3
+        for mode in modes}
+    print(f"rows kernel device time, {part.tips} x {part.sites} "
+          f"(torch.profiler, median of 5 traversals; {gpu}): "
+          + ", ".join(f"[{m}] {v * 1e3:.1f} us ({v * 1e3 / n_ops:.3f} us "
+                      f"an op over {n_ops} ops)" for m, v in out.items()),
+          flush=True)
+    return out
+
+
+# the spill plan's timing case: 16 rates x 32 states on the protein tree
+SPILL_RATES, SPILL_STATES, SPILL_SITES = 16, 32, 4096
+
+
+def rows_spill_case(device, aa_tree, gpu):
+    """Phase 8: the rows kernel's spill plan at a shape that needs it (16
+    rates x 32 states, 128 x 4096, a random 32-letter alignment on the
+    protein tree), against its plain version, then timed. Returns (max abs
+    err, kernel ms, plain ms, device ms, (bound, by))."""
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.ops.fused import (fused_traversal,
+                                             fused_traversal_reference)
+    from libpll2_tpu_torch.trees import random_alignment
+
+    headers, seqs = random_alignment(AA_TAXA, SPILL_SITES,
+                                     alphabet=LETTERS32 + "-", seed=AA_SEED)
+    part = protein_partition(aa_tree, dict(zip(headers, seqs)), SPILL_SITES,
+                             device, states=SPILL_STATES,
+                             rate_cats=SPILL_RATES)
+    eng = TreeEngine(part, aa_tree)
+    err = compare_rows_traversal(
+        f"spill timing shape, {SPILL_RATES} rates x {SPILL_STATES} states",
+        part, eng, plan="spill")[1]
+    codes, pm, table = traversal_inputs(eng)
+    kw = traversal_kw(part, eng)
+    kernel = median_ms(lambda: fused_traversal(codes, pm, table, **kw))
+    plain = median_ms(lambda: fused_traversal_reference(codes, pm, table,
+                                                        **kw))
+    dev = kernel_device_us(lambda: fused_traversal(codes, pm, table, **kw),
+                           "fused_rows") * 1e-3
+    bound = fused_bound(eng, part)
+    print(f"rows kernel, spill plan, {AA_TAXA} x {SPILL_SITES}, "
+          f"{SPILL_RATES} rates x {SPILL_STATES} states (median of {REPS}, "
+          f"CUDA events; {gpu}): kernel {kernel:.4f} ms, device "
+          f"{dev * 1e3:.1f} us (bound {bound[0]:.4f} ms by {bound[1]}), "
+          f"plain {plain:.4f} ms", flush=True)
+    return err, kernel, plain, dev, bound
+
+
+def rows_only(device, gpu) -> dict:
+    """`--rows-only`: the protein main path's rows-kernel times (phase 8)
+    of the package that was imported, which may be another checkout's."""
+    aa_tree, aa_by = protein_alignment()
+    part, eng = build_protein_engine(aa_tree, aa_by, AA_SITES, device)
+    ms = times(eng, part, gpu, AA_TAXA, AA_SITES, modes=("split", "bf16"))
+    dev = rows_device(eng, part, gpu)
+    return {"ms": ms["split"][0], "plain_ms": ms["split"][1],
+            "bf16_ms": ms["bf16"][0], "bf16_plain_ms": ms["bf16"][1],
+            "device_ms": dev["split"], "bf16_device_ms": dev["bf16"],
+            "ops": len(eng.table) - 1}
+
+
 # ---------------------------------- per-rate scalers, raw tips, asc bias
 CATG_SEED = 7                       # the probabilistic MSA's noise
 ASC_WEIGHTS = [1200, 900, 1100, 800]  # invariant sites per state (STAM/FELS)
@@ -2348,6 +2482,11 @@ def probe_phase(gpu):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
+    ap.add_argument("--rows-only", metavar="REPO", default=None,
+                    help="only time the rows kernel on the protein main "
+                    "path, importing the port from the checkout REPO (for "
+                    "one commit against another on the same card), and "
+                    "print the times as one JSON line")
     args = ap.parse_args()
 
     import torch
@@ -2358,7 +2497,7 @@ def main() -> int:
     # the plain versions' float32 einsums: full float32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.abspath(args.rows_only or REPO))
     from libpll2_tpu_torch.ops import _kernels
     from libpll2_tpu_torch.trees import (parse_newick, random_alignment,
                                          random_utree)
@@ -2370,6 +2509,12 @@ def main() -> int:
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
           f"{kind}, {torch.cuda.device_count()} device(s)", flush=True)
     device = "cuda"
+    if args.rows_only:
+        print(f"rows kernel of {os.path.abspath(args.rows_only)}",
+              flush=True)
+        print(json.dumps({"rows_only": rows_only(device, gpu),
+                          "gpu": gpu}), flush=True)
+        return 0
 
     # 2. build
     t0 = time.perf_counter()
@@ -2421,6 +2566,22 @@ def main() -> int:
         compare_rows_case(f"{states} states", small,
                           dict(zip(headers, seqs)), 1000, device,
                           states=states)
+    for states in (17, 21):   # P padded to 20 and 24 states
+        headers, seqs = random_alignment(16, 1000, seed=3,
+                                         alphabet=LETTERS32[:states] + "-")
+        compare_rows_case(f"{states} states", small,
+                          dict(zip(headers, seqs)), 1000, device,
+                          states=states)
+    headers, seqs = random_alignment(16, 300, seed=3,
+                                     alphabet=LETTERS32 + "-")
+    for rates, per_rate in ((8, True), (16, False), (32, False)):
+        compare_rows_case(f"{'per-rate, ' if per_rate else ''}{rates} rates "
+                          f"x 32 states", small, dict(zip(headers, seqs)),
+                          300, device, states=32, rate_cats=rates,
+                          plan="spill", rate_scalers=per_rate)
+    headers, seqs = random_alignment(16, 40003, alphabet=AA_NOISY, seed=3)
+    compare_rows_case("wide: 40003 sites, 64-site tiles, a tail of 3", small,
+                      dict(zip(headers, seqs)), 40003, device)
     headers, seqs = random_alignment(80, 1000, alphabet=AA_NOISY, seed=3)
     compare_rows_case("caterpillar", cat, dict(zip(headers, seqs)), 1000,
                       device, must_scale=True)
@@ -2435,6 +2596,8 @@ def main() -> int:
     # 8. times
     rows_ms = times(aa_eng, aa_part, gpu, AA_TAXA, AA_SITES,
                     modes=("split", "bf16"))
+    rows_dev = rows_device(aa_eng, aa_part, gpu)
+    rows_spill = rows_spill_case(device, aa_tree, gpu)
     bounds = {"fused_traversal": fused_bound(eng, part),
               "fused_traversal_rows": fused_bound(aa_eng, aa_part)}
 
@@ -2551,8 +2714,19 @@ def main() -> int:
         "launches": rows_launches, "max_abs_err": rows_max_abs,
         "ms": rows_ms["split"][0], "plain_ms": rows_ms["split"][1],
         **bound("fused_traversal_rows"),
+        "plan": rows_plan_of(aa_part, aa_eng).plan,
+        "sites_per_thread": rows_plan_of(aa_part, aa_eng).sites_per_thread,
+        "device_ms": rows_dev["split"],
+        "us_per_op": rows_dev["split"] * 1e3 / (len(aa_eng.table) - 1),
         "bf16_ms": rows_ms["bf16"][0],
         "bf16_plain_ms": rows_ms["bf16"][1],
+        "bf16_device_ms": rows_dev["bf16"],
+        "spill_shape": f"{AA_TAXA} x {SPILL_SITES}, {SPILL_RATES} rates x "
+                       f"{SPILL_STATES} states",
+        "spill_max_abs_err": rows_spill[0], "spill_ms": rows_spill[1],
+        "spill_plain_ms": rows_spill[2], "spill_device_ms": rows_spill[3],
+        "spill_bound_ms": rows_spill[4][0],
+        "spill_bound_by": rows_spill[4][1],
         **variant("per_rate", "rows_per_rate", pr_rows),
         **variant("raw_tips_per_rate", "rows_raw", None)}, {
         "name": "level_update", "route": "cuda",

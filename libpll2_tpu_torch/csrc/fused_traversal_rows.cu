@@ -7,7 +7,8 @@
 // codes and from raw probability rows. Called through
 // libpll2_tpu_torch/ops/fused.py:fused_traversal_rows, which also holds the
 // plain PyTorch version (fused_traversal_reference) that this must agree
-// with.
+// with; the launcher (ops/_kernels.py:launch_fused_traversal_rows) picks the
+// plan below with ops/_kernels.py:rows_plan.
 //
 // What it computes: the contract of fused_traversal.cu, for any states <= 32
 // and any number of rate categories R. An op table [n_ops + 1, 8] int32 from
@@ -32,44 +33,74 @@
 // in float32, so kernel and plain version differ only in the order of their
 // float32 sums, as in the exact mode.
 //
-// Design. A block owns kTile = 32 consecutive sites, one per lane, and
-// kWarps = 8 warps. For each op, and for each chunk of rc rates (rc = R
-// unless the shared-memory tile of a large R * s needs chunks):
-//   1. stage the chunk's rate blocks of P[m1] and P[m2] in shared memory (rows
-//      padded to a multiple of 4 for float4 reads; 12.8 KB at LG+G4) and both
-//      children's [rc * s, 32] columns (a tip is decoded, or a raw tip's s
-//      rows copied, once into s rows that every rate reads);
-//   2. __syncthreads(); each warp takes items (rate, block of kRowBlock
-//      output rows): both matvecs for its 32 sites, their product into the
-//      op's output tile x_sm [R * s, 32] in shared memory, and a running max;
-//   3. __syncthreads() before the next chunk overwrites the staging buffers.
-// Then the per-site max is reduced across warps in shared memory (in
-// per-rate mode, after a barrier, each warp takes rates and reduces each
-// one's s rows of the output tile into a flag of a small [R, 32] shared
-// array), and after a barrier every warp scales its rows and stores the
-// parent into its slot. Per-rate counts of the children are read into a
-// second [R, 32] array at the start of the op, before any store, by the
-// warp that later stores the parent's count of that rate.
-// Inside a warp, P reads are one broadcast address and child reads 32
-// consecutive floats: no bank conflicts.
+// Design. A block owns a tile of T = 32 * SPT consecutive sites for the
+// whole walk (SPT = 1 or 2 sites a thread, 32 apart, one lane per site
+// column) and kWarps = 8 warps. The warps form G groups of H = 8 / G (G the
+// largest power of two <= min(R, 8)); group g takes the rates r = g (mod
+// G), and warp h of a group a block of rows_per_warp output rows of each of
+// them. P arrives padded to SP x SP (SP = 8, 16, 20, 24 or 32 >= s, the
+// template argument; the launcher pads P on the card when s != SP). For
+// each op and each rate of its group a thread
+//   1. reads its sites' two child columns of that rate into registers (2 *
+//      SPT * SP floats): a slot's rows, a tip whose code bits are selected
+//      (not converted: I2F runs at a quarter of the FMA rate), or a raw
+//      tip's rows from device memory;
+//   2. runs kRows rows at a time (5 for SP = 20, else 4): each step of 4
+//      columns reads 2 * kRows float4 of P from shared memory (one address
+//      for the whole warp, a broadcast) and feeds 8 * kRows * SPT FMAs into
+//      2 * kRows * SPT accumulators in registers;
+//   3. stores each product x unscaled straight into the parent's rows and
+//      keeps its running max.
+// The maxima meet in shared memory ([warp][site] per site; [rate][h][site]
+// per rate); after one barrier every thread decides its sites' (or its
+// rates') rescale, multiplies its own stored rows by `factor` where needed
+// (x * factor is the same float before or after the store) and the count
+// is written by one thread per (site, count row).
+//
+// Two plans, one kernel body templated on where the slots live:
+//   on-chip (ONCHIP): the block's slots [n_slots][R * s][T] and their
+//     counts live in shared memory, beside two buffers of both P-matrices
+//     (all rates) and both tip-code rows. Inner children and parents never
+//     touch device memory: only P, tip codes, raw tips and the two root
+//     outputs do. While op k computes, op k + 1's P blocks and tip codes are
+//     copied into the other buffer with cp.async (16-byte copies of padded
+//     P; 12.8 KB at LG+G4); each thread waits for its own copies, rounds
+//     them in 'bf16', then the barrier that starts op k + 1 publishes them.
+//     Two block-wide barriers an op: inputs ready, maxima written. At LG+G4
+//     with 6 slots a tile of 64 sites takes 153,088 bytes (one block an
+//     SM, up to 255 registers a thread) and a tile of 32 89,344 (two).
+//     Two sites a thread halve P's shared loads per FMA; the launcher takes
+//     them where tiles of 64 still give nearly every SM a block.
+//   spill: where that does not fit in a block's shared memory (32 x 32, 16
+//     rates x 32 states, a tree with many slots), the slots stay in device
+//     memory [n_slots][R * s][S] as the launcher allocates them and P is
+//     staged rate_chunk rates at a time (up to 64 KB), without prefetch: a
+//     chunk after the first costs two more barriers. One site a thread.
+// The launcher computes the plan and the shared-memory bytes
+// (ops/_kernels.py:rows_plan); the entry below recomputes the bytes and
+// refuses a launch whose layout it does not share.
 //
 // Slot reuse. pack_fused_schedule frees a dying child's slot before it
 // allocates the parent, so a parent may take the slot of a child it reads.
-// Every read of an op's children (step 1, all chunks) comes before the
-// barrier that precedes the first store of its parent, and the parent is
-// built in shared memory, so this is safe; the barrier at the start of the
-// next op makes the stores visible to the whole block before they are read.
+// Rate r's parent rows overwrite only rate r's child rows of that slot, and
+// those are read only by the H warps of the group that owns rate r. On an
+// op whose parent takes a child's slot, each of those warps reads the
+// rate's two child columns into registers and then waits at a named
+// barrier of its group (bar.sync 1 + g, H * 32 threads) before it stores a
+// row; other groups never touch those rows. A parent's count overwrites a
+// child's count only by the thread that read that count before the op's
+// second barrier. The barrier that starts the next op orders every store
+// (and every rescale) before any read of the parent.
 //
 // What bounds it on an H100. Per site and op, 2 * R * s * s FMAs (3200 at
 // LG+G4): 6.6 GFLOP for 126 ops over 8192 sites, ~0.1 ms at the 67 TFLOP/s
-// float32 peak of CUDA cores. Each FMA also costs about half a shared-memory
-// load (a thread keeps kRowBlock rows' accumulators and reuses each child
-// value across them; P comes as float4), and every op runs three block-wide
-// barriers in series, so this first design is bound by shared-memory
-// instruction throughput and the op chain's latency, not by device memory: slots (~2.6 MB each at
-// 128 taxa x 8192 sites) stay in the 50 MB L2. Tensor cores (mma.sync or
-// wgmma in bf16, a split for fp32-class accuracy) and slots in shared memory
-// are for later work.
+// float32 peak of CUDA cores. The ops run one after another and every warp
+// of an SM reaches the same phase of an op at the same moment, so the
+// phases do not overlap: the child loads and the epilogue (about half of
+// the time before they were trimmed) and the FMA loop, which issues a
+// 16-byte shared load for every 4 * SPT FMAs. Removing either barrier
+// saves under 1 %. PERF.md has the measurements. Tensor cores for
+// 'bf16' are later work.
 //
 // Numerics: build without --use_fast_math (IEEE division, no flush to zero,
 // so 2^-64 stays a normal float).
@@ -80,21 +111,21 @@
 namespace {
 
 constexpr int kRow = 8;        // op table row width
-constexpr int kTile = 32;      // sites per block: one per lane
+constexpr int kLanes = 32;
 constexpr int kWarps = 8;      // warps per block
-constexpr int kThreads = kTile * kWarps;
-constexpr int kRowBlock = 5;   // output rows per item (4 items per rate at 20 states)
+constexpr int kThreads = kLanes * kWarps;
 
 struct Args {
   const int* table;    // [n_ops + 1, 8]
   int n_ops;
-  const float* pmat;   // [E, R, s, s]
+  const float* pmat;   // [E, R, SP, SP], zero-padded, 16-byte aligned
   const int* tips;     // [n_tips, S]
   const float* ctips;  // [n_ctips, s, S] raw tip rows, or null
   int sites;
   int rates, states;
-  float* slots;        // [n_slots, R * s, S]
-  int* slot_sc;        // [n_slots, SR, S], SR = R per rate, else 1
+  float* slots;        // spill plan: [n_slots, R * s, S]
+  int* slot_sc;        // spill plan: [n_slots, SR, S], SR = R per rate, else 1
+  int n_slots;
   float* out_p;        // [R * s, S]
   float* out_c;
   int* sc_p;           // [SR, S]
@@ -102,7 +133,9 @@ struct Args {
   float threshold, factor;
   int rate_scalers;
   int bf16;
-  int rate_chunk;      // rc: rates staged at once
+  int rate_chunk;      // rates of P staged at once (all of them on chip)
+  int groups;          // G
+  int rows_per_warp;   // a multiple of kRows
 };
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -115,220 +148,454 @@ __device__ __forceinline__ float round_bf16_rne(float x) {
   return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
 }
 
-__device__ __forceinline__ float tip_bit(unsigned code, int j) {
-  return static_cast<float>((code >> j) & 1u);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
 }
 
-// Shared memory layout, in floats (the P rows stay 16-byte aligned):
-//   p_sm [2][rc * s][sp]  (sp = s rounded up to 4)
-//   c_sm [2][rc * s][kTile]
-//   x_sm [R * s][kTile]
-//   red  [kWarps][kTile]
-//   rflag, csc [R][kTile] int: per-rate rescale flags and children's counts
-__host__ __device__ inline size_t smem_floats(int rates, int states, int rc) {
-  const int sp = (states + 3) & ~3;
-  return (size_t)2 * rc * states * sp + (size_t)2 * rc * states * kTile +
-         (size_t)rates * states * kTile + (size_t)kWarps * kTile +
-         (size_t)2 * rates * kTile;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
 }
 
-__global__ void __launch_bounds__(kThreads) fused_rows(Args a) {
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// the warps of one group meet: barrier `id` (1-15) of `n` threads
+__device__ __forceinline__ void group_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Shared memory layout, in 4-byte words, for tiles of T = 32 * SPT sites
+// (every part a multiple of 16 bytes; P first, so that its rows are 16-byte
+// aligned):
+//   P      [NB][2][rc][SP * SP] float   NB = 2 buffers on chip, 1 spilled
+//   codes  [NB][2][T] int               the op's state-code tips
+//   red    [kWarps][T] float, per rate [R][H][T]: the maxima
+//   csc    [R][T] int, per rate only: the children's counts
+//   on chip only:
+//   slots  [n_slots][R * s][T] float
+//   counts [n_slots][SR][T] int
+// ops/_kernels.py:rows_plan computes the same bytes.
+__host__ __device__ inline size_t smem_words(bool onchip, int spt, int sp,
+                                             int rates, int states,
+                                             int n_slots, int rate_scalers,
+                                             int rc, int groups) {
+  const size_t nb = onchip ? 2 : 1, h = kWarps / groups, tile = kLanes * spt;
+  size_t w = nb * 2 * rc * sp * sp + nb * 2 * tile;
+  w += rate_scalers ? (size_t)rates * h * tile + (size_t)rates * tile
+                    : (size_t)kWarps * tile;
+  if (onchip) {
+    const size_t sr = rate_scalers ? rates : 1;
+    w += (size_t)n_slots * rates * states * tile + (size_t)n_slots * sr * tile;
+  }
+  return w;
+}
+
+// Rates r0 .. r0+nr-1 of P[m1] and P[m2] ([nr][SP * SP] each, side stride
+// rc * SP * SP) into `dst` with 16-byte cp.async copies by all threads,
+// blocks starting at different offsets (`rot`) so that the blocks of one op
+// spread over P's cache lines. With `round` set, instead of copying, each
+// thread rounds to bf16 the units it copied (after its copies landed).
+template <int SP>
+__device__ __forceinline__ void stage_p(float* dst, const float* pmat, int m1,
+                                        int m2, int R, int r0, int nr, int rc,
+                                        bool round) {
+  constexpr int PP = SP * SP;
+  const int n4 = nr * (PP / 4), n = 2 * n4;
+  const int rot = (int)((size_t)blockIdx.x * kThreads % n);
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int k = i + rot < n ? i + rot : i + rot - n;
+    const int side = k >= n4, kk = k - side * n4;
+    float4* d = reinterpret_cast<float4*>(dst + (size_t)side * rc * PP) + kk;
+    if (round) {
+      float4 v = *d;
+      v.x = round_bf16(v.x);
+      v.y = round_bf16(v.y);
+      v.z = round_bf16(v.z);
+      v.w = round_bf16(v.w);
+      *d = v;
+    } else {
+      const float4* src = reinterpret_cast<const float4*>(
+                              pmat + ((size_t)(side ? m2 : m1) * R + r0) * PP) + kk;
+      cp_async16(d, src);
+    }
+  }
+}
+
+// The op's state-code tips of the tile's `tile` sites from `tile0` on into
+// `dst` [2][tile] (0 past the last site).
+__device__ __forceinline__ void stage_codes(int* dst, const int* tips,
+                                            const int* row, size_t S,
+                                            size_t tile0, int tile) {
+  if (threadIdx.x >= 2 * tile) return;
+  const int side = threadIdx.x / tile, col = threadIdx.x % tile;
+  if (__ldg(row + 1 + 3 * side) != 1) return;
+  const size_t site = tile0 + col;
+  int* d = dst + side * tile + col;
+  if (site < S) {
+    cp_async4(d, tips + (size_t)__ldg(row + 2 + 3 * side) * S + site);
+  } else {
+    *d = 0;
+  }
+}
+
+// One child's column of rate r at the thread's SPT sites (32 apart) into
+// registers: a slot's rows (`slot` points at the rate's row 0 of the first
+// site, rows `rstride` apart; read where `ok`), a decoded tip code, or a raw
+// tip's rows (read where the site is `live`); zero past the state count,
+// where P's padded columns are zero too. A tip's bit is selected, not
+// converted (I2F runs at a quarter of the FMA rate), and the mode is tested
+// once, outside the unrolled loads.
+template <int SP, int SPT>
+__device__ __forceinline__ void load_child(float (&c)[SPT][SP], int is_tip,
+                                           const float* slot, size_t rstride,
+                                           const unsigned (&code)[SPT],
+                                           const float* raw, size_t S, int s,
+                                           const bool (&ok)[SPT],
+                                           const bool (&live)[SPT], bool bf16) {
+  if (is_tip == 1) {   // bits at and above s are 0 (and meet zero columns)
+#pragma unroll
+    for (int k = 0; k < SPT; ++k)
+#pragma unroll
+      for (int j = 0; j < SP; ++j) c[k][j] = (code[k] >> j) & 1u ? 1.0f : 0.0f;
+  } else if (is_tip == 2) {
+#pragma unroll
+    for (int k = 0; k < SPT; ++k)
+#pragma unroll
+      for (int j = 0; j < SP; ++j) {
+        c[k][j] = (live[k] && j < s) ? __ldg(raw + (size_t)j * S + kLanes * k) : 0.0f;
+      }
+    if (bf16) {
+#pragma unroll
+      for (int k = 0; k < SPT; ++k)
+#pragma unroll
+        for (int j = 0; j < SP; ++j) c[k][j] = round_bf16_rne(c[k][j]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < SPT; ++k)
+#pragma unroll
+      for (int j = 0; j < SP; ++j) {
+        c[k][j] = (ok[k] && j < s) ? slot[(size_t)j * rstride + kLanes * k] : 0.0f;
+      }
+    if (bf16) {
+#pragma unroll
+      for (int k = 0; k < SPT; ++k)
+#pragma unroll
+        for (int j = 0; j < SP; ++j) c[k][j] = round_bf16(c[k][j]);
+    }
+  }
+}
+
+template <int SP, int SPT, bool ONCHIP>
+__global__ void __launch_bounds__(kThreads, SPT == 1 ? 2 : 1) fused_rows(Args a) {
+  constexpr int PP = SP * SP;
+  constexpr int kRows = SP % 5 == 0 ? 5 : 4;  // rows of P a step
+  constexpr int NB = ONCHIP ? 2 : 1;
+  constexpr int T = kLanes * SPT;             // sites a block
   extern __shared__ float4 smem_raw[];
-  float* const smem = reinterpret_cast<float*>(smem_raw);
+  float* const pbuf = reinterpret_cast<float*>(smem_raw);
   const int s = a.states, R = a.rates, RS = R * s, RC = a.rate_chunk;
-  const int sp = (s + 3) & ~3;
-  float* const p_sm = smem;
-  float* const c_sm = p_sm + 2 * RC * s * sp;
-  float* const x_sm = c_sm + 2 * RC * s * kTile;
-  float* const red = x_sm + RS * kTile;
-  int* const rflag = reinterpret_cast<int*>(red + kWarps * kTile);
-  int* const csc = rflag + R * kTile;
+  const int G = a.groups, H = kWarps / G;
+  const int SR = a.rate_scalers ? R : 1;
+  int* const codes = reinterpret_cast<int*>(pbuf + (size_t)NB * 2 * RC * PP);
+  float* const red = reinterpret_cast<float*>(codes + NB * 2 * T);
+  int* const csc = reinterpret_cast<int*>(red + (a.rate_scalers ? R * H : kWarps) * T);
+  float* const sslots = reinterpret_cast<float*>(csc + (a.rate_scalers ? R * T : 0));
+  int* const scnt = reinterpret_cast<int*>(sslots + (size_t)a.n_slots * RS * T);
 
-  const int lane = threadIdx.x % kTile, warp = threadIdx.x / kTile;
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int g = warp / H, h = warp % H;
   const size_t S = a.sites;
-  const size_t site = (size_t)blockIdx.x * kTile + lane;
-  const bool live = site < S;
-  const int nb = (s + kRowBlock - 1) / kRowBlock;   // row blocks per rate
+  const size_t tile0 = (size_t)blockIdx.x * T;
+  const size_t site = tile0 + lane;   // the thread's sites: site + 32 k
+  bool live[SPT], ok[SPT];   // ok: the thread may touch that slot column
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) {
+    live[k] = site + kLanes * k < S;
+    ok[k] = ONCHIP || live[k];
+  }
+  // a slot's rows are `rstride` words apart; slot k starts k * sstride on
+  const size_t rstride = ONCHIP ? (size_t)T : S;
+  const size_t sstride = (size_t)RS * rstride;
+  float* const slot0 = ONCHIP ? sslots + lane : a.slots + site;
+  int* const cnt0 = ONCHIP ? scnt + lane : a.slot_sc + site;
+  const int row0 = h * a.rows_per_warp;
+  const int row1 = min(s, row0 + a.rows_per_warp);
+  const int nr0 = min(RC, R);   // rates of the first chunk
 
+  if (a.n_ops > 0) {
+    const int* row = a.table;
+    stage_p<SP>(pbuf, a.pmat, __ldg(row + 3), __ldg(row + 6), R, 0, nr0, RC, false);
+    stage_codes(codes, a.tips, row, S, tile0, T);
+    cp_async_commit();
+  }
   for (int op = 0; op < a.n_ops; ++op) {
     const int* row = a.table + op * kRow;
     const int is_tip[2] = {__ldg(row + 1), __ldg(row + 4)};
     const int idx[2] = {__ldg(row + 2), __ldg(row + 5)};
     const int mat[2] = {__ldg(row + 3), __ldg(row + 6)};
-    // the children's counts, read before any store of this op: per site
-    // by warp 0, per rate by the warp that stores that rate's count
-    int sc = 0;
+    const int pslot = __ldg(row), has = __ldg(row + 7);
+    float* const pb = pbuf + (size_t)(ONCHIP ? op & 1 : 0) * 2 * RC * PP;
+    const int* const cb = codes + (ONCHIP ? op & 1 : 0) * 2 * T;
+    cp_async_wait_all();
+    if (a.bf16) stage_p<SP>(pb, a.pmat, mat[0], mat[1], R, 0, nr0, RC, true);
+    __syncthreads();   // A: this op's inputs are in, the last op's parent stored
+    if (ONCHIP && op + 1 < a.n_ops) {   // prefetch the next op's inputs
+      const int* next = row + kRow;
+      float* nb = pbuf + (size_t)((op + 1) & 1) * 2 * RC * PP;
+      stage_p<SP>(nb, a.pmat, __ldg(next + 3), __ldg(next + 6), R, 0, R, RC, false);
+      stage_codes(codes + ((op + 1) & 1) * 2 * T, a.tips, next, S, tile0, T);
+      cp_async_commit();
+    }
+    const bool reuse = H > 1 && ((is_tip[0] == 0 && idx[0] == pslot) ||
+                                 (is_tip[1] == 0 && idx[1] == pslot));
+    // the children's counts, read before the op's second barrier by the
+    // thread that later writes the parent's count
+    int sc[SPT];
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) sc[k] = 0;
     if (a.rate_scalers) {
-      for (int r = warp; r < R; r += kWarps) {
-        int c = 0;
-        for (int side = 0; side < 2; ++side) {
-          if (is_tip[side] == 0 && live) {
-            c += a.slot_sc[((size_t)idx[side] * R + r) * S + site];
+      if (h == 0) {
+        for (int r = g; r < R; r += G) {
+#pragma unroll
+          for (int k = 0; k < SPT; ++k) {
+            int c = 0;
+            for (int side = 0; side < 2; ++side) {
+              if (is_tip[side] == 0 && ok[k]) {
+                c += cnt0[((size_t)idx[side] * SR + r) * rstride + kLanes * k];
+              }
+            }
+            csc[r * T + lane + kLanes * k] = c;
           }
         }
-        csc[r * kTile + lane] = c;
       }
-    } else if (warp == 0 && live) {
-      for (int side = 0; side < 2; ++side) {
-        if (is_tip[side] == 0) sc += a.slot_sc[(size_t)idx[side] * S + site];
+    } else if (warp == 0) {
+#pragma unroll
+      for (int k = 0; k < SPT; ++k) {
+        for (int side = 0; side < 2; ++side) {
+          if (is_tip[side] == 0 && ok[k]) sc[k] += cnt0[(size_t)idx[side] * rstride + kLanes * k];
+        }
       }
     }
-    float m = 0.0f;   // this thread's max over its rows (x is non-negative)
+    unsigned code[2][SPT];
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) {
+      code[0][k] = is_tip[0] == 1 ? static_cast<unsigned>(cb[lane + kLanes * k]) : 0u;
+      code[1][k] = is_tip[1] == 1 ? static_cast<unsigned>(cb[T + lane + kLanes * k]) : 0u;
+    }
+    float m[SPT];   // this thread's max over its rows (x is non-negative)
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) m[k] = 0.0f;
 
     for (int r0 = 0; r0 < R; r0 += RC) {
-      const int rc = R - r0 < RC ? R - r0 : RC;
-      __syncthreads();   // the previous chunk or op is done with the buffers
-      // 1. stage P and the children
-      for (int side = 0; side < 2; ++side) {
-        const float* src = a.pmat + ((size_t)mat[side] * R + r0) * s * s;
-        float* dst = p_sm + side * RC * s * sp;
-        for (int q = threadIdx.x; q < rc * s * sp; q += kThreads) {
-          const int prow = q / sp, j = q - prow * sp;
-          const float v = j < s ? __ldg(src + prow * s + j) : 0.0f;
-          dst[q] = a.bf16 ? round_bf16(v) : v;
-        }
-        float* cdst = c_sm + side * RC * s * kTile;
-        if (is_tip[side] == 1) {
-          const unsigned code =
-              live ? static_cast<unsigned>(__ldg(a.tips + (size_t)idx[side] * S + site))
-                   : 0u;
-          for (int q = warp; q < s; q += kWarps) cdst[q * kTile + lane] = tip_bit(code, q);
-        } else if (is_tip[side] == 2) {
-          const float* csrc = a.ctips + (size_t)idx[side] * s * S + site;
-          for (int q = warp; q < s; q += kWarps) {
-            const float v = live ? __ldg(csrc + (size_t)q * S) : 0.0f;
-            cdst[q * kTile + lane] = a.bf16 ? round_bf16_rne(v) : v;
-          }
-        } else {
-          const float* csrc = a.slots + ((size_t)idx[side] * RS + (size_t)r0 * s) * S + site;
-          for (int q = warp; q < rc * s; q += kWarps) {
-            const float v = live ? csrc[(size_t)q * S] : 0.0f;
-            cdst[q * kTile + lane] = a.bf16 ? round_bf16(v) : v;
-          }
-        }
+      const int nr = min(RC, R - r0);
+      if (r0 > 0) {   // spill plan: the next chunk of P
+        __syncthreads();
+        stage_p<SP>(pb, a.pmat, mat[0], mat[1], R, r0, nr, RC, false);
+        cp_async_commit();
+        cp_async_wait_all();
+        if (a.bf16) stage_p<SP>(pb, a.pmat, mat[0], mat[1], R, r0, nr, RC, true);
+        __syncthreads();
       }
-      __syncthreads();
-
-      // 2. items (rate rr, rows i0 .. i0 + kRowBlock) for this warp
-      for (int item = warp; item < rc * nb; item += kWarps) {
-        const int rr = item / nb, i0 = (item - rr * nb) * kRowBlock;
-        const int nv = s - i0 < kRowBlock ? s - i0 : kRowBlock;
-        const float* cl = c_sm + (is_tip[0] ? 0 : rr * s * kTile) + lane;
-        const float* cr = c_sm + (RC + (is_tip[1] ? 0 : rr)) * s * kTile + lane;
-        const float* pl = p_sm + (rr * s + i0) * sp;
-        const float* pr = p_sm + (RC * s + rr * s + i0) * sp;
-        float al[kRowBlock], ar[kRowBlock];
+      // this group's rates in the chunk: r = g (mod G)
+      for (int r = r0 + ((g - r0) % G + G) % G; r < r0 + nr; r += G) {
+        float cl[SPT][SP], cr[SPT][SP];
+        const float* raw[2];
+        for (int side = 0; side < 2; ++side)
+          raw[side] = is_tip[side] == 2 ? a.ctips + (size_t)idx[side] * s * S + site : nullptr;
+        load_child<SP, SPT>(cl, is_tip[0], slot0 + idx[0] * sstride + (size_t)r * s * rstride,
+                            rstride, code[0], raw[0], S, s, ok, live, a.bf16);
+        load_child<SP, SPT>(cr, is_tip[1], slot0 + idx[1] * sstride + (size_t)r * s * rstride,
+                            rstride, code[1], raw[1], S, s, ok, live, a.bf16);
+        if (reuse) group_sync(1 + g, H * kLanes);
+        const float4* p = reinterpret_cast<const float4*>(pb + (size_t)(r - r0) * PP);
+        const float4* q = reinterpret_cast<const float4*>(pb + (size_t)(RC + r - r0) * PP);
+        float* dst = slot0 + pslot * sstride + (size_t)r * s * rstride;
+        float mr[SPT];
 #pragma unroll
-        for (int n = 0; n < kRowBlock; ++n) al[n] = ar[n] = 0.0f;
-        int j = 0;
-        for (; j + 4 <= s; j += 4) {
-          float vl[4], vr[4];
+        for (int k = 0; k < SPT; ++k) mr[k] = 0.0f;
+#pragma unroll 1
+        for (int i0 = row0; i0 < row1; i0 += kRows) {
+          float ta[kRows][SPT], tb[kRows][SPT];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            vl[q] = cl[(j + q) * kTile];
-            vr[q] = cr[(j + q) * kTile];
-          }
+          for (int i = 0; i < kRows; ++i)
 #pragma unroll
-          for (int n = 0; n < kRowBlock; ++n) {
-            if (n < nv) {
-              const float4 u = *reinterpret_cast<const float4*>(pl + n * sp + j);
-              const float4 w = *reinterpret_cast<const float4*>(pr + n * sp + j);
-              al[n] += u.x * vl[0] + u.y * vl[1] + u.z * vl[2] + u.w * vl[3];
-              ar[n] += w.x * vr[0] + w.y * vr[1] + w.z * vr[2] + w.w * vr[3];
+            for (int k = 0; k < SPT; ++k) ta[i][k] = tb[i][k] = 0.0f;
+#pragma unroll
+          for (int j = 0; j < SP / 4; ++j) {
+#pragma unroll
+            for (int i = 0; i < kRows; ++i) {
+              const float4 u = p[(i0 + i) * (SP / 4) + j];
+              const float4 v = q[(i0 + i) * (SP / 4) + j];
+#pragma unroll
+              for (int k = 0; k < SPT; ++k) {
+                ta[i][k] = fmaf(u.x, cl[k][4 * j], ta[i][k]);
+                tb[i][k] = fmaf(v.x, cr[k][4 * j], tb[i][k]);
+                ta[i][k] = fmaf(u.y, cl[k][4 * j + 1], ta[i][k]);
+                tb[i][k] = fmaf(v.y, cr[k][4 * j + 1], tb[i][k]);
+                ta[i][k] = fmaf(u.z, cl[k][4 * j + 2], ta[i][k]);
+                tb[i][k] = fmaf(v.z, cr[k][4 * j + 2], tb[i][k]);
+                ta[i][k] = fmaf(u.w, cl[k][4 * j + 3], ta[i][k]);
+                tb[i][k] = fmaf(v.w, cr[k][4 * j + 3], tb[i][k]);
+              }
             }
           }
-        }
-        for (; j < s; ++j) {
-          const float vl = cl[j * kTile], vr = cr[j * kTile];
 #pragma unroll
-          for (int n = 0; n < kRowBlock; ++n) {
-            if (n < nv) {
-              al[n] += pl[n * sp + j] * vl;
-              ar[n] += pr[n * sp + j] * vr;
+          for (int i = 0; i < kRows; ++i) {
+            if (i0 + i < row1) {
+#pragma unroll
+              for (int k = 0; k < SPT; ++k) {
+                const float x = ta[i][k] * tb[i][k];
+                mr[k] = x > mr[k] ? x : mr[k];
+                if (ok[k]) dst[(size_t)(i0 + i) * rstride + kLanes * k] = x;
+              }
             }
           }
         }
 #pragma unroll
-        for (int n = 0; n < kRowBlock; ++n) {
-          if (n < nv) {
-            const float x = al[n] * ar[n];
-            x_sm[((r0 + rr) * s + i0 + n) * kTile + lane] = x;
-            m = x > m ? x : m;
+        for (int k = 0; k < SPT; ++k) {
+          if (a.rate_scalers) {
+            red[(r * H + h) * T + lane + kLanes * k] = mr[k];
+          } else {
+            m[k] = mr[k] > m[k] ? mr[k] : m[k];
           }
         }
       }
     }
-
-    // 3. the max across warps (per site) or over each rate's rows (per
-    // rate), scale, store the parent
-    red[warp * kTile + lane] = m;
-    __syncthreads();
-    const int has = __ldg(row + 7);
-    bool scale = false;
-    if (a.rate_scalers) {
-      for (int r = warp; r < R; r += kWarps) {
-        float mr = 0.0f;
-        for (int i = 0; i < s; ++i) {
-          const float v = x_sm[(r * s + i) * kTile + lane];
-          mr = v > mr ? v : mr;
-        }
-        rflag[r * kTile + lane] = has && mr < a.threshold;
-      }
-      __syncthreads();
-    } else {
-      float mx = red[lane];
-      for (int w = 1; w < kWarps; ++w) {
-        const float v = red[w * kTile + lane];
-        mx = v > mx ? v : mx;
-      }
-      scale = has && mx < a.threshold;
+    if (!a.rate_scalers) {
+#pragma unroll
+      for (int k = 0; k < SPT; ++k) red[warp * T + lane + kLanes * k] = m[k];
     }
-    if (live) {
-      const int pslot = __ldg(row);
-      float* dst = a.slots + (size_t)pslot * RS * S + site;
-      for (int q = warp; q < RS; q += kWarps) {
-        const bool sq = a.rate_scalers ? rflag[(q / s) * kTile + lane] != 0 : scale;
-        dst[(size_t)q * S] = x_sm[q * kTile + lane] * (sq ? a.factor : 1.0f);
-      }
+    __syncthreads();   // B: the maxima are in
+
+    // rescale the thread's own rows where needed, then the counts
+    float* const dst = slot0 + pslot * sstride;
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) {
+      const int col = lane + kLanes * k;
       if (a.rate_scalers) {
-        for (int r = warp; r < R; r += kWarps) {
-          a.slot_sc[((size_t)pslot * R + r) * S + site] =
-              csc[r * kTile + lane] + rflag[r * kTile + lane];
+        for (int r = g; r < R; r += G) {
+          float mr = 0.0f;
+          for (int hh = 0; hh < H; ++hh) {
+            const float v = red[(r * H + hh) * T + col];
+            mr = v > mr ? v : mr;
+          }
+          const int flag = has && mr < a.threshold;
+          if (flag && ok[k]) {
+            for (int i = row0; i < row1; ++i) {
+              dst[(size_t)(r * s + i) * rstride + kLanes * k] *= a.factor;
+            }
+          }
+          if (h == 0 && ok[k]) {
+            cnt0[((size_t)pslot * SR + r) * rstride + kLanes * k] = csc[r * T + col] + flag;
+          }
         }
-      } else if (warp == 0) {
-        a.slot_sc[(size_t)pslot * S + site] = sc + (scale ? 1 : 0);
+      } else {
+        float mx = red[col];
+        for (int w = 1; w < kWarps; ++w) {
+          const float v = red[w * T + col];
+          mx = v > mx ? v : mx;
+        }
+        const bool scale = has && mx < a.threshold;
+        if (scale && ok[k]) {
+          for (int r = g; r < R; r += G) {
+            for (int i = row0; i < row1; ++i) {
+              dst[(size_t)(r * s + i) * rstride + kLanes * k] *= a.factor;
+            }
+          }
+        }
+        if (warp == 0 && ok[k]) cnt0[(size_t)pslot * rstride + kLanes * k] = sc[k] + (scale ? 1 : 0);
       }
+    }
+    if (!ONCHIP && op + 1 < a.n_ops) {   // spill plan: the next op's first chunk
+      const int* next = row + kRow;
+      // every thread is done with the buffer: its last readers passed B
+      stage_p<SP>(pb, a.pmat, __ldg(next + 3), __ldg(next + 6), R, 0, nr0, RC, false);
+      stage_codes(codes, a.tips, next, S, tile0, T);
+      cp_async_commit();
     }
   }
 
-  __syncthreads();   // the last op's stores, made by other warps
-  if (!live) return;
+  __syncthreads();   // the last op's stores and rescales, made by other warps
   const int* root = a.table + a.n_ops * kRow;
-  const int SR = a.rate_scalers ? R : 1;
-  for (int end = 0; end < 2; ++end) {
-    const int is_tip = __ldg(root + 2 * end), idx = __ldg(root + 2 * end + 1);
-    float* out = (end ? a.out_c : a.out_p) + site;
-    int* osc = end ? a.sc_c : a.sc_p;
-    if (is_tip == 1) {
-      const unsigned code = static_cast<unsigned>(__ldg(a.tips + (size_t)idx * S + site));
-      for (int q = warp; q < RS; q += kWarps) out[(size_t)q * S] = tip_bit(code, q % s);
-    } else if (is_tip == 2) {
-      const float* src = a.ctips + (size_t)idx * s * S + site;
-      for (int q = warp; q < RS; q += kWarps) out[(size_t)q * S] = __ldg(src + (size_t)(q % s) * S);
-    } else {
-      const float* src = a.slots + (size_t)idx * RS * S + site;
-      for (int q = warp; q < RS; q += kWarps) out[(size_t)q * S] = src[(size_t)q * S];
-    }
-    for (int r = warp; r < SR; r += kWarps) {
-      osc[r * S + site] = is_tip ? 0 : a.slot_sc[((size_t)idx * SR + r) * S + site];
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) {
+    if (!live[k]) continue;
+    const size_t sk = site + kLanes * k;
+    for (int end = 0; end < 2; ++end) {
+      const int is_tip = __ldg(root + 2 * end), idx = __ldg(root + 2 * end + 1);
+      float* out = (end ? a.out_c : a.out_p) + sk;
+      int* osc = end ? a.sc_c : a.sc_p;
+      if (is_tip == 1) {
+        const unsigned code = static_cast<unsigned>(__ldg(a.tips + (size_t)idx * S + sk));
+        for (int q = warp; q < RS; q += kWarps) {
+          out[(size_t)q * S] = (code >> (q % s)) & 1u ? 1.0f : 0.0f;
+        }
+      } else if (is_tip == 2) {
+        const float* src = a.ctips + (size_t)idx * s * S + sk;
+        for (int q = warp; q < RS; q += kWarps) out[(size_t)q * S] = __ldg(src + (size_t)(q % s) * S);
+      } else {
+        const float* src = slot0 + idx * sstride + kLanes * k;
+        for (int q = warp; q < RS; q += kWarps) out[(size_t)q * S] = src[(size_t)q * rstride];
+      }
+      for (int r = warp; r < SR; r += kWarps) {
+        osc[r * S + sk] = is_tip ? 0 : cnt0[((size_t)idx * SR + r) * rstride + kLanes * k];
+      }
     }
   }
 }
 
+template <int SP, int SPT, bool ONCHIP>
+int launch(const Args& a, size_t bytes, cudaStream_t stream) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_rows<SP, SPT, ONCHIP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int tile = kLanes * SPT;
+  const dim3 grid((a.sites + tile - 1) / tile);
+  fused_rows<SP, SPT, ONCHIP><<<grid, kThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the plans: on chip with one or two sites a thread, or spilled (one)
+template <int SP>
+int launch_plan(const Args& a, bool onchip, int spt, size_t bytes,
+                cudaStream_t stream) {
+  if (!onchip) return launch<SP, 1, false>(a, bytes, stream);
+  return spt == 2 ? launch<SP, 2, true>(a, bytes, stream)
+                  : launch<SP, 1, true>(a, bytes, stream);
+}
+
 }  // namespace
 
+// The largest dynamic shared memory a block of the current device may ask
+// for (the opt-in limit), in bytes, or a negative CUDA error code.
+extern "C" int pll_rows_smem_optin() {
+  int dev = 0, bytes = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return err == cudaSuccess ? bytes : -static_cast<int>(err);
+}
+
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or an
-// error code without launching when the shapes do not fit.
+// error code without launching when the shapes or the plan do not fit. The
+// trailing arguments are the launcher's plan (ops/_kernels.py:rows_plan):
+// on chip or spilled, sites a thread, SP, the rates of P staged at once, the
+// warp groups and the shared-memory bytes, which must equal this file's own
+// count.
 extern "C" int pll_fused_traversal_rows(const int* table, int n_ops,
                                         const float* pmat, const int* tips,
                                         const float* ctips, int sites, int rates,
@@ -336,30 +603,41 @@ extern "C" int pll_fused_traversal_rows(const int* table, int n_ops,
                                         int n_slots, float* out_p, float* out_c,
                                         int* sc_p, int* sc_c, float threshold,
                                         float factor, int rate_scalers, int bf16,
-                                        void* stream) {
-  (void)n_slots;
-  if (states < 1 || states > 32 || rates < 1 || sites < 1) {
+                                        void* stream, int onchip,
+                                        int sites_per_thread, int padded_states,
+                                        int rate_chunk, int groups,
+                                        long long smem_bytes) {
+  const int sp = padded_states, spt = sites_per_thread;
+  const bool sp_ok = sp == 8 || sp == 16 || sp == 20 || sp == 24 || sp == 32;
+  const bool g_ok = groups == 1 || groups == 2 || groups == 4 || groups == 8;
+  if (states < 1 || states > sp || !sp_ok || rates < 1 || sites < 1 ||
+      n_ops < 0 || n_slots < 1 || !g_ok || rate_chunk < 1 ||
+      rate_chunk > rates || (onchip && rate_chunk != rates) ||
+      !(spt == 1 || (spt == 2 && onchip)) ||
+      (!onchip && (slots == nullptr || slot_sc == nullptr)) ||
+      (reinterpret_cast<size_t>(pmat) & 15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int dev = 0, max_smem = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const size_t bytes = smem_words(onchip != 0, spt, sp, rates, states, n_slots,
+                                  rate_scalers, rate_chunk, groups) * 4;
+  const int max_smem = pll_rows_smem_optin();
+  if (max_smem < 0) return -max_smem;
+  if (bytes != static_cast<size_t>(smem_bytes) || bytes > (size_t)max_smem) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // the largest rate chunk whose staging buffers fit beside the output tile
-  int rc = rates;
-  while (rc > 1 && smem_floats(rates, states, rc) * sizeof(float) > (size_t)max_smem) --rc;
-  const size_t bytes = smem_floats(rates, states, rc) * sizeof(float);
-  if (bytes > (size_t)max_smem) return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(fused_rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const int k_rows = sp % 5 == 0 ? 5 : 4;
+  const int h = kWarps / groups;
+  const int rows = (states + h - 1) / h;
   Args a{table, n_ops, pmat, tips, ctips, sites, rates, states, slots, slot_sc,
-         out_p, out_c, sc_p, sc_c, threshold, factor, rate_scalers, bf16, rc};
-  const dim3 grid((sites + kTile - 1) / kTile);
-  fused_rows<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+         onchip ? n_slots : 0, out_p, out_c, sc_p, sc_c, threshold, factor,
+         rate_scalers, bf16, rate_chunk, groups,
+         (rows + k_rows - 1) / k_rows * k_rows};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (sp) {
+    case 8: return launch_plan<8>(a, onchip != 0, spt, bytes, st);
+    case 16: return launch_plan<16>(a, onchip != 0, spt, bytes, st);
+    case 20: return launch_plan<20>(a, onchip != 0, spt, bytes, st);
+    case 24: return launch_plan<24>(a, onchip != 0, spt, bytes, st);
+    default: return launch_plan<32>(a, onchip != 0, spt, bytes, st);
+  }
 }

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -109,8 +110,14 @@ def library() -> ctypes.CDLL:
     ]
     lib.pll_fused_traversal.restype = _I
     lib.pll_fused_traversal_rows.argtypes = (
-        lib.pll_fused_traversal.argtypes[:-1] + [_I, _P])   # + bf16 flag
+        lib.pll_fused_traversal.argtypes[:-1] + [
+            _I, _P,            # bf16 flag, stream
+            _I, _I, _I,        # rows_plan: on chip, sites a thread, SP,
+            _I, _I, _L,        # rate chunk, groups, shared-memory bytes
+        ])
     lib.pll_fused_traversal_rows.restype = _I
+    lib.pll_rows_smem_optin.argtypes = []
+    lib.pll_rows_smem_optin.restype = _I
     lib.pll_level_update.argtypes = [
         _P, _P, _P,        # clv, scaler, pmatrix
         _P, _I, _I,        # table, its leading dimension, ops
@@ -232,9 +239,99 @@ def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
     return out_p, out_c, sc_p, sc_c
 
 
-# the rows kernel keeps one op's [rates * states, 32 sites] float32 output
-# tile in shared memory beside its staging buffers (fused_traversal_rows.cu)
+# the largest rates * states the rows route takes (32 rates x 32 states);
+# the spill plan runs every shape up to it
 ROWS_MAX_RS = 1024
+# fused_traversal_rows.cu: lanes (sites) and warps a block, the padded
+# state counts it is built for, and the most bytes of P the spill plan
+# stages at once
+ROWS_LANES = 32
+ROWS_WARPS = 8
+ROWS_PADDED_STATES = (8, 16, 20, 24, 32)
+ROWS_SPILL_P_BYTES = 64 * 1024
+# two sites a thread where tiles of 64 sites give at least this share of
+# the SMs a block
+ROWS_SPT2_SM_SHARE = 0.9
+
+
+class RowsPlan(NamedTuple):
+    """How fused_traversal_rows.cu runs one shape: `plan` 'on-chip' (the
+    block's slots in shared memory, the next op's P prefetched) or 'spill'
+    (slots in device memory, P staged `rate_chunk` rates at a time);
+    `sites_per_thread` 1 or 2 (a block's tile is 32 of them per lane);
+    `smem_bytes` the block's dynamic shared memory; `padded_states` SP, the
+    kernel's instantiation (P is padded to SP x SP); `groups` the warp
+    groups that share out the rates."""
+    plan: str
+    sites_per_thread: int
+    smem_bytes: int
+    padded_states: int
+    rate_chunk: int
+    groups: int
+
+
+def rows_plan(rates: int, states: int, n_slots: int, rate_scalers: bool,
+              smem_bytes: int, sites: int, sms: int) -> RowsPlan:
+    """The rows kernel's plan for one shape on a device with `sms` SMs whose
+    blocks may use `smem_bytes` of shared memory: on chip where the slots,
+    their counts, two buffers of both P-matrices and the rest fit, with two
+    sites a thread (one block of 64 sites an SM) where `sites` still give
+    nearly every SM a block, else one (two blocks of 32 an SM); else
+    spilled. The bytes follow the layout in fused_traversal_rows.cu
+    (smem_words), which refuses a launch whose count differs."""
+    sp = next((p for p in ROWS_PADDED_STATES if p >= states), None)
+    if sp is None or rates < 1 or n_slots < 1:
+        raise ValueError(f"rows_plan: no plan for {rates} rates, {states} "
+                         f"states, {n_slots} slots")
+    groups = 1 << (min(rates, ROWS_WARPS).bit_length() - 1)
+    h = ROWS_WARPS // groups
+    # the maxima (and per rate the children's counts) beside P and codes
+    red = rates * h + rates if rate_scalers else ROWS_WARPS
+
+    def nbytes(onchip: bool, spt: int, rc: int) -> int:
+        nb, tile = (2 if onchip else 1), ROWS_LANES * spt
+        words = nb * 2 * rc * sp * sp + (nb * 2 + red) * tile
+        if onchip:
+            sr = rates if rate_scalers else 1
+            words += n_slots * (rates * states + sr) * tile
+        return 4 * words
+
+    wide = -(-sites // (2 * ROWS_LANES)) >= ROWS_SPT2_SM_SHARE * sms
+    for spt in ((2, 1) if wide else (1,)):
+        if nbytes(True, spt, rates) <= smem_bytes:
+            return RowsPlan("on-chip", spt, nbytes(True, spt, rates), sp,
+                            rates, groups)
+    rc = max(1, min(rates, ROWS_SPILL_P_BYTES // (2 * sp * sp * 4)))
+    if nbytes(False, 1, rc) > smem_bytes:
+        raise ValueError(f"rows_plan: {nbytes(False, 1, rc)} bytes of "
+                         f"shared memory exceed the device's {smem_bytes}")
+    return RowsPlan("spill", 1, nbytes(False, 1, rc), sp, rc, groups)
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(index: int) -> int:
+    """The dynamic shared memory a block of CUDA device `index` may use."""
+    with torch.cuda.device(index):
+        got = library().pll_rows_smem_optin()
+    if got < 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute failed: CUDA error "
+                           f"{-got}")
+    return got
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_rows_plan(device, rates: int, states: int, n_slots: int,
+                     rate_scalers: bool, sites: int) -> RowsPlan:
+    """`rows_plan` for one shape on CUDA device `device`."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    return rows_plan(rates, states, n_slots, rate_scalers,
+                     smem_optin(index), sites, sm_count(index))
 
 
 def launch_fused_traversal_rows(tip_codes: torch.Tensor,
@@ -255,21 +352,34 @@ def launch_fused_traversal_rows(tip_codes: torch.Tensor,
            f"shared-memory tile ({ROWS_MAX_RS})", name)
     dev = pmatrix.device
     sites = tip_codes.shape[1]
+    plan = device_rows_plan(dev, rates, states, n_slots, rate_scalers,
+                            sites)
+    sp = plan.padded_states
+    # the kernel copies P in 16-byte units of zero-padded SP x SP blocks
+    if sp != states:
+        pmatrix = torch.nn.functional.pad(pmatrix,
+                                          (0, sp - states, 0, sp - states))
+    elif pmatrix.data_ptr() % 16:
+        pmatrix = pmatrix.clone()
     out_p, out_c, sc_p, sc_c = _outputs(rates, states, sites, dev,
                                         rate_scalers)
-    slots = torch.empty((n_slots, rates * states, sites),
-                        dtype=torch.float32, device=dev)
-    slot_sc = torch.empty((n_slots, rates if rate_scalers else 1, sites),
-                          dtype=torch.int32, device=dev)
+    slots = slot_sc = None
+    if plan.plan == "spill":
+        slots = torch.empty((n_slots, rates * states, sites),
+                            dtype=torch.float32, device=dev)
+        slot_sc = torch.empty((n_slots, rates if rate_scalers else 1, sites),
+                              dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_fused_traversal_rows(
             table.data_ptr(), table.shape[0] - 1, pmatrix.data_ptr(),
             tip_codes.data_ptr(), _ptr(tip_clvs), sites, rates, states,
-            slots.data_ptr(), slot_sc.data_ptr(), n_slots,
+            _ptr(slots), _ptr(slot_sc), n_slots,
             out_p.data_ptr(), out_c.data_ptr(), sc_p.data_ptr(),
             sc_c.data_ptr(), float(threshold), float(factor),
-            int(rate_scalers), int(bf16), stream)
+            int(rate_scalers), int(bf16), stream,
+            int(plan.plan == "on-chip"), plan.sites_per_thread, sp,
+            plan.rate_chunk, plan.groups, plan.smem_bytes)
     if err != 0:
         raise RuntimeError(f"fused_traversal_rows kernel launch failed: "
                            f"CUDA error {err}")

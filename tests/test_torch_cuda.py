@@ -158,7 +158,18 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda):
             fused.fused_traversal(*args, **kw)
 
 
+# the rows kernel's plan (ops/_kernels.py:rows_plan) for each case on an
+# H100 (227 KB of shared memory a block): 8 rates x 32 states leave room
+# beside P's two buffers for 3 slots of the 16-taxon tree's 4; 16 and 32
+# rates x 32 states stage P in chunks of 8 rates
+ROWS_SPILL_CASES = ("rates8_states32", "per_rate_rates8_states32",
+                    "rates16_states32", "rates32_states32")
+
+
 def _protein_case(case, device):
+    """A rows-kernel engine: 16 taxa x 1000 sites unless named otherwise;
+    'states17'/'states21' have P padded to 20/24 states; 'wide' (40003
+    sites) runs two sites a thread, 626 blocks of 64 with a tail of 3."""
     tree = random_utree([f"t{i}" for i in range(16)], seed=3)
     if case == "caterpillar":
         return _engine(_caterpillar(80), 700, device, states=20,
@@ -166,19 +177,36 @@ def _protein_case(case, device):
     if case == "rates3":
         return _engine(tree, 1000, device, states=20, rates=3,
                        alphabet=AA_NOISY)
-    if case in ("states16", "states32"):
+    if case in ("states16", "states32", "states17", "states21"):
         s = int(case[6:])
         return _engine(tree, 1000, device, states=s,
                        alphabet=LETTERS32[:s] + "-")
+    if case in ROWS_SPILL_CASES:
+        rates = int(case.split("rates")[-1].split("_")[0])
+        return _engine(tree, 300, device, states=32, rates=rates,
+                       alphabet=LETTERS32 + "-",
+                       rate_scalers=case.startswith("per_rate"))
+    if case == "wide":
+        return _engine(tree, 40003, device, states=20, alphabet=AA_NOISY)
     return _engine(tree, 1000, device, states=20, alphabet=AA_NOISY)
 
 
 @pytest.mark.parametrize("mode", ["highest", "bf16"])
 @pytest.mark.parametrize("case", ["ragged", "caterpillar", "rates3",
-                                  "states16", "states32"])
+                                  "states16", "states32", "states17",
+                                  "states21", "wide", *ROWS_SPILL_CASES])
 def test_rows_kernel_matches_plain_on_card(cuda, case, mode):
+    from libpll2_tpu_torch.ops import _kernels
+
     part, eng = _protein_case(case, cuda)
     args, kw = _inputs(part, eng)
+    kw.update(rate_scalers=part.rate_scalers)
+    plan = _kernels.device_rows_plan(cuda, part.rate_cats, part.states,
+                                     eng.fused_slots, part.rate_scalers,
+                                     part.sites_padded)
+    assert plan.plan == ("spill" if case in ROWS_SPILL_CASES else "on-chip")
+    # 64-site tiles (two sites a thread) only where they fill the card
+    assert plan.sites_per_thread == (2 if case == "wide" else 1)
     before = (fused.fused_traversal.launches,
               fused.fused_traversal_rows.launches)
     got = fused.fused_traversal(*args, mxu=mode, **kw)
@@ -192,7 +220,7 @@ def test_rows_kernel_matches_plain_on_card(cuda, case, mode):
     if mode == "bf16":
         # held at the logL level (module docstring)
         lk = [float(_fused_loglikelihood(*eng._args(), traversal=t,
-                                         mxu=mode)[0])
+                                         mxu=mode, **eng._fused_kw())[0])
               for t in (fused.fused_traversal,
                         fused.fused_traversal_reference)]
         assert abs(lk[0] - lk[1]) / abs(lk[1]) < 1e-4
