@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --rows-only CHECKOUT
+    python3 chip_smoke.py --fused-only CHECKOUT
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit's nvcc and PyTorch built for CUDA; jax is not needed. Phases,
@@ -15,13 +16,19 @@ each fatal on failure:
      fused_traversal_reference (plain PyTorch) on the card, float32: 16 taxa
      x 1000 ragged sites with gaps and ambiguity codes, an 80-taxon
      caterpillar where scaling must trigger, the 128 x 16384 main-path
-     shape, and a 3-category case for the kernel's runtime-size variant;
+     shape, a 3-category case for the kernel's runtime-size variant, and
+     every plan and thread layout of ops/_kernels.py:fused_plan (40003 and
+     4465 sites: two sites a thread, ragged tails; 4159: one; 250 slots:
+     the spill plan); each case prints the plan it ran and must run the one
+     expected;
   4. main path: bench.py's problem (128 taxa x 16384 sites, GTR+G4 DNA,
      seed 7) through Partition(device="cuda") and TreeEngine:
      loglikelihood() and three newton_step()s, counted kernel launches, and
      the same problem through the plain path in float64 on the card;
   5. times: medians over CUDA events of the kernel, the plain traversal,
-     one loglikelihood() and one newton_step() at 128 x 16384;
+     one loglikelihood() and one newton_step() at 128 x 16384; then the
+     kernel's device time over one traversal from torch.profiler (and per
+     op);
   6. rows kernel vs plain: ops/fused.py:fused_traversal_rows (the CUDA
      kernel for 16 or more states) against the plain version on the card,
      float32: 16 taxa x 1000 ragged AA sites with B/Z/X/gaps, an 80-taxon
@@ -101,7 +108,16 @@ each fatal on failure:
      its plain version on the 'repeats-dense-fused' inputs,
      loglikelihood() on 'pool-pallas', 'repeats-dense-fused' and a dense
      partition's fused path, one step-by-step traversal; and torch.matmul
-     of tools/mxu_probe.py's [80, 80] @ [80, 512] in float32 and bf16.
+     of tools/mxu_probe.py's [80, 80] @ [80, 512] in float32 and bf16;
+     then the fused kernel's device time on the 'repeats-dense-fused'
+     inputs, and the pool kernel's runtime-size variant over one traversal
+     of the conserved 128 x 8192 protein (kernel, plain version, device
+     time and bound);
+ 15-18. the per-rate and raw-tip modes of kernels 1, 2, 3 and 5 against
+     their plain versions (kernel 1 also in every plan and thread layout),
+     and kernel 1's device time per rate and with all tips raw, the slice's
+     paths at full width with their launches counted, their times, and the
+     matrix-unit probe.
 
 The last three lines are the card's name and power limit, one JSON object
 listing every kernel (with its bound at the card's peaks), and {"ok": true,
@@ -110,6 +126,9 @@ Exits non-zero, printing no result, when there is no CUDA device.
 `--rows-only CHECKOUT` runs only phase 8's rows-kernel times on the protein
 main path, importing the port from CHECKOUT (a checkout of another commit),
 and prints them as one JSON line: two commits compared on one card.
+`--fused-only CHECKOUT` does the same for the DNA fused kernel: its call
+and device times on the DNA main path, per rate, with all tips raw and on
+the 246 x 4465 'repeats-dense-fused' inputs.
 `--profile DIR` also writes a torch.profiler breakdown of one
 loglikelihood() and one newton_step() of each main path (fused and
 levels-kernel) to DIR/profile.txt.
@@ -162,6 +181,14 @@ MAX_TIES = 8
 TOL_ANC = 1e-4
 REPS = 25
 WARMUP = 3
+# fused_traversal.cu's thread layouts on an H100 (ops/_kernels.py:fused_plan,
+# 132 SMs): site counts and the threads a site each takes (40003 and 4465,
+# the repeats problem's width: two sites a thread, 64-site blocks with tails
+# of 3 and 49; 4159, the widest with one site a thread: 32-site blocks with
+# a tail of 31; 1000 sites take one too), and a slot count that forces the
+# spill plan
+FUSED_LAYOUT_SITES = ((40003, 2), (4465, 2), (4159, 4))
+FUSED_SPILL_SLOTS = 250
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and float32 FLOP/s
 # outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
@@ -276,12 +303,31 @@ def traversal_inputs(eng):
 
 
 def compare_case(name, tree, by_label, sites, device, rate_cats=4,
-                 must_scale=False, **options):
-    """Kernel vs plain traversal on one problem; returns (max relative
-    error, max absolute error)."""
+                 must_scale=False, plan=None, n_slots=None, **options):
+    """Kernel vs plain traversal on one problem (`plan`, `n_slots`: as
+    `compare_traversal`); returns (max relative error, max absolute
+    error)."""
     part, eng = build_engine(tree, by_label, sites, device, rate_cats,
                              **options)
-    return compare_traversal(name, part, eng, must_scale)
+    return compare_traversal(name, part, eng, must_scale, plan, n_slots)
+
+
+def fused_plan_of(part, eng, n_slots=None):
+    """fused_traversal.cu's plan (ops/_kernels.py:fused_plan) for an
+    engine's traversal on the current device, with `n_slots` slots (the
+    engine's by default)."""
+    from libpll2_tpu_torch.ops import _kernels
+
+    return _kernels.device_fused_plan(
+        part.device, part.rate_cats, part.states,
+        n_slots or eng.fused_slots, part.rate_scalers, part.sites_padded)
+
+
+def plan_text(plan) -> str:
+    return (f"plan {plan.plan}, {plan.threads_per_site} thread"
+            f"{'s' if plan.threads_per_site > 1 else ''} a site, "
+            f"{plan.sites_per_block} sites a block, {plan.smem_bytes} bytes "
+            f"of shared memory")
 
 
 def root_block(part):
@@ -301,18 +347,30 @@ def traversal_kw(part, eng):
                 tip_clvs=eng._tip_clvs())
 
 
-def compare_traversal(name, part, eng, must_scale=False):
+def compare_traversal(name, part, eng, must_scale=False, plan=None,
+                      n_slots=None):
     """Kernel vs plain traversal on the inputs a fused engine hands the
     kernel, in the partition's modes (per-rate counts compared per rate;
     with `must_scale` 'rates' in per-rate mode, some rate categories must
-    rescale at sites where others do not); returns (max relative error,
-    max absolute error)."""
+    rescale at sites where others do not), with `n_slots` slots (more
+    than the table uses force the spill plan). Below 16 states the case
+    prints the plan it ran, which must be `plan` ((name, threads a site))
+    where given; returns (max relative error, max absolute error)."""
     import torch
     from libpll2_tpu_torch.ops.fused import (fused_traversal,
                                              fused_traversal_reference)
 
     codes, pm, table = traversal_inputs(eng)
     kw = traversal_kw(part, eng)
+    if n_slots is not None:
+        kw["n_slots"] = n_slots
+    ran = ""
+    if part.states < 16:
+        got_plan = fused_plan_of(part, eng, kw["n_slots"])
+        ran = f"; {plan_text(got_plan)}"
+        if plan is not None:
+            check((got_plan.plan, got_plan.threads_per_site) == plan,
+                  f"{name}: ran {plan_text(got_plan)}, expected {plan}")
     got = fused_traversal(codes, pm, table, **kw)
     want = fused_traversal_reference(codes, pm, table, **kw)
     torch.cuda.synchronize()
@@ -335,13 +393,13 @@ def compare_traversal(name, part, eng, must_scale=False):
     raw = int((table[:-1, [1, 4]] == 2).sum())
     print(f"kernel vs plain [{name}]: {part.tips} taxa x {part.sites} sites,"
           f" {part.rate_cats} rates, {len(table) - 1} ops, "
-          f"{eng.fused_slots} slots"
+          f"{kw['n_slots']} slots"
           + (", per-rate counts" if part.rate_scalers else "")
           + (f", {raw} raw-tip children" if raw else "")
           + f": scaler counts equal (max {scaled}"
           + (f", rates differing at {mixed} sites" if part.rate_scalers
              else "") + (f"; {ties} ties" if ties else "")
-          + f"), max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}",
+          + f"), max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}{ran}",
           flush=True)
     check(rel <= TOL_CLV, f"{name}: max_rel_err {rel:.3e} > {TOL_CLV}")
     if must_scale:
@@ -1443,7 +1501,7 @@ def repeats_main_path(device, tree, make, label, dense_ref):
     check(part.clv is None, "the dense-fused engine allocated dense rows")
     # the fused kernel against its plain version at this path's shape
     rdf_err = compare_traversal(f"repeats-dense-fused {label} shape", part,
-                                eng_rdf)[1]
+                                eng_rdf, plan=("on-chip", 2))[1]
 
     ref = f64_edge(dense_ref, ops, blen, params, r)
     check_logl("step-by-step edge", lnl, ref[0], d, ref[1:3])
@@ -1575,6 +1633,39 @@ def repeats_times(part, engines, dense, levels, tree, gpu):
     return kernel, plain, (bound, by), (f_kernel, f_plain, f_bound)
 
 
+def protein_pool_times(device, aa_tree, make_aa, gpu):
+    """Phase 14: the pool kernel's runtime-size variant over one traversal
+    of the conserved 128 x 8192 LG+G4 protein (after one step-by-step
+    traversal sets its P-matrices): medians (ms) of the kernel and of its
+    plain version, its device time (ms, torch.profiler, the traversal's
+    launches summed) and its bound from the class counts. Returns (kernel,
+    plain, device, (bound, by))."""
+    import copy
+
+    from libpll2_tpu_torch.ops import pool
+
+    part = make_aa(device)
+    ops = step_by_step(part, aa_tree, derivatives=False)[0]
+    plan = part._pool_plan(ops, True)
+    args = (part.clv_flat, part.sc_flat, part.pmatrix, plan,
+            part.scale_threshold, part.scale_factor)
+    kernel = median_ms(lambda: pool.update_partials_pool(*args))
+    plain = median_ms(lambda: pool.update_partials_pool(
+        *args, level=pool.pool_update_reference))
+    dev = sum(launches_device_us(lambda: pool.update_partials_pool(*args),
+                                 "pool_", len(plan.tables))) * 1e-3
+    _, lv = pool.schedule_pool_levels(copy.deepcopy(part.repeats), ops,
+                                      part.tips, part.sites_padded,
+                                      part.scale_buffers)
+    bound = pool_bound(part, lv)
+    print(f"pool kernel, runtime-size variant, protein {part.tips} x "
+          f"{part.sites} conserved (median of {REPS}, CUDA events; {gpu}): "
+          f"kernel over {len(plan.tables)} levels {kernel:.4f} ms, device "
+          f"{dev * 1e3:.1f} us (bound {bound[0]:.4f} ms by {bound[1]}), "
+          f"plain {plain:.4f} ms", flush=True)
+    return kernel, plain, dev, bound
+
+
 def bound_ms(n_bytes: int, flops: int, peak=H100_F32_FLOP_PER_S):
     """(least time in ms at the card's peaks, 'bytes' or 'operations');
     `peak` the FLOP/s of the operations' type (float32 by default)."""
@@ -1622,40 +1713,55 @@ def level_bound(part, ops):
     return bound_ms(n_bytes, traversal_flops(len(ops), S, R, s))
 
 
-def level_device_us(args, n_levels, reps=5):
-    """Device time (us) of each level's kernel over one traversal through
-    the level kernel (`args` of update_partials_kernel), from
-    torch.profiler: `reps` traversals, each profiled on its own, the median
-    per level. A traversal whose trace lacks some of its kernels (the
-    profiler can drop events) is profiled again, up to `reps` more times
-    in all."""
+def launches_device_us(fn, name, n_launches, reps=5):
+    """Device time (us) of each of the `n_launches` kernels whose names
+    hold `name` in a call of `fn`, in launch order, from torch.profiler:
+    `reps` calls in one profiled session, the median per launch. The
+    session opens and closes with eight small sentinel kernels each (the
+    profiler can drop the first or the last kernels of a session); one
+    whose trace still lacks some of the kernels is run again, up to three
+    sessions in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
-    from libpll2_tpu_torch.ops import levels
 
-    levels.update_partials_kernel(*args)
+    sentinel = torch.zeros(1, device="cuda")
+    fn()
     torch.cuda.synchronize()
-    runs, tries = [], 0
-    while len(runs) < reps:
-        check(tries < 2 * reps, f"the profiler missed level kernels in "
-              f"{tries - len(runs)} of {tries} traversals")
-        tries += 1
+    for _ in range(3):
         with torch.profiler.profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            levels.update_partials_kernel(*args)
+            for _ in range(8):
+                sentinel.add_(1)
+            for _ in range(reps):
+                fn()
+                torch.cuda.synchronize()
+            for _ in range(8):
+                sentinel.add_(1)
             torch.cuda.synchronize()
-        kernels = sorted((e for e in prof.events()
-                          if e.device_type == DeviceType.CUDA
-                          and "level_" in e.name),
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kernels = sorted((e for e in device if name in e.name),
                          key=lambda e: e.time_range.start)
-        if len(kernels) == n_levels:
-            runs.append([e.time_range.elapsed_us() for e in kernels])
-    if tries > reps:
-        print(f"  (the profiler missed level kernels in {tries - reps} of "
-              f"{tries} traversals, profiled again)", flush=True)
-    return [statistics.median(run[i] for run in runs)
-            for i in range(n_levels)]
+        if len(kernels) == reps * n_launches:
+            break
+        print(f"  (the profiler recorded {len(kernels)} of "
+              f"{reps * n_launches} {name} kernels and {len(device)} device "
+              f"events in all; profiled again)", flush=True)
+    check(len(kernels) == reps * n_launches, f"the profiler missed {name} "
+          f"kernels in 3 sessions of {reps} calls")
+    times = [e.time_range.elapsed_us() for e in kernels]
+    return [statistics.median(times[r * n_launches + i] for r in range(reps))
+            for i in range(n_launches)]
+
+
+def level_device_us(args, n_levels, reps=5):
+    """Device time (us) of each level's kernel over one traversal through
+    the level kernel (`args` of update_partials_kernel), from
+    `launches_device_us`."""
+    from libpll2_tpu_torch.ops import levels
+
+    return launches_device_us(lambda: levels.update_partials_kernel(*args),
+                              "level_", n_levels, reps)
 
 
 def level_tables(part, ops):
@@ -1852,29 +1958,8 @@ def times(eng, part, gpu, taxa, sites, modes=("split",)):
 
 def kernel_device_us(fn, name: str, reps=5) -> float:
     """Device time (us) of the one kernel whose name holds `name` in a call
-    of `fn`, from torch.profiler: `reps` calls, each profiled on its own,
-    the median. A trace that lacks the kernel (the profiler can drop
-    events) is profiled again, up to `reps` more times in all."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity
-
-    fn()
-    torch.cuda.synchronize()
-    runs, tries = [], 0
-    while len(runs) < reps:
-        check(tries < 2 * reps, f"the profiler missed {name} in "
-              f"{tries - len(runs)} of {tries} calls")
-        tries += 1
-        with torch.profiler.profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        found = [e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and name in e.name]
-        if len(found) == 1:
-            runs.append(found[0].time_range.elapsed_us())
-    return statistics.median(runs)
+    of `fn`, from `launches_device_us`."""
+    return launches_device_us(fn, name, 1, reps)[0]
 
 
 def rows_device(eng, part, gpu, modes=("split", "bf16")):
@@ -1895,6 +1980,60 @@ def rows_device(eng, part, gpu, modes=("split", "bf16")):
           + ", ".join(f"[{m}] {v * 1e3:.1f} us ({v * 1e3 / n_ops:.3f} us "
                       f"an op over {n_ops} ops)" for m, v in out.items()),
           flush=True)
+    return out
+
+
+def fused_device(label, part, eng, gpu) -> float:
+    """The DNA fused kernel's device time (ms) over one traversal of an
+    engine's inputs, from torch.profiler (median of 5), printed with its
+    time an op and the plan it ran."""
+    from libpll2_tpu_torch.ops import _kernels
+    from libpll2_tpu_torch.ops.fused import fused_traversal
+
+    codes, pm, table = traversal_inputs(eng)
+    kw = traversal_kw(part, eng)
+    n_ops = len(table) - 1
+    dev = kernel_device_us(lambda: fused_traversal(codes, pm, table, **kw),
+                           "fused_") * 1e-3
+    ran = (f"; {plan_text(fused_plan_of(part, eng))}"
+           if hasattr(_kernels, "device_fused_plan") else "")
+    print(f"fused kernel device time, {label}, {part.tips} x {part.sites} "
+          f"(torch.profiler, median of 5 traversals; {gpu}): "
+          f"{dev * 1e3:.1f} us ({dev * 1e3 / n_ops:.3f} us an op over "
+          f"{n_ops} ops){ran}", flush=True)
+    return dev
+
+
+def fused_only(device, gpu) -> dict:
+    """`--fused-only`: the DNA fused kernel's call and device times (ms)
+    on the DNA main path, per rate, with all 128 tips raw and on the
+    246 x 4465 'repeats-dense-fused' inputs, of the package that was
+    imported, which may be another checkout's."""
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.ops.fused import fused_traversal
+    from libpll2_tpu_torch.trees import random_alignment, random_utree
+
+    headers, seqs = random_alignment(N_TAXA, N_SITES, seed=SEED)
+    tree = random_utree(headers, seed=SEED)
+    by = dict(zip(headers, seqs))
+    cases = {"dna": build_engine(tree, by, N_SITES, device),
+             "per_rate": build_engine(tree, by, N_SITES, device,
+                                      rate_scalers=True)}
+    part = dna_partition(tree, by, N_SITES, device)
+    set_raw_tips(part, tree, by)
+    cases["raw_tips"] = (part, TreeEngine(part, tree))
+    rep_tree, _, make = flagship_repeats()
+    part = make(device)
+    cases["repeats"] = (part, TreeEngine(part, rep_tree))
+    out = {}
+    for key, (part, eng) in cases.items():
+        codes, pm, table = traversal_inputs(eng)
+        kw = traversal_kw(part, eng)
+        ms = median_ms(lambda: fused_traversal(codes, pm, table, **kw))
+        dev = fused_device(key, part, eng, gpu)
+        out[key] = {"ms": ms, "device_ms": dev,
+                    "us_per_op": dev * 1e3 / (len(table) - 1)}
+        print(f"  fused kernel call, {key}: {ms:.4f} ms", flush=True)
     return out
 
 
@@ -2066,15 +2205,40 @@ def slice_kernel_cases(device, small, small_by, cat, cat_by, big, big_by,
     part, eng = build_engine(big, big_by, N_SITES, device,
                              rate_scalers=True)
     note("fused_per_rate", compare_traversal("per-rate, main-path shape",
-                                             part, eng)[1])
+                                             part, eng,
+                                             plan=("on-chip", 2))[1])
     keep["fused_per_rate"] = (part, eng)
+    # kernel 1 per rate and with raw tips in every plan and thread layout
+    for sites, tps in FUSED_LAYOUT_SITES:
+        headers, seqs = random_alignment(16, sites, alphabet="ACGT-NRY",
+                                         seed=3)
+        by = dict(zip(headers, seqs))
+        note("fused_per_rate", compare_case(
+            f"per-rate, {sites} sites", small, by, sites, device,
+            plan=("on-chip", tps), rate_scalers=True)[1])
+        part = dna_partition(small, by, sites, device, rate_scalers=True)
+        set_raw_tips(part, small, by, every=2)
+        note("fused_raw", compare_traversal(
+            f"raw tips, every other tip, per-rate, {sites} sites", part,
+            TreeEngine(part, small), plan=("on-chip", tps))[1])
+    note("fused_per_rate", compare_case(
+        f"per-rate, spill: {FUSED_SPILL_SLOTS} slots", small, small_by,
+        1000, device, plan=("spill", 1), n_slots=FUSED_SPILL_SLOTS,
+        rate_scalers=True)[1])
+    part = dna_partition(small, small_by, 1000, device)
+    set_raw_tips(part, small, small_by, every=2)
+    note("fused_raw", compare_traversal(
+        f"raw tips, every other tip, spill: {FUSED_SPILL_SLOTS} slots", part,
+        TreeEngine(part, small), plan=("spill", 1),
+        n_slots=FUSED_SPILL_SLOTS)[1])
     # kernel 1: raw tips, all 128 and mixed with state codes and per-rate
     part = dna_partition(big, big_by, N_SITES, device)
     set_raw_tips(part, big, big_by)
     eng = TreeEngine(part, big)
     check(int((eng.table[:-1, [1, 4]] == 2).sum()) == N_TAXA,
           "not every tip is a raw row")
-    note("fused_raw", compare_traversal("raw tips, all 128", part, eng)[1])
+    note("fused_raw", compare_traversal("raw tips, all 128", part, eng,
+                                        plan=("on-chip", 2))[1])
     keep["fused_raw"] = (part, eng)
     part = dna_partition(small, small_by, 1000, device, rate_scalers=True)
     set_raw_tips(part, small, small_by, every=2)
@@ -2487,7 +2651,13 @@ def main() -> int:
                     "path, importing the port from the checkout REPO (for "
                     "one commit against another on the same card), and "
                     "print the times as one JSON line")
+    ap.add_argument("--fused-only", metavar="REPO", default=None,
+                    help="only time the DNA fused kernel (main path, per "
+                    "rate, raw tips, the repeats problem), importing the "
+                    "port from the checkout REPO, and print the times as "
+                    "one JSON line")
     args = ap.parse_args()
+    other = args.rows_only or args.fused_only
 
     import torch
     if not torch.cuda.is_available():
@@ -2497,7 +2667,7 @@ def main() -> int:
     # the plain versions' float32 einsums: full float32, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sys.path.insert(0, os.path.abspath(args.rows_only or REPO))
+    sys.path.insert(0, os.path.abspath(other or REPO))
     from libpll2_tpu_torch.ops import _kernels
     from libpll2_tpu_torch.trees import (parse_newick, random_alignment,
                                          random_utree)
@@ -2513,6 +2683,12 @@ def main() -> int:
         print(f"rows kernel of {os.path.abspath(args.rows_only)}",
               flush=True)
         print(json.dumps({"rows_only": rows_only(device, gpu),
+                          "gpu": gpu}), flush=True)
+        return 0
+    if args.fused_only:
+        print(f"fused kernel of {os.path.abspath(args.fused_only)}",
+              flush=True)
+        print(json.dumps({"fused_only": fused_only(device, gpu),
                           "gpu": gpu}), flush=True)
         return 0
 
@@ -2535,24 +2711,34 @@ def main() -> int:
     headers, seqs = random_alignment(16, 1000, alphabet="ACGT-NRY", seed=3)
     small = random_utree(headers, seed=3)
     small_by = dict(zip(headers, seqs))
-    compare_case("ragged", small, small_by, 1000, device)
+    compare_case("ragged", small, small_by, 1000, device,
+                 plan=("on-chip", 4))
     compare_case("runtime-size variant, 3 rates", small, small_by, 1000,
-                 device, rate_cats=3)
+                 device, rate_cats=3, plan=("spill", 1))
+    for sites, tps in FUSED_LAYOUT_SITES:
+        headers, seqs = random_alignment(16, sites, alphabet="ACGT-NRY",
+                                         seed=3)
+        compare_case(f"{sites} sites", small, dict(zip(headers, seqs)),
+                     sites, device, plan=("on-chip", tps))
+    compare_case(f"spill: {FUSED_SPILL_SLOTS} slots", small, small_by, 1000,
+                 device, plan=("spill", 1), n_slots=FUSED_SPILL_SLOTS)
     cat = parse_newick(caterpillar_newick(80))
     headers, seqs = random_alignment(80, 1000, seed=3)
     cat_by = dict(zip(headers, seqs))
-    compare_case("caterpillar", cat, cat_by, 1000, device, must_scale=True)
+    compare_case("caterpillar", cat, cat_by, 1000, device, must_scale=True,
+                 plan=("on-chip", 4))
     headers_big, seqs = random_alignment(N_TAXA, N_SITES, seed=SEED)
     big_by = dict(zip(headers_big, seqs))
     _, max_abs = compare_case("main-path shape", random_utree(headers_big,
                                                               seed=SEED),
-                              big_by, N_SITES, device)
+                              big_by, N_SITES, device, plan=("on-chip", 2))
 
     # 4. main path
     eng, part, launches = main_path(device)
 
     # 5. times
     ms_kernel, ms_plain = times(eng, part, gpu, N_TAXA, N_SITES)["split"]
+    fused_dev = fused_device("DNA main path", part, eng, gpu)
 
     # 6. rows kernel vs plain on the card
     headers, seqs = random_alignment(16, 1000, alphabet=AA_NOISY, seed=3)
@@ -2646,11 +2832,16 @@ def main() -> int:
     pool_ms = repeats_times(rep[2], rep[3], rep_dense, rep[5], rep_tree,
                             gpu)
     bounds["pool_update"] = pool_ms[2]
+    rep_fused_dev = fused_device("repeats-dense-fused", rep[2], rep[3][1],
+                                 gpu)
+    aa_pool = protein_pool_times(device, aa_tree, aa_make, gpu)
 
     # 15. the new variants of kernels 1, 2, 3 and 5 vs plain on the card
     var_err, var_keep = slice_kernel_cases(
         device, small, small_by, cat, cat_by, big, big_by, aa_tree, aa_by,
         flagship)
+    var_dev = {key: fused_device(key, *var_keep[key], gpu)
+               for key in ("fused_per_rate", "fused_raw")}
 
     # 16. the slice's paths at full width, launches counted
     pr_fused, pr_level = per_rate_dna_path(device, big, big_by)
@@ -2700,12 +2891,21 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_abs,
         "ms": ms_kernel, "plain_ms": ms_plain,
         **bound("fused_traversal"),
+        "plan": fused_plan_of(part, eng).plan,
+        "threads_per_site": fused_plan_of(part, eng).threads_per_site,
+        "device_ms": fused_dev,
+        "us_per_op": fused_dev * 1e3 / (len(eng.table) - 1),
         "repeats_launches": rep[6][0], "repeats_max_abs_err": rep[6][1],
         "repeats_ms": pool_ms[3][0], "repeats_plain_ms": pool_ms[3][1],
         "repeats_bound_ms": pool_ms[3][2][0],
         "repeats_bound_by": pool_ms[3][2][1],
+        "repeats_device_ms": rep_fused_dev,
+        "repeats_threads_per_site": fused_plan_of(
+            rep[2], rep[3][1]).threads_per_site,
         **variant("per_rate", "fused_per_rate", pr_fused),
+        "per_rate_device_ms": var_dev["fused_per_rate"],
         **variant("raw_tips", "fused_raw", raw_fused),
+        "raw_tips_device_ms": var_dev["fused_raw"],
         "asc_launches": asc_fused,
         "repeats_slice_launches": rep_fused}, {
         "name": "fused_traversal_rows", "route": "cuda",
@@ -2749,6 +2949,9 @@ def main() -> int:
         "launches": pool_launches, "max_abs_err": pool_max_abs,
         "ms": pool_ms[0], "plain_ms": pool_ms[1],
         **bound("pool_update"),
+        "protein_ms": aa_pool[0], "protein_plain_ms": aa_pool[1],
+        "protein_device_ms": aa_pool[2], "protein_bound_ms": aa_pool[3][0],
+        "protein_bound_by": aa_pool[3][1],
         **variant("per_rate", "pool_per_rate", rep_pool)},
         probe_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,15 +29,52 @@
 // generic instantiation) before any of it is stored, and a child's count of
 // a rate is read before the parent's count of that rate is stored.
 //
-// What bounds it on an H100. Compute per site: 2 * R * s * s FMAs per op
-// (128 for DNA GTR+G4) on one thread, and about 3 * R * s * 4 bytes of slot
-// traffic per op, which stays in the 50 MB L2 (slots are ~30 x 16 x 16384 x
-// 4 B = 31 MB at 128 taxa x 16384 sites). Raw tips add s floats per site and
-// use (coalesced along sites), and per-rate counts R - 1 more ints per slot
-// and op. One thread owns one site, so at 16384 sites the launch has only
-// 16384 threads, about 124 per SM: too few to hide latency. This first
-// design does nothing about that yet; more threads per site, slots and P in
-// shared memory, and tensor cores are for later work.
+// What bounds it on an H100. Operations: 2 * R * s * s FMAs per op and site
+// (128 for DNA GTR+G4) and the elementwise product; at 128 taxa x 16384
+// sites, 126 ops, that is 0.56 GFLOP, 8.4 us at the 67 TFLOP/s float32 peak
+// of the CUDA cores. Bytes: the tips' codes are read once (8.4 MB, 2.5 us at
+// 3.35 TB/s), P is small (65 KB) and the root outputs are 8.4 MB. Every
+// inner CLV is produced and consumed inside the walk, so a design that keeps
+// them on chip is bound by operations and instruction issue, not by memory.
+//
+// Plans (ops/_kernels.py:fused_plan picks one from the bytes before the
+// launch; the entry below recomputes the bytes and refuses a launch whose
+// layout it does not share):
+//
+//   on-chip (fused_onchip, 4 states x 4 rates, per-site or per-rate counts):
+//     four neighbouring lanes hold the 4 rates of one site, or of two sites
+//     8 lanes apart (SPT = 2 sites a thread, where blocks of 64 sites still
+//     reach half the SMs: P's rows, the table row and the op's bookkeeping
+//     then serve two sites). A thread keeps its rate's child columns and
+//     products in registers, 2 x 16 FMAs a site and op; the per-site
+//     rescale test is one warp vote (__ballot_sync): the site's 16 values
+//     are all below the threshold exactly when their max is, so the counts
+//     stay the plain version's; per-rate mode needs no vote. A
+//     block keeps its sites' slots in shared memory for the whole walk,
+//     [slot][site][rate][4] floats, so a child column is one conflict-free
+//     16-byte load, and each thread keeps its own copy of its sites' counts
+//     ([slot][SPT][thread] ints, equal within a site's lanes in per-site
+//     mode). No thread reads a word another compute thread wrote, and
+//     children are read into registers before the parent is stored (slot
+//     reuse). Nothing on an op's chain waits for device memory: a fifth,
+//     producer warp stages each op's inputs (its table row, its rows of
+//     P[m1] and P[m2], and the block's tip codes or raw tip rows) with
+//     cp.async into a ring of kDepth entries, up to kDepth ops ahead; an
+//     entry's full mbarrier completes when the copies have landed, its empty
+//     mbarrier when all 128 compute threads have read it. A compute thread
+//     waits on one mbarrier an op and arrives on another; there is no block
+//     barrier after the barriers' initialisation. A rate's 4 x 4 block of P
+//     is padded to 20 floats, so the 4 rates' rows fall in distinct banks.
+//     DNA (7 slots) takes 48,832 bytes a block at two sites a thread.
+//   spill (fused_fixed, 4 x 4; and fused_generic for other sizes): where the
+//     slots do not fit in a block's shared memory (or the sizes are not 4 x
+//     4), one thread owns one site and the slots stay in device memory
+//     [n_slots + 1][R * s][S], as the launcher allocates them.
+//
+// The on-chip walk is bound by instruction issue and latency, not by
+// operations: its per-op bookkeeping (the row, the barriers, the vote and
+// counts) costs more instructions than its 32 FMAs a site, and a warp's
+// ops run one after another. PERF.md has the measurements.
 //
 // Numerics: build without --use_fast_math (IEEE division, no flush to zero,
 // so 2^-64 stays a normal float). nvcc contracts a*b+c into FMAs, which
@@ -49,7 +86,17 @@
 namespace {
 
 constexpr int kRow = 8;      // op table row width
-constexpr int kBlock = 64;   // threads per block: 256 blocks at 16384 sites
+constexpr int kBlock = 64;   // spill plan: threads (sites) per block
+// on-chip plan: compute warps a block (4 threads hold the 4 rates of a site)
+// and one producer warp; ops whose inputs are in flight (a ring of kDepth
+// entries a block); a rate's 4 x 4 block of P padded to 20 floats (the 4
+// rates' rows then fall in distinct banks)
+constexpr int kComputeWarps = 4;
+constexpr int kComputeThreads = 32 * kComputeWarps;
+constexpr int kOnchipThreads = kComputeThreads + 32;
+constexpr int kDepth = 4;
+constexpr int kRateWords = 20;
+constexpr int kSideWords = 4 * kRateWords;
 
 struct Args {
   const int* table;    // [n_ops + 1, 8]
@@ -72,6 +119,302 @@ struct Args {
 
 __device__ __forceinline__ float tip_bit(unsigned code, int j) {
   return static_cast<float>((code >> j) & 1u);
+}
+
+// ---------------------------------------------------------------------------
+// The on-chip plan (4 states x 4 rates), SPT sites a compute thread: a
+// block holds SPB = 32 * SPT sites. Shared memory layout, in 4-byte words
+// (every part a multiple of 16 bytes):
+//   barriers [2][kDepth] uint64: full (the producer's copies of an entry
+//            landed) and empty (the compute threads are done with it)
+//   ring     [kDepth][ring_words(SPT)]: one op's inputs,
+//            [row 8 int][P 2 sides x 4 rates x kRateWords]
+//            [raw tips 2 x SPB sites x 4 float][tip codes 2 x SPB int]
+//   slots    [n_slots][SPB][4 rates][4] float
+//   counts   [n_slots][SPT][kComputeThreads] int, one copy a thread
+// ops/_kernels.py:fused_plan computes the same bytes.
+__host__ __device__ constexpr int ring_words(int spt) {
+  return kRow + 2 * kSideWords + 2 * 32 * spt * 5;
+}
+
+__host__ __device__ inline size_t onchip_smem_words(int n_slots, int spt) {
+  const size_t spb = 32 * spt;
+  return 4 * kDepth + (size_t)kDepth * ring_words(spt) +
+         (size_t)n_slots * (spb * 16 + (size_t)spt * kComputeThreads);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// one arrival on `bar` once this thread's earlier cp.async copies landed
+__device__ __forceinline__ void mbar_arrive_copies(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// until the phase of `bar` with this parity has completed; a lost arrival
+// traps (the launch fails) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  for (unsigned n = 0; !mbar_try_wait(bar, parity); ++n) {
+    if (n == (1u << 24)) __trap();
+  }
+}
+
+// The producer warp: op k's inputs into ring entry k % kDepth once the
+// compute threads are done with it, as one arrival a lane on its full
+// barrier: its table row, its rows of P[m1] and P[m2] (4 rates x 4 rows x 16
+// bytes each, one 16-byte copy a lane) and, for the block's SPB sites (past
+// the last site: the last), its tip codes or its raw tips' rows. Table rows
+// are read one op ahead.
+template <int SPT>
+__device__ __forceinline__ void produce(const Args& a, float* ring,
+                                        unsigned long long* full,
+                                        unsigned long long* empty, int lane) {
+  constexpr int SPB = 32 * SPT;
+  constexpr int E = ring_words(SPT);
+  const size_t S = a.sites;
+  size_t sites[SPT];
+#pragma unroll
+  for (int t = 0; t < SPT; ++t) sites[t] = min((size_t)blockIdx.x * SPB + lane + 32 * t, S - 1);
+  const int4* const table = reinterpret_cast<const int4*>(a.table);
+  int4 r0 = make_int4(0, 0, 0, 0), r1 = r0;
+  if (a.n_ops > 0) {
+    r0 = __ldg(table);
+    r1 = __ldg(table + 1);
+  }
+  for (int k = 0; k < a.n_ops; ++k) {
+    const int4 c0 = r0, c1 = r1;
+    if (k + 1 < a.n_ops) {
+      r0 = __ldg(table + 2 * (k + 1));
+      r1 = __ldg(table + 2 * (k + 1) + 1);
+    }
+    const int s = k % kDepth;
+    mbar_wait(empty + s, ((k / kDepth) & 1) ^ 1);
+    float* const e = ring + s * E;
+    if (lane < 2) cp_async16(e + 4 * lane, a.table + (size_t)k * kRow + 4 * lane);
+    const int side = lane >> 4;
+    cp_async16(e + kRow + side * kSideWords + ((lane >> 2) & 3) * kRateWords + (lane & 3) * 4,
+               a.pmat + (size_t)(side ? c1.z : c0.w) * 64 + (lane & 15) * 4);
+    float* const raw = e + kRow + 2 * kSideWords;
+    int* const codes = reinterpret_cast<int*>(raw + 2 * SPB * 4);
+    const int is_tip[2] = {c0.y, c1.x}, idx[2] = {c0.z, c1.y};
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (is_tip[c] == 1) {
+#pragma unroll
+        for (int t = 0; t < SPT; ++t) {
+          cp_async4(codes + c * SPB + lane + 32 * t, a.tips + (size_t)idx[c] * S + sites[t]);
+        }
+      } else if (is_tip[c] == 2) {
+#pragma unroll
+        for (int t = 0; t < SPT; ++t) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            cp_async4(raw + (c * SPB + lane + 32 * t) * 4 + j,
+                      a.ctips + ((size_t)idx[c] * 4 + j) * S + sites[t]);
+          }
+        }
+      }
+    }
+    mbar_arrive_copies(full + s);
+  }
+  cp_async_wait_all();
+}
+
+// SPT sites a compute thread (8 apart), one rate; PER_RATE: one count per
+// rate. Warps 0 .. kComputeWarps - 1 compute, the last one produces.
+template <int SPT, bool PER_RATE>
+__global__ void __launch_bounds__(kOnchipThreads) fused_onchip(Args a) {
+  constexpr int SW = 8 * SPT;                   // sites a compute warp
+  constexpr int SPB = 32 * SPT;                 // sites a block
+  constexpr int E = ring_words(SPT);
+  extern __shared__ float4 smem4[];
+  unsigned long long* const full = reinterpret_cast<unsigned long long*>(smem4);
+  unsigned long long* const empty = full + kDepth;
+  float* const ring = reinterpret_cast<float*>(smem4) + 4 * kDepth;
+  float4* const slots = reinterpret_cast<float4*>(ring + kDepth * E);
+  int* const cnt = reinterpret_cast<int*>(slots + (size_t)a.n_slots * SPB * 4);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid < kDepth) {
+    mbar_init(full + tid, 32);                 // the producer's lanes
+    mbar_init(empty + tid, kComputeThreads);
+  }
+  __syncthreads();
+  if (warp == kComputeWarps) {
+    produce<SPT>(a, ring, full, empty, lane);
+    return;
+  }
+
+  const int rate = lane & 3, q = lane >> 2;
+  const size_t S = a.sites;
+  const size_t wsite0 = (size_t)blockIdx.x * SPB + warp * SW;
+  // the thread's sites wsite0 + q + 8 k; threads past the last site run on
+  // a copy of it (every lane of a warp takes part in its votes) and write
+  // nothing out
+  size_t site[SPT];
+  int col[SPT];   // float4 column of (site, rate) in a slot
+  int bcol[SPT];  // the site in the block
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) {
+    site[k] = min(wsite0 + q + 8 * k, S - 1);
+    bcol[k] = warp * SW + q + 8 * k;
+    col[k] = bcol[k] * 4 + rate;
+  }
+
+  for (int op = 0; op < a.n_ops; ++op) {
+    const int s = op % kDepth;
+    mbar_wait(full + s, (op / kDepth) & 1);
+    const float* const e = ring + s * E;
+    const int4 r0 = *reinterpret_cast<const int4*>(e);
+    const int4 r1 = *reinterpret_cast<const int4*>(e + 4);
+    const int pslot = r0.x, has = r1.w;
+    const int is_tip[2] = {r0.y, r1.x}, idx[2] = {r0.z, r1.y};
+    // this rate's rows of P[m1] and P[m2], shared by the thread's sites
+    const float4* const p1 = reinterpret_cast<const float4*>(e + kRow + rate * kRateWords);
+    const float4* const p2 = p1 + kSideWords / 4;
+    float4 u[4], v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      u[i] = p1[i];
+      v[i] = p2[i];
+    }
+    const float* const raw = e + kRow + 2 * kSideWords;
+    const int* const codes = reinterpret_cast<const int*>(raw + 2 * SPB * 4);
+    // the children's columns of this thread's rate, and their counts
+    float c[SPT][2][4];
+    int csc[SPT];
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) csc[k] = 0;
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) {
+      if (is_tip[ch] == 1) {   // a tip's bit is selected, not converted
+#pragma unroll
+        for (int k = 0; k < SPT; ++k) {
+          const unsigned code = static_cast<unsigned>(codes[ch * SPB + bcol[k]]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) c[k][ch][j] = (code >> j) & 1u ? 1.0f : 0.0f;
+        }
+      } else if (is_tip[ch] == 2) {
+#pragma unroll
+        for (int k = 0; k < SPT; ++k) {
+          const float4 w = *reinterpret_cast<const float4*>(raw + (ch * SPB + bcol[k]) * 4);
+          c[k][ch][0] = w.x; c[k][ch][1] = w.y; c[k][ch][2] = w.z; c[k][ch][3] = w.w;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < SPT; ++k) {
+          const float4 w = slots[idx[ch] * SPB * 4 + col[k]];
+          c[k][ch][0] = w.x; c[k][ch][1] = w.y; c[k][ch][2] = w.z; c[k][ch][3] = w.w;
+          csc[k] += cnt[(idx[ch] * SPT + k) * kComputeThreads + tid];
+        }
+      }
+    }
+    mbar_arrive(empty + s);   // done with the entry
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) {
+      float x[4];
+      float m = 0.0f;   // x is non-negative
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float ta = u[i].x * c[k][0][0];
+        ta = fmaf(u[i].y, c[k][0][1], ta);
+        ta = fmaf(u[i].z, c[k][0][2], ta);
+        ta = fmaf(u[i].w, c[k][0][3], ta);
+        float tb = v[i].x * c[k][1][0];
+        tb = fmaf(v[i].y, c[k][1][1], tb);
+        tb = fmaf(v[i].z, c[k][1][2], tb);
+        tb = fmaf(v[i].w, c[k][1][3], tb);
+        x[i] = ta * tb;
+        m = fmaxf(m, x[i]);
+      }
+      bool below = m < a.threshold;
+      if (!PER_RATE) {   // all 4 rates of the site: 4 neighbouring lanes
+        const unsigned votes = __ballot_sync(0xffffffffu, below);
+        below = ((votes >> (lane & ~3)) & 0xFu) == 0xFu;
+      }
+      if (has && below) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] *= a.factor;
+        csc[k] += 1;
+      }
+      slots[pslot * SPB * 4 + col[k]] = make_float4(x[0], x[1], x[2], x[3]);
+      cnt[(pslot * SPT + k) * kComputeThreads + tid] = csc[k];
+    }
+  }
+
+  // the root edge: each thread writes its rate's rows of its sites, which it
+  // stored itself (a slot end) or decodes (a tip end)
+  const int* root = a.table + (size_t)a.n_ops * kRow;
+#pragma unroll
+  for (int end = 0; end < 2; ++end) {
+    const int is_tip = __ldg(root + 2 * end), idx = __ldg(root + 2 * end + 1);
+    float* const out = end ? a.out_c : a.out_p;
+    int* const osc = end ? a.sc_c : a.sc_p;
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) {
+      float v[4];
+      int sc = 0;
+      if (is_tip == 1) {
+        const unsigned cd = static_cast<unsigned>(__ldg(a.tips + (size_t)idx * S + site[k]));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = (cd >> j) & 1u ? 1.0f : 0.0f;
+      } else if (is_tip == 2) {
+        const float* src = a.ctips + (size_t)idx * 4 * S + site[k];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = __ldg(src + (size_t)j * S);
+      } else {
+        const float4 w = slots[idx * SPB * 4 + col[k]];
+        v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+        sc = cnt[(idx * SPT + k) * kComputeThreads + tid];
+      }
+      if (wsite0 + q + 8 * k >= S) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[(size_t)(rate * 4 + j) * S + site[k]] = v[j];
+      if (PER_RATE) {
+        osc[rate * S + site[k]] = sc;
+      } else if (rate == 0) {
+        osc[site[k]] = sc;
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -299,9 +642,33 @@ __global__ void __launch_bounds__(kBlock) fused_generic(Args a) {
   }
 }
 
+template <int SPT>
+int launch_onchip(const Args& a, bool per_rate, size_t bytes, cudaStream_t st) {
+  auto kernel = per_rate ? fused_onchip<SPT, true> : fused_onchip<SPT, false>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int spb = 32 * SPT;
+  const dim3 grid((a.sites + spb - 1) / spb);
+  kernel<<<grid, kOnchipThreads, bytes, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// in fused_traversal_rows.cu: the opt-in limit of a block's dynamic shared
+// memory on the current device, or a negative CUDA error code
+extern "C" int pll_rows_smem_optin();
+
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or an
+// error code without launching when the shapes or the plan do not fit. The
+// trailing arguments are the launcher's plan (ops/_kernels.py:fused_plan):
+// on chip or spilled, threads a site, sites a block and the shared-memory
+// bytes, which must equal this file's own count. The on-chip plan takes a
+// 16-byte aligned table and P and no slots; the spill plan takes the slots
+// [n_slots + 1, R * s, S] and their counts in device memory.
 extern "C" int pll_fused_traversal(const int* table, int n_ops,
                                    const float* pmat, const int* tips,
                                    const float* ctips, int sites, int rates,
@@ -309,11 +676,41 @@ extern "C" int pll_fused_traversal(const int* table, int n_ops,
                                    int n_slots, float* out_p, float* out_c,
                                    int* sc_p, int* sc_c, float threshold,
                                    float factor, int rate_scalers,
-                                   void* stream) {
+                                   void* stream, int onchip,
+                                   int threads_per_site, int sites_per_block,
+                                   long long smem_bytes) {
   Args a{table, n_ops, pmat, tips, ctips, sites, rates, states, slots, slot_sc,
          n_slots, out_p, out_c, sc_p, sc_c, threshold, factor, rate_scalers};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sites < 1 || n_ops < 0 || n_slots < 1 || rates < 1 || states < 1 ||
+      states > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (onchip) {
+    // 4 threads hold the 4 rates of one site (threads_per_site 4) or of two
+    // sites (2)
+    const int spt = threads_per_site == 4 ? 1 : threads_per_site == 2 ? 2 : 0;
+    if (states != 4 || rates != 4 || spt == 0 ||
+        sites_per_block != 32 * spt ||
+        (reinterpret_cast<size_t>(pmat) & 15) != 0 ||
+        (reinterpret_cast<size_t>(table) & 15) != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const size_t bytes = onchip_smem_words(n_slots, spt) * 4;
+    const int max_smem = pll_rows_smem_optin();
+    if (max_smem < 0) return -max_smem;
+    if (bytes != static_cast<size_t>(smem_bytes) || bytes > (size_t)max_smem) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const bool per_rate = rate_scalers != 0;
+    return spt == 1 ? launch_onchip<1>(a, per_rate, bytes, st)
+                    : launch_onchip<2>(a, per_rate, bytes, st);
+  }
+  if (threads_per_site != 1 || sites_per_block != kBlock || smem_bytes != 0 ||
+      slots == nullptr || slot_sc == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 grid((sites + kBlock - 1) / kBlock);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (states == 4 && rates == 4) {
     if (rate_scalers) {
       fused_fixed<4, 4, 4><<<grid, kBlock, 0, st>>>(a);

@@ -97,7 +97,7 @@ def library_path() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = ctypes.CDLL(str(library_path()))
-    lib.pll_fused_traversal.argtypes = [
+    traversal = [
         _P, _I,            # table, n_ops
         _P,                # pmatrix
         _P, _P, _I,        # tip codes, raw tip rows (or null), sites
@@ -106,15 +106,17 @@ def library() -> ctypes.CDLL:
         _P, _P, _P, _P,    # out_p, out_c, sc_p, sc_c
         _F, _F,            # threshold, factor
         _I,                # per-rate scalers
-        _P,                # stream
     ]
+    lib.pll_fused_traversal.argtypes = traversal + [
+        _P,                # stream
+        _I, _I, _I, _L,    # fused_plan: on chip, threads a site, sites a
+    ]                      # block, shared-memory bytes
     lib.pll_fused_traversal.restype = _I
-    lib.pll_fused_traversal_rows.argtypes = (
-        lib.pll_fused_traversal.argtypes[:-1] + [
-            _I, _P,            # bf16 flag, stream
-            _I, _I, _I,        # rows_plan: on chip, sites a thread, SP,
-            _I, _I, _L,        # rate chunk, groups, shared-memory bytes
-        ])
+    lib.pll_fused_traversal_rows.argtypes = traversal + [
+        _I, _P,            # bf16 flag, stream
+        _I, _I, _I,        # rows_plan: on chip, sites a thread, SP,
+        _I, _I, _L,        # rate chunk, groups, shared-memory bytes
+    ]
     lib.pll_fused_traversal_rows.restype = _I
     lib.pll_rows_smem_optin.argtypes = []
     lib.pll_rows_smem_optin.restype = _I
@@ -206,33 +208,114 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+# fused_traversal.cu's on-chip plan (4 states x 4 rates): compute threads a
+# block (4 hold the 4 rates of one or two sites; one more warp stages the
+# inputs), and the share of the SMs that blocks of 64 sites must reach for
+# two sites a thread; the ops whose inputs are in flight (kDepth); the spill
+# plan runs one thread a site in blocks of FUSED_SPILL_BLOCK
+FUSED_COMPUTE_THREADS = 128
+FUSED_SPT2_SM_SHARE = 0.5
+FUSED_DEPTH = 4
+FUSED_SPILL_BLOCK = 64
+
+
+class FusedPlan(NamedTuple):
+    """How fused_traversal.cu runs one shape: `plan` 'on-chip' (4 states x
+    4 rates: the block's slots and counts in shared memory, the next ops'
+    P, tips and table rows prefetched; 4 threads hold the 4 rates of one
+    site, `threads_per_site` 4, or of two, 2) or 'spill' (slots in device
+    memory, one thread a site: every other size, and 4 x 4 trees whose
+    slots do not fit); `sites_per_block` the block's sites; `smem_bytes`
+    its dynamic shared memory (0 when spilled)."""
+    plan: str
+    threads_per_site: int
+    sites_per_block: int
+    smem_bytes: int
+
+
+def fused_onchip_bytes(n_slots: int, sites_per_thread: int) -> int:
+    """Shared memory of one on-chip block (fused_traversal.cu,
+    onchip_smem_words): the ring's 2 x FUSED_DEPTH barriers (8 bytes
+    each), its FUSED_DEPTH entries of one op's inputs (the table row, 8
+    words; P[m1] and P[m2], 2 x 4 rates x 20 words; the block's 32 *
+    sites_per_thread sites' raw tip rows and tip codes, 5 words a site and
+    child), then per slot the block's site columns (4 rates x 4 floats a
+    site) and one count a site of each compute thread. Per-rate counts
+    take the same bytes: each thread keeps one a site."""
+    spt = sites_per_thread
+    sites = 32 * spt
+    ring = 2 * FUSED_DEPTH * 2 + FUSED_DEPTH * (8 + 2 * 4 * 20 + 2 * sites * 5)
+    return 4 * (ring + n_slots * (sites * 16 + spt * FUSED_COMPUTE_THREADS))
+
+
+def fused_plan(rates: int, states: int, n_slots: int, rate_scalers: bool,
+               smem_bytes: int, sites: int, sms: int) -> FusedPlan:
+    """fused_traversal.cu's plan for one shape on a device with `sms` SMs
+    whose blocks may use `smem_bytes` of shared memory. 4 states x 4 rates
+    run on chip, with two sites a thread where blocks of 64 sites still
+    reach FUSED_SPT2_SM_SHARE of the SMs and fit, else one site; they
+    spill where neither fits. Other sizes take the spill plan's
+    runtime-size body. `rate_scalers` does not change the layout."""
+    if rates < 1 or not 1 <= states <= 32 or n_slots < 1 or sites < 1:
+        raise ValueError(f"fused_plan: no plan for {rates} rates, {states} "
+                         f"states, {n_slots} slots, {sites} sites")
+    spill = FusedPlan("spill", 1, FUSED_SPILL_BLOCK, 0)
+    if (rates, states) != (4, 4):
+        return spill
+    wide = -(-sites // 64) >= FUSED_SPT2_SM_SHARE * sms
+    for spt in ((2, 1) if wide else (1,)):
+        nbytes = fused_onchip_bytes(n_slots, spt)
+        if nbytes <= smem_bytes:
+            return FusedPlan("on-chip", 4 // spt, 32 * spt, nbytes)
+    return spill
+
+
+def device_fused_plan(device, rates: int, states: int, n_slots: int,
+                      rate_scalers: bool, sites: int) -> FusedPlan:
+    """`fused_plan` for one shape on CUDA device `device`."""
+    index = _device_index(device)
+    return fused_plan(rates, states, n_slots, rate_scalers,
+                      smem_optin(index), sites, sm_count(index))
+
+
 def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
                            table: torch.Tensor, rates: int, states: int,
                            n_slots: int, threshold: float, factor: float,
                            rate_scalers: bool = False, tip_clvs=None):
-    """Launch csrc/fused_traversal.cu on the current stream; see
-    ops/fused.py:fused_traversal for the contract."""
+    """Launch csrc/fused_traversal.cu on the current stream with
+    `device_fused_plan`'s plan; see ops/fused.py:fused_traversal for the
+    contract."""
     _check_inputs("fused_traversal", tip_codes, pmatrix, table, rates,
                   states, n_slots, tip_clvs)
     dev = pmatrix.device
     sites = tip_codes.shape[1]
+    plan = device_fused_plan(dev, rates, states, n_slots, rate_scalers, sites)
     out_p, out_c, sc_p, sc_c = _outputs(rates, states, sites, dev,
                                         rate_scalers)
-    # one spare slot: the generic (runtime-size) instantiation builds each
-    # parent there before copying it into its own slot
-    slots = torch.empty((n_slots + 1, rates * states, sites),
-                        dtype=torch.float32, device=dev)
-    slot_sc = torch.empty((n_slots, rates if rate_scalers else 1, sites),
-                          dtype=torch.int32, device=dev)
+    slots = slot_sc = None
+    if plan.plan == "on-chip":
+        # the kernel copies P and the table in 16-byte units
+        if pmatrix.data_ptr() % 16:
+            pmatrix = pmatrix.clone()
+        if table.data_ptr() % 16:
+            table = table.clone()
+    else:
+        # one spare slot: the generic (runtime-size) instantiation builds
+        # each parent there before copying it into its own slot
+        slots = torch.empty((n_slots + 1, rates * states, sites),
+                            dtype=torch.float32, device=dev)
+        slot_sc = torch.empty((n_slots, rates if rate_scalers else 1,
+                               sites), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_fused_traversal(
             table.data_ptr(), table.shape[0] - 1, pmatrix.data_ptr(),
             tip_codes.data_ptr(), _ptr(tip_clvs), sites, rates, states,
-            slots.data_ptr(), slot_sc.data_ptr(), n_slots,
+            _ptr(slots), _ptr(slot_sc), n_slots,
             out_p.data_ptr(), out_c.data_ptr(), sc_p.data_ptr(),
             sc_c.data_ptr(), float(threshold), float(factor),
-            int(rate_scalers), stream)
+            int(rate_scalers), stream, int(plan.plan == "on-chip"),
+            plan.threads_per_site, plan.sites_per_block, plan.smem_bytes)
     if err != 0:
         raise RuntimeError(f"fused_traversal kernel launch failed: CUDA "
                            f"error {err}")
@@ -325,11 +408,15 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _device_index(device) -> int:
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
 def device_rows_plan(device, rates: int, states: int, n_slots: int,
                      rate_scalers: bool, sites: int) -> RowsPlan:
     """`rows_plan` for one shape on CUDA device `device`."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
+    index = _device_index(device)
     return rows_plan(rates, states, n_slots, rate_scalers,
                      smem_optin(index), sites, sm_count(index))
 

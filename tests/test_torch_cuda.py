@@ -106,17 +106,44 @@ def _caterpillar(n):
     return parse_newick(f"(t0:0.1,t1:0.1,{text});")
 
 
+# fused_traversal.cu's plan (ops/_kernels.py:fused_plan) for each case on an
+# H100 (132 SMs): 'wide' (40003 sites, a tail of 3) two sites a thread (2
+# threads a site), 'narrow' (4159 sites, the widest alignment with one site
+# a thread, a tail of 31) and 1000 or 700 sites one (4 threads a site);
+# 'spill' (250 slots) does not fit on chip, and other sizes than 4 states x
+# 4 rates run the runtime-size body
+FUSED_PLANS = {"ragged": ("on-chip", 4), "caterpillar": ("on-chip", 4),
+               "wide": ("on-chip", 2), "narrow": ("on-chip", 4),
+               "spill": ("spill", 1), "rates3": ("spill", 1),
+               "states5": ("spill", 1)}
+FUSED_SPILL_SLOTS = 250
+
+
+def _assert_fused_plan(part, n_slots, want):
+    from libpll2_tpu_torch.ops import _kernels
+
+    plan = _kernels.device_fused_plan(part.device, part.rate_cats,
+                                      part.states, n_slots,
+                                      part.rate_scalers, part.sites_padded)
+    assert (plan.plan, plan.threads_per_site) == want
+
+
 @pytest.mark.parametrize("case", ["ragged", "rates3", "states5",
-                                  "caterpillar"])
+                                  "caterpillar", "wide", "narrow", "spill"])
 def test_kernel_matches_plain_on_card(cuda, case):
+    tree = random_utree([f"t{i}" for i in range(16)], seed=3)
     if case == "caterpillar":
         part, eng = _engine(_caterpillar(80), 700, cuda, alphabet="ACGT")
+    elif case in ("wide", "narrow"):
+        part, eng = _engine(tree, 40003 if case == "wide" else 4159, cuda)
     else:
-        tree = random_utree([f"t{i}" for i in range(16)], seed=3)
         kw = {"rates3": dict(rates=3),
               "states5": dict(states=5, alphabet="ACGTX-")}.get(case, {})
         part, eng = _engine(tree, 1000, cuda, **kw)
     args, kw = _inputs(part, eng)
+    if case == "spill":
+        kw["n_slots"] = FUSED_SPILL_SLOTS
+    _assert_fused_plan(part, kw["n_slots"], FUSED_PLANS[case])
     before = fused.fused_traversal.launches
     got = fused.fused_traversal(*args, **kw)
     assert fused.fused_traversal.launches == before + 1
@@ -571,16 +598,17 @@ def _mode_engine(case, device, dtype=torch.float32):
     """A fused engine in one of the kernels' modes: per-rate scalers
     ('rate'), raw tips from set_tip_clv ('raw', every other tip) or both,
     on the 4x4 DNA variant, the runtime-size one (3 rates) or the rows
-    kernel (20 states)."""
+    kernel (20 states); 600 sites, or 40003 ('wide')."""
     states = 20 if case.startswith("aa") else 4
     rates = 3 if "r3" in case else 4
+    sites = 40003 if "wide" in case else 600
     tree = _caterpillar(60) if "cat" in case else random_utree(
         [f"t{i}" for i in range(16)], seed=3)
     headers, seqs = random_alignment(
-        tree.tip_count, 600, alphabet=AA_NOISY if states == 20 else "ACGT",
+        tree.tip_count, sites, alphabet=AA_NOISY if states == 20 else "ACGT",
         seed=3)
     by = dict(zip(headers, seqs))
-    part = Partition(tree.tip_count, tree.inner_count, states, 600, 1,
+    part = Partition(tree.tip_count, tree.inner_count, states, sites, 1,
                      tree.edge_count, rates, tree.inner_count, device=device,
                      dtype=dtype, rate_scalers="rate" in case)
     for tip in tree.tips():
@@ -597,12 +625,13 @@ def _mode_engine(case, device, dtype=torch.float32):
         rng = np.random.default_rng(7)
         for tip in sorted(tree.tips(), key=lambda t: t.clv_index)[::2]:
             part.set_tip_clv(tip.clv_index, rng.dirichlet(
-                np.ones(states), size=600))
+                np.ones(states), size=sites))
     return part, TreeEngine(part, tree)
 
 
 MODE_CASES = ["rate_cat", "rate_r3_cat", "raw", "raw_rate_r3_cat",
-              "aa_rate_cat", "aa_raw", "aa_raw_rate_r3"]
+              "aa_rate_cat", "aa_raw", "aa_raw_rate_r3", "rate_wide",
+              "raw_wide", "raw_rate_wide"]
 
 
 @pytest.mark.parametrize("case", MODE_CASES)
@@ -613,6 +642,10 @@ def test_fused_kernels_modes_match_plain_on_card(cuda, case):
     part, eng = _mode_engine(case, cuda)
     args, kw = _inputs(part, eng)
     kw.update(rate_scalers=part.rate_scalers, tip_clvs=eng._tip_clvs())
+    if part.states == 4:   # fused_traversal.cu's plan (FUSED_PLANS)
+        _assert_fused_plan(part, kw["n_slots"], (
+            "spill", 1) if part.rate_cats != 4 else (
+            "on-chip", 2 if "wide" in case else 4))
     counter = (fused.fused_traversal_rows if part.states >= 16
                else fused.fused_traversal)
     before = counter.launches
