@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --rows-only CHECKOUT
     python3 chip_smoke.py --fused-only CHECKOUT
+    python3 chip_smoke.py --pool-only CHECKOUT
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit's nvcc and PyTorch built for CUDA; jax is not needed. Phases,
@@ -85,12 +86,16 @@ each fatal on failure:
  12. pool kernel vs plain: ops/pool.py:pool_update (csrc/pool_update.cu)
      against pool_update_reference over whole op lists on site-repeats
      partitions, float32, from the same buffers: 24 x 600 DNA, the
-     150-taxon caterpillar x 300 (scaling must trigger), 3 categories, 20
-     conserved states, a partial op list, ops without a scaler buffer,
+     150-taxon caterpillar x 300 (scaling must trigger), 3 categories (also
+     per rate), 1 category, 20 conserved states (also per rate), 5, 17
+     and 32 states, a partial op list, ops without a scaler buffer,
      bench.py's 128 x 16384 random columns (repeats off at most inner
-     nodes: identity ops at full width), the 246 x 4465 conserved problem
-     and the 128 x 8192 conserved protein; scaler regions equal and class
-     columns within TOL_CLV of each column's max;
+     nodes: identity ops at full width), 64 x 4096 random DNA at 3 rates
+     (a level's ops 16x apart), the 246 x 4465 conserved problem, the
+     128 x 8192 conserved protein and a simulated 128 x 16384 protein;
+     scaler regions equal and class columns within TOL_CLV of each
+     column's max; each runtime-size case launched with the thread layout
+     it names (the plan's launches);
  13. the site-repeats paths at full width: tools/benchmarks.py:221-254's
      246 taxa x 4465 conserved sites, GTR+G4, through the step-by-step
      chain on Partition(site_repeats=True, device="cuda"), a partial
@@ -128,7 +133,12 @@ main path, importing the port from CHECKOUT (a checkout of another commit),
 and prints them as one JSON line: two commits compared on one card.
 `--fused-only CHECKOUT` does the same for the DNA fused kernel: its call
 and device times on the DNA main path, per rate, with all tips raw and on
-the 246 x 4465 'repeats-dense-fused' inputs.
+the 246 x 4465 'repeats-dense-fused' inputs. `--pool-only CHECKOUT` does
+the same for the pool kernel: its call time and its device time level by
+level on the conserved 128 x 8192 protein (per site and per rate), the
+246 x 4465 DNA problem with 3 rates, the conserved 128 x 8192 problem at
+5, 17 and 32 states, and the 4x4 variant on the 246 x 4465 DNA problem as
+a control.
 `--profile DIR` also writes a torch.profiler breakdown of one
 loglikelihood() and one newton_step() of each main path (fused and
 levels-kernel) to DIR/profile.txt.
@@ -181,6 +191,9 @@ MAX_TIES = 8
 TOL_ANC = 1e-4
 REPS = 25
 WARMUP = 3
+# torch.profiler sessions a device-time measurement may take
+# (`launches_device_us`)
+PROFILE_SESSIONS = 5
 # fused_traversal.cu's thread layouts on an H100 (ops/_kernels.py:fused_plan,
 # 132 SMs): site counts and the threads a site each takes (40003 and 4465,
 # the repeats problem's width: two sites a thread, 64-site blocks with tails
@@ -1136,13 +1149,18 @@ def conserve(tree, scale, floor, clamp=False):
 def simulated(tree, sites, seed, states=4, freqs=None, subst=None,
               alpha=0.8):
     """{label: sequence} simulated on `tree` (utils.simulate_alignment);
-    20 states with equal rates and frequencies."""
+    other than 4 states, equal rates and frequencies (20: the amino acids,
+    else the first `states` of LETTERS32)."""
     from libpll2_tpu_torch.utils import simulate_alignment
 
-    if states == 20:
-        freqs, subst = [1 / 20] * 20, [1.0] * 190
+    alphabet = None
+    if states != 4:
+        freqs = [1 / states] * states
+        subst = [1.0] * (states * (states - 1) // 2)
+        alphabet = None if states == 20 else LETTERS32[:states]
     headers, seqs = simulate_alignment(tree, sites, freqs, subst,
-                                       alpha=alpha, seed=seed)
+                                       alpha=alpha, seed=seed,
+                                       alphabet=alphabet)
     return dict(zip(headers, seqs))
 
 
@@ -1151,7 +1169,8 @@ def repeats_partition(tree, by_label, sites, device, states=4, rate_cats=4,
                       rate_matrices=1, **options):
     """A float32 partition on `device` with site repeats (or dense, for the
     references), tips installed in one batch; 20 states under LG, DNA under
-    `model` (a second matrix from SEED with `rate_matrices` 2); `options`
+    `model` (a second matrix from SEED with `rate_matrices` 2), other
+    alphabets (`charmap`) under random GTR parameters from SEED; `options`
     (rate_scalers, asc_bias) go to Partition."""
     import numpy as np
     import torch
@@ -1164,11 +1183,17 @@ def repeats_partition(tree, by_label, sites, device, states=4, rate_cats=4,
                      tree.inner_count, device=device, dtype=torch.float32,
                      site_repeats=repeats, **options)
     tips = list(tree.tips())
-    part.set_tip_states_batch(maps.map_aa if states == 20 else maps.map_nt,
+    part.set_tip_states_batch(maps.map_nt if states == 4
+                              else charmap(states),
                               [by_label[t.label] for t in tips],
                               [t.clv_index for t in tips])
     if states == 20:
         load_aa_model(part, "lg")
+    elif states != 4:
+        rng = np.random.default_rng(SEED)
+        part.set_frequencies(0, rng.dirichlet(np.ones(states) * 10))
+        part.set_subst_params(0, rng.uniform(0.5, 2.0,
+                                             states * (states - 1) // 2))
     else:
         part.set_frequencies(0, model[0])
         part.set_subst_params(0, model[1])
@@ -1200,19 +1225,25 @@ def flagship_repeats():
     return tree, by, make
 
 
-def conserved_protein(aa_tree, aa_by):
+def conserved_protein(aa_tree, aa_by, states=20):
     """tools/benchmarks.py:38-66 with conserved=True at 128 x 8192: the
     protein problem's columns drawn with repetition from its first quarter
-    (seed 11 + 100). Returns (by_label, partition maker)."""
+    (seed 11 + 100). Other `states`: the same draw from an alignment of
+    that alphabet simulated on the protein tree (seed 11 + states). Returns
+    (by_label, partition maker; its `options` go to repeats_partition)."""
     import numpy as np
 
+    if states != 20:
+        aa_by = simulated(aa_tree, AA_SITES, AA_SEED + states, states=states,
+                          alpha=0.9)
     rng = np.random.default_rng(AA_SEED + 100)
     src = rng.integers(0, AA_SITES // 4, size=AA_SITES)
     by = {k: "".join(np.asarray(list(v))[src]) for k, v in aa_by.items()}
 
-    def make(device, repeats=True):
-        return repeats_partition(aa_tree, by, AA_SITES, device, states=20,
-                                 repeats=repeats, alpha=0.9)
+    def make(device, repeats=True, **options):
+        return repeats_partition(aa_tree, by, AA_SITES, device,
+                                 states=states, repeats=repeats, alpha=0.9,
+                                 **options)
     return by, make
 
 
@@ -1229,13 +1260,16 @@ def run_pool(part, ops, level):
     return len(plan.tables)
 
 
-def compare_pool_case(name, part, ops, first=None, must_scale=False):
+def compare_pool_case(name, part, ops, first=None, must_scale=False,
+                      layouts=None):
     """Pool kernel vs its plain version over a whole op list on the card,
     from the same buffers (after `first`, the list that must run before a
     partial one): scaler regions equal but at ties (`match_counts`; the
     trash region aside: ops without a scaler buffer of one level write it
     at once), the zero region zero, class columns within TOL_CLV of each
-    column's max. Returns (max relative error, max absolute error)."""
+    column's max. The runtime-size variant's levels must run with the
+    threads a column in `layouts` (a set, each at least once; None: the
+    4x4 variant). Returns (max relative error, max absolute error)."""
     import torch
     from libpll2_tpu_torch.ops import pool
 
@@ -1278,23 +1312,36 @@ def compare_pool_case(name, part, ops, first=None, must_scale=False):
     scaled = int(part.sc_flat[..., :lay.sc_trash].max()) if lay.sc_trash \
         else 0
     widths = part._repeat_schedule.widths
+    ran = pool_layouts(part, part._repeat_schedule)
     print(f"pool kernel vs plain [{name}]: {part.tips} taxa x {part.sites} "
           f"sites, {part.states} states, {part.rate_cats} rates"
           + (" (per-rate counts)" if part.rate_scalers else "")
           + f", {len(ops)} "
           f"ops in {n_levels} levels (widest {max(widths)}), pool "
-          f"{lay.total} columns: scaler regions equal (max {scaled}"
-          + (f"; {ties} ties" if ties else "") + "), "
+          f"{lay.total} columns, {layout_text(ran)}: scaler regions equal "
+          f"(max {scaled}" + (f"; {ties} ties" if ties else "") + "), "
           f"max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}", flush=True)
     check(rel <= TOL_CLV, f"{name}: max_rel_err {rel:.3e} > {TOL_CLV}")
+    got = None if ran is None else {lay.rate_threads for lay in ran}
+    check(got == layouts, f"{name}: ran {layout_text(ran)}, expected "
+          + ("the 4x4 variant" if layouts is None else
+             f"{sorted(layouts)} threads a column"))
     if must_scale:
         check(scaled > 0, f"{name}: scaling never triggered")
     return rel, abs_err
 
 
 def pool_cases(device, big, big_by, flagship, aa_make):
-    """Phase 12. Returns the largest absolute error."""
-    from libpll2_tpu_torch.trees import parse_newick, random_utree
+    """Phase 12. Each runtime-size case names the threads a column its
+    levels launch with (ops/_kernels.py:pool_plan, read from the plan's
+    launches): a column's rates split over the largest power of two up to
+    4 that the rates fill (1 thread at 1 rate, 2 at 3 rates, 4 at 4); the
+    simulated 128 x 16384 protein has levels up to 196,608 columns wide,
+    its blocks taking runs of tiles; the 64 x 4096 random DNA holds a
+    level whose ops differ 16x in width. Returns the largest absolute
+    error."""
+    from libpll2_tpu_torch.trees import (parse_newick, random_alignment,
+                                         random_utree)
 
     max_abs = 0.0
 
@@ -1312,27 +1359,51 @@ def pool_cases(device, big, big_by, flagship, aa_make):
     by24 = simulated(t24, 600, 11, freqs=FREQS_24, subst=SUBST_24)
     case("24 x 600 DNA", repeats_partition(t24, by24, 600, device), t24)
     cat = parse_newick(caterpillar_newick(150))
-    case("caterpillar 150 x 300", repeats_partition(
-        cat, simulated(cat, 300, 13, freqs=FREQS_24, subst=SUBST_24), 300,
-        device), cat, must_scale=True)
+    by_cat = simulated(cat, 300, 13, freqs=FREQS_24, subst=SUBST_24)
+    case("caterpillar 150 x 300", repeats_partition(cat, by_cat, 300,
+                                                    device),
+         cat, must_scale=True)
     case("3 rates", repeats_partition(t24, by24, 600, device, rate_cats=3),
-         t24)
+         t24, layouts={2})
+    case("1 rate", repeats_partition(t24, by24, 600, device, rate_cats=1),
+         t24, layouts={1})
+    case("3 rates, per-rate, caterpillar 150 x 300", repeats_partition(
+        cat, by_cat, 300, device, rate_cats=3, rate_scalers=True), cat,
+        must_scale=True, layouts={2})
     aa = conserve(random_utree([f"t{i}" for i in range(24)], seed=13), 0.3,
                   0.02, clamp=True)
+    by_aa = simulated(aa, 640, 13, states=20, alpha=0.9)
     case("20 states, conserved", repeats_partition(
-        aa, simulated(aa, 640, 13, states=20, alpha=0.9), 640, device,
-        states=20, alpha=0.9), aa)
+        aa, by_aa, 640, device, states=20, alpha=0.9), aa, layouts={4})
+    case("20 states, conserved, per-rate", repeats_partition(
+        aa, by_aa, 640, device, states=20, alpha=0.9, rate_scalers=True),
+        aa, layouts={4})
+    for states in (5, 17, 32):
+        case(f"{states} states, conserved", repeats_partition(
+            aa, simulated(aa, 640, 13, states=states, alpha=0.9), 640,
+            device, states=states, alpha=0.9), aa, layouts={4})
     case("partial op list", repeats_partition(t24, by24, 600, device), t24,
          partial=True)
     case("ops without a scaler", repeats_partition(t24, by24, 600, device),
          t24, no_scaler=True)
     case("128 x 16384 random columns (identity ops)", repeats_partition(
         big, big_by, N_SITES, device), big)
+    t64 = random_utree([f"t{i}" for i in range(64)], seed=11)
+    headers, seqs = random_alignment(64, 4096, seed=11)
+    case("64 x 4096 random columns, 3 rates (a level's ops 16x apart)",
+         repeats_partition(t64, dict(zip(headers, seqs)), 4096, device,
+                           rate_cats=3), t64, layouts={2})
     tree, _, make = flagship
     case(f"{REP_TAXA} x {REP_SITES} conserved", make(device), tree)
     aa_tree, make_aa = aa_make
     case(f"protein {AA_TAXA} x {AA_SITES} conserved", make_aa(device),
-         aa_tree)
+         aa_tree, layouts={4})
+    case(f"protein {AA_TAXA} x {2 * AA_SITES} simulated (wide levels)",
+         repeats_partition(aa_tree, simulated(aa_tree, 2 * AA_SITES,
+                                              AA_SEED, states=20,
+                                              alpha=0.9),
+                           2 * AA_SITES, device, states=20, alpha=0.9),
+         aa_tree, layouts={4})
     return max_abs
 
 
@@ -1366,6 +1437,40 @@ def pool_bound(part, levels):
                + cols * 2 * 4 + len(ops) * pool.POOL_ROWS * 8
                + part.prob_matrices * R * s * s * 4)
     return bound_ms(n_bytes, cols * (4 * R * s * s + R * s))
+
+
+def pool_level_bounds(part, levels):
+    """Each level of a traversal through the pool kernel on its own (us),
+    counted as `pool_bound` counts the traversal: every child's distinct
+    class columns and counts read once (its class count), every parent's
+    class columns and counts written once, the two gather int32s of every
+    parent column, the level's P-matrices and op table read once; against
+    4 * R * s^2 + R * s FLOP a parent column. A level reads the columns an
+    earlier level wrote, so the levels' bounds add up to more than
+    `pool_bound`."""
+    from libpll2_tpu_torch.ops import pool
+
+    R, s = part.rate_cats, part.states
+    sc_rows = R if part.rate_scalers else 1
+    classes = part.repeats.classes
+    out = []
+    for lv in levels:
+        ops = [(op, gl.size) for _, op, gl, _ in lv]
+        cols = sum(n for _, n in ops)
+        kids = {c: k for op, _ in ops
+                for c, k in ((op.child1_clv_index, op.child1_scaler_index),
+                             (op.child2_clv_index, op.child2_scaler_index))}
+        mats = {m for op, _ in ops
+                for m in (op.child1_matrix_index, op.child2_matrix_index)}
+        n_bytes = ((sum(classes(c) for c in kids) + cols) * 4 * R * s
+                   + (sum(classes(c) for c, k in kids.items() if k >= 0)
+                      + sum(n for op, n in ops
+                            if op.parent_scaler_index >= 0)) * 4 * sc_rows
+                   + cols * 2 * 4 + len(ops) * pool.POOL_ROWS * 8
+                   + len(mats) * R * s * s * 4)
+        out.append(1e3 * bound_ms(n_bytes,
+                                  cols * (4 * R * s * s + R * s))[0])
+    return out
 
 
 def repeats_main_path(device, tree, make, label, dense_ref):
@@ -1633,13 +1738,84 @@ def repeats_times(part, engines, dense, levels, tree, gpu):
     return kernel, plain, (bound, by), (f_kernel, f_plain, f_bound)
 
 
+def pool_layouts(part, plan):
+    """The layout each level of `plan` launches the runtime-size pool
+    kernel with (the plan's launches, which the wrapper passes to the
+    kernel); None for the 4x4 variant, "unplanned" for a package without
+    them (another checkout's)."""
+    if (part.rate_cats, part.states) == (4, 4):
+        return None
+    if not hasattr(plan, "launches"):
+        return "unplanned"
+    return list(plan.launches)
+
+
+def layout_text(layouts) -> str:
+    """Each thread layout of `pool_layouts` with its number of levels."""
+    if layouts is None:
+        return "4x4 variant"
+    if layouts == "unplanned":
+        return "runtime-size variant without a plan"
+    seen = {}
+    for lay in layouts:
+        seen[lay.rate_threads] = seen.get(lay.rate_threads, 0) + 1
+    return ", ".join(f"{ty} thread{'s' if ty > 1 else ''} a column at {n} "
+                     f"level{'s' if n > 1 else ''}"
+                     for ty, n in sorted(seen.items()))
+
+
+def pool_device(label, part, ops, gpu):
+    """Phase 14 (and `--pool-only`): the pool kernel's device time over one
+    traversal of `ops` on `part` (P-matrices set), from
+    `launches_device_us`, printed level by level beside each level's
+    computed and class columns, its threads a column (the warps its rates
+    are split over) and its own bound (`pool_level_bounds`).
+    Returns (device ms, [us a level], [bound us a level], [(computed,
+    class) columns a level], [threads a column a level, or None])."""
+    import copy
+
+    from libpll2_tpu_torch.ops import pool
+
+    plan = part._pool_plan(ops, True)
+    args = (part.clv_flat, part.sc_flat, part.pmatrix, plan,
+            part.scale_threshold, part.scale_factor)
+    per = launches_device_us(lambda: pool.update_partials_pool(*args),
+                             "pool_", len(plan.tables))
+    _, lv = pool.schedule_pool_levels(copy.deepcopy(part.repeats), ops,
+                                      part.tips, part.sites_padded,
+                                      part.scale_buffers)
+    R, s = part.rate_cats, part.states
+    cols = [(sum(int(w) for w, *_ in level),
+             sum(int(g.size) for _, _, g, _ in level)) for level in lv]
+    bounds = pool_level_bounds(part, lv)
+    layouts = pool_layouts(part, plan)
+    lays = ([lay.rate_threads for lay in layouts]
+            if isinstance(layouts, list) else [None] * len(per))
+    device = sum(per) * 1e-3
+    bound = pool_bound(part, lv)
+    print(f"pool kernel device time, {label}, {part.tips} x {part.sites}, "
+          f"{s} states x {R} rates{' (per-rate)' if part.rate_scalers else ''}"
+          f" (torch.profiler, median of 5 traversals per level; {gpu}): "
+          f"{device * 1e3:.1f} us over {len(per)} levels "
+          f"({device / bound[0]:.2f}x the bound {bound[0]:.4f} ms by "
+          f"{bound[1]}); "
+          f"{layout_text(layouts)}; by level (ops, computed/class columns, "
+          f"threads a column: us, its bound in us) "
+          + ", ".join(f"({len(level)}, {c}/{n}, {t or '-'}: {u:.1f} / "
+                      f"{b:.1f})"
+                      for level, (c, n), t, u, b in zip(lv, cols, lays,
+                                                        per, bounds)),
+          flush=True)
+    return device, per, bounds, cols, lays
+
+
 def protein_pool_times(device, aa_tree, make_aa, gpu):
     """Phase 14: the pool kernel's runtime-size variant over one traversal
     of the conserved 128 x 8192 LG+G4 protein (after one step-by-step
     traversal sets its P-matrices): medians (ms) of the kernel and of its
-    plain version, its device time (ms, torch.profiler, the traversal's
-    launches summed) and its bound from the class counts. Returns (kernel,
-    plain, device, (bound, by))."""
+    plain version, its device time level by level (`pool_device`) and its
+    bound from the class counts. Returns (kernel, plain, (bound, by),
+    `pool_device`'s tuple)."""
     import copy
 
     from libpll2_tpu_torch.ops import pool
@@ -1652,8 +1828,7 @@ def protein_pool_times(device, aa_tree, make_aa, gpu):
     kernel = median_ms(lambda: pool.update_partials_pool(*args))
     plain = median_ms(lambda: pool.update_partials_pool(
         *args, level=pool.pool_update_reference))
-    dev = sum(launches_device_us(lambda: pool.update_partials_pool(*args),
-                                 "pool_", len(plan.tables))) * 1e-3
+    dev = pool_device("conserved protein", part, ops, gpu)
     _, lv = pool.schedule_pool_levels(copy.deepcopy(part.repeats), ops,
                                       part.tips, part.sites_padded,
                                       part.scale_buffers)
@@ -1661,9 +1836,52 @@ def protein_pool_times(device, aa_tree, make_aa, gpu):
     print(f"pool kernel, runtime-size variant, protein {part.tips} x "
           f"{part.sites} conserved (median of {REPS}, CUDA events; {gpu}): "
           f"kernel over {len(plan.tables)} levels {kernel:.4f} ms, device "
-          f"{dev * 1e3:.1f} us (bound {bound[0]:.4f} ms by {bound[1]}), "
+          f"{dev[0] * 1e3:.1f} us (bound {bound[0]:.4f} ms by {bound[1]}), "
           f"plain {plain:.4f} ms", flush=True)
-    return kernel, plain, dev, bound
+    return kernel, plain, bound, dev
+
+
+def pool_only(device, gpu) -> dict:
+    """`--pool-only`: the pool kernel's call time (ms, CUDA events), the
+    host's time to enqueue it (`host_ms`) and its device time
+    (`pool_device`, level by level) over one traversal, of the
+    package that was imported, which may be another checkout's: the
+    conserved 128 x 8192 LG+G4 protein, per site and per rate; the 246 x
+    4465 DNA problem with 3 rates (the runtime-size variant at 4 states);
+    the conserved 128 x 8192 problem at 5, 17 and 32 states; and the 246 x
+    4465 DNA problem (the 4x4 variant), as a control."""
+    from libpll2_tpu_torch.ops import pool
+
+    aa_tree, aa_by = protein_alignment()
+    rep_tree, _, rep_make = flagship_repeats()
+    make_aa = conserved_protein(aa_tree, aa_by)[1]
+    cases = {"protein": lambda: (make_aa(device), aa_tree),
+             "protein_per_rate": lambda: (make_aa(device, rate_scalers=True),
+                                          aa_tree),
+             "dna_3_rates": lambda: (rep_make(device, rate_cats=3),
+                                     rep_tree)}
+    for states in (5, 17, 32):
+        cases[f"states_{states}"] = (
+            lambda st=states: (conserved_protein(aa_tree, aa_by,
+                                                 st)[1](device), aa_tree))
+    cases["dna_4x4"] = lambda: (rep_make(device), rep_tree)
+    out = {}
+    for key, build in cases.items():
+        part, tree = build()
+        ops = step_by_step(part, tree, derivatives=False)[0]
+        plan = part._pool_plan(ops, True)
+        args = (part.clv_flat, part.sc_flat, part.pmatrix, plan,
+                part.scale_threshold, part.scale_factor)
+        ms = median_ms(lambda: pool.update_partials_pool(*args))
+        host = host_ms(lambda: pool.update_partials_pool(*args))
+        dev, per, bounds, cols, lays = pool_device(key, part, ops, gpu)
+        out[key] = {"ms": ms, "host_ms": host, "device_ms": dev,
+                    "level_device_us": per, "level_bound_us": bounds,
+                    "level_columns": cols, "level_threads_per_column": lays}
+        print(f"  pool kernel call, {key}: {ms:.4f} ms; host enqueue "
+              f"{host[0]:.4f} ms least, {host[1]:.4f} median", flush=True)
+        del part, plan, args
+    return out
 
 
 def bound_ms(n_bytes: int, flops: int, peak=H100_F32_FLOP_PER_S):
@@ -1718,9 +1936,10 @@ def launches_device_us(fn, name, n_launches, reps=5):
     hold `name` in a call of `fn`, in launch order, from torch.profiler:
     `reps` calls in one profiled session, the median per launch. The
     session opens and closes with eight small sentinel kernels each (the
-    profiler can drop the first or the last kernels of a session); one
-    whose trace still lacks some of the kernels is run again, up to three
-    sessions in all."""
+    profiler can drop the first or the last kernels of a session, and now
+    and then records no device event at all); one whose trace still lacks
+    some of the kernels is run again, up to PROFILE_SESSIONS sessions in
+    all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -1728,7 +1947,7 @@ def launches_device_us(fn, name, n_launches, reps=5):
     sentinel = torch.zeros(1, device="cuda")
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(PROFILE_SESSIONS):
         with torch.profiler.profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(8):
@@ -1748,7 +1967,7 @@ def launches_device_us(fn, name, n_launches, reps=5):
               f"{reps * n_launches} {name} kernels and {len(device)} device "
               f"events in all; profiled again)", flush=True)
     check(len(kernels) == reps * n_launches, f"the profiler missed {name} "
-          f"kernels in 3 sessions of {reps} calls")
+          f"kernels in {PROFILE_SESSIONS} sessions of {reps} calls")
     times = [e.time_range.elapsed_us() for e in kernels]
     return [statistics.median(times[r * n_launches + i] for r in range(reps))
             for i in range(n_launches)]
@@ -1897,6 +2116,24 @@ def median_ms(fn) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(fn, reps=100):
+    """(least, median) ms of the host's clock for one call of `fn`, the
+    device idle before each: the host's own work to enqueue it, which the
+    least of many calls separates from the noise of a shared host."""
+    import torch
+
+    for _ in range(WARMUP):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return min(times), statistics.median(times)
 
 
 def profile(engines, out_dir: str) -> None:
@@ -2656,8 +2893,14 @@ def main() -> int:
                     "rate, raw tips, the repeats problem), importing the "
                     "port from the checkout REPO, and print the times as "
                     "one JSON line")
+    ap.add_argument("--pool-only", metavar="REPO", default=None,
+                    help="only time the pool kernel (the conserved protein "
+                    "per site and per rate, 3-rate DNA, 5, 17 and 32 "
+                    "states, 4x4 DNA as a control), importing the port "
+                    "from the checkout REPO, and print the times as one "
+                    "JSON line")
     args = ap.parse_args()
-    other = args.rows_only or args.fused_only
+    other = args.rows_only or args.fused_only or args.pool_only
 
     import torch
     if not torch.cuda.is_available():
@@ -2689,6 +2932,12 @@ def main() -> int:
         print(f"fused kernel of {os.path.abspath(args.fused_only)}",
               flush=True)
         print(json.dumps({"fused_only": fused_only(device, gpu),
+                          "gpu": gpu}), flush=True)
+        return 0
+    if args.pool_only:
+        print(f"pool kernel of {os.path.abspath(args.pool_only)}",
+              flush=True)
+        print(json.dumps({"pool_only": pool_only(device, gpu),
                           "gpu": gpu}), flush=True)
         return 0
 
@@ -2950,8 +3199,13 @@ def main() -> int:
         "ms": pool_ms[0], "plain_ms": pool_ms[1],
         **bound("pool_update"),
         "protein_ms": aa_pool[0], "protein_plain_ms": aa_pool[1],
-        "protein_device_ms": aa_pool[2], "protein_bound_ms": aa_pool[3][0],
-        "protein_bound_by": aa_pool[3][1],
+        "protein_device_ms": aa_pool[3][0],
+        "protein_bound_ms": aa_pool[2][0],
+        "protein_bound_by": aa_pool[2][1],
+        "protein_level_device_us": aa_pool[3][1],
+        "protein_level_bound_us": aa_pool[3][2],
+        "protein_level_columns": aa_pool[3][3],
+        "protein_level_threads_per_column": aa_pool[3][4],
         **variant("per_rate", "pool_per_rate", rep_pool)},
         probe_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -137,6 +137,8 @@ def library() -> ctypes.CDLL:
         _I, _I,            # rates, states
         _F, _F,            # threshold, factor
         _L, _I,            # scaler pool columns, per-rate scalers
+        _P, _I,            # tile map, its granules
+        _I, _I,            # pool_plan: rate warps, tiles a block
         _P,                # stream
     ]
     lib.pll_pool_update.restype = _I
@@ -534,17 +536,66 @@ def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
                            f"{err}")
 
 
+# pool_update.cu's runtime-size variant: threads a block, blocks resident
+# on an SM (its launch bounds), and the class columns a tile-map entry
+# covers (ops/pool.py:tile_map)
+POOL_BLOCK = 128
+POOL_BLOCKS_PER_SM = 4
+POOL_GRANULE = 128
+
+
+class PoolLaunch(NamedTuple):
+    """How pool_update.cu's runtime-size variant runs one level: a thread
+    a class column, `rate_threads` warps sharing a column's rates (1, 2 or
+    4); a tile is `tile` columns (POOL_BLOCK over the rate warps), the
+    level `tiles` of them, each block a run of `tiles_per_block`, `blocks`
+    in all."""
+    rate_threads: int
+    tile: int
+    tiles: int
+    tiles_per_block: int
+    blocks: int
+
+
+def pool_plan(columns: int, rates: int, states: int, sms: int) -> PoolLaunch:
+    """The runtime-size pool kernel's layout for one level of `columns`
+    class columns (its tile map's granules times POOL_GRANULE) on a device
+    with `sms` SMs: a column's rates split over the largest power of two
+    of warps up to 4 that the rates fill, whatever the level's width;
+    blocks take runs of tiles, as many blocks as POOL_BLOCKS_PER_SM an SM
+    fill. The 4x4 size runs the fixed variant, which has no plan."""
+    if (rates < 1 or not 1 <= states <= 32 or (rates, states) == (4, 4)
+            or columns < 1 or columns % POOL_GRANULE or sms < 1):
+        raise ValueError(f"pool_plan: no runtime-size plan for {columns} "
+                         f"columns, {rates} rates, {states} states, {sms} "
+                         f"SMs")
+    ty = min(4, 1 << (rates.bit_length() - 1))
+    tile = POOL_BLOCK // ty
+    tiles = columns // tile
+    per = -(-tiles // (POOL_BLOCKS_PER_SM * sms))
+    return PoolLaunch(ty, tile, tiles, per, -(-tiles // per))
+
+
+def device_sm_count(device) -> int:
+    """The SMs of CUDA device `device` (the current one if it has no
+    index)."""
+    return sm_count(_device_index(device))
+
+
 def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
                        pmatrix: torch.Tensor, table: torch.Tensor,
                        width: int, gl: torch.Tensor, gr: torch.Tensor,
                        rates: int, states: int, threshold: float,
-                       factor: float) -> None:
+                       factor: float, tiles=None, launch=None) -> None:
     """Launch csrc/pool_update.cu on the current stream: one level, parent
     columns and counts written into `pool2d` and `sc` in place; see
     ops/pool.py:pool_update for the contract. `table` may be a column slice
     of a larger [11, n] int64 tensor: its row stride is passed as the
     kernel's leading dimension. `width` (the level's widest op) sizes the
-    grid."""
+    4x4 variant's grid; `tiles`, the level's tile map (ops/pool.py:
+    tile_map, [granules, 2] int32 on the device), the runtime-size
+    variant's, laid out by `launch` (its `pool_plan`, which the plan
+    computed once: ops/pool.py:plan_to_device)."""
     name = "pool_update"
     dev = pool2d.device
     _check(dev.type == "cuda", f"expected CUDA tensors, got {dev}", name)
@@ -584,6 +635,16 @@ def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
     for what, t in (("pool", pool2d), ("sc", sc), ("pmatrix", pmatrix),
                     ("gl", gl), ("gr", gr)):
         _check(t.is_contiguous(), f"{what} must be contiguous", name)
+    grid = (0, 0, 0, 0)  # the 4x4 variant's grid comes from `width`
+    if (rates, states) != (4, 4):
+        _check(isinstance(launch, PoolLaunch)
+               and isinstance(tiles, torch.Tensor) and tiles.device == dev
+               and tiles.dtype == torch.int32
+               and tiles.shape[0] * POOL_GRANULE == launch.tiles * launch.tile,
+               f"the runtime-size variant needs the level's tile map on "
+               f"{dev} and its launch (ops/pool.py:plan_to_device)", name)
+        grid = (tiles.data_ptr(), tiles.shape[0], launch.rate_threads,
+                launch.tiles_per_block)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_pool_update(
@@ -591,7 +652,7 @@ def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
             table.data_ptr(), table.stride(0), table.shape[1], int(width),
             pool2d.shape[1], gl.data_ptr(), gr.data_ptr(), rates, states,
             float(threshold), float(factor), sc.shape[-1], int(per_rate),
-            stream)
+            *grid, stream)
     if err != 0:
         raise RuntimeError(f"pool_update kernel launch failed: CUDA error "
                            f"{err}")

@@ -595,7 +595,8 @@ class Partition:
                 previous=self._flat)
             self._install_flat(layout)
             self._repeat_schedule = ops_pool.plan_to_device(
-                *ops_pool.pack_pool_levels(layout, levels), self.device)
+                *ops_pool.pack_pool_levels(layout, levels), self.device,
+                self.rate_cats, self.states)
             self._repeat_key, self._repeat_layout = key, layout
         return self._repeat_schedule
 

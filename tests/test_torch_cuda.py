@@ -448,14 +448,29 @@ def test_level_wrapper_rejects_what_it_cannot_take(cuda):
 
 
 POOL_CASES = ["dna", "rates3", "aa20", "caterpillar", "partial",
-              "no_scaler", "identity"]
+              "no_scaler", "identity", "states5", "states17", "states32",
+              "aa20_per_rate", "rates3_per_rate", "rates1", "wide_aa",
+              "mixed_widths"]
+# the runtime-size variant's threads a column (ops/_kernels.py:pool_plan,
+# read from each level's launch in the plan): a column's rates split over
+# the largest power of two up to 4 that the rates fill, so 'rates1' takes
+# 1, the 3-rate cases 2 and the 4-rate cases 4; 'wide_aa' (128 x 16384
+# simulated amino acids, levels 20,480-196,608 columns wide) runs blocks
+# over runs of tiles; 'mixed_widths' (64 x 4096 random DNA, 3 rates) holds
+# a level whose ops differ 16x in width; None: the 4x4 variant
+POOL_LAYOUTS = {"rates3": {2}, "aa20": {4}, "states5": {4},
+                "states17": {4}, "states32": {4}, "aa20_per_rate": {4},
+                "rates3_per_rate": {2}, "rates1": {1}, "wide_aa": {4},
+                "mixed_widths": {2}}
 
 
 def _repeats_partition(tree, sites, device, states=4, rates=4, seed=11,
-                       conserved=True, dtype=torch.float32):
+                       conserved=True, dtype=torch.float32, **options):
     """A site-repeats partition of an alignment simulated on `tree`
     (branches shortened to 0.15 len + 0.001 when `conserved`), or of random
-    columns (`conserved` False: repeats switch off at most inner nodes)."""
+    columns (`conserved` False: repeats switch off at most inner nodes);
+    DNA, LG amino acids or `_charmap`'s letters with equal rates.
+    `options` (rate_scalers) go to Partition."""
     if conserved:
         seen = set()
         for nd in tree.nodes():
@@ -466,22 +481,29 @@ def _repeats_partition(tree, sites, device, states=4, rates=4, seed=11,
         freqs = [1 / states] * states
         headers, seqs = simulate_alignment(
             tree, sites, freqs, [1.0] * (states * (states - 1) // 2),
-            alpha=0.8, seed=seed)
+            alpha=0.8, seed=seed,
+            alphabet=None if states in (4, 20) else LETTERS32[:states])
     else:
         headers, seqs = random_alignment(tree.tip_count, sites, seed=seed)
     by = dict(zip(headers, seqs))
     part = Partition(tree.tip_count, tree.inner_count, states, sites, 1,
                      tree.edge_count, rates, tree.inner_count, device=device,
-                     dtype=dtype, site_repeats=True)
+                     dtype=dtype, site_repeats=True, **options)
     tips = list(tree.tips())
-    part.set_tip_states_batch(maps.map_aa if states == 20 else maps.map_nt,
-                              [by[t.label] for t in tips],
+    charmap = {4: maps.map_nt, 20: maps.map_aa}.get(states)
+    part.set_tip_states_batch(_charmap(states) if charmap is None
+                              else charmap, [by[t.label] for t in tips],
                               [t.clv_index for t in tips])
     if states == 20:
         load_aa_model(part, "lg")
-    else:
+    elif states == 4:
         part.set_frequencies(0, [0.3, 0.25, 0.2, 0.25])
         part.set_subst_params(0, [1.2, 3.0, 0.8, 1.1, 2.6, 1.0])
+    else:
+        rng = np.random.default_rng(seed)
+        part.set_frequencies(0, rng.dirichlet(np.ones(states) * 10))
+        part.set_subst_params(0, rng.uniform(0.5, 2.0,
+                                             states * (states - 1) // 2))
     part.set_category_rates(compute_gamma_cats(0.8, rates))
     return part
 
@@ -490,14 +512,34 @@ def _pool_case(case, device):
     """(repeats partition with P-matrices set, the op list to run, the full
     list that must run first or None) for one pool-kernel case."""
     tree = random_utree([f"t{i}" for i in range(24)], seed=11)
-    kw = {"rates3": dict(rates=3), "aa20": dict(states=20)}.get(case, {})
+    kw = {"rates3": dict(rates=3), "rates1": dict(rates=1),
+          "aa20": dict(states=20),
+          "states5": dict(states=5), "states17": dict(states=17),
+          "states32": dict(states=32),
+          "aa20_per_rate": dict(states=20, rate_scalers=True)}.get(case, {})
     sites = 600
     if case == "caterpillar":
         tree, sites = _caterpillar(150), 300
+    elif case == "rates3_per_rate":
+        tree, sites = _caterpillar(150), 300
+        kw = dict(rates=3, rate_scalers=True)
     elif case == "identity":
         tree, sites = random_utree([f"t{i}" for i in range(32)], seed=11), \
             2048
         kw = dict(conserved=False)
+    elif case == "wide_aa":
+        tree, sites = random_utree([f"t{i}" for i in range(128)], seed=11), \
+            16384
+        headers, seqs = simulate_alignment(tree, sites, np.full(20, 0.05),
+                                           np.ones(190), alpha=0.9, seed=11)
+        part = _aa_partition(tree, dict(zip(headers, seqs)), sites, device)
+        ops, br, pidx = create_operations(traverse(tree.vroot))
+        part.update_prob_matrices([0] * part.rate_cats, pidx, br)
+        return part, ops, None
+    elif case == "mixed_widths":
+        tree, sites = random_utree([f"t{i}" for i in range(64)], seed=11), \
+            4096
+        kw = dict(rates=3, conserved=False)
     part = _repeats_partition(tree, sites, device, **kw)
     ops, br, pidx = create_operations(traverse(tree.vroot))
     part.update_prob_matrices([0] * part.rate_cats, pidx, br)
@@ -509,12 +551,34 @@ def _pool_case(case, device):
     return part, ops, None
 
 
+def _aa_partition(tree, by, sites, device):
+    """An LG+G4 site-repeats partition of `by` (amino acids) on `device`."""
+    part = Partition(tree.tip_count, tree.inner_count, 20, sites, 1,
+                     tree.edge_count, 4, tree.inner_count, device=device,
+                     site_repeats=True)
+    tips = list(tree.tips())
+    part.set_tip_states_batch(maps.map_aa, [by[t.label] for t in tips],
+                              [t.clv_index for t in tips])
+    load_aa_model(part, "lg")
+    part.set_category_rates(compute_gamma_cats(0.9, 4))
+    return part
+
+
 def _run_pool(part, ops, level):
     plan = part._pool_plan(ops, True)
     pool.update_partials_pool(part.clv_flat, part.sc_flat, part.pmatrix,
                               plan, part.scale_threshold, part.scale_factor,
                               level=level)
     return len(plan.tables)
+
+
+def _pool_layouts(part):
+    """The threads a column the levels of the partition's plan launch
+    with (the runtime-size variant), or None (the 4x4 variant)."""
+    launches = part._repeat_schedule.launches
+    if all(launch is None for launch in launches):
+        return None
+    return {launch.rate_threads for launch in launches}
 
 
 @pytest.mark.parametrize("case", POOL_CASES)
@@ -534,17 +598,21 @@ def test_pool_kernel_matches_plain_on_card(cuda, case):
     torch.cuda.synchronize()
     lay = part._flat
     keep = torch.ones_like(got_sc, dtype=torch.bool)
-    keep[lay.sc_trash:lay.sc_zero] = False
+    keep[..., lay.sc_trash:lay.sc_zero] = False
     assert torch.equal(got_sc[keep], part.sc_flat[keep])
-    assert not got_sc[lay.sc_zero:].any()
+    assert not got_sc[..., lay.sc_zero:].any()
     want = part.clv_flat
     col_max = want.abs().amax(dim=(0, 1), keepdim=True).clamp(min=1e-30)
     assert float(((got_clv - want).abs() / col_max).max()) <= 1e-5
-    if case == "caterpillar":
-        assert int(part.sc_flat[:lay.sc_trash].max()) > 0
+    if case in ("caterpillar", "rates3_per_rate"):
+        assert int(part.sc_flat[..., :lay.sc_trash].max()) > 0
     if case == "identity":
         assert max(plan_w for plan_w in part._repeat_schedule.widths) == \
             lay.caps.max()
+    if case == "mixed_widths":
+        assert any(int(t[8].max()) >= 16 * int(t[8].min())
+                   for t in part._repeat_schedule.tables)
+    assert _pool_layouts(part) == POOL_LAYOUTS.get(case)
 
 
 @pytest.mark.parametrize("pallas", ["auto", "pool"])
@@ -567,6 +635,30 @@ def test_repeats_engine_on_card_matches_cpu_float64(cuda, pallas):
         assert abs(gl - wl) / abs(wl) < 5e-5
         for g, w in ((g1, w1), (g2, w2)):
             assert abs(g - w) / max(abs(w), 10.0) < 5e-3
+
+
+def test_pool_wrapper_needs_the_tile_map(cuda):
+    """The runtime-size variant launches on a level's tile map and its
+    launch only: no map, one on the host, of another type or shape, or no
+    launch or another level's is refused."""
+    part, ops, _ = _pool_case("aa20", cuda)
+    plan = part._pool_plan(ops, True)
+    args = (part.clv_flat.view(80, -1), part.sc_flat, part.pmatrix,
+            plan.tables[0], plan.widths[0], plan.gl, plan.gr)
+    kw = dict(rates=4, states=20, threshold=part.scale_threshold,
+              factor=part.scale_factor)
+    tiles, launch = plan.tiles[0], plan.launches[0]
+    for bad in (None, tiles.cpu(), tiles.long(), tiles.reshape(-1),
+                tiles[:0]):
+        with pytest.raises(ValueError):
+            pool.pool_update(*args, **kw, tiles=bad, launch=launch)
+    other = launch._replace(tiles=launch.tiles + 1)
+    for bad in (None, tuple(launch), other):
+        with pytest.raises(ValueError):
+            pool.pool_update(*args, **kw, tiles=tiles, launch=bad)
+    before = pool.pool_update.launches
+    pool.pool_update(*args, **kw, tiles=tiles, launch=launch)
+    assert pool.pool_update.launches == before + 1
 
 
 def test_pool_wrapper_rejects_what_it_cannot_take(cuda):

@@ -183,3 +183,23 @@ def test_port_sources_do_not_import_jax():
     offenders = [str(p) for p in (REPO / "libpll2_tpu_torch").rglob("*.py")
                  if pattern.search(p.read_text())]
     assert offenders == []
+
+
+def test_chip_smoke_does_not_import_jax():
+    """The card's smoke run imports the port only: no jax, nothing of the
+    JAX package, even lazily inside a function."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|libpll2_tpu)\b(?!_torch)",
+                         re.MULTILINE)
+    assert not pattern.search((REPO / "chip_smoke.py").read_text())
+
+
+def test_entry_points_default_to_the_card():
+    """Partition and the convert.* constructors run on "cuda" unless the
+    caller asks for the CPU."""
+    import inspect
+
+    from libpll2_tpu_torch import convert
+
+    for fn in (TPartition.__init__, convert.partition_from_numpy,
+               convert.engine_branches_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

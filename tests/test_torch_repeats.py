@@ -239,7 +239,8 @@ def _port_pools(part, ops, clv0, sc0, pm, jlay):
     layout, levels = tpool.schedule_pool_levels(
         copy.deepcopy(part.repeats), ops, part.tips, part.sites, k)
     _layouts_equal(layout, jlay)
-    plan = tpool.plan_to_device(*tpool.pack_pool_levels(layout, levels), CPU)
+    plan = tpool.plan_to_device(*tpool.pack_pool_levels(layout, levels), CPU,
+                                part.rate_cats, part.states)
     lv = (torch.tensor(clv0), torch.tensor(sc0))
     before = tpool.pool_update.launches
     tpool.update_partials_pool(*lv, pm, plan, thr, fac)
