@@ -5,6 +5,7 @@
     python3 chip_smoke.py --rows-only CHECKOUT
     python3 chip_smoke.py --fused-only CHECKOUT
     python3 chip_smoke.py --pool-only CHECKOUT
+    python3 chip_smoke.py --levels-only CHECKOUT
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit's nvcc and PyTorch built for CUDA; jax is not needed. Phases,
@@ -61,10 +62,13 @@ each fatal on failure:
      the 80-taxon caterpillar (scaling must trigger), 20, 32, 5 and 2
      states, ops without a scaler buffer, a partial op list, an op that
      writes its own child in place, 16 rates x 32 states with per-rate
-     counts (P beyond one 48 KB staging), 128 x 16384 DNA and the 128 x
-     8192 LG+G4 protein tree (the runtime-size variant's thread layouts
-     of the protein main path); scaler rows equal and CLV rows within
-     TOL_CLV;
+     counts (P beyond one 48 KB staging), 128 x 16384 DNA per site and
+     per rate, 128 x 16387 DNA and the caterpillar at 16384 sites (each
+     printing the 4x4 variant's layout level by level and failing on
+     another: ops/_kernels.py:level_fixed_plan's 4, 2 and 1 sites a lane)
+     and the 128 x 8192 LG+G4 protein tree (the runtime-size variant's
+     thread layouts of the protein main path); scaler rows equal and CLV
+     rows within TOL_CLV;
  10. the dense paths at full width (DNA 128 x 16384 GTR+G4, protein 128 x
      8192 LG+G4), through the level kernel: the step-by-step chain
      (Partition(device="cuda") -> update_prob_matrices -> update_partials ->
@@ -81,8 +85,9 @@ each fatal on failure:
      traversal, at both sizes; of the level kernel and its plain version
      over the 80-taxon caterpillar (78 levels of one op each) at 16384
      sites; then, after those timings, the level kernels' device time over
-     one traversal at both sizes from torch.profiler, level by level beside
-     each level's byte bound;
+     one traversal at both sizes, over the caterpillar and over the DNA
+     tree with per-rate counts, from torch.profiler, level by level beside
+     each level's byte bound, the rate its bytes imply and its layout;
  12. pool kernel vs plain: ops/pool.py:pool_update (csrc/pool_update.cu)
      against pool_update_reference over whole op lists on site-repeats
      partitions, float32, from the same buffers: 24 x 600 DNA, the
@@ -138,7 +143,11 @@ the same for the pool kernel: its call time and its device time level by
 level on the conserved 128 x 8192 protein (per site and per rate), the
 246 x 4465 DNA problem with 3 rates, the conserved 128 x 8192 problem at
 5, 17 and 32 states, and the 4x4 variant on the 246 x 4465 DNA problem as
-a control.
+a control. `--levels-only CHECKOUT` does the same for the level kernel: its
+call time, its host enqueue time and its device time level by level on the
+DNA main path's tree per site and per rate, on the 80-taxon caterpillar at
+16384 sites, and on the protein tree (the runtime-size variant) as a
+control.
 `--profile DIR` also writes a torch.profiler breakdown of one
 loglikelihood() and one newton_step() of each main path (fused and
 levels-kernel) to DIR/profile.txt.
@@ -770,12 +779,49 @@ def self_child_op(ops, n_tips):
     return op
 
 
-def compare_level_case(name, part, ops, first=None, must_scale=False):
+def level_layouts(part, tables):
+    """The layout each level table launches the 4x4 level kernel with, as
+    (sites a lane, tiles a block) from ops/_kernels.py:level_fixed_plan,
+    which the wrapper passes and the kernel's entry checks; None for the
+    runtime-size variant, "unplanned" for a package without the plan
+    (another checkout's)."""
+    from libpll2_tpu_torch.ops import _kernels
+
+    if (part.rate_cats, part.states) != (4, 4):
+        return None
+    if not hasattr(_kernels, "level_fixed_plan"):
+        return "unplanned"
+    sms = _kernels.device_sm_count(part.device)
+    aligned = (part.clv.data_ptr() | part.scale_buffer.data_ptr()) % 16 == 0
+    plans = [_kernels.level_fixed_plan(t.shape[1], part.sites_padded, sms,
+                                       aligned, part.rate_scalers)
+             for t in tables]
+    return [(p.sites_per_lane, p.tiles_per_block) for p in plans]
+
+
+def level_layout_text(layouts) -> str:
+    """Each sites-a-lane layout of `level_layouts` with its levels."""
+    if layouts is None:
+        return "runtime-size variant"
+    if layouts == "unplanned":
+        return "4x4 variant without a plan"
+    seen = {}
+    for v, _ in layouts:
+        seen[v] = seen.get(v, 0) + 1
+    return ", ".join(f"{v} site{'s' if v > 1 else ''} a lane at {n} "
+                     f"level{'s' if n > 1 else ''}"
+                     for v, n in sorted(seen.items(), reverse=True))
+
+
+def compare_level_case(name, part, ops, first=None, must_scale=False,
+                       lanes=None):
     """Level kernel vs its plain version over a whole op list on the
     card, from the same buffers (after `first`, the list that must run
     before a partial one): scaler rows equal but at ties (`match_counts`),
-    CLV rows within TOL_CLV of each site's max. Returns (max relative
-    error, max absolute error)."""
+    CLV rows within TOL_CLV of each site's max. With `lanes`, the 4x4
+    variant's levels must take exactly those sites a lane (a set, or a
+    list level by level; `level_layouts`). Returns (max relative error,
+    max absolute error)."""
     import torch
     from libpll2_tpu_torch.ops import levels
 
@@ -783,6 +829,9 @@ def compare_level_case(name, part, ops, first=None, must_scale=False):
         run_levels(part, first, levels.level_update)
     clv, sc = part.clv.clone(), part.scale_buffer.clone()
     n_levels = run_levels(part, ops, levels.level_update)
+    layouts = level_layouts(part, levels.tables_to_device(
+        levels.pack_pallas_levels(ops, part.tips, part.scale_buffers + 1,
+                                  part.scale_buffers), part.device))
     got_clv, got_sc = part.clv.clone(), part.scale_buffer.clone()
     part.clv.copy_(clv)
     part.scale_buffer.copy_(sc)
@@ -811,13 +860,30 @@ def compare_level_case(name, part, ops, first=None, must_scale=False):
           f"sites, {part.states} states, {part.rate_cats} rates"
           + (" (per-rate counts)" if part.rate_scalers else "")
           + f", {len(ops)} "
-          f"ops in {n_levels} levels: scaler rows equal (max {scaled}"
+          f"ops in {n_levels} levels ({level_layout_text(layouts)}"
+          + (f"; sites a lane, tiles a block by level: "
+             f"{' '.join(f'{v}x{n}' for v, n in layouts)}"
+             if isinstance(layouts, list) else "")
+          + f"): scaler rows equal (max {scaled}"
           + (f"; {ties} ties" if ties else "") + f"), "
           f"max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}", flush=True)
     check(rel <= TOL_CLV, f"{name}: max_rel_err {rel:.3e} > {TOL_CLV}")
+    if lanes is not None:
+        ran = [v for v, _ in layouts]
+        check(ran == lanes if isinstance(lanes, list) else set(ran) == lanes,
+              f"{name}: the 4x4 variant ran {ran} sites a lane, expected "
+              f"{lanes}")
     if must_scale:
         check(scaled > 0, f"{name}: scaling never triggered")
     return rel, abs_err
+
+
+# the sites a lane of the DNA main path's 13 levels (42, 25, 15, 11, 9, 6,
+# 5, 4, 3, 2, 2, 1, 1 ops at 16384 sites) on a 132-SM H100
+# (ops/_kernels.py:level_fixed_plan), and a site count that is not a
+# multiple of 4
+DNA_LEVEL_LANES = [4] * 9 + [2, 2, 1, 1]
+ODD_SITES = 16387
 
 
 def level_cases(device, small, small_by, cat, cat_by, aa_by, big, big_by,
@@ -827,7 +893,8 @@ def level_cases(device, small, small_by, cat, cat_by, aa_by, big, big_by,
     cases run one site a thread with a site's rates over 4 threads, the
     protein main path's levels (128 x 8192, 40 down to 1 ops) also two
     sites a thread and rates over 2 threads, so that tree is held here too,
-    level by level."""
+    level by level. The 4x4 variant's cases name the sites a lane their
+    levels must take."""
     from libpll2_tpu_torch.trees import random_alignment
 
     max_abs = 0.0
@@ -849,10 +916,11 @@ def level_cases(device, small, small_by, cat, cat_by, aa_by, big, big_by,
             kw["first"], ops = ops, [self_child_op(ops, part.tips)]
         max_abs = max(max_abs, compare_level_case(name, part, ops, **kw)[1])
 
-    case("ragged", dna_partition(small, small_by, 1000, device), small)
+    case("ragged", dna_partition(small, small_by, 1000, device), small,
+         lanes={1})
     case("3 rates", dna_partition(small, small_by, 1000, device, 3), small)
     case("caterpillar", dna_partition(cat, cat_by, 1000, device), cat,
-         must_scale=True)
+         must_scale=True, lanes={1})
     for states, by in ((20, aa_by), (32, letters(32)), (5, letters(5)),
                        (2, letters(2))):
         case(f"{states} states", protein_partition(small, by, 1000, device,
@@ -868,8 +936,25 @@ def level_cases(device, small, small_by, cat, cat_by, aa_by, big, big_by,
     case("per-rate, 16 rates x 32 states (P in chunks)",
          protein_partition(small, letters(32), 1000, device, 32,
                            rate_cats=16, rate_scalers=True), small)
+    # the 4x4 variant at full width, each level on the layout that
+    # level_fixed_plan gives it on a 132-SM H100: the DNA main path's 13
+    # levels of 42 down to 1 ops (4 sites a lane down to 3 ops, 2 at 2, 1
+    # at 1) per site and per rate, its alignment cut to 16387 sites (the
+    # scalar layout, a ragged last tile) and the caterpillar at 16384
+    # sites (78 levels of one op: one site a lane)
     case("main-path shape", dna_partition(big, big_by, N_SITES, device),
-         big)
+         big, lanes=DNA_LEVEL_LANES)
+    case("main-path shape, per-rate counts",
+         dna_partition(big, big_by, N_SITES, device, rate_scalers=True),
+         big, lanes=DNA_LEVEL_LANES)
+    headers, seqs = random_alignment(N_TAXA, ODD_SITES, seed=SEED)
+    case(f"{ODD_SITES} sites (the scalar layout)",
+         dna_partition(big, dict(zip(headers, seqs)), ODD_SITES, device),
+         big, lanes={1})
+    headers, seqs = random_alignment(80, N_SITES, seed=3)
+    case(f"caterpillar, 80 x {N_SITES}",
+         dna_partition(cat, dict(zip(headers, seqs)), N_SITES, device), cat,
+         must_scale=True, lanes={1})
     case("protein main-path shape, LG+G4",
          protein_partition(aa_tree, aa_big_by, AA_SITES, device), aa_tree)
     return max_abs
@@ -2025,45 +2110,71 @@ def level_times(label, part, eng, ops, gpu):
     return kernel, plain, logl, step_ms
 
 
-def level_device(label, part, ops, gpu):
-    """Phase 11, after every timing (a profiler session could disturb
-    them): the level kernels' device time (ms) over one traversal, and of
-    the widest and the narrowest level (ms), from `level_device_us`; each
-    level's device time is printed beside its own byte bound."""
+def level_device(label, part, ops, gpu) -> dict:
+    """Phase 11 (and `--levels-only`), after every timing (a profiler
+    session could disturb them): the level kernels' device time over one
+    traversal of `ops` on `part` (P-matrices set), from `level_device_us`,
+    printed level by level beside each level's own byte bound (each op
+    reads two child rows and writes one, at the card's HBM rate), the rate
+    its bytes imply (above the HBM rate only through L2 hits) and, for the
+    4x4 variant, its layout (`level_layouts`). Returns {"ms": the
+    traversal, "level_us", "level_bound_us", "level_ops", "layout": per
+    level, "widest_ms", "slowest_ms", "bound_ms", "bound_by"}."""
     tables, args = level_tables(part, ops)
     per_level = level_device_us(args, len(tables))
     device = sum(per_level) * 1e-3
     widths = [t.shape[1] for t in tables]
-    wide, narrow = widths.index(max(widths)), widths.index(min(widths))
-    # a level's own byte bound (us): each op reads two child rows and
-    # writes one
+    wide = widths.index(max(widths))
+    narrow = widths.index(min(widths))
+    slow = per_level.index(max(per_level))
     row = part.rate_cats * part.states * part.sites_padded * 4
     level_bounds = [3 * w * row / H100_BYTES_PER_S * 1e6 for w in widths]
-    bound = level_bound(part, ops)[0]
-    print(f"level device time, {label} (torch.profiler, median of 5 "
-          f"traversals per level; {gpu}): {device:.4f} ms over "
-          f"{len(tables)} levels ({device / bound:.2f}x the bound); widest "
-          f"level ({widths[wide]} ops) {per_level[wide]:.1f} us, narrowest "
-          f"({widths[narrow]} op{'s' if widths[narrow] > 1 else ''}) "
-          f"{per_level[narrow]:.1f} us; by level (ops: us, its bound in us "
-          f"at 3 rows an op) "
-          + ", ".join(f"{w}: {t:.1f} / {b:.1f}"
-                      for w, t, b in zip(widths, per_level, level_bounds)),
+    layouts = level_layouts(part, tables)
+    lay = layouts if isinstance(layouts, list) else [None] * len(widths)
+    bound, by = level_bound(part, ops)
+    print(f"level device time, {label} {part.tips} x {part.sites}"
+          f"{' (per-rate counts)' if part.rate_scalers else ''} "
+          f"(torch.profiler, median of 5 traversals per level; {gpu}): "
+          f"{device:.4f} ms over {len(tables)} levels ({device / bound:.2f}x "
+          f"the bound {bound:.4f} ms by {by}; the levels' own bounds add up "
+          f"to {sum(level_bounds) * 1e-3:.4f} ms); "
+          f"{level_layout_text(layouts)}; widest level ({widths[wide]} ops) "
+          f"{per_level[wide]:.1f} us, slowest ({widths[slow]} "
+          f"op{'s' if widths[slow] > 1 else ''}) {per_level[slow]:.1f} us; "
+          f"by level (ops[, sites a lane x tiles a block]: us / its bound "
+          f"in us at 3 rows an op, TB/s) "
+          + ", ".join(f"{w}{f' {l[0]}x{l[1]}' if l else ''}: {t:.1f} / "
+                      f"{b:.1f}, {3 * w * row / t * 1e-6:.2f}"
+                      for w, l, t, b in zip(widths, lay, per_level,
+                                            level_bounds)),
           flush=True)
-    return device, per_level[wide] * 1e-3, per_level[narrow] * 1e-3
+    return {"ms": device, "level_us": per_level,
+            "level_bound_us": level_bounds, "level_ops": widths,
+            "layout": lay, "widest_ms": per_level[wide] * 1e-3,
+            "narrowest_ms": per_level[narrow] * 1e-3,
+            "slowest_ms": per_level[slow] * 1e-3, "bound_ms": bound,
+            "bound_by": by}
 
 
-def caterpillar_times(device, gpu):
+def caterpillar_partition(device):
     """The level kernel's worst case: the 80-taxon caterpillar at the DNA
-    main path's width, 78 ops in 78 levels of one op each. Medians (ms) of
-    one traversal through the kernel and through its plain version."""
-    from libpll2_tpu_torch.ops import levels
+    main path's width (random columns, seed 3), 78 ops in 78 levels of one
+    op each, P-matrices set. Returns (partition, ops)."""
     from libpll2_tpu_torch.trees import parse_newick, random_alignment
 
     tree = parse_newick(caterpillar_newick(80))
     headers, seqs = random_alignment(80, N_SITES, seed=3)
     part = dna_partition(tree, dict(zip(headers, seqs)), N_SITES, device)
-    ops, _, _ = traversal_ops(part, tree)
+    return part, traversal_ops(part, tree)[0]
+
+
+def caterpillar_times(device, gpu):
+    """Phase 11: medians (ms) of one caterpillar traversal
+    (`caterpillar_partition`) through the kernel and through its plain
+    version. Returns (partition, ops)."""
+    from libpll2_tpu_torch.ops import levels
+
+    part, ops = caterpillar_partition(device)
     tables, args = level_tables(part, ops)
     kernel = median_ms(lambda: levels.update_partials_kernel(*args))
     plain = median_ms(lambda: levels.update_partials_kernel(
@@ -2074,6 +2185,49 @@ def caterpillar_times(device, gpu):
           f"({len(ops) * N_SITES / kernel / 1e6:.3f} G CLV site-updates/s; "
           f"bound {bound:.4f} ms by {by}), plain {plain:.4f} ms",
           flush=True)
+    return part, ops
+
+
+def levels_only(device, gpu) -> dict:
+    """`--levels-only`: the level kernel's call time (ms, CUDA events),
+    the host's time to enqueue it (`host_ms`) and its device time level by
+    level (`level_device`) over one traversal, of the package that was
+    imported, which may be another checkout's: the DNA main path's 128 x
+    16384 tree per site and per rate (the 4x4 variant), the 80-taxon
+    caterpillar at 16384 sites, and the 128 x 8192 LG+G4 protein tree (the
+    runtime-size variant, a control). Each entry holds `level_device`'s
+    keys, its "ms" the call's and "device_ms" the traversal's device
+    time."""
+    from libpll2_tpu_torch.ops import levels
+    from libpll2_tpu_torch.trees import random_alignment, random_utree
+
+    headers, seqs = random_alignment(N_TAXA, N_SITES, seed=SEED)
+    big, big_by = random_utree(headers, seed=SEED), dict(zip(headers, seqs))
+    aa_tree, aa_by = protein_alignment()
+
+    def dna(**options):
+        part = dna_partition(big, big_by, N_SITES, device, **options)
+        return part, traversal_ops(part, big)[0]
+
+    def protein():
+        part = protein_partition(aa_tree, aa_by, AA_SITES, device)
+        return part, traversal_ops(part, aa_tree)[0]
+
+    cases = {"dna": dna, "dna_per_rate": lambda: dna(rate_scalers=True),
+             "caterpillar": lambda: caterpillar_partition(device),
+             "protein": protein}
+    out = {}
+    for key, build in cases.items():
+        part, ops = build()
+        args = level_tables(part, ops)[1]
+        ms = median_ms(lambda: levels.update_partials_kernel(*args))
+        host = host_ms(lambda: levels.update_partials_kernel(*args))
+        dev = level_device(key, part, ops, gpu)
+        out[key] = {**dev, "ms": ms, "device_ms": dev["ms"], "host_ms": host}
+        print(f"  level kernel call, {key}: {ms:.4f} ms; host enqueue "
+              f"{host[0]:.4f} ms least, {host[1]:.4f} median", flush=True)
+        del part, args
+    return out
 
 
 def interleaved_ms(fns: dict) -> dict:
@@ -2899,8 +3053,15 @@ def main() -> int:
                     "states, 4x4 DNA as a control), importing the port "
                     "from the checkout REPO, and print the times as one "
                     "JSON line")
+    ap.add_argument("--levels-only", metavar="REPO", default=None,
+                    help="only time the level kernel (DNA 128 x 16384 per "
+                    "site and per rate, the 80-taxon caterpillar, the "
+                    "protein tree as a control), importing the port from "
+                    "the checkout REPO, and print the times as one JSON "
+                    "line")
     args = ap.parse_args()
-    other = args.rows_only or args.fused_only or args.pool_only
+    other = (args.rows_only or args.fused_only or args.pool_only
+             or args.levels_only)
 
     import torch
     if not torch.cuda.is_available():
@@ -2938,6 +3099,12 @@ def main() -> int:
         print(f"pool kernel of {os.path.abspath(args.pool_only)}",
               flush=True)
         print(json.dumps({"pool_only": pool_only(device, gpu),
+                          "gpu": gpu}), flush=True)
+        return 0
+    if args.levels_only:
+        print(f"level kernel of {os.path.abspath(args.levels_only)}",
+              flush=True)
+        print(json.dumps({"levels_only": levels_only(device, gpu),
                           "gpu": gpu}), flush=True)
         return 0
 
@@ -3056,9 +3223,15 @@ def main() -> int:
     # 11. times of the level kernel and the dense paths
     lv_ms = level_times("DNA", *dna[2:5], gpu)
     lv_aa_ms = level_times("protein", *prot[2:5], gpu)
-    caterpillar_times(device, gpu)
+    cat_part, cat_ops = caterpillar_times(device, gpu)
     lv_dev = level_device("DNA", dna[2], dna[4], gpu)
     lv_aa_dev = level_device("protein", prot[2], prot[4], gpu)
+    lv_cat_dev = level_device("caterpillar", cat_part, cat_ops, gpu)
+    del cat_part
+    pr_part = dna_partition(big, big_by, N_SITES, device, rate_scalers=True)
+    lv_pr_dev = level_device("DNA", pr_part, traversal_ops(pr_part, big)[0],
+                             gpu)
+    del pr_part
     bounds["level_update"] = level_bound(dna[2], dna[4])
     aa_level_bound = level_bound(prot[2], prot[4])
 
@@ -3184,10 +3357,17 @@ def main() -> int:
                      "libpll2_tpu/ops/pallas_partials.py:170"],
         "launches": level_launches, "max_abs_err": level_max_abs,
         "ms": lv_ms[0], "plain_ms": lv_ms[1], **bound("level_update"),
-        "device_ms": lv_dev[0], "protein_ms": lv_aa_ms[0],
-        "protein_plain_ms": lv_aa_ms[1], "protein_device_ms": lv_aa_dev[0],
-        "protein_widest_level_device_ms": lv_aa_dev[1],
-        "protein_narrowest_level_device_ms": lv_aa_dev[2],
+        "device_ms": lv_dev["ms"],
+        "dna_level_device_us": lv_dev["level_us"],
+        "dna_level_bound_us": lv_dev["level_bound_us"],
+        "dna_level_layout": lv_dev["layout"],
+        "per_rate_device_ms": lv_pr_dev["ms"],
+        "caterpillar_device_ms": lv_cat_dev["ms"],
+        "caterpillar_slowest_level_device_ms": lv_cat_dev["slowest_ms"],
+        "protein_ms": lv_aa_ms[0],
+        "protein_plain_ms": lv_aa_ms[1], "protein_device_ms": lv_aa_dev["ms"],
+        "protein_widest_level_device_ms": lv_aa_dev["widest_ms"],
+        "protein_narrowest_level_device_ms": lv_aa_dev["narrowest_ms"],
         "protein_bound_ms": aa_level_bound[0],
         "protein_bound_by": aa_level_bound[1],
         **variant("per_rate", "level_per_rate", pr_level),

@@ -29,12 +29,13 @@
 // reads or writes; blocks of one op cover disjoint sites. Within an op, the
 // rows of one rate at one site are read and written by one thread only, and
 // it reads every child value of that rate into registers before it stores
-// any parent value of that rate (the 4x4 variant holds the whole op in
-// registers; the runtime-size one goes rate by rate, and rescales by
+// any parent value of that rate (the 4x4 variant holds a tile of the op in
+// registers, and the next tile it loads before storing this one covers
+// other sites; the runtime-size one goes rate by rate, and rescales by
 // re-reading only rows it has stored itself). Nothing crosses threads but P,
-// staged in shared memory, and each thread's maximum for the rescale test.
-// So even an op whose parent is its own child is right, and no CLV load may
-// go through the read-only cache.
+// staged in shared memory, and the maxima for the rescale test (a warp vote
+// in the 4x4 variant). So even an op whose parent is its own child is right,
+// and no CLV load may go through the read-only cache.
 //
 // What bounds it on an H100: bytes. Per op and site it reads 2 * R * s and
 // writes R * s floats, against 2 * R * s * s FMAs. A DNA traversal at 128
@@ -48,9 +49,36 @@
 // read and written once: chip_smoke.py's bound, 0.2005 ms with P and the
 // scaler rows) against 6.6 GFLOP (99 us).
 //
-// The design. 4x4 (DNA): one thread per site holds the op in registers, P
-// through the read-only cache. Runtime sizes (20-state proteins, any other
-// state count up to 32, any rate count):
+// The design, 4x4 (DNA; each part measured against kernel copies on an H100,
+// PERF.md §6):
+// - Four neighbouring lanes hold the 4 rates of V consecutive sites, so a
+//   lane keeps only its rate's two 4x4 P-matrices, 32 registers loaded once
+//   per op (8 16-byte loads), and the inner loop loads nothing but child
+//   columns: 2 x 16 FMAs a site and rate. The per-site rescale test is one
+//   warp vote (__ballot_sync) over the 4 lanes of a site; per-rate counts
+//   need none. Lane q writes the count of site q of its group, so a warp's
+//   count stores are one 128-byte line.
+// - V = 4 where S % 4 == 0 (every row starts on 16 bytes: float4 loads and
+//   stores, a warp's access 4 rows x 128 B), 2 where S % 2 == 0, else 1;
+//   narrow levels take fewer sites a lane until they have 2 tiles an SM
+//   (the one-op levels of the DNA tree and of a caterpillar run 512 blocks
+//   of 32 sites), so that more warps wait on device memory at once.
+// - Blocks take runs of tiles of the level's flat (op, tile) list, as many
+//   blocks as stay resident fill the card once, and issue the next tile's
+//   child loads (and counts) before this tile's stores. Resident blocks by
+//   instantiation: 5 an SM for V = 4 per site (96 registers), 4 per rate
+//   (122: it spills at 5), 6 for V <= 2 (80); each was the fastest copy.
+// - Child loads are evict-first (ld.global.cs): every CLV row is read once
+//   a traversal, and the parents a level stores with the default policy
+//   then stay in L2 for the next level (the 15-op level of the DNA tree
+//   takes 14.1-14.9 us with the hint, 17.2 without, against its HBM bound
+//   of 14.1 us).
+// - What is left (PERF.md §5): the 42-op first level streams its tips from
+//   device memory at ~2.55 TB/s; every level pays a launch's ramp and
+//   drain, 2.8-3 us for a one-op level (0.94 us of bytes), which only a
+//   launch that spans levels removes (ROADMAP B8).
+// Runtime sizes (20-state proteins, any other state count up to 32, any
+// rate count):
 // - A thread owns one site of one op across its rates, or two sites (s0 and
 //   s0 + blockDim.x, each access coalesced) on a wide level. Per rate it
 //   loads its child columns L[r, .] and R[r, .] into registers
@@ -81,10 +109,10 @@
 // chains and on device memory, with at most 12 warps an SM to hide it (3
 // blocks of 128 threads at ~166 registers).
 //
-// What is left: the tensor cores (3 x bf16 or 3 x TF32 for float32
-// accuracy); cp.async or TMA staging of the child columns, so that the next
-// rate's or tile's columns arrive while this one is computed without
-// holding registers; levels of width 1 to 3 (a caterpillar, the protein
+// What is left for the runtime sizes: the tensor cores (3 x bf16 or 3 x
+// TF32 for float32 accuracy); cp.async or TMA staging of the child columns,
+// so that the next rate's or tile's columns arrive while this one is
+// computed without holding registers; levels of width 1 to 3 (the protein
 // tree's top) still cost 9-18 us each.
 //
 // Offsets into the CLV and scaler buffers are 64-bit: (N+1) * R * s * S
@@ -99,7 +127,22 @@
 
 namespace {
 
-constexpr int kFixedBlock = 128;  // 4x4 variant: one thread per site
+// 4x4 variant (ops/_kernels.py: LEVEL_FIXED_*): lanes a block (a rate each,
+// four a site group); its blocks resident on one SM, by instantiation (the
+// launch bounds, so the registers a thread: 4 sites a lane per site 5
+// blocks, <= 102 registers; per rate 4, <= 128, as its 125 would spill at
+// 5; 1 or 2 sites a lane 6, <= 85); and the tiles an SM a level must have
+// before a lane takes 2 or 4 sites
+constexpr int kFixedThreads = 128;
+constexpr int kFixedBlocksPerSm = 5;
+constexpr int kFixedBlocksPerSmRate = 4;
+constexpr int kFixedBlocksPerSmNarrow = 6;
+constexpr int kFixedMinTilesPerSm = 2;
+
+constexpr int fixed_blocks_per_sm(int v, bool per_rate) {
+  return v < 4 ? kFixedBlocksPerSmNarrow
+               : per_rate ? kFixedBlocksPerSmRate : kFixedBlocksPerSm;
+}
 constexpr int kBlock = 128;       // runtime-size variant: most threads a block
 constexpr int kBlocksPerSm = 3;   // its blocks resident on one SM
 constexpr int kStageBytes = 48 * 1024;  // its shared memory, at most
@@ -145,52 +188,234 @@ __device__ __forceinline__ void write_scaler(const Args& a, const Op& op, int q,
 }
 
 // ---------------------------------------------------------------------------
-// Sizes known at compile time: one thread per site holds the op in registers.
-// NSC counts per site: 1, or R_ in per-rate mode.
-template <int S_, int R_, int NSC>
-__global__ void __launch_bounds__(kFixedBlock) level_fixed(Args a) {
-  constexpr int RS = R_ * S_;
-  constexpr int G = RS / NSC;  // rows per count
-  const Op op = load_op(a, blockIdx.y);
-  const size_t site = (size_t)blockIdx.x * kFixedBlock + threadIdx.x;
-  if (site >= (size_t)a.sites) return;
+// 4 states x 4 rates (DNA). Four neighbouring lanes hold the 4 rates of V
+// consecutive sites (V = 4, 2 or 1: ops/_kernels.py:level_fixed_plan), so
+// a lane needs only its rate's two 4x4 P-matrices, which it keeps in
+// registers for as long as its block stays on one op. A block of
+// kFixedThreads lanes covers a tile of kFixedThreads / 4 * V sites of one
+// op; blocks take runs of `per_block` consecutive tiles of the level's
+// flat (op, tile) list, and load the next tile's child columns and counts
+// before they store this tile's products.
+template <int V>
+__device__ __forceinline__ void load_v(float (&d)[V], const float* p) {
+  // evict-first (ld.global.cs, not the read-only path: an op may write its
+  // own child): each CLV row is read once a traversal
+  if constexpr (V == 4) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+    d[0] = t.x, d[1] = t.y, d[2] = t.z, d[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = __ldcs(reinterpret_cast<const float2*>(p));
+    d[0] = t.x, d[1] = t.y;
+  } else {
+    d[0] = __ldcs(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_v(int (&d)[V], const int* p) {
+  if constexpr (V == 4) {
+    const int4 t = __ldcs(reinterpret_cast<const int4*>(p));
+    d[0] = t.x, d[1] = t.y, d[2] = t.z, d[3] = t.w;
+  } else if constexpr (V == 2) {
+    const int2 t = __ldcs(reinterpret_cast<const int2*>(p));
+    d[0] = t.x, d[1] = t.y;
+  } else {
+    d[0] = __ldcs(p);
+  }
+}
+
+// parent rows and counts with the default policy: the next level reads them
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float (&d)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(d[0], d[1]);
+  } else {
+    *p = d[0];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_v(int* p, const int (&d)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<int4*>(p) = make_int4(d[0], d[1], d[2], d[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<int2*>(p) = make_int2(d[0], d[1]);
+  } else {
+    *p = d[0];
+  }
+}
+
+// One tile's child columns of one lane: its rate's 4 rows of both children
+// at its V sites (zero past the last site: S % V == 0, so a site group is
+// all in or all out).
+template <int V>
+struct FixedTile {
+  float l[4][V], r[4][V];
+};
+
+template <int V>
+__device__ __forceinline__ void load_tile(FixedTile<V>& t, const Args& a,
+                                          const Op& op, int q, size_t site) {
   const size_t S = a.sites;
-  const float* left = a.clv + (size_t)op.c1 * RS * S + site;
-  const float* right = a.clv + (size_t)op.c2 * RS * S + site;
-  const float* pl = a.pmat + (size_t)op.m1 * RS * S_;
-  const float* pr = a.pmat + (size_t)op.m2 * RS * S_;
-  float l[RS], r[RS], x[RS];
+  if (site >= S) {
 #pragma unroll
-  for (int k = 0; k < RS; ++k) {
-    l[k] = left[k * S];
-    r[k] = right[k * S];
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int v = 0; v < V; ++v) t.l[j][v] = t.r[j][v] = 0.0f;
+    return;
   }
+  const float* left = a.clv + ((size_t)op.c1 * 16 + q * 4) * S + site;
+  const float* right = a.clv + ((size_t)op.c2 * 16 + q * 4) * S + site;
 #pragma unroll
-  for (int rate = 0; rate < R_; ++rate) {
+  for (int j = 0; j < 4; ++j) {
+    load_v<V>(t.l[j], left + j * S);
+    load_v<V>(t.r[j], right + j * S);
+  }
+}
+
+// The counts a lane combines for one tile: per site, lane q's one site
+// (q < V); per rate, its rate's V counts. NC of them, each child's.
+template <int V, bool PER_RATE>
+struct FixedCounts {
+  static constexpr int NC = PER_RATE ? V : 1;
+  int k1[NC], k2[NC];
+};
+
+template <int V, bool PER_RATE>
+__device__ __forceinline__ void load_counts(FixedCounts<V, PER_RATE>& k,
+                                            const Args& a, const Op& op,
+                                            int q, size_t site) {
+  const size_t S = a.sites;
+  if (site >= S) {
 #pragma unroll
-    for (int i = 0; i < S_; ++i) {
-      const float* p = pl + (rate * S_ + i) * S_;
-      const float* q = pr + (rate * S_ + i) * S_;
-      float ta = __ldg(p) * l[rate * S_];
-      float tb = __ldg(q) * r[rate * S_];
+    for (int c = 0; c < FixedCounts<V, PER_RATE>::NC; ++c) k.k1[c] = k.k2[c] = 0;
+    return;
+  }
+  if constexpr (PER_RATE) {
+    load_v<V>(k.k1, a.scaler + ((size_t)op.s1 * 4 + q) * S + site);
+    load_v<V>(k.k2, a.scaler + ((size_t)op.s2 * 4 + q) * S + site);
+  } else if (q < V) {
+    k.k1[0] = __ldcs(a.scaler + (size_t)op.s1 * S + site + q);
+    k.k2[0] = __ldcs(a.scaler + (size_t)op.s2 * S + site + q);
+  } else {
+    k.k1[0] = k.k2[0] = 0;  // a lane without a site of its own
+  }
+}
+
+// rate q's P[m1] and P[m2], 16 floats each, 16-byte aligned (the wrapper
+// passes P so)
+__device__ __forceinline__ void load_p(float (&pl)[16], float (&pr)[16],
+                                       const Args& a, const Op& op, int q) {
+  const float4* gl = reinterpret_cast<const float4*>(a.pmat + ((size_t)op.m1 * 4 + q) * 16);
+  const float4* gr = reinterpret_cast<const float4*>(a.pmat + ((size_t)op.m2 * 4 + q) * 16);
 #pragma unroll
-      for (int j = 1; j < S_; ++j) {
-        ta += __ldg(p + j) * l[rate * S_ + j];
-        tb += __ldg(q + j) * r[rate * S_ + j];
+  for (int i = 0; i < 4; ++i) {
+    const float4 u = __ldg(gl + i), w = __ldg(gr + i);
+    pl[4 * i] = u.x, pl[4 * i + 1] = u.y, pl[4 * i + 2] = u.z, pl[4 * i + 3] = u.w;
+    pr[4 * i] = w.x, pr[4 * i + 1] = w.y, pr[4 * i + 2] = w.z, pr[4 * i + 3] = w.w;
+  }
+}
+
+template <int V, bool PER_RATE>
+__global__ void __launch_bounds__(kFixedThreads,
+                                  fixed_blocks_per_sm(V, PER_RATE))
+    level_fixed(Args a, long long tiles_per_op, long long n_tiles,
+                int per_block) {
+  constexpr int kTile = kFixedThreads / 4 * V;
+  const int q = threadIdx.x & 3;  // the lane's rate
+  const int lane = threadIdx.x & 31;
+  const size_t S = a.sites;
+  long long t = (long long)blockIdx.x * per_block;
+  const long long t_end = min(t + per_block, n_tiles);
+  if (t >= t_end) return;
+  const auto site_of = [&](long long tile) {
+    return (size_t)(tile % tiles_per_op) * kTile + (threadIdx.x >> 2) * V;
+  };
+  long long w = t / tiles_per_op;
+  Op op = load_op(a, (int)w);
+  float pl[16], pr[16];
+  load_p(pl, pr, a, op, q);
+  size_t site = site_of(t);
+  FixedTile<V> in;
+  FixedCounts<V, PER_RATE> k;
+  load_tile<V>(in, a, op, q, site);
+  load_counts<V, PER_RATE>(k, a, op, q, site);
+  for (;;) {
+    float x[4][V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float ta = pl[4 * i] * in.l[0][v];
+        float tb = pr[4 * i] * in.r[0][v];
+#pragma unroll
+        for (int j = 1; j < 4; ++j) {
+          ta = fmaf(pl[4 * i + j], in.l[j][v], ta);
+          tb = fmaf(pr[4 * i + j], in.r[j][v], tb);
+        }
+        x[i][v] = ta * tb;
       }
-      x[rate * S_ + i] = ta * tb;
     }
-  }
-  float* dst = a.clv + (size_t)op.parent * RS * S + site;
+    int ksum[FixedCounts<V, PER_RATE>::NC];  // this tile's, both children's
 #pragma unroll
-  for (int g = 0; g < NSC; ++g) {
-    float m = 0.0f;
+    for (int c = 0; c < FixedCounts<V, PER_RATE>::NC; ++c) ksum[c] = k.k1[c] + k.k2[c];
+    // the next tile's loads are in flight while this one is stored; tiles
+    // of one level never read what another writes (schedule_levels), and
+    // the next tile of the same op covers other sites
+    const long long tn = t + 1;
+    const bool more = tn < t_end;  // the same in the whole block
+    Op next = op;
+    if (more) {
+      if (tn / tiles_per_op != w) next = load_op(a, (int)(tn / tiles_per_op));
+      load_tile<V>(in, a, next, q, site_of(tn));
+      load_counts<V, PER_RATE>(k, a, next, q, site_of(tn));
+    }
+    // the rescale test: per site, the site's 16 values are all below the
+    // threshold exactly when the 4 lanes' maxima are (one warp vote);
+    // per rate, the lane's own 4 values
+    int rescale[V];
 #pragma unroll
-    for (int k = g * G; k < (g + 1) * G; ++k) m = x[k] > m ? x[k] : m;
-    const int rescale = op.has && m < a.threshold;
+    for (int v = 0; v < V; ++v) {
+      float m = 0.0f;
 #pragma unroll
-    for (int k = g * G; k < (g + 1) * G; ++k) dst[k * S] = rescale ? x[k] * a.factor : x[k];
-    write_scaler(a, op, g, site, rescale);
+      for (int i = 0; i < 4; ++i) m = x[i][v] > m ? x[i][v] : m;
+      bool below = m < a.threshold;
+      if constexpr (!PER_RATE) {
+        const unsigned votes = __ballot_sync(0xffffffffu, below);
+        below = ((votes >> (lane & ~3)) & 0xFu) == 0xFu;
+      }
+      rescale[v] = op.has && below;
+      if (rescale[v]) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i][v] *= a.factor;
+      }
+    }
+    if (site < S) {
+      float* dst = a.clv + ((size_t)op.parent * 16 + q * 4) * S + site;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) store_v<V>(dst + i * S, x[i]);
+      if constexpr (PER_RATE) {
+        int c[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) c[v] = ksum[v] + rescale[v];
+        store_v<V>(a.scaler + ((size_t)op.psc * 4 + q) * S + site, c);
+      } else if (q < V) {
+        int mine = 0;  // lane q's site is site + q
+#pragma unroll
+        for (int v = 0; v < V; ++v) mine = v == q ? rescale[v] : mine;
+        a.scaler[(size_t)op.psc * S + site + q] = ksum[0] + mine;
+      }
+    }
+    if (!more) break;
+    if (tn / tiles_per_op != w) {
+      w = tn / tiles_per_op;
+      op = next;
+      load_p(pl, pr, a, op, q);
+    }
+    t = tn;
+    site = site_of(t);
   }
 }
 
@@ -455,23 +680,73 @@ int sm_count() {
   return sms;
 }
 
+// The 4x4 variant's layout of one level, as ops/_kernels.py:level_fixed_plan
+// computes it: the most sites a lane that S and the buffers' alignment
+// allow (4: 16-byte accesses; 2; 1), fewer while the level would have fewer
+// than kFixedMinTilesPerSm tiles an SM; then runs of tiles a block, as many
+// blocks as the instantiation keeps resident fill the card once.
+struct FixedPlan {
+  int v;
+  long long tiles_per_op, tiles;
+  int per_block, blocks;
+};
+
+FixedPlan fixed_plan(int n_ops, int sites, int sms, bool aligned,
+                     bool per_rate) {
+  FixedPlan p{};
+  p.v = !aligned ? 1 : sites % 4 == 0 ? 4 : sites % 2 == 0 ? 2 : 1;
+  const long long want = (long long)kFixedMinTilesPerSm * (sms > 0 ? sms : 1);
+  const auto per_op = [&](int v) {
+    const int tile = kFixedThreads / 4 * v;
+    return ((long long)sites + tile - 1) / tile;
+  };
+  while (p.v > 1 && n_ops * per_op(p.v) < want) p.v /= 2;
+  p.tiles_per_op = per_op(p.v);
+  p.tiles = n_ops * p.tiles_per_op;
+  const long long fill = (long long)fixed_blocks_per_sm(p.v, per_rate) *
+                         (sms > 0 ? sms : 1);
+  p.per_block = (int)((p.tiles + fill - 1) / fill);
+  p.blocks = (int)((p.tiles + p.per_block - 1) / p.per_block);
+  return p;
+}
+
+template <int V, bool PER_RATE>
+void launch_fixed(const Args& a, const FixedPlan& p, cudaStream_t st) {
+  level_fixed<V, PER_RATE><<<p.blocks, kFixedThreads, 0, st>>>(
+      a, p.tiles_per_op, p.tiles, p.per_block);
+}
+
 }  // namespace
 
 // Launches one level of `n_ops` ops on `stream` and returns
-// cudaGetLastError() (0 on success).
+// cudaGetLastError() (0 on success). 4 states x 4 rates take the layout of
+// ops/_kernels.py:level_fixed_plan, which the caller passes
+// (`sites_per_lane`, `tiles_per_block`; 0 for other sizes): a launch whose
+// layout differs from the one recomputed here, or whose P is not 16-byte
+// aligned, is refused with cudaErrorInvalidValue.
 extern "C" int pll_level_update(float* clv, int* scaler, const float* pmat,
                                 const int* table, int ld, int n_ops, int sites,
                                 int rates, int states, float threshold,
-                                float factor, int rate_scalers, void* stream) {
+                                float factor, int rate_scalers,
+                                int sites_per_lane, int tiles_per_block,
+                                void* stream) {
   Args a{clv, scaler, pmat, table, ld, sites, rates, states, threshold, factor,
          rate_scalers};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (states == 4 && rates == 4) {
-    const dim3 grid((sites + kFixedBlock - 1) / kFixedBlock, n_ops);
-    if (rate_scalers) {
-      level_fixed<4, 4, 4><<<grid, kFixedBlock, 0, st>>>(a);
+    const bool aligned = ((reinterpret_cast<size_t>(clv) |
+                           reinterpret_cast<size_t>(scaler)) & 15) == 0;
+    const FixedPlan p = fixed_plan(n_ops, sites, sm_count(), aligned,
+                                   rate_scalers != 0);
+    if (p.v != sites_per_lane || p.per_block != tiles_per_block ||
+        (reinterpret_cast<size_t>(pmat) & 15) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (p.v == 4) {
+      rate_scalers ? launch_fixed<4, true>(a, p, st) : launch_fixed<4, false>(a, p, st);
+    } else if (p.v == 2) {
+      rate_scalers ? launch_fixed<2, true>(a, p, st) : launch_fixed<2, false>(a, p, st);
     } else {
-      level_fixed<4, 4, 1><<<grid, kFixedBlock, 0, st>>>(a);
+      rate_scalers ? launch_fixed<1, true>(a, p, st) : launch_fixed<1, false>(a, p, st);
     }
   } else {
     // Threads from the level's width: two sites a thread where the level

@@ -381,13 +381,37 @@ class TreeEngine:
     @property
     def use_pallas(self) -> bool:
         """True when the fused or the per-level kernel path is active (as in
-        libpll2_tpu; the pool kernel is `use_pool_kernel`)."""
+        libpll2_tpu; the pool kernel is `use_repeats_pallas`)."""
         return self.use_fused or self.use_levelkernel
 
     @property
-    def use_pool_kernel(self) -> bool:
-        """True on the 'pool-pallas' path."""
+    def use_repeats_pallas(self) -> bool:
+        """True on the 'pool-pallas' path. libpll2_tpu also asks that the
+        class-column pool fit its kernel's VMEM budget, a TPU limit the
+        CUDA kernel does not have."""
         return self.repeats_mode and self._pool_kernel_wanted
+
+    @property
+    def asc_type(self) -> int:
+        """The partition's ascertainment-bias correction (C.AscBias
+        value)."""
+        return self.partition.asc_bias.value
+
+    @property
+    def n_real(self) -> int:
+        """The real sites when asc columns follow them, else -1."""
+        return self.partition.sites if self.partition.asc_extra else -1
+
+    @property
+    def ops(self):
+        """The selected path's packed operands: on the fused path (the op
+        table, tip codes, raw tip rows or None), the tip operands re-read
+        through the version-checked cache so that a tip setter called after
+        construction takes effect; else the level tables, the packed
+        Operations or the PoolPlan."""
+        if self.use_fused:
+            return (self.table, self._tip_codes(), self._tip_clvs())
+        return self._ops
 
     @property
     def execution_path(self) -> str:
@@ -401,7 +425,7 @@ class TreeEngine:
         if self.use_levelkernel:
             return "levels-kernel"
         if self.repeats_mode:
-            return "pool-pallas" if self.use_pool_kernel else "pool"
+            return "pool-pallas" if self.use_repeats_pallas else "pool"
         return "levels" if self.levels else "scan"
 
     def _model_args(self):

@@ -126,6 +126,7 @@ def library() -> ctypes.CDLL:
         _I, _I, _I,        # sites, rates, states
         _F, _F,            # threshold, factor
         _I,                # per-rate scalers
+        _I, _I,            # level_fixed_plan: sites a lane, tiles a block
         _P,                # stream
     ]
     lib.pll_level_update.restype = _I
@@ -475,8 +476,75 @@ def launch_fused_traversal_rows(tip_codes: torch.Tensor,
     return out_p, out_c, sc_p, sc_c
 
 
-# a level's ops are the launch grid's y dimension
+# a level's ops are the launch grid's y dimension (the runtime-size
+# variant's)
 LEVEL_MAX_OPS = 65535
+# level_update.cu's 4x4 variant: lanes a block (one a rate, four a site
+# group); its blocks resident on an SM (the launch bounds of each
+# instantiation: 4 sites a lane per site, per rate, and 1 or 2 sites a
+# lane); and the tiles an SM a level must have before a lane takes more
+# than one site
+LEVEL_FIXED_THREADS = 128
+LEVEL_FIXED_BLOCKS_PER_SM = 5
+LEVEL_FIXED_BLOCKS_PER_SM_RATE = 4
+LEVEL_FIXED_BLOCKS_PER_SM_NARROW = 6
+LEVEL_FIXED_MIN_TILES_PER_SM = 2
+
+
+def level_fixed_blocks_per_sm(sites_per_lane: int, rate_scalers: bool) -> int:
+    """The 4x4 level kernel's blocks resident on one SM for one
+    instantiation (its launch bounds)."""
+    if sites_per_lane < 4:
+        return LEVEL_FIXED_BLOCKS_PER_SM_NARROW
+    return LEVEL_FIXED_BLOCKS_PER_SM_RATE if rate_scalers \
+        else LEVEL_FIXED_BLOCKS_PER_SM
+
+
+class LevelFixedPlan(NamedTuple):
+    """How level_update.cu's 4x4 variant runs one level: four neighbouring
+    lanes hold the 4 rates of `sites_per_lane` consecutive sites (4 and 2:
+    16- and 8-byte accesses; 1: the scalar layout); a block's tile is
+    LEVEL_FIXED_THREADS / 4 site groups, `tile` sites of one op; the
+    level's `tiles` (ops x tiles an op, op-major) go to `blocks` blocks in
+    runs of `tiles_per_block`, each block loading its next tile while it
+    stores this one."""
+    sites_per_lane: int
+    tile: int
+    tiles: int
+    tiles_per_block: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=4096)
+def level_fixed_plan(ops: int, sites: int, sms: int, aligned: bool = True,
+                     rate_scalers: bool = False) -> LevelFixedPlan:
+    """The 4x4 level kernel's layout for one level of `ops` ops over
+    `sites` sites on a device with `sms` SMs; `aligned` when the CLV and
+    scaler buffers start on 16 bytes. A lane takes 4 sites where S % 4 ==
+    0, 2 where S % 2 == 0, else 1 (a row's start must be aligned to the
+    access), and fewer while the level would give an SM fewer than
+    LEVEL_FIXED_MIN_TILES_PER_SM tiles (narrow levels: more, shorter
+    threads). Blocks take runs of tiles, as many blocks as the
+    instantiation keeps resident (`level_fixed_blocks_per_sm`) fill the
+    card once. Per-rate counts take the same sites a lane; with 4 of them
+    a lane their runs are longer (4 blocks an SM, not 5). level_update.cu's
+    fixed_plan computes the same and refuses a launch whose layout
+    differs."""
+    if not 1 <= ops <= LEVEL_MAX_OPS or sites < 1 or sms < 1:
+        raise ValueError(f"level_fixed_plan: no plan for {ops} ops, {sites} "
+                         f"sites, {sms} SMs")
+    v = 1 if not aligned else 4 if sites % 4 == 0 else \
+        2 if sites % 2 == 0 else 1
+
+    def per_op(v):
+        return -(-sites // (LEVEL_FIXED_THREADS // 4 * v))
+
+    while v > 1 and ops * per_op(v) < LEVEL_FIXED_MIN_TILES_PER_SM * sms:
+        v //= 2
+    tiles = ops * per_op(v)
+    per = -(-tiles // (level_fixed_blocks_per_sm(v, rate_scalers) * sms))
+    return LevelFixedPlan(v, LEVEL_FIXED_THREADS // 4 * v, tiles, per,
+                          -(-tiles // per))
 
 
 def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
@@ -525,12 +593,22 @@ def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
     for what, t in (("clv", clv2d), ("scaler", scaler),
                     ("pmatrix", pmatrix)):
         _check(t.is_contiguous(), f"{what} must be contiguous", name)
+    layout = (0, 0)  # the runtime-size variant lays itself out
+    if (rates, states) == (4, 4):
+        # the 4x4 variant reads P 16 bytes at a time
+        if pmatrix.data_ptr() % 16:
+            pmatrix = pmatrix.clone()
+        plan = level_fixed_plan(
+            table.shape[1], sites, device_sm_count(dev),
+            (clv2d.data_ptr() | scaler.data_ptr()) % 16 == 0, per_rate)
+        layout = (plan.sites_per_lane, plan.tiles_per_block)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_level_update(
             clv2d.data_ptr(), scaler.data_ptr(), pmatrix.data_ptr(),
             table.data_ptr(), table.stride(0), table.shape[1], sites, rates,
-            states, float(threshold), float(factor), int(per_rate), stream)
+            states, float(threshold), float(factor), int(per_rate), *layout,
+            stream)
     if err != 0:
         raise RuntimeError(f"level_update kernel launch failed: CUDA error "
                            f"{err}")

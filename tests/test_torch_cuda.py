@@ -30,7 +30,7 @@ from libpll2_tpu_torch import Partition, TreeEngine, compute_gamma_cats
 from libpll2_tpu_torch.engine import _fused_loglikelihood
 from libpll2_tpu_torch.io import maps
 from libpll2_tpu_torch.models import load_aa_model
-from libpll2_tpu_torch.ops import fused, levels, pool
+from libpll2_tpu_torch.ops import _kernels, fused, levels, pool
 from libpll2_tpu_torch.ops.pmatrix import update_prob_matrices
 from libpll2_tpu_torch.trees import (create_operations, parse_newick,
                                      random_alignment, random_utree,
@@ -299,7 +299,22 @@ def test_rows_wrapper_rejects_what_it_cannot_take(cuda):
 LEVEL_CASES = ["ragged", "rates3", "states20", "states32", "caterpillar",
                "no_scaler", "partial", "self_child", "states5", "states2",
                "rates16_states32", "states20_wide", "per_rate_states20_wide",
-               "states32_wide"]
+               "states32_wide", "dna_wide", "dna_narrow", "dna_even_sites",
+               "dna_odd_sites", "per_rate_dna_wide", "dna_self_child"]
+# The 4x4 variant's DNA cases on the 16-taxon tree (levels of 5, 3, 3, 2
+# and 1 ops): their sites, and the sites a lane their levels take on a
+# 132-SM H100 (ops/_kernels.py:level_fixed_plan): 60000 sites (4, 16-byte
+# accesses, runs of up to 5 tiles a block), 20000 (4, and 2 on the one-op
+# levels, which would give an SM fewer than 2 tiles at 4), 60002 (2: S % 4
+# == 2), 60001 (1, the scalar layout, with a ragged last tile), and at 700
+# or 1000 sites every level narrowed to 1
+DNA_LEVEL_CASES = {"dna_wide": (60000, {4}), "dna_narrow": (20000, {4, 2}),
+                   "dna_even_sites": (60002, {2}),
+                   "dna_odd_sites": (60001, {1}),
+                   "per_rate_dna_wide": (60000, {4}),
+                   "dna_self_child": (60000, {4}), "caterpillar": (700, {1}),
+                   "ragged": (1000, {1}), "no_scaler": (1000, {1}),
+                   "partial": (1000, {1})}
 
 
 def _level_case(case, device, dtype=torch.float32):
@@ -314,11 +329,15 @@ def _level_case(case, device, dtype=torch.float32):
     its rates over 2 threads, then over 4; other counts over 1, 2, 4)."""
     tree = random_utree([f"t{i}" for i in range(16)], seed=3)
     kw = dict(dtype=dtype)
-    sites = 700 if case == "caterpillar" else 1000
+    sites = DNA_LEVEL_CASES.get(case, (1000,))[0]
     if case.endswith("_wide"):
         case, sites = case[:-len("_wide")], 60000
     if case.startswith("per_rate_"):
         case, kw["rate_scalers"] = case[len("per_rate_"):], True
+    if case == "dna_self_child":
+        kw.update(alphabet="ACGT")
+    elif case.startswith("dna"):
+        case = "dna"
     if case == "caterpillar":
         tree, kw = _caterpillar(80), dict(kw, alphabet="ACGT")
     elif case == "rates3":
@@ -340,9 +359,20 @@ def _level_case(case, device, dtype=torch.float32):
             op.parent_scaler_index = -1
     if case == "partial":
         return part, ops[len(ops) // 2:], ops
-    if case == "self_child":
+    if case in ("self_child", "dna_self_child"):
         return part, [self_child_op(ops, part.tips)], ops
     return part, ops, None
+
+
+def _level_lanes(part, ops):
+    """The sites a lane each level of `ops` launches the 4x4 variant with
+    (the layout the wrapper passes and the kernel's entry checks)."""
+    tables = levels.pack_pallas_levels(ops, part.tips, part.scale_buffers + 1,
+                                       part.scale_buffers)
+    aligned = (part.clv.data_ptr() | part.scale_buffer.data_ptr()) % 16 == 0
+    return {_kernels.level_fixed_plan(
+        t.shape[1], part.sites_padded, _kernels.device_sm_count(part.device),
+        aligned, part.rate_scalers).sites_per_lane for t in tables}
 
 
 def _run_levels(part, ops, level):
@@ -378,6 +408,8 @@ def test_level_kernel_matches_plain_on_card(cuda, case):
     assert float(rel) <= 1e-5
     if case == "caterpillar":
         assert int(part.scale_buffer[:k].max()) > 0
+    if case in DNA_LEVEL_CASES:
+        assert _level_lanes(part, ops) == DNA_LEVEL_CASES[case][1]
 
 
 @pytest.mark.parametrize("states", [4, 20])
