@@ -88,19 +88,23 @@ each fatal on failure:
      one traversal at both sizes, over the caterpillar and over the DNA
      tree with per-rate counts, from torch.profiler, level by level beside
      each level's byte bound, the rate its bytes imply and its layout;
- 12. pool kernel vs plain: ops/pool.py:pool_update (csrc/pool_update.cu)
-     against pool_update_reference over whole op lists on site-repeats
-     partitions, float32, from the same buffers: 24 x 600 DNA, the
-     150-taxon caterpillar x 300 (scaling must trigger), 3 categories (also
-     per rate), 1 category, 20 conserved states (also per rate), 5, 17
-     and 32 states, a partial op list, ops without a scaler buffer,
-     bench.py's 128 x 16384 random columns (repeats off at most inner
-     nodes: identity ops at full width), 64 x 4096 random DNA at 3 rates
-     (a level's ops 16x apart), the 246 x 4465 conserved problem, the
-     128 x 8192 conserved protein and a simulated 128 x 16384 protein;
-     scaler regions equal and class columns within TOL_CLV of each
-     column's max; each runtime-size case launched with the thread layout
-     it names (the plan's launches);
+ 12. pool kernel vs plain: ops/pool.py:update_partials_pool and
+     pool_update (csrc/pool_update.cu) against pool_update_reference over
+     whole op lists on site-repeats partitions, float32, from the same
+     buffers: 24 x 600 DNA, the 150-taxon caterpillar x 300 (scaling must
+     trigger), 3 categories (also per rate), 1 category, 20 conserved
+     states (also per rate), 5, 17 and 32 states, a partial op list, ops
+     without a scaler buffer, bench.py's 128 x 16384 random columns
+     (repeats off at most inner nodes: identity ops at full width), 64 x
+     4096 random DNA at 3 rates (a level's ops 16x apart), the 246 x 4465
+     conserved problem (the 4x4 traversal kernel, one launch a traversal;
+     also a serial-fallback list with write-after-read hazards, two
+     traversals back to back under different P-matrices, each level a
+     launch of its own, and per rate with a grid of more blocks than
+     tickets), the 128 x 8192 conserved protein and a simulated 128 x
+     16384 protein; scaler regions equal and class columns within TOL_CLV
+     of each column's max, the launches counted; each runtime-size case
+     launched with the thread layout it names (the plan's launches);
  13. the site-repeats paths at full width: tools/benchmarks.py:221-254's
      246 taxa x 4465 conserved sites, GTR+G4, through the step-by-step
      chain on Partition(site_repeats=True, device="cuda"), a partial
@@ -110,11 +114,13 @@ each fatal on failure:
      held against its plain version at this shape) and edge_params with
      two rate matrices; and the conserved 128 x 8192 LG+G4 protein on
      'pool-pallas'; each against the float64 plain dense path on the card,
-     pool-kernel launches counted (one per level of each traversal), with
-     the class columns' share of plain work, the pooled buffers' size
-     against the dense ones and the host schedule time;
+     pool-kernel launches counted (one a traversal at 4x4, one a level for
+     the protein), with the class columns' share of plain work, the pooled
+     buffers' size against the dense ones and the host schedule time;
  14. times at 246 x 4465: the pool kernel over one traversal and its plain
-     version (and its bound from the class counts), the fused kernel and
+     version (and its bound from the class counts), its device time (one
+     launch, beside the traversal's bound and its levels' own bounds
+     summed) and host enqueue time, the fused kernel and
      its plain version on the 'repeats-dense-fused' inputs,
      loglikelihood() on 'pool-pallas', 'repeats-dense-fused' and a dense
      partition's fused path, one step-by-step traversal; and torch.matmul
@@ -139,15 +145,17 @@ and prints them as one JSON line: two commits compared on one card.
 `--fused-only CHECKOUT` does the same for the DNA fused kernel: its call
 and device times on the DNA main path, per rate, with all tips raw and on
 the 246 x 4465 'repeats-dense-fused' inputs. `--pool-only CHECKOUT` does
-the same for the pool kernel: its call time and its device time level by
-level on the conserved 128 x 8192 protein (per site and per rate), the
-246 x 4465 DNA problem with 3 rates, the conserved 128 x 8192 problem at
-5, 17 and 32 states, and the 4x4 variant on the 246 x 4465 DNA problem as
-a control. `--levels-only CHECKOUT` does the same for the level kernel: its
-call time, its host enqueue time and its device time level by level on the
-DNA main path's tree per site and per rate, on the 80-taxon caterpillar at
-16384 sites, and on the protein tree (the runtime-size variant) as a
-control.
+the same for the pool kernel: its call, host enqueue and device times (a
+level's launch at a time for the runtime-size variant) on the conserved
+128 x 8192 protein (per site and per rate), the 246 x 4465 DNA problem
+with 3 rates, the conserved 128 x 8192 problem at 5, 17 and 32 states,
+and the 4x4 kernel on the 246 x 4465 DNA problem per site and per rate,
+with its 'pool-pallas' loglikelihood() and step-by-step traversal and the
+time to build its device plan. `--levels-only CHECKOUT` does the same for the
+level kernel: its call time, its host enqueue time and its device time
+level by level on the DNA main path's tree per site and per rate, on the
+80-taxon caterpillar at 16384 sites, and on the protein tree (the
+runtime-size variant) as a control.
 `--profile DIR` also writes a torch.profiler breakdown of one
 loglikelihood() and one newton_step() of each main path (fused and
 levels-kernel) to DIR/profile.txt.
@@ -1332,42 +1340,79 @@ def conserved_protein(aa_tree, aa_by, states=20):
     return by, make
 
 
-def run_pool(part, ops, level):
-    """`ops` through ops/pool.py level by level on `part`'s pooled buffers,
-    each level run by `level` (the wrapper or its plain version); returns
-    the number of levels."""
+def run_pool(part, ops, level=None):
+    """`ops` through ops/pool.py on `part`'s pooled buffers: the whole plan
+    through update_partials_pool, by default on the plan's kernels (the
+    4x4 traversal kernel in one launch), or a level at a time through a
+    given `level` (the wrapper, or its plain version); returns the number
+    of levels."""
     from libpll2_tpu_torch.ops import pool
 
     plan = part._pool_plan(ops, True)
+    # another checkout's update_partials_pool may take no level of None
+    kw = {} if level is None else {"level": level}
     pool.update_partials_pool(part.clv_flat, part.sc_flat, part.pmatrix,
                               plan, part.scale_threshold, part.scale_factor,
-                              level=level)
+                              **kw)
     return len(plan.tables)
 
 
+def pool_traversal_of(plan):
+    """The plan's 4x4 traversal (one launch a traversal), or None: the
+    runtime-size variant, or a package whose 4x4 kernel runs a level a
+    launch (another checkout's)."""
+    return getattr(plan, "traversal", None)
+
+
+def pool_launches(plan) -> int:
+    """The pool-kernel launches of one traversal of `plan` through
+    update_partials_pool."""
+    return 1 if pool_traversal_of(plan) is not None else len(plan.tables)
+
+
 def compare_pool_case(name, part, ops, first=None, must_scale=False,
-                      layouts=None):
+                      layouts=None, level=None, p_sets=None):
     """Pool kernel vs its plain version over a whole op list on the card,
     from the same buffers (after `first`, the list that must run before a
     partial one): scaler regions equal but at ties (`match_counts`; the
-    trash region aside: ops without a scaler buffer of one level write it
-    at once), the zero region zero, class columns within TOL_CLV of each
-    column's max. The runtime-size variant's levels must run with the
-    threads a column in `layouts` (a set, each at least once; None: the
-    4x4 variant). Returns (max relative error, max absolute error)."""
+    trash region aside: ops without a scaler buffer write it at once), the
+    zero region zero, class columns within TOL_CLV of each column's max.
+    The runtime-size variant's levels must run with the threads a column
+    in `layouts` (a set, each at least once; None: the 4x4 traversal
+    kernel, one launch a traversal). `level` "levels" runs each level
+    through the wrapper on its own (the 4x4 kernel one level a launch).
+    `p_sets` (two functions that set the P-matrices) runs two traversals
+    back to back, the first after p_sets[0], the second after p_sets[1].
+    Returns (max relative error, max absolute error)."""
     import torch
     from libpll2_tpu_torch.ops import pool
 
     if first is not None:
-        run_pool(part, first, pool.pool_update)
-    part._pool_plan(ops, True)              # lays the pool out, computes none
+        run_pool(part, first)
+    plan = part._pool_plan(ops, True)       # lays the pool out, computes none
     clv, sc = part.clv_flat.clone(), part.sc_flat.clone()
-    n_levels = run_pool(part, ops, pool.pool_update)
+    runs = p_sets or (lambda: None,)
+
+    def run(how):
+        n = 0
+        for set_p in runs:
+            set_p()
+            n += run_pool(part, ops, how)
+        return n
+
+    before = pool.pool_update.launches
+    n_levels = run(pool.pool_update if level == "levels"
+                   else None) // len(runs)
+    launched = pool.pool_update.launches - before
     got_clv, got_sc = part.clv_flat.clone(), part.sc_flat.clone()
     part.clv_flat.copy_(clv)
     part.sc_flat.copy_(sc)
-    run_pool(part, ops, pool.pool_update_reference)
+    run(pool.pool_update_reference)
     torch.cuda.synchronize()
+    want_launches = len(runs) * (n_levels if level == "levels"
+                                 else pool_launches(plan))
+    check(launched == want_launches, f"{name}: {launched} pool-kernel "
+          f"launches, expected {want_launches}")
     lay = part._flat
     # a scaler region holds the classes of the node that wrote it
     col_of = torch.full((lay.sc_trash,), -1, dtype=torch.long)
@@ -1396,20 +1441,22 @@ def compare_pool_case(name, part, ops, first=None, must_scale=False,
     rel, abs_err = float((err / col_max).max()), float(err.max())
     scaled = int(part.sc_flat[..., :lay.sc_trash].max()) if lay.sc_trash \
         else 0
-    widths = part._repeat_schedule.widths
-    ran = pool_layouts(part, part._repeat_schedule)
+    widest = max(int(t[8].max()) for t in plan.tables)
+    ran = pool_layouts(part, plan)
     print(f"pool kernel vs plain [{name}]: {part.tips} taxa x {part.sites} "
           f"sites, {part.states} states, {part.rate_cats} rates"
           + (" (per-rate counts)" if part.rate_scalers else "")
           + f", {len(ops)} "
-          f"ops in {n_levels} levels (widest {max(widths)}), pool "
-          f"{lay.total} columns, {layout_text(ran)}: scaler regions equal "
+          f"ops in {n_levels} levels (widest {widest}), pool "
+          f"{lay.total} columns, {layout_text(ran)}, {launched} "
+          f"launch{'es' if launched > 1 else ''}: scaler regions equal "
           f"(max {scaled}" + (f"; {ties} ties" if ties else "") + "), "
           f"max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}", flush=True)
     check(rel <= TOL_CLV, f"{name}: max_rel_err {rel:.3e} > {TOL_CLV}")
-    got = None if ran is None else {lay.rate_threads for lay in ran}
+    got = None if not isinstance(ran, list) else {
+        lay.rate_threads for lay in ran}
     check(got == layouts, f"{name}: ran {layout_text(ran)}, expected "
-          + ("the 4x4 variant" if layouts is None else
+          + ("the 4x4 traversal kernel" if layouts is None else
              f"{sorted(layouts)} threads a column"))
     if must_scale:
         check(scaled > 0, f"{name}: scaling never triggered")
@@ -1417,14 +1464,20 @@ def compare_pool_case(name, part, ops, first=None, must_scale=False,
 
 
 def pool_cases(device, big, big_by, flagship, aa_make):
-    """Phase 12. Each runtime-size case names the threads a column its
-    levels launch with (ops/_kernels.py:pool_plan, read from the plan's
-    launches): a column's rates split over the largest power of two up to
-    4 that the rates fill (1 thread at 1 rate, 2 at 3 rates, 4 at 4); the
+    """Phase 12. The 4x4 cases run the traversal kernel, one launch a
+    traversal, and also a serial-fallback list with write-after-read
+    hazards, two traversals back to back, each level a launch of its own
+    and a grid of more blocks than tickets. Each runtime-size case names
+    the threads a column its levels launch with (ops/_kernels.py:
+    pool_plan, read from the plan's launches): a column's rates split over
+    the largest power of two up to 4 that the rates fill (1 thread at 1
+    rate, 2 at 3 rates, 4 at 4); the
     simulated 128 x 16384 protein has levels up to 196,608 columns wide,
     its blocks taking runs of tiles; the 64 x 4096 random DNA holds a
     level whose ops differ 16x in width. Returns the largest absolute
     error."""
+    import copy
+
     from libpll2_tpu_torch.trees import (parse_newick, random_alignment,
                                          random_utree)
 
@@ -1480,6 +1533,41 @@ def pool_cases(device, big, big_by, flagship, aa_make):
                            rate_cats=3), t64, layouts={2})
     tree, _, make = flagship
     case(f"{REP_TAXA} x {REP_SITES} conserved", make(device), tree)
+    # the 4x4 traversal kernel: a serial-fallback list, the traversal and
+    # then the first half of its postorder again with each op's P-matrices
+    # swapped, which rewrites nodes whose parents the traversal read and
+    # that half leaves (write after read and after write, which the final
+    # pools show); two traversals back to back under different
+    # P-matrices (the counters zeroed before each); each level a launch
+    # of its own; and a grid past the card's resident blocks
+    part = make(device)
+    ops, br, pidx = traversal_ops(part, tree)
+    again = [copy.copy(o) for o in ops[:len(ops) // 2]]
+    for o in again:
+        o.child1_matrix_index, o.child2_matrix_index = \
+            o.child2_matrix_index, o.child1_matrix_index
+    max_abs = max(max_abs, compare_pool_case(
+        "a serial-fallback list: the traversal, then its first half again "
+        "with swapped P-matrices", part, ops + again)[1])
+    br2 = [b * 1.7 for b in br]
+    params = [0] * part.rate_cats
+    max_abs = max(max_abs, compare_pool_case(
+        "two traversals back to back", part, ops, p_sets=(
+            lambda: part.update_prob_matrices(params, pidx, br),
+            lambda: part.update_prob_matrices(params, pidx, br2)))[1])
+    part.update_prob_matrices(params, pidx, br)
+    max_abs = max(max_abs, compare_pool_case(
+        "each level a launch", part, ops, level="levels")[1])
+    part = make(device, rate_scalers=True)
+    ops = traversal_ops(part, tree)[0]
+    plan = part._pool_plan(ops, True)
+    trav = plan.traversal
+    big_grid = trav.plan._replace(blocks=4 * trav.plan.tiles)
+    part._repeat_schedule = plan._replace(traversal=trav._replace(
+        plan=big_grid))
+    max_abs = max(max_abs, compare_pool_case(
+        f"per-rate, a grid of {big_grid.blocks} blocks for "
+        f"{big_grid.tiles} tickets", part, ops)[1])
     aa_tree, make_aa = aa_make
     case(f"protein {AA_TAXA} x {AA_SITES} conserved", make_aa(device),
          aa_tree, layouts={4})
@@ -1598,7 +1686,9 @@ def repeats_main_path(device, tree, make, label, dense_ref):
           f"{len(ops)} ops in {n_levels} levels; class columns "
           f"{cols} = {cols / plain_cols:.4f} of plain work ({work} computed "
           f"with the bucket widths, {work / plain_cols:.4f}); host schedule "
-          f"{sched_ms:.1f} ms", flush=True)
+          f"{sched_ms:.1f} ms, then its device plan (pack_pool_levels and "
+          f"plan_to_device) {plan_build_ms(part, ops):.2f} ms (median of "
+          f"5)", flush=True)
 
     pool.pool_update.launches = 0
     fused.fused_traversal.launches = 0
@@ -1655,14 +1745,18 @@ def repeats_main_path(device, tree, make, label, dense_ref):
     lnl_ep = eng_ep.loglikelihood()
     torch.cuda.synchronize()
     launches = pool.pool_update.launches
-    expected = 7 * n_levels + n_partial
+    # the 4x4 traversal kernel launches once a traversal, the runtime-size
+    # variant once a level
+    per = pool_launches(eng._ops)
+    expected = 7 * per + (1 if per == 1 else n_partial)
     fused_launches = (fused.fused_traversal.launches
                       + fused.fused_traversal_rows.launches)
     print(f"  pool-kernel launches: {launches} (2 step-by-step traversals + "
           f"1 partial of {len(partial)} ops in {n_partial} levels + 4 "
-          f"engine evaluations + 1 with edge_params; expected {expected}); "
-          f"fused {fused_launches}, level {lv.level_update.launches}",
-          flush=True)
+          f"engine evaluations + 1 with edge_params, "
+          f"{'one launch a traversal' if per == 1 else 'a level a launch'}"
+          f"; expected {expected}); fused {fused_launches}, level "
+          f"{lv.level_update.launches}", flush=True)
     check(launches == expected, f"{launches} pool-kernel launches, expected "
           f"{expected}")
     check(fused_launches + lv.level_update.launches == 0,
@@ -1743,7 +1837,7 @@ def protein_repeats_path(device, aa_tree, make_aa):
     step = eng.newton_step()
     torch.cuda.synchronize()
     launches = pool.pool_update.launches
-    check(launches == 2 * len(eng._ops.tables),
+    check(launches == 2 * pool_launches(eng._ops),
           f"{launches} pool launches for 2 evaluations of "
           f"{len(eng._ops.tables)} levels")
     ops, _, _ = create_operations(traverse(aa_tree.vroot))
@@ -1809,8 +1903,9 @@ def repeats_times(part, engines, dense, levels, tree, gpu):
     cols, _ = pool.pool_work(levels)
     print(f"repeats times, {part.tips} x {part.sites} (median of {REPS}, "
           f"CUDA events; {gpu}): pool kernel over {len(plan.tables)} levels "
-          f"{kernel:.4f} ms ({cols / kernel / 1e6:.3f} G class-column "
-          f"updates/s; bound {bound:.4f} ms by {by}), plain {plain:.4f} ms; "
+          f"in {pool_launches(plan)} launch(es) {kernel:.4f} ms "
+          f"({cols / kernel / 1e6:.3f} G class-column updates/s; bound "
+          f"{bound:.4f} ms by {by}), plain {plain:.4f} ms; "
           f"fused kernel on the repeats-dense-fused inputs {f_kernel:.4f} ms "
           f"(bound {f_bound[0]:.4f} ms by {f_bound[1]}), plain "
           f"{f_plain:.4f} ms; "
@@ -1826,10 +1921,12 @@ def repeats_times(part, engines, dense, levels, tree, gpu):
 def pool_layouts(part, plan):
     """The layout each level of `plan` launches the runtime-size pool
     kernel with (the plan's launches, which the wrapper passes to the
-    kernel); None for the 4x4 variant, "unplanned" for a package without
-    them (another checkout's)."""
+    kernel); for the 4x4 size the traversal kernel's plan, or "levels" for
+    a package that runs it a level a launch (another checkout's);
+    "unplanned" for a package without launches."""
     if (part.rate_cats, part.states) == (4, 4):
-        return None
+        trav = pool_traversal_of(plan)
+        return "levels" if trav is None else trav.plan
     if not hasattr(plan, "launches"):
         return "unplanned"
     return list(plan.launches)
@@ -1837,10 +1934,13 @@ def pool_layouts(part, plan):
 
 def layout_text(layouts) -> str:
     """Each thread layout of `pool_layouts` with its number of levels."""
-    if layouts is None:
-        return "4x4 variant"
+    if layouts == "levels":
+        return "4x4 variant, a level a launch"
     if layouts == "unplanned":
         return "runtime-size variant without a plan"
+    if not isinstance(layouts, list):
+        return (f"4x4 traversal kernel: {layouts.tiles} tickets, "
+                f"{layouts.blocks} blocks")
     seen = {}
     for lay in layouts:
         seen[lay.rate_threads] = seen.get(lay.rate_threads, 0) + 1
@@ -1852,10 +1952,12 @@ def layout_text(layouts) -> str:
 def pool_device(label, part, ops, gpu):
     """Phase 14 (and `--pool-only`): the pool kernel's device time over one
     traversal of `ops` on `part` (P-matrices set), from
-    `launches_device_us`, printed level by level beside each level's
-    computed and class columns, its threads a column (the warps its rates
-    are split over) and its own bound (`pool_level_bounds`).
-    Returns (device ms, [us a level], [bound us a level], [(computed,
+    `launches_device_us`: the 4x4 traversal kernel as one launch, beside
+    the traversal's bound and the sum of its levels' own bounds
+    (`pool_level_bounds`); a kernel launched a level at a time level by
+    level, beside each level's computed and class columns, its threads a
+    column (the warps its rates are split over) and its own bound.
+    Returns (device ms, [us a launch], [bound us a level], [(computed,
     class) columns a level], [threads a column a level, or None])."""
     import copy
 
@@ -1865,7 +1967,7 @@ def pool_device(label, part, ops, gpu):
     args = (part.clv_flat, part.sc_flat, part.pmatrix, plan,
             part.scale_threshold, part.scale_factor)
     per = launches_device_us(lambda: pool.update_partials_pool(*args),
-                             "pool_", len(plan.tables))
+                             "pool_", pool_launches(plan))
     _, lv = pool.schedule_pool_levels(copy.deepcopy(part.repeats), ops,
                                       part.tips, part.sites_padded,
                                       part.scale_buffers)
@@ -1875,23 +1977,71 @@ def pool_device(label, part, ops, gpu):
     bounds = pool_level_bounds(part, lv)
     layouts = pool_layouts(part, plan)
     lays = ([lay.rate_threads for lay in layouts]
-            if isinstance(layouts, list) else [None] * len(per))
+            if isinstance(layouts, list) else [None] * len(lv))
     device = sum(per) * 1e-3
     bound = pool_bound(part, lv)
-    print(f"pool kernel device time, {label}, {part.tips} x {part.sites}, "
-          f"{s} states x {R} rates{' (per-rate)' if part.rate_scalers else ''}"
-          f" (torch.profiler, median of 5 traversals per level; {gpu}): "
-          f"{device * 1e3:.1f} us over {len(per)} levels "
-          f"({device / bound[0]:.2f}x the bound {bound[0]:.4f} ms by "
-          f"{bound[1]}); "
-          f"{layout_text(layouts)}; by level (ops, computed/class columns, "
-          f"threads a column: us, its bound in us) "
-          + ", ".join(f"({len(level)}, {c}/{n}, {t or '-'}: {u:.1f} / "
-                      f"{b:.1f})"
-                      for level, (c, n), t, u, b in zip(lv, cols, lays,
-                                                        per, bounds)),
-          flush=True)
+    head = (f"pool kernel device time, {label}, {part.tips} x {part.sites}, "
+            f"{s} states x {R} rates"
+            f"{' (per-rate)' if part.rate_scalers else ''} (torch.profiler, "
+            f"median of 5 traversals per launch; {gpu}): "
+            f"{device * 1e3:.1f} us over {len(lv)} levels in {len(per)} "
+            f"launch{'es' if len(per) > 1 else ''} "
+            f"({device / bound[0]:.2f}x the bound {bound[0]:.4f} ms by "
+            f"{bound[1]}; {device * 1e3 / sum(bounds):.2f}x the levels' own "
+            f"bounds, {sum(bounds):.2f} us summed); {layout_text(layouts)}")
+    if len(per) == 1 and len(lv) > 1:
+        print(f"{head}; levels (ops, computed/class columns: their own "
+              f"bound in us) "
+              + ", ".join(f"({len(level)}, {c}/{n}: {b:.2f})"
+                          for level, (c, n), b in zip(lv, cols, bounds)),
+              flush=True)
+    else:
+        print(f"{head}; by level (ops, computed/class columns, threads a "
+              f"column: us, its bound in us) "
+              + ", ".join(f"({len(level)}, {c}/{n}, {t or '-'}: {u:.1f} / "
+                          f"{b:.1f})"
+                          for level, (c, n), t, u, b in zip(lv, cols, lays,
+                                                            per, bounds)),
+              flush=True)
     return device, per, bounds, cols, lays
+
+
+def plan_build_ms(part, ops, reps=5) -> float:
+    """The host's time (ms, median of `reps`) to build the device plan of
+    `ops` on `part` from its scheduled levels: ops/pool.py's
+    pack_pool_levels and plan_to_device (at 4x4 also the wait lists, the
+    tickets and their copy), synchronised."""
+    import copy
+
+    import torch
+    from libpll2_tpu_torch.ops import pool
+
+    layout, levels = pool.schedule_pool_levels(
+        copy.deepcopy(part.repeats), ops, part.tips, part.sites_padded,
+        part.scale_buffers)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pool.plan_to_device(*pool.pack_pool_levels(layout, levels),
+                            part.device, part.rate_cats, part.states)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def pool_host_ms(part, ops, gpu) -> float:
+    """Phase 14: the host's time to enqueue one pool traversal of `ops` on
+    `part` (`host_ms`, least of 100), printed beside its median."""
+    from libpll2_tpu_torch.ops import pool
+
+    plan = part._pool_plan(ops, True)
+    args = (part.clv_flat, part.sc_flat, part.pmatrix, plan,
+            part.scale_threshold, part.scale_factor)
+    least, median = host_ms(lambda: pool.update_partials_pool(*args))
+    print(f"pool kernel host enqueue, {part.tips} x {part.sites} "
+          f"({pool_launches(plan)} launch(es); {gpu}): {least:.4f} ms "
+          f"least of 100, {median:.4f} ms median", flush=True)
+    return least
 
 
 def protein_pool_times(device, aa_tree, make_aa, gpu):
@@ -1929,13 +2079,20 @@ def protein_pool_times(device, aa_tree, make_aa, gpu):
 def pool_only(device, gpu) -> dict:
     """`--pool-only`: the pool kernel's call time (ms, CUDA events), the
     host's time to enqueue it (`host_ms`) and its device time
-    (`pool_device`, level by level) over one traversal, of the
-    package that was imported, which may be another checkout's: the
-    conserved 128 x 8192 LG+G4 protein, per site and per rate; the 246 x
-    4465 DNA problem with 3 rates (the runtime-size variant at 4 states);
-    the conserved 128 x 8192 problem at 5, 17 and 32 states; and the 246 x
-    4465 DNA problem (the 4x4 variant), as a control."""
+    (`pool_device`) over one traversal, of the package that was imported,
+    which may be another checkout's: the conserved 128 x 8192 LG+G4
+    protein, per site and per rate; the 246 x 4465 DNA problem with 3
+    rates (the runtime-size variant at 4 states); the conserved 128 x 8192
+    problem at 5, 17 and 32 states; and the 246 x 4465 DNA problem at 4x4,
+    per site and per rate, with its 'pool-pallas' loglikelihood() and one
+    step-by-step traversal (update_partials and the edge logL), and the
+    150-taxon caterpillar x 300 (148 levels of one op: the chain of
+    dependent levels alone), each 4x4 case first held against the plain
+    version (`compare_pool_case`); at 246 x 4465 4x4 per site also the
+    time to build the device plan (`plan_build_ms`)."""
+    from libpll2_tpu_torch import TreeEngine
     from libpll2_tpu_torch.ops import pool
+    from libpll2_tpu_torch.trees import parse_newick
 
     aa_tree, aa_by = protein_alignment()
     rep_tree, _, rep_make = flagship_repeats()
@@ -1950,10 +2107,18 @@ def pool_only(device, gpu) -> dict:
             lambda st=states: (conserved_protein(aa_tree, aa_by,
                                                  st)[1](device), aa_tree))
     cases["dna_4x4"] = lambda: (rep_make(device), rep_tree)
+    cases["dna_4x4_per_rate"] = lambda: (rep_make(device, rate_scalers=True),
+                                         rep_tree)
+    cat = parse_newick(caterpillar_newick(150))
+    cases["dna_4x4_caterpillar"] = lambda: (repeats_partition(
+        cat, simulated(cat, 300, 13, freqs=FREQS_24, subst=SUBST_24), 300,
+        device), cat)
     out = {}
     for key, build in cases.items():
         part, tree = build()
         ops = step_by_step(part, tree, derivatives=False)[0]
+        if key.startswith("dna_4x4"):
+            compare_pool_case(key, part, ops)
         plan = part._pool_plan(ops, True)
         args = (part.clv_flat, part.sc_flat, part.pmatrix, plan,
                 part.scale_threshold, part.scale_factor)
@@ -1961,10 +2126,35 @@ def pool_only(device, gpu) -> dict:
         host = host_ms(lambda: pool.update_partials_pool(*args))
         dev, per, bounds, cols, lays = pool_device(key, part, ops, gpu)
         out[key] = {"ms": ms, "host_ms": host, "device_ms": dev,
-                    "level_device_us": per, "level_bound_us": bounds,
+                    "launch_device_us": per, "level_bound_us": bounds,
                     "level_columns": cols, "level_threads_per_column": lays}
+        extra = ""
+        if key in ("dna_4x4", "dna_4x4_per_rate"):
+            r = tree.vroot
+            edge = (r.clv_index, r.scaler_index, r.back.clv_index,
+                    r.back.scaler_index, r.pmatrix_index,
+                    [0] * part.rate_cats)
+
+            def step():
+                part.update_partials(ops)
+                part.compute_edge_loglikelihood(*edge)
+
+            eng = TreeEngine(part, tree, pallas="pool")
+            check(eng.execution_path == "pool-pallas",
+                  f"{key}: execution_path is {eng.execution_path!r}")
+            out[key].update(interleaved_ms({"loglikelihood_ms":
+                                            eng.loglikelihood,
+                                            "step_ms": step}))
+            extra = (f"; 'pool-pallas' loglikelihood() "
+                     f"{out[key]['loglikelihood_ms']:.4f} ms, step-by-step "
+                     f"traversal {out[key]['step_ms']:.4f} ms (in turns)")
+        if key == "dna_4x4":
+            out[key]["plan_ms"] = plan_build_ms(part, ops)
+            extra += (f"; device plan built in {out[key]['plan_ms']:.2f} "
+                      f"ms (median of 5)")
         print(f"  pool kernel call, {key}: {ms:.4f} ms; host enqueue "
-              f"{host[0]:.4f} ms least, {host[1]:.4f} median", flush=True)
+              f"{host[0]:.4f} ms least, {host[1]:.4f} median{extra}",
+              flush=True)
         del part, plan, args
     return out
 
@@ -2892,10 +3082,9 @@ def repeats_slice_paths(device, tree, make):
                    "repeats-dense-fused newton_step": eng_rdf.newton_step()}
         torch.cuda.synchronize()
         got = counts()
-        n_levels = len(eng_pool._ops.tables)
         check_counts(f"repeats {label} (2 pooled + 2 dense-fused "
-                     f"evaluations)", got, {"pool": 2 * n_levels,
-                                            "fused": 2})
+                     f"evaluations)", got,
+                     {"pool": 2 * pool_launches(eng_pool._ops), "fused": 2})
         pool_total += got["pool"]
         fused_total += got["fused"]
         ref = f64_edge(make(device, repeats=False, **options), ops, blen,
@@ -3256,6 +3445,8 @@ def main() -> int:
     bounds["pool_update"] = pool_ms[2]
     rep_fused_dev = fused_device("repeats-dense-fused", rep[2], rep[3][1],
                                  gpu)
+    rep_pool_dev = pool_device("repeats DNA", rep[2], rep[4], gpu)[0]
+    rep_pool_host = pool_host_ms(rep[2], rep[4], gpu)
     aa_pool = protein_pool_times(device, aa_tree, aa_make, gpu)
 
     # 15. the new variants of kernels 1, 2, 3 and 5 vs plain on the card
@@ -3278,6 +3469,8 @@ def main() -> int:
 
     # 17. times of the new variants
     var_ms = slice_times(var_keep, gpu)
+    pr_pool_dev = pool_device("repeats DNA", *var_keep["pool_per_rate"],
+                              gpu)[0]
 
     # 18. the matrix-unit probe
     probe_entry = probe_phase(gpu)
@@ -3378,6 +3571,10 @@ def main() -> int:
         "launches": pool_launches, "max_abs_err": pool_max_abs,
         "ms": pool_ms[0], "plain_ms": pool_ms[1],
         **bound("pool_update"),
+        "dna_traversal_device_us": rep_pool_dev * 1e3,
+        "dna_host_enqueue_ms": rep_pool_host,
+        "dna_level_bounds_us": sum(pool_level_bounds(rep[2], rep[5])),
+        "per_rate_device_us": pr_pool_dev * 1e3,
         "protein_ms": aa_pool[0], "protein_plain_ms": aa_pool[1],
         "protein_device_ms": aa_pool[3][0],
         "protein_bound_ms": aa_pool[2][0],

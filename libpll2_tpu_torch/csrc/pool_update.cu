@@ -1,18 +1,23 @@
-// One dependency level of site-repeats pruning ops over the pooled class
-// columns per launch, parent columns written in place.
+// Site-repeats pruning ops over the pooled class columns, parent columns
+// written in place: the 4x4 size (DNA) runs a whole plan in one launch,
+// other sizes one dependency level a launch.
 //
 // Replaces the TPU kernel libpll2_tpu/ops/pallas_repeats.py:45 `_run_kernel`
 // (reached through `pool_pallas`). That kernel runs one call per (width
 // bucket, identity profile) run of ops and leans on the TPU's grid steps
-// running in order, since a bucket may hold a parent and its own child. CUDA
-// blocks run in no order, so the host (libpll2_tpu_torch/ops/pool.py)
-// schedules by dependency levels and this kernel runs one level. The TPU
-// kernel's block-band tables, 128-lane gather loop, float scaler rows and
-// identity-profile split have no counterpart: a thread reads its child
-// column gl[c] directly. The plain PyTorch version it must agree with is
+// running in order, since a bucket may hold a parent and its own child
+// (pallas_repeats.py:13-15). CUDA blocks run in no order. The 4x4 kernel
+// restores the TPU kernel's shape with counters in device memory: tiles
+// are claimed in the host's level order from an atomic ticket, and a tile
+// waits until the ops it depends on have finished, which is what the TPU's
+// in-order grid gave for free. The runtime-size kernel runs one level of
+// ops/levels.py:schedule_levels a launch. The TPU kernel's block-band
+// tables, 128-lane gather loop, float scaler rows and identity-profile
+// split have no counterpart: a lane reads its child column gl[c]
+// directly. The plain PyTorch version both must agree with is
 // ops/pool.py:pool_update_reference.
 //
-// What it computes. A level table [11, ld] int64 (column k is op k):
+// What they compute. A table [11, ld] int64 (column k is op k):
 //   p_off, psc_off, c1_off, m1, s1_off, c2_off, m2, s2_off, W, g_off, has.
 // For each op and parent class column c < W, with gl = gl_all[g_off + c] and
 // gr = gr_all[g_off + c] (child class indices):
@@ -25,30 +30,92 @@
 // per-rate mode (rate_scalers != 0; sc [R, T2]) each rate's block is
 // compared with the threshold and rescaled on its own, and every scaler
 // region holds one count row per rate. libpll2_tpu refuses per-rate scalers
-// in its pool kernel and runs XLA; this kernel has the mode.
+// in its pool kernel and runs XLA; these kernels have the mode.
+// Padding columns (W past the parent's class count) gather class 0 and are
+// computed like the others: the plain version writes them too.
 //
 // Why in place is safe. Every node and every scaler index owns its own
-// pooled region, and the host (ops/levels.py:schedule_levels) puts no two
-// ops in a level where one writes a region another reads or writes. An op
-// whose parent is its own child is refused on the host
-// (ops/pool.py:pack_pool_levels): here one thread's child column is another
-// thread's parent column. So no child column changes during a launch, and
-// the runtime-size variant reads them through the read-only cache.
+// pooled region. An op whose parent is its own child is refused on the
+// host (ops/pool.py:pack_pool_levels): one lane's child column is another
+// lane's parent column. The runtime-size kernel runs one level, whose ops
+// neither read nor write a region another writes (schedule_levels), so no
+// child column changes during its launch and it reads children through
+// the read-only cache. The 4x4 kernel's ops do write what later ops of the
+// same launch read; its ordering is below.
 //
-// What bounds it on an H100. Per parent class column it gathers two child
-// columns and writes one (3 * R * s floats, 4 bytes each), and reads and
-// writes 3 scaler and 2 gather int32s, against 4 * R * s * s + R * s FLOP:
-// 1.3 FLOP per byte for DNA (R = s = 4), 6.6 for 20 states, below the
-// card's 20 FLOP per byte (67 TFLOP/s float32 over 3.35 TB/s). The total is
-// set by the data's class counts: chip_smoke.py computes it from them. But
-// a level is narrow: the conserved 128 x 8192 LG+G4 protein computes
-// 8,192-33,792 class columns a level (62-256 an SM), so a level's time is
-// its latency chain (tile map, op, gather map, child columns, the FMAs,
-// the store) and how busy its few warps keep an SM.
+// The 4x4 kernel (pool_traversal), one launch a traversal:
+// - The host lays every level's tiles out in one ticket list, in level
+//   order, and each op's wait list in CSR arrays
+//   (ops/pool.py:traversal_arrays): the last earlier writer of each region
+//   it reads (read after write), the last earlier writer and every reader
+//   since of the regions it writes (write after write, write after read);
+//   the trash and zero scaler regions make none. A block takes its next
+//   tile from an atomic ticket counter, never from blockIdx. Before it
+//   reads a child, one lane of warp 0 a listed op spins (ld.acquire.gpu,
+//   __nanosleep backoff of 16-64 ns) until that op's finished-tile count
+//   reaches its tile count; a barrier releases the block. After its
+//   stores, the block meets at a barrier and one thread adds one to its
+//   op's count with a release reduction (red.release.gpu). Each count, and
+//   the ticket counter, has a 128-byte line of its own. An op starts as
+//   soon as its own inputs are done, not when a whole level is.
+// - It cannot deadlock, whatever the grid: tickets are drawn in order, a
+//   block draws only while resident and keeps its tile until it is done,
+//   and a tile waits only on ops before it in the list, whose tiles hold
+//   smaller tickets. So the smallest unfinished ticket has nothing left to
+//   wait on. A grid larger than the card's resident blocks is safe too.
+// - The counters are zeroed by a cudaMemsetAsync that the C entry enqueues
+//   on the launch's stream just before the kernel, so every launch starts
+//   from zero whatever the last one left; one plan must not run on two
+//   streams at once. (A reset inside the kernel, by the block of the last
+//   ticket once every op's count was complete, saved ~2 us of host
+//   enqueue and nothing in the call, and its first form hung on the card:
+//   PERF.md, Findings.)
+// - Reads: the tickets, wait lists, table, gather maps and P are read-only
+//   for the launch and go through the read-only path (ld.global.nc). Child
+//   columns and counts, which a block of the same launch may have written,
+//   are never read through it: they are plain cached loads (ld.global.ca)
+//   after the acquire and the barrier, which order them after the writer's
+//   release (a gpu-scope acquire leaves no stale L1 line behind it). A
+//   tile with an empty wait list reads only regions no op of the launch
+//   wrote before it. Cached, the gathers of one class column by many
+//   parent columns hit L1: 39.6-40.0 us against 44.9-46.5 through L2
+//   (ld.global.cg), whose traffic slowed the tiles at work on one SM.
+// - Four neighbouring lanes hold the 4 rates of one class column, as in
+//   level_update.cu's 4x4 variant: a lane keeps its rate's two 4x4
+//   P-matrices in 32 registers, loaded once a tile (a tile is one op) in 8
+//   16-byte loads, and the per-site rescale test is one warp vote over the
+//   4 lanes; per rate none is needed. A block of 128 lanes computes a tile
+//   of 64 class columns in 2 passes of 32 whose loads are in flight
+//   together, and the grid fills the card once (6 blocks an SM:
+//   ops/_kernels.py:pool_fixed_plan).
+// - A block draws its next ticket as soon as it starts a tile and loads
+//   what is read-only (op, gather entries, P) before it waits, so that the
+//   chain from one op's last store to the next op's first load is the
+//   release, the acquire and the child loads.
+// - Timed on an H100 against copies of this kernel (PERF.md, Findings):
+//   tiles of 64 columns beat 32 and 128; counters on lines of their own
+//   and the release reduction beat packed counters and a fence; cached
+//   child loads beat L2-only ones; P in shared memory at 10-16 blocks an
+//   SM, spinning without a backoff, and relaxed polls with one acquire
+//   fence were no faster. Per-tile timestamps (with L2-only child loads)
+//   show each level costing ~3 us on the critical path: ~0.9 us from an
+//   op's last store until a waiting tile sees its count, then 1.3 us
+//   (median) to 2.3 us (the op's slowest tile) of child loads, FMAs and
+//   stores, longer the more tiles are at work on the same SM.
 //
-// The 4x4 variant (DNA): one thread per class column holds the op in
-// registers, P through the read-only cache; grid (class column tiles of the
-// level's widest op, ops of the level), each op masked to its own W.
+// What bounds them on an H100. Per parent class column an op gathers two
+// child columns and writes one (3 * R * s floats, 4 bytes each), and reads
+// and writes 3 scaler and 2 gather int32s, against 4 * R * s * s + R * s
+// FLOP: 1.3 FLOP per byte for DNA (R = s = 4), 6.6 for 20 states, below
+// the card's 20 FLOP per byte (67 TFLOP/s float32 over 3.35 TB/s). The
+// total is set by the data's class counts: chip_smoke.py computes it from
+// them (3.3 us for the 246 x 4465 repeats DNA traversal, 6.0 us its
+// levels' own bounds summed). But the levels are narrow and the whole pool
+// fits in L2 (14.8 MB there), so the 4x4 kernel is bound by latency: the
+// chain of 14 dependent ops, each a release, an acquire, a child load from
+// L2, the FMAs and the stores. One launch a level paid a launch's ramp and
+// drain at every level instead (62 us for that traversal, ~4.4 us a
+// level).
 //
 // The runtime-size variant (20-state proteins, any other state count up to
 // 32, any rate count), in the manner of level_update.cu's:
@@ -81,11 +148,8 @@
 // read through the read-only cache instead of shared memory, 3 or 5
 // blocks an SM, one tile a block, and reading the gather entries and the
 // children's counts earlier were slower or no faster. What is left is each
-// level's latency chain (as long as the 4x4 variant's whole level), the
-// stores, the scattered child gathers of the top levels and the FMA loop
-// at 8-16 warps an SM.
-// Padding columns (W past the parent's class count) gather class 0 and are
-// computed like the others: the plain version writes them too.
+// level's latency chain (~4 us), the stores, the scattered child gathers
+// of the top levels and the FMA loop at 8-16 warps an SM.
 //
 // Offsets into the pool are 64-bit (the table is int64): the pool holds
 // R * s * T floats, past 2^31 at 80 rows and 27M columns.
@@ -99,7 +163,14 @@
 
 namespace {
 
-constexpr int kFixedBlock = 128;  // 4x4 variant: a thread per class column
+// 4x4 traversal kernel: threads a block (4 lanes a column, 32 columns a
+// pass), passes a tile (a tile is 64 columns), the ints between two
+// counters (one 128-byte line each), and its blocks resident on an SM, as
+// ops/_kernels.py:pool_fixed_plan counts them
+constexpr int kTravThreads = 128;
+constexpr int kTravPasses = 2;
+constexpr int kCounterStride = 32;
+constexpr int kTravBlocksPerSm = 6;
 constexpr int kBlock = 128;       // runtime-size variant: threads a block
 constexpr int kBlocksPerSm = 4;   // its blocks resident on one SM
 constexpr int kStageBytes = 48 * 1024;  // its shared memory, at most
@@ -150,54 +221,153 @@ __device__ __forceinline__ void write_count(const Args& a, const Op& op, int q,
 }
 
 // ---------------------------------------------------------------------------
-// Sizes known at compile time: one thread per class column holds the op in
-// registers. NSC counts per column: 1, or R_ in per-rate mode.
-template <int S_, int R_, int NSC>
-__global__ void __launch_bounds__(kFixedBlock) pool_fixed(Args a) {
-  constexpr int RS = R_ * S_;
-  constexpr int G = RS / NSC;  // rows per count
-  const Op op = load_op(a, blockIdx.y);
-  const long long c = (long long)blockIdx.x * kFixedBlock + threadIdx.x;
-  if (c >= op.w) return;
+// 4 states x 4 rates (DNA): a whole plan in one launch. Four neighbouring
+// lanes hold the 4 rates of one class column; a block of kTravThreads
+// lanes computes one ticket's tile of 32 * V columns of one op at a time,
+// V passes of 32 columns, their loads all in flight at once.
+struct Trav {
+  const int4* tickets;  // [n_tiles]: op, first column, its wait range [z, w)
+  int n_tiles;
+  const int2* waits;    // (op, its tile count); null: no waits (one level)
+  int* ticket;          // the next ticket
+  int* done;            // op k's finished tiles at done[k * kCounterStride]
+};
+
+// a count another block publishes: from L2, ordered before what follows
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// one more finished tile of an op, ordered after the block's stores (the
+// barrier before it makes them the thread's to release)
+__device__ __forceinline__ void add_release(int* p) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(p)
+               : "memory");
+}
+
+__device__ __forceinline__ void wait_count(const int* p, int need) {
+  unsigned ns = 16;
+  while (load_acquire(p) < need) {
+    __nanosleep(ns);
+    ns = ns < 64 ? 2 * ns : 64;
+  }
+}
+
+// rate q's P[m] (16 floats, 16-byte aligned: the wrapper passes P so)
+__device__ __forceinline__ void load_p4(float (&p)[16], const float* pmat,
+                                        long long m, int q) {
+  const float4* g = reinterpret_cast<const float4*>(pmat + (m * 4 + q) * 16);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 u = __ldg(g + i);
+    p[4 * i] = u.x, p[4 * i + 1] = u.y, p[4 * i + 2] = u.z, p[4 * i + 3] = u.w;
+  }
+}
+
+template <bool PER_RATE>
+__global__ void __launch_bounds__(kTravThreads, kTravBlocksPerSm)
+    pool_traversal(Args a, Trav tv) {
+  constexpr int V = kTravPasses;
+  __shared__ int s_ticket[2];
+  const int q = threadIdx.x & 3;  // the lane's rate
+  const int lane = threadIdx.x & 31;
+  const bool lead = threadIdx.x == 0;
   const size_t T = a.T;
-  const int gl = __ldg(a.gl + op.g + c);
-  const int gr = __ldg(a.gr + op.g + c);
-  const float* left = a.pool + op.c1 + gl;
-  const float* right = a.pool + op.c2 + gr;
-  const float* pl = a.pmat + op.m1 * RS * S_;
-  const float* pr = a.pmat + op.m2 * RS * S_;
-  float l[RS], r[RS], x[RS];
+  if (lead) s_ticket[0] = atomicAdd(tv.ticket, 1);
+  __syncthreads();
+  for (int buf = 0;; buf ^= 1) {
+    const int t = s_ticket[buf];
+    if (t >= tv.n_tiles) return;  // the list is exhausted
+    // the next ticket, drawn now: its latency hides behind this tile
+    int next = 0;
+    if (lead) next = atomicAdd(tv.ticket, 1);
+    // what no op of the launch writes (tickets, table, gather maps, P)
+    // is read before the wait, through the read-only path
+    const int4 e = __ldg(tv.tickets + t);
+    const Op op = load_op(a, e.x);
+    long long c[V];
+    bool in[V];
+    int gl[V], gr[V];
 #pragma unroll
-  for (int k = 0; k < RS; ++k) {
-    l[k] = left[k * T];
-    r[k] = right[k * T];
-  }
-#pragma unroll
-  for (int rate = 0; rate < R_; ++rate) {
-#pragma unroll
-    for (int i = 0; i < S_; ++i) {
-      const float* p = pl + (rate * S_ + i) * S_;
-      const float* q = pr + (rate * S_ + i) * S_;
-      float ta = __ldg(p) * l[rate * S_];
-      float tb = __ldg(q) * r[rate * S_];
-#pragma unroll
-      for (int j = 1; j < S_; ++j) {
-        ta += __ldg(p + j) * l[rate * S_ + j];
-        tb += __ldg(q + j) * r[rate * S_ + j];
-      }
-      x[rate * S_ + i] = ta * tb;
+    for (int v = 0; v < V; ++v) {
+      c[v] = e.y + 32 * v + (threadIdx.x >> 2);
+      in[v] = c[v] < op.w;
+      gl[v] = in[v] ? __ldg(a.gl + op.g + c[v]) : 0;
+      gr[v] = in[v] ? __ldg(a.gr + op.g + c[v]) : 0;
     }
-  }
-  float* dst = a.pool + op.p + c;
+    float pl[16], pr[16];
+    load_p4(pl, a.pmat, op.m1, q);
+    load_p4(pr, a.pmat, op.m2, q);
+    // the ops this one waits on, one lane of warp 0 each
+    if (tv.waits != nullptr && threadIdx.x < 32) {
+      for (int i = e.z + lane; i < e.w; i += 32) {
+        const int2 w = __ldg(tv.waits + i);
+        wait_count(tv.done + (size_t)w.x * kCounterStride, w.y);
+      }
+    }
+    __syncthreads();
+    // child columns and counts may have been written in this launch: plain
+    // cached loads (ld.global.ca), ordered after the writers' release by
+    // the acquire and the barrier; a tile without a wait list reads no
+    // region that an op of this launch has written
+    int* sc = a.sc + (PER_RATE ? (size_t)q * a.T2 : 0);
+    float l[V][4], r[V][4];
+    int k1[V], k2[V];
 #pragma unroll
-  for (int g = 0; g < NSC; ++g) {
-    float m = 0.0f;
+    for (int v = 0; v < V; ++v) {
+      const float* left = a.pool + op.c1 + gl[v] + (size_t)q * 4 * T;
+      const float* right = a.pool + op.c2 + gr[v] + (size_t)q * 4 * T;
 #pragma unroll
-    for (int k = g * G; k < (g + 1) * G; ++k) m = x[k] > m ? x[k] : m;
-    const int rescale = op.has && m < a.threshold;
+      for (int j = 0; j < 4; ++j) {
+        l[v][j] = in[v] ? __ldca(left + j * T) : 0.0f;
+        r[v][j] = in[v] ? __ldca(right + j * T) : 0.0f;
+      }
+      const bool counts = in[v] && (PER_RATE || q == 0);
+      k1[v] = counts ? __ldca(sc + op.s1 + gl[v]) : 0;
+      k2[v] = counts ? __ldca(sc + op.s2 + gr[v]) : 0;
+    }
 #pragma unroll
-    for (int k = g * G; k < (g + 1) * G; ++k) dst[k * T] = rescale ? x[k] * a.factor : x[k];
-    write_count(a, op, g, c, gl, gr, rescale);
+    for (int v = 0; v < V; ++v) {
+      float x[4];
+      float m = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float ta = pl[4 * i] * l[v][0];
+        float tb = pr[4 * i] * r[v][0];
+#pragma unroll
+        for (int j = 1; j < 4; ++j) {
+          ta = fmaf(pl[4 * i + j], l[v][j], ta);
+          tb = fmaf(pr[4 * i + j], r[v][j], tb);
+        }
+        x[i] = ta * tb;
+        m = x[i] > m ? x[i] : m;
+      }
+      // per site the column's 16 values are all below the threshold
+      // exactly when its 4 lanes' maxima are (one warp vote); per rate,
+      // the lane's 4
+      bool below = m < a.threshold;
+      if (!PER_RATE) {
+        const unsigned votes = __ballot_sync(0xffffffffu, below);
+        below = ((votes >> (lane & ~3)) & 0xFu) == 0xFu;
+      }
+      const int rescale = op.has && below;
+      if (in[v]) {
+        float* dst = a.pool + op.p + c[v] + (size_t)q * 4 * T;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          dst[i * T] = rescale ? x[i] * a.factor : x[i];
+        if (PER_RATE || q == 0) sc[op.psc + c[v]] = k1[v] + k2[v] + rescale;
+      }
+    }
+    if (lead) s_ticket[buf ^ 1] = next;
+    // every lane's stores, then one release of the op's count
+    __syncthreads();
+    if (lead) add_release(tv.done + (size_t)e.x * kCounterStride);
   }
 }
 
@@ -435,35 +605,25 @@ void launch_generic(const Args& a, const int* map, int granules, int ty,
 
 }  // namespace
 
-// Launches one level of `n_ops` ops on `stream` and returns
+// Launches one level of the runtime-size variant on `stream` and returns
 // cudaGetLastError() (0 on success). T2 is the scaler pool's column count
-// (its row stride in per-rate mode). The 4x4 variant's grid covers the
-// widest op, `max_width` class columns, for each op; the runtime-size
-// variant's covers the level's tile map (`map`, `granules` int32 pairs)
-// with the layout of ops/_kernels.py:pool_plan: `rate_threads` warps over
-// the rates, `per_block` tiles a block.
+// (its row stride in per-rate mode). The grid covers the level's tile map
+// (`map`, `granules` int32 pairs) with the layout of
+// ops/_kernels.py:pool_plan: `rate_threads` warps over the rates,
+// `per_block` tiles a block. The 4x4 size runs pll_pool_traversal.
 extern "C" int pll_pool_update(float* pool, int* sc, const float* pmat,
-                               const long long* table, int ld, int n_ops,
-                               int max_width, long long T, const int* gl,
-                               const int* gr, int rates, int states,
-                               float threshold, float factor, long long T2,
-                               int rate_scalers, const int* map, int granules,
-                               int rate_threads, int per_block, void* stream) {
+                               const long long* table, int ld, long long T,
+                               const int* gl, const int* gr, int rates,
+                               int states, float threshold, float factor,
+                               long long T2, int rate_scalers, const int* map,
+                               int granules, int rate_threads, int per_block,
+                               void* stream) {
   Args a{pool, sc, pmat, table, ld, T, gl, gr, rates, states, threshold,
          factor, T2, rate_scalers};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (states == 4 && rates == 4) {
-    const dim3 grid((max_width + kFixedBlock - 1) / kFixedBlock, n_ops);
-    if (rate_scalers) {
-      pool_fixed<4, 4, 4><<<grid, kFixedBlock, 0, st>>>(a);
-    } else {
-      pool_fixed<4, 4, 1><<<grid, kFixedBlock, 0, st>>>(a);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
   const int ty = rate_threads;
-  if (!(ty == 1 || ty == 2 || ty == 4) || granules < 1 || per_block < 1 ||
-      map == nullptr) {
+  if ((states == 4 && rates == 4) || !(ty == 1 || ty == 2 || ty == 4) ||
+      granules < 1 || per_block < 1 || map == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (states == 20) {
@@ -478,6 +638,43 @@ extern "C" int pll_pool_update(float* pool, int* sc, const float* pmat,
     launch_generic<20, false>(a, map, granules, ty, per_block, st);
   } else {
     launch_generic<32, false>(a, map, granules, ty, per_block, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the 4x4 kernel over `n_tiles` tickets of 64 class columns on
+// `stream` and returns the first CUDA error (0 on success). `tickets` are
+// int4 rows (op, first column, wait range), `waits` int2 rows (op, its tile
+// count) or null for one level, whose ops need none. `counters` holds
+// `n_counters` ints: the ticket counter, then one count of finished tiles
+// for each op of the table, each on a 128-byte line of its own
+// (kCounterStride ints); they are zeroed on the stream before the kernel.
+// `blocks` comes from ops/_kernels.py:pool_fixed_plan; any grid is safe,
+// since a tile waits only on tiles of smaller tickets.
+extern "C" int pll_pool_traversal(float* pool, int* sc, const float* pmat,
+                                  const long long* table, int ld, long long T,
+                                  const int* gl, const int* gr,
+                                  float threshold, float factor, long long T2,
+                                  int rate_scalers, const int* tickets,
+                                  int n_tiles, const int* waits, int* counters,
+                                  int n_counters, int blocks, void* stream) {
+  if (blocks < 1 || n_tiles < 1 || tickets == nullptr ||
+      counters == nullptr || n_counters <= kCounterStride) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a{pool, sc, pmat, table, ld, T, gl, gr, 4, 4, threshold, factor, T2,
+         rate_scalers};
+  Trav tv{reinterpret_cast<const int4*>(tickets), n_tiles,
+          reinterpret_cast<const int2*>(waits), counters,
+          counters + kCounterStride};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      cudaMemsetAsync(counters, 0, (size_t)n_counters * sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rate_scalers) {
+    pool_traversal<true><<<blocks, kTravThreads, 0, st>>>(a, tv);
+  } else {
+    pool_traversal<false><<<blocks, kTravThreads, 0, st>>>(a, tv);
   }
   return static_cast<int>(cudaGetLastError());
 }

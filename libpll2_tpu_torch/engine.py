@@ -19,8 +19,9 @@ The CLV step takes one of seven paths (`TreeEngine.execution_path`):
   'levels-kernel' one launch of the level kernel per dependency level
                   (ops/levels.py), parent rows written in place into the
                   partition's CLV buffer;
-  'pool-pallas'   site repeats' pooled class columns, one launch of the pool
-                  kernel per dependency level (ops/pool.py);
+  'pool-pallas'   site repeats' pooled class columns through the pool
+                  kernel (ops/pool.py): one launch a traversal at 4 states
+                  x 4 rates, else one per dependency level;
   'pool'          the same pooled levels through the pool kernel's plain
                   version (ops/pool.py:pool_update_reference);
   'levels'/'scan' plain PyTorch (ops/partials.py), batched per level or one
@@ -222,17 +223,17 @@ def _repeats_loglikelihood(clv_flat, sc_flat, eigenvals, inv_eigenvecs,
                            params_idx_rates, branches, path: str, plan,
                            root_cols, root_mat: int, pattern_weights,
                            invariant, scale_threshold: float,
-                           scale_factor: float, level=ops_pool.pool_update,
+                           scale_factor: float, level=None,
                            edge_params=None, rate_scalers: bool = False,
                            asc_type: int = C.AB_NONE, n_real: int = -1):
     """A path over a repeats partition's pooled buffers `clv_flat` [R, s,
     T] and `sc_flat` [T2] ([R, T2] with `rate_scalers`), which it updates
-    in place. `plan` is a PoolPlan;
-    `path` 'pool-pallas' runs each level through `level` (the dispatching
-    wrapper, or its plain version for a comparison on the card), 'pool'
-    through the plain version. `root_cols` holds the root edge's absolute
-    per-site columns (clv and scaler, parent then child). Returns (total
-    logL, per-site weighted logL, P-matrices, root rows)."""
+    in place. `plan` is a PoolPlan; `path` 'pool-pallas' runs it through
+    the plan's kernels (one launch a traversal at 4x4) or a given `level`
+    (a level at a time: the plain version for a comparison on the card),
+    'pool' through the plain version. `root_cols` holds the root edge's
+    absolute per-site columns (clv and scaler, parent then child). Returns
+    (total logL, per-site weighted logL, P-matrices, root rows)."""
     pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
                          rates, params_idx_rates, branches, edge_params)
     if path == "pool":

@@ -132,8 +132,7 @@ def library() -> ctypes.CDLL:
     lib.pll_level_update.restype = _I
     lib.pll_pool_update.argtypes = [
         _P, _P, _P,        # pool, scaler pool, pmatrix
-        _P, _I, _I, _I,    # table, its leading dimension, ops, max width
-        _L,                # pool columns
+        _P, _I, _L,        # table, its leading dimension, pool columns
         _P, _P,            # gl, gr
         _I, _I,            # rates, states
         _F, _F,            # threshold, factor
@@ -143,6 +142,19 @@ def library() -> ctypes.CDLL:
         _P,                # stream
     ]
     lib.pll_pool_update.restype = _I
+    lib.pll_pool_traversal.argtypes = [
+        _P, _P, _P,        # pool, scaler pool, pmatrix
+        _P, _I, _L,        # table, its leading dimension, pool columns
+        _P, _P,            # gl, gr
+        _F, _F,            # threshold, factor
+        _L, _I,            # scaler pool columns, per-rate scalers
+        _P, _I,            # tickets, their count
+        _P,                # wait lists (or null)
+        _P, _I,            # counters, their count
+        _I,                # pool_fixed_plan: blocks
+        _P,                # stream
+    ]
+    lib.pll_pool_traversal.restype = _I
     lib.pll_mxu_probe.argtypes = [
         _P, _P, _P,        # a, x, out
         _I, _I, _I,        # m, k, nmat
@@ -641,7 +653,7 @@ def pool_plan(columns: int, rates: int, states: int, sms: int) -> PoolLaunch:
     with `sms` SMs: a column's rates split over the largest power of two
     of warps up to 4 that the rates fill, whatever the level's width;
     blocks take runs of tiles, as many blocks as POOL_BLOCKS_PER_SM an SM
-    fill. The 4x4 size runs the fixed variant, which has no plan."""
+    fill. The 4x4 size runs the traversal kernel (`pool_fixed_plan`)."""
     if (rates < 1 or not 1 <= states <= 32 or (rates, states) == (4, 4)
             or columns < 1 or columns % POOL_GRANULE or sms < 1):
         raise ValueError(f"pool_plan: no runtime-size plan for {columns} "
@@ -654,31 +666,79 @@ def pool_plan(columns: int, rates: int, states: int, sms: int) -> PoolLaunch:
     return PoolLaunch(ty, tile, tiles, per, -(-tiles // per))
 
 
+# pool_update.cu's 4x4 traversal kernel: the class columns of a ticket (a
+# block of 128 threads, 4 lanes a column, computes them in 2 passes of 32),
+# the blocks its launch bounds keep resident on an SM, and the ints between
+# two of its counters (one 128-byte line each); the ticket counter counts
+# past the tickets, an int32
+POOL_FIXED_TILE = 64
+POOL_FIXED_BLOCKS_PER_SM = 6
+POOL_COUNTER_STRIDE = 32
+POOL_MAX_TICKETS = 2**31 - 1
+
+
+class PoolFixedPlan(NamedTuple):
+    """How pool_update.cu's 4x4 kernel runs a plan in one launch: `tiles`
+    tickets of POOL_FIXED_TILE class columns of one op over the plan's
+    ops, drawn by `blocks` blocks of 128 threads."""
+    tiles: int
+    blocks: int
+
+
+def pool_fixed_plan(widths, sms: int) -> PoolFixedPlan:
+    """The 4x4 traversal kernel's launch over ops `widths` class columns
+    wide (every op of the plan) on a device with `sms` SMs: tickets of
+    POOL_FIXED_TILE columns, each op's last one partial; a grid that fills
+    the card once with the blocks the kernel's launch bounds keep resident
+    (POOL_FIXED_BLOCKS_PER_SM), and no more blocks than tickets."""
+    widths = [int(w) for w in widths]
+    if sms < 1 or not widths or min(widths) < 1:
+        raise ValueError(f"pool_fixed_plan: no plan for {len(widths)} ops "
+                         f"on {sms} SMs")
+    tiles = sum(-(-w // POOL_FIXED_TILE) for w in widths)
+    return PoolFixedPlan(tiles, min(tiles, sms * POOL_FIXED_BLOCKS_PER_SM))
+
+
+class PoolTraversal(NamedTuple):
+    """A plan's 4x4 traversal on the device (ops/pool.py:plan_to_device):
+    its launch (`pool_fixed_plan`), the plan's whole table [11, ops], the
+    tickets [tiles, 4] int32 (op, first column, wait-list range), the wait
+    lists [entries, 2] int32 (op, its tile count) and the counters
+    [(1 + ops) * POOL_COUNTER_STRIDE] int32 (the ticket, then each op's
+    finished tiles, each on a line of its own), which every launch zeroes
+    before its kernel."""
+    plan: PoolFixedPlan
+    table: torch.Tensor
+    tickets: torch.Tensor
+    waits: torch.Tensor
+    counters: torch.Tensor
+
+
+class PoolFixedLevel(NamedTuple):
+    """One level of a 4x4 plan as its own launch of the traversal kernel:
+    its ops k0 .. k1-1 and its tickets t0 .. t1-1 of `traversal`; the
+    ops of one level wait on none."""
+    traversal: PoolTraversal
+    k0: int
+    k1: int
+    t0: int
+    t1: int
+
+
 def device_sm_count(device) -> int:
     """The SMs of CUDA device `device` (the current one if it has no
     index)."""
     return sm_count(_device_index(device))
 
 
-def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
-                       pmatrix: torch.Tensor, table: torch.Tensor,
-                       width: int, gl: torch.Tensor, gr: torch.Tensor,
-                       rates: int, states: int, threshold: float,
-                       factor: float, tiles=None, launch=None) -> None:
-    """Launch csrc/pool_update.cu on the current stream: one level, parent
-    columns and counts written into `pool2d` and `sc` in place; see
-    ops/pool.py:pool_update for the contract. `table` may be a column slice
-    of a larger [11, n] int64 tensor: its row stride is passed as the
-    kernel's leading dimension. `width` (the level's widest op) sizes the
-    4x4 variant's grid; `tiles`, the level's tile map (ops/pool.py:
-    tile_map, [granules, 2] int32 on the device), the runtime-size
-    variant's, laid out by `launch` (its `pool_plan`, which the plan
-    computed once: ops/pool.py:plan_to_device)."""
-    name = "pool_update"
+def _check_pool_args(name: str, pool2d, sc, pmatrix, gl, gr, rates: int,
+                     states: int) -> bool:
+    """The checks both pool kernels share; returns whether the counts are
+    per rate."""
     dev = pool2d.device
     _check(dev.type == "cuda", f"expected CUDA tensors, got {dev}", name)
-    for what, t in (("sc", sc), ("pmatrix", pmatrix), ("table", table),
-                    ("gl", gl), ("gr", gr)):
+    for what, t in (("sc", sc), ("pmatrix", pmatrix), ("gl", gl),
+                    ("gr", gr)):
         _check(isinstance(t, torch.Tensor) and t.device == dev,
                f"{what} must be a tensor on {dev}", name)
     _check(pool2d.dtype == torch.float32 and pmatrix.dtype == torch.float32,
@@ -686,7 +746,6 @@ def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
            f"{pool2d.dtype} and {pmatrix.dtype}", name)
     _check(sc.dtype == torch.int32 and gl.dtype == torch.int32
            and gr.dtype == torch.int32, "sc, gl and gr must be int32", name)
-    _check(table.dtype == torch.int64, "table must be int64", name)
     _check(1 <= states <= 32 and rates >= 1,
            f"rates={rates}, states={states}: needs rates >= 1 and "
            f"1 <= states <= 32", name)
@@ -703,37 +762,136 @@ def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
            == (rates, states, states),
            f"pmatrix shape {tuple(pmatrix.shape)} is not [E, {rates}, "
            f"{states}, {states}]", name)
-    _check(table.dim() == 2 and table.shape[0] == 11
-           and 1 <= table.shape[1] <= LEVEL_MAX_OPS and table.stride(1) == 1,
-           f"table shape {tuple(table.shape)} (strides {table.stride()}) is "
-           f"not [11, W] with 1 <= W <= {LEVEL_MAX_OPS} and unit column "
-           f"stride", name)
-    _check(1 <= width <= sc.shape[-1],
-           f"width {width} is not in [1, {sc.shape[-1]}]", name)
     for what, t in (("pool", pool2d), ("sc", sc), ("pmatrix", pmatrix),
                     ("gl", gl), ("gr", gr)):
         _check(t.is_contiguous(), f"{what} must be contiguous", name)
-    grid = (0, 0, 0, 0)  # the 4x4 variant's grid comes from `width`
-    if (rates, states) != (4, 4):
-        _check(isinstance(launch, PoolLaunch)
-               and isinstance(tiles, torch.Tensor) and tiles.device == dev
-               and tiles.dtype == torch.int32
-               and tiles.shape[0] * POOL_GRANULE == launch.tiles * launch.tile,
-               f"the runtime-size variant needs the level's tile map on "
-               f"{dev} and its launch (ops/pool.py:plan_to_device)", name)
-        grid = (tiles.data_ptr(), tiles.shape[0], launch.rate_threads,
-                launch.tiles_per_block)
+    return per_rate
+
+
+def _check_table(name: str, table, dev, max_ops: int) -> None:
+    _check(isinstance(table, torch.Tensor) and table.device == dev,
+           f"table must be a tensor on {dev}", name)
+    _check(table.dtype == torch.int64, "table must be int64", name)
+    _check(table.dim() == 2 and table.shape[0] == 11
+           and 1 <= table.shape[1] <= max_ops and table.stride(1) == 1,
+           f"table shape {tuple(table.shape)} (strides {table.stride()}) is "
+           f"not [11, W] with 1 <= W <= {max_ops} and unit column "
+           f"stride", name)
+
+
+def check_traversal(trav, dev) -> None:
+    """Raise ValueError unless `trav` is a PoolTraversal whose arrays lie
+    on `dev` with the shapes and types the 4x4 kernel reads. The kernel
+    has no grid axis over the ops, so the op count is bounded only by its
+    int32 counters: the tickets and the ticket counter, which ends at the
+    tickets plus the blocks."""
+    name = "pool_traversal"
+    _check(isinstance(trav, PoolTraversal), "needs the plan's "
+           "PoolTraversal (ops/pool.py:plan_to_device)", name)
+    _check(trav.plan.tiles + trav.plan.blocks <= POOL_MAX_TICKETS,
+           f"{trav.plan.tiles} tickets and {trav.plan.blocks} blocks "
+           f"overflow the int32 ticket counter", name)
+    _check_table(name, trav.table, dev,
+                 POOL_MAX_TICKETS // POOL_COUNTER_STRIDE - 1)
+    for what, t in (("tickets", trav.tickets), ("waits", trav.waits),
+                    ("counters", trav.counters)):
+        _check(t.device == dev and t.dtype == torch.int32
+               and t.is_contiguous(), f"{what} must be a contiguous int32 "
+               f"tensor on {dev}", name)
+    n_ops = trav.table.shape[1]
+    _check(trav.tickets.shape == (trav.plan.tiles, 4)
+           and trav.waits.dim() == 2 and trav.waits.shape[1] == 2
+           and trav.counters.shape == ((1 + n_ops) * POOL_COUNTER_STRIDE,),
+           "the traversal's tickets, wait lists or counters do not match "
+           "its plan and table", name)
+
+
+def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
+                       pmatrix: torch.Tensor, table: torch.Tensor,
+                       gl: torch.Tensor, gr: torch.Tensor,
+                       rates: int, states: int, threshold: float,
+                       factor: float, tiles=None, launch=None) -> None:
+    """Launch csrc/pool_update.cu on the current stream: one level, parent
+    columns and counts written into `pool2d` and `sc` in place; see
+    ops/pool.py:pool_update for the contract. `table` may be a column slice
+    of a larger [11, n] int64 tensor: its row stride is passed as the
+    kernel's leading dimension. The runtime-size variant's grid is the
+    level's tile map `tiles` (ops/pool.py:tile_map, [granules, 2] int32 on
+    the device) laid out by `launch` (its `pool_plan`, which the plan
+    computed once: ops/pool.py:plan_to_device); the 4x4 size runs the
+    traversal kernel over the level, `launch` its PoolFixedLevel."""
+    name = "pool_update"
+    dev = pool2d.device
+    per_rate = _check_pool_args(name, pool2d, sc, pmatrix, gl, gr, rates,
+                                states)
+    _check_table(name, table, dev, LEVEL_MAX_OPS)
+    if (rates, states) == (4, 4):
+        _check(isinstance(launch, PoolFixedLevel)
+               and table.data_ptr() == launch.traversal.table[
+                   :, launch.k0].data_ptr()
+               and table.shape[1] == launch.k1 - launch.k0,
+               f"the 4x4 kernel runs a level of its plan's traversal: "
+               f"needs the level's PoolFixedLevel (ops/pool.py:"
+               f"plan_to_device)", name)
+        launch_pool_traversal(pool2d, sc, pmatrix, gl, gr, threshold,
+                              factor, launch.traversal, launch)
+        return
+    _check(isinstance(launch, PoolLaunch)
+           and isinstance(tiles, torch.Tensor) and tiles.device == dev
+           and tiles.dtype == torch.int32
+           and tiles.shape[0] * POOL_GRANULE == launch.tiles * launch.tile,
+           f"the runtime-size variant needs the level's tile map on "
+           f"{dev} and its launch (ops/pool.py:plan_to_device)", name)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_pool_update(
             pool2d.data_ptr(), sc.data_ptr(), pmatrix.data_ptr(),
-            table.data_ptr(), table.stride(0), table.shape[1], int(width),
-            pool2d.shape[1], gl.data_ptr(), gr.data_ptr(), rates, states,
-            float(threshold), float(factor), sc.shape[-1], int(per_rate),
-            *grid, stream)
+            table.data_ptr(), table.stride(0), pool2d.shape[1],
+            gl.data_ptr(), gr.data_ptr(), rates, states, float(threshold),
+            float(factor), sc.shape[-1], int(per_rate),
+            tiles.data_ptr(), tiles.shape[0], launch.rate_threads,
+            launch.tiles_per_block, stream)
     if err != 0:
         raise RuntimeError(f"pool_update kernel launch failed: CUDA error "
                            f"{err}")
+
+
+def launch_pool_traversal(pool2d: torch.Tensor, sc: torch.Tensor,
+                          pmatrix: torch.Tensor, gl: torch.Tensor,
+                          gr: torch.Tensor, threshold: float, factor: float,
+                          trav: PoolTraversal, level=None) -> None:
+    """Launch csrc/pool_update.cu's 4x4 kernel on the current stream over
+    the whole traversal `trav`, or over one level of it (`level`, a
+    PoolFixedLevel, whose ops wait on none): the counters zeroed, then
+    parent columns and counts written into `pool2d` [16, T] and `sc` in
+    place."""
+    name = "pool_traversal"
+    dev = pool2d.device
+    per_rate = _check_pool_args(name, pool2d, sc, pmatrix, gl, gr, 4, 4)
+    check_traversal(trav, dev)
+    if level is None:
+        t0, t1, waits = 0, trav.plan.tiles, trav.waits
+    else:
+        t0, t1, waits = level.t0, level.t1, None
+        _check(0 <= level.k0 < level.k1 <= trav.table.shape[1]
+               and 0 <= t0 < t1 <= trav.plan.tiles,
+               f"level ops {level.k0}..{level.k1} or tickets {t0}..{t1} "
+               f"out of range", name)
+    # the kernel reads P 16 bytes at a time
+    if pmatrix.data_ptr() % 16:
+        pmatrix = pmatrix.clone()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = library().pll_pool_traversal(
+            pool2d.data_ptr(), sc.data_ptr(), pmatrix.data_ptr(),
+            trav.table.data_ptr(), trav.table.stride(0), pool2d.shape[1],
+            gl.data_ptr(), gr.data_ptr(), float(threshold), float(factor),
+            sc.shape[-1], int(per_rate), trav.tickets[t0].data_ptr(),
+            t1 - t0, _ptr(waits), trav.counters.data_ptr(),
+            trav.counters.numel(), trav.plan.blocks, stream)
+    if err != 0:
+        raise RuntimeError(f"pool_traversal kernel launch failed: CUDA "
+                           f"error {err}")
 
 
 # the probe's contraction modes, as the C entry numbers them

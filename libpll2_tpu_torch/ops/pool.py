@@ -1,4 +1,5 @@
-"""Site repeats' pooled class columns, one dependency level per launch.
+"""Site repeats' pooled class columns: one launch a traversal at 4 states x
+4 rates, one a dependency level for other sizes.
 
 Port of libpll2_tpu/ops/pallas_repeats.py, as ops/levels.py is of
 pallas_partials.py: the TPU kernel `_run_kernel` becomes csrc/pool_update.cu.
@@ -6,12 +7,16 @@ pallas_partials.py: the TPU kernel `_run_kernel` becomes csrc/pool_update.cu.
 The TPU kernel runs one call per (width bucket, identity profile) run of ops
 and relies on the TPU's grid steps running in order, because a bucket may
 hold a parent and its own child (buckets group by width, not dependency). A
-CUDA grid runs its blocks in no order, so the port schedules by dependency
-levels instead (ops/levels.py:schedule_levels, whose hazard check holds
-unchanged: every node and every scaler index owns its own pooled region)
-and launches once per level. The block-band tables, the 128-lane gather
-loop, the float scaler rows and the identity-profile split of the TPU kernel
-are not ported: a CUDA thread reads its child column gl[c] directly, and an
+CUDA grid runs its blocks in no order. The port groups the ops into
+dependency levels (ops/levels.py:schedule_levels, whose hazard check holds
+unchanged: every node and every scaler index owns its own pooled region).
+The runtime-size kernel runs one level a launch. The 4x4 kernel (4 states x
+4 rates) runs the whole plan in one launch: blocks claim tiles in level
+order from an atomic ticket, and a tile waits on device counters until the
+ops in its op's wait list (`wait_lists`) have finished, which stands in for
+the TPU's in-order grid. The block-band tables, the 128-lane gather loop,
+the float scaler rows and the identity-profile split of the TPU kernel are
+not ported: a CUDA lane reads its child column gl[c] directly, and an
 identity map is just gl[c] = c.
 
 The host packs an op list into per-level int64 tables [11, W]
@@ -23,8 +28,9 @@ The host packs an op list into per-level int64 tables [11, W]
 plus two int32 arrays, `gl` and `gr`, holding every op's W child class
 indices one after another, and per level a tile map (`tile_map`): one
 int32 pair (op, first column) per POOL_GRANULE class columns of each op,
-over which the runtime-size kernel lays its flat grid. For each op and
-parent class column c < W:
+over which the runtime-size kernel lays its flat grid. For the 4x4 kernel
+`traversal_arrays` lays every op's tiles out as tickets in level order,
+with each op's wait list. For each op and parent class column c < W:
 
     x[r, i] = (sum_j P[m1, r, i, j] pool[r, j, c1_off + gl[g_off + c]])
             * (sum_j P[m2, r, i, j] pool[r, j, c2_off + gr[g_off + c]])
@@ -42,16 +48,18 @@ gather class 0, as in the JAX package.
 Per-rate mode (`sc` [R, T2], the partition's `rate_scalers`): each rate's
 block is compared with the threshold on its own and every scaler region
 holds one count row per rate. libpll2_tpu refuses per-rate scalers in its
-pool kernel and runs XLA; the port's kernel has the mode.
+pool kernel and runs XLA; the port's kernels have the mode.
 
-`pool_update` is the dispatching wrapper: CPU tensors run
+`pool_update` is the dispatching wrapper of one level: CPU tensors run
 `pool_update_reference`, the plain PyTorch version; CUDA tensors launch the
-kernel (float32, with each level's ops/_kernels.py:pool_plan, computed
-once with the plan) or raise.
-`pool_update.launches` counts the launches.
-`update_partials_pool` runs all levels of a traversal, through the wrapper
-or, for `TreeEngine(pallas=False)` ('pool') and float64 references, through
-the plain version.
+kernel (float32: the runtime-size variant with the level's
+ops/_kernels.py:pool_plan, or the 4x4 kernel over that level alone) or
+raise. `pool_update.launches` counts the kernel launches.
+`update_partials_pool` runs a whole plan: by default through the plan's
+kernels (the 4x4 kernel in one launch when the plan has a traversal and the
+pool lies on a CUDA device, else the wrapper a level at a time), or level by
+level through a given `level` (the wrapper itself, or the plain version for
+`TreeEngine(pallas=False)` ('pool') and float64 references).
 """
 from __future__ import annotations
 
@@ -63,29 +71,32 @@ import torch
 
 from .. import constants as C
 from ..repeats import classify_operations, op_fields
-from ._kernels import POOL_GRANULE, PoolLaunch, device_sm_count, pool_plan
+from ._kernels import (POOL_COUNTER_STRIDE, POOL_FIXED_TILE, POOL_GRANULE,
+                       PoolFixedLevel, PoolLaunch, PoolTraversal,
+                       device_sm_count, pool_fixed_plan, pool_plan)
 from .levels import schedule_levels
 
 __all__ = ["POOL_ROWS", "PoolPlan", "schedule_pool_levels", "tile_map",
-           "pack_pool_levels", "level_launches", "plan_to_device",
-           "pool_update_reference", "pool_update", "update_partials_pool",
-           "pool_work"]
+           "pack_pool_levels", "wait_lists", "traversal_arrays",
+           "level_launches", "plan_to_device", "pool_update_reference",
+           "pool_update", "update_partials_pool", "pool_work"]
 
 POOL_ROWS = 11
 
 
 class PoolPlan(NamedTuple):
     """A packed traversal on its device: one [11, n_l] int64 column-slice
-    view per level, each level's widest op, the gather maps, one
-    [granules, 2] int32 tile map view per level, and each level's launch
-    of the runtime-size kernel (None for the 4x4 variant and on the
-    host)."""
+    view per level, the gather maps, one [granules, 2] int32 tile map view
+    per level, each level's launch on a CUDA device (the runtime-size
+    kernel's PoolLaunch, or the 4x4 kernel's PoolFixedLevel; None on the
+    host), and on a CUDA device at 4x4 the whole traversal's
+    PoolTraversal (else None)."""
     tables: Tuple[torch.Tensor, ...]
-    widths: Tuple[int, ...]
     gl: torch.Tensor          # [sum of W] int32
     gr: torch.Tensor
     tiles: Tuple[torch.Tensor, ...]
-    launches: Tuple[Optional[PoolLaunch], ...]
+    launches: Tuple[Optional[object], ...]
+    traversal: Optional[PoolTraversal]
 
 
 def schedule_pool_levels(table, operations, n_tips: int, sites: int,
@@ -125,14 +136,13 @@ def tile_map(widths) -> np.ndarray:
 
 
 def pack_pool_levels(layout, levels) -> tuple:
-    """(tables, widths, gl, gr, tiles) in numpy: per-level [11, n_l] int64
-    tables (rows in the module docstring), each level's widest op, the
-    concatenated int32 gather maps (each op's W entries, zero-padded past
-    its class count), and each level's `tile_map`. Raises PllError for an
-    op that writes its own child's CLV or scaler: the kernel's threads read
-    and write other columns of one region, so such an op cannot run in
-    place."""
-    tables, widths, gls, grs, tiles = [], [], [], [], []
+    """(tables, gl, gr, tiles) in numpy: per-level [11, n_l] int64 tables
+    (rows in the module docstring), the concatenated int32 gather maps
+    (each op's W entries, zero-padded past its class count), and each
+    level's `tile_map`. Raises PllError for an op that writes its own
+    child's CLV or scaler: the kernel's lanes read and write other columns
+    of one region, so such an op cannot run in place."""
+    tables, gls, grs, tiles = [], [], [], []
     g_off = 0
     for lv in levels:
         t = np.zeros((POOL_ROWS, len(lv)), dtype=np.int64)
@@ -156,56 +166,141 @@ def pack_pool_levels(layout, levels) -> tuple:
                 out.append(padded)
             g_off += w
         tables.append(t)
-        widths.append(int(t[8].max()) if len(lv) else 0)
         tiles.append(tile_map(t[8]))
     cat = (lambda a: np.concatenate(a) if a else np.zeros(0, np.int32))
-    return tuple(tables), tuple(widths), cat(gls), cat(grs), tuple(tiles)
+    return tuple(tables), cat(gls), cat(grs), tuple(tiles)
+
+
+def wait_lists(tables) -> Tuple[np.ndarray, np.ndarray]:
+    """Each op's wait list, the ops of `tables` (per-level [11, n_l]
+    tables) numbered in level order: CSR int32 (offsets [ops + 1], entries)
+    holding, for op k, the earlier ops that must finish before it reads or
+    writes: the last writer of each region it reads (read after write), the
+    last writer of each region it writes (write after write) and every op
+    that read one of those since (write after read). Regions are the
+    tables' offsets (a node's class columns, a scaler index's counts); the
+    trash region that scaler-less ops write (has_scaler 0) is no region,
+    and the zero region is never written. Every entry of op k is below k,
+    and running each op once its list is done gives the levels' result,
+    which `schedule_levels` made the serial list's."""
+    last_write, readers = {}, {}
+    offsets, entries = [0], []
+    k = 0
+    for t in tables:
+        for p, psc, c1, _, s1, c2, _, s2, _, _, has in np.asarray(
+                t, dtype=np.int64).T.tolist():
+            reads = {("clv", c1), ("clv", c2), ("sc", s1), ("sc", s2)}
+            writes = {("clv", p)} | ({("sc", psc)} if has else set())
+            deps = {last_write[r] for r in reads | writes if r in last_write}
+            for r in writes:
+                deps.update(readers.get(r, ()))
+            for r in reads:
+                readers.setdefault(r, []).append(k)
+            for r in writes:
+                last_write[r], readers[r] = k, []
+            entries += sorted(deps)
+            offsets.append(len(entries))
+            k += 1
+    return (np.asarray(offsets, dtype=np.int32),
+            np.asarray(entries, dtype=np.int32))
+
+
+def traversal_arrays(tables) -> tuple:
+    """The 4x4 kernel's host arrays for the ops of `tables` in level order
+    (op k is column k of the tables joined): tickets [tiles, 4] int32, one
+    row (op, first column, wait-list begin, end) per POOL_FIXED_TILE class
+    columns of each op, op after op; the wait lists [entries, 2] int32 (op, its
+    tile count; `wait_lists`); each op's tile count [ops] int32; and each
+    level's (first ticket, end ticket, first op, end op)."""
+    widths = np.concatenate([np.asarray(t[8], dtype=np.int64)
+                             for t in tables])
+    op_tiles = -(-widths // POOL_FIXED_TILE)
+    offsets, entries = wait_lists(tables)
+    ops = np.repeat(np.arange(widths.size), op_tiles)
+    first = np.arange(ops.size) - np.repeat(np.cumsum(op_tiles) - op_tiles,
+                                            op_tiles)
+    tickets = np.stack([ops, first * POOL_FIXED_TILE, offsets[ops],
+                        offsets[ops + 1]], axis=1).astype(np.int32)
+    waits = np.stack([entries, op_tiles[entries]], axis=1).astype(np.int32)
+    op_ends = np.cumsum([t.shape[1] for t in tables])
+    tile_ends = np.cumsum(op_tiles)
+    bounds, k0 = [], 0
+    for k1 in op_ends.tolist():
+        t0 = int(tile_ends[k0 - 1]) if k0 else 0
+        bounds.append((t0, int(tile_ends[k1 - 1]), k0, k1))
+        k0 = k1
+    return tickets, waits.reshape(-1, 2), op_tiles.astype(np.int32), \
+        tuple(bounds)
 
 
 def _views(parts, axis, device):
     """`parts` joined along `axis` into one tensor on `device` (one
-    host-to-device copy) and returned as one slice view per part."""
+    host-to-device copy): (that tensor, one slice view per part)."""
     if not parts:
-        return ()
+        return None, ()
     flat = torch.as_tensor(np.concatenate(parts, axis=axis), device=device)
     bounds = np.cumsum([0] + [p.shape[axis] for p in parts])
-    return tuple(flat.narrow(axis, int(a), int(b - a))
-                 for a, b in zip(bounds[:-1], bounds[1:]))
+    return flat, tuple(flat.narrow(axis, int(a), int(b - a))
+                       for a, b in zip(bounds[:-1], bounds[1:]))
 
 
 def level_launches(tiles, rates: int, states: int, sms: int) -> tuple:
     """Each level's ops/_kernels.py:pool_plan, from its tile map, on a
     device of `sms` SMs; None at every level for the 4x4 size, which runs
-    the fixed variant."""
+    the traversal kernel."""
     if (rates, states) == (4, 4):
         return (None,) * len(tiles)
     return tuple(pool_plan(t.shape[0] * POOL_GRANULE, rates, states, sms)
                  for t in tiles)
 
 
-def plan_to_device(tables, widths, gl, gr, tiles, device, rates: int,
+def _traversal(tables, table, sms: int, device):
+    """The 4x4 kernel's PoolTraversal of a plan whose levels' `tables` lie
+    joined in `table` [11, ops] on `device`, and each level's
+    PoolFixedLevel: `pool_fixed_plan` over every op's width and
+    `traversal_arrays`, copied to `device` in one int32 tensor beside the
+    counters."""
+    widths = np.concatenate([t[8] for t in tables])
+    plan = pool_fixed_plan(widths, sms)
+    tickets, waits, _, bounds = traversal_arrays(tables)
+    flat = torch.as_tensor(np.concatenate(
+        [tickets.ravel(), waits.ravel(),
+         np.zeros((1 + widths.size) * POOL_COUNTER_STRIDE, np.int32)]),
+        device=device)
+    sizes = np.cumsum([0, tickets.size, waits.size])
+    trav = PoolTraversal(
+        plan, table, flat[:sizes[1]].view(-1, 4),
+        flat[sizes[1]:sizes[2]].view(-1, 2), flat[sizes[2]:])
+    return trav, tuple(PoolFixedLevel(trav, k0, k1, t0, t1)
+                       for t0, t1, k0, k1 in bounds)
+
+
+def plan_to_device(tables, gl, gr, tiles, device, rates: int,
                    states: int) -> PoolPlan:
-    """The packed levels on `device` in four host-to-device copies: the
-    tables as column-slice views of one int64 tensor [11, total ops], the
-    tile maps as row-slice views of one int32 tensor [granules, 2], and the
-    gather maps; on a CUDA device with each level's launch at `rates` and
-    `states` (`level_launches`), so that a launch computes no layout."""
+    """The packed levels on `device`: the tables as column-slice views of
+    one int64 tensor [11, total ops], the tile maps as row-slice views of
+    one int32 tensor [granules, 2], and the gather maps. On a CUDA device
+    each level gets its launch at `rates` and `states` (`level_launches`),
+    so that a launch computes no layout; at 4x4 the plan also gets its
+    traversal (the tickets, the wait lists built here once and the
+    counters, one more copy), and each level its PoolFixedLevel."""
     device = torch.device(device)
+    table, level_tables = _views(tables, 1, device)
+    launches, trav = (None,) * len(tiles), None
     if device.type == "cuda":
-        launches = level_launches(tiles, rates, states,
-                                  device_sm_count(device))
-    else:
-        launches = (None,) * len(tiles)
-    return PoolPlan(_views(tables, 1, device), tuple(widths),
-                    torch.as_tensor(gl, device=device),
+        sms = device_sm_count(device)
+        launches = level_launches(tiles, rates, states, sms)
+        if (rates, states) == (4, 4) and tables:
+            trav, launches = _traversal(tables, table, sms, device)
+    return PoolPlan(level_tables, torch.as_tensor(gl, device=device),
                     torch.as_tensor(gr, device=device),
-                    _views(tiles, 0, device), launches)
+                    _views(tiles, 0, device)[1], launches, trav)
 
 
 def pool_update_reference(pool2d: torch.Tensor,    # [R*s, T]
                           sc: torch.Tensor,        # [T2] or [R, T2] int32
                           pmatrix: torch.Tensor,   # [E, R, s, s]
-                          table, width: int,       # [11, W] int
+                          table,                   # [11, W] int
                           gl: torch.Tensor, gr: torch.Tensor,
                           rates: int, states: int,
                           threshold: float, factor: float,
@@ -213,8 +308,8 @@ def pool_update_reference(pool2d: torch.Tensor,    # [R*s, T]
     """Plain PyTorch version of one level, in the dtype of `pool2d`: each
     op's parent class columns and counts are computed and written into
     `pool2d` and `sc` in place, one op after another (the ops of a level
-    are independent). `width`, `tiles` and `launch` are not read: each op
-    has its own W. A scaler pool with a rate axis selects the per-rate mode."""
+    are independent). `tiles` and `launch` are not read: each op has its
+    own W. A scaler pool with a rate axis selects the per-rate mode."""
     rows = torch.as_tensor(table).cpu().tolist()
     dev = pool2d.device
     for (p_off, psc_off, c1_off, m1, s1_off, c2_off, m2, s2_off, w, g_off,
@@ -239,29 +334,27 @@ def pool_update_reference(pool2d: torch.Tensor,    # [R*s, T]
 
 
 def pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
-                pmatrix: torch.Tensor, table, width: int,
-                gl: torch.Tensor, gr: torch.Tensor, rates: int, states: int,
+                pmatrix: torch.Tensor, table, gl: torch.Tensor,
+                gr: torch.Tensor, rates: int, states: int,
                 threshold: float, factor: float, tiles=None,
                 launch=None) -> None:
     """One level of independent ops over the pooled class columns, parent
     columns and counts written in place; `sc` [T2], or [R, T2] for the
-    per-rate mode. CUDA tensors launch
-    csrc/pool_update.cu (float32) on the current stream without
-    synchronising, or raise; CPU tensors run `pool_update_reference`.
-    `width` is the level's widest op (the 4x4 variant's grid), `tiles` its
-    `tile_map` on the device (the runtime-size variant's flat grid) and
-    `launch` its layout (PoolPlan.launches). The
-    table's offsets are trusted: callers build it with `pack_pool_levels`
-    from ops whose indices they have checked (Partition and TreeEngine
-    do)."""
+    per-rate mode. CUDA tensors launch csrc/pool_update.cu (float32) on
+    the current stream without synchronising, or raise; CPU tensors run
+    `pool_update_reference`. `tiles` is the level's `tile_map` on the
+    device and `launch` its PoolPlan.launches entry: the runtime-size
+    variant's layout, or at 4x4 the level of the plan's traversal, which
+    the 4x4 kernel then runs alone. The table's offsets are trusted:
+    callers build it with `pack_pool_levels` from ops whose indices they
+    have checked (Partition and TreeEngine do)."""
     if pool2d.device.type == "cpu" and pmatrix.device.type == "cpu":
-        pool_update_reference(pool2d, sc, pmatrix, table, width, gl, gr,
-                              rates, states, threshold, factor)
+        pool_update_reference(pool2d, sc, pmatrix, table, gl, gr, rates,
+                              states, threshold, factor)
         return
     from . import _kernels
-    _kernels.launch_pool_update(pool2d, sc, pmatrix, table, width, gl, gr,
-                                rates, states, threshold, factor, tiles,
-                                launch)
+    _kernels.launch_pool_update(pool2d, sc, pmatrix, table, gl, gr, rates,
+                                states, threshold, factor, tiles, launch)
     pool_update.launches += 1
 
 
@@ -272,17 +365,27 @@ def update_partials_pool(clv_flat: torch.Tensor,   # [R, s, T]
                          sc_flat: torch.Tensor,    # [(R,) T2] int32
                          pmatrix: torch.Tensor,    # [E, R, s, s]
                          plan: PoolPlan,
-                         threshold: float, factor: float,
-                         level=pool_update):
-    """Run all levels of `plan` in order through `level` (the dispatching
-    wrapper, or its plain version for a comparison on the card); returns
-    (clv_flat, sc_flat), updated in place."""
+                         threshold: float, factor: float, level=None):
+    """Run the whole of `plan`. With no `level`: one launch of the 4x4
+    kernel over the plan's traversal when the plan has one (plan_to_device
+    on a CUDA device at 4x4) and the pool lies on that device, else each
+    level through the wrapper `pool_update`. A given `level` (the wrapper,
+    one launch a level, or its plain version for a comparison on the card)
+    runs each level. Returns (clv_flat, sc_flat), updated in place."""
     rates, states, total = clv_flat.shape
     pool2d = clv_flat.view(rates * states, total)
-    for table, width, tiles, launch in zip(plan.tables, plan.widths,
-                                           plan.tiles, plan.launches):
-        level(pool2d, sc_flat, pmatrix, table, width, plan.gl, plan.gr,
-              rates, states, threshold, factor, tiles=tiles, launch=launch)
+    if (level is None and plan.traversal is not None
+            and pool2d.device.type == "cuda"):
+        from . import _kernels
+        _kernels.launch_pool_traversal(pool2d, sc_flat, pmatrix, plan.gl,
+                                       plan.gr, threshold, factor,
+                                       plan.traversal)
+        pool_update.launches += 1
+        return clv_flat, sc_flat
+    level = level or pool_update
+    for table, tiles, launch in zip(plan.tables, plan.tiles, plan.launches):
+        level(pool2d, sc_flat, pmatrix, table, plan.gl, plan.gr, rates,
+              states, threshold, factor, tiles=tiles, launch=launch)
     return clv_flat, sc_flat
 
 

@@ -556,7 +556,8 @@ class Partition:
         CPU; parent rows and scaler rows are written in place.
 
         On a repeats partition the levels run over the pooled class columns
-        through the pool kernel (ops/pool.py), one launch per level. The
+        through the pool kernel (ops/pool.py): at 4 states x 4 rates one
+        launch for the whole list, else one launch per level. The
         class schedule is rebuilt when the op list (every field of every
         op), the tips or the pooled layout changed; with `update_repeats`
         False the class tables are left as they are

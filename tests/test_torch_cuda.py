@@ -14,14 +14,18 @@ sum can round a value to the other bf16 neighbour, so that mode is held at
 the logL level, to 1e-4 relative. The level kernel (csrc/level_update.cu)
 is held to equal scaler rows and CLV rows to 1e-5 of each site's largest
 entry over a whole traversal, level by level; the pool kernel
-(csrc/pool_update.cu) to equal scaler regions (the trash region aside,
-which ops without a scaler buffer of one level write at once) and class
-columns to 1e-5 of each column's largest entry. Their per-rate and raw-tip
+(csrc/pool_update.cu: the 4x4 size one launch a traversal, on device
+counters, or one level a launch when called a level at a time; other
+sizes one launch a level) to equal scaler regions (the trash region aside,
+which ops without a scaler buffer write at once) and class columns to
+1e-5 of each column's largest entry. Their per-rate and raw-tip
 modes are held the same way, counts compared per rate; the matrix-unit
 probe (csrc/mxu_probe.cu) to 1e-5 of its output's largest entry in 'f32'
 (the two versions add the same products in another order) and 5e-5 in
 'bf16' and 'split' (the tensor cores' float32 accumulation rounds toward
 zero)."""
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -482,14 +486,15 @@ def test_level_wrapper_rejects_what_it_cannot_take(cuda):
 POOL_CASES = ["dna", "rates3", "aa20", "caterpillar", "partial",
               "no_scaler", "identity", "states5", "states17", "states32",
               "aa20_per_rate", "rates3_per_rate", "rates1", "wide_aa",
-              "mixed_widths"]
+              "mixed_widths", "war_serial", "back_to_back", "caterpillar80",
+              "big_grid", "dna_levels"]
 # the runtime-size variant's threads a column (ops/_kernels.py:pool_plan,
 # read from each level's launch in the plan): a column's rates split over
 # the largest power of two up to 4 that the rates fill, so 'rates1' takes
 # 1, the 3-rate cases 2 and the 4-rate cases 4; 'wide_aa' (128 x 16384
 # simulated amino acids, levels 20,480-196,608 columns wide) runs blocks
 # over runs of tiles; 'mixed_widths' (64 x 4096 random DNA, 3 rates) holds
-# a level whose ops differ 16x in width; None: the 4x4 variant
+# a level whose ops differ 16x in width; None: the 4x4 traversal kernel
 POOL_LAYOUTS = {"rates3": {2}, "aa20": {4}, "states5": {4},
                 "states17": {4}, "states32": {4}, "aa20_per_rate": {4},
                 "rates3_per_rate": {2}, "rates1": {1}, "wide_aa": {4},
@@ -572,6 +577,10 @@ def _pool_case(case, device):
         tree, sites = random_utree([f"t{i}" for i in range(64)], seed=11), \
             4096
         kw = dict(rates=3, conserved=False)
+    elif case == "caterpillar80":
+        tree, sites = _caterpillar(80), 1000
+    elif case == "big_grid":
+        kw = dict(rate_scalers=True)
     part = _repeats_partition(tree, sites, device, **kw)
     ops, br, pidx = create_operations(traverse(tree.vroot))
     part.update_prob_matrices([0] * part.rate_cats, pidx, br)
@@ -580,6 +589,15 @@ def _pool_case(case, device):
             op.parent_scaler_index = -1
     if case == "partial":
         return part, ops[len(ops) // 2:], ops
+    if case == "war_serial":
+        # the traversal, then the first half of its postorder again with
+        # each op's P-matrices swapped: it rewrites nodes whose parents the
+        # traversal read and it leaves (write after read, in the final pools)
+        again = [copy.copy(op) for op in ops[:len(ops) // 2]]
+        for op in again:
+            op.child1_matrix_index, op.child2_matrix_index = \
+                op.child2_matrix_index, op.child1_matrix_index
+        return part, ops + again, None
     return part, ops, None
 
 
@@ -596,37 +614,73 @@ def _aa_partition(tree, by, sites, device):
     return part
 
 
-def _run_pool(part, ops, level):
+def _run_pool(part, ops, level=None):
+    """`ops` on the partition's pools through update_partials_pool with
+    `level` (None: the plan's kernels); returns the launches the wrapper
+    makes (the 4x4 traversal kernel: one; else one a level, as with a
+    given `level`)."""
     plan = part._pool_plan(ops, True)
     pool.update_partials_pool(part.clv_flat, part.sc_flat, part.pmatrix,
                               plan, part.scale_threshold, part.scale_factor,
                               level=level)
-    return len(plan.tables)
+    return (1 if level is None and plan.traversal is not None
+            else len(plan.tables))
 
 
 def _pool_layouts(part):
     """The threads a column the levels of the partition's plan launch
-    with (the runtime-size variant), or None (the 4x4 variant)."""
-    launches = part._repeat_schedule.launches
-    if all(launch is None for launch in launches):
+    with (the runtime-size variant), or None (the 4x4 traversal kernel)."""
+    plan = part._repeat_schedule
+    if plan.traversal is not None:
         return None
-    return {launch.rate_threads for launch in launches}
+    return {launch.rate_threads for launch in plan.launches}
 
 
 @pytest.mark.parametrize("case", POOL_CASES)
 def test_pool_kernel_matches_plain_on_card(cuda, case):
+    """The wrapper's launches: one a traversal at 4x4 (the traversal
+    kernel), one a level otherwise and in 'dna_levels', where each level
+    of the 4x4 plan is its own launch. After a traversal its counters show
+    every tile of every op done and each block's one draw past the
+    tickets. 'back_to_back' runs two traversals under different
+    P-matrices (the counters zeroed before each); 'big_grid' launches 4
+    blocks a ticket, past the card's resident blocks; 'caterpillar80'
+    waits through 78 dependent levels."""
     part, ops, first = _pool_case(case, cuda)
     if first is not None:
-        _run_pool(part, first, pool.pool_update)
-    part._pool_plan(ops, True)            # lays the pool out, computes none
+        _run_pool(part, first)
+    plan = part._pool_plan(ops, True)     # lays the pool out, computes none
+    if case == "big_grid":
+        trav = plan.traversal
+        part._repeat_schedule = plan._replace(traversal=trav._replace(
+            plan=trav.plan._replace(blocks=4 * trav.plan.tiles)))
+    p_sets = [lambda: None]
+    if case == "back_to_back":
+        p0 = part.pmatrix.clone()
+        p_sets = [lambda f=f: part.pmatrix.copy_(p0 * f) for f in (1.0, 0.9)]
+    level = pool.pool_update if case == "dna_levels" else None
     clv, sc = part.clv_flat.clone(), part.sc_flat.clone()
-    before = pool.pool_update.launches
-    n = _run_pool(part, ops, pool.pool_update)
+    before, n = pool.pool_update.launches, 0
+    for set_p in p_sets:
+        set_p()
+        n += _run_pool(part, ops, level)
     assert pool.pool_update.launches == before + n
+    if (part.rate_cats, part.states) == (4, 4):
+        assert n == len(p_sets) * (1 if level is None else len(plan.tables))
+    if level is None and plan.traversal is not None:
+        trav = part._repeat_schedule.traversal
+        stride = _kernels.POOL_COUNTER_STRIDE
+        counts = trav.counters.view(-1, stride)[:, 0].cpu()
+        tiles = torch.bincount(trav.tickets[:, 0].long().cpu(),
+                               minlength=trav.table.shape[1])
+        assert int(counts[0]) == trav.plan.tiles + trav.plan.blocks
+        assert torch.equal(counts[1:].long(), tiles)
     got_clv, got_sc = part.clv_flat.clone(), part.sc_flat.clone()
     part.clv_flat.copy_(clv)
     part.sc_flat.copy_(sc)
-    _run_pool(part, ops, pool.pool_update_reference)
+    for set_p in p_sets:
+        set_p()
+        _run_pool(part, ops, pool.pool_update_reference)
     torch.cuda.synchronize()
     lay = part._flat
     keep = torch.ones_like(got_sc, dtype=torch.bool)
@@ -636,11 +690,12 @@ def test_pool_kernel_matches_plain_on_card(cuda, case):
     want = part.clv_flat
     col_max = want.abs().amax(dim=(0, 1), keepdim=True).clamp(min=1e-30)
     assert float(((got_clv - want).abs() / col_max).max()) <= 1e-5
-    if case in ("caterpillar", "rates3_per_rate"):
+    if case in ("caterpillar", "rates3_per_rate", "caterpillar80"):
         assert int(part.sc_flat[..., :lay.sc_trash].max()) > 0
+    if case == "caterpillar80":
+        assert len(plan.tables) == 78
     if case == "identity":
-        assert max(plan_w for plan_w in part._repeat_schedule.widths) == \
-            lay.caps.max()
+        assert max(int(t[8].max()) for t in plan.tables) == lay.caps.max()
     if case == "mixed_widths":
         assert any(int(t[8].max()) >= 16 * int(t[8].min())
                    for t in part._repeat_schedule.tables)
@@ -660,7 +715,8 @@ def test_repeats_engine_on_card_matches_cpu_float64(cuda, pallas):
     before = pool.pool_update.launches
     got, want = gpu.loglikelihood(), cpu.loglikelihood()
     if pallas == "pool":
-        assert pool.pool_update.launches == before + len(gpu._ops.tables)
+        # the 4x4 traversal kernel: one launch a traversal
+        assert pool.pool_update.launches == before + 1
     assert abs(got - want) / abs(want) < 5e-5
     for _ in range(3):
         (gl, g1, g2), (wl, w1, w2) = gpu.newton_step(), cpu.newton_step()
@@ -676,7 +732,7 @@ def test_pool_wrapper_needs_the_tile_map(cuda):
     part, ops, _ = _pool_case("aa20", cuda)
     plan = part._pool_plan(ops, True)
     args = (part.clv_flat.view(80, -1), part.sc_flat, part.pmatrix,
-            plan.tables[0], plan.widths[0], plan.gl, plan.gr)
+            plan.tables[0], plan.gl, plan.gr)
     kw = dict(rates=4, states=20, threshold=part.scale_threshold,
               factor=part.scale_factor)
     tiles, launch = plan.tiles[0], plan.launches[0]
@@ -694,23 +750,25 @@ def test_pool_wrapper_needs_the_tile_map(cuda):
 
 
 def test_pool_wrapper_rejects_what_it_cannot_take(cuda):
+    """One 4x4 level through the wrapper launches the traversal kernel over
+    that level, with the level's PoolFixedLevel, or raises."""
     part, ops, _ = _pool_case("dna", cuda)
     plan = part._pool_plan(ops, True)
     pool2d = part.clv_flat.view(16, -1)
-    table, width = plan.tables[0], plan.widths[0]
-    args = (pool2d, part.sc_flat, part.pmatrix, table, width, plan.gl,
-            plan.gr)
+    table = plan.tables[0]
+    args = (pool2d, part.sc_flat, part.pmatrix, table, plan.gl, plan.gr)
     kw = dict(rates=4, states=4, threshold=part.scale_threshold,
-              factor=part.scale_factor)
+              factor=part.scale_factor, launch=plan.launches[0])
     bad = {
         "float64": ((pool2d.double(),) + args[1:], kw),
         "non-contiguous P": (args[:2] + (part.pmatrix.transpose(2, 3),)
                              + args[3:], kw),
         "host table": (args[:3] + (table.cpu(),) + args[4:], kw),
         "int32 table": (args[:3] + (table.int(),) + args[4:], kw),
-        "int64 gathers": (args[:5] + (plan.gl.long(), plan.gr), kw),
+        "int64 gathers": (args[:4] + (plan.gl.long(), plan.gr), kw),
         "33 states": (args, dict(kw, states=33)),
-        "zero width": (args[:4] + (0,) + args[5:], kw),
+        "no level launch": (args, dict(kw, launch=None)),
+        "another level's launch": (args, dict(kw, launch=plan.launches[1])),
     }
     for name, (a, k) in bad.items():
         with pytest.raises(ValueError):
@@ -834,7 +892,7 @@ def test_pool_kernel_per_rate_matches_plain_on_card(cuda):
     part.update_prob_matrices([0] * 4, pidx, br)
     part._pool_plan(ops, True)
     clv, sc = part.clv_flat.clone(), part.sc_flat.clone()
-    _run_pool(part, ops, pool.pool_update)
+    _run_pool(part, ops)
     got = part.clv_flat.clone(), part.sc_flat.clone()
     part.clv_flat.copy_(clv)
     part.sc_flat.copy_(sc)

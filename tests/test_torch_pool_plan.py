@@ -72,7 +72,7 @@ def _conserved_protein_levels():
         copy.deepcopy(part.repeats), ops, part.tips, part.sites_padded,
         part.scale_buffers)
     return [sum(int(w) for w, *_ in lv) for lv in levels], \
-        [len(lv) for lv in levels], pool.pack_pool_levels(layout, levels)[4]
+        [len(lv) for lv in levels], pool.pack_pool_levels(layout, levels)[3]
 
 
 def test_conserved_protein_levels_take_the_designed_layouts():
@@ -139,7 +139,8 @@ def test_wide_level_runs_in_runs_of_tiles():
                                   (0, 4, 20), (POOL_GRANULE, 0, 20),
                                   (POOL_GRANULE, 4, 33)])
 def test_pool_plan_refuses_what_has_no_runtime_size_plan(args):
-    """The 4x4 size runs the fixed variant; columns come in granules."""
+    """The 4x4 size runs the traversal kernel; columns come in
+    granules."""
     with pytest.raises(ValueError):
         pool_plan(*args, SMS)
 
@@ -204,12 +205,13 @@ def test_packer_tables_and_gathers_are_unchanged_beside_the_maps():
     maps): the op's fields, its W, the offset of its gather entries and
     whether it has a scaler; each op's W child class indices zero-padded
     past its class count. Each level's tile map is `tile_map` of its W
-    row, and the device plan keeps them in one tensor of views."""
+    row, and the device plan keeps them in one tensor of views (on the
+    host without a launch or a traversal)."""
     layout, levels = _repeats_levels()
-    tables, widths, gl, gr, tiles = pool.pack_pool_levels(layout, levels)
-    assert len(tables) == len(widths) == len(tiles) == len(levels)
+    tables, gl, gr, tiles = pool.pack_pool_levels(layout, levels)
+    assert len(tables) == len(tiles) == len(levels)
     g_off, want_gl, want_gr = 0, [], []
-    for table, width, tmap, lv in zip(tables, widths, tiles, levels):
+    for table, tmap, lv in zip(tables, tiles, levels):
         assert table.shape == (pool.POOL_ROWS, len(lv))
         assert table.dtype == np.int64
         for k, (w, op, l_idx, r_idx) in enumerate(lv):
@@ -222,11 +224,10 @@ def test_packer_tables_and_gathers_are_unchanged_beside_the_maps():
                 padded[:idx.size] = idx
                 out.append(padded)
             g_off += w
-        assert width == max(w for w, *_ in lv)
         np.testing.assert_array_equal(tmap, pool.tile_map(table[8]))
     np.testing.assert_array_equal(gl, np.concatenate(want_gl))
     np.testing.assert_array_equal(gr, np.concatenate(want_gr))
-    plan = pool.plan_to_device(tables, widths, gl, gr, tiles, "cpu", 4, 4)
+    plan = pool.plan_to_device(tables, gl, gr, tiles, "cpu", 4, 4)
     for got, want in zip(plan.tables, tables):
         np.testing.assert_array_equal(got.numpy(), want)
     for got, want in zip(plan.tiles, tiles):
@@ -234,14 +235,16 @@ def test_packer_tables_and_gathers_are_unchanged_beside_the_maps():
         np.testing.assert_array_equal(got.numpy(), want)
     assert plan.tiles[0].untyped_storage().data_ptr() == \
         plan.tiles[-1].untyped_storage().data_ptr()
+    assert plan.launches == (None,) * len(levels)
+    assert plan.traversal is None
 
 
 @pytest.mark.parametrize("rates,states,want", [
     (4, 4, (None, None)), (4, 20, (4, 4)), (3, 4, (2, 2)), (1, 5, (1, 1))])
 def test_level_launches_lay_out_every_level(rates, states, want):
     """`level_launches` gives each level its `pool_plan` from the level's
-    tile map, and None at every level of the 4x4 size (the fixed
-    variant); a plan on the host carries no launch."""
+    tile map, and None at every level of the 4x4 size (the traversal
+    kernel); a plan on the host carries no launch."""
     tiles = (pool.tile_map([256, 100]), pool.tile_map([4096]))
     got = pool.level_launches(tiles, rates, states, SMS)
     assert tuple(g and g.rate_threads for g in got) == want
@@ -251,7 +254,7 @@ def test_level_launches_lay_out_every_level(rates, states, want):
                                   SMS)
     plan = pool.plan_to_device((np.zeros((pool.POOL_ROWS, 2), np.int64),
                                 np.zeros((pool.POOL_ROWS, 1), np.int64)),
-                               (256, 4096), np.zeros(4452, np.int32),
+                               np.zeros(4452, np.int32),
                                np.zeros(4452, np.int32), tiles, "cpu",
                                rates, states)
     assert plan.launches == (None, None)
