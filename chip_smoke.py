@@ -133,7 +133,23 @@ each fatal on failure:
      their plain versions (kernel 1 also in every plan and thread layout),
      and kernel 1's device time per rate and with all tips raw, the slice's
      paths at full width with their launches counted, their times, and the
-     matrix-unit probe.
+     matrix-unit probe;
+ 19. candidate scoring (TreeEngine.evaluate_topologies, pack_candidate +
+     evaluate_packed, evaluate_packed_arrays): the full NNI neighbourhood
+     of the DNA main path's tree (250 candidates, 2 chunks of the fused
+     kernel's candidate form a call) through the three entry points,
+     launches counted, each score against its candidate's set_topology +
+     loglikelihood() on the card and the first four against the float64
+     plain path; 64 protein candidates at 128 x 8192 in 'split' and
+     'bf16' (one launch of the rows kernel each); 64 candidates of the 246
+     x 4465 repeats problem on 'repeats-dense-fused' (one launch) and 4 on
+     'pool-pallas' (one pool-kernel dispatch each); each kernel's
+     candidate form against its plain version at the path's own K (a DNA
+     chunk of 128, 64 protein, 64 repeats), the plan it took, its call
+     and device time a chunk beside its bound, the plain version's call;
+     the host's packing a candidate for each entry point, each call in
+     candidates/s and the same candidates through set_topology +
+     loglikelihood() one at a time.
 
 The last three lines are the card's name and power limit, one JSON object
 listing every kernel (with its bound at the card's peaks), and {"ok": true,
@@ -2588,8 +2604,10 @@ def fused_device(label, part, eng, gpu) -> float:
 def fused_only(device, gpu) -> dict:
     """`--fused-only`: the DNA fused kernel's call and device times (ms)
     on the DNA main path, per rate, with all 128 tips raw and on the
-    246 x 4465 'repeats-dense-fused' inputs, of the package that was
-    imported, which may be another checkout's."""
+    246 x 4465 'repeats-dense-fused' inputs, and the device time of a
+    chunk of the DNA tree's NNI neighbours where the package has the
+    candidate form, of the package that was imported, which may be
+    another checkout's."""
     from libpll2_tpu_torch import TreeEngine
     from libpll2_tpu_torch.ops.fused import fused_traversal
     from libpll2_tpu_torch.trees import random_alignment, random_utree
@@ -2615,6 +2633,20 @@ def fused_only(device, gpu) -> dict:
         out[key] = {"ms": ms, "device_ms": dev,
                     "us_per_op": dev * 1e3 / (len(table) - 1)}
         print(f"  fused kernel call, {key}: {ms:.4f} ms", flush=True)
+    from libpll2_tpu_torch import engine
+    if hasattr(engine, "CANDIDATE_CHUNK"):  # a package with candidates
+        part, eng = cases["dna"]
+        packed = at_neighbours(tree, lambda: eng.pack_candidate(tree.vroot),
+                               engine.CANDIDATE_CHUNK)
+        args, kw = candidate_inputs(part, eng, packed)
+        dev = kernel_device_us(lambda: fused_traversal(*args, **kw),
+                               "fused_") * 1e-3
+        out["candidates"] = {"device_ms": dev, "candidates": len(packed),
+                             "us_per_candidate": dev * 1e3 / len(packed)}
+        print(f"fused kernel device time, a chunk of {len(packed)} DNA "
+              f"candidates (torch.profiler, median of 5; {gpu}): "
+              f"{dev * 1e3:.1f} us ({dev * 1e3 / len(packed):.2f} us a "
+              f"candidate)", flush=True)
     return out
 
 
@@ -3223,6 +3255,411 @@ def probe_phase(gpu):
             "tflops": {m: r["tflops"] for m, r in main.items()}}
 
 
+# phase 19: candidate scoring. Candidates held against the float64 plain
+# path; the protein and repeats batches; the host clock's repetitions of a
+# scoring call
+CAND_F64 = 4
+CAND_AA = 64
+CAND_REPEATS, CAND_POOL = 64, 4
+CAND_REPS = 5
+
+
+def at_neighbours(tree, fn, k=None):
+    """fn() at the first k (all) NNI neighbours of `tree`, each move made
+    with trees/moves.py and rolled back."""
+    from libpll2_tpu_torch.trees import moves
+
+    out = []
+    for h, move in moves.nni_neighbours(tree)[:k]:
+        rb = moves.Rollback()
+        moves.nni(h, move, rb)
+        out.append(fn())
+        moves.rollback_move(rb)
+    return out
+
+
+def candidate_objects(tree, k=None):
+    """(operations, branches, pmatrix_indices, root 5-tuple) of the NNI
+    neighbours, the input of evaluate_topologies."""
+    from libpll2_tpu_torch.trees import create_operations, traverse
+
+    def snapshot():
+        ops, br, pidx = create_operations(traverse(tree.vroot))
+        vr = tree.vroot
+        return (ops, br, pidx, (vr.clv_index, vr.scaler_index,
+                                vr.back.clv_index, vr.back.scaler_index,
+                                vr.pmatrix_index))
+    return at_neighbours(tree, snapshot, k)
+
+
+def candidate_inputs(part, eng, packed):
+    """The candidate form's operands for `pack_candidate` tuples: (tip
+    codes, P [K, E, R, s, s], tables [K, n_ops+1, 8]) and its keywords."""
+    import numpy as np
+    import torch
+    from libpll2_tpu_torch.ops.pmatrix import update_prob_matrices
+
+    dev = part.device
+    tables = torch.as_tensor(np.stack([q[0] for q in packed]), device=dev)
+    blens = torch.as_tensor(np.stack([q[1] for q in packed]),
+                            dtype=torch.float32, device=dev)
+    m = eng._model_args()
+    pm = update_prob_matrices(m[0], m[1], m[2], m[3], m[4], m[7],
+                              blens.reshape(-1))
+    pm = pm.view(len(packed), -1, *pm.shape[1:])
+    kw = traversal_kw(part, eng)
+    kw["n_slots"] = max(q[3] for q in packed)
+    return (eng._tip_codes(), pm, tables), kw
+
+
+def candidate_bound(part, k, n_ops):
+    """One launch of K candidates: the shared tip codes (raw tip rows) read
+    once, each candidate's P and table read once and its two root CLVs and
+    counts written once; K traversals' operations."""
+    S, R, s = part.sites_padded, part.rate_cats, part.states
+    n_raw = int(part._tips_clv_set.sum())
+    sc_rows = R if part.rate_scalers else 1
+    n_bytes = ((part.tips - n_raw) * S * 4 + n_raw * s * S * 4
+               + k * (part.prob_matrices * R * s * s * 4 + (n_ops + 1) * 32
+                      + 2 * R * s * S * 4 + 2 * sc_rows * S * 4))
+    return bound_ms(n_bytes, k * traversal_flops(n_ops, S, R, s))
+
+
+def _kernels_plan(part, n_slots, k):
+    from libpll2_tpu_torch.ops import _kernels
+
+    return _kernels.device_fused_plan(part.device, part.rate_cats,
+                                      part.states, n_slots,
+                                      part.rate_scalers, part.sites_padded,
+                                      k)
+
+
+def rows_plan_text(part, n_slots, k):
+    from libpll2_tpu_torch.ops import _kernels
+
+    plan = _kernels.device_rows_plan(part.device, part.rate_cats,
+                                     part.states, n_slots, part.rate_scalers,
+                                     part.sites_padded, k)
+    return (f"rows plan {plan.plan}, {plan.sites_per_thread} site(s) a "
+            f"thread, {plan.smem_bytes} bytes of shared memory")
+
+
+def sequential_scores(part, tree, mxu="split", k=None, **engine_kw):
+    """set_topology + loglikelihood() of each of the first k NNI
+    neighbours, on another engine over the same partition. Returns (scores,
+    ms a candidate on the host's clock)."""
+    from libpll2_tpu_torch import TreeEngine
+
+    one = TreeEngine(part, tree, mxu=mxu, **engine_kw)
+    one.loglikelihood()
+    t0 = time.perf_counter()
+    got = at_neighbours(tree, lambda: (one.set_topology(tree),
+                                       one.loglikelihood())[1], k)
+    ms = (time.perf_counter() - t0) * 1e3 / len(got)
+    one.set_topology(tree)
+    return got, ms
+
+
+def check_scores(what, got, want, tol=TOL_LOGL):
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(got.shape == want.shape and bool(np.isfinite(got).all()),
+          f"{what}: {got.shape} scores, {want.shape} expected, or not "
+          f"finite")
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    check(rel < tol, f"{what}: max rel err {rel:.3e} >= {tol}")
+    return rel
+
+
+def candidate_f64(part, eng, packed):
+    """logL of packed candidates through the plain traversal in float64 on
+    the card."""
+    import numpy as np
+    import torch
+    from libpll2_tpu_torch import constants as C
+    from libpll2_tpu_torch.engine import _fused_multi_topology
+    from libpll2_tpu_torch.ops.fused import fused_traversal_reference
+
+    f64, dev = torch.float64, part.device
+    model = [torch.tensor(a, dtype=f64, device=dev) for a in (
+        part.eigenvals, part.inv_eigenvecs, part.eigenvecs, part.prop_invar,
+        part.rates, part.rate_weights, part.frequencies)]
+    pw, inv = eng._site_args()
+    total = _fused_multi_topology(
+        *model, eng.params_idx_rates, torch.as_tensor(
+            [list(q[1]) for q in packed], dtype=f64, device=dev),
+        torch.as_tensor(np.stack([q[0] for q in packed]), device=dev),
+        eng._tip_codes(), torch.as_tensor([q[2][4] for q in packed],
+                                          device=dev), pw, inv,
+        max(q[3] for q in packed), C.SCALE_THRESHOLD, C.SCALE_FACTOR,
+        traversal=fused_traversal_reference, **eng._fused_kw())
+    return total.cpu().numpy()
+
+
+def candidate_kernel(label, part, eng, packed, gpu, mxu="split"):
+    """One chunk of K candidates, at the main path's own K, through the
+    candidate form's kernel (one launch) and its plain version on the same
+    inputs: counts equal but at ties, CLVs within TOL_CLV of each site's
+    max ('highest'/'split'); in 'bf16' the K logLs within TOL_BF16_LOGL.
+    Then the kernel's call (CUDA events, median of REPS) and device time
+    (torch.profiler, median of 5) beside the bound, and the plain
+    version's call (once). None of these launches is the path's. Returns
+    {max_abs_err (of the logLs in 'bf16'), ms, plain_ms, device_ms,
+    bound}."""
+    import torch
+    from libpll2_tpu_torch.engine import _fused_multi_topology
+    from libpll2_tpu_torch.ops import fused
+
+    args, kw = candidate_inputs(part, eng, packed)
+    k, n_ops = len(packed), args[2].shape[1] - 1
+    if part.states < 16:
+        plan = plan_text(_kernels_plan(part, kw["n_slots"], k))
+    else:
+        plan = rows_plan_text(part, kw["n_slots"], k)
+    plain_ms = []
+
+    def plain(*a, **k_):
+        """The plain version, its call timed once by CUDA events."""
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fused.fused_traversal_reference(*a, **k_)
+        end.record()
+        end.synchronize()
+        plain_ms.append(start.elapsed_time(end))
+        return out
+
+    if mxu == "bf16":
+        m, (pw, inv) = eng._model_args(), eng._site_args()
+        margs = (*m, torch.as_tensor(
+            [list(q[1]) for q in packed], dtype=torch.float32,
+            device=part.device), args[2], args[0],
+            torch.as_tensor([q[2][4] for q in packed], device=part.device),
+            pw, inv, kw["n_slots"], part.scale_threshold, part.scale_factor)
+        lk = [_fused_multi_topology(*margs, traversal=t, mxu=mxu,
+                                    **eng._fused_kw()).double()
+              for t in (fused.fused_traversal, plain)]
+        rel = float(((lk[0] - lk[1]).abs() / lk[1].abs()).max())
+        err = float((lk[0] - lk[1]).abs().max())
+        agree = f"'bf16', logL max rel err {rel:.3e}"
+        tol = TOL_BF16_LOGL
+    else:
+        got = fused.fused_traversal(*args, mxu=mxu, **kw)
+        want = plain(*args, mxu=mxu, **kw)
+
+        def block(e):
+            """`match_counts`' block of a count entry: (candidate, site) or
+            (candidate, rate, site)."""
+            if part.rate_scalers:
+                return (e[0], e[1], slice(None), e[2])
+            return (e[0], slice(None), slice(None), e[1])
+
+        ties = sum(match_counts(f"{label}, {which}", g_sc, w_sc, g_clv,
+                                w_clv, block, part.scale_factor,
+                                part.scale_threshold)
+                   for g_sc, w_sc, g_clv, w_clv, which in (
+                       (got[2], want[2], got[0], want[0], "parent"),
+                       (got[3], want[3], got[1], want[1], "child")))
+        rel = err = 0.0
+        for g, w in zip(got[:2], want[:2]):
+            check(bool(torch.isfinite(g).all()), f"{label}: non-finite CLVs")
+            site_max = w.abs().amax(dim=(1, 2)).clamp(min=1e-30)
+            rel = max(rel, float(((g - w).abs()
+                                  / site_max[:, None, None]).max()))
+            err = max(err, float((g - w).abs().max()))
+        agree = (f"scaler counts equal{f' ({ties} ties)' if ties else ''}, "
+                 f"max_rel_err {rel:.3e}, max_abs_err {err:.3e}")
+        tol = TOL_CLV
+    print(f"candidate kernel vs plain [{label}, {mxu}]: {k} candidates in "
+          f"one launch, {part.tips} taxa x {part.sites} sites, {plan}: "
+          f"{agree}", flush=True)
+    check(rel <= tol, f"{label} '{mxu}': {k} candidates, max rel err "
+          f"{rel:.3e} > {tol}")
+    ms = median_ms(lambda: fused.fused_traversal(*args, mxu=mxu, **kw))
+    name = "fused_rows" if part.states >= 16 else "fused_"
+    dev = kernel_device_us(lambda: fused.fused_traversal(
+        *args, mxu=mxu, **kw), name) * 1e-3
+    bound = candidate_bound(part, k, n_ops)
+    print(f"candidate kernel times [{label}, {mxu}] ({gpu}): {k} candidates "
+          f"of {n_ops} ops in one launch: call {ms:.4f} ms, device "
+          f"{dev * 1e3:.1f} us ({dev * 1e3 / k:.2f} us a candidate, "
+          f"{dev * 1e3 / (k * n_ops):.3f} us a candidate op), bound "
+          f"{bound[0]:.4f} ms by {bound[1]}, plain {plain_ms[0]:.4f} ms "
+          f"(once)", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms[0],
+            "device_ms": dev, "bound": bound}
+
+
+def dna_candidates(device, big, big_by, gpu):
+    """Phase 19, DNA 128 x 16384: the full NNI neighbourhood through the
+    three entry points (launches counted), each score against its
+    candidate's set_topology + loglikelihood() on the card, a few against
+    the float64 plain path, a chunk's kernel against its plain version,
+    and the times."""
+    import numpy as np
+    import torch
+    from libpll2_tpu_torch.engine import CANDIDATE_CHUNK
+    from libpll2_tpu_torch.ops import fused
+
+    part, eng = build_engine(big, big_by, N_SITES, device)
+    base = eng.loglikelihood()
+    cands = candidate_objects(big)
+    packed = at_neighbours(big, lambda: eng.pack_candidate(big.vroot))
+    k = len(cands)
+    check(all(q is not None for q in packed), "pack_candidate refused an "
+          "NNI neighbour")
+    arrays = (np.stack([q[0] for q in packed]),
+              np.stack([q[1] for q in packed]),
+              np.asarray([q[2] for q in packed]), max(q[3] for q in packed))
+    reset_counts()
+    scores = eng.evaluate_topologies(cands)
+    s_packed = eng.evaluate_packed(packed)
+    s_arrays = eng.evaluate_packed_arrays(*arrays)
+    torch.cuda.synchronize()
+    got = counts()
+    chunks = -(-k // CANDIDATE_CHUNK)
+    check_counts(f"candidate scoring, DNA {N_TAXA} x {N_SITES}, {k} "
+                 f"candidates through 3 entry points", got,
+                 {"fused": 3 * chunks})
+    launches = got["fused"]
+    check(eng.loglikelihood() == base, "scoring changed the engine's logL")
+    seq, seq_ms = sequential_scores(part, big)
+    rel = check_scores("evaluate_topologies vs set_topology + "
+                       "loglikelihood()", scores, seq)
+    check_scores("evaluate_packed vs evaluate_topologies", s_packed, scores,
+                 1e-6)
+    check_scores("evaluate_packed_arrays vs evaluate_topologies", s_arrays,
+                 scores, 1e-6)
+    ref = candidate_f64(part, eng, packed[:CAND_F64])
+    rel64 = check_scores("the first candidates vs the float64 plain path",
+                         scores[:CAND_F64], ref)
+    print(f"candidate scoring, DNA {N_TAXA} x {N_SITES} (the full NNI "
+          f"neighbourhood, {k} candidates, {chunks} chunks): scores vs "
+          f"set_topology + loglikelihood() max rel err {rel:.3e}, vs the "
+          f"float64 plain path ({CAND_F64}) {rel64:.3e}; packed and arrays "
+          f"entry points agree; best {float(scores.max())!r} against the "
+          f"tree's {base!r}", flush=True)
+    chunk = packed[:CANDIDATE_CHUNK]
+    kt = candidate_kernel("DNA, a chunk", part, eng, chunk, gpu)
+    # the host's share: packing a candidate for each entry point (a sweep
+    # over the neighbourhood, median of CAND_REPS), then each call
+    pack_ms, cand_ms, stack_ms = (host_ms(fn, CAND_REPS)[1] / k for fn in (
+        lambda: [fused.pack_fused_schedule(c[0], part.tips,
+                                           (c[3][0], c[3][2]))
+                 for c in cands],
+        lambda: [eng.pack_candidate(big.vroot) for _ in range(k)],
+        lambda: (np.stack([q[0] for q in packed]),
+                 np.stack([q[1] for q in packed]),
+                 np.asarray([q[2] for q in packed]))))
+    calls = {n: host_ms(fn, CAND_REPS)[1] for n, fn in (
+        ("evaluate_topologies", lambda: eng.evaluate_topologies(cands)),
+        ("evaluate_packed", lambda: eng.evaluate_packed(packed)),
+        ("evaluate_packed_arrays",
+         lambda: eng.evaluate_packed_arrays(*arrays)))}
+    print(f"candidate scoring times, DNA ({gpu}): host packing a candidate "
+          f"(a sweep of {k}, median of {CAND_REPS}): pack_fused_schedule "
+          f"{pack_ms:.4f} ms "
+          f"(evaluate_topologies), pack_candidate {cand_ms:.4f} ms "
+          f"(evaluate_packed), np.stack {stack_ms:.5f} ms "
+          f"(evaluate_packed_arrays); calls of {k} candidates (host clock, "
+          f"median of {CAND_REPS}): "
+          + ", ".join(f"{n} {v:.3f} ms ({k / v * 1e3:.0f} candidates/s)"
+                      for n, v in calls.items())
+          + f"; {k} x set_topology + loglikelihood() {seq_ms:.4f} ms a "
+          f"candidate ({1e3 / seq_ms:.0f} candidates/s)", flush=True)
+    return {"launches": launches, "k": k, "chunk": len(chunk), **kt,
+            "pack_ms": pack_ms, "pack_candidate_ms": cand_ms, "stack_ms": stack_ms,
+            "calls_ms": calls, "sequential_ms": seq_ms}
+
+
+def protein_candidates(device, aa_tree, aa_by, gpu):
+    """Phase 19, protein 128 x 8192 LG+G4: CAND_AA candidates through
+    evaluate_topologies in 'split' and 'bf16' (one launch each), each
+    score against its set_topology + loglikelihood() in the same mode, a
+    sample's kernel against its plain version, and the times."""
+    from libpll2_tpu_torch import TreeEngine
+
+    part = protein_partition(aa_tree, aa_by, AA_SITES, device)
+    cands = candidate_objects(aa_tree, CAND_AA)
+    out = {}
+    for mxu in ("split", "bf16"):
+        eng = TreeEngine(part, aa_tree, mxu=mxu)
+        packed = at_neighbours(aa_tree, lambda: eng.pack_candidate(
+            aa_tree.vroot), CAND_AA)
+        reset_counts()
+        t0 = time.perf_counter()
+        scores = eng.evaluate_topologies(cands)
+        call = (time.perf_counter() - t0) * 1e3
+        got = counts()
+        check_counts(f"candidate scoring, protein '{mxu}', {CAND_AA} "
+                     f"candidates", got, {"rows": 1})
+        seq, seq_ms = sequential_scores(part, aa_tree, mxu, CAND_AA)
+        rel = check_scores(f"protein '{mxu}' evaluate_topologies vs "
+                           f"set_topology + loglikelihood()", scores, seq)
+        kt = candidate_kernel("protein", part, eng, packed, gpu, mxu)
+        calls = host_ms(lambda: eng.evaluate_topologies(cands), CAND_REPS)[1]
+        print(f"candidate scoring, protein {AA_TAXA} x {AA_SITES} '{mxu}' "
+              f"({gpu}): {CAND_AA} candidates in one launch, scores vs "
+              f"set_topology + loglikelihood() max rel err {rel:.3e}; "
+              f"evaluate_topologies {calls:.3f} ms ({CAND_AA / calls * 1e3:.0f}"
+              f" candidates/s; first call {call:.3f} ms), "
+              f"set_topology + loglikelihood() {seq_ms:.4f} ms a candidate",
+              flush=True)
+        out[mxu] = {"launches": got["rows"], **kt,
+                    "call_ms": calls, "sequential_ms": seq_ms}
+    return out
+
+
+def repeats_candidates(device, rep_tree, rep_make, gpu):
+    """Phase 19, repeats 246 x 4465: CAND_REPEATS candidates on
+    'repeats-dense-fused' (one launch of the fused kernel, its call and
+    device time a chunk) and CAND_POOL on 'pool-pallas' (one pool-kernel
+    dispatch each, the class schedule packed on the host for each), each
+    against its set_topology + loglikelihood()."""
+    from libpll2_tpu_torch import TreeEngine
+
+    out, dev_times = {}, None
+    for path, k, kw, want in (
+            ("repeats-dense-fused", CAND_REPEATS, {}, {"fused": 1}),
+            ("pool-pallas", CAND_POOL, {"pallas": "pool"},
+             {"pool": CAND_POOL})):
+        part = rep_make(device)
+        eng = TreeEngine(part, rep_tree, **kw)
+        check(eng.execution_path == path, f"execution_path is "
+              f"{eng.execution_path!r}, expected {path!r}")
+        base = eng.loglikelihood()
+        cands = candidate_objects(rep_tree, k)
+        reset_counts()
+        t0 = time.perf_counter()
+        scores = eng.evaluate_topologies(cands)
+        call = (time.perf_counter() - t0) * 1e3
+        got = counts()
+        check_counts(f"candidate scoring, repeats {REP_TAXA} x {REP_SITES} "
+                     f"'{path}', {k} candidates", got, want)
+        check(eng.loglikelihood() == base,
+              f"scoring on '{path}' changed the engine's logL")
+        seq, seq_ms = sequential_scores(part, rep_tree, k=k, **kw)
+        rel = check_scores(f"repeats '{path}' evaluate_topologies vs "
+                           f"set_topology + loglikelihood()", scores, seq)
+        if eng.use_fused:
+            dev_times = candidate_kernel(
+                "repeats", part, eng, at_neighbours(
+                    rep_tree, lambda: eng.pack_candidate(rep_tree.vroot), k),
+                gpu)
+        print(f"candidate scoring, repeats {REP_TAXA} x {REP_SITES} "
+              f"'{path}' ({gpu}): {k} candidates, launches {got}, scores vs "
+              f"set_topology + loglikelihood() max rel err {rel:.3e}; "
+              f"evaluate_topologies {call:.3f} ms ({call / k:.3f} ms a "
+              f"candidate, the host's class schedule included), "
+              f"set_topology + loglikelihood() {seq_ms:.4f} ms a candidate",
+              flush=True)
+        out[path] = {"launches": sum(got.values()), "call_ms": call,
+                     "sequential_ms": seq_ms, "k": k}
+    return out, dev_times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
@@ -3233,7 +3670,8 @@ def main() -> int:
                     "print the times as one JSON line")
     ap.add_argument("--fused-only", metavar="REPO", default=None,
                     help="only time the DNA fused kernel (main path, per "
-                    "rate, raw tips, the repeats problem), importing the "
+                    "rate, raw tips, the repeats problem, and a chunk of "
+                    "128 candidates where the port has them), importing the "
                     "port from the checkout REPO, and print the times as "
                     "one JSON line")
     ap.add_argument("--pool-only", metavar="REPO", default=None,
@@ -3474,6 +3912,11 @@ def main() -> int:
 
     # 18. the matrix-unit probe
     probe_entry = probe_phase(gpu)
+
+    # 19. candidate scoring
+    cand_dna = dna_candidates(device, big, big_by, gpu)
+    cand_aa = protein_candidates(device, aa_tree, aa_by, gpu)
+    cand_rep, rep_dev = repeats_candidates(device, rep_tree, rep_make, gpu)
     if args.profile:
         profile([("DNA main path", eng), ("protein main path", aa_eng),
                  ("DNA levels-kernel path", dna[3]),
@@ -3584,7 +4027,54 @@ def main() -> int:
         "protein_level_columns": aa_pool[3][3],
         "protein_level_threads_per_column": aa_pool[3][4],
         **variant("per_rate", "pool_per_rate", rep_pool)},
-        probe_entry]}), flush=True)
+        probe_entry, {
+        "name": "fused_traversal[candidates]", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/fused_traversal.cu",
+        "replaces": "libpll2_tpu/ops/pallas_fused.py:299",
+        "launch_shape": "libpll2_tpu/engine.py:713-728",
+        "launches": cand_dna["launches"] + cand_rep[
+            "repeats-dense-fused"]["launches"],
+        "max_abs_err": max(cand_dna["max_abs_err"],
+                           rep_dev["max_abs_err"]),
+        "ms": cand_dna["ms"], "plain_ms": cand_dna["plain_ms"],
+        "bound_ms": cand_dna["bound"][0], "bound_by": cand_dna["bound"][1],
+        "library_ms": None, "candidates": cand_dna["chunk"],
+        "device_ms": cand_dna["device_ms"],
+        "device_us_per_candidate": cand_dna["device_ms"] * 1e3
+        / cand_dna["chunk"],
+        "neighbourhood": cand_dna["k"],
+        "calls_ms": cand_dna["calls_ms"],
+        "host_pack_ms_per_candidate": {
+            "evaluate_topologies": cand_dna["pack_ms"],
+            "evaluate_packed": cand_dna["pack_candidate_ms"],
+            "evaluate_packed_arrays": cand_dna["stack_ms"]},
+        "sequential_ms_per_candidate": cand_dna["sequential_ms"],
+        "repeats": cand_rep, "repeats_device_ms": rep_dev["device_ms"],
+        "repeats_bound_ms": rep_dev["bound"][0],
+        "repeats_plain_ms": rep_dev["plain_ms"],
+        "repeats_candidates": CAND_REPEATS}, {
+        "name": "fused_traversal_rows[candidates]", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/fused_traversal_rows.cu",
+        "replaces": "libpll2_tpu/ops/pallas_fused.py:419",
+        "launch_shape": "libpll2_tpu/engine.py:713-728",
+        "launches": sum(v["launches"] for v in cand_aa.values()),
+        "max_abs_err": cand_aa["split"]["max_abs_err"],
+        "ms": cand_aa["split"]["ms"],
+        "plain_ms": cand_aa["split"]["plain_ms"],
+        "bound_ms": cand_aa["split"]["bound"][0],
+        "bound_by": cand_aa["split"]["bound"][1], "library_ms": None,
+        "candidates": CAND_AA,
+        "device_ms": cand_aa["split"]["device_ms"],
+        "device_us_per_candidate": cand_aa["split"]["device_ms"] * 1e3
+        / CAND_AA,
+        "bf16_ms": cand_aa["bf16"]["ms"],
+        "bf16_plain_ms": cand_aa["bf16"]["plain_ms"],
+        "bf16_device_ms": cand_aa["bf16"]["device_ms"],
+        "bf16_max_abs_err_logl": cand_aa["bf16"]["max_abs_err"],
+        "calls_ms": {m: v["call_ms"] for m, v in cand_aa.items()},
+        "sequential_ms_per_candidate": {
+            m: v["sequential_ms"] for m, v in cand_aa.items()}}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

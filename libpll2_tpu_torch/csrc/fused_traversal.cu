@@ -23,6 +23,17 @@
 // for every rate. Only the root edge's two CLVs [R, s, S] and counts ([S],
 // or [R, S] per rate) are written out.
 //
+// Candidates. One launch walks K tables at once (candidate scoring,
+// TreeEngine.evaluate_topologies; libpll2_tpu/engine.py:_fused_multi_topology
+// vmaps the Pallas kernel, which adds this grid dimension): the table
+// [K, n_ops + 1, 8], P [K, E, R, s, s], the spill plan's slots and the
+// outputs gain a leading K, the tip codes and raw tip rows are shared.
+// Candidate k is blockIdx.y; its blocks offset every per-candidate pointer
+// by k strides (`candidate`) and then run the one-topology walk unchanged.
+// One topology is the case K = 1. A walk alone at 128 x 16384 fills under
+// half of the card's block slots; a chunk of candidates fills them all, so
+// a candidate costs less than a walk alone (PERF.md).
+//
 // Slot reuse. pack_fused_schedule frees a dying child's slot before it
 // allocates the parent, so a parent may overwrite a child it reads. Every
 // output of an op is computed (in registers, or in the spare slot for the
@@ -69,7 +80,8 @@
 //   spill (fused_fixed, 4 x 4; and fused_generic for other sizes): where the
 //     slots do not fit in a block's shared memory (or the sizes are not 4 x
 //     4), one thread owns one site and the slots stay in device memory
-//     [n_slots + 1][R * s][S], as the launcher allocates them.
+//     [K][n_slots + 1][R * s][S], as the launcher allocates them (7.3 MB a
+//     DNA candidate at 128 x 16384 and 7 slots).
 //
 // The on-chip walk is bound by instruction issue and latency, not by
 // operations: its per-op bookkeeping (the row, the barriers, the vote and
@@ -115,7 +127,50 @@ struct Args {
   int* sc_c;
   float threshold, factor;
   int rate_scalers;
+  // the strides of the candidate axis, in elements (0 for the slots on chip)
+  long long table_stride, pmat_stride, slot_stride, slot_sc_stride;
+  long long out_stride, sc_stride;
 };
+
+// Candidate blockIdx.y's table, P and spilled slots. The on-chip walk
+// computes them where it uses them: its producer warp holds the table's
+// pointer and offsets each copy of P by the candidate there, its root
+// epilogue reads the table's last row. Every kernel finds a candidate's
+// outputs where it writes them (`out_clv`, `out_sc`). Held in registers
+// from the kernel's start, these pointers cost the one-topology walk 3-8
+// %, and a P pointer held over the producer's loop cost the all-raw-tip
+// walk 4 % (PERF.md has the measurements).
+struct Cand {
+  const int* table;
+  const float* pmat;
+  float* slots;
+  int* slot_sc;
+};
+
+// blockIdx.y, read where it is used: a volatile read keeps the compiler
+// from computing the candidate's pointers at the kernel's start and holding
+// them in registers over the walk
+__device__ __forceinline__ unsigned cand_index() {
+  unsigned k;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(k));
+  return k;
+}
+
+__device__ __forceinline__ Cand candidate(const Args& a) {
+  const long long k = cand_index();
+  return {a.table + k * a.table_stride, a.pmat + k * a.pmat_stride,
+          a.slots + k * a.slot_stride, a.slot_sc + k * a.slot_sc_stride};
+}
+
+// candidate blockIdx.y's root CLV rows of the parent (end 0) or child end
+__device__ __forceinline__ float* out_clv(const Args& a, int end) {
+  return (end ? a.out_c : a.out_p) + cand_index() * a.out_stride;
+}
+
+// and their counts
+__device__ __forceinline__ int* out_sc(const Args& a, int end) {
+  return (end ? a.sc_c : a.sc_p) + cand_index() * a.sc_stride;
+}
 
 __device__ __forceinline__ float tip_bit(unsigned code, int j) {
   return static_cast<float>((code >> j) & 1u);
@@ -213,7 +268,8 @@ __device__ __forceinline__ void produce(const Args& a, float* ring,
   size_t sites[SPT];
 #pragma unroll
   for (int t = 0; t < SPT; ++t) sites[t] = min((size_t)blockIdx.x * SPB + lane + 32 * t, S - 1);
-  const int4* const table = reinterpret_cast<const int4*>(a.table);
+  // the candidate's table rows (two int4 a row); P is offset at each copy
+  const int4* const table = reinterpret_cast<const int4*>(a.table + cand_index() * a.table_stride);
   int4 r0 = make_int4(0, 0, 0, 0), r1 = r0;
   if (a.n_ops > 0) {
     r0 = __ldg(table);
@@ -228,10 +284,10 @@ __device__ __forceinline__ void produce(const Args& a, float* ring,
     const int s = k % kDepth;
     mbar_wait(empty + s, ((k / kDepth) & 1) ^ 1);
     float* const e = ring + s * E;
-    if (lane < 2) cp_async16(e + 4 * lane, a.table + (size_t)k * kRow + 4 * lane);
+    if (lane < 2) cp_async16(e + 4 * lane, reinterpret_cast<const int*>(table + 2 * k) + 4 * lane);
     const int side = lane >> 4;
     cp_async16(e + kRow + side * kSideWords + ((lane >> 2) & 3) * kRateWords + (lane & 3) * 4,
-               a.pmat + (size_t)(side ? c1.z : c0.w) * 64 + (lane & 15) * 4);
+               a.pmat + (cand_index() * a.pmat_stride + (size_t)(side ? c1.z : c0.w) * 64) + (lane & 15) * 4);
     float* const raw = e + kRow + 2 * kSideWords;
     int* const codes = reinterpret_cast<int*>(raw + 2 * SPB * 4);
     const int is_tip[2] = {c0.y, c1.x}, idx[2] = {c0.z, c1.y};
@@ -382,12 +438,12 @@ __global__ void __launch_bounds__(kOnchipThreads) fused_onchip(Args a) {
 
   // the root edge: each thread writes its rate's rows of its sites, which it
   // stored itself (a slot end) or decodes (a tip end)
-  const int* root = a.table + (size_t)a.n_ops * kRow;
+  const int* root = candidate(a).table + (size_t)a.n_ops * kRow;
 #pragma unroll
   for (int end = 0; end < 2; ++end) {
     const int is_tip = __ldg(root + 2 * end), idx = __ldg(root + 2 * end + 1);
-    float* const out = end ? a.out_c : a.out_p;
-    int* const osc = end ? a.sc_c : a.sc_p;
+    float* const out = out_clv(a, end);
+    int* const osc = out_sc(a, end);
 #pragma unroll
     for (int k = 0; k < SPT; ++k) {
       float v[4];
@@ -421,12 +477,13 @@ __global__ void __launch_bounds__(kOnchipThreads) fused_onchip(Args a) {
 // Sizes known at compile time: the CLVs of one op live in registers. NSC is
 // the number of counts per site: 1, or R_ in per-rate mode.
 template <int S_, int R_, int NSC>
-__device__ __forceinline__ void matvec_child(const Args& a, int is_tip, int idx,
+__device__ __forceinline__ void matvec_child(const Args& a, const Cand& cand,
+                                             int is_tip, int idx,
                                              int mat, size_t site,
                                              float (&out)[R_ * S_],
                                              int (&sc)[NSC]) {
   constexpr int RS = R_ * S_;
-  const float* __restrict__ P = a.pmat + (size_t)mat * RS * S_;
+  const float* __restrict__ P = cand.pmat + (size_t)mat * RS * S_;
   const size_t S = a.sites;
   if (is_tip != 0) {  // a tip, the same for every rate; it counts 0
     float c[S_];
@@ -452,7 +509,7 @@ __device__ __forceinline__ void matvec_child(const Args& a, int is_tip, int idx,
     }
     return;
   }
-  const float* src = a.slots + (size_t)idx * RS * S + site;
+  const float* src = cand.slots + (size_t)idx * RS * S + site;
   float c[RS];
 #pragma unroll
   for (int k = 0; k < RS; ++k) c[k] = src[k * S];
@@ -468,11 +525,12 @@ __device__ __forceinline__ void matvec_child(const Args& a, int is_tip, int idx,
     }
   }
 #pragma unroll
-  for (int q = 0; q < NSC; ++q) sc[q] += a.slot_sc[((size_t)idx * NSC + q) * S + site];
+  for (int q = 0; q < NSC; ++q) sc[q] += cand.slot_sc[((size_t)idx * NSC + q) * S + site];
 }
 
 template <int S_, int R_, int NSC>
-__device__ __forceinline__ void write_root_fixed(const Args& a, int is_tip,
+__device__ __forceinline__ void write_root_fixed(const Args& a, const Cand& cand,
+                                                 int is_tip,
                                                  int idx, size_t site,
                                                  float* out, int* sc) {
   constexpr int RS = R_ * S_;
@@ -497,31 +555,32 @@ __device__ __forceinline__ void write_root_fixed(const Args& a, int is_tip,
     for (int q = 0; q < NSC; ++q) sc[q * S + site] = 0;
     return;
   }
-  const float* src = a.slots + (size_t)idx * RS * S + site;
+  const float* src = cand.slots + (size_t)idx * RS * S + site;
 #pragma unroll
   for (int k = 0; k < RS; ++k) out[k * S + site] = src[k * S];
 #pragma unroll
   for (int q = 0; q < NSC; ++q) {
-    sc[q * S + site] = a.slot_sc[((size_t)idx * NSC + q) * S + site];
+    sc[q * S + site] = cand.slot_sc[((size_t)idx * NSC + q) * S + site];
   }
 }
 
 template <int S_, int R_, int NSC>
 __global__ void __launch_bounds__(kBlock) fused_fixed(Args a) {
+  const Cand cand = candidate(a);
   constexpr int RS = R_ * S_;
   constexpr int G = RS / NSC;  // rows per count: all of them, or one rate's
   const size_t site = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (site >= (size_t)a.sites) return;
   const size_t S = a.sites;
   for (int op = 0; op < a.n_ops; ++op) {
-    const int* row = a.table + op * kRow;
+    const int* row = cand.table + op * kRow;
     float x[RS], y[RS];
     int sc[NSC];
 #pragma unroll
     for (int q = 0; q < NSC; ++q) sc[q] = 0;
-    matvec_child<S_, R_, NSC>(a, __ldg(row + 1), __ldg(row + 2), __ldg(row + 3),
+    matvec_child<S_, R_, NSC>(a, cand, __ldg(row + 1), __ldg(row + 2), __ldg(row + 3),
                               site, x, sc);
-    matvec_child<S_, R_, NSC>(a, __ldg(row + 4), __ldg(row + 5), __ldg(row + 6),
+    matvec_child<S_, R_, NSC>(a, cand, __ldg(row + 4), __ldg(row + 5), __ldg(row + 6),
                               site, y, sc);
     const int has = __ldg(row + 7);
 #pragma unroll
@@ -539,17 +598,17 @@ __global__ void __launch_bounds__(kBlock) fused_fixed(Args a) {
       }
     }
     const int pslot = __ldg(row);
-    float* dst = a.slots + (size_t)pslot * RS * S + site;
+    float* dst = cand.slots + (size_t)pslot * RS * S + site;
 #pragma unroll
     for (int k = 0; k < RS; ++k) dst[k * S] = x[k];
 #pragma unroll
-    for (int q = 0; q < NSC; ++q) a.slot_sc[((size_t)pslot * NSC + q) * S + site] = sc[q];
+    for (int q = 0; q < NSC; ++q) cand.slot_sc[((size_t)pslot * NSC + q) * S + site] = sc[q];
   }
-  const int* root = a.table + a.n_ops * kRow;
-  write_root_fixed<S_, R_, NSC>(a, __ldg(root), __ldg(root + 1), site, a.out_p,
-                                a.sc_p);
-  write_root_fixed<S_, R_, NSC>(a, __ldg(root + 2), __ldg(root + 3), site,
-                                a.out_c, a.sc_c);
+  const int* root = cand.table + a.n_ops * kRow;
+  write_root_fixed<S_, R_, NSC>(a, cand, __ldg(root), __ldg(root + 1), site,
+                                out_clv(a, 0), out_sc(a, 0));
+  write_root_fixed<S_, R_, NSC>(a, cand, __ldg(root + 2), __ldg(root + 3), site,
+                                out_clv(a, 1), out_sc(a, 1));
 }
 
 // ---------------------------------------------------------------------------
@@ -565,7 +624,8 @@ __device__ __forceinline__ float child_entry(const Args& a, int is_tip,
 }
 
 // (bitmask code, row pointer) of one child or root end at `site`
-__device__ __forceinline__ const float* child_source(const Args& a, int is_tip,
+__device__ __forceinline__ const float* child_source(const Args& a, const Cand& cand,
+                                                     int is_tip,
                                                      int idx, size_t site,
                                                      unsigned* code) {
   const size_t S = a.sites;
@@ -575,23 +635,24 @@ __device__ __forceinline__ const float* child_source(const Args& a, int is_tip,
     return nullptr;
   }
   if (is_tip == 2) return a.ctips + (size_t)idx * a.states * S + site;
-  return a.slots + (size_t)idx * a.rates * a.states * S + site;
+  return cand.slots + (size_t)idx * a.rates * a.states * S + site;
 }
 
 __global__ void __launch_bounds__(kBlock) fused_generic(Args a) {
+  const Cand cand = candidate(a);
   const size_t site = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (site >= (size_t)a.sites) return;
   const size_t S = a.sites;
   const int s = a.states, RS = a.rates * a.states;
   const int SR = a.rate_scalers ? a.rates : 1, G = RS / SR;
-  float* tmp = a.slots + (size_t)a.n_slots * RS * S + site;
+  float* tmp = cand.slots + (size_t)a.n_slots * RS * S + site;
   for (int op = 0; op < a.n_ops; ++op) {
-    const int* row = a.table + op * kRow;
+    const int* row = cand.table + op * kRow;
     for (int side = 0; side < 2; ++side) {
       const int is_tip = __ldg(row + 1 + 3 * side);
-      const float* P = a.pmat + (size_t)__ldg(row + 3 + 3 * side) * RS * s;
+      const float* P = cand.pmat + (size_t)__ldg(row + 3 + 3 * side) * RS * s;
       unsigned code;
-      const float* src = child_source(a, is_tip, __ldg(row + 2 + 3 * side), site, &code);
+      const float* src = child_source(a, cand, is_tip, __ldg(row + 2 + 3 * side), site, &code);
       for (int r = 0; r < a.rates; ++r) {
         for (int i = 0; i < s; ++i) {
           const float* p = P + (r * s + i) * s;
@@ -605,7 +666,7 @@ __global__ void __launch_bounds__(kBlock) fused_generic(Args a) {
       }
     }
     const int pslot = __ldg(row), has = __ldg(row + 7);
-    float* dst = a.slots + (size_t)pslot * RS * S + site;
+    float* dst = cand.slots + (size_t)pslot * RS * S + site;
     for (int q = 0; q < SR; ++q) {
       float m = 0.0f;
       for (int k = q * G; k < (q + 1) * G; ++k) {
@@ -617,22 +678,22 @@ __global__ void __launch_bounds__(kBlock) fused_generic(Args a) {
       int sc = rescale;
       for (int side = 0; side < 2; ++side) {
         if (__ldg(row + 1 + 3 * side) == 0) {
-          sc += a.slot_sc[((size_t)__ldg(row + 2 + 3 * side) * SR + q) * S + site];
+          sc += cand.slot_sc[((size_t)__ldg(row + 2 + 3 * side) * SR + q) * S + site];
         }
       }
       for (int k = q * G; k < (q + 1) * G; ++k) dst[k * S] = tmp[k * S] * f;
-      a.slot_sc[((size_t)pslot * SR + q) * S + site] = sc;
+      cand.slot_sc[((size_t)pslot * SR + q) * S + site] = sc;
     }
   }
-  const int* root = a.table + a.n_ops * kRow;
+  const int* root = cand.table + a.n_ops * kRow;
   for (int end = 0; end < 2; ++end) {
     const int is_tip = __ldg(root + 2 * end), idx = __ldg(root + 2 * end + 1);
-    float* out = end ? a.out_c : a.out_p;
-    int* osc = end ? a.sc_c : a.sc_p;
+    float* out = out_clv(a, end);
+    int* osc = out_sc(a, end);
     unsigned code;
-    const float* src = child_source(a, is_tip, idx, site, &code);
+    const float* src = child_source(a, cand, is_tip, idx, site, &code);
     for (int q = 0; q < SR; ++q) {
-      osc[q * S + site] = is_tip ? 0 : a.slot_sc[((size_t)idx * SR + q) * S + site];
+      osc[q * S + site] = is_tip ? 0 : cand.slot_sc[((size_t)idx * SR + q) * S + site];
     }
     for (int r = 0; r < a.rates; ++r) {
       for (int j = 0; j < s; ++j) {
@@ -643,7 +704,8 @@ __global__ void __launch_bounds__(kBlock) fused_generic(Args a) {
 }
 
 template <int SPT>
-int launch_onchip(const Args& a, bool per_rate, size_t bytes, cudaStream_t st) {
+int launch_onchip(const Args& a, int n_cand, bool per_rate, size_t bytes,
+                  cudaStream_t st) {
   auto kernel = per_rate ? fused_onchip<SPT, true> : fused_onchip<SPT, false>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -651,7 +713,7 @@ int launch_onchip(const Args& a, bool per_rate, size_t bytes, cudaStream_t st) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int spb = 32 * SPT;
-  const dim3 grid((a.sites + spb - 1) / spb);
+  const dim3 grid((a.sites + spb - 1) / spb, n_cand);
   kernel<<<grid, kOnchipThreads, bytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -663,14 +725,19 @@ int launch_onchip(const Args& a, bool per_rate, size_t bytes, cudaStream_t st) {
 extern "C" int pll_rows_smem_optin();
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or an
-// error code without launching when the shapes or the plan do not fit. The
-// trailing arguments are the launcher's plan (ops/_kernels.py:fused_plan):
-// on chip or spilled, threads a site, sites a block and the shared-memory
-// bytes, which must equal this file's own count. The on-chip plan takes a
-// 16-byte aligned table and P and no slots; the spill plan takes the slots
-// [n_slots + 1, R * s, S] and their counts in device memory.
+// error code without launching when the shapes or the plan do not fit.
+// `n_cand` candidates (1 to 65,535, the grid's y) each have a table and P,
+// `table_stride` and `pmat_stride` elements apart; the outputs are [n_cand,
+// R * s, S] and [n_cand, SR, S]. The trailing arguments are the launcher's
+// plan (ops/_kernels.py:fused_plan): on chip or spilled, threads a site,
+// sites a block and the shared-memory bytes, which must equal this file's
+// own count. The on-chip plan takes a 16-byte aligned table and P for every
+// candidate and no slots; the spill plan takes the slots [n_cand, n_slots +
+// 1, R * s, S] and their counts [n_cand, n_slots, SR, S] in device memory.
 extern "C" int pll_fused_traversal(const int* table, int n_ops,
-                                   const float* pmat, const int* tips,
+                                   const float* pmat, int n_cand,
+                                   long long table_stride,
+                                   long long pmat_stride, const int* tips,
                                    const float* ctips, int sites, int rates,
                                    int states, float* slots, int* slot_sc,
                                    int n_slots, float* out_p, float* out_c,
@@ -679,11 +746,17 @@ extern "C" int pll_fused_traversal(const int* table, int n_ops,
                                    void* stream, int onchip,
                                    int threads_per_site, int sites_per_block,
                                    long long smem_bytes) {
+  const long long S = sites, RS = (long long)rates * states;
+  const long long SR = rate_scalers ? rates : 1;
+  const bool spill = !onchip;
   Args a{table, n_ops, pmat, tips, ctips, sites, rates, states, slots, slot_sc,
-         n_slots, out_p, out_c, sc_p, sc_c, threshold, factor, rate_scalers};
+         n_slots, out_p, out_c, sc_p, sc_c, threshold, factor, rate_scalers,
+         table_stride, pmat_stride, spill ? (n_slots + 1) * RS * S : 0,
+         spill ? n_slots * SR * S : 0, RS * S, SR * S};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (sites < 1 || n_ops < 0 || n_slots < 1 || rates < 1 || states < 1 ||
-      states > 32) {
+      states > 32 || n_cand < 1 || n_cand > 65535 ||
+      table_stride < (long long)(n_ops + 1) * kRow || pmat_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (onchip) {
@@ -693,7 +766,8 @@ extern "C" int pll_fused_traversal(const int* table, int n_ops,
     if (states != 4 || rates != 4 || spt == 0 ||
         sites_per_block != 32 * spt ||
         (reinterpret_cast<size_t>(pmat) & 15) != 0 ||
-        (reinterpret_cast<size_t>(table) & 15) != 0) {
+        (reinterpret_cast<size_t>(table) & 15) != 0 || table_stride % 4 != 0 ||
+        pmat_stride % 4 != 0) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const size_t bytes = onchip_smem_words(n_slots, spt) * 4;
@@ -703,14 +777,14 @@ extern "C" int pll_fused_traversal(const int* table, int n_ops,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const bool per_rate = rate_scalers != 0;
-    return spt == 1 ? launch_onchip<1>(a, per_rate, bytes, st)
-                    : launch_onchip<2>(a, per_rate, bytes, st);
+    return spt == 1 ? launch_onchip<1>(a, n_cand, per_rate, bytes, st)
+                    : launch_onchip<2>(a, n_cand, per_rate, bytes, st);
   }
   if (threads_per_site != 1 || sites_per_block != kBlock || smem_bytes != 0 ||
       slots == nullptr || slot_sc == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((sites + kBlock - 1) / kBlock);
+  const dim3 grid((sites + kBlock - 1) / kBlock, n_cand);
   if (states == 4 && rates == 4) {
     if (rate_scalers) {
       fused_fixed<4, 4, 4><<<grid, kBlock, 0, st>>>(a);

@@ -33,6 +33,15 @@
 // in float32, so kernel and plain version differ only in the order of their
 // float32 sums, as in the exact mode.
 //
+// Candidates: as in fused_traversal.cu, one launch walks K tables (the
+// table [K, n_ops + 1, 8], P [K, E, R, SP, SP], the spill plan's slots
+// [K, n_slots, R * s, S] and the outputs gain a leading K; tip codes and raw
+// tip rows are shared). Candidate k is blockIdx.y, whose blocks offset each
+// per-candidate pointer by k strides (`candidate`); blockIdx.x stays the
+// tile of sites. One topology is the case K = 1. One block of 64 sites an
+// SM already fills the card at 128 x 8192, so a candidate costs what a walk
+// alone does (PERF.md).
+//
 // Design. A block owns a tile of T = 32 * SPT consecutive sites for the
 // whole walk (SPT = 1 or 2 sites a thread, 32 apart, one lane per site
 // column) and kWarps = 8 warps. The warps form G groups of H = 8 / G (G the
@@ -136,7 +145,44 @@ struct Args {
   int rate_chunk;      // rates of P staged at once (all of them on chip)
   int groups;          // G
   int rows_per_warp;   // a multiple of kRows
+  // the strides of the candidate axis, in elements (0 for the slots on chip)
+  long long table_stride, pmat_stride, slot_stride, slot_sc_stride;
+  long long out_stride, sc_stride;
 };
+
+// Candidate blockIdx.y's table, P and spilled slots.
+struct Cand {
+  const int* table;
+  const float* pmat;
+  float* slots;
+  int* slot_sc;
+};
+
+__device__ __forceinline__ Cand candidate(const Args& a) {
+  const long long k = blockIdx.y;
+  return {a.table + k * a.table_stride, a.pmat + k * a.pmat_stride,
+          a.slots + k * a.slot_stride, a.slot_sc + k * a.slot_sc_stride};
+}
+
+// blockIdx.y, read where it is used: a volatile read keeps the compiler from
+// computing the output offsets below at the kernel's start and holding them
+// in registers over the walk (which took the two-sites-a-thread body to 255
+// registers and a spill, 14 % slower at LG+G4; PERF.md has the measurements)
+__device__ __forceinline__ unsigned cand_index() {
+  unsigned k;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(k));
+  return k;
+}
+
+// candidate blockIdx.y's root CLV rows of the parent (end 0) or child end
+__device__ __forceinline__ float* out_clv(const Args& a, int end) {
+  return (end ? a.out_c : a.out_p) + cand_index() * a.out_stride;
+}
+
+// and their counts
+__device__ __forceinline__ int* out_sc(const Args& a, int end) {
+  return (end ? a.sc_c : a.sc_p) + cand_index() * a.sc_stride;
+}
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x8000u) & 0xFFFF0000u);
@@ -297,6 +343,7 @@ __device__ __forceinline__ void load_child(float (&c)[SPT][SP], int is_tip,
 
 template <int SP, int SPT, bool ONCHIP>
 __global__ void __launch_bounds__(kThreads, SPT == 1 ? 2 : 1) fused_rows(Args a) {
+  const Cand cand = candidate(a);
   constexpr int PP = SP * SP;
   constexpr int kRows = SP % 5 == 0 ? 5 : 4;  // rows of P a step
   constexpr int NB = ONCHIP ? 2 : 1;
@@ -326,20 +373,20 @@ __global__ void __launch_bounds__(kThreads, SPT == 1 ? 2 : 1) fused_rows(Args a)
   // a slot's rows are `rstride` words apart; slot k starts k * sstride on
   const size_t rstride = ONCHIP ? (size_t)T : S;
   const size_t sstride = (size_t)RS * rstride;
-  float* const slot0 = ONCHIP ? sslots + lane : a.slots + site;
-  int* const cnt0 = ONCHIP ? scnt + lane : a.slot_sc + site;
+  float* const slot0 = ONCHIP ? sslots + lane : cand.slots + site;
+  int* const cnt0 = ONCHIP ? scnt + lane : cand.slot_sc + site;
   const int row0 = h * a.rows_per_warp;
   const int row1 = min(s, row0 + a.rows_per_warp);
   const int nr0 = min(RC, R);   // rates of the first chunk
 
   if (a.n_ops > 0) {
-    const int* row = a.table;
-    stage_p<SP>(pbuf, a.pmat, __ldg(row + 3), __ldg(row + 6), R, 0, nr0, RC, false);
+    const int* row = cand.table;
+    stage_p<SP>(pbuf, cand.pmat, __ldg(row + 3), __ldg(row + 6), R, 0, nr0, RC, false);
     stage_codes(codes, a.tips, row, S, tile0, T);
     cp_async_commit();
   }
   for (int op = 0; op < a.n_ops; ++op) {
-    const int* row = a.table + op * kRow;
+    const int* row = cand.table + op * kRow;
     const int is_tip[2] = {__ldg(row + 1), __ldg(row + 4)};
     const int idx[2] = {__ldg(row + 2), __ldg(row + 5)};
     const int mat[2] = {__ldg(row + 3), __ldg(row + 6)};
@@ -347,12 +394,12 @@ __global__ void __launch_bounds__(kThreads, SPT == 1 ? 2 : 1) fused_rows(Args a)
     float* const pb = pbuf + (size_t)(ONCHIP ? op & 1 : 0) * 2 * RC * PP;
     const int* const cb = codes + (ONCHIP ? op & 1 : 0) * 2 * T;
     cp_async_wait_all();
-    if (a.bf16) stage_p<SP>(pb, a.pmat, mat[0], mat[1], R, 0, nr0, RC, true);
+    if (a.bf16) stage_p<SP>(pb, cand.pmat, mat[0], mat[1], R, 0, nr0, RC, true);
     __syncthreads();   // A: this op's inputs are in, the last op's parent stored
     if (ONCHIP && op + 1 < a.n_ops) {   // prefetch the next op's inputs
       const int* next = row + kRow;
       float* nb = pbuf + (size_t)((op + 1) & 1) * 2 * RC * PP;
-      stage_p<SP>(nb, a.pmat, __ldg(next + 3), __ldg(next + 6), R, 0, R, RC, false);
+      stage_p<SP>(nb, cand.pmat, __ldg(next + 3), __ldg(next + 6), R, 0, R, RC, false);
       stage_codes(codes + ((op + 1) & 1) * 2 * T, a.tips, next, S, tile0, T);
       cp_async_commit();
     }
@@ -400,10 +447,10 @@ __global__ void __launch_bounds__(kThreads, SPT == 1 ? 2 : 1) fused_rows(Args a)
       const int nr = min(RC, R - r0);
       if (r0 > 0) {   // spill plan: the next chunk of P
         __syncthreads();
-        stage_p<SP>(pb, a.pmat, mat[0], mat[1], R, r0, nr, RC, false);
+        stage_p<SP>(pb, cand.pmat, mat[0], mat[1], R, r0, nr, RC, false);
         cp_async_commit();
         cp_async_wait_all();
-        if (a.bf16) stage_p<SP>(pb, a.pmat, mat[0], mat[1], R, r0, nr, RC, true);
+        if (a.bf16) stage_p<SP>(pb, cand.pmat, mat[0], mat[1], R, r0, nr, RC, true);
         __syncthreads();
       }
       // this group's rates in the chunk: r = g (mod G)
@@ -519,22 +566,22 @@ __global__ void __launch_bounds__(kThreads, SPT == 1 ? 2 : 1) fused_rows(Args a)
     if (!ONCHIP && op + 1 < a.n_ops) {   // spill plan: the next op's first chunk
       const int* next = row + kRow;
       // every thread is done with the buffer: its last readers passed B
-      stage_p<SP>(pb, a.pmat, __ldg(next + 3), __ldg(next + 6), R, 0, nr0, RC, false);
+      stage_p<SP>(pb, cand.pmat, __ldg(next + 3), __ldg(next + 6), R, 0, nr0, RC, false);
       stage_codes(codes, a.tips, next, S, tile0, T);
       cp_async_commit();
     }
   }
 
   __syncthreads();   // the last op's stores and rescales, made by other warps
-  const int* root = a.table + a.n_ops * kRow;
+  const int* root = cand.table + a.n_ops * kRow;
 #pragma unroll
   for (int k = 0; k < SPT; ++k) {
     if (!live[k]) continue;
     const size_t sk = site + kLanes * k;
     for (int end = 0; end < 2; ++end) {
       const int is_tip = __ldg(root + 2 * end), idx = __ldg(root + 2 * end + 1);
-      float* out = (end ? a.out_c : a.out_p) + sk;
-      int* osc = end ? a.sc_c : a.sc_p;
+      float* out = out_clv(a, end) + sk;
+      int* osc = out_sc(a, end);
       if (is_tip == 1) {
         const unsigned code = static_cast<unsigned>(__ldg(a.tips + (size_t)idx * S + sk));
         for (int q = warp; q < RS; q += kWarps) {
@@ -555,7 +602,7 @@ __global__ void __launch_bounds__(kThreads, SPT == 1 ? 2 : 1) fused_rows(Args a)
 }
 
 template <int SP, int SPT, bool ONCHIP>
-int launch(const Args& a, size_t bytes, cudaStream_t stream) {
+int launch(const Args& a, int n_cand, size_t bytes, cudaStream_t stream) {
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         fused_rows<SP, SPT, ONCHIP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -563,18 +610,18 @@ int launch(const Args& a, size_t bytes, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int tile = kLanes * SPT;
-  const dim3 grid((a.sites + tile - 1) / tile);
+  const dim3 grid((a.sites + tile - 1) / tile, n_cand);
   fused_rows<SP, SPT, ONCHIP><<<grid, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the plans: on chip with one or two sites a thread, or spilled (one)
 template <int SP>
-int launch_plan(const Args& a, bool onchip, int spt, size_t bytes,
+int launch_plan(const Args& a, int n_cand, bool onchip, int spt, size_t bytes,
                 cudaStream_t stream) {
-  if (!onchip) return launch<SP, 1, false>(a, bytes, stream);
-  return spt == 2 ? launch<SP, 2, true>(a, bytes, stream)
-                  : launch<SP, 1, true>(a, bytes, stream);
+  if (!onchip) return launch<SP, 1, false>(a, n_cand, bytes, stream);
+  return spt == 2 ? launch<SP, 2, true>(a, n_cand, bytes, stream)
+                  : launch<SP, 1, true>(a, n_cand, bytes, stream);
 }
 
 }  // namespace
@@ -591,13 +638,19 @@ extern "C" int pll_rows_smem_optin() {
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or an
-// error code without launching when the shapes or the plan do not fit. The
-// trailing arguments are the launcher's plan (ops/_kernels.py:rows_plan):
-// on chip or spilled, sites a thread, SP, the rates of P staged at once, the
-// warp groups and the shared-memory bytes, which must equal this file's own
-// count.
+// error code without launching when the shapes or the plan do not fit.
+// `n_cand` candidates (1 to 65,535, the grid's y) each have a table and a
+// padded P, `table_stride` and `pmat_stride` elements apart (P's 16-byte
+// aligned for each); the outputs are [n_cand, R * s, S] and [n_cand, SR, S],
+// the spill plan's slots [n_cand, n_slots, R * s, S] and their counts
+// [n_cand, n_slots, SR, S]. The trailing arguments are the launcher's plan
+// (ops/_kernels.py:rows_plan): on chip or spilled, sites a thread, SP, the
+// rates of P staged at once, the warp groups and the shared-memory bytes,
+// which must equal this file's own count.
 extern "C" int pll_fused_traversal_rows(const int* table, int n_ops,
-                                        const float* pmat, const int* tips,
+                                        const float* pmat, int n_cand,
+                                        long long table_stride,
+                                        long long pmat_stride, const int* tips,
                                         const float* ctips, int sites, int rates,
                                         int states, float* slots, int* slot_sc,
                                         int n_slots, float* out_p, float* out_c,
@@ -615,7 +668,9 @@ extern "C" int pll_fused_traversal_rows(const int* table, int n_ops,
       rate_chunk > rates || (onchip && rate_chunk != rates) ||
       !(spt == 1 || (spt == 2 && onchip)) ||
       (!onchip && (slots == nullptr || slot_sc == nullptr)) ||
-      (reinterpret_cast<size_t>(pmat) & 15) != 0) {
+      (reinterpret_cast<size_t>(pmat) & 15) != 0 || n_cand < 1 ||
+      n_cand > 65535 || table_stride < (long long)(n_ops + 1) * kRow ||
+      pmat_stride < 0 || pmat_stride % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t bytes = smem_words(onchip != 0, spt, sp, rates, states, n_slots,
@@ -628,16 +683,20 @@ extern "C" int pll_fused_traversal_rows(const int* table, int n_ops,
   const int k_rows = sp % 5 == 0 ? 5 : 4;
   const int h = kWarps / groups;
   const int rows = (states + h - 1) / h;
+  const long long S = sites, RS = (long long)rates * states;
+  const long long SR = rate_scalers ? rates : 1;
   Args a{table, n_ops, pmat, tips, ctips, sites, rates, states, slots, slot_sc,
          onchip ? n_slots : 0, out_p, out_c, sc_p, sc_c, threshold, factor,
          rate_scalers, bf16, rate_chunk, groups,
-         (rows + k_rows - 1) / k_rows * k_rows};
+         (rows + k_rows - 1) / k_rows * k_rows, table_stride, pmat_stride,
+         onchip ? 0 : n_slots * RS * S, onchip ? 0 : n_slots * SR * S, RS * S,
+         SR * S};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (sp) {
-    case 8: return launch_plan<8>(a, onchip != 0, spt, bytes, st);
-    case 16: return launch_plan<16>(a, onchip != 0, spt, bytes, st);
-    case 20: return launch_plan<20>(a, onchip != 0, spt, bytes, st);
-    case 24: return launch_plan<24>(a, onchip != 0, spt, bytes, st);
-    default: return launch_plan<32>(a, onchip != 0, spt, bytes, st);
+    case 8: return launch_plan<8>(a, n_cand, onchip != 0, spt, bytes, st);
+    case 16: return launch_plan<16>(a, n_cand, onchip != 0, spt, bytes, st);
+    case 20: return launch_plan<20>(a, n_cand, onchip != 0, spt, bytes, st);
+    case 24: return launch_plan<24>(a, n_cand, onchip != 0, spt, bytes, st);
+    default: return launch_plan<32>(a, n_cand, onchip != 0, spt, bytes, st);
   }
 }

@@ -1,9 +1,9 @@
 """Full-tree evaluation, in PyTorch.
 
 Port of libpll2_tpu/engine.py (`_fused_loglikelihood`, `_fused_newton_step`,
-`_repeats_loglikelihood`, a single repeats Newton step and `TreeEngine`,
-with per-rate scalers, raw tip CLVs and ascertainment-bias corrections),
-without its mesh, candidate-scoring and k-chained loop parts:
+`_repeats_loglikelihood`, a single repeats Newton step, candidate scoring
+and `TreeEngine`, with per-rate scalers, raw tip CLVs and
+ascertainment-bias corrections), without its mesh and k-chained loop parts:
 
     branches -> P-matrices -> CLVs -> root-edge logL
              (-> sumtable -> d1/d2 -> guarded Newton step on the root edge)
@@ -32,6 +32,16 @@ every path (`Partition._modes`, and the raw tip rows on the fused path).
 With `edge_params` (per-branch heterotachy) every path builds its
 P-matrices per edge (ops/pmatrix.py:update_prob_matrices_per_edge), and the
 root edge's rate matrix drives the likelihood and derivatives.
+
+Candidate scoring (`evaluate_topologies`, `pack_candidate`,
+`evaluate_packed`, `evaluate_packed_arrays`) returns the logL of many
+topologies of the engine's size. On the fused paths a chunk of up to
+CANDIDATE_CHUNK candidates is ONE launch of the fused kernel's candidate
+form (`_fused_multi_topology`); a batch the kernel cannot run goes one
+candidate at a time through the engine's own dense path on scratch copies
+of the dense buffers, and a repeats partition's candidates one at a time
+through its pooled path. Scoring leaves the partition's buffers and the
+engine's topology as they were.
 """
 from __future__ import annotations
 
@@ -53,6 +63,9 @@ from .partition import (Operation, Partition, pack_level_operations,
 from .trees import create_operations, traverse
 
 __all__ = ["TreeEngine", "pack_repeats"]
+
+# candidates a launch of the fused kernel takes (libpll2_tpu/engine.py:718)
+CANDIDATE_CHUNK = 128
 
 # TreeEngine(pallas=...): the JAX package's names; the 'interpret' variants
 # ran the Pallas kernels in interpret mode on a CPU, which the port's
@@ -175,6 +188,75 @@ def _fused_newton_step(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
         pattern_weights, invariant, scale_threshold,
         rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real)
     return total, d1, d2, branches, rows, pmatrix
+
+
+def _fused_multi_topology(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
+                          rates, rate_weights, freqs, params_idx_rates,
+                          branches_k, tables_k, tip_codes, root_mats,
+                          pattern_weights, invariant, n_slots: int,
+                          scale_threshold: float, scale_factor: float,
+                          traversal=ops_fused.fused_traversal,
+                          mxu: str = "split", edge_params=None,
+                          rate_scalers: bool = False, tip_clvs=None,
+                          asc_type: int = C.AB_NONE, n_real: int = -1):
+    """logL [K] of K candidate topologies in ONE launch of the fused
+    traversal's candidate form (libpll2_tpu/engine.py:_fused_multi_topology):
+    branches_k [K, E] (pmatrix order), tables_k [K, n_ops+1, 8] int32 and
+    root_mats [K], the root edges' matrix indices; `n_slots` the largest
+    slot count of the K tables. Every candidate walks from the same tip
+    operands and keeps only its root edge's logL. With `edge_params` each
+    candidate's P-matrices use the per-edge table and its likelihood mixing
+    its own root edge's rate matrix, as `set_topology` + `loglikelihood`
+    compute it."""
+    k, n_edges = branches_k.shape
+    ep = None if edge_params is None else edge_params.repeat(k, 1)
+    pmat = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
+                      params_idx_rates, branches_k.reshape(-1), ep)
+    pmat = pmat.view(k, n_edges, *pmat.shape[1:])
+    clv_p, clv_c, sc_p, sc_c = traversal(
+        tip_codes, pmat, tables_k, rates=pmat.shape[2],
+        states=pmat.shape[3], n_slots=n_slots, threshold=scale_threshold,
+        factor=scale_factor, mxu=mxu, rate_scalers=rate_scalers,
+        tip_clvs=tip_clvs)
+    root_p = pmat[torch.arange(k, device=pmat.device), root_mats]
+    pidx = params_idx_rates if edge_params is None else edge_params[root_mats]
+    return ops_likelihood.edge_loglikelihood_candidates(
+        clv_p, clv_c, sc_p, sc_c, root_p, freqs, prop_invar, rate_weights,
+        pidx, pattern_weights, invariant, scale_threshold,
+        rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real)
+
+
+def _root_indices(root) -> tuple:
+    """A candidate's root edge as (p_clv, p_scaler, c_clv, c_scaler,
+    matrix): a 5-tuple as given (candidates built from trial moves snapshot
+    it before the move is rolled back) or read off a live node."""
+    if isinstance(root, (tuple, list)):
+        return tuple(int(v) for v in root)
+    return (root.clv_index, root.scaler_index, root.back.clv_index,
+            root.back.scaler_index, root.pmatrix_index)
+
+
+def _check_candidate_tables(tables, roots, n_slots, n_tips: int,
+                            n_ctips: int, n_matrices: int) -> None:
+    """Every index of K candidates' op tables [K, n_ops+1, 8] in range (the
+    kernels trust them): matrix indices below `n_matrices`, parent slots
+    below each candidate's `n_slots`, and each child or root end a slot, a
+    state-code tip or a raw tip row in range."""
+    ops, root = tables[:, :-1], tables[:, -1]
+    ns = np.asarray(n_slots)[:, None]
+    mats = np.concatenate([ops[..., 3], ops[..., 6], roots[:, 4:5]], axis=1)
+    ok = (np.all((mats >= 0) & (mats < n_matrices)) and np.all(ns >= 1)
+          and np.all((ops[..., 0] >= 0) & (ops[..., 0] < ns)))
+    for kind, idx in ((ops[..., 1], ops[..., 2]), (ops[..., 4], ops[..., 5]),
+                      (root[:, 0:1], root[:, 1:2]),
+                      (root[:, 2:3], root[:, 3:4])):
+        limit = np.where(kind == 1, n_tips, np.where(kind == 2, n_ctips, ns))
+        ok = ok and np.all((kind >= 0) & (kind <= 2) & (idx >= 0)
+                           & (idx < limit))
+    if not ok:
+        raise C.PllError(C.ERROR_PARAM_INVALID,
+                         "a candidate's op table or root holds an index out "
+                         "of range")
 
 
 def _dense_loglikelihood(clv, scaler, eigenvals, inv_eigenvecs, eigenvecs,
@@ -507,10 +589,9 @@ class TreeEngine:
                              f"of range [0, {p.prob_matrices})")
         self.use_fused = self.use_levelkernel = False
         self.table, self.fused_slots, self._ops = None, 0, None
-        blen = np.zeros(p.prob_matrices)
-        blen[np.asarray(pmatrix_indices)] = np.asarray(branches)
-        self.branches = torch.as_tensor(blen, dtype=self.dtype,
-                                        device=self.device)
+        self.branches = torch.as_tensor(
+            self._branch_vector(branches, pmatrix_indices), dtype=self.dtype,
+            device=self.device)
         self.root_idx = (root.clv_index, root.scaler_index,
                          root.back.clv_index, root.back.scaler_index,
                          root.pmatrix_index)
@@ -542,18 +623,32 @@ class TreeEngine:
                 self.repeats_mode = True
                 self._pack_repeats(operations)
                 return
-        if not self.use_fused and self._levelk_wanted:
-            self.use_levelkernel = True
-            self._ops = ops_levels.tables_to_device(
+        if not self.use_fused:
+            self.use_levelkernel = self._levelk_wanted
+            self._ops = self._dense_plan(operations)
+
+    def _dense_path(self) -> str:
+        """The dense path an op list takes when the fused kernel does not
+        run it."""
+        if self._levelk_wanted:
+            return "levels-kernel"
+        return "levels" if self.levels else "scan"
+
+    def _dense_plan(self, operations):
+        """`operations` packed for `_dense_path`: the level tables on the
+        device, (Operations [L, W], valid) or Operations [n]."""
+        p = self.partition
+        path = self._dense_path()
+        if path == "levels-kernel":
+            return ops_levels.tables_to_device(
                 ops_levels.pack_pallas_levels(
                     operations, p.tips, zero_scaler_row=p.scale_buffers + 1,
                     trash_scaler_row=p.scale_buffers), self.device)
-        elif not self.use_fused and self.levels:
-            self._ops = pack_level_operations(operations, p.tips,
-                                              scratch_clv=p.nodes,
-                                              device=self.device)
-        elif not self.use_fused:
-            self._ops = pack_operations(operations, device=self.device)
+        if path == "levels":
+            return pack_level_operations(operations, p.tips,
+                                         scratch_clv=p.nodes,
+                                         device=self.device)
+        return pack_operations(operations, device=self.device)
 
     def _pack_repeats(self, operations) -> None:
         """The pooled path's plan for `operations` (`pack_repeats`), its
@@ -673,6 +768,201 @@ class TreeEngine:
             rows, self.branches, self.root_idx[4], *self._model_args(),
             *self._site_args(), p.scale_threshold, **p._modes())
         return float(total), float(d1), float(d2)
+
+    # ------------------------------------------------------ candidate scoring
+    def _branch_vector(self, branches, pmatrix_indices) -> np.ndarray:
+        """Branch lengths in pmatrix-index order (the engine's storage
+        order)."""
+        blen = np.zeros(self.partition.prob_matrices)
+        blen[np.asarray(pmatrix_indices)] = np.asarray(branches)
+        return blen
+
+    def _root_params(self, root_mat: int) -> torch.Tensor:
+        """The likelihood's rate-matrix indices [R] for a root edge: its
+        own with `edge_params`, else the engine's."""
+        if self.edge_params is None:
+            return self._model_args()[7]
+        return self.edge_params[root_mat]
+
+    def evaluate_topologies(self, candidates) -> np.ndarray:
+        """logL of each (operations, branches, pmatrix_indices, root)
+        candidate, as `set_topology` + `loglikelihood()` would compute it
+        for that topology; `root` is a node or a 5-tuple (p_clv, p_scaler,
+        c_clv, c_scaler, matrix). On the fused paths every chunk of up to
+        CANDIDATE_CHUNK candidates is one launch of the fused kernel; the
+        op lists must then have one length, and one that
+        `pack_fused_schedule` refuses sends the whole batch down the
+        engine's dense path ('repeats-dense-fused': its pooled path), one
+        candidate at a time. A repeats partition scores one candidate at a
+        time through its pooled path. The partition's buffers, P-matrices
+        and pooled layout and the engine's topology and branches are left
+        as they were."""
+        k = len(candidates)
+        if k == 0:
+            return np.zeros(0)
+        if self.repeats_mode:
+            return self._evaluate_topologies_pooled(candidates)
+        p = self.partition
+        roots = np.asarray([_root_indices(c[3]) for c in candidates])
+        blens = np.stack([self._branch_vector(c[1], c[2])
+                          for c in candidates])
+        if self.use_fused:
+            ctips = ops_fused.ctip_rows(p)
+            tables, slots = [], []
+            for (operations, *_), ri in zip(candidates, roots):
+                table, n_slots = ops_fused.pack_fused_schedule(
+                    operations, p.tips, (ri[0], ri[2]), clv_tip_rows=ctips)
+                if table is None:
+                    break
+                tables.append(table)
+                slots.append(n_slots)
+            else:
+                return self._score_fused(np.stack(tables), blens, roots,
+                                         np.asarray(slots))
+            if self.repeats_dense_fused:
+                # a pooled partition has no dense buffers to fall back on
+                return self._evaluate_topologies_pooled(candidates)
+        return self._evaluate_topologies_dense(candidates, blens, roots)
+
+    def _score_fused(self, tables, blens, roots, n_slots) -> np.ndarray:
+        """logL of K fused candidates: op tables [K, n_ops+1, 8], branch
+        vectors [K, E], roots [K, 5] and slot counts [K], a launch of the
+        fused kernel a chunk of CANDIDATE_CHUNK (each chunk at its largest
+        slot count)."""
+        if not self.use_fused:
+            raise C.PllError(C.ERROR_PARAM_INVALID,
+                             "packed candidates need an engine on the fused "
+                             "path")
+        p = self.partition
+        tables = np.ascontiguousarray(tables, dtype=np.int32)
+        blens = np.asarray(blens, dtype=np.float64)
+        roots = np.asarray(roots, dtype=np.int64)
+        k = tables.shape[0]
+        if (tables.ndim != 3 or tables.shape[2] != 8
+                or blens.shape != (k, p.prob_matrices)
+                or roots.shape != (k, 5) or len(n_slots) != k):
+            raise C.PllError(
+                C.ERROR_PARAM_INVALID,
+                f"candidates need tables [K, n_ops+1, 8], blens [K, "
+                f"{p.prob_matrices}] and roots [K, 5] for one K, got "
+                f"{tables.shape}, {blens.shape}, {roots.shape}")
+        tip_clvs = self._tip_clvs()
+        _check_candidate_tables(
+            tables, roots, n_slots, p.tips,
+            0 if tip_clvs is None else tip_clvs.shape[0], p.prob_matrices)
+        dev = self.device
+        margs, (pw, inv) = self._model_args(), self._site_args()
+        tip_codes = self._tip_codes()
+        out = []
+        for i in range(0, k, CANDIDATE_CHUNK):
+            sl = slice(i, i + CANDIDATE_CHUNK)
+            out.append(_fused_multi_topology(
+                *margs, torch.as_tensor(blens[sl], dtype=self.dtype,
+                                        device=dev),
+                torch.as_tensor(tables[sl], device=dev), tip_codes,
+                torch.as_tensor(roots[sl, 4], device=dev), pw, inv,
+                int(np.max(n_slots[sl])), p.scale_threshold, p.scale_factor,
+                mxu=self.mxu, edge_params=self.edge_params,
+                **self._fused_kw()))
+        return torch.cat(out).cpu().numpy()
+
+    def _evaluate_topologies_dense(self, candidates, blens,
+                                   roots) -> np.ndarray:
+        """One candidate at a time through the engine's dense path
+        ('levels-kernel', else 'levels' or 'scan'), each from a scratch copy
+        of the partition's dense buffers."""
+        p = self.partition
+        clv = torch.empty_like(p.clv)
+        scaler = torch.empty_like(p.scale_buffer)
+        margs, (pw, inv) = self._model_args(), self._site_args()
+        path = self._dense_path()
+        out = []
+        for (operations, *_), blen, ri in zip(candidates, blens, roots):
+            operations = list(operations)
+            p._check_operations(operations)
+            plan = self._dense_plan(operations)
+            clv.copy_(p.clv)
+            scaler.copy_(p.scale_buffer)
+            out.append(_dense_loglikelihood(
+                clv, scaler, *margs[:7], self._root_params(int(ri[4])),
+                torch.as_tensor(blen, dtype=self.dtype, device=self.device),
+                path, plan, tuple(int(v) for v in ri), pw, inv,
+                p.scale_threshold, p.scale_factor,
+                edge_params=self.edge_params, **p._modes())[0])
+        return torch.stack(out).cpu().numpy()
+
+    def _evaluate_topologies_pooled(self, candidates) -> np.ndarray:
+        """One candidate at a time over a repeats partition's pooled
+        storage: each classes its op list into a new layout (class schedules
+        are topology-dependent data), installed from the partition's own
+        and run through the pool kernel ('pool-pallas'; its plain version
+        on 'pool'). The partition's pooled buffers, layout and cached
+        schedule, and so the engine's own, are restored afterwards."""
+        p = self.partition
+        saved = (p.clv_flat, p.sc_flat, p._flat, p._repeat_key,
+                 p._repeat_schedule, p._repeat_layout)
+        path = "pool-pallas" if self._pool_kernel_wanted else "pool"
+        margs, (pw, inv) = self._model_args(), self._site_args()
+        out = []
+        try:
+            for operations, branches, pmatrix_indices, root in candidates:
+                ri = _root_indices(root)
+                operations = list(operations)
+                p._check_operations(operations)
+                # from the partition's own state, into new pools
+                (p.clv_flat, p.sc_flat, p._flat, p._repeat_key, _,
+                 p._repeat_layout) = saved
+                p._repeat_schedule = None
+                plan, root_cols, mat, _ = pack_repeats(p, operations, ri)
+                out.append(_repeats_loglikelihood(
+                    p.clv_flat, p.sc_flat, *margs[:7], self._root_params(mat),
+                    torch.as_tensor(
+                        self._branch_vector(branches, pmatrix_indices),
+                        dtype=self.dtype, device=self.device),
+                    path, plan, root_cols, mat, pw, inv, p.scale_threshold,
+                    p.scale_factor, edge_params=self.edge_params,
+                    **p._modes())[0])
+        finally:
+            (p.clv_flat, p.sc_flat, p._flat, p._repeat_key,
+             p._repeat_schedule, p._repeat_layout) = saved
+        return torch.stack(out).cpu().numpy()
+
+    def pack_candidate(self, vroot):
+        """(table, blens, root_info, n_slots) of the CURRENT topology rooted
+        at `vroot` (`ops/fused.py:fused_candidate_from_tree`, one walk, no
+        Operation objects): the search loop's per-candidate packing for
+        `evaluate_packed`. None off the fused path or when the kernel cannot
+        run the topology."""
+        if not self.use_fused:
+            return None
+        p = self.partition
+        table, blens, ri, n_slots = ops_fused.fused_candidate_from_tree(
+            vroot, p.tips, p.prob_matrices,
+            clv_tip_rows=ops_fused.ctip_rows(p))
+        if table is None:
+            return None
+        return table, blens, ri, n_slots
+
+    def evaluate_packed(self, packed) -> np.ndarray:
+        """logL of candidates packed by `pack_candidate`, [(table, blens,
+        root_info, n_slots)]: `evaluate_topologies` without the Operation
+        objects (fused path only; the tables must have one length)."""
+        if len(packed) == 0:
+            return np.zeros(0)
+        tables, blens, roots, n_slots = zip(*packed)
+        return self._score_fused(np.stack(tables), np.stack(blens),
+                                 np.asarray(roots), np.asarray(n_slots))
+
+    def evaluate_packed_arrays(self, tables, blens, roots,
+                               n_slots: int) -> np.ndarray:
+        """logL of candidates stacked as arrays: tables [K, n_ops+1, 8],
+        blens [K, E], roots [K, 5] and the slot count every table fits in
+        (`evaluate_packed` without the per-candidate list)."""
+        k = len(tables)
+        if k == 0:
+            return np.zeros(0)
+        return self._score_fused(tables, blens, roots,
+                                 np.full(k, int(n_slots)))
 
     def site_rate_posteriors(self):
         """Empirical-Bayes per-site rate-category posteriors and

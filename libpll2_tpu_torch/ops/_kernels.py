@@ -100,6 +100,7 @@ def library() -> ctypes.CDLL:
     traversal = [
         _P, _I,            # table, n_ops
         _P,                # pmatrix
+        _I, _L, _L,        # candidates, table and P strides
         _P, _P, _I,        # tip codes, raw tip rows (or null), sites
         _I, _I,            # rates, states
         _P, _P, _I,        # slots, slot scalers, n_slots
@@ -171,10 +172,15 @@ def _check(cond: bool, msg: str, name: str = "fused_traversal") -> None:
         raise ValueError(f"{name}: {msg}")
 
 
+# the candidates one launch of a traversal kernel takes (the grid's y)
+MAX_CANDIDATES = 65535
+
+
 def _check_inputs(name: str, tip_codes: torch.Tensor, pmatrix: torch.Tensor,
                   table: torch.Tensor, rates: int, states: int,
                   n_slots: int, tip_clvs) -> None:
-    """The argument checks both traversal kernels share."""
+    """The argument checks both traversal kernels share, on the candidate
+    form: `table` [K, n_ops+1, 8] and `pmatrix` [K, E, R, s, s]."""
     dev = pmatrix.device
     _check(dev.type == "cuda", f"expected CUDA tensors, got {dev}", name)
     for what, t in (("tip_codes", tip_codes), ("table", table)):
@@ -184,15 +190,17 @@ def _check_inputs(name: str, tip_codes: torch.Tensor, pmatrix: torch.Tensor,
            f"the kernel takes float32 P-matrices, got {pmatrix.dtype}", name)
     _check(tip_codes.dtype == torch.int32 and table.dtype == torch.int32,
            "tip_codes and table must be int32", name)
-    _check(pmatrix.dim() == 4 and tuple(pmatrix.shape[1:])
-           == (rates, states, states),
-           f"pmatrix shape {tuple(pmatrix.shape)} is not [E, {rates}, "
-           f"{states}, {states}]", name)
+    _check(table.dim() == 3 and table.shape[2] == 8 and table.shape[1] >= 1
+           and 1 <= table.shape[0] <= MAX_CANDIDATES,
+           f"table shape {tuple(table.shape)} is not [K, n_ops+1, 8] with "
+           f"1 <= K <= {MAX_CANDIDATES}", name)
+    _check(pmatrix.dim() == 5 and tuple(pmatrix.shape[2:])
+           == (rates, states, states) and pmatrix.shape[0] == table.shape[0],
+           f"pmatrix shape {tuple(pmatrix.shape)} is not [{table.shape[0]}, "
+           f"E, {rates}, {states}, {states}]", name)
     _check(tip_codes.dim() == 2 and tip_codes.shape[1] > 0,
            f"tip_codes shape {tuple(tip_codes.shape)} is not [tips, sites]",
            name)
-    _check(table.dim() == 2 and table.shape[1] == 8 and table.shape[0] >= 1,
-           f"table shape {tuple(table.shape)} is not [n_ops+1, 8]", name)
     _check(1 <= states <= 32, f"states={states}: tip codes are 32-bit masks",
            name)
     _check(rates >= 1 and n_slots >= 1, "rates and n_slots must be >= 1",
@@ -210,11 +218,14 @@ def _check_inputs(name: str, tip_codes: torch.Tensor, pmatrix: torch.Tensor,
                f"{tip_codes.shape[1]}] on {dev}", name)
 
 
-def _outputs(rates: int, states: int, sites: int, dev, rate_scalers: bool):
+def _outputs(k: int, rates: int, states: int, sites: int, dev,
+             rate_scalers: bool):
+    """The root rows of K candidates: CLVs [K, R, s, S] x 2, counts [K, S]
+    ([K, R, S] per rate) x 2."""
     f32, i32 = torch.float32, torch.int32
-    sc = (rates, sites) if rate_scalers else (sites,)
-    return (torch.empty((rates, states, sites), dtype=f32, device=dev),
-            torch.empty((rates, states, sites), dtype=f32, device=dev),
+    sc = (k, rates, sites) if rate_scalers else (k, sites)
+    return (torch.empty((k, rates, states, sites), dtype=f32, device=dev),
+            torch.empty((k, rates, states, sites), dtype=f32, device=dev),
             torch.empty(sc, dtype=i32, device=dev),
             torch.empty(sc, dtype=i32, device=dev))
 
@@ -264,20 +275,25 @@ def fused_onchip_bytes(n_slots: int, sites_per_thread: int) -> int:
 
 
 def fused_plan(rates: int, states: int, n_slots: int, rate_scalers: bool,
-               smem_bytes: int, sites: int, sms: int) -> FusedPlan:
+               smem_bytes: int, sites: int, sms: int,
+               candidates: int = 1) -> FusedPlan:
     """fused_traversal.cu's plan for one shape on a device with `sms` SMs
-    whose blocks may use `smem_bytes` of shared memory. 4 states x 4 rates
-    run on chip, with two sites a thread where blocks of 64 sites still
-    reach FUSED_SPT2_SM_SHARE of the SMs and fit, else one site; they
-    spill where neither fits. Other sizes take the spill plan's
-    runtime-size body. `rate_scalers` does not change the layout."""
-    if rates < 1 or not 1 <= states <= 32 or n_slots < 1 or sites < 1:
+    whose blocks may use `smem_bytes` of shared memory, for a launch of
+    `candidates` topologies (each its own row of blocks). 4 states x 4
+    rates run on chip, with two sites a thread where the launch's blocks of
+    64 sites (the candidates' together) still reach FUSED_SPT2_SM_SHARE of
+    the SMs and fit, else one site; they spill where neither fits. Other
+    sizes take the spill plan's runtime-size body. `rate_scalers` does not
+    change the layout."""
+    if (rates < 1 or not 1 <= states <= 32 or n_slots < 1 or sites < 1
+            or candidates < 1):
         raise ValueError(f"fused_plan: no plan for {rates} rates, {states} "
-                         f"states, {n_slots} slots, {sites} sites")
+                         f"states, {n_slots} slots, {sites} sites, "
+                         f"{candidates} candidates")
     spill = FusedPlan("spill", 1, FUSED_SPILL_BLOCK, 0)
     if (rates, states) != (4, 4):
         return spill
-    wide = -(-sites // 64) >= FUSED_SPT2_SM_SHARE * sms
+    wide = candidates * -(-sites // 64) >= FUSED_SPT2_SM_SHARE * sms
     for spt in ((2, 1) if wide else (1,)):
         nbytes = fused_onchip_bytes(n_slots, spt)
         if nbytes <= smem_bytes:
@@ -286,30 +302,36 @@ def fused_plan(rates: int, states: int, n_slots: int, rate_scalers: bool,
 
 
 def device_fused_plan(device, rates: int, states: int, n_slots: int,
-                      rate_scalers: bool, sites: int) -> FusedPlan:
+                      rate_scalers: bool, sites: int,
+                      candidates: int = 1) -> FusedPlan:
     """`fused_plan` for one shape on CUDA device `device`."""
     index = _device_index(device)
     return fused_plan(rates, states, n_slots, rate_scalers,
-                      smem_optin(index), sites, sm_count(index))
+                      smem_optin(index), sites, sm_count(index), candidates)
 
 
 def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
                            table: torch.Tensor, rates: int, states: int,
                            n_slots: int, threshold: float, factor: float,
                            rate_scalers: bool = False, tip_clvs=None):
-    """Launch csrc/fused_traversal.cu on the current stream with
-    `device_fused_plan`'s plan; see ops/fused.py:fused_traversal for the
-    contract."""
+    """Launch csrc/fused_traversal.cu once on the current stream for K
+    candidates, `table` [K, n_ops+1, 8] and `pmatrix` [K, E, R, s, s], with
+    `device_fused_plan`'s plan; returns the root rows with a leading K (see
+    ops/fused.py:fused_traversal for the contract)."""
     _check_inputs("fused_traversal", tip_codes, pmatrix, table, rates,
                   states, n_slots, tip_clvs)
     dev = pmatrix.device
     sites = tip_codes.shape[1]
-    plan = device_fused_plan(dev, rates, states, n_slots, rate_scalers, sites)
-    out_p, out_c, sc_p, sc_c = _outputs(rates, states, sites, dev,
+    k = table.shape[0]
+    plan = device_fused_plan(dev, rates, states, n_slots, rate_scalers, sites,
+                             k)
+    out_p, out_c, sc_p, sc_c = _outputs(k, rates, states, sites, dev,
                                         rate_scalers)
     slots = slot_sc = None
     if plan.plan == "on-chip":
-        # the kernel copies P and the table in 16-byte units
+        # the kernel copies P and the table in 16-byte units; a contiguous
+        # candidate's table (8 words a row) and P (16 words a matrix) keep
+        # the first one's alignment
         if pmatrix.data_ptr() % 16:
             pmatrix = pmatrix.clone()
         if table.data_ptr() % 16:
@@ -317,14 +339,15 @@ def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
     else:
         # one spare slot: the generic (runtime-size) instantiation builds
         # each parent there before copying it into its own slot
-        slots = torch.empty((n_slots + 1, rates * states, sites),
+        slots = torch.empty((k, n_slots + 1, rates * states, sites),
                             dtype=torch.float32, device=dev)
-        slot_sc = torch.empty((n_slots, rates if rate_scalers else 1,
+        slot_sc = torch.empty((k, n_slots, rates if rate_scalers else 1,
                                sites), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_fused_traversal(
-            table.data_ptr(), table.shape[0] - 1, pmatrix.data_ptr(),
+            table.data_ptr(), table.shape[1] - 1, pmatrix.data_ptr(), k,
+            table.stride(0), pmatrix.stride(0),
             tip_codes.data_ptr(), _ptr(tip_clvs), sites, rates, states,
             _ptr(slots), _ptr(slot_sc), n_slots,
             out_p.data_ptr(), out_c.data_ptr(), sc_p.data_ptr(),
@@ -369,18 +392,21 @@ class RowsPlan(NamedTuple):
 
 
 def rows_plan(rates: int, states: int, n_slots: int, rate_scalers: bool,
-              smem_bytes: int, sites: int, sms: int) -> RowsPlan:
+              smem_bytes: int, sites: int, sms: int,
+              candidates: int = 1) -> RowsPlan:
     """The rows kernel's plan for one shape on a device with `sms` SMs whose
-    blocks may use `smem_bytes` of shared memory: on chip where the slots,
-    their counts, two buffers of both P-matrices and the rest fit, with two
-    sites a thread (one block of 64 sites an SM) where `sites` still give
-    nearly every SM a block, else one (two blocks of 32 an SM); else
-    spilled. The bytes follow the layout in fused_traversal_rows.cu
-    (smem_words), which refuses a launch whose count differs."""
+    blocks may use `smem_bytes` of shared memory, for a launch of
+    `candidates` topologies (each its own row of tiles): on chip where the
+    slots, their counts, two buffers of both P-matrices and the rest fit,
+    with two sites a thread (one block of 64 sites an SM) where the
+    launch's tiles of 64 sites (the candidates' together) still give nearly
+    every SM a block, else one (two blocks of 32 an SM); else spilled. The
+    bytes follow the layout in fused_traversal_rows.cu (smem_words), which
+    refuses a launch whose count differs."""
     sp = next((p for p in ROWS_PADDED_STATES if p >= states), None)
-    if sp is None or rates < 1 or n_slots < 1:
+    if sp is None or rates < 1 or n_slots < 1 or candidates < 1:
         raise ValueError(f"rows_plan: no plan for {rates} rates, {states} "
-                         f"states, {n_slots} slots")
+                         f"states, {n_slots} slots, {candidates} candidates")
     groups = 1 << (min(rates, ROWS_WARPS).bit_length() - 1)
     h = ROWS_WARPS // groups
     # the maxima (and per rate the children's counts) beside P and codes
@@ -394,7 +420,8 @@ def rows_plan(rates: int, states: int, n_slots: int, rate_scalers: bool,
             words += n_slots * (rates * states + sr) * tile
         return 4 * words
 
-    wide = -(-sites // (2 * ROWS_LANES)) >= ROWS_SPT2_SM_SHARE * sms
+    wide = candidates * -(-sites // (2 * ROWS_LANES)) \
+        >= ROWS_SPT2_SM_SHARE * sms
     for spt in ((2, 1) if wide else (1,)):
         if nbytes(True, spt, rates) <= smem_bytes:
             return RowsPlan("on-chip", spt, nbytes(True, spt, rates), sp,
@@ -429,11 +456,12 @@ def _device_index(device) -> int:
 
 
 def device_rows_plan(device, rates: int, states: int, n_slots: int,
-                     rate_scalers: bool, sites: int) -> RowsPlan:
+                     rate_scalers: bool, sites: int,
+                     candidates: int = 1) -> RowsPlan:
     """`rows_plan` for one shape on CUDA device `device`."""
     index = _device_index(device)
     return rows_plan(rates, states, n_slots, rate_scalers,
-                     smem_optin(index), sites, sm_count(index))
+                     smem_optin(index), sites, sm_count(index), candidates)
 
 
 def launch_fused_traversal_rows(tip_codes: torch.Tensor,
@@ -442,8 +470,10 @@ def launch_fused_traversal_rows(tip_codes: torch.Tensor,
                                 threshold: float, factor: float,
                                 bf16: bool, rate_scalers: bool = False,
                                 tip_clvs=None):
-    """Launch csrc/fused_traversal_rows.cu on the current stream; see
-    ops/fused.py:fused_traversal_rows for the contract. `bf16` rounds P
+    """Launch csrc/fused_traversal_rows.cu once on the current stream for
+    K candidates, `table` [K, n_ops+1, 8] and `pmatrix` [K, E, R, s, s];
+    returns the root rows with a leading K (see
+    ops/fused.py:fused_traversal_rows for the contract). `bf16` rounds P
     and inner-child CLVs (half-up) and raw tip rows (to nearest even) to
     bf16 (the 'bf16' contraction mode)."""
     name = "fused_traversal_rows"
@@ -454,27 +484,30 @@ def launch_fused_traversal_rows(tip_codes: torch.Tensor,
            f"shared-memory tile ({ROWS_MAX_RS})", name)
     dev = pmatrix.device
     sites = tip_codes.shape[1]
+    k = table.shape[0]
     plan = device_rows_plan(dev, rates, states, n_slots, rate_scalers,
-                            sites)
+                            sites, k)
     sp = plan.padded_states
-    # the kernel copies P in 16-byte units of zero-padded SP x SP blocks
+    # the kernel copies P in 16-byte units of zero-padded SP x SP blocks (a
+    # candidate's P, E x R x SP x SP words, keeps the first one's alignment)
     if sp != states:
         pmatrix = torch.nn.functional.pad(pmatrix,
                                           (0, sp - states, 0, sp - states))
     elif pmatrix.data_ptr() % 16:
         pmatrix = pmatrix.clone()
-    out_p, out_c, sc_p, sc_c = _outputs(rates, states, sites, dev,
+    out_p, out_c, sc_p, sc_c = _outputs(k, rates, states, sites, dev,
                                         rate_scalers)
     slots = slot_sc = None
     if plan.plan == "spill":
-        slots = torch.empty((n_slots, rates * states, sites),
+        slots = torch.empty((k, n_slots, rates * states, sites),
                             dtype=torch.float32, device=dev)
-        slot_sc = torch.empty((n_slots, rates if rate_scalers else 1, sites),
-                              dtype=torch.int32, device=dev)
+        slot_sc = torch.empty((k, n_slots, rates if rate_scalers else 1,
+                               sites), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_fused_traversal_rows(
-            table.data_ptr(), table.shape[0] - 1, pmatrix.data_ptr(),
+            table.data_ptr(), table.shape[1] - 1, pmatrix.data_ptr(), k,
+            table.stride(0), pmatrix.stride(0),
             tip_codes.data_ptr(), _ptr(tip_clvs), sites, rates, states,
             _ptr(slots), _ptr(slot_sc), n_slots,
             out_p.data_ptr(), out_c.data_ptr(), sc_p.data_ptr(),

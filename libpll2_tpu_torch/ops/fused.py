@@ -16,6 +16,14 @@ CUDA tensors it launches a hand-written kernel: alphabets below
 csrc/fused_traversal_rows.cu through `fused_traversal_rows` (counted in
 `fused_traversal_rows.launches`).
 
+Both take one topology or K candidates (the candidate form, for candidate
+scoring; libpll2_tpu vmaps its Pallas kernels over them): K op tables
+[K, n_ops+1, 8] and P [K, E, R, s, s] that share the tip codes and raw tip
+rows walk in ONE launch, one more grid dimension, and every output gains a
+leading K. One topology is the kernels' K = 1. `fused_candidate_from_tree`
+packs the current topology of a tree in one walk, without Operation
+objects.
+
 Semantics (per op row [pslot, l_is_tip, l_idx, m1, r_is_tip, r_idx, m2,
 has_scaler]; is_tip 0 is a slot, 1 a state-code tip, 2 a row of the raw
 tip matrix): x = (P[m1] . left) * (P[m2] . right) per rate; when
@@ -46,8 +54,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["pack_fused_schedule", "tip_code_matrix", "ctip_rows",
-           "tip_clv_matrix",
+__all__ = ["pack_fused_schedule", "fused_candidate_from_tree",
+           "tip_code_matrix", "ctip_rows", "tip_clv_matrix",
            "fused_traversal", "fused_traversal_rows",
            "fused_traversal_reference", "round_bf16", "round_bf16_rne",
            "MXU_MODES", "ROWS_STATES_MIN", "ROWS_RATE_SCALERS_MAX"]
@@ -174,6 +182,95 @@ def pack_fused_schedule(operations, n_tips: int, root_pair,
     return table, max(n_slots, 1)
 
 
+def fused_candidate_from_tree(vroot, n_tips: int, n_matrices: int,
+                              clv_tip_rows=None):
+    """The fused kernel's (table, branch vector, root_info, n_slots) for the
+    CURRENT topology rooted at `vroot`, in one iterative postorder walk:
+    what pack_fused_schedule(create_operations(traverse(vroot))) packs,
+    without Operation objects (libpll2_tpu/ops/pallas_fused.py:
+    fused_candidate_from_tree; the per-candidate host cost of batched
+    NNI/SPR scoring).
+
+    Returns (table [n_ops+1, 8] int32, blens [n_matrices] float64,
+    root_info (p_clv, p_scaler, c_clv, c_scaler, root matrix), n_slots), or
+    (None, None, None, 0) when the kernel cannot run this topology (an inner
+    op without a scaler row, or a node that is not binary)."""
+    vback = vroot.back
+    blens = np.zeros(n_matrices)
+    rows = []
+    free: list = []
+    slot_of: dict = {}
+    n_slots = 0
+
+    def tip_entry(c):
+        if clv_tip_rows is not None and clv_tip_rows[c] >= 0:
+            return 2, int(clv_tip_rows[c])
+        return 1, c
+
+    # as trees.utree.traverse: vroot.back's subtree, then vroot's, children
+    # in ring order before their node (postorder)
+    stack = [(vroot, False), (vback, False)]
+    while stack:
+        node, done = stack.pop()
+        tip = node.is_tip()
+        if not done and not tip:
+            stack.append((node, True))
+            if node.next.next.next is not node:
+                return None, None, None, 0         # not binary
+            stack.append((node.next.next.back, False))
+            stack.append((node.next.back, False))
+            continue
+        # the branch toward the traversal root (vroot.back's would repeat
+        # vroot's entry)
+        if node is not vback:
+            blens[node.pmatrix_index] = node.length
+        if tip:
+            continue
+        if node.scaler_index < 0:
+            return None, None, None, 0             # the kernel needs one
+        row = [0] * 8
+        freed = []
+        for pos, c in ((0, node.next.back), (1, node.next.next.back)):
+            ci = c.clv_index
+            if ci < n_tips:
+                row[1 + 3 * pos], row[2 + 3 * pos] = tip_entry(ci)
+            else:
+                # a postorder consumes an inner CLV once: its slot is free
+                # for the parent
+                s = slot_of.pop(ci, None)
+                if s is None:
+                    return None, None, None, 0     # not a postorder
+                row[2 + 3 * pos] = s
+                freed.append(s)
+            row[3 + 3 * pos] = c.pmatrix_index
+        free.extend(freed)
+        if free:
+            ps = free.pop()
+        else:
+            ps = n_slots
+            n_slots += 1
+        slot_of[node.clv_index] = ps
+        row[0] = ps
+        row[7] = 1
+        rows.append(row)
+
+    table = np.zeros((len(rows) + 1, 8), dtype=np.int32)
+    table[:len(rows)] = rows
+
+    def root_entry(c):
+        if c < n_tips:
+            return tip_entry(c)
+        return (0, slot_of[c]) if c in slot_of else None
+
+    pe, ce = root_entry(vroot.clv_index), root_entry(vback.clv_index)
+    if pe is None or ce is None:
+        return None, None, None, 0
+    table[len(rows)] = [pe[0], pe[1], ce[0], ce[1], 0, 0, 0, 0]
+    root_info = (vroot.clv_index, vroot.scaler_index, vback.clv_index,
+                 vback.scaler_index, vroot.pmatrix_index)
+    return table, blens, root_info, max(n_slots, 1)
+
+
 def tip_code_matrix(partition) -> np.ndarray:
     """int32 state-bitmask matrix [tips, sites_padded]: real sites carry
     the charmap masks, the asc columns the single-state masks (column
@@ -229,8 +326,17 @@ def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32
     contraction mode, `rate_scalers` the per-rate scaler mode and
     `tip_clvs` [n_ctips, s, S] the raw tip rows (module docstring). Returns
     (clv_p, clv_c [R, s, S], sc_p, sc_c [S] int32, or [R, S] per rate) for
-    the root edge."""
+    the root edge; in the candidate form (`table` [K, n_ops+1, 8],
+    `pmatrix` [K, E, R, s, s]) the candidates one after another, each
+    output with a leading K."""
     _check_mxu(mxu)
+    if table.ndim == 3:
+        outs = [fused_traversal_reference(tip_codes, pmatrix[k], table[k],
+                                          rates, states, n_slots, threshold,
+                                          factor, mxu, rate_scalers,
+                                          tip_clvs)
+                for k in range(table.shape[0])]
+        return tuple(torch.stack(o) for o in zip(*outs))
     dtype, device = pmatrix.dtype, pmatrix.device
     sites = tip_codes.shape[1]
     rows = torch.as_tensor(table).cpu().tolist()
@@ -285,9 +391,18 @@ def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32
             sc_c.clone())
 
 
+def _launch(launch, tip_codes, pmatrix, table, *args, **kw):
+    """A candidate-form launcher on K candidates, or on one topology as
+    K = 1."""
+    if table.dim() == 3:
+        return launch(tip_codes, pmatrix, table, *args, **kw)
+    out = launch(tip_codes, pmatrix[None], table[None], *args, **kw)
+    return tuple(o[0] for o in out)
+
+
 def fused_traversal(tip_codes: torch.Tensor,   # [n_tips, S] int32 bitmasks
-                    pmatrix: torch.Tensor,     # [E, R, s, s]
-                    table: torch.Tensor,       # [n_ops+1, 8] int32
+                    pmatrix: torch.Tensor,     # [(K,) E, R, s, s]
+                    table: torch.Tensor,       # [(K,) n_ops+1, 8] int32
                     rates: int, states: int, n_slots: int,
                     threshold: float, factor: float, mxu: str = "split",
                     rate_scalers: bool = False,
@@ -296,17 +411,22 @@ def fused_traversal(tip_codes: torch.Tensor,   # [n_tips, S] int32 bitmasks
     edge: CLVs [R, s, S], scaler counts [S] int32 ([R, S] with
     `rate_scalers`). `mxu` is the contraction mode (module docstring);
     below `ROWS_STATES_MIN` states it is ignored. `tip_clvs` [n_ctips, s,
-    S] holds the raw tip rows that is_tip == 2 table entries index.
+    S] holds the raw tip rows that is_tip == 2 table entries index. The
+    candidate form, `table` [K, n_ops+1, 8] and `pmatrix` [K, E, R, s, s]
+    (the tip operands shared), walks K topologies in one launch and returns
+    each output with a leading K; `n_slots` is then the largest over the
+    candidates.
 
     CUDA tensors launch a hand-written kernel (float32 only) on the
     current stream, without synchronising, or raise: fused_traversal.cu
     below `ROWS_STATES_MIN` states, else `fused_traversal_rows` (per-rate
     scalers there for at most ROWS_RATE_SCALERS_MAX categories, as in
-    JAX). CPU tensors run `fused_traversal_reference`. The table's indices
-    are trusted: callers build it with `pack_fused_schedule`, whose tip,
-    raw-tip and slot indices are in range by construction, and check its
-    matrix indices against `pmatrix` (the engine does so when it packs a
-    topology)."""
+    JAX). `launches` counts launches, not candidates. CPU tensors run
+    `fused_traversal_reference`. The table's indices are trusted: callers
+    build it with `pack_fused_schedule` or `fused_candidate_from_tree`,
+    whose tip, raw-tip and slot indices are in range by construction, and
+    check its matrix indices against `pmatrix` (the engine does so when it
+    packs a topology or a batch of candidates)."""
     _check_mxu(mxu)
     if states >= ROWS_STATES_MIN:
         _check_rows_rate_scalers(rates, rate_scalers)
@@ -319,9 +439,9 @@ def fused_traversal(tip_codes: torch.Tensor,   # [n_tips, S] int32 bitmasks
                                     n_slots, threshold, factor, mxu,
                                     rate_scalers, tip_clvs)
     from . import _kernels
-    out = _kernels.launch_fused_traversal(tip_codes, pmatrix, table, rates,
-                                          states, n_slots, threshold, factor,
-                                          rate_scalers, tip_clvs)
+    out = _launch(_kernels.launch_fused_traversal, tip_codes, pmatrix, table,
+                  rates, states, n_slots, threshold, factor, rate_scalers,
+                  tip_clvs)
     fused_traversal.launches += 1
     return out
 
@@ -330,8 +450,8 @@ fused_traversal.launches = 0
 
 
 def fused_traversal_rows(tip_codes: torch.Tensor,   # [n_tips, S] int32
-                         pmatrix: torch.Tensor,     # [E, R, s, s]
-                         table: torch.Tensor,       # [n_ops+1, 8] int32
+                         pmatrix: torch.Tensor,     # [(K,) E, R, s, s]
+                         table: torch.Tensor,       # [(K,) n_ops+1, 8]
                          rates: int, states: int, n_slots: int,
                          threshold: float, factor: float,
                          mxu: str = "split", rate_scalers: bool = False,
@@ -340,9 +460,10 @@ def fused_traversal_rows(tip_codes: torch.Tensor,   # [n_tips, S] int32
     (csrc/fused_traversal_rows.cu, any states <= 32, one thread block per
     tile of sites), which replaces libpll2_tpu's `_fused_kernel`.
     `fused_traversal` sends alphabets of `ROWS_STATES_MIN` or more states
-    here. Per-rate scalers are refused above ROWS_RATE_SCALERS_MAX
-    categories (ValueError), as in JAX. CUDA tensors launch the kernel
-    (float32 only) or raise; CPU tensors run `fused_traversal_reference`."""
+    here, one topology or K candidates as there. Per-rate scalers are
+    refused above ROWS_RATE_SCALERS_MAX categories (ValueError), as in JAX.
+    CUDA tensors launch the kernel (float32 only) or raise; CPU tensors run
+    `fused_traversal_reference`."""
     _check_mxu(mxu)
     _check_rows_rate_scalers(rates, rate_scalers)
     if pmatrix.device.type == "cpu" and tip_codes.device.type == "cpu":
@@ -350,8 +471,9 @@ def fused_traversal_rows(tip_codes: torch.Tensor,   # [n_tips, S] int32
                                          states, n_slots, threshold, factor,
                                          mxu, rate_scalers, tip_clvs)
     from . import _kernels
-    out = _kernels.launch_fused_traversal_rows(
-        tip_codes, pmatrix, table, rates, states, n_slots, threshold, factor,
+    out = _launch(
+        _kernels.launch_fused_traversal_rows, tip_codes, pmatrix, table,
+        rates, states, n_slots, threshold, factor,
         bf16=(mxu == "bf16" and states >= ROWS_STATES_MIN),
         rate_scalers=rate_scalers, tip_clvs=tip_clvs)
     fused_traversal_rows.launches += 1

@@ -29,7 +29,8 @@ from ..constants import (AB_FELSENSTEIN, AB_LEWIS, AB_NONE, AB_STAMATAKIS,
                          SCALE_RATE_MAXDIFF)
 
 __all__ = ["cap_pow", "root_loglikelihood", "edge_loglikelihood",
-           "node_ancestral", "rate_posteriors"]
+           "edge_loglikelihood_candidates", "node_ancestral",
+           "rate_posteriors"]
 
 
 def cap_pow(threshold: float, rel: torch.Tensor,
@@ -213,6 +214,37 @@ def edge_loglikelihood(clv_parent: torch.Tensor,     # [R, s, S]
                                 dtype)
     return _apply_asc(site_lk, terma, site_sc, pattern_weights, asc_type,
                       n_real, clv_parent.shape[1], scale_threshold, dtype)
+
+
+def edge_loglikelihood_candidates(clv_parent: torch.Tensor,   # [K, R, s, S]
+                                  clv_child: torch.Tensor,    # [K, R, s, S]
+                                  pscaler: torch.Tensor,      # [K, (R,) S]
+                                  cscaler: torch.Tensor,
+                                  pmatrix: torch.Tensor,      # [K, R, s, s]
+                                  freqs: torch.Tensor,        # [M, s]
+                                  prop_invar: torch.Tensor,   # [M]
+                                  rate_weights: torch.Tensor,  # [R]
+                                  params_idx: torch.Tensor,   # [(K,) R] int
+                                  pattern_weights: torch.Tensor,  # [S]
+                                  invariant: torch.Tensor,    # [S] int
+                                  scale_threshold: float,
+                                  rate_scalers: bool = False,
+                                  asc_type: int = AB_NONE,
+                                  n_real: int = -1) -> torch.Tensor:
+    """`edge_loglikelihood` of K candidates' root edges at once: each its
+    own rows, counts and root P-matrix, and with `params_idx` [K, R] each
+    its own root edge's rate matrices (per-branch heterotachy). One batch
+    of tensor ops (torch.func.vmap over the candidate axis), not K calls of
+    ~50 small ones. Returns the totals [K]."""
+    def one(clv_p, clv_c, sc_p, sc_c, pmat, pidx):
+        return edge_loglikelihood(
+            clv_p, clv_c, sc_p, sc_c, pmat, freqs, prop_invar, rate_weights,
+            pidx, pattern_weights, invariant, scale_threshold,
+            rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real)[0]
+
+    in_dims = (0, 0, 0, 0, 0, 0 if params_idx.dim() == 2 else None)
+    return torch.func.vmap(one, in_dims=in_dims)(
+        clv_parent, clv_child, pscaler, cscaler, pmatrix, params_idx)
 
 
 def node_ancestral(clv_node: torch.Tensor,           # [R, s, S]

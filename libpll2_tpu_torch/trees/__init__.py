@@ -1,4 +1,6 @@
-from . import newick, rtree, utree
+from . import moves, newick, rtree, utree
+from .moves import (Rollback, nni, nni_neighbours, rollback_move, spr,
+                    utree_find)
 from .newick import (export_newick, export_newick_rooted, parse_newick,
                      parse_newick_rooted)
 from .random_tree import random_alignment, random_newick, random_utree

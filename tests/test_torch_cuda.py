@@ -934,3 +934,198 @@ def test_mxu_probe_matches_plain_on_card(cuda, mode):
         # of ~1e-5 over these sums against the plain version's rounding
         tol = 1e-5 if mode == "f32" else 5e-5
         assert float((got - want).abs().max() / want.abs().max()) < tol
+
+
+# ------------------------------------------------------- candidate scoring
+def _at_neighbours(tree, k, fn):
+    """fn() at k NNI neighbours of `tree` (cycled), each move rolled
+    back."""
+    from libpll2_tpu_torch.trees import moves
+
+    out, nbrs = [], moves.nni_neighbours(tree)
+    for i in range(k):
+        h, move = nbrs[i % len(nbrs)]
+        rb = moves.Rollback()
+        moves.nni(h, move, rb)
+        out.append(fn())
+        moves.rollback_move(rb)
+    return out
+
+
+def _candidate_objects(tree, k):
+    """k NNI neighbours as (operations, branches, pmatrix_indices, root
+    5-tuple)."""
+    def snapshot():
+        ops, br, pidx = create_operations(traverse(tree.vroot))
+        vr = tree.vroot
+        return (ops, br, pidx, (vr.clv_index, vr.scaler_index,
+                                vr.back.clv_index, vr.back.scaler_index,
+                                vr.pmatrix_index))
+
+    return _at_neighbours(tree, k, snapshot)
+
+
+def _candidate_inputs(part, eng, tree, k):
+    """The candidate form's operands for k NNI neighbours: (tip codes, P
+    [k, E, R, s, s], tables [k, n_ops+1, 8]) on the card, and the keywords
+    with the largest slot count."""
+    packed = _at_neighbours(tree, k, lambda: eng.pack_candidate(tree.vroot))
+    dev = part.device
+    tables = torch.as_tensor(np.stack([p[0] for p in packed]), device=dev)
+    blens = torch.as_tensor(np.stack([p[1] for p in packed]),
+                            dtype=torch.float32, device=dev)
+    m = eng._model_args()
+    pm = update_prob_matrices(m[0], m[1], m[2], m[3], m[4], m[7],
+                              blens.reshape(-1))
+    pm = pm.view(k, -1, *pm.shape[1:])
+    kw = dict(rates=part.rate_cats, states=part.states,
+              n_slots=max(p[3] for p in packed),
+              threshold=part.scale_threshold, factor=part.scale_factor,
+              rate_scalers=part.rate_scalers, tip_clvs=eng._tip_clvs())
+    return (eng._tip_codes(), pm, tables), kw
+
+
+# (engine, candidates, slots forced, the plan: fused_traversal.cu's
+# (plan, threads a site) or the rows kernel's (plan, sites a thread)); the
+# engines are those of the one-topology cases ('ragged' and 'rates3' of
+# `_engine` at 1000 sites, 'aa' its 20 states, `_protein_case`'s spill
+# shape and `_mode_engine`'s modes at 600 sites); a launch's blocks count
+# over all K candidates (ops/_kernels.py:fused_plan, rows_plan)
+CANDIDATE_CASES = {
+    "k1": ("ragged", 1, None, ("on-chip", 4)),
+    "k3_onchip_spt1": ("ragged", 3, None, ("on-chip", 4)),
+    "k130_onchip_spt2": ("ragged", 130, None, ("on-chip", 2)),
+    "k3_spill": ("ragged", 3, FUSED_SPILL_SLOTS, ("spill", 1)),
+    "k3_rates3": ("rates3", 3, None, ("spill", 1)),
+    "k3_per_rate": ("rate_cat", 3, None, ("on-chip", 4)),
+    "k3_raw": ("raw", 3, None, ("on-chip", 4)),
+    "k130_raw_per_rate": ("raw_rate", 130, None, ("on-chip", 2)),
+    "aa_k1": ("aa", 1, None, ("on-chip", 1)),
+    "aa_k3": ("aa", 3, None, ("on-chip", 1)),
+    "aa_k130": ("aa", 130, None, ("on-chip", 2)),
+    "aa_k3_spill": ("rates16_states32", 3, None, ("spill", 1)),
+    "aa_k3_raw_per_rate": ("aa_raw_rate_r3", 3, None, ("on-chip", 1)),
+}
+
+
+def _candidate_engine(name, device):
+    """(partition, engine, tree) of a candidate case's engine."""
+    tree = _caterpillar(60) if "cat" in name else random_utree(
+        [f"t{i}" for i in range(16)], seed=3)
+    if name in ("ragged", "rates3"):
+        return (*_engine(tree, 1000, device,
+                         rates=3 if name == "rates3" else 4), tree)
+    if name == "aa":
+        return (*_engine(tree, 1000, device, states=20, alphabet=AA_NOISY),
+                tree)
+    if name == "rates16_states32":
+        return (*_protein_case(name, device), tree)
+    return (*_mode_engine(name, device), tree)
+
+
+@pytest.mark.parametrize("case", sorted(CANDIDATE_CASES))
+def test_candidate_kernel_matches_plain_on_card(cuda, case):
+    """The candidate form of kernels 1 and 2: K topologies in ONE launch,
+    each held against the plain version's walk of that candidate (counts
+    equal, CLVs to 1e-5 of each site's max; 'bf16' at the logL level in
+    `test_evaluate_topologies_on_card`), on every plan."""
+    name, k, slots, want_plan = CANDIDATE_CASES[case]
+    part, eng, tree = _candidate_engine(name, cuda)
+    args, kw = _candidate_inputs(part, eng, tree, k)
+    if slots is not None:
+        kw["n_slots"] = slots
+    rows = part.states >= fused.ROWS_STATES_MIN
+    if rows:
+        plan = _kernels.device_rows_plan(cuda, part.rate_cats, part.states,
+                                         kw["n_slots"], part.rate_scalers,
+                                         part.sites_padded, k)
+        assert (plan.plan, plan.sites_per_thread) == want_plan
+    else:
+        plan = _kernels.device_fused_plan(cuda, part.rate_cats, part.states,
+                                          kw["n_slots"], part.rate_scalers,
+                                          part.sites_padded, k)
+        assert (plan.plan, plan.threads_per_site) == want_plan
+    counter = fused.fused_traversal_rows if rows else fused.fused_traversal
+    before = counter.launches
+    got = fused.fused_traversal(*args, mxu="highest", **kw)
+    assert counter.launches == before + 1
+    want = fused.fused_traversal_reference(*args, mxu="highest", **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape[0] == k
+    for g, w in zip(got[2:], want[2:]):
+        assert g.shape == w.shape and torch.equal(g, w)
+    for g, w in zip(got[:2], want[:2]):
+        site_max = w.abs().amax(dim=(1, 2)).clamp(min=1e-30)
+        err = (g - w).abs() / site_max[:, None, None]
+        assert float(err.max()) <= 1e-5
+    if "cat" in name:
+        assert int(want[2].max()) > 0
+
+
+@pytest.mark.parametrize("case", ["dna", "protein_split", "protein_bf16",
+                                  "repeats_dense_fused"])
+def test_evaluate_topologies_on_card(cuda, case):
+    """130 candidates (two chunks, two launches) against the float64 CPU
+    engine's scores (TOL_LOGL 5e-5; in 'bf16' against its own plain version
+    on the card, 1e-4) and the card's own set_topology + loglikelihood() of
+    a few of them; evaluate_packed and evaluate_packed_arrays score the
+    same."""
+    tree = random_utree([f"t{i}" for i in range(24)], seed=5)
+    mxu = "bf16" if case.endswith("bf16") else "split"
+    engines = []
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        if case == "repeats_dense_fused":
+            part = _repeats_partition(copy.deepcopy(tree), 3000, device,
+                                      dtype=dtype)
+        else:
+            states = 4 if case == "dna" else 20
+            part = _engine(tree, 3000, device, dtype=dtype, states=states,
+                           alphabet=AA_NOISY if states == 20
+                           else "ACGT-NRY")[0]
+        engines.append(TreeEngine(part, tree, mxu=mxu))
+    gpu, cpu = engines
+    k = 130
+    cands = _candidate_objects(tree, k)
+    counter = (fused.fused_traversal_rows if gpu.partition.states >= 16
+               else fused.fused_traversal)
+    before = counter.launches
+    got = gpu.evaluate_topologies(cands)
+    assert counter.launches == before + 2
+    assert got.shape == (k,)
+    if mxu == "bf16":
+        from libpll2_tpu_torch.engine import _fused_multi_topology
+
+        m, (pw, inv) = gpu._model_args(), gpu._site_args()
+        p = gpu.partition
+        packed = _at_neighbours(tree, 4,
+                                lambda: gpu.pack_candidate(tree.vroot))
+        args = (*m, torch.as_tensor(np.stack([q[1] for q in packed]),
+                                    dtype=torch.float32, device=cuda),
+                torch.as_tensor(np.stack([q[0] for q in packed]),
+                                device=cuda),
+                gpu._tip_codes(),
+                torch.as_tensor([q[2][4] for q in packed], device=cuda),
+                pw, inv, max(q[3] for q in packed), p.scale_threshold,
+                p.scale_factor)
+        lk = [_fused_multi_topology(*args, traversal=t, mxu=mxu,
+                                    **gpu._fused_kw()).cpu().numpy()
+              for t in (fused.fused_traversal,
+                        fused.fused_traversal_reference)]
+        assert float(np.max(np.abs(lk[0] - lk[1]) / np.abs(lk[1]))) < 1e-4
+        np.testing.assert_allclose(lk[0], got[:4], rtol=1e-6)
+    else:
+        want = cpu.evaluate_topologies(cands)
+        assert float(np.max(np.abs(got - want) / np.abs(want))) < 5e-5
+    one = TreeEngine(gpu.partition, tree, mxu=mxu)
+    singles = _at_neighbours(tree, 3, lambda: (one.set_topology(tree),
+                                               one.loglikelihood())[1])
+    assert float(np.max(np.abs(got[:3] - singles) / np.abs(got[:3]))) < 5e-5
+    if case != "repeats_dense_fused":
+        packed = _at_neighbours(tree, k,
+                                lambda: gpu.pack_candidate(tree.vroot))
+        np.testing.assert_allclose(gpu.evaluate_packed(packed), got,
+                                   rtol=1e-6)
+        tables, blens, roots, slots = zip(*packed)
+        np.testing.assert_allclose(gpu.evaluate_packed_arrays(
+            np.stack(tables), np.stack(blens), np.asarray(roots),
+            max(slots)), got, rtol=1e-6)

@@ -149,3 +149,37 @@ def test_refuses_what_no_plan_takes():
         with pytest.raises(ValueError):
             fused_plan(kw["rates"], kw["states"], kw["n_slots"], False, H100,
                        kw["sites"], SMS)
+
+
+# the candidate form: one launch of K candidates, each its own row of blocks
+@pytest.mark.parametrize("k,sites,tps", [
+    (1, NARROW, 4),      # 16 blocks of 64
+    (4, NARROW, 4),      # 64 blocks: short of half the SMs
+    (5, NARROW, 2),      # 80 blocks
+    (2, 2049, 2),        # 33 blocks a candidate, 66 in all
+    (2, 2048, 4),        # 32 a candidate, 64 in all
+    (1, 4159, 4),        # the widest one topology at one site a thread
+    (2, 4159, 2),
+    (128, DNA, 2),       # a chunk of the DNA main path's candidates
+    (130, 300, 2),
+    (1, 300, 4),
+])
+def test_candidates_count_their_blocks_together(k, sites, tps):
+    """Two sites a thread where the launch's blocks of 64 sites, those of
+    all K candidates, reach FUSED_SPT2_SM_SHARE of the SMs; the bytes are a
+    block's, which K does not change."""
+    plan = fused_plan(4, 4, 7, False, H100, sites, SMS, candidates=k)
+    spt = 4 // tps
+    assert plan == FusedPlan("on-chip", tps, 32 * spt, 4 * _words(7, spt))
+    assert (k * -(-sites // 64) >= FUSED_SPT2_SM_SHARE * SMS) == (tps == 2)
+
+
+@pytest.mark.parametrize("k", [1, 3, 128])
+def test_candidates_spill_as_one_topology_does(k):
+    assert _plan(250, DNA) == SPILL
+    assert fused_plan(4, 4, 250, False, H100, DNA, SMS, candidates=k) \
+        == SPILL
+    assert fused_plan(3, 4, 7, False, H100, DNA, SMS, candidates=k) \
+        == SPILL
+    with pytest.raises(ValueError):
+        fused_plan(4, 4, 7, False, H100, DNA, SMS, candidates=0)

@@ -150,3 +150,34 @@ def test_refuses_what_no_plan_takes():
         rows_plan(4, 33, 3, False, H100, MAIN, SMS)
     with pytest.raises(ValueError):
         rows_plan(4, 20, 3, False, 4096, MAIN, SMS)
+
+
+# the candidate form: one launch of K candidates, each its own row of tiles
+@pytest.mark.parametrize("k,sites,spt", [
+    (1, NARROW, 1),      # 16 tiles of 64
+    (7, NARROW, 1),      # 112 tiles: still short of 0.9 x 132
+    (8, NARROW, 2),      # 128 tiles
+    (2, 4096, 2),        # 64 tiles a candidate
+    (1, 4096, 1),
+    (64, MAIN, 2),       # the candidate batch of the protein main path
+    (128, 300, 2),
+    (1, 300, 1),
+])
+def test_candidates_count_their_tiles_together(k, sites, spt):
+    """Two sites a thread where the launch's tiles of 64 sites, those of
+    all K candidates, reach 0.9 of the SMs; the bytes are a block's, which
+    K does not change."""
+    plan = rows_plan(4, 20, 6, False, H100, sites, SMS, candidates=k)
+    assert plan.plan == "on-chip" and plan.sites_per_thread == spt
+    assert plan.smem_bytes == 4 * _words(4, 20, 20, 6, False, 4, spt)
+    assert (k * -(-sites // 64) >= ROWS_SPT2_SM_SHARE * SMS) == (spt == 2)
+
+
+def test_candidates_spill_as_one_topology_does():
+    """The spill plan does not depend on K: 16 rates x 32 states."""
+    for k in (1, 3, 128):
+        plan = rows_plan(16, 32, 6, False, H100, MAIN, SMS, candidates=k)
+        assert plan == rows_plan(16, 32, 6, False, H100, MAIN, SMS)
+        assert plan.plan == "spill"
+    with pytest.raises(ValueError):
+        rows_plan(4, 20, 6, False, H100, MAIN, SMS, candidates=0)
