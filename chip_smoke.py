@@ -149,7 +149,34 @@ each fatal on failure:
      and device time a chunk beside its bound, the plain version's call;
      the host's packing a candidate for each entry point, each call in
      candidates/s and the same candidates through set_topology +
-     loglikelihood() one at a time.
+     loglikelihood() one at a time;
+ 20. topology search (libpll2_tpu_torch.search.TreeSearch): the DNA
+     problem's alignment simulated on its tree (128 x 16384, seed 7) and
+     the search started 3 NNI and 2 SPR seeded moves away;
+     spr_round_streamed(radius=5) and nni_round_streamed() to convergence
+     (at most SEARCH_CAP iterations each) on the default 'fused' engine,
+     each iteration printing its candidates, the native schedule's ms,
+     n_aux / n_arows / the extended buffers' MB, the level kernel's
+     launches and the passes' device time (torch.profiler), the scoring
+     and verify ms and the logL; the first iterations' streamed scores
+     against set_topology + loglikelihood() (every NNI candidate; 64
+     seeded SPR candidates and the best 8), 4 of each against the float64
+     plain path on the CPU; the first SPR iteration's passes, wave by
+     wave, against the level kernel's plain version, with their call time
+     and bound; spr_round_batched(radius=5) and nni_round_batched() (the
+     native builder, the fused kernel's candidate form), each accepting as
+     many moves as its streamed twin and ending within TOL_LOGL of it, with
+     the native builder's host us a candidate beside the Python walk's it
+     replaces, and the round's candidates/s (every round starts on its
+     own copy of the tree: the SPR rounds 5 moves away, the NNI rounds the
+     3 NNI moves away, which they must undo in part at least);
+     TreeSearch.run(max_rounds=1,
+     use_spr=False); then one streamed NNI iteration on the 246 x 4465
+     repeats problem ('repeats-dense-fused', the dense tip-row base) and on
+     the 128 x 8192 LG+G4 protein ('split': the level kernel's runtime-size
+     variant), the best 8 against set_topology + loglikelihood() and the
+     passes, wave by wave, against the level kernel's plain version; the
+     level, fused and rows kernels' launches counted over the phase.
 
 The last three lines are the card's name and power limit, one JSON object
 listing every kernel (with its bound at the card's peaks), and {"ok": true,
@@ -179,6 +206,7 @@ levels-kernel) to DIR/profile.txt.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -312,14 +340,16 @@ def dna_model():
 
 def dna_partition(tree, by_label, sites, device, rate_cats=4, **options):
     """bench.py:39-60's problem on `device` in float32 (`tree` rooted or
-    unrooted); `options` (rate_scalers, asc_bias) go to Partition."""
+    unrooted); `options` (rate_scalers, asc_bias, dtype) go to
+    Partition."""
     import torch
     from libpll2_tpu_torch import Partition, compute_gamma_cats
     from libpll2_tpu_torch.io import maps
 
+    options.setdefault("dtype", torch.float32)
     part = Partition(tree.tip_count, tree.inner_count, 4, sites, 1,
                      tree.edge_count, rate_cats, tree.inner_count,
-                     device=device, dtype=torch.float32, **options)
+                     device=device, **options)
     for tip in tree.tips():
         part.set_tip_states(tip.clv_index, maps.map_nt, by_label[tip.label])
     freqs, subst = dna_model()
@@ -3660,6 +3690,542 @@ def repeats_candidates(device, rep_tree, rep_make, gpu):
     return out, dev_times
 
 
+# phase 20: topology search. The DNA problem's alignment is simulated on its
+# tree and the search starts SEARCH_MOVES (NNI, SPR) seeded moves away from
+# it; the rounds' radius and iteration cap; SPR candidates held against
+# set_topology + loglikelihood() (a seeded sample and the best), and those
+# held against the float64 plain path on the CPU
+SEARCH_MOVES = (3, 2)
+SEARCH_RADIUS = 5
+SEARCH_CAP = 10
+SEARCH_SAMPLE, SEARCH_TOP, SEARCH_F64 = 64, 8, 4
+
+
+class _OneIteration(Exception):
+    """Ends a round after its first iteration (`RoundLog(stop=True)`)."""
+
+
+class RoundLog:
+    """Per-iteration record of one streamed round of `search`, taken by
+    wrapping its schedule build, scoring and verification on the instance:
+    candidates, schedule ms (the native builder), n_aux / n_arows / the
+    extended buffers' MB, the level kernel's launches and the passes'
+    device us (torch.profiler, over the same scoring run again, its
+    launches not counted), scoring ms, verify ms and logL. `first(scheds,
+    scores)` runs on the first iteration's schedule and scores before the
+    round uses them. A round that needs more than SEARCH_CAP iterations
+    fails; with `stop` the round ends after its first (`run`)."""
+
+    def __init__(self, label, search, kind, first=None, stop=False):
+        import torch
+        from libpll2_tpu_torch.ops import levels
+
+        self.label, self.iters = label, []
+        build = search._stream_schedules
+        score = getattr(search, f"_summed_{kind}_scores")
+        verify = search.evaluate
+
+        def schedules(*a, **k):
+            self._report()
+            if stop and self.iters:
+                raise _OneIteration
+            check(len(self.iters) < SEARCH_CAP, f"{label}: no convergence "
+                  f"in {SEARCH_CAP} iterations")
+            t0 = time.perf_counter()
+            out = build(*a, **k)
+            ms = (time.perf_counter() - t0) * 1e3
+            sched = next(iter(out.values()))
+            p = search._engine.partition
+            n_a = int(sched.a_valid.sum())
+            rows = search._n_rows(p) + sched.n_aux + n_a
+            sc_rows = p.scale_buffers + sched.n_aux + n_a + 2
+            block = p.rate_cats * p.states * p.sites_padded * 4
+            sc_block = (p.rate_cats if p.rate_scalers else 1) \
+                * p.sites_padded * 4
+            self.iters.append({
+                "candidates": sched.n_candidates, "schedule_ms": ms,
+                "n_aux": sched.n_aux, "n_arows": sched.n_arows, "a_rows": n_a,
+                "ext_mb": (rows * block + sc_rows * sc_block) / 1e6,
+                "verify_ms": 0.0, "evaluations": 0, "logl": None})
+            return out
+
+        def scores(scheds, chunk):
+            rec = self.iters[-1]
+            torch.cuda.synchronize()
+            n0 = levels.level_update.launches
+            t0 = time.perf_counter()
+            out = score(scheds, chunk)
+            torch.cuda.synchronize()
+            rec["score_ms"] = (time.perf_counter() - t0) * 1e3
+            rec["launches"] = levels.level_update.launches - n0
+            rec["pass_us"] = sum(launches_device_us(
+                lambda: score(scheds, chunk), "level_", rec["launches"],
+                reps=1))
+            levels.level_update.launches = n0 + rec["launches"]
+            if first is not None and len(self.iters) == 1:
+                first(scheds, out)
+            return out
+
+        def evaluate():
+            rec = self.iters[-1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lk = verify()
+            rec["verify_ms"] += (time.perf_counter() - t0) * 1e3
+            rec["evaluations"] += 1
+            rec["logl"] = lk if rec["logl"] is None else max(rec["logl"], lk)
+            return lk
+
+        self.wrapped = {"_stream_schedules": schedules,
+                        f"_summed_{kind}_scores": scores,
+                        "evaluate": evaluate}
+        self.search, self._printed = search, 0
+
+    def _report(self):
+        for i in range(self._printed, len(self.iters)):
+            r = self.iters[i]
+            print(f"  {self.label} iteration {i + 1}: {r['candidates']} "
+                  f"candidates, schedule {r['schedule_ms']:.3f} ms (native "
+                  f"builder), n_aux {r['n_aux']}, n_arows {r['n_arows']} "
+                  f"({r['a_rows']} A rows), extended buffers "
+                  f"{r['ext_mb']:.1f} MB; level kernel {r['launches']} "
+                  f"launches, passes {r['pass_us']:.1f} us of device time; "
+                  f"scoring {r['score_ms']:.3f} ms, verify "
+                  f"{r['verify_ms']:.3f} ms ({r['evaluations']} "
+                  f"evaluations), best verified logL {r['logl']!r}",
+                  flush=True)
+        self._printed = len(self.iters)
+
+    def run(self, fn):
+        """fn() (the round) with the search's methods wrapped: its result
+        and host ms; (None, ms) when `stop` ended it."""
+        vars(self.search).update(self.wrapped)
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        except _OneIteration:
+            out = None
+        finally:
+            for name in self.wrapped:
+                vars(self.search).pop(name)
+        ms = (time.perf_counter() - t0) * 1e3
+        self._report()
+        return out, ms
+
+    def own_ms(self) -> float:
+        """The round's own host ms: its iterations' schedule builds,
+        scoring and verification, without the checks and the profiled
+        replays."""
+        return sum(r["schedule_ms"] + r["score_ms"] + r["verify_ms"]
+                   for r in self.iters)
+
+
+def search_start(seed=SEED):
+    """Phase 20's DNA problem: the tree (random_utree, seed 7), the
+    alignment simulated on it under dna_model()'s GTR and Gamma(0.8) x 4,
+    and the tree after SEARCH_MOVES seeded NNI and SPR moves (within
+    SEARCH_RADIUS). Returns (start tree, the tree after the NNI moves
+    alone, {label: sequence})."""
+    import numpy as np
+    from libpll2_tpu_torch import constants as PC
+    from libpll2_tpu_torch.search import _internal_edges, _radius_targets
+    from libpll2_tpu_torch.trees import moves, random_utree
+    from libpll2_tpu_torch.trees.utils import utree_clone
+    from libpll2_tpu_torch.utils import simulate_alignment
+
+    tree = random_utree([f"t{i}" for i in range(N_TAXA)], seed=seed)
+    freqs, subst = dna_model()
+    headers, seqs = simulate_alignment(tree, N_SITES, freqs, subst,
+                                       alpha=0.8, seed=seed)
+    rng = np.random.default_rng(seed)
+    for _ in range(SEARCH_MOVES[0]):
+        edges = _internal_edges(tree)
+        moves.nni(edges[rng.integers(len(edges))], PC.UTREE_MOVE_NNI_LEFT,
+                  None)
+    nni_start = utree_clone(tree)
+    for _ in range(SEARCH_MOVES[1]):
+        edges = _internal_edges(tree)
+        p = edges[rng.integers(len(edges))]
+        targets = _radius_targets(p, SEARCH_RADIUS)
+        moves.spr(p, targets[rng.integers(len(targets))], None, safe=True)
+    return tree, nni_start, dict(zip(headers, seqs))
+
+
+def full_scores(eng, tree, moved, cands):
+    """set_topology + loglikelihood() of `eng` at each candidate of
+    `cands`, each applied by `moved(c)` (a context manager) on `tree`."""
+    out = []
+    for c in cands:
+        with moved(c):
+            eng.set_topology(tree)
+            out.append(eng.loglikelihood())
+    return out
+
+
+@contextlib.contextmanager
+def nni_moved(c):
+    """An NNI candidate (edge, kind) applied, then undone (an
+    involution)."""
+    from libpll2_tpu_torch.trees import moves
+
+    moves.nni(c[0], c[1], None)
+    try:
+        yield
+    finally:
+        moves.nni(c[0], c[1], None)
+
+
+@contextlib.contextmanager
+def spr_moved(c):
+    """An SPR candidate (prune, target) applied, then rolled back."""
+    from libpll2_tpu_torch.trees import moves
+
+    rb = moves.Rollback()
+    moves.spr(c[0], c[1], rb, safe=True)
+    try:
+        yield
+    finally:
+        moves.rollback_move(rb)
+
+
+def stream_pass_case(label, search, sched, kind, gpu):
+    """The streamed passes of one schedule through the level kernel (post
+    and up for `kind` "nni"; post, up and A over [E + merged] P-matrices
+    for "spr"),
+    then each of its level tables again through the plain version on the
+    card, in order, from the kernel's own rows of the waves before it (so
+    that a rescale tie does not carry into later waves; the kernel's rows
+    are put back after each): scaler rows of every op equal but at ties
+    (`match_counts`), its CLV rows within TOL_CLV of each site's max, the
+    zero row untouched. None of these launches is counted. Then the
+    passes' call time (the kernel over all the level tables again, CUDA
+    events; the plain version's waves once) and the bound: every row read
+    and not written and every row written, once, with P and the tables,
+    or the ops' FLOPs. Returns {max_abs_err, ms, plain_ms, bound, ops,
+    levels}."""
+    import torch
+    from libpll2_tpu_torch.ops import levels, spr_stream
+    from libpll2_tpu_torch.ops.pmatrix import update_prob_matrices
+
+    ue = search._engine
+    p = ue.partition
+    m = ue._model_args()
+    clv_arg, sc_arg, base = search._stream_base(p)
+
+    def pm(lengths):
+        return update_prob_matrices(m[0], m[1], m[2], m[3], m[4], m[7],
+                                    torch.as_tensor(lengths, device=p.device))
+
+    passes = [(sched.post_table, sched.post_valid),
+              (sched.up_table, sched.up_valid)]
+    pm_ext = pm(sched.blen_full)
+    if kind == "spr":
+        passes.append((sched.a_table, sched.a_valid))
+        pm_ext = torch.cat([pm_ext, pm(sched.merged_len)])
+    n0 = levels.level_update.launches
+    got = spr_stream.stream_passes(
+        clv_arg, sc_arg, pm_ext, passes, sched.n_aux, sched.n_arows, p.scale_threshold, p.scale_factor,
+        base=base, rate_scalers=p.rate_scalers)
+    torch.cuda.synchronize()
+    check(not bool(got.scaler[got.zero].any()),
+          f"{label}: the zero scaler row was written")
+    n, R, s, S = got.clv.shape
+    clv2d = got.clv.view(n, R * s, S)
+    ties, rel, err, scaled, plain_ms = 0, 0.0, 0.0, 0, 0.0
+    for t in got.tables:
+        tl = t.long()
+        parent, psc = tl[0], tl[7][tl[8] > 0]
+        k_clv, k_sc = got.clv[parent], got.scaler[psc]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        levels.level_update_reference(clv2d, got.scaler, pm_ext, t, R, s,
+                                      p.scale_threshold, p.scale_factor)
+        end.record()
+        end.synchronize()
+        plain_ms += start.elapsed_time(end)
+        w_clv, w_sc = got.clv[parent], got.scaler[psc]
+        rows = torch.nonzero(tl[8] > 0)[:, 0].tolist()
+        if p.rate_scalers:
+            def block(e, rows=rows):
+                return rows[e[0]], e[1], slice(None), e[2]
+        else:
+            def block(e, rows=rows):
+                return rows[e[0]], slice(None), slice(None), e[1]
+        ties += match_counts(label, k_sc, w_sc, k_clv, w_clv, block,
+                             p.scale_factor, p.scale_threshold)
+        check(bool(torch.isfinite(k_clv).all()), f"{label}: non-finite CLVs")
+        e = (k_clv - w_clv).abs()
+        site_max = w_clv.abs().amax(dim=(1, 2), keepdim=True).clamp(
+            min=1e-30)
+        rel = max(rel, float((e / site_max).max()))
+        err = max(err, float(e.max()))
+        scaled = max(scaled, int(k_sc.max()) if k_sc.numel() else 0)
+        got.clv[parent] = k_clv
+        got.scaler[psc] = k_sc
+    n_ops, n_levels = sum(t.shape[1] for t in got.tables), len(got.tables)
+    print(f"level kernel vs plain [{label}, the streamed {kind.upper()} "
+          f"passes]: {n_ops} ops in {n_levels} level tables ("
+          + ("post, up and A" if kind == "spr" else "post and up")
+          + " waves), "
+          f"{p.tips} taxa x {p.sites} sites: scaler rows equal (max "
+          f"{scaled}" + (f"; {ties} ties" if ties else "") + f"), "
+          f"max_rel_err {rel:.3e}, max_abs_err {err:.3e}", flush=True)
+    check(rel <= TOL_CLV, f"{label}: passes max_rel_err {rel:.3e} > "
+          f"{TOL_CLV}")
+    rerun = (got.clv, got.scaler, pm_ext, got.tables, p.scale_threshold,
+             p.scale_factor)
+    ms = median_ms(lambda: levels.update_partials_kernel(*rerun))
+    levels.level_update.launches = n0
+    tables = torch.cat(list(got.tables), dim=1).cpu().numpy()
+    written = set(tables[0].tolist())
+    read = set(tables[1].tolist()) | set(tables[2].tolist())
+    sc_w = set(tables[7][tables[8] > 0].tolist())
+    sc_r = (set(tables[5].tolist()) | set(tables[6].tolist())) - {got.zero}
+    n_bytes = ((len(read - written) + len(written)) * R * s * S * 4
+               + (len(sc_r - sc_w) + len(sc_w))
+               * (R if p.rate_scalers else 1) * S * 4
+               + pm_ext.numel() * 4 + tables.size * 4)
+    bound = bound_ms(n_bytes, traversal_flops(n_ops, S, R, s))
+    print(f"streamed {kind.upper()} passes times [{label}] ({gpu}): "
+          f"{n_ops} ops in "
+          f"{n_levels} launches: kernel {ms:.4f} ms (CUDA events, "
+          f"median of {REPS}), plain {plain_ms:.4f} ms (once, wave by "
+          f"wave); bound {bound[0]:.4f} ms by {bound[1]} "
+          f"({n_bytes / 1e9:.3f} GB)", flush=True)
+    del got
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound": bound, "ops": n_ops, "levels": n_levels}
+
+
+def dna_search(device, gpu):
+    """Phase 20 A: streamed SPR and NNI rounds to convergence on the DNA
+    main path ('fused'), each on its own copy of its start (the SPR rounds
+    all SEARCH_MOVES away, the NNI ones the NNI moves alone: from the whole
+    start NNI climbs past SEARCH_CAP iterations), the first iterations'
+    scores against full evaluations (and the float64 plain path), the
+    passes against their plain version, the batched twins from the same
+    starts, and run()."""
+    import numpy as np
+    import torch
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.engine import CANDIDATE_CHUNK
+    from libpll2_tpu_torch.search import TreeSearch
+    from libpll2_tpu_torch.trees.utils import utree_clone
+
+    start, nni_start, by = search_start()
+    starts = {"spr": start, "nni": nni_start}
+    part = dna_partition(start, by, N_SITES, device)
+    p64 = dna_partition(start, by, N_SITES, "cpu", dtype=torch.float64)
+    label = f"DNA {N_TAXA} x {N_SITES}"
+    out = {"label": label}
+
+    def spr_first(s, tree, check_eng, eng64, scheds, scores):
+        sched = next(iter(scheds.values()))
+        n = sched.n_candidates
+        rng = np.random.default_rng(SEED)
+        idx = sorted(set(rng.choice(n, SEARCH_SAMPLE, replace=False)
+                         .tolist()) | set(np.argsort(-scores)[:SEARCH_TOP]
+                                          .tolist()))
+        cands = [sched.pairs[i] for i in idx]
+        rel = check_scores(f"{label} SPR: streamed vs set_topology + "
+                           f"loglikelihood()", scores[idx],
+                           full_scores(check_eng, tree, spr_moved, cands))
+        rel64 = check_scores(
+            f"{label} SPR: streamed vs the float64 plain path",
+            scores[idx][:SEARCH_F64],
+            full_scores(eng64, tree, spr_moved, cands[:SEARCH_F64]))
+        print(f"  {label} SPR, first iteration: {len(idx)} of {n} streamed "
+              f"scores ({SEARCH_SAMPLE} seeded, the best {SEARCH_TOP}) vs "
+              f"set_topology + loglikelihood() max rel err {rel:.3e}, "
+              f"{SEARCH_F64} vs the float64 plain path {rel64:.3e}",
+              flush=True)
+        out["spr_max_rel"], out["spr_max_rel_f64"] = rel, rel64
+        out["passes"] = stream_pass_case(label, s, sched, "spr", gpu)
+
+    def nni_first(s, tree, check_eng, eng64, scheds, scores):
+        sched = next(iter(scheds.values()))
+        cands = list(sched.pairs)
+        rel = check_scores(f"{label} NNI: streamed vs set_topology + "
+                           f"loglikelihood()", scores,
+                           full_scores(check_eng, tree, nni_moved, cands))
+        rel64 = check_scores(
+            f"{label} NNI: streamed vs the float64 plain path",
+            scores[:SEARCH_F64],
+            full_scores(eng64, tree, nni_moved, cands[:SEARCH_F64]))
+        print(f"  {label} NNI, first iteration: all {len(cands)} streamed "
+              f"scores vs set_topology + loglikelihood() max rel err "
+              f"{rel:.3e}, {SEARCH_F64} vs the float64 plain path "
+              f"{rel64:.3e}", flush=True)
+        out["nni_max_rel"], out["nni_max_rel_f64"] = rel, rel64
+
+    streamed = {}
+    for kind, first in (("spr", spr_first), ("nni", nni_first)):
+        tree = utree_clone(starts[kind])
+        s = TreeSearch(part, tree)
+        ctx = (s, tree, TreeEngine(part, tree), TreeEngine(p64, tree))
+        fn = (s.nni_round_streamed if kind == "nni" else
+              lambda s=s: s.spr_round_streamed(radius=SEARCH_RADIUS))
+        log = RoundLog(f"{label} {kind.upper()}", s, kind,
+                       lambda scheds, scores, first=first, ctx=ctx:
+                       first(*ctx, scheds, scores))
+        (best, acc), ms = log.run(fn)
+        streamed[kind] = (best, acc)
+        own = log.own_ms()
+        print(f"search [{label}, streamed {kind.upper()}"
+              + (f", radius {SEARCH_RADIUS}" if kind == "spr" else "")
+              + f", {SEARCH_MOVES[0] if kind == 'nni' else sum(SEARCH_MOVES)}"
+              f" moves away] ({gpu}): {acc} moves accepted in "
+              f"{len(log.iters)} iterations, logL {best!r}; {own:.1f} ms of "
+              f"schedules, scoring and verification ({ms:.1f} ms with the "
+              f"checks)", flush=True)
+        out[kind] = {"accepted": acc, "logl": best, "ms": own,
+                     "ms_with_checks": ms, "iterations": log.iters}
+    out["pass_device_ms"] = out["spr"]["iterations"][0]["pass_us"] * 1e-3
+
+    # the batched twins, each on its own copy of its streamed twin's start
+    reset, py_us = counts()["fused"], None
+    for kind in ("spr", "nni"):
+        s2 = TreeSearch(part, utree_clone(starts[kind]))
+        native_ms, cands = [], []
+
+        def native(moves_list, built=s2._native_candidates):
+            t0 = time.perf_counter()
+            res = built(moves_list)
+            native_ms.append((time.perf_counter() - t0) * 1e3)
+            check(res is not None, "the native candidate builder declined")
+            cands.append(len(res[0]))
+            return res
+
+        s2._native_candidates = native
+        s2._ensure_engine()
+        if py_us is None:
+            py_us = python_pack_us(s2)
+        fn = (s2.nni_round_batched if kind == "nni" else
+              lambda: s2.spr_round_batched(radius=SEARCH_RADIUS))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best, acc = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        us = sum(native_ms) * 1e3 / max(sum(cands), 1)
+        print(f"search [{label}, batched {kind.upper()}, the same start] "
+              f"({gpu}): {acc} moves accepted, logL {best!r}, {ms:.1f} ms; "
+              f"{sum(cands)} candidates in {len(cands)} iterations "
+              f"({sum(cands) / ms * 1e3:.0f} candidates/s); the native "
+              f"builder {us:.3f} us a candidate on the host, the Python "
+              f"walk it replaces {py_us:.3f} us (apply, pack_candidate, "
+              f"roll back)", flush=True)
+        sb, sa = streamed[kind]
+        check(acc == sa, f"{label} {kind}: batched accepted {acc} moves, "
+              f"streamed {sa}")
+        rel = abs(best - sb) / abs(sb)
+        check(rel < TOL_LOGL, f"{label} {kind}: batched logL {best!r} vs "
+              f"streamed {sb!r}, rel {rel:.3e}")
+        out[f"batched_{kind}"] = {
+            "accepted": acc, "logl": best, "ms": ms,
+            "candidates": sum(cands), "iterations": len(cands),
+            "native_us_per_candidate": us, "python_us_per_candidate": py_us,
+            "chunks": sum(-(-k // CANDIDATE_CHUNK) for k in cands)}
+    check(streamed["nni"][1] > 0, f"{label}: the NNI rounds accepted no "
+          f"move")
+    out["batched_launches"] = counts()["fused"] - reset
+    s3 = TreeSearch(part, utree_clone(start))
+    lk0 = s3.evaluate()
+    t0 = time.perf_counter()
+    lk = s3.run(max_rounds=1, use_spr=False)
+    ms = (time.perf_counter() - t0) * 1e3
+    check(np.isfinite(lk) and lk >= lk0, f"run(): {lk!r} from {lk0!r}")
+    print(f"search [{label}, TreeSearch.run(max_rounds=1, use_spr=False)] "
+          f"({gpu}): logL {lk0!r} -> {lk!r}, {ms:.1f} ms", flush=True)
+    out["run"] = {"logl": lk, "ms": ms}
+    del p64
+    return out
+
+
+def python_pack_us(search, k=256):
+    """Host us a candidate of the Python walk that the native builder
+    replaces (apply the SPR, `pack_candidate`, roll back), over the first
+    `k` radius-SEARCH_RADIUS moves of the search's tree."""
+    from libpll2_tpu_torch.search import _internal_edges, _radius_targets
+    from libpll2_tpu_torch.trees import moves
+
+    tree, eng = search.tree, search._engine
+    pairs = [(p, r) for p in _internal_edges(tree)
+             for r in _radius_targets(p, SEARCH_RADIUS)][:k]
+    t0 = time.perf_counter()
+    for p, r in pairs:
+        rb = moves.Rollback()
+        moves.spr(p, r, rb, safe=True)
+        check(eng.pack_candidate(tree.vroot) is not None,
+              "pack_candidate refused an SPR candidate")
+        moves.rollback_move(rb)
+    return (time.perf_counter() - t0) * 1e6 / len(pairs)
+
+
+def one_streamed_iteration(label, part, tree, gpu):
+    """Phase 20 B and C: one nni_round_streamed() iteration on `part`'s
+    default engine, its best SEARCH_TOP scores against set_topology +
+    loglikelihood() and its passes, wave by wave, against the level
+    kernel's plain version (`stream_pass_case`). Returns the iteration's
+    record with the passes' under "passes"."""
+    import numpy as np
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.search import TreeSearch
+
+    s = TreeSearch(part, tree)
+    s._ensure_engine()
+    check(s._streamed_eligible(), f"{label}: not eligible for the streamed "
+          f"rounds")
+    check_eng = TreeEngine(part, tree)
+    res = {}
+
+    def first(scheds, scores):
+        sched = next(iter(scheds.values()))
+        idx = np.argsort(-scores)[:SEARCH_TOP]
+        res["max_rel"] = check_scores(
+            f"{label} NNI: streamed vs set_topology + loglikelihood()",
+            scores[idx], full_scores(check_eng, tree, nni_moved,
+                                     [sched.pairs[i] for i in idx]))
+        res["passes"] = stream_pass_case(label, s, sched, "nni", gpu)
+
+    log = RoundLog(f"{label} NNI", s, "nni", first, stop=True)
+    log.run(s.nni_round_streamed)
+    print(f"search [{label}, one streamed NNI iteration on "
+          f"'{s._engine.execution_path}'] ({gpu}): the best {SEARCH_TOP} "
+          f"scores vs set_topology + loglikelihood() max rel err "
+          f"{res['max_rel']:.3e}", flush=True)
+    return {"path": s._engine.execution_path, **res, **log.iters[0]}
+
+
+def search_phase(device, gpu, flagship, aa_tree, aa_by):
+    """Phase 20. The level kernel's and the fused kernel's launch counts
+    are reset before the rounds and read after: the streamed rounds must
+    have launched the level kernel, the batched ones the fused kernel."""
+    from libpll2_tpu_torch import native
+    from libpll2_tpu_torch.trees.utils import utree_clone
+
+    check(native.load() is not None, "the native builders did not load")
+    print(f"search: the native builders "
+          f"{os.path.relpath(native.library_path(), REPO)}", flush=True)
+    reset_counts()
+    dna = dna_search(device, gpu)
+    rep_tree, _, rep_make = flagship
+    rep = one_streamed_iteration(f"repeats {REP_TAXA} x {REP_SITES}",
+                                 rep_make(device), utree_clone(rep_tree),
+                                 gpu)
+    check(rep["path"] == "repeats-dense-fused", f"repeats search on "
+          f"{rep['path']!r}")
+    aa = one_streamed_iteration(
+        f"protein {AA_TAXA} x {AA_SITES}",
+        protein_partition(aa_tree, aa_by, AA_SITES, device),
+        utree_clone(aa_tree), gpu)
+    got = counts()
+    print(f"search launches: {got}", flush=True)
+    check(got["level"] > 0 and got["fused"] > 0 and got["rows"] > 0,
+          f"search: a kernel of the path never launched: {got}")
+    return {"dna": dna, "repeats": rep, "protein": aa, "launches": got}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
@@ -3917,6 +4483,12 @@ def main() -> int:
     cand_dna = dna_candidates(device, big, big_by, gpu)
     cand_aa = protein_candidates(device, aa_tree, aa_by, gpu)
     cand_rep, rep_dev = repeats_candidates(device, rep_tree, rep_make, gpu)
+
+    # 20. topology search
+    search = search_phase(device, gpu, flagship, aa_tree, aa_by)
+    sd, sp = search["dna"], search["dna"]["passes"]
+    pass_err = {k: c["passes"]["max_abs_err"] for k, c in search.items()
+                if k != "launches"}
     if args.profile:
         profile([("DNA main path", eng), ("protein main path", aa_eng),
                  ("DNA levels-kernel path", dna[3]),
@@ -4052,7 +4624,13 @@ def main() -> int:
         "repeats": cand_rep, "repeats_device_ms": rep_dev["device_ms"],
         "repeats_bound_ms": rep_dev["bound"][0],
         "repeats_plain_ms": rep_dev["plain_ms"],
-        "repeats_candidates": CAND_REPEATS}, {
+        "repeats_candidates": CAND_REPEATS,
+        "search_launches": sd["batched_launches"],
+        "search_candidate_launches": sum(
+            sd[f"batched_{k}"]["chunks"] for k in ("spr", "nni")),
+        "search_native_us_per_candidate": {
+            k: sd[f"batched_{k}"]["native_us_per_candidate"]
+            for k in ("spr", "nni")}}, {
         "name": "fused_traversal_rows[candidates]", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal_rows.cu",
         "replaces": "libpll2_tpu/ops/pallas_fused.py:419",
@@ -4073,7 +4651,20 @@ def main() -> int:
         "bf16_max_abs_err_logl": cand_aa["bf16"]["max_abs_err"],
         "calls_ms": {m: v["call_ms"] for m, v in cand_aa.items()},
         "sequential_ms_per_candidate": {
-            m: v["sequential_ms"] for m, v in cand_aa.items()}}]}),
+            m: v["sequential_ms"] for m, v in cand_aa.items()}}, {
+        "name": "level_update[stream]", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/level_update.cu",
+        "replaces": ["libpll2_tpu/ops/pallas_partials.py:48",
+                     "libpll2_tpu/ops/pallas_partials.py:170"],
+        "launch_shape": "libpll2_tpu/ops/spr_stream.py:776-780",
+        "launches": search["launches"]["level"],
+        "max_abs_err": max(pass_err.values()),
+        "max_abs_err_by_problem": pass_err, "ms": sp["ms"],
+        "plain_ms": sp["plain_ms"], "bound_ms": sp["bound"][0],
+        "bound_by": sp["bound"][1], "library_ms": None,
+        "ops": sp["ops"], "level_tables": sp["levels"],
+        "device_ms_per_round": sd["pass_device_ms"],
+        "search": {k: v for k, v in search.items() if k != "launches"}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

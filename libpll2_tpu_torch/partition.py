@@ -263,6 +263,7 @@ class Partition:
         self._tips_clv_set = np.zeros(tips, dtype=bool)
         # bumped by tip setters; engines cache tip-code tensors on it
         self._tip_version = 0
+        self._dense_tip_key = self._dense_tip_cache = None
 
     def _sc_rows(self) -> tuple:
         """The scaler buffers' rate axis: (rates,) with per-rate scalers."""
@@ -385,6 +386,40 @@ class Partition:
         self._tips_clv_set[tip_index] = True
         self._tip_version += 1
         self._invariant_valid = False
+
+    def dense_tip_rows(self) -> torch.Tensor:
+        """[tips, states, sites_padded] per-site tip CLVs in the partition's
+        dtype on its device, the same for every rate (callers broadcast over
+        the categories): the streamed search's base on a site-repeats
+        partition, whose pooled class columns have no dense rows
+        (libpll2_tpu/partition.py:390). State-code tips decode their masks
+        and the asc columns their single states; tips set with set_tip_clv
+        take their values (on a repeats partition their per-site columns).
+        Needs every tip set; cached until a tip setter runs."""
+        if self._dense_tip_key == self._tip_version:
+            return self._dense_tip_cache
+        if not bool(np.all(self._tips_set | self._tips_clv_set)):
+            raise C.PllError(C.ERROR_PARAM_INVALID,
+                             "dense_tip_rows needs every tip set")
+        s, n = self.states, self.sites
+        rows = np.zeros((self.tips, s, self.sites_padded))
+        coded = np.flatnonzero(self._tips_set)
+        ind = state_maps.bits_to_clv(
+            self.tip_states[coded, :n].reshape(-1), s).reshape(-1, n, s)
+        rows[coded, :, :n] = ind.transpose(0, 2, 1)
+        rows[coded, :, n:] = self._asc_cols()
+        raw = np.flatnonzero(self._tips_clv_set)
+        if self.repeats is not None:
+            # a raw tip of a repeats partition has the identity mapping: its
+            # class columns are its per-site columns, asc columns included
+            for t in raw:
+                rows[t] = self._tip_cols[t]
+        out = torch.as_tensor(rows, dtype=self.dtype).to(self.device)
+        if self.repeats is None and raw.size:
+            idx = torch.as_tensor(raw, device=self.device)
+            out[idx] = self.clv[idx, 0]
+        self._dense_tip_cache, self._dense_tip_key = out, self._tip_version
+        return out
 
     # ----------------------------------------------------------------- model
     def set_frequencies(self, params_index: int, freqs) -> None:

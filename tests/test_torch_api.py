@@ -34,7 +34,7 @@ NOT_YET = {
         # them out
         "loglikelihood_loop": "not ported", "newton_loop": "not ported",
     },
-    "Partition": {"dense_tip_rows": "A3", "count_invariant_sites": "A6"},
+    "Partition": {"count_invariant_sites": "A6"},
 }
 
 

@@ -1129,3 +1129,92 @@ def test_evaluate_topologies_on_card(cuda, case):
         np.testing.assert_allclose(gpu.evaluate_packed_arrays(
             np.stack(tables), np.stack(blens), np.asarray(roots),
             max(slots)), got, rtol=1e-6)
+
+
+# -------------------------------------------------------- topology search
+def _search_schedule(part, tree, radius=4):
+    """An SPR round's schedule (the native builder) on `part`'s buffers,
+    and the P-matrices [E + merged] its passes index."""
+    from libpll2_tpu_torch.ops import spr_stream
+    from libpll2_tpu_torch.search import TreeSearch
+
+    sched = spr_stream.build_spr_stream_native(
+        tree, radius, TreeSearch._n_rows(part), part.scale_buffers,
+        part.prob_matrices)
+    assert sched is not None
+    m = TreeEngine(part, tree)._model_args()
+
+    def pm(lengths):
+        return update_prob_matrices(m[0], m[1], m[2], m[3], m[4], m[7],
+                                    torch.as_tensor(lengths,
+                                                    device=part.device))
+
+    return sched, torch.cat([pm(sched.blen_full), pm(sched.merged_len)])
+
+
+@pytest.mark.parametrize("states,rate_scalers", [(4, False), (4, True),
+                                                 (20, False), (20, True)])
+def test_stream_passes_match_plain_on_card(cuda, states, rate_scalers):
+    """The streamed rounds' three passes (post, up, A; ops/spr_stream.py)
+    through the level kernel, then each level table again through its
+    plain version from the kernel's rows of the waves before it: scaler
+    rows equal, CLV rows to 1e-5 of each site's max, the zero row
+    untouched; the 4x4 and the runtime-size variants, per site and per
+    rate."""
+    from libpll2_tpu_torch.ops import spr_stream
+
+    tree = random_utree([f"t{i}" for i in range(24)], seed=5)
+    part, _ = _engine(tree, 2000 if states == 4 else 600, cuda,
+                      states=states, alphabet="ACGT" if states == 4
+                      else AA_NOISY[:20], rate_scalers=rate_scalers)
+    sched, pm = _search_schedule(part, tree)
+    n0 = levels.level_update.launches
+    got = spr_stream.stream_passes(
+        part.clv, part.scale_buffer, pm,
+        [(sched.post_table, sched.post_valid),
+         (sched.up_table, sched.up_valid), (sched.a_table, sched.a_valid)],
+        sched.n_aux, sched.n_arows, part.scale_threshold, part.scale_factor,
+        rate_scalers=rate_scalers)
+    assert levels.level_update.launches - n0 == len(got.tables) > 10
+    assert not got.scaler[got.zero].any()
+    n, R, s, S = got.clv.shape
+    clv2d = got.clv.view(n, R * s, S)
+    scaled = 0
+    for t in got.tables:
+        tl = t.long()
+        parent, psc = tl[0], tl[7][tl[8] > 0]
+        k_clv, k_sc = got.clv[parent], got.scaler[psc]
+        levels.level_update_reference(clv2d, got.scaler, pm, t, R, s,
+                                      part.scale_threshold,
+                                      part.scale_factor)
+        w_clv = got.clv[parent]
+        assert torch.equal(k_sc, got.scaler[psc])
+        site_max = w_clv.abs().amax(dim=(1, 2), keepdim=True).clamp(
+            min=1e-30)
+        assert float(((k_clv - w_clv).abs() / site_max).max()) <= 1e-5
+        scaled = max(scaled, int(k_sc.max()) if k_sc.numel() else 0)
+        got.clv[parent] = k_clv
+    assert scaled > 0 or states == 20
+
+
+def test_streamed_round_matches_batched_on_card(cuda):
+    """spr_round_streamed (its passes on the level kernel) against
+    spr_round_batched (the native builder and the fused kernel's candidate
+    form) from the same start at 16 taxa x 96 sites, float32: the same
+    moves, the same logL within 5e-5; the native builders loaded."""
+    from libpll2_tpu_torch import native
+    from libpll2_tpu_torch.search import TreeSearch
+
+    assert native.load() is not None
+    out = []
+    for kind in ("streamed", "batched"):
+        tree = random_utree([f"t{i}" for i in range(16)], seed=11)
+        part, _ = _engine(tree, 96, cuda, alphabet="ACGT", seed=11)
+        n0 = (levels.level_update.launches, fused.fused_traversal.launches)
+        out.append(getattr(TreeSearch(part, tree),
+                           f"spr_round_{kind}")(radius=4))
+        used = (levels.level_update.launches - n0[0],
+                fused.fused_traversal.launches - n0[1])
+        assert used[0 if kind == "streamed" else 1] > 0
+    assert out[0][1] == out[1][1] >= 1
+    assert abs(out[0][0] - out[1][0]) / abs(out[1][0]) < 5e-5

@@ -165,7 +165,9 @@ def test_import_leaves_no_jax():
             "libpll2_tpu_torch.ops._kernels, libpll2_tpu_torch.models, "
             "libpll2_tpu_torch.utils, libpll2_tpu_torch.ops.levels, "
             "libpll2_tpu_torch.ops.partials, libpll2_tpu_torch.ops.pool, "
-            "libpll2_tpu_torch.repeats; "
+            "libpll2_tpu_torch.repeats, libpll2_tpu_torch.search, "
+            "libpll2_tpu_torch.native, libpll2_tpu_torch.ops.spr_stream, "
+            "libpll2_tpu_torch.trees.utils; "
             "bad = [m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.')]; "
             "assert not bad, bad")
