@@ -176,7 +176,29 @@ each fatal on failure:
      the 128 x 8192 LG+G4 protein ('split': the level kernel's runtime-size
      variant), the best 8 against set_topology + loglikelihood() and the
      passes, wave by wave, against the level kernel's plain version; the
-     level, fused and rows kernels' launches counted over the phase.
+     level, fused and rows kernels' launches counted over the phase;
+ 21. model optimization (libpll2_tpu_torch.optimize, modelselect): phase
+     20's DNA problem (128 x 16384, its tree's lengths x 1.7 + 0.02, the
+     model started away from the simulation's) on 'fused': one step's
+     2n+1 = 19 model trials through the fused kernel's candidate form (one
+     launch, the op table repeated, each trial its own P-matrices) against
+     its plain version (TOL_LOGL), the launch's call, device time and bound;
+     maximize_loglikelihood of subst and freqs (the trial route, one launch
+     a step), the Gamma shape and p-inv by Brent, newton_smooth_all(2
+     passes) with every step's CLV op a one-op level of the level kernel
+     (launches counted), its first pass held step by step against the
+     plain version (scaler rows equal, CLVs TOL_CLV, branches 1e-4), and
+     the optimized logL against the float64 plain path on the CPU; the
+     protein 128 x 8192 LG+G4 'split': maximize_fused of the frequencies
+     (41 trials a step on the rows kernel) and one sweep pass on the
+     runtime-size level kernel, held step by step as the DNA one; one
+     maximize_fused step on 'levels-kernel' (DNA), 'repeats-dense-fused'
+     and 'pool-pallas' (246 x 4465), its trials against the path's plain
+     version; one value and gradient of make_loglikelihood_fn on a
+     pallas=False float32 engine at 128 x 16384 against float64 on the CPU
+     (the gradient route launches no kernel); select_dna_model of JC, HKY
+     and GTR at a reduced 32 x 2048. Host-clock ms a step, a Brent
+     evaluation and a sweep pass, level launches a pass.
 
 The last three lines are the card's name and power limit, one JSON object
 listing every kernel (with its bound at the card's peaks), and {"ok": true,
@@ -4226,6 +4248,490 @@ def search_phase(device, gpu, flagship, aa_tree, aa_by):
     return {"dna": dna, "repeats": rep, "protein": aa, "launches": got}
 
 
+# ------------------------------------------------- 21. model optimization
+OPT_STEPS, AA_OPT_STEPS = 40, 10
+# ModelTest-NG's pattern at a reduced size: 3 models x 2 rounds of Adam and
+# Brent on the plain gradient route
+MS_TAXA, MS_SITES, MS_STEPS = 32, 2048, 30
+FD_STEP = 0.02                     # libpll2_tpu/optimize.py:376 fd_step
+
+
+def opt_problem(device, dtype=None, by=None):
+    """Phase 21's DNA problem: phase 20's tree (random_utree, seed 7) with
+    its branch lengths perturbed (x 1.7 + 0.02) and the alignment simulated
+    on the unperturbed tree under dna_model()'s GTR and Gamma(0.8) x 4,
+    the partition started from perturbed parameters (seed 7 + 21).
+    Returns (tree, {label: sequence}, partition)."""
+    import numpy as np
+    import torch
+    from libpll2_tpu_torch.trees import random_utree
+    from libpll2_tpu_torch.utils import simulate_alignment
+
+    labels = [f"t{i}" for i in range(N_TAXA)]
+    freqs, subst = dna_model()
+    if by is None:
+        headers, seqs = simulate_alignment(random_utree(labels, seed=SEED),
+                                           N_SITES, freqs, subst, alpha=0.8,
+                                           seed=SEED)
+        by = dict(zip(headers, seqs))
+    tree = random_utree(labels, seed=SEED)
+    seen = set()
+    for node in tree.nodes():
+        for h in ([node] if node.is_tip() else list(node.ring())):
+            if h.back is not None and id(h) not in seen:
+                seen.update((id(h), id(h.back)))
+                h.length = h.back.length = h.length * 1.7 + 0.02
+    part = dna_partition(tree, by, N_SITES, device,
+                         dtype=dtype or torch.float32)
+    rng = np.random.default_rng(SEED + 21)
+    part.set_frequencies(0, freqs * rng.uniform(0.7, 1.3, 4))
+    part.set_subst_params(0, subst * np.exp(rng.normal(0.0, 0.4, 6)))
+    return tree, by, part
+
+
+@contextlib.contextmanager
+def trials_through(eng, **path_kw):
+    """The engine's model trials with `path_kw` (the plain `traversal` or
+    `level` of its path) in place of its kernel."""
+    orig = type(eng)._trial_loglikelihoods
+    eng._trial_loglikelihoods = lambda e, f: orig(eng, e, f, **path_kw)
+    try:
+        yield
+    finally:
+        del eng._trial_loglikelihoods
+
+
+def fd_batch(x0):
+    """maximize_fused's 2n+1 central-difference rows at x0."""
+    import torch
+
+    eye = torch.eye(x0.numel(), dtype=x0.dtype, device=x0.device) * FD_STEP
+    return torch.cat([x0[None], x0[None] + eye, x0[None] - eye])
+
+
+def trial_step(label, eng, groups, gpu, timed=True):
+    """One maximize_fused step's trials (2n+1 at the start) through the
+    path's kernel and its plain version on the same inputs: logL within
+    TOL_LOGL. On the fused paths the kernel's launch (the candidate form,
+    the table repeated) is also timed (CUDA events, median of REPS), its
+    device time taken (torch.profiler) and its bound counted as for a
+    candidate chunk. None of these launches is the path's. Returns {k,
+    max_abs_err, max_rel_err, ms, plain_ms, device_ms, bound, launches}."""
+    import torch
+    from libpll2_tpu_torch.ops import fused, levels, pool
+    from libpll2_tpu_torch.optimize import make_fused_loglikelihood_fn
+
+    fnb, x0, _ = make_fused_loglikelihood_fn(eng, groups)
+    X = fd_batch(x0)
+    k = X.shape[0]
+    path = eng.execution_path
+    reset_counts()
+    got = fnb(X).double()
+    torch.cuda.synchronize()
+    launched = counts()
+    captured = {}
+    plain_ms = []
+
+    def plain_traversal(*a, **kw):
+        captured["args"], captured["kw"] = a, kw
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fused.fused_traversal_reference(*a, **kw)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    plain_kw = {"fused": {"traversal": plain_traversal},
+                "repeats-dense-fused": {"traversal": plain_traversal},
+                "levels-kernel": {"level": levels.level_update_reference},
+                "pool-pallas": {"level": pool.pool_update_reference}}[path]
+    with trials_through(eng, **plain_kw):
+        want = fnb(X).double()
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite trials")
+    err = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want.abs()).max())
+    out = {"k": k, "max_abs_err": err, "max_rel_err": rel,
+           "launches": launched, "path": path}
+    text = (f"model trials [{label}, {path}]: {k} trials of one step, "
+            f"kernel vs plain logL max rel err {rel:.3e} (max abs "
+            f"{err:.3e}), launches {launched}")
+    check(rel < TOL_LOGL, f"{label}: trials max rel err {rel:.3e} >= "
+          f"{TOL_LOGL}")
+    if "args" in captured and timed:
+        args, kw = captured["args"], captured["kw"]
+        kw = dict(kw)
+        n_ops = args[2].shape[1] - 1
+        ms = median_ms(lambda: fused.fused_traversal(*args, **kw))
+        name = "fused_rows" if eng.partition.states >= 16 else "fused_"
+        dev = kernel_device_us(lambda: fused.fused_traversal(*args, **kw),
+                               name) * 1e-3
+        bound = candidate_bound(eng.partition, k, n_ops)
+        out.update(ms=ms, plain_ms=plain_ms[0], device_ms=dev, bound=bound)
+        text += (f"; the trial launch ({gpu}): {k} trials of {n_ops} ops, "
+                 f"call {ms:.4f} ms, device {dev * 1e3:.1f} us "
+                 f"({dev * 1e3 / k:.2f} us a trial), bound {bound[0]:.4f} "
+                 f"ms by {bound[1]}, plain {plain_ms[0]:.4f} ms (once)")
+    print(text, flush=True)
+    return out
+
+
+def maximize_counted(label, eng, groups, steps, want_kernel):
+    """maximize_loglikelihood on a kernel engine (the trial route), launches
+    counted: one of `want_kernel` a step of at most 128 trials on the fused
+    paths and one for the final pair. Logs must rise, and the applied
+    parameters reproduce the reported logL within 2e-2 (tests/
+    test_optimize.py:256). Returns {lk0, lk, steps, ms_per_step,
+    launches}."""
+    import torch
+    from libpll2_tpu_torch.optimize import maximize_loglikelihood
+
+    lk0 = eng.loglikelihood()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    lk, _, hist = maximize_loglikelihood(eng, groups, steps=steps)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    got = counts()
+    check_counts(f"{label}: maximize, {len(hist)} steps", got,
+                 {want_kernel: len(hist) + 1})
+    applied = eng.loglikelihood()
+    print(f"{label}: maximize_loglikelihood{groups} on "
+          f"{eng.execution_path!r}: logL {lk0!r} -> {lk!r} in {len(hist)} "
+          f"steps, {wall / len(hist):.2f} ms a step (host clock, Adam "
+          f"included); the applied parameters give {applied!r}", flush=True)
+    check(lk > lk0 and hist[-1] > hist[0], f"{label}: logL did not rise "
+          f"({lk0} -> {lk})")
+    check(abs(applied - lk) < 2e-2, f"{label}: the applied parameters give "
+          f"{applied}, reported {lk}")
+    return {"lk0": lk0, "lk": lk, "steps": len(hist),
+            "ms_per_step": wall / len(hist), "launches": got}
+
+
+def lockstep_level(label, stats):
+    """A `level` for newton_sweep that holds every level launch against the
+    plain version on the same inputs before going on with the kernel's
+    rows: the parent rows' scaler counts equal (ties printed,
+    `match_counts`) and their CLVs within TOL_CLV of each site's max."""
+    import torch
+    from libpll2_tpu_torch.ops import levels
+
+    def level(clv2d, scaler, pmatrix, table, rates, states, thr, fac):
+        rows, sc_rows = table[0].long(), table[7].long()
+        keep = clv2d[rows].clone(), scaler[sc_rows].clone()
+        levels.level_update_reference(clv2d, scaler, pmatrix, table, rates,
+                                      states, thr, fac)
+        want = clv2d[rows].clone(), scaler[sc_rows].clone()
+        clv2d[rows], scaler[sc_rows] = keep
+        levels.level_update(clv2d, scaler, pmatrix, table, rates, states,
+                            thr, fac)
+        got_clv = clv2d[rows].view(len(rows), rates, states, -1)
+        want_clv = want[0].view(len(rows), rates, states, -1)
+        stats["ties"] += match_counts(
+            f"{label}, step {stats['calls']}", scaler[sc_rows], want[1],
+            got_clv, want_clv, lambda e: (e[0], slice(None), slice(None),
+                                          e[1]), fac, thr)
+        site_max = want_clv.abs().amax(dim=(1, 2)).clamp(min=1e-30)
+        rel = float(((got_clv - want_clv).abs()
+                     / site_max[:, None, None]).max())
+        stats["rel"] = max(stats["rel"], rel)
+        stats["abs"] = max(stats["abs"],
+                           float((got_clv - want_clv).abs().max()))
+        stats["calls"] += 1
+        check(rel <= TOL_CLV, f"{label}: level {stats['calls']} max rel "
+              f"err {rel:.3e} > {TOL_CLV}")
+    return level
+
+
+def sweep_check(label, eng, tree, branches=True):
+    """newton_smooth_all's first pass, step by step, through the level
+    kernel against its plain version (`lockstep_level`), and with
+    `branches` the pass's branches through the kernel against the pass
+    through the plain version alone: within 1e-4 relative. Returns
+    {max_abs_err, ties, levels}."""
+    import torch
+    from libpll2_tpu_torch.ops import branch_sweep, levels
+    from libpll2_tpu_torch.optimize import _sweep_inputs
+
+    args, kw = _sweep_inputs(eng, tree)
+    stats = {"ties": 0, "rel": 0.0, "abs": 0.0, "calls": 0}
+    got = branch_sweep.newton_sweep(*args, passes=1,
+                                    level=lockstep_level(label, stats), **kw)
+    brel = 0.0
+    if branches:
+        want = branch_sweep.newton_sweep(
+            *args, passes=1, level=levels.level_update_reference, **kw)
+        brel = float(((got[0] - want[0]).abs() / want[0].abs()).max())
+    ties = f" ({stats['ties']} ties)" if stats["ties"] else ""
+    print(f"sweep vs plain [{label}]: {stats['calls']} level launches of "
+          f"one pass held step by step, scaler rows equal{ties}, CLV max "
+          f"rel err {stats['rel']:.3e} (abs {stats['abs']:.3e})"
+          + (f"; the pass's branches vs the plain pass max rel err "
+             f"{brel:.3e}" if branches else ""), flush=True)
+    check(brel <= 1e-4, f"{label}: sweep branches max rel err {brel:.3e}")
+    return {"max_abs_err": stats["abs"], "ties": stats["ties"],
+            "levels": stats["calls"]}
+
+
+def sweep_counted(label, eng, tree, passes, want_kernel):
+    """newton_smooth_all, launches counted: the level kernel passes x steps
+    + (passes + 1) x levels, and one of `want_kernel` for the final
+    loglikelihood(). Returns {lk0, lk, ms_per_pass, level_launches_per_pass,
+    launches}."""
+    import torch
+    from libpll2_tpu_torch.ops import branch_sweep, levels
+    from libpll2_tpu_torch.optimize import newton_smooth_all
+    from libpll2_tpu_torch.trees import create_operations, traverse
+
+    p = eng.partition
+    steps, _ = branch_sweep.build_smoothing_schedule(
+        tree, p.nodes, p.scale_buffers, p.prob_matrices)
+    n_levels = len(levels.schedule_levels(
+        create_operations(traverse(tree.vroot))[0], p.tips))
+    lk0 = eng.loglikelihood()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    lk = newton_smooth_all(eng, tree, passes=passes)
+    wall = (time.perf_counter() - t0) * 1e3
+    got = counts()
+    check_counts(f"{label}: newton_smooth_all, {passes} pass(es), "
+                 f"{len(steps)} steps, {n_levels} levels", got,
+                 {"level": passes * len(steps) + (passes + 1) * n_levels,
+                  want_kernel: 1})
+    per_pass = len(steps) + n_levels
+    print(f"{label}: newton_smooth_all({passes} passes) on "
+          f"{eng.execution_path!r}: logL {lk0!r} -> {lk!r}, "
+          f"{wall / passes:.1f} ms a pass (host clock), {per_pass} level "
+          f"launches a pass ({len(steps)} one-op steps, {n_levels} refresh "
+          f"levels)", flush=True)
+    check(lk > lk0, f"{label}: the sweep lowered logL ({lk0} -> {lk})")
+    return {"lk0": lk0, "lk": lk, "ms_per_pass": wall / passes,
+            "level_launches_per_pass": per_pass, "launches": got}
+
+
+def brent_counted(label, eng):
+    """optimize_gamma_shape, then optimize_pinv, each evaluation one
+    loglikelihood() (one fused launch). Returns {alpha, pinv, lk,
+    evaluations, ms_per_evaluation}."""
+    import torch
+    from libpll2_tpu_torch.optimize import optimize_gamma_shape, optimize_pinv
+
+    lk0 = eng.loglikelihood()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    alpha, lk1 = optimize_gamma_shape(eng)
+    pinv, lk2 = optimize_pinv(eng)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    got = counts()
+    evals = got["fused"]
+    check(evals > 0 and got["level"] == got["rows"] == got["pool"] == 0,
+          f"{label}: Brent launches {got}")
+    print(f"{label}: Brent alpha {alpha:.5f} (logL {lk1!r}), p-inv "
+          f"{pinv:.5f} (logL {lk2!r}) from {lk0!r}: {evals} evaluations, "
+          f"{wall / evals:.3f} ms an evaluation (host clock)", flush=True)
+    # p-inv's optimum may sit at its lower bound, where the logL moves by
+    # float32's last bits (0.125 at 1.9e6)
+    slack = 1e-6 * abs(lk0)
+    check(lk1 >= lk0 - slack and lk2 >= lk1 - slack,
+          f"{label}: Brent lowered logL ({lk0} -> {lk1} -> {lk2})")
+    return {"alpha": alpha, "pinv": pinv, "lk": lk2, "evaluations": evals,
+            "ms_per_evaluation": wall / evals, "launches": got}
+
+
+def f64_cpu_logl(part, eng, tree, by):
+    """The engine's model, branches and tree through the plain path in
+    float64 on the CPU."""
+    import torch
+    from libpll2_tpu_torch import TreeEngine
+
+    p64 = dna_partition(tree, by, N_SITES, "cpu", dtype=torch.float64)
+    p64.set_frequencies(0, part.frequencies[0])
+    p64.set_subst_params(0, part.subst_params[0])
+    p64.set_category_rates(part.rates)
+    if part.prop_invar[0] > 0:
+        p64.update_invariant_sites_proportion(0, float(part.prop_invar[0]))
+    return TreeEngine(p64, tree, pallas=False).loglikelihood(
+        branches=eng.branches.cpu().double())
+
+
+def gradient_check(device, by, gpu):
+    """The gradient route on the card: one value and gradient of
+    make_loglikelihood_fn (branches, subst, freqs) on a pallas=False
+    float32 engine at 128 x 16384, against float64 on the CPU: logL within
+    TOL_LOGL, each group's gradient within TOL_D1 of its largest entry; no
+    kernel launches (the route is the plain path, as in JAX)."""
+    import torch
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.optimize import make_loglikelihood_fn
+
+    groups = ("branches", "subst", "freqs")
+    out = []
+    for dev, dtype in ((device, torch.float32), ("cpu", torch.float64)):
+        tree, _, part = opt_problem(dev, dtype, by)
+        eng = TreeEngine(part, tree, pallas=False)
+        fn, p0 = make_loglikelihood_fn(eng, groups)
+        q = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+        reset_counts()
+        t0 = time.perf_counter()
+        value = fn(q)
+        grads = torch.autograd.grad(value, list(q.values()))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            check(all(v == 0 for v in counts().values()),
+                  f"gradient route launched kernels: {counts()}")
+        ms = (time.perf_counter() - t0) * 1e3
+        out.append((float(value.detach()),
+                    {k: g.double().cpu() for k, g in zip(q, grads)}, ms))
+    (v32, g32, ms32), (v64, g64, ms64) = out
+    rel = abs(v32 - v64) / abs(v64)
+    grel = {k: float((g32[k] - g64[k]).abs().max() / g64[k].abs().max())
+            for k in g64}
+    print(f"gradient route ({gpu}): make_loglikelihood_fn{groups} at "
+          f"{N_TAXA} x {N_SITES}, float32 on the card vs float64 on the "
+          f"CPU: logL {v32!r} vs {v64!r} (rel {rel:.3e}), gradient max rel "
+          f"err {grel}; value and gradient {ms32:.1f} ms on the card "
+          f"(host clock, once), {ms64:.1f} ms on the CPU", flush=True)
+    check(rel < TOL_LOGL, f"gradient route logL rel err {rel:.3e}")
+    check(all(r < TOL_D1 for r in grel.values()),
+          f"gradient route gradient rel err {grel}")
+    return {"rel_err": rel, "grad_rel_err": grel, "ms": ms32}
+
+
+def modelselect_check(device, gpu):
+    """select_dna_model(("JC", "HKY", "GTR"), steps=30) on the card at a
+    reduced MS_TAXA x MS_SITES (each model is 2 rounds of Adam and Brent on
+    the gradient route, whose plain ops are launch-bound at full width):
+    finite criteria, JC ranked last, HKY's kappa above 2 for data
+    simulated at kappa 6."""
+    import math as _math
+    from libpll2_tpu_torch import modelselect
+    from libpll2_tpu_torch.trees import random_utree
+    from libpll2_tpu_torch.utils import simulate_alignment
+
+    labels = [f"t{i}" for i in range(MS_TAXA)]
+    tree = random_utree(labels, seed=SEED)
+    headers, seqs = simulate_alignment(tree, MS_SITES,
+                                       [0.4, 0.15, 0.15, 0.3],
+                                       [1.0, 6.0, 1.0, 1.0, 6.0, 1.0],
+                                       alpha=0.8, seed=SEED)
+    t0 = time.perf_counter()
+    rows = modelselect.select_dna_model(
+        tree, dict(zip(headers, seqs)), models=("JC", "HKY", "GTR"),
+        steps=MS_STEPS, device=device)
+    s = time.perf_counter() - t0
+    text = ", ".join(f"{r['model']} logL {r['logL']:.3f} BIC {r['BIC']:.3f} "
+                     f"alpha {r['alpha']:.4f}" for r in rows)
+    print(f"modelselect ({gpu}): select_dna_model at {MS_TAXA} x "
+          f"{MS_SITES} (reduced from {N_TAXA} x {N_SITES}), steps "
+          f"{MS_STEPS}: {text}; {s:.1f} s", flush=True)
+    hky = next(r for r in rows if r["model"] == "HKY")
+    check(all(_math.isfinite(r["BIC"]) for r in rows)
+          and rows[-1]["model"] == "JC"
+          and hky["subst"][1] / hky["subst"][0] > 2.0,
+          f"modelselect: ranking {[r['model'] for r in rows]}, HKY kappa "
+          f"{hky['subst'][1] / hky['subst'][0]}")
+    return {"ranking": [r["model"] for r in rows], "s": s}
+
+
+def optimize_phase(device, gpu, flagship, aa_tree, aa_by):
+    """Phase 21, model optimization: DNA 128 x 16384 GTR+G4 on 'fused'
+    (maximize_loglikelihood of subst and freqs, the Gamma shape and p-inv by
+    Brent, newton_smooth_all), protein 128 x 8192 LG+G4 'split'
+    (maximize_fused of the frequencies, one sweep pass on the runtime-size
+    level kernel), a trial step on 'levels-kernel', 'repeats-dense-fused'
+    and 'pool-pallas', the gradient route and modelselect."""
+    import torch
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.optimize import maximize_fused
+    from libpll2_tpu_torch.trees.utils import utree_clone
+
+    t_phase = time.perf_counter()
+    tree, by, part = opt_problem(device)
+    eng = TreeEngine(part, tree)
+    check(eng.execution_path == "fused", f"DNA on {eng.execution_path!r}")
+    groups = ("subst", "freqs")
+    trial = trial_step("DNA", eng, groups, gpu)
+    dna = maximize_counted("DNA", eng, groups, OPT_STEPS, "fused")
+    brent = brent_counted("DNA", eng)
+    sweep_cmp = sweep_check("DNA", eng, tree)
+    sweep = sweep_counted("DNA", eng, tree, 2, "fused")
+    lk = eng.loglikelihood()
+    ref = f64_cpu_logl(part, eng, tree, by)
+    rel = abs(lk - ref) / abs(ref)
+    print(f"DNA optimized: logL {lk!r} vs the float64 plain path on the "
+          f"CPU {ref!r} (rel {rel:.3e})", flush=True)
+    check(rel < TOL_LOGL, f"DNA optimized logL rel err {rel:.3e}")
+
+    aa_part = protein_partition(aa_tree, aa_by, AA_SITES, device)
+    aa_tree = utree_clone(aa_tree)
+    aa_eng = TreeEngine(aa_part, aa_tree)
+    aa_trial = trial_step("protein", aa_eng, ("freqs",), gpu)
+    aa_lk0 = aa_eng.loglikelihood()
+    reset_counts()
+    t0 = time.perf_counter()
+    aa_lk, _, aa_hist = maximize_fused(aa_eng, ("freqs",),
+                                       steps=AA_OPT_STEPS)
+    aa_ms = (time.perf_counter() - t0) * 1e3 / len(aa_hist)
+    check_counts(f"protein: maximize_fused, {len(aa_hist)} steps", counts(),
+                 {"rows": len(aa_hist) + 1})
+    print(f"protein: maximize_fused(freqs) {aa_lk0!r} -> {aa_lk!r} in "
+          f"{len(aa_hist)} steps, {aa_ms:.2f} ms a step (host clock)",
+          flush=True)
+    check(aa_lk > aa_lk0, f"protein: logL did not rise ({aa_lk0} -> "
+          f"{aa_lk})")
+    aa_sweep_cmp = sweep_check("protein", aa_eng, aa_tree, branches=False)
+    aa_sweep = sweep_counted("protein", aa_eng, aa_tree, 1, "rows")
+    del aa_eng, aa_part
+
+    # a maximize_fused step on each other kernel path, its trials held
+    # against the path's plain version first
+    others = {}
+    rep_tree, _, rep_make = flagship
+    for label, make, t, pallas in (
+            ("DNA", lambda: part, tree, "levels-kernel"),
+            (f"repeats {REP_TAXA} x {REP_SITES}", lambda: rep_make(device),
+             rep_tree, "auto"),
+            (f"repeats {REP_TAXA} x {REP_SITES}", lambda: rep_make(device),
+             rep_tree, "pool")):
+        o_eng = TreeEngine(make(), t, pallas=pallas)
+        path = o_eng.execution_path
+        want = {"levels-kernel": "level", "repeats-dense-fused": "fused",
+                "pool-pallas": "pool"}[path]
+        o = trial_step(label, o_eng, groups, gpu, timed=False)
+        lk0 = o_eng.loglikelihood()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        lk1, _, hist = maximize_fused(o_eng, groups, steps=1)
+        torch.cuda.synchronize()
+        o["step_ms"] = (time.perf_counter() - t0) * 1e3
+        o["step_launches"] = counts()
+        print(f"{label}: one maximize_fused step on {path!r}: logL {lk0!r} "
+              f"-> {lk1!r}, {o['step_ms']:.1f} ms (host clock), launches "
+              f"{o['step_launches']}", flush=True)
+        check(o["step_launches"][want] > 0 and all(
+            n == 0 for k_, n in o["step_launches"].items() if k_ != want)
+            and lk1 >= lk0 - 1e-2, f"{path!r}: a step launched "
+            f"{o['step_launches']}, logL {lk0} -> {lk1}")
+        if path == "repeats-dense-fused":
+            check(o["step_launches"][want] == 2, f"{path!r}: "
+                  f"{o['step_launches']} launches for one step")
+        others[path] = o
+    grad = gradient_check(device, by, gpu)
+    ms = modelselect_check(device, gpu)
+    s = time.perf_counter() - t_phase
+    print(f"model optimization: {s:.1f} s", flush=True)
+    return {"trial": trial, "dna": dna, "brent": brent,
+            "sweep_check": sweep_cmp, "sweep": sweep, "final_rel_err": rel,
+            "aa_trial": aa_trial, "aa_ms_per_step": aa_ms,
+            "aa_launches": len(aa_hist) + 1, "aa_sweep_check": aa_sweep_cmp,
+            "aa_sweep": aa_sweep, "others": others, "gradient": grad,
+            "modelselect": ms, "s": s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
@@ -4489,6 +4995,9 @@ def main() -> int:
     sd, sp = search["dna"], search["dna"]["passes"]
     pass_err = {k: c["passes"]["max_abs_err"] for k, c in search.items()
                 if k != "launches"}
+
+    # 21. model optimization
+    opt = optimize_phase(device, gpu, flagship, aa_tree, aa_by)
     if args.profile:
         profile([("DNA main path", eng), ("protein main path", aa_eng),
                  ("DNA levels-kernel path", dna[3]),
@@ -4501,6 +5010,17 @@ def main() -> int:
     def bound(name):
         return {"bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                 "library_ms": None}
+
+    def trial(t, launches):
+        """A fused kernel's model-trial launch (phase 21): its launches on
+        the path, error against the plain version, call, device time and
+        bound."""
+        return {"trial_launches": launches, "trial_trials": t["k"],
+                "trial_max_abs_err": t["max_abs_err"], "trial_ms": t["ms"],
+                "trial_plain_ms": t["plain_ms"],
+                "trial_device_ms": t["device_ms"],
+                "trial_bound_ms": t["bound"][0],
+                "trial_bound_by": t["bound"][1]}
 
     def variant(prefix, key, launches):
         k, p, (b, by), *bf = var_ms[key]
@@ -4537,7 +5057,14 @@ def main() -> int:
         **variant("raw_tips", "fused_raw", raw_fused),
         "raw_tips_device_ms": var_dev["fused_raw"],
         "asc_launches": asc_fused,
-        "repeats_slice_launches": rep_fused}, {
+        "repeats_slice_launches": rep_fused,
+        **trial(opt["trial"], opt["dna"]["launches"]["fused"]),
+        "trial_repeats_launches":
+            opt["others"]["repeats-dense-fused"]["step_launches"]["fused"],
+        "trial_repeats_max_abs_err":
+            opt["others"]["repeats-dense-fused"]["max_abs_err"],
+        "brent_launches": opt["brent"]["evaluations"],
+        "brent_ms_per_evaluation": opt["brent"]["ms_per_evaluation"]}, {
         "name": "fused_traversal_rows", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal_rows.cu",
         "replaces": "libpll2_tpu/ops/pallas_fused.py:419",
@@ -4558,7 +5085,8 @@ def main() -> int:
         "spill_bound_ms": rows_spill[4][0],
         "spill_bound_by": rows_spill[4][1],
         **variant("per_rate", "rows_per_rate", pr_rows),
-        **variant("raw_tips_per_rate", "rows_raw", None)}, {
+        **variant("raw_tips_per_rate", "rows_raw", None),
+        **trial(opt["aa_trial"], opt["aa_launches"])}, {
         "name": "level_update", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/level_update.cu",
         "replaces": ["libpll2_tpu/ops/pallas_partials.py:48",
@@ -4579,7 +5107,19 @@ def main() -> int:
         "protein_bound_ms": aa_level_bound[0],
         "protein_bound_by": aa_level_bound[1],
         **variant("per_rate", "level_per_rate", pr_level),
-        "asc_launches": asc_level}, {
+        "asc_launches": asc_level,
+        "sweep_launches": opt["sweep"]["launches"]["level"]
+        + opt["aa_sweep"]["launches"]["level"],
+        "sweep_max_abs_err": max(opt["sweep_check"]["max_abs_err"],
+                                 opt["aa_sweep_check"]["max_abs_err"]),
+        "sweep_ms_per_pass": opt["sweep"]["ms_per_pass"],
+        "sweep_level_launches_per_pass":
+            opt["sweep"]["level_launches_per_pass"],
+        "sweep_protein_ms_per_pass": opt["aa_sweep"]["ms_per_pass"],
+        "trial_launches":
+            opt["others"]["levels-kernel"]["step_launches"]["level"],
+        "trial_max_abs_err": opt["others"]["levels-kernel"]["max_abs_err"]},
+        {
         "name": "pool_update", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/pool_update.cu",
         "replaces": "libpll2_tpu/ops/pallas_repeats.py:45",
@@ -4598,7 +5138,10 @@ def main() -> int:
         "protein_level_bound_us": aa_pool[3][2],
         "protein_level_columns": aa_pool[3][3],
         "protein_level_threads_per_column": aa_pool[3][4],
-        **variant("per_rate", "pool_per_rate", rep_pool)},
+        **variant("per_rate", "pool_per_rate", rep_pool),
+        "trial_launches":
+            opt["others"]["pool-pallas"]["step_launches"]["pool"],
+        "trial_max_abs_err": opt["others"]["pool-pallas"]["max_abs_err"]},
         probe_entry, {
         "name": "fused_traversal[candidates]", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal.cu",

@@ -10,6 +10,10 @@ empirical models of `models`, with `TreeEngine(mxu=...)`). Module paths and
 names mirror libpll2_tpu/, which stays the reference the port is tested
 against.
 
+`optimize` (branch lengths, exchangeabilities, frequencies, alpha and
+p-inv) and `modelselect` (the ModelTest-NG pattern) sit on top of the
+engine.
+
 The package imports torch, numpy and scipy, and never jax: the host modules
 it needs (constants, io/maps, trees, models, utils/simulate, ops/gamma,
 ops/eigen) are carried over.
@@ -19,7 +23,8 @@ from .constants import AscBias, PllError
 from .engine import TreeEngine
 from .ops.gamma import compute_gamma_cats
 from .partition import Operation, Partition
+from . import modelselect
 
 __all__ = ["constants", "AscBias", "PllError", "Operation", "Partition",
-           "TreeEngine", "compute_gamma_cats"]
+           "TreeEngine", "compute_gamma_cats", "modelselect"]
 __version__ = "0.1.0"

@@ -12,6 +12,11 @@ reads them off the JAX object, e.g. `{k: getattr(jp, k) for k in
 STATE_KEYS}`; this module never imports the JAX package. Both functions default to the CUDA device, as
 `Partition` does.
 
+`params_from_jax` and `flat_from_jax` carry libpll2_tpu/optimize.py's
+parameters across (its params pytree as a dict of numpy arrays, or its flat
+`ravel_pytree` vector), so that both packages' optimizers start from one
+point.
+
 A site-repeats partition of the JAX package also carries REPEATS_KEYS: its
 class table (`repeats`: site_id, id_site, ids), its tips' class columns
 (`_tip_cols`) and, where it has them, its pooled buffers (`clv_flat`,
@@ -138,3 +143,22 @@ def engine_branches_from_numpy(branches, *, device="cuda",
         raise C.PllError(C.ERROR_PARAM_INVALID,
                          f"branches must be 1-D, got shape {arr.shape}")
     return torch.tensor(arr, dtype=dtype, device=resolve_device(device))
+
+
+def params_from_jax(params, *, device="cuda",
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """libpll2_tpu/optimize.py's params pytree ({"freq_logits",
+    "log_branches", "log_subst"}, arrays read with np.asarray) as the
+    port's dict of tensors."""
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v, dtype=np.float64), dtype=dtype,
+                            device=dev) for k, v in params.items()}
+
+
+def flat_from_jax(x, *, device="cuda",
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A flat parameter vector of libpll2_tpu's `make_fused_loglikelihood_fn`
+    (or a [K, n] batch of them) as a tensor: the port's flat order is JAX's
+    `ravel_pytree` order."""
+    return torch.tensor(np.asarray(x, dtype=np.float64), dtype=dtype,
+                        device=resolve_device(device))

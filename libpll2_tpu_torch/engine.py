@@ -42,6 +42,13 @@ candidate at a time through the engine's own dense path on scratch copies
 of the dense buffers, and a repeats partition's candidates one at a time
 through its pooled path. Scoring leaves the partition's buffers and the
 engine's topology as they were.
+
+Model trials (`_trial_loglikelihoods`, optimize.py's batched evaluator) score
+K models (eigensystems and frequencies) on the engine's topology and path:
+on the fused paths a chunk of up to CANDIDATE_CHUNK trials is ONE launch of
+the same candidate form, the op table repeated and each trial its own
+P-matrices (`_fused_trials`); the other paths run the trials one after
+another on scratch copies of the partition's buffers.
 """
 from __future__ import annotations
 
@@ -223,6 +230,38 @@ def _fused_multi_topology(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
     return ops_likelihood.edge_loglikelihood_candidates(
         clv_p, clv_c, sc_p, sc_c, root_p, freqs, prop_invar, rate_weights,
         pidx, pattern_weights, invariant, scale_threshold,
+        rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real)
+
+
+def _fused_trials(eigenvals_k, inv_eigenvecs_k, eigenvecs_k, prop_invar,
+                  rates, rate_weights, freqs_k, params_idx_rates, branches,
+                  table, tip_codes, root_mat: int, pattern_weights,
+                  invariant, n_slots: int, scale_threshold: float,
+                  scale_factor: float, traversal=ops_fused.fused_traversal,
+                  mxu: str = "split", edge_params=None,
+                  rate_scalers: bool = False, tip_clvs=None,
+                  asc_type: int = C.AB_NONE, n_real: int = -1):
+    """logL [K] of K trial models on one topology in ONE launch of the fused
+    traversal's candidate form (the launch shape of libpll2_tpu/optimize.py:
+    353-366, `jax.vmap` over `eval_one`): eigensystems [K, M, ...] and
+    frequencies [K, M, s]. The op table [n_ops+1, 8] is repeated K times;
+    each trial carries its own P-matrices [K, E, R, s, s] and its own
+    frequencies in the root edge's likelihood."""
+    k = eigenvals_k.shape[0]
+    pidx = params_idx_rates if edge_params is None else edge_params
+    pmat = ops_pmatrix.update_prob_matrices_trials(
+        eigenvals_k, inv_eigenvecs_k, eigenvecs_k, prop_invar, rates, pidx,
+        branches)
+    tables = table[None].expand(k, *table.shape).contiguous()
+    clv_p, clv_c, sc_p, sc_c = traversal(
+        tip_codes, pmat, tables, rates=pmat.shape[2], states=pmat.shape[3],
+        n_slots=n_slots, threshold=scale_threshold, factor=scale_factor,
+        mxu=mxu, rate_scalers=rate_scalers, tip_clvs=tip_clvs)
+    root_pidx = (params_idx_rates if edge_params is None
+                 else edge_params[root_mat])
+    return ops_likelihood.edge_loglikelihood_candidates(
+        clv_p, clv_c, sc_p, sc_c, pmat[:, root_mat], freqs_k, prop_invar,
+        rate_weights, root_pidx, pattern_weights, invariant, scale_threshold,
         rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real)
 
 
@@ -963,6 +1002,61 @@ class TreeEngine:
             return np.zeros(0)
         return self._score_fused(tables, blens, roots,
                                  np.full(k, int(n_slots)))
+
+    # ------------------------------------------------------------ model trials
+    def _trial_loglikelihoods(self, eigen_k, freqs_k, traversal=None,
+                              level=None) -> torch.Tensor:
+        """logL [K] of K trial models on the engine's topology, branches and
+        execution path (libpll2_tpu/optimize.py:292-327 `eval_one`):
+        `eigen_k` = (eigenvals [K, M, s], evecs [K, M, s, s], inv_evecs [K,
+        M, s, s]) and `freqs_k` [K, M, s], in the partition's dtype on its
+        device; p-inv, category rates and weights are the partition's. On
+        'fused' and 'repeats-dense-fused' a chunk of CANDIDATE_CHUNK trials
+        is one launch of the candidate form (`_fused_trials`); on the other
+        paths the trials run one after another, each from a scratch copy of
+        the partition's dense or pooled buffers, which stay as they were.
+        `traversal` and `level` replace the path's kernel wrapper (its plain
+        version, for a comparison on the card). No host sync."""
+        w_k, evecs_k, ivecs_k = eigen_k
+        p = self.partition
+        margs = self._model_args()
+        prop_invar, rates, rate_weights, pidx = (margs[3], margs[4],
+                                                 margs[5], margs[7])
+        pw, inv = self._site_args()
+        modes = p._modes()
+        if self.use_fused:
+            tip_codes, tip_clvs = self._tip_codes(), self._tip_clvs()
+            return torch.cat([_fused_trials(
+                w_k[i:i + CANDIDATE_CHUNK], ivecs_k[i:i + CANDIDATE_CHUNK],
+                evecs_k[i:i + CANDIDATE_CHUNK], prop_invar, rates,
+                rate_weights, freqs_k[i:i + CANDIDATE_CHUNK], pidx,
+                self.branches, self.table, tip_codes, self.root_idx[4], pw,
+                inv, self.fused_slots, p.scale_threshold, p.scale_factor,
+                traversal=traversal or ops_fused.fused_traversal,
+                mxu=self.mxu, edge_params=self.edge_params,
+                tip_clvs=tip_clvs, **modes)
+                for i in range(0, w_k.shape[0], CANDIDATE_CHUNK)])
+        if self.repeats_mode:
+            bufs = self._repeats_args()[:2]     # repacks a stale schedule
+            run = _repeats_loglikelihood
+            tail = (self.execution_path, self._ops, self._root_cols,
+                    self.root_idx[4])
+        else:
+            bufs = (p.clv, p.scale_buffer)
+            run = _dense_loglikelihood
+            tail = (self.execution_path, self._ops, self.root_idx)
+        kw = {} if level is None else {"level": level}
+        scratch = tuple(torch.empty_like(b) for b in bufs)
+        out = []
+        for i in range(w_k.shape[0]):
+            for dst, src in zip(scratch, bufs):
+                dst.copy_(src)
+            out.append(run(*scratch, w_k[i], ivecs_k[i], evecs_k[i],
+                           prop_invar, rates, rate_weights, freqs_k[i], pidx,
+                           self.branches, *tail, pw, inv, p.scale_threshold,
+                           p.scale_factor, edge_params=self.edge_params,
+                           **kw, **modes)[0])
+        return torch.stack(out)
 
     def site_rate_posteriors(self):
         """Empirical-Bayes per-site rate-category posteriors and

@@ -19,14 +19,17 @@ Returned orientation (identical to the reference buffers):
 where V is the orthonormal eigenvector matrix (columns) of S.
 
 Host-side numpy: eigendecompositions happen once per parameter change, on
-tiny (states x states) matrices. Carried over from libpll2_tpu/ops/eigen.py;
-the differentiable on-device variant comes with the optimisation slice.
+tiny (states x states) matrices. Carried over from libpll2_tpu/ops/eigen.py.
+`update_eigen_torch` is the differentiable, batched counterpart of
+libpll2_tpu's `update_eigen_jax` (optimize.py's gradient route and model
+trials), through `_EighDegenerateSafe`.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..constants import EIGEN_MINFREQ
 
@@ -100,3 +103,101 @@ def update_eigen_batch(subst_params: np.ndarray,
     return EigenSystem(np.stack([o.eigenvals for o in out]),
                        np.stack([o.evecs for o in out]),
                        np.stack([o.inv_evecs for o in out]))
+
+
+class _EighDegenerateSafe(torch.autograd.Function):
+    """torch.linalg.eigh with a gradient that is defined at REPEATED
+    eigenvalues (libpll2_tpu/ops/eigen.py:96-128, `_eigh_degenerate_safe`).
+    Named DNA models have degenerate spectra by construction (JC: one
+    eigenvalue of multiplicity 3; K80/HKY at equal frequencies: a pair),
+    where the usual 1/(w_j - w_i) factors are infinite. P(t) = E diag(exp(w
+    t)) E^-1 does not change under a rotation within a degenerate
+    eigenspace, so the cross terms inside such a block carry nothing, and
+    masking them gives the right gradient.
+
+    JAX defines the JVP: with A' = sym(dA) and M' = V^T A' V, dw = diag(M')
+    and dV = V (F o M'), where F[i, j] = 1 / (w_j - w_i), and 0 where
+    |w_j - w_i| <= 1e3 eps(dtype) max|w|. Its transpose, with M = V^T Vbar:
+    <wbar, dw> + <Vbar, dV> = <V (diag(wbar) + F o M) V^T, A'>, so
+    Abar = sym(V (diag(wbar) + F o M) V^T).
+
+    Within a degenerate block this is not the derivative of P(t): there
+    the Daleckii-Krein derivative of a matrix function f has f'(w) times the
+    block's off-diagonal entries of M', which the mask drops (checked
+    against finite differences in tests/test_torch_optimize.py: at JC it
+    misses every direction that splits the triple eigenvalue, and its value
+    depends on the basis eigh picks in the block). The gradient route of
+    optimize.py therefore takes the P-matrices' derivative from
+    ops/pmatrix.py:update_prob_matrices_sym."""
+
+    @staticmethod
+    def forward(ctx, a):
+        w, v = torch.linalg.eigh(a)
+        ctx.save_for_backward(w, v)
+        return w, v
+
+    @staticmethod
+    def backward(ctx, w_bar, v_bar):
+        w, v = ctx.saved_tensors
+        vt = v.transpose(-1, -2)
+        diff = w[..., None, :] - w[..., :, None]          # [i, j] = w_j - w_i
+        scale = w.abs().amax(dim=-1, keepdim=True)[..., None]
+        # the mask width tracks the dtype: structurally repeated eigenvalues
+        # come out ~eps(dtype) apart
+        tol = 1e3 * torch.finfo(w.dtype).eps
+        degenerate = diff.abs() <= tol * scale.clamp(min=1e-30)
+        f = torch.where(degenerate, torch.zeros_like(diff),
+                        1.0 / torch.where(degenerate, torch.ones_like(diff),
+                                          diff))
+        inner = f * (vt @ v_bar) + torch.diag_embed(w_bar)
+        g = v @ inner @ vt
+        return (g + g.transpose(-1, -2)) / 2
+
+
+def eigh_degenerate_safe(a: torch.Tensor):
+    """(eigenvalues ascending, orthonormal eigenvector columns) of the
+    symmetric matrices `a` [..., n, n], with `_EighDegenerateSafe`'s
+    gradient."""
+    return _EighDegenerateSafe.apply(a)
+
+
+def rate_matrix_sym_torch(subst_params: torch.Tensor,
+                          freqs: torch.Tensor) -> torch.Tensor:
+    """`build_rate_matrix_sym` in torch, batched over the leading axis and
+    differentiable (no zero-frequency elimination): S [M, s, s] =
+    sqrt(Pi) Q sqrt(Pi)^-1, mean-rate normalized."""
+    m, states = freqs.shape
+    dtype, dev = freqs.dtype, freqs.device
+    params = subst_params / subst_params[:, -1:]
+    iu, ju = (torch.as_tensor(a, device=dev)
+              for a in np.triu_indices(states, k=1))
+    factor = params * torch.sqrt(freqs[:, iu] * freqs[:, ju])
+    s = torch.zeros((m, states, states), dtype=dtype, device=dev)
+    s[:, iu, ju] = factor
+    s[:, ju, iu] = factor
+    diag = (torch.zeros((m, states), dtype=dtype, device=dev)
+            .index_add(1, iu, -params * freqs[:, ju])
+            .index_add(1, ju, -params * freqs[:, iu]))
+    ar = torch.arange(states, device=dev)
+    s[:, ar, ar] = diag
+    mean = torch.sum(freqs * -diag, dim=1)
+    return s / mean[:, None, None]
+
+
+def update_eigen_torch(subst_params: torch.Tensor, freqs: torch.Tensor):
+    """Batched eigendecomposition in torch: the math of `update_eigen`
+    (libpll2_tpu/ops/eigen.py:131-160 `update_eigen_jax`), so that many
+    trial models are decomposed at once on the device. Differentiable
+    through `_EighDegenerateSafe`, whose gradient is JAX's: exact off
+    degenerate blocks, not within them (optimize.py's gradient route
+    differentiates the P-matrices through ops/pmatrix.py:
+    update_prob_matrices_sym instead). No zero-frequency elimination.
+
+    subst_params: [M, s*(s-1)/2], freqs: [M, s] (one dtype and device).
+    Returns (eigenvals [M, s], evecs [M, s, s], inv_evecs [M, s, s]) in the
+    orientation of `EigenSystem`."""
+    w, v = eigh_degenerate_safe(rate_matrix_sym_torch(subst_params, freqs))
+    sqrt_f = torch.sqrt(freqs)
+    evecs = v.transpose(1, 2) * sqrt_f[:, None, :]
+    inv_evecs = v / sqrt_f[:, :, None]
+    return w, evecs, inv_evecs

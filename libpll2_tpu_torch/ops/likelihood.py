@@ -221,8 +221,8 @@ def edge_loglikelihood_candidates(clv_parent: torch.Tensor,   # [K, R, s, S]
                                   pscaler: torch.Tensor,      # [K, (R,) S]
                                   cscaler: torch.Tensor,
                                   pmatrix: torch.Tensor,      # [K, R, s, s]
-                                  freqs: torch.Tensor,        # [M, s]
-                                  prop_invar: torch.Tensor,   # [M]
+                                  freqs: torch.Tensor,        # [(K,) M, s]
+                                  prop_invar: torch.Tensor,   # [(K,) M]
                                   rate_weights: torch.Tensor,  # [R]
                                   params_idx: torch.Tensor,   # [(K,) R] int
                                   pattern_weights: torch.Tensor,  # [S]
@@ -231,20 +231,24 @@ def edge_loglikelihood_candidates(clv_parent: torch.Tensor,   # [K, R, s, S]
                                   rate_scalers: bool = False,
                                   asc_type: int = AB_NONE,
                                   n_real: int = -1) -> torch.Tensor:
-    """`edge_loglikelihood` of K candidates' root edges at once: each its
-    own rows, counts and root P-matrix, and with `params_idx` [K, R] each
-    its own root edge's rate matrices (per-branch heterotachy). One batch
-    of tensor ops (torch.func.vmap over the candidate axis), not K calls of
-    ~50 small ones. Returns the totals [K]."""
-    def one(clv_p, clv_c, sc_p, sc_c, pmat, pidx):
+    """`edge_loglikelihood` of K root edges at once: each its own rows,
+    counts and root P-matrix; with `params_idx` [K, R] each its own root
+    edge's rate matrices (candidates under per-branch heterotachy), and with
+    `freqs` [K, M, s] and `prop_invar` [K, M] each its own model (trials).
+    One batch of tensor ops (torch.func.vmap over the leading axis), not K
+    calls of ~50 small ones. Returns the totals [K]."""
+    def one(clv_p, clv_c, sc_p, sc_c, pmat, pidx, f, pinv):
         return edge_loglikelihood(
-            clv_p, clv_c, sc_p, sc_c, pmat, freqs, prop_invar, rate_weights,
-            pidx, pattern_weights, invariant, scale_threshold,
+            clv_p, clv_c, sc_p, sc_c, pmat, f, pinv, rate_weights, pidx,
+            pattern_weights, invariant, scale_threshold,
             rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real)[0]
 
-    in_dims = (0, 0, 0, 0, 0, 0 if params_idx.dim() == 2 else None)
+    in_dims = (0, 0, 0, 0, 0, 0 if params_idx.dim() == 2 else None,
+               0 if freqs.dim() == 3 else None,
+               0 if prop_invar.dim() == 2 else None)
     return torch.func.vmap(one, in_dims=in_dims)(
-        clv_parent, clv_child, pscaler, cscaler, pmatrix, params_idx)
+        clv_parent, clv_child, pscaler, cscaler, pmatrix, params_idx, freqs,
+        prop_invar)
 
 
 def node_ancestral(clv_node: torch.Tensor,           # [R, s, S]

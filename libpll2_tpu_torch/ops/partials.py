@@ -27,6 +27,9 @@ scaler (-1) is not rescaled; its count goes to the trash row K of the
 
 Unlike JAX's pure functions, these update `clv` and `scaler` in place (the
 buffers are hundreds of MB at full width) and return them.
+`update_partials_functional` is the out-of-place variant for autograd
+(optimize.py's gradient route): in-place writes into one buffer that later
+levels read would either raise in backward or keep every version of it.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["Operations", "update_partials", "update_partials_levels",
-           "gather_flat_view"]
+           "update_partials_functional", "gather_flat_view"]
 
 
 class Operations(NamedTuple):
@@ -95,6 +98,27 @@ def update_partials(clv: torch.Tensor,        # [N+1, R, s, S]
     return clv, scaler
 
 
+def _level_rows(clv, scaler, pmatrix, ops: Operations, valid, lv: int,
+                scale_threshold: float, scale_factor: float,
+                rate_scalers: bool):
+    """Level `lv`'s parents: (CLV rows, their values, scaler rows, their
+    counts). Padded slots (valid False) go to the scratch CLV row N and the
+    trash scaler row."""
+    parent, psc, c1, m1, s1, c2, m2, s2 = (f[lv] for f in ops)
+    ok = valid[lv]
+    x = (torch.einsum('wrij,wrjs->wris', pmatrix[m1], clv[c1])
+         * torch.einsum('wrij,wrjs->wris', pmatrix[m2], clv[c2]))
+    has_scaler = (psc >= 0) & ok
+    child_sc = _read_scaler(scaler, s1) + _read_scaler(scaler, s2)
+    scaled, mask = _rescale(x, scale_threshold, scale_factor, rate_scalers,
+                            state_dim=2)
+    hs = has_scaler.reshape((-1,) + (1,) * (x.dim() - 1))
+    return (torch.where(ok, parent, clv.shape[0] - 1),
+            torch.where(hs, scaled, x),
+            torch.where(has_scaler, psc, scaler.shape[0] - 2),
+            child_sc + mask)
+
+
 def update_partials_levels(clv: torch.Tensor,
                            scaler: torch.Tensor,
                            pmatrix: torch.Tensor,
@@ -107,20 +131,38 @@ def update_partials_levels(clv: torch.Tensor,
     each level gathers its children, computes all W parents at once and
     scatters them. Padded slots (valid False) write the scratch CLV row N
     and the trash scaler row. Returns (clv, scaler), updated in place."""
-    n_nodes = clv.shape[0] - 1          # last row is scratch
-    trash = scaler.shape[0] - 2
     for lv in range(valid.shape[0]):
-        parent, psc, c1, m1, s1, c2, m2, s2 = (f[lv] for f in ops)
-        ok = valid[lv]
-        x = (torch.einsum('wrij,wrjs->wris', pmatrix[m1], clv[c1])
-             * torch.einsum('wrij,wrjs->wris', pmatrix[m2], clv[c2]))
-        has_scaler = (psc >= 0) & ok
-        child_sc = _read_scaler(scaler, s1) + _read_scaler(scaler, s2)
-        scaled, mask = _rescale(x, scale_threshold, scale_factor,
-                                rate_scalers, state_dim=2)
-        hs = has_scaler.reshape((-1,) + (1,) * (x.dim() - 1))
-        clv[torch.where(ok, parent, n_nodes)] = torch.where(hs, scaled, x)
-        scaler[torch.where(has_scaler, psc, trash)] = child_sc + mask
+        rows, values, sc_rows, counts = _level_rows(
+            clv, scaler, pmatrix, ops, valid, lv, scale_threshold,
+            scale_factor, rate_scalers)
+        clv[rows] = values
+        scaler[sc_rows] = counts
+    return clv, scaler
+
+
+def update_partials_functional(clv: torch.Tensor,
+                               scaler: torch.Tensor,
+                               pmatrix: torch.Tensor,
+                               ops: Operations,       # [L, W] or [n]
+                               valid,                 # [L, W] bool or None
+                               scale_threshold: float,
+                               scale_factor: float,
+                               rate_scalers: bool = False):
+    """`update_partials_levels` without in-place writes, for autograd: each
+    level's parents go into a new buffer (`index_copy`), so that the rows a
+    later level reads are the ones the graph saved. Operations [n] with
+    `valid` None run one op a level, the serial order of `update_partials`.
+    The given buffers are not written. Returns the new (clv, scaler)."""
+    if valid is None:
+        ops = Operations(*(f[:, None] for f in ops))
+        valid = torch.ones(ops.parent_clv.shape, dtype=torch.bool,
+                           device=ops.parent_clv.device)
+    for lv in range(valid.shape[0]):
+        rows, values, sc_rows, counts = _level_rows(
+            clv, scaler, pmatrix, ops, valid, lv, scale_threshold,
+            scale_factor, rate_scalers)
+        clv = clv.index_copy(0, rows, values)
+        scaler = scaler.index_copy(0, sc_rows, counts)
     return clv, scaler
 
 

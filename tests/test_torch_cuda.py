@@ -1218,3 +1218,77 @@ def test_streamed_round_matches_batched_on_card(cuda):
         assert used[0 if kind == "streamed" else 1] > 0
     assert out[0][1] == out[1][1] >= 1
     assert abs(out[0][0] - out[1][0]) / abs(out[1][0]) < 5e-5
+
+
+@pytest.mark.parametrize("states", [4, 20])
+def test_trial_form_matches_plain_on_card(cuda, states):
+    """make_fused_loglikelihood_fn's trials (2n+1 of one maximize_fused
+    step) through the fused kernels' candidate form (one launch, the op
+    table repeated, each trial its own P-matrices) against the same trials
+    through the plain traversal, and against each trial's model set on the
+    partition and loglikelihood(): 5e-5 relative; maximize_fused rises by
+    one launch a step."""
+    from libpll2_tpu_torch.optimize import (make_fused_loglikelihood_fn,
+                                            maximize_fused)
+
+    tree = random_utree([f"t{i}" for i in range(20)], seed=7)
+    part, eng = _engine(tree, 3000 if states == 4 else 500, cuda,
+                        states=states, alphabet="ACGT" if states == 4
+                        else AA_NOISY[:20])
+    groups = ("subst", "freqs") if states == 4 else ("freqs",)
+    fnb, x0, unravel = make_fused_loglikelihood_fn(eng, groups)
+    eye = torch.eye(x0.numel(), device=cuda) * 0.02
+    X = torch.cat([x0[None], x0[None] + eye, x0[None] - eye])
+    counter = fused.fused_traversal if states == 4 else \
+        fused.fused_traversal_rows
+    n0 = counter.launches
+    got = fnb(X).double()
+    assert counter.launches - n0 == 1
+    orig = eng._trial_loglikelihoods
+    eng._trial_loglikelihoods = lambda e, f: orig(
+        e, f, traversal=fused.fused_traversal_reference)
+    want = fnb(X).double()
+    del eng._trial_loglikelihoods
+    assert float(((got - want).abs() / want.abs()).max()) < 5e-5
+    # row 1: the first parameter up a step, through the partition's setters
+    p1 = unravel(X[1])
+    f = torch.softmax(p1["freq_logits"].double(), -1)[0].cpu().numpy()
+    part.set_frequencies(0, f)
+    if "log_subst" in p1:
+        part.set_subst_params(0, np.append(
+            np.exp(p1["log_subst"][0].double().cpu().numpy()), 1.0))
+    assert abs(eng.loglikelihood() - float(got[1])) / abs(float(got[1])) \
+        < 5e-5
+    n0 = counter.launches
+    _, _, hist = maximize_fused(eng, groups, steps=3, chunk=3)
+    assert counter.launches - n0 == len(hist) + 1
+
+
+def test_sweep_step_matches_plain_on_card(cuda):
+    """newton_smooth_all's sweep: each step's CLV op is one launch of the
+    level kernel (passes x steps + (passes + 1) x refresh levels); one pass
+    through the kernel against one through the plain version: branches to
+    1e-4 relative, CLV rows to 1e-5 of each site's max, scaler rows equal;
+    the result against the float64 sweep on the CPU within 5e-5."""
+    from libpll2_tpu_torch.ops import branch_sweep
+    from libpll2_tpu_torch.optimize import _sweep_inputs, newton_smooth_all
+
+    tree = random_utree([f"t{i}" for i in range(24)], seed=5)
+    part, eng = _engine(tree, 2000, cuda, alphabet="ACGT", seed=5)
+    args, kw = _sweep_inputs(eng, tree)
+    n0 = levels.level_update.launches
+    got = branch_sweep.newton_sweep(*args, passes=1, **kw)
+    n_steps, n_levels = len(args[13]), len(args[12])
+    assert levels.level_update.launches - n0 == n_steps + 2 * n_levels
+    want = branch_sweep.newton_sweep(
+        *args, passes=1, level=levels.level_update_reference, **kw)
+    assert float(((got[0] - want[0]).abs() / want[0].abs()).max()) <= 1e-4
+    assert torch.equal(got[3], want[3])
+    site_max = want[2].abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
+    assert float(((got[2] - want[2]).abs() / site_max).max()) <= 1e-5
+    cpu_tree = copy.deepcopy(tree)
+    cpu_part, cpu_eng = _engine(cpu_tree, 2000, "cpu", dtype=torch.float64,
+                                alphabet="ACGT", seed=5)
+    lk = newton_smooth_all(eng, tree, passes=2)
+    ref = newton_smooth_all(cpu_eng, cpu_tree, passes=2)
+    assert abs(lk - ref) / abs(ref) < 5e-5
