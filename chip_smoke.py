@@ -198,7 +198,28 @@ each fatal on failure:
      pallas=False float32 engine at 128 x 16384 against float64 on the CPU
      (the gradient route launches no kernel); select_dna_model of JC, HKY
      and GTR at a reduced 32 x 2048. Host-clock ms a step, a Brent
-     evaluation and a sweep pass, level launches a pass.
+     evaluation and a sweep pass, level launches a pass;
+ 22. an analysis from an alignment file (io, parsimony, bootstrap,
+     checkpoint): examples/flagship_1000.py:81-91's data at full width
+     (1000 taxa x 4000 sites simulated by utils/simulate.py) written to a
+     FASTA and an interleaved PHYLIP file and read back (equal), compressed
+     to site patterns (weights summing to 4000); a parsimony Partition on
+     the card, FastParsimony and the native stepwise build (the library
+     must load), Fitch over the tree's ops on the card (its edge score the
+     build's cost, its vectors, costs and one tip's insertion scores over
+     every edge == numpy Fitch on the host), the Python loop (Fitch on the
+     card) on the first 64 taxa == the native build; lengths 0.1, GTR+G4 on
+     the dense path (kernel #1, or #3 where the phase prints
+     'levels-kernel'; launches counted) against the float64 plain path on
+     the card, count_invariant_sites(); the same data as a site-repeats
+     partition on 'pool-pallas' (kernel #5, launches counted) within
+     TOL_LOGL of the dense logL, the native classer's classes of every tip
+     and op == numpy's; 1000 bootstrap replicates from one evaluation,
+     three re-evaluated through set_pattern_weights (TOL_LOGL); a
+     checkpoint saved with and without CLVs and loaded onto the card: the
+     root edge's logL from the stored CLVs equal to the saved partition's,
+     the reloaded engine's within TOL_LOGL. Host-clock ms of each step,
+     the classer's ms native and numpy.
 
 The last three lines are the card's name and power limit, one JSON object
 listing every kernel (with its bound at the card's peaks), and {"ok": true,
@@ -277,6 +298,7 @@ WARMUP = 3
 # torch.profiler sessions a device-time measurement may take
 # (`launches_device_us`)
 PROFILE_SESSIONS = 5
+PROFILE_WARMUP_S = 0.05    # sentinel kernels opening a profiled session
 # fused_traversal.cu's thread layouts on an H100 (ops/_kernels.py:fused_plan,
 # 132 SMs): site counts and the threads a site each takes (40003 and 4465,
 # the repeats problem's width: two sites a thread, 64-site blocks with tails
@@ -2277,12 +2299,14 @@ def level_bound(part, ops):
 def launches_device_us(fn, name, n_launches, reps=5):
     """Device time (us) of each of the `n_launches` kernels whose names
     hold `name` in a call of `fn`, in launch order, from torch.profiler:
-    `reps` calls in one profiled session, the median per launch. The
-    session opens and closes with eight small sentinel kernels each (the
-    profiler can drop the first or the last kernels of a session, and now
-    and then records no device event at all); one whose trace still lacks
-    some of the kernels is run again, up to PROFILE_SESSIONS sessions in
-    all."""
+    the last `reps` of `reps + 1` calls in one profiled session, the
+    median per launch. The session opens with PROFILE_WARMUP_S of small
+    sentinel kernels and closes with eight, and its first call is a lead
+    call that is not read (the profiler can drop the events of a session's
+    first milliseconds, a lead call's kernels with them, or its last
+    events, and now and then records no device event at all); one whose
+    trace still lacks some of the last `reps` calls' kernels is run again,
+    up to PROFILE_SESSIONS sessions in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -2293,9 +2317,12 @@ def launches_device_us(fn, name, n_launches, reps=5):
     for _ in range(PROFILE_SESSIONS):
         with torch.profiler.profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(8):
+            warm_end = time.perf_counter() + PROFILE_WARMUP_S
+            while time.perf_counter() < warm_end:
                 sentinel.add_(1)
-            for _ in range(reps):
+                torch.cuda.synchronize()
+                time.sleep(0.001)
+            for _ in range(reps + 1):
                 fn()
                 torch.cuda.synchronize()
             for _ in range(8):
@@ -2304,9 +2331,10 @@ def launches_device_us(fn, name, n_launches, reps=5):
         device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         kernels = sorted((e for e in device if name in e.name),
                          key=lambda e: e.time_range.start)
-        if len(kernels) == reps * n_launches:
+        if len(kernels) >= reps * n_launches:
+            kernels = kernels[len(kernels) - reps * n_launches:]
             break
-        print(f"  (the profiler recorded {len(kernels)} of "
+        print(f"  (the profiler recorded {len(kernels)} of the last "
               f"{reps * n_launches} {name} kernels and {len(device)} device "
               f"events in all; profiled again)", flush=True)
     check(len(kernels) == reps * n_launches, f"the profiler missed {name} "
@@ -2512,14 +2540,14 @@ def interleaved_ms(fns: dict) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def median_ms(fn) -> float:
+def median_ms(fn, reps=REPS) -> float:
     import torch
 
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -4732,6 +4760,432 @@ def optimize_phase(device, gpu, flagship, aa_tree, aa_by):
             "modelselect": ms, "s": s}
 
 
+# phase 22: an analysis from an alignment file. examples/flagship_1000.py:
+# 81-91's data at full width: 1000 taxa on random_utree(seed 7), the
+# branches shortened as its loop does (`analysis_data`), 4000 sites
+# simulated under GTR (freqs 0.3/0.2/0.2/0.3, rates 1.2/3.5/0.8/1.1/3.0/1.0,
+# alpha 0.8, seed 7)
+ANA_TAXA, ANA_SITES, ANA_SEED = 1000, 4000, 7
+ANA_FREQS = [0.3, 0.2, 0.2, 0.3]
+ANA_SUBST = [1.2, 3.5, 0.8, 1.1, 3.0, 1.0]
+ANA_PY_TAXA = 64            # the Python stepwise loop's cross-check
+ANA_BOOT = 1000
+ANA_BOOT_CHECK = (0, 1, 999)
+ANA_REPS = 5
+
+
+def write_alignment(tmp, headers, seqs):
+    """The alignment as a FASTA file and an interleaved PHYLIP file (60
+    characters a line) in `tmp`; returns their paths."""
+    fas, phy = os.path.join(tmp, "aln.fas"), os.path.join(tmp, "aln.phy")
+    with open(fas, "w") as fh:
+        for h, s in zip(headers, seqs):
+            fh.write(f">{h}\n")
+            for i in range(0, len(s), 60):
+                fh.write(s[i:i + 60] + "\n")
+    width = max(len(h) for h in headers) + 2
+    with open(phy, "w") as fh:
+        fh.write(f"{len(seqs)} {len(seqs[0])}\n")
+        for i in range(0, len(seqs[0]), 60):
+            for h, s in zip(headers, seqs):
+                fh.write((h.ljust(width) if i == 0 else "") + s[i:i + 60]
+                         + "\n")
+            fh.write("\n")
+    return fas, phy
+
+
+def host_fitch(fp, ops, tip, e1, e2):
+    """Fitch on the host in numpy from the tips' packed vectors: every
+    op's directional vector and cost in list order, then the score of
+    inserting `tip` on each edge (e1[i], e2[i]). Returns (vectors as uint32,
+    node costs, insertion scores)."""
+    import numpy as np
+
+    vec = np.zeros((fp.vectors.shape[0],) + fp.packed_host.shape[1:],
+                   np.uint32)
+    vec[:fp.tips] = fp.packed_host
+    cost = np.zeros(vec.shape[0], np.int64)
+    popc = np.array([bin(i).count("1") for i in range(256)], np.int64)
+
+    def steps(union):
+        return popc[np.ascontiguousarray(~union).view(np.uint8)].reshape(
+            union.shape[:-1] + (-1,)).sum(-1)
+
+    def join(a, b):
+        ands = a & b
+        union = np.bitwise_or.reduce(ands, axis=-2)
+        return (ands | (~union[..., None, :] & (a | b))), steps(union)
+
+    for o in ops:
+        p, c1, c2 = (o.parent_score_index, o.child1_score_index,
+                     o.child2_score_index)
+        vec[p], s = join(vec[c1], vec[c2])
+        cost[p] = s + cost[c1] + cost[c2]
+    joined, s = join(vec[e1], vec[e2])
+    union = np.bitwise_or.reduce(joined & vec[tip][None], axis=-2)
+    scores = steps(union) + s + cost[e1] + cost[e2] + cost[tip]
+    return vec, cost, scores + fp.const_cost
+
+
+def analysis_data():
+    """(headers, sequences) of phase 22's alignment: the flagship's loop
+    as written (examples/flagship_1000.py:82-87), which visits both halves
+    of an edge and so scales each length twice, max(max(l * 0.12, 0.004) *
+    0.12, 0.004): the data of its recorded run (FLAGSHIP.json: 3581
+    patterns)."""
+    from libpll2_tpu_torch.trees import random_utree
+    from libpll2_tpu_torch.utils import simulate_alignment
+
+    tree = random_utree([f"t{i}" for i in range(ANA_TAXA)], seed=ANA_SEED)
+    for nd in tree.nodes():
+        for h in ([nd] if nd.is_tip() else list(nd.ring())):
+            if h.back is not None:
+                h.length = h.back.length = max(h.length * 0.12, 0.004)
+    return simulate_alignment(tree, ANA_SITES, ANA_FREQS, ANA_SUBST,
+                              alpha=0.8, seed=ANA_SEED)
+
+
+def analysis_partition(tree, comp, weights, headers, device, repeats=False):
+    """The flagship's GTR+G4 partition (examples/flagship_1000.py:112-123)
+    over the compressed alignment, the tips bound to the tree's rows."""
+    import torch
+    from libpll2_tpu_torch import Partition, compute_gamma_cats
+    from libpll2_tpu_torch.io import maps
+
+    n = len(headers)
+    part = Partition(n, n - 2, 4, len(comp[0]), 1, 2 * n - 3, 4, n - 2,
+                     device=device, dtype=torch.float32,
+                     site_repeats=repeats)
+    by = dict(zip(headers, comp))
+    tips = list(tree.tips())
+    part.set_tip_states_batch(maps.map_nt, [by[t.label] for t in tips],
+                              [t.clv_index for t in tips])
+    part.set_pattern_weights(weights)
+    part.set_frequencies(0, [0.25] * 4)
+    part.set_subst_params(0, [1.0, 1.1, 0.9, 1.05, 0.95, 1.0])
+    part.set_category_rates(compute_gamma_cats(1.0, 4))
+    return part
+
+
+def timed(fn):
+    """(result, host-clock ms) of one call, the device synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def classer_check(part, ops):
+    """The native classer's classes of every tip and op of a repeats
+    partition `==` numpy's first-occurrence classes of the same codes, and
+    both timed over the ops: (enabled ops, native ms, numpy ms)."""
+    import numpy as np
+    from libpll2_tpu_torch import native
+    from libpll2_tpu_torch.repeats import _first_occurrence_classes
+
+    table = part.repeats
+    S = table.sites
+
+    def same(node, got):
+        site_id, id_site, ids = got
+        if ids >= S:                   # no compression: the node is plain
+            return int(table.ids[node]) == 0
+        return (int(table.ids[node]) == ids
+                and np.array_equal(table.site_id[node], site_id)
+                and np.array_equal(table.id_site[node, :ids], id_site))
+
+    for t in range(part.tips):
+        got = _first_occurrence_classes(part.tip_states[t, :S])
+        check(same(t, got), f"repeats classes of tip {t} differ from numpy")
+    pairs = []
+    for op in ops:
+        p, l, r = (op.parent_clv_index, op.child1_clv_index,
+                   op.child2_clv_index)
+        if not table.enable_for(l, r):
+            check(int(table.ids[p]) == 0, f"op {p}: classes on a plain op")
+            continue
+        li, ri = int(table.ids[l]), int(table.ids[r])
+        pairs.append((table.site_id[l], table.site_id[r], li, ri))
+        got = _first_occurrence_classes(
+            table.site_id[l].astype(np.int64)
+            + table.site_id[r].astype(np.int64) * li)
+        check(same(p, got), f"repeats classes of op {p} differ from numpy")
+    lookup = np.full(max((li * ri for _, _, li, ri in pairs), default=1),
+                     -1, np.int32)
+    t0 = time.perf_counter()
+    for left, right, li, ri in pairs:
+        native.repeats_update(left, right, li, li * ri, lookup)
+    t1 = time.perf_counter()
+    for left, right, li, ri in pairs:
+        _first_occurrence_classes(left.astype(np.int64)
+                                  + right.astype(np.int64) * li)
+    t2 = time.perf_counter()
+    return len(pairs), (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def analysis_phase(device, gpu):
+    """Phase 22: an analysis from an alignment file (read, compress,
+    stepwise parsimony, dense and 'pool-pallas' evaluation, bootstrap,
+    checkpoint) at the flagship's full width. Returns the launches and
+    times."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+    from libpll2_tpu_torch import (TreeEngine, bootstrap_loglikelihoods,
+                                   checkpoint, native)
+    from libpll2_tpu_torch.io import (compress_site_patterns, load_fasta,
+                                      maps, parse_phylip)
+    from libpll2_tpu_torch.ops import pool
+    from libpll2_tpu_torch.ops.fused import (fused_traversal,
+                                             fused_traversal_reference)
+    from libpll2_tpu_torch.parsimony import FastParsimony
+    from libpll2_tpu_torch.parsimony.stepwise import fastparsimony_stepwise
+    from libpll2_tpu_torch.partition import Partition
+    from libpll2_tpu_torch.trees import (create_operations, export_newick,
+                                         traverse)
+    from libpll2_tpu_torch.trees.utree import (create_pars_buildops,
+                                               reset_template_indices)
+
+    t_phase = time.perf_counter()
+    out = {}
+    headers, seqs = analysis_data()
+    n = len(headers)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. read the alignment back from a FASTA and a PHYLIP file
+        fas, phy = write_alignment(tmp, headers, seqs)
+        (h_fas, s_fas), out["read_fasta_ms"] = timed(lambda: load_fasta(fas))
+        (h_phy, s_phy), out["read_phylip_ms"] = timed(
+            lambda: parse_phylip(phy, interleaved=True))
+        check(h_fas == headers and s_fas == seqs, "FASTA read-back differs")
+        check(h_phy == headers and s_phy == seqs, "PHYLIP read-back differs")
+
+        # 2. compress to site patterns
+        (comp, weights, _), out["compress_ms"] = timed(
+            lambda: compress_site_patterns(s_fas, maps.map_nt))
+        patterns = len(comp[0])
+        check(int(weights.sum()) == ANA_SITES,
+              f"pattern weights sum to {weights.sum()}, not {ANA_SITES}")
+        print(f"analysis: {n} taxa x {ANA_SITES} sites read from FASTA in "
+              f"{out['read_fasta_ms']:.1f} ms and interleaved PHYLIP in "
+              f"{out['read_phylip_ms']:.1f} ms (equal), compressed to "
+              f"{patterns} patterns in {out['compress_ms']:.1f} ms (host "
+              f"clock)", flush=True)
+        out["patterns"] = patterns
+
+        # 3. parsimony: the native stepwise build, Fitch on the card
+        check(native.load() is not None, "the native library did not load")
+        pars = Partition(n, n - 2, 4, patterns, 1, 2 * n - 3, 1, n - 2,
+                         device=device)
+        pars.set_tip_states_batch(maps.map_nt, comp)
+        pars.set_pattern_weights(weights)
+        fp, out["fitch_init_ms"] = timed(lambda: FastParsimony(pars))
+        check(fp.vectors.device.type == "cuda", "Fitch vectors off the card")
+        (tree, cost), out["stepwise_ms"] = timed(
+            lambda: fastparsimony_stepwise([fp], headers, ANA_SEED))
+        pops = create_pars_buildops(traverse(tree.vroot))
+        _, out["fitch_first_ms"] = timed(lambda: fp.update_vectors(pops))
+        out["fitch_update_ms"] = statistics.median(
+            timed(lambda: fp.update_vectors(pops))[1]
+            for _ in range(ANA_REPS))
+        root = tree.vroot
+        edge = fp.edge_score(root.node_index, root.back.node_index)
+        check(edge == cost, f"edge score {edge} != stepwise cost {cost}")
+        e1 = np.array([h.node_index for h in traverse(tree.vroot)
+                       if h.back is not None], np.int64)
+        e2 = np.array([h.back.node_index for h in traverse(tree.vroot)
+                       if h.back is not None], np.int64)
+        scores = fp.batch_insert_scores(0, e1, e2)
+        out["insert_scores_ms"] = host_ms(
+            lambda: fp.batch_insert_scores(0, e1, e2), ANA_REPS)[1]
+        h_vec, h_cost, h_scores = host_fitch(fp, pops, 0, e1, e2)
+        inner = sorted({o.parent_score_index for o in pops})
+        check(np.array_equal(fp.vectors.cpu().numpy().view(np.uint32)[inner],
+                             h_vec[inner])
+              and np.array_equal(fp.node_cost.cpu().numpy()[inner],
+                                 h_cost[inner]),
+              "Fitch vectors or costs on the card differ from numpy's")
+        check(np.array_equal(scores, h_scores),
+              "batch_insert_scores differ from numpy's")
+        print(f"  parsimony: FastParsimony {out['fitch_init_ms']:.1f} ms "
+              f"({fp.informative_count} informative patterns, const "
+              f"{fp.const_cost}), native stepwise {out['stepwise_ms']:.1f} "
+              f"ms (cost {cost}), Fitch over the tree's {len(pops)} ops on "
+              f"the card {out['fitch_update_ms']:.2f} ms (median of "
+              f"{ANA_REPS}; the first call {out['fitch_first_ms']:.2f} ms; "
+              f"edge score {edge} == cost), {len(e1)} insertion scores "
+              f"{out['insert_scores_ms']:.2f} ms (median of {ANA_REPS}; == "
+              f"numpy Fitch on the host)", flush=True)
+        out["parsimony_cost"] = cost
+
+        k = ANA_PY_TAXA
+        small = Partition(k, k - 2, 4, patterns, 1, 2 * k - 3, 1, k - 2,
+                          device=device)
+        small.set_tip_states_batch(maps.map_nt, comp[:k])
+        small.set_pattern_weights(weights)
+        fp_k = FastParsimony(small)
+        (t_nat, c_nat), ms_nat = timed(
+            lambda: fastparsimony_stepwise([fp_k], headers[:k], ANA_SEED))
+        (t_py, c_py), ms_py = timed(lambda: fastparsimony_stepwise(
+            [fp_k], headers[:k], ANA_SEED, use_native=False))
+        check(c_nat == c_py and export_newick(t_nat.vroot)
+              == export_newick(t_py.vroot),
+              f"{k} taxa: the Python loop gives cost {c_py}, the native "
+              f"build {c_nat}, or another tree")
+        print(f"  {k} taxa: native stepwise {ms_nat:.1f} ms, the Python "
+              f"loop with Fitch on the card {ms_py:.1f} ms: the same tree, "
+              f"cost {c_nat}", flush=True)
+        out.update(py_taxa=k, py_native_ms=ms_nat, py_loop_ms=ms_py)
+        del fp, pars, fp_k, small
+
+        # 4. the ML evaluation on the dense partition (kernel #1)
+        seen = set()
+        for nd in tree.nodes():
+            for h in ([nd] if nd.is_tip() else list(nd.ring())):
+                if h.back is not None and id(h) not in seen:
+                    seen.update((id(h), id(h.back)))
+                    h.length = h.back.length = 0.1
+        reset_template_indices(tree.vroot, tree.tip_count)
+        part = analysis_partition(tree, comp, weights, headers, device)
+        eng = TreeEngine(part, tree)
+        path = eng.execution_path
+        reset_counts()
+        lnl = eng.loglikelihood()
+        dense_counts = counts()
+        want = "fused" if path == "fused" else "level"
+        check(path in ("fused", "levels-kernel") and dense_counts[want] > 0
+              and all(c == 0 for kk, c in dense_counts.items()
+                      if kk != want),
+              f"dense path {path!r} launched {dense_counts}")
+        invariant = part.count_invariant_sites()
+        ops = create_operations(traverse(tree.vroot))[0]
+        ref = f64_edge(part, ops, eng.branches, [0] * 4, tree.vroot)[0]
+        out["dense_ms"] = host_ms(eng.loglikelihood, ANA_REPS)[1]
+        print(f"  dense GTR+G4 on {path!r} ({len(ops)} ops): launches "
+              f"{dense_counts}, {invariant} invariant sites, "
+              f"loglikelihood() {out['dense_ms']:.3f} ms (host clock, "
+              f"median of {ANA_REPS})", flush=True)
+        if path == "fused":
+            out["dense_max_abs_err"] = compare_traversal(
+                "the stepwise tree", part, eng)[1]
+            codes, pm, table = traversal_inputs(eng)
+            kw = traversal_kw(part, eng)
+            out["dense_call_ms"] = median_ms(
+                lambda: fused_traversal(codes, pm, table, **kw))
+            out["dense_plain_ms"] = median_ms(
+                lambda: fused_traversal_reference(codes, pm, table, **kw),
+                reps=ANA_REPS)
+            out["dense_device_ms"] = fused_device(
+                "the stepwise tree", part, eng, gpu)
+            out["dense_bound"] = fused_bound(eng, part)
+            print(f"  kernel #1 at {n} x {patterns}: call "
+                  f"{out['dense_call_ms']:.4f} ms (CUDA events, median of "
+                  f"{REPS}), plain version {out['dense_plain_ms']:.4f} ms "
+                  f"(median of {ANA_REPS}), bound "
+                  f"{out['dense_bound'][0]:.4f} ms by "
+                  f"{out['dense_bound'][1]}", flush=True)
+        check_logl("dense loglikelihood()", lnl, ref)
+        out.update(dense_path=path, dense_launches=dense_counts[want],
+                   dense_kernel=want, dense_rel_err=abs(lnl - ref)
+                   / abs(ref), invariant_sites=invariant, logl=lnl)
+
+        # 5. the same data as a site-repeats partition (kernel #5)
+        rpart = analysis_partition(tree, comp, weights, headers, device,
+                                   repeats=True)
+        reng = TreeEngine(rpart, tree, pallas="pool")
+        check(reng.execution_path == "pool-pallas",
+              f"repeats on {reng.execution_path!r}")
+        reset_counts()
+        rlnl = reng.loglikelihood()
+        rep_counts = counts()
+        check(rep_counts["pool"] > 0 and all(
+            c == 0 for kk, c in rep_counts.items() if kk != "pool"),
+            f"'pool-pallas' launched {rep_counts}")
+        n_cls, nat_ms, np_ms = classer_check(rpart, ops)
+        out["pool_ms"] = host_ms(reng.loglikelihood, ANA_REPS)[1]
+        out["pool_max_abs_err"] = compare_pool_case("the stepwise tree",
+                                                    rpart, ops)[1]
+        plan = rpart._pool_plan(ops, True)
+        args = (rpart.clv_flat, rpart.sc_flat, rpart.pmatrix, plan,
+                rpart.scale_threshold, rpart.scale_factor)
+        out["pool_call_ms"] = median_ms(
+            lambda: pool.update_partials_pool(*args))
+        out["pool_plain_ms"] = median_ms(
+            lambda: pool.update_partials_pool(
+                *args, level=pool.pool_update_reference), reps=ANA_REPS)
+        out["pool_device_ms"] = pool_device("the stepwise tree", rpart, ops,
+                                            gpu)[0]
+        _, levels = pool.schedule_pool_levels(
+            copy.deepcopy(rpart.repeats), ops, rpart.tips,
+            rpart.sites_padded, rpart.scale_buffers)
+        out["pool_bound"] = pool_bound(rpart, levels)
+        print(f"  kernel #5 at {n} x {patterns}: call "
+              f"{out['pool_call_ms']:.4f} ms (CUDA events, median of "
+              f"{REPS}), plain version {out['pool_plain_ms']:.4f} ms "
+              f"(median of {ANA_REPS}), bound {out['pool_bound'][0]:.4f} "
+              f"ms by {out['pool_bound'][1]}", flush=True)
+        print(f"  repeats on 'pool-pallas': loglikelihood() "
+              f"{out['pool_ms']:.3f} ms (host clock, median of "
+              f"{ANA_REPS}), launches {rep_counts}; the "
+              f"native classer's classes of {n} tips and {len(ops)} ops == "
+              f"numpy's; its {n_cls} classed ops {nat_ms:.1f} ms native, "
+              f"{np_ms:.1f} ms numpy (host clock)", flush=True)
+        check_logl("'pool-pallas' loglikelihood() vs dense", rlnl, lnl)
+        out.update(pool_launches=rep_counts["pool"], classer_ops=n_cls,
+                   classer_native_ms=nat_ms, classer_numpy_ms=np_ms,
+                   pool_rel_err=abs(rlnl - lnl) / abs(lnl))
+        del reng, rpart
+
+        # 6. bootstrap replicates from one evaluation
+        (logls, W), out["bootstrap_ms"] = timed(
+            lambda: bootstrap_loglikelihoods(eng, ANA_BOOT, seed=ANA_SEED))
+        check(logls.shape == (ANA_BOOT,) and np.isfinite(logls).all()
+              and np.all(W.sum(axis=1) == ANA_SITES),
+              "bootstrap: bad replicates")
+        for r in ANA_BOOT_CHECK:
+            part.set_pattern_weights(W[r].astype(np.int64))
+            check_logl(f"bootstrap replicate {r} re-evaluated",
+                       eng.loglikelihood(), float(logls[r]))
+        part.set_pattern_weights(weights)
+        print(f"  {ANA_BOOT} bootstrap replicates in "
+              f"{out['bootstrap_ms']:.1f} ms (host clock), mean "
+              f"{logls.mean()!r}", flush=True)
+
+        # 7. checkpoint and resume on the card
+        lnl = eng.loglikelihood()
+        ck_clv, ck = os.path.join(tmp, "clv.npz"), os.path.join(tmp, "a.npz")
+        _, out["save_ms"] = timed(lambda: checkpoint.save(
+            ck_clv, part, tree, include_clvs=True, logl=lnl))
+        checkpoint.save(ck, part, tree, logl=lnl)
+        (part2, tree2, extras), out["load_ms"] = timed(
+            lambda: checkpoint.load(ck_clv, device=device))
+        check(float(extras["logl"]) == lnl and torch.equal(part2.clv,
+                                                           part.clv),
+              "checkpoint: extras or CLVs differ after load")
+        r = eng.root_idx
+        blen = [float(eng.branches[r[4]])]
+        edge_lk = []
+        for p in (part, part2):
+            p.update_prob_matrices([0] * 4, [r[4]], blen)
+            edge_lk.append(p.compute_edge_loglikelihood(*r, [0] * 4))
+        check(edge_lk[0] == edge_lk[1], f"checkpoint: the stored CLVs give "
+              f"{edge_lk[1]!r}, the saved partition {edge_lk[0]!r}")
+        part3, tree3, _ = checkpoint.load(ck, device=device)
+        lk3 = TreeEngine(part3, tree3).loglikelihood()
+        print(f"  checkpoint: save {out['save_ms']:.1f} ms, load "
+              f"{out['load_ms']:.1f} ms (host clock); the root edge's logL "
+              f"from the stored CLVs {edge_lk[1]!r} == the saved "
+              f"partition's", flush=True)
+        check_logl("reloaded engine's loglikelihood()", lk3, lnl)
+    out["s"] = time.perf_counter() - t_phase
+    print(f"analysis from an alignment file: {out['s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
@@ -4998,6 +5452,9 @@ def main() -> int:
 
     # 21. model optimization
     opt = optimize_phase(device, gpu, flagship, aa_tree, aa_by)
+
+    # 22. an analysis from an alignment file
+    ana = analysis_phase(device, gpu)
     if args.profile:
         profile([("DNA main path", eng), ("protein main path", aa_eng),
                  ("DNA levels-kernel path", dna[3]),
@@ -5021,6 +5478,23 @@ def main() -> int:
                 "trial_device_ms": t["device_ms"],
                 "trial_bound_ms": t["bound"][0],
                 "trial_bound_by": t["bound"][1]}
+
+    def analysis(kernel):
+        """Phase 22's dense evaluation, on the entry of the kernel that ran
+        it: its launches, host-clock ms and error against float64."""
+        if ana["dense_kernel"] != kernel:
+            return {}
+        extra = {}
+        if "dense_device_ms" in ana:
+            extra = {"analysis_device_ms": ana["dense_device_ms"],
+                     "analysis_call_ms": ana["dense_call_ms"],
+                     "analysis_plain_ms": ana["dense_plain_ms"],
+                     "analysis_max_abs_err": ana["dense_max_abs_err"],
+                     "analysis_bound_ms": ana["dense_bound"][0],
+                     "analysis_bound_by": ana["dense_bound"][1]}
+        return {"analysis_launches": ana["dense_launches"],
+                "analysis_ms": ana["dense_ms"],
+                "analysis_rel_err": ana["dense_rel_err"], **extra}
 
     def variant(prefix, key, launches):
         k, p, (b, by), *bf = var_ms[key]
@@ -5064,7 +5538,8 @@ def main() -> int:
         "trial_repeats_max_abs_err":
             opt["others"]["repeats-dense-fused"]["max_abs_err"],
         "brent_launches": opt["brent"]["evaluations"],
-        "brent_ms_per_evaluation": opt["brent"]["ms_per_evaluation"]}, {
+        "brent_ms_per_evaluation": opt["brent"]["ms_per_evaluation"],
+        **analysis("fused")}, {
         "name": "fused_traversal_rows", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal_rows.cu",
         "replaces": "libpll2_tpu/ops/pallas_fused.py:419",
@@ -5118,7 +5593,8 @@ def main() -> int:
         "sweep_protein_ms_per_pass": opt["aa_sweep"]["ms_per_pass"],
         "trial_launches":
             opt["others"]["levels-kernel"]["step_launches"]["level"],
-        "trial_max_abs_err": opt["others"]["levels-kernel"]["max_abs_err"]},
+        "trial_max_abs_err": opt["others"]["levels-kernel"]["max_abs_err"],
+        **analysis("level")},
         {
         "name": "pool_update", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/pool_update.cu",
@@ -5141,7 +5617,16 @@ def main() -> int:
         **variant("per_rate", "pool_per_rate", rep_pool),
         "trial_launches":
             opt["others"]["pool-pallas"]["step_launches"]["pool"],
-        "trial_max_abs_err": opt["others"]["pool-pallas"]["max_abs_err"]},
+        "trial_max_abs_err": opt["others"]["pool-pallas"]["max_abs_err"],
+        "analysis_launches": ana["pool_launches"],
+        "analysis_ms": ana["pool_ms"],
+        "analysis_device_ms": ana["pool_device_ms"],
+        "analysis_call_ms": ana["pool_call_ms"],
+        "analysis_plain_ms": ana["pool_plain_ms"],
+        "analysis_max_abs_err": ana["pool_max_abs_err"],
+        "analysis_bound_ms": ana["pool_bound"][0],
+        "analysis_bound_by": ana["pool_bound"][1],
+        "analysis_rel_err_vs_dense": ana["pool_rel_err"]},
         probe_entry, {
         "name": "fused_traversal[candidates]", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal.cu",

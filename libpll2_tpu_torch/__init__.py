@@ -10,21 +10,29 @@ empirical models of `models`, with `TreeEngine(mxu=...)`). Module paths and
 names mirror libpll2_tpu/, which stays the reference the port is tested
 against.
 
-`optimize` (branch lengths, exchangeabilities, frequencies, alpha and
-p-inv) and `modelselect` (the ModelTest-NG pattern) sit on top of the
-engine.
+An analysis starts from an alignment file: `io` reads FASTA and PHYLIP
+and compresses the columns to site patterns, `parsimony` builds a
+randomized stepwise-addition starting tree (natively on the host, Fitch on
+the device without the native library), `optimize` (branch lengths,
+exchangeabilities, frequencies, alpha and p-inv) and `modelselect` (the
+ModelTest-NG pattern) sit on top of the engine, `bootstrap_loglikelihoods`
+scores bootstrap replicates from one evaluation, and `checkpoint` saves and
+restores the partition and the tree in libpll2_tpu's format.
 
 The package imports torch, numpy and scipy, and never jax: the host modules
-it needs (constants, io/maps, trees, models, utils/simulate, ops/gamma,
-ops/eigen) are carried over.
+it needs (constants, io, trees, models, utils, ops/gamma, ops/eigen) are
+carried over.
 """
 from . import constants
 from .constants import AscBias, PllError
 from .engine import TreeEngine
 from .ops.gamma import compute_gamma_cats
 from .partition import Operation, Partition
+from . import checkpoint
+from .bootstrap import bootstrap_loglikelihoods
 from . import modelselect
 
 __all__ = ["constants", "AscBias", "PllError", "Operation", "Partition",
-           "TreeEngine", "compute_gamma_cats", "modelselect"]
+           "TreeEngine", "compute_gamma_cats", "checkpoint",
+           "bootstrap_loglikelihoods", "modelselect"]
 __version__ = "0.1.0"

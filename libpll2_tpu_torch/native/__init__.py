@@ -1,16 +1,17 @@
-"""ctypes loader for the search's native host builders (native/pllnative.cpp).
+"""ctypes loader for the port's native host routines (native/pllnative.cpp).
 
-Port of libpll2_tpu/native/__init__.py, trimmed to what search needs:
-`move_candidates` (the batched rounds' apply + pack + rollback of every
-candidate in one call), `spr_stream_enum` and `spr_stream_build` (the
-streamed round's targets and schedule). The library is built with g++ at
-first use into `libpll2_tpu_torch/_build/` (listed in .gitignore), its file
-name keyed on a hash of the source, the flags and the compiler's version,
-so an edit or another toolchain rebuilds it; nothing is written into the
-package directory. When it cannot be built or loaded, `load()` prints the
-reason to stderr once and returns None, and every function here returns
-None: the callers then take the Python builders, which emit bit-identical
-tables.
+Port of libpll2_tpu/native/__init__.py: the site-repeats classer
+(`repeats_tips`, `repeats_update`), the stepwise-addition parsimony build
+(`stepwise`), and the search's builders: `move_candidates` (the batched
+rounds' apply + pack + rollback of every candidate in one call),
+`spr_stream_enum` and `spr_stream_build` (the streamed round's targets and
+schedule). The library is built with g++ at first use into
+`libpll2_tpu_torch/_build/` (listed in .gitignore), its file name keyed on
+a hash of the source, the flags and the compiler's version, so an edit or
+another toolchain rebuilds it; nothing is written into the package
+directory. When it cannot be built or loaded, `load()` prints the reason to
+stderr once and returns None, and every function here returns None: the
+callers then take their Python versions, which give bit-identical results.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ from typing import Optional
 
 import numpy as np
 
-__all__ = ["library_path", "load", "move_candidates", "spr_stream_enum",
+__all__ = ["library_path", "load", "repeats_tips", "repeats_update",
+           "stepwise", "move_candidates", "spr_stream_enum",
            "spr_stream_build"]
 
 SRC = Path(__file__).resolve().parent / "pllnative.cpp"
@@ -66,12 +68,22 @@ def load() -> Optional[ct.CDLL]:
     try:
         lib = ct.CDLL(str(library_path()))
     except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
-        print(f"libpll2_tpu_torch.native: the native builders are "
-              f"unavailable, the search takes the Python builders: {exc}",
-              file=sys.stderr, flush=True)
+        print(f"libpll2_tpu_torch.native: the native host routines are "
+              f"unavailable; the search takes the Python builders, the "
+              f"repeats classer numpy's dedup and the stepwise build its "
+              f"Python loop: {exc}", file=sys.stderr, flush=True)
         return None
     i32p, i64p = ct.POINTER(ct.c_int32), ct.POINTER(ct.c_int64)
     f64p, u8p = ct.POINTER(ct.c_double), ct.POINTER(ct.c_uint8)
+    u32p, u64p = ct.POINTER(ct.c_uint32), ct.POINTER(ct.c_uint64)
+    lib.pll_tpu_repeats_update.restype = ct.c_int64
+    lib.pll_tpu_repeats_update.argtypes = [i32p, i32p, ct.c_int64,
+                                           ct.c_int64, i32p, i32p, i32p]
+    lib.pll_tpu_repeats_tips.restype = ct.c_int64
+    lib.pll_tpu_repeats_tips.argtypes = [u64p, ct.c_int64, i32p, i32p]
+    lib.pll_tpu_stepwise.restype = ct.c_int64
+    lib.pll_tpu_stepwise.argtypes = [u32p, ct.c_int64, ct.c_int64,
+                                     i64p, i64p, ct.c_int64, i32p, i32p]
     lib.pll_tpu_move_candidates.restype = ct.c_int64
     lib.pll_tpu_move_candidates.argtypes = [
         i32p, i32p, i32p, i32p, i32p, f64p,          # tree arrays
@@ -98,6 +110,82 @@ def load() -> Optional[ct.CDLL]:
 
 def _ptr(a: np.ndarray, typ):
     return a.ctypes.data_as(ct.POINTER(typ))
+
+
+def repeats_tips(codes: np.ndarray):
+    """Classes of a tip's sites by state code in first-occurrence order
+    (pll_tpu_repeats_tips): (site_id [sites], id_site [ids], ids), or None
+    when the library is absent."""
+    lib = load()
+    if lib is None:
+        return None
+    c = np.ascontiguousarray(codes, dtype=np.uint64)
+    sites = c.shape[0]
+    site_id = np.empty(sites, dtype=np.int32)
+    id_site = np.empty(sites, dtype=np.int32)
+    ids = lib.pll_tpu_repeats_tips(_ptr(c, ct.c_uint64), sites,
+                                   _ptr(site_id, ct.c_int32),
+                                   _ptr(id_site, ct.c_int32))
+    return site_id, id_site[:ids].copy(), int(ids)
+
+
+def repeats_update(site_id_l: np.ndarray, site_id_r: np.ndarray,
+                   ids_l: int, pair_space: int, lookup: np.ndarray):
+    """Classes of a parent's sites by (left class, right class) pairs in
+    first-occurrence order (pll_tpu_repeats_update); `pair_space` is
+    ids_l * ids_r. `lookup` is the caller's int32 scratch of at least
+    `pair_space` entries, all -1, which the call leaves so. (site_id,
+    id_site [ids], ids), or None when the library is absent."""
+    lib = load()
+    if lib is None:
+        return None
+    if lookup.dtype != np.int32 or lookup.size < pair_space \
+            or not lookup.flags.c_contiguous:
+        raise ValueError("lookup must be contiguous int32 of at least "
+                         f"{pair_space} entries")
+    l = np.ascontiguousarray(site_id_l, dtype=np.int32)
+    r = np.ascontiguousarray(site_id_r, dtype=np.int32)
+    if l.shape != r.shape or l.ndim != 1:
+        raise ValueError(f"class rows of shapes {l.shape} and {r.shape}")
+    sites = l.shape[0]
+    site_id = np.empty(sites, dtype=np.int32)
+    id_site = np.empty(sites, dtype=np.int32)
+    ids = lib.pll_tpu_repeats_update(
+        _ptr(l, ct.c_int32), _ptr(r, ct.c_int32), ids_l, sites,
+        _ptr(lookup, ct.c_int32), _ptr(site_id, ct.c_int32),
+        _ptr(id_site, ct.c_int32))
+    return site_id, id_site[:ids].copy(), int(ids)
+
+
+def stepwise(tip_vecs: np.ndarray, states: np.ndarray, words: np.ndarray,
+             order: np.ndarray):
+    """The whole stepwise-addition build in one call (pll_tpu_stepwise):
+    `tip_vecs` [T, stride] uint32 (each tip's partitions packed one after
+    another, state k of partition p at poff[p] + k * words[p]), `states`
+    and `words` [P], `order` [T] the shuffled insertion order. Returns
+    (back [T + 3 (T - 2)] half-edge back-links, cost over the informative
+    sites) or None when the library is absent; RuntimeError when the
+    library refuses the build."""
+    lib = load()
+    if lib is None:
+        return None
+    tv = np.ascontiguousarray(tip_vecs, dtype=np.uint32)
+    st = np.ascontiguousarray(states, dtype=np.int64)
+    wd = np.ascontiguousarray(words, dtype=np.int64)
+    od = np.ascontiguousarray(order, dtype=np.int32)
+    T, stride = tv.shape
+    if st.shape != wd.shape or int((st * wd).sum()) != stride \
+            or od.shape != (T,):
+        raise ValueError("stepwise: tip vectors, states, words and order "
+                         "do not fit together")
+    back = np.full(T + 3 * (T - 2), -1, dtype=np.int32)
+    cost = lib.pll_tpu_stepwise(
+        _ptr(tv, ct.c_uint32), T, len(st), _ptr(st, ct.c_int64),
+        _ptr(wd, ct.c_int64), stride, _ptr(od, ct.c_int32),
+        _ptr(back, ct.c_int32))
+    if cost < 0:
+        raise RuntimeError(f"pll_tpu_stepwise failed ({cost}) on {T} tips")
+    return back, int(cost)
 
 
 def move_candidates(back, next_, clv, scaler, pmat, length, T: int,

@@ -1,19 +1,367 @@
-// Native host-side builders of the topology search (libpll2_tpu_torch.search).
+// Native host-side routines of the port: the port's own copy of
+// libpll2_tpu/native/pllnative.cpp.
 //
-// The port's own copy of libpll2_tpu/native/pllnative.cpp, trimmed to what
-// search needs: the whole-round candidate builder of the batched NNI/SPR
-// rounds (pll_tpu_move_candidates) and the streamed round's target
-// enumeration and schedule builder (pll_tpu_spr_stream_enum,
-// pll_tpu_spr_stream_build). The site-repeats and stepwise routines stay
-// with their slices. Built with g++ at first use into
-// libpll2_tpu_torch/_build/ and loaded via ctypes (native/__init__.py);
-// without a toolchain the callers take the Python builders, which emit
-// bit-identical tables.
+//  * site-repeats class identification (pll_tpu_repeats_tips,
+//    pll_tpu_repeats_update): the O(sites) lookup-buffer pass run once per
+//    node per topology change (reference: libpll-2 src/repeats.c:189-254
+//    tips, :334-347 inner nodes);
+//  * the randomized stepwise-addition parsimony build (pll_tpu_stepwise);
+//  * the topology search's whole-round candidate builder of the batched
+//    NNI/SPR rounds (pll_tpu_move_candidates) and the streamed round's
+//    target enumeration and schedule builder (pll_tpu_spr_stream_enum,
+//    pll_tpu_spr_stream_build).
+//
+// Built with g++ at first use into libpll2_tpu_torch/_build/ and loaded via
+// ctypes (native/__init__.py); without a toolchain the callers take their
+// Python versions, which give bit-identical results.
 
+#include <array>
 #include <cstdint>
 #include <cstring>
+#include <unordered_map>
 #include <utility>
 #include <vector>
+
+extern "C" {
+
+// Inner-node repeats identification: class the parent by (left, right)
+// class pairs in first-occurrence order. `lookup` is caller-owned scratch
+// of at least ids_l*ids_r int32, filled with -1 on entry; it is restored to
+// -1 before returning (the reference's toclean trick). Returns the number
+// of classes.
+int64_t pll_tpu_repeats_update(const int32_t* site_id_l,
+                               const int32_t* site_id_r,
+                               int64_t ids_l,
+                               int64_t sites,
+                               int32_t* lookup,
+                               int32_t* site_id_out,
+                               int32_t* id_site_out)
+{
+    int32_t curr = 0;
+    for (int64_t s = 0; s < sites; ++s) {
+        const int64_t key = (int64_t)site_id_l[s]
+                          + (int64_t)site_id_r[s] * ids_l;
+        int32_t id = lookup[key];
+        if (id < 0) {
+            id = curr;
+            lookup[key] = curr;
+            id_site_out[curr] = (int32_t)s;
+            ++curr;
+        }
+        site_id_out[s] = id;
+    }
+    for (int32_t c = 0; c < curr; ++c) {
+        const int64_t s = id_site_out[c];
+        lookup[(int64_t)site_id_l[s] + (int64_t)site_id_r[s] * ids_l] = -1;
+    }
+    return curr;
+}
+
+// Tip repeats identification: class sites by their (64-bit) state code in
+// first-occurrence order. Unbounded key space, so a hash map is used.
+int64_t pll_tpu_repeats_tips(const uint64_t* codes,
+                             int64_t sites,
+                             int32_t* site_id_out,
+                             int32_t* id_site_out)
+{
+    std::unordered_map<uint64_t, int32_t> lookup;
+    lookup.reserve(64);
+    int32_t curr = 0;
+    for (int64_t s = 0; s < sites; ++s) {
+        auto it = lookup.find(codes[s]);
+        int32_t id;
+        if (it == lookup.end()) {
+            id = curr;
+            lookup.emplace(codes[s], curr);
+            id_site_out[curr] = (int32_t)s;
+            ++curr;
+        } else {
+            id = it->second;
+        }
+        site_id_out[s] = id;
+    }
+    return curr;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// Native stepwise-addition engine.
+//
+// The stepwise build (reference: libpll-2 src/stepwise.c:391-594)
+// is a host-latency-bound loop: ~N insertions x ~2N candidate edges of
+// microsecond-scale bit-ops work, where every device launch would cost
+// more than the work it carries. This is the same ALGORITHM as
+// parsimony/stepwise.py + parsimony/fitch.py (identical traversal order,
+// validity flags, first-minimum tie-breaking, so the produced topology is
+// bit-identical per seed) executed on the host CPU. Multi-partition
+// scores are summed per candidate exactly like
+// pll_fastparsimony_stepwise (stepwise.c:337-346).
+//
+// Directional-vector layout: node_index addressing identical to the Python
+// loop: tips 0..T-1, inner node i owns half-edges T+3i+k (k=0,1,2) in a
+// ring. Each node slot holds `stride` uint32 words: partition p's state-k
+// bitvector at [poff[p] + k*W[p] .. +W[p]).
+
+namespace stepwise {
+
+struct Ctx {
+    int64_t T;                   // tip count
+    int64_t stride;              // words per node slot
+    int64_t P;                   // partitions
+    const int64_t* states;       // [P]
+    const int64_t* W;            // [P] words per state vector
+    const int64_t* poff;         // [P] word offset of partition p
+    std::vector<uint32_t> vec;   // [node_count * stride]
+    std::vector<int64_t> cost;   // [node_count]
+    std::vector<int32_t> back;   // [node_count]
+    std::vector<int32_t> next;   // [node_count]
+    std::vector<uint8_t> valid;  // [node_count]
+    std::vector<uint32_t> tmp;   // [stride] join scratch
+    std::vector<uint32_t> uni;   // [max W] union scratch
+
+    bool is_tip(int32_t n) const { return n < (int32_t)T; }
+    uint32_t* v(int32_t n) { return vec.data() + (int64_t)n * stride; }
+};
+
+// popcount of ~uni over a word run (the Fitch step count): uint64 pairs
+// feed the hardware popcnt.
+static inline int64_t count_steps(const uint32_t* uni, int64_t W)
+{
+    int64_t steps = 0, w = 0;
+    for (; w + 2 <= W; w += 2) {
+        uint64_t u;
+        std::memcpy(&u, uni + w, 8);
+        steps += __builtin_popcountll(~u);
+    }
+    for (; w < W; ++w)
+        steps += __builtin_popcount(~uni[w]);
+    return steps;
+}
+
+// Fitch join of children c1, c2 into `out`; returns the step count.
+// out may alias neither child. (fitch.py _update_kernel semantics.)
+// Word-contiguous inner loops so -O3 autovectorizes the
+// AND/OR/ANDN passes.
+static int64_t join(Ctx& c, const uint32_t* a, const uint32_t* b,
+                    uint32_t* out)
+{
+    int64_t steps = 0;
+    uint32_t* uni = c.uni.data();
+    for (int64_t p = 0; p < c.P; ++p) {
+        const int64_t S = c.states[p], W = c.W[p], off = c.poff[p];
+        for (int64_t w = 0; w < W; ++w)
+            uni[w] = a[off + w] & b[off + w];
+        for (int64_t k = 1; k < S; ++k) {
+            const uint32_t* ak = a + off + k * W;
+            const uint32_t* bk = b + off + k * W;
+            for (int64_t w = 0; w < W; ++w)
+                uni[w] |= ak[w] & bk[w];
+        }
+        for (int64_t k = 0; k < S; ++k) {
+            const uint32_t* ak = a + off + k * W;
+            const uint32_t* bk = b + off + k * W;
+            uint32_t* ok = out + off + k * W;
+            for (int64_t w = 0; w < W; ++w)
+                ok[w] = (ak[w] & bk[w]) | (~uni[w] & (ak[w] | bk[w]));
+        }
+        steps += count_steps(uni, W);
+    }
+    return steps;
+}
+
+// OR-of-ANDs edge score between two existing vectors (no join output).
+static int64_t score(Ctx& c, const uint32_t* a, const uint32_t* b)
+{
+    int64_t steps = 0;
+    uint32_t* uni = c.uni.data();
+    for (int64_t p = 0; p < c.P; ++p) {
+        const int64_t S = c.states[p], W = c.W[p], off = c.poff[p];
+        for (int64_t w = 0; w < W; ++w)
+            uni[w] = a[off + w] & b[off + w];
+        for (int64_t k = 1; k < S; ++k) {
+            const uint32_t* ak = a + off + k * W;
+            const uint32_t* bk = b + off + k * W;
+            for (int64_t w = 0; w < W; ++w)
+                uni[w] |= ak[w] & bk[w];
+        }
+        steps += count_steps(uni, W);
+    }
+    return steps;
+}
+
+// Partial postorder over still-invalid directional vectors, emitting
+// (parent, c1, c2) joins in dependency order (stepwise.py _partial_ops /
+// utree.py traverse: rec(root.back) then rec(root)).
+static void partial_rec(Ctx& c, int32_t n,
+                        std::vector<std::array<int32_t, 3>>& ops);
+
+static void partial_ops(Ctx& c, int32_t r,
+                        std::vector<std::array<int32_t, 3>>& ops)
+{
+    partial_rec(c, c.back[r], ops);
+    partial_rec(c, r, ops);
+}
+
+static void partial_rec(Ctx& c, int32_t n,
+                        std::vector<std::array<int32_t, 3>>& ops)
+{
+    if (c.is_tip(n))
+        return;
+    if (c.valid[n])
+        return;                          // prune: subtree still valid
+    c.valid[n] = 1;
+    for (int32_t s = c.next[n]; s != n; s = c.next[s])
+        partial_rec(c, c.back[s], ops);
+    ops.push_back({n, c.back[c.next[n]], c.back[c.next[c.next[n]]]});
+}
+
+// Mark every inner directional vector facing `root` valid (the
+// post-insertion re-validation walk: traverse(tip.back) with no pruning).
+static void revalidate_rec(Ctx& c, int32_t n)
+{
+    if (c.is_tip(n))
+        return;
+    for (int32_t s = c.next[n]; s != n; s = c.next[s])
+        revalidate_rec(c, c.back[s]);
+    c.valid[n] = 1;
+}
+
+static void invalidate_ring(Ctx& c, int32_t n)
+{
+    c.valid[n] = 0;
+    for (int32_t s = c.next[n]; s != n; s = c.next[s])
+        c.valid[s] = 0;
+}
+
+}  // namespace stepwise
+
+extern "C" {
+
+// Runs the full randomized stepwise-addition build. `tip_vecs` is
+// [T * stride] uint32 (per tip: partitions packed at poff[p] + k*W[p]);
+// `order` the pre-shuffled tip insertion order (utils/rng.py glibc
+// stream). Fills back_out[node_count] with half-edge back-links (-1 =
+// unlinked) from which the caller rebuilds the tree; returns the final
+// parsimony score over informative sites (caller adds const costs).
+int64_t pll_tpu_stepwise(const uint32_t* tip_vecs,
+                         int64_t T,
+                         int64_t P,
+                         const int64_t* states,
+                         const int64_t* W,
+                         int64_t stride,
+                         const int32_t* order,
+                         int32_t* back_out)
+{
+    using namespace stepwise;
+    if (T < 3)
+        return -1;
+    const int64_t node_count = T + 3 * (T - 2);
+    std::vector<int64_t> poff(P);
+    int64_t off = 0;
+    for (int64_t p = 0; p < P; ++p) {
+        poff[p] = off;
+        off += states[p] * W[p];
+    }
+
+    Ctx c;
+    c.T = T;
+    c.stride = stride;
+    c.P = P;
+    c.states = states;
+    c.W = W;
+    c.poff = poff.data();
+    c.vec.assign(node_count * stride, 0);
+    c.cost.assign(node_count, 0);
+    c.back.assign(node_count, -1);
+    c.next.assign(node_count, -1);
+    c.valid.assign(node_count, 0);
+    c.tmp.assign(stride, 0);
+    int64_t max_w = 1;
+    for (int64_t p = 0; p < P; ++p)
+        max_w = W[p] > max_w ? W[p] : max_w;
+    c.uni.assign(max_w, 0);
+    std::memcpy(c.vec.data(), tip_vecs,
+                (size_t)T * stride * sizeof(uint32_t));
+
+    // inner node i: half-edges T+3i+{0,1,2} in a ring (stepwise.py
+    // _inner_create); the start trifurcation uses inner ordinal T-3
+    auto base = [&](int64_t i) { return (int32_t)(T + 3 * i); };
+    for (int64_t i = 0; i < T - 2; ++i) {
+        c.next[base(i)] = base(i) + 1;
+        c.next[base(i) + 1] = base(i) + 2;
+        c.next[base(i) + 2] = base(i);
+    }
+    auto link = [&](int32_t a, int32_t b) { c.back[a] = b; c.back[b] = a; };
+
+    const int32_t root = base(T - 3);
+    link(root, order[0]);
+    link(root + 1, order[1]);
+    link(root + 2, order[2]);
+    std::vector<int32_t> edges = {root, root + 1, root + 2};
+
+    std::vector<std::array<int32_t, 3>> ops;
+    int64_t cost = 0;
+    for (int64_t i = 3; i < T; ++i) {
+        const int32_t b0 = base(i - 3);
+        const int32_t tip = order[i];
+
+        // refresh invalid directional vectors via partial traversals
+        // rooted at every tip-adjacent inner half-edge
+        ops.clear();
+        for (int32_t e : edges) {
+            const int32_t r = c.is_tip(e) ? c.back[e] : e;
+            if (c.is_tip(c.back[r]))
+                partial_ops(c, r, ops);
+        }
+        for (const auto& op : ops) {
+            const int64_t steps =
+                join(c, c.v(op[1]), c.v(op[2]), c.v(op[0]));
+            c.cost[op[0]] = steps + c.cost[op[1]] + c.cost[op[2]];
+        }
+
+        // score the tip against every edge; keep the FIRST minimum
+        int64_t best = -1, best_score = 0;
+        for (size_t j = 0; j < edges.size(); ++j) {
+            const int32_t e1 = edges[j], e2 = c.back[e1];
+            const int64_t s1 =
+                join(c, c.v(e1), c.v(e2), c.tmp.data());
+            const int64_t s =
+                s1 + c.cost[e1] + c.cost[e2] + c.cost[tip] +
+                score(c, c.tmp.data(), c.v(tip));
+            if (best < 0 || s < best_score) {
+                best = (int64_t)j;
+                best_score = s;
+            }
+        }
+        cost = best_score;
+
+        // splice: link(a.back, inner.next); link(a, inner);
+        // link(inner.next.next, tip)  (stepwise.py _edgesplit)
+        const int32_t a = edges[best];
+        link(c.back[a], b0 + 1);
+        link(a, b0);
+        link(b0 + 2, tip);
+        edges.push_back(b0 + 1);
+        edges.push_back(b0 + 2);
+
+        // invalidate everything, re-validate the side kept by the insert
+        for (int32_t e : edges)
+            if (!c.is_tip(e))
+                invalidate_ring(c, e);
+        const int32_t tb = c.back[tip];
+        revalidate_rec(c, c.back[tb]);
+        revalidate_rec(c, tb);
+        invalidate_ring(c, b0);
+    }
+
+    std::memcpy(back_out, c.back.data(),
+                (size_t)node_count * sizeof(int32_t));
+    return cost;
+}
+
+}  // extern "C"
+
 
 // ---------------------------------------------------------------------
 // Native SPR candidate builder.

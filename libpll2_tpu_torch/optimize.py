@@ -482,9 +482,12 @@ def _sweep_inputs(engine: TreeEngine, tree):
     """(arguments, keywords) of ops/branch_sweep.py:newton_sweep for the
     engine's partition and model and `tree`'s topology and lengths: the
     schedule, the postorder's level tables for the combined buffers (trash
-    row K + n_aux, zero row K + n_aux + 1) and the P-matrices of the current
-    lengths (JAX passes the partition's pmatrix buffer, stale until an
-    evaluation has filled it: ROADMAP C)."""
+    row K + n_aux, zero row K + n_aux + 1), the tree's lengths as the Newton
+    start and, for the first refresh, the P-matrices of the engine's
+    branches: what JAX's pmatrix buffer holds once an evaluation has filled
+    it (libpll2_tpu/optimize.py:545-556). After `maximize_loglikelihood`
+    of the branches, the engine's branches are the optimized ones while the
+    tree keeps its old lengths until `apply_branches_to_tree`."""
     from .ops import branch_sweep
     from .ops import levels as ops_levels
     from .trees import create_operations, traverse
@@ -504,7 +507,8 @@ def _sweep_inputs(engine: TreeEngine, tree):
     (ev, inv_evecs, evecs, prop_invar, rates, rate_weights, freqs,
      params_idx_rates) = engine._model_args()
     pmatrix = ops_pmatrix.update_prob_matrices(
-        ev, inv_evecs, evecs, prop_invar, rates, params_idx_rates, blen)
+        ev, inv_evecs, evecs, prop_invar, rates, params_idx_rates,
+        engine.branches)
     pw, invariant = engine._site_args()
     args = (p.clv, p.scale_buffer, pmatrix, blen, ev, inv_evecs, evecs,
             prop_invar, rates, rate_weights, freqs, params_idx_rates, tables,

@@ -515,6 +515,15 @@ class Partition:
             raise C.PllError(C.ERROR_INVAR_NONEFOUND,
                              "No invariant sites found")
 
+    def count_invariant_sites(self) -> int:
+        """Sites (pattern weights) whose tips share one state
+        (libpll2_tpu/partition.py:517-521); detects them first if a tip
+        setter made the detection stale."""
+        if not self._invariant_valid:
+            self.update_invariant_sites()
+        mask = self.invariant[:self.sites] >= 0
+        return int(self.pattern_weights[:self.sites][mask].sum())
+
     # ----------------------------------------------------------------- eigen
     def update_eigen(self, params_index: int) -> None:
         es = ops_eigen.update_eigen(self.subst_params[params_index],

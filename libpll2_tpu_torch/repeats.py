@@ -18,8 +18,11 @@ A repeats partition stores its CLVs as one pool of class columns
 (`FlatLayout`), the reference's per-node reallocation (repeats.c:256-296)
 with every node's region rounded up to a 128-column bucket, exactly as the
 JAX package lays it out, so that the two pools line up column for column.
-Classes come from numpy's first-occurrence dedup (the JAX package may take
-a C++ helper for the same classes; the port has none).
+Classes come from the native classer (native/pllnative.cpp
+pll_tpu_repeats_tips and pll_tpu_repeats_update, the reference's
+lookup-buffer pass), as in the JAX package; without the library, from
+numpy's first-occurrence dedup, which gives the same classes
+(`native.load` says so on stderr once).
 
 One difference from the JAX package: a scaler's capacity covers the nodes
 that READ it in the schedule as well as those that write it, and a scaler
@@ -32,9 +35,11 @@ columns).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import native
 
 __all__ = ["LOOKUP_BUFFER_SIZE", "RepeatsTable", "FlatLayout",
            "build_flat_layout", "bucket_width", "classify_operations",
@@ -65,6 +70,9 @@ class RepeatsTable:
     site_id: np.ndarray = field(init=False)   # [nodes, sites] int32
     id_site: np.ndarray = field(init=False)   # [nodes, sites] int32
     ids: np.ndarray = field(init=False)       # [nodes] int32; 0 = plain
+    # the native classer's pair lookup buffer (all -1 between calls)
+    _lookup: Optional[np.ndarray] = field(init=False, default=None,
+                                          repr=False)
 
     def __post_init__(self):
         # identity mapping = repeats disabled
@@ -88,8 +96,10 @@ class RepeatsTable:
 
     def set_tip(self, tip_index: int, codes: np.ndarray) -> None:
         """Class tips by state code (pll_update_repeats_tips)."""
-        site_id, id_site, ids = _first_occurrence_classes(
-            np.asarray(codes, dtype=np.uint64))
+        codes = np.asarray(codes, dtype=np.uint64)
+        nat = native.repeats_tips(codes)
+        site_id, id_site, ids = (nat if nat is not None
+                                 else _first_occurrence_classes(codes))
         self.site_id[tip_index, :] = site_id
         self.id_site[tip_index, :ids] = id_site
         self.id_site[tip_index, ids:] = 0
@@ -112,9 +122,17 @@ class RepeatsTable:
         if not self.enable_for(l, r):
             self.reset_node(p)
             return
-        codes = (self.site_id[l].astype(np.int64)
-                 + self.site_id[r].astype(np.int64) * int(self.ids[l]))
-        site_id, id_site, ids = _first_occurrence_classes(codes)
+        li, ri = int(self.ids[l]), int(self.ids[r])
+        if self._lookup is None or self._lookup.size < li * ri:
+            self._lookup = np.full(li * ri, -1, dtype=np.int32)
+        nat = native.repeats_update(self.site_id[l], self.site_id[r], li,
+                                    li * ri, self._lookup)
+        if nat is not None:
+            site_id, id_site, ids = nat
+        else:
+            site_id, id_site, ids = _first_occurrence_classes(
+                self.site_id[l].astype(np.int64)
+                + self.site_id[r].astype(np.int64) * li)
         if ids >= self.sites:         # no compression: force plain
             self.reset_node(p)
             return

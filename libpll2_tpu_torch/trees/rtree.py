@@ -3,7 +3,7 @@
 Mirrors the reference's pll_rnode_t services (reference:
 libpll-2 src/rtree.c: traverse :355, create_operations :262,
 template indices parse_rtree.y:167-211). Carried over from
-libpll2_tpu/trees/rtree.py without the parsimony helpers.
+libpll2_tpu/trees/rtree.py.
 """
 from __future__ import annotations
 
@@ -133,3 +133,21 @@ def create_operations(trav: Sequence[RNode]):
                 child2_scaler_index=node.right.scaler_index,
             ))
     return operations, branches, pmatrix_indices
+
+
+def create_pars_buildops(trav: Sequence[RNode]):
+    """pll_rtree_create_pars_buildops (rtree.c:458-481)."""
+    from ..parsimony.sankoff import ParsBuildOp
+    return [ParsBuildOp(n.clv_index, n.left.clv_index, n.right.clv_index)
+            for n in trav if n.left is not None]
+
+
+def create_pars_recops(trav: Sequence[RNode]):
+    """pll_rtree_create_pars_recops (rtree.c:483-518), preorder input."""
+    from ..parsimony.sankoff import ParsRecOp
+    ops = []
+    for n in trav:
+        if n.left is not None:
+            pidx = n.parent.clv_index if n.parent is not None else 0
+            ops.append(ParsRecOp(n.clv_index, n.clv_index, pidx, pidx))
+    return ops

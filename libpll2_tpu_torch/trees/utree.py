@@ -14,7 +14,7 @@ and buffer indices are interchangeable with the reference:
     entry point, own clv index otherwise).
 
 Carried over from libpll2_tpu/trees/utree.py so that the port imports no
-jax (the parsimony helpers come with their slice).
+jax.
 """
 from __future__ import annotations
 
@@ -227,3 +227,12 @@ def compile_levels(operations: Sequence[Operation],
             levels.append([])
         levels[mylevel].append(op)
     return levels
+
+
+def create_pars_buildops(trav: Sequence[UNode]):
+    """Fitch-parsimony operation list over half-edge node indices
+    (pll_utree_create_pars_buildops, utree.c:762-785)."""
+    from ..parsimony.sankoff import ParsBuildOp
+    return [ParsBuildOp(node.node_index, node.next.back.node_index,
+                        node.next.next.back.node_index)
+            for node in trav if not node.is_tip()]

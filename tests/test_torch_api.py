@@ -34,7 +34,7 @@ NOT_YET = {
         # them out
         "loglikelihood_loop": "not ported", "newton_loop": "not ported",
     },
-    "Partition": {"count_invariant_sites": "A6"},
+    "Partition": {},
 }
 
 

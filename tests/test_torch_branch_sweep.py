@@ -159,6 +159,37 @@ def test_sweep_starts_from_the_current_lengths():
     assert abs(jl - lks[0]) > 100.0
 
 
+@pytest.mark.parametrize("passes", [1, 2])
+def test_sweep_after_the_gradient_route_matches_jax(passes):
+    """The sweep after `maximize_loglikelihood` of the branches, which sets
+    the engine's branches but not the tree's: evaluate, then sweep without
+    `apply_branches_to_tree`. JAX's first refresh reads the P-matrices of
+    the optimized branches from its pmatrix buffer and starts Newton from
+    the tree's lengths; the port must do the same (ROADMAP C2). logL to
+    1e-10 relative, the tree's branches and the engine's to 1e-10."""
+    jp, jt, tpart, tt = _problem()
+    kw = dict(steps=6, learning_rate=0.05, chunk=3, patience=10)
+    groups = ("branches", "subst", "freqs")
+    jeng = JTreeEngine(jp, jt, pallas=False)
+    jopt.maximize_loglikelihood(jeng, groups, **kw)
+    jl0 = jeng.loglikelihood()
+    jl = jopt.newton_smooth_all(jeng, jt, passes=passes)
+    eng = tp.TreeEngine(tpart, tt, pallas=False)
+    topt.maximize_loglikelihood(eng, groups, **kw)
+    tl0 = eng.loglikelihood()
+    assert tl0 == pytest.approx(jl0, rel=1e-10)
+    blen = _edge_lengths(tt)
+    assert not np.allclose(eng.branches.numpy()[list(blen)],
+                           list(blen.values()))
+    tl = topt.newton_smooth_all(eng, tt, passes=passes)
+    assert tl == pytest.approx(jl, rel=1e-10)
+    jlen, tlen = _edge_lengths(jt), _edge_lengths(tt)
+    for k in jlen:
+        assert tlen[k] == pytest.approx(jlen[k], rel=1e-10), k
+    np.testing.assert_allclose(eng.branches.numpy(),
+                               np.asarray(jeng.branches), rtol=1e-10)
+
+
 def test_newton_optimize_branches_matches_jax():
     """The step-by-step host loop against JAX's: logL to 1e-10, branches
     to 1e-8."""

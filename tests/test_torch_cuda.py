@@ -1292,3 +1292,103 @@ def test_sweep_step_matches_plain_on_card(cuda):
     lk = newton_smooth_all(eng, tree, passes=2)
     ref = newton_smooth_all(cpu_eng, cpu_tree, passes=2)
     assert abs(lk - ref) / abs(ref) < 5e-5
+
+
+def _fitch_problem(device, n=40, sites=500, seed=12):
+    from libpll2_tpu_torch.parsimony import FastParsimony
+
+    tree = random_utree([f"t{i}" for i in range(n)], seed=seed)
+    headers, seqs = simulate_alignment(tree, sites, [0.3, 0.2, 0.2, 0.3],
+                                       [1, 2, 1, 1, 2, 1], alpha=0.8,
+                                       seed=seed)
+    part = Partition(n, n - 2, 4, sites, 1, 2 * n - 3, 1, n - 2,
+                     device=device)
+    part.set_tip_states_batch(maps.map_nt, seqs)
+    return tree, headers, FastParsimony(part)
+
+
+def test_fitch_on_card_equals_cpu(cuda):
+    """Fitch vectors and node costs over a tree's ops, edge scores and one
+    tip's insertion scores over every edge on the card `==` the CPU's; the
+    stepwise Python loop with Fitch on the card `==` the native build."""
+    from libpll2_tpu_torch.parsimony.stepwise import fastparsimony_stepwise
+    from libpll2_tpu_torch.trees import export_newick
+    from libpll2_tpu_torch.trees.utree import create_pars_buildops
+
+    tree, headers, on_card = _fitch_problem(cuda)
+    _, _, on_cpu = _fitch_problem("cpu")
+    assert on_card.vectors.device.type == "cuda"
+    ops = create_pars_buildops(traverse(tree.vroot))
+    for fp in (on_card, on_cpu):
+        fp.update_vectors(ops)
+    assert torch.equal(on_card.vectors.cpu(), on_cpu.vectors)
+    assert torch.equal(on_card.node_cost.cpu(), on_cpu.node_cost)
+    trav = traverse(tree.vroot)
+    e1 = np.array([h.node_index for h in trav if h.back is not None])
+    e2 = np.array([h.back.node_index for h in trav if h.back is not None])
+    card, host = ((fp.edge_score(tree.vroot.node_index,
+                                 tree.vroot.back.node_index),
+                   fp.batch_insert_scores(3, e1, e2))
+                  for fp in (on_card, on_cpu))
+    assert card[0] == host[0]
+    np.testing.assert_array_equal(card[1], host[1])
+    nat = fastparsimony_stepwise([on_card], headers, 7)
+    loop = fastparsimony_stepwise([on_card], headers, 7, use_native=False)
+    assert nat[1] == loop[1]
+    assert export_newick(nat[0].vroot) == export_newick(loop[0].vroot)
+
+
+def test_native_classer_on_card_resident_repeats(cuda):
+    """A repeats partition on the card: the native classer's classes of
+    every tip and op `==` numpy's, and its 'pool-pallas' logL equals the
+    same partition's on the CPU in float32 to 1e-5."""
+    from libpll2_tpu_torch import native
+    from libpll2_tpu_torch.repeats import _first_occurrence_classes
+
+    assert native.load() is not None
+    tree = random_utree([f"t{i}" for i in range(48)], seed=4)
+    for nd in tree.nodes():
+        for h in ([nd] if nd.is_tip() else list(nd.ring())):
+            if h.back is not None:
+                h.length = 0.02
+    headers, seqs = simulate_alignment(tree, 900, [0.25] * 4,
+                                       [1, 2, 1, 1, 2, 1], alpha=0.7,
+                                       seed=4)
+    by = dict(zip(headers, seqs))
+    lk = []
+    for device in (cuda, "cpu"):
+        part = Partition(48, 46, 4, 900, 1, 93, 4, 46, device=device,
+                         site_repeats=True)
+        tips = list(tree.tips())
+        part.set_tip_states_batch(maps.map_nt, [by[t.label] for t in tips],
+                                  [t.clv_index for t in tips])
+        part.set_frequencies(0, [0.25] * 4)
+        part.set_subst_params(0, [1, 2, 1, 1, 2, 1])
+        part.set_category_rates(compute_gamma_cats(0.7, 4))
+        eng = TreeEngine(part, tree, pallas="pool")
+        lk.append(eng.loglikelihood())
+        if device != "cpu":
+            table = part.repeats
+            for t in range(48):
+                sid, isite, ids = _first_occurrence_classes(
+                    part.tip_states[t, :900])
+                assert int(table.ids[t]) == ids
+                assert np.array_equal(table.site_id[t], sid)
+            ops = create_operations(traverse(tree.vroot))[0]
+            classed = 0
+            for op in ops:
+                p, l, r = (op.parent_clv_index, op.child1_clv_index,
+                           op.child2_clv_index)
+                if not table.enable_for(l, r):
+                    continue
+                sid, isite, ids = _first_occurrence_classes(
+                    table.site_id[l].astype(np.int64)
+                    + table.site_id[r].astype(np.int64)
+                    * int(table.ids[l]))
+                if ids < 900:
+                    classed += 1
+                    assert int(table.ids[p]) == ids
+                    assert np.array_equal(table.site_id[p], sid)
+                    assert np.array_equal(table.id_site[p, :ids], isite)
+            assert classed > 10
+    assert lk[0] == pytest.approx(lk[1], rel=1e-5)

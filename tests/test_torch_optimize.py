@@ -395,6 +395,61 @@ def test_maximize_fused_matches_jax():
     np.testing.assert_allclose(s[1], s[4], rtol=1e-12)
 
 
+def test_maximize_fused_on_a_pooled_engine():
+    """maximize_fused on the port's 'pool' engine (20 states at 8 x 65 with
+    site repeats, the frequencies, 2 steps) against JAX's on a dense twin:
+    histories, the final logL and the frequencies to 1e-10. JAX's own run on
+    the pooled engine raises NameError: libpll2_tpu/optimize.py:298 calls
+    `_repeats_loglikelihood`, which :35 does not import (ROADMAP C)."""
+    from libpll2_tpu.models import load_aa_model as j_load_aa_model
+    from libpll2_tpu_torch.models import load_aa_model
+
+    n, sites = 8, 65
+    labels = [f"t{i}" for i in range(n)]
+    rng = np.random.default_rng(31)
+    freqs = rng.dirichlet(np.ones(20) * 5)
+    headers, seqs = simulate_alignment(
+        random_utree(labels, seed=31), sites, freqs,
+        rng.uniform(0.5, 2.0, 190), alpha=0.9, seed=31)
+    by = dict(zip(headers, seqs))
+
+    def build(jax_side, repeats):
+        tree = (j_random_utree if jax_side else random_utree)(labels,
+                                                               seed=31)
+        if jax_side:
+            part = JPartition(n, n - 2, 20, sites, 1, 2 * n - 3, 4, n - 2,
+                              site_repeats=repeats, dtype="float64")
+            cm, gamma, load = jmaps.map_aa, j_gamma_cats, j_load_aa_model
+        else:
+            part = tp.Partition(n, n - 2, 20, sites, 1, 2 * n - 3, 4, n - 2,
+                                device=CPU, dtype=F64, site_repeats=repeats)
+            cm, gamma, load = maps.map_aa, tp.compute_gamma_cats, \
+                load_aa_model
+        for tip in tree.tips():
+            part.set_tip_states(tip.clv_index, cm, by[tip.label])
+        load(part, "lg")
+        part.set_category_rates(gamma(0.9, 4))
+        return ((JTreeEngine if jax_side else tp.TreeEngine)(
+            part, tree, pallas="pool" if repeats else False))
+
+    kw = dict(steps=2, chunk=2, patience=10)
+    pooled = build(False, True)
+    assert pooled.execution_path == "pool-pallas"
+    assert pooled.partition.repeats is not None
+    jdense = build(True, False)
+    jout = jopt.maximize_fused(jdense, ("freqs",), **kw)
+    tout = topt.maximize_fused(pooled, ("freqs",), **kw)
+    assert len(tout[2]) == len(jout[2]) == 2
+    np.testing.assert_allclose(tout[2], jout[2], rtol=1e-10)
+    assert tout[0] == pytest.approx(jout[0], rel=1e-10)
+    np.testing.assert_allclose(pooled.partition.frequencies,
+                               jdense.partition.frequencies, rtol=1e-10)
+    jpooled = build(True, True)
+    assert jpooled.repeats_mode
+    with pytest.raises(NameError, match="_repeats_loglikelihood"):
+        jopt.maximize_fused(jpooled, ("freqs",), **kw)
+
+
 def test_maximize_routes_to_fused_on_a_kernel_engine():
     """maximize_loglikelihood on the port's fused engine takes the trial
     route: the same run as maximize_fused's."""
