@@ -219,7 +219,32 @@ each fatal on failure:
      checkpoint saved with and without CLVs and loaded onto the card: the
      root edge's logL from the stored CLVs equal to the saved partition's,
      the reloaded engine's within TOL_LOGL. Host-clock ms of each step,
-     the classer's ms native and numpy.
+     the classer's ms native and numpy;
+ 23. placement and partitioned analyses (libpll2_tpu_torch.placement,
+     partitioned): (a) tools/benchmarks.py:734-793's EPA workload (a
+     101-taxon random_utree, seed 23, 1024 sites simulated under GTR (1, 2,
+     1, 1, 2, 1), frequencies 0.3/0.2/0.2/0.3, alpha 0.9; t100 pruned, 197
+     edges): place() of the pruned taxon (its true edge ranked first),
+     place_batch of 32 queries in chunks of 16, place_stream of 1000 (5 %
+     mutated, 20 % gapped copies of reference rows) and to_jplace(top_k=7);
+     (b) the DNA main path's 128 x 16384 and the protein's 128 x 8192
+     LG+G4 ('split') with their last taxon pruned, 16 and 4 queries through
+     place_batch (one chunk) and 1000 through place_stream; every launch
+     of the fused kernels' query form (kernel #1 and #2, the queries x
+     edges of a chunk in one launch, split along the edges above
+     ops/fused.py:QUERY_LAUNCH_BYTES) held against its plain version
+     (counts equal but at ties, CLVs TOL_CLV), every place_batch query
+     against place() (TOL_LOGL) and the first against float64 on the
+     card, place_stream's first queries against place() (2e-5); host-clock
+     ms and queries/s of each placer, one launch's device time, bound and
+     plain time, prepare_stream's level launches and ms; (c) a
+     PartitionedEngine of phase 20's simulated DNA in three partitions,
+     each its own GTR+G4, and 2048 LG+G4 protein sites simulated on the
+     true tree, on phase 20's start tree: loglikelihood() against four
+     single engines and float64 on the card, three linked newton_step()s
+     (one root length), one streamed SPR round (radius 5) against its
+     batched twin (the same moves and splits, TOL_LOGL), PART_STEPS maximize() steps
+     of subst and freqs (maximize_fused a unit), launches counted.
 
 The last three lines are the card's name and power limit, one JSON object
 listing every kernel (with its bound at the card's peaks), and {"ok": true,
@@ -5186,6 +5211,505 @@ def analysis_phase(device, gpu):
     return out
 
 
+# ------------------------------------- 23. placement, partitioned analyses
+# phase 23a: the repo's own EPA workload, at tools/benchmarks.py:734-793's
+# shapes; 23b: the main paths' problems as reference trees; 23c: a
+# partitioned analysis on phase 20's DNA problem
+EPA_TAXA, EPA_SITES, EPA_SEED = 101, 1024, 23
+EPA_BATCH, EPA_CHUNK, EPA_TOP = 32, 16, 7
+PLACE_DNA_BATCH, PLACE_AA_BATCH = 16, 4
+PLACE_STREAM = 1000
+# queries checked against place() after place_stream, and edges of the
+# first query evaluated in float64 on the card
+PLACE_STREAM_CHECK, PLACE_F64_EDGES = 8, 4
+PART_DNA_BLOCKS, PART_AA_SITES, PART_STEPS = 3, 2048, 10
+
+
+def query_checker(results, label):
+    """A stand-in for ops/fused.py:fused_traversal in an EdgePlacer's query
+    form (`EdgePlacer._traversal`): each launch (the path's own, counted by
+    the wrapper), then the plain version on the same inputs: counts equal
+    but at ties (`match_counts`), root CLVs within TOL_CLV of each site's
+    max. Appends each launch's (queries, edges, max_abs_err, its inputs) to
+    `results` and returns the kernel's rows."""
+    import torch
+    from libpll2_tpu_torch.ops import fused
+
+    def traversal(tip_codes, pmatrix, table, **kw):
+        got = fused.fused_traversal(tip_codes, pmatrix, table, **kw)
+        want = fused.fused_traversal_reference(tip_codes, pmatrix, table,
+                                               **kw)
+        q, e = got[0].shape[:2]
+
+        def block(en):
+            """(query, edge, site) or (query, edge, rate, site)."""
+            if kw.get("rate_scalers"):
+                return (en[0], en[1], en[2], slice(None), en[3])
+            return (en[0], en[1], slice(None), slice(None), en[2])
+
+        ties = sum(match_counts(f"{label}, {which}", g_sc, w_sc, g_clv,
+                                w_clv, block, kw["factor"], kw["threshold"])
+                   for g_sc, w_sc, g_clv, w_clv, which in (
+                       (got[2], want[2], got[0], want[0], "parent"),
+                       (got[3], want[3], got[1], want[1], "child")))
+        rel = err = 0.0
+        for g, w in zip(got[:2], want[:2]):
+            check(bool(torch.isfinite(g).all()), f"{label}: non-finite CLVs")
+            site_max = w.abs().amax(dim=(2, 3)).clamp(min=1e-30)
+            rel = max(rel, float(((g - w).abs()
+                                  / site_max[:, :, None, None]).max()))
+            err = max(err, float((g - w).abs().max()))
+        check(rel <= TOL_CLV, f"{label}: query form vs plain, max rel err "
+              f"{rel:.3e} > {TOL_CLV}")
+        results.append({"q": q, "e": e, "max_abs_err": err, "rel": rel,
+                        "ties": ties,
+                        "inputs": ((tip_codes, pmatrix, table), kw)})
+        return got
+
+    return traversal
+
+
+def reset_query_counts():
+    from libpll2_tpu_torch.ops import fused
+
+    reset_counts()
+    fused.fused_traversal.query_launches = 0
+    fused.fused_traversal_rows.query_launches = 0
+
+
+def query_counts():
+    from libpll2_tpu_torch.ops import fused
+
+    return {"fused": fused.fused_traversal.query_launches,
+            "rows": fused.fused_traversal_rows.query_launches}
+
+
+def query_bound(part, q, k, n_ops):
+    """One launch of the query form: the shared tip codes and the Q query
+    rows read once, each candidate's P and table read once, the Q x K
+    walks' two root CLVs and counts written once; Q x K traversals'
+    operations."""
+    S, R, s = part.sites_padded, part.rate_cats, part.states
+    n_bytes = (part.tips * S * 4 + q * S * 4
+               + k * (part.prob_matrices * R * s * s * 4 + (n_ops + 1) * 32)
+               + q * k * (2 * R * s * S * 4 + 2 * S * 4))
+    return bound_ms(n_bytes, q * k * traversal_flops(n_ops, S, R, s))
+
+
+def leaves_behind(h):
+    """Tip labels of the subtree behind half-edge h (away from h)."""
+    out, stack = set(), [h.back]
+    while stack:
+        n = stack.pop()
+        if n.is_tip():
+            out.add(n.label)
+            continue
+        stack.extend(r.back for r in (n.next, n.next.next))
+    return frozenset(out)
+
+
+def pruned_reference(tree, by, victim):
+    """(reference tree without `victim`, its dict, the victim's sequence,
+    the leaf split of the edge it hung from) of a copy of `tree`."""
+    from libpll2_tpu_torch.trees import export_newick, parse_newick, prune_tip
+    from libpll2_tpu_torch.trees.utils import utree_clone
+
+    full = utree_clone(tree)
+    a = prune_tip(full, victim)
+    side = leaves_behind(a)
+    ref = parse_newick(export_newick(a if not a.is_tip() else a.back))
+    return ref, {k: v for k, v in by.items() if k != victim}, by[victim], side
+
+
+def mutated_queries(by, n, seed, alphabet, start=None):
+    """`n` queries: copies of reference rows drawn from an rng of `seed`,
+    5 % of their sites mutated and 20 % gapped (tools/benchmarks.py:
+    770-778), after the given `start` ones."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    labels, chars = sorted(by), np.array(list(alphabet))
+    out = dict(start or {})
+    while len(out) < n:
+        src = np.array(list(by[labels[int(rng.integers(len(labels)))]]))
+        mut = rng.random(len(src)) < 0.05
+        src[mut] = chars[rng.integers(0, len(chars), int(mut.sum()))]
+        src[rng.random(len(src)) < 0.2] = "-"
+        out[f"s{len(out)}"] = "".join(src)
+    return out
+
+
+def by_edge(rows):
+    import numpy as np
+
+    return np.array([r["logL"] for r in sorted(rows, key=lambda r:
+                                               r["edge"])])
+
+
+def place_f64(placer, seq, edges):
+    """The logL of `seq` at the first `edges` attachment edges through the
+    query form's plain version in float64 on the card."""
+    import torch
+    from libpll2_tpu_torch import constants as C
+    from libpll2_tpu_torch.engine import _pmatrices
+    from libpll2_tpu_torch.ops.fused import fused_traversal_reference
+    from libpll2_tpu_torch.placement import _place_scores
+
+    p, eng = placer.partition, placer._ensure_engine()
+    f64, dev = torch.float64, p.device
+    model = [torch.tensor(a, dtype=f64, device=dev) for a in (
+        p.eigenvals, p.inv_eigenvecs, p.eigenvecs, p.prop_invar, p.rates,
+        p.rate_weights, p.frequencies)] + [eng.params_idx_rates]
+    tables, blens, roots, n_slots = placer._fused_batch_inputs()
+    pm = _pmatrices(*model[:5], model[7], blens[:edges].to(f64).reshape(-1))
+    pm = pm.view(edges, -1, *pm.shape[1:])
+    codes = torch.as_tensor(placer._query_codes_batch([seq]).astype("int32"),
+                            device=dev)
+    out = _place_scores(codes, tables[:edges], pm,
+                        torch.as_tensor(roots[:edges, 4], device=dev), model,
+                        eng._site_args(), eng._tip_codes(), placer.query_row,
+                        n_slots, C.SCALE_THRESHOLD, C.SCALE_FACTOR,
+                        traversal=fused_traversal_reference)
+    return out[0].cpu().numpy()
+
+
+def placement_case(label, placer, batch, stream, chunk, gpu, jplace=False,
+                   truth=None, victim=None):
+    """One placement problem: place() of the victim (its true edge first
+    where `truth`, the edge's leaf split, is given), place_batch of `batch`
+    in chunks of `chunk` with every query-form launch held against its
+    plain version, each query against place() (TOL_LOGL), the first
+    against float64 on the card; then timed without the checks; the first
+    launch's device time, bound and plain time; prepare_stream's level
+    launches and ms, place_stream of `stream` (with to_jplace where
+    `jplace`), its first queries against place() (2e-5). Returns the
+    numbers."""
+    import numpy as np
+    import torch
+    from libpll2_tpu_torch.ops import fused, levels
+    from libpll2_tpu_torch.placement import to_jplace
+
+    p = placer.partition
+    kernel = "rows" if p.states >= fused.ROWS_STATES_MIN else "fused"
+    out = {"edges": len(placer.edges), "taxa": placer.n_ref,
+           "sites": p.sites, "states": p.states}
+    if victim is not None:
+        rows, ms = timed(lambda: placer.place(victim))
+        out["place_ms"] = ms
+        best = placer.edges[rows[0]["edge"]]
+        if truth is not None:
+            got = {leaves_behind(best), leaves_behind(best.back)}
+            check(truth in got, f"{label}: the pruned taxon's true edge is "
+                  f"not ranked first ({rows[0]})")
+        print(f"placement [{label}] ({gpu}): {placer.n_ref} taxa x "
+              f"{p.sites} sites, {len(placer.edges)} edges: place() of the "
+              f"pruned taxon {ms:.1f} ms (host clock), best edge "
+              f"{rows[0]['edge_nodes']} lwr {rows[0]['lwr']:.3f}"
+              + (", its true edge" if truth is not None else ""), flush=True)
+    # the query form, every launch against its plain version
+    launches = []
+    placer._traversal = query_checker(launches, f"{label} query form")
+    reset_query_counts()
+    got = placer.place_batch(batch, chunk=chunk)
+    torch.cuda.synchronize()
+    n_launch = query_counts()[kernel]
+    all_counts = counts()
+    placer._traversal = fused.fused_traversal
+    check(n_launch == len(launches) and n_launch >= -(-len(batch) // chunk),
+          f"{label}: {n_launch} query-form launches for {len(launches)} "
+          f"checked ones")
+    check(all_counts[kernel] == n_launch, f"{label}: launches {all_counts}")
+    singles = {k: placer.place(v) for k, v in batch.items()}
+    rel = max(float(np.max(np.abs(by_edge(got[k]) - by_edge(singles[k]))
+                           / np.abs(by_edge(singles[k])))) for k in batch)
+    check(rel < TOL_LOGL, f"{label}: place_batch vs place max rel err "
+          f"{rel:.3e}")
+    first = next(iter(batch))
+    ref64 = place_f64(placer, batch[first], PLACE_F64_EDGES)
+    rel64 = float(np.max(np.abs(by_edge(got[first])[:PLACE_F64_EDGES]
+                                - ref64) / np.abs(ref64)))
+    check(rel64 < TOL_LOGL, f"{label}: place_batch vs float64 max rel err "
+          f"{rel64:.3e}")
+    err = max(r["max_abs_err"] for r in launches)
+    shapes = sorted({(r["q"], r["e"]) for r in launches})
+    print(f"placement [{label}]: place_batch of {len(batch)} queries in "
+          f"chunks of {chunk}: {n_launch} launches of the {kernel} kernel's "
+          f"query form (queries x edges {shapes}; the launch budget "
+          f"{placer._launch_bytes / 2**30:.1f} GiB a launch), each equal "
+          f"to its plain version (max_abs_err {err:.3e}, "
+          f"{sum(r['ties'] for r in launches)} ties); vs place() max rel err "
+          f"{rel:.3e}, the first query vs float64 on the card "
+          f"({PLACE_F64_EDGES} edges) {rel64:.3e}", flush=True)
+    out.update(launches=n_launch, max_abs_err=err, rel_err=rel,
+               rel_err_f64=rel64, launch_shapes=shapes)
+    # times, without the checks
+    _, ms = timed(lambda: placer.place_batch(batch, chunk=chunk))
+    _, ms = timed(lambda: placer.place_batch(batch, chunk=chunk))
+    (args, kw) = launches[0]["inputs"]
+    q, e = launches[0]["q"], launches[0]["e"]
+    n_ops = args[2].shape[1] - 1
+    name = "fused_rows" if kernel == "rows" else "fused_"
+    dev = kernel_device_us(lambda: fused.fused_traversal(*args, **kw), name)
+    _, plain_ms = timed(lambda: fused.fused_traversal_reference(*args, **kw))
+    bound = query_bound(p, q, e, n_ops)
+    plan = (rows_plan_text(p, kw["n_slots"], q * e) if kernel == "rows"
+            else plan_text(_kernels_plan(p, kw["n_slots"], q * e)))
+    print(f"placement times [{label}] ({gpu}): place_batch {ms:.1f} ms "
+          f"({ms / len(batch):.2f} ms a query, {len(batch) / ms * 1e3:.1f} "
+          f"queries/s, host clock); a launch of {q} x {e} walks of {n_ops} "
+          f"ops, {kw['n_slots']} slots (the first edge's candidate "
+          f"{placer._engine.fused_slots}), {plan}: device {dev:.1f} us "
+          f"({dev / (q * e):.2f} us a walk), bound {bound[0]:.4f} ms by "
+          f"{bound[1]}, plain {plain_ms:.1f} ms (once)", flush=True)
+    out.update(batch_ms=ms, batch_queries_per_s=len(batch) / ms * 1e3,
+               device_us=dev, device_us_per_walk=dev / (q * e),
+               bound=bound, plain_ms=plain_ms, walks=q * e,
+               slots=kw["n_slots"])
+    # the streaming placer
+    del launches
+    levels.level_update.launches = 0
+    _, prep_ms = timed(placer.prepare_stream)
+    prep_launches = levels.level_update.launches
+    check(prep_launches > 0, f"{label}: prepare_stream launched no level "
+          f"kernel")
+    placer.place_stream(dict(list(stream.items())[:64]))
+
+    def run():
+        res = placer.place_stream(stream)
+        return (res, to_jplace(placer, res, top_k=EPA_TOP)) if jplace \
+            else (res, None)
+
+    (res, jp), stream_ms = timed(run)
+    check(len(res) == len(stream), f"{label}: {len(res)} streamed rows")
+    if jp is not None:
+        check(len(jp["placements"]) == len(stream)
+              and all(len(x["p"]) == EPA_TOP for x in jp["placements"]),
+              f"{label}: jplace rows")
+    keys = list(stream)[:PLACE_STREAM_CHECK]
+    srel = max(float(np.max(np.abs(by_edge(res[k])
+                                   - by_edge(placer.place(stream[k])))
+                            / np.abs(by_edge(res[k])))) for k in keys)
+    check(srel < 2e-5, f"{label}: place_stream vs place max rel err "
+          f"{srel:.3e}")
+    print(f"placement stream [{label}] ({gpu}): prepare_stream {prep_ms:.1f} "
+          f"ms, {prep_launches} level-kernel launches; place_stream of "
+          f"{len(stream)} queries{' + to_jplace(top_k=7)' if jplace else ''}"
+          f" {stream_ms:.1f} ms ({len(stream) / stream_ms * 1e3:.0f} "
+          f"queries/s, host clock); {len(keys)} vs place() max rel err "
+          f"{srel:.3e}", flush=True)
+    out.update(prepare_ms=prep_ms, prepare_level_launches=prep_launches,
+               stream_ms=stream_ms,
+               stream_queries_per_s=len(stream) / stream_ms * 1e3,
+               stream_rel_err=srel)
+    return out
+
+
+def epa_problem(device):
+    """Phase 23a: tools/benchmarks.py:734-793's problem, a 101-taxon
+    random_utree (seed 23), 1024 sites simulated under GTR (1, 2, 1, 1, 2,
+    1), frequencies 0.3/0.2/0.2/0.3, alpha 0.9; t100 pruned. Returns
+    (placer, batch, stream, victim, truth)."""
+    import numpy as np
+    from libpll2_tpu_torch import EdgePlacer
+    from libpll2_tpu_torch.trees import random_utree
+    from libpll2_tpu_torch.utils import simulate_alignment
+
+    full = random_utree([f"t{i}" for i in range(EPA_TAXA)], seed=EPA_SEED)
+    freqs, subst = [0.3, 0.2, 0.2, 0.3], [1, 2, 1, 1, 2, 1.0]
+    headers, seqs = simulate_alignment(full, EPA_SITES, freqs, subst,
+                                       alpha=0.9, seed=EPA_SEED)
+    ref, ref_by, victim, truth = pruned_reference(
+        full, dict(zip(headers, seqs)), f"t{EPA_TAXA - 1}")
+    placer = EdgePlacer(ref, ref_by, device=device)
+    placer.set_model(freqs, subst, alpha=0.9)
+    rng = np.random.default_rng(1)
+    batch = {f"q{i}": "".join(rng.choice(list("ACGT"), size=EPA_SITES))
+             for i in range(EPA_BATCH)}
+    batch["q0"] = victim
+    stream = mutated_queries(ref_by, PLACE_STREAM, 1, "ACGT")
+    return placer, batch, stream, victim, truth
+
+
+def placement_phase(device, gpu, big, big_by, aa_tree, aa_by):
+    """Phase 23: placement (a: the EPA workload; b: the DNA and protein main
+    paths' trees with a taxon pruned, at full width) and a partitioned
+    analysis (c). Returns the numbers."""
+    from libpll2_tpu_torch import EdgePlacer
+    from libpll2_tpu_torch.models import load_aa_model
+    from libpll2_tpu_torch import compute_gamma_cats
+
+    t_phase = time.perf_counter()
+    out = {}
+    placer, batch, stream, victim, truth = epa_problem(device)
+    out["epa"] = placement_case(f"EPA {EPA_TAXA - 1} x {EPA_SITES}", placer,
+                                batch, stream,
+                                EPA_CHUNK, gpu, jplace=True, truth=truth,
+                                victim=victim)
+    del placer, stream
+    # b: the DNA main path's problem with t127 pruned
+    ref, ref_by, victim, truth = pruned_reference(big, big_by,
+                                                  f"t{N_TAXA - 1}")
+    placer = EdgePlacer(ref, ref_by, device=device)
+    freqs, subst = dna_model()
+    placer.set_model(freqs, subst, alpha=0.8)
+    batch = mutated_queries(ref_by, PLACE_DNA_BATCH, 2, "ACGT",
+                            start={"victim": victim})
+    stream = mutated_queries(ref_by, PLACE_STREAM, 3, "ACGT", start=batch)
+    out["dna"] = placement_case(f"DNA {N_TAXA - 1} x {N_SITES}", placer,
+                                batch, stream, PLACE_DNA_BATCH, gpu)
+    del placer, stream
+    # b: the protein main path's problem, LG+G4, 'split'
+    ref, ref_by, victim, truth = pruned_reference(aa_tree, aa_by,
+                                                  f"t{AA_TAXA - 1}")
+    placer = EdgePlacer(ref, ref_by, states=20, device=device)
+    load_aa_model(placer.partition, "lg")
+    placer.partition.set_category_rates(compute_gamma_cats(0.9, 4))
+    placer._engine = placer._stream = None
+    batch = mutated_queries(ref_by, PLACE_AA_BATCH, 4,
+                            "ARNDCQEGHILKMFPSTWYV", start={"victim": victim})
+    stream = mutated_queries(ref_by, PLACE_STREAM, 5, "ARNDCQEGHILKMFPSTWYV",
+                             start=batch)
+    check(placer._ensure_engine().mxu == "split", "protein placer's mode")
+    out["aa"] = placement_case(f"protein {AA_TAXA - 1} x {AA_SITES}",
+                               placer, batch, stream, PLACE_AA_BATCH, gpu)
+    del placer, stream
+    out["partitioned"] = partitioned_case(device, gpu)
+    out["s"] = time.perf_counter() - t_phase
+    print(f"placement and partitioned analyses: {out['s']:.1f} s",
+          flush=True)
+    return out
+
+
+def partitioned_units(device, tree, by, aa_by):
+    """Phase 23c's partitions over `tree`: the DNA alignment's columns in
+    PART_DNA_BLOCKS blocks, each under its own GTR+G4 (an rng of seed 100 +
+    block), and the protein alignment under LG+G4."""
+    import numpy as np
+    from libpll2_tpu_torch import Partition, compute_gamma_cats
+    from libpll2_tpu_torch.io import maps
+    from libpll2_tpu_torch.models import load_aa_model
+
+    bounds = np.linspace(0, N_SITES, PART_DNA_BLOCKS + 1).astype(int)
+    parts = []
+    for k in range(PART_DNA_BLOCKS):
+        lo, hi = int(bounds[k]), int(bounds[k + 1])
+        p = Partition(tree.tip_count, tree.inner_count, 4, hi - lo, 1,
+                      tree.edge_count, 4, tree.inner_count, device=device)
+        for tip in tree.tips():
+            p.set_tip_states(tip.clv_index, maps.map_nt,
+                             by[tip.label][lo:hi])
+        rng = np.random.default_rng(100 + k)
+        p.set_frequencies(0, rng.dirichlet(np.ones(4) * 10))
+        p.set_subst_params(0, rng.uniform(0.5, 2.0, size=6))
+        p.set_category_rates(compute_gamma_cats(0.6 + 0.2 * k, 4))
+        parts.append(p)
+    p = Partition(tree.tip_count, tree.inner_count, 20, PART_AA_SITES, 1,
+                  tree.edge_count, 4, tree.inner_count, device=device)
+    for tip in tree.tips():
+        p.set_tip_states(tip.clv_index, maps.map_aa, aa_by[tip.label])
+    load_aa_model(p, "lg")
+    p.set_category_rates(compute_gamma_cats(0.9, 4))
+    parts.append(p)
+    return parts
+
+
+def partitioned_case(device, gpu):
+    """Phase 23c: a PartitionedEngine on phase 20's DNA problem (its
+    simulated 128 x 16384 alignment in PART_DNA_BLOCKS partitions, the
+    search's start tree) plus a PART_AA_SITES-site LG+G4 protein partition
+    simulated on the true tree: loglikelihood() against four single
+    engines and the float64 plain path, three linked newton_step()s, one
+    streamed SPR round (radius 5) against its batched twin, and
+    PART_STEPS maximize() steps of subst and freqs."""
+    from libpll2_tpu_torch import PartitionedEngine, TreeEngine
+    from libpll2_tpu_torch.search import TreeSearch
+    from libpll2_tpu_torch.trees import random_utree, tree_bipartitions
+    from libpll2_tpu_torch.trees.utils import utree_clone
+
+    out = {}
+    start, _, by = search_start()
+    aa_by = simulated(random_utree([f"t{i}" for i in range(N_TAXA)],
+                                   seed=SEED), PART_AA_SITES, SEED + 1,
+                      states=20)
+    tree = utree_clone(start)
+    parts = partitioned_units(device, tree, by, aa_by)
+    reset_counts()
+    pe = PartitionedEngine(parts, tree)
+    lk = pe.loglikelihood()
+    got = counts()
+    check(got["fused"] == PART_DNA_BLOCKS and got["rows"] == 1,
+          f"partitioned loglikelihood(): launches {got}")
+    singles = sum(TreeEngine(p, tree).loglikelihood() for p in parts)
+    rel = abs(lk - singles) / abs(singles)
+    check(rel < 1e-6, f"partitioned logL {lk!r} vs the single engines' sum "
+          f"{singles!r}")
+    ref = sum(plain_float64(p, e, e.branches)[0]
+              for p, e in zip(parts, pe.engines))
+    rel64 = abs(lk - ref) / abs(ref)
+    check(rel64 < TOL_LOGL, f"partitioned logL vs float64 {rel64:.3e}")
+    steps = [pe.newton_step() for _ in range(3)]
+    lens = {float(e.branches[int(e.root_idx[4])]) for e in pe.engines}
+    check(len(lens) == 1, f"linked newton_step left lengths {lens}")
+    print(f"partitioned [{PART_DNA_BLOCKS} DNA blocks of {N_SITES} sites + "
+          f"LG+G4 x {PART_AA_SITES}, {N_TAXA} taxa] ({gpu}): logL {lk!r} "
+          f"(launches {got}); vs 4 single engines {rel:.2e}, vs float64 "
+          f"{rel64:.2e}; 3 linked newton_step()s: "
+          + ", ".join(f"({s[0]:.4f}, d1 {s[1]:.3f})" for s in steps)
+          + f", root length {lens.pop():.6f}", flush=True)
+    out.update(loglikelihood=lk, rel_err=rel, rel_err_f64=rel64)
+    # one streamed SPR round against its batched twin, each from the start
+    rounds = {}
+    for kind in ("streamed", "batched"):
+        t = utree_clone(start)
+        us = parts if kind == "streamed" else partitioned_units(
+            device, t, by, aa_by)
+        search = TreeSearch(None, t, engine=PartitionedEngine(us, t))
+        search.evaluate()
+        if kind == "streamed":
+            check(search._streamed_eligible(), "partitioned streamed round "
+                  "not eligible")
+        reset_counts()
+        fn = getattr(search, f"spr_round_{kind}")
+        (lk_r, acc), ms = timed(lambda: fn(radius=SEARCH_RADIUS))
+        rounds[kind] = (lk_r, acc, ms, counts(), tree_bipartitions(t))
+        del search, us
+    (lk_s, acc_s, ms_s, c_s, sp_s), (lk_b, acc_b, ms_b, c_b, sp_b) = (
+        rounds["streamed"], rounds["batched"])
+    check(acc_s == acc_b and acc_s > 0, f"partitioned SPR rounds accepted "
+          f"{acc_s} streamed, {acc_b} batched")
+    check(sp_s == sp_b, f"partitioned SPR rounds end in different "
+          f"topologies: {len(sp_s ^ sp_b)} splits differ")
+    rel_r = abs(lk_s - lk_b) / abs(lk_b)
+    check(rel_r < TOL_LOGL, f"partitioned SPR rounds end {lk_s!r} vs "
+          f"{lk_b!r}")
+    check(c_s["level"] > 0, f"streamed round: launches {c_s}")
+    print(f"partitioned SPR round (radius {SEARCH_RADIUS}) ({gpu}): "
+          f"streamed {acc_s} moves, {ms_s:.1f} ms, launches {c_s}; batched "
+          f"twin {acc_b} moves, {ms_b:.1f} ms, launches {c_b}; logL "
+          f"{lk_s!r} vs {lk_b!r} ({rel_r:.2e}), the same {len(sp_s)} "
+          f"splits", flush=True)
+    out.update(spr_moves=acc_s, spr_streamed_ms=ms_s, spr_batched_ms=ms_b,
+               spr_streamed_launches=c_s, spr_batched_launches=c_b)
+    # maximize: each unit's model by maximize_fused (kernel paths)
+    pe = PartitionedEngine(parts, tree)
+    lk0 = pe.loglikelihood()
+    reset_counts()
+    (lk_m, params, hist), ms = timed(lambda: pe.maximize(
+        ("subst", "freqs"), steps=PART_STEPS, chunk=PART_STEPS))
+    c_m = counts()
+    check(c_m["fused"] >= PART_DNA_BLOCKS * PART_STEPS and c_m["rows"] >=
+          PART_STEPS, f"partitioned maximize: launches {c_m}")
+    lk1 = pe.loglikelihood()
+    check(lk_m >= lk0 and abs(lk1 - lk_m) / abs(lk_m) < TOL_LOGL,
+          f"partitioned maximize: {lk0!r} -> {lk_m!r}, re-evaluated {lk1!r}")
+    print(f"partitioned maximize (subst, freqs; {PART_STEPS} steps a unit) "
+          f"({gpu}): logL {lk0!r} -> {lk_m!r} in {ms:.1f} ms, launches "
+          f"{c_m}, {len(params)} parameter groups", flush=True)
+    out.update(maximize_ms=ms, maximize_launches=c_m, maximize_gain=lk_m
+               - lk0)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
@@ -5455,6 +5979,9 @@ def main() -> int:
 
     # 22. an analysis from an alignment file
     ana = analysis_phase(device, gpu)
+
+    # 23. placement and partitioned analyses
+    place = placement_phase(device, gpu, big, big_by, aa_tree, aa_by)
     if args.profile:
         profile([("DNA main path", eng), ("protein main path", aa_eng),
                  ("DNA levels-kernel path", dna[3]),
@@ -5495,6 +6022,26 @@ def main() -> int:
         return {"analysis_launches": ana["dense_launches"],
                 "analysis_ms": ana["dense_ms"],
                 "analysis_rel_err": ana["dense_rel_err"], **extra}
+
+    def query(problems):
+        """The query form's launches on phase 23's placement paths, its
+        largest error against the plain version, and one launch's device
+        time, bound and plain time (the first of `problems`), and each
+        placer's numbers."""
+        first = place[problems[0]]
+        return {"query_launches": sum(place[k]["launches"]
+                                      for k in problems),
+                "query_max_abs_err": max(place[k]["max_abs_err"]
+                                         for k in problems),
+                "query_walks": first["walks"],
+                "query_device_us": first["device_us"],
+                "query_device_us_per_walk": first["device_us_per_walk"],
+                "query_bound_ms": first["bound"][0],
+                "query_bound_by": first["bound"][1],
+                "query_plain_ms": first["plain_ms"],
+                "placement": {k: {n: v for n, v in place[k].items()
+                                  if n not in ("bound", "launch_shapes")}
+                              for k in problems}}
 
     def variant(prefix, key, launches):
         k, p, (b, by), *bf = var_ms[key]
@@ -5539,7 +6086,8 @@ def main() -> int:
             opt["others"]["repeats-dense-fused"]["max_abs_err"],
         "brent_launches": opt["brent"]["evaluations"],
         "brent_ms_per_evaluation": opt["brent"]["ms_per_evaluation"],
-        **analysis("fused")}, {
+        **analysis("fused"), **query(("dna", "epa")),
+        "partitioned": place["partitioned"]}, {
         "name": "fused_traversal_rows", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal_rows.cu",
         "replaces": "libpll2_tpu/ops/pallas_fused.py:419",
@@ -5561,7 +6109,7 @@ def main() -> int:
         "spill_bound_by": rows_spill[4][1],
         **variant("per_rate", "rows_per_rate", pr_rows),
         **variant("raw_tips_per_rate", "rows_raw", None),
-        **trial(opt["aa_trial"], opt["aa_launches"])}, {
+        **trial(opt["aa_trial"], opt["aa_launches"]), **query(("aa",))}, {
         "name": "level_update", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/level_update.cu",
         "replaces": ["libpll2_tpu/ops/pallas_partials.py:48",

@@ -19,6 +19,14 @@ ModelTest-NG pattern) sit on top of the engine, `bootstrap_loglikelihoods`
 scores bootstrap replicates from one evaluation, and `checkpoint` saves and
 restores the partition and the tree in libpll2_tpu's format.
 
+Two consumers sit on the engine: `PartitionedEngine` (partitioned.py)
+sums several alignment blocks over one tree, with linked or unlinked
+branch lengths, and drives search and optimization as one engine;
+`EdgePlacer` (placement.py) places query sequences onto a reference tree,
+EPA-style, a query at a time, a batch of queries in one launch of the
+fused kernel's query form, or streamed from per-edge attachment tensors,
+and `placement.to_jplace` writes the jplace format.
+
 The package imports torch, numpy and scipy, and never jax: the host modules
 it needs (constants, io, trees, models, utils, ops/gamma, ops/eigen) are
 carried over.
@@ -27,12 +35,15 @@ from . import constants
 from .constants import AscBias, PllError
 from .engine import TreeEngine
 from .ops.gamma import compute_gamma_cats
-from .partition import Operation, Partition
+from .partition import Operation, Partition, pack_operations
 from . import checkpoint
+from .partitioned import PartitionedEngine
 from .bootstrap import bootstrap_loglikelihoods
 from . import modelselect
+from .placement import EdgePlacer
 
 __all__ = ["constants", "AscBias", "PllError", "Operation", "Partition",
-           "TreeEngine", "compute_gamma_cats", "checkpoint",
-           "bootstrap_loglikelihoods", "modelselect"]
+           "pack_operations", "TreeEngine", "compute_gamma_cats",
+           "checkpoint", "PartitionedEngine", "bootstrap_loglikelihoods",
+           "modelselect", "EdgePlacer"]
 __version__ = "0.1.0"

@@ -34,6 +34,17 @@
 // half of the card's block slots; a chunk of candidates fills them all, so
 // a candidate costs less than a walk alone (PERF.md).
 //
+// Queries. Placement (libpll2_tpu/placement.py:_place_scores vmaps the
+// kernel over Q queries' tip codes for each attachment edge) scores Q
+// queries against K candidates, one per attachment edge, in one launch:
+// query q is blockIdx.z, and every walk of the [Q, K] grid reads tip row
+// `query_row` from the query's codes `qcodes + q * S` and every other tip
+// row from the shared matrix (`tip_row`). No [Q, tips, S] copy of the codes
+// is made. The outputs and the spill plan's slots are [Q, K, ...], walk
+// (q, k) at flat index q * K + k (`walk_index`); the table and P stay
+// per candidate. Without queries `query_row` is -1, no row is replaced and
+// the grid's z is 1.
+//
 // Slot reuse. pack_fused_schedule frees a dying child's slot before it
 // allocates the parent, so a parent may overwrite a child it reads. Every
 // output of an op is computed (in registers, or in the spare slot for the
@@ -116,6 +127,8 @@ struct Args {
   const float* pmat;   // [E, R, s, s]
   const int* tips;     // [n_tips, S]
   const float* ctips;  // [n_ctips, s, S] raw tip rows, or null
+  const int* qcodes;   // [Q, S] the queries' tip codes, or null
+  int query_row;       // the tip row a query's codes replace (-1: none)
   int sites;
   int rates, states;
   float* slots;        // [n_slots + 1, R * s, S]; the last is the spare
@@ -127,12 +140,14 @@ struct Args {
   int* sc_c;
   float threshold, factor;
   int rate_scalers;
-  // the strides of the candidate axis, in elements (0 for the slots on chip)
+  // the strides of the candidate axis (table, P) and of the walk axis
+  // (slots, outputs), in elements (0 for the slots on chip)
   long long table_stride, pmat_stride, slot_stride, slot_sc_stride;
   long long out_stride, sc_stride;
 };
 
-// Candidate blockIdx.y's table, P and spilled slots. The on-chip walk
+// Candidate blockIdx.y's table and P, and walk (blockIdx.z, blockIdx.y)'s
+// spilled slots. The on-chip walk
 // computes them where it uses them: its producer warp holds the table's
 // pointer and offsets each copy of P by the candidate there, its root
 // epilogue reads the table's last row. Every kernel finds a candidate's
@@ -156,20 +171,41 @@ __device__ __forceinline__ unsigned cand_index() {
   return k;
 }
 
-__device__ __forceinline__ Cand candidate(const Args& a) {
-  const long long k = cand_index();
-  return {a.table + k * a.table_stride, a.pmat + k * a.pmat_stride,
-          a.slots + k * a.slot_stride, a.slot_sc + k * a.slot_sc_stride};
+// blockIdx.z, the query, read the same way
+__device__ __forceinline__ unsigned query_index() {
+  unsigned q;
+  asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(q));
+  return q;
 }
 
-// candidate blockIdx.y's root CLV rows of the parent (end 0) or child end
+// the walk (query, candidate): blockIdx.z * gridDim.y + blockIdx.y
+__device__ __forceinline__ long long walk_index() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%nctaid.y;" : "=r"(n));
+  return (long long)query_index() * n + cand_index();
+}
+
+__device__ __forceinline__ Cand candidate(const Args& a) {
+  const long long k = cand_index(), w = walk_index();
+  return {a.table + k * a.table_stride, a.pmat + k * a.pmat_stride,
+          a.slots + w * a.slot_stride, a.slot_sc + w * a.slot_sc_stride};
+}
+
+// the walk's root CLV rows of the parent (end 0) or child end
 __device__ __forceinline__ float* out_clv(const Args& a, int end) {
-  return (end ? a.out_c : a.out_p) + cand_index() * a.out_stride;
+  return (end ? a.out_c : a.out_p) + walk_index() * a.out_stride;
 }
 
 // and their counts
 __device__ __forceinline__ int* out_sc(const Args& a, int end) {
-  return (end ? a.sc_c : a.sc_p) + cand_index() * a.sc_stride;
+  return (end ? a.sc_c : a.sc_p) + walk_index() * a.sc_stride;
+}
+
+// the state codes of tip row `idx`: the block's query's in place of row
+// query_row
+__device__ __forceinline__ const int* tip_row(const Args& a, int idx) {
+  if (idx == a.query_row) return a.qcodes + (size_t)query_index() * a.sites;
+  return a.tips + (size_t)idx * a.sites;
 }
 
 __device__ __forceinline__ float tip_bit(unsigned code, int j) {
@@ -294,9 +330,10 @@ __device__ __forceinline__ void produce(const Args& a, float* ring,
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       if (is_tip[c] == 1) {
+        const int* const row = tip_row(a, idx[c]);
 #pragma unroll
         for (int t = 0; t < SPT; ++t) {
-          cp_async4(codes + c * SPB + lane + 32 * t, a.tips + (size_t)idx[c] * S + sites[t]);
+          cp_async4(codes + c * SPB + lane + 32 * t, row + sites[t]);
         }
       } else if (is_tip[c] == 2) {
 #pragma unroll
@@ -449,7 +486,7 @@ __global__ void __launch_bounds__(kOnchipThreads) fused_onchip(Args a) {
       float v[4];
       int sc = 0;
       if (is_tip == 1) {
-        const unsigned cd = static_cast<unsigned>(__ldg(a.tips + (size_t)idx * S + site[k]));
+        const unsigned cd = static_cast<unsigned>(__ldg(tip_row(a, idx) + site[k]));
 #pragma unroll
         for (int j = 0; j < 4; ++j) v[j] = (cd >> j) & 1u ? 1.0f : 0.0f;
       } else if (is_tip == 2) {
@@ -488,7 +525,7 @@ __device__ __forceinline__ void matvec_child(const Args& a, const Cand& cand,
   if (is_tip != 0) {  // a tip, the same for every rate; it counts 0
     float c[S_];
     if (is_tip == 1) {
-      const unsigned code = static_cast<unsigned>(__ldg(a.tips + idx * S + site));
+      const unsigned code = static_cast<unsigned>(__ldg(tip_row(a, idx) + site));
 #pragma unroll
       for (int j = 0; j < S_; ++j) c[j] = tip_bit(code, j);
     } else {
@@ -538,7 +575,7 @@ __device__ __forceinline__ void write_root_fixed(const Args& a, const Cand& cand
   if (is_tip != 0) {
     float c[S_];
     if (is_tip == 1) {
-      const unsigned code = static_cast<unsigned>(__ldg(a.tips + idx * S + site));
+      const unsigned code = static_cast<unsigned>(__ldg(tip_row(a, idx) + site));
 #pragma unroll
       for (int j = 0; j < S_; ++j) c[j] = tip_bit(code, j);
     } else {
@@ -631,7 +668,7 @@ __device__ __forceinline__ const float* child_source(const Args& a, const Cand& 
   const size_t S = a.sites;
   *code = 0;
   if (is_tip == 1) {
-    *code = static_cast<unsigned>(__ldg(a.tips + idx * S + site));
+    *code = static_cast<unsigned>(__ldg(tip_row(a, idx) + site));
     return nullptr;
   }
   if (is_tip == 2) return a.ctips + (size_t)idx * a.states * S + site;
@@ -704,8 +741,8 @@ __global__ void __launch_bounds__(kBlock) fused_generic(Args a) {
 }
 
 template <int SPT>
-int launch_onchip(const Args& a, int n_cand, bool per_rate, size_t bytes,
-                  cudaStream_t st) {
+int launch_onchip(const Args& a, int n_cand, int n_query, bool per_rate,
+                  size_t bytes, cudaStream_t st) {
   auto kernel = per_rate ? fused_onchip<SPT, true> : fused_onchip<SPT, false>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -713,7 +750,7 @@ int launch_onchip(const Args& a, int n_cand, bool per_rate, size_t bytes,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int spb = 32 * SPT;
-  const dim3 grid((a.sites + spb - 1) / spb, n_cand);
+  const dim3 grid((a.sites + spb - 1) / spb, n_cand, n_query);
   kernel<<<grid, kOnchipThreads, bytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -727,18 +764,24 @@ extern "C" int pll_rows_smem_optin();
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or an
 // error code without launching when the shapes or the plan do not fit.
 // `n_cand` candidates (1 to 65,535, the grid's y) each have a table and P,
-// `table_stride` and `pmat_stride` elements apart; the outputs are [n_cand,
-// R * s, S] and [n_cand, SR, S]. The trailing arguments are the launcher's
+// `table_stride` and `pmat_stride` elements apart. `n_query` queries (1 to
+// 65,535, the grid's z) replace tip row `query_row` by their codes `qcodes`
+// [n_query, S]; without queries `qcodes` is null, `query_row` -1 and
+// `n_query` 1. The outputs are [n_query, n_cand, R * s, S] and [n_query,
+// n_cand, SR, S]. The trailing arguments are the launcher's
 // plan (ops/_kernels.py:fused_plan): on chip or spilled, threads a site,
 // sites a block and the shared-memory bytes, which must equal this file's
 // own count. The on-chip plan takes a 16-byte aligned table and P for every
-// candidate and no slots; the spill plan takes the slots [n_cand, n_slots +
-// 1, R * s, S] and their counts [n_cand, n_slots, SR, S] in device memory.
+// candidate and no slots; the spill plan takes the slots [n_query * n_cand,
+// n_slots + 1, R * s, S] and their counts [n_query * n_cand, n_slots, SR,
+// S] in device memory.
 extern "C" int pll_fused_traversal(const int* table, int n_ops,
                                    const float* pmat, int n_cand,
                                    long long table_stride,
                                    long long pmat_stride, const int* tips,
-                                   const float* ctips, int sites, int rates,
+                                   const float* ctips, const int* qcodes,
+                                   int query_row, int n_query, int sites,
+                                   int rates,
                                    int states, float* slots, int* slot_sc,
                                    int n_slots, float* out_p, float* out_c,
                                    int* sc_p, int* sc_c, float threshold,
@@ -749,13 +792,15 @@ extern "C" int pll_fused_traversal(const int* table, int n_ops,
   const long long S = sites, RS = (long long)rates * states;
   const long long SR = rate_scalers ? rates : 1;
   const bool spill = !onchip;
-  Args a{table, n_ops, pmat, tips, ctips, sites, rates, states, slots, slot_sc,
+  Args a{table, n_ops, pmat, tips, ctips, qcodes, query_row, sites, rates, states, slots, slot_sc,
          n_slots, out_p, out_c, sc_p, sc_c, threshold, factor, rate_scalers,
          table_stride, pmat_stride, spill ? (n_slots + 1) * RS * S : 0,
          spill ? n_slots * SR * S : 0, RS * S, SR * S};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (sites < 1 || n_ops < 0 || n_slots < 1 || rates < 1 || states < 1 ||
-      states > 32 || n_cand < 1 || n_cand > 65535 ||
+      states > 32 || n_cand < 1 || n_cand > 65535 || n_query < 1 ||
+      n_query > 65535 || (qcodes == nullptr) != (query_row < 0) ||
+      (qcodes == nullptr && n_query != 1) ||
       table_stride < (long long)(n_ops + 1) * kRow || pmat_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -777,14 +822,14 @@ extern "C" int pll_fused_traversal(const int* table, int n_ops,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const bool per_rate = rate_scalers != 0;
-    return spt == 1 ? launch_onchip<1>(a, n_cand, per_rate, bytes, st)
-                    : launch_onchip<2>(a, n_cand, per_rate, bytes, st);
+    return spt == 1 ? launch_onchip<1>(a, n_cand, n_query, per_rate, bytes, st)
+                    : launch_onchip<2>(a, n_cand, n_query, per_rate, bytes, st);
   }
   if (threads_per_site != 1 || sites_per_block != kBlock || smem_bytes != 0 ||
       slots == nullptr || slot_sc == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((sites + kBlock - 1) / kBlock, n_cand);
+  const dim3 grid((sites + kBlock - 1) / kBlock, n_cand, n_query);
   if (states == 4 && rates == 4) {
     if (rate_scalers) {
       fused_fixed<4, 4, 4><<<grid, kBlock, 0, st>>>(a);

@@ -42,6 +42,12 @@
 // SM already fills the card at 128 x 8192, so a candidate costs what a walk
 // alone does (PERF.md).
 //
+// Queries: as in fused_traversal.cu, Q queries (blockIdx.z) walk the K
+// candidates in one launch, each reading tip row `query_row` from its own
+// codes `qcodes + q * S` (`tip_row`) and every other row from the shared
+// matrix; the outputs and the spill plan's slots are [Q, K, ...], the table
+// and P per candidate. Without queries `query_row` is -1.
+//
 // Design. A block owns a tile of T = 32 * SPT consecutive sites for the
 // whole walk (SPT = 1 or 2 sites a thread, 32 apart, one lane per site
 // column) and kWarps = 8 warps. The warps form G groups of H = 8 / G (G the
@@ -130,6 +136,8 @@ struct Args {
   const float* pmat;   // [E, R, SP, SP], zero-padded, 16-byte aligned
   const int* tips;     // [n_tips, S]
   const float* ctips;  // [n_ctips, s, S] raw tip rows, or null
+  const int* qcodes;   // [Q, S] the queries' tip codes, or null
+  int query_row;       // the tip row a query's codes replace (-1: none)
   int sites;
   int rates, states;
   float* slots;        // spill plan: [n_slots, R * s, S]
@@ -145,12 +153,14 @@ struct Args {
   int rate_chunk;      // rates of P staged at once (all of them on chip)
   int groups;          // G
   int rows_per_warp;   // a multiple of kRows
-  // the strides of the candidate axis, in elements (0 for the slots on chip)
+  // the strides of the candidate axis (table, P) and of the walk axis
+  // (slots, outputs), in elements (0 for the slots on chip)
   long long table_stride, pmat_stride, slot_stride, slot_sc_stride;
   long long out_stride, sc_stride;
 };
 
-// Candidate blockIdx.y's table, P and spilled slots.
+// Candidate blockIdx.y's table and P, and walk (blockIdx.z, blockIdx.y)'s
+// spilled slots.
 struct Cand {
   const int* table;
   const float* pmat;
@@ -159,9 +169,9 @@ struct Cand {
 };
 
 __device__ __forceinline__ Cand candidate(const Args& a) {
-  const long long k = blockIdx.y;
+  const long long k = blockIdx.y, w = (long long)blockIdx.z * gridDim.y + k;
   return {a.table + k * a.table_stride, a.pmat + k * a.pmat_stride,
-          a.slots + k * a.slot_stride, a.slot_sc + k * a.slot_sc_stride};
+          a.slots + w * a.slot_stride, a.slot_sc + w * a.slot_sc_stride};
 }
 
 // blockIdx.y, read where it is used: a volatile read keeps the compiler from
@@ -174,14 +184,35 @@ __device__ __forceinline__ unsigned cand_index() {
   return k;
 }
 
-// candidate blockIdx.y's root CLV rows of the parent (end 0) or child end
+// blockIdx.z, the query, read the same way
+__device__ __forceinline__ unsigned query_index() {
+  unsigned q;
+  asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(q));
+  return q;
+}
+
+// the walk (query, candidate): blockIdx.z * gridDim.y + blockIdx.y
+__device__ __forceinline__ long long walk_index() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%nctaid.y;" : "=r"(n));
+  return (long long)query_index() * n + cand_index();
+}
+
+// the walk's root CLV rows of the parent (end 0) or child end
 __device__ __forceinline__ float* out_clv(const Args& a, int end) {
-  return (end ? a.out_c : a.out_p) + cand_index() * a.out_stride;
+  return (end ? a.out_c : a.out_p) + walk_index() * a.out_stride;
 }
 
 // and their counts
 __device__ __forceinline__ int* out_sc(const Args& a, int end) {
-  return (end ? a.sc_c : a.sc_p) + cand_index() * a.sc_stride;
+  return (end ? a.sc_c : a.sc_p) + walk_index() * a.sc_stride;
+}
+
+// the state codes of tip row `idx`: the block's query's in place of row
+// query_row
+__device__ __forceinline__ const int* tip_row(const Args& a, int idx) {
+  if (idx == a.query_row) return a.qcodes + (size_t)query_index() * a.sites;
+  return a.tips + (size_t)idx * a.sites;
 }
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -278,7 +309,7 @@ __device__ __forceinline__ void stage_p(float* dst, const float* pmat, int m1,
 
 // The op's state-code tips of the tile's `tile` sites from `tile0` on into
 // `dst` [2][tile] (0 past the last site).
-__device__ __forceinline__ void stage_codes(int* dst, const int* tips,
+__device__ __forceinline__ void stage_codes(int* dst, const Args& a,
                                             const int* row, size_t S,
                                             size_t tile0, int tile) {
   if (threadIdx.x >= 2 * tile) return;
@@ -287,7 +318,7 @@ __device__ __forceinline__ void stage_codes(int* dst, const int* tips,
   const size_t site = tile0 + col;
   int* d = dst + side * tile + col;
   if (site < S) {
-    cp_async4(d, tips + (size_t)__ldg(row + 2 + 3 * side) * S + site);
+    cp_async4(d, tip_row(a, __ldg(row + 2 + 3 * side)) + site);
   } else {
     *d = 0;
   }
@@ -382,7 +413,7 @@ __global__ void __launch_bounds__(kThreads, SPT == 1 ? 2 : 1) fused_rows(Args a)
   if (a.n_ops > 0) {
     const int* row = cand.table;
     stage_p<SP>(pbuf, cand.pmat, __ldg(row + 3), __ldg(row + 6), R, 0, nr0, RC, false);
-    stage_codes(codes, a.tips, row, S, tile0, T);
+    stage_codes(codes, a, row, S, tile0, T);
     cp_async_commit();
   }
   for (int op = 0; op < a.n_ops; ++op) {
@@ -400,7 +431,7 @@ __global__ void __launch_bounds__(kThreads, SPT == 1 ? 2 : 1) fused_rows(Args a)
       const int* next = row + kRow;
       float* nb = pbuf + (size_t)((op + 1) & 1) * 2 * RC * PP;
       stage_p<SP>(nb, cand.pmat, __ldg(next + 3), __ldg(next + 6), R, 0, R, RC, false);
-      stage_codes(codes + ((op + 1) & 1) * 2 * T, a.tips, next, S, tile0, T);
+      stage_codes(codes + ((op + 1) & 1) * 2 * T, a, next, S, tile0, T);
       cp_async_commit();
     }
     const bool reuse = H > 1 && ((is_tip[0] == 0 && idx[0] == pslot) ||
@@ -567,7 +598,7 @@ __global__ void __launch_bounds__(kThreads, SPT == 1 ? 2 : 1) fused_rows(Args a)
       const int* next = row + kRow;
       // every thread is done with the buffer: its last readers passed B
       stage_p<SP>(pb, cand.pmat, __ldg(next + 3), __ldg(next + 6), R, 0, nr0, RC, false);
-      stage_codes(codes, a.tips, next, S, tile0, T);
+      stage_codes(codes, a, next, S, tile0, T);
       cp_async_commit();
     }
   }
@@ -583,7 +614,7 @@ __global__ void __launch_bounds__(kThreads, SPT == 1 ? 2 : 1) fused_rows(Args a)
       float* out = out_clv(a, end) + sk;
       int* osc = out_sc(a, end);
       if (is_tip == 1) {
-        const unsigned code = static_cast<unsigned>(__ldg(a.tips + (size_t)idx * S + sk));
+        const unsigned code = static_cast<unsigned>(__ldg(tip_row(a, idx) + sk));
         for (int q = warp; q < RS; q += kWarps) {
           out[(size_t)q * S] = (code >> (q % s)) & 1u ? 1.0f : 0.0f;
         }
@@ -602,7 +633,8 @@ __global__ void __launch_bounds__(kThreads, SPT == 1 ? 2 : 1) fused_rows(Args a)
 }
 
 template <int SP, int SPT, bool ONCHIP>
-int launch(const Args& a, int n_cand, size_t bytes, cudaStream_t stream) {
+int launch(const Args& a, int n_cand, int n_query, size_t bytes,
+           cudaStream_t stream) {
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         fused_rows<SP, SPT, ONCHIP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -610,18 +642,18 @@ int launch(const Args& a, int n_cand, size_t bytes, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int tile = kLanes * SPT;
-  const dim3 grid((a.sites + tile - 1) / tile, n_cand);
+  const dim3 grid((a.sites + tile - 1) / tile, n_cand, n_query);
   fused_rows<SP, SPT, ONCHIP><<<grid, kThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the plans: on chip with one or two sites a thread, or spilled (one)
 template <int SP>
-int launch_plan(const Args& a, int n_cand, bool onchip, int spt, size_t bytes,
-                cudaStream_t stream) {
-  if (!onchip) return launch<SP, 1, false>(a, n_cand, bytes, stream);
-  return spt == 2 ? launch<SP, 2, true>(a, n_cand, bytes, stream)
-                  : launch<SP, 1, true>(a, n_cand, bytes, stream);
+int launch_plan(const Args& a, int n_cand, int n_query, bool onchip, int spt,
+                size_t bytes, cudaStream_t stream) {
+  if (!onchip) return launch<SP, 1, false>(a, n_cand, n_query, bytes, stream);
+  return spt == 2 ? launch<SP, 2, true>(a, n_cand, n_query, bytes, stream)
+                  : launch<SP, 1, true>(a, n_cand, n_query, bytes, stream);
 }
 
 }  // namespace
@@ -641,9 +673,12 @@ extern "C" int pll_rows_smem_optin() {
 // error code without launching when the shapes or the plan do not fit.
 // `n_cand` candidates (1 to 65,535, the grid's y) each have a table and a
 // padded P, `table_stride` and `pmat_stride` elements apart (P's 16-byte
-// aligned for each); the outputs are [n_cand, R * s, S] and [n_cand, SR, S],
-// the spill plan's slots [n_cand, n_slots, R * s, S] and their counts
-// [n_cand, n_slots, SR, S]. The trailing arguments are the launcher's plan
+// aligned for each). `n_query` queries (1 to 65,535, the grid's z) replace
+// tip row `query_row` by their codes `qcodes` [n_query, S]; without queries
+// `qcodes` is null, `query_row` -1 and `n_query` 1. The outputs are
+// [n_query, n_cand, R * s, S] and [n_query, n_cand, SR, S], the spill plan's
+// slots [n_query * n_cand, n_slots, R * s, S] and their counts [n_query *
+// n_cand, n_slots, SR, S]. The trailing arguments are the launcher's plan
 // (ops/_kernels.py:rows_plan): on chip or spilled, sites a thread, SP, the
 // rates of P staged at once, the warp groups and the shared-memory bytes,
 // which must equal this file's own count.
@@ -651,7 +686,9 @@ extern "C" int pll_fused_traversal_rows(const int* table, int n_ops,
                                         const float* pmat, int n_cand,
                                         long long table_stride,
                                         long long pmat_stride, const int* tips,
-                                        const float* ctips, int sites, int rates,
+                                        const float* ctips, const int* qcodes,
+                                        int query_row, int n_query, int sites,
+                                        int rates,
                                         int states, float* slots, int* slot_sc,
                                         int n_slots, float* out_p, float* out_c,
                                         int* sc_p, int* sc_c, float threshold,
@@ -669,7 +706,10 @@ extern "C" int pll_fused_traversal_rows(const int* table, int n_ops,
       !(spt == 1 || (spt == 2 && onchip)) ||
       (!onchip && (slots == nullptr || slot_sc == nullptr)) ||
       (reinterpret_cast<size_t>(pmat) & 15) != 0 || n_cand < 1 ||
-      n_cand > 65535 || table_stride < (long long)(n_ops + 1) * kRow ||
+      n_cand > 65535 || n_query < 1 || n_query > 65535 ||
+      (qcodes == nullptr) != (query_row < 0) ||
+      (qcodes == nullptr && n_query != 1) ||
+      table_stride < (long long)(n_ops + 1) * kRow ||
       pmat_stride < 0 || pmat_stride % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -685,7 +725,7 @@ extern "C" int pll_fused_traversal_rows(const int* table, int n_ops,
   const int rows = (states + h - 1) / h;
   const long long S = sites, RS = (long long)rates * states;
   const long long SR = rate_scalers ? rates : 1;
-  Args a{table, n_ops, pmat, tips, ctips, sites, rates, states, slots, slot_sc,
+  Args a{table, n_ops, pmat, tips, ctips, qcodes, query_row, sites, rates, states, slots, slot_sc,
          onchip ? n_slots : 0, out_p, out_c, sc_p, sc_c, threshold, factor,
          rate_scalers, bf16, rate_chunk, groups,
          (rows + k_rows - 1) / k_rows * k_rows, table_stride, pmat_stride,
@@ -693,10 +733,10 @@ extern "C" int pll_fused_traversal_rows(const int* table, int n_ops,
          SR * S};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (sp) {
-    case 8: return launch_plan<8>(a, n_cand, onchip != 0, spt, bytes, st);
-    case 16: return launch_plan<16>(a, n_cand, onchip != 0, spt, bytes, st);
-    case 20: return launch_plan<20>(a, n_cand, onchip != 0, spt, bytes, st);
-    case 24: return launch_plan<24>(a, n_cand, onchip != 0, spt, bytes, st);
-    default: return launch_plan<32>(a, n_cand, onchip != 0, spt, bytes, st);
+    case 8: return launch_plan<8>(a, n_cand, n_query, onchip != 0, spt, bytes, st);
+    case 16: return launch_plan<16>(a, n_cand, n_query, onchip != 0, spt, bytes, st);
+    case 20: return launch_plan<20>(a, n_cand, n_query, onchip != 0, spt, bytes, st);
+    case 24: return launch_plan<24>(a, n_cand, n_query, onchip != 0, spt, bytes, st);
+    default: return launch_plan<32>(a, n_cand, n_query, onchip != 0, spt, bytes, st);
   }
 }

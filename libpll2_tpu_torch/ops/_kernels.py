@@ -101,7 +101,9 @@ def library() -> ctypes.CDLL:
         _P, _I,            # table, n_ops
         _P,                # pmatrix
         _I, _L, _L,        # candidates, table and P strides
-        _P, _P, _I,        # tip codes, raw tip rows (or null), sites
+        _P, _P,            # tip codes, raw tip rows (or null)
+        _P, _I, _I,        # query codes (or null), their tip row, queries
+        _I,                # sites
         _I, _I,            # rates, states
         _P, _P, _I,        # slots, slot scalers, n_slots
         _P, _P, _P, _P,    # out_p, out_c, sc_p, sc_c
@@ -172,8 +174,10 @@ def _check(cond: bool, msg: str, name: str = "fused_traversal") -> None:
         raise ValueError(f"{name}: {msg}")
 
 
-# the candidates one launch of a traversal kernel takes (the grid's y)
+# the candidates one launch of a traversal kernel takes (the grid's y), and
+# the queries (the grid's z)
 MAX_CANDIDATES = 65535
+MAX_QUERIES = 65535
 
 
 def _check_inputs(name: str, tip_codes: torch.Tensor, pmatrix: torch.Tensor,
@@ -218,9 +222,31 @@ def _check_inputs(name: str, tip_codes: torch.Tensor, pmatrix: torch.Tensor,
                f"{tip_codes.shape[1]}] on {dev}", name)
 
 
+def _check_queries(name: str, tip_codes: torch.Tensor, query_codes,
+                   query_row: int) -> int:
+    """The query form's operands (`query_codes` [Q, S] int32 replacing tip
+    row `query_row`); returns Q, 1 without queries."""
+    if query_codes is None:
+        _check(query_row == -1, "query_row without query_codes", name)
+        return 1
+    _check(isinstance(query_codes, torch.Tensor)
+           and query_codes.device == tip_codes.device
+           and query_codes.dtype == torch.int32
+           and query_codes.is_contiguous() and query_codes.dim() == 2
+           and query_codes.shape[1] == tip_codes.shape[1]
+           and 1 <= query_codes.shape[0] <= MAX_QUERIES,
+           f"query_codes must be a contiguous int32 tensor [Q, "
+           f"{tip_codes.shape[1]}] with 1 <= Q <= {MAX_QUERIES} on "
+           f"{tip_codes.device}", name)
+    _check(0 <= query_row < tip_codes.shape[0],
+           f"query_row {query_row} is not a tip row of [0, "
+           f"{tip_codes.shape[0]})", name)
+    return query_codes.shape[0]
+
+
 def _outputs(k: int, rates: int, states: int, sites: int, dev,
              rate_scalers: bool):
-    """The root rows of K candidates: CLVs [K, R, s, S] x 2, counts [K, S]
+    """The root rows of K walks: CLVs [K, R, s, S] x 2, counts [K, S]
     ([K, R, S] per rate) x 2."""
     f32, i32 = torch.float32, torch.int32
     sc = (k, rates, sites) if rate_scalers else (k, sites)
@@ -310,22 +336,41 @@ def device_fused_plan(device, rates: int, states: int, n_slots: int,
                       smem_optin(index), sites, sm_count(index), candidates)
 
 
+def spill_slots(plan, n_slots: int) -> int:
+    """The slots a walk of `plan` (a FusedPlan or a RowsPlan) keeps in
+    device memory: none on chip; on the spill plan `n_slots`, and one more
+    in fused_traversal.cu, whose generic body builds each parent there."""
+    if plan.plan == "on-chip":
+        return 0
+    return n_slots + isinstance(plan, FusedPlan)
+
+
+def _query_outputs(out, q: int, k: int, query_codes):
+    """The root rows [Q * K, ...] as [Q, K, ...] in the query form."""
+    if query_codes is None:
+        return out
+    return tuple(o.view(q, k, *o.shape[1:]) for o in out)
+
+
 def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
                            table: torch.Tensor, rates: int, states: int,
                            n_slots: int, threshold: float, factor: float,
-                           rate_scalers: bool = False, tip_clvs=None):
+                           rate_scalers: bool = False, tip_clvs=None,
+                           query_codes=None, query_row: int = -1):
     """Launch csrc/fused_traversal.cu once on the current stream for K
     candidates, `table` [K, n_ops+1, 8] and `pmatrix` [K, E, R, s, s], with
-    `device_fused_plan`'s plan; returns the root rows with a leading K (see
-    ops/fused.py:fused_traversal for the contract)."""
+    `device_fused_plan`'s plan; returns the root rows with a leading K, or
+    [Q, K] with Q queries' codes `query_codes` [Q, S] in tip row `query_row`
+    (see ops/fused.py:fused_traversal for the contract)."""
     _check_inputs("fused_traversal", tip_codes, pmatrix, table, rates,
                   states, n_slots, tip_clvs)
+    q = _check_queries("fused_traversal", tip_codes, query_codes, query_row)
     dev = pmatrix.device
     sites = tip_codes.shape[1]
     k = table.shape[0]
     plan = device_fused_plan(dev, rates, states, n_slots, rate_scalers, sites,
-                             k)
-    out_p, out_c, sc_p, sc_c = _outputs(k, rates, states, sites, dev,
+                             q * k)
+    out_p, out_c, sc_p, sc_c = _outputs(q * k, rates, states, sites, dev,
                                         rate_scalers)
     slots = slot_sc = None
     if plan.plan == "on-chip":
@@ -337,18 +382,18 @@ def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
         if table.data_ptr() % 16:
             table = table.clone()
     else:
-        # one spare slot: the generic (runtime-size) instantiation builds
-        # each parent there before copying it into its own slot
-        slots = torch.empty((k, n_slots + 1, rates * states, sites),
+        slots = torch.empty((q * k, spill_slots(plan, n_slots),
+                             rates * states, sites),
                             dtype=torch.float32, device=dev)
-        slot_sc = torch.empty((k, n_slots, rates if rate_scalers else 1,
+        slot_sc = torch.empty((q * k, n_slots, rates if rate_scalers else 1,
                                sites), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_fused_traversal(
             table.data_ptr(), table.shape[1] - 1, pmatrix.data_ptr(), k,
             table.stride(0), pmatrix.stride(0),
-            tip_codes.data_ptr(), _ptr(tip_clvs), sites, rates, states,
+            tip_codes.data_ptr(), _ptr(tip_clvs), _ptr(query_codes),
+            query_row, q, sites, rates, states,
             _ptr(slots), _ptr(slot_sc), n_slots,
             out_p.data_ptr(), out_c.data_ptr(), sc_p.data_ptr(),
             sc_c.data_ptr(), float(threshold), float(factor),
@@ -357,7 +402,7 @@ def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused_traversal kernel launch failed: CUDA "
                            f"error {err}")
-    return out_p, out_c, sc_p, sc_c
+    return _query_outputs((out_p, out_c, sc_p, sc_c), q, k, query_codes)
 
 
 # the largest rates * states the rows route takes (32 rates x 32 states);
@@ -469,16 +514,18 @@ def launch_fused_traversal_rows(tip_codes: torch.Tensor,
                                 rates: int, states: int, n_slots: int,
                                 threshold: float, factor: float,
                                 bf16: bool, rate_scalers: bool = False,
-                                tip_clvs=None):
+                                tip_clvs=None, query_codes=None,
+                                query_row: int = -1):
     """Launch csrc/fused_traversal_rows.cu once on the current stream for
     K candidates, `table` [K, n_ops+1, 8] and `pmatrix` [K, E, R, s, s];
-    returns the root rows with a leading K (see
+    returns the root rows with a leading K, or [Q, K] in the query form (see
     ops/fused.py:fused_traversal_rows for the contract). `bf16` rounds P
     and inner-child CLVs (half-up) and raw tip rows (to nearest even) to
     bf16 (the 'bf16' contraction mode)."""
     name = "fused_traversal_rows"
     _check_inputs(name, tip_codes, pmatrix, table, rates, states, n_slots,
                   tip_clvs)
+    q = _check_queries(name, tip_codes, query_codes, query_row)
     _check(rates * states <= ROWS_MAX_RS,
            f"rates * states = {rates * states} exceeds the kernel's "
            f"shared-memory tile ({ROWS_MAX_RS})", name)
@@ -486,7 +533,7 @@ def launch_fused_traversal_rows(tip_codes: torch.Tensor,
     sites = tip_codes.shape[1]
     k = table.shape[0]
     plan = device_rows_plan(dev, rates, states, n_slots, rate_scalers,
-                            sites, k)
+                            sites, q * k)
     sp = plan.padded_states
     # the kernel copies P in 16-byte units of zero-padded SP x SP blocks (a
     # candidate's P, E x R x SP x SP words, keeps the first one's alignment)
@@ -495,20 +542,22 @@ def launch_fused_traversal_rows(tip_codes: torch.Tensor,
                                           (0, sp - states, 0, sp - states))
     elif pmatrix.data_ptr() % 16:
         pmatrix = pmatrix.clone()
-    out_p, out_c, sc_p, sc_c = _outputs(k, rates, states, sites, dev,
+    out_p, out_c, sc_p, sc_c = _outputs(q * k, rates, states, sites, dev,
                                         rate_scalers)
     slots = slot_sc = None
     if plan.plan == "spill":
-        slots = torch.empty((k, n_slots, rates * states, sites),
+        slots = torch.empty((q * k, spill_slots(plan, n_slots),
+                             rates * states, sites),
                             dtype=torch.float32, device=dev)
-        slot_sc = torch.empty((k, n_slots, rates if rate_scalers else 1,
+        slot_sc = torch.empty((q * k, n_slots, rates if rate_scalers else 1,
                                sites), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_fused_traversal_rows(
             table.data_ptr(), table.shape[1] - 1, pmatrix.data_ptr(), k,
             table.stride(0), pmatrix.stride(0),
-            tip_codes.data_ptr(), _ptr(tip_clvs), sites, rates, states,
+            tip_codes.data_ptr(), _ptr(tip_clvs), _ptr(query_codes),
+            query_row, q, sites, rates, states,
             _ptr(slots), _ptr(slot_sc), n_slots,
             out_p.data_ptr(), out_c.data_ptr(), sc_p.data_ptr(),
             sc_c.data_ptr(), float(threshold), float(factor),
@@ -518,7 +567,7 @@ def launch_fused_traversal_rows(tip_codes: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused_traversal_rows kernel launch failed: "
                            f"CUDA error {err}")
-    return out_p, out_c, sc_p, sc_c
+    return _query_outputs((out_p, out_c, sc_p, sc_c), q, k, query_codes)
 
 
 # a level's ops are the launch grid's y dimension (the runtime-size

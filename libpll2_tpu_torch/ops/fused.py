@@ -24,6 +24,16 @@ leading K. One topology is the kernels' K = 1. `fused_candidate_from_tree`
 packs the current topology of a tree in one walk, without Operation
 objects.
 
+The query form (placement: libpll2_tpu/placement.py:_place_scores vmaps the
+Pallas kernel over Q queries' tip codes) adds Q queries, `query_codes` [Q,
+S], to the candidate form: every (query, candidate) pair walks in ONE
+launch, the query's codes standing in for tip row `query_row` and every
+other tip row shared, and every output gains a leading [Q, K]. Each launch
+counts in `launches` and in `query_launches`. `query_edge_split` bounds the
+candidates (attachment edges) a launch takes by the device memory of its
+walks, `QUERY_LAUNCH_BYTES`: the root rows, and on a spill plan the slots
+(`query_spill_slots`).
+
 Semantics (per op row [pslot, l_is_tip, l_idx, m1, r_is_tip, r_idx, m2,
 has_scaler]; is_tip 0 is a slot, 1 a state-code tip, 2 a row of the raw
 tip matrix): x = (P[m1] . left) * (P[m2] . right) per rate; when
@@ -58,7 +68,8 @@ __all__ = ["pack_fused_schedule", "fused_candidate_from_tree",
            "tip_code_matrix", "ctip_rows", "tip_clv_matrix",
            "fused_traversal", "fused_traversal_rows",
            "fused_traversal_reference", "round_bf16", "round_bf16_rne",
-           "MXU_MODES", "ROWS_STATES_MIN", "ROWS_RATE_SCALERS_MAX"]
+           "query_edge_split", "query_spill_slots", "MXU_MODES",
+           "ROWS_STATES_MIN", "ROWS_RATE_SCALERS_MAX", "QUERY_LAUNCH_BYTES"]
 
 MXU_MODES = ("split", "bf16", "highest")
 # alphabets from this size on take the row-layout kernel and the mxu modes
@@ -68,11 +79,49 @@ ROWS_STATES_MIN = 16
 # as libpll2_tpu's row-layout kernel (pallas_fused.py:747-756), whose [8, T]
 # scaler block holds one count row per rate
 ROWS_RATE_SCALERS_MAX = 8
+# the device memory one launch of the query form may take for its walks:
+# the root rows (both CLVs and counts of every walk) and, on a spill plan,
+# the slots; at 16 queries x 251 edges x 16384 DNA sites the root rows alone
+# take 8.4 GB, so a chunk's edges are split over launches above this
+QUERY_LAUNCH_BYTES = 2 << 30
+# the slots the query form's plain version holds at once (it walks a piece
+# of the candidates at a time below this)
+QUERY_REFERENCE_BYTES = 1 << 30
 
 
 def _check_mxu(mxu: str) -> None:
     if mxu not in MXU_MODES:
         raise ValueError(f"mxu must be one of {MXU_MODES}, got {mxu!r}")
+
+
+def query_edge_split(queries: int, edges: int, rates: int, states: int,
+                     sites: int, rate_scalers: bool,
+                     budget: int = QUERY_LAUNCH_BYTES,
+                     slots: int = 0) -> int:
+    """The edges (candidates) one launch of the query form takes for
+    `queries` queries: all `edges` when the launch's walks fit in `budget`
+    bytes, else the most that fit, at least one. A walk takes its root rows
+    (two float32 CLVs [R, s, S] and two int32 count rows) and its `slots`
+    spill slots (`query_spill_slots`: a CLV and at most a count row each)."""
+    walk = (2 + slots) * 4 * sites * (rates * states
+                                      + (rates if rate_scalers else 1))
+    return max(1, min(edges, budget // (queries * walk)))
+
+
+def query_spill_slots(device, rates: int, states: int, n_slots: int,
+                      rate_scalers: bool, sites: int) -> int:
+    """The slots a walk of the query form keeps in device memory on
+    `device`: the spill plan's (ops/_kernels.py:spill_slots; the rows
+    kernel's from ROWS_STATES_MIN states), none on chip, and none on the
+    CPU, whose plain version holds its own within QUERY_REFERENCE_BYTES."""
+    if torch.device(device).type != "cuda":
+        return 0
+    from . import _kernels
+
+    plan = (_kernels.device_rows_plan if states >= ROWS_STATES_MIN
+            else _kernels.device_fused_plan)
+    return _kernels.spill_slots(
+        plan(device, rates, states, n_slots, rate_scalers, sites), n_slots)
 
 
 def _check_rows_rate_scalers(rates: int, rate_scalers: bool) -> None:
@@ -319,7 +368,9 @@ def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32
                               rates: int, states: int, n_slots: int,
                               threshold: float, factor: float,
                               mxu: str = "split", rate_scalers: bool = False,
-                              tip_clvs: torch.Tensor = None):
+                              tip_clvs: torch.Tensor = None,
+                              query_codes: torch.Tensor = None,
+                              query_row: int = -1):
     """Plain PyTorch version of the fused traversal, in the dtype of
     `pmatrix` (float32 or float64) and on its device: the op table is
     walked in Python, each op vectorised over sites. `mxu` is the
@@ -328,8 +379,15 @@ def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32
     (clv_p, clv_c [R, s, S], sc_p, sc_c [S] int32, or [R, S] per rate) for
     the root edge; in the candidate form (`table` [K, n_ops+1, 8],
     `pmatrix` [K, E, R, s, s]) the candidates one after another, each
-    output with a leading K."""
+    output with a leading K; in the query form (`query_codes` [Q, S] in tip
+    row `query_row`, the candidate form's table and P) every output with a
+    leading [Q, K], all walks an op at a time (`_query_reference`)."""
     _check_mxu(mxu)
+    if query_codes is not None:
+        return _query_reference(tip_codes, pmatrix, table, rates, states,
+                                n_slots, threshold, factor, mxu,
+                                rate_scalers, tip_clvs, query_codes,
+                                query_row)
     if table.ndim == 3:
         outs = [fused_traversal_reference(tip_codes, pmatrix[k], table[k],
                                           rates, states, n_slots, threshold,
@@ -391,6 +449,95 @@ def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32
             sc_c.clone())
 
 
+def _query_reference(tip_codes, pmatrix, table, rates, states, n_slots,
+                     threshold, factor, mxu, rate_scalers, tip_clvs,
+                     query_codes, query_row):
+    """The query form's plain version: the Q x K walks of candidates
+    `table` [K, n_ops+1, 8] and `pmatrix` [K, E, R, s, s] with each query's
+    codes in tip row `query_row`, op by op over all walks at once (the K
+    tables have one length), QUERY_REFERENCE_BYTES of slots at a time.
+    Returns the root rows [Q, K, ...]."""
+    _check_query_form(table, query_codes)
+    q_n, sites = query_codes.shape[0], tip_codes.shape[1]
+    k = table.shape[0]
+    walk = n_slots * rates * states * sites * pmatrix.element_size()
+    step = max(1, QUERY_REFERENCE_BYTES // (q_n * walk))
+    if k > step:
+        outs = [_query_reference(tip_codes, pmatrix[i:i + step],
+                                 table[i:i + step], rates, states, n_slots,
+                                 threshold, factor, mxu, rate_scalers,
+                                 tip_clvs, query_codes, query_row)
+                for i in range(0, k, step)]
+        return tuple(torch.cat(o, dim=1) for o in zip(*outs))
+    dtype, device = pmatrix.dtype, pmatrix.device
+    t = torch.as_tensor(table, device=device).long()
+    n_ops = t.shape[1] - 1
+    kk = torch.arange(k, device=device)
+    shifts = torch.arange(states, device=device, dtype=torch.int64)
+    codes, qcodes = tip_codes.long(), query_codes.long()
+    bf16 = (mxu == "bf16" and states >= ROWS_STATES_MIN
+            and dtype == torch.float32)
+    if bf16:
+        pmatrix = round_bf16(pmatrix)
+    sc_tail = (rates, sites) if rate_scalers else (sites,)
+    slots = torch.zeros((q_n, k, n_slots, rates, states, sites), dtype=dtype,
+                        device=device)
+    slot_sc = torch.zeros((q_n, k, n_slots) + sc_tail, dtype=torch.int32,
+                          device=device)
+    fac = torch.tensor(factor, dtype=dtype, device=device)
+    one = torch.ones((), dtype=dtype, device=device)
+
+    def operand(is_tip, idx, rounded):
+        """Each walk's child (is_tip [K], idx [K]): CLVs [Q, K, R, s, S]
+        and counts [Q, K, ...], rounded to bf16 as the kernel reads them
+        where `rounded`."""
+        tip_idx = idx.clamp(0, codes.shape[0] - 1)
+        c = torch.where((tip_idx == query_row)[None, :, None],
+                        qcodes[:, None, :], codes[tip_idx][None])
+        x = ((c[:, :, None, :] >> shifts[:, None]) & 1).to(dtype)
+        x = x[:, :, None].expand(q_n, k, rates, states, sites)
+        pick = (is_tip == 1)[None, :, None, None, None]
+        if tip_clvs is not None:
+            raw = tip_clvs[idx.clamp(0, tip_clvs.shape[0] - 1)].to(dtype)
+            if rounded:
+                raw = round_bf16_rne(raw)
+            x = torch.where((is_tip == 2)[None, :, None, None, None],
+                            raw[None, :, None], x)
+            pick = pick | (is_tip == 2)[None, :, None, None, None]
+        slot_idx = idx.clamp(0, n_slots - 1)
+        sl = slots[:, kk, slot_idx]
+        if rounded:
+            sl = round_bf16(sl)
+        inner = (is_tip == 0)
+        sc = torch.where(inner.view((1, k) + (1,) * len(sc_tail)),
+                         slot_sc[:, kk, slot_idx], 0)
+        return torch.where(pick, x, sl), sc
+
+    for op in range(n_ops):
+        row = t[:, op]
+        left, lsc = operand(row[:, 1], row[:, 2], bf16)
+        right, rsc = operand(row[:, 4], row[:, 5], bf16)
+        x = (torch.einsum('krij,qkrjs->qkris', pmatrix[kk, row[:, 3]], left)
+             * torch.einsum('krij,qkrjs->qkris', pmatrix[kk, row[:, 6]],
+                            right))
+        has = (row[:, 7] != 0)
+        if rate_scalers:
+            scale = (torch.amax(x, dim=3) < threshold) & has[None, :, None,
+                                                            None]
+            x = x * torch.where(scale, fac, one)[:, :, :, None, :]
+        else:
+            scale = (torch.amax(x, dim=(2, 3)) < threshold) & has[None, :,
+                                                                 None]
+            x = x * torch.where(scale, fac, one)[:, :, None, None, :]
+        slots[:, kk, row[:, 0]] = x
+        slot_sc[:, kk, row[:, 0]] = lsc + rsc + scale.to(torch.int32)
+    root = t[:, n_ops]
+    clv_p, sc_p = operand(root[:, 0], root[:, 1], False)
+    clv_c, sc_c = operand(root[:, 2], root[:, 3], False)
+    return (clv_p.contiguous(), clv_c.contiguous(), sc_p.contiguous(),
+            sc_c.contiguous())
+
+
 def _launch(launch, tip_codes, pmatrix, table, *args, **kw):
     """A candidate-form launcher on K candidates, or on one topology as
     K = 1."""
@@ -406,7 +553,8 @@ def fused_traversal(tip_codes: torch.Tensor,   # [n_tips, S] int32 bitmasks
                     rates: int, states: int, n_slots: int,
                     threshold: float, factor: float, mxu: str = "split",
                     rate_scalers: bool = False,
-                    tip_clvs: torch.Tensor = None):
+                    tip_clvs: torch.Tensor = None,
+                    query_codes: torch.Tensor = None, query_row: int = -1):
     """One full postorder; returns (clv_p, clv_c, sc_p, sc_c) for the root
     edge: CLVs [R, s, S], scaler counts [S] int32 ([R, S] with
     `rate_scalers`). `mxu` is the contraction mode (module docstring);
@@ -415,7 +563,9 @@ def fused_traversal(tip_codes: torch.Tensor,   # [n_tips, S] int32 bitmasks
     candidate form, `table` [K, n_ops+1, 8] and `pmatrix` [K, E, R, s, s]
     (the tip operands shared), walks K topologies in one launch and returns
     each output with a leading K; `n_slots` is then the largest over the
-    candidates.
+    candidates. The query form adds `query_codes` [Q, S] int32, the codes
+    of Q queries that stand in for tip row `query_row` (placement): the Q x
+    K walks run in one launch and every output gains a leading [Q, K].
 
     CUDA tensors launch a hand-written kernel (float32 only) on the
     current stream, without synchronising, or raise: fused_traversal.cu
@@ -428,25 +578,36 @@ def fused_traversal(tip_codes: torch.Tensor,   # [n_tips, S] int32 bitmasks
     check its matrix indices against `pmatrix` (the engine does so when it
     packs a topology or a batch of candidates)."""
     _check_mxu(mxu)
+    _check_query_form(table, query_codes)
     if states >= ROWS_STATES_MIN:
         _check_rows_rate_scalers(rates, rate_scalers)
     if pmatrix.device.type == "cpu" and tip_codes.device.type == "cpu":
         return fused_traversal_reference(tip_codes, pmatrix, table, rates,
                                          states, n_slots, threshold, factor,
-                                         mxu, rate_scalers, tip_clvs)
+                                         mxu, rate_scalers, tip_clvs,
+                                         query_codes, query_row)
     if states >= ROWS_STATES_MIN:
         return fused_traversal_rows(tip_codes, pmatrix, table, rates, states,
                                     n_slots, threshold, factor, mxu,
-                                    rate_scalers, tip_clvs)
+                                    rate_scalers, tip_clvs, query_codes,
+                                    query_row)
     from . import _kernels
     out = _launch(_kernels.launch_fused_traversal, tip_codes, pmatrix, table,
                   rates, states, n_slots, threshold, factor, rate_scalers,
-                  tip_clvs)
+                  tip_clvs, query_codes=query_codes, query_row=query_row)
     fused_traversal.launches += 1
+    fused_traversal.query_launches += query_codes is not None
     return out
 
 
 fused_traversal.launches = 0
+fused_traversal.query_launches = 0
+
+
+def _check_query_form(table, query_codes) -> None:
+    if query_codes is not None and table.ndim != 3:
+        raise ValueError("the query form takes the candidate form's table "
+                         "[K, n_ops+1, 8] and P [K, E, R, s, s]")
 
 
 def fused_traversal_rows(tip_codes: torch.Tensor,   # [n_tips, S] int32
@@ -455,29 +616,36 @@ def fused_traversal_rows(tip_codes: torch.Tensor,   # [n_tips, S] int32
                          rates: int, states: int, n_slots: int,
                          threshold: float, factor: float,
                          mxu: str = "split", rate_scalers: bool = False,
-                         tip_clvs: torch.Tensor = None):
+                         tip_clvs: torch.Tensor = None,
+                         query_codes: torch.Tensor = None,
+                         query_row: int = -1):
     """The same walk through the row-layout kernel
     (csrc/fused_traversal_rows.cu, any states <= 32, one thread block per
     tile of sites), which replaces libpll2_tpu's `_fused_kernel`.
     `fused_traversal` sends alphabets of `ROWS_STATES_MIN` or more states
-    here, one topology or K candidates as there. Per-rate scalers are
-    refused above ROWS_RATE_SCALERS_MAX categories (ValueError), as in JAX.
-    CUDA tensors launch the kernel (float32 only) or raise; CPU tensors run
-    `fused_traversal_reference`."""
+    here, one topology, K candidates or the query form as there. Per-rate
+    scalers are refused above ROWS_RATE_SCALERS_MAX categories
+    (ValueError), as in JAX. CUDA tensors launch the kernel (float32 only)
+    or raise; CPU tensors run `fused_traversal_reference`."""
     _check_mxu(mxu)
+    _check_query_form(table, query_codes)
     _check_rows_rate_scalers(rates, rate_scalers)
     if pmatrix.device.type == "cpu" and tip_codes.device.type == "cpu":
         return fused_traversal_reference(tip_codes, pmatrix, table, rates,
                                          states, n_slots, threshold, factor,
-                                         mxu, rate_scalers, tip_clvs)
+                                         mxu, rate_scalers, tip_clvs,
+                                         query_codes, query_row)
     from . import _kernels
     out = _launch(
         _kernels.launch_fused_traversal_rows, tip_codes, pmatrix, table,
         rates, states, n_slots, threshold, factor,
         bf16=(mxu == "bf16" and states >= ROWS_STATES_MIN),
-        rate_scalers=rate_scalers, tip_clvs=tip_clvs)
+        rate_scalers=rate_scalers, tip_clvs=tip_clvs,
+        query_codes=query_codes, query_row=query_row)
     fused_traversal_rows.launches += 1
+    fused_traversal_rows.query_launches += query_codes is not None
     return out
 
 
 fused_traversal_rows.launches = 0
+fused_traversal_rows.query_launches = 0

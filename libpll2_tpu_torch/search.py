@@ -132,9 +132,9 @@ class TreeSearch:
         # as JAX's: the plain path (pallas=False) runs one op at a time
         engine_kwargs.setdefault("level_schedule", False)
         self.engine_kwargs = engine_kwargs
-        # a pre-built engine may be injected (JAX's PartitionedEngine comes
-        # with ROADMAP A6; an engine other than a TreeEngine takes the
-        # batched rounds)
+        # a pre-built engine may be injected: a PartitionedEngine (the
+        # consumers' partitioned search, every round summed over its
+        # partitions) or a TreeEngine
         self._engine = engine
         self._engine_injected = engine is not None
         # monotone wave-count floors for the streamed rounds' level
@@ -391,12 +391,19 @@ class TreeSearch:
 
     def _stream_units(self):
         """(engine, partition) pairs the streamed scorer sums over: one
-        for a TreeEngine; None for an injected engine of another type,
-        which takes the batched rounds (JAX's PartitionedEngine, one unit
-        a partition, comes with ROADMAP A6)."""
+        for a TreeEngine, one per partition for an injected
+        PartitionedEngine, linked or not (candidate scoring always
+        evaluates the tree's branch lengths, as the batched rounds'
+        set_topology does; `linked` only changes how Newton updates
+        apply); None for an engine of another type, which takes the
+        batched rounds."""
+        from .partitioned import PartitionedEngine
+
         eng = self._engine
         if isinstance(eng, TreeEngine):
             return [(eng, eng.partition)]
+        if isinstance(eng, PartitionedEngine):
+            return [(e, e.partition) for e in eng.engines]
         return None
 
     @staticmethod
@@ -408,8 +415,11 @@ class TreeSearch:
 
     def _streamed_eligible(self) -> bool:
         """The streamed scorer supports per-site or per-rate scalers and
-        homogeneous models on a TreeEngine, with or without an asc
-        correction. Site-repeats partitions stream through a dense base
+        homogeneous models on a TreeEngine or a PartitionedEngine (linked
+        or not, even with mismatched buffer signatures: per-partition
+        scores summed, one schedule per distinct signature), with or
+        without an asc correction. Site-repeats partitions stream through
+        a dense base
         built from the tip rows (`Partition.dense_tip_rows`; every tip
         set): the reference's partial traversal over repeats (libpll-2
         src/repeats.c:299, test/src/partial-traversal.c). The port has no
@@ -638,6 +648,12 @@ class TreeSearch:
         from .ops.fused import ctip_rows
 
         eng = self._engine
+        if not isinstance(eng, TreeEngine):
+            # a PartitionedEngine: its units share one candidate table
+            # when they share the index space the tables address
+            eng = getattr(eng, "shared_unit", None)
+            if eng is None:
+                return None
         part = eng.partition
         flat = _flatten_tree(self.tree)
         back, nxt, clv, scaler, pmat, length, node_of, ids = flat

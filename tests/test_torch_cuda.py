@@ -1392,3 +1392,228 @@ def test_native_classer_on_card_resident_repeats(cuda):
                     assert np.array_equal(table.id_site[p, :ids], isite)
             assert classed > 10
     assert lk[0] == pytest.approx(lk[1], rel=1e-5)
+
+
+# --------------------------------------------- placement: the query form
+def _placement_problem(states, n, sites, device, seed=7, caterpillar=False,
+                       dtype=torch.float32, rates=4):
+    """An EdgePlacer over `n` taxa minus one (t1 pruned), DNA under GTR+G
+    or 20 states under LG+G (`rates` categories, 4 by default), and query
+    sequences: the pruned taxon and
+    mutated, gappy copies of reference rows. The caterpillar's alignment is
+    random (unrelated rows), so that sites rescale. Returns (placer,
+    queries)."""
+    from libpll2_tpu_torch import EdgePlacer
+    from libpll2_tpu_torch.trees import export_newick, prune_tip
+
+    freqs = [1 / states] * states
+    subst = [1.0] * (states * (states - 1) // 2)
+    if caterpillar:
+        full = _caterpillar(n)
+        headers, seqs = random_alignment(
+            n, sites, alphabet="ACGT" if states == 4 else AA_NOISY[:20],
+            seed=seed)
+    else:
+        full = random_utree([f"t{i}" for i in range(n)], seed=seed)
+        headers, seqs = simulate_alignment(full, sites, freqs, subst,
+                                           alpha=0.8, seed=seed)
+    by = dict(zip(headers, seqs))
+    a = prune_tip(full, "t1")
+    ref = parse_newick(export_newick(a if not a.is_tip() else a.back))
+    ref_by = {k: v for k, v in by.items() if k != "t1"}
+    placer = EdgePlacer(ref, ref_by, states=states, rate_cats=rates,
+                        device=device, dtype=dtype)
+    if states == 4:
+        placer.set_model([0.3, 0.2, 0.2, 0.3], [1, 2.5, 0.8, 1.1, 2.5, 1],
+                         alpha=0.8)
+    else:
+        load_aa_model(placer.partition, "lg")
+        placer.partition.set_category_rates(compute_gamma_cats(0.8, rates))
+        placer._engine = placer._stream = None
+    rng = np.random.default_rng(seed)
+    alphabet = "ACGT" if states == 4 else "ARNDCQEGHILKMFPSTWYV"
+    queries = {"t1": by["t1"]}
+    for i, lab in enumerate(sorted(ref_by)[:40]):
+        s = np.array(list(ref_by[lab]))
+        hit = rng.random(sites) < 0.05
+        s[hit] = rng.choice(list(alphabet), int(hit.sum()))
+        gap = rng.random(sites) < 0.2
+        s[gap] = "-"
+        queries[f"q{i}"] = "".join(s)
+    return placer, queries
+
+
+def _query_inputs(placer, queries, q, n_edges):
+    """The query form's operands: the shared tip codes, the first
+    `n_edges` candidates' P [E, B, R, s, s] and tables, the first `q`
+    queries' codes; and its keywords."""
+    from libpll2_tpu_torch.engine import _pmatrices
+
+    eng = placer._ensure_engine()
+    tables, blens, _, n_slots = placer._fused_batch_inputs()
+    assert n_edges <= tables.shape[0]
+    m = eng._model_args()
+    pm = _pmatrices(*m[:5], m[7], blens[:n_edges].reshape(-1))
+    pm = pm.view(n_edges, -1, *pm.shape[1:])
+    seqs = [queries[k] for k in list(queries)[:q]]
+    codes = torch.as_tensor(placer._query_codes_batch(seqs).astype(np.int32),
+                            device=placer.partition.device)
+    p = placer.partition
+    kw = dict(rates=p.rate_cats, states=p.states, n_slots=n_slots,
+              threshold=p.scale_threshold, factor=p.scale_factor,
+              query_codes=codes, query_row=placer.query_row)
+    return (eng._tip_codes(), pm, tables[:n_edges].contiguous()), kw
+
+
+# (states, taxa, sites, caterpillar, queries, edges, per-rate counts,
+# mxu): Q = 1, 3 and 17, up to 130 edges; the caterpillar rescales
+QUERY_CASES = {
+    "dna_q1": (4, 40, 1000, False, 1, 75, False, "split"),
+    "dna_q3_per_rate": (4, 40, 1000, False, 3, 75, True, "split"),
+    "dna_q17_e130": (4, 68, 600, True, 17, 130, False, "split"),
+    "dna_q3_per_rate_e130": (4, 68, 600, True, 3, 130, True, "split"),
+    "aa_split_q3": (20, 24, 600, False, 3, 43, False, "split"),
+    "aa_bf16_q3": (20, 24, 600, False, 3, 43, False, "bf16"),
+    "aa_split_q17_per_rate": (20, 24, 300, False, 17, 43, True, "split"),
+    "aa_split_q1_e130": (20, 68, 300, True, 1, 130, False, "split"),
+    "dna_q3_spill": (4, 40, 1000, False, 3, 40, False, "split"),
+    "dna_q5_spill_per_rate": (4, 68, 600, True, 5, 60, True, "split"),
+    "dna_q3_rates3": (4, 40, 1000, False, 3, 75, False, "split"),
+    "aa_q3_rates16": (20, 24, 300, False, 3, 43, False, "split"),
+}
+# the spill plans with Q > 1, each walk's slots at its own offset in
+# device memory: (rate categories, slots forced) of the case; 4 x 4 with
+# FUSED_SPILL_SLOTS runs fused_traversal.cu's fused_fixed, 3 rates its
+# fused_generic, and 20 states x 16 rates the rows kernel's spill plan
+QUERY_SPILL = {"dna_q3_spill": (4, FUSED_SPILL_SLOTS),
+               "dna_q5_spill_per_rate": (4, FUSED_SPILL_SLOTS),
+               "dna_q3_rates3": (3, None), "aa_q3_rates16": (16, None)}
+
+
+@pytest.mark.parametrize("case", sorted(QUERY_CASES))
+def test_query_form_matches_plain_on_card(cuda, case):
+    """The query form of kernels 1 and 2: Q queries x E attachment edges in
+    ONE launch (counted in `launches` and `query_launches`), held against
+    the plain version's walks on the same inputs: counts equal, CLVs to
+    1e-5 of each site's max; 'bf16' at the logL level (1e-4)."""
+    from libpll2_tpu_torch.placement import _place_scores
+
+    states, n, sites, cat, q, e, per_rate, mxu = QUERY_CASES[case]
+    rates, slots = QUERY_SPILL.get(case, (4, None))
+    placer, queries = _placement_problem(states, n, sites, cuda,
+                                         caterpillar=cat, rates=rates)
+    args, kw = _query_inputs(placer, queries, q, e)
+    kw["rate_scalers"] = per_rate
+    if slots is not None:
+        kw["n_slots"] = slots
+    plan = (_kernels.device_rows_plan if states >= 16 else
+            _kernels.device_fused_plan)(cuda, rates, states, kw["n_slots"],
+                                        per_rate, args[0].shape[1], q * e)
+    assert (plan.plan == "spill") == (case in QUERY_SPILL)
+    counter = fused.fused_traversal_rows if states >= 16 else \
+        fused.fused_traversal
+    before = (counter.launches, counter.query_launches)
+    if mxu == "bf16":
+        eng = placer._engine
+        p = placer.partition
+        lk = [_place_scores(kw["query_codes"], args[2], args[1],
+                            torch.as_tensor(placer._fused_batch_inputs()[2]
+                                            [:e, 4], device=cuda),
+                            eng._model_args(), eng._site_args(), args[0],
+                            placer.query_row, kw["n_slots"],
+                            p.scale_threshold, p.scale_factor, traversal=t,
+                            mxu=mxu).double()
+              for t in (fused.fused_traversal,
+                        fused.fused_traversal_reference)]
+        assert float(((lk[0] - lk[1]).abs() / lk[1].abs()).max()) < 1e-4
+        assert (counter.launches, counter.query_launches) == \
+            (before[0] + 1, before[1] + 1)
+        return
+    got = fused.fused_traversal(*args, mxu="highest", **kw)
+    assert (counter.launches, counter.query_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = fused.fused_traversal_reference(*args, mxu="highest", **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape[:2] == (q, e)
+    for g, w in zip(got[2:], want[2:]):
+        assert g.shape == w.shape and torch.equal(g, w)
+    for g, w in zip(got[:2], want[:2]):
+        site_max = w.abs().amax(dim=(2, 3)).clamp(min=1e-30)
+        err = (g - w).abs() / site_max[:, :, None, None]
+        assert float(err.max()) <= 1e-5
+    if cat:
+        assert int(want[2].max()) > 0
+
+
+def test_place_batch_matches_place_on_card(cuda):
+    """EdgePlacer.place_batch (chunks of 8 and a rest of 1, one launch of
+    the query form each) against place() per query (TOL_LOGL 5e-5), the
+    same with the chunks split along their edges (a budget of 80 walks a
+    launch: equal scores), place_stream against place (2e-5), and place
+    against the float64 CPU placer (5e-5)."""
+    placer, queries = _placement_problem(4, 40, 1000, cuda)
+    sub = {k: queries[k] for k in list(queries)[:9]}
+    n0 = fused.fused_traversal.query_launches
+    batch = placer.place_batch(sub, chunk=8)
+    assert fused.fused_traversal.query_launches - n0 == 2
+    singles = {k: placer.place(v) for k, v in sub.items()}
+
+    def by_edge(rows):
+        return np.array([r["logL"] for r in sorted(rows,
+                                                   key=lambda r: r["edge"])])
+
+    for k in sub:
+        got, want = by_edge(batch[k]), by_edge(singles[k])
+        assert float(np.max(np.abs(got - want) / np.abs(want))) < 5e-5
+    walk = 2 * 4 * 1000 * (16 + 1)
+    placer._launch_bytes = 8 * 10 * walk
+    n0 = fused.fused_traversal.query_launches
+    split = placer.place_batch(sub, chunk=8)
+    e = len(placer.edges)
+    # 10 edges a launch for the chunk of 8, 80 for the rest of 1
+    assert fused.fused_traversal.query_launches - n0 == \
+        -(-e // 10) + -(-e // 80)
+    for k in sub:
+        np.testing.assert_allclose(by_edge(split[k]), by_edge(batch[k]),
+                                   rtol=1e-6)
+    stream = placer.place_stream(sub)
+    for k in sub:
+        got, want = by_edge(stream[k]), by_edge(singles[k])
+        assert float(np.max(np.abs(got - want) / np.abs(want))) < 2e-5
+    cpu, _ = _placement_problem(4, 40, 1000, "cpu", dtype=torch.float64)
+    want = by_edge(cpu.place(sub["t1"]))
+    got = by_edge(singles["t1"])
+    assert float(np.max(np.abs(got - want) / np.abs(want))) < 5e-5
+
+
+def test_partitioned_engine_on_card_matches_single_engines(cuda):
+    """A PartitionedEngine of four units on one tree (three DNA partitions
+    under their own GTR+G4, one LG+G4 protein partition) against the sum
+    of four single engines on the card and the float64 CPU sum (5e-5);
+    linked newton_step leaves one root length."""
+    tree = random_utree([f"t{i}" for i in range(24)], seed=9)
+
+    def units(device, dtype):
+        parts = []
+        for k in range(3):
+            parts.append(_engine(tree, 700 + 100 * k, device, dtype=dtype,
+                                 alphabet="ACGT", seed=20 + k)[0])
+        parts.append(_engine(tree, 500, device, dtype=dtype, states=20,
+                             alphabet=AA_NOISY, seed=30)[0])
+        return parts
+
+    from libpll2_tpu_torch import PartitionedEngine
+
+    parts = units(cuda, torch.float32)
+    pe = PartitionedEngine(parts, tree)
+    assert all(e.use_fused for e in pe.engines)
+    total = pe.loglikelihood()
+    singles = sum(TreeEngine(p, tree).loglikelihood() for p in parts)
+    assert abs(total - singles) / abs(singles) < 1e-6
+    ref = sum(TreeEngine(p, tree).loglikelihood()
+              for p in units("cpu", torch.float64))
+    assert abs(total - ref) / abs(ref) < 5e-5
+    for _ in range(3):
+        pe.newton_step()
+    lens = {float(e.branches[int(e.root_idx[4])]) for e in pe.engines}
+    assert len(lens) == 1

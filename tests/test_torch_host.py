@@ -171,7 +171,8 @@ def test_import_leaves_no_jax():
             "libpll2_tpu_torch.parsimony, "
             "libpll2_tpu_torch.parsimony.stepwise, "
             "libpll2_tpu_torch.bootstrap, libpll2_tpu_torch.checkpoint, "
-            "libpll2_tpu_torch.utils.rng; "
+            "libpll2_tpu_torch.utils.rng, libpll2_tpu_torch.placement, "
+            "libpll2_tpu_torch.partitioned; "
             "bad = [m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.')]; "
             "assert not bad, bad")
@@ -200,14 +201,14 @@ def test_chip_smoke_does_not_import_jax():
 
 
 def test_entry_points_default_to_the_card():
-    """Partition, Parsimony, checkpoint.load and the convert.* constructors
-    run on "cuda" unless the caller asks for the CPU."""
+    """Partition, Parsimony, EdgePlacer, checkpoint.load and the convert.*
+    constructors run on "cuda" unless the caller asks for the CPU."""
     import inspect
 
-    from libpll2_tpu_torch import checkpoint, convert
+    from libpll2_tpu_torch import EdgePlacer, checkpoint, convert
     from libpll2_tpu_torch.parsimony import Parsimony
 
     for fn in (TPartition.__init__, convert.partition_from_numpy,
                convert.engine_branches_from_numpy, Parsimony.__init__,
-               checkpoint.load):
+               checkpoint.load, EdgePlacer.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
