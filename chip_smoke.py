@@ -245,6 +245,26 @@ each fatal on failure:
      (one root length), one streamed SPR round (radius 5) against its
      batched twin (the same moves and splits, TOL_LOGL), PART_STEPS maximize() steps
      of subst and freqs (maximize_fused a unit), launches counted.
+ 24. the certified final evaluation and the flagship analysis: (b) first,
+     examples/flagship_1000.py's pipeline at its full width (1000 taxa x
+     4000 sites, 3581 patterns) through the port's
+     `libpll2_tpu_torch.examples.flagship_1000.run`, cut in depth
+     (FLAGSHIP_SMOKE_DEPTH: 10 maximize_fused steps, no sweep in stage 3,
+     one final pass), its launches counted (one of the float64 walk, the
+     certified evaluation), each stage's ms printed, the certified logL
+     against float64 on the CPU (the checkpoint's partition on the run's
+     tree) at TOL_DF64 and the float32 final logL within TOL_LOGL of it;
+     then (a) `loglikelihood_df64` on the DNA main path (128 x 16384), the
+     protein (128 x 8192 LG+G4), the 300 x 16384 caterpillar at alpha 0.5
+     (it must rescale in float64's window) and the flagship's final
+     1000-taxon tree: csrc/fused_traversal.cu's float64 walk (one launch,
+     counted) against its plain version on the card (counts equal, CLVs
+     TOL_F64_CLV of each site's max), the logL
+     against float64 on the CPU at TOL_DF64, the launch's device time
+     (torch.profiler), call, bound at the float64 peak and plain time; and
+     the engine's profiler annotations' host cost outside a profiler: one
+     block's us times the annotations of one DNA loglikelihood(), as a
+     share of that call's host time.
 
 The last three lines are the card's name and power limit, one JSON object
 listing every kernel (with its bound at the card's peaks), and {"ok": true,
@@ -658,16 +678,17 @@ def protein_partition(tree, by_label, sites, device, states=20,
     """LG+G4 (alpha 0.9) on `device` in float32, tips installed in one
     batch; other alphabets get random GTR parameters from SEED. `mixture`
     ('lg4x') installs one matrix per category instead (rate_matrices 4);
-    `options` (rate_scalers, asc_bias) go to Partition."""
+    `options` (rate_scalers, asc_bias, dtype: float32 by default) go to
+    Partition."""
     import numpy as np
     import torch
     from libpll2_tpu_torch import Partition, compute_gamma_cats
     from libpll2_tpu_torch.models import load_aa_model, load_mixture_model
 
+    options.setdefault("dtype", torch.float32)
     part = Partition(tree.tip_count, tree.inner_count, states, sites,
                      4 if mixture else 1, tree.edge_count, rate_cats,
-                     tree.inner_count, device=device, dtype=torch.float32,
-                     **options)
+                     tree.inner_count, device=device, **options)
     tips = list(tree.tips())
     part.set_tip_states_batch(charmap(states),
                               [by_label[t.label] for t in tips],
@@ -2873,7 +2894,8 @@ def reset_counts():
     from libpll2_tpu_torch.ops import fused, levels, pool
 
     for fn in (fused.fused_traversal, fused.fused_traversal_rows,
-               levels.level_update, pool.pool_update):
+               levels.level_update, pool.pool_update,
+               fused.fused_traversal_f64):
         fn.launches = 0
 
 
@@ -2883,7 +2905,8 @@ def counts():
     return {"fused": fused.fused_traversal.launches,
             "rows": fused.fused_traversal_rows.launches,
             "level": levels.level_update.launches,
-            "pool": pool.pool_update.launches}
+            "pool": pool.pool_update.launches,
+            "f64": fused.fused_traversal_f64.launches}
 
 
 def check_counts(what, got, want):
@@ -5709,6 +5732,248 @@ def partitioned_case(device, gpu):
                - lk0)
     return out
 
+# phase 24: the certified evaluation's float64 walk against its plain
+# version (both float64: FMA contraction against PyTorch's order), relative
+# to each site's largest entry; its logL against float64 on the CPU at gate
+# case dna_df64's budget (bench_validate.py:255-262)
+TOL_F64_CLV = 1e-12
+TOL_DF64 = 1e-8
+# the flagship pipeline cut to depth for the smoke run (its full depth is
+# examples/flagship_1000.py's DEPTH: 2 x (60 steps + 2 sweep passes), 3
+# final passes): 10 maximize_fused steps, no sweep in stage 3, one final
+# pass; a sweep pass at 1000 taxa is host-bound (~3000 steps)
+FLAGSHIP_SMOKE_DEPTH = {"rounds": 1, "fused_steps": 10, "round_passes": 0,
+                        "final_passes": 1}
+# the H100 SXM's float64 peak outside the tensor cores (NVIDIA's data sheet)
+H100_F64_FLOP_PER_S = 34e12
+# phase 24a's caterpillar: 300 taxa of random columns at alpha 0.5 rescale
+# every site in float64's 2^-256 window (twice at most), as the gpu test's
+# 300-taxon case does; 80 taxa never reach it
+F64_CATERPILLAR_TAXA = 300
+
+
+def walk_flops(table, sites: int, rates: int, states: int) -> int:
+    """The operations of one walk over the op table `table`, per site and
+    rate: for each child side a matrix-vector product (s^2 FMAs, 2 s^2
+    FLOP) where the child is a slot or a raw tip row, a column gather (s)
+    where it is a state-code tip (table column 1 or 4 equal to 1), and the
+    two sides' elementwise product (s)."""
+    sides = table[:-1][:, [1, 4]].cpu()
+    n_code = int((sides == 1).sum())
+    n_dense = sides.numel() - n_code
+    n_ops = sides.shape[0]
+    return sites * rates * states * (n_dense * 2 * states + n_code + n_ops)
+
+
+def f64_bound(walk):
+    """One float64 walk: the tips' codes (and raw rows, 8 s bytes a site),
+    P and the op table read once, the root edge's two CLVs (8 bytes a
+    value) and counts written once; its operations (`walk_flops`) at the
+    float64 peak."""
+    codes, pm, table = walk["tip_codes"], walk["pmatrix"], walk["table"]
+    R, s, S = walk["rates"], walk["states"], codes.shape[1]
+    raw = walk["tip_clvs"]
+    n_bytes = (codes.numel() * 4 + pm.numel() * 8 + table.numel() * 4
+               + (0 if raw is None else raw.numel() * 8)
+               + 2 * R * s * S * 8 + 2 * S * 4)
+    return bound_ms(n_bytes, walk_flops(table, S, R, s),
+                    peak=H100_F64_FLOP_PER_S)
+
+
+def certified_case(label, part, tree, cpu_part, gpu, must_scale=False):
+    """Phase 24a on one problem: the float64 walk (one launch) against its
+    plain version on the card (counts equal, CLVs TOL_F64_CLV of each
+    site's max; with `must_scale`, some count above 0),
+    `loglikelihood_df64` on the card (its launches counted)
+    against `cpu_part` (the same data in float64 on the CPU) through the
+    plain path at TOL_DF64, the launch's device time, call, bound and the
+    plain version's time. Returns a dict of them."""
+    import torch
+    from libpll2_tpu_torch import TreeEngine, loglikelihood_df64
+    from libpll2_tpu_torch.ops import df64, fused
+    from libpll2_tpu_torch.trees import create_operations, traverse
+
+    ops, branches, pidx = create_operations(traverse(tree.vroot))
+    walk = df64.walk_inputs(part, tree, ops, branches, pidx)
+    got = fused.fused_traversal_f64(**walk)
+    torch.cuda.synchronize()
+    want = fused.fused_traversal_reference(**walk)
+    for what, g, w in (("sc_p", got[2], want[2]), ("sc_c", got[3], want[3])):
+        check(torch.equal(g, w), f"{label}: float64 walk {what} differs from "
+              f"the plain version at {int((g != w).sum())} sites")
+    err = 0.0
+    for g, w in zip(got[:2], want[:2]):
+        scale = w.abs().amax(dim=(0, 1)).clamp_min(1e-300)
+        err = max(err, float(((g - w).abs() / scale).max()))
+    check(err <= TOL_F64_CLV, f"{label}: float64 walk {err:.3e} from the "
+          f"plain version (> {TOL_F64_CLV})")
+    max_count = int(max(got[2].max(), got[3].max()))
+    check(max_count > 0 or not must_scale, f"{label}: the float64 walk "
+          f"never rescaled")
+    reset_counts()
+    t0 = time.perf_counter()
+    lk = loglikelihood_df64(part, tree)
+    lk_ms = (time.perf_counter() - t0) * 1e3
+    got_counts = counts()
+    check_counts(f"{label} loglikelihood_df64", got_counts, {"f64": 1})
+    ref = TreeEngine(cpu_part, tree, pallas=False).loglikelihood()
+    rel = abs(lk - ref) / abs(ref)
+    check(rel <= TOL_DF64, f"{label}: certified logL {lk!r} is {rel:.3e} "
+          f"from float64 on the CPU {ref!r}")
+    call = median_ms(lambda: fused.fused_traversal_f64(**walk))
+    plain = median_ms(lambda: fused.fused_traversal_reference(**walk),
+                      reps=5)
+    dev = kernel_device_us(lambda: fused.fused_traversal_f64(**walk),
+                           "fused_generic<double>") / 1e3
+    bound = f64_bound(walk)
+    S = walk["tip_codes"].shape[1]
+    blocks = -(-S // 64)
+    print(f"certified {label} ({len(ops)} ops, {S} sites, "
+          f"{walk['states']} states x {walk['rates']} rates, "
+          f"{walk['n_slots']} slots, {blocks} blocks of 64; {gpu}): logL "
+          f"{lk:.10f}, float64 CPU {ref:.10f} (rel {rel:.3e}), "
+          f"loglikelihood_df64 {lk_ms:.2f} ms; walk vs plain {err:.3e}, "
+          f"max count {max_count}; device "
+          f"{dev * 1e3:.1f} us, call {call:.4f} ms, bound {bound[0]:.4f} ms "
+          f"by {bound[1]}, plain {plain:.4f} ms", flush=True)
+    return {"launches": got_counts["f64"], "max_abs_err": err,
+            "rel_err": rel, "logl": lk, "ms": call, "plain_ms": plain,
+            "device_ms": dev, "bound": bound, "sites": S,
+            "ops": len(ops), "slots": walk["n_slots"], "blocks": blocks,
+            "df64_ms": lk_ms, "max_count": max_count}
+
+
+def annotation_cost(eng):
+    """What the engine's profiler annotations (utils/profiling.py:annotate)
+    cost outside a profiler: one `with annotate(...)` block's host us
+    against a bare call (the least of 5 runs of 100000 each), times the
+    annotations one DNA main-path loglikelihood() opens (counted inside a
+    CPU profiler), as a share of that call's median host ms."""
+    import timeit
+
+    import torch
+    from libpll2_tpu_torch.utils.profiling import annotate
+
+    def block():
+        with annotate("annotation.cost"):
+            pass
+
+    def bare():
+        pass
+
+    block_us, bare_us = (min(timeit.repeat(fn, number=100000, repeat=5)) * 10
+                         for fn in (block, bare))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        eng.loglikelihood()
+    names = [e.name for e in prof.events()
+             if e.name.startswith(("pll.", "sweep."))]
+    call_ms = host_ms(eng.loglikelihood, reps=50)[1]
+    share = len(names) * (block_us - bare_us) / (call_ms * 1e3)
+    print(f"annotations outside a profiler: one block {block_us:.3f} us (a "
+          f"bare call {bare_us:.3f} us); {len(names)} a DNA main-path "
+          f"loglikelihood() ({sorted(set(names))}) of {call_ms:.4f} ms "
+          f"median host time: {100 * share:.3f} %", flush=True)
+    return {"annotate_us": block_us, "bare_us": bare_us,
+            "per_call": len(names), "call_ms": call_ms, "share": share}
+
+
+def certified_phase(device, gpu, eng, big, big_by, aa_tree, aa_by):
+    """Phase 24: (b) the flagship pipeline at 1000 x 4000 through
+    examples/flagship_1000.run, cut to FLAGSHIP_SMOKE_DEPTH, its launches
+    counted (the certified evaluation one launch of the float64 walk), its
+    certified logL against the checkpoint in float64 on the CPU at
+    TOL_DF64 and its float32 final logL within TOL_LOGL of that; (a) the
+    certified evaluation on the DNA main path (128 x 16384), the protein
+    (128 x 8192 LG+G4), the F64_CATERPILLAR_TAXA x 16384 caterpillar at
+    alpha 0.5 (which must rescale) and the flagship's final 1000-taxon tree
+    (`certified_case`); then the profiler annotations' cost
+    (`annotation_cost`)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from libpll2_tpu_torch import TreeEngine, checkpoint, compute_gamma_cats
+    from libpll2_tpu_torch.examples import flagship_1000
+    from libpll2_tpu_torch.trees import parse_newick, random_alignment
+
+    out_dir = tempfile.mkdtemp(prefix="flagship_smoke_")
+    try:
+        stages, split = [], []
+        reset_counts()
+        t0 = time.perf_counter()
+        info = flagship_1000.run(ANA_TAXA, ANA_SITES, stages=stages,
+                                 search_split=split, device=device,
+                                 out_dir=out_dir,
+                                 depth=FLAGSHIP_SMOKE_DEPTH)
+        wall = time.perf_counter() - t0
+        flag_counts = counts()
+        print(f"  flagship pipeline: launches {flag_counts}", flush=True)
+        check(flag_counts["f64"] == 1 and flag_counts["fused"] > 0
+              and flag_counts["level"] > 0,
+              f"flagship pipeline: launches {flag_counts}, expected one of "
+              f"the float64 walk and some of the fused and level kernels")
+        flag_part, flag_tree = info["partition"], info["tree"]
+        # the checkpoint's partition in float64 on the CPU (its model and
+        # tips exactly) on the run's own tree; the example's cross-check
+        # (fp64_check) reads the checkpoint's newick, whose six decimals
+        # round each length
+        flag_cpu = checkpoint.load(info["ckpt"], dtype=torch.float64,
+                                   device="cpu")[0]
+        ref = TreeEngine(flag_cpu, flag_tree, pallas=False).loglikelihood()
+        fp64 = flagship_1000.fp64_check(info["ckpt"])
+        rel = abs(info["df64_logl"] - ref) / abs(ref)
+        rel32 = abs(info["logl"] - ref) / abs(ref)
+        rel_ckpt = abs(info["df64_logl"] - fp64) / abs(fp64)
+        check(rel <= TOL_DF64, f"flagship: certified logL "
+              f"{info['df64_logl']!r} is {rel:.3e} from float64 {ref!r} on "
+              f"the CPU")
+        check(rel32 <= TOL_LOGL, f"flagship: float32 final logL "
+              f"{info['logl']!r} is {rel32:.3e} from float64 {ref!r}")
+        print(f"flagship 1000 x 4000 ({info['patterns']} patterns; depth "
+              f"{FLAGSHIP_SMOKE_DEPTH}; {gpu}): {wall:.1f} s; certified "
+              f"{info['df64_logl']:.6f}, float64 CPU {ref:.6f} (rel "
+              f"{rel:.3e}), float32 final {info['logl']:.6f} (rel "
+              f"{rel32:.3e}); the checkpoint's float64 {fp64:.6f} (rel "
+              f"{rel_ckpt:.3e}); SPR split {split}", flush=True)
+        for stage, secs in stages:
+            print(f"  stage {stage}: {secs * 1e3:.1f} ms", flush=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    def cat_part(dev, dtype):
+        tree = parse_newick(caterpillar_newick(F64_CATERPILLAR_TAXA))
+        headers, seqs = random_alignment(F64_CATERPILLAR_TAXA, N_SITES,
+                                         seed=3)
+        part = dna_partition(tree, dict(zip(headers, seqs)), N_SITES, dev,
+                             dtype=dtype)
+        part.set_category_rates(compute_gamma_cats(0.5, 4))
+        return part, tree
+
+    cat, cat_tree = cat_part(device, torch.float32)
+    problems = [
+        ("DNA 128 x 16384", dna_partition(big, big_by, N_SITES, device),
+         big, dna_partition(big, big_by, N_SITES, "cpu",
+                            dtype=torch.float64)),
+        ("protein 128 x 8192 LG+G4",
+         protein_partition(aa_tree, aa_by, AA_SITES, device), aa_tree,
+         protein_partition(aa_tree, aa_by, AA_SITES, "cpu",
+                           dtype=torch.float64)),
+        (f"caterpillar {F64_CATERPILLAR_TAXA} x 16384, alpha 0.5", cat,
+         cat_tree, cat_part("cpu", torch.float64)[0]),
+        ("flagship 1000 x 3581, final tree", flag_part, flag_tree,
+         flag_cpu)]
+    cases = {}
+    for label, part, tree, cpu_part in problems:
+        cases[label] = certified_case(label, part, tree, cpu_part, gpu,
+                                      must_scale=label.startswith("cater"))
+        del cpu_part
+    return {"cases": cases, "flagship": {
+        "launches": flag_counts, "wall_s": wall, "stages": stages,
+        "search_split": split, "rel_err": rel, "rel_err_f32": rel32,
+        "rel_err_checkpoint": rel_ckpt, "patterns": info["patterns"]},
+        "annotations": annotation_cost(eng)}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5982,6 +6247,10 @@ def main() -> int:
 
     # 23. placement and partitioned analyses
     place = placement_phase(device, gpu, big, big_by, aa_tree, aa_by)
+
+    # 24. the certified evaluation and the flagship pipeline
+    cert = certified_phase(device, gpu, eng, big, big_by, aa_tree, aa_by)
+    cert_dna = cert["cases"]["DNA 128 x 16384"]
     if args.profile:
         profile([("DNA main path", eng), ("protein main path", aa_eng),
                  ("DNA levels-kernel path", dna[3]),
@@ -6240,7 +6509,21 @@ def main() -> int:
         "bound_by": sp["bound"][1], "library_ms": None,
         "ops": sp["ops"], "level_tables": sp["levels"],
         "device_ms_per_round": sd["pass_device_ms"],
-        "search": {k: v for k, v in search.items() if k != "launches"}}]}),
+        "search": {k: v for k, v in search.items() if k != "launches"}}, {
+        "name": "fused_traversal_f64", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/fused_traversal.cu",
+        "replaces": "libpll2_tpu/ops/df64.py:183",
+        "replaces_kind": "XLA (the certified evaluation's double-single "
+                         "lax.scan), not a Pallas kernel",
+        "launches": cert["flagship"]["launches"]["f64"] + sum(
+            c["launches"] for c in cert["cases"].values()),
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in cert["cases"].values()),
+        "ms": cert_dna["ms"], "plain_ms": cert_dna["plain_ms"],
+        "bound_ms": cert_dna["bound"][0], "bound_by": cert_dna["bound"][1],
+        "library_ms": None, "device_ms": cert_dna["device_ms"],
+        "cases": cert["cases"], "flagship": cert["flagship"],
+        "annotations": cert["annotations"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

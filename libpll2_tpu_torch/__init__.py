@@ -27,6 +27,12 @@ EPA-style, a query at a time, a batch of queries in one launch of the
 fused kernel's query form, or streamed from per-edge attachment tensors,
 and `placement.to_jplace` writes the jplace format.
 
+`loglikelihood_df64` is the certified final evaluation: the whole tree in
+float64 on the card, through the fused kernel's float64 instantiation
+(ops/df64.py). `examples` holds the JAX package's examples, run as
+`python -m libpll2_tpu_torch.examples.<name>`, and `utils` the hardware
+probe, the printers and the profiling hooks.
+
 The package imports torch, numpy and scipy, and never jax: the host modules
 it needs (constants, io, trees, models, utils, ops/gamma, ops/eigen) are
 carried over.
@@ -41,9 +47,10 @@ from .partitioned import PartitionedEngine
 from .bootstrap import bootstrap_loglikelihoods
 from . import modelselect
 from .placement import EdgePlacer
+from .ops.df64 import loglikelihood_df64
 
 __all__ = ["constants", "AscBias", "PllError", "Operation", "Partition",
            "pack_operations", "TreeEngine", "compute_gamma_cats",
            "checkpoint", "PartitionedEngine", "bootstrap_loglikelihoods",
-           "modelselect", "EdgePlacer"]
+           "modelselect", "EdgePlacer", "loglikelihood_df64"]
 __version__ = "0.1.0"

@@ -94,6 +94,13 @@
 //     [K][n_slots + 1][R * s][S], as the launcher allocates them (7.3 MB a
 //     DNA candidate at 128 x 16384 and 7 slots).
 //
+// float64 (pll_fused_traversal_f64): the runtime-size body, fused_generic, is
+// a template on its floating type. Its float64 instantiation is the
+// certified final evaluation's walk (libpll2_tpu_torch/ops/df64.py), which
+// on the TPU is XLA's double-single scan (libpll2_tpu/ops/df64.py), not a
+// Pallas kernel: one topology, per-site counts, state codes or raw tip rows,
+// the slots spilled as in the spill plan, float64's own scaling window.
+//
 // The on-chip walk is bound by instruction issue and latency, not by
 // operations: its per-op bookkeeping (the row, the barriers, the vote and
 // counts) costs more instructions than its 32 FMAs a site, and a warp's
@@ -121,30 +128,35 @@ constexpr int kDepth = 4;
 constexpr int kRateWords = 20;
 constexpr int kSideWords = 4 * kRateWords;
 
-struct Args {
+template <typename T>
+struct ArgsT {
   const int* table;    // [n_ops + 1, 8]
   int n_ops;
-  const float* pmat;   // [E, R, s, s]
+  const T* pmat;       // [E, R, s, s]
   const int* tips;     // [n_tips, S]
-  const float* ctips;  // [n_ctips, s, S] raw tip rows, or null
+  const T* ctips;      // [n_ctips, s, S] raw tip rows, or null
   const int* qcodes;   // [Q, S] the queries' tip codes, or null
   int query_row;       // the tip row a query's codes replace (-1: none)
   int sites;
   int rates, states;
-  float* slots;        // [n_slots + 1, R * s, S]; the last is the spare
+  T* slots;            // [n_slots + 1, R * s, S]; the last is the spare
   int* slot_sc;        // [n_slots, SR, S], SR = R per rate, else 1
   int n_slots;
-  float* out_p;        // [R * s, S]
-  float* out_c;
+  T* out_p;            // [R * s, S]
+  T* out_c;
   int* sc_p;           // [SR, S]
   int* sc_c;
-  float threshold, factor;
+  T threshold, factor;
   int rate_scalers;
   // the strides of the candidate axis (table, P) and of the walk axis
   // (slots, outputs), in elements (0 for the slots on chip)
   long long table_stride, pmat_stride, slot_stride, slot_sc_stride;
   long long out_stride, sc_stride;
 };
+
+// the float32 walks; the generic one is also instantiated in float64
+// (pll_fused_traversal_f64, the certified evaluation)
+using Args = ArgsT<float>;
 
 // Candidate blockIdx.y's table and P, and walk (blockIdx.z, blockIdx.y)'s
 // spilled slots. The on-chip walk
@@ -155,12 +167,14 @@ struct Args {
 // from the kernel's start, these pointers cost the one-topology walk 3-8
 // %, and a P pointer held over the producer's loop cost the all-raw-tip
 // walk 4 % (PERF.md has the measurements).
-struct Cand {
+template <typename T>
+struct CandT {
   const int* table;
-  const float* pmat;
-  float* slots;
+  const T* pmat;
+  T* slots;
   int* slot_sc;
 };
+using Cand = CandT<float>;
 
 // blockIdx.y, read where it is used: a volatile read keeps the compiler
 // from computing the candidate's pointers at the kernel's start and holding
@@ -185,31 +199,36 @@ __device__ __forceinline__ long long walk_index() {
   return (long long)query_index() * n + cand_index();
 }
 
-__device__ __forceinline__ Cand candidate(const Args& a) {
+template <typename T>
+__device__ __forceinline__ CandT<T> candidate(const ArgsT<T>& a) {
   const long long k = cand_index(), w = walk_index();
   return {a.table + k * a.table_stride, a.pmat + k * a.pmat_stride,
           a.slots + w * a.slot_stride, a.slot_sc + w * a.slot_sc_stride};
 }
 
 // the walk's root CLV rows of the parent (end 0) or child end
-__device__ __forceinline__ float* out_clv(const Args& a, int end) {
+template <typename T>
+__device__ __forceinline__ T* out_clv(const ArgsT<T>& a, int end) {
   return (end ? a.out_c : a.out_p) + walk_index() * a.out_stride;
 }
 
 // and their counts
-__device__ __forceinline__ int* out_sc(const Args& a, int end) {
+template <typename T>
+__device__ __forceinline__ int* out_sc(const ArgsT<T>& a, int end) {
   return (end ? a.sc_c : a.sc_p) + walk_index() * a.sc_stride;
 }
 
 // the state codes of tip row `idx`: the block's query's in place of row
 // query_row
-__device__ __forceinline__ const int* tip_row(const Args& a, int idx) {
+template <typename T>
+__device__ __forceinline__ const int* tip_row(const ArgsT<T>& a, int idx) {
   if (idx == a.query_row) return a.qcodes + (size_t)query_index() * a.sites;
   return a.tips + (size_t)idx * a.sites;
 }
 
-__device__ __forceinline__ float tip_bit(unsigned code, int j) {
-  return static_cast<float>((code >> j) & 1u);
+template <typename T = float>
+__device__ __forceinline__ T tip_bit(unsigned code, int j) {
+  return static_cast<T>((code >> j) & 1u);
 }
 
 // ---------------------------------------------------------------------------
@@ -651,20 +670,24 @@ __global__ void __launch_bounds__(kBlock) fused_fixed(Args a) {
 // ---------------------------------------------------------------------------
 // Sizes known at run time (any rates, states <= 32): each op is built in the
 // spare slot a.n_slots, then scaled into its own slot, one count group (all
-// rows, or one rate's rows in per-rate mode) after another.
-__device__ __forceinline__ float child_entry(const Args& a, int is_tip,
-                                             unsigned code, const float* src,
-                                             int r, int j) {
-  if (is_tip == 1) return tip_bit(code, j);
+// rows, or one rate's rows in per-rate mode) after another. T is float, or
+// double for the certified evaluation (pll_fused_traversal_f64), whose
+// scaling window is float64's own.
+template <typename T>
+__device__ __forceinline__ T child_entry(const ArgsT<T>& a, int is_tip,
+                                         unsigned code, const T* src,
+                                         int r, int j) {
+  if (is_tip == 1) return tip_bit<T>(code, j);
   if (is_tip == 2) return src[(size_t)j * a.sites];
   return src[(size_t)(r * a.states + j) * a.sites];
 }
 
 // (bitmask code, row pointer) of one child or root end at `site`
-__device__ __forceinline__ const float* child_source(const Args& a, const Cand& cand,
-                                                     int is_tip,
-                                                     int idx, size_t site,
-                                                     unsigned* code) {
+template <typename T>
+__device__ __forceinline__ const T* child_source(const ArgsT<T>& a, const CandT<T>& cand,
+                                                 int is_tip,
+                                                 int idx, size_t site,
+                                                 unsigned* code) {
   const size_t S = a.sites;
   *code = 0;
   if (is_tip == 1) {
@@ -675,43 +698,44 @@ __device__ __forceinline__ const float* child_source(const Args& a, const Cand& 
   return cand.slots + (size_t)idx * a.rates * a.states * S + site;
 }
 
-__global__ void __launch_bounds__(kBlock) fused_generic(Args a) {
-  const Cand cand = candidate(a);
+template <typename T>
+__global__ void __launch_bounds__(kBlock) fused_generic(ArgsT<T> a) {
+  const CandT<T> cand = candidate(a);
   const size_t site = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (site >= (size_t)a.sites) return;
   const size_t S = a.sites;
   const int s = a.states, RS = a.rates * a.states;
   const int SR = a.rate_scalers ? a.rates : 1, G = RS / SR;
-  float* tmp = cand.slots + (size_t)a.n_slots * RS * S + site;
+  T* tmp = cand.slots + (size_t)a.n_slots * RS * S + site;
   for (int op = 0; op < a.n_ops; ++op) {
     const int* row = cand.table + op * kRow;
     for (int side = 0; side < 2; ++side) {
       const int is_tip = __ldg(row + 1 + 3 * side);
-      const float* P = cand.pmat + (size_t)__ldg(row + 3 + 3 * side) * RS * s;
+      const T* P = cand.pmat + (size_t)__ldg(row + 3 + 3 * side) * RS * s;
       unsigned code;
-      const float* src = child_source(a, cand, is_tip, __ldg(row + 2 + 3 * side), site, &code);
+      const T* src = child_source(a, cand, is_tip, __ldg(row + 2 + 3 * side), site, &code);
       for (int r = 0; r < a.rates; ++r) {
         for (int i = 0; i < s; ++i) {
-          const float* p = P + (r * s + i) * s;
-          float acc = __ldg(p) * child_entry(a, is_tip, code, src, r, 0);
+          const T* p = P + (r * s + i) * s;
+          T acc = __ldg(p) * child_entry(a, is_tip, code, src, r, 0);
           for (int j = 1; j < s; ++j) {
             acc += __ldg(p + j) * child_entry(a, is_tip, code, src, r, j);
           }
-          float* t = tmp + (size_t)(r * s + i) * S;
+          T* t = tmp + (size_t)(r * s + i) * S;
           *t = side ? *t * acc : acc;
         }
       }
     }
     const int pslot = __ldg(row), has = __ldg(row + 7);
-    float* dst = cand.slots + (size_t)pslot * RS * S + site;
+    T* dst = cand.slots + (size_t)pslot * RS * S + site;
     for (int q = 0; q < SR; ++q) {
-      float m = 0.0f;
+      T m = 0;
       for (int k = q * G; k < (q + 1) * G; ++k) {
-        const float v = tmp[k * S];
+        const T v = tmp[k * S];
         m = v > m ? v : m;
       }
       const int rescale = has && m < a.threshold;
-      const float f = rescale ? a.factor : 1.0f;
+      const T f = rescale ? a.factor : T(1);
       int sc = rescale;
       for (int side = 0; side < 2; ++side) {
         if (__ldg(row + 1 + 3 * side) == 0) {
@@ -725,10 +749,10 @@ __global__ void __launch_bounds__(kBlock) fused_generic(Args a) {
   const int* root = cand.table + a.n_ops * kRow;
   for (int end = 0; end < 2; ++end) {
     const int is_tip = __ldg(root + 2 * end), idx = __ldg(root + 2 * end + 1);
-    float* out = out_clv(a, end);
+    T* out = out_clv(a, end);
     int* osc = out_sc(a, end);
     unsigned code;
-    const float* src = child_source(a, cand, is_tip, idx, site, &code);
+    const T* src = child_source(a, cand, is_tip, idx, site, &code);
     for (int q = 0; q < SR; ++q) {
       osc[q * S + site] = is_tip ? 0 : cand.slot_sc[((size_t)idx * SR + q) * S + site];
     }
@@ -837,7 +861,43 @@ extern "C" int pll_fused_traversal(const int* table, int n_ops,
       fused_fixed<4, 4, 1><<<grid, kBlock, 0, st>>>(a);
     }
   } else {
-    fused_generic<<<grid, kBlock, 0, st>>>(a);
+    fused_generic<float><<<grid, kBlock, 0, st>>>(a);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The certified evaluation's walk (libpll2_tpu_torch/ops/df64.py through
+// ops/fused.py:fused_traversal_f64), which takes the place of the XLA
+// double-single scan libpll2_tpu/ops/df64.py:_df64_edge_logl: fused_generic
+// in float64, one topology, per-site counts, any rates, 2 to 32 states, raw
+// tip rows allowed. P, the raw tip rows, the slots [n_slots + 1, R * s, S]
+// (the last the spare) and the root CLVs [R * s, S] are double; the counts
+// [n_slots, 1, S] and [S] int32. One thread a site, blocks of kBlock: bound
+// by float64 operations (2 * R * s * s FMAs an op and site at the card's
+// float64 rate outside the tensor cores) or by the slots' bytes, whichever
+// is larger; at a few thousand sites the launch has fewer blocks than SMs
+// and is latency-bound (ROADMAP B10). Launches on `stream` and returns
+// cudaGetLastError() (0 on success), or an error code without launching
+// when the shapes do not fit.
+extern "C" int pll_fused_traversal_f64(const int* table, int n_ops,
+                                       const double* pmat, const int* tips,
+                                       const double* ctips, int sites,
+                                       int rates, int states, double* slots,
+                                       int* slot_sc, int n_slots,
+                                       double* out_p, double* out_c,
+                                       int* sc_p, int* sc_c, double threshold,
+                                       double factor, void* stream) {
+  const long long S = sites, RS = (long long)rates * states;
+  if (sites < 1 || n_ops < 0 || n_slots < 1 || rates < 1 || states < 2 ||
+      states > 32 || slots == nullptr || slot_sc == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ArgsT<double> a{table, n_ops, pmat, tips, ctips, nullptr, -1, sites, rates, states,
+                  slots, slot_sc, n_slots, out_p, out_c, sc_p, sc_c, threshold, factor,
+                  0, (long long)(n_ops + 1) * kRow, 0, (n_slots + 1) * RS * S,
+                  n_slots * S, RS * S, S};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((sites + kBlock - 1) / kBlock, 1, 1);
+  fused_generic<double><<<grid, kBlock, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

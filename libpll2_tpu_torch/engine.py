@@ -68,6 +68,7 @@ from .ops import pool as ops_pool
 from .partition import (Operation, Partition, pack_level_operations,
                         pack_operations)
 from .trees import create_operations, traverse
+from .utils.profiling import annotate
 
 __all__ = ["TreeEngine", "pack_repeats"]
 
@@ -155,18 +156,23 @@ def _fused_loglikelihood(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
     `mxu` its contraction mode, `rate_scalers` and `tip_clvs` (the raw tip
     rows) its modes (ops/fused.py); `asc_type` and `n_real` the
     likelihood's asc correction."""
-    pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
-                         rates, params_idx_rates, branches, edge_params)
-    rows = traversal(tip_codes, pmatrix, table, rates=pmatrix.shape[1],
-                     states=pmatrix.shape[2], n_slots=n_slots,
-                     threshold=scale_threshold, factor=scale_factor, mxu=mxu,
-                     rate_scalers=rate_scalers, tip_clvs=tip_clvs)
+    with annotate("pll.pmatrix"):
+        pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs,
+                             prop_invar, rates, params_idx_rates, branches,
+                             edge_params)
+    with annotate("pll.fused_traversal"):
+        rows = traversal(tip_codes, pmatrix, table, rates=pmatrix.shape[1],
+                         states=pmatrix.shape[2], n_slots=n_slots,
+                         threshold=scale_threshold, factor=scale_factor,
+                         mxu=mxu, rate_scalers=rate_scalers,
+                         tip_clvs=tip_clvs)
     clv_p, clv_c, sc_p, sc_c = rows
-    total, per = ops_likelihood.edge_loglikelihood(
-        clv_p, clv_c, sc_p, sc_c, pmatrix[root_mat], freqs, prop_invar,
-        rate_weights, params_idx_rates, pattern_weights, invariant,
-        scale_threshold, rate_scalers=rate_scalers, asc_type=asc_type,
-        n_real=n_real)
+    with annotate("pll.edge_logl"):
+        total, per = ops_likelihood.edge_loglikelihood(
+            clv_p, clv_c, sc_p, sc_c, pmatrix[root_mat], freqs, prop_invar,
+            rate_weights, params_idx_rates, pattern_weights, invariant,
+            scale_threshold, rate_scalers=rate_scalers, asc_type=asc_type,
+            n_real=n_real)
     return total, per, rows, pmatrix
 
 
@@ -314,28 +320,33 @@ def _dense_loglikelihood(clv, scaler, eigenvals, inv_eigenvecs, eigenvecs,
     on the card), 'levels' with (Operations [L, W], valid), 'scan' with
     Operations [n]. Returns (total logL, per-site weighted logL, P-matrices,
     root rows)."""
-    pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
-                         rates, params_idx_rates, branches, edge_params)
-    if path == "levels-kernel":
-        ops_levels.update_partials_kernel(clv, scaler, pmatrix, plan,
-                                          scale_threshold, scale_factor,
-                                          level=level)
-    elif path == "levels":
-        ops_partials.update_partials_levels(clv, scaler, pmatrix, *plan,
-                                            scale_threshold, scale_factor,
-                                            rate_scalers=rate_scalers)
-    else:
-        ops_partials.update_partials(clv, scaler, pmatrix, plan,
-                                     scale_threshold, scale_factor,
-                                     rate_scalers=rate_scalers)
+    with annotate("pll.pmatrix"):
+        pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs,
+                             prop_invar, rates, params_idx_rates, branches,
+                             edge_params)
+    with annotate("pll.partials"):
+        if path == "levels-kernel":
+            ops_levels.update_partials_kernel(clv, scaler, pmatrix, plan,
+                                              scale_threshold, scale_factor,
+                                              level=level)
+        elif path == "levels":
+            ops_partials.update_partials_levels(clv, scaler, pmatrix, *plan,
+                                                scale_threshold,
+                                                scale_factor,
+                                                rate_scalers=rate_scalers)
+        else:
+            ops_partials.update_partials(clv, scaler, pmatrix, plan,
+                                         scale_threshold, scale_factor,
+                                         rate_scalers=rate_scalers)
     p_clv, p_sc, c_clv, c_sc, mat = root_idx
     # a missing scaler (-1) reads the last row, which stays zero
     rows = (clv[p_clv], clv[c_clv], scaler[p_sc], scaler[c_sc])
-    total, per = ops_likelihood.edge_loglikelihood(
-        rows[0], rows[1], rows[2], rows[3], pmatrix[mat], freqs, prop_invar,
-        rate_weights, params_idx_rates, pattern_weights, invariant,
-        scale_threshold, rate_scalers=rate_scalers, asc_type=asc_type,
-        n_real=n_real)
+    with annotate("pll.edge_logl"):
+        total, per = ops_likelihood.edge_loglikelihood(
+            rows[0], rows[1], rows[2], rows[3], pmatrix[mat], freqs,
+            prop_invar, rate_weights, params_idx_rates, pattern_weights,
+            invariant, scale_threshold, rate_scalers=rate_scalers,
+            asc_type=asc_type, n_real=n_real)
     return total, per, pmatrix, rows
 
 
@@ -355,19 +366,24 @@ def _repeats_loglikelihood(clv_flat, sc_flat, eigenvals, inv_eigenvecs,
     'pool' through the plain version. `root_cols` holds the root edge's
     absolute per-site columns (clv and scaler, parent then child). Returns
     (total logL, per-site weighted logL, P-matrices, root rows)."""
-    pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
-                         rates, params_idx_rates, branches, edge_params)
+    with annotate("pll.pmatrix"):
+        pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs,
+                             prop_invar, rates, params_idx_rates, branches,
+                             edge_params)
     if path == "pool":
         level = ops_pool.pool_update_reference
-    ops_pool.update_partials_pool(clv_flat, sc_flat, pmatrix, plan,
-                                  scale_threshold, scale_factor, level=level)
+    with annotate("pll.partials.repeats"):
+        ops_pool.update_partials_pool(clv_flat, sc_flat, pmatrix, plan,
+                                      scale_threshold, scale_factor,
+                                      level=level)
     p_cols, p_sc_cols, c_cols, c_sc_cols = root_cols
     rows = (clv_flat[:, :, p_cols], clv_flat[:, :, c_cols],
             sc_flat[..., p_sc_cols], sc_flat[..., c_sc_cols])
-    total, per = ops_likelihood.edge_loglikelihood(
-        *rows, pmatrix[root_mat], freqs, prop_invar, rate_weights,
-        params_idx_rates, pattern_weights, invariant, scale_threshold,
-        rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real)
+    with annotate("pll.edge_logl"):
+        total, per = ops_likelihood.edge_loglikelihood(
+            *rows, pmatrix[root_mat], freqs, prop_invar, rate_weights,
+            params_idx_rates, pattern_weights, invariant, scale_threshold,
+            rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real)
     return total, per, pmatrix, rows
 
 

@@ -121,6 +121,17 @@ def library() -> ctypes.CDLL:
         _I, _I, _L,        # rate chunk, groups, shared-memory bytes
     ]
     lib.pll_fused_traversal_rows.restype = _I
+    _D = ctypes.c_double
+    lib.pll_fused_traversal_f64.argtypes = [
+        _P, _I,            # table, n_ops
+        _P, _P, _P,        # pmatrix, tip codes, raw tip rows (or null)
+        _I, _I, _I,        # sites, rates, states
+        _P, _P, _I,        # slots, slot scalers, n_slots
+        _P, _P, _P, _P,    # out_p, out_c, sc_p, sc_c
+        _D, _D,            # threshold, factor
+        _P,                # stream
+    ]
+    lib.pll_fused_traversal_f64.restype = _I
     lib.pll_rows_smem_optin.argtypes = []
     lib.pll_rows_smem_optin.restype = _I
     lib.pll_level_update.argtypes = [
@@ -403,6 +414,70 @@ def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
         raise RuntimeError(f"fused_traversal kernel launch failed: CUDA "
                            f"error {err}")
     return _query_outputs((out_p, out_c, sc_p, sc_c), q, k, query_codes)
+
+
+def launch_fused_traversal_f64(tip_codes: torch.Tensor,
+                               pmatrix: torch.Tensor, table: torch.Tensor,
+                               rates: int, states: int, n_slots: int,
+                               threshold: float, factor: float,
+                               tip_clvs=None):
+    """Launch csrc/fused_traversal.cu's float64 walk
+    (pll_fused_traversal_f64) once on the current stream for one topology,
+    `table` [n_ops+1, 8] int32 and `pmatrix` [E, R, s, s] float64, per-site
+    counts; returns the root rows (clv_p, clv_c [R, s, S] float64, sc_p,
+    sc_c [S] int32). The slots (n_slots + 1, the last the spare) live in
+    device memory."""
+    name = "fused_traversal_f64"
+    dev = pmatrix.device
+    _check(dev.type == "cuda", f"expected CUDA tensors, got {dev}", name)
+    for what, t in (("tip_codes", tip_codes), ("table", table)):
+        _check(isinstance(t, torch.Tensor) and t.device == dev
+               and t.dtype == torch.int32 and t.is_contiguous(),
+               f"{what} must be a contiguous int32 tensor on {dev}", name)
+    _check(pmatrix.dtype == torch.float64 and pmatrix.is_contiguous(),
+           f"the kernel takes contiguous float64 P-matrices, got "
+           f"{pmatrix.dtype}", name)
+    _check(table.dim() == 2 and table.shape[1] == 8 and table.shape[0] >= 1,
+           f"table shape {tuple(table.shape)} is not [n_ops+1, 8]", name)
+    _check(pmatrix.dim() == 4 and tuple(pmatrix.shape[1:])
+           == (rates, states, states),
+           f"pmatrix shape {tuple(pmatrix.shape)} is not [E, {rates}, "
+           f"{states}, {states}]", name)
+    _check(tip_codes.dim() == 2 and tip_codes.shape[1] > 0,
+           f"tip_codes shape {tuple(tip_codes.shape)} is not [tips, sites]",
+           name)
+    _check(2 <= states <= 32, f"states={states}: tip codes are 32-bit masks",
+           name)
+    _check(rates >= 1 and n_slots >= 1, "rates and n_slots must be >= 1",
+           name)
+    sites = tip_codes.shape[1]
+    if tip_clvs is not None:
+        _check(isinstance(tip_clvs, torch.Tensor) and tip_clvs.device == dev
+               and tip_clvs.dtype == torch.float64
+               and tip_clvs.is_contiguous() and tip_clvs.dim() == 3
+               and tuple(tip_clvs.shape[1:]) == (states, sites),
+               f"tip_clvs must be a contiguous float64 tensor [n, {states}, "
+               f"{sites}] on {dev}", name)
+    f64, i32 = torch.float64, torch.int32
+    out_p = torch.empty((rates, states, sites), dtype=f64, device=dev)
+    out_c = torch.empty_like(out_p)
+    sc_p = torch.empty(sites, dtype=i32, device=dev)
+    sc_c = torch.empty_like(sc_p)
+    slots = torch.empty((n_slots + 1, rates * states, sites), dtype=f64,
+                        device=dev)
+    slot_sc = torch.empty((n_slots, 1, sites), dtype=i32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = library().pll_fused_traversal_f64(
+            table.data_ptr(), table.shape[0] - 1, pmatrix.data_ptr(),
+            tip_codes.data_ptr(), _ptr(tip_clvs), sites, rates, states,
+            slots.data_ptr(), slot_sc.data_ptr(), n_slots, out_p.data_ptr(),
+            out_c.data_ptr(), sc_p.data_ptr(), sc_c.data_ptr(),
+            float(threshold), float(factor), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_traversal_f64 kernel launch failed: CUDA "
+                           f"error {err}")
+    return out_p, out_c, sc_p, sc_c
 
 
 # the largest rates * states the rows route takes (32 rates x 32 states);

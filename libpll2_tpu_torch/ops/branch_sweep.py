@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from ..utils.profiling import annotate
 from . import derivatives as ops_derivatives
 from . import levels as ops_levels
 from . import pmatrix as ops_pmatrix
@@ -202,37 +203,43 @@ def newton_sweep(clv, scaler, pmatrix, branches,
     edges = [tuple(int(v) for v in row[8:13]) for row in steps]
 
     def refresh():
-        ops_levels.update_partials_kernel(clv_c, sc_c, pmatrix_p, tables,
-                                          scale_threshold, scale_factor,
-                                          level=level)
+        with annotate("sweep.postorder"):
+            ops_levels.update_partials_kernel(clv_c, sc_c, pmatrix_p, tables,
+                                              scale_threshold, scale_factor,
+                                              level=level)
 
     for _ in range(passes):
         refresh()
         for table, (e_c, e_csc, e_p, e_psc, mat) in zip(st_tables, edges):
-            level(clv2d, sc_c, pmatrix_p, table, rates_n, states,
-                  scale_threshold, scale_factor)
-            sumtable = ops_derivatives.update_sumtable(
-                clv_c[e_p], clv_c[e_c], sc_c[e_psc], sc_c[e_csc],
-                inv_eigenvecs, eigenvecs, freqs, params_idx_rates,
-                scale_threshold, rate_scalers=False, has_pscaler=True,
-                has_cscaler=True)
+            with annotate("sweep.upclv"):
+                level(clv2d, sc_c, pmatrix_p, table, rates_n, states,
+                      scale_threshold, scale_factor)
+            with annotate("sweep.sumtable"):
+                sumtable = ops_derivatives.update_sumtable(
+                    clv_c[e_p], clv_c[e_c], sc_c[e_psc], sc_c[e_csc],
+                    inv_eigenvecs, eigenvecs, freqs, params_idx_rates,
+                    scale_threshold, rate_scalers=False, has_pscaler=True,
+                    has_cscaler=True)
             asc_scalers = None
             if asc_type in (C.AB_LEWIS, C.AB_FELSENSTEIN):
                 asc_scalers = sc_c[e_psc] + sc_c[e_csc]
             blen = branches_p[mat]
-            for _ in range(iterations):
-                d1, d2 = ops_derivatives.likelihood_derivatives(
-                    sumtable, eigenvals, prop_invar, freqs, rates,
-                    rate_weights, params_idx_rates, pattern_weights,
-                    invariant, blen, asc_scalers=asc_scalers,
-                    scale_threshold=scale_threshold, asc_type=asc_type,
-                    n_real=n_real)
-                blen = ops_derivatives.newton_step(
-                    blen, d1, d2, C.OPT_MIN_BRANCH_LEN, C.OPT_MAX_BRANCH_LEN)
+            with annotate("sweep.newton"):
+                for _ in range(iterations):
+                    d1, d2 = ops_derivatives.likelihood_derivatives(
+                        sumtable, eigenvals, prop_invar, freqs, rates,
+                        rate_weights, params_idx_rates, pattern_weights,
+                        invariant, blen, asc_scalers=asc_scalers,
+                        scale_threshold=scale_threshold, asc_type=asc_type,
+                        n_real=n_real)
+                    blen = ops_derivatives.newton_step(
+                        blen, d1, d2, C.OPT_MIN_BRANCH_LEN,
+                        C.OPT_MAX_BRANCH_LEN)
             branches_p[mat] = blen
-            pmatrix_p[mat] = ops_pmatrix.update_prob_matrices(
-                eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
-                params_idx_rates, blen[None])[0]
+            with annotate("sweep.pmatrix"):
+                pmatrix_p[mat] = ops_pmatrix.update_prob_matrices(
+                    eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
+                    params_idx_rates, blen[None])[0]
     # final refresh with the optimized lengths so that the returned CLVs and
     # scalers are consistent with `branches`
     refresh()

@@ -56,8 +56,11 @@ contract exactly):
       nearest even (`round_bf16_rne`, the `astype(bfloat16)` that JAX's
       kernel applies to them); state-code tips' 0/1 indicators are exact;
       products and sums stay float32.
-float64 (the CPU-only certified path) contracts exactly in every mode, as
-libpll2_tpu's float64 path does.
+float64 contracts exactly in every mode, as libpll2_tpu's float64 path
+does. `fused_traversal_f64` is the walk in float64 on the card (the certified
+final evaluation, ops/df64.py): csrc/fused_traversal.cu's runtime-size body
+instantiated on double, one topology, per-site counts, counted in
+`fused_traversal_f64.launches`.
 """
 from __future__ import annotations
 
@@ -66,7 +69,7 @@ import torch
 
 __all__ = ["pack_fused_schedule", "fused_candidate_from_tree",
            "tip_code_matrix", "ctip_rows", "tip_clv_matrix",
-           "fused_traversal", "fused_traversal_rows",
+           "fused_traversal", "fused_traversal_rows", "fused_traversal_f64",
            "fused_traversal_reference", "round_bf16", "round_bf16_rne",
            "query_edge_split", "query_spill_slots", "MXU_MODES",
            "ROWS_STATES_MIN", "ROWS_RATE_SCALERS_MAX", "QUERY_LAUNCH_BYTES"]
@@ -649,3 +652,52 @@ def fused_traversal_rows(tip_codes: torch.Tensor,   # [n_tips, S] int32
 
 fused_traversal_rows.launches = 0
 fused_traversal_rows.query_launches = 0
+
+
+def fused_traversal_f64(tip_codes: torch.Tensor,   # [n_tips, S] int32
+                        pmatrix: torch.Tensor,     # [E, R, s, s] float64
+                        table: torch.Tensor,       # [n_ops+1, 8] int32
+                        rates: int, states: int, n_slots: int,
+                        threshold: float, factor: float,
+                        tip_clvs: torch.Tensor = None,
+                        rate_scalers: bool = False,
+                        query_codes: torch.Tensor = None):
+    """One full postorder in float64 (the certified evaluation's walk):
+    returns (clv_p, clv_c [R, s, S] float64, sc_p, sc_c [S] int32) for the
+    root edge, as `fused_traversal` does for one topology. `tip_clvs`
+    [n_ctips, s, S] float64 holds the raw tip rows. Its scope is one
+    topology with per-site counts and 2 to 32 states: the candidate and
+    query forms and per-rate scalers raise NotImplementedError.
+
+    CUDA tensors launch csrc/fused_traversal.cu's float64 walk
+    (pll_fused_traversal_f64) on the current stream, without synchronising,
+    or raise; `launches` counts them. CPU tensors run
+    `fused_traversal_reference`."""
+    if table.ndim != 2:
+        raise NotImplementedError(
+            "fused_traversal_f64: the candidate form (a [K, n_ops+1, 8] "
+            "table) is not instantiated in float64")
+    if query_codes is not None:
+        raise NotImplementedError(
+            "fused_traversal_f64: the query form is not instantiated in "
+            "float64")
+    if rate_scalers:
+        raise NotImplementedError(
+            "fused_traversal_f64: per-rate scalers are not instantiated in "
+            "float64")
+    if pmatrix.dtype != torch.float64:
+        raise ValueError(f"fused_traversal_f64 takes float64 P-matrices, "
+                         f"got {pmatrix.dtype}")
+    if pmatrix.device.type == "cpu" and tip_codes.device.type == "cpu":
+        return fused_traversal_reference(tip_codes, pmatrix, table, rates,
+                                         states, n_slots, threshold, factor,
+                                         tip_clvs=tip_clvs)
+    from . import _kernels
+    out = _kernels.launch_fused_traversal_f64(tip_codes, pmatrix, table,
+                                              rates, states, n_slots,
+                                              threshold, factor, tip_clvs)
+    fused_traversal_f64.launches += 1
+    return out
+
+
+fused_traversal_f64.launches = 0

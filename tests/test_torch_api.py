@@ -54,7 +54,7 @@ def test_public_names_match_jax(name):
 
 
 # JAX's top-level names the port does not export yet: name -> ROADMAP item
-NOT_YET_TOP = {"loglikelihood_df64": "A5"}
+NOT_YET_TOP = {}
 
 
 def test_top_level_names_match_jax():

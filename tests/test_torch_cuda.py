@@ -1617,3 +1617,62 @@ def test_partitioned_engine_on_card_matches_single_engines(cuda):
         pe.newton_step()
     lens = {float(e.branches[int(e.root_idx[4])]) for e in pe.engines}
     assert len(lens) == 1
+
+
+# the float64 walk (csrc/fused_traversal.cu's fused_generic on double, the
+# certified evaluation's): name -> (taxa, sites, states, rates, raw tips);
+# 'caterpillar' (300 taxa of random columns) rescales in float64's 2^-256
+# window
+F64_CASES = {"dna": (16, 1000, 4, 4, False), "rates3": (16, 700, 4, 3, False),
+             "states5": (16, 700, 5, 4, False),
+             "protein": (16, 500, 20, 4, False), "raw": (16, 900, 4, 4, True),
+             "caterpillar": (300, 300, 4, 4, False)}
+
+
+@pytest.mark.parametrize("case", sorted(F64_CASES))
+def test_float64_walk_matches_plain_on_card(cuda, case):
+    """fused_traversal_f64 against its plain version on the same CUDA
+    tensors (scaler counts equal, root CLVs to 1e-12 of each site's largest
+    entry: both in float64, FMA contraction against PyTorch's order), one
+    launch; loglikelihood_df64 on the card against the same evaluation on
+    the CPU (1e-12) and the float64 CPU engine (1e-10)."""
+    from libpll2_tpu_torch import loglikelihood_df64
+    from libpll2_tpu_torch.ops import df64
+
+    taxa, sites, states, rates, raw = F64_CASES[case]
+    tree = (_caterpillar(taxa) if case == "caterpillar"
+            else random_utree([f"t{i}" for i in range(taxa)], seed=5))
+    alphabet = AA_NOISY if states == 20 else (
+        "ACGTX-" if states == 5 else "ACGT-NRY")
+
+    def build(device, dtype):
+        part = _engine(tree, sites, device, dtype=dtype, rates=rates,
+                       states=states, alphabet=alphabet, seed=5)[0]
+        if raw:
+            rng = np.random.default_rng(5)
+            for tip in list(tree.tips())[::2]:
+                rows = rng.dirichlet(np.ones(states), size=sites)
+                part.set_tip_clv(tip.clv_index, rows.astype(np.float32)
+                                 .astype(np.float64))
+        return part
+
+    part = build(cuda, torch.float32)
+    ops, branches, pidx = create_operations(traverse(tree.vroot))
+    walk = df64.walk_inputs(part, tree, ops, branches, pidx)
+    before = fused.fused_traversal_f64.launches
+    got = fused.fused_traversal_f64(**walk)
+    torch.cuda.synchronize()
+    assert fused.fused_traversal_f64.launches == before + 1
+    want = fused.fused_traversal_reference(**walk)
+    for g, w in zip(got[:2], want[:2]):
+        scale = w.abs().amax(dim=(0, 1)).clamp_min(1e-300)
+        assert float(((g - w).abs() / scale).max()) < 1e-12
+    for g, w in zip(got[2:], want[2:]):
+        assert torch.equal(g, w)
+    if case == "caterpillar":
+        assert int(got[2].max()) > 0
+    lk = loglikelihood_df64(part, tree)
+    cpu = loglikelihood_df64(build("cpu", torch.float32), tree)
+    assert abs(lk - cpu) / abs(cpu) < 1e-12
+    ref = TreeEngine(build("cpu", torch.float64), tree).loglikelihood()
+    assert abs(lk - ref) / abs(ref) < 1e-10
