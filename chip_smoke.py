@@ -6,6 +6,7 @@
     python3 chip_smoke.py --fused-only CHECKOUT
     python3 chip_smoke.py --pool-only CHECKOUT
     python3 chip_smoke.py --levels-only CHECKOUT
+    python3 chip_smoke.py --mesh-only
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit's nvcc and PyTorch built for CUDA; jax is not needed. Phases,
@@ -265,6 +266,35 @@ each fatal on failure:
      the engine's profiler annotations' host cost outside a profiler: one
      block's us times the annotations of one DNA loglikelihood(), as a
      share of that call's host time.
+ 25. site sharding (libpll2_tpu_torch.parallel) on a mesh of MESH_SHARDS
+     shards of the one card, which run one after another (their times are
+     per-shard overhead, not scaling): (1) the DNA main path's problem
+     sharded (Partition(sites_alignment=4, mesh=...)): loglikelihood() and
+     three newton_step()s, kernel #1 launched once a shard a call
+     (counted), every shard's root rows and counts equal to the unsharded
+     run's columns and its per-site logL equal to the likelihood epilogue
+     run on those columns (the epilogue's GEMMs may round the full width
+     otherwise in the last bit: the sites where they do are printed), the
+     totals against the float64 plain path; (2) the protein main path in 'split' and 'bf16' on kernel #2
+     the same way; (3) the DNA problem's step-by-step chain, a partial
+     traversal (equal to the full list) and pallas='levels-kernel' on
+     kernel #3 once a shard a level, and one pass of newton_smooth_all
+     sharded and unsharded (each step's level launch once a shard, the
+     logL within TOL_LOGL); (4) one streamed SPR round of phase
+     20's problem, sharded and unsharded: the same moves and splits; (5)
+     one maximize_fused step of phase 21's problem (the trials one launch
+     a shard); (6) ShardedRepeatsEngine on the 246 x 4465 problem trimmed
+     to 4464 = 4 x 1116 columns, on 'repeats-dense-fused' (kernel #1) and
+     the pooled path (kernel #5), and one batched SPR round against the
+     unsharded repeats engine on the same columns; (7)
+     PartitionedEngine.shard on phase 23c's four units; (8)
+     tests/torch_mh_worker.py as one process of 4 shards and as 2
+     processes (torch.distributed over gloo, the card shared) of 2 shards
+     each: logL, d1 and d2 equal; (9) examples/sharded_multichip.py
+     --shards 4 exits 0. Each kernel's call on one shard's block beside
+     the unsharded call, and loglikelihood(), newton_step() and the rounds
+     sharded beside unsharded. `--mesh-only` runs this phase alone (after
+     the build) and prints its numbers as one JSON line.
 
 The last three lines are the card's name and power limit, one JSON object
 listing every kernel (with its bound at the card's peaks), and {"ok": true,
@@ -5603,10 +5633,11 @@ def placement_phase(device, gpu, big, big_by, aa_tree, aa_by):
     return out
 
 
-def partitioned_units(device, tree, by, aa_by):
+def partitioned_units(device, tree, by, aa_by, **options):
     """Phase 23c's partitions over `tree`: the DNA alignment's columns in
     PART_DNA_BLOCKS blocks, each under its own GTR+G4 (an rng of seed 100 +
-    block), and the protein alignment under LG+G4."""
+    block), and the protein alignment under LG+G4; `options`
+    (sites_alignment) go to every Partition."""
     import numpy as np
     from libpll2_tpu_torch import Partition, compute_gamma_cats
     from libpll2_tpu_torch.io import maps
@@ -5617,7 +5648,8 @@ def partitioned_units(device, tree, by, aa_by):
     for k in range(PART_DNA_BLOCKS):
         lo, hi = int(bounds[k]), int(bounds[k + 1])
         p = Partition(tree.tip_count, tree.inner_count, 4, hi - lo, 1,
-                      tree.edge_count, 4, tree.inner_count, device=device)
+                      tree.edge_count, 4, tree.inner_count, device=device,
+                      **options)
         for tip in tree.tips():
             p.set_tip_states(tip.clv_index, maps.map_nt,
                              by[tip.label][lo:hi])
@@ -5627,7 +5659,8 @@ def partitioned_units(device, tree, by, aa_by):
         p.set_category_rates(compute_gamma_cats(0.6 + 0.2 * k, 4))
         parts.append(p)
     p = Partition(tree.tip_count, tree.inner_count, 20, PART_AA_SITES, 1,
-                  tree.edge_count, 4, tree.inner_count, device=device)
+                  tree.edge_count, 4, tree.inner_count, device=device,
+                  **options)
     for tip in tree.tips():
         p.set_tip_states(tip.clv_index, maps.map_aa, aa_by[tip.label])
     load_aa_model(p, "lg")
@@ -5974,6 +6007,652 @@ def certified_phase(device, gpu, eng, big, big_by, aa_tree, aa_by):
         "rel_err_checkpoint": rel_ckpt, "patterns": info["patterns"]},
         "annotations": annotation_cost(eng)}
 
+# phase 25: site sharding on one card. MESH_SHARDS shards of one device run
+# one after another: the phase shows that the sharded path is right and runs
+# each kernel once a shard; its times are per-shard overhead, not scaling.
+MESH_SHARDS = 4
+MESH_DEVICE = "cuda:0"
+REP_MESH_SITES = 4464         # REP_SITES trimmed to MESH_SHARDS x 1116
+MESH_REPS = 10
+MESH_NOTE = (f"one card running {MESH_SHARDS} shards one after another: "
+             f"per-shard overhead, not scaling")
+
+
+def mesh_of(n=MESH_SHARDS):
+    from libpll2_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=[MESH_DEVICE] * n)
+
+
+def epilogue_on_columns(ref, rows, lo, hi):
+    """The per-site logL of the likelihood epilogue
+    (ops/likelihood.py:edge_loglikelihood) run on the columns [lo, hi) of
+    the unsharded engine `ref`'s root rows `rows`, with its P-matrices and
+    site data: what a shard of those columns computes from equal rows."""
+    from libpll2_tpu_torch.ops import likelihood as ops_likelihood
+
+    p = ref.partition
+    m = ref._model_args()
+    pw, inv = ref._site_args()
+    clv_p, clv_c, sc_p, sc_c = (r[..., lo:hi].contiguous() for r in rows)
+    modes = dict(p._modes(), col0=lo)
+    return ops_likelihood.edge_loglikelihood(
+        clv_p, clv_c, sc_p, sc_c, p.pmatrix[ref.root_idx[4]], m[6], m[3],
+        m[5], m[7], pw[lo:hi], inv[lo:hi], p.scale_threshold, **modes)[1]
+
+
+def mesh_columns(label, eng, ref):
+    """Each shard's root rows and scaler counts against the unsharded
+    engine's columns at the same branch lengths: equal (every kernel is
+    elementwise over sites); and each shard's per-site logL equal to the
+    likelihood epilogue run on the unsharded rows cut to its columns
+    (`epilogue_on_columns`). The epilogue's contractions over the states
+    are cuBLAS GEMMs, whose algorithm may depend on the width: the sites
+    where the unsharded run's own per-site logL differs, and by how many
+    ulp, are printed. Returns the largest CLV difference (0.0)."""
+    import torch
+
+    ref._set_branches(eng.branches)
+    _, per1, rows1 = ref._evaluate()
+    _, per, rows = eng._shards.evaluate(eng.branches)
+    torch.cuda.synchronize()
+    max_abs, lo = 0.0, 0
+    for shard in rows:
+        w = shard[0].shape[-1]
+        for got, want in zip(shard, rows1):
+            cols = want[..., lo:lo + w]
+            diff = float((got.double() - cols.double()).abs().max())
+            max_abs = max(max_abs, diff)
+            check(torch.equal(got, cols), f"{label}: shard at column {lo}: "
+                  f"root rows or counts differ from the unsharded run's "
+                  f"(max {diff!r})")
+        sliced = epilogue_on_columns(ref, rows1, lo, lo + w)
+        n_off = int((per[lo:lo + w] != sliced).sum())
+        check(n_off == 0, f"{label}: shard at column {lo}: per-site logL "
+              f"differs at {n_off} sites from the epilogue on the unsharded "
+              f"rows cut to its columns")
+        lo += w
+    ulps = float(((per - per1).abs() / (per1.abs() * 2.0 ** -23)
+                  .clamp_min(1e-30)).max())
+    n_diff = int((per != per1).sum())
+    print(f"  {label}: {len(rows)} shards' root rows and counts equal the "
+          f"unsharded run's columns, and their per-site logL the epilogue "
+          f"on those columns; against the unsharded run's per-site logL "
+          + ("equal" if n_diff == 0 else f"{n_diff} sites differ, "
+             f"{ulps:.2f} ulp at most (the epilogue at full width)"),
+          flush=True)
+    return max_abs
+
+
+def mesh_calls(label, eng, ref, gpu, newton=True):
+    """Medians (ms, CUDA events) of loglikelihood() and newton_step() on the
+    sharded engine and its unsharded twin, printed with MESH_NOTE."""
+    out = {"loglikelihood_ms": median_ms(eng.loglikelihood, MESH_REPS),
+           "loglikelihood_unsharded_ms": median_ms(ref.loglikelihood,
+                                                   MESH_REPS)}
+    if newton:
+        out["newton_step_ms"] = median_ms(eng.newton_step, MESH_REPS)
+        out["newton_step_unsharded_ms"] = median_ms(ref.newton_step,
+                                                    MESH_REPS)
+    print(f"  {label} times ({MESH_NOTE}; {gpu}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items()), flush=True)
+    return out
+
+
+def mesh_fused_case(label, part, ref_part, tree, gpu, want_kernel, mxu,
+                    n_newton, tol=TOL_LOGL):
+    """A sharded fused-path engine: loglikelihood() and `n_newton`
+    newton_step()s with the kernel's launches counted (once a shard a
+    call), the totals against the float64 plain path at the same branch
+    lengths, the columns against the unsharded run's, one shard's kernel
+    call beside the unsharded call, and the times."""
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.ops.fused import fused_traversal
+
+    eng = TreeEngine(part, tree, mxu=mxu)
+    ref = TreeEngine(ref_part, tree, mxu=mxu)
+    check(eng.execution_path == "fused" and len(eng._shards.engines)
+          == MESH_SHARDS, f"{label}: path {eng.execution_path}")
+    inputs = [eng.branches.clone()]
+    reset_counts()
+    lnl = eng.loglikelihood()
+    steps = []
+    for _ in range(n_newton):
+        inputs.append(eng.branches.clone())
+        steps.append(eng.newton_step())
+    got = counts()
+    calls = 1 + n_newton
+    check_counts(f"{label}: loglikelihood() + {n_newton} newton_step()",
+                 got, {want_kernel: calls * MESH_SHARDS})
+    for i, ((lk, *d), b) in enumerate(zip([(lnl,)] + steps, inputs)):
+        ref64 = plain_float64(ref_part, ref, b)
+        what = "loglikelihood()" if i == 0 else f"newton_step {i}"
+        if tol == TOL_LOGL:
+            check_logl(f"{label} {what} vs float64", lk, ref64[0],
+                       d or None, ref64[1:] if d else None)
+        else:
+            rel = abs(lk - ref64[0]) / abs(ref64[0])
+            check(rel < tol, f"{label} {what}: rel {rel:.2e} >= {tol}")
+            print(f"  {label} {what}: logL {lk!r}, float64 {ref64[0]!r} "
+                  f"(rel {rel:.2e})", flush=True)
+    max_abs = mesh_columns(label, eng, ref)
+    se = eng._shards.engines[0]
+    codes, pm, table = traversal_inputs(se)
+    kw = dict(traversal_kw(se.partition, se), mxu=mxu)
+    rcodes, rpm, rtable = traversal_inputs(ref)
+    rkw = dict(traversal_kw(ref_part, ref), mxu=mxu)
+    shard_ms = median_ms(lambda: fused_traversal(codes, pm, table, **kw))
+    full_ms = median_ms(lambda: fused_traversal(rcodes, rpm, rtable, **rkw))
+    print(f"  {label}: the kernel on one shard's {se.partition.sites_padded} "
+          f"columns {shard_ms:.4f} ms, on the unsharded {ref_part.sites} "
+          f"{full_ms:.4f} ms (median of {REPS}, CUDA events; {gpu})",
+          flush=True)
+    out = {"launches": got[want_kernel], "max_abs_err": max_abs,
+           "ms_per_shard": shard_ms, "unsharded_ms": full_ms,
+           "bound_per_shard": fused_bound(se, se.partition),
+           **mesh_calls(label, eng, ref, gpu)}
+    return out
+
+
+def mesh_dna(device, gpu, big, big_by):
+    """25.1 and 25.3: the DNA main path's problem on the mesh: the fused
+    path, then the step-by-step API with a partial traversal and
+    pallas='levels-kernel' on the level kernel."""
+    import torch
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.ops import levels
+    from libpll2_tpu_torch.trees import create_operations, traverse
+
+    mesh = mesh_of()
+    part = dna_partition(big, big_by, N_SITES, MESH_DEVICE,
+                         sites_alignment=MESH_SHARDS, mesh=mesh)
+    ref_part = dna_partition(big, big_by, N_SITES, device)
+    out = {"fused": mesh_fused_case(f"sharded DNA {N_TAXA} x {N_SITES}",
+                                    part, ref_part, big, gpu, "fused",
+                                    "split", 3)}
+    # the step-by-step chain, a partial traversal after one branch length
+    # changes (equal to the full list), then 'levels-kernel'
+    label = "sharded DNA step by step"
+    r = big.vroot
+    params = [0] * 4
+    reset_counts()
+    ops, blen, lnl, d = step_by_step(part, big)
+    got = counts()
+    n_levels = len(levels.schedule_levels(ops, part.tips))
+    check_counts(f"{label}: one traversal", got,
+                 {"level": n_levels * MESH_SHARDS})
+    ref = f64_edge(ref_part, ops, blen, params, r)
+    check_logl(f"{label}: edge vs float64", lnl, ref[0], d, ref[1:3])
+    mat = next(o.child1_matrix_index for o in ops
+               if o.child1_clv_index < part.tips)
+    bad = set()
+    for o in ops:
+        if (mat in (o.child1_matrix_index, o.child2_matrix_index)
+                or o.child1_clv_index in bad or o.child2_clv_index in bad):
+            bad.add(o.parent_clv_index)
+    partial = create_operations(traverse(
+        r, cbtrav=lambda n: not n.is_tip() and n.clv_index in bad))[0]
+    blen2 = blen.clone()
+    blen2[mat] *= 3.0
+    part.update_prob_matrices(params, [mat], [float(blen2[mat])])
+    reset_counts()
+    part.update_partials(partial)
+    got_p = counts()
+    lnl_p = step_edge(part, big, blen2, params, False)[0]
+    clv_p, sc_p = part._dense_buffers()
+    part.update_partials(ops)
+    lnl_f = step_edge(part, big, blen2, params, False)[0]
+    clv_f, sc_f = part._dense_buffers()
+    n = part.nodes
+    check(lnl_p == lnl_f and torch.equal(clv_p[:n], clv_f[:n])
+          and torch.equal(sc_p, sc_f), f"{label}: partial traversal "
+          f"{lnl_p!r} differs from the full one {lnl_f!r}")
+    del clv_p, sc_p, clv_f, sc_f
+    n_partial = len(levels.schedule_levels(partial, part.tips))
+    check(got_p["level"] == n_partial * MESH_SHARDS,
+          f"{label}: partial traversal launches {got_p}")
+    check_logl(f"{label}: partial traversal ({len(partial)} of {len(ops)} "
+               f"ops, equal to the full one) vs float64", lnl_p,
+               f64_edge(ref_part, ops, blen2, params, r)[0])
+    lk_eng = TreeEngine(part, big, pallas="levels-kernel")
+    lk_ref = TreeEngine(ref_part, big, pallas="levels-kernel")
+    check(lk_eng.execution_path == "levels-kernel", "levels-kernel path")
+    inputs = [lk_eng.branches.clone()]
+    reset_counts()
+    rows = [(lk_eng.loglikelihood(), None, None)]
+    for _ in range(2):
+        inputs.append(lk_eng.branches.clone())
+        rows.append(lk_eng.newton_step())
+    got_l = counts()
+    check_counts("sharded 'levels-kernel': loglikelihood() + 2 "
+                 "newton_step()", got_l,
+                 {"level": 3 * n_levels * MESH_SHARDS})
+    for i, (b, (lk, d1, d2)) in enumerate(zip(inputs, rows)):
+        ref = f64_edge(ref_part, ops, b.cpu().double(), params, r)
+        what = "loglikelihood()" if i == 0 else f"newton_step {i}"
+        check_logl(f"sharded 'levels-kernel' {what} vs float64", lk, ref[0],
+                   None if d1 is None else (d1, d2),
+                   None if d1 is None else ref[1:3])
+    sp = lk_eng._shards.engines[0].partition
+    shard_ms = median_ms(lambda: run_levels(sp, ops, levels.level_update))
+    full_ms = median_ms(lambda: run_levels(ref_part, ops,
+                                           levels.level_update))
+    print(f"  the level kernel over one traversal of a shard's "
+          f"{sp.sites_padded} columns {shard_ms:.4f} ms, of the unsharded "
+          f"{N_SITES} {full_ms:.4f} ms (median of {REPS}, CUDA events; "
+          f"{gpu})", flush=True)
+    out["levels"] = {"launches": got["level"] + got_p["level"]
+                     + got_l["level"], "levels": n_levels,
+                     "partial_ops": len(partial),
+                     "ms_per_shard": shard_ms, "unsharded_ms": full_ms,
+                     "bound_per_shard": level_bound(sp, ops),
+                     **mesh_calls("sharded 'levels-kernel'", lk_eng, lk_ref,
+                                  gpu)}
+    return out
+
+
+def mesh_sweep(device, gpu, big, big_by):
+    """25.3b: one pass of newton_smooth_all on the DNA problem, sharded and
+    unsharded, each on its own copy of the tree: every step's level
+    launch once a shard (counted), the final logL within TOL_LOGL of the
+    unsharded sweep's and the lengths within float32 summation order."""
+    import numpy as np
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.optimize import newton_smooth_all
+    from libpll2_tpu_torch.trees.utils import utree_clone
+
+    runs = {}
+    for kind in ("unsharded", "sharded"):
+        tree = utree_clone(big)
+        part = (dna_partition(tree, big_by, N_SITES, MESH_DEVICE,
+                              sites_alignment=MESH_SHARDS, mesh=mesh_of())
+                if kind == "sharded" else
+                dna_partition(tree, big_by, N_SITES, device))
+        eng = TreeEngine(part, tree, pallas="levels-kernel")
+        eng.loglikelihood()
+        reset_counts()
+        lk, ms = timed(lambda: newton_smooth_all(eng, tree, passes=1,
+                                                 iterations=2))
+        runs[kind] = (lk, ms, counts(), eng.branches.cpu().double().numpy())
+        del eng, part
+    (lk_m, ms_m, c_m, b_m), (lk_1, ms_1, c_1, b_1) = (runs["sharded"],
+                                                       runs["unsharded"])
+    rel = abs(lk_m - lk_1) / abs(lk_1)
+    check(rel < TOL_LOGL, f"sharded newton_smooth_all {lk_m!r} vs {lk_1!r}")
+    blen_rel = float(np.max(np.abs(b_m - b_1) / np.maximum(b_1, 1e-6)))
+    check(blen_rel < 1e-3, f"sharded newton_smooth_all lengths differ by "
+          f"{blen_rel:.2e}")
+    check(c_m["level"] == MESH_SHARDS * c_1["level"] and c_1["level"] > 0,
+          f"sharded newton_smooth_all launches {c_m}, unsharded {c_1}")
+    print(f"sharded newton_smooth_all (1 pass, 2 iterations; {N_TAXA} x "
+          f"{N_SITES}) ({MESH_NOTE}; {gpu}): logL {lk_m!r} in {ms_m:.1f} ms, "
+          f"launches {c_m}; unsharded {lk_1!r} in {ms_1:.1f} ms, launches "
+          f"{c_1} ({rel:.2e}; lengths within {blen_rel:.2e})", flush=True)
+    return {"ms": ms_m, "unsharded_ms": ms_1, "launches": c_m["level"],
+            "rel_err": rel, "branch_rel_err": blen_rel}
+
+
+def mesh_protein(device, gpu, aa_tree, aa_by):
+    """25.2: LG+G4 at 128 x 8192 on the mesh in 'split' and 'bf16'."""
+    mesh = mesh_of()
+    part = protein_partition(aa_tree, aa_by, AA_SITES, MESH_DEVICE,
+                             sites_alignment=MESH_SHARDS, mesh=mesh)
+    ref_part = protein_partition(aa_tree, aa_by, AA_SITES, device)
+    return {mode: mesh_fused_case(
+        f"sharded protein {AA_TAXA} x {AA_SITES} [{mode}]", part, ref_part,
+        aa_tree, gpu, "rows", mode, 3 if mode == "split" else 1,
+        tol=TOL_LOGL if mode == "split" else TOL_BF16_LOGL)
+        for mode in ("split", "bf16")}
+
+
+def mesh_search(device, gpu):
+    """25.4: one streamed SPR round of phase 20's problem on the mesh and
+    unsharded, each from its own copy of the start: the same moves and
+    splits, logL within TOL_LOGL, the passes' level launches once a
+    shard."""
+    from libpll2_tpu_torch.search import TreeSearch
+    from libpll2_tpu_torch.trees import tree_bipartitions
+    from libpll2_tpu_torch.trees.utils import utree_clone
+
+    start, _, by = search_start()
+    rounds = {}
+    # the first round pays the warm-ups (the native library, handles);
+    # the unsharded one runs again after the sharded one and is reported
+    for kind in ("unsharded", "sharded", "unsharded"):
+        t = utree_clone(start)
+        part = (dna_partition(t, by, N_SITES, MESH_DEVICE,
+                              sites_alignment=MESH_SHARDS, mesh=mesh_of())
+                if kind == "sharded" else
+                dna_partition(t, by, N_SITES, device))
+        s = TreeSearch(part, t)
+        s.evaluate()
+        check(s._streamed_eligible(), f"{kind} streamed round not eligible")
+        reset_counts()
+        (lk, acc), ms = timed(lambda: s.spr_round_streamed(
+            radius=SEARCH_RADIUS))
+        rounds[kind] = (lk, acc, ms, counts(), tree_bipartitions(t))
+        del s, part
+    (lk_m, acc_m, ms_m, c_m, sp_m), (lk_1, acc_1, ms_1, c_1, sp_1) = (
+        rounds["sharded"], rounds["unsharded"])
+    check(acc_m == acc_1 and acc_m > 0, f"sharded SPR round accepted "
+          f"{acc_m}, unsharded {acc_1}")
+    check(sp_m == sp_1, f"sharded SPR round ends in another topology: "
+          f"{len(sp_m ^ sp_1)} splits differ")
+    rel = abs(lk_m - lk_1) / abs(lk_1)
+    check(rel < TOL_LOGL, f"sharded SPR round logL {lk_m!r} vs {lk_1!r}")
+    check(c_m["level"] == MESH_SHARDS * c_1["level"] and c_m["fused"]
+          == MESH_SHARDS * c_1["fused"], f"sharded SPR round launches "
+          f"{c_m}, unsharded {c_1}")
+    print(f"sharded streamed SPR round (radius {SEARCH_RADIUS}, {N_TAXA} x "
+          f"{N_SITES}) ({MESH_NOTE}; {gpu}): {acc_m} moves in {ms_m:.1f} ms, "
+          f"launches {c_m}; unsharded {acc_1} moves in {ms_1:.1f} ms, "
+          f"launches {c_1}; logL {lk_m!r} vs {lk_1!r} ({rel:.2e}), the "
+          f"same {len(sp_m)} splits", flush=True)
+    return {"moves": acc_m, "ms": ms_m, "unsharded_ms": ms_1,
+            "launches": c_m, "unsharded_launches": c_1, "rel_err": rel}
+
+
+def mesh_optimize(device, gpu):
+    """25.5: one maximize_fused step of phase 21's problem on the mesh
+    against the unsharded step (the trials in one launch a shard)."""
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.optimize import (make_fused_loglikelihood_fn,
+                                            maximize_fused)
+
+    tree, by, ref_part = opt_problem(device)
+    part = dna_partition(tree, by, N_SITES, MESH_DEVICE,
+                         sites_alignment=MESH_SHARDS, mesh=mesh_of())
+    part.set_frequencies(0, ref_part.frequencies[0])
+    part.set_subst_params(0, ref_part.subst_params[0])
+    out = {}
+    engines = {"sharded": TreeEngine(part, tree),
+               "unsharded": TreeEngine(ref_part, tree)}
+    for eng in engines.values():
+        fn, x0, _ = make_fused_loglikelihood_fn(eng, ("subst", "freqs"))
+        fn(x0[None])             # the first eigh on the card pays its set-up
+    for kind, eng in engines.items():
+        reset_counts()
+        (lk, _, hist), ms = timed(lambda: maximize_fused(
+            eng, ("subst", "freqs"), steps=1, chunk=1))
+        out[kind] = (lk, hist, ms, counts())
+    (lk_m, h_m, ms_m, c_m), (lk_1, h_1, ms_1, c_1) = (out["sharded"],
+                                                       out["unsharded"])
+    rel = max(abs(lk_m - lk_1) / abs(lk_1),
+              abs(h_m[0] - h_1[0]) / abs(h_1[0]))
+    check(rel < TOL_LOGL, f"sharded maximize_fused step {lk_m!r} / "
+          f"{h_m[0]!r} vs {lk_1!r} / {h_1[0]!r}")
+    check(c_m["fused"] == MESH_SHARDS * c_1["fused"] and c_1["fused"] > 0,
+          f"sharded maximize_fused launches {c_m}, unsharded {c_1}")
+    print(f"sharded maximize_fused step (subst, freqs; {N_TAXA} x "
+          f"{N_SITES}) ({MESH_NOTE}; {gpu}): logL {h_m[0]!r} -> {lk_m!r} in "
+          f"{ms_m:.1f} ms, launches {c_m}; unsharded {h_1[0]!r} -> "
+          f"{lk_1!r} in {ms_1:.1f} ms, launches {c_1} ({rel:.2e})",
+          flush=True)
+    return {"ms": ms_m, "unsharded_ms": ms_1, "launches": c_m["fused"],
+            "rel_err": rel}
+
+
+def mesh_repeats(device, gpu, flagship):
+    """25.6: ShardedRepeatsEngine on the 246 x 4465 problem trimmed to
+    REP_MESH_SITES columns (MESH_SHARDS x 1116): the shards'
+    'repeats-dense-fused' (kernel #1) and pooled (kernel #5) paths against
+    the unsharded repeats partition on the same columns, and one batched
+    SPR round with the same moves."""
+    import numpy as np
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch import constants as PC
+    from libpll2_tpu_torch.parallel import ShardedRepeatsEngine
+    from libpll2_tpu_torch.search import TreeSearch, _internal_edges
+    from libpll2_tpu_torch.trees import (create_operations, moves,
+                                         traverse, tree_bipartitions)
+    from libpll2_tpu_torch.trees.utils import utree_clone
+
+    tree, by, _ = flagship
+    w = REP_MESH_SITES // MESH_SHARDS
+    model = ([0.25] * 4, [1, 2, 1, 1, 2, 1.0])
+
+    def shard_parts(t, dev=MESH_DEVICE):
+        return [repeats_partition(t, {k: v[i * w:(i + 1) * w]
+                                      for k, v in by.items()}, w, dev,
+                                  model=model, alpha=0.7)
+                for i in range(MESH_SHARDS)]
+
+    def whole(t, repeats=True):
+        return repeats_partition(t, {k: v[:REP_MESH_SITES]
+                                     for k, v in by.items()},
+                                 REP_MESH_SITES, device, repeats=repeats,
+                                 model=model, alpha=0.7)
+
+    print(f"sharded repeats: {REP_TAXA} x {REP_SITES} trimmed to "
+          f"{REP_MESH_SITES} = {MESH_SHARDS} x {w} columns (the mesh needs "
+          f"equal shards)", flush=True)
+    out = {}
+    mesh = mesh_of()
+    for kind, kw, ref_kw, want in (
+            ("repeats-dense-fused", {}, {}, "fused"),
+            ("pool-pallas", {"dense_fused": False}, {"pallas": "pool"},
+             "pool")):
+        eng = ShardedRepeatsEngine(tree, shard_parts(tree), mesh, **kw)
+        ref = TreeEngine(whole(tree), tree, **ref_kw)
+        check(eng.execution_path == kind == ref.execution_path,
+              f"sharded repeats: {eng.execution_path}, unsharded "
+              f"{ref.execution_path}")
+        reset_counts()
+        lk = eng.loglikelihood()
+        step = eng.newton_step()
+        got = counts()
+        check_counts(f"sharded repeats [{kind}]: loglikelihood() + "
+                     f"newton_step()", got, {want: 2 * MESH_SHARDS})
+        check_logl(f"sharded repeats [{kind}] loglikelihood() vs "
+                   f"unsharded", lk, ref.loglikelihood())
+        r = ref.newton_step()
+        check_logl(f"sharded repeats [{kind}] newton_step vs unsharded",
+                   step[0], r[0], step[1:], r[1:])
+        se = eng.engines[0]
+        sp = se.partition
+        if kind == "pool-pallas":
+            ops = create_operations(traverse(tree.vroot))[0]
+            shard_ms = median_ms(lambda: run_pool(sp, ops))
+            full_ms = median_ms(lambda: run_pool(ref.partition, ops))
+        else:
+            from libpll2_tpu_torch.ops.fused import fused_traversal
+            codes, pm, table = traversal_inputs(se)
+            kw2 = traversal_kw(sp, se)
+            rcodes, rpm, rtable = traversal_inputs(ref)
+            rkw = traversal_kw(ref.partition, ref)
+            shard_ms = median_ms(lambda: fused_traversal(codes, pm, table,
+                                                         **kw2))
+            full_ms = median_ms(lambda: fused_traversal(rcodes, rpm, rtable,
+                                                        **rkw))
+        print(f"  [{kind}] the kernel on one shard's {w} columns "
+              f"{shard_ms:.4f} ms, on the unsharded {REP_MESH_SITES} "
+              f"{full_ms:.4f} ms (median of {REPS}, CUDA events; {gpu})",
+              flush=True)
+        out[kind] = {"launches": got[want], "ms_per_shard": shard_ms,
+                     "unsharded_ms": full_ms}
+    # one batched SPR round, two seeded NNI moves from the true tree
+    rng = np.random.default_rng(REP_SEED)
+    start = utree_clone(tree)
+    for _ in range(2):
+        edges = _internal_edges(start)
+        moves.nni(edges[rng.integers(len(edges))], PC.UTREE_MOVE_NNI_LEFT,
+                  None)
+    rounds = {}
+    for kind in ("unsharded", "sharded", "unsharded"):
+        t = utree_clone(start)
+        if kind == "sharded":
+            s = TreeSearch(None, t, engine=ShardedRepeatsEngine(
+                t, shard_parts(t), mesh))
+        else:
+            s = TreeSearch(whole(t), t, pallas="auto")
+        reset_counts()
+        (lk, acc), ms = timed(lambda: s.spr_round_batched(radius=3))
+        rounds[kind] = (lk, acc, ms, counts(), tree_bipartitions(t))
+    (lk_m, acc_m, ms_m, c_m, sp_m), (lk_1, acc_1, ms_1, c_1, sp_1) = (
+        rounds["sharded"], rounds["unsharded"])
+    rel = abs(lk_m - lk_1) / abs(lk_1)
+    check(acc_m == acc_1 and sp_m == sp_1 and rel < TOL_LOGL,
+          f"sharded repeats SPR round: {acc_m} moves, logL {lk_m!r}; "
+          f"unsharded {acc_1}, {lk_1!r}; {len(sp_m ^ sp_1)} splits differ")
+    check(c_m["fused"] >= MESH_SHARDS and c_m["fused"] % MESH_SHARDS == 0,
+          f"sharded repeats SPR round launches {c_m}")
+    print(f"sharded repeats batched SPR round (radius 3) ({MESH_NOTE}; "
+          f"{gpu}): {acc_m} moves in {ms_m:.1f} ms, launches {c_m}; "
+          f"unsharded {acc_1} moves in {ms_1:.1f} ms, launches {c_1}; logL "
+          f"{lk_m!r} vs {lk_1!r} ({rel:.2e})", flush=True)
+    out["spr_round"] = {"moves": acc_m, "ms": ms_m, "unsharded_ms": ms_1,
+                        "launches": c_m}
+    return out
+
+
+def mesh_partitioned(device, gpu):
+    """25.7: PartitionedEngine.shard on phase 23c's four units (each
+    padded to a multiple of MESH_SHARDS columns): loglikelihood() and two
+    linked newton_step()s against the unsharded units."""
+    from libpll2_tpu_torch import PartitionedEngine
+    from libpll2_tpu_torch.trees import random_utree
+    from libpll2_tpu_torch.trees.utils import utree_clone
+
+    start, _, by = search_start()
+    aa_by = simulated(random_utree([f"t{i}" for i in range(N_TAXA)],
+                                   seed=SEED), PART_AA_SITES, SEED + 1,
+                      states=20)
+    tree = utree_clone(start)
+    parts = partitioned_units(MESH_DEVICE, tree, by, aa_by,
+                              sites_alignment=MESH_SHARDS)
+    PartitionedEngine.shard(parts, mesh_of())
+    ref_parts = partitioned_units(device, tree, by, aa_by)
+    pe, ref = PartitionedEngine(parts, tree), PartitionedEngine(ref_parts,
+                                                                tree)
+    reset_counts()
+    lk = pe.loglikelihood()
+    steps = [pe.newton_step() for _ in range(2)]
+    got = counts()
+    check_counts("sharded partitioned loglikelihood() + 2 newton_step()",
+                 got, {"fused": 3 * PART_DNA_BLOCKS * MESH_SHARDS,
+                       "rows": 3 * MESH_SHARDS})
+    check_logl("sharded partitioned loglikelihood() vs unsharded", lk,
+               ref.loglikelihood())
+    for i, s in enumerate(steps):
+        r = ref.newton_step()
+        check_logl(f"sharded partitioned newton_step {i + 1} vs unsharded",
+                   s[0], r[0], s[1:], r[1:])
+    ms = median_ms(pe.loglikelihood, MESH_REPS)
+    ms1 = median_ms(ref.loglikelihood, MESH_REPS)
+    print(f"  sharded partitioned loglikelihood() {ms:.3f} ms, unsharded "
+          f"{ms1:.3f} ms ({MESH_NOTE}; {gpu})", flush=True)
+    return {"launches": got, "loglikelihood_ms": ms,
+            "loglikelihood_unsharded_ms": ms1}
+
+
+def mesh_processes(gpu):
+    """25.8: tests/torch_mh_worker.py on the card: one process of
+    MESH_SHARDS shards, then 2 processes (torch.distributed over gloo: the
+    ranks share the card) of MESH_SHARDS / 2 shards each, at 128 x 16384;
+    logL, d1 and d2 equal, each rank's per-site logL its block of the
+    one-process run's, the fused kernel launched once a shard a call."""
+    import shutil
+    import socket
+    import tempfile
+
+    worker = os.path.join(REPO, "tests", "torch_mh_worker.py")
+    deadline = 150
+
+    def group(n, shards):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+                            "RANK")}
+        tmp = tempfile.mkdtemp(prefix="pll_mh_")
+        logs = [(os.path.join(tmp, f"{r}.out"), os.path.join(tmp, f"{r}.err"))
+                for r in range(n)]
+        t0 = time.perf_counter()
+        procs = []
+        for r, (out, err) in enumerate(logs):
+            with open(out, "w") as fo, open(err, "w") as fe:
+                procs.append(subprocess.Popen(
+                    [sys.executable, worker, str(r), str(n), str(port),
+                     str(shards), MESH_DEVICE, str(N_TAXA), str(N_SITES),
+                     str(deadline)], cwd=REPO, env=env, stdout=fo,
+                    stderr=fe))
+        try:
+            for p in procs:
+                try:
+                    p.wait(timeout=deadline + 30)
+                except subprocess.TimeoutExpired:
+                    pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ms = (time.perf_counter() - t0) * 1e3
+        for p, (_, err) in zip(procs, logs):
+            with open(err) as fe:
+                tail = fe.read()[-3000:]
+            check(p.returncode == 0, f"{n} processes: a worker exited "
+                  f"{p.returncode}: {tail}")
+        outs = []
+        for out, _ in logs:
+            with open(out) as fo:
+                outs.append(json.loads(fo.read().splitlines()[-1]))
+        shutil.rmtree(tmp)
+        return outs, ms
+
+    (one,), ms1 = group(1, MESH_SHARDS)
+    two, ms2 = group(2, MESH_SHARDS // 2)
+    for rank in two:
+        for key in ("lk", "lk2", "d1", "d2"):
+            check(rank[key] == one[key], f"2 processes: rank {rank['rank']} "
+                  f"{key} {rank[key]!r} != one process's {one[key]!r}")
+        check(rank["fused_launches"] == 2 * rank["shards"],
+              f"rank {rank['rank']}: {rank['fused_launches']} launches")
+    check(one["fused_launches"] == 2 * MESH_SHARDS,
+          f"one process: {one['fused_launches']} launches")
+    per = [x for r in two for x in r["persite"]]
+    check(per == one["persite"], "2 processes: per-site blocks differ from "
+          "the one-process run's")
+    print(f"2 processes x {MESH_SHARDS // 2} shards (gloo, one card) vs 1 "
+          f"process x {MESH_SHARDS} shards at {N_TAXA} x {N_SITES}: logL "
+          f"{two[0]['lk']!r}, d1 {two[0]['d1']!r}, d2 {two[0]['d2']!r}, "
+          f"equal on every rank; loglikelihood() {two[0]['ms']:.3f} ms (rank "
+          f"0) vs {one['ms']:.3f} ms; wall clock of the runs {ms2:.0f} ms "
+          f"vs {ms1:.0f} ms ({MESH_NOTE}; {gpu})", flush=True)
+    return {"loglikelihood_ms": two[0]["ms"],
+            "loglikelihood_one_process_ms": one["ms"],
+            "run_ms": ms2, "run_one_process_ms": ms1,
+            "launches": sum(r["fused_launches"] for r in two)}
+
+
+def mesh_phase(device, gpu, big, big_by, aa_tree, aa_by, flagship):
+    """Phase 25: site sharding (libpll2_tpu_torch.parallel) on one card,
+    MESH_SHARDS shards of MESH_DEVICE."""
+    print(f"phase 25: site sharding over {MESH_SHARDS} shards of "
+          f"{MESH_DEVICE} ({MESH_NOTE})", flush=True)
+    out = {"dna": mesh_dna(device, gpu, big, big_by),
+           "sweep": mesh_sweep(device, gpu, big, big_by),
+           "protein": mesh_protein(device, gpu, aa_tree, aa_by),
+           "search": mesh_search(device, gpu),
+           "optimize": mesh_optimize(device, gpu),
+           "repeats": mesh_repeats(device, gpu, flagship),
+           "partitioned": mesh_partitioned(device, gpu),
+           "processes": mesh_processes(gpu)}
+    res = subprocess.run([sys.executable, "-m",
+                          "libpll2_tpu_torch.examples.sharded_multichip",
+                          "--shards", str(MESH_SHARDS), "--device",
+                          MESH_DEVICE.split(":")[0]], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0 and "sharded logL" in res.stdout,
+          f"examples/sharded_multichip.py --shards {MESH_SHARDS} exited "
+          f"{res.returncode}: {res.stderr[-2000:]}")
+    print("examples/sharded_multichip.py --shards "
+          f"{MESH_SHARDS}: exit 0; " + " | ".join(res.stdout.splitlines()),
+          flush=True)
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6001,6 +6680,10 @@ def main() -> int:
                     "protein tree as a control), importing the port from "
                     "the checkout REPO, and print the times as one JSON "
                     "line")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="only build the kernels and run phase 25 (site "
+                    "sharding on the card), and print its numbers as one "
+                    "JSON line")
     args = ap.parse_args()
     other = (args.rows_only or args.fused_only or args.pool_only
              or args.levels_only)
@@ -6064,6 +6747,15 @@ def main() -> int:
             elif ("registers" in line or "spill" in line
                     or line.startswith("==")):
                 print(f"  ptxas: {line.strip()}", flush=True)
+
+    if args.mesh_only:
+        headers_big, seqs = random_alignment(N_TAXA, N_SITES, seed=SEED)
+        aa_tree, aa_by = protein_alignment()
+        print(json.dumps({"mesh_only": mesh_phase(
+            device, gpu, random_utree(headers_big, seed=SEED),
+            dict(zip(headers_big, seqs)), aa_tree, aa_by,
+            flagship_repeats()), "gpu": gpu}), flush=True)
+        return 0
 
     # 3. kernel vs plain on the card
     headers, seqs = random_alignment(16, 1000, alphabet="ACGT-NRY", seed=3)
@@ -6251,6 +6943,9 @@ def main() -> int:
     # 24. the certified evaluation and the flagship pipeline
     cert = certified_phase(device, gpu, eng, big, big_by, aa_tree, aa_by)
     cert_dna = cert["cases"]["DNA 128 x 16384"]
+
+    # 25. site sharding on the card
+    mesh = mesh_phase(device, gpu, big, big_by, aa_tree, aa_by, flagship)
     if args.profile:
         profile([("DNA main path", eng), ("protein main path", aa_eng),
                  ("DNA levels-kernel path", dna[3]),
@@ -6312,6 +7007,23 @@ def main() -> int:
                                   if n not in ("bound", "launch_shapes")}
                               for k in problems}}
 
+    def sharded(m, launches):
+        """Phase 25: the kernel's launches on the sharded paths (once a
+        shard), its call on one shard's block and on the unsharded
+        inputs, and the per-shard bound."""
+        out = {"mesh_shards": MESH_SHARDS, "mesh_launches": launches,
+               "mesh_ms_per_shard": m["ms_per_shard"],
+               "mesh_unsharded_ms": m["unsharded_ms"]}
+        if "bound_per_shard" in m:
+            out.update(mesh_bound_ms_per_shard=m["bound_per_shard"][0],
+                       mesh_bound_by=m["bound_per_shard"][1])
+        for k in ("loglikelihood_ms", "loglikelihood_unsharded_ms",
+                  "newton_step_ms", "newton_step_unsharded_ms",
+                  "max_abs_err"):
+            if k in m:
+                out[f"mesh_{k}"] = m[k]
+        return out
+
     def variant(prefix, key, launches):
         k, p, (b, by), *bf = var_ms[key]
         out = {f"{prefix}_ms": k, f"{prefix}_plain_ms": p,
@@ -6356,7 +7068,16 @@ def main() -> int:
         "brent_launches": opt["brent"]["evaluations"],
         "brent_ms_per_evaluation": opt["brent"]["ms_per_evaluation"],
         **analysis("fused"), **query(("dna", "epa")),
-        "partitioned": place["partitioned"]}, {
+        "partitioned": place["partitioned"],
+        **sharded(mesh["dna"]["fused"], mesh["dna"]["fused"]["launches"]
+                  + mesh["repeats"]["repeats-dense-fused"]["launches"]
+                  + mesh["partitioned"]["launches"]["fused"]),
+        "mesh_repeats_ms_per_shard":
+            mesh["repeats"]["repeats-dense-fused"]["ms_per_shard"],
+        "mesh_repeats_unsharded_ms":
+            mesh["repeats"]["repeats-dense-fused"]["unsharded_ms"],
+        "mesh": {k: v for k, v in mesh.items()
+                 if k not in ("dna", "protein")}}, {
         "name": "fused_traversal_rows", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal_rows.cu",
         "replaces": "libpll2_tpu/ops/pallas_fused.py:419",
@@ -6378,7 +7099,13 @@ def main() -> int:
         "spill_bound_by": rows_spill[4][1],
         **variant("per_rate", "rows_per_rate", pr_rows),
         **variant("raw_tips_per_rate", "rows_raw", None),
-        **trial(opt["aa_trial"], opt["aa_launches"]), **query(("aa",))}, {
+        **trial(opt["aa_trial"], opt["aa_launches"]), **query(("aa",)),
+        **sharded(mesh["protein"]["split"], sum(
+            v["launches"] for v in mesh["protein"].values())
+            + mesh["partitioned"]["launches"]["rows"]),
+        "mesh_bf16_ms_per_shard": mesh["protein"]["bf16"]["ms_per_shard"],
+        "mesh_bf16_unsharded_ms": mesh["protein"]["bf16"]["unsharded_ms"]},
+        {
         "name": "level_update", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/level_update.cu",
         "replaces": ["libpll2_tpu/ops/pallas_partials.py:48",
@@ -6411,7 +7138,9 @@ def main() -> int:
         "trial_launches":
             opt["others"]["levels-kernel"]["step_launches"]["level"],
         "trial_max_abs_err": opt["others"]["levels-kernel"]["max_abs_err"],
-        **analysis("level")},
+        **analysis("level"),
+        **sharded(mesh["dna"]["levels"], mesh["dna"]["levels"]["launches"]
+                  + mesh["search"]["launches"]["level"])},
         {
         "name": "pool_update", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/pool_update.cu",
@@ -6443,7 +7172,9 @@ def main() -> int:
         "analysis_max_abs_err": ana["pool_max_abs_err"],
         "analysis_bound_ms": ana["pool_bound"][0],
         "analysis_bound_by": ana["pool_bound"][1],
-        "analysis_rel_err_vs_dense": ana["pool_rel_err"]},
+        "analysis_rel_err_vs_dense": ana["pool_rel_err"],
+        **sharded(mesh["repeats"]["pool-pallas"],
+                  mesh["repeats"]["pool-pallas"]["launches"])},
         probe_entry, {
         "name": "fused_traversal[candidates]", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal.cu",

@@ -90,8 +90,9 @@ def save(path: str, partition: Partition, tree: Optional[UTree] = None,
     if include_clvs and p.repeats is None:
         # repeats partitions: pooled buffers are schedule-dependent and
         # recomputable from tips in one traversal — not checkpointed
-        payload["clv"] = p.clv.cpu().numpy()
-        payload["scale_buffer"] = p.scale_buffer.cpu().numpy()
+        clv, scaler = p._dense_buffers()
+        payload["clv"] = clv.cpu().numpy()
+        payload["scale_buffer"] = scaler.cpu().numpy()
     for k, v in extra.items():
         payload[f"x_{k}"] = np.asarray(v)
 
@@ -131,8 +132,10 @@ def load(path: str, dtype: Optional[torch.dtype] = None, *,
                      asc_bias=C.AscBias(int(z["asc_bias"])),
                      site_repeats=bool(z["site_repeats"]),
                      rate_scalers=bool(z["rate_scalers"])
-                     if "rate_scalers" in z else False)
-    S = part.sites_padded          # real sites + asc columns
+                     if "rate_scalers" in z else False,
+                     sites_alignment=int(z["sites_padded"])
+                     if "sites_padded" in z else 1)
+    S = part.sites_padded          # real sites + asc columns (+ padding)
     part.frequencies[:] = z["frequencies"]
     part.subst_params[:] = z["subst_params"]
     part.rates = z["rates"].copy()

@@ -34,8 +34,9 @@ from .repeats import FlatLayout
 
 SIZE_KEYS = ("tips", "clv_buffers", "states", "sites", "rate_matrices",
              "prob_matrices", "rate_cats", "scale_buffers")
-# optional: off when absent (`asc_bias` may be either package's AscBias)
-OPTION_KEYS = ("rate_scalers", "asc_bias")
+# optional: off when absent (`asc_bias` may be either package's AscBias;
+# `sites_padded` carries a `sites_alignment` padding)
+OPTION_KEYS = ("rate_scalers", "asc_bias", "sites_padded")
 MIRROR_KEYS = ("tip_states", "_tips_set", "_tips_clv_set", "frequencies",
                "subst_params", "rates", "rate_weights", "prop_invar",
                "pattern_weights", "invariant")
@@ -61,10 +62,13 @@ def partition_from_numpy(state: dict, *, device="cuda",
                          f"partition state lacks {missing}")
     rep = state.get("repeats")
     asc = state.get("asc_bias", C.AscBias.NONE)
+    # the padded width is its own alignment: ceil(base / w) * w == w
+    align = int(state.get("sites_padded") or 1)
     part = Partition(*(int(state[k]) for k in SIZE_KEYS), device=device,
                      dtype=dtype, site_repeats=rep is not None,
                      rate_scalers=bool(state.get("rate_scalers", False)),
-                     asc_bias=C.AscBias(int(getattr(asc, "value", asc))))
+                     asc_bias=C.AscBias(int(getattr(asc, "value", asc))),
+                     sites_alignment=align)
     if (rep is None) != (part.repeats is None):
         raise C.PllError(C.ERROR_PARAM_INVALID,
                          "a repeats table for a partition too small for "

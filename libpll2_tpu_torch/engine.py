@@ -2,8 +2,9 @@
 
 Port of libpll2_tpu/engine.py (`_fused_loglikelihood`, `_fused_newton_step`,
 `_repeats_loglikelihood`, a single repeats Newton step, candidate scoring
-and `TreeEngine`, with per-rate scalers, raw tip CLVs and
-ascertainment-bias corrections), without its mesh and k-chained loop parts:
+and `TreeEngine`, with per-rate scalers, raw tip CLVs,
+ascertainment-bias corrections and site sharding), without its k-chained
+loop parts:
 
     branches -> P-matrices -> CLVs -> root-edge logL
              (-> sumtable -> d1/d2 -> guarded Newton step on the root edge)
@@ -49,9 +50,19 @@ on the fused paths a chunk of up to CANDIDATE_CHUNK trials is ONE launch of
 the same candidate form, the op table repeated and each trial its own
 P-matrices (`_fused_trials`); the other paths run the trials one after
 another on scratch copies of the partition's buffers.
+
+On a sharded partition (parallel/sharding.py:shard_partition) the engine
+holds one TreeEngine a shard (`_Shards`), each on its shard's column block
+and device, and every evaluation, Newton step, candidate batch and trial
+batch runs each of them (the path's kernel launched once a shard, JAX's
+shard_map bodies) and reduces their partial sums with `psum`; the Newton
+update from the summed d1/d2 is applied on every shard, so that every
+shard holds the same branch lengths. Per-site outputs are concatenated in
+shard order.
 """
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence
 
 import numpy as np
@@ -65,8 +76,9 @@ from .ops import likelihood as ops_likelihood
 from .ops import partials as ops_partials
 from .ops import pmatrix as ops_pmatrix
 from .ops import pool as ops_pool
-from .partition import (Operation, Partition, pack_level_operations,
-                        pack_operations)
+from .parallel.sharding import psum
+from .partition import (Operation, Partition, PartitionShard,
+                        pack_level_operations, pack_operations)
 from .trees import create_operations, traverse
 from .utils.profiling import annotate
 
@@ -118,6 +130,32 @@ def _root_newton(rows, branches, root_mat: int, eigenvals, inv_eigenvecs,
     Lewis and Felsenstein corrections undo the synthetic columns' scaling
     with the rows' counts (libpll2_tpu/engine.py:281-290). Returns (d1, d2,
     new branches)."""
+    d1, d2 = _root_derivatives(
+        rows, branches, root_mat, eigenvals, inv_eigenvecs, eigenvecs,
+        prop_invar, rates, rate_weights, freqs, params_idx_rates,
+        pattern_weights, invariant, scale_threshold,
+        rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real)
+    return d1, d2, _newton_update(branches, root_mat, d1, d2)
+
+
+def _newton_update(branches, root_mat: int, d1, d2):
+    """A copy of `branches` with the root edge's length Newton-updated."""
+    new_len = ops_derivatives.newton_step(branches[root_mat], d1, d2,
+                                          C.OPT_MIN_BRANCH_LEN,
+                                          C.OPT_MAX_BRANCH_LEN)
+    branches = branches.clone()
+    branches[root_mat] = new_len
+    return branches
+
+
+def _root_derivatives(rows, branches, root_mat: int, eigenvals,
+                      inv_eigenvecs, eigenvecs, prop_invar, rates,
+                      rate_weights, freqs, params_idx_rates, pattern_weights,
+                      invariant, scale_threshold: float,
+                      rate_scalers: bool = False, asc_type: int = C.AB_NONE,
+                      n_real: int = -1, col0=None):
+    """(d1, d2) of the root edge's rows at its current length, or with
+    `col0` a shard's partial sums (ops/derivatives.py)."""
     clv_p, clv_c, sc_p, sc_c = rows
     sumtable = ops_derivatives.update_sumtable(
         clv_p, clv_c, sc_p, sc_c, inv_eigenvecs, eigenvecs, freqs,
@@ -127,17 +165,11 @@ def _root_newton(rows, branches, root_mat: int, eigenvals, inv_eigenvecs,
     asc_scalers = None
     if asc_type in (C.AB_LEWIS, C.AB_FELSENSTEIN):
         asc_scalers = sc_p + sc_c
-    d1, d2 = ops_derivatives.likelihood_derivatives(
+    return ops_derivatives.likelihood_derivatives(
         sumtable, eigenvals, prop_invar, freqs, rates, rate_weights,
         params_idx_rates, pattern_weights, invariant, blen,
         asc_scalers=asc_scalers, scale_threshold=scale_threshold,
-        asc_type=asc_type, n_real=n_real)
-    new_len = ops_derivatives.newton_step(blen, d1, d2,
-                                          C.OPT_MIN_BRANCH_LEN,
-                                          C.OPT_MAX_BRANCH_LEN)
-    branches = branches.clone()
-    branches[root_mat] = new_len
-    return d1, d2, branches
+        asc_type=asc_type, n_real=n_real, col0=col0)
 
 
 def _fused_loglikelihood(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
@@ -148,18 +180,22 @@ def _fused_loglikelihood(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
                          traversal=ops_fused.fused_traversal,
                          mxu: str = "split", edge_params=None,
                          rate_scalers: bool = False, tip_clvs=None,
-                         asc_type: int = C.AB_NONE, n_real: int = -1):
+                         asc_type: int = C.AB_NONE, n_real: int = -1,
+                         col0=None, pmatrix=None):
     """The fused path. branches[e] is ordered by pmatrix index e. Returns
     (total logL, per-site weighted logL, root rows (clv_p, clv_c, sc_p,
     sc_c), P-matrices). `traversal` is the fused traversal to run: the
     dispatching wrapper, or its plain version for a comparison on the card;
     `mxu` its contraction mode, `rate_scalers` and `tip_clvs` (the raw tip
-    rows) its modes (ops/fused.py); `asc_type` and `n_real` the
-    likelihood's asc correction."""
-    with annotate("pll.pmatrix"):
-        pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs,
-                             prop_invar, rates, params_idx_rates, branches,
-                             edge_params)
+    rows) its modes (ops/fused.py); `asc_type`, `n_real` and `col0` the
+    likelihood's asc correction (with `col0` on a shard, the total is its
+    partial sums); `pmatrix` the P-matrices of `branches` when the caller
+    has them (a mesh computes them once for its shards)."""
+    if pmatrix is None:
+        with annotate("pll.pmatrix"):
+            pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs,
+                                 prop_invar, rates, params_idx_rates,
+                                 branches, edge_params)
     with annotate("pll.fused_traversal"):
         rows = traversal(tip_codes, pmatrix, table, rates=pmatrix.shape[1],
                          states=pmatrix.shape[2], n_slots=n_slots,
@@ -172,7 +208,7 @@ def _fused_loglikelihood(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
             clv_p, clv_c, sc_p, sc_c, pmatrix[root_mat], freqs, prop_invar,
             rate_weights, params_idx_rates, pattern_weights, invariant,
             scale_threshold, rate_scalers=rate_scalers, asc_type=asc_type,
-            n_real=n_real)
+            n_real=n_real, col0=col0)
     return total, per, rows, pmatrix
 
 
@@ -211,7 +247,8 @@ def _fused_multi_topology(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
                           traversal=ops_fused.fused_traversal,
                           mxu: str = "split", edge_params=None,
                           rate_scalers: bool = False, tip_clvs=None,
-                          asc_type: int = C.AB_NONE, n_real: int = -1):
+                          asc_type: int = C.AB_NONE, n_real: int = -1,
+                          col0=None, pmatrix=None):
     """logL [K] of K candidate topologies in ONE launch of the fused
     traversal's candidate form (libpll2_tpu/engine.py:_fused_multi_topology):
     branches_k [K, E] (pmatrix order), tables_k [K, n_ops+1, 8] int32 and
@@ -220,12 +257,12 @@ def _fused_multi_topology(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
     operands and keeps only its root edge's logL. With `edge_params` each
     candidate's P-matrices use the per-edge table and its likelihood mixing
     its own root edge's rate matrix, as `set_topology` + `loglikelihood`
-    compute it."""
-    k, n_edges = branches_k.shape
-    ep = None if edge_params is None else edge_params.repeat(k, 1)
-    pmat = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
-                      params_idx_rates, branches_k.reshape(-1), ep)
-    pmat = pmat.view(k, n_edges, *pmat.shape[1:])
+    compute it. `pmatrix` [K, E, R, s, s]: the candidates' P-matrices when
+    the caller has them (`_candidate_pmatrices`)."""
+    k = branches_k.shape[0]
+    pmat = pmatrix if pmatrix is not None else _candidate_pmatrices(
+        eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
+        params_idx_rates, branches_k, edge_params)
     clv_p, clv_c, sc_p, sc_c = traversal(
         tip_codes, pmat, tables_k, rates=pmat.shape[2],
         states=pmat.shape[3], n_slots=n_slots, threshold=scale_threshold,
@@ -236,7 +273,19 @@ def _fused_multi_topology(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
     return ops_likelihood.edge_loglikelihood_candidates(
         clv_p, clv_c, sc_p, sc_c, root_p, freqs, prop_invar, rate_weights,
         pidx, pattern_weights, invariant, scale_threshold,
-        rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real)
+        rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real,
+        col0=col0)
+
+
+def _candidate_pmatrices(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
+                         rates, params_idx_rates, branches_k,
+                         edge_params=None):
+    """P [K, E, R, s, s] of K candidates' branch vectors [K, E]."""
+    k, n_edges = branches_k.shape
+    ep = None if edge_params is None else edge_params.repeat(k, 1)
+    pmat = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
+                      params_idx_rates, branches_k.reshape(-1), ep)
+    return pmat.view(k, n_edges, *pmat.shape[1:])
 
 
 def _fused_trials(eigenvals_k, inv_eigenvecs_k, eigenvecs_k, prop_invar,
@@ -246,7 +295,7 @@ def _fused_trials(eigenvals_k, inv_eigenvecs_k, eigenvecs_k, prop_invar,
                   scale_factor: float, traversal=ops_fused.fused_traversal,
                   mxu: str = "split", edge_params=None,
                   rate_scalers: bool = False, tip_clvs=None,
-                  asc_type: int = C.AB_NONE, n_real: int = -1):
+                  asc_type: int = C.AB_NONE, n_real: int = -1, col0=None):
     """logL [K] of K trial models on one topology in ONE launch of the fused
     traversal's candidate form (the launch shape of libpll2_tpu/optimize.py:
     353-366, `jax.vmap` over `eval_one`): eigensystems [K, M, ...] and
@@ -268,7 +317,8 @@ def _fused_trials(eigenvals_k, inv_eigenvecs_k, eigenvecs_k, prop_invar,
     return ops_likelihood.edge_loglikelihood_candidates(
         clv_p, clv_c, sc_p, sc_c, pmat[:, root_mat], freqs_k, prop_invar,
         rate_weights, root_pidx, pattern_weights, invariant, scale_threshold,
-        rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real)
+        rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real,
+        col0=col0)
 
 
 def _root_indices(root) -> tuple:
@@ -311,19 +361,21 @@ def _dense_loglikelihood(clv, scaler, eigenvals, inv_eigenvecs, eigenvecs,
                          scale_threshold: float, scale_factor: float,
                          level=ops_levels.level_update, edge_params=None,
                          rate_scalers: bool = False,
-                         asc_type: int = C.AB_NONE, n_real: int = -1):
+                         asc_type: int = C.AB_NONE, n_real: int = -1,
+                         col0=None, pmatrix=None):
     """A path over the dense buffers `clv` [N+1, R, s, S] and `scaler`
     [K+2, S] ([K+2, R, S] with `rate_scalers`), which it updates in
     place. `path` and `plan`:
     'levels-kernel' with the level tables on the device (each level run by
     `level`: the dispatching wrapper, or its plain version for a comparison
     on the card), 'levels' with (Operations [L, W], valid), 'scan' with
-    Operations [n]. Returns (total logL, per-site weighted logL, P-matrices,
-    root rows)."""
-    with annotate("pll.pmatrix"):
-        pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs,
-                             prop_invar, rates, params_idx_rates, branches,
-                             edge_params)
+    Operations [n]; `pmatrix` as in `_fused_loglikelihood`. Returns (total
+    logL, per-site weighted logL, P-matrices, root rows)."""
+    if pmatrix is None:
+        with annotate("pll.pmatrix"):
+            pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs,
+                                 prop_invar, rates, params_idx_rates,
+                                 branches, edge_params)
     with annotate("pll.partials"):
         if path == "levels-kernel":
             ops_levels.update_partials_kernel(clv, scaler, pmatrix, plan,
@@ -346,7 +398,7 @@ def _dense_loglikelihood(clv, scaler, eigenvals, inv_eigenvecs, eigenvecs,
             rows[0], rows[1], rows[2], rows[3], pmatrix[mat], freqs,
             prop_invar, rate_weights, params_idx_rates, pattern_weights,
             invariant, scale_threshold, rate_scalers=rate_scalers,
-            asc_type=asc_type, n_real=n_real)
+            asc_type=asc_type, n_real=n_real, col0=col0)
     return total, per, pmatrix, rows
 
 
@@ -357,19 +409,22 @@ def _repeats_loglikelihood(clv_flat, sc_flat, eigenvals, inv_eigenvecs,
                            invariant, scale_threshold: float,
                            scale_factor: float, level=None,
                            edge_params=None, rate_scalers: bool = False,
-                           asc_type: int = C.AB_NONE, n_real: int = -1):
+                           asc_type: int = C.AB_NONE, n_real: int = -1,
+                           pmatrix=None):
     """A path over a repeats partition's pooled buffers `clv_flat` [R, s,
     T] and `sc_flat` [T2] ([R, T2] with `rate_scalers`), which it updates
     in place. `plan` is a PoolPlan; `path` 'pool-pallas' runs it through
     the plan's kernels (one launch a traversal at 4x4) or a given `level`
     (a level at a time: the plain version for a comparison on the card),
     'pool' through the plain version. `root_cols` holds the root edge's
-    absolute per-site columns (clv and scaler, parent then child). Returns
-    (total logL, per-site weighted logL, P-matrices, root rows)."""
-    with annotate("pll.pmatrix"):
-        pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs,
-                             prop_invar, rates, params_idx_rates, branches,
-                             edge_params)
+    absolute per-site columns (clv and scaler, parent then child);
+    `pmatrix` as in `_fused_loglikelihood`. Returns (total logL, per-site
+    weighted logL, P-matrices, root rows)."""
+    if pmatrix is None:
+        with annotate("pll.pmatrix"):
+            pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs,
+                                 prop_invar, rates, params_idx_rates,
+                                 branches, edge_params)
     if path == "pool":
         level = ops_pool.pool_update_reference
     with annotate("pll.partials.repeats"):
@@ -414,6 +469,118 @@ def pack_repeats(partition, operations, root_indices):
     return plan, root_cols, mat, layout
 
 
+def _on_device(x, device):
+    """A tensor, or a (named) tuple of them as the packed plans are, on
+    `device` (the same objects where they lie there already)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, tuple):
+        items = [_on_device(v, device) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+class _Shards:
+    """The per-shard TreeEngines of a site mesh, in shard order, and the
+    reductions over them. The site-independent work runs once: the op
+    table or level plan is packed by the engine that owns the shards
+    (`TreeEngine._bind_shards`) and the P-matrices are computed once a
+    call, on the first shard's device. Then each shard's engine runs the
+    path's kernel and the likelihood epilogue on its own column block, one
+    shard after another (JAX's shard_map bodies), and the per-shard sums
+    are reduced with parallel/sharding.py:psum (JAX's psums). The totals
+    of shard partitions (partition.py:PartitionShard) are partial sums
+    that the asc correction finishes (ops/likelihood.py:asc_total); those
+    of whole partitions (ShardedRepeatsEngine's) are totals already."""
+
+    def __init__(self, engines, mesh):
+        self.engines = list(engines)
+        self.mesh = mesh
+
+    def _asc(self):
+        """The asc type that finishes the reduced sums, or None when the
+        shards' totals are complete."""
+        modes = self.engines[0].partition._modes()
+        return modes["asc_type"] if "col0" in modes else None
+
+    def reduce(self, parts) -> torch.Tensor:
+        total = psum(parts, self.mesh)
+        asc = self._asc()
+        return total if asc is None else ops_likelihood.asc_total(total, asc)
+
+    def bind(self, branches) -> None:
+        """The replicated branch lengths, on every shard."""
+        for e in self.engines:
+            e.branches = branches.to(e.device)
+
+    def _pmatrix(self):
+        """The replicated P-matrices of the bound branches, computed once
+        (from the first shard's model, as JAX replicates it)."""
+        return self.engines[0]._pmatrix(self.engines[0].branches)
+
+    def evaluate(self, branches):
+        """(total, per-site concatenated in shard order, each shard's root
+        rows)."""
+        self.bind(branches)
+        pmatrix = self._pmatrix()
+        outs = [e._evaluate(pmatrix=pmatrix.to(e.device))
+                for e in self.engines]
+        dev = self.engines[0].device
+        return (self.reduce([o[0] for o in outs]),
+                torch.cat([o[1].to(dev) for o in outs]),
+                [o[2] for o in outs])
+
+    def newton(self, branches):
+        """Evaluate, then one Newton update of the root branch from the d1
+        and d2 summed over the shards (logL, d1 and d2 reduced as one packed
+        tensor), applied on every shard. Returns (total, d1, d2, new
+        branches)."""
+        self.bind(branches)
+        pmatrix = self._pmatrix()
+        parts = []
+        for e in self.engines:
+            total, _, rows = e._evaluate(pmatrix=pmatrix.to(e.device))
+            p = e.partition
+            d = _root_derivatives(rows, e.branches, e.root_idx[4],
+                                  *e._model_args(), *e._site_args(),
+                                  p.scale_threshold, **p._modes())
+            d = torch.stack(d) if isinstance(d, tuple) else d
+            parts.append(torch.cat([total.reshape(-1), d]))
+        summed = psum(parts, self.mesh)
+        asc = self._asc()
+        if asc is None:
+            total, d1, d2 = summed[0], summed[1], summed[2]
+        else:
+            n = ops_likelihood.asc_parts(asc)
+            total = ops_likelihood.asc_total(summed[:n], asc)
+            d1, d2 = ops_derivatives.derivatives_total(summed[n:], asc)
+        branches = _newton_update(branches, self.engines[0].root_idx[4], d1,
+                                  d2)
+        self.bind(branches)
+        return total, d1, d2, branches
+
+    def score_fused(self, tables, blens, roots, n_slots) -> torch.Tensor:
+        """Fused candidates: checked once and their P-matrices computed once
+        a chunk, then a launch a chunk a shard."""
+        e0 = self.engines[0]
+        margs = e0._model_args()
+        out = []
+        for chunk in e0._candidate_chunks(tables, blens, roots, n_slots):
+            pmatrix = _candidate_pmatrices(*margs[:5], margs[7], chunk[0],
+                                           e0.edge_params)
+            out.append(self.reduce([
+                e._score_chunk(chunk, pmatrix.to(e.device))
+                for e in self.engines]))
+        return torch.cat(out)
+
+    def trials(self, branches, eigen_k, freqs_k, traversal,
+               level) -> torch.Tensor:
+        self.bind(branches)
+        return self.reduce([e._trial_loglikelihoods(
+            tuple(x.to(e.device) for x in eigen_k), freqs_k.to(e.device),
+            traversal, level) for e in self.engines])
+
+
 class TreeEngine:
     """Full-tree evaluator bound to one Partition and one topology size.
 
@@ -454,7 +621,14 @@ class TreeEngine:
         Where libpll2_tpu falls back to XLA only because its level or pool
         kernel has no per-rate scaler mode, the port's kernels run theirs:
         'levels-kernel' where JAX says 'levels', 'pool-pallas' where it says
-        'pool'."""
+        'pool'.
+
+        On a sharded partition the engine builds one engine a shard and
+        reduces over them (`_Shards`); the paths are JAX's under a mesh, but
+        that the level kernel runs each shard's levels where JAX takes
+        'levels' (its level kernel has no mesh form) and the fused kernel
+        takes any shard width (JAX pads each shard's block to its kernel
+        grain)."""
         if mxu not in ops_fused.MXU_MODES:
             raise C.PllError(C.ERROR_PARAM_INVALID,
                              f"mxu must be 'split', 'bf16' or 'highest', "
@@ -477,9 +651,12 @@ class TreeEngine:
         # rows of the op table); the rows route keeps JAX's 8-category
         # bound on per-rate scalers (libpll2_tpu/engine.py:835-839; the
         # small-alphabet kernel takes any count)
+        # (under a mesh JAX keeps the 8-category bound on both routes,
+        # libpll2_tpu/engine.py:835-837)
+        meshed = p.shards is not None or isinstance(p, PartitionShard)
         fused_ok = bool(np.all(p._tips_set | p._tips_clv_set)) and (
-            not p.rate_scalers or p.states < ops_fused.ROWS_STATES_MIN
-            or p.rate_cats <= ops_fused.ROWS_RATE_SCALERS_MAX)
+            not p.rate_scalers or p.rate_cats <= ops_fused.ROWS_RATE_SCALERS_MAX
+            or (p.states < ops_fused.ROWS_STATES_MIN and not meshed))
         self.repeats_mode = p.repeats is not None
         # the fused kernel over a repeats partition: it reads only tip codes
         # and writes nothing back, so the pooled storage stays as it is
@@ -513,6 +690,7 @@ class TreeEngine:
         self._model_cache_version = None
         self._tip_codes_version = None
         self._packed_ctips = frozenset()
+        self._shards = None
         self._pack_topology(operations, branches, pmatrix_indices, root)
         p._ensure_eigen([params_index])
 
@@ -681,6 +859,42 @@ class TreeEngine:
         if not self.use_fused:
             self.use_levelkernel = self._levelk_wanted
             self._ops = self._dense_plan(operations)
+        if p.shards is not None:
+            self._bind_shards()
+
+    # what a shard's engine takes from the engine that packed the topology
+    _SHARED_TOPOLOGY = ("use_fused", "use_levelkernel", "fused_slots",
+                        "root_idx", "_packed_ctips")
+
+    def _bind_shards(self) -> None:
+        """Hand the topology this engine packed to one engine a shard of
+        its partition (made on the first call as shallow copies of this
+        one, on each shard's partition and device): the op table or level
+        plan, branches and root indices are shared, copied once to each
+        device the first shard's does not share, so that a shard repacks
+        nothing."""
+        p = self.partition
+        if self._shards is None:
+            engines = []
+            for sh in p.shards:
+                e = copy.copy(self)
+                e.partition, e.device = sh, sh.device
+                e.edge_params = _on_device(self.edge_params, sh.device)
+                engines.append(e)
+            self._shards = _Shards(engines, p.mesh)
+        placed = {}
+        for e in self._shards.engines:
+            for name in self._SHARED_TOPOLOGY:
+                setattr(e, name, getattr(self, name))
+            if e.device not in placed:
+                placed[e.device] = _on_device(
+                    (self.table, self._ops, self.branches,
+                     self.params_idx_rates), e.device)
+            e.table, e._ops, e.branches, e.params_idx_rates = \
+                placed[e.device]
+            e._model_cache_version = None
+            if self.use_fused:
+                e._tip_codes_version = None
 
     def _dense_path(self) -> str:
         """The dense path an op list takes when the fused kernel does not
@@ -770,7 +984,9 @@ class TreeEngine:
         return float(total)
 
     def loglikelihood_persite(self, branches=None):
-        """(total logL, per-site WEIGHTED logL [sites_padded] as numpy)."""
+        """(total logL, per-site WEIGHTED logL [sites_padded] as numpy). On
+        a mesh the shards' blocks in shard order: under several processes
+        only this process's block (libpll2_tpu/engine.py:1229-1240)."""
         total, per = self._loglikelihood_dev(branches)
         return float(total), per.cpu().numpy()
 
@@ -780,35 +996,51 @@ class TreeEngine:
         total, per, _ = self._evaluate(branches)
         return total, per
 
-    def _evaluate(self, branches=None):
+    def _evaluate(self, branches=None, pmatrix=None):
         """One full evaluation: (total, per-site, root rows). The
         partition's P-matrices and the CLV and scaler rows the path computes
         (all of them; the root edge's on the fused path; none on
-        'repeats-dense-fused') are updated."""
+        'repeats-dense-fused') are updated. `pmatrix`: the branches'
+        P-matrices, when the caller computed them."""
         if branches is not None:
             self._set_branches(branches)
         p = self.partition
+        if self._shards is not None:
+            return self._shards.evaluate(self.branches)
         if self.use_fused:
             total, per, rows, p.pmatrix = _fused_loglikelihood(
                 *self._args(), mxu=self.mxu, edge_params=self.edge_params,
-                **self._fused_kw())
+                pmatrix=pmatrix, **self._fused_kw())
             if not self.repeats_dense_fused:
                 _scatter_root_rows(p.clv, p.scale_buffer, self.root_idx,
                                    rows)
         elif self.repeats_mode:
             total, per, p.pmatrix, rows = _repeats_loglikelihood(
                 *self._repeats_args(), edge_params=self.edge_params,
-                **p._modes())
+                pmatrix=pmatrix, **p._modes())
         else:
             total, per, p.pmatrix, rows = _dense_loglikelihood(
                 p.clv, p.scale_buffer, *self._dense_args(),
-                edge_params=self.edge_params, **p._modes())
+                edge_params=self.edge_params, pmatrix=pmatrix, **p._modes())
         return total, per, rows
+
+    def _units(self) -> list:
+        """The engines that hold the partition's columns: this one, or on
+        a sharded partition its shards' engines in shard order."""
+        return [self] if self._shards is None else self._shards.engines
+
+    def _pmatrix(self, branches) -> torch.Tensor:
+        """P [E, R, s, s] of `branches` under the engine's model."""
+        m = self._model_args()
+        return _pmatrices(*m[:5], m[7], branches, self.edge_params)
 
     def newton_step(self):
         """Evaluate + one Newton update of the root branch; returns
         (logL, d1, d2)."""
         p = self.partition
+        if self._shards is not None:
+            total, d1, d2, self.branches = self._shards.newton(self.branches)
+            return float(total), float(d1), float(d2)
         if self.use_fused:
             total, d1, d2, self.branches, rows, p.pmatrix = \
                 _fused_newton_step(*self._args(), mxu=self.mxu,
@@ -877,17 +1109,35 @@ class TreeEngine:
             if self.repeats_dense_fused:
                 # a pooled partition has no dense buffers to fall back on
                 return self._evaluate_topologies_pooled(candidates)
-        return self._evaluate_topologies_dense(candidates, blens, roots)
+        return self._evaluate_topologies_dense_dev(candidates, blens,
+                                                   roots).cpu().numpy()
 
     def _score_fused(self, tables, blens, roots, n_slots) -> np.ndarray:
         """logL of K fused candidates: op tables [K, n_ops+1, 8], branch
         vectors [K, E], roots [K, 5] and slot counts [K], a launch of the
         fused kernel a chunk of CANDIDATE_CHUNK (each chunk at its largest
-        slot count)."""
+        slot count); a launch a chunk a shard on a mesh."""
+        return self._score_fused_dev(tables, blens, roots,
+                                     n_slots).cpu().numpy()
+
+    def _score_fused_dev(self, tables, blens, roots,
+                         n_slots) -> torch.Tensor:
+        """`_score_fused` without the host sync: the scores on the device."""
         if not self.use_fused:
             raise C.PllError(C.ERROR_PARAM_INVALID,
                              "packed candidates need an engine on the fused "
                              "path")
+        if self._shards is not None:
+            return self._shards.score_fused(tables, blens, roots, n_slots)
+        return torch.cat([self._score_chunk(chunk) for chunk in
+                          self._candidate_chunks(tables, blens, roots,
+                                                 n_slots)])
+
+    def _candidate_chunks(self, tables, blens, roots, n_slots) -> list:
+        """Fused candidates checked (`_check_candidate_tables`) and cut into
+        chunks of CANDIDATE_CHUNK: (branches [k, E], op tables [k, n_ops+1,
+        8], root matrices [k], on the device, and the chunk's largest slot
+        count)."""
         p = self.partition
         tables = np.ascontiguousarray(tables, dtype=np.int32)
         blens = np.asarray(blens, dtype=np.float64)
@@ -901,50 +1151,67 @@ class TreeEngine:
                 f"candidates need tables [K, n_ops+1, 8], blens [K, "
                 f"{p.prob_matrices}] and roots [K, 5] for one K, got "
                 f"{tables.shape}, {blens.shape}, {roots.shape}")
-        tip_clvs = self._tip_clvs()
         _check_candidate_tables(
             tables, roots, n_slots, p.tips,
-            0 if tip_clvs is None else tip_clvs.shape[0], p.prob_matrices)
+            int(np.count_nonzero(p._tips_clv_set)), p.prob_matrices)
         dev = self.device
-        margs, (pw, inv) = self._model_args(), self._site_args()
-        tip_codes = self._tip_codes()
-        out = []
-        for i in range(0, k, CANDIDATE_CHUNK):
-            sl = slice(i, i + CANDIDATE_CHUNK)
-            out.append(_fused_multi_topology(
-                *margs, torch.as_tensor(blens[sl], dtype=self.dtype,
-                                        device=dev),
-                torch.as_tensor(tables[sl], device=dev), tip_codes,
-                torch.as_tensor(roots[sl, 4], device=dev), pw, inv,
-                int(np.max(n_slots[sl])), p.scale_threshold, p.scale_factor,
-                mxu=self.mxu, edge_params=self.edge_params,
-                **self._fused_kw()))
-        return torch.cat(out).cpu().numpy()
+        return [(torch.as_tensor(blens[i:i + CANDIDATE_CHUNK],
+                                 dtype=self.dtype, device=dev),
+                 torch.as_tensor(tables[i:i + CANDIDATE_CHUNK], device=dev),
+                 torch.as_tensor(roots[i:i + CANDIDATE_CHUNK, 4],
+                                 device=dev),
+                 int(np.max(n_slots[i:i + CANDIDATE_CHUNK])))
+                for i in range(0, k, CANDIDATE_CHUNK)]
 
-    def _evaluate_topologies_dense(self, candidates, blens,
-                                   roots) -> np.ndarray:
+    def _score_chunk(self, chunk, pmatrix=None) -> torch.Tensor:
+        """One launch of the fused kernel's candidate form on a chunk of
+        `_candidate_chunks` (a shard's partial sums on a shard partition);
+        `pmatrix` the chunk's P-matrices when the caller has them."""
+        p = self.partition
+        blens, tables, root_mats, n_slots = (
+            _on_device(x, self.device) for x in chunk)
+        pw, inv = self._site_args()
+        return _fused_multi_topology(
+            *self._model_args(), blens, tables, self._tip_codes(), root_mats,
+            pw, inv, n_slots, p.scale_threshold, p.scale_factor,
+            mxu=self.mxu, edge_params=self.edge_params, pmatrix=pmatrix,
+            **self._fused_kw())
+
+    def _evaluate_topologies_dense_dev(self, candidates, blens,
+                                       roots) -> torch.Tensor:
         """One candidate at a time through the engine's dense path
         ('levels-kernel', else 'levels' or 'scan'), each from a scratch copy
-        of the partition's dense buffers."""
+        of the partition's dense buffers; the scores on the device. On a
+        mesh each candidate's plan and P-matrices are made once and every
+        shard runs it from a scratch copy of its own block."""
         p = self.partition
-        clv = torch.empty_like(p.clv)
-        scaler = torch.empty_like(p.scale_buffer)
-        margs, (pw, inv) = self._model_args(), self._site_args()
+        units = self._units()
+        scratch = [(torch.empty_like(e.partition.clv),
+                    torch.empty_like(e.partition.scale_buffer))
+                   for e in units]
         path = self._dense_path()
-        out = []
+        scores = [[] for _ in units]
         for (operations, *_), blen, ri in zip(candidates, blens, roots):
             operations = list(operations)
             p._check_operations(operations)
             plan = self._dense_plan(operations)
-            clv.copy_(p.clv)
-            scaler.copy_(p.scale_buffer)
-            out.append(_dense_loglikelihood(
-                clv, scaler, *margs[:7], self._root_params(int(ri[4])),
-                torch.as_tensor(blen, dtype=self.dtype, device=self.device),
-                path, plan, tuple(int(v) for v in ri), pw, inv,
-                p.scale_threshold, p.scale_factor,
-                edge_params=self.edge_params, **p._modes())[0])
-        return torch.stack(out).cpu().numpy()
+            ri = tuple(int(v) for v in ri)
+            blen = torch.as_tensor(blen, dtype=self.dtype, device=self.device)
+            pmatrix = units[0]._pmatrix(blen)
+            for e, (clv, scaler), out in zip(units, scratch, scores):
+                ep = e.partition
+                clv.copy_(ep.clv)
+                scaler.copy_(ep.scale_buffer)
+                margs, (pw, inv) = e._model_args(), e._site_args()
+                out.append(_dense_loglikelihood(
+                    clv, scaler, *margs[:7], e._root_params(ri[4]),
+                    blen.to(e.device), path, _on_device(plan, e.device), ri,
+                    pw, inv, ep.scale_threshold, ep.scale_factor,
+                    edge_params=e.edge_params,
+                    pmatrix=pmatrix.to(e.device), **ep._modes())[0])
+        if self._shards is None:
+            return torch.stack(scores[0])
+        return self._shards.reduce([torch.stack(out) for out in scores])
 
     def _evaluate_topologies_pooled(self, candidates) -> np.ndarray:
         """One candidate at a time over a repeats partition's pooled
@@ -1032,7 +1299,14 @@ class TreeEngine:
         paths the trials run one after another, each from a scratch copy of
         the partition's dense or pooled buffers, which stay as they were.
         `traversal` and `level` replace the path's kernel wrapper (its plain
-        version, for a comparison on the card). No host sync."""
+        version, for a comparison on the card). No host sync. On a mesh the
+        trials run once a shard (each shard's chunks one launch), and the
+        [K] sums are reduced (JAX maps single meshed evaluations over the
+        trials, libpll2_tpu/optimize.py:355-358; the numbers are the
+        same)."""
+        if self._shards is not None:
+            return self._shards.trials(self.branches, eigen_k, freqs_k,
+                                       traversal, level)
         w_k, evecs_k, ivecs_k = eigen_k
         p = self.partition
         margs = self._model_args()
@@ -1079,8 +1353,13 @@ class TreeEngine:
         posterior-mean site rates across the root edge. Returns (posteriors
         [R+1, sites_padded], site_rates [sites_padded]) as numpy arrays;
         the last category is the +I invariant class (all-zero when pinv =
-        0)."""
+        0). On a mesh each shard's, concatenated in shard order."""
         p = self.partition
+        if self._shards is not None:
+            self._shards.bind(self.branches)
+            post = [e.site_rate_posteriors() for e in self._shards.engines]
+            return (np.concatenate([a for a, _ in post], axis=-1),
+                    np.concatenate([b for _, b in post], axis=-1))
         (eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
          rate_weights, freqs, pidx) = self._model_args()
         _, _, rows = self._evaluate()

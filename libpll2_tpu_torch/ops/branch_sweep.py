@@ -39,7 +39,8 @@ from . import derivatives as ops_derivatives
 from . import levels as ops_levels
 from . import pmatrix as ops_pmatrix
 
-__all__ = ["AUX", "build_smoothing_schedule", "step_tables", "newton_sweep"]
+__all__ = ["AUX", "build_smoothing_schedule", "step_tables", "newton_sweep",
+           "newton_sweep_shards"]
 
 AUX = 1 << 20      # schedule-builder sentinel offset for aux rows
 
@@ -183,55 +184,120 @@ def newton_sweep(clv, scaler, pmatrix, branches,
     Returns (branches, pmatrix, clv, scaler) with every edge optimized
     `passes` times; clv and scaler partition-shaped (aux rows stripped),
     refreshed with the final lengths."""
-    dtype = clv.dtype
-    per_rate = scaler.dim() == 3
-    sc0 = scaler[:, 0] if per_rate else scaler
-    K = sc0.shape[0] - 2
-    n_nodes = clv.shape[0] - 1
-    rates_n, states = clv.shape[1], clv.shape[2]
+    branches, pmatrix, blocks = newton_sweep_shards(
+        [(clv, scaler, pattern_weights, invariant, None)], None, pmatrix,
+        branches, eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
+        rate_weights, freqs, params_idx_rates, tables, steps,
+        scale_threshold, scale_factor, passes=passes, iterations=iterations,
+        n_aux=n_aux, asc_type=asc_type, n_real=n_real, level=level)
+    return (branches, pmatrix) + blocks[0]
 
-    # combined buffers: [partition rows | aux rows]; scaler keeps its
-    # trash/zero rows LAST
-    clv_c = torch.cat([clv, clv.new_zeros((n_aux,) + clv.shape[1:])])
-    sc_c = torch.cat([sc0[:K], sc0.new_zeros((n_aux,) + sc0.shape[1:]),
-                      sc0[K:]])
-    clv2d = clv_c.view(clv_c.shape[0], rates_n * states, clv_c.shape[-1])
+
+class _Block:
+    """One column block's combined buffers ([partition rows | aux rows];
+    the scaler keeps its trash/zero rows LAST) and site data, on its
+    device."""
+
+    def __init__(self, clv, scaler, pattern_weights, invariant, col0,
+                 n_aux: int):
+        self.per_rate = scaler.dim() == 3
+        self.shape = scaler.shape
+        sc0 = scaler[:, 0] if self.per_rate else scaler
+        k = sc0.shape[0] - 2
+        self.clv = torch.cat([clv, clv.new_zeros((n_aux,) + clv.shape[1:])])
+        self.sc = torch.cat([sc0[:k], sc0.new_zeros((n_aux,) + sc0.shape[1:]),
+                             sc0[k:]])
+        self.clv2d = self.clv.view(self.clv.shape[0], -1, self.clv.shape[-1])
+        self.pw, self.inv, self.col0 = pattern_weights, invariant, col0
+        self.device = clv.device
+        self.sumtable = self.asc_scalers = None
+
+    def result(self, n_nodes: int, k: int, n_aux: int):
+        """(clv, scaler) partition-shaped: aux rows stripped."""
+        sc = torch.cat([self.sc[:k], self.sc[k + n_aux:]])
+        if self.per_rate:
+            sc = sc[:, None, :].expand(self.shape).contiguous()
+        return self.clv[:n_nodes + 1], sc
+
+
+def newton_sweep_shards(blocks, mesh, pmatrix, branches,
+                        eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
+                        rates, rate_weights, freqs, params_idx_rates,
+                        tables, steps, scale_threshold: float,
+                        scale_factor: float, passes: int = 2,
+                        iterations: int = 8, n_aux: int = 0,
+                        asc_type: int = C.AB_NONE, n_real: int = -1,
+                        level=ops_levels.level_update):
+    """`newton_sweep` over column blocks: `blocks` holds (clv, scaler,
+    pattern_weights, invariant, col0) a block, in shard order: one whole
+    partition (col0 None, `mesh` None) or the shards of a site mesh that
+    this process owns (col0 each block's first column). Every CLV op and
+    sumtable runs once a block, on its device; on a mesh each Newton
+    update takes the d1 and d2 summed over the shards
+    (parallel/sharding.py:psum, JAX's psums) and updates the replicated
+    branch and P-matrix, which every block then reads. The model tensors,
+    `pmatrix`, `branches` and `tables` lie on the first block's device.
+    Returns (branches, pmatrix, [(clv, scaler) a block])."""
+    from ..parallel.sharding import psum
+
+    n_nodes = blocks[0][0].shape[0] - 1
+    k = blocks[0][1].shape[0] - 2
+    rates_n, states = blocks[0][0].shape[1], blocks[0][0].shape[2]
+    bufs = [_Block(*b, n_aux) for b in blocks]
     # scratch branch slot absorbs the dummy optimizations of exit steps
     branches_p = torch.cat([branches, branches.new_zeros(1)])
     pmatrix_p = torch.cat([pmatrix, pmatrix.new_zeros((1,) + pmatrix.shape[1:])])
-    st_tables = step_tables(steps, clv.device)
+    model = (eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
+             rate_weights, freqs, params_idx_rates)
+    placed = {}
+    for b in bufs:
+        if b.device not in placed:
+            placed[b.device] = (step_tables(steps, b.device),
+                                tuple(t.to(b.device) for t in tables),
+                                tuple(m.to(b.device) for m in model))
     edges = [tuple(int(v) for v in row[8:13]) for row in steps]
 
     def refresh():
         with annotate("sweep.postorder"):
-            ops_levels.update_partials_kernel(clv_c, sc_c, pmatrix_p, tables,
-                                              scale_threshold, scale_factor,
-                                              level=level)
+            for b in bufs:
+                ops_levels.update_partials_kernel(
+                    b.clv, b.sc, pmatrix_p.to(b.device), placed[b.device][1],
+                    scale_threshold, scale_factor, level=level)
+
+    def derivatives(b, blen):
+        ev, _, _, pinv, r, rw, f, pidx = placed[b.device][2]
+        return ops_derivatives.likelihood_derivatives(
+            b.sumtable, ev, pinv, f, r, rw, pidx, b.pw, b.inv,
+            blen.to(b.device), asc_scalers=b.asc_scalers,
+            scale_threshold=scale_threshold, asc_type=asc_type,
+            n_real=n_real, col0=b.col0)
 
     for _ in range(passes):
         refresh()
-        for table, (e_c, e_csc, e_p, e_psc, mat) in zip(st_tables, edges):
-            with annotate("sweep.upclv"):
-                level(clv2d, sc_c, pmatrix_p, table, rates_n, states,
-                      scale_threshold, scale_factor)
-            with annotate("sweep.sumtable"):
-                sumtable = ops_derivatives.update_sumtable(
-                    clv_c[e_p], clv_c[e_c], sc_c[e_psc], sc_c[e_csc],
-                    inv_eigenvecs, eigenvecs, freqs, params_idx_rates,
-                    scale_threshold, rate_scalers=False, has_pscaler=True,
-                    has_cscaler=True)
-            asc_scalers = None
-            if asc_type in (C.AB_LEWIS, C.AB_FELSENSTEIN):
-                asc_scalers = sc_c[e_psc] + sc_c[e_csc]
+        for i, (e_c, e_csc, e_p, e_psc, mat) in enumerate(edges):
+            for b in bufs:
+                st_tables, _, (_, ivecs, evecs, _, _, _, f, pidx) = \
+                    placed[b.device]
+                with annotate("sweep.upclv"):
+                    level(b.clv2d, b.sc, pmatrix_p.to(b.device), st_tables[i],
+                          rates_n, states, scale_threshold, scale_factor)
+                with annotate("sweep.sumtable"):
+                    b.sumtable = ops_derivatives.update_sumtable(
+                        b.clv[e_p], b.clv[e_c], b.sc[e_psc], b.sc[e_csc],
+                        ivecs, evecs, f, pidx, scale_threshold,
+                        rate_scalers=False, has_pscaler=True,
+                        has_cscaler=True)
+                if asc_type in (C.AB_LEWIS, C.AB_FELSENSTEIN):
+                    b.asc_scalers = b.sc[e_psc] + b.sc[e_csc]
             blen = branches_p[mat]
             with annotate("sweep.newton"):
                 for _ in range(iterations):
-                    d1, d2 = ops_derivatives.likelihood_derivatives(
-                        sumtable, eigenvals, prop_invar, freqs, rates,
-                        rate_weights, params_idx_rates, pattern_weights,
-                        invariant, blen, asc_scalers=asc_scalers,
-                        scale_threshold=scale_threshold, asc_type=asc_type,
-                        n_real=n_real)
+                    if mesh is None:
+                        d1, d2 = derivatives(bufs[0], blen)
+                    else:
+                        d1, d2 = ops_derivatives.derivatives_total(
+                            psum([derivatives(b, blen) for b in bufs], mesh),
+                            asc_type)
                     blen = ops_derivatives.newton_step(
                         blen, d1, d2, C.OPT_MIN_BRANCH_LEN,
                         C.OPT_MAX_BRANCH_LEN)
@@ -243,8 +309,5 @@ def newton_sweep(clv, scaler, pmatrix, branches,
     # final refresh with the optimized lengths so that the returned CLVs and
     # scalers are consistent with `branches`
     refresh()
-    clv_out = clv_c[:n_nodes + 1]
-    sc_out = torch.cat([sc_c[:K], sc_c[K + n_aux:]])
-    if per_rate:
-        sc_out = sc_out[:, None, :].expand(scaler.shape).contiguous()
-    return branches_p[:-1], pmatrix_p[:-1], clv_out, sc_out
+    return (branches_p[:-1], pmatrix_p[:-1],
+            [b.result(n_nodes, k, n_aux) for b in bufs])

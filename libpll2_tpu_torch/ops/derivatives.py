@@ -79,13 +79,18 @@ def likelihood_derivatives(sumtable: torch.Tensor,      # [R, s, S]
                            asc_scalers: torch.Tensor | None = None,  # [S]
                            scale_threshold: float = 0.0,
                            asc_type: int = AB_NONE,
-                           n_real: int = -1):
+                           n_real: int = -1,
+                           col0=None):
     """Returns (d1, d2): first/second derivative of -logL w.r.t. the length.
 
     Ascertainment bias (core_derivatives.c:852-924): Stamatakis enters the
     main sums as ordinary weighted columns; Lewis/Felsenstein exclude the
     synthetic columns and add the derivative of the log-of-sum term, which
-    needs their absolute scalers (`asc_scalers`, parent + child rows)."""
+    needs their absolute scalers (`asc_scalers`, parent + child rows).
+
+    With `col0` (the first column's index, on one shard of a site mesh) it
+    returns the shard's partial sums [derivative_parts] instead, which
+    `derivatives_total` finishes once they are summed over the shards."""
     dtype = sumtable.dtype
     lam = eigenvals[params_idx].to(dtype)           # [R, s]
     pinv = prop_invar[params_idx].to(dtype)         # [R]
@@ -115,40 +120,75 @@ def likelihood_derivatives(sumtable: torch.Tensor,      # [R, s, S]
     deriv1 = -site[1] / lk0
     deriv2 = deriv1 * deriv1 - site[2] / lk0
     pw = torch.where(valid, pattern_weights.to(dtype), torch.zeros_like(ones))
+    parts = _derivative_sums(site, deriv1, deriv2, pw, asc_scalers,
+                             scale_threshold, asc_type, n_real,
+                             sumtable.shape[1], col0 or 0)
+    if col0 is not None:
+        return torch.stack(parts)
+    return derivatives_total(parts, asc_type)
+
+
+def _derivative_sums(site, deriv1, deriv2, pw, asc_scalers,
+                     scale_threshold: float, asc_type: int, n_real: int,
+                     states: int, col0: int) -> list:
+    """The partial sums [derivative_parts] over the columns [col0, col0 + S)
+    that `derivatives_total` finishes: d1 and d2 over the main columns,
+    and for Lewis and Felsenstein (core_derivatives.c:852-924) the weight
+    the correction scales by and the synthetic columns' L, L' and L''."""
     if asc_type == AB_STAMATAKIS or (asc_type == AB_NONE and n_real < 0):
-        return torch.sum(pw * deriv1), torch.sum(pw * deriv2)
-
+        return [torch.sum(pw * deriv1), torch.sum(pw * deriv2)]
     # mask the synthetic columns out of the main sums
-    states = sumtable.shape[1]
-    main = (torch.arange(site.shape[1], device=site.device)
-            < n_real).to(dtype)
-    d1 = torch.sum(pw * main * deriv1)
-    d2 = torch.sum(pw * main * deriv2)
+    dtype = site.dtype
+    idxs = col0 + torch.arange(site.shape[1], device=site.device)
+    main = (idxs < n_real).to(dtype)
+    sums = [torch.sum(pw * main * deriv1), torch.sum(pw * main * deriv2)]
     if asc_type == AB_NONE:
-        return d1, d2
-
-    # Lewis / Felsenstein corrections (core_derivatives.c:852-924)
-    sc = asc_scalers[n_real:n_real + states]
+        return sums
+    if asc_type not in (AB_LEWIS, AB_FELSENSTEIN):
+        raise ValueError(f"unknown asc type {asc_type}")
+    asc_cols = (idxs >= n_real) & (idxs < n_real + states)
+    zero = torch.zeros_like(site[0])
     scaling = torch.pow(torch.tensor(scale_threshold, dtype=dtype,
-                                     device=site.device), sc.to(dtype))
-    asc_lk = torch.sum(site[:, n_real:n_real + states] * scaling[None, :],
-                       dim=1)                                # [3]
+                                     device=site.device),
+                        asc_scalers.to(dtype))
+    asc_lk = torch.sum(torch.where(asc_cols[None, :],
+                                   site * scaling[None, :], zero[None, :]),
+                       dim=1)                                 # [3]
+    sum_w = (torch.sum(pw * main) if asc_type == AB_LEWIS
+             else torch.sum(torch.where(asc_cols, pw, zero)))
+    return sums + [sum_w, *asc_lk.unbind()]
+
+
+def _asc_derivatives(d1, d2, sum_w, asc_lk, asc_type: int):
+    """The Lewis or Felsenstein terms added to the main sums
+    (core_derivatives.c:852-924): `asc_lk` [3] holds the synthetic columns'
+    L, L' and L'' summed, `sum_w` the weight the correction scales by."""
     if asc_type == AB_LEWIS:
-        sum_w = torch.sum(pw * main)
         d1 = d1 + sum_w * (asc_lk[1] / (asc_lk[0] - 1.0))
         d2 = d2 + sum_w * (((asc_lk[0] - 1.0) * asc_lk[2]
                             - asc_lk[1] * asc_lk[1])
                            / ((asc_lk[0] - 1.0) * (asc_lk[0] - 1.0)))
-    elif asc_type == AB_FELSENSTEIN:
-        sum_w_inv = torch.sum(pattern_weights[n_real:n_real + states]
-                              .to(dtype))
-        d1 = d1 - sum_w_inv * (asc_lk[1] / asc_lk[0])
-        d2 = d2 - sum_w_inv * ((asc_lk[2] * asc_lk[0]
-                                - asc_lk[1] * asc_lk[1])
-                               / (asc_lk[0] * asc_lk[0]))
     else:
-        raise ValueError(f"unknown asc type {asc_type}")
+        d1 = d1 - sum_w * (asc_lk[1] / asc_lk[0])
+        d2 = d2 - sum_w * ((asc_lk[2] * asc_lk[0]
+                            - asc_lk[1] * asc_lk[1])
+                           / (asc_lk[0] * asc_lk[0]))
     return d1, d2
+
+
+def derivative_parts(asc_type: int) -> int:
+    """Length of the partial sums `derivatives_total` finishes
+    (`_derivative_sums`)."""
+    return 6 if asc_type in (AB_LEWIS, AB_FELSENSTEIN) else 2
+
+
+def derivatives_total(parts: torch.Tensor, asc_type: int):
+    """(d1, d2) from partial sums [derivative_parts]: a shard's summed
+    over the shards, or a whole partition's."""
+    if asc_type in (AB_LEWIS, AB_FELSENSTEIN):
+        return _asc_derivatives(parts[0], parts[1], parts[2], parts[3:6],
+                                asc_type)
+    return parts[0], parts[1]
 
 
 def newton_step(length: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,

@@ -326,13 +326,18 @@ def fused_candidate_from_tree(vroot, n_tips: int, n_matrices: int,
 def tip_code_matrix(partition) -> np.ndarray:
     """int32 state-bitmask matrix [tips, sites_padded]: real sites carry
     the charmap masks, the asc columns the single-state masks (column
-    sites + k has 1 << k). The kernel needs no padding to a site grain, so
-    the port passes no `pad_to`."""
+    sites + k has 1 << k), the columns of a `sites_alignment` padding 0
+    (zero CLVs, zero weight). The kernel needs no padding to a site grain,
+    so the port passes no `pad_to`. A shard of a sharded partition
+    (partition.py:PartitionShard) takes its block of the parent's."""
     p = partition
+    parent = getattr(p, "_parent", None)
+    if parent is not None:
+        return np.ascontiguousarray(tip_code_matrix(parent)[:, p.lo:p.hi])
     codes = np.zeros((p.tips, p.sites_padded), dtype=np.int32)
     codes[:, :p.sites] = p.tip_states[:, :p.sites].astype(np.int64) \
         .astype(np.int32)
-    codes[:, p.sites:] = 1 << np.arange(p.asc_extra)
+    codes[:, p.sites:p.sites + p.asc_extra] = 1 << np.arange(p.asc_extra)
     return codes
 
 
@@ -353,7 +358,8 @@ def tip_clv_matrix(partition):
     with set_tip_clv, ascending by tip index (the order `ctip_rows`
     encodes), in the partition's dtype on its device; None when there is
     none. The values are the same for every rate (pll.c:1063), and the asc
-    columns ride along."""
+    columns ride along; a sharded partition gathers them from its
+    shards."""
     p = partition
     idxs = np.flatnonzero(p._tips_clv_set)
     if len(idxs) == 0:
@@ -362,7 +368,7 @@ def tip_clv_matrix(partition):
         # the identity mapping: a raw tip's columns are per site
         rows = np.stack([p._tip_cols[int(t)] for t in idxs])
         return torch.as_tensor(rows, dtype=p.dtype).to(p.device)
-    return p.clv[torch.as_tensor(idxs, device=p.device), 0].contiguous()
+    return p._tip_clv_rows(idxs).contiguous()
 
 
 def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32

@@ -30,7 +30,7 @@ from ..constants import (AB_FELSENSTEIN, AB_LEWIS, AB_NONE, AB_STAMATAKIS,
 
 __all__ = ["cap_pow", "root_loglikelihood", "edge_loglikelihood",
            "edge_loglikelihood_candidates", "node_ancestral",
-           "rate_posteriors"]
+           "rate_posteriors", "asc_parts", "asc_total"]
 
 
 def cap_pow(threshold: float, rel: torch.Tensor,
@@ -75,43 +75,71 @@ def _finalize_site_lk(terma, terminv, site_sc, threshold: float, dtype):
 
 
 def _apply_asc(site_lk, terma, site_sc, pattern_weights, asc_type: int,
-               n_real: int, states: int, threshold: float, dtype):
+               n_real: int, states: int, threshold: float, dtype,
+               col0=None):
     """Ascertainment-bias corrections (likelihood.c:24-117); `n_real < 0`
     marks a partition without synthetic asc columns. Returns (total,
-    weighted_per_site)."""
+    weighted_per_site).
+
+    The columns are [col0, col0 + S) of the partition: with `col0` (one
+    shard of a site mesh) the first value is the shard's partial sums
+    `asc_parts(asc_type)` long instead of the total, since the Lewis and
+    Felsenstein terms are the log of a sum over the synthetic columns,
+    which may lie in any shard; `asc_total` finishes the sums, summed over
+    the shards or, without `col0`, the partition's own."""
     pw = pattern_weights.to(dtype)
     zero = torch.zeros_like(site_lk)
     # site_lk may be -inf; 0 * -inf is nan, so zero-weight columns are
     # masked, not multiplied out
+    # the columns' indices in the partition, where synthetic columns exist
+    idxs = None if n_real < 0 else (col0 or 0) + torch.arange(
+        site_lk.shape[0], device=site_lk.device)
     if asc_type == AB_STAMATAKIS or (asc_type == AB_NONE and n_real < 0):
         weighted = torch.where(pw > 0, site_lk * pw, zero)
         if asc_type == AB_STAMATAKIS and n_real >= 0:
             # the scaler-undo term enters UNWEIGHTED on the synthetic
             # columns (likelihood.c:95-101)
-            idxs = torch.arange(site_lk.shape[0], device=site_lk.device)
             asc_cols = (idxs >= n_real) & (idxs < n_real + states)
             sc_term = site_sc.to(dtype) * math.log(threshold)
             weighted = torch.where(asc_cols,
                                    (site_lk - sc_term) * pw + sc_term,
                                    weighted)
-        return weighted.sum(), weighted
-    main = (torch.arange(site_lk.shape[0], device=site_lk.device)
-            < n_real).to(dtype)
-    weighted = torch.where(pw * main > 0, site_lk * pw * main, zero)
-    if asc_type == AB_NONE:
-        return weighted.sum(), weighted
-    term_asc = terma[n_real:n_real + states]
-    sc_asc = site_sc[n_real:n_real + states]
-    base = torch.sum(term_asc * torch.pow(
-        torch.tensor(threshold, dtype=dtype, device=terma.device),
-        sc_asc.to(dtype)))
-    if asc_type == AB_LEWIS:
-        corr = -torch.sum(pw * main) * torch.log(1.0 - base)
-    elif asc_type == AB_FELSENSTEIN:
-        corr = torch.sum(pw[n_real:n_real + states]) * torch.log(base)
+        parts = weighted.sum()[None]
     else:
-        raise ValueError(f"unknown asc type {asc_type}")
-    return weighted.sum() + corr, weighted
+        main = (idxs < n_real).to(dtype)
+        weighted = torch.where(pw * main > 0, site_lk * pw * main, zero)
+        if asc_type == AB_NONE:
+            parts = weighted.sum()[None]
+        elif asc_type in (AB_LEWIS, AB_FELSENSTEIN):
+            asc_cols = (idxs >= n_real) & (idxs < n_real + states)
+            base = torch.sum(torch.where(asc_cols, terma * torch.pow(
+                torch.tensor(threshold, dtype=dtype, device=terma.device),
+                site_sc.to(dtype)), zero))
+            # the weight the correction scales by: the main columns'
+            # (Lewis) or the synthetic columns' (Felsenstein)
+            sum_w = (torch.sum(pw * main) if asc_type == AB_LEWIS
+                     else torch.sum(torch.where(asc_cols, pw, zero)))
+            parts = torch.stack([weighted.sum(), sum_w, base])
+        else:
+            raise ValueError(f"unknown asc type {asc_type}")
+    return (parts if col0 is not None else asc_total(parts, asc_type)), \
+        weighted
+
+
+def asc_parts(asc_type: int) -> int:
+    """Length of the partial sums `_apply_asc` finishes: the main sum, and
+    for Lewis and Felsenstein also the weight sum the correction scales by
+    and the synthetic columns' likelihood sum."""
+    return 3 if asc_type in (AB_LEWIS, AB_FELSENSTEIN) else 1
+
+
+def asc_total(parts: torch.Tensor, asc_type: int) -> torch.Tensor:
+    """The logL from partial sums [..., asc_parts]."""
+    if asc_type == AB_LEWIS:
+        return parts[..., 0] - parts[..., 1] * torch.log(1.0 - parts[..., 2])
+    if asc_type == AB_FELSENSTEIN:
+        return parts[..., 0] + parts[..., 1] * torch.log(parts[..., 2])
+    return parts[..., 0]
 
 
 def _mix_rates(terma_r, rate_factor, freqs_r, pinv_r, rate_weights,
@@ -147,9 +175,11 @@ def root_loglikelihood(clv: torch.Tensor,            # [R, s, S]
                        rate_scalers: bool = False,
                        has_scaler: bool = True,
                        asc_type: int = AB_NONE,
-                       n_real: int = -1):
+                       n_real: int = -1,
+                       col0=None):
     """Likelihood at a root CLV (rooted trees); returns (total logL,
-    per-site weighted logL [S])."""
+    per-site weighted logL [S]); with `col0` the total is a shard's
+    partial sums (`_apply_asc`)."""
     dtype = clv.dtype
     f = freqs[params_idx].to(dtype)                          # [R, s]
     pinv = prop_invar[params_idx]
@@ -166,7 +196,7 @@ def root_loglikelihood(clv: torch.Tensor,            # [R, s, S]
     site_lk = _finalize_site_lk(terma, terminv, site_sc, scale_threshold,
                                 dtype)
     return _apply_asc(site_lk, terma, site_sc, pattern_weights, asc_type,
-                      n_real, clv.shape[1], scale_threshold, dtype)
+                      n_real, clv.shape[1], scale_threshold, dtype, col0)
 
 
 def edge_loglikelihood(clv_parent: torch.Tensor,     # [R, s, S]
@@ -185,9 +215,11 @@ def edge_loglikelihood(clv_parent: torch.Tensor,     # [R, s, S]
                        has_pscaler: bool = True,
                        has_cscaler: bool = True,
                        asc_type: int = AB_NONE,
-                       n_real: int = -1):
+                       n_real: int = -1,
+                       col0=None):
     """Likelihood across the edge (parent, child) with transition matrix
-    `pmatrix` on it; returns (total logL, per-site weighted logL [S])."""
+    `pmatrix` on it; returns (total logL, per-site weighted logL [S]); with
+    `col0` the total is a shard's partial sums (`_apply_asc`)."""
     dtype = clv_parent.dtype
     f = freqs[params_idx].to(dtype)                          # [R, s]
     pinv = prop_invar[params_idx]
@@ -213,7 +245,8 @@ def edge_loglikelihood(clv_parent: torch.Tensor,     # [R, s, S]
     site_lk = _finalize_site_lk(terma, terminv, site_sc, scale_threshold,
                                 dtype)
     return _apply_asc(site_lk, terma, site_sc, pattern_weights, asc_type,
-                      n_real, clv_parent.shape[1], scale_threshold, dtype)
+                      n_real, clv_parent.shape[1], scale_threshold, dtype,
+                      col0)
 
 
 def edge_loglikelihood_candidates(clv_parent: torch.Tensor,   # [K, R, s, S]
@@ -230,18 +263,21 @@ def edge_loglikelihood_candidates(clv_parent: torch.Tensor,   # [K, R, s, S]
                                   scale_threshold: float,
                                   rate_scalers: bool = False,
                                   asc_type: int = AB_NONE,
-                                  n_real: int = -1) -> torch.Tensor:
+                                  n_real: int = -1,
+                                  col0=None) -> torch.Tensor:
     """`edge_loglikelihood` of K root edges at once: each its own rows,
     counts and root P-matrix; with `params_idx` [K, R] each its own root
     edge's rate matrices (candidates under per-branch heterotachy), and with
     `freqs` [K, M, s] and `prop_invar` [K, M] each its own model (trials).
     One batch of tensor ops (torch.func.vmap over the leading axis), not K
-    calls of ~50 small ones. Returns the totals [K]."""
+    calls of ~50 small ones. Returns the totals [K] (with `col0` a shard's
+    partial sums [K, asc_parts])."""
     def one(clv_p, clv_c, sc_p, sc_c, pmat, pidx, f, pinv):
         return edge_loglikelihood(
             clv_p, clv_c, sc_p, sc_c, pmat, f, pinv, rate_weights, pidx,
             pattern_weights, invariant, scale_threshold,
-            rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real)[0]
+            rate_scalers=rate_scalers, asc_type=asc_type, n_real=n_real,
+            col0=col0)[0]
 
     in_dims = (0, 0, 0, 0, 0, 0 if params_idx.dim() == 2 else None,
                0 if freqs.dim() == 3 else None,

@@ -48,7 +48,10 @@ JAX's `_site_totals`); only the `n_candidates` real candidates are scored.
 Eligibility (search.py falls back to the batched rounds otherwise): per-site
 or per-rate scalers, homogeneous models; site repeats stream through a
 dense tip-row base (`Partition.dense_tip_rows`); ascertainment corrections
-ride the passes as ordinary columns. Per-edge heterotachy is excluded by
+ride the passes as ordinary columns. On a site mesh (`mesh=`) the passes
+and the candidates run once a shard on its column block, and the [C]
+scores are summed over the shards (asc and repeats stream on one device
+only, as in JAX). Per-edge heterotachy is excluded by
 design: merged and half SPR edges have no well-defined rate matrix.
 """
 from __future__ import annotations
@@ -768,9 +771,20 @@ def _compose(clv_ext, sc_ext, pm1, x1, s1, pm2, x2, s2,
     return x, sc_ext[s1] + sc_ext[s2] + mask
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("site sharding (ROADMAP A8)")
+def _over_shards(score, mesh, clv, scaler, pattern_weights, invariant,
+                 model):
+    """A streamed scorer under a site mesh (JAX's shard_map body,
+    libpll2_tpu/ops/spr_stream.py:871-885, 932-947): `clv`, `scaler`,
+    `pattern_weights` and `invariant` hold one block a shard this process
+    owns; `score(clv, scaler, model, pw, inv)` runs the passes and the
+    candidates on one shard with the replicated `model` tensors moved to
+    its device, and the shards' [C] scores are reduced with
+    parallel/sharding.py:psum."""
+    from ..parallel.sharding import psum
+    return psum([score(c, sc, [m.to(c.device) for m in model],
+                       pw.to(c.device), inv.to(c.device))
+                 for c, sc, pw, inv in zip(clv, scaler, pattern_weights,
+                                           invariant)], mesh)
 
 
 def nni_stream_scores(clv, scaler,
@@ -790,8 +804,22 @@ def nni_stream_scores(clv, scaler,
     `cand_rows`) is the real candidates, the rows past it padding that is
     not scored. With `base=(n_rows, n_scaler_rows)` the clv operand is the
     dense tip rows of a pooled site-repeats partition (`_extend_buffers`).
+    With `mesh` (a site-sharded partition) `clv`, `scaler`,
+    `pattern_weights` and `invariant` hold one block a shard, the passes
+    run once a shard and the scores are summed over the shards
+    (`_over_shards`).
     """
-    _no_mesh(mesh)
+    if mesh is not None:
+        return _over_shards(
+            lambda c, sc, m, pw, inv: nni_stream_scores(
+                c, sc, *m, post_ops, post_valid, up_ops, up_valid,
+                blen_full, cand_rows, pw, inv, scale_threshold,
+                scale_factor, n_aux, n_arows, chunk=chunk,
+                rate_scalers=rate_scalers, base=base, asc_type=asc_type,
+                n_real=n_real, n_candidates=n_candidates),
+            mesh, clv, scaler, pattern_weights, invariant,
+            (eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
+             rate_weights, freqs, params_idx_rates))
     n = len(cand_rows) if n_candidates is None else int(n_candidates)
     pm_full = ops_pmatrix.update_prob_matrices(
         eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
@@ -840,8 +868,19 @@ def spr_stream_scores(clv, scaler,
     (`stream_passes`) over P-matrices [E + merged] (the merged edges'
     after the tree's), then each candidate's regraft product at the half
     lengths and its edge logL, `chunk` candidates at a time.
-    `n_candidates` and `base` as in `nni_stream_scores`."""
-    _no_mesh(mesh)
+    `n_candidates`, `base` and `mesh` as in `nni_stream_scores`."""
+    if mesh is not None:
+        return _over_shards(
+            lambda c, sc, m, pw, inv: spr_stream_scores(
+                c, sc, *m, post_ops, post_valid, up_ops, up_valid, a_ops,
+                a_valid, blen_full, merged_len, half_len, cand_rows, pw,
+                inv, scale_threshold, scale_factor, n_aux, n_arows,
+                chunk=chunk, rate_scalers=rate_scalers, base=base,
+                asc_type=asc_type, n_real=n_real,
+                n_candidates=n_candidates),
+            mesh, clv, scaler, pattern_weights, invariant,
+            (eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
+             rate_weights, freqs, params_idx_rates))
     n = len(cand_rows) if n_candidates is None else int(n_candidates)
     dev = clv.device
 

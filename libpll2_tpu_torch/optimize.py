@@ -45,7 +45,8 @@ import numpy as np
 import torch
 
 from . import constants as C
-from .engine import TreeEngine, _pmatrices
+from .engine import TreeEngine, _on_device, _pmatrices
+from .parallel.sharding import replicated_input
 from .ops import eigen as ops_eigen
 from .ops import likelihood as ops_likelihood
 from .ops import partials as ops_partials
@@ -157,17 +158,24 @@ def make_loglikelihood_fn(engine: TreeEngine,
     class 0 is pinned to rate 1, classes 1..n map to free log-rates --
     e.g. DNA HKY is [0, 1, 0, 0, 1, 0], GTR is [1, 2, 3, 4, 5, 0]. Only the
     plain paths ('levels', 'scan') are differentiable: build the engine
-    with pallas=False. The partition's buffers are not written."""
+    with pallas=False. The partition's buffers are not written.
+
+    On a sharded partition fn runs the plain path once a shard, on each
+    shard's block from the replicated P-matrices, and sums the shards'
+    partial sums (parallel/sharding.py:psum); under several processes the
+    parameters' gradient is summed over them (`replicated_input`), as JAX
+    differentiates through its psums."""
     p = engine.partition
     d = p.dtype
     optimize = tuple(optimize)
     subst_template = _check_template(p, subst_template)
+    units = engine._units()
     if engine.use_pallas or engine.repeats_dense_fused:
         raise ValueError("build the TreeEngine with pallas=False for "
                          "gradient optimization (or use maximize_fused / "
                          "maximize_loglikelihood, which run model-parameter "
                          "optimization on the fused kernels directly)")
-    if p.clv is None:
+    if units[0].partition.clv is None:
         raise C.PllError(
             C.ERROR_PARAM_INVALID,
             "gradient optimization runs over dense CLV buffers; pooled "
@@ -176,9 +184,11 @@ def make_loglikelihood_fn(engine: TreeEngine,
             "speed either way)")
     (eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates, rate_weights,
      base_freqs, pidx) = engine._model_args()
-    pw, invariant = engine._site_args()
     ops, valid = engine._ops if engine.levels else (engine._ops, None)
-    clv0, sc0 = p.clv, p.scale_buffer
+    # each shard's (or the partition's) buffers, site data, plan and modes
+    blocks = [(u.partition.clv, u.partition.scale_buffer, *u._site_args(),
+               _on_device((ops, valid), u.device), u.partition._modes())
+              for u in units]
     p_clv, p_sc, c_clv, c_sc, root_mat = engine.root_idx
 
     expand_subst = _make_subst_expander(p, subst_template, d, engine.device)
@@ -190,6 +200,7 @@ def make_loglikelihood_fn(engine: TreeEngine,
                                                   base_freqs)
 
     def fn(params: Dict[str, torch.Tensor]) -> torch.Tensor:
+        params = {k: replicated_input(v, p.mesh) for k, v in params.items()}
         freqs = (torch.softmax(params["freq_logits"], dim=-1)
                  if "freq_logits" in params else base_freqs)
         branches = (torch.exp(params["log_branches"])
@@ -203,14 +214,21 @@ def make_loglikelihood_fn(engine: TreeEngine,
                                 else (eigenvals, eigenvecs, inv_eigenvecs))
             pmatrix = _pmatrices(ev, ivecs, evecs, prop_invar, rates, pidx,
                                  branches)
-        clv, sc = ops_partials.update_partials_functional(
-            clv0, sc0, pmatrix, ops, valid, p.scale_threshold,
-            p.scale_factor, rate_scalers=p.rate_scalers)
-        total, _ = ops_likelihood.edge_loglikelihood(
-            clv[p_clv], clv[c_clv], sc[p_sc], sc[c_sc], pmatrix[root_mat],
-            freqs, prop_invar, rate_weights, pidx, pw, invariant,
-            p.scale_threshold, **p._modes())
-        return total
+        totals = []
+        for clv0, sc0, pw, invariant, (ops_b, valid_b), modes in blocks:
+            dev = clv0.device
+            pm = pmatrix.to(dev)
+            clv, sc = ops_partials.update_partials_functional(
+                clv0, sc0, pm, ops_b, valid_b, p.scale_threshold,
+                p.scale_factor, rate_scalers=p.rate_scalers)
+            totals.append(ops_likelihood.edge_loglikelihood(
+                clv[p_clv], clv[c_clv], sc[p_sc], sc[c_sc], pm[root_mat],
+                freqs.to(dev), prop_invar.to(dev), rate_weights.to(dev),
+                pidx.to(dev), pw, invariant, p.scale_threshold,
+                **modes)[0])
+        if engine._shards is None:
+            return totals[0]
+        return engine._shards.reduce(totals)
 
     return fn, params0
 
@@ -487,7 +505,9 @@ def _sweep_inputs(engine: TreeEngine, tree):
     branches: what JAX's pmatrix buffer holds once an evaluation has filled
     it (libpll2_tpu/optimize.py:545-556). After `maximize_loglikelihood`
     of the branches, the engine's branches are the optimized ones while the
-    tree keeps its old lengths until `apply_branches_to_tree`."""
+    tree keeps its old lengths until `apply_branches_to_tree`. Of a
+    sharded partition the buffers are None: `newton_smooth_all` takes its
+    shards'."""
     from .ops import branch_sweep
     from .ops import levels as ops_levels
     from .trees import create_operations, traverse
@@ -526,11 +546,14 @@ def newton_smooth_all(engine: TreeEngine, tree, passes: int = 2,
     Every CLV op runs on the level kernel (its plain version for CPU
     tensors). The tree's branch lengths, the engine's branches and the
     partition's dense buffers are updated; returns the final
-    log-likelihood."""
+    log-likelihood. On a sharded partition every CLV op and sumtable runs
+    once a shard, and each Newton update takes the d1 and d2 summed over
+    the shards (ops/branch_sweep.py:newton_sweep_shards)."""
     from .ops import branch_sweep
 
     p = engine.partition
-    if p.clv is None:
+    units = engine._units()
+    if units[0].partition.clv is None:
         raise C.PllError(
             C.ERROR_PARAM_INVALID,
             "newton_smooth_all needs dense CLV buffers (directional "
@@ -538,11 +561,17 @@ def newton_smooth_all(engine: TreeEngine, tree, passes: int = 2,
             "supported — use newton_optimize_branches or a dense "
             "partition")
     args, kw = _sweep_inputs(engine, tree)
-    new_branches, pmatrix, clv, scaler = branch_sweep.newton_sweep(
-        *args, passes=passes, iterations=iterations, **kw)
-    p.clv.copy_(clv)
-    p.scale_buffer.copy_(scaler)
-    p.pmatrix.copy_(pmatrix)
+    # each block brings its buffers and site data (args[:2], args[14:16])
+    blocks = [(u.partition.clv, u.partition.scale_buffer, *u._site_args(),
+               u.partition._modes().get("col0")) for u in units]
+    new_branches, pmatrix, outs = branch_sweep.newton_sweep_shards(
+        blocks, p.mesh, *args[2:14], *args[16:], passes=passes,
+        iterations=iterations, **kw)
+    for u, (clv, scaler) in zip(units, outs):
+        up = u.partition
+        up.clv.copy_(clv)
+        up.scale_buffer.copy_(scaler)
+        up.pmatrix.copy_(pmatrix.to(up.device))
     engine.branches = new_branches
     engine.apply_branches_to_tree(tree)
     return engine.loglikelihood()

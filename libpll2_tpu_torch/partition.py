@@ -20,7 +20,17 @@ the reference's per-index buffer tables are leading axes of dense tensors on
 `sites_padded` is `sites`, plus `states` synthetic columns with an
 ascertainment-bias correction (`asc_bias`): column sites + k observes state
 k at every tip (pll.c:525-531), and its pattern weight is the state weight
-of `set_asc_state_weights`.
+of `set_asc_state_weights`; rounded up to a multiple of `sites_alignment`
+(pad columns carry zero weight and zero tip codes), so that the columns
+split evenly over the shards of a site mesh.
+
+On a mesh (`mesh=`, or `parallel.shard_partition`) the partition keeps one
+column block per shard it owns, each a `PartitionShard` on its shard's
+device with its own dense buffers (the asc columns where JAX's global
+layout puts them, after the real sites); the host mirrors stay here, one
+copy. The step-by-step API then runs once a shard and reduces the per-shard
+sums (parallel/sharding.py:psum); per-site outputs are concatenated in
+shard order.
 
 With `site_repeats=True` (and at least C.REPEATS_MIN_SITES sites) the CLVs
 are pooled class columns instead (repeats.py), classed over the real and the
@@ -67,9 +77,10 @@ from .ops import likelihood as ops_likelihood
 from .ops import pmatrix as ops_pmatrix
 from .ops import pool as ops_pool
 from .ops.partials import Operations, gather_flat_view
+from .parallel.sharding import psum, shard_partition
 from .repeats import RepeatsTable, build_flat_layout
 
-__all__ = ["Operation", "Partition", "pack_operations",
+__all__ = ["Operation", "Partition", "PartitionShard", "pack_operations",
            "pack_level_operations", "resolve_device"]
 
 # both traversal kernels and tip_code_matrix carry tip states as int32 masks
@@ -164,6 +175,7 @@ class Partition:
                  dtype: torch.dtype = torch.float32,
                  rate_scalers: bool = False,
                  asc_bias: C.AscBias = C.AscBias.NONE,
+                 sites_alignment: int = 1,
                  site_repeats: bool = False,
                  mesh=None):
         self.device = resolve_device(device)
@@ -178,8 +190,6 @@ class Partition:
             raise C.PllError(C.ERROR_AB_NOSUPPORT,
                              "Per-rate scalers are not supported with asc "
                              "bias correction")
-        if mesh is not None:
-            raise not_ported("site sharding over a device mesh")
         if states > MAX_STATES:
             raise not_ported(f"{states}-state alphabets (tip states travel "
                              f"to the kernels as 32-bit masks, so at most "
@@ -205,15 +215,21 @@ class Partition:
         self.asc_bias = asc_bias
         # the asc corrections append `states` synthetic all-state-k columns
         # after the real sites (pll.c:525-531); no site-grain padding
-        # otherwise: the kernels mask the ragged edge themselves
+        # otherwise (the kernels mask the ragged edge themselves), only the
+        # `sites_alignment` a mesh asks for
         self.asc_extra = states if asc_bias != C.AscBias.NONE else 0
-        self.sites_padded = sites + self.asc_extra
+        base = sites + self.asc_extra
+        self.sites_padded = -(-base // sites_alignment) * sites_alignment
+        self.mesh = self.shards = None
 
         S, R, s = self.sites_padded, rate_cats, states
         # repeats switch off below 16 sites, as in pll.c:441-449; the class
-        # domain spans the asc columns too (repeats.c:69,122,201)
+        # domain spans the asc columns too (repeats.c:69,122,201), and a
+        # padded partition keeps dense buffers (libpll2_tpu/partition.py:
+        # 177)
         self.repeats = None
-        if site_repeats and sites >= C.REPEATS_MIN_SITES:
+        if (site_repeats and sites >= C.REPEATS_MIN_SITES
+                and self.sites_padded == base):
             self.repeats = RepeatsTable(self.nodes, S)
         if self.repeats is None:
             # +1 scratch CLV row; scalers get +2 rows: row K absorbs writes
@@ -264,6 +280,8 @@ class Partition:
         # bumped by tip setters; engines cache tip-code tensors on it
         self._tip_version = 0
         self._dense_tip_key = self._dense_tip_cache = None
+        if mesh is not None:
+            shard_partition(self, mesh)
 
     def _sc_rows(self) -> tuple:
         """The scaler buffers' rate axis: (rates,) with per-rate scalers."""
@@ -273,6 +291,44 @@ class Partition:
         """[states, asc_extra] values of the synthetic asc columns at a tip:
         column k observes state k."""
         return np.eye(self.states)[:, :self.asc_extra]
+
+    def _pad_cols(self, cols: np.ndarray) -> np.ndarray:
+        """[..., sites] tip values with the asc columns appended and the
+        pad columns zero: [..., sites_padded]."""
+        out = np.zeros(cols.shape[:-1] + (self.sites_padded,))
+        out[..., :self.sites] = cols
+        out[..., self.sites:self.sites + self.asc_extra] = self._asc_cols()
+        return out
+
+    def _blocks(self) -> list:
+        """(holder of the dense buffers, its first column): each shard on a
+        sharded partition, else the partition itself."""
+        if self.shards is None:
+            return [(self, 0)]
+        return [(sh, sh.lo) for sh in self.shards]
+
+    def _write_tip_rows(self, tip_indices, rows: np.ndarray) -> None:
+        """Dense tip rows [n, states, sites_padded], the same for every rate,
+        into `clv`, or into each shard's column block."""
+        R, s = self.rate_cats, self.states
+        for blk, lo in self._blocks():
+            w = blk.sites_padded
+            idx = torch.as_tensor(np.asarray(tip_indices), device=blk.device)
+            t = torch.as_tensor(rows[..., lo:lo + w],
+                                dtype=self.dtype).to(blk.device)
+            blk.clv[idx] = t[:, None].expand(len(idx), R, s, w)
+
+    def _tip_clv_rows(self, tip_indices) -> torch.Tensor:
+        """The dense rows [n, states, sites_padded] of `tip_indices` (rate
+        0), gathered from the shards on a mesh."""
+        def rows(blk):
+            idx = torch.as_tensor(np.asarray(tip_indices), device=blk.device)
+            return blk.clv[idx, 0]
+
+        if self.shards is None:
+            return rows(self)
+        return torch.cat([rows(sh).to(self.device) for sh in self.shards],
+                         dim=-1)
 
     # ------------------------------------------------------------------ tips
     def set_tip_states(self, tip_index: int, charmap: np.ndarray,
@@ -335,7 +391,7 @@ class Partition:
         self._tips_clv_set[tip_indices] = False
         self._tip_version += 1
         self._invariant_valid = False
-        R, s, S = self.rate_cats, self.states, self.sites_padded
+        s = self.states
         if self.repeats is not None:
             self._flat = None
             self._repeat_key = self._repeat_schedule = None
@@ -349,16 +405,11 @@ class Partition:
                     state_maps.bits_to_clv(m[rep], s).T)
             return
         for c0 in range(0, len(tip_indices), chunk):
-            idx = torch.as_tensor(tip_indices[c0:c0 + chunk],
-                                  device=self.device)
             m = masks[c0:c0 + chunk]
             ind = state_maps.bits_to_clv(m.reshape(-1), s).reshape(
                 len(m), self.sites, s)
-            rows = np.zeros((len(m), s, S))
-            rows[:, :, :self.sites] = ind.transpose(0, 2, 1)
-            rows[:, :, self.sites:] = self._asc_cols()
-            rows = torch.as_tensor(rows, dtype=self.dtype).to(self.device)
-            self.clv[idx] = rows[:, None].expand(len(m), R, s, S)
+            self._write_tip_rows(tip_indices[c0:c0 + chunk],
+                                 self._pad_cols(ind.transpose(0, 2, 1)))
 
     def set_tip_clv(self, tip_index: int, clv, padded: bool = False) -> None:
         """Set a tip CLV from [sites, states] values, the same for every
@@ -372,16 +423,14 @@ class Partition:
         self._index([tip_index], "tip index", self.tips)
         arr = np.asarray(clv, dtype=np.float64).reshape(self.sites,
                                                         self.states)
-        cols = np.concatenate([arr.T, self._asc_cols()], axis=1)
+        cols = self._pad_cols(arr.T)
         if self.repeats is not None:
             self.repeats.reset_node(tip_index)
             self._flat = None
             self._repeat_key = self._repeat_schedule = None
             self._tip_cols[tip_index] = np.ascontiguousarray(cols)
         else:
-            rows = torch.as_tensor(cols, dtype=self.dtype).to(self.device)
-            self.clv[tip_index] = rows[None].expand(self.rate_cats,
-                                                    *rows.shape)
+            self._write_tip_rows([tip_index], cols[None])
         self._tips_set[tip_index] = False
         self._tips_clv_set[tip_index] = True
         self._tip_version += 1
@@ -407,7 +456,7 @@ class Partition:
         ind = state_maps.bits_to_clv(
             self.tip_states[coded, :n].reshape(-1), s).reshape(-1, n, s)
         rows[coded, :, :n] = ind.transpose(0, 2, 1)
-        rows[coded, :, n:] = self._asc_cols()
+        rows[coded, :, n:n + self.asc_extra] = self._asc_cols()
         raw = np.flatnonzero(self._tips_clv_set)
         if self.repeats is not None:
             # a raw tip of a repeats partition has the identity mapping: its
@@ -416,8 +465,8 @@ class Partition:
                 rows[t] = self._tip_cols[t]
         out = torch.as_tensor(rows, dtype=self.dtype).to(self.device)
         if self.repeats is None and raw.size:
-            idx = torch.as_tensor(raw, device=self.device)
-            out[idx] = self.clv[idx, 0]
+            out[torch.as_tensor(raw, device=self.device)] = \
+                self._tip_clv_rows(raw)
         self._dense_tip_cache, self._dense_tip_key = out, self._tip_version
         return out
 
@@ -477,8 +526,8 @@ class Partition:
             raise C.PllError(C.ERROR_AB_NOSUPPORT,
                              "Partition was not created with ascertainment "
                              "bias support")
-        self.pattern_weights[self.sites:] = np.asarray(state_weights,
-                                                       dtype=np.int64)
+        self.pattern_weights[self.sites:self.sites + self.asc_extra] = \
+            np.asarray(state_weights, dtype=np.int64)
         self._model_version += 1
 
     def update_invariant_sites_proportion(self, params_index: int,
@@ -588,7 +637,9 @@ class Partition:
             self._dev(self.eigenvecs), self._dev(self.prop_invar),
             self._dev(self.rates), self._dev(pidx, torch.long),
             self._dev(blen))
-        self.pmatrix[self._dev(midx, torch.long)] = pmat
+        for blk, _ in self._blocks():
+            blk.pmatrix[torch.as_tensor(midx, device=blk.device)] = \
+                pmat.to(blk.device)
 
     # -------------------------------------------------------------- partials
     def update_partials(self, operations: Sequence[Operation],
@@ -610,6 +661,10 @@ class Partition:
         rescales on its own, one count per rate)."""
         operations = list(operations)
         self._check_operations(operations)
+        if self.shards is not None:
+            for sh in self.shards:
+                sh.update_partials(operations, update_repeats)
+            return
         if self.repeats is not None:
             plan = self._pool_plan(operations, update_repeats)
             for op in operations:
@@ -744,6 +799,18 @@ class Partition:
             return float(total), per.cpu().numpy()[:self.sites]
         return float(total)
 
+    def _reduce(self, name: str, *args):
+        """`name`'s (total, per-site) on a partition, or on a sharded one
+        once a shard: the shards' partial sums reduced in shard order and
+        finished (ops/likelihood.py:asc_total), the per-site values
+        concatenated."""
+        if self.shards is None:
+            return getattr(self, name)(*args)
+        outs = [getattr(sh, name)(*args) for sh in self.shards]
+        total = ops_likelihood.asc_total(
+            psum([o[0] for o in outs], self.mesh), self.asc_bias.value)
+        return total, torch.cat([o[1].to(self.device) for o in outs])
+
     def _modes(self) -> dict:
         """The per-rate and asc arguments of the likelihood functions (the
         engine's paths and the step-by-step API alike; n_real marks the
@@ -756,15 +823,19 @@ class Partition:
         """likelihood.c:122-190: the likelihood at a root CLV (rooted
         trees). Returns logL, or (logL, per-site weighted logL) with
         `persite`."""
+        total, per = self._reduce("_root_terms", clv_index, scaler_index,
+                                  freqs_indices)
+        return self._persite(total, per, persite)
+
+    def _root_terms(self, clv_index, scaler_index, freqs_indices):
         clv_node, scaler, has_scaler = self._node_view(clv_index,
                                                        scaler_index)
         pidx = self._index(freqs_indices, "params index", self.rate_matrices)
-        total, per = ops_likelihood.root_loglikelihood(
+        return ops_likelihood.root_loglikelihood(
             clv_node, scaler, self._dev(self.frequencies),
             self._dev(self.prop_invar), self._dev(self.rate_weights),
             self._dev(pidx, torch.long), *self._site_tensors(),
             self.scale_threshold, has_scaler=has_scaler, **self._modes())
-        return self._persite(total, per, persite)
 
     def compute_edge_loglikelihood(self, parent_clv_index: int,
                                    parent_scaler_index: int,
@@ -775,19 +846,26 @@ class Partition:
                                    persite: bool = False):
         """likelihood.c:586-700: the likelihood across the edge (parent,
         child) with P-matrix `matrix_index`."""
+        total, per = self._reduce(
+            "_edge_terms", parent_clv_index, parent_scaler_index,
+            child_clv_index, child_scaler_index, matrix_index, freqs_indices)
+        return self._persite(total, per, persite)
+
+    def _edge_terms(self, parent_clv_index, parent_scaler_index,
+                    child_clv_index, child_scaler_index, matrix_index,
+                    freqs_indices):
         pclv, pscaler, has_p = self._node_view(parent_clv_index,
                                                parent_scaler_index)
         cclv, cscaler, has_c = self._node_view(child_clv_index,
                                                child_scaler_index)
         self._index([matrix_index], "matrix index", self.prob_matrices)
         pidx = self._index(freqs_indices, "params index", self.rate_matrices)
-        total, per = ops_likelihood.edge_loglikelihood(
+        return ops_likelihood.edge_loglikelihood(
             pclv, cclv, pscaler, cscaler, self.pmatrix[matrix_index],
             self._dev(self.frequencies), self._dev(self.prop_invar),
             self._dev(self.rate_weights), self._dev(pidx, torch.long),
             *self._site_tensors(), self.scale_threshold,
             has_pscaler=has_p, has_cscaler=has_c, **self._modes())
-        return self._persite(total, per, persite)
 
     def compute_node_ancestral(self, node_clv_index: int,
                                node_scaler_index: int,
@@ -798,6 +876,11 @@ class Partition:
         """Marginal ancestral state probabilities [sites, states] at `node`,
         combining its CLV with the neighbour's across the connecting edge
         (likelihood.c:758-830, pll_compute_node_ancestral)."""
+        if self.shards is not None:
+            return np.concatenate([sh.compute_node_ancestral(
+                node_clv_index, node_scaler_index, other_clv_index,
+                other_scaler_index, matrix_index, freqs_indices)
+                for sh in self.shards])[:self.sites]
         nclv, nscaler, has_n = self._node_view(node_clv_index,
                                                node_scaler_index)
         oclv, oscaler, has_o = self._node_view(other_clv_index,
@@ -817,7 +900,12 @@ class Partition:
                         parent_scaler_index: int, child_scaler_index: int,
                         params_indices) -> torch.Tensor:
         """derivatives.c:239-330 (phase 1, once per edge): the sumtable
-        [R, s, S] on the partition's device."""
+        [R, s, S] on the partition's device; on a sharded partition a
+        tuple of the shards' sumtables, each on its shard's device."""
+        if self.shards is not None:
+            return tuple(sh.update_sumtable(
+                parent_clv_index, child_clv_index, parent_scaler_index,
+                child_scaler_index, params_indices) for sh in self.shards)
         pclv, pscaler, has_p = self._node_view(parent_clv_index,
                                                parent_scaler_index)
         cclv, cscaler, has_c = self._node_view(child_clv_index,
@@ -842,7 +930,28 @@ class Partition:
         """derivatives.c:333-416 (phase 2, per candidate length): (d1, d2)
         of -logL. The Lewis and Felsenstein asc corrections need the
         sumtable's edge's scaler indices, to undo the synthetic columns'
-        scaling."""
+        scaling. On a sharded partition `sumtable` is `update_sumtable`'s
+        tuple, and the shards' partial sums are reduced first."""
+        if self.shards is not None:
+            if len(sumtable) != len(self.shards):
+                raise C.PllError(C.ERROR_PARAM_INVALID,
+                                 f"a sharded partition takes one sumtable "
+                                 f"a shard ({len(self.shards)}), got "
+                                 f"{len(sumtable)}")
+            parts = psum([sh._derivative_terms(
+                st, params_indices, branch_length, parent_scaler_index,
+                child_scaler_index) for sh, st in zip(self.shards, sumtable)],
+                self.mesh)
+            d1, d2 = ops_derivatives.derivatives_total(parts,
+                                                       self.asc_bias.value)
+            return float(d1), float(d2)
+        d1, d2 = self._derivative_terms(sumtable, params_indices,
+                                        branch_length, parent_scaler_index,
+                                        child_scaler_index)
+        return float(d1), float(d2)
+
+    def _derivative_terms(self, sumtable, params_indices, branch_length,
+                          parent_scaler_index, child_scaler_index):
         pidx = self._index(params_indices, "params index",
                            self.rate_matrices)
         self._ensure_eigen(pidx)
@@ -850,20 +959,24 @@ class Partition:
         if self.asc_bias in (C.AscBias.LEWIS, C.AscBias.FELSENSTEIN):
             asc_scalers = (self._scaler_sites(parent_scaler_index)
                            + self._scaler_sites(child_scaler_index))
-        d1, d2 = ops_derivatives.likelihood_derivatives(
+        modes = self._modes()
+        del modes["rate_scalers"]
+        return ops_derivatives.likelihood_derivatives(
             sumtable, self._dev(self.eigenvals), self._dev(self.prop_invar),
             self._dev(self.frequencies), self._dev(self.rates),
             self._dev(self.rate_weights), self._dev(pidx, torch.long),
             *self._site_tensors(), self._dev(branch_length),
             asc_scalers=asc_scalers, scale_threshold=self.scale_threshold,
-            asc_type=self.asc_bias.value, n_real=self.sites)
-        return float(d1), float(d2)
+            **modes)
 
     # ------------------------------------------------------------- debugging
     def get_clv(self, index: int) -> np.ndarray:
         """CLV of the real sites as [sites, rate_cats, states] (reference
         memory order); on a repeats partition the pooled class columns
         expanded per site."""
+        if self.shards is not None:
+            return np.concatenate([sh.get_clv(index) for sh in self.shards]
+                                  )[:self.sites]
         if self.repeats is not None:
             self._ensure_flat()
             o, c = int(self._flat.off[index]), int(self._flat.caps[index])
@@ -875,7 +988,10 @@ class Partition:
 
     def clv_bytes(self) -> int:
         """Allocated CLV + scaler bytes (the pooled buffers on a repeats
-        partition: the memory site repeats save shows here)."""
+        partition: the memory site repeats save shows here; every shard's
+        on a sharded one)."""
+        if self.shards is not None:
+            return sum(sh.clv_bytes() for sh in self.shards)
         if self.repeats is not None:
             self._ensure_flat()
             bufs = (self.clv_flat, self.sc_flat)
@@ -884,15 +1000,109 @@ class Partition:
         return sum(b.numel() * b.element_size() for b in bufs)
 
     def get_pmatrix(self, index: int) -> np.ndarray:
+        if self.shards is not None:
+            return self.shards[0].get_pmatrix(index)
         return self.pmatrix[index].cpu().numpy()
 
     def get_scaler(self, index: int) -> np.ndarray:
         """Scaler counts of the real sites ([sites], or [rates, sites] per
         rate); on a repeats partition the raw class-layout region of the
         pooled buffer (its width is the region's capacity)."""
+        if self.shards is not None:
+            return np.concatenate([sh.get_scaler(index)
+                                   for sh in self.shards], axis=-1
+                                  )[..., :self.sites]
         if self.repeats is not None:
             self._ensure_flat()
             lay = self._flat
             o, c = int(lay.sc_off[index]), int(lay.sc_caps[index])
             return self.sc_flat[..., o:o + c].cpu().numpy()
         return self.scale_buffer[index, ..., :self.sites].cpu().numpy()
+
+    # ------------------------------------------------------------- the mesh
+    def _dense_buffers(self):
+        """(clv, scale_buffer), the shards' blocks concatenated on the first
+        shard's device on a sharded partition."""
+        if self.shards is None:
+            return self.clv, self.scale_buffer
+        dev = self.shards[0].device
+        return (torch.cat([sh.clv.to(dev) for sh in self.shards], dim=-1),
+                torch.cat([sh.scale_buffer.to(dev) for sh in self.shards],
+                          dim=-1))
+
+    def _shard(self, mesh) -> None:
+        """One PartitionShard a shard this process owns, each holding its
+        equal column block of the dense buffers on its device, the
+        P-matrices replicated (parallel/sharding.py:shard_partition checks
+        the layout first). A partition sharded before is gathered and split
+        again."""
+        clv, sc = self._dense_buffers()
+        pm = self.pmatrix if self.shards is None else self.shards[0].pmatrix
+        devs = mesh.local_devices
+        w = self.sites_padded // len(devs)
+        self.shards = [PartitionShard(self, k * w, (k + 1) * w, dev,
+                                      clv[..., k * w:(k + 1) * w],
+                                      sc[..., k * w:(k + 1) * w], pm)
+                       for k, dev in enumerate(devs)]
+        self.mesh = mesh
+        self.device = devs[0]
+        self.clv = self.scale_buffer = self.pmatrix = None
+        self._dense_tip_key = self._dense_tip_cache = None
+
+
+def _shared(name: str) -> property:
+    """A PartitionShard attribute that reads and writes its parent's."""
+    return property(lambda self: getattr(self._parent, name),
+                    lambda self, value: setattr(self._parent, name, value))
+
+
+class PartitionShard(Partition):
+    """The column block [lo, hi) of a sharded Partition, on its shard's
+    device: its own dense buffers (`clv` [N+1, R, s, hi-lo], `scale_buffer`
+    and a replica of `pmatrix`) and, for everything else, its parent's
+    (sizes, model, tip flags and versions read and written through; the
+    pattern weights, invariant states and tip masks as views of the
+    block's columns). The engine and the step-by-step API run on it as on
+    any partition; `_modes` adds `col0`, the block's first column, with
+    which the likelihood functions return partial sums
+    (ops/likelihood.py:_apply_asc) for the parent to reduce."""
+
+    def __init__(self, parent: Partition, lo: int, hi: int, device, clv,
+                 scale_buffer, pmatrix):
+        self._parent = parent
+        self.lo, self.hi = lo, hi
+        self.device = torch.device(device)
+        self.sites_padded = hi - lo
+        self.clv = clv.contiguous().to(self.device)
+        self.scale_buffer = scale_buffer.contiguous().to(self.device)
+        self.pmatrix = pmatrix.to(self.device, copy=True)
+        self.repeats = None
+        self.mesh = self.shards = None
+        self._dense_tip_key = self._dense_tip_cache = None
+
+    @property
+    def pattern_weights(self) -> np.ndarray:
+        return self._parent.pattern_weights[self.lo:self.hi]
+
+    @property
+    def invariant(self) -> np.ndarray:
+        return self._parent.invariant[self.lo:self.hi]
+
+    @property
+    def tip_states(self) -> np.ndarray:
+        return self._parent.tip_states[:, self.lo:self.hi]
+
+    def _modes(self) -> dict:
+        return dict(self._parent._modes(), col0=self.lo)
+
+
+for _name in ("tips", "clv_buffers", "nodes", "states", "sites",
+              "rate_matrices", "prob_matrices", "rate_cats", "scale_buffers",
+              "rate_scalers", "asc_bias", "asc_extra", "dtype",
+              "scale_threshold", "scale_factor", "frequencies",
+              "subst_params", "rates", "rate_weights", "prop_invar",
+              "eigenvals", "eigenvecs", "inv_eigenvecs",
+              "eigen_decomp_valid", "_model_version", "_tips_set",
+              "_tips_clv_set", "_tip_version", "_invariant_valid"):
+    setattr(PartitionShard, _name, _shared(_name))
+del _name

@@ -7,8 +7,10 @@ multi-partition score sum). `PartitionedEngine` packages it: every
 partition gets its own TreeEngine bound to the shared tree, and totals are
 summed.
 
-Site sharding over a device mesh (JAX's `PartitionedEngine.shard`) waits
-for ROADMAP A8 and raises `NotImplementedError` here.
+`PartitionedEngine.shard` distributes the analysis over a site mesh: every
+partition's columns are split over the mesh's shards, and each partition's
+engine reduces its logL, d1 and d2 over them before the sums across
+partitions.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 
 from . import constants as C
 from .engine import TreeEngine
-from .partition import Partition, not_ported
+from .partition import Partition
 from .trees.utree import UTree
 
 __all__ = ["PartitionedEngine"]
@@ -34,11 +36,17 @@ class PartitionedEngine:
 
     @staticmethod
     def shard(partitions: Sequence[Partition], mesh) -> None:
-        """Distribute a partitioned analysis over a device mesh (JAX shards
-        every partition's site axis in place). Not ported: raises
-        NotImplementedError naming ROADMAP A8, as `Partition(mesh=...)`
-        does."""
-        raise not_ported("site sharding (ROADMAP A8)")
+        """Distribute a partitioned analysis over a device mesh: every
+        partition's site axis is sharded in place (build each with
+        sites_alignment=owned_shards(mesh)), after which each partition's
+        engine runs its kernels once a shard and reduces its logL/d1/d2
+        over the shards, and the sums across partitions stay host-side
+        scalars. This is the consumers' MPI partitioned layout (each rank
+        holds a column slice of EVERY partition, reference pll.c:1112 per
+        partition). Call before constructing the PartitionedEngine."""
+        from .parallel import shard_partition
+        for p in partitions:
+            shard_partition(p, mesh)
 
     def __init__(self, partitions: Sequence[Partition], tree: UTree,
                  params_indices: Optional[Sequence[int]] = None,

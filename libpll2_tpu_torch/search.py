@@ -422,8 +422,10 @@ class TreeSearch:
         a dense base
         built from the tip rows (`Partition.dense_tip_rows`; every tip
         set): the reference's partial traversal over repeats (libpll-2
-        src/repeats.c:299, test/src/partial-traversal.c). The port has no
-        site mesh (ROADMAP A8), so JAX's mesh exclusions do not arise."""
+        src/repeats.c:299, test/src/partial-traversal.c). A site mesh
+        streams too, each shard's passes on its own block and one sum of
+        the candidates' scores over the shards, but for JAX's exclusions:
+        asc corrections and repeats stream on one device only."""
         units = self._stream_units()
         if not units:
             return False
@@ -433,8 +435,13 @@ class TreeSearch:
             # (ops/spr_stream.py docstring)
             if p is None or getattr(ue, "edge_params", None) is not None:
                 return False
-            if p.repeats is not None and not bool(
-                    np.all(p._tips_set | p._tips_clv_set)):
+            meshed = getattr(p, "mesh", None) is not None
+            # under a mesh the synthetic asc columns are global (they lie
+            # in one shard)
+            if p.asc_bias != C.AscBias.NONE and meshed:
+                return False
+            if p.repeats is not None and (meshed or not bool(
+                    np.all(p._tips_set | p._tips_clv_set))):
                 return False
         return True
 
@@ -447,8 +454,7 @@ class TreeSearch:
         for ue, p in self._stream_units():
             sched = scheds[self._sig(p)]
             margs = ue._model_args()
-            pw, invariant = ue._site_args()
-            clv_arg, sc_arg, base = self._stream_base(p)
+            pw, invariant, clv_arg, sc_arg, base = self._stream_inputs(ue, p)
             t = spr_stream.nni_stream_scores(
                 clv_arg, sc_arg, *margs,
                 spr_stream.ops_from_table(sched.post_table),
@@ -459,7 +465,7 @@ class TreeSearch:
                 n_aux=sched.n_aux, n_arows=sched.n_arows, chunk=chunk,
                 rate_scalers=p.rate_scalers, base=base,
                 asc_type=ue.asc_type, n_real=ue.n_real,
-                n_candidates=sched.n_candidates)
+                n_candidates=sched.n_candidates, mesh=p.mesh)
             t = t.cpu().numpy().astype(np.float64)
             totals = t if totals is None else totals + t
         return totals
@@ -473,6 +479,19 @@ class TreeSearch:
             return p.clv, p.scale_buffer, None
         return p.dense_tip_rows(), None, (p.nodes + 1, p.scale_buffers)
 
+    @classmethod
+    def _stream_inputs(cls, ue, p):
+        """(pattern weights, invariant, clv_arg, scaler_arg, base) of a
+        stream unit: `_stream_base` and the engine's site vectors, or on a
+        site mesh each shard's (lists in shard order, for the scorers'
+        `mesh=`)."""
+        if p.shards is not None:
+            site = [e._site_args() for e in ue._shards.engines]
+            return ([a for a, _ in site], [b for _, b in site],
+                    [sh.clv for sh in p.shards],
+                    [sh.scale_buffer for sh in p.shards], None)
+        return (*ue._site_args(), *cls._stream_base(p))
+
     def _summed_spr_scores(self, scheds, chunk):
         """Per-candidate SPR scores summed over the stream units."""
         from .ops import spr_stream
@@ -480,8 +499,7 @@ class TreeSearch:
         for ue, p in self._stream_units():
             sched = scheds[self._sig(p)]
             margs = ue._model_args()
-            pw, invariant = ue._site_args()
-            clv_arg, sc_arg, base = self._stream_base(p)
+            pw, invariant, clv_arg, sc_arg, base = self._stream_inputs(ue, p)
             t = spr_stream.spr_stream_scores(
                 clv_arg, sc_arg, *margs,
                 spr_stream.ops_from_table(sched.post_table),
@@ -495,7 +513,7 @@ class TreeSearch:
                 n_aux=sched.n_aux, n_arows=sched.n_arows, chunk=chunk,
                 rate_scalers=p.rate_scalers, base=base,
                 asc_type=ue.asc_type, n_real=ue.n_real,
-                n_candidates=sched.n_candidates)
+                n_candidates=sched.n_candidates, mesh=p.mesh)
             t = t.cpu().numpy().astype(np.float64)
             totals = t if totals is None else totals + t
         return totals

@@ -56,6 +56,25 @@ def test_public_names_match_jax(name):
 # JAX's top-level names the port does not export yet: name -> ROADMAP item
 NOT_YET_TOP = {}
 
+# the k-chained loops the port's rules leave out
+LOOPS = {"loglikelihood_loop", "newton_loop"}
+
+
+def test_parallel_names_match_jax():
+    """`libpll2_tpu_torch.parallel` exports JAX's `__all__`, and
+    ShardedRepeatsEngine has every public name of JAX's but the k-chained
+    loops."""
+    from libpll2_tpu import parallel as jpar
+
+    from libpll2_tpu_torch import parallel as tpar
+
+    assert tpar.__all__ == jpar.__all__
+    assert all(hasattr(tpar, n) for n in tpar.__all__)
+    jax_names = _public(jpar.ShardedRepeatsEngine) - LOOPS
+    port_names = _public(tpar.ShardedRepeatsEngine)
+    assert jax_names <= port_names, sorted(jax_names - port_names)
+    assert not LOOPS & port_names
+
 
 def test_top_level_names_match_jax():
     """The port's `__all__` holds JAX's, but for the names still to port;

@@ -1676,3 +1676,164 @@ def test_float64_walk_matches_plain_on_card(cuda, case):
     assert abs(lk - cpu) / abs(cpu) < 1e-12
     ref = TreeEngine(build("cpu", torch.float64), tree).loglikelihood()
     assert abs(lk - ref) / abs(ref) < 1e-10
+
+
+# site sharding (libpll2_tpu_torch.parallel): MESH_SHARDS shards of the one
+# card, each launching the kernels on its own column block
+MESH_SHARDS = 4
+
+
+def _sharded_problem(states, sites, device, n_taxa=24, seed=8):
+    """(tree, the partition sharded over MESH_SHARDS shards of `device`,
+    the same partition unsharded): random columns (DNA with ambiguity
+    codes, or noisy amino acids under LG), GTR+G4 or LG+G4."""
+    from libpll2_tpu_torch.parallel import make_mesh
+
+    tree = random_utree([f"t{i}" for i in range(n_taxa)], seed=seed)
+    headers, seqs = random_alignment(
+        n_taxa, sites, alphabet=AA_NOISY if states == 20 else "ACGT-NRY",
+        seed=seed)
+    by = dict(zip(headers, seqs))
+
+    def build(mesh=None):
+        part = Partition(tree.tip_count, tree.inner_count, states, sites, 1,
+                         tree.edge_count, 4, tree.inner_count, device=device,
+                         sites_alignment=MESH_SHARDS if mesh else 1,
+                         mesh=mesh)
+        tips = list(tree.tips())
+        part.set_tip_states_batch(maps.map_aa if states == 20
+                                  else maps.map_nt,
+                                  [by[t.label] for t in tips],
+                                  [t.clv_index for t in tips])
+        if states == 20:
+            load_aa_model(part, "lg")
+        else:
+            part.set_frequencies(0, [0.3, 0.2, 0.2, 0.3])
+            part.set_subst_params(0, [1.0, 2.0, 1.0, 1.0, 2.0, 1.0])
+        part.set_category_rates(compute_gamma_cats(0.8, 4))
+        return part
+
+    return tree, build(make_mesh(devices=[device] * MESH_SHARDS)), build()
+
+
+def _assert_shard_columns(eng, ref):
+    """Every shard's root rows and scaler counts equal to the unsharded
+    engine's columns at the same branch lengths, and its per-site logL
+    equal to the likelihood epilogue run on those columns of the unsharded
+    rows: the epilogue's cuBLAS contractions over the states may pick
+    another algorithm, and so another summation order, at the full width,
+    and that alone separates the two runs' per-site values."""
+    from libpll2_tpu_torch.ops import likelihood as ops_likelihood
+
+    ref._set_branches(eng.branches)
+    _, per1, rows1 = ref._evaluate()
+    _, per, rows = eng._shards.evaluate(eng.branches)
+    p = ref.partition
+    m = ref._model_args()
+    pw, inv = ref._site_args()
+    lo = 0
+    for shard in rows:
+        w = shard[0].shape[-1]
+        for got, want in zip(shard, rows1):
+            assert torch.equal(got, want[..., lo:lo + w])
+        cols = [r[..., lo:lo + w].contiguous() for r in rows1]
+        sliced = ops_likelihood.edge_loglikelihood(
+            *cols, p.pmatrix[ref.root_idx[4]], m[6], m[3], m[5], m[7],
+            pw[lo:lo + w], inv[lo:lo + w], p.scale_threshold,
+            **dict(p._modes(), col0=lo))[1]
+        assert torch.equal(per[lo:lo + w], sliced)
+        lo += w
+
+
+@pytest.mark.parametrize("states,mxu", [(4, "split"), (20, "split"),
+                                        (20, "bf16")])
+def test_sharded_fused_path_on_card(cuda, states, mxu):
+    """The fused kernels (#1 for DNA, #2 for 20 states) once a shard a
+    call on 2004 columns over 4 shards of 501 (no kernel grain): launches
+    counted, the shards' columns equal the unsharded run's (and their
+    per-site logL the epilogue on them), logL and the
+    Newton step's d1/d2 within float32 summation order of it."""
+    tree, part, ref_part = _sharded_problem(states, 2004, cuda)
+    eng, ref = TreeEngine(part, tree, mxu=mxu), TreeEngine(ref_part, tree,
+                                                           mxu=mxu)
+    assert eng.execution_path == "fused"
+    kernel = fused.fused_traversal if states < 16 else \
+        fused.fused_traversal_rows
+    other = fused.fused_traversal_rows if states < 16 else \
+        fused.fused_traversal
+    kernel.launches = other.launches = 0
+    got = (eng.loglikelihood(),) + eng.newton_step()
+    torch.cuda.synchronize()
+    assert kernel.launches == 2 * MESH_SHARDS and other.launches == 0
+    want = (ref.loglikelihood(),) + ref.newton_step()
+    assert abs(got[0] - want[0]) / abs(want[0]) < 1e-6
+    assert abs(got[1] - want[1]) / abs(want[1]) < 1e-6
+    np.testing.assert_allclose(got[2:], want[2:], rtol=1e-4, atol=1e-3)
+    _assert_shard_columns(eng, ref)
+
+
+def test_sharded_levels_kernel_on_card(cuda):
+    """pallas='levels-kernel' on a mesh: one launch of kernel #3 a level a
+    shard, logL equal to the unsharded level-kernel engine's within
+    float32 summation order."""
+    tree, part, ref_part = _sharded_problem(4, 2004, cuda)
+    eng = TreeEngine(part, tree, pallas="levels-kernel")
+    ref = TreeEngine(ref_part, tree, pallas="levels-kernel")
+    n_levels = len(levels.schedule_levels(
+        create_operations(traverse(tree.vroot))[0], part.tips))
+    levels.level_update.launches = 0
+    lk = eng.loglikelihood()
+    torch.cuda.synchronize()
+    assert levels.level_update.launches == n_levels * MESH_SHARDS
+    want = ref.loglikelihood()
+    assert abs(lk - want) / abs(want) < 1e-6
+
+
+@pytest.mark.parametrize("dense_fused", [True, False])
+def test_sharded_repeats_engine_on_card(cuda, dense_fused):
+    """ShardedRepeatsEngine over 4 shards of the card: kernel #1 on each
+    shard's dense tip codes ('repeats-dense-fused') or kernel #5 on its
+    class columns (the 4x4 traversal kernel, one launch a traversal a
+    shard), launches counted, logL and the Newton step against the
+    unsharded repeats partition on the same columns."""
+    from libpll2_tpu_torch.parallel import ShardedRepeatsEngine, make_mesh
+
+    tree = random_utree([f"t{i}" for i in range(40)], seed=11)
+    seen = set()
+    for nd in tree.nodes():
+        for h in ([nd] if nd.is_tip() else list(nd.ring())):
+            if h.back is not None and id(h) not in seen:
+                seen.update((id(h), id(h.back)))
+                h.length = h.back.length = h.length * 0.15 + 0.001
+    sites, w = 2000, 500
+    headers, seqs = simulate_alignment(tree, sites, [0.25] * 4, [1.0] * 6,
+                                       alpha=0.8, seed=11)
+    by = dict(zip(headers, seqs))
+
+    def build(lo, hi):
+        part = Partition(tree.tip_count, tree.inner_count, 4, hi - lo, 1,
+                         tree.edge_count, 4, tree.inner_count, device=cuda,
+                         site_repeats=True)
+        for t in tree.tips():
+            part.set_tip_states(t.clv_index, maps.map_nt,
+                                by[t.label][lo:hi])
+        part.set_frequencies(0, [0.3, 0.25, 0.2, 0.25])
+        part.set_subst_params(0, [1.2, 3.0, 0.8, 1.1, 2.6, 1.0])
+        part.set_category_rates(compute_gamma_cats(0.8, 4))
+        return part
+
+    eng = ShardedRepeatsEngine(
+        tree, [build(k * w, (k + 1) * w) for k in range(MESH_SHARDS)],
+        make_mesh(devices=[cuda] * MESH_SHARDS), dense_fused=dense_fused)
+    ref = TreeEngine(build(0, sites), tree,
+                     pallas="auto" if dense_fused else "pool")
+    assert eng.execution_path == ref.execution_path == (
+        "repeats-dense-fused" if dense_fused else "pool-pallas")
+    fused.fused_traversal.launches = pool.pool_update.launches = 0
+    got = (eng.loglikelihood(),) + eng.newton_step()
+    torch.cuda.synchronize()
+    kernel = fused.fused_traversal if dense_fused else pool.pool_update
+    assert kernel.launches == 2 * MESH_SHARDS
+    want = (ref.loglikelihood(),) + ref.newton_step()
+    assert abs(got[0] - want[0]) / abs(want[0]) < 5e-5
+    np.testing.assert_allclose(got[1:], want[1:], rtol=5e-3, atol=5e-2)

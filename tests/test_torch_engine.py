@@ -209,13 +209,21 @@ def _asc_type_after_pinv(mp):
     part.set_asc_bias_type(tp.AscBias.LEWIS)
 
 
+def _mesh_that_does_not_divide_the_sites(mp):
+    """Site sharding is ported; JAX's shard_partition refuses 10 columns
+    over 3 shards, and so does the port (tests/test_torch_parallel.py holds
+    the sharded paths)."""
+    from libpll2_tpu_torch.parallel import make_mesh
+
+    tp.Partition(*SIZES, **CPU, mesh=make_mesh(devices=["cpu"] * 3))
+
+
 SIZES = (4, 2, 4, 10, 1, 5, 4, 2)
 CPU = {"device": "cpu"}
 # feature -> (call, the exception it raises: NotImplementedError where the
 # port lacks the feature, JAX's own error where JAX refuses it as well)
 OUT_OF_SLICE = {
-    "mesh": (lambda mp: tp.Partition(*SIZES, **CPU, mesh=object()),
-             NotImplementedError),
+    "mesh": (_mesh_that_does_not_divide_the_sites, ValueError),
     "states_33": (lambda mp: tp.Partition(4, 2, 33, 10, 1, 5, 4, 2, **CPU),
                   NotImplementedError),
     "fp64_cuda": (_fp64_on_cuda, NotImplementedError),

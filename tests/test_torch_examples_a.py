@@ -18,8 +18,8 @@ from torch_example_lines import (REPO, assert_same_lines, jax_example,
 EXAMPLES = ["export_svg", "flagship_1000", "full_analysis", "heterotachy",
             "load_trees_io", "model_selection", "newton",
             "partial_traversal", "placement", "protein_lg4", "rooted",
-            "rooted_tacg", "site_repeats", "stepwise_parsimony", "unrooted",
-            "weighted_parsimony"]
+            "rooted_tacg", "sharded_multichip", "site_repeats",
+            "stepwise_parsimony", "unrooted", "weighted_parsimony"]
 F32_EPS = 2.0 ** -23
 
 

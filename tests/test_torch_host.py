@@ -172,7 +172,9 @@ def test_import_leaves_no_jax():
             "libpll2_tpu_torch.parsimony.stepwise, "
             "libpll2_tpu_torch.bootstrap, libpll2_tpu_torch.checkpoint, "
             "libpll2_tpu_torch.utils.rng, libpll2_tpu_torch.placement, "
-            "libpll2_tpu_torch.partitioned; "
+            "libpll2_tpu_torch.partitioned, libpll2_tpu_torch.parallel, "
+            "libpll2_tpu_torch.parallel.sharding, "
+            "libpll2_tpu_torch.parallel.multihost; "
             "bad = [m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.')]; "
             "assert not bad, bad")

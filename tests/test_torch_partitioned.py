@@ -279,11 +279,28 @@ def test_partitioned_topology_search():
 
 
 def test_partitioned_shard_names_a8():
-    """JAX's mesh case (site sharding) waits for ROADMAP A8: `shard`
-    refuses, naming it."""
-    _, _, _, parts = _parts(n_parts=1)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tp.PartitionedEngine.shard(parts, mesh=None)
+    """JAX's mesh case (site sharding, ROADMAP A8, ported): `shard` splits
+    every partition's columns over the mesh, and the engine's logL and
+    linked Newton step equal the unsharded partitions' and JAX's sharded
+    ones (float64)."""
+    from libpll2_tpu import parallel as jpar
+
+    from libpll2_tpu_torch.parallel import make_mesh
+
+    jtree, tree, jparts, parts = _parts(n_parts=2)
+    ref = tp.PartitionedEngine(_carry(jparts), tree)
+    tp.PartitionedEngine.shard(parts, make_mesh(devices=["cpu"] * 2))
+    assert all(len(p.shards) == 2 for p in parts)
+    pe = tp.PartitionedEngine(parts, tree)
+    JPartitionedEngine.shard(jparts, jpar.make_mesh(2))
+    je = JPartitionedEngine(jparts, jtree)
+    np.testing.assert_allclose(pe.loglikelihood(), ref.loglikelihood(),
+                               rtol=1e-12)
+    np.testing.assert_allclose(pe.loglikelihood(), je.loglikelihood(),
+                               rtol=1e-12)
+    got, want = pe.newton_step(), je.newton_step()
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-12)
+    np.testing.assert_allclose(got[1:], want[1:], rtol=1e-10)
 
 
 def test_partitioned_maximize_fused_routing():

@@ -657,6 +657,24 @@ def test_out_of_range_schedule_raises():
                           [(sched.a_table, sched.a_valid)], sched.n_aux,
                           sched.n_arows, tpart.scale_threshold,
                           tpart.scale_factor)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tss.nni_stream_scores(*([None] * 18), 1.0, 1.0, n_aux=0, n_arows=1,
-                              mesh=object())
+    # under a site mesh the passes run once a shard, and each shard checks
+    # the schedule's indices as one device does (here P-matrices for too
+    # few edges)
+    from libpll2_tpu_torch.parallel import make_mesh, shard_partition
+
+    mesh = make_mesh(devices=["cpu"] * 2)
+    shard_partition(tpart, mesh)
+    eng = tp.TreeEngine(tpart, ttree)
+    site = [e._site_args() for e in eng._shards.engines]
+    with pytest.raises(C.PllError, match="matrix index"):
+        tss.spr_stream_scores(
+            [sh.clv for sh in tpart.shards],
+            [sh.scale_buffer for sh in tpart.shards], *eng._model_args(),
+            tss.ops_from_table(sched.post_table), sched.post_valid,
+            tss.ops_from_table(sched.up_table), sched.up_valid,
+            tss.ops_from_table(sched.a_table), sched.a_valid,
+            sched.blen_full[:2], sched.merged_len, sched.half_len,
+            sched.cand_rows, [pw for pw, _ in site], [inv for _, inv in site],
+            tpart.scale_threshold, tpart.scale_factor, n_aux=sched.n_aux,
+            n_arows=sched.n_arows, n_candidates=sched.n_candidates,
+            mesh=mesh)
