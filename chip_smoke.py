@@ -193,9 +193,18 @@ each fatal on failure:
      protein 128 x 8192 LG+G4 'split': maximize_fused of the frequencies
      (41 trials a step on the rows kernel) and one sweep pass on the
      runtime-size level kernel, held step by step as the DNA one; one
-     maximize_fused step on 'levels-kernel' (DNA), 'repeats-dense-fused'
-     and 'pool-pallas' (246 x 4465), its trials against the path's plain
-     version; one value and gradient of make_loglikelihood_fn on a
+     maximize_fused step on 'levels-kernel' (DNA per site and per rate,
+     the protein), 'repeats-dense-fused' and 'pool-pallas' (246 x 4465,
+     the conserved 128 x 8192 protein), its trials against the path's
+     plain version, and on 'levels-kernel' and 'pool-pallas' the trial
+     form of the level and pool kernels (B-3b: each chunk of trials one
+     launch a level, or at 4x4 one launch a traversal, each trial its own
+     P, rows and scaler rows) held chunk by chunk against its plain
+     version (scaler rows equal but at ties, CLVs TOL_CLV), the first
+     chunk's call, device time (torch.profiler), bound (its trials times
+     one traversal's) and plain time printed, and the step's launches
+     counted: one a level (a traversal) a chunk of the 2n+1 trials and of
+     the final pair, and no other; one value and gradient of make_loglikelihood_fn on a
      pallas=False float32 engine at 128 x 16384 against float64 on the CPU
      (the gradient route launches no kernel); select_dna_model of JC, HKY
      and GTR at a reduced 32 x 2048. Host-clock ms a step, a Brent
@@ -282,8 +291,9 @@ each fatal on failure:
      sharded and unsharded (each step's level launch once a shard, the
      logL within TOL_LOGL); (4) one streamed SPR round of phase
      20's problem, sharded and unsharded: the same moves and splits; (5)
-     one maximize_fused step of phase 21's problem (the trials one launch
-     a shard); (6) ShardedRepeatsEngine on the 246 x 4465 problem trimmed
+     one maximize_fused step of phase 21's problem on 'fused' (the trials
+     one launch a shard) and on 'levels-kernel' (the level kernel's trial
+     form one launch a level a chunk a shard); (6) ShardedRepeatsEngine on the 246 x 4465 problem trimmed
      to 4464 = 4 x 1116 columns, on 'repeats-dense-fused' (kernel #1) and
      the pooled path (kernel #5), and one batched SPR round against the
      unsharded repeats engine on the same columns; (7)
@@ -316,7 +326,12 @@ time to build its device plan. `--levels-only CHECKOUT` does the same for the
 level kernel: its call time, its host enqueue time and its device time
 level by level on the DNA main path's tree per site and per rate, on the
 80-taxon caterpillar at 16384 sites, and on the protein tree (the
-runtime-size variant) as a control.
+runtime-size variant) as a control. Where the checkout has them, both
+also run phase 21's trial forms (each chunk against its plain version; the
+first chunk's call, device time, bound and plain time): `--levels-only`
+DNA per site and per rate and the protein on 'levels-kernel',
+`--pool-only` the 246 x 4465 repeats and the conserved protein on
+'pool-pallas'.
 `--profile DIR` also writes a torch.profiler breakdown of one
 loglikelihood() and one newton_step() of each main path (fused and
 levels-kernel) to DIR/profile.txt.
@@ -1746,14 +1761,18 @@ def pool_cases(device, big, big_by, flagship, aa_make):
     return max_abs
 
 
-def pool_bound(part, levels):
+def pool_bound(part, levels, trials=1):
     """One traversal through the pool kernel, from the actual class counts,
     each column once (as `level_bound` counts rows): the class columns and
     counts it reads and does not write (the tips' columns; scaler counts of
     nodes outside the list) read once, every parent's class columns and
     counts written once (4 * R * s and 4 bytes a column), the two gather
     int32s of every parent column, P and the op tables read once; against
-    4 * R * s^2 + R * s FLOP a parent column."""
+    4 * R * s^2 + R * s FLOP a parent column. The trial form over `trials`
+    trials reads what every trial shares (the columns and counts read and
+    not written, the gather int32s, the op tables) once, and writes each
+    trial's parent columns and counts, reads its P and does its FLOP once
+    a trial."""
     from libpll2_tpu_torch.ops import pool
 
     ops = [(op, gl.size) for lv in levels for _, op, gl, _ in lv]
@@ -1771,11 +1790,12 @@ def pool_bound(part, levels):
     R, s = part.rate_cats, part.states
     sc_rows = R if part.rate_scalers else 1
     n_bytes = ((sum(part.repeats.classes(c) for c in read)
-                + sum(written.values())) * 4 * R * s
-               + (sum(sc_r.values()) + sum(sc_w.values())) * 4 * sc_rows
+                + trials * sum(written.values())) * 4 * R * s
+               + (sum(sc_r.values()) + trials * sum(sc_w.values()))
+               * 4 * sc_rows
                + cols * 2 * 4 + len(ops) * pool.POOL_ROWS * 8
-               + part.prob_matrices * R * s * s * 4)
-    return bound_ms(n_bytes, cols * (4 * R * s * s + R * s))
+               + trials * part.prob_matrices * R * s * s * 4)
+    return bound_ms(n_bytes, trials * cols * (4 * R * s * s + R * s))
 
 
 def pool_level_bounds(part, levels):
@@ -2255,7 +2275,8 @@ def pool_only(device, gpu) -> dict:
     150-taxon caterpillar x 300 (148 levels of one op: the chain of
     dependent levels alone), each 4x4 case first held against the plain
     version (`compare_pool_case`); at 246 x 4465 4x4 per site also the
-    time to build the device plan (`plan_build_ms`)."""
+    time to build the device plan (`plan_build_ms`). Under "trials", the
+    pool kernel's trial forms (`trial_forms_only`)."""
     from libpll2_tpu_torch import TreeEngine
     from libpll2_tpu_torch.ops import pool
     from libpll2_tpu_torch.trees import parse_newick
@@ -2322,6 +2343,8 @@ def pool_only(device, gpu) -> dict:
               f"{host[0]:.4f} ms least, {host[1]:.4f} median{extra}",
               flush=True)
         del part, plan, args
+    out["trials"] = trial_forms_only(device, gpu,
+                                     ("repeats", "conserved_protein"))
     return out
 
 
@@ -2354,10 +2377,13 @@ def fused_bound(eng, part):
     return bound_ms(n_bytes, traversal_flops(n_ops, S, R, s))
 
 
-def level_bound(part, ops):
+def level_bound(part, ops, trials=1):
     """One traversal through the level kernel: every CLV and scaler row it
     reads and does not write (the tips) read once, every row it writes
-    written once, P and the level tables read once."""
+    written once, P and the level tables read once. The trial form over
+    `trials` trials reads what every trial shares (the rows read and not
+    written, the tables) once, and writes each trial's rows and scaler
+    rows, reads its P and does its FLOP once a trial."""
     written = {o.parent_clv_index for o in ops}
     read = {c for o in ops
             for c in (o.child1_clv_index, o.child2_clv_index)} - written
@@ -2366,10 +2392,11 @@ def level_bound(part, ops):
                                      o.child2_scaler_index) if x >= 0} - sc_w
     S, R, s = part.sites_padded, part.rate_cats, part.states
     sc_rows = R if part.rate_scalers else 1
-    n_bytes = ((len(read) + len(written)) * R * s * S * 4
-               + (len(sc_r) + len(sc_w)) * sc_rows * S * 4
-               + part.prob_matrices * R * s * s * 4 + 9 * len(ops) * 4)
-    return bound_ms(n_bytes, traversal_flops(len(ops), S, R, s))
+    n_bytes = ((len(read) + trials * len(written)) * R * s * S * 4
+               + (len(sc_r) + trials * len(sc_w)) * sc_rows * S * 4
+               + trials * part.prob_matrices * R * s * s * 4
+               + 9 * len(ops) * 4)
+    return bound_ms(n_bytes, trials * traversal_flops(len(ops), S, R, s))
 
 
 def launches_device_us(fn, name, n_launches, reps=5):
@@ -2559,7 +2586,8 @@ def levels_only(device, gpu) -> dict:
     caterpillar at 16384 sites, and the 128 x 8192 LG+G4 protein tree (the
     runtime-size variant, a control). Each entry holds `level_device`'s
     keys, its "ms" the call's and "device_ms" the traversal's device
-    time."""
+    time. Under "trials", the level kernel's trial forms
+    (`trial_forms_only`)."""
     from libpll2_tpu_torch.ops import levels
     from libpll2_tpu_torch.trees import random_alignment, random_utree
 
@@ -2589,6 +2617,48 @@ def levels_only(device, gpu) -> dict:
         print(f"  level kernel call, {key}: {ms:.4f} ms; host enqueue "
               f"{host[0]:.4f} ms least, {host[1]:.4f} median", flush=True)
         del part, args
+    out["trials"] = trial_forms_only(device, gpu,
+                                     ("dna", "dna_per_rate", "protein"))
+    return out
+
+
+def trial_forms_only(device, gpu, keys) -> dict:
+    """Phase 21's trial forms of the level and pool kernels for
+    `--levels-only` and `--pool-only` (`trial_form_case`: each chunk
+    against its plain version, the first chunk's call, device time, bound
+    and plain time), of the package that was imported, {} where it has no
+    trial form: of `keys`, DNA 128 x 16384 per site and per rate
+    ('dna', 'dna_per_rate') and the 128 x 8192 LG+G4 protein ('protein')
+    on 'levels-kernel', the 246 x 4465 repeats ('repeats') and the
+    conserved protein ('conserved_protein') on 'pool-pallas'."""
+    from libpll2_tpu_torch import TreeEngine
+
+    if not hasattr(TreeEngine, "trial_chunk"):
+        return {}
+
+    aa_tree, aa_by = protein_alignment()
+    rep_tree, _, rep_make = flagship_repeats()
+    aa_make = conserved_protein(aa_tree, aa_by)[1]
+    dna = ("subst", "freqs")
+    cases = {
+        "dna": (lambda: opt_problem(device)[2::-2], "levels-kernel", dna),
+        "dna_per_rate": (lambda: opt_problem(
+            device, rate_scalers=True)[2::-2], "levels-kernel", dna),
+        "protein": (lambda: (protein_partition(aa_tree, aa_by, AA_SITES,
+                                               device), aa_tree),
+                    "levels-kernel", ("freqs",)),
+        "repeats": (lambda: (rep_make(device), rep_tree), "pool", dna),
+        "conserved_protein": (lambda: (aa_make(device), aa_tree), "pool",
+                              ("freqs",))}
+    out = {}
+    for key in keys:
+        make, pallas, groups = cases[key]
+        part, tree = make()
+        eng = TreeEngine(part, tree, pallas=pallas)
+        c = trial_form_case(key, eng, tree, groups, gpu)
+        out[key] = {k: v for k, v in c.items() if k != "bound"}
+        out[key]["bound_ms"] = c["bound"][0]
+        del eng, part
     return out
 
 
@@ -4362,12 +4432,13 @@ MS_TAXA, MS_SITES, MS_STEPS = 32, 2048, 30
 FD_STEP = 0.02                     # libpll2_tpu/optimize.py:376 fd_step
 
 
-def opt_problem(device, dtype=None, by=None):
+def opt_problem(device, dtype=None, by=None, **options):
     """Phase 21's DNA problem: phase 20's tree (random_utree, seed 7) with
     its branch lengths perturbed (x 1.7 + 0.02) and the alignment simulated
     on the unperturbed tree under dna_model()'s GTR and Gamma(0.8) x 4,
-    the partition started from perturbed parameters (seed 7 + 21).
-    Returns (tree, {label: sequence}, partition)."""
+    the partition started from perturbed parameters (seed 7 + 21);
+    `options` (rate_scalers) go to the partition. Returns (tree, {label:
+    sequence}, partition)."""
     import numpy as np
     import torch
     from libpll2_tpu_torch.trees import random_utree
@@ -4388,7 +4459,7 @@ def opt_problem(device, dtype=None, by=None):
                 seen.update((id(h), id(h.back)))
                 h.length = h.back.length = h.length * 1.7 + 0.02
     part = dna_partition(tree, by, N_SITES, device,
-                         dtype=dtype or torch.float32)
+                         dtype=dtype or torch.float32, **options)
     rng = np.random.default_rng(SEED + 21)
     part.set_frequencies(0, freqs * rng.uniform(0.7, 1.3, 4))
     part.set_subst_params(0, subst * np.exp(rng.normal(0.0, 0.4, 6)))
@@ -4478,6 +4549,240 @@ def trial_step(label, eng, groups, gpu, timed=True):
                  f"({dev * 1e3 / k:.2f} us a trial), bound {bound[0]:.4f} "
                  f"ms by {bound[1]}, plain {plain_ms[0]:.4f} ms (once)")
     print(text, flush=True)
+    return out
+
+
+def trial_bound(eng, tree, trials):
+    """The bound of the trial form over `trials` trials on the engine's
+    path: `level_bound` of its op list on 'levels-kernel', `pool_bound` of
+    its pooled levels on 'pool-pallas' (what the trials share counted
+    once)."""
+    import copy
+
+    from libpll2_tpu_torch.ops import pool
+    from libpll2_tpu_torch.trees import create_operations, traverse
+
+    part = eng.partition
+    ops, _, _ = create_operations(traverse(tree.vroot))
+    if eng.execution_path == "levels-kernel":
+        return level_bound(part, ops, trials)
+    _, lv = pool.schedule_pool_levels(copy.deepcopy(part.repeats), ops,
+                                      part.tips, part.sites_padded,
+                                      part.scale_buffers)
+    return pool_bound(part, lv, trials)
+
+
+def trial_inputs(eng, groups):
+    """One maximize_fused step's 2n+1 trial models at the engine's model,
+    as make_fused_loglikelihood_fn hands them to _trial_loglikelihoods:
+    ((eigenvals, evecs, inv_evecs), freqs), each [K, M, ...]."""
+    import torch
+    from libpll2_tpu_torch.optimize import make_fused_loglikelihood_fn
+
+    fnb, x0, _ = make_fused_loglikelihood_fn(eng, groups)
+    X = fd_batch(x0)
+    got = {}
+
+    def capture(eigen, freqs):
+        got["eigen"], got["freqs"] = eigen, freqs
+        return torch.zeros(X.shape[0], dtype=X.dtype, device=X.device)
+    eng._trial_loglikelihoods = capture
+    try:
+        fnb(X)
+    finally:
+        del eng._trial_loglikelihoods
+    return got["eigen"], got["freqs"]
+
+
+def trial_launches(eng) -> int:
+    """The launches one chunk of trials takes on the engine's path: one a
+    level on 'levels-kernel', on 'pool-pallas' one a traversal at 4x4 and
+    one a level otherwise."""
+    if eng.execution_path == "levels-kernel":
+        return len(eng._ops)
+    plan = eng._ops
+    return 1 if pool_traversal_of(plan) is not None else len(plan.tables)
+
+
+def trial_chunks(eng, k) -> int:
+    return -(-k // eng.trial_chunk())
+
+
+def compare_level_trials(name, eng, clv, sc, want_clv, want_sc):
+    """A chunk of the level kernel's trial form against its plain version
+    (the trial buffers after each): per trial, the scaler rows the
+    traversal writes equal but at ties (`match_counts`; the trash row
+    aside), the parent rows within TOL_CLV of each site's largest entry.
+    Returns (max relative error, max absolute error, ties)."""
+    import torch
+
+    part = eng.partition
+    base = eng._trial_rows[0]
+    table = torch.cat([t.cpu() for t in eng._ops], dim=1)
+    writer = {int(psc): int(par) - base for par, psc, has in zip(
+        table[0].tolist(), table[7].tolist(), table[8].tolist()) if has}
+    rows = sorted(writer)
+    parents = sorted({int(p) - base for p in table[0].tolist()})
+    if part.rate_scalers:
+        def block(e):
+            return writer[rows[e[0]]], e[1], slice(None), e[2]
+    else:
+        def block(e):
+            return writer[rows[e[0]]], slice(None), slice(None), e[1]
+    ties, rel, abs_err = 0, 0.0, 0.0
+    for i in range(clv.shape[0]):
+        ties += match_counts(f"{name}, trial {i}", sc[i, rows],
+                             want_sc[i, rows], clv[i], want_clv[i], block,
+                             part.scale_factor, part.scale_threshold)
+        got, want = clv[i, parents], want_clv[i, parents]
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite CLVs")
+        err = (got - want).abs()
+        site_max = want.abs().amax(dim=(1, 2), keepdim=True).clamp(
+            min=1e-30)
+        rel = max(rel, float((err / site_max).max()))
+        abs_err = max(abs_err, float(err.max()))
+    check(rel <= TOL_CLV, f"{name}: max_rel_err {rel:.3e} > {TOL_CLV}")
+    return rel, abs_err, ties
+
+
+def compare_pool_trials(name, eng, pools, sc, want_pools, want_sc):
+    """A chunk of the pool kernel's trial form against its plain version:
+    per trial, the scaler regions equal but at ties (the trash region
+    aside), the zero region zero, the class columns within TOL_CLV of each
+    column's largest entry. Returns (max relative error, max absolute
+    error, ties)."""
+    import torch
+
+    part = eng.partition
+    lay = part._flat
+    col_of = torch.full((lay.sc_trash,), -1, dtype=torch.long)
+    for o in eng._repeat_ops:
+        k = o.parent_scaler_index
+        if k >= 0:
+            w = int(lay.sc_caps[k])
+            col_of[lay.sc_off[k]:lay.sc_off[k] + w] = torch.arange(
+                w) + int(lay.off[o.parent_clv_index])
+    if part.rate_scalers:
+        def block(e):
+            return e[0], slice(None), int(col_of[e[1]])
+    else:
+        def block(e):
+            return slice(None), slice(None), int(col_of[e[0]])
+    check(not bool(sc[..., lay.sc_zero:].any()),
+          f"{name}: the zero region was written")
+    ties, rel, abs_err = 0, 0.0, 0.0
+    for i in range(pools.shape[0]):
+        ties += match_counts(f"{name}, trial {i}",
+                             sc[i, ..., :lay.sc_trash],
+                             want_sc[i, ..., :lay.sc_trash], pools[i],
+                             want_pools[i], block, part.scale_factor,
+                             part.scale_threshold)
+        check(bool(torch.isfinite(pools[i]).all()),
+              f"{name}: non-finite class columns")
+        err = (pools[i] - want_pools[i]).abs()
+        col_max = want_pools[i].abs().amax(dim=(0, 1), keepdim=True).clamp(
+            min=1e-30)
+        rel = max(rel, float((err / col_max).max()))
+        abs_err = max(abs_err, float(err.max()))
+    check(rel <= TOL_CLV, f"{name}: max_rel_err {rel:.3e} > {TOL_CLV}")
+    return rel, abs_err, ties
+
+
+def trial_form_case(label, eng, tree, groups, gpu):
+    """The trial form of the engine's path kernel (#3 on 'levels-kernel',
+    #5 on 'pool-pallas') against its plain version over one
+    maximize_fused step's 2n+1 trials, chunk by chunk (`trial_chunk`):
+    each chunk's trial buffers through the kernel, its launches counted
+    (one a level a chunk; one a traversal at 4x4), and through the plain
+    version (`compare_level_trials`, `compare_pool_trials`). Then the first
+    chunk's traversal timed: its call (CUDA events, median of REPS), its
+    device time (torch.profiler, the chunk's launches summed) beside its
+    bound (`trial_bound` at the chunk's trials, on `tree`), and the plain
+    version once. Returns {k, chunk, chunks, launches,
+    max_abs_err, max_rel_err, ties, ms, device_ms, plain_ms, bound}."""
+    import torch
+    from libpll2_tpu_torch.ops import levels, pool
+
+    part = eng.partition
+    path = eng.execution_path
+    lev = path == "levels-kernel"
+    (w, evecs, ivecs), freqs = trial_inputs(eng, groups)
+    k_all, chunk = w.shape[0], eng.trial_chunk()
+    n_launch = trial_launches(eng)
+    kernel = "level" if lev else "pool"
+    thr, fac = part.scale_threshold, part.scale_factor
+
+    def runner(pmat):
+        if lev:
+            clv, sc, tips = eng._level_trial_buffers(pmat.shape[0])
+
+            def run(c, s, level=levels.level_update):
+                levels.update_partials_kernel(c, s, pmat, eng._ops, thr,
+                                              fac, level=level, tips=tips)
+        else:
+            clv, sc = eng._pool_trial_buffers(pmat.shape[0])
+
+            def run(c, s, level=None):
+                pool.update_partials_pool(c, s, pmat, eng._ops, thr, fac,
+                                          level=level)
+        return run, clv, sc
+
+    plain = (levels.level_update_reference if lev
+             else pool.pool_update_reference)
+    compare = compare_level_trials if lev else compare_pool_trials
+    rel = abs_err = 0.0
+    ties = launched = 0
+    first = None
+    for i in range(0, k_all, chunk):
+        pmat, _ = eng._trial_pmatrices(w[i:i + chunk], ivecs[i:i + chunk],
+                                       evecs[i:i + chunk])
+        run, clv, sc = runner(pmat)
+        want_clv, want_sc = clv.clone(), sc.clone()
+        torch.cuda.synchronize()
+        reset_counts()
+        run(clv, sc)
+        torch.cuda.synchronize()
+        got = counts()
+        check_counts(f"{label}: the trial form over trials {i}.."
+                     f"{i + pmat.shape[0] - 1}", got, {kernel: n_launch})
+        launched += got[kernel]
+        run(want_clv, want_sc, plain)
+        torch.cuda.synchronize()
+        r, a, t = compare(f"{label} trials", eng, clv, sc, want_clv,
+                          want_sc)
+        rel, abs_err, ties = max(rel, r), max(abs_err, a), ties + t
+        if first is None:
+            first = (run, clv, sc, pmat.shape[0])
+        else:
+            del clv, sc
+        del want_clv, want_sc
+    run, clv, sc, k = first
+    ms = median_ms(lambda: run(clv, sc))
+    dev = sum(launches_device_us(lambda: run(clv, sc), f"{kernel}_",
+                                 n_launch)) * 1e-3
+    want_clv, want_sc = clv.clone(), sc.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(want_clv, want_sc, plain)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    del want_clv, want_sc, clv, sc, first, run
+    bound = trial_bound(eng, tree, k)
+    one = trial_bound(eng, tree, 1)[0]
+    out = {"k": k_all, "chunk": chunk, "chunks": -(-k_all // chunk),
+           "launches": launched, "max_abs_err": abs_err, "max_rel_err": rel,
+           "ties": ties, "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+           "bound": bound, "trial_bytes": eng.trial_bytes()}
+    print(f"trial form [{label}, {path}] ({gpu}): {k_all} trials of one "
+          f"step in {out['chunks']} chunk(s) of at most {chunk} "
+          f"({eng.trial_bytes() / 1e6:.1f} MB a trial), {n_launch} "
+          f"launch(es) a chunk, {launched} in all; kernel vs plain: scaler "
+          f"rows equal" + (f" ({ties} ties)" if ties else "")
+          + f", max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}; a chunk "
+          f"of {k} trials: call {ms:.4f} ms, device {dev * 1e3:.1f} us "
+          f"({dev * 1e3 / k:.2f} us a trial), bound {bound[0]:.4f} ms by "
+          f"{bound[1]} (one trial's {one:.4f}), plain "
+          f"{plain_ms:.4f} ms (once)", flush=True)
     return out
 
 
@@ -4793,39 +5098,61 @@ def optimize_phase(device, gpu, flagship, aa_tree, aa_by):
     del aa_eng, aa_part
 
     # a maximize_fused step on each other kernel path, its trials held
-    # against the path's plain version first
-    others = {}
+    # against the path's plain version first; on 'levels-kernel' and
+    # 'pool-pallas' the trial form of the level and pool kernels (B-3b) held
+    # chunk by chunk against its plain version and timed, and the step's
+    # launches counted: one a level (or, at 4x4 on the pool, one a
+    # traversal) for each chunk of its 2n+1 trials and of its final pair
+    others, trial_forms = {}, {}
     rep_tree, _, rep_make = flagship
-    for label, make, t, pallas in (
-            ("DNA", lambda: part, tree, "levels-kernel"),
-            (f"repeats {REP_TAXA} x {REP_SITES}", lambda: rep_make(device),
-             rep_tree, "auto"),
-            (f"repeats {REP_TAXA} x {REP_SITES}", lambda: rep_make(device),
-             rep_tree, "pool")):
-        o_eng = TreeEngine(make(), t, pallas=pallas)
+    aa_make = conserved_protein(aa_tree, aa_by)[1]
+    rep = f"repeats {REP_TAXA} x {REP_SITES}"
+    for key, label, make, pallas, grp in (
+            ("levels-kernel", "DNA", lambda: (part, tree), "levels-kernel",
+             groups),
+            ("levels-kernel per rate", "DNA per rate",
+             lambda: opt_problem(device, rate_scalers=True)[2::-2],
+             "levels-kernel", groups),
+            ("levels-kernel protein", "protein", lambda: (protein_partition(
+                aa_tree, aa_by, AA_SITES, device), aa_tree), "levels-kernel",
+             ("freqs",)),
+            ("repeats-dense-fused", rep, lambda: (rep_make(device), rep_tree),
+             "auto", groups),
+            ("pool-pallas", rep, lambda: (rep_make(device), rep_tree), "pool",
+             groups),
+            ("pool-pallas protein", "conserved protein", lambda: (
+                aa_make(device), aa_tree), "pool", ("freqs",))):
+        o_part, t = make()
+        o_eng = TreeEngine(o_part, t, pallas=pallas)
         path = o_eng.execution_path
         want = {"levels-kernel": "level", "repeats-dense-fused": "fused",
                 "pool-pallas": "pool"}[path]
-        o = trial_step(label, o_eng, groups, gpu, timed=False)
+        o = trial_step(label, o_eng, grp, gpu, timed=False)
+        if path != "repeats-dense-fused":
+            trial_forms[key] = trial_form_case(label, o_eng, t, grp, gpu)
+            step_want = (trial_chunks(o_eng, o["k"]) + trial_chunks(
+                o_eng, 2)) * trial_launches(o_eng)
+        else:
+            step_want = 2
         lk0 = o_eng.loglikelihood()
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
-        lk1, _, hist = maximize_fused(o_eng, groups, steps=1)
+        lk1, _, hist = maximize_fused(o_eng, grp, steps=1)
         torch.cuda.synchronize()
         o["step_ms"] = (time.perf_counter() - t0) * 1e3
         o["step_launches"] = counts()
         print(f"{label}: one maximize_fused step on {path!r}: logL {lk0!r} "
               f"-> {lk1!r}, {o['step_ms']:.1f} ms (host clock), launches "
-              f"{o['step_launches']}", flush=True)
-        check(o["step_launches"][want] > 0 and all(
-            n == 0 for k_, n in o["step_launches"].items() if k_ != want)
-            and lk1 >= lk0 - 1e-2, f"{path!r}: a step launched "
-            f"{o['step_launches']}, logL {lk0} -> {lk1}")
-        if path == "repeats-dense-fused":
-            check(o["step_launches"][want] == 2, f"{path!r}: "
-                  f"{o['step_launches']} launches for one step")
-        others[path] = o
+              f"{o['step_launches']} ({o['k']} trials and a final pair, "
+              f"{trial_chunks(o_eng, o['k'])} + {trial_chunks(o_eng, 2)} "
+              f"chunk(s))", flush=True)
+        check_counts(f"{label}: a maximize_fused step on {path!r}",
+                     o["step_launches"], {want: step_want})
+        check(lk1 >= lk0 - 1e-2, f"{path!r}: a step lowered logL {lk0} -> "
+              f"{lk1}")
+        others[key] = o
+        del o_eng, o_part
     grad = gradient_check(device, by, gpu)
     ms = modelselect_check(device, gpu)
     s = time.perf_counter() - t_phase
@@ -4834,7 +5161,8 @@ def optimize_phase(device, gpu, flagship, aa_tree, aa_by):
             "sweep_check": sweep_cmp, "sweep": sweep, "final_rel_err": rel,
             "aa_trial": aa_trial, "aa_ms_per_step": aa_ms,
             "aa_launches": len(aa_hist) + 1, "aa_sweep_check": aa_sweep_cmp,
-            "aa_sweep": aa_sweep, "others": others, "gradient": grad,
+            "aa_sweep": aa_sweep, "others": others,
+            "trial_forms": trial_forms, "gradient": grad,
             "modelselect": ms, "s": s}
 
 
@@ -6354,7 +6682,9 @@ def mesh_search(device, gpu):
 
 def mesh_optimize(device, gpu):
     """25.5: one maximize_fused step of phase 21's problem on the mesh
-    against the unsharded step (the trials in one launch a shard)."""
+    against the unsharded step, on 'fused' (the trials in one launch a
+    shard) and on 'levels-kernel' (the level kernel's trial form: one
+    launch a level a chunk a shard, 13 levels x 2 chunks unsharded)."""
     from libpll2_tpu_torch import TreeEngine
     from libpll2_tpu_torch.optimize import (make_fused_loglikelihood_fn,
                                             maximize_fused)
@@ -6364,32 +6694,42 @@ def mesh_optimize(device, gpu):
                          sites_alignment=MESH_SHARDS, mesh=mesh_of())
     part.set_frequencies(0, ref_part.frequencies[0])
     part.set_subst_params(0, ref_part.subst_params[0])
-    out = {}
-    engines = {"sharded": TreeEngine(part, tree),
-               "unsharded": TreeEngine(ref_part, tree)}
-    for eng in engines.values():
-        fn, x0, _ = make_fused_loglikelihood_fn(eng, ("subst", "freqs"))
-        fn(x0[None])             # the first eigh on the card pays its set-up
-    for kind, eng in engines.items():
-        reset_counts()
-        (lk, _, hist), ms = timed(lambda: maximize_fused(
-            eng, ("subst", "freqs"), steps=1, chunk=1))
-        out[kind] = (lk, hist, ms, counts())
-    (lk_m, h_m, ms_m, c_m), (lk_1, h_1, ms_1, c_1) = (out["sharded"],
-                                                       out["unsharded"])
-    rel = max(abs(lk_m - lk_1) / abs(lk_1),
-              abs(h_m[0] - h_1[0]) / abs(h_1[0]))
-    check(rel < TOL_LOGL, f"sharded maximize_fused step {lk_m!r} / "
-          f"{h_m[0]!r} vs {lk_1!r} / {h_1[0]!r}")
-    check(c_m["fused"] == MESH_SHARDS * c_1["fused"] and c_1["fused"] > 0,
-          f"sharded maximize_fused launches {c_m}, unsharded {c_1}")
-    print(f"sharded maximize_fused step (subst, freqs; {N_TAXA} x "
-          f"{N_SITES}) ({MESH_NOTE}; {gpu}): logL {h_m[0]!r} -> {lk_m!r} in "
-          f"{ms_m:.1f} ms, launches {c_m}; unsharded {h_1[0]!r} -> "
-          f"{lk_1!r} in {ms_1:.1f} ms, launches {c_1} ({rel:.2e})",
-          flush=True)
-    return {"ms": ms_m, "unsharded_ms": ms_1, "launches": c_m["fused"],
-            "rel_err": rel}
+    res = {}
+    for pallas, kernel in (("auto", "fused"), ("levels-kernel", "level")):
+        out = {}
+        engines = {"sharded": TreeEngine(part, tree, pallas=pallas),
+                   "unsharded": TreeEngine(ref_part, tree, pallas=pallas)}
+        for eng in engines.values():
+            fn, x0, _ = make_fused_loglikelihood_fn(eng, ("subst", "freqs"))
+            fn(x0[None])         # the first eigh on the card pays its set-up
+        for kind, eng in engines.items():
+            reset_counts()
+            (lk, _, hist), ms = timed(lambda: maximize_fused(
+                eng, ("subst", "freqs"), steps=1, chunk=1))
+            out[kind] = (lk, hist, ms, counts())
+        (lk_m, h_m, ms_m, c_m), (lk_1, h_1, ms_1, c_1) = (out["sharded"],
+                                                           out["unsharded"])
+        rel = max(abs(lk_m - lk_1) / abs(lk_1),
+                  abs(h_m[0] - h_1[0]) / abs(h_1[0]))
+        check(rel < TOL_LOGL, f"sharded maximize_fused step on {pallas!r} "
+              f"{lk_m!r} / {h_m[0]!r} vs {lk_1!r} / {h_1[0]!r}")
+        ref = engines["unsharded"]
+        want = (2 if kernel == "fused" else
+                (trial_chunks(ref, 2 * x0.numel() + 1)
+                 + trial_chunks(ref, 2)) * trial_launches(ref))
+        check_counts(f"unsharded maximize_fused step on {pallas!r}", c_1,
+                     {kernel: want})
+        check_counts(f"sharded maximize_fused step on {pallas!r}", c_m,
+                     {kernel: MESH_SHARDS * want})
+        print(f"sharded maximize_fused step on "
+              f"{ref.execution_path!r} (subst, freqs; {N_TAXA} x "
+              f"{N_SITES}) ({MESH_NOTE}; {gpu}): logL {h_m[0]!r} -> "
+              f"{lk_m!r} in {ms_m:.1f} ms, launches {c_m}; unsharded "
+              f"{h_1[0]!r} -> {lk_1!r} in {ms_1:.1f} ms, launches {c_1} "
+              f"({rel:.2e})", flush=True)
+        res[kernel] = {"ms": ms_m, "unsharded_ms": ms_1,
+                       "launches": c_m[kernel], "rel_err": rel}
+    return {**res["fused"], "levels_kernel": res["level"]}
 
 
 def mesh_repeats(device, gpu, flagship):
@@ -7024,6 +7364,33 @@ def main() -> int:
                 out[f"mesh_{k}"] = m[k]
         return out
 
+    def trial_form(name, source, replaces, keys, kernel, extra=0):
+        """Phase 21's trial form of the level or pool kernel (B-3b): its
+        launches in the maximize_fused steps on its paths (and `extra`
+        more, phase 25's), its largest error against the plain version,
+        and the first case's chunk call, device time, bound and plain
+        time; every case's numbers and step beside it."""
+        tf = opt["trial_forms"]
+        first = tf[keys[0]]
+        cases = {}
+        for k in keys:
+            c = {n: v for n, v in tf[k].items() if n != "bound"}
+            c.update(bound_ms=tf[k]["bound"][0], bound_by=tf[k]["bound"][1],
+                     step_ms=opt["others"][k]["step_ms"],
+                     step_launches=opt["others"][k]["step_launches"][kernel])
+            cases[k] = c
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launch_shape": "libpll2_tpu/optimize.py:366",
+                "launches": extra + sum(
+                    opt["others"][k]["step_launches"][kernel] for k in keys),
+                "max_abs_err": max(tf[k]["max_abs_err"] for k in keys),
+                "ms": first["ms"], "plain_ms": first["plain_ms"],
+                "bound_ms": first["bound"][0],
+                "bound_by": first["bound"][1], "library_ms": None,
+                "trials": first["k"], "chunk": first["chunk"],
+                "device_ms": first["device_ms"], "cases": cases}
+
     def variant(prefix, key, launches):
         k, p, (b, by), *bf = var_ms[key]
         out = {f"{prefix}_ms": k, f"{prefix}_plain_ms": p,
@@ -7240,7 +7607,18 @@ def main() -> int:
         "bound_by": sp["bound"][1], "library_ms": None,
         "ops": sp["ops"], "level_tables": sp["levels"],
         "device_ms_per_round": sd["pass_device_ms"],
-        "search": {k: v for k, v in search.items() if k != "launches"}}, {
+        "search": {k: v for k, v in search.items() if k != "launches"}},
+        trial_form("level_update[trials]",
+                   "libpll2_tpu_torch/csrc/level_update.cu",
+                   ["libpll2_tpu/ops/pallas_partials.py:48",
+                    "libpll2_tpu/ops/pallas_partials.py:170"],
+                   ("levels-kernel", "levels-kernel per rate",
+                    "levels-kernel protein"), "level",
+                   mesh["optimize"]["levels_kernel"]["launches"]),
+        trial_form("pool_update[trials]",
+                   "libpll2_tpu_torch/csrc/pool_update.cu",
+                   "libpll2_tpu/ops/pallas_repeats.py:45",
+                   ("pool-pallas", "pool-pallas protein"), "pool"), {
         "name": "fused_traversal_f64", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal.cu",
         "replaces": "libpll2_tpu/ops/df64.py:183",

@@ -24,6 +24,34 @@
 // mode (its per-rate step-by-step API runs XLA); the port's step-by-step API
 // always launches this kernel, so it has one.
 //
+// The trial form (B-3b: libpll2_tpu/optimize.py:366 vmaps the TPU kernel
+// over model trials, which gives it one more grid dimension). K trials run
+// the same level in one launch, each with its own P-matrices [K][E, R, s,
+// s], its own CLV rows [K][N+1-base, R*s, S] and its own scaler rows [K][K+2,
+// SR, S] (trials > 0; `clv_rows`, `sc_rows` and `n_mats` are a trial's
+// rows and matrices). Rows below `base` (the tips, from state codes or
+// set_tip_clv alike) are the same for every trial and are read from the
+// shared buffer `tips` [base, R*s, S] at trial stride 0, never copied K
+// times. Every parent row is at or above `base` (the host checks it). An
+// op of trial k is resolved once, when it is loaded (`resolve`): its parent
+// and scaler rows and matrices move to trial k's, and a shared child is
+// marked by a negative row, so the rest of the kernel is the one-topology
+// form's and holds no more registers. Rows are then indexed across the
+// trials (k * clv_rows + row, an int: the host keeps K x rows below 2^31),
+// and every offset is taken in 64 bits (41 protein trials at 128 x 8192
+// pass 2^31 floats). The 4x4 variant puts the trial into its flat list of
+// tiles, (trial, op, tile) with the trial outermost, so a one-op level of
+// K trials is K ops wide for fixed_plan and its narrow levels take more
+// sites a lane; the runtime-size variant puts the trial on blockIdx.z.
+// Each form is its own instantiation (TRIALS), so the one-topology form is
+// compiled as it was. What bounds the trial form is bytes, as for one
+// traversal; the tips are needed once, but every trial reads them again
+// (from HBM: 128 DNA tip rows at 16384 sites are 134 MB). 19 DNA trials at
+// 128 x 16384 take 2.95-3.00 ms on an H100 against a 0.84 ms byte bound
+// that counts the tips once (one launch a level; the one-op levels are 19
+// ops wide), 9 protein trials at 128 x 8192 4.56-4.63 ms against 1.00 ms
+// (PERF.md §6).
+//
 // Why in place is safe. The host (ops/levels.py:schedule_levels) puts no
 // two ops in a level where one writes a row (CLV or scaler) that another
 // reads or writes; blocks of one op cover disjoint sites. Within an op, the
@@ -35,7 +63,10 @@
 // re-reading only rows it has stored itself). Nothing crosses threads but P,
 // staged in shared memory, and the maxima for the rescale test (a warp vote
 // in the 4x4 variant). So even an op whose parent is its own child is right,
-// and no CLV load may go through the read-only cache.
+// and no CLV load may go through the read-only cache. In the trial form a
+// trial reads its own rows and the shared tips and writes only its own
+// rows, so the argument holds for each trial on its own, and no trial
+// writes a row that another reads.
 //
 // What bounds it on an H100: bytes. Per op and site it reads 2 * R * s and
 // writes R * s floats, against 2 * R * s * s FMAs. A DNA traversal at 128
@@ -148,19 +179,44 @@ constexpr int kBlocksPerSm = 3;   // its blocks resident on one SM
 constexpr int kStageBytes = 48 * 1024;  // its shared memory, at most
 
 struct Args {
-  float* clv;          // [N+1, R * s, S]
-  int* scaler;         // [K+2, SR, S], SR = R per rate, else 1
-  const float* pmat;   // [E, R, s, s]
+  float* clv;          // [N+1, R * s, S]; trial form [K][N+1-base, R * s, S]
+  int* scaler;         // [K+2, SR, S], SR = R per rate, else 1; trial form
+                       // one such buffer a trial
+  const float* pmat;   // [E, R, s, s]; trial form one a trial
   const int* table;    // [9, ld]: this level's ops in columns 0..W-1
   int ld;
   int sites, rates, states;
   float threshold, factor;
   int rate_scalers;
+  const float* tips;   // trial form: rows below `base`, shared by the trials
+  int base;
+  int clv_rows, sc_rows, n_mats;  // trial form: a trial's rows, matrices
 };
 
 struct Op {
   int parent, c1, c2, m1, m2, s1, s2, psc, has;
 };
+
+// Op `op` of trial k, resolved: its parent row, scaler rows and matrices
+// indexed across the trials' buffers, a child from `base` up likewise, and
+// a shared child (below `base`) as -1 - its row in `tips`.
+__device__ __forceinline__ void resolve(Op& op, const Args& a, int k) {
+  const int rows = k * a.clv_rows - a.base, sc = k * a.sc_rows;
+  op.parent += rows;
+  op.c1 = op.c1 < a.base ? -1 - op.c1 : op.c1 + rows;
+  op.c2 = op.c2 < a.base ? -1 - op.c2 : op.c2 + rows;
+  op.s1 += sc, op.s2 += sc, op.psc += sc;
+  op.m1 += k * a.n_mats, op.m2 += k * a.n_mats;
+}
+
+// A child's row (`row` floats a row): in the trial form a resolved child,
+// a shared row where it is negative.
+template <bool TRIALS>
+__device__ __forceinline__ const float* child_row(const Args& a, int node,
+                                                  size_t row) {
+  if (TRIALS && node < 0) return a.tips + (size_t)(-1 - node) * row;
+  return a.clv + (size_t)node * row;
+}
 
 __device__ __forceinline__ Op load_op(const Args& a, int w) {
   const int* t = a.table + w;
@@ -194,8 +250,9 @@ __device__ __forceinline__ void write_scaler(const Args& a, const Op& op, int q,
 // registers for as long as its block stays on one op. A block of
 // kFixedThreads lanes covers a tile of kFixedThreads / 4 * V sites of one
 // op; blocks take runs of `per_block` consecutive tiles of the level's
-// flat (op, tile) list, and load the next tile's child columns and counts
-// before they store this tile's products.
+// flat (op, tile) list ((trial, op, tile) in the trial form), and load the
+// next tile's child columns and counts before they store this tile's
+// products.
 template <int V>
 __device__ __forceinline__ void load_v(float (&d)[V], const float* p) {
   // evict-first (ld.global.cs, not the read-only path: an op may write its
@@ -255,7 +312,7 @@ struct FixedTile {
   float l[4][V], r[4][V];
 };
 
-template <int V>
+template <int V, bool TRIALS>
 __device__ __forceinline__ void load_tile(FixedTile<V>& t, const Args& a,
                                           const Op& op, int q, size_t site) {
   const size_t S = a.sites;
@@ -266,8 +323,8 @@ __device__ __forceinline__ void load_tile(FixedTile<V>& t, const Args& a,
       for (int v = 0; v < V; ++v) t.l[j][v] = t.r[j][v] = 0.0f;
     return;
   }
-  const float* left = a.clv + ((size_t)op.c1 * 16 + q * 4) * S + site;
-  const float* right = a.clv + ((size_t)op.c2 * 16 + q * 4) * S + site;
+  const float* left = child_row<TRIALS>(a, op.c1, 16 * S) + q * 4 * S + site;
+  const float* right = child_row<TRIALS>(a, op.c2, 16 * S) + q * 4 * S + site;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     load_v<V>(t.l[j], left + j * S);
@@ -293,12 +350,13 @@ __device__ __forceinline__ void load_counts(FixedCounts<V, PER_RATE>& k,
     for (int c = 0; c < FixedCounts<V, PER_RATE>::NC; ++c) k.k1[c] = k.k2[c] = 0;
     return;
   }
+  const int* sc = a.scaler;
   if constexpr (PER_RATE) {
-    load_v<V>(k.k1, a.scaler + ((size_t)op.s1 * 4 + q) * S + site);
-    load_v<V>(k.k2, a.scaler + ((size_t)op.s2 * 4 + q) * S + site);
+    load_v<V>(k.k1, sc + ((size_t)op.s1 * 4 + q) * S + site);
+    load_v<V>(k.k2, sc + ((size_t)op.s2 * 4 + q) * S + site);
   } else if (q < V) {
-    k.k1[0] = __ldcs(a.scaler + (size_t)op.s1 * S + site + q);
-    k.k2[0] = __ldcs(a.scaler + (size_t)op.s2 * S + site + q);
+    k.k1[0] = __ldcs(sc + (size_t)op.s1 * S + site + q);
+    k.k2[0] = __ldcs(sc + (size_t)op.s2 * S + site + q);
   } else {
     k.k1[0] = k.k2[0] = 0;  // a lane without a site of its own
   }
@@ -318,11 +376,24 @@ __device__ __forceinline__ void load_p(float (&pl)[16], float (&pr)[16],
   }
 }
 
-template <int V, bool PER_RATE>
+// Op j of the flat list: in the trial form op j % n_ops of trial j / n_ops,
+// resolved.
+template <bool TRIALS>
+__device__ __forceinline__ Op load_op_of(const Args& a, long long j, int n_ops) {
+  if constexpr (TRIALS) {
+    Op op = load_op(a, (int)(j % n_ops));
+    resolve(op, a, (int)(j / n_ops));
+    return op;
+  } else {
+    return load_op(a, (int)j);
+  }
+}
+
+template <int V, bool PER_RATE, bool TRIALS>
 __global__ void __launch_bounds__(kFixedThreads,
                                   fixed_blocks_per_sm(V, PER_RATE))
     level_fixed(Args a, long long tiles_per_op, long long n_tiles,
-                int per_block) {
+                int per_block, int n_ops) {
   constexpr int kTile = kFixedThreads / 4 * V;
   const int q = threadIdx.x & 3;  // the lane's rate
   const int lane = threadIdx.x & 31;
@@ -333,14 +404,14 @@ __global__ void __launch_bounds__(kFixedThreads,
   const auto site_of = [&](long long tile) {
     return (size_t)(tile % tiles_per_op) * kTile + (threadIdx.x >> 2) * V;
   };
-  long long w = t / tiles_per_op;
-  Op op = load_op(a, (int)w);
+  long long w = t / tiles_per_op;  // the op (trial and op) of the list
+  Op op = load_op_of<TRIALS>(a, w, n_ops);
   float pl[16], pr[16];
   load_p(pl, pr, a, op, q);
   size_t site = site_of(t);
   FixedTile<V> in;
   FixedCounts<V, PER_RATE> k;
-  load_tile<V>(in, a, op, q, site);
+  load_tile<V, TRIALS>(in, a, op, q, site);
   load_counts<V, PER_RATE>(k, a, op, q, site);
   for (;;) {
     float x[4][V];
@@ -368,8 +439,9 @@ __global__ void __launch_bounds__(kFixedThreads,
     const bool more = tn < t_end;  // the same in the whole block
     Op next = op;
     if (more) {
-      if (tn / tiles_per_op != w) next = load_op(a, (int)(tn / tiles_per_op));
-      load_tile<V>(in, a, next, q, site_of(tn));
+      if (tn / tiles_per_op != w)
+        next = load_op_of<TRIALS>(a, tn / tiles_per_op, n_ops);
+      load_tile<V, TRIALS>(in, a, next, q, site_of(tn));
       load_counts<V, PER_RATE>(k, a, next, q, site_of(tn));
     }
     // the rescale test: per site, the site's 16 values are all below the
@@ -506,7 +578,7 @@ __device__ __forceinline__ void load_children(
   }
 }
 
-template <int SP, int SPT, bool EXACT>
+template <int SP, int SPT, bool EXACT, bool TRIALS>
 __global__ void __launch_bounds__(kBlock, kBlocksPerSm)
     level_generic(Args a, int rc, int tiles) {
   // [2][rc][SP][SP / 4] float4: P[m1], then P[m2]; then 2 x [blockDim.y]
@@ -514,14 +586,15 @@ __global__ void __launch_bounds__(kBlock, kBlocksPerSm)
   extern __shared__ float4 stage[];
   constexpr int PP = SP * SP;
   constexpr int kRows = SPT == 1 ? 4 : 2;  // rows of P a step
-  const Op op = load_op(a, blockIdx.y);
+  Op op = load_op(a, blockIdx.y);
+  if constexpr (TRIALS) resolve(op, a, blockIdx.z);
   const int s = EXACT ? SP : a.states;
   const int RS = a.rates * s;
   const int TY = blockDim.y, ty = threadIdx.y;
   const int w = blockDim.x * SPT;  // sites a tile
   const size_t S = a.sites;
-  const float* left = a.clv + (size_t)op.c1 * RS * S;
-  const float* right = a.clv + (size_t)op.c2 * RS * S;
+  const float* left = child_row<TRIALS>(a, op.c1, (size_t)RS * S);
+  const float* right = child_row<TRIALS>(a, op.c2, (size_t)RS * S);
   float* dst = a.clv + (size_t)op.parent * RS * S;
   const float* pl = a.pmat + (size_t)op.m1 * RS * s;
   const float* pr = a.pmat + (size_t)op.m2 * RS * s;
@@ -648,12 +721,12 @@ __global__ void __launch_bounds__(kBlock, kBlocksPerSm)
 }
 
 // One launch of the runtime-size variant: blocks of `tx` x `ty` threads,
-// `tx` over sites (SPT each), `ty` over rates, as many per op as fill the
-// card once (kBlocksPerSm blocks an SM, `sms` SMs), each over one or more
-// tiles of tx * SPT sites.
-template <int SP, int SPT, bool EXACT>
-void launch_generic(const Args& a, int n_ops, int tx, int ty, int sms,
-                    cudaStream_t st) {
+// `tx` over sites (SPT each), `ty` over rates, as many per op (and trial:
+// `trials` of them, blockIdx.z) as fill the card once (kBlocksPerSm blocks
+// an SM, `sms` SMs), each over one or more tiles of tx * SPT sites.
+template <int SP, int SPT, bool EXACT, bool TRIALS>
+void launch_generic(const Args& a, int n_ops, int trials, int tx, int ty,
+                    int sms, cudaStream_t st) {
   constexpr int per_rate = 2 * SP * SP * (int)sizeof(float);
   constexpr int maxima = 2 * kBlock * SPT * (int)sizeof(float);
   const int rc = min(a.rates, (kStageBytes - maxima) / per_rate);
@@ -661,10 +734,11 @@ void launch_generic(const Args& a, int n_ops, int tx, int ty, int sms,
   const int tiles = (a.sites + w - 1) / w;
   const long long fill = (long long)kBlocksPerSm * (sms > 0 ? sms : 1);
   const long long per_block =
-      SPT == 1 ? ((long long)tiles * n_ops + fill - 1) / fill : 1;
+      SPT == 1 ? ((long long)tiles * n_ops * trials + fill - 1) / fill : 1;
   const int blocks = (int)((tiles + per_block - 1) / per_block);
   const size_t smem = (size_t)rc * per_rate + 2 * (size_t)ty * w * sizeof(float);
-  level_generic<SP, SPT, EXACT><<<dim3(blocks, n_ops), dim3(tx, ty), smem, st>>>(a, rc, tiles);
+  level_generic<SP, SPT, EXACT, TRIALS>
+      <<<dim3(blocks, n_ops, trials), dim3(tx, ty), smem, st>>>(a, rc, tiles);
 }
 
 // The current device's SM count, asked of the driver once per device (the
@@ -691,7 +765,7 @@ struct FixedPlan {
   int per_block, blocks;
 };
 
-FixedPlan fixed_plan(int n_ops, int sites, int sms, bool aligned,
+FixedPlan fixed_plan(long long n_ops, int sites, int sms, bool aligned,
                      bool per_rate) {
   FixedPlan p{};
   p.v = !aligned ? 1 : sites % 4 == 0 ? 4 : sites % 2 == 0 ? 2 : 1;
@@ -710,10 +784,64 @@ FixedPlan fixed_plan(int n_ops, int sites, int sms, bool aligned,
   return p;
 }
 
-template <int V, bool PER_RATE>
-void launch_fixed(const Args& a, const FixedPlan& p, cudaStream_t st) {
-  level_fixed<V, PER_RATE><<<p.blocks, kFixedThreads, 0, st>>>(
-      a, p.tiles_per_op, p.tiles, p.per_block);
+template <int V, bool PER_RATE, bool TRIALS>
+void launch_fixed(const Args& a, const FixedPlan& p, int n_ops,
+                  cudaStream_t st) {
+  level_fixed<V, PER_RATE, TRIALS><<<p.blocks, kFixedThreads, 0, st>>>(
+      a, p.tiles_per_op, p.tiles, p.per_block, n_ops);
+}
+
+// One level of `n_ops` ops, `trials` trials (1 in the one-topology form).
+template <bool TRIALS>
+int launch_level(const Args& a, int n_ops, int trials, int sites_per_lane,
+                 int tiles_per_block, cudaStream_t st) {
+  const int sites = a.sites, rates = a.rates, states = a.states;
+  if (states == 4 && rates == 4) {
+    size_t ptrs = reinterpret_cast<size_t>(a.clv) |
+                  reinterpret_cast<size_t>(a.scaler);
+    if (TRIALS && a.base > 0) ptrs |= reinterpret_cast<size_t>(a.tips);
+    const FixedPlan p = fixed_plan((long long)n_ops * trials, sites, sm_count(),
+                                   (ptrs & 15) == 0, a.rate_scalers != 0);
+    if (p.v != sites_per_lane || p.per_block != tiles_per_block ||
+        (reinterpret_cast<size_t>(a.pmat) & 15) != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const bool pr = a.rate_scalers != 0;
+    if (p.v == 4) {
+      pr ? launch_fixed<4, true, TRIALS>(a, p, n_ops, st)
+         : launch_fixed<4, false, TRIALS>(a, p, n_ops, st);
+    } else if (p.v == 2) {
+      pr ? launch_fixed<2, true, TRIALS>(a, p, n_ops, st)
+         : launch_fixed<2, false, TRIALS>(a, p, n_ops, st);
+    } else {
+      pr ? launch_fixed<1, true, TRIALS>(a, p, n_ops, st)
+         : launch_fixed<1, false, TRIALS>(a, p, n_ops, st);
+    }
+  } else {
+    // Threads from the level's width (its ops times the trials): two sites
+    // a thread where the level has 1536 sites an SM (20 states only), else
+    // one; where one site a thread leaves an SM fewer than 2048 threads, a
+    // site's rates are split over up to four threads (blockDim.y), so that
+    // a narrow level has more, shorter threads.
+    const int sms = sm_count();
+    const long long threads = (long long)sites * n_ops * trials;  // one site each
+    int ty = 1;
+    while (ty < 4 && 2 * ty <= rates && threads * ty < 16LL * kBlock * sms) ty *= 2;
+    const int tx = kBlock / ty;
+    if (states == 20 && threads >= 12LL * kBlock * sms) {
+      launch_generic<20, 2, true, TRIALS>(a, n_ops, trials, kBlock, 1, sms, st);
+    } else if (states == 20) {
+      launch_generic<20, 1, true, TRIALS>(a, n_ops, trials, tx, ty, sms, st);
+    } else if (states <= 4) {
+      launch_generic<4, 1, false, TRIALS>(a, n_ops, trials, tx, ty, sms, st);
+    } else if (states <= 8) {
+      launch_generic<8, 1, false, TRIALS>(a, n_ops, trials, tx, ty, sms, st);
+    } else if (states <= 16) {
+      launch_generic<16, 1, false, TRIALS>(a, n_ops, trials, tx, ty, sms, st);
+    } else {
+      launch_generic<32, 1, false, TRIALS>(a, n_ops, trials, tx, ty, sms, st);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -723,55 +851,30 @@ void launch_fixed(const Args& a, const FixedPlan& p, cudaStream_t st) {
 // ops/_kernels.py:level_fixed_plan, which the caller passes
 // (`sites_per_lane`, `tiles_per_block`; 0 for other sizes): a launch whose
 // layout differs from the one recomputed here, or whose P is not 16-byte
-// aligned, is refused with cudaErrorInvalidValue.
+// aligned, is refused with cudaErrorInvalidValue. `trials` 0 is the
+// one-topology form; trials > 0 the trial form over that many trials, with
+// the shared rows `tips` below `base` and a trial's `clv_rows` CLV rows,
+// `sc_rows` scaler rows and `n_mats` P-matrices (trials x each below
+// 2^31).
 extern "C" int pll_level_update(float* clv, int* scaler, const float* pmat,
                                 const int* table, int ld, int n_ops, int sites,
                                 int rates, int states, float threshold,
                                 float factor, int rate_scalers,
                                 int sites_per_lane, int tiles_per_block,
+                                const float* tips, int base, int trials,
+                                int clv_rows, int sc_rows, int n_mats,
                                 void* stream) {
+  const long long most = (long long)trials *
+                         (clv_rows > sc_rows ? (clv_rows > n_mats ? clv_rows : n_mats)
+                                             : (sc_rows > n_mats ? sc_rows : n_mats));
+  if (trials < 0 || base < 0 || (base > 0 && tips == nullptr) ||
+      (trials == 0 && base != 0) || most > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
   Args a{clv, scaler, pmat, table, ld, sites, rates, states, threshold, factor,
-         rate_scalers};
+         rate_scalers, tips, base, clv_rows, sc_rows, n_mats};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (states == 4 && rates == 4) {
-    const bool aligned = ((reinterpret_cast<size_t>(clv) |
-                           reinterpret_cast<size_t>(scaler)) & 15) == 0;
-    const FixedPlan p = fixed_plan(n_ops, sites, sm_count(), aligned,
-                                   rate_scalers != 0);
-    if (p.v != sites_per_lane || p.per_block != tiles_per_block ||
-        (reinterpret_cast<size_t>(pmat) & 15) != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (p.v == 4) {
-      rate_scalers ? launch_fixed<4, true>(a, p, st) : launch_fixed<4, false>(a, p, st);
-    } else if (p.v == 2) {
-      rate_scalers ? launch_fixed<2, true>(a, p, st) : launch_fixed<2, false>(a, p, st);
-    } else {
-      rate_scalers ? launch_fixed<1, true>(a, p, st) : launch_fixed<1, false>(a, p, st);
-    }
-  } else {
-    // Threads from the level's width: two sites a thread where the level
-    // has 1536 sites an SM (20 states only), else one; where one site a
-    // thread leaves an SM fewer than 2048 threads, a site's rates are split
-    // over up to four threads (blockDim.y), so that a narrow level has
-    // more, shorter threads.
-    const int sms = sm_count();
-    const long long threads = (long long)sites * n_ops;  // at one site each
-    int ty = 1;
-    while (ty < 4 && 2 * ty <= rates && threads * ty < 16LL * kBlock * sms) ty *= 2;
-    const int tx = kBlock / ty;
-    if (states == 20 && threads >= 12LL * kBlock * sms) {
-      launch_generic<20, 2, true>(a, n_ops, kBlock, 1, sms, st);
-    } else if (states == 20) {
-      launch_generic<20, 1, true>(a, n_ops, tx, ty, sms, st);
-    } else if (states <= 4) {
-      launch_generic<4, 1, false>(a, n_ops, tx, ty, sms, st);
-    } else if (states <= 8) {
-      launch_generic<8, 1, false>(a, n_ops, tx, ty, sms, st);
-    } else if (states <= 16) {
-      launch_generic<16, 1, false>(a, n_ops, tx, ty, sms, st);
-    } else {
-      launch_generic<32, 1, false>(a, n_ops, tx, ty, sms, st);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return trials > 0 ? launch_level<true>(a, n_ops, trials, sites_per_lane,
+                                         tiles_per_block, st)
+                    : launch_level<false>(a, n_ops, 1, sites_per_lane,
+                                          tiles_per_block, st);
 }

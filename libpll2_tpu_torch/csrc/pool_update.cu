@@ -34,6 +34,27 @@
 // Padding columns (W past the parent's class count) gather class 0 and are
 // computed like the others: the plain version writes them too.
 //
+// The trial form (B-3b: libpll2_tpu/optimize.py:366 would vmap the TPU
+// kernel over model trials). K trials run one plan in one launch, each with
+// its own P-matrices [K][E, R, s, s], its own pool [K][R * s, T] and its own
+// scaler pool (trials > 0; `pool_trial`, `sc_trial` and `p_trial` are the
+// elements between two trials', 64-bit). The pooled buffers are small
+// (14.8 MB at 246 x 4465), so the host copies the partition's pool into
+// every trial's once a chunk, one broadcast copy (ops/pool.py), and a
+// trial's tips are its own copy of the tips' class columns. The
+// runtime-size kernel puts the trial on blockIdx.y; the 4x4 kernel draws K
+// times the tickets (below). Each form is its own instantiation (TRIALS), so
+// the one-topology form is compiled as it was; the 4x4 kernel's trial form
+// moves a tile's offsets to its trial's once, when it loads the op, and so
+// holds no pointers of its own. Measured on an H100 (PERF.md §6): 19
+// trials at 246 x 4465 take 325-338 us in one launch (17 us a trial, against
+// a 56 us byte bound for all 19 that reads the tips' columns once, and 38-39
+// us for one trial alone): the trials' pools (282 MB) no longer fit in L2,
+// and a block still works one tile at a time, each a chain of a ticket, the
+// waits, gathers and a release; 34 conserved-protein trials take 5.21-5.23
+// ms a chunk (153-154 us a trial, against a 0.75 ms bound for the chunk and
+// 232-235 us for one traversal alone).
+//
 // Why in place is safe. Every node and every scaler index owns its own
 // pooled region. An op whose parent is its own child is refused on the
 // host (ops/pool.py:pack_pool_levels): one lane's child column is another
@@ -41,7 +62,9 @@
 // neither read nor write a region another writes (schedule_levels), so no
 // child column changes during its launch and it reads children through
 // the read-only cache. The 4x4 kernel's ops do write what later ops of the
-// same launch read; its ordering is below.
+// same launch read; its ordering is below. In the trial form a trial reads
+// and writes only its own pools, so all of this holds for each trial on
+// its own.
 //
 // The 4x4 kernel (pool_traversal), one launch a traversal:
 // - The host lays every level's tiles out in one ticket list, in level
@@ -63,6 +86,15 @@
 //   and a tile waits only on ops before it in the list, whose tiles hold
 //   smaller tickets. So the smallest unfinished ticket has nothing left to
 //   wait on. A grid larger than the card's resident blocks is safe too.
+// - The trial form draws K tickets a tile, interleaved: ticket j * K + k is
+//   tile j of trial k, so the trials' dependency chains run side by side
+//   rather than one after another. Each trial has its own finished-tile
+//   count for each op (op e of trial k at (1 + k * ops + e) lines), all
+//   zeroed by the one memset: a count shared by the trials would release a
+//   tile before its own trial's op was done. A tile of trial k waits only
+//   on trial k's counts of ops before its op in the list, whose tiles j' <
+//   j hold tickets j' * K + k, smaller than its own; so the argument above
+//   holds unchanged.
 // - The counters are zeroed by a cudaMemsetAsync that the C entry enqueues
 //   on the launch's stream just before the kernel, so every launch starts
 //   from zero whatever the last one left; one plan must not run on two
@@ -189,11 +221,20 @@ struct Args {
   float threshold, factor;
   long long T2;
   int rate_scalers;
+  long long pool_trial, sc_trial, p_trial;  // trial form: elements between
+                                            // two trials' buffers
 };
 
 struct Op {
   long long p, psc, c1, m1, s1, c2, m2, s2, w, g, has;
 };
+
+// trial k's buffer `p` (`stride` elements a trial) in the trial form
+template <bool TRIALS, class T>
+__device__ __forceinline__ T* trial_buf(T* p, long long stride, int k) {
+  if constexpr (TRIALS) return p + (size_t)k * stride;
+  else return p;
+}
 
 __device__ __forceinline__ Op load_op(const Args& a, int k) {
   const long long* t = a.table + k;
@@ -212,11 +253,12 @@ __device__ __forceinline__ Op load_op(const Args& a, int k) {
   return op;
 }
 
-// count group q (a rate in per-rate mode, else 0) of parent column c
-__device__ __forceinline__ void write_count(const Args& a, const Op& op, int q,
-                                            long long c, int gl, int gr,
-                                            int rescale) {
-  int* sc = a.sc + q * a.T2;
+// count group q (a rate in per-rate mode, else 0) of parent column c in
+// scaler pool `sc_all`
+__device__ __forceinline__ void write_count(const Args& a, int* sc_all,
+                                            const Op& op, int q, long long c,
+                                            int gl, int gr, int rescale) {
+  int* sc = sc_all + q * a.T2;
   sc[op.psc + c] = sc[op.s1 + gl] + sc[op.s2 + gr] + rescale;
 }
 
@@ -230,7 +272,10 @@ struct Trav {
   int n_tiles;
   const int2* waits;    // (op, its tile count); null: no waits (one level)
   int* ticket;          // the next ticket
-  int* done;            // op k's finished tiles at done[k * kCounterStride]
+  int* done;            // op e's finished tiles at done[e * kCounterStride];
+                        // trial form: trial k's at done[(k * n_ops + e) * ..]
+  int trials;           // trial form: the trials (tickets n_tiles * trials)
+  int n_ops;            // trial form: the ops a trial's counts cover
 };
 
 // a count another block publishes: from L2, ordered before what follows
@@ -269,7 +314,7 @@ __device__ __forceinline__ void load_p4(float (&p)[16], const float* pmat,
   }
 }
 
-template <bool PER_RATE>
+template <bool PER_RATE, bool TRIALS>
 __global__ void __launch_bounds__(kTravThreads, kTravBlocksPerSm)
     pool_traversal(Args a, Trav tv) {
   constexpr int V = kTravPasses;
@@ -278,18 +323,32 @@ __global__ void __launch_bounds__(kTravThreads, kTravBlocksPerSm)
   const int lane = threadIdx.x & 31;
   const bool lead = threadIdx.x == 0;
   const size_t T = a.T;
+  const int n_draws = TRIALS ? tv.n_tiles * tv.trials : tv.n_tiles;
   if (lead) s_ticket[0] = atomicAdd(tv.ticket, 1);
   __syncthreads();
   for (int buf = 0;; buf ^= 1) {
     const int t = s_ticket[buf];
-    if (t >= tv.n_tiles) return;  // the list is exhausted
+    if (t >= n_draws) return;  // the list is exhausted
     // the next ticket, drawn now: its latency hides behind this tile
     int next = 0;
     if (lead) next = atomicAdd(tv.ticket, 1);
+    // ticket t is tile t / K of trial t % K in the trial form
+    const int tile = TRIALS ? t / tv.trials : t;
+    const int k = TRIALS ? t - tile * tv.trials : 0;
     // what no op of the launch writes (tickets, table, gather maps, P)
     // is read before the wait, through the read-only path
-    const int4 e = __ldg(tv.tickets + t);
-    const Op op = load_op(a, e.x);
+    const int4 e = __ldg(tv.tickets + tile);
+    Op op = load_op(a, e.x);
+    // trial k's counts of the ops, and its columns, counts and P: the op's
+    // offsets moved by the trial's (no pointer of its own to hold)
+    const int kops = TRIALS ? k * tv.n_ops : 0;
+    if constexpr (TRIALS) {
+      const long long po = k * a.pool_trial, so = k * a.sc_trial,
+                      mo = k * (a.p_trial / 64);  // P: 64 floats a matrix
+      op.p += po, op.c1 += po, op.c2 += po;
+      op.psc += so, op.s1 += so, op.s2 += so;
+      op.m1 += mo, op.m2 += mo;
+    }
     long long c[V];
     bool in[V];
     int gl[V], gr[V];
@@ -303,11 +362,11 @@ __global__ void __launch_bounds__(kTravThreads, kTravBlocksPerSm)
     float pl[16], pr[16];
     load_p4(pl, a.pmat, op.m1, q);
     load_p4(pr, a.pmat, op.m2, q);
-    // the ops this one waits on, one lane of warp 0 each
+    // the ops this one waits on (its own trial's), one lane of warp 0 each
     if (tv.waits != nullptr && threadIdx.x < 32) {
       for (int i = e.z + lane; i < e.w; i += 32) {
         const int2 w = __ldg(tv.waits + i);
-        wait_count(tv.done + (size_t)w.x * kCounterStride, w.y);
+        wait_count(tv.done + (size_t)(kops + w.x) * kCounterStride, w.y);
       }
     }
     __syncthreads();
@@ -367,7 +426,7 @@ __global__ void __launch_bounds__(kTravThreads, kTravBlocksPerSm)
     if (lead) s_ticket[buf ^ 1] = next;
     // every lane's stores, then one release of the op's count
     __syncthreads();
-    if (lead) add_release(tv.done + (size_t)e.x * kCounterStride);
+    if (lead) add_release(tv.done + (size_t)(kops + e.x) * kCounterStride);
   }
 }
 
@@ -464,7 +523,7 @@ __device__ __forceinline__ void load_children(float (&cl)[SP], float (&cr)[SP],
   }
 }
 
-template <int SP, bool EXACT>
+template <int SP, bool EXACT, bool TRIALS>
 __global__ void __launch_bounds__(kBlock, kBlocksPerSm)
     pool_generic(Args a, Tiles tl) {
   // [2][rc][SP][SP / 4] float4: P[m1], then P[m2]; then 2 x [TY][w]
@@ -477,6 +536,10 @@ __global__ void __launch_bounds__(kBlock, kBlocksPerSm)
   const int TY = blockDim.y, ty = threadIdx.y;
   const int w = blockDim.x, lx = threadIdx.x;  // w: class columns a tile
   const size_t T = a.T;
+  // the trial's buffers (blockIdx.y in the trial form)
+  float* const pool = trial_buf<TRIALS>(a.pool, a.pool_trial, blockIdx.y);
+  int* const sc_all = trial_buf<TRIALS>(a.sc, a.sc_trial, blockIdx.y);
+  const float* const pmat = trial_buf<TRIALS>(a.pmat, a.p_trial, blockIdx.y);
   float* smax = reinterpret_cast<float*>(stage + (size_t)tl.rc * (PP / 2));
   int staged_op = -1, staged_r0 = -1;  // what `stage` holds
   const int t0 = blockIdx.x * tl.per_block;
@@ -488,11 +551,11 @@ __global__ void __launch_bounds__(kBlock, kBlocksPerSm)
     const bool in = c < op.w;
     const int gl = in ? __ldg(a.gl + op.g + c) : 0;
     const int gr = in ? __ldg(a.gr + op.g + c) : 0;
-    const float* left = a.pool + op.c1 + gl;
-    const float* right = a.pool + op.c2 + gr;
-    float* dst = a.pool + op.p + c;
-    const float* pl = a.pmat + op.m1 * RS * s;
-    const float* pr = a.pmat + op.m2 * RS * s;
+    const float* left = pool + op.c1 + gl;
+    const float* right = pool + op.c2 + gr;
+    float* dst = pool + op.p + c;
+    const float* pl = pmat + op.m1 * RS * s;
+    const float* pr = pmat + op.m2 * RS * s;
     // The thread's rates are ty, ty + TY, ...: a rate's child columns are
     // all loaded before its FMAs, the next rate's as soon as its last row
     // is stored. P's first chunk (a new op's, the same for the whole block)
@@ -562,7 +625,7 @@ __global__ void __launch_bounds__(kBlock, kBlocksPerSm)
         } else if (in) {  // this rate's count and rescale
           const int rescale = op.has && mr < a.threshold;
           if (rescale) rescale_rows(dst, T, r * s, (r + 1) * s, a.factor);
-          write_count(a, op, r, c, gl, gr, rescale);
+          write_count(a, sc_all, op, r, c, gl, gr, rescale);
         }
       }
     }
@@ -583,15 +646,16 @@ __global__ void __launch_bounds__(kBlock, kBlocksPerSm)
     if (rescale)
       for (int r = ty; r < a.rates; r += TY)
         rescale_rows(dst, T, r * s, (r + 1) * s, a.factor);
-    if (ty == 0) write_count(a, op, 0, c, gl, gr, rescale);
+    if (ty == 0) write_count(a, sc_all, op, 0, c, gl, gr, rescale);
   }
 }
 
 // One launch of the runtime-size variant with `ty` rate warps: tiles of
-// kBlock / ty columns, `per_block` of them a block.
-template <int SP, bool EXACT>
+// kBlock / ty columns, `per_block` of them a block, for each of `trials`
+// trials (blockIdx.y).
+template <int SP, bool EXACT, bool TRIALS>
 void launch_generic(const Args& a, const int* map, int granules, int ty,
-                    int per_block, cudaStream_t st) {
+                    int per_block, int trials, cudaStream_t st) {
   constexpr int per_rate = 2 * SP * SP * (int)sizeof(float);
   constexpr int maxima = 2 * kBlock * (int)sizeof(float);
   const int w = kBlock / ty;
@@ -600,7 +664,37 @@ void launch_generic(const Args& a, const int* map, int granules, int ty,
   tl.count = granules * tl.per_granule;
   const int blocks = (tl.count + per_block - 1) / per_block;
   const size_t smem = (size_t)tl.rc * per_rate + (size_t)maxima;
-  pool_generic<SP, EXACT><<<blocks, dim3(w, ty), smem, st>>>(a, tl);
+  pool_generic<SP, EXACT, TRIALS>
+      <<<dim3(blocks, trials), dim3(w, ty), smem, st>>>(a, tl);
+}
+
+template <bool TRIALS>
+void launch_update(const Args& a, const int* map, int granules, int ty,
+                   int per_block, int trials, cudaStream_t st) {
+  const int states = a.states;
+  if (states == 20) {
+    launch_generic<20, true, TRIALS>(a, map, granules, ty, per_block, trials, st);
+  } else if (states <= 4) {
+    launch_generic<4, false, TRIALS>(a, map, granules, ty, per_block, trials, st);
+  } else if (states <= 8) {
+    launch_generic<8, false, TRIALS>(a, map, granules, ty, per_block, trials, st);
+  } else if (states <= 16) {
+    launch_generic<16, false, TRIALS>(a, map, granules, ty, per_block, trials, st);
+  } else if (states <= 20) {
+    launch_generic<20, false, TRIALS>(a, map, granules, ty, per_block, trials, st);
+  } else {
+    launch_generic<32, false, TRIALS>(a, map, granules, ty, per_block, trials, st);
+  }
+}
+
+template <bool TRIALS>
+void launch_traversal(const Args& a, const Trav& tv, int blocks,
+                      cudaStream_t st) {
+  if (a.rate_scalers) {
+    pool_traversal<true, TRIALS><<<blocks, kTravThreads, 0, st>>>(a, tv);
+  } else {
+    pool_traversal<false, TRIALS><<<blocks, kTravThreads, 0, st>>>(a, tv);
+  }
 }
 
 }  // namespace
@@ -610,34 +704,31 @@ void launch_generic(const Args& a, const int* map, int granules, int ty,
 // (its row stride in per-rate mode). The grid covers the level's tile map
 // (`map`, `granules` int32 pairs) with the layout of
 // ops/_kernels.py:pool_plan: `rate_threads` warps over the rates,
-// `per_block` tiles a block. The 4x4 size runs pll_pool_traversal.
+// `per_block` tiles a block. `trials` 0 is the one-topology form; trials >
+// 0 the trial form over that many trials, the trials' strides in elements.
+// The 4x4 size runs pll_pool_traversal.
 extern "C" int pll_pool_update(float* pool, int* sc, const float* pmat,
                                const long long* table, int ld, long long T,
                                const int* gl, const int* gr, int rates,
                                int states, float threshold, float factor,
                                long long T2, int rate_scalers, const int* map,
                                int granules, int rate_threads, int per_block,
+                               int trials, long long pool_trial,
+                               long long sc_trial, long long p_trial,
                                void* stream) {
   Args a{pool, sc, pmat, table, ld, T, gl, gr, rates, states, threshold,
-         factor, T2, rate_scalers};
+         factor, T2, rate_scalers, pool_trial, sc_trial, p_trial};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ty = rate_threads;
   if ((states == 4 && rates == 4) || !(ty == 1 || ty == 2 || ty == 4) ||
-      granules < 1 || per_block < 1 || map == nullptr) {
+      granules < 1 || per_block < 1 || map == nullptr || trials < 0 ||
+      trials > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (states == 20) {
-    launch_generic<20, true>(a, map, granules, ty, per_block, st);
-  } else if (states <= 4) {
-    launch_generic<4, false>(a, map, granules, ty, per_block, st);
-  } else if (states <= 8) {
-    launch_generic<8, false>(a, map, granules, ty, per_block, st);
-  } else if (states <= 16) {
-    launch_generic<16, false>(a, map, granules, ty, per_block, st);
-  } else if (states <= 20) {
-    launch_generic<20, false>(a, map, granules, ty, per_block, st);
+  if (trials > 0) {
+    launch_update<true>(a, map, granules, ty, per_block, trials, st);
   } else {
-    launch_generic<32, false>(a, map, granules, ty, per_block, st);
+    launch_update<false>(a, map, granules, ty, per_block, 1, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -647,34 +738,43 @@ extern "C" int pll_pool_update(float* pool, int* sc, const float* pmat,
 // int4 rows (op, first column, wait range), `waits` int2 rows (op, its tile
 // count) or null for one level, whose ops need none. `counters` holds
 // `n_counters` ints: the ticket counter, then one count of finished tiles
-// for each op of the table, each on a 128-byte line of its own
-// (kCounterStride ints); they are zeroed on the stream before the kernel.
-// `blocks` comes from ops/_kernels.py:pool_fixed_plan; any grid is safe,
-// since a tile waits only on tiles of smaller tickets.
+// for each op of the table (`n_ops` of them; for each trial in the trial
+// form), each on a 128-byte line of its own (kCounterStride ints); they are
+// zeroed on the stream before the kernel. `blocks` comes from
+// ops/_kernels.py:pool_fixed_plan; any grid is safe, since a tile waits
+// only on tiles of smaller tickets. `trials` 0 is the one-topology form;
+// trials > 0 draws n_tiles * trials tickets, ticket j * trials + k being
+// tile j of trial k.
 extern "C" int pll_pool_traversal(float* pool, int* sc, const float* pmat,
                                   const long long* table, int ld, long long T,
                                   const int* gl, const int* gr,
                                   float threshold, float factor, long long T2,
                                   int rate_scalers, const int* tickets,
                                   int n_tiles, const int* waits, int* counters,
-                                  int n_counters, int blocks, void* stream) {
+                                  int n_counters, int blocks, int trials,
+                                  int n_ops, long long pool_trial,
+                                  long long sc_trial, long long p_trial,
+                                  void* stream) {
+  const long long k = trials > 0 ? trials : 1;
   if (blocks < 1 || n_tiles < 1 || tickets == nullptr ||
-      counters == nullptr || n_counters <= kCounterStride) {
+      counters == nullptr || trials < 0 || n_ops < 1 ||
+      (long long)n_counters < (1 + k * n_ops) * kCounterStride ||
+      (long long)n_tiles * k + blocks > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a{pool, sc, pmat, table, ld, T, gl, gr, 4, 4, threshold, factor, T2,
-         rate_scalers};
+         rate_scalers, pool_trial, sc_trial, p_trial};
   Trav tv{reinterpret_cast<const int4*>(tickets), n_tiles,
           reinterpret_cast<const int2*>(waits), counters,
-          counters + kCounterStride};
+          counters + kCounterStride, (int)k, n_ops};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       cudaMemsetAsync(counters, 0, (size_t)n_counters * sizeof(int), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (rate_scalers) {
-    pool_traversal<true><<<blocks, kTravThreads, 0, st>>>(a, tv);
+  if (trials > 0) {
+    launch_traversal<true>(a, tv, blocks, st);
   } else {
-    pool_traversal<false><<<blocks, kTravThreads, 0, st>>>(a, tv);
+    launch_traversal<false>(a, tv, blocks, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

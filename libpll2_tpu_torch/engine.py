@@ -48,8 +48,17 @@ Model trials (`_trial_loglikelihoods`, optimize.py's batched evaluator) score
 K models (eigensystems and frequencies) on the engine's topology and path:
 on the fused paths a chunk of up to CANDIDATE_CHUNK trials is ONE launch of
 the same candidate form, the op table repeated and each trial its own
-P-matrices (`_fused_trials`); the other paths run the trials one after
-another on scratch copies of the partition's buffers.
+P-matrices (`_fused_trials`). On 'levels-kernel' and 'pool-pallas' a chunk
+of trials (as many as TRIAL_LAUNCH_BYTES of trial buffers hold) runs the
+trial form of the level or pool kernel: one launch a level for the whole
+chunk ('levels-kernel', each trial its own inner rows and scaler rows, the
+tips shared), or one launch a traversal at 4 states x 4 rates and one a
+level otherwise ('pool-pallas', each trial its own copy of the pools); the
+root edges' likelihoods are then one batch (`_level_trials`,
+`_pool_trials`). The plain pooled path ('pool') runs its chunks the same
+way through the pool kernel's plain trial form; the plain dense paths
+('levels', 'scan') run the trials one after another on scratch copies of
+the partition's buffers.
 
 On a sharded partition (parallel/sharding.py:shard_partition) the engine
 holds one TreeEngine a shard (`_Shards`), each on its shard's column block
@@ -63,6 +72,7 @@ shard order.
 from __future__ import annotations
 
 import copy
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -86,6 +96,13 @@ __all__ = ["TreeEngine", "pack_repeats"]
 
 # candidates a launch of the fused kernel takes (libpll2_tpu/engine.py:718)
 CANDIDATE_CHUNK = 128
+# the device memory one chunk of model trials may take on 'levels-kernel'
+# and the pooled paths: each trial's CLV rows from the first inner row up and
+# its scaler rows, or its copy of the pools. A 128 x 16384 DNA trial takes
+# 127 inner rows (133.2 MB) and 128 scaler rows (8.4 MB), so a DNA step's
+# 19 trials (2.69 GB) are one chunk; a 128 x 8192 protein trial (337 MB)
+# leaves 9 a chunk.
+TRIAL_LAUNCH_BYTES = 3 << 30
 
 # TreeEngine(pallas=...): the JAX package's names; the 'interpret' variants
 # ran the Pallas kernels in interpret mode on a CPU, which the port's
@@ -822,6 +839,7 @@ class TreeEngine:
                              f"of range [0, {p.prob_matrices})")
         self.use_fused = self.use_levelkernel = False
         self.table, self.fused_slots, self._ops = None, 0, None
+        self._trial_rows = None
         self.branches = torch.as_tensor(
             self._branch_vector(branches, pmatrix_indices), dtype=self.dtype,
             device=self.device)
@@ -858,13 +876,23 @@ class TreeEngine:
                 return
         if not self.use_fused:
             self.use_levelkernel = self._levelk_wanted
-            self._ops = self._dense_plan(operations)
+            if self._dense_path() == "levels-kernel":
+                tables = self._level_tables(operations)
+                self._ops = ops_levels.tables_to_device(tables, self.device)
+                zero = p.scale_buffers + 1
+                r = self.root_idx
+                self._trial_rows = ops_levels.trial_rows(
+                    tables, p.tips, root_rows=(r[0], r[2]),
+                    root_scalers=tuple(x if x >= 0 else zero
+                                       for x in (r[1], r[3])))
+            else:
+                self._ops = self._dense_plan(operations)
         if p.shards is not None:
             self._bind_shards()
 
     # what a shard's engine takes from the engine that packed the topology
     _SHARED_TOPOLOGY = ("use_fused", "use_levelkernel", "fused_slots",
-                        "root_idx", "_packed_ctips")
+                        "root_idx", "_packed_ctips", "_trial_rows")
 
     def _bind_shards(self) -> None:
         """Hand the topology this engine packed to one engine a shard of
@@ -903,6 +931,13 @@ class TreeEngine:
             return "levels-kernel"
         return "levels" if self.levels else "scan"
 
+    def _level_tables(self, operations) -> tuple:
+        """The level kernel's tables of `operations` (numpy, on the host)."""
+        p = self.partition
+        return ops_levels.pack_pallas_levels(
+            operations, p.tips, zero_scaler_row=p.scale_buffers + 1,
+            trash_scaler_row=p.scale_buffers)
+
     def _dense_plan(self, operations):
         """`operations` packed for `_dense_path`: the level tables on the
         device, (Operations [L, W], valid) or Operations [n]."""
@@ -910,9 +945,7 @@ class TreeEngine:
         path = self._dense_path()
         if path == "levels-kernel":
             return ops_levels.tables_to_device(
-                ops_levels.pack_pallas_levels(
-                    operations, p.tips, zero_scaler_row=p.scale_buffers + 1,
-                    trash_scaler_row=p.scale_buffers), self.device)
+                self._level_tables(operations), self.device)
         if path == "levels":
             return pack_level_operations(operations, p.tips,
                                          scratch_clv=p.nodes,
@@ -1287,66 +1320,214 @@ class TreeEngine:
                                  np.full(k, int(n_slots)))
 
     # ------------------------------------------------------------ model trials
+    def trial_bytes(self) -> int:
+        """The device bytes one trial's buffers take on 'levels-kernel' (its
+        CLV rows from the trial base up and its scaler rows) and
+        the pooled paths (its copy of the pools); 0 on the other paths. On
+        a mesh, the first shard's."""
+        if self._shards is not None:
+            return self._shards.engines[0].trial_bytes()
+        p = self.partition
+        path = self.execution_path
+        if self.use_fused:
+            return 0
+        if path == "levels-kernel":
+            base = self._trial_rows[0]
+            return ((p.clv.shape[0] - base) * p.clv[0].numel()
+                    * p.clv.element_size() + p.scale_buffer.numel() * 4)
+        if self.repeats_mode:
+            clv_flat, sc_flat = self._repeats_args()[:2]
+            return (clv_flat.numel() * clv_flat.element_size()
+                    + sc_flat.numel() * 4)
+        return 0
+
+    def trial_chunk(self) -> int:
+        """The trials one chunk of `_trial_loglikelihoods` takes on the
+        engine's path: CANDIDATE_CHUNK on the fused paths, as many as
+        TRIAL_LAUNCH_BYTES of trial buffers hold (`trial_bytes`, at least
+        one) on 'levels-kernel' and the pooled paths, and 1 on the plain
+        dense paths, which run the trials one after another."""
+        if self._shards is not None:
+            return self._shards.engines[0].trial_chunk()
+        if self.use_fused:
+            return CANDIDATE_CHUNK
+        per = self.trial_bytes()
+        return max(1, TRIAL_LAUNCH_BYTES // per) if per else 1
+
     def _trial_loglikelihoods(self, eigen_k, freqs_k, traversal=None,
                               level=None) -> torch.Tensor:
         """logL [K] of K trial models on the engine's topology, branches and
         execution path (libpll2_tpu/optimize.py:292-327 `eval_one`):
         `eigen_k` = (eigenvals [K, M, s], evecs [K, M, s, s], inv_evecs [K,
         M, s, s]) and `freqs_k` [K, M, s], in the partition's dtype on its
-        device; p-inv, category rates and weights are the partition's. On
-        'fused' and 'repeats-dense-fused' a chunk of CANDIDATE_CHUNK trials
-        is one launch of the candidate form (`_fused_trials`); on the other
-        paths the trials run one after another, each from a scratch copy of
-        the partition's dense or pooled buffers, which stay as they were.
-        `traversal` and `level` replace the path's kernel wrapper (its plain
-        version, for a comparison on the card). No host sync. On a mesh the
-        trials run once a shard (each shard's chunks one launch), and the
-        [K] sums are reduced (JAX maps single meshed evaluations over the
-        trials, libpll2_tpu/optimize.py:355-358; the numbers are the
-        same)."""
+        device; p-inv, category rates and weights are the partition's. The
+        trials go in chunks of `trial_chunk()`: on 'fused' and
+        'repeats-dense-fused' a chunk is one launch of the candidate form
+        (`_fused_trials`); on 'levels-kernel' one launch of the level
+        kernel's trial form a level (`_level_trials`); on 'pool-pallas' one
+        launch of the pool kernel's trial form a traversal at 4x4, a level
+        otherwise (`_pool_trials`), and on 'pool' one call of its plain
+        version a level. The plain dense paths run the trials one after
+        another, each from a scratch copy of the partition's dense buffers.
+        The partition's buffers stay as they were. `traversal` and
+        `level` replace the path's kernel wrapper (its plain version, which
+        takes the trial form too, for a comparison on the card). No host
+        sync. On a mesh the trials run once a shard (each shard's chunks
+        one launch, or one a level), and the [K] sums are reduced (JAX maps
+        single meshed evaluations over the trials,
+        libpll2_tpu/optimize.py:355-358; the numbers are the same)."""
         if self._shards is not None:
             return self._shards.trials(self.branches, eigen_k, freqs_k,
                                        traversal, level)
         w_k, evecs_k, ivecs_k = eigen_k
+        k = w_k.shape[0]
+        path = self.execution_path
+        if self.use_fused or path == "levels-kernel" or self.repeats_mode:
+            if self.use_fused:
+                run = functools.partial(self._fused_trial_chunk,
+                                        traversal=traversal)
+            elif path == "levels-kernel":
+                run = functools.partial(self._level_trials, level=level)
+            else:
+                run = functools.partial(
+                    self._pool_trials, level=ops_pool.pool_update_reference
+                    if path == "pool" else level)
+            chunk = self.trial_chunk()
+            return torch.cat([run(w_k[i:i + chunk], ivecs_k[i:i + chunk],
+                                  evecs_k[i:i + chunk], freqs_k[i:i + chunk])
+                              for i in range(0, k, chunk)])
         p = self.partition
         margs = self._model_args()
         prop_invar, rates, rate_weights, pidx = (margs[3], margs[4],
                                                  margs[5], margs[7])
         pw, inv = self._site_args()
-        modes = p._modes()
-        if self.use_fused:
-            tip_codes, tip_clvs = self._tip_codes(), self._tip_clvs()
-            return torch.cat([_fused_trials(
-                w_k[i:i + CANDIDATE_CHUNK], ivecs_k[i:i + CANDIDATE_CHUNK],
-                evecs_k[i:i + CANDIDATE_CHUNK], prop_invar, rates,
-                rate_weights, freqs_k[i:i + CANDIDATE_CHUNK], pidx,
-                self.branches, self.table, tip_codes, self.root_idx[4], pw,
-                inv, self.fused_slots, p.scale_threshold, p.scale_factor,
-                traversal=traversal or ops_fused.fused_traversal,
-                mxu=self.mxu, edge_params=self.edge_params,
-                tip_clvs=tip_clvs, **modes)
-                for i in range(0, w_k.shape[0], CANDIDATE_CHUNK)])
-        if self.repeats_mode:
-            bufs = self._repeats_args()[:2]     # repacks a stale schedule
-            run = _repeats_loglikelihood
-            tail = (self.execution_path, self._ops, self._root_cols,
-                    self.root_idx[4])
-        else:
-            bufs = (p.clv, p.scale_buffer)
-            run = _dense_loglikelihood
-            tail = (self.execution_path, self._ops, self.root_idx)
         kw = {} if level is None else {"level": level}
+        bufs = (p.clv, p.scale_buffer)
         scratch = tuple(torch.empty_like(b) for b in bufs)
         out = []
-        for i in range(w_k.shape[0]):
+        for i in range(k):
             for dst, src in zip(scratch, bufs):
                 dst.copy_(src)
-            out.append(run(*scratch, w_k[i], ivecs_k[i], evecs_k[i],
-                           prop_invar, rates, rate_weights, freqs_k[i], pidx,
-                           self.branches, *tail, pw, inv, p.scale_threshold,
-                           p.scale_factor, edge_params=self.edge_params,
-                           **kw, **modes)[0])
+            out.append(_dense_loglikelihood(
+                *scratch, w_k[i], ivecs_k[i], evecs_k[i], prop_invar, rates,
+                rate_weights, freqs_k[i], pidx, self.branches, path,
+                self._ops, self.root_idx, pw, inv, p.scale_threshold,
+                p.scale_factor, edge_params=self.edge_params, **kw,
+                **p._modes())[0])
         return torch.stack(out)
+
+    def _fused_trial_chunk(self, w_k, ivecs_k, evecs_k, freqs_k,
+                           traversal=None) -> torch.Tensor:
+        """One chunk of trials on the fused paths: one launch of the
+        candidate form (`_fused_trials`)."""
+        p = self.partition
+        margs = self._model_args()
+        pw, inv = self._site_args()
+        return _fused_trials(
+            w_k, ivecs_k, evecs_k, margs[3], margs[4], margs[5], freqs_k,
+            margs[7], self.branches, self.table, self._tip_codes(),
+            self.root_idx[4], pw, inv, self.fused_slots, p.scale_threshold,
+            p.scale_factor, traversal=traversal or ops_fused.fused_traversal,
+            mxu=self.mxu, edge_params=self.edge_params,
+            tip_clvs=self._tip_clvs(), **p._modes())
+
+    def _trial_pmatrices(self, w_k, ivecs_k, evecs_k):
+        """P [K, E, R, s, s] of K trial eigensystems on the engine's
+        branches (per edge with `edge_params`), and the root edge's rate
+        matrix index per category."""
+        margs = self._model_args()
+        pidx = margs[7] if self.edge_params is None else self.edge_params
+        pmat = ops_pmatrix.update_prob_matrices_trials(
+            w_k, ivecs_k, evecs_k, margs[3], margs[4], pidx, self.branches)
+        root_pidx = (margs[7] if self.edge_params is None
+                     else self.edge_params[self.root_idx[4]])
+        return pmat, root_pidx
+
+    def _trial_epilogue(self, rows, pmat, freqs_k, root_pidx):
+        """The K root edges' logL [K] from their rows (parent and child
+        CLVs [K, R, s, S], counts [K, (R,) S])."""
+        p = self.partition
+        margs = self._model_args()
+        pw, inv = self._site_args()
+        return ops_likelihood.edge_loglikelihood_candidates(
+            *rows, pmat[:, self.root_idx[4]], freqs_k, margs[3], margs[5],
+            root_pidx, pw, inv, p.scale_threshold, **p._modes())
+
+    def _level_trial_buffers(self, k: int):
+        """(CLV rows [k, N+1-base, R, s, S], scaler rows [k, K+2, (R,) S],
+        the shared rows [base, R, s, S] or None) of k trials on
+        'levels-kernel': the rows `_trial_rows` names copied from the
+        partition's buffers (one broadcast copy each), the others left to
+        the traversal."""
+        p = self.partition
+        base, rows, sc_rows = self._trial_rows
+        clv = torch.empty((k, p.clv.shape[0] - base) + p.clv.shape[1:],
+                          dtype=p.clv.dtype, device=self.device)
+        sc = torch.empty((k,) + p.scale_buffer.shape, dtype=torch.int32,
+                         device=self.device)
+        if rows.size:
+            idx = torch.as_tensor(rows, device=self.device)
+            clv[:, idx - base] = p.clv[idx]
+        if sc_rows.size:
+            idx = torch.as_tensor(sc_rows, device=self.device)
+            sc[:, idx] = p.scale_buffer[idx]
+        return clv, sc, (p.clv[:base] if base else None)
+
+    def _pool_trial_buffers(self, k: int):
+        """(pools [k, R, s, T], scaler pools [k, (R,) T2]) of k trials on
+        'pool-pallas': the partition's, one broadcast copy each (after
+        repacking a stale schedule)."""
+        clv_flat, sc_flat = self._repeats_args()[:2]
+        return (clv_flat.expand(k, *clv_flat.shape).contiguous(),
+                sc_flat.expand(k, *sc_flat.shape).contiguous())
+
+    def _level_trials(self, w_k, ivecs_k, evecs_k, freqs_k,
+                      level=None) -> torch.Tensor:
+        """One chunk of trials on 'levels-kernel': each trial's P, inner
+        rows and scaler rows (the rows `_trial_rows` names copied from the
+        partition's buffers, the tips read from them in place), every level
+        one call of `level` (the wrapper: one launch of the level kernel's
+        trial form) for the whole chunk, then the root edges' likelihoods
+        in one batch."""
+        p = self.partition
+        pmat, root_pidx = self._trial_pmatrices(w_k, ivecs_k, evecs_k)
+        k = pmat.shape[0]
+        base = self._trial_rows[0]
+        clv, sc, tips = self._level_trial_buffers(k)
+        with annotate("pll.partials.trials"):
+            ops_levels.update_partials_kernel(
+                clv, sc, pmat, self._ops, p.scale_threshold, p.scale_factor,
+                level=level or ops_levels.level_update, tips=tips)
+        p_clv, p_sc, c_clv, c_sc, _ = self.root_idx
+        zero = p.scale_buffer.shape[0] - 1   # a missing scaler reads it
+
+        def row(i):
+            return (clv[:, i - base] if i >= base
+                    else p.clv[i].expand(k, *p.clv.shape[1:]))
+
+        return self._trial_epilogue(
+            (row(p_clv), row(c_clv), sc[:, p_sc if p_sc >= 0 else zero],
+             sc[:, c_sc if c_sc >= 0 else zero]), pmat, freqs_k, root_pidx)
+
+    def _pool_trials(self, w_k, ivecs_k, evecs_k, freqs_k,
+                     level=None) -> torch.Tensor:
+        """One chunk of trials on the pooled paths: each trial's P and its
+        copy of the pools (one broadcast copy for the chunk), the plan run
+        once for the whole chunk (one launch of the pool kernel's trial form
+        a traversal at 4x4, a level otherwise; `level`, the plain version on
+        'pool', a level at a time), then the root edges' likelihoods in one
+        batch."""
+        p = self.partition
+        pmat, root_pidx = self._trial_pmatrices(w_k, ivecs_k, evecs_k)
+        pool, sc = self._pool_trial_buffers(pmat.shape[0])
+        with annotate("pll.partials.repeats.trials"):
+            ops_pool.update_partials_pool(pool, sc, pmat, self._ops,
+                                          p.scale_threshold, p.scale_factor,
+                                          level=level)
+        p_cols, p_sc_cols, c_cols, c_sc_cols = self._root_cols
+        return self._trial_epilogue(
+            (pool[..., p_cols], pool[..., c_cols], sc[..., p_sc_cols],
+             sc[..., c_sc_cols]), pmat, freqs_k, root_pidx)
 
     def site_rate_posteriors(self):
         """Empirical-Bayes per-site rate-category posteriors and

@@ -141,6 +141,8 @@ def library() -> ctypes.CDLL:
         _F, _F,            # threshold, factor
         _I,                # per-rate scalers
         _I, _I,            # level_fixed_plan: sites a lane, tiles a block
+        _P, _I, _I,        # trial form: shared rows, their count, trials
+        _I, _I, _I,        # a trial's CLV rows, scaler rows, P-matrices
         _P,                # stream
     ]
     lib.pll_level_update.restype = _I
@@ -153,6 +155,7 @@ def library() -> ctypes.CDLL:
         _L, _I,            # scaler pool columns, per-rate scalers
         _P, _I,            # tile map, its granules
         _I, _I,            # pool_plan: rate warps, tiles a block
+        _I, _L, _L, _L,    # trials; their strides: pool, scaler pool, P
         _P,                # stream
     ]
     lib.pll_pool_update.restype = _I
@@ -166,6 +169,8 @@ def library() -> ctypes.CDLL:
         _P,                # wait lists (or null)
         _P, _I,            # counters, their count
         _I,                # pool_fixed_plan: blocks
+        _I, _I,            # trials, the ops their counters cover
+        _L, _L, _L,        # the trials' strides: pool, scaler pool, P
         _P,                # stream
     ]
     lib.pll_pool_traversal.restype = _I
@@ -646,8 +651,9 @@ def launch_fused_traversal_rows(tip_codes: torch.Tensor,
 
 
 # a level's ops are the launch grid's y dimension (the runtime-size
-# variant's)
+# variant's), the trials of its trial form the z dimension
 LEVEL_MAX_OPS = 65535
+LEVEL_MAX_TRIALS = 65535
 # level_update.cu's 4x4 variant: lanes a block (one a rate, four a site
 # group); its blocks resident on an SM (the launch bounds of each
 # instantiation: 4 sites a lane per site, per rate, and 1 or 2 sites a
@@ -686,24 +692,29 @@ class LevelFixedPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=4096)
 def level_fixed_plan(ops: int, sites: int, sms: int, aligned: bool = True,
-                     rate_scalers: bool = False) -> LevelFixedPlan:
+                     rate_scalers: bool = False,
+                     trials: int = 1) -> LevelFixedPlan:
     """The 4x4 level kernel's layout for one level of `ops` ops over
     `sites` sites on a device with `sms` SMs; `aligned` when the CLV and
-    scaler buffers start on 16 bytes. A lane takes 4 sites where S % 4 ==
-    0, 2 where S % 2 == 0, else 1 (a row's start must be aligned to the
-    access), and fewer while the level would give an SM fewer than
-    LEVEL_FIXED_MIN_TILES_PER_SM tiles (narrow levels: more, shorter
-    threads). Blocks take runs of tiles, as many blocks as the
-    instantiation keeps resident (`level_fixed_blocks_per_sm`) fill the
-    card once. Per-rate counts take the same sites a lane; with 4 of them
-    a lane their runs are longer (4 blocks an SM, not 5). level_update.cu's
-    fixed_plan computes the same and refuses a launch whose layout
-    differs."""
-    if not 1 <= ops <= LEVEL_MAX_OPS or sites < 1 or sms < 1:
-        raise ValueError(f"level_fixed_plan: no plan for {ops} ops, {sites} "
-                         f"sites, {sms} SMs")
+    scaler buffers (and the trial form's shared rows) start on 16 bytes. A
+    lane takes 4 sites where S % 4 == 0, 2 where S % 2 == 0, else 1 (a
+    row's start must be aligned to the access), and fewer while the level
+    would give an SM fewer than LEVEL_FIXED_MIN_TILES_PER_SM tiles (narrow
+    levels: more, shorter threads). Blocks take runs of tiles, as many
+    blocks as the instantiation keeps resident
+    (`level_fixed_blocks_per_sm`) fill the card once. Per-rate counts take
+    the same sites a lane; with 4 of them a lane their runs are longer (4
+    blocks an SM, not 5). The trial form over `trials` trials lays out
+    ops x trials ops (its flat list is (trial, op, tile)), so a one-op level
+    of K trials is K ops wide. level_update.cu's fixed_plan computes the
+    same and refuses a launch whose layout differs."""
+    if (not 1 <= ops <= LEVEL_MAX_OPS or not 1 <= trials <= LEVEL_MAX_TRIALS
+            or sites < 1 or sms < 1):
+        raise ValueError(f"level_fixed_plan: no plan for {ops} ops, "
+                         f"{trials} trials, {sites} sites, {sms} SMs")
     v = 1 if not aligned else 4 if sites % 4 == 0 else \
         2 if sites % 2 == 0 else 1
+    ops *= trials
 
     def per_op(v):
         return -(-sites // (LEVEL_FIXED_THREADS // 4 * v))
@@ -719,12 +730,13 @@ def level_fixed_plan(ops: int, sites: int, sms: int, aligned: bool = True,
 def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
                         pmatrix: torch.Tensor, table: torch.Tensor,
                         rates: int, states: int, threshold: float,
-                        factor: float) -> None:
+                        factor: float, tips=None) -> None:
     """Launch csrc/level_update.cu on the current stream: one level, parent
     and scaler rows written into `clv2d` and `scaler` in place; see
-    ops/levels.py:level_update for the contract. `table` may be a column
-    slice of a larger [9, n] tensor: its row stride is passed as the
-    kernel's leading dimension."""
+    ops/levels.py:level_update for the contract (and its trial form: a
+    leading trial axis on `clv2d`, `scaler` and `pmatrix`, the shared rows
+    `tips`). `table` may be a column slice of a larger [9, n] tensor: its
+    row stride is passed as the kernel's leading dimension."""
     name = "level_update"
     dev = clv2d.device
     _check(dev.type == "cuda", f"expected CUDA tensors, got {dev}", name)
@@ -740,25 +752,44 @@ def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
     _check(1 <= states <= 32 and rates >= 1,
            f"rates={rates}, states={states}: needs rates >= 1 and "
            f"1 <= states <= 32", name)
-    _check(clv2d.dim() == 3 and clv2d.shape[1] == rates * states
-           and clv2d.shape[2] > 0,
+    trials = clv2d.shape[0] if clv2d.dim() == 4 else 0
+    lead = 1 if trials else 0
+    _check(clv2d.dim() in (3, 4) and clv2d.shape[-2] == rates * states
+           and clv2d.shape[-1] > 0 and 1 <= clv2d.shape[0]
+           and trials <= LEVEL_MAX_TRIALS,
            f"clv shape {tuple(clv2d.shape)} is not [nodes+1, "
-           f"{rates * states}, sites]", name)
-    sites = clv2d.shape[2]
-    per_rate = scaler.dim() == 3
+           f"{rates * states}, sites] or, for K <= {LEVEL_MAX_TRIALS} "
+           f"trials, [K, rows, {rates * states}, sites]", name)
+    sites = clv2d.shape[-1]
+    per_rate = scaler.dim() == 3 + lead
     _check(scaler.shape[-1] == sites and (
-        scaler.dim() == 2 or (per_rate and scaler.shape[1] == rates)),
-           f"scaler shape {tuple(scaler.shape)} is not [K+2, {sites}] or "
-           f"[K+2, {rates}, {sites}]", name)
-    _check(pmatrix.dim() == 4 and tuple(pmatrix.shape[1:])
-           == (rates, states, states),
-           f"pmatrix shape {tuple(pmatrix.shape)} is not [E, {rates}, "
-           f"{states}, {states}]", name)
+        scaler.dim() == 2 + lead
+        or (per_rate and scaler.shape[1 + lead] == rates))
+           and (not trials or scaler.shape[0] == trials),
+           f"scaler shape {tuple(scaler.shape)} is not "
+           f"{'[K, ' if trials else '['}K+2, {sites}] or "
+           f"{'[K, ' if trials else '['}K+2, {rates}, {sites}]", name)
+    _check(pmatrix.dim() == 4 + lead and tuple(pmatrix.shape[1 + lead:])
+           == (rates, states, states)
+           and (not trials or pmatrix.shape[0] == trials),
+           f"pmatrix shape {tuple(pmatrix.shape)} is not "
+           f"{'[K, ' if trials else '['}E, {rates}, {states}, {states}]",
+           name)
     _check(table.dim() == 2 and table.shape[0] == 9
            and 1 <= table.shape[1] <= LEVEL_MAX_OPS and table.stride(1) == 1,
            f"table shape {tuple(table.shape)} (strides {table.stride()}) is "
            f"not [9, W] with 1 <= W <= {LEVEL_MAX_OPS} and unit column "
            f"stride", name)
+    base = 0
+    if tips is not None:
+        _check(trials > 0, "shared rows belong to the trial form", name)
+        _check(isinstance(tips, torch.Tensor) and tips.device == dev
+               and tips.dtype == torch.float32 and tips.dim() == 3
+               and tuple(tips.shape[1:]) == (rates * states, sites)
+               and tips.is_contiguous(),
+               f"tips must be a contiguous float32 [rows, "
+               f"{rates * states}, {sites}] tensor on {dev}", name)
+        base = tips.shape[0]
     for what, t in (("clv", clv2d), ("scaler", scaler),
                     ("pmatrix", pmatrix)):
         _check(t.is_contiguous(), f"{what} must be contiguous", name)
@@ -767,16 +798,26 @@ def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
         # the 4x4 variant reads P 16 bytes at a time
         if pmatrix.data_ptr() % 16:
             pmatrix = pmatrix.clone()
+        ptrs = clv2d.data_ptr() | scaler.data_ptr()
+        if base:
+            ptrs |= tips.data_ptr()
         plan = level_fixed_plan(
-            table.shape[1], sites, device_sm_count(dev),
-            (clv2d.data_ptr() | scaler.data_ptr()) % 16 == 0, per_rate)
+            table.shape[1], sites, device_sm_count(dev), ptrs % 16 == 0,
+            per_rate, max(trials, 1))
         layout = (plan.sites_per_lane, plan.tiles_per_block)
+    # a trial's rows and matrices; the kernel indexes rows across the
+    # trials in an int
+    per_trial = ((clv2d.shape[1], scaler.shape[1], pmatrix.shape[1])
+                 if trials else (0, 0, 0))
+    _check(trials * max(per_trial) < 2 ** 31, f"{trials} trials of "
+           f"{max(per_trial)} rows pass 2^31", name)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_level_update(
             clv2d.data_ptr(), scaler.data_ptr(), pmatrix.data_ptr(),
             table.data_ptr(), table.stride(0), table.shape[1], sites, rates,
             states, float(threshold), float(factor), int(per_rate), *layout,
+            tips.data_ptr() if base else None, base, trials, *per_trial,
             stream)
     if err != 0:
         raise RuntimeError(f"level_update kernel launch failed: CUDA error "
@@ -842,17 +883,18 @@ class PoolFixedPlan(NamedTuple):
     blocks: int
 
 
-def pool_fixed_plan(widths, sms: int) -> PoolFixedPlan:
+def pool_fixed_plan(widths, sms: int, trials: int = 1) -> PoolFixedPlan:
     """The 4x4 traversal kernel's launch over ops `widths` class columns
     wide (every op of the plan) on a device with `sms` SMs: tickets of
-    POOL_FIXED_TILE columns, each op's last one partial; a grid that fills
-    the card once with the blocks the kernel's launch bounds keep resident
-    (POOL_FIXED_BLOCKS_PER_SM), and no more blocks than tickets."""
+    POOL_FIXED_TILE columns, each op's last one partial, `trials` times
+    over in the trial form; a grid that fills the card once with the blocks
+    the kernel's launch bounds keep resident (POOL_FIXED_BLOCKS_PER_SM),
+    and no more blocks than tickets."""
     widths = [int(w) for w in widths]
-    if sms < 1 or not widths or min(widths) < 1:
+    if sms < 1 or not widths or min(widths) < 1 or trials < 1:
         raise ValueError(f"pool_fixed_plan: no plan for {len(widths)} ops "
-                         f"on {sms} SMs")
-    tiles = sum(-(-w // POOL_FIXED_TILE) for w in widths)
+                         f"and {trials} trials on {sms} SMs")
+    tiles = trials * sum(-(-w // POOL_FIXED_TILE) for w in widths)
     return PoolFixedPlan(tiles, min(tiles, sms * POOL_FIXED_BLOCKS_PER_SM))
 
 
@@ -861,14 +903,32 @@ class PoolTraversal(NamedTuple):
     its launch (`pool_fixed_plan`), the plan's whole table [11, ops], the
     tickets [tiles, 4] int32 (op, first column, wait-list range), the wait
     lists [entries, 2] int32 (op, its tile count) and the counters
-    [(1 + ops) * POOL_COUNTER_STRIDE] int32 (the ticket, then each op's
-    finished tiles, each on a line of its own), which every launch zeroes
-    before its kernel."""
+    [(1 + trials * ops) * POOL_COUNTER_STRIDE] int32 (the ticket, then
+    each op's finished tiles, each on a line of its own, for each trial),
+    which every launch zeroes before its kernel. `trials` is 1 for the
+    plan's own traversal; `trial_traversal` makes the trial form's, whose
+    launch draws each ticket once a trial."""
     plan: PoolFixedPlan
     table: torch.Tensor
     tickets: torch.Tensor
     waits: torch.Tensor
     counters: torch.Tensor
+    trials: int = 1
+
+
+def trial_traversal(trav: PoolTraversal, trials: int) -> PoolTraversal:
+    """The trial form of a plan's traversal over `trials` trials: the same
+    table, tickets and wait lists, `pool_fixed_plan`'s launch over `trials`
+    times the tickets, and counters of its own for every trial's ops (new
+    ones: the launch's memset zeroes them)."""
+    tiles = trav.tickets.shape[0]
+    dev = trav.tickets.device
+    plan = PoolFixedPlan(tiles * trials, min(
+        tiles * trials, device_sm_count(dev) * POOL_FIXED_BLOCKS_PER_SM))
+    counters = torch.empty(
+        ((1 + trials * trav.table.shape[1]) * POOL_COUNTER_STRIDE,),
+        dtype=torch.int32, device=dev)
+    return trav._replace(plan=plan, counters=counters, trials=trials)
 
 
 class PoolFixedLevel(NamedTuple):
@@ -889,9 +949,10 @@ def device_sm_count(device) -> int:
 
 
 def _check_pool_args(name: str, pool2d, sc, pmatrix, gl, gr, rates: int,
-                     states: int) -> bool:
-    """The checks both pool kernels share; returns whether the counts are
-    per rate."""
+                     states: int):
+    """The checks both pool kernels share; returns (whether the counts are
+    per rate, the trials: 0 for the one-topology form, else K of the
+    leading trial axis on `pool2d`, `sc` and `pmatrix`)."""
     dev = pool2d.device
     _check(dev.type == "cuda", f"expected CUDA tensors, got {dev}", name)
     for what, t in (("sc", sc), ("pmatrix", pmatrix), ("gl", gl),
@@ -906,23 +967,39 @@ def _check_pool_args(name: str, pool2d, sc, pmatrix, gl, gr, rates: int,
     _check(1 <= states <= 32 and rates >= 1,
            f"rates={rates}, states={states}: needs rates >= 1 and "
            f"1 <= states <= 32", name)
-    _check(pool2d.dim() == 2 and pool2d.shape[0] == rates * states
-           and pool2d.shape[1] > 0,
+    trials = pool2d.shape[0] if pool2d.dim() == 3 else 0
+    lead = 1 if trials else 0
+    _check(pool2d.dim() in (2, 3) and pool2d.shape[-2] == rates * states
+           and pool2d.shape[-1] > 0 and 1 <= pool2d.shape[0]
+           and trials <= LEVEL_MAX_TRIALS,
            f"pool shape {tuple(pool2d.shape)} is not [{rates * states}, "
-           f"columns]", name)
-    per_rate = sc.dim() == 2
-    _check((sc.dim() == 1 or (per_rate and sc.shape[0] == rates))
+           f"columns] or, for K <= {LEVEL_MAX_TRIALS} trials, [K, "
+           f"{rates * states}, columns]", name)
+    per_rate = sc.dim() == 2 + lead
+    _check((sc.dim() == 1 + lead or (per_rate and sc.shape[lead] == rates))
+           and (not trials or sc.shape[0] == trials)
            and gl.dim() == 1 and gr.dim() == 1 and gl.shape == gr.shape,
-           f"sc must be [T2] or [{rates}, T2], gl and gr 1-D of one length",
+           f"sc must be {'[K, ' if trials else '['}T2] or "
+           f"{'[K, ' if trials else '['}{rates}, T2], gl and gr 1-D of one "
+           f"length", name)
+    _check(pmatrix.dim() == 4 + lead and tuple(pmatrix.shape[1 + lead:])
+           == (rates, states, states)
+           and (not trials or pmatrix.shape[0] == trials),
+           f"pmatrix shape {tuple(pmatrix.shape)} is not "
+           f"{'[K, ' if trials else '['}E, {rates}, {states}, {states}]",
            name)
-    _check(pmatrix.dim() == 4 and tuple(pmatrix.shape[1:])
-           == (rates, states, states),
-           f"pmatrix shape {tuple(pmatrix.shape)} is not [E, {rates}, "
-           f"{states}, {states}]", name)
     for what, t in (("pool", pool2d), ("sc", sc), ("pmatrix", pmatrix),
                     ("gl", gl), ("gr", gr)):
         _check(t.is_contiguous(), f"{what} must be contiguous", name)
-    return per_rate
+    return per_rate, trials
+
+
+def _trial_strides(pool2d, sc, pmatrix, trials: int) -> tuple:
+    """The elements between two trials' pools, scaler pools and P (zeros
+    for the one-topology form)."""
+    if not trials:
+        return 0, 0, 0
+    return pool2d.stride(0), sc.stride(0), pmatrix.stride(0)
 
 
 def _check_table(name: str, table, dev, max_ops: int) -> None:
@@ -956,11 +1033,14 @@ def check_traversal(trav, dev) -> None:
                and t.is_contiguous(), f"{what} must be a contiguous int32 "
                f"tensor on {dev}", name)
     n_ops = trav.table.shape[1]
-    _check(trav.tickets.shape == (trav.plan.tiles, 4)
+    _check(trav.trials >= 1
+           and trav.tickets.shape == (trav.plan.tiles // trav.trials, 4)
+           and trav.plan.tiles % trav.trials == 0
            and trav.waits.dim() == 2 and trav.waits.shape[1] == 2
-           and trav.counters.shape == ((1 + n_ops) * POOL_COUNTER_STRIDE,),
+           and trav.counters.shape == ((1 + trav.trials * n_ops)
+                                       * POOL_COUNTER_STRIDE,),
            "the traversal's tickets, wait lists or counters do not match "
-           "its plan and table", name)
+           "its plan, trials and table", name)
 
 
 def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
@@ -979,8 +1059,8 @@ def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
     traversal kernel over the level, `launch` its PoolFixedLevel."""
     name = "pool_update"
     dev = pool2d.device
-    per_rate = _check_pool_args(name, pool2d, sc, pmatrix, gl, gr, rates,
-                                states)
+    per_rate, trials = _check_pool_args(name, pool2d, sc, pmatrix, gl, gr,
+                                        rates, states)
     _check_table(name, table, dev, LEVEL_MAX_OPS)
     if (rates, states) == (4, 4):
         _check(isinstance(launch, PoolFixedLevel)
@@ -993,6 +1073,7 @@ def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
         launch_pool_traversal(pool2d, sc, pmatrix, gl, gr, threshold,
                               factor, launch.traversal, launch)
         return
+    strides = _trial_strides(pool2d, sc, pmatrix, trials)
     _check(isinstance(launch, PoolLaunch)
            and isinstance(tiles, torch.Tensor) and tiles.device == dev
            and tiles.dtype == torch.int32
@@ -1003,11 +1084,11 @@ def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
     with torch.cuda.device(dev):
         err = library().pll_pool_update(
             pool2d.data_ptr(), sc.data_ptr(), pmatrix.data_ptr(),
-            table.data_ptr(), table.stride(0), pool2d.shape[1],
+            table.data_ptr(), table.stride(0), pool2d.shape[-1],
             gl.data_ptr(), gr.data_ptr(), rates, states, float(threshold),
             float(factor), sc.shape[-1], int(per_rate),
             tiles.data_ptr(), tiles.shape[0], launch.rate_threads,
-            launch.tiles_per_block, stream)
+            launch.tiles_per_block, trials, *strides, stream)
     if err != 0:
         raise RuntimeError(f"pool_update kernel launch failed: CUDA error "
                            f"{err}")
@@ -1021,17 +1102,24 @@ def launch_pool_traversal(pool2d: torch.Tensor, sc: torch.Tensor,
     the whole traversal `trav`, or over one level of it (`level`, a
     PoolFixedLevel, whose ops wait on none): the counters zeroed, then
     parent columns and counts written into `pool2d` [16, T] and `sc` in
-    place."""
+    place. With a leading trial axis on `pool2d`, `sc` and `pmatrix` the
+    trial form: all K trials in the one launch, over `trial_traversal`'s
+    counters for K trials."""
     name = "pool_traversal"
     dev = pool2d.device
-    per_rate = _check_pool_args(name, pool2d, sc, pmatrix, gl, gr, 4, 4)
+    per_rate, trials = _check_pool_args(name, pool2d, sc, pmatrix, gl, gr,
+                                        4, 4)
     check_traversal(trav, dev)
+    _check(trav.trials == 1, "takes the plan's own traversal (the trial "
+           "form sizes its counters itself)", name)
+    if trials:
+        trav = trial_traversal(trav, trials)
     if level is None:
-        t0, t1, waits = 0, trav.plan.tiles, trav.waits
+        t0, t1, waits = 0, trav.tickets.shape[0], trav.waits
     else:
         t0, t1, waits = level.t0, level.t1, None
         _check(0 <= level.k0 < level.k1 <= trav.table.shape[1]
-               and 0 <= t0 < t1 <= trav.plan.tiles,
+               and 0 <= t0 < t1 <= trav.tickets.shape[0],
                f"level ops {level.k0}..{level.k1} or tickets {t0}..{t1} "
                f"out of range", name)
     # the kernel reads P 16 bytes at a time
@@ -1041,11 +1129,13 @@ def launch_pool_traversal(pool2d: torch.Tensor, sc: torch.Tensor,
     with torch.cuda.device(dev):
         err = library().pll_pool_traversal(
             pool2d.data_ptr(), sc.data_ptr(), pmatrix.data_ptr(),
-            trav.table.data_ptr(), trav.table.stride(0), pool2d.shape[1],
+            trav.table.data_ptr(), trav.table.stride(0), pool2d.shape[-1],
             gl.data_ptr(), gr.data_ptr(), float(threshold), float(factor),
             sc.shape[-1], int(per_rate), trav.tickets[t0].data_ptr(),
             t1 - t0, _ptr(waits), trav.counters.data_ptr(),
-            trav.counters.numel(), trav.plan.blocks, stream)
+            trav.counters.numel(), trav.plan.blocks, trials,
+            trav.table.shape[1], *_trial_strides(pool2d, sc, pmatrix, trials),
+            stream)
     if err != 0:
         raise RuntimeError(f"pool_traversal kernel launch failed: CUDA "
                            f"error {err}")

@@ -30,6 +30,14 @@ has one, because its step-by-step API always launches it.
 kernel (float32) or raise. `level_update.launches` counts the launches.
 `update_partials_kernel` runs all levels of a traversal.
 
+The trial form (libpll2_tpu/optimize.py:366 vmaps the TPU kernel over model
+trials) runs one level of K trials in one launch: a leading trial axis on
+the CLV rows [K, rows, R*s, S], the scaler rows [K, K+2, (R,) S] and P [K,
+E, R, s, s], and the shared rows `tips` [base, R*s, S]. Row index i reads
+`tips[i]` below base and the trial's own row `i - base` from base up; every
+parent is at or above base. `trial_rows` says which rows a trial buffer
+must start from.
+
 In place is safe because no op of a level reads or writes a row that
 another op of the same level writes: `schedule_levels` checks this for any
 op list and falls back to one op per level where it does not hold.
@@ -42,8 +50,8 @@ import numpy as np
 import torch
 
 __all__ = ["TABLE_ROWS", "schedule_levels", "pack_pallas_levels",
-           "tables_to_device", "level_update_reference", "level_update",
-           "update_partials_kernel"]
+           "tables_to_device", "trial_rows", "level_update_reference",
+           "level_update", "update_partials_kernel"]
 
 TABLE_ROWS = 9
 
@@ -133,17 +141,88 @@ def tables_to_device(tables: Sequence[np.ndarray], device) -> tuple:
     return tuple(out)
 
 
+def trial_rows(tables, n_tips: int, root_rows=(), root_scalers=()):
+    """What the trial form's buffers need from a partition's for the levels
+    `tables` (numpy [9, W] each, level order): (base, CLV rows, scaler
+    rows). Rows below `base` (the tips, or below the lowest parent) are
+    shared; of the rows from `base` up, and of the scaler rows, those that
+    an op or the epilogue (`root_rows`, `root_scalers`: the root edge's,
+    mapped rows as the tables hold them) reads before any op writes them
+    must be copied into every trial's buffer. A full postorder needs no CLV
+    row and only the zero scaler row."""
+    parents = [int(p) for t in tables for p in np.asarray(t)[0]]
+    base = min([n_tips] + parents)
+    clv_w, sc_w, clv_need, sc_need = set(), set(), set(), set()
+    for t in tables:
+        t = np.asarray(t)
+        clv_need.update(c for c in t[1:3].ravel().tolist()
+                        if c >= base and c not in clv_w)
+        sc_need.update(c for c in t[5:7].ravel().tolist() if c not in sc_w)
+        clv_w.update(t[0].tolist())
+        sc_w.update(t[7].tolist())
+    clv_need.update(c for c in root_rows if c >= base and c not in clv_w)
+    sc_need.update(c for c in root_scalers if c not in sc_w)
+    return (base, np.asarray(sorted(clv_need), dtype=np.int64),
+            np.asarray(sorted(sc_need), dtype=np.int64))
+
+
+def _trial_children(clv2d, tips, idx):
+    """Rows `idx` [W] of every trial, [K, W, R*s, S]: a shared row below
+    the base, the trial's own from it up."""
+    base = 0 if tips is None else tips.shape[0]
+    own = clv2d[:, (idx - base).clamp(min=0)]
+    if base == 0:
+        return own
+    shared = tips[idx.clamp(max=base - 1)].to(clv2d.dtype)
+    return torch.where((idx < base)[None, :, None, None], shared[None], own)
+
+
+def _trials_reference(clv2d, scaler, pmatrix, t, rates, states,
+                      threshold, factor, tips) -> None:
+    """`level_update_reference`'s trial form (see the module docstring),
+    batched over the trials."""
+    parent, c1, c2, m1, m2, s1, s2, psc, has = t
+    base = 0 if tips is None else tips.shape[0]
+    if len(parent) and int(parent.min()) < base:
+        raise ValueError("level_update: the trial form writes no shared row "
+                         f"(a parent below the {base} shared rows)")
+    k, w, sites = clv2d.shape[0], t.shape[1], clv2d.shape[-1]
+    shape = (k, w, rates, states, sites)
+    x = (torch.einsum('kwrij,kwrjs->kwris', pmatrix[:, m1].to(clv2d.dtype),
+                      _trial_children(clv2d, tips, c1).view(shape))
+         * torch.einsum('kwrij,kwrjs->kwris', pmatrix[:, m2].to(clv2d.dtype),
+                        _trial_children(clv2d, tips, c2).view(shape)))
+    if scaler.dim() == 4:
+        scale = ((torch.amax(x, dim=3) < threshold)
+                 & (has[None, :, None, None] > 0))
+        x = torch.where(scale[:, :, :, None, :], x * factor, x)
+    else:
+        scale = ((torch.amax(x, dim=(2, 3)) < threshold)
+                 & (has[None, :, None] > 0))
+        x = torch.where(scale[:, :, None, None, :], x * factor, x)
+    counts = scaler[:, s1] + scaler[:, s2] + scale.to(scaler.dtype)
+    clv2d[:, parent - base] = x.reshape(k, w, rates * states, sites)
+    scaler[:, psc] = counts
+
+
 def level_update_reference(clv2d: torch.Tensor,     # [N+1, R*s, S]
                            scaler: torch.Tensor,    # [K+2, (R,) S] int32
                            pmatrix: torch.Tensor,   # [E, R, s, s]
                            table,                   # [9, W] int
                            rates: int, states: int,
-                           threshold: float, factor: float) -> None:
+                           threshold: float, factor: float,
+                           tips=None) -> None:
     """Plain PyTorch version of one level, in the dtype of `clv2d`: gathers
     the W ops' children, computes the parents and writes them, and their
     scaler rows, into `clv2d` and `scaler` in place. A scaler buffer with a
-    rate axis selects the per-rate mode."""
+    rate axis selects the per-rate mode. With a leading trial axis on
+    `clv2d` ([K, rows, R*s, S]), `scaler` and `pmatrix`, the trial form
+    (module docstring), `tips` the shared rows."""
     t = torch.as_tensor(table, device=clv2d.device).long()
+    if clv2d.dim() == 4:
+        _trials_reference(clv2d, scaler, pmatrix, t, rates, states,
+                          threshold, factor, tips)
+        return
     parent, c1, c2, m1, m2, s1, s2, psc, has = t
     w, sites = t.shape[1], clv2d.shape[-1]
     shape = (w, rates, states, sites)
@@ -164,21 +243,22 @@ def level_update_reference(clv2d: torch.Tensor,     # [N+1, R*s, S]
 
 def level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
                  pmatrix: torch.Tensor, table, rates: int, states: int,
-                 threshold: float, factor: float) -> None:
+                 threshold: float, factor: float, tips=None) -> None:
     """One level of independent ops, parent rows and scaler rows written in
-    place; `scaler` [K+2, S], or [K+2, R, S] for the per-rate mode. CUDA
-    tensors launch csrc/level_update.cu (float32) on the current stream
-    without synchronising, or raise; CPU tensors run
+    place; `scaler` [K+2, S], or [K+2, R, S] for the per-rate mode; with a
+    leading trial axis the trial form, all K trials in one launch, `tips`
+    the shared rows. CUDA tensors launch csrc/level_update.cu (float32) on
+    the current stream without synchronising, or raise; CPU tensors run
     `level_update_reference`. The table's indices are trusted: callers
     build it with `pack_pallas_levels` from ops whose indices they have
     checked against the buffers (Partition and TreeEngine do)."""
     if clv2d.device.type == "cpu" and pmatrix.device.type == "cpu":
         level_update_reference(clv2d, scaler, pmatrix, table, rates, states,
-                               threshold, factor)
+                               threshold, factor, tips=tips)
         return
     from . import _kernels
     _kernels.launch_level_update(clv2d, scaler, pmatrix, table, rates,
-                                 states, threshold, factor)
+                                 states, threshold, factor, tips=tips)
     level_update.launches += 1
 
 
@@ -190,13 +270,22 @@ def update_partials_kernel(clv: torch.Tensor,      # [N+1, R, s, S]
                            pmatrix: torch.Tensor,  # [E, R, s, s]
                            tables: Sequence,       # [9, W_l] per level
                            threshold: float, factor: float,
-                           level=level_update):
+                           level=level_update, tips=None):
     """Run all levels in order through `level` (the dispatching wrapper,
     or its plain version for a comparison on the card); returns (clv,
-    scaler), updated in place."""
-    n, rates, states, sites = clv.shape
-    clv2d = clv.view(n, rates * states, sites)
+    scaler), updated in place. The trial form: `clv` [K, rows, R, s, S],
+    `scaler` and `pmatrix` with the same leading K, `tips` [base, R, s, S]
+    the shared rows (or None), each level one call of `level` for all K."""
+    if clv.dim() == 5:
+        k, n, rates, states, sites = clv.shape
+        kw = {"tips": None if tips is None
+              else tips.reshape(tips.shape[0], rates * states, sites)}
+        clv2d = clv.view(k, n, rates * states, sites)
+    else:
+        n, rates, states, sites = clv.shape
+        kw = {}
+        clv2d = clv.view(n, rates * states, sites)
     for table in tables:
         level(clv2d, scaler, pmatrix, table, rates, states, threshold,
-              factor)
+              factor, **kw)
     return clv, scaler

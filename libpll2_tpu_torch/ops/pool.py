@@ -60,6 +60,15 @@ kernels (the 4x4 kernel in one launch when the plan has a traversal and the
 pool lies on a CUDA device, else the wrapper a level at a time), or level by
 level through a given `level` (the wrapper itself, or the plain version for
 `TreeEngine(pallas=False)` ('pool') and float64 references).
+
+The trial form (libpll2_tpu/optimize.py:366 would vmap the TPU kernel over
+model trials) runs K trials of one plan at once: a leading trial axis on
+the pool [K, R*s, T], the scaler pool [K, (R,) T2] and P [K, E, R, s, s],
+each trial's pools a copy of the partition's made once a chunk (the engine
+makes it with one broadcast copy). At 4x4 that is one launch of the
+traversal kernel for all K (its counters sized for K trials:
+ops/_kernels.py:trial_traversal), else one launch a level; the plain
+version batches over the trials.
 """
 from __future__ import annotations
 
@@ -312,6 +321,10 @@ def pool_update_reference(pool2d: torch.Tensor,    # [R*s, T]
     own W. A scaler pool with a rate axis selects the per-rate mode."""
     rows = torch.as_tensor(table).cpu().tolist()
     dev = pool2d.device
+    if pool2d.dim() == 3:
+        _trials_reference(pool2d, sc, pmatrix, rows, gl, gr, rates, states,
+                          threshold, factor)
+        return
     for (p_off, psc_off, c1_off, m1, s1_off, c2_off, m2, s2_off, w, g_off,
          has) in zip(*rows):
         l_idx = gl[g_off:g_off + w].to(dev).long()
@@ -333,6 +346,34 @@ def pool_update_reference(pool2d: torch.Tensor,    # [R*s, T]
         sc[..., psc_off:psc_off + w] = counts
 
 
+def _trials_reference(pool2d, sc, pmatrix, rows, gl, gr, rates, states,
+                      threshold, factor) -> None:
+    """`pool_update_reference`'s trial form (module docstring), each op
+    batched over the trials: `pool2d` [K, R*s, T], `sc` [K, (R,) T2],
+    `pmatrix` [K, E, R, s, s]."""
+    k, dev = pool2d.shape[0], pool2d.device
+    for (p_off, psc_off, c1_off, m1, s1_off, c2_off, m2, s2_off, w, g_off,
+         has) in zip(*rows):
+        l_idx = gl[g_off:g_off + w].to(dev).long()
+        r_idx = gr[g_off:g_off + w].to(dev).long()
+        left = pool2d[:, :, c1_off + l_idx].view(k, rates, states, w)
+        right = pool2d[:, :, c2_off + r_idx].view(k, rates, states, w)
+        x = (torch.einsum('krij,krjc->kric', pmatrix[:, m1].to(pool2d.dtype),
+                          left)
+             * torch.einsum('krij,krjc->kric',
+                            pmatrix[:, m2].to(pool2d.dtype), right))
+        if sc.dim() == 3:
+            scale = (torch.amax(x, dim=2) < threshold) & bool(has)  # [K,R,w]
+            x = torch.where(scale[:, :, None, :], x * factor, x)
+        else:
+            scale = (torch.amax(x, dim=(1, 2)) < threshold) & bool(has)
+            x = torch.where(scale[:, None, None, :], x * factor, x)
+        counts = (sc[..., s1_off + l_idx] + sc[..., s2_off + r_idx]
+                  + scale.to(sc.dtype))
+        pool2d[:, :, p_off:p_off + w] = x.reshape(k, rates * states, w)
+        sc[..., psc_off:psc_off + w] = counts
+
+
 def pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
                 pmatrix: torch.Tensor, table, gl: torch.Tensor,
                 gr: torch.Tensor, rates: int, states: int,
@@ -340,12 +381,14 @@ def pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
                 launch=None) -> None:
     """One level of independent ops over the pooled class columns, parent
     columns and counts written in place; `sc` [T2], or [R, T2] for the
-    per-rate mode. CUDA tensors launch csrc/pool_update.cu (float32) on
-    the current stream without synchronising, or raise; CPU tensors run
-    `pool_update_reference`. `tiles` is the level's `tile_map` on the
-    device and `launch` its PoolPlan.launches entry: the runtime-size
-    variant's layout, or at 4x4 the level of the plan's traversal, which
-    the 4x4 kernel then runs alone. The table's offsets are trusted:
+    per-rate mode; with a leading trial axis on `pool2d`, `sc` and
+    `pmatrix` the trial form, all K trials in one launch. CUDA tensors
+    launch csrc/pool_update.cu (float32) on the current stream without
+    synchronising, or raise; CPU tensors run `pool_update_reference`.
+    `tiles` is the level's `tile_map` on the device and `launch` its
+    PoolPlan.launches entry: the runtime-size variant's layout, or at 4x4
+    the level of the plan's traversal, which the 4x4 kernel then runs
+    alone. The table's offsets are trusted:
     callers build it with `pack_pool_levels` from ops whose indices they
     have checked (Partition and TreeEngine do)."""
     if pool2d.device.type == "cpu" and pmatrix.device.type == "cpu":
@@ -371,9 +414,11 @@ def update_partials_pool(clv_flat: torch.Tensor,   # [R, s, T]
     on a CUDA device at 4x4) and the pool lies on that device, else each
     level through the wrapper `pool_update`. A given `level` (the wrapper,
     one launch a level, or its plain version for a comparison on the card)
-    runs each level. Returns (clv_flat, sc_flat), updated in place."""
-    rates, states, total = clv_flat.shape
-    pool2d = clv_flat.view(rates * states, total)
+    runs each level. The trial form: `clv_flat` [K, R, s, T], `sc_flat` and
+    `pmatrix` with the same leading K, all K trials in each launch (or
+    call of `level`). Returns (clv_flat, sc_flat), updated in place."""
+    *lead, rates, states, total = clv_flat.shape
+    pool2d = clv_flat.view(*lead, rates * states, total)
     if (level is None and plan.traversal is not None
             and pool2d.device.type == "cuda"):
         from . import _kernels

@@ -19,8 +19,11 @@ wrap around the engine. Two routes, as in JAX:
     step are scored on the engine's own path
     (`TreeEngine._trial_loglikelihoods`: one launch of the fused kernel's
     candidate form a chunk of 128 trials on 'fused' and
-    'repeats-dense-fused', one trial after another on the level or pool
-    kernel).
+    'repeats-dense-fused'; the trial form of the level kernel, one launch
+    a level a chunk, on 'levels-kernel', and of the pool kernel, one launch
+    a traversal a chunk at 4 states x 4 rates and one a level otherwise, on
+    'pool-pallas'; a chunk there is as many trials as
+    engine.py:TRIAL_LAUNCH_BYTES of trial buffers hold).
 
 Branch lengths on a kernel engine go to `newton_smooth_all`
 (ops/branch_sweep.py: each step's CLV op a one-op level of the level
@@ -392,9 +395,12 @@ def make_fused_loglikelihood_fn(engine: TreeEngine,
     all K at once) and runs the path `execution_path` names
     (`TreeEngine._trial_loglikelihoods`): on 'fused' and
     'repeats-dense-fused' one launch of the candidate form a chunk of 128
-    trials. `fd_chunk` is JAX's vmap width, a TPU memory bound; it is kept
-    in the signature and not used (neither is JAX's padding of K to a
-    chunk multiple): fn_batch returns exactly K values.
+    trials; on 'levels-kernel' one launch of the level kernel's trial form
+    a level a chunk, on 'pool-pallas' one of the pool kernel's a traversal
+    (4x4) or a level a chunk, on 'pool' its plain version a level a chunk.
+    `fd_chunk` is JAX's vmap width, a TPU memory bound; it is kept in the
+    signature and not used (neither is JAX's padding of K to a chunk
+    multiple): fn_batch returns exactly K values.
 
     The kernels are not differentiable; this is the evaluation half of
     `maximize_fused`'s central-difference loop. Branch lengths are out of

@@ -1837,3 +1837,164 @@ def test_sharded_repeats_engine_on_card(cuda, dense_fused):
     want = (ref.loglikelihood(),) + ref.newton_step()
     assert abs(got[0] - want[0]) / abs(want[0]) < 5e-5
     np.testing.assert_allclose(got[1:], want[1:], rtol=5e-3, atol=5e-2)
+
+
+# ------------------------------------------------- the trial forms (B-3b)
+# level-kernel cases of `_level_case` run as K trials of one launch a level
+# (each trial's P the case's with its branches scaled): the 4x4 variant's
+# flat list of (trial, op, tile) on the 16-taxon tree at 60000 sites (its
+# narrow levels K ops wide) and 20000, per rate, the caterpillar that
+# rescales, ops without a scaler and a partial traversal whose trial
+# buffers start from the partition's inner rows; the runtime-size variant
+# at 20 states (wide: two sites a thread) and 32 states x 16 rates
+TRIAL_LEVEL_CASES = ["dna_wide", "dna_narrow", "per_rate_dna_wide",
+                     "caterpillar", "no_scaler", "partial", "states20_wide",
+                     "rates3", "rates16_states32"]
+TRIAL_POOL_CASES = ["dna", "caterpillar80", "big_grid", "no_scaler",
+                    "partial", "war_serial", "dna_levels", "aa20", "rates3",
+                    "aa20_per_rate", "states5"]
+TRIALS = 5
+
+
+def _trial_pmatrices(part, k):
+    """P [k, E, R, s, s]: trial i's the partition's P-matrices to the power
+    i + 1 (its branch lengths times i + 1)."""
+    return torch.stack([torch.linalg.matrix_power(part.pmatrix, i + 1)
+                        for i in range(k)]).contiguous()
+
+
+@pytest.mark.parametrize("case", TRIAL_LEVEL_CASES)
+def test_level_trial_form_matches_plain_on_card(cuda, case):
+    """The level kernel's trial form (one launch a level for all K trials,
+    each its own P, rows and scaler rows, the tips read from the
+    partition's buffer) against its plain version on the same trial
+    buffers: one launch a level, scaler rows equal, parent rows to 1e-5 of
+    each site's largest entry. The buffers start as NaN and -7 but for the
+    rows `trial_rows` names, which no trial reads before it writes."""
+    part, ops, first = _level_case(case, cuda)
+    if first is not None:
+        _run_levels(part, first, levels.level_update)
+    host = levels.pack_pallas_levels(ops, part.tips, part.scale_buffers + 1,
+                                     part.scale_buffers)
+    tables = levels.tables_to_device(host, cuda)
+    base, rows, sc_rows = levels.trial_rows(host, part.tips)
+    pmat = _trial_pmatrices(part, TRIALS)
+    clv = torch.full((TRIALS, part.clv.shape[0] - base) + part.clv.shape[1:],
+                     float("nan"), device=cuda)
+    sc = torch.full((TRIALS,) + part.scale_buffer.shape, -7,
+                    dtype=torch.int32, device=cuda)
+    idx = torch.as_tensor(rows, device=cuda)
+    clv[:, idx - base] = part.clv[idx]
+    idx = torch.as_tensor(sc_rows, device=cuda)
+    sc[:, idx] = part.scale_buffer[idx]
+    want_clv, want_sc = clv.clone(), sc.clone()
+    args = (part.scale_threshold, part.scale_factor)
+    before = levels.level_update.launches
+    levels.update_partials_kernel(clv, sc, pmat, tables, *args,
+                                  tips=part.clv[:base])
+    assert levels.level_update.launches == before + len(tables)
+    levels.update_partials_kernel(want_clv, want_sc, pmat, tables, *args,
+                                  level=levels.level_update_reference,
+                                  tips=part.clv[:base])
+    torch.cuda.synchronize()
+    parents = torch.as_tensor(sorted({o.parent_clv_index - base
+                                      for o in ops}), device=cuda)
+    written = torch.as_tensor(sorted(
+        {int(t) for tb in host for t in tb[7]} - {part.scale_buffers}),
+        device=cuda)
+    assert torch.equal(sc[:, written], want_sc[:, written])
+    got, want = clv[:, parents], want_clv[:, parents]
+    assert bool(torch.isfinite(got).all())
+    site_max = want.abs().amax(dim=(2, 3), keepdim=True).clamp(min=1e-30)
+    assert float(((got - want).abs() / site_max).max()) <= 1e-5
+    if case == "caterpillar":
+        assert int(want_sc[:, written].max()) > 0
+
+
+@pytest.mark.parametrize("case", TRIAL_POOL_CASES)
+def test_pool_trial_form_matches_plain_on_card(cuda, case):
+    """The pool kernel's trial form (at 4x4 one launch of the traversal
+    kernel for all K trials, its tickets drawn K times, each trial's counts
+    its own; else one launch a level, the trial on the grid's y; 'dna_levels'
+    the 4x4 kernel a level a launch) against its plain version on the same
+    trial pools: scaler regions equal (the trash region aside), the zero
+    region zero, class columns to 1e-5 of each column's largest entry."""
+    part, ops, first = _pool_case(case, cuda)
+    if first is not None:
+        _run_pool(part, first)
+    plan = part._pool_plan(ops, True)
+    pmat = _trial_pmatrices(part, TRIALS)
+    pools = part.clv_flat.expand(TRIALS, *part.clv_flat.shape).contiguous()
+    sc = part.sc_flat.expand(TRIALS, *part.sc_flat.shape).contiguous()
+    want_pools, want_sc = pools.clone(), sc.clone()
+    args = (part.scale_threshold, part.scale_factor)
+    level = pool.pool_update if case == "dna_levels" else None
+    before = pool.pool_update.launches
+    pool.update_partials_pool(pools, sc, pmat, plan, *args, level=level)
+    n = 1 if level is None and plan.traversal is not None \
+        else len(plan.tables)
+    assert pool.pool_update.launches == before + n
+    pool.update_partials_pool(want_pools, want_sc, pmat, plan, *args,
+                              level=pool.pool_update_reference)
+    torch.cuda.synchronize()
+    lay = part._flat
+    assert torch.equal(sc[..., :lay.sc_trash], want_sc[..., :lay.sc_trash])
+    assert not bool(sc[..., lay.sc_zero:].any())
+    assert bool(torch.isfinite(pools).all())
+    col_max = want_pools.abs().amax(dim=(1, 2), keepdim=True).clamp(
+        min=1e-30)
+    assert float(((pools - want_pools).abs() / col_max).max()) <= 1e-5
+    if case == "caterpillar80":
+        assert int(want_sc[..., :lay.sc_trash].max()) > 0
+
+
+@pytest.mark.parametrize("path", ["levels-kernel", "pool-pallas"])
+def test_trials_on_card_one_launch_a_level_a_chunk(cuda, path, monkeypatch):
+    """make_fused_loglikelihood_fn's 2n+1 trials of one maximize_fused step
+    on 'levels-kernel' (16 taxa x 3000 DNA sites) and 'pool-pallas' (24 x
+    600 conserved): one level-kernel launch a level (one pool-kernel launch
+    a traversal at 4x4) for the chunk, the values within 5e-5 of the same
+    trials through the plain version; under a budget of two trials a chunk,
+    a launch a level (a traversal) a chunk, and the same values to 1e-6;
+    the partition's buffers unchanged."""
+    from libpll2_tpu_torch import engine as tengine
+    from libpll2_tpu_torch.optimize import make_fused_loglikelihood_fn
+
+    if path == "levels-kernel":
+        tree = random_utree([f"t{i}" for i in range(16)], seed=7)
+        part, _ = _engine(tree, 3000, cuda, alphabet="ACGT")
+        eng = TreeEngine(part, tree, pallas="levels-kernel")
+        counter, per_chunk = levels.level_update, len(eng._ops)
+        plain = levels.level_update_reference
+        bufs = (part.clv, part.scale_buffer)
+    else:
+        tree = random_utree([f"t{i}" for i in range(24)], seed=11)
+        part = _repeats_partition(tree, 600, cuda)
+        eng = TreeEngine(part, tree, pallas="pool")
+        counter, per_chunk = pool.pool_update, 1
+        plain = pool.pool_update_reference
+        bufs = (part.clv_flat, part.sc_flat)
+    assert eng.execution_path == path
+    fnb, x0, _ = make_fused_loglikelihood_fn(eng, ("subst", "freqs"))
+    eye = torch.eye(x0.numel(), device=cuda) * 0.02
+    X = torch.cat([x0[None], x0[None] + eye, x0[None] - eye])
+    before = [b.clone() for b in bufs]
+    n0 = counter.launches
+    got = fnb(X).double()
+    torch.cuda.synchronize()
+    assert counter.launches - n0 == per_chunk
+    for b, b0 in zip(bufs, before):
+        assert torch.equal(b, b0)
+    orig = eng._trial_loglikelihoods
+    eng._trial_loglikelihoods = lambda e, f: orig(e, f, level=plain)
+    want = fnb(X).double()
+    del eng._trial_loglikelihoods
+    assert float(((got - want).abs() / want.abs()).max()) < 5e-5
+    monkeypatch.setattr(tengine, "TRIAL_LAUNCH_BYTES",
+                        2 * eng.trial_bytes() + 1)
+    n0 = counter.launches
+    chunked = fnb(X).double()
+    torch.cuda.synchronize()
+    chunks = -(-X.shape[0] // 2)
+    assert counter.launches - n0 == chunks * per_chunk
+    assert float(((chunked - got).abs() / got.abs()).max()) < 1e-6

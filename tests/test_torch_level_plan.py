@@ -17,7 +17,7 @@ from libpll2_tpu_torch.ops import _kernels
 from libpll2_tpu_torch.ops._kernels import (
     LEVEL_FIXED_BLOCKS_PER_SM, LEVEL_FIXED_BLOCKS_PER_SM_NARROW,
     LEVEL_FIXED_BLOCKS_PER_SM_RATE, LEVEL_FIXED_MIN_TILES_PER_SM,
-    LEVEL_FIXED_THREADS, LEVEL_MAX_OPS, LevelFixedPlan,
+    LEVEL_FIXED_THREADS, LEVEL_MAX_OPS, LEVEL_MAX_TRIALS, LevelFixedPlan,
     level_fixed_blocks_per_sm, level_fixed_plan)
 from libpll2_tpu_torch.ops.levels import schedule_levels
 from libpll2_tpu_torch.trees import (create_operations, random_utree,
@@ -160,3 +160,46 @@ def test_tiles_cover_every_op_and_site_once(ops, sites, sms, aligned,
     got = _kernel_sites(plan, ops, sites)
     assert len(got) == ops * sites
     assert set(got) == {(o, s) for o in range(ops) for s in range(sites)}
+
+
+def test_trial_form_widens_the_dna_levels():
+    """The trial form lays a level of w ops over K trials out as w x K ops
+    ((trial, op, tile), the trial outermost). A DNA step's 19 trials at
+    128 x 16384 give every one of the 13 levels 4 sites a lane (a one-op
+    level is 19 ops wide: 2432 tiles), per site and per rate; the final
+    pair's 2 trials leave the two one-op levels at 2 sites a lane."""
+    widths = _dna_level_widths()
+    for rate_scalers in (False, True):
+        k19 = [level_fixed_plan(w, 16384, SMS, rate_scalers=rate_scalers,
+                                trials=19) for w in widths]
+        assert [p.sites_per_lane for p in k19] == [4] * 13
+        assert k19[-1] == level_fixed_plan(19, 16384, SMS,
+                                           rate_scalers=rate_scalers)
+        k2 = [level_fixed_plan(w, 16384, SMS, rate_scalers=rate_scalers,
+                               trials=2).sites_per_lane for w in widths]
+        assert k2 == [4] * 11 + [2, 2]
+    assert level_fixed_plan(42, 16384, SMS, trials=19).tiles == 19 * 5376
+
+
+@pytest.mark.parametrize("trials", [0, LEVEL_MAX_TRIALS + 1])
+def test_trials_outside_the_grid_raise(trials):
+    with pytest.raises(ValueError):
+        level_fixed_plan(1, 100, SMS, trials=trials)
+
+
+@settings(max_examples=40, deadline=None)
+@given(ops=st.integers(1, 12), trials=st.integers(1, 8),
+       sites=st.integers(1, 1500), sms=st.integers(1, 160),
+       aligned=st.booleans())
+def test_trial_tiles_cover_every_trial_op_and_site_once(ops, trials, sites,
+                                                        sms, aligned):
+    """The trial form's tiles, op j of the flat list being trial j // ops
+    and op j % ops (csrc/level_update.cu: load_op_of), cover every (trial,
+    op, site) once."""
+    plan = level_fixed_plan(ops, sites, sms, aligned, trials=trials)
+    assert plan == level_fixed_plan(ops * trials, sites, sms, aligned)
+    got = [(j // ops, j % ops, s)
+           for j, s in _kernel_sites(plan, ops * trials, sites)]
+    assert len(got) == trials * ops * sites
+    assert set(got) == {(k, o, s) for k in range(trials)
+                        for o in range(ops) for s in range(sites)}

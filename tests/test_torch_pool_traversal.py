@@ -443,3 +443,26 @@ def test_emulated_launch_matches_jax_pool_kernel(kind):
                                rtol=2e-6, atol=1e-30)
     if kind == "caterpillar":
         assert int(np.asarray(jsc).max()) > 0, "scaling never triggered"
+
+
+def test_trial_traversal_check_sizes_counters_for_every_trial():
+    """The trial form of a traversal (ops/_kernels.py:trial_traversal) draws
+    every ticket once a trial, so its plan counts K times the tickets, and
+    each trial has its own finished-tile count for every op: a traversal
+    whose counters cover one trial only (a count shared by the trials would
+    release a tile early) or whose plan counts the tickets once is
+    refused."""
+    trav = _cpu_traversal(10)
+    dev = torch.device("cpu")
+    t3 = trav._replace(
+        plan=pool_fixed_plan([64] * 10, SMS, trials=3),
+        counters=torch.zeros((1 + 3 * 10) * POOL_COUNTER_STRIDE,
+                             dtype=torch.int32), trials=3)
+    assert t3.plan.tiles == 3 * trav.plan.tiles
+    check_traversal(t3, dev)
+    for bad in (t3._replace(counters=trav.counters),
+                t3._replace(plan=trav.plan), t3._replace(trials=0)):
+        with pytest.raises(ValueError):
+            check_traversal(bad, dev)
+    with pytest.raises(ValueError):
+        pool_fixed_plan([64] * 10, SMS, trials=0)
