@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--profile DIR]
     python3 chip_smoke.py --rows-only CHECKOUT
     python3 chip_smoke.py --fused-only CHECKOUT
+    python3 chip_smoke.py --generic-only CHECKOUT
     python3 chip_smoke.py --pool-only CHECKOUT
     python3 chip_smoke.py --levels-only CHECKOUT
     python3 chip_smoke.py --mesh-only
@@ -19,10 +20,14 @@ each fatal on failure:
      fused_traversal_reference (plain PyTorch) on the card, float32: 16 taxa
      x 1000 ragged sites with gaps and ambiguity codes, an 80-taxon
      caterpillar where scaling must trigger, the 128 x 16384 main-path
-     shape, a 3-category case for the kernel's runtime-size variant, and
-     every plan and thread layout of ops/_kernels.py:fused_plan (40003 and
-     4465 sites: two sites a thread, ragged tails; 4159: one; 250 slots:
-     the spill plan); each case prints the plan it ran and must run the one
+     shape, and every plan and thread layout of ops/_kernels.py:fused_plan
+     (40003 and 4465 sites: two sites a thread, ragged tails; 4159: one;
+     250 slots: the spill plan); then the runtime-size body (fused_generic,
+     every shape but 4 x 4: `generic_cases`) at 1, 3, 8 and 33 rates and at
+     2, 5 and 15 states, each as the walk is, per rate, with raw tip rows,
+     as 3 candidates, as 3 queries of 2 candidates and spilled (1000 slots,
+     2000 at 2 states), and the rescaling caterpillar at 3 rates per site
+     and per rate; each case prints the plan it ran and must run the one
      expected;
   4. main path: bench.py's problem (128 taxa x 16384 sites, GTR+G4 DNA,
      seed 7) through Partition(device="cuda") and TreeEngine:
@@ -31,7 +36,12 @@ each fatal on failure:
   5. times: medians over CUDA events of the kernel, the plain traversal,
      one loglikelihood() and one newton_step() at 128 x 16384; then the
      kernel's device time over one traversal from torch.profiler (and per
-     op);
+     op); 5b. the runtime-size body at full width (GENERIC_FULL: bench.py's
+     DNA problem at 1 and 8 categories, a 5-state alphabet at 4): each
+     against its plain version on the card, through TreeEngine 'fused'
+     (loglikelihood() and one newton_step(), 2 launches counted, logL
+     against the float64 plain path), its call, device time, bound, plain
+     time and plan;
   6. rows kernel vs plain: ops/fused.py:fused_traversal_rows (the CUDA
      kernel for 16 or more states) against the plain version on the card,
      float32: 16 taxa x 1000 ragged AA sites with B/Z/X/gaps, an 80-taxon
@@ -315,7 +325,11 @@ main path, importing the port from CHECKOUT (a checkout of another commit),
 and prints them as one JSON line: two commits compared on one card.
 `--fused-only CHECKOUT` does the same for the DNA fused kernel: its call
 and device times on the DNA main path, per rate, with all tips raw and on
-the 246 x 4465 'repeats-dense-fused' inputs. `--pool-only CHECKOUT` does
+the 246 x 4465 'repeats-dense-fused' inputs. `--generic-only CHECKOUT`
+does the same for the runtime-size body: phase 5b's three float32 shapes
+and the float64 walk on phase 24a's problems (the flagship's native
+stepwise tree over its 3581 patterns standing in for the final tree, which
+only the pipeline makes). `--pool-only CHECKOUT` does
 the same for the pool kernel: its call, host enqueue and device times (a
 level's launch at a time for the runtime-size variant) on the conserved
 128 x 8192 protein (per site and per rate), the 246 x 4465 DNA problem
@@ -522,22 +536,32 @@ def compare_case(name, tree, by_label, sites, device, rate_cats=4,
     return compare_traversal(name, part, eng, must_scale, plan, n_slots)
 
 
-def fused_plan_of(part, eng, n_slots=None):
+def fused_plan_of(part, eng, n_slots=None, walks=1):
     """fused_traversal.cu's plan (ops/_kernels.py:fused_plan) for an
     engine's traversal on the current device, with `n_slots` slots (the
-    engine's by default)."""
+    engine's by default) and `walks` walks a launch, raw tip rows staged
+    where the engine has them (a package without the runtime-size body's
+    plan takes no such argument)."""
     from libpll2_tpu_torch.ops import _kernels
 
+    raw = ({"raw_tips": eng._tip_clvs() is not None}
+           if hasattr(_kernels, "generic_plan") else {})
     return _kernels.device_fused_plan(
         part.device, part.rate_cats, part.states,
-        n_slots or eng.fused_slots, part.rate_scalers, part.sites_padded)
+        n_slots or eng.fused_slots, part.rate_scalers, part.sites_padded,
+        walks, **raw)
 
 
 def plan_text(plan) -> str:
-    return (f"plan {plan.plan}, {plan.threads_per_site} thread"
+    text = (f"plan {plan.plan}, {plan.threads_per_site} thread"
             f"{'s' if plan.threads_per_site > 1 else ''} a site, "
             f"{plan.sites_per_block} sites a block, {plan.smem_bytes} bytes "
             f"of shared memory")
+    if hasattr(plan, "padded_states"):   # the runtime-size body's
+        text += (f", width {plan.padded_states}, {plan.warps} compute "
+                 f"warp{'s' if plan.warps > 1 else ''}, a ring of "
+                 f"{plan.depth}")
+    return text
 
 
 def root_block(part):
@@ -2873,6 +2897,358 @@ def fused_only(device, gpu) -> dict:
               f"candidates (torch.profiler, median of 5; {gpu}): "
               f"{dev * 1e3:.1f} us ({dev * 1e3 / len(packed):.2f} us a "
               f"candidate)", flush=True)
+    return out
+
+
+# the runtime-size body of fused_traversal.cu (fused_generic): every float32
+# shape but 4 states x 4 rates, and the float64 walk. Phase 3's cases: a
+# site's rates on 1, 4, 8 or 32 lanes (1, 3, 8 and 33 rates at 4 states)
+# and 2, 5 and 15 states (4, 8 and 16 wide), each as the walk is, with
+# per-rate counts, raw tip rows, 3 candidates, 3 queries of 2 candidates
+# and GENERIC_SPILL_SLOTS slots (the spill plan; 2 states need 2000); phase
+# 5b's full-width shapes, bench.py's DNA problem at 1 and 8 categories and
+# a 5-state alphabet at 4 (the fifth state 'X', '-' every state)
+GENERIC_RATES = (1, 3, 8, 33)
+GENERIC_STATES = (2, 5, 15)
+GENERIC_MODES = ("walk", "per_rate", "raw", "k3", "q3", "spill")
+GENERIC_SPILL_SLOTS = 1000
+GENERIC_FULL = (("DNA GTR, 1 category", 1, 4), ("DNA GTR+G8", 8, 4),
+                ("5 states, 4 categories", 4, 5))
+ALPHABET5 = "ACGTX"
+
+
+def generic_alphabet(states):
+    """The tips' characters of a `states`-state problem: DNA with
+    ambiguity codes at 4, else the first `states` of LETTERS32 with '-'."""
+    return "ACGT-NRY" if states == 4 else (
+        ALPHABET5 + "-" if states == 5 else LETTERS32[:states] + "-")
+
+
+def generic_partition(tree, by_label, sites, device, rate_cats=4, states=4,
+                      **options):
+    """`dna_partition` at 4 states; otherwise GTR on `states` states (the
+    first `states` of LETTERS32, or ALPHABET5 at 5; '-' every state) with
+    Dirichlet(10) frequencies and U(0.5, 2) rates from seed 7, Gamma(0.8)
+    x `rate_cats`."""
+    import numpy as np
+    import torch
+    from libpll2_tpu_torch import Partition, compute_gamma_cats
+
+    if states == 4:
+        return dna_partition(tree, by_label, sites, device, rate_cats,
+                             **options)
+    options.setdefault("dtype", torch.float32)
+    part = Partition(tree.tip_count, tree.inner_count, states, sites, 1,
+                     tree.edge_count, rate_cats, tree.inner_count,
+                     device=device, **options)
+    cm = np.zeros(256, np.uint64)
+    for i, ch in enumerate(ALPHABET5 if states == 5 else LETTERS32[:states]):
+        cm[ord(ch)] = 1 << i
+    cm[ord("-")] = (1 << states) - 1
+    tips = list(tree.tips())
+    part.set_tip_states_batch(cm, [by_label[t.label] for t in tips],
+                              [t.clv_index for t in tips])
+    rng = np.random.default_rng(SEED)
+    part.set_frequencies(0, rng.dirichlet(np.ones(states) * 10))
+    part.set_subst_params(0, rng.uniform(0.5, 2.0,
+                                         states * (states - 1) // 2))
+    part.set_category_rates(compute_gamma_cats(0.8, rate_cats))
+    return part
+
+
+def walks_as_sites(out):
+    """Root rows with leading candidate (and query) axes as one walk of
+    their sites side by side: CLVs [R, s, W * S], counts [W * S] ([R, W *
+    S] per rate), so that `match_counts` and the per-site error read them
+    as one walk's."""
+    clv_p, clv_c, sc_p, sc_c = out
+    lead = clv_p.dim() - 3
+    if lead == 0:
+        return out
+
+    def clv(x):
+        x = x.reshape(-1, *x.shape[lead:])
+        return x.permute(1, 2, 0, 3).reshape(x.shape[1], x.shape[2], -1)
+
+    def sc(x):
+        x = x.reshape(-1, *x.shape[lead:])
+        return (x.reshape(-1) if x.dim() == 2
+                else x.permute(1, 0, 2).reshape(x.shape[1], -1))
+    return clv(clv_p), clv(clv_c), sc(sc_p), sc(sc_c)
+
+
+def generic_case(name, part, eng, tree, mode):
+    """One of phase 3's runtime-size cases: the kernel (one launch, the
+    candidate and query forms too) against its plain version on the card,
+    counts equal (or a rescale tie, `match_counts`), root CLVs TOL_CLV of
+    each site's max, on the plan expected (spill at GENERIC_SPILL_SLOTS,
+    a site's rates on generic_lanes(R) lanes). Returns the max abs err."""
+    import torch
+    from libpll2_tpu_torch.ops import _kernels
+    from libpll2_tpu_torch.ops.fused import (fused_traversal,
+                                             fused_traversal_reference)
+
+    if mode in ("k3", "q3"):
+        packed = at_neighbours(tree, lambda: eng.pack_candidate(tree.vroot),
+                               3 if mode == "k3" else 2)
+        args, kw = candidate_inputs(part, eng, packed)
+    else:
+        args = traversal_inputs(eng)
+        kw = traversal_kw(part, eng)
+    walks = 1
+    if mode == "k3":
+        walks = 3
+    if mode == "q3":
+        kw.update(query_codes=args[0][[3, 5, 7]].contiguous(), query_row=0)
+        walks = 6
+    if mode == "spill":
+        kw["n_slots"] = 2000 if part.states == 2 else GENERIC_SPILL_SLOTS
+    plan = fused_plan_of(part, eng, kw["n_slots"], walks)
+    want = ("spill" if mode == "spill" else "on-chip",
+            _kernels.generic_lanes(part.rate_cats))
+    check(isinstance(plan, _kernels.GenericPlan)
+          and (plan.plan, plan.threads_per_site) == want,
+          f"{name}: plan {plan}, expected {want}")
+    before = fused_traversal.launches
+    got = walks_as_sites(fused_traversal(*args, **kw))
+    check(fused_traversal.launches == before + 1,
+          f"{name}: {fused_traversal.launches - before} launches")
+    ref = walks_as_sites(fused_traversal_reference(*args, **kw))
+    torch.cuda.synchronize()
+    ties = sum(match_counts(f"{name}, {which}", g_sc, w_sc, g_clv, w_clv,
+                            root_block(part), part.scale_factor,
+                            part.scale_threshold)
+               for g_sc, w_sc, g_clv, w_clv, which in (
+                   (got[2], ref[2], got[0], ref[0], "parent"),
+                   (got[3], ref[3], got[1], ref[1], "child")))
+    rel = abs_err = 0.0
+    for g, w in zip(got[:2], ref[:2]):
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite CLVs")
+        site_max = w.abs().amax(dim=(0, 1)).clamp(min=1e-30)
+        rel = max(rel, float(((g - w).abs() / site_max).max()))
+        abs_err = max(abs_err, float((g - w).abs().max()))
+    print(f"  generic [{name}]: {walks} walk{'s' if walks > 1 else ''}, "
+          f"{kw['n_slots']} slots, counts equal (max "
+          f"{int(max(ref[2].max(), ref[3].max()))}"
+          f"{f'; {ties} ties' if ties else ''}), max_rel_err {rel:.3e}; "
+          f"{plan_text(plan)}", flush=True)
+    check(rel <= TOL_CLV, f"{name}: max_rel_err {rel:.3e} > {TOL_CLV}")
+    return abs_err
+
+
+def generic_cases(device, small, cat):
+    """Phase 3's runtime-size cases on the 16-taxon tree at 1000 sites
+    (33 rates at 300) and, per site and per rate, the 80-taxon caterpillar
+    at 3 rates (which must rescale). Returns the max abs err."""
+    import numpy as np
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.trees import random_alignment
+
+    err = 0.0
+    shapes = [(r, 4) for r in GENERIC_RATES] + [(4, s)
+                                                 for s in GENERIC_STATES]
+    for rates, states in shapes:
+        sites = 300 if rates > 32 else 1000
+        headers, seqs = random_alignment(16, sites, seed=3,
+                                         alphabet=generic_alphabet(states))
+        by = dict(zip(headers, seqs))
+        for mode in GENERIC_MODES:
+            part = generic_partition(small, by, sites, device, rates, states,
+                                     rate_scalers=mode == "per_rate")
+            if mode == "raw":
+                rng = np.random.default_rng(CATG_SEED)
+                for tip in sorted(small.tips(),
+                                  key=lambda t: t.clv_index)[::2]:
+                    part.set_tip_clv(tip.clv_index, rng.dirichlet(
+                        np.ones(states), size=sites))
+            err = max(err, generic_case(
+                f"{rates} rates x {states} states, {mode}", part,
+                TreeEngine(part, small), small, mode))
+    headers, seqs = random_alignment(80, 1000, seed=3)
+    by = dict(zip(headers, seqs))
+    for per_rate in (False, True):
+        part = generic_partition(cat, by, 1000, device, 3,
+                                 rate_scalers=per_rate)
+        eng = TreeEngine(part, cat)
+        err = max(err, compare_traversal(
+            f"runtime-size body, caterpillar, 3 rates"
+            f"{', per rate' if per_rate else ''}", part, eng,
+            must_scale="rates" if per_rate else True, plan=("on-chip", 4))[1])
+    return err
+
+
+def generic_full_width(device):
+    """Phase 5b's problems: {label: (partition, engine)} of GENERIC_FULL on
+    bench.py's tree (128 x 16384, seed 7)."""
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.trees import random_alignment, random_utree
+
+    out = {}
+    for label, rates, states in GENERIC_FULL:
+        headers, seqs = random_alignment(
+            N_TAXA, N_SITES, seed=SEED,
+            alphabet="ACGT" if states == 4 else generic_alphabet(states))
+        tree = random_utree(headers, seed=SEED)
+        part = generic_partition(tree, dict(zip(headers, seqs)), N_SITES,
+                                 device, rates, states)
+        out[label] = (part, TreeEngine(part, tree))
+    return out
+
+
+def generic_phase(device, gpu):
+    """Phase 5b: the runtime-size body at full width (GENERIC_FULL):
+    each problem's kernel against its plain version on the card, then
+    through TreeEngine 'fused' (loglikelihood() and one newton_step(),
+    two launches counted, logL against the plain float64 path on the
+    card), then its call (CUDA events), device time (torch.profiler),
+    bound and plain time, and the plan it ran. Returns {label: numbers}."""
+    import torch
+    from libpll2_tpu_torch.ops import _kernels
+    from libpll2_tpu_torch.ops.fused import (fused_traversal,
+                                             fused_traversal_reference)
+
+    out = {}
+    for label, (part, eng) in generic_full_width(device).items():
+        plan = fused_plan_of(part, eng)
+        rel, abs_err = compare_traversal(
+            f"runtime-size body, {label}, main-path shape", part, eng,
+            plan=("on-chip", _kernels.generic_lanes(part.rate_cats)))
+        check(eng.execution_path == "fused",
+              f"{label}: execution_path is {eng.execution_path!r}")
+        b0 = eng.branches.clone()
+        reset_counts()
+        lnl = eng.loglikelihood()
+        lk, d1, d2 = eng.newton_step()
+        got_counts = counts()
+        check_counts(f"{label}: loglikelihood() + newton_step()", got_counts,
+                     {"fused": 2})
+        check(all(map(math.isfinite, (lnl, lk, d1, d2))),
+              f"{label}: non-finite result")
+        ref = plain_float64(part, eng, b0)[0]
+        rel_logl = abs(lnl - ref) / abs(ref)
+        check(rel_logl < TOL_LOGL, f"{label}: logL {lnl!r} is {rel_logl:.2e} "
+              f"from the plain float64 path {ref!r}")
+        codes, pm, table = traversal_inputs(eng)
+        kw = traversal_kw(part, eng)
+        call = median_ms(lambda: fused_traversal(codes, pm, table, **kw))
+        plain = median_ms(lambda: fused_traversal_reference(
+            codes, pm, table, **kw), reps=5)
+        dev = kernel_device_us(lambda: fused_traversal(codes, pm, table,
+                                                       **kw),
+                               "fused_generic") / 1e3
+        bound = fused_bound(eng, part)
+        torch.cuda.synchronize()
+        print(f"runtime-size body, {label}, {part.tips} x {part.sites} "
+              f"({len(table) - 1} ops; {gpu}): logL {lnl!r} (float64 plain "
+              f"{ref!r}, rel {rel_logl:.2e}); device {dev * 1e3:.1f} us, "
+              f"call {call:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}, "
+              f"plain {plain:.4f} ms; {plan_text(plan)}", flush=True)
+        out[label] = {"launches": got_counts["fused"], "max_abs_err": abs_err,
+                      "logl_rel_err": rel_logl, "ms": call, "plain_ms": plain,
+                      "device_ms": dev, "bound": bound, "plan": plan.plan,
+                      "threads_per_site": plan.threads_per_site,
+                      "sites_per_block": plan.sites_per_block,
+                      "padded_states": plan.padded_states,
+                      "depth": plan.depth, "smem_bytes": plan.smem_bytes}
+    return out
+
+
+def flagship_stepwise(device):
+    """The flagship's data (phase 22's alignment, compressed to 3581
+    patterns) on its native stepwise tree, as a float32 GTR+G4 partition
+    (`analysis_partition`): (partition, tree)."""
+    from libpll2_tpu_torch import native
+    from libpll2_tpu_torch.io import compress_site_patterns, maps
+    from libpll2_tpu_torch.parsimony import FastParsimony
+    from libpll2_tpu_torch.parsimony.stepwise import fastparsimony_stepwise
+    from libpll2_tpu_torch.partition import Partition
+
+    headers, seqs = analysis_data()
+    comp, weights, _ = compress_site_patterns(seqs, maps.map_nt)
+    n, patterns = len(headers), len(comp[0])
+    check(native.load() is not None, "the native library did not load")
+    pars = Partition(n, n - 2, 4, patterns, 1, 2 * n - 3, 1, n - 2,
+                     device=device)
+    pars.set_tip_states_batch(maps.map_nt, comp)
+    pars.set_pattern_weights(weights)
+    tree, _ = fastparsimony_stepwise([FastParsimony(pars)], headers,
+                                     ANA_SEED)
+    return analysis_partition(tree, comp, weights, headers, device), tree
+
+
+def f64_walk_problems(device, big, big_by, aa_tree, aa_by, flagship=None,
+                      dtype=None):
+    """The float64 walk's problems of phase 24a: [(label, partition,
+    tree)]: the DNA and protein main paths, the F64_CATERPILLAR_TAXA x
+    16384 caterpillar at alpha 0.5 (which must rescale in float64's 2^-256
+    window), and `flagship` (partition, tree) where given; partitions in
+    `dtype` (float32 by default) on `device`."""
+    import torch
+    from libpll2_tpu_torch import compute_gamma_cats
+    from libpll2_tpu_torch.trees import parse_newick, random_alignment
+
+    dtype = dtype or torch.float32
+    cat = parse_newick(caterpillar_newick(F64_CATERPILLAR_TAXA))
+    headers, seqs = random_alignment(F64_CATERPILLAR_TAXA, N_SITES, seed=3)
+    cat_part = dna_partition(cat, dict(zip(headers, seqs)), N_SITES, device,
+                             dtype=dtype)
+    cat_part.set_category_rates(compute_gamma_cats(0.5, 4))
+    out = [("DNA 128 x 16384", dna_partition(big, big_by, N_SITES, device,
+                                             dtype=dtype), big),
+           ("protein 128 x 8192 LG+G4",
+            protein_partition(aa_tree, aa_by, AA_SITES, device, dtype=dtype),
+            aa_tree),
+           (f"caterpillar {F64_CATERPILLAR_TAXA} x 16384, alpha 0.5",
+            cat_part, cat)]
+    if flagship is not None:
+        out.append(("flagship 1000 x 3581, stepwise tree", *flagship))
+    return out
+
+
+def generic_only(device, gpu) -> dict:
+    """`--generic-only`: the runtime-size body's call (CUDA events) and
+    device time (torch.profiler) on phase 5b's float32 shapes and on the
+    float64 walks of phase 24a's problems (the flagship's stepwise tree
+    standing in for its final one: 998 ops over the same 3581 patterns),
+    of the package that was imported, which may be another checkout's; the
+    plan where the package has generic_plan."""
+    from libpll2_tpu_torch.ops import _kernels, df64, fused
+    from libpll2_tpu_torch.trees import (create_operations,
+                                         random_alignment, random_utree,
+                                         traverse)
+
+    out = {}
+    for label, (part, eng) in generic_full_width(device).items():
+        codes, pm, table = traversal_inputs(eng)
+        kw = traversal_kw(part, eng)
+        call = median_ms(lambda: fused.fused_traversal(codes, pm, table,
+                                                       **kw))
+        dev = kernel_device_us(lambda: fused.fused_traversal(
+            codes, pm, table, **kw), "fused_generic") / 1e3
+        ran = (plan_text(fused_plan_of(part, eng))
+               if hasattr(_kernels, "generic_plan") else "one thread a site")
+        print(f"  float32 {label}: device {dev * 1e3:.1f} us, call "
+              f"{call:.4f} ms; {ran}", flush=True)
+        out[label] = {"ms": call, "device_ms": dev}
+    headers, seqs = random_alignment(N_TAXA, N_SITES, seed=SEED)
+    big = random_utree(headers, seed=SEED)
+    aa_tree, aa_by = protein_alignment()
+    for label, part, tree in f64_walk_problems(
+            device, big, dict(zip(headers, seqs)), aa_tree, aa_by,
+            flagship_stepwise(device)):
+        ops, branches, pidx = create_operations(traverse(tree.vroot))
+        walk = df64.walk_inputs(part, tree, ops, branches, pidx)
+        call = median_ms(lambda: fused.fused_traversal_f64(**walk), reps=9)
+        dev = kernel_device_us(lambda: fused.fused_traversal_f64(**walk),
+                               "fused_generic<double") / 1e3
+        ran = (plan_text(_kernels.device_generic_plan(
+            part.device, walk["rates"], walk["states"], walk["n_slots"],
+            False, walk["tip_codes"].shape[1], itemsize=8))
+            if hasattr(_kernels, "generic_plan") else "one thread a site")
+        print(f"  float64 walk, {label} ({len(ops)} ops, {walk['n_slots']} "
+              f"slots): device {dev * 1e3:.1f} us, call {call:.4f} ms; "
+              f"{ran}", flush=True)
+        out[f"f64 {label}"] = {"ms": call, "device_ms": dev}
     return out
 
 
@@ -6151,7 +6527,7 @@ def certified_case(label, part, tree, cpu_part, gpu, must_scale=False):
     plain version's time. Returns a dict of them."""
     import torch
     from libpll2_tpu_torch import TreeEngine, loglikelihood_df64
-    from libpll2_tpu_torch.ops import df64, fused
+    from libpll2_tpu_torch.ops import _kernels, df64, fused
     from libpll2_tpu_torch.trees import create_operations, traverse
 
     ops, branches, pidx = create_operations(traverse(tree.vroot))
@@ -6185,13 +6561,17 @@ def certified_case(label, part, tree, cpu_part, gpu, must_scale=False):
     plain = median_ms(lambda: fused.fused_traversal_reference(**walk),
                       reps=5)
     dev = kernel_device_us(lambda: fused.fused_traversal_f64(**walk),
-                           "fused_generic<double>") / 1e3
+                           "fused_generic<double") / 1e3
     bound = f64_bound(walk)
     S = walk["tip_codes"].shape[1]
-    blocks = -(-S // 64)
+    plan = _kernels.device_generic_plan(
+        part.device, walk["rates"], walk["states"], walk["n_slots"], False, S,
+        itemsize=8, raw_tips=walk["tip_clvs"] is not None)
+    blocks = -(-S // plan.sites_per_block)
     print(f"certified {label} ({len(ops)} ops, {S} sites, "
           f"{walk['states']} states x {walk['rates']} rates, "
-          f"{walk['n_slots']} slots, {blocks} blocks of 64; {gpu}): logL "
+          f"{walk['n_slots']} slots, {blocks} blocks; {plan_text(plan)}; "
+          f"{gpu}): logL "
           f"{lk:.10f}, float64 CPU {ref:.10f} (rel {rel:.3e}), "
           f"loglikelihood_df64 {lk_ms:.2f} ms; walk vs plain {err:.3e}, "
           f"max count {max_count}; device "
@@ -6201,6 +6581,8 @@ def certified_case(label, part, tree, cpu_part, gpu, must_scale=False):
             "rel_err": rel, "logl": lk, "ms": call, "plain_ms": plain,
             "device_ms": dev, "bound": bound, "sites": S,
             "ops": len(ops), "slots": walk["n_slots"], "blocks": blocks,
+            "plan": plan.plan, "sites_per_block": plan.sites_per_block,
+            "depth": plan.depth, "smem_bytes": plan.smem_bytes,
             "df64_ms": lk_ms, "max_count": max_count}
 
 
@@ -6254,9 +6636,8 @@ def certified_phase(device, gpu, eng, big, big_by, aa_tree, aa_by):
     import tempfile
 
     import torch
-    from libpll2_tpu_torch import TreeEngine, checkpoint, compute_gamma_cats
+    from libpll2_tpu_torch import TreeEngine, checkpoint
     from libpll2_tpu_torch.examples import flagship_1000
-    from libpll2_tpu_torch.trees import parse_newick, random_alignment
 
     out_dir = tempfile.mkdtemp(prefix="flagship_smoke_")
     try:
@@ -6302,28 +6683,12 @@ def certified_phase(device, gpu, eng, big, big_by, aa_tree, aa_by):
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
-    def cat_part(dev, dtype):
-        tree = parse_newick(caterpillar_newick(F64_CATERPILLAR_TAXA))
-        headers, seqs = random_alignment(F64_CATERPILLAR_TAXA, N_SITES,
-                                         seed=3)
-        part = dna_partition(tree, dict(zip(headers, seqs)), N_SITES, dev,
-                             dtype=dtype)
-        part.set_category_rates(compute_gamma_cats(0.5, 4))
-        return part, tree
-
-    cat, cat_tree = cat_part(device, torch.float32)
-    problems = [
-        ("DNA 128 x 16384", dna_partition(big, big_by, N_SITES, device),
-         big, dna_partition(big, big_by, N_SITES, "cpu",
-                            dtype=torch.float64)),
-        ("protein 128 x 8192 LG+G4",
-         protein_partition(aa_tree, aa_by, AA_SITES, device), aa_tree,
-         protein_partition(aa_tree, aa_by, AA_SITES, "cpu",
-                           dtype=torch.float64)),
-        (f"caterpillar {F64_CATERPILLAR_TAXA} x 16384, alpha 0.5", cat,
-         cat_tree, cat_part("cpu", torch.float64)[0]),
-        ("flagship 1000 x 3581, final tree", flag_part, flag_tree,
-         flag_cpu)]
+    problems = [(*gpu_problem, cpu_problem[1]) for gpu_problem, cpu_problem
+                in zip(f64_walk_problems(device, big, big_by, aa_tree, aa_by),
+                       f64_walk_problems("cpu", big, big_by, aa_tree, aa_by,
+                                         dtype=torch.float64))]
+    problems.append(("flagship 1000 x 3581, final tree", flag_part,
+                     flag_tree, flag_cpu))
     cases = {}
     for label, part, tree, cpu_part in problems:
         cases[label] = certified_case(label, part, tree, cpu_part, gpu,
@@ -7008,6 +7373,13 @@ def main() -> int:
                     "128 candidates where the port has them), importing the "
                     "port from the checkout REPO, and print the times as "
                     "one JSON line")
+    ap.add_argument("--generic-only", metavar="REPO", default=None,
+                    help="only time the fused kernel's runtime-size body "
+                    "(DNA 128 x 16384 at 1 and 8 categories, 5 states, "
+                    "and the float64 walks of phase 24a, the flagship's "
+                    "stepwise tree for its final one), importing the port "
+                    "from the checkout REPO, and print the times as one "
+                    "JSON line")
     ap.add_argument("--pool-only", metavar="REPO", default=None,
                     help="only time the pool kernel (the conserved protein "
                     "per site and per rate, 3-rate DNA, 5, 17 and 32 "
@@ -7026,7 +7398,7 @@ def main() -> int:
                     "JSON line")
     args = ap.parse_args()
     other = (args.rows_only or args.fused_only or args.pool_only
-             or args.levels_only)
+             or args.levels_only or args.generic_only)
 
     import torch
     if not torch.cuda.is_available():
@@ -7058,6 +7430,12 @@ def main() -> int:
         print(f"fused kernel of {os.path.abspath(args.fused_only)}",
               flush=True)
         print(json.dumps({"fused_only": fused_only(device, gpu),
+                          "gpu": gpu}), flush=True)
+        return 0
+    if args.generic_only:
+        print(f"runtime-size body of {os.path.abspath(args.generic_only)}",
+              flush=True)
+        print(json.dumps({"generic_only": generic_only(device, gpu),
                           "gpu": gpu}), flush=True)
         return 0
     if args.pool_only:
@@ -7103,8 +7481,6 @@ def main() -> int:
     small_by = dict(zip(headers, seqs))
     compare_case("ragged", small, small_by, 1000, device,
                  plan=("on-chip", 4))
-    compare_case("runtime-size variant, 3 rates", small, small_by, 1000,
-                 device, rate_cats=3, plan=("spill", 1))
     for sites, tps in FUSED_LAYOUT_SITES:
         headers, seqs = random_alignment(16, sites, alphabet="ACGT-NRY",
                                          seed=3)
@@ -7117,6 +7493,7 @@ def main() -> int:
     cat_by = dict(zip(headers, seqs))
     compare_case("caterpillar", cat, cat_by, 1000, device, must_scale=True,
                  plan=("on-chip", 4))
+    generic_err = generic_cases(device, small, cat)
     headers_big, seqs = random_alignment(N_TAXA, N_SITES, seed=SEED)
     big_by = dict(zip(headers_big, seqs))
     _, max_abs = compare_case("main-path shape", random_utree(headers_big,
@@ -7129,6 +7506,9 @@ def main() -> int:
     # 5. times
     ms_kernel, ms_plain = times(eng, part, gpu, N_TAXA, N_SITES)["split"]
     fused_dev = fused_device("DNA main path", part, eng, gpu)
+
+    # 5b. the runtime-size body at full width
+    generic = generic_phase(device, gpu)
 
     # 6. rows kernel vs plain on the card
     headers, seqs = random_alignment(16, 1000, alphabet=AA_NOISY, seed=3)
@@ -7427,6 +7807,19 @@ def main() -> int:
         "raw_tips_device_ms": var_dev["fused_raw"],
         "asc_launches": asc_fused,
         "repeats_slice_launches": rep_fused,
+        "generic_source": "libpll2_tpu_torch/csrc/fused_traversal.cu "
+                          "fused_generic<float, SP, on chip>",
+        "generic_launches": sum(g["launches"] for g in generic.values()),
+        "generic_max_abs_err": max([generic_err] + [
+            g["max_abs_err"] for g in generic.values()]),
+        "generic_ms": generic[GENERIC_FULL[1][0]]["ms"],
+        "generic_plain_ms": generic[GENERIC_FULL[1][0]]["plain_ms"],
+        "generic_device_ms": generic[GENERIC_FULL[1][0]]["device_ms"],
+        "generic_bound_ms": generic[GENERIC_FULL[1][0]]["bound"][0],
+        "generic_bound_by": generic[GENERIC_FULL[1][0]]["bound"][1],
+        "generic": {k: {n: v for n, v in g.items() if n != "bound"}
+                    | {"bound_ms": g["bound"][0], "bound_by": g["bound"][1]}
+                    for k, g in generic.items()},
         **trial(opt["trial"], opt["dna"]["launches"]["fused"]),
         "trial_repeats_launches":
             opt["others"]["repeats-dense-fused"]["step_launches"]["fused"],

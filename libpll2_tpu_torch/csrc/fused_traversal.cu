@@ -46,10 +46,11 @@
 // the grid's z is 1.
 //
 // Slot reuse. pack_fused_schedule frees a dying child's slot before it
-// allocates the parent, so a parent may overwrite a child it reads. Every
-// output of an op is computed (in registers, or in the spare slot for the
-// generic instantiation) before any of it is stored, and a child's count of
-// a rate is read before the parent's count of that rate is stored.
+// allocates the parent, so a parent may overwrite a child it reads. A thread
+// reads every child entry its outputs need into registers before it stores
+// any of them (a lane of the generic body writes only its own column, which
+// needs only its own child columns), and a child's count of a rate is read
+// before the parent's count of that rate is stored.
 //
 // What bounds it on an H100. Operations: 2 * R * s * s FMAs per op and site
 // (128 for DNA GTR+G4) and the elementwise product; at 128 taxa x 16384
@@ -88,18 +89,18 @@
 //     barrier after the barriers' initialisation. A rate's 4 x 4 block of P
 //     is padded to 20 floats, so the 4 rates' rows fall in distinct banks.
 //     DNA (7 slots) takes 48,832 bytes a block at two sites a thread.
-//   spill (fused_fixed, 4 x 4; and fused_generic for other sizes): where the
-//     slots do not fit in a block's shared memory (or the sizes are not 4 x
-//     4), one thread owns one site and the slots stay in device memory
-//     [K][n_slots + 1][R * s][S], as the launcher allocates them (7.3 MB a
-//     DNA candidate at 128 x 16384 and 7 slots).
+//   spill (fused_fixed, 4 x 4): where the slots do not fit in a block's
+//     shared memory, one thread owns one site and the slots stay in device
+//     memory [K][n_slots][R * s][S], as the launcher allocates them.
+//   other sizes: the runtime-size body, fused_generic, on its own plans
+//     (ops/_kernels.py:generic_plan; below).
 //
-// float64 (pll_fused_traversal_f64): the runtime-size body, fused_generic, is
-// a template on its floating type. Its float64 instantiation is the
-// certified final evaluation's walk (libpll2_tpu_torch/ops/df64.py), which
-// on the TPU is XLA's double-single scan (libpll2_tpu/ops/df64.py), not a
-// Pallas kernel: one topology, per-site counts, state codes or raw tip rows,
-// the slots spilled as in the spill plan, float64's own scaling window.
+// float64 (pll_fused_traversal_f64): the runtime-size body is a template on
+// its floating type. Its float64 instantiation is the certified final
+// evaluation's walk (libpll2_tpu_torch/ops/df64.py), which on the TPU is
+// XLA's double-single scan (libpll2_tpu/ops/df64.py), not a Pallas kernel:
+// one topology, per-site counts, state codes or raw tip rows, float64's own
+// scaling window.
 //
 // The on-chip walk is bound by instruction issue and latency, not by
 // operations: its per-op bookkeeping (the row, the barriers, the vote and
@@ -113,10 +114,14 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+// in fused_traversal_rows.cu: the opt-in limit of a block's dynamic shared
+// memory on the current device, or a negative CUDA error code
+extern "C" int pll_rows_smem_optin();
+
 namespace {
 
 constexpr int kRow = 8;      // op table row width
-constexpr int kBlock = 64;   // spill plan: threads (sites) per block
+constexpr int kBlock = 64;   // 4 x 4 spill plan: threads (sites) per block
 // on-chip plan: compute warps a block (4 threads hold the 4 rates of a site)
 // and one producer warp; ops whose inputs are in flight (a ring of kDepth
 // entries a block); a rate's 4 x 4 block of P padded to 20 floats (the 4
@@ -668,100 +673,538 @@ __global__ void __launch_bounds__(kBlock) fused_fixed(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// Sizes known at run time (any rates, states <= 32): each op is built in the
-// spare slot a.n_slots, then scaled into its own slot, one count group (all
-// rows, or one rate's rows in per-rate mode) after another. T is float, or
-// double for the certified evaluation (pll_fused_traversal_f64), whose
-// scaling window is float64's own.
-template <typename T>
-__device__ __forceinline__ T child_entry(const ArgsT<T>& a, int is_tip,
-                                         unsigned code, const T* src,
-                                         int r, int j) {
-  if (is_tip == 1) return tip_bit<T>(code, j);
-  if (is_tip == 2) return src[(size_t)j * a.sites];
-  return src[(size_t)(r * a.states + j) * a.sites];
+// Sizes known at run time: the runtime-size body, fused_generic, for every
+// float32 shape but 4 states x 4 rates (1 to 16 states, any rates) and, in
+// float64, for the certified evaluation's walk (pll_fused_traversal_f64: 2
+// to 32 states, any rates, float64's own scaling window).
+//
+// A rate a lane: the R rates of a site sit on G neighbouring lanes of one
+// warp (G the power of two from min(R, 32); lanes past R idle, and above 32
+// rates a lane takes rates r, r + 32, ... one after another), so a warp
+// holds 32 / G sites and a block of W compute warps 32 W / G. The state
+// count is the template's SP, the width it is built for (4, 8, 16 and, in
+// float64, 20 and 32); a smaller count runs on the next width with P's
+// padding rows and columns zero (the launcher pads P) and the child's
+// padding entries zero. A lane keeps its rate's two child columns in
+// registers, forms the parent's entries as products of the two sides' dot
+// products, all of them (4 at a time at width 32) before it stores any, and
+// stores them to its own column: both child columns are in registers before
+// the first store, so a parent that overwrites its child's slot is safe.
+// The per-site rescale test is a vote (__ballot_sync) over the site's G
+// lanes on "every value below the threshold", which is exact against the
+// plain version's max; the rare rescale multiplies the stored column again.
+// Per-rate counts need no vote.
+//
+// Plans (ops/_kernels.py:generic_plan, whose bytes the entry recomputes):
+//   on-chip: the block's slots [n_slots][rates a lane][s][lanes] and counts
+//     [n_slots][1 or rates a lane][lanes] stay in shared memory for the
+//     whole walk, one copy a lane (so no lane reads what another wrote), a
+//     column load conflict-free (consecutive lanes, consecutive words). A
+//     producer warp stages each op's inputs up to `depth` ops ahead, as the
+//     4 x 4 on-chip walk does: its table row, P of both sides and all rates
+//     (a rate's SP x SP block padded by 4 words, so that the rates of a
+//     warp fall on distinct 16-byte bank groups) and the block's tip codes
+//     or raw tip rows, by bulk copies (cp.async.bulk, element copies where
+//     a run is not aligned) on a ring of `depth` entries with full and
+//     empty mbarriers.
+//   spill: the same mapping with the slots [n_slots][R * s][S] and counts
+//     [n_slots][SR][S] in device memory, where the on-chip slots do not fit
+//     a block's shared memory (or P's two sides do not fit beside them): P
+//     is then read through L1 (__ldg), the ring holds the table rows and
+//     tips only.
+// Sites a block: W from 4 down to 1 until the launch's blocks reach every
+// SM (the flagship's 3581 sites at 4 rates: 2 warps, 224 blocks).
+//
+// What bounds it (PERF.md has the measurements, from clock64 stamps of one
+// block in an instrumented copy): an op's chain of dependent shared-memory
+// loads, FMAs and stores, 800-1000 cycles at 4 states, with few warps a
+// block to hide it at one rate (DNA without +G: 4 compute warps an SM) and
+// instruction issue at 8 rates; at float64's width 20 the loads of P (200
+// 16-byte loads a side and lane an op). A bulk copy takes ~200 cycles to
+// issue, so the producer keeps up only with ops of ~4 of them or more.
+
+// compute warps a block, at most
+constexpr int kGenericWarps = 4;
+constexpr int kGenericThreads = 32 * (kGenericWarps + 1);
+
+// The generic body's shared-memory layout, in 4-byte words (every part a
+// multiple of 16 bytes); ops/_kernels.py:generic_bytes computes the same.
+struct GenLayout {
+  int g;          // lanes a site
+  int rpl;        // rates a lane
+  int warps;      // compute warps a block
+  int depth;      // ring entries
+  int lanes;      // compute lanes a block, 32 * warps
+  int spb;        // sites a block, lanes / g
+  int prw;        // words of a rate's padded SP x SP block of P
+  int code_off;   // an entry's tip codes [2][spb, rounded to 4]
+  int raw_off;    // an entry's raw tip rows [2][s][spb] (or none)
+  int entry;      // words an entry
+  long long slot_off, cnt_off, words;
+};
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+__host__ __device__ inline GenLayout generic_layout(bool onchip, int rates, int states,
+                                                    int sp, int itemsize, int n_slots,
+                                                    bool rate_scalers, int warps,
+                                                    int depth, bool raw) {
+  GenLayout L;
+  int g = 1;
+  while (g < rates && g < 32) g <<= 1;
+  L.g = g;
+  L.rpl = (rates + g - 1) / g;
+  L.warps = warps;
+  L.depth = depth;
+  L.lanes = 32 * warps;
+  L.spb = L.lanes / g;
+  L.prw = sp * sp * itemsize / 4 + 4;
+  L.code_off = kRow + (onchip ? 2 * rates * L.prw : 0);
+  L.raw_off = L.code_off + 2 * round4(L.spb);
+  L.entry = L.raw_off + (raw ? round4(2 * states * L.spb * itemsize / 4) : 0);
+  L.slot_off = 4LL * depth + (long long)depth * L.entry;
+  const long long nsl = rate_scalers ? L.rpl : 1;
+  L.cnt_off = L.slot_off +
+              (onchip ? (long long)n_slots * L.rpl * states * L.lanes * itemsize / 4 : 0);
+  L.words = L.cnt_off + (onchip ? (long long)n_slots * nsl * L.lanes : 0);
+  return L;
 }
 
-// (bitmask code, row pointer) of one child or root end at `site`
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+
 template <typename T>
-__device__ __forceinline__ const T* child_source(const ArgsT<T>& a, const CandT<T>& cand,
-                                                 int is_tip,
-                                                 int idx, size_t site,
-                                                 unsigned* code) {
-  const size_t S = a.sites;
-  *code = 0;
-  if (is_tip == 1) {
-    *code = static_cast<unsigned>(__ldg(tip_row(a, idx) + site));
-    return nullptr;
+__device__ __forceinline__ void cp_async_item(T* dst, const T* src) {
+  if (sizeof(T) == 8) {
+    cp_async8(dst, src);
+  } else {
+    cp_async4(dst, src);
   }
-  if (is_tip == 2) return a.ctips + (size_t)idx * a.states * S + site;
-  return cand.slots + (size_t)idx * a.rates * a.states * S + site;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBlock) fused_generic(ArgsT<T> a) {
-  const CandT<T> cand = candidate(a);
-  const size_t site = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (site >= (size_t)a.sites) return;
+// `bytes` more to land on `bar` (by bulk copies) before its phase completes
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// A bulk copy (the tensor memory accelerator): `bytes` (a multiple of 16,
+// both ends 16-byte aligned) from device memory, its arrival counted on
+// `bar`'s transaction count. One instruction a run, however long: a lane's
+// element copies (cp.async) stall its issue once a few are in flight (the
+// float64 protein's P, 50 copies a lane, took ~7,300 cycles an op to issue;
+// as two bulk copies, ~800 with the rest).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the barriers' initialisation, visible to the bulk copies' arrivals
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// 16 bytes of P: from shared memory, or through L1
+__device__ __forceinline__ void load16(const float* p, bool ldg, float (&v)[4]) {
+  const float4 w = ldg ? __ldg(reinterpret_cast<const float4*>(p))
+                       : *reinterpret_cast<const float4*>(p);
+  v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+}
+
+__device__ __forceinline__ void load16(const double* p, bool ldg, double (&v)[2]) {
+  const double2 w = ldg ? __ldg(reinterpret_cast<const double2*>(p))
+                        : *reinterpret_cast<const double2*>(p);
+  v[0] = w.x; v[1] = w.y;
+}
+
+__device__ __forceinline__ float fma_t(float x, float y, float z) { return fmaf(x, y, z); }
+__device__ __forceinline__ double fma_t(double x, double y, double z) { return fma(x, y, z); }
+
+// row i of a rate's P (SP values, 16-byte aligned) times the child column
+template <typename T, int SP, bool LDG>
+__device__ __forceinline__ T row_dot(const T* p, const T (&c)[SP]) {
+  constexpr int N = 16 / sizeof(T);
+  T acc = 0;
+#pragma unroll
+  for (int j = 0; j < SP; j += N) {
+    T v[N];
+    load16(p + j, LDG, v);
+#pragma unroll
+    for (int t = 0; t < N; ++t) acc = j + t == 0 ? v[0] * c[0] : fma_t(v[t], c[j + t], acc);
+  }
+  return acc;
+}
+
+// The producer warp of the generic body: op k's table row, its P for both
+// sides (on chip), and the block's tip codes or raw tip rows (past the last
+// site: the last) into ring entry k % depth, once the compute lanes are done
+// with the entry. Runs that are contiguous and 16-byte aligned in device
+// memory go by bulk copy (the table row; each side's P, all rates, whose
+// blocks the launcher pads as the ring does; the block's run of a tip row's
+// codes or of a raw row where the row length allows), their bytes announced
+// on the entry's full barrier first; what is left (a ragged last block,
+// rows not aligned) goes by element copies, and each lane arrives once its
+// element copies have landed. The table's rows come 32 at a time, a row a
+// lane, the next 32 loaded while these are used, and reach every lane by
+// shuffles: a row read when it is needed would put a device-memory latency
+// on every op.
+template <typename T, int SP, bool ONCHIP>
+__device__ __forceinline__ void produce_generic(const ArgsT<T>& a, const GenLayout& L,
+                                                float* ring, unsigned long long* full,
+                                                unsigned long long* empty, int lane) {
   const size_t S = a.sites;
-  const int s = a.states, RS = a.rates * a.states;
-  const int SR = a.rate_scalers ? a.rates : 1, G = RS / SR;
-  T* tmp = cand.slots + (size_t)a.n_slots * RS * S + site;
-  for (int op = 0; op < a.n_ops; ++op) {
-    const int* row = cand.table + op * kRow;
-    for (int side = 0; side < 2; ++side) {
-      const int is_tip = __ldg(row + 1 + 3 * side);
-      const T* P = cand.pmat + (size_t)__ldg(row + 3 + 3 * side) * RS * s;
-      unsigned code;
-      const T* src = child_source(a, cand, is_tip, __ldg(row + 2 + 3 * side), site, &code);
-      for (int r = 0; r < a.rates; ++r) {
-        for (int i = 0; i < s; ++i) {
-          const T* p = P + (r * s + i) * s;
-          T acc = __ldg(p) * child_entry(a, is_tip, code, src, r, 0);
-          for (int j = 1; j < s; ++j) {
-            acc += __ldg(p + j) * child_entry(a, is_tip, code, src, r, j);
+  const size_t site0 = (size_t)blockIdx.x * L.spb;
+  const int R = a.rates, s = a.states, spb4 = round4(L.spb);
+  const unsigned side_bytes = R * L.prw * 4;   // one side's P, all rates
+  // the block's sites as one aligned run of every tip row
+  const bool run = site0 + L.spb <= S;
+  const bool codes_bulk = run && S % 4 == 0 && L.spb % 4 == 0 &&
+                          (reinterpret_cast<size_t>(a.tips) & 15) == 0 &&
+                          (reinterpret_cast<size_t>(a.qcodes) & 15) == 0;
+  const bool raw_bulk = run && (S * sizeof(T)) % 16 == 0 && (L.spb * sizeof(T)) % 16 == 0 &&
+                        (reinterpret_cast<size_t>(a.ctips) & 15) == 0;
+  const int4* const table = reinterpret_cast<const int4*>(a.table + cand_index() * a.table_stride);
+  // rows k0 + lane (this chunk) and k0 + 32 + lane (the next), two int4 a row
+  int4 cur0 = make_int4(0, 0, 0, 0), cur1 = cur0, nxt0 = cur0, nxt1 = cur0;
+  int e = 0;                                   // the ring entry, and its phase
+  unsigned phase = 0;
+  if (lane < a.n_ops) {
+    nxt0 = __ldg(table + 2 * lane);
+    nxt1 = __ldg(table + 2 * lane + 1);
+  }
+  for (int k = 0; k < a.n_ops; ++k) {
+    if ((k & 31) == 0) {
+      cur0 = nxt0;
+      cur1 = nxt1;
+      if (k + 32 + lane < a.n_ops) {
+        nxt0 = __ldg(table + 2 * (k + 32 + lane));
+        nxt1 = __ldg(table + 2 * (k + 32 + lane) + 1);
+      }
+    }
+    const int from = k & 31;
+    const int is_tip[2] = {__shfl_sync(0xffffffffu, cur0.y, from),
+                           __shfl_sync(0xffffffffu, cur1.x, from)};
+    const int idx[2] = {__shfl_sync(0xffffffffu, cur0.z, from),
+                        __shfl_sync(0xffffffffu, cur1.y, from)};
+    const int mat[2] = {__shfl_sync(0xffffffffu, cur0.w, from),
+                        __shfl_sync(0xffffffffu, cur1.z, from)};
+    unsigned long long* const bar = full + e;
+    mbar_wait(empty + e, phase ^ 1);
+    float* const ent = ring + e * L.entry;
+    int* const codes = reinterpret_cast<int*>(ent + L.code_off);
+    T* const raw = reinterpret_cast<T*>(ent + L.raw_off);
+    unsigned tx = kRow * 4 + (ONCHIP ? 2 * side_bytes : 0u);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (is_tip[c] == 1 && codes_bulk) tx += L.spb * 4;
+      if (is_tip[c] == 2 && raw_bulk) tx += (unsigned)(s * L.spb * sizeof(T));
+    }
+    if (lane == 0) mbar_expect_tx(bar, tx);
+    __syncwarp();
+    if (lane == 0) bulk_copy(ent, table + 2 * k, kRow * 4, bar);
+    if (ONCHIP && lane < 2) {
+      const float* const pm = reinterpret_cast<const float*>(a.pmat + cand_index() * a.pmat_stride);
+      bulk_copy(ent + kRow + lane * R * L.prw, pm + (size_t)mat[lane] * R * L.prw, side_bytes,
+                bar);
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (is_tip[c] == 1) {
+        const int* const row = tip_row(a, idx[c]);
+        if (codes_bulk) {
+          if (lane == 2 + c) bulk_copy(codes + c * spb4, row + site0, L.spb * 4, bar);
+        } else {
+          for (int t = lane; t < L.spb; t += 32) {
+            cp_async4(codes + c * spb4 + t, row + min(site0 + t, S - 1));
           }
-          T* t = tmp + (size_t)(r * s + i) * S;
-          *t = side ? *t * acc : acc;
+        }
+      } else if (is_tip[c] == 2) {
+        const T* const rows = a.ctips + (size_t)idx[c] * s * S;
+        if (raw_bulk) {
+          for (int j = lane; j < s; j += 32) {
+            bulk_copy(raw + (c * s + j) * L.spb, rows + j * S + site0,
+                      (unsigned)(L.spb * sizeof(T)), bar);
+          }
+        } else {
+          for (int q = lane; q < s * L.spb; q += 32) {
+            const int j = q / L.spb, t = q - j * L.spb;
+            cp_async_item(raw + (c * s + j) * L.spb + t, rows + j * S + min(site0 + t, S - 1));
+          }
         }
       }
     }
-    const int pslot = __ldg(row), has = __ldg(row + 7);
-    T* dst = cand.slots + (size_t)pslot * RS * S + site;
-    for (int q = 0; q < SR; ++q) {
-      T m = 0;
-      for (int k = q * G; k < (q + 1) * G; ++k) {
-        const T v = tmp[k * S];
-        m = v > m ? v : m;
-      }
-      const int rescale = has && m < a.threshold;
-      const T f = rescale ? a.factor : T(1);
-      int sc = rescale;
-      for (int side = 0; side < 2; ++side) {
-        if (__ldg(row + 1 + 3 * side) == 0) {
-          sc += cand.slot_sc[((size_t)__ldg(row + 2 + 3 * side) * SR + q) * S + site];
-        }
-      }
-      for (int k = q * G; k < (q + 1) * G; ++k) dst[k * S] = tmp[k * S] * f;
-      cand.slot_sc[((size_t)pslot * SR + q) * S + site] = sc;
+    mbar_arrive_copies(bar);
+    if (++e == L.depth) {
+      e = 0;
+      phase ^= 1;
     }
   }
-  const int* root = cand.table + a.n_ops * kRow;
+  cp_async_wait_all();
+}
+
+template <typename T, int SP, bool ONCHIP>
+__global__ void __launch_bounds__(kGenericThreads) fused_generic(ArgsT<T> a, GenLayout L) {
+  // the parent's rows are made UI at a time, all of a group in registers
+  // before any is stored: a store between two rows' loads of P would keep
+  // the compiler from issuing the second row's loads early (the two could
+  // alias), and each row would wait out a shared-memory load. Whole at
+  // widths up to 20; 4 at a time at 32, whose child columns already take
+  // 128 registers in float64
+  constexpr int UI = SP <= 20 ? SP : 4;
+  extern __shared__ float4 smem4[];
+  float* const words = reinterpret_cast<float*>(smem4);
+  unsigned long long* const full = reinterpret_cast<unsigned long long*>(smem4);
+  unsigned long long* const empty = full + L.depth;
+  float* const ring = words + 4 * L.depth;
+  T* const sm_slots = reinterpret_cast<T*>(words + L.slot_off);
+  int* const sm_cnt = reinterpret_cast<int*>(words + L.cnt_off);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid < L.depth) {
+    mbar_init(full + tid, 32);                 // the producer's lanes
+    mbar_init(empty + tid, L.lanes);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (warp == L.warps) {
+    produce_generic<T, SP, ONCHIP>(a, L, ring, full, empty, lane);
+    return;
+  }
+
+  const int R = a.rates, s = a.states, g = L.g, lanes = L.lanes;
+  const int gl = lane & (g - 1);               // the lane's first rate
+  const int bs = tid / g;                      // its site in the block
+  const size_t S = a.sites;
+  const size_t site_at = (size_t)blockIdx.x * L.spb + bs;
+  // lanes past the last site run on a copy of it (every lane takes part in
+  // the votes and barriers) and store nothing to device memory
+  const bool live = site_at < S;
+  const size_t site = live ? site_at : S - 1;
+  const bool per_rate = a.rate_scalers != 0;
+  const unsigned group = g == 32 ? 0xffffffffu : ((1u << g) - 1) << (lane & ~(g - 1));
+  const int spb4 = round4(L.spb), nsl = per_rate ? L.rpl : 1;
+  const T threshold = a.threshold, factor = a.factor;
+  // the spilled slots and counts of this walk
+  T* const gl_slots = ONCHIP ? nullptr : a.slots + walk_index() * a.slot_stride;
+  int* const gl_cnt = ONCHIP ? nullptr : a.slot_sc + walk_index() * a.slot_sc_stride;
+
+  // the lane's column of its rate r = gl + rr * g in a slot, entry j at
+  // at(column, j), and its count q of a slot; on chip in 32-bit offsets
+  // (the address arithmetic is most of an op's instructions otherwise)
+  const int slab = s * lanes;                  // a slot's rows of one rr, on chip
+  auto column = [&](int slot, int rr) -> T* {
+    if (ONCHIP) return sm_slots + (slot * L.rpl + rr) * slab + tid;
+    return gl_slots + ((size_t)slot * R + gl + rr * g) * s * S + site;
+  };
+  auto at = [&](T* col, int j) -> T& {
+    if (ONCHIP) return col[j * lanes];
+    return col[(size_t)j * S];
+  };
+  auto cnt_at = [&](int slot, int q) -> int* {
+    if (ONCHIP) return sm_cnt + (slot * nsl + q) * lanes + tid;
+    return gl_cnt + ((size_t)slot * (per_rate ? R : 1) + (per_rate ? gl + q * g : 0)) * S + site;
+  };
+
+  int e = 0;                                   // the ring entry, and its phase
+  unsigned phase = 0;
+  for (int op = 0; op < a.n_ops; ++op) {
+    mbar_wait(full + e, phase);
+    const float* const ent = ring + e * L.entry;
+    const int4 r0 = *reinterpret_cast<const int4*>(ent);
+    const int4 r1 = *reinterpret_cast<const int4*>(ent + 4);
+    const int pslot = r0.x, has = r1.w;
+    const int is_tip[2] = {r0.y, r1.x}, idx[2] = {r0.z, r1.y}, mat[2] = {r0.w, r1.z};
+    const int* const codes = reinterpret_cast<const int*>(ent + L.code_off);
+    const T* const raw = reinterpret_cast<const T*>(ent + L.raw_off);
+    // per site: the children's counts, read before the parent's is stored
+    int csc = 0;
+    if (!per_rate) {
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+        if (is_tip[ch] == 0) csc += *cnt_at(idx[ch], 0);
+      }
+    }
+    bool below_all = true;
+    for (int rr = 0; rr < L.rpl; ++rr) {
+      const int r = gl + rr * g;
+      if (r >= R) continue;                    // an idle lane votes "below"
+      T c[2][SP];
+      int rsc = 0;
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+        if (is_tip[ch] == 1) {   // a tip's bits, the same for every rate
+          const unsigned code = static_cast<unsigned>(codes[ch * spb4 + bs]);
+#pragma unroll
+          for (int j = 0; j < SP; ++j) c[ch][j] = j < s ? tip_bit<T>(code, j) : T(0);
+        } else if (is_tip[ch] == 2) {
+#pragma unroll
+          for (int j = 0; j < SP; ++j) c[ch][j] = j < s ? raw[(ch * s + j) * L.spb + bs] : T(0);
+        } else {
+          T* const col = column(idx[ch], rr);
+#pragma unroll
+          for (int j = 0; j < SP; ++j) c[ch][j] = j < s ? at(col, j) : T(0);
+          if (per_rate) rsc += *cnt_at(idx[ch], rr);
+        }
+      }
+      // this rate's P of both sides: staged in the entry, or through L1
+      const T* p[2];
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+        p[ch] = ONCHIP ? reinterpret_cast<const T*>(ent + kRow + (ch * R + r) * L.prw)
+                       : reinterpret_cast<const T*>(
+                             reinterpret_cast<const float*>(a.pmat + cand_index() * a.pmat_stride) +
+                             ((size_t)mat[ch] * R + r) * L.prw);
+      }
+      bool below = true;
+      T* const dst = column(pslot, rr);
+#pragma unroll 1
+      for (int i0 = 0; i0 < SP; i0 += UI) {
+        T x[UI];
+#pragma unroll
+        for (int u = 0; u < UI; ++u) {
+          x[u] = row_dot<T, SP, !ONCHIP>(p[0] + (i0 + u) * SP, c[0]) *
+                 row_dot<T, SP, !ONCHIP>(p[1] + (i0 + u) * SP, c[1]);
+        }
+#pragma unroll
+        for (int u = 0; u < UI; ++u) {
+          if (i0 + u < s) {
+            below = below && x[u] < threshold;
+            if (ONCHIP || live) at(dst, i0 + u) = x[u];
+          }
+        }
+      }
+      if (per_rate) {   // each rate on its own
+        if (has && below) {
+          for (int i = 0; i < s; ++i) {
+            if (ONCHIP || live) at(dst, i) *= factor;
+          }
+          rsc += 1;
+        }
+        if (ONCHIP || live) *cnt_at(pslot, rr) = rsc;
+      }
+      below_all = below_all && below;
+    }
+    if (!per_rate) {   // all rates of the site: its g lanes' votes
+      const unsigned votes = __ballot_sync(0xffffffffu, below_all);
+      if (has && (votes & group) == group) {
+        for (int rr = 0; rr < L.rpl; ++rr) {
+          if (gl + rr * g >= R) continue;
+          T* const col = column(pslot, rr);
+          for (int i = 0; i < s; ++i) {
+            if (ONCHIP || live) at(col, i) *= factor;
+          }
+        }
+        csc += 1;
+      }
+      if (ONCHIP) {
+        *cnt_at(pslot, 0) = csc;
+      } else {
+        __syncwarp();   // the site's lanes have read the children's counts
+        if (live && gl == 0) *cnt_at(pslot, 0) = csc;
+      }
+    }
+    mbar_arrive(empty + e);   // done with the entry
+    if (++e == L.depth) {
+      e = 0;
+      phase ^= 1;
+    }
+  }
+
+  // the root edge: each lane writes its rates' rows of its site, which it
+  // stored itself (a slot end) or decodes (a tip end)
+  const int* const root = a.table + cand_index() * a.table_stride + (size_t)a.n_ops * kRow;
+#pragma unroll 1
   for (int end = 0; end < 2; ++end) {
     const int is_tip = __ldg(root + 2 * end), idx = __ldg(root + 2 * end + 1);
-    T* out = out_clv(a, end);
-    int* osc = out_sc(a, end);
-    unsigned code;
-    const T* src = child_source(a, cand, is_tip, idx, site, &code);
-    for (int q = 0; q < SR; ++q) {
-      osc[q * S + site] = is_tip ? 0 : cand.slot_sc[((size_t)idx * SR + q) * S + site];
-    }
-    for (int r = 0; r < a.rates; ++r) {
+    T* const out = out_clv(a, end);
+    int* const osc = out_sc(a, end);
+    const unsigned code = is_tip == 1 ? static_cast<unsigned>(__ldg(tip_row(a, idx) + site)) : 0u;
+    for (int rr = 0; rr < L.rpl; ++rr) {
+      const int r = gl + rr * g;
+      if (r >= R || !live) continue;
+      T* const col = is_tip ? nullptr : column(idx, rr);
       for (int j = 0; j < s; ++j) {
-        out[(size_t)(r * s + j) * S + site] = child_entry(a, is_tip, code, src, r, j);
+        const T v = is_tip == 1   ? tip_bit<T>(code, j)
+                    : is_tip == 2 ? __ldg(a.ctips + ((size_t)idx * s + j) * S + site)
+                                  : at(col, j);
+        out[(size_t)(r * s + j) * S + site] = v;
       }
+      if (per_rate) osc[(size_t)r * S + site] = is_tip ? 0 : *cnt_at(idx, rr);
     }
+    if (!per_rate && live && gl == 0) osc[site] = is_tip ? 0 : *cnt_at(idx, 0);
   }
+}
+
+// the width the generic body is built for at `states` states: float32 4, 8
+// and 16; float64 also 20 and 32 (0: none)
+template <typename T>
+int generic_width(int states) {
+  const int widths[] = {4, 8, 16, 20, 32};
+  const int n = sizeof(T) == 8 ? 5 : 3;
+  for (int i = 0; i < n; ++i) {
+    if (states <= widths[i]) return widths[i];
+  }
+  return 0;
+}
+
+template <typename T, int SP>
+int launch_generic_sp(const ArgsT<T>& a, const GenLayout& L, bool onchip, dim3 grid,
+                      size_t bytes, cudaStream_t st) {
+  auto kernel = onchip ? fused_generic<T, SP, true> : fused_generic<T, SP, false>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, 32 * (L.warps + 1), bytes, st>>>(a, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The generic body's launch with the launcher's plan (ops/_kernels.py:
+// generic_plan): on chip or spilled, lanes a site, sites a block, the
+// shared-memory bytes, the width SP and the ring's depth. Refuses a plan
+// whose layout this file does not share.
+template <typename T>
+int launch_generic(const ArgsT<T>& a, int n_cand, int n_query, int onchip, int g, int spb,
+                   long long smem_bytes, int sp, int depth, cudaStream_t st) {
+  constexpr int kAlign = 16 / sizeof(T);
+  const int warps = spb * g / 32;
+  const GenLayout L = generic_layout(onchip != 0, a.rates, a.states, sp, sizeof(T), a.n_slots,
+                                     a.rate_scalers != 0, warps, depth, a.ctips != nullptr);
+  if (g != L.g || spb < 1 || spb * g != 32 * warps ||
+      (warps != 1 && warps != 2 && warps != kGenericWarps) || (depth != 2 && depth != 4) ||
+      sp == 0 || sp != generic_width<T>(a.states) ||
+      (reinterpret_cast<size_t>(a.pmat) & 15) != 0 ||
+      (reinterpret_cast<size_t>(a.table) & 15) != 0 || a.table_stride % 4 != 0 ||
+      a.pmat_stride % kAlign != 0 ||
+      (!onchip && (a.slots == nullptr || a.slot_sc == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int max_smem = pll_rows_smem_optin();
+  if (max_smem < 0) return -max_smem;
+  const size_t bytes = (size_t)L.words * 4;
+  if (bytes != static_cast<size_t>(smem_bytes) || bytes > (size_t)max_smem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((a.sites + spb - 1) / spb, n_cand, n_query);
+  switch (sp) {
+    case 4: return launch_generic_sp<T, 4>(a, L, onchip, grid, bytes, st);
+    case 8: return launch_generic_sp<T, 8>(a, L, onchip, grid, bytes, st);
+    case 16: return launch_generic_sp<T, 16>(a, L, onchip, grid, bytes, st);
+    default: break;
+  }
+  if constexpr (sizeof(T) == 8) {
+    if (sp == 20) return launch_generic_sp<T, 20>(a, L, onchip, grid, bytes, st);
+    if (sp == 32) return launch_generic_sp<T, 32>(a, L, onchip, grid, bytes, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int SPT>
@@ -781,10 +1224,6 @@ int launch_onchip(const Args& a, int n_cand, int n_query, bool per_rate,
 
 }  // namespace
 
-// in fused_traversal_rows.cu: the opt-in limit of a block's dynamic shared
-// memory on the current device, or a negative CUDA error code
-extern "C" int pll_rows_smem_optin();
-
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or an
 // error code without launching when the shapes or the plan do not fit.
 // `n_cand` candidates (1 to 65,535, the grid's y) each have a table and P,
@@ -793,12 +1232,16 @@ extern "C" int pll_rows_smem_optin();
 // [n_query, S]; without queries `qcodes` is null, `query_row` -1 and
 // `n_query` 1. The outputs are [n_query, n_cand, R * s, S] and [n_query,
 // n_cand, SR, S]. The trailing arguments are the launcher's
-// plan (ops/_kernels.py:fused_plan): on chip or spilled, threads a site,
-// sites a block and the shared-memory bytes, which must equal this file's
-// own count. The on-chip plan takes a 16-byte aligned table and P for every
-// candidate and no slots; the spill plan takes the slots [n_query * n_cand,
-// n_slots + 1, R * s, S] and their counts [n_query * n_cand, n_slots, SR,
-// S] in device memory.
+// plan (ops/_kernels.py:fused_plan): on chip or spilled, threads (lanes) a
+// site, sites a block and the shared-memory bytes, which must equal this
+// file's own count, then the generic body's width SP and ring depth (0 and
+// 0 for the 4 x 4 bodies, fused_onchip and fused_fixed). The on-chip plans
+// and the generic body take a 16-byte aligned table and P for every
+// candidate, the generic body P [E, R, SP * SP + 16 bytes] (each rate's
+// block padded with zeros from s x s, then by 16 bytes:
+// ops/_kernels.py:generic_pmatrix); the on-chip plans take no slots;
+// the spill plans take the slots [n_query * n_cand, n_slots, R * s, S] and
+// their counts [n_query * n_cand, n_slots, SR, S] in device memory.
 extern "C" int pll_fused_traversal(const int* table, int n_ops,
                                    const float* pmat, int n_cand,
                                    long long table_stride,
@@ -812,13 +1255,14 @@ extern "C" int pll_fused_traversal(const int* table, int n_ops,
                                    float factor, int rate_scalers,
                                    void* stream, int onchip,
                                    int threads_per_site, int sites_per_block,
-                                   long long smem_bytes) {
+                                   long long smem_bytes, int padded_states,
+                                   int depth) {
   const long long S = sites, RS = (long long)rates * states;
   const long long SR = rate_scalers ? rates : 1;
   const bool spill = !onchip;
   Args a{table, n_ops, pmat, tips, ctips, qcodes, query_row, sites, rates, states, slots, slot_sc,
          n_slots, out_p, out_c, sc_p, sc_c, threshold, factor, rate_scalers,
-         table_stride, pmat_stride, spill ? (n_slots + 1) * RS * S : 0,
+         table_stride, pmat_stride, spill ? n_slots * RS * S : 0,
          spill ? n_slots * SR * S : 0, RS * S, SR * S};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (sites < 1 || n_ops < 0 || n_slots < 1 || rates < 1 || states < 1 ||
@@ -828,12 +1272,18 @@ extern "C" int pll_fused_traversal(const int* table, int n_ops,
       table_stride < (long long)(n_ops + 1) * kRow || pmat_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (padded_states != 0) {
+    return launch_generic<float>(a, n_cand, n_query, onchip, threads_per_site,
+                                 sites_per_block, smem_bytes, padded_states, depth, st);
+  }
+  if (states != 4 || rates != 4 || depth != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (onchip) {
     // 4 threads hold the 4 rates of one site (threads_per_site 4) or of two
     // sites (2)
     const int spt = threads_per_site == 4 ? 1 : threads_per_site == 2 ? 2 : 0;
-    if (states != 4 || rates != 4 || spt == 0 ||
-        sites_per_block != 32 * spt ||
+    if (spt == 0 || sites_per_block != 32 * spt ||
         (reinterpret_cast<size_t>(pmat) & 15) != 0 ||
         (reinterpret_cast<size_t>(table) & 15) != 0 || table_stride % 4 != 0 ||
         pmat_stride % 4 != 0) {
@@ -854,31 +1304,28 @@ extern "C" int pll_fused_traversal(const int* table, int n_ops,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((sites + kBlock - 1) / kBlock, n_cand, n_query);
-  if (states == 4 && rates == 4) {
-    if (rate_scalers) {
-      fused_fixed<4, 4, 4><<<grid, kBlock, 0, st>>>(a);
-    } else {
-      fused_fixed<4, 4, 1><<<grid, kBlock, 0, st>>>(a);
-    }
+  if (rate_scalers) {
+    fused_fixed<4, 4, 4><<<grid, kBlock, 0, st>>>(a);
   } else {
-    fused_generic<float><<<grid, kBlock, 0, st>>>(a);
+    fused_fixed<4, 4, 1><<<grid, kBlock, 0, st>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The certified evaluation's walk (libpll2_tpu_torch/ops/df64.py through
 // ops/fused.py:fused_traversal_f64), which takes the place of the XLA
-// double-single scan libpll2_tpu/ops/df64.py:_df64_edge_logl: fused_generic
-// in float64, one topology, per-site counts, any rates, 2 to 32 states, raw
-// tip rows allowed. P, the raw tip rows, the slots [n_slots + 1, R * s, S]
-// (the last the spare) and the root CLVs [R * s, S] are double; the counts
-// [n_slots, 1, S] and [S] int32. One thread a site, blocks of kBlock: bound
-// by float64 operations (2 * R * s * s FMAs an op and site at the card's
-// float64 rate outside the tensor cores) or by the slots' bytes, whichever
-// is larger; at a few thousand sites the launch has fewer blocks than SMs
-// and is latency-bound (ROADMAP B10). Launches on `stream` and returns
-// cudaGetLastError() (0 on success), or an error code without launching
-// when the shapes do not fit.
+// double-single scan libpll2_tpu/ops/df64.py:_df64_edge_logl: the generic
+// body in float64, one topology, per-site counts, any rates, 2 to 32
+// states, raw tip rows allowed, with the launcher's plan
+// (ops/_kernels.py:generic_plan) as pll_fused_traversal takes it. P [E, R,
+// SP * SP + 2] (as pll_fused_traversal's), the raw tip rows, the spill plan's
+// slots [n_slots, R * s, S] and the root CLVs [R * s, S] are double; the
+// counts [n_slots, 1, S] and [S] int32. Bound by float64 operations (2 * R
+// * s * s FMAs an op and site at the card's float64 rate outside the tensor
+// cores): a site's rates on neighbouring lanes, its slots on chip and P
+// staged one op ahead keep device memory off each op's chain. Launches on
+// `stream` and returns cudaGetLastError() (0 on success), or an error code
+// without launching when the shapes or the plan do not fit.
 extern "C" int pll_fused_traversal_f64(const int* table, int n_ops,
                                        const double* pmat, const int* tips,
                                        const double* ctips, int sites,
@@ -886,18 +1333,21 @@ extern "C" int pll_fused_traversal_f64(const int* table, int n_ops,
                                        int* slot_sc, int n_slots,
                                        double* out_p, double* out_c,
                                        int* sc_p, int* sc_c, double threshold,
-                                       double factor, void* stream) {
+                                       double factor, void* stream, int onchip,
+                                       int threads_per_site,
+                                       int sites_per_block,
+                                       long long smem_bytes,
+                                       int padded_states, int depth) {
   const long long S = sites, RS = (long long)rates * states;
   if (sites < 1 || n_ops < 0 || n_slots < 1 || rates < 1 || states < 2 ||
-      states > 32 || slots == nullptr || slot_sc == nullptr) {
+      states > 32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   ArgsT<double> a{table, n_ops, pmat, tips, ctips, nullptr, -1, sites, rates, states,
                   slots, slot_sc, n_slots, out_p, out_c, sc_p, sc_c, threshold, factor,
-                  0, (long long)(n_ops + 1) * kRow, 0, (n_slots + 1) * RS * S,
-                  n_slots * S, RS * S, S};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((sites + kBlock - 1) / kBlock, 1, 1);
-  fused_generic<double><<<grid, kBlock, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+                  0, (long long)(n_ops + 1) * kRow, 0, onchip ? 0 : n_slots * RS * S,
+                  onchip ? 0 : n_slots * S, RS * S, S};
+  return launch_generic<double>(a, 1, 1, onchip, threads_per_site, sites_per_block,
+                                smem_bytes, padded_states, depth,
+                                static_cast<cudaStream_t>(stream));
 }

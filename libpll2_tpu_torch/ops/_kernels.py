@@ -113,7 +113,8 @@ def library() -> ctypes.CDLL:
     lib.pll_fused_traversal.argtypes = traversal + [
         _P,                # stream
         _I, _I, _I, _L,    # fused_plan: on chip, threads a site, sites a
-    ]                      # block, shared-memory bytes
+        _I, _I,            # block, shared-memory bytes; the generic body's
+    ]                      # width and ring depth (0, 0 at 4 x 4)
     lib.pll_fused_traversal.restype = _I
     lib.pll_fused_traversal_rows.argtypes = traversal + [
         _I, _P,            # bf16 flag, stream
@@ -130,6 +131,8 @@ def library() -> ctypes.CDLL:
         _P, _P, _P, _P,    # out_p, out_c, sc_p, sc_c
         _D, _D,            # threshold, factor
         _P,                # stream
+        _I, _I, _I, _L,    # generic_plan: on chip, threads a site, sites a
+        _I, _I,            # block, shared-memory bytes, width, ring depth
     ]
     lib.pll_fused_traversal_f64.restype = _I
     lib.pll_rows_smem_optin.argtypes = []
@@ -288,13 +291,13 @@ FUSED_SPILL_BLOCK = 64
 
 
 class FusedPlan(NamedTuple):
-    """How fused_traversal.cu runs one shape: `plan` 'on-chip' (4 states x
-    4 rates: the block's slots and counts in shared memory, the next ops'
+    """How fused_traversal.cu runs a 4 states x 4 rates shape: `plan`
+    'on-chip' (the block's slots and counts in shared memory, the next ops'
     P, tips and table rows prefetched; 4 threads hold the 4 rates of one
     site, `threads_per_site` 4, or of two, 2) or 'spill' (slots in device
-    memory, one thread a site: every other size, and 4 x 4 trees whose
-    slots do not fit); `sites_per_block` the block's sites; `smem_bytes`
-    its dynamic shared memory (0 when spilled)."""
+    memory, one thread a site, where the slots do not fit);
+    `sites_per_block` the block's sites; `smem_bytes` its dynamic shared
+    memory (0 when spilled). Other shapes take a GenericPlan."""
     plan: str
     threads_per_site: int
     sites_per_block: int
@@ -316,49 +319,210 @@ def fused_onchip_bytes(n_slots: int, sites_per_thread: int) -> int:
     return 4 * (ring + n_slots * (sites * 16 + spt * FUSED_COMPUTE_THREADS))
 
 
+# fused_traversal.cu's runtime-size body (fused_generic): the state widths it
+# is built for, by the bytes of its floating type (float32 up to 16 states,
+# float64 up to 32); its compute warps a block, at most; its ring depths,
+# the deeper first
+GENERIC_WIDTHS = {4: (4, 8, 16), 8: (4, 8, 16, 20, 32)}
+GENERIC_MAX_WARPS = 4
+GENERIC_DEPTHS = (4, 2)
+
+
+class GenericPlan(NamedTuple):
+    """How fused_traversal.cu's runtime-size body runs one shape: a site's
+    rates on `threads_per_site` neighbouring lanes (G, the power of two
+    from min(R, 32); `rates_per_lane` rates a lane above 32), `warps`
+    compute warps a block of `sites_per_block` sites, states padded to
+    `padded_states` (the instantiated width), a ring of `depth` ops'
+    inputs staged by a producer warp. `plan` 'on-chip': the block's slots
+    and counts in shared memory, P staged in the ring; 'spill': the slots
+    in device memory and P read through L1, where the slots and P do not
+    fit a block's shared memory. `smem_bytes` the block's dynamic shared
+    memory (`generic_bytes`)."""
+    plan: str
+    threads_per_site: int
+    sites_per_block: int
+    smem_bytes: int
+    padded_states: int
+    rates_per_lane: int
+    warps: int
+    depth: int
+
+
+def generic_lanes(rates: int) -> int:
+    """The lanes of a site in the generic body: the power of two from
+    min(rates, 32)."""
+    return 1 << (min(rates, 32) - 1).bit_length()
+
+
+def generic_bytes(onchip: bool, rates: int, states: int, n_slots: int,
+                  rate_scalers: bool, itemsize: int, padded_states: int,
+                  warps: int, depth: int, raw_tips: bool) -> int:
+    """Shared memory of one block of the generic body (fused_traversal.cu,
+    generic_layout), in 4-byte words times 4, every part a multiple of 16
+    bytes: the ring's 2 x `depth` barriers (8 bytes each); `depth` entries
+    of one op's inputs (the table row, 8 words; on chip P of both sides,
+    each rate's SP x SP block padded by 4 words; the block's tip codes, 2 x
+    its sites rounded to 4; with `raw_tips` its raw tip rows, 2 x s x its
+    sites items); on chip then the slots (n_slots x rates a lane x s x the
+    block's lanes items) and the counts (n_slots x 1, or rates a lane per
+    rate, x its lanes)."""
+    g = generic_lanes(rates)
+    rpl = -(-rates // g)
+    lanes = 32 * warps
+    spb = lanes // g
+
+    def r4(n):
+        return (n + 3) // 4 * 4
+
+    prw = padded_states * padded_states * itemsize // 4 + 4
+    entry = (8 + (2 * rates * prw if onchip else 0) + 2 * r4(spb)
+             + (r4(2 * states * spb * itemsize // 4) if raw_tips else 0))
+    words = 4 * depth + depth * entry
+    if onchip:
+        words += n_slots * rpl * states * lanes * itemsize // 4
+        words += n_slots * (rpl if rate_scalers else 1) * lanes
+    return 4 * words
+
+
+def generic_plan(rates: int, states: int, n_slots: int, rate_scalers: bool,
+                 smem_bytes: int, sites: int, sms: int, candidates: int = 1,
+                 itemsize: int = 4, raw_tips: bool = False) -> GenericPlan:
+    """The runtime-size body's plan for one shape on a device with `sms`
+    SMs whose blocks may use `smem_bytes` of shared memory, for a launch of
+    `candidates` walks (each its own row of blocks), in float32 (`itemsize`
+    4) or float64 (8), with raw tip rows staged where `raw_tips`. Compute
+    warps a block: from GENERIC_MAX_WARPS down until the launch's blocks
+    (those of every walk together) reach every SM. On chip at the most of
+    those warps, then the fewer, each with the deepest ring of
+    GENERIC_DEPTHS that fits; else spilled at those warps. The bytes are
+    fused_traversal.cu's, which refuses a launch whose count differs."""
+    widths = GENERIC_WIDTHS.get(itemsize, ())
+    sp = next((w for w in widths if w >= states), None)
+    low = 2 if itemsize == 8 else 1
+    if (sp is None or states < low or rates < 1 or n_slots < 1 or sites < 1
+            or candidates < 1):
+        raise ValueError(f"generic_plan: no plan for {rates} rates, {states} "
+                         f"states, {n_slots} slots, {sites} sites, "
+                         f"{candidates} candidates in {8 * itemsize}-bit "
+                         f"floats")
+    g = generic_lanes(rates)
+    rpl = -(-rates // g)
+    per_warp = 32 // g
+    warps = GENERIC_MAX_WARPS
+    while warps > 1 and candidates * -(-sites // (per_warp * warps)) < sms:
+        warps //= 2
+    w = warps
+    while w >= 1:
+        for depth in GENERIC_DEPTHS:
+            nbytes = generic_bytes(True, rates, states, n_slots, rate_scalers,
+                                   itemsize, sp, w, depth, raw_tips)
+            if nbytes <= smem_bytes:
+                return GenericPlan("on-chip", g, per_warp * w, nbytes, sp,
+                                   rpl, w, depth)
+        w //= 2
+    depth = GENERIC_DEPTHS[0]
+    nbytes = generic_bytes(False, rates, states, n_slots, rate_scalers,
+                           itemsize, sp, warps, depth, raw_tips)
+    if nbytes > smem_bytes:
+        raise ValueError(f"generic_plan: {nbytes} bytes of shared memory "
+                         f"exceed the device's {smem_bytes}")
+    return GenericPlan("spill", g, per_warp * warps, nbytes, sp, rpl, warps,
+                       depth)
+
+
 def fused_plan(rates: int, states: int, n_slots: int, rate_scalers: bool,
                smem_bytes: int, sites: int, sms: int,
-               candidates: int = 1) -> FusedPlan:
-    """fused_traversal.cu's plan for one shape on a device with `sms` SMs
-    whose blocks may use `smem_bytes` of shared memory, for a launch of
-    `candidates` topologies (each its own row of blocks). 4 states x 4
-    rates run on chip, with two sites a thread where the launch's blocks of
-    64 sites (the candidates' together) still reach FUSED_SPT2_SM_SHARE of
-    the SMs and fit, else one site; they spill where neither fits. Other
-    sizes take the spill plan's runtime-size body. `rate_scalers` does not
-    change the layout."""
+               candidates: int = 1, raw_tips: bool = False):
+    """fused_traversal.cu's plan for one float32 shape on a device with
+    `sms` SMs whose blocks may use `smem_bytes` of shared memory, for a
+    launch of `candidates` topologies (each its own row of blocks). 4
+    states x 4 rates run on chip (a FusedPlan), with two sites a thread
+    where the launch's blocks of 64 sites (the candidates' together) still
+    reach FUSED_SPT2_SM_SHARE of the SMs and fit, else one site; they spill
+    where neither fits. Other sizes take the runtime-size body's plan
+    (`generic_plan`, a GenericPlan; `raw_tips` there). `rate_scalers` does
+    not change the 4 x 4 layout."""
     if (rates < 1 or not 1 <= states <= 32 or n_slots < 1 or sites < 1
             or candidates < 1):
         raise ValueError(f"fused_plan: no plan for {rates} rates, {states} "
                          f"states, {n_slots} slots, {sites} sites, "
                          f"{candidates} candidates")
-    spill = FusedPlan("spill", 1, FUSED_SPILL_BLOCK, 0)
     if (rates, states) != (4, 4):
-        return spill
+        return generic_plan(rates, states, n_slots, rate_scalers, smem_bytes,
+                            sites, sms, candidates, 4, raw_tips)
     wide = candidates * -(-sites // 64) >= FUSED_SPT2_SM_SHARE * sms
     for spt in ((2, 1) if wide else (1,)):
         nbytes = fused_onchip_bytes(n_slots, spt)
         if nbytes <= smem_bytes:
             return FusedPlan("on-chip", 4 // spt, 32 * spt, nbytes)
-    return spill
+    return FusedPlan("spill", 1, FUSED_SPILL_BLOCK, 0)
 
 
 def device_fused_plan(device, rates: int, states: int, n_slots: int,
                       rate_scalers: bool, sites: int,
-                      candidates: int = 1) -> FusedPlan:
+                      candidates: int = 1, raw_tips: bool = False):
     """`fused_plan` for one shape on CUDA device `device`."""
     index = _device_index(device)
     return fused_plan(rates, states, n_slots, rate_scalers,
-                      smem_optin(index), sites, sm_count(index), candidates)
+                      smem_optin(index), sites, sm_count(index), candidates,
+                      raw_tips)
+
+
+def device_generic_plan(device, rates: int, states: int, n_slots: int,
+                        rate_scalers: bool, sites: int, candidates: int = 1,
+                        itemsize: int = 4,
+                        raw_tips: bool = False) -> GenericPlan:
+    """`generic_plan` for one shape on CUDA device `device`."""
+    index = _device_index(device)
+    return generic_plan(rates, states, n_slots, rate_scalers,
+                        smem_optin(index), sites, sm_count(index), candidates,
+                        itemsize, raw_tips)
 
 
 def spill_slots(plan, n_slots: int) -> int:
-    """The slots a walk of `plan` (a FusedPlan or a RowsPlan) keeps in
-    device memory: none on chip; on the spill plan `n_slots`, and one more
-    in fused_traversal.cu, whose generic body builds each parent there."""
-    if plan.plan == "on-chip":
-        return 0
-    return n_slots + isinstance(plan, FusedPlan)
+    """The slots a walk of `plan` (a FusedPlan, GenericPlan or RowsPlan)
+    keeps in device memory: none on chip, `n_slots` on a spill plan."""
+    return 0 if plan.plan == "on-chip" else n_slots
+
+
+def generic_pmatrix(pmatrix: torch.Tensor, padded_states: int) -> torch.Tensor:
+    """P [..., R, s, s] as the runtime-size body reads it: each rate's
+    block zero-padded to SP x SP (`padded_states`) and then by 16 bytes, [...,
+    R, SP * SP + 16 / itemsize], contiguous. The padding puts a warp's rates
+    on distinct shared-memory banks and keeps one side's rates one run, a
+    single bulk copy (fused_traversal.cu, generic_layout's `prw`)."""
+    *lead, s, _ = pmatrix.shape
+    sp = padded_states
+    out = pmatrix.new_zeros(*lead, sp * sp + 16 // pmatrix.element_size())
+    out[..., :sp * sp].view(*lead, sp, sp)[..., :s, :s] = pmatrix
+    return out
+
+
+def _generic_operands(plan, pmatrix, table):
+    """P and the table as the kernel takes them: 16-byte aligned for the
+    on-chip 4 x 4 plan, and for the runtime-size body P in its padded
+    layout (`generic_pmatrix`)."""
+    if isinstance(plan, GenericPlan):
+        pmatrix = generic_pmatrix(pmatrix, plan.padded_states)
+    elif plan.plan == "on-chip" and pmatrix.data_ptr() % 16:
+        # the kernel copies P and the table in 16-byte units; a contiguous
+        # candidate's table (8 words a row) and P (16 words a matrix) keep
+        # the first one's alignment
+        pmatrix = pmatrix.clone()
+    if (isinstance(plan, GenericPlan) or plan.plan == "on-chip") \
+            and table.data_ptr() % 16:
+        table = table.clone()
+    return pmatrix, table
+
+
+def _plan_args(plan) -> tuple:
+    """The plan's trailing arguments of the C entries."""
+    generic = isinstance(plan, GenericPlan)
+    return (int(plan.plan == "on-chip"), plan.threads_per_site,
+            plan.sites_per_block, plan.smem_bytes,
+            plan.padded_states if generic else 0,
+            plan.depth if generic else 0)
 
 
 def _query_outputs(out, q: int, k: int, query_codes):
@@ -385,19 +549,12 @@ def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
     sites = tip_codes.shape[1]
     k = table.shape[0]
     plan = device_fused_plan(dev, rates, states, n_slots, rate_scalers, sites,
-                             q * k)
+                             q * k, tip_clvs is not None)
     out_p, out_c, sc_p, sc_c = _outputs(q * k, rates, states, sites, dev,
                                         rate_scalers)
+    pmatrix, table = _generic_operands(plan, pmatrix, table)
     slots = slot_sc = None
-    if plan.plan == "on-chip":
-        # the kernel copies P and the table in 16-byte units; a contiguous
-        # candidate's table (8 words a row) and P (16 words a matrix) keep
-        # the first one's alignment
-        if pmatrix.data_ptr() % 16:
-            pmatrix = pmatrix.clone()
-        if table.data_ptr() % 16:
-            table = table.clone()
-    else:
+    if plan.plan == "spill":
         slots = torch.empty((q * k, spill_slots(plan, n_slots),
                              rates * states, sites),
                             dtype=torch.float32, device=dev)
@@ -413,8 +570,7 @@ def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
             _ptr(slots), _ptr(slot_sc), n_slots,
             out_p.data_ptr(), out_c.data_ptr(), sc_p.data_ptr(),
             sc_c.data_ptr(), float(threshold), float(factor),
-            int(rate_scalers), stream, int(plan.plan == "on-chip"),
-            plan.threads_per_site, plan.sites_per_block, plan.smem_bytes)
+            int(rate_scalers), stream, *_plan_args(plan))
     if err != 0:
         raise RuntimeError(f"fused_traversal kernel launch failed: CUDA "
                            f"error {err}")
@@ -429,9 +585,9 @@ def launch_fused_traversal_f64(tip_codes: torch.Tensor,
     """Launch csrc/fused_traversal.cu's float64 walk
     (pll_fused_traversal_f64) once on the current stream for one topology,
     `table` [n_ops+1, 8] int32 and `pmatrix` [E, R, s, s] float64, per-site
-    counts; returns the root rows (clv_p, clv_c [R, s, S] float64, sc_p,
-    sc_c [S] int32). The slots (n_slots + 1, the last the spare) live in
-    device memory."""
+    counts, with `device_generic_plan`'s plan in float64; returns the root
+    rows (clv_p, clv_c [R, s, S] float64, sc_p, sc_c [S] int32). The slots
+    live in device memory on a spill plan only."""
     name = "fused_traversal_f64"
     dev = pmatrix.device
     _check(dev.type == "cuda", f"expected CUDA tensors, got {dev}", name)
@@ -464,21 +620,26 @@ def launch_fused_traversal_f64(tip_codes: torch.Tensor,
                f"tip_clvs must be a contiguous float64 tensor [n, {states}, "
                f"{sites}] on {dev}", name)
     f64, i32 = torch.float64, torch.int32
+    plan = device_generic_plan(dev, rates, states, n_slots, False, sites,
+                               itemsize=8, raw_tips=tip_clvs is not None)
+    pmatrix, table = _generic_operands(plan, pmatrix, table)
     out_p = torch.empty((rates, states, sites), dtype=f64, device=dev)
     out_c = torch.empty_like(out_p)
     sc_p = torch.empty(sites, dtype=i32, device=dev)
     sc_c = torch.empty_like(sc_p)
-    slots = torch.empty((n_slots + 1, rates * states, sites), dtype=f64,
-                        device=dev)
-    slot_sc = torch.empty((n_slots, 1, sites), dtype=i32, device=dev)
+    slots = slot_sc = None
+    if plan.plan == "spill":
+        slots = torch.empty((spill_slots(plan, n_slots), rates * states,
+                             sites), dtype=f64, device=dev)
+        slot_sc = torch.empty((n_slots, 1, sites), dtype=i32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_fused_traversal_f64(
             table.data_ptr(), table.shape[0] - 1, pmatrix.data_ptr(),
             tip_codes.data_ptr(), _ptr(tip_clvs), sites, rates, states,
-            slots.data_ptr(), slot_sc.data_ptr(), n_slots, out_p.data_ptr(),
+            _ptr(slots), _ptr(slot_sc), n_slots, out_p.data_ptr(),
             out_c.data_ptr(), sc_p.data_ptr(), sc_c.data_ptr(),
-            float(threshold), float(factor), stream)
+            float(threshold), float(factor), stream, *_plan_args(plan))
     if err != 0:
         raise RuntimeError(f"fused_traversal_f64 kernel launch failed: CUDA "
                            f"error {err}")

@@ -112,19 +112,25 @@ def query_edge_split(queries: int, edges: int, rates: int, states: int,
 
 
 def query_spill_slots(device, rates: int, states: int, n_slots: int,
-                      rate_scalers: bool, sites: int) -> int:
+                      rate_scalers: bool, sites: int,
+                      raw_tips: bool = False) -> int:
     """The slots a walk of the query form keeps in device memory on
     `device`: the spill plan's (ops/_kernels.py:spill_slots; the rows
-    kernel's from ROWS_STATES_MIN states), none on chip, and none on the
-    CPU, whose plain version holds its own within QUERY_REFERENCE_BYTES."""
+    kernel's from ROWS_STATES_MIN states, else fused_plan's, with raw tip
+    rows staged where `raw_tips`), none on chip, and none on the CPU, whose
+    plain version holds its own within QUERY_REFERENCE_BYTES."""
     if torch.device(device).type != "cuda":
         return 0
     from . import _kernels
 
-    plan = (_kernels.device_rows_plan if states >= ROWS_STATES_MIN
-            else _kernels.device_fused_plan)
-    return _kernels.spill_slots(
-        plan(device, rates, states, n_slots, rate_scalers, sites), n_slots)
+    if states >= ROWS_STATES_MIN:
+        plan = _kernels.device_rows_plan(device, rates, states, n_slots,
+                                         rate_scalers, sites)
+    else:
+        plan = _kernels.device_fused_plan(device, rates, states, n_slots,
+                                          rate_scalers, sites,
+                                          raw_tips=raw_tips)
+    return _kernels.spill_slots(plan, n_slots)
 
 
 def _check_rows_rate_scalers(rates: int, rate_scalers: bool) -> None:

@@ -115,12 +115,16 @@ def _caterpillar(n):
 # threads a site), 'narrow' (4159 sites, the widest alignment with one site
 # a thread, a tail of 31) and 1000 or 700 sites one (4 threads a site);
 # 'spill' (250 slots) does not fit on chip, and other sizes than 4 states x
-# 4 rates run the runtime-size body
+# 4 rates run the runtime-size body on chip, a site's 3 or 4 rates on 4
+# lanes (generic_plan)
 FUSED_PLANS = {"ragged": ("on-chip", 4), "caterpillar": ("on-chip", 4),
                "wide": ("on-chip", 2), "narrow": ("on-chip", 4),
-               "spill": ("spill", 1), "rates3": ("spill", 1),
-               "states5": ("spill", 1)}
+               "spill": ("spill", 1), "rates3": ("on-chip", 4),
+               "states5": ("on-chip", 4)}
 FUSED_SPILL_SLOTS = 250
+# slots that do not fit one warp's block of the runtime-size body in float32
+# at 4 or more states (640 bytes a slot at 4 states): its spill plan
+GENERIC_SPILL_SLOTS = 1000
 
 
 def _assert_fused_plan(part, n_slots, want):
@@ -160,6 +164,93 @@ def test_kernel_matches_plain_on_card(cuda, case):
         assert float(((g - w).abs() / site_max).max()) <= 1e-5
     if case == "caterpillar":
         assert int(want[2].max()) > 0
+
+
+# fused_traversal.cu's runtime-size body in float32 (fused_generic): name ->
+# (rates, states, mode); shapes 'r1', 'r3', 'r8', 'r33' at 4 states, 's2',
+# 's5' at 4 rates and 's15' at 2; modes: the walk as it is, 'per_rate'
+# counts, 'raw' tip rows on every other tip, 'k3' three candidates, 'q3'
+# three queries' codes in tip row 0 of two candidates, 'spill'
+# GENERIC_SPILL_SLOTS slots ('s2' needs 2000); 'cat' the 80-taxon
+# caterpillar, which rescales; 'wide' 24 taxa at 16384 sites, 4 warps a
+# block (1 rate: 2)
+GENERIC_SHAPES = {"r1": (1, 4), "r3": (3, 4), "r8": (8, 4), "r33": (33, 4),
+                  "s2": (4, 2), "s5": (4, 5), "s15": (2, 15)}
+GENERIC_CASES = [f"{shape}_{mode}" for shape in GENERIC_SHAPES
+                 for mode in ("walk", "per_rate", "raw", "k3", "q3",
+                              "spill")] + [
+    "r3_cat", "r3_cat_per_rate", "s5_cat", "r1_wide", "r8_wide", "s5_wide"]
+
+
+def _generic_case(case, device):
+    """(partition, engine, tree, mode) of a GENERIC_CASES case."""
+    shape, mode = case.split("_", 1)
+    rates, states = GENERIC_SHAPES[shape]
+    alphabet = {2: "AB-", 5: "ACGTX-", 15: LETTERS32[:15] + "-"}.get(
+        states, "ACGT-NRY")
+    taxa, sites = 16, 600 if rates < 33 else 200
+    if mode.startswith("wide"):
+        taxa, sites = 24, 16384
+    tree = (_caterpillar(80) if mode.startswith("cat")
+            else random_utree([f"t{i}" for i in range(taxa)], seed=3))
+    part, eng = _engine(tree, sites, device, rates=rates, states=states,
+                        alphabet=alphabet, rate_scalers="per_rate" in mode)
+    if mode == "raw":
+        rng = np.random.default_rng(7)
+        for tip in sorted(tree.tips(), key=lambda t: t.clv_index)[::2]:
+            part.set_tip_clv(tip.clv_index, rng.dirichlet(
+                np.ones(states), size=sites).astype(np.float32))
+        eng = TreeEngine(part, tree)
+    return part, eng, tree, mode
+
+
+@pytest.mark.parametrize("case", GENERIC_CASES)
+def test_generic_body_matches_plain_on_card(cuda, case):
+    """The runtime-size body of fused_traversal.cu in float32, one launch a
+    call (the candidate and query forms too), against its plain version on
+    the same CUDA tensors: counts equal, root CLVs to 1e-5 of each site's
+    max, and logL through the likelihood epilogue to TOL_LOGL (5e-5); on
+    the plan generic_plan gives it (spill at GENERIC_SPILL_SLOTS)."""
+    part, eng, tree, mode = _generic_case(case, cuda)
+    if mode in ("k3", "q3"):
+        args, kw = _candidate_inputs(part, eng, tree, 3 if mode == "k3"
+                                     else 2)
+    else:
+        args, kw = _inputs(part, eng)
+        kw.update(rate_scalers=part.rate_scalers, tip_clvs=eng._tip_clvs())
+    if mode == "q3":
+        codes = args[0]
+        kw.update(query_codes=codes[[3, 5, 7]].contiguous(), query_row=0)
+    if mode == "spill":
+        kw["n_slots"] = 2000 if part.states == 2 else GENERIC_SPILL_SLOTS
+    walks = {"k3": 3, "q3": 6}.get(mode, 1)
+    plan = _kernels.device_fused_plan(
+        cuda, part.rate_cats, part.states, kw["n_slots"], part.rate_scalers,
+        part.sites_padded, walks, kw["tip_clvs"] is not None)
+    assert isinstance(plan, _kernels.GenericPlan)
+    assert plan.plan == ("spill" if mode == "spill" else "on-chip")
+    if mode.endswith("wide"):
+        assert plan.warps == (2 if part.rate_cats == 1 else 4)
+    before = fused.fused_traversal.launches
+    got = fused.fused_traversal(*args, **kw)
+    assert fused.fused_traversal.launches == before + 1
+    want = fused.fused_traversal_reference(*args, **kw)
+    torch.cuda.synchronize()
+    lead = got[0].dim() - 3          # the candidate and query axes
+    for g, w in zip(got[2:], want[2:]):
+        assert g.shape == w.shape and torch.equal(g, w)
+    for g, w in zip(got[:2], want[:2]):
+        site_max = w.abs().amax(dim=(lead, lead + 1), keepdim=True)
+        err = (g - w).abs() / site_max.clamp(min=1e-30)
+        assert float(err.max()) <= 1e-5
+    if mode.startswith("cat"):
+        assert int(want[2].max()) > 0
+    if mode in ("walk", "per_rate", "raw") or mode.startswith("cat"):
+        lk = [float(_fused_loglikelihood(*eng._args(), traversal=t,
+                                         **eng._fused_kw())[0])
+              for t in (fused.fused_traversal,
+                        fused.fused_traversal_reference)]
+        assert abs(lk[0] - lk[1]) / abs(lk[1]) < 5e-5
 
 
 def test_engine_on_card_matches_cpu_float64(cuda):
@@ -826,7 +917,7 @@ def test_fused_kernels_modes_match_plain_on_card(cuda, case):
     kw.update(rate_scalers=part.rate_scalers, tip_clvs=eng._tip_clvs())
     if part.states == 4:   # fused_traversal.cu's plan (FUSED_PLANS)
         _assert_fused_plan(part, kw["n_slots"], (
-            "spill", 1) if part.rate_cats != 4 else (
+            "on-chip", 4) if part.rate_cats != 4 else (
             "on-chip", 2 if "wide" in case else 4))
     counter = (fused.fused_traversal_rows if part.states >= 16
                else fused.fused_traversal)
@@ -996,7 +1087,8 @@ CANDIDATE_CASES = {
     "k3_onchip_spt1": ("ragged", 3, None, ("on-chip", 4)),
     "k130_onchip_spt2": ("ragged", 130, None, ("on-chip", 2)),
     "k3_spill": ("ragged", 3, FUSED_SPILL_SLOTS, ("spill", 1)),
-    "k3_rates3": ("rates3", 3, None, ("spill", 1)),
+    "k3_rates3": ("rates3", 3, None, ("on-chip", 4)),
+    "k3_rates3_spill": ("rates3", 3, GENERIC_SPILL_SLOTS, ("spill", 4)),
     "k3_per_rate": ("rate_cat", 3, None, ("on-chip", 4)),
     "k3_raw": ("raw", 3, None, ("on-chip", 4)),
     "k130_raw_per_rate": ("raw_rate", 130, None, ("on-chip", 2)),
@@ -1483,11 +1575,12 @@ QUERY_CASES = {
 }
 # the spill plans with Q > 1, each walk's slots at its own offset in
 # device memory: (rate categories, slots forced) of the case; 4 x 4 with
-# FUSED_SPILL_SLOTS runs fused_traversal.cu's fused_fixed, 3 rates its
-# fused_generic, and 20 states x 16 rates the rows kernel's spill plan
+# FUSED_SPILL_SLOTS runs fused_traversal.cu's fused_fixed, 3 rates with
+# 400 slots (more than one warp's block holds) its fused_generic, and 20
+# states x 16 rates the rows kernel's spill plan
 QUERY_SPILL = {"dna_q3_spill": (4, FUSED_SPILL_SLOTS),
                "dna_q5_spill_per_rate": (4, FUSED_SPILL_SLOTS),
-               "dna_q3_rates3": (3, None), "aa_q3_rates16": (16, None)}
+               "dna_q3_rates3": (3, 400), "aa_q3_rates16": (16, None)}
 
 
 @pytest.mark.parametrize("case", sorted(QUERY_CASES))
@@ -1622,11 +1715,21 @@ def test_partitioned_engine_on_card_matches_single_engines(cuda):
 # the float64 walk (csrc/fused_traversal.cu's fused_generic on double, the
 # certified evaluation's): name -> (taxa, sites, states, rates, raw tips);
 # 'caterpillar' (300 taxa of random columns) rescales in float64's 2^-256
-# window
+# window; 'wide' reaches 4 warps a block, 'flagship_sites' (the flagship's
+# 3581 patterns) 2; 16 rates x 32 states spill with P read through L1
 F64_CASES = {"dna": (16, 1000, 4, 4, False), "rates3": (16, 700, 4, 3, False),
              "states5": (16, 700, 5, 4, False),
              "protein": (16, 500, 20, 4, False), "raw": (16, 900, 4, 4, True),
-             "caterpillar": (300, 300, 4, 4, False)}
+             "caterpillar": (300, 300, 4, 4, False),
+             "rates1": (16, 1000, 4, 1, False),
+             "rates8": (16, 700, 4, 8, False),
+             "states32": (16, 300, 32, 2, False),
+             "raw_protein": (16, 400, 20, 4, True),
+             "spill_rates16_states32": (16, 300, 32, 16, False),
+             "wide": (24, 16384, 4, 4, False),
+             "flagship_sites": (24, 3581, 4, 4, False)}
+# the float64 walk's plan for each (generic_plan, itemsize 8)
+F64_PLANS = {"spill_rates16_states32": "spill"}
 
 
 @pytest.mark.parametrize("case", sorted(F64_CASES))
@@ -1643,7 +1746,8 @@ def test_float64_walk_matches_plain_on_card(cuda, case):
     tree = (_caterpillar(taxa) if case == "caterpillar"
             else random_utree([f"t{i}" for i in range(taxa)], seed=5))
     alphabet = AA_NOISY if states == 20 else (
-        "ACGTX-" if states == 5 else "ACGT-NRY")
+        "ACGTX-" if states == 5 else "ACGT-NRY" if states == 4
+        else LETTERS32[:states] + "-")
 
     def build(device, dtype):
         part = _engine(tree, sites, device, dtype=dtype, rates=rates,
@@ -1659,6 +1763,12 @@ def test_float64_walk_matches_plain_on_card(cuda, case):
     part = build(cuda, torch.float32)
     ops, branches, pidx = create_operations(traverse(tree.vroot))
     walk = df64.walk_inputs(part, tree, ops, branches, pidx)
+    plan = _kernels.device_generic_plan(
+        cuda, rates, states, walk["n_slots"], False, sites, itemsize=8,
+        raw_tips=raw)
+    assert plan.plan == F64_PLANS.get(case, "on-chip")
+    if case.startswith(("wide", "flagship")):
+        assert plan.warps == (4 if case == "wide" else 2)
     before = fused.fused_traversal_f64.launches
     got = fused.fused_traversal_f64(**walk)
     torch.cuda.synchronize()

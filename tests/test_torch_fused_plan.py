@@ -1,20 +1,32 @@
-"""The DNA fused kernel's plan (libpll2_tpu_torch/ops/_kernels.py:
-fused_plan), a pure function of the shape, the site count and the device:
-4 states x 4 rates run on chip (a block's slots and counts in shared
-memory, a producer warp staging each op's inputs), 4 threads holding the
-4 rates of two sites (2 threads a site) where blocks of 64 sites still
-reach FUSED_SPT2_SM_SHARE of the SMs and fit, else of one site (4 threads
-a site), and spill to device memory where neither fits; every other size
-takes the spill plan's runtime-size body.
+"""The fused kernel's plans (libpll2_tpu_torch/ops/_kernels.py), pure
+functions of the shape, the site count and the device.
+
+`fused_plan`: 4 states x 4 rates run on chip (a block's slots and counts
+in shared memory, a producer warp staging each op's inputs), 4 threads
+holding the 4 rates of two sites (2 threads a site) where blocks of 64
+sites still reach FUSED_SPT2_SM_SHARE of the SMs and fit, else of one site
+(4 threads a site), and spill to device memory where neither fits; every
+other size takes the runtime-size body's plan.
 The bytes are those of the layout in csrc/fused_traversal.cu
-(onchip_smem_words), which refuses a launch whose count differs. An H100
-has 132 SMs and lets a block use 232,448 bytes."""
+(onchip_smem_words), which refuses a launch whose count differs.
+
+`generic_plan`, the runtime-size body's (fused_generic, float32 and the
+float64 walk): a site's rates on G neighbouring lanes, the state count
+padded to an instantiated width, compute warps a block from the sites, the
+candidates and the SM count, on chip with the deepest ring that fits, else
+spilled with P read through L1; its bytes are generic_layout's in
+csrc/fused_traversal.cu. An H100 has 132 SMs and lets a block use 232,448
+bytes."""
 import pytest
 
 from libpll2_tpu_torch.ops._kernels import (FUSED_COMPUTE_THREADS,
                                             FUSED_DEPTH, FUSED_SPILL_BLOCK,
-                                            FUSED_SPT2_SM_SHARE, FusedPlan,
-                                            fused_onchip_bytes, fused_plan)
+                                            FUSED_SPT2_SM_SHARE,
+                                            GENERIC_DEPTHS, GENERIC_MAX_WARPS,
+                                            GENERIC_WIDTHS, FusedPlan,
+                                            GenericPlan, fused_onchip_bytes,
+                                            fused_plan, generic_bytes,
+                                            generic_plan, spill_slots)
 
 H100, SMS = 232448, 132
 DNA = 16384          # the DNA main path: 128 taxa, 7 slots
@@ -118,11 +130,22 @@ def test_spill_at_a_large_slot_count(sites, rate_scalers):
     assert fused_onchip_bytes(250, 1) > H100
 
 
-@pytest.mark.parametrize("rates,states", [(3, 4), (4, 5), (1, 4), (16, 4),
-                                          (4, 2), (8, 15)])
-def test_other_sizes_take_the_runtime_size_body(rates, states):
+@pytest.mark.parametrize("rates,states,lanes,width", [
+    (3, 4, 4, 4), (4, 5, 4, 8), (1, 4, 1, 4), (16, 4, 16, 4), (4, 2, 4, 4),
+    (8, 15, 8, 16), (8, 4, 8, 4), (33, 4, 32, 4), (2, 9, 2, 16),
+    (5, 16, 8, 16)])
+def test_other_sizes_take_the_runtime_size_body(rates, states, lanes, width):
+    """Every float32 shape but 4 x 4 takes the runtime-size body's plan:
+    on chip at 7 slots, a site's rates on `lanes` lanes (rates a lane
+    above 32), P padded to the instantiated `width`."""
     for sites in (NARROW, DNA):
-        assert _plan(7, sites, rates=rates, states=states) == SPILL
+        plan = _plan(7, sites, rates=rates, states=states)
+        assert isinstance(plan, GenericPlan) and plan.plan == "on-chip"
+        assert plan == generic_plan(rates, states, 7, False, H100, sites,
+                                    SMS)
+        assert (plan.threads_per_site, plan.padded_states) == (lanes, width)
+        assert plan.rates_per_lane == -(-rates // lanes)
+        assert plan.sites_per_block == 32 * plan.warps // lanes
 
 
 def test_every_accepted_4x4_shape_has_a_plan():
@@ -179,7 +202,164 @@ def test_candidates_spill_as_one_topology_does(k):
     assert _plan(250, DNA) == SPILL
     assert fused_plan(4, 4, 250, False, H100, DNA, SMS, candidates=k) \
         == SPILL
-    assert fused_plan(3, 4, 7, False, H100, DNA, SMS, candidates=k) \
-        == SPILL
+    assert fused_plan(3, 4, 7, False, H100, DNA, SMS, candidates=k).plan \
+        == "on-chip"
+    assert fused_plan(3, 4, 1000, False, H100, DNA, SMS,
+                      candidates=k).plan == "spill"
     with pytest.raises(ValueError):
         fused_plan(4, 4, 7, False, H100, DNA, SMS, candidates=0)
+
+
+# the runtime-size body (generic_plan): float32 and the float64 walk
+FLAGSHIP = 3581       # the flagship's 1000 x 4000 alignment's patterns
+PROTEIN = 8192        # the protein main path: 128 taxa, 6 slots
+
+
+def _gwords(onchip, rates, states, n_slots, rate_scalers, itemsize, width,
+            warps, depth, raw):
+    """generic_layout's 4-byte words, spelled out part by part."""
+    lanes = 32 * warps
+    g = min(32, 1 << (rates - 1).bit_length())
+    rpl, sites = -(-rates // g), lanes // g
+    barriers = 2 * depth * 2                  # full and empty, 8 bytes each
+    p = 2 * rates * (width * width * itemsize // 4 + 4) if onchip else 0
+    codes = 2 * (-(-sites // 4) * 4)          # 2 children, rounded to 16 B
+    tips = -(-2 * states * sites * itemsize // 16) * 4 if raw else 0
+    ring = barriers + depth * (8 + p + codes + tips)
+    if not onchip:
+        return ring
+    slots = n_slots * rpl * states * lanes * itemsize // 4
+    counts = n_slots * (rpl if rate_scalers else 1) * lanes
+    return ring + slots + counts
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("rate_scalers", [False, True])
+@pytest.mark.parametrize("raw", [False, True])
+def test_generic_bytes_follow_the_layout(itemsize, rate_scalers, raw):
+    for rates, states in ((1, 4), (3, 4), (4, 5), (8, 15), (33, 4),
+                          (4, 16)):
+        width = next(w for w in GENERIC_WIDTHS[itemsize] if w >= states)
+        for onchip in (True, False):
+            for warps in (1, 2, 4):
+                for depth in GENERIC_DEPTHS:
+                    got = generic_bytes(onchip, rates, states, 7,
+                                        rate_scalers, itemsize, width, warps,
+                                        depth, raw)
+                    assert got == 4 * _gwords(onchip, rates, states, 7,
+                                              rate_scalers, itemsize, width,
+                                              warps, depth, raw)
+                    assert got % 16 == 0
+
+
+def test_generic_bytes_of_the_main_shapes():
+    """DNA at 8 rates, 4 warps: a ring of 4 entries (1,440 bytes an entry:
+    the row, P of 2 sides x 8 rates at 20 words, 16 sites' codes of 2
+    children), 2,560 bytes a slot (128 lanes' 4 floats and counts); the
+    float64 protein (20 states) at 4 warps: 25,728 bytes of P an entry,
+    20,992 a slot, so 6 slots leave room for a ring of 4."""
+    assert generic_bytes(True, 8, 4, 7, False, 4, 4, 4, 4, False) \
+        == 64 + 4 * (32 + 2 * 8 * 80 + 2 * 16 * 4) + 7 * (2048 + 512) \
+        == 23744
+    entry = 32 + 2 * 4 * 804 * 4 + 2 * 32 * 4
+    assert generic_bytes(True, 4, 20, 6, False, 8, 20, 4, 4, False) \
+        == 64 + 4 * entry + 6 * (20 * 128 * 8 + 128 * 4) == 230080
+
+
+@pytest.mark.parametrize("itemsize,states,width", [
+    (4, 1, 4), (4, 2, 4), (4, 4, 4), (4, 5, 8), (4, 8, 8), (4, 9, 16),
+    (4, 15, 16), (4, 16, 16), (8, 2, 4), (8, 4, 4), (8, 5, 8), (8, 12, 16),
+    (8, 17, 20), (8, 20, 20), (8, 21, 32), (8, 32, 32)])
+def test_instantiated_width_for_each_state_count(itemsize, states, width):
+    plan = generic_plan(4, states, 7, False, H100, NARROW, SMS,
+                        itemsize=itemsize)
+    assert plan.padded_states == width
+    assert width in GENERIC_WIDTHS[itemsize]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("rates", [1, 3, 8, 33])
+def test_generic_spills_at_a_large_slot_count(itemsize, rates):
+    """The slots of one warp's sites do not fit at 2000 slots: spilled,
+    P through L1 (the ring holds the rows and tips only), the warps the
+    sites ask for, and the walk's slots in device memory."""
+    plan = generic_plan(rates, 4, 2000, False, H100, DNA, SMS,
+                        itemsize=itemsize)
+    onchip = generic_plan(rates, 4, 7, False, H100, DNA, SMS,
+                          itemsize=itemsize)
+    assert plan.plan == "spill" and plan.depth == GENERIC_DEPTHS[0]
+    assert plan.warps == onchip.warps
+    assert plan.smem_bytes == generic_bytes(False, rates, 4, 2000, False,
+                                            itemsize, 4, plan.warps,
+                                            plan.depth, False)
+    assert spill_slots(plan, 2000) == 2000
+    assert onchip.plan == "on-chip" and spill_slots(onchip, 7) == 0
+
+
+def test_generic_spills_where_p_does_not_fit():
+    """float64 at 16 rates x 32 states: P's two sides take 262,656 bytes
+    an entry, more than a block has, so the walk spills and reads P
+    through L1 whatever its slots; 4 rates fit at one warp and a ring of
+    2."""
+    assert 2 * 16 * (32 * 32 * 2 + 4) * 4 > H100
+    for n_slots in (1, 7):
+        plan = generic_plan(16, 32, n_slots, False, H100, 300, SMS,
+                            itemsize=8)
+        assert plan.plan == "spill"
+    plan = generic_plan(4, 32, 1, False, H100, 300, SMS, itemsize=8)
+    assert (plan.plan, plan.warps, plan.depth) == ("on-chip", 1, 2)
+
+
+def test_the_ring_shallows_before_the_warps_drop():
+    """The float64 protein at 4 warps: a ring of 4 fits 6 slots, of 2 a
+    seventh and more; only then do the warps drop."""
+    plans = [generic_plan(4, 20, n, False, H100, PROTEIN, SMS, itemsize=8)
+             for n in (6, 7, 8)]
+    assert [(p.warps, p.depth) for p in plans] == [(4, 4), (4, 2), (4, 2)]
+    assert all(p.smem_bytes <= H100 for p in plans)
+    assert generic_bytes(True, 4, 20, 7, False, 8, 20, 4, 4, False) > H100
+
+
+@pytest.mark.parametrize("states,itemsize", [(4, 8), (4, 4), (5, 4)])
+def test_the_flagships_sites_reach_every_sm(states, itemsize):
+    """3581 sites at 4 rates (8 sites a warp): 4 warps a block would give
+    112 blocks, so a block takes 2 warps, 224 blocks; and at any width
+    the blocks reach every SM, or the block is one warp."""
+    plan = generic_plan(4, states, 20, False, H100, FLAGSHIP, SMS,
+                        itemsize=itemsize)
+    assert (plan.warps, plan.sites_per_block) == (2, 16)
+    assert -(-FLAGSHIP // plan.sites_per_block) >= SMS
+    assert -(-FLAGSHIP // (2 * plan.sites_per_block)) < SMS
+    for sites in (1, 100, 1000, FLAGSHIP, 4224, 4225, DNA, 10 ** 6):
+        for rates in (1, 3, 8, 33):
+            p = generic_plan(rates, states, 7, False, H100, sites, SMS,
+                             itemsize=itemsize)
+            assert p.warps == 1 or -(-sites // p.sites_per_block) >= SMS
+
+
+@pytest.mark.parametrize("k,warps", [(1, 2), (2, GENERIC_MAX_WARPS),
+                                     (64, GENERIC_MAX_WARPS)])
+def test_generic_candidates_count_their_blocks_together(k, warps):
+    """The DNA problem without +G (1 rate, 32 sites a warp): one walk at
+    16384 sites fills 132 SMs with blocks of 2 warps, K walks with 4."""
+    plan = generic_plan(1, 4, 7, False, H100, DNA, SMS, candidates=k)
+    assert plan.warps == warps
+
+
+def test_generic_refuses_what_no_plan_takes():
+    for kw in (dict(states=17), dict(states=0), dict(rates=0),
+               dict(n_slots=0), dict(sites=0), dict(candidates=0),
+               dict(states=33, itemsize=8), dict(states=1, itemsize=8),
+               dict(itemsize=2)):
+        args = dict(rates=4, states=5, n_slots=7, sites=DNA, candidates=1,
+                    itemsize=4)
+        args.update(kw)
+        with pytest.raises(ValueError):
+            generic_plan(args["rates"], args["states"], args["n_slots"],
+                         False, H100, args["sites"], SMS, args["candidates"],
+                         args["itemsize"])
+    # a device whose blocks cannot hold even the spill plan's ring
+    with pytest.raises(ValueError):
+        generic_plan(4, 5, 7, False, 256, DNA, SMS)
+    with pytest.raises(ValueError):
+        fused_plan(4, 17, 7, False, H100, DNA, SMS)

@@ -493,16 +493,19 @@ def test_query_edge_split_counts_spill_slots(monkeypatch):
 
     smem, sms = 227 * 1024, 132
     fixed = _kernels.fused_plan(4, 4, 250, False, smem, 1000, sms)
-    generic = _kernels.fused_plan(3, 4, 12, False, smem, 1000, sms)
+    generic = _kernels.fused_plan(3, 4, 2000, False, smem, 1000, sms)
     onchip = _kernels.fused_plan(4, 4, 12, False, smem, 1000, sms)
+    generic_onchip = _kernels.fused_plan(3, 4, 12, False, smem, 1000, sms)
     rows = _kernels.rows_plan(16, 32, 12, False, smem, 300, sms)
     rows_onchip = _kernels.rows_plan(4, 20, 12, False, smem, 300, sms)
-    assert [pl.plan for pl in (fixed, generic, onchip, rows, rows_onchip)] \
-        == ["spill", "spill", "on-chip", "spill", "on-chip"]
-    assert _kernels.spill_slots(fixed, 250) == 251
-    assert _kernels.spill_slots(generic, 12) == 13
+    assert [pl.plan for pl in (fixed, generic, onchip, generic_onchip, rows,
+                               rows_onchip)] \
+        == ["spill", "spill", "on-chip", "on-chip", "spill", "on-chip"]
+    assert _kernels.spill_slots(fixed, 250) == 250
+    assert _kernels.spill_slots(generic, 2000) == 2000
     assert _kernels.spill_slots(rows, 12) == 12
     assert _kernels.spill_slots(onchip, 12) == 0
+    assert _kernels.spill_slots(generic_onchip, 12) == 0
     assert _kernels.spill_slots(rows_onchip, 12) == 0
     # the CPU's plain version bounds its own slots
     assert tfused.query_spill_slots("cpu", 3, 4, 12, False, 300) == 0
