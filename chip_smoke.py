@@ -8,6 +8,7 @@
     python3 chip_smoke.py --pool-only CHECKOUT
     python3 chip_smoke.py --levels-only CHECKOUT
     python3 chip_smoke.py --mesh-only
+    python3 chip_smoke.py --states64-only
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit's nvcc and PyTorch built for CUDA; jax is not needed. Phases,
@@ -315,6 +316,33 @@ each fatal on failure:
      the unsharded call, and loglikelihood(), newton_step() and the rounds
      sharded beside unsharded. `--mesh-only` runs this phase alone (after
      the build) and prints its numbers as one JSON line.
+ 26. alphabets of 33-64 states and float64 partitions on the card: the
+     `-Xptxas -v` registers and spills of the level and pool kernels'
+     64-state instantiations (csrc/states64.cuh; no spills allowed); each
+     against its plain version (scaler rows equal but at ties, CLVs
+     TOL_CLV): the level kernel at 40 states, 61 per rate, the 80-taxon
+     caterpillar at 61 (scaling must trigger), an op that writes its own
+     child and the full-width 61-state problem, the pool kernel at 40
+     states, 61 per rate and the conserved full-width problem (one rate
+     warp a column); a codon-sized alphabet at full width (61 states, the
+     DNA main path's tree, 128 taxa x 4096 sites simulated under seeded
+     GTR parameters, Gamma(0.7) x 4): the step-by-step chain, a partial
+     traversal and 'levels-kernel' with three Newton steps against the
+     float64 plain path on the card, the default engine's route
+     ('levels-kernel'), one maximize_fused step of the frequencies (121
+     trials) on the level kernel's trial form held chunk by chunk against
+     its plain version; its conserved twin as a repeats partition on the
+     default 'pool-pallas' (loglikelihood(), newton_step(), a
+     maximize_fused step on the pool kernel's trial form); launches
+     counted, each kernel's call, plain time, device time (torch.profiler)
+     and bound over one traversal; then float64 partitions on the card
+     (JAX's routes for float64: 'levels', 'scan', 'pool', no kernel
+     launch): bench.py's DNA problem (loglikelihood(), newton_step(), the
+     step-by-step API's full and partial traversals, the first iteration
+     of a streamed SPR round at radius 2, one newton_smooth_all pass at 2
+     iterations an edge) and the 246 x 4465 repeats problem, each against
+     float64 on the CPU (logL 1e-12, d1/d2 1e-10), the calls' ms beside
+     the float32 fused call's. `--states64-only` runs this phase alone.
 
 The last three lines are the card's name and power limit, one JSON object
 listing every kernel (with its bound at the card's peaks), and {"ok": true,
@@ -369,6 +397,7 @@ AA_TAXA, AA_SITES, AA_SEED = 128, 8192, 11   # tools/benchmarks.py:163
 # AA columns with ambiguity codes and gaps (B = N|D, Z = Q|E, X = any)
 AA_NOISY = "ARNDCQEGHILKMFPSTWYV" * 2 + "BZX-"
 LETTERS32 = "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdef"
+LETTERS64 = LETTERS32 + "ghijklmnopqrstuvwxyz0123456789@#"
 # Root CLVs: kernel vs plain version, both float32, relative to each site's
 # largest entry. The kernel's FMAs round differently from PyTorch's einsum
 # order; the error grows with the tree's depth (about 1e-6 at 80 levels).
@@ -728,7 +757,7 @@ def main_path(device):
 
 
 def charmap(states: int):
-    """map_aa for 20 states; otherwise the first `states` of LETTERS32,
+    """map_aa for 20 states; otherwise the first `states` of LETTERS64,
     with '-' for every state."""
     import numpy as np
     from libpll2_tpu_torch.io import maps
@@ -736,7 +765,7 @@ def charmap(states: int):
     if states == 20:
         return maps.map_aa
     cm = np.zeros(256, np.uint64)
-    for i, ch in enumerate(LETTERS32[:states]):
+    for i, ch in enumerate(LETTERS64[:states]):
         cm[ord(ch)] = 1 << i
     cm[ord("-")] = (1 << states) - 1
     return cm
@@ -1469,17 +1498,18 @@ def repeats_partition(tree, by_label, sites, device, states=4, rate_cats=4,
     references), tips installed in one batch; 20 states under LG, DNA under
     `model` (a second matrix from SEED with `rate_matrices` 2), other
     alphabets (`charmap`) under random GTR parameters from SEED; `options`
-    (rate_scalers, asc_bias) go to Partition."""
+    (rate_scalers, asc_bias, dtype) go to Partition."""
     import numpy as np
     import torch
     from libpll2_tpu_torch import Partition, compute_gamma_cats
     from libpll2_tpu_torch.io import maps
     from libpll2_tpu_torch.models import load_aa_model
 
+    options.setdefault("dtype", torch.float32)
     part = Partition(tree.tip_count, tree.inner_count, states, sites,
                      rate_matrices, tree.edge_count, rate_cats,
-                     tree.inner_count, device=device, dtype=torch.float32,
-                     site_repeats=repeats, **options)
+                     tree.inner_count, device=device, site_repeats=repeats,
+                     **options)
     tips = list(tree.tips())
     part.set_tip_states_batch(maps.map_nt if states == 4
                               else charmap(states),
@@ -5423,6 +5453,50 @@ def modelselect_check(device, gpu):
     return {"ranking": [r["model"] for r in rows], "s": s}
 
 
+def maximize_step_case(label, eng, tree, groups, gpu):
+    """One maximize_fused step on a kernel engine: its trials held against
+    the path's plain version first (`trial_step`); on 'levels-kernel' and
+    'pool-pallas' the trial form of the level and pool kernels (B-3b) held
+    chunk by chunk against its plain version and timed (`trial_form_case`);
+    then the step itself, its launches counted: one a level (or, at 4x4 on
+    the pool, one a traversal) for each chunk of its 2n+1 trials and of
+    its final pair ('repeats-dense-fused': one launch each). Returns (the
+    trial step's record with step_ms and step_launches, the trial form's
+    record or None)."""
+    import torch
+    from libpll2_tpu_torch.optimize import maximize_fused
+
+    path = eng.execution_path
+    want = {"levels-kernel": "level", "repeats-dense-fused": "fused",
+            "pool-pallas": "pool"}[path]
+    o = trial_step(label, eng, groups, gpu, timed=False)
+    form = None
+    if path != "repeats-dense-fused":
+        form = trial_form_case(label, eng, tree, groups, gpu)
+        step_want = (trial_chunks(eng, o["k"]) + trial_chunks(eng, 2)) \
+            * trial_launches(eng)
+    else:
+        step_want = 2
+    lk0 = eng.loglikelihood()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    lk1, _, hist = maximize_fused(eng, groups, steps=1)
+    torch.cuda.synchronize()
+    o["step_ms"] = (time.perf_counter() - t0) * 1e3
+    o["step_launches"] = counts()
+    print(f"{label}: one maximize_fused step on {path!r}: logL {lk0!r} -> "
+          f"{lk1!r}, {o['step_ms']:.1f} ms (host clock), launches "
+          f"{o['step_launches']} ({o['k']} trials and a final pair, "
+          f"{trial_chunks(eng, o['k'])} + {trial_chunks(eng, 2)} "
+          f"chunk(s))", flush=True)
+    check_counts(f"{label}: a maximize_fused step on {path!r}",
+                 o["step_launches"], {want: step_want})
+    check(lk1 >= lk0 - 1e-2, f"{path!r}: a step lowered logL {lk0} -> "
+          f"{lk1}")
+    return o, form
+
+
 def optimize_phase(device, gpu, flagship, aa_tree, aa_by):
     """Phase 21, model optimization: DNA 128 x 16384 GTR+G4 on 'fused'
     (maximize_loglikelihood of subst and freqs, the Gamma shape and p-inv by
@@ -5500,34 +5574,9 @@ def optimize_phase(device, gpu, flagship, aa_tree, aa_by):
                 aa_make(device), aa_tree), "pool", ("freqs",))):
         o_part, t = make()
         o_eng = TreeEngine(o_part, t, pallas=pallas)
-        path = o_eng.execution_path
-        want = {"levels-kernel": "level", "repeats-dense-fused": "fused",
-                "pool-pallas": "pool"}[path]
-        o = trial_step(label, o_eng, grp, gpu, timed=False)
-        if path != "repeats-dense-fused":
-            trial_forms[key] = trial_form_case(label, o_eng, t, grp, gpu)
-            step_want = (trial_chunks(o_eng, o["k"]) + trial_chunks(
-                o_eng, 2)) * trial_launches(o_eng)
-        else:
-            step_want = 2
-        lk0 = o_eng.loglikelihood()
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        lk1, _, hist = maximize_fused(o_eng, grp, steps=1)
-        torch.cuda.synchronize()
-        o["step_ms"] = (time.perf_counter() - t0) * 1e3
-        o["step_launches"] = counts()
-        print(f"{label}: one maximize_fused step on {path!r}: logL {lk0!r} "
-              f"-> {lk1!r}, {o['step_ms']:.1f} ms (host clock), launches "
-              f"{o['step_launches']} ({o['k']} trials and a final pair, "
-              f"{trial_chunks(o_eng, o['k'])} + {trial_chunks(o_eng, 2)} "
-              f"chunk(s))", flush=True)
-        check_counts(f"{label}: a maximize_fused step on {path!r}",
-                     o["step_launches"], {want: step_want})
-        check(lk1 >= lk0 - 1e-2, f"{path!r}: a step lowered logL {lk0} -> "
-              f"{lk1}")
-        others[key] = o
+        others[key], form = maximize_step_case(label, o_eng, t, grp, gpu)
+        if form is not None:
+            trial_forms[key] = form
         del o_eng, o_part
     grad = gradient_check(device, by, gpu)
     ms = modelselect_check(device, gpu)
@@ -7359,6 +7408,487 @@ def mesh_phase(device, gpu, big, big_by, aa_tree, aa_by, flagship):
     return out
 
 
+# phase 26: alphabets of 33 to 64 states and float64 partitions on the card.
+# A codon-sized alphabet (61 states: the sense codons) at a concatenated-gene
+# length: the DNA main path's tree (128 taxa, random_utree seed 7), 4096
+# sites simulated by utils/simulate.py under seeded GTR exchangeabilities
+# and frequencies (S64_SEED) with Gamma(0.7) x 4, evaluated under the same
+# model; its repeats twin on the same tree shortened to 0.15 len + 0.001
+# (conserved). The level and pool kernels run it through their 64-state
+# instantiations (csrc/states64.cuh). S64_SMALL is the 40-state, per-rate
+# and caterpillar cases' width; S64_GROUPS the maximize_fused step's group
+# (60 free frequencies: 121 trials, where the 1,830 exchangeabilities would
+# give 3,661). The float64 partitions are bench.py's DNA problem and the
+# 246 x 4465 repeats problem, each against float64 on the CPU; the streamed
+# SPR iteration runs at radius S64_F64_RADIUS and the sweep pass at
+# S64_F64_ITERATIONS Newton iterations an edge (reduced depth: the CPU
+# reference must run it too).
+S64_STATES, S64_SITES, S64_SEED = 61, 4096, 26
+S64_SMALL = 1000
+S64_GROUPS = ("freqs",)
+S64_F64_RADIUS = 2
+S64_F64_ITERATIONS = 2
+# float64 on the card against float64 on the CPU: logL and d1/d2, relative
+# (d1/d2 with a floor of 1e-3)
+TOL_F64_LOGL = 1e-12
+TOL_F64_D = 1e-10
+S64_KERNELS = ("level_generic64", "pool_generic64")
+
+
+def s64_model(states):
+    """The seeded GTR frequencies and exchangeabilities of an alphabet of
+    `states` letters."""
+    import numpy as np
+
+    rng = np.random.default_rng(S64_SEED + states)
+    return (rng.dirichlet(np.ones(states) * 5),
+            rng.uniform(0.5, 2.0, states * (states - 1) // 2))
+
+
+def s64_problem(taxa, sites, states=S64_STATES, conserved=False,
+                caterpillar=False):
+    """(tree, {label: sequence}) of `states` letters (LETTERS64) simulated
+    under `s64_model` with Gamma(0.7) x 4 on random_utree(seed 7) of
+    `taxa` taxa (or a caterpillar), conserved: its branches shortened to
+    0.15 len + 0.001."""
+    from libpll2_tpu_torch.trees import parse_newick, random_utree
+    from libpll2_tpu_torch.utils import simulate_alignment
+
+    tree = (parse_newick(caterpillar_newick(taxa)) if caterpillar
+            else random_utree([f"t{i}" for i in range(taxa)], seed=SEED))
+    if conserved:
+        conserve(tree, 0.15, 0.001)
+    freqs, subst = s64_model(states)
+    headers, seqs = simulate_alignment(tree, sites, freqs, subst, alpha=0.7,
+                                       seed=S64_SEED,
+                                       alphabet=LETTERS64[:states])
+    return tree, dict(zip(headers, seqs))
+
+
+def s64_partition(tree, by_label, sites, device, states=S64_STATES,
+                  repeats=False, **options):
+    """A float32 partition of `s64_problem`'s data (dense, or site repeats)
+    under `s64_model` with Gamma(0.7) x 4; `options` go to Partition."""
+    import torch
+    from libpll2_tpu_torch import Partition, compute_gamma_cats
+
+    options.setdefault("dtype", torch.float32)
+    part = Partition(tree.tip_count, tree.inner_count, states, sites, 1,
+                     tree.edge_count, 4, tree.inner_count, device=device,
+                     site_repeats=repeats, **options)
+    tips = list(tree.tips())
+    part.set_tip_states_batch(charmap(states),
+                              [by_label[t.label] for t in tips],
+                              [t.clv_index for t in tips])
+    freqs, subst = s64_model(states)
+    part.set_frequencies(0, freqs)
+    part.set_subst_params(0, subst)
+    part.set_category_rates(compute_gamma_cats(0.7, 4))
+    return part
+
+
+def ptxas_report(lib_path, names=S64_KERNELS):
+    """{kernel: (registers, spill stores, spill loads) of each
+    instantiation} from the build's `-Xptxas -v` log, for the kernels whose
+    mangled names hold one of `names`."""
+    import re
+
+    log = lib_path.with_suffix(".log")
+    out, current = {}, None
+    if not log.exists():
+        return out
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            form = "trials" if "ILb1E" in m.group(1) else "one topology"
+            current = next((f"{n}<{form}>" for n in names
+                            if n in m.group(1)), None)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(current, {})["spills"] = (int(m.group(1)),
+                                                     int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(current, {})["registers"] = int(m.group(1))
+            current = None
+    return out
+
+
+def s64_kernel_cases(device):
+    """Phase 26a: the level and pool kernels' 64-state instantiations
+    against their plain versions on the card: 40 states and 61 per rate at
+    16 x S64_SMALL, the 80-taxon caterpillar at 61 states (scaling must
+    trigger), an op that writes its own child, and the full-width 61-state
+    problem; pool cases at 40 states, 61 per rate and the conserved
+    full-width problem, each level one rate warp a column. Returns the
+    largest absolute error of each kernel."""
+    level_err, pool_err = 0.0, 0.0
+    for name, taxa, sites, states, kw in (
+            ("40 states", 16, S64_SMALL, 40, {}),
+            ("61 states, per rate", 16, S64_SMALL, 61,
+             {"rate_scalers": True}),
+            ("61 states, caterpillar", 80, S64_SMALL, 61,
+             {"caterpillar": True}),
+            ("61 states, an op writing its own child", 16, S64_SMALL, 61,
+             {"self_child": True}),
+            (f"61 states, {N_TAXA} x {S64_SITES}", N_TAXA, S64_SITES, 61,
+             {})):
+        cat, self_child = kw.pop("caterpillar", False), kw.pop("self_child",
+                                                               False)
+        tree, by = s64_problem(taxa, sites, states, caterpillar=cat)
+        part = s64_partition(tree, by, sites, device, states, **kw)
+        ops = traversal_ops(part, tree)[0]
+        if self_child:
+            err = compare_level_case(name, part, [self_child_op(
+                ops, part.tips)], first=ops)[1]
+        else:
+            err = compare_level_case(name, part, ops, must_scale=cat)[1]
+        level_err = max(level_err, err)
+        del part
+    for name, taxa, sites, states, kw in (
+            ("40 states", 24, S64_SMALL, 40, {}),
+            ("61 states, per rate", 24, S64_SMALL, 61,
+             {"rate_scalers": True}),
+            (f"61 states, conserved {N_TAXA} x {S64_SITES}", N_TAXA,
+             S64_SITES, 61, {})):
+        tree, by = s64_problem(taxa, sites, states, conserved=True)
+        part = s64_partition(tree, by, sites, device, states, repeats=True,
+                             **kw)
+        ops = traversal_ops(part, tree)[0]
+        pool_err = max(pool_err, compare_pool_case(name, part, ops,
+                                                   layouts={1})[1])
+        del part
+    return level_err, pool_err
+
+
+def s64_dense_path(device, gpu):
+    """Phase 26b: the 61-state problem at full width on the dense paths:
+    the step-by-step chain, a partial traversal and 'levels-kernel' with
+    three Newton steps (`dense_main_path`, against the float64 plain path
+    on the card), the default engine's route ('levels-kernel': the fused
+    kernels take at most 32 states), one maximize_fused step on the level
+    kernel's trial form; then the level kernel's call over one traversal
+    beside its plain version's, its device time (torch.profiler) and its
+    bound."""
+    from libpll2_tpu_torch import TreeEngine
+
+    tree, by = s64_problem(N_TAXA, S64_SITES)
+    dense = dense_main_path(
+        device, f"{S64_STATES}-state", tree, by, S64_SITES,
+        lambda t, b, sites, dev: s64_partition(t, b, sites, dev))
+    launches, n_levels, part, eng, ops = dense
+    default = TreeEngine(part, tree)
+    check(default.execution_path == "levels-kernel",
+          f"61 states: the default engine took {default.execution_path!r}")
+    want = TreeEngine(part, tree, pallas="levels-kernel").loglikelihood()
+    got = default.loglikelihood()
+    check(got == want, f"61 states: the default engine's logL {got!r} is "
+          f"not 'levels-kernel''s {want!r}")
+    step, form = maximize_step_case(f"{S64_STATES} states", default, tree,
+                                    S64_GROUPS, gpu)
+    kernel, plain, logl, step_ms = level_times(f"{S64_STATES}-state", part,
+                                               eng, ops, gpu)
+    dev = level_device(f"{S64_STATES}-state", part, ops, gpu)
+    return {"launches": launches + step["step_launches"]["level"],
+            "levels": n_levels, "ms": kernel, "plain_ms": plain,
+            "loglikelihood_ms": logl, "step_by_step_ms": step_ms,
+            "device_ms": dev["ms"], "level_us": dev["level_us"],
+            "bound": (dev["bound_ms"], dev["bound_by"]),
+            "trial": step, "trial_form": form,
+            "buffers_mb": part.clv_bytes() / 1e6}
+
+
+def s64_repeats_path(device, gpu):
+    """Phase 26c: the conserved 61-state problem at full width as a site
+    repeats partition: the default engine ('pool-pallas'),
+    loglikelihood() and one newton_step() against the float64 plain dense
+    path on the card, pool-kernel launches counted (one a level), one
+    maximize_fused step on the pool kernel's trial form; then the pool
+    kernel's call over one traversal beside its plain version's, its
+    device time (torch.profiler, a launch a level) and its bound from the
+    class counts."""
+    import copy
+
+    import torch
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.ops import pool
+
+    tree, by = s64_problem(N_TAXA, S64_SITES, conserved=True)
+    part = s64_partition(tree, by, S64_SITES, device, repeats=True)
+    eng = TreeEngine(part, tree)
+    check(eng.execution_path == "pool-pallas",
+          f"61-state repeats: the default engine took "
+          f"{eng.execution_path!r}")
+    reset_counts()
+    b0 = eng.branches.clone()
+    lnl = eng.loglikelihood()
+    b1 = eng.branches.clone()
+    step = eng.newton_step()
+    torch.cuda.synchronize()
+    got = counts()
+    per = pool_launches(eng._ops)
+    check_counts("61-state repeats: loglikelihood() + newton_step()", got,
+                 {"pool": 2 * per})
+    ops, _, _ = traversal_ops(part, tree)
+    dense = s64_partition(tree, by, S64_SITES, device)
+    r = tree.vroot
+    params = [0] * part.rate_cats
+    ref0 = f64_edge(dense, ops, b0.cpu().double(), params, r)
+    ref1 = f64_edge(dense, ops, b1.cpu().double(), params, r)
+    del dense
+    _, levels = pool.schedule_pool_levels(copy.deepcopy(part.repeats), ops,
+                                          part.tips, part.sites_padded,
+                                          part.scale_buffers)
+    cols, _ = pool.pool_work(levels)
+    print(f"repeats {S64_STATES}-state path: {part.tips} taxa x "
+          f"{part.sites} sites, {len(levels)} levels, class columns "
+          f"{cols / (len(ops) * part.sites):.4f} of plain work, buffers "
+          f"{part.clv_bytes() / 1e6:.1f} MB", flush=True)
+    check_logl("61-state pool-pallas loglikelihood()", lnl, ref0[0])
+    check_logl("61-state pool-pallas newton_step", step[0], ref1[0],
+               step[1:], ref1[1:3])
+    trial, form = maximize_step_case(f"{S64_STATES}-state repeats", eng,
+                                     tree, S64_GROUPS, gpu)
+    ms = median_ms(lambda: run_pool(part, ops))
+    plain = median_ms(lambda: run_pool(part, ops, pool.pool_update_reference),
+                      reps=3)
+    device_ms = pool_device(f"{S64_STATES}-state", part, ops, gpu)[0]
+    bound = pool_bound(part, levels)
+    print(f"pool times, {S64_STATES}-state {part.tips} x {part.sites} "
+          f"(median of {REPS}, CUDA events; {gpu}): kernel over "
+          f"{len(levels)} levels {ms:.4f} ms (device {device_ms:.4f} ms, "
+          f"bound {bound[0]:.4f} ms by {bound[1]}), plain {plain:.4f} ms",
+          flush=True)
+    return {"launches": 2 * per + trial["step_launches"]["pool"],
+            "levels": len(levels), "ms": ms, "plain_ms": plain,
+            "device_ms": device_ms, "bound": bound, "trial": trial,
+            "trial_form": form}
+
+
+def f64_streamed_scores(part, tree, **engine_kw):
+    """The streamed scores of the first iteration of an SPR round
+    (radius S64_F64_RADIUS) on `part`'s search engine (`engine_kw`), and
+    its execution path."""
+    from libpll2_tpu_torch.search import TreeSearch
+
+    s = TreeSearch(part, tree, **engine_kw)
+    s._ensure_engine()
+    score = s._summed_spr_scores
+    got = {}
+
+    def first(scheds, chunk):
+        got["scores"] = score(scheds, chunk)
+        raise _OneIteration
+
+    s._summed_spr_scores = first
+    try:
+        s.spr_round_streamed(radius=S64_F64_RADIUS)
+    except _OneIteration:
+        pass
+    return got["scores"], s._engine.execution_path
+
+
+def f64_step_by_step(part, tree):
+    """A full traversal and a partial one (after one branch length
+    changes) through the step-by-step API; the edge logL after each and
+    the root edge's d1, d2."""
+    from libpll2_tpu_torch.trees import create_operations, traverse
+
+    ops, br, pidx = create_operations(traverse(tree.vroot))
+    r = tree.vroot
+    params = [0] * part.rate_cats
+    edge = (r.clv_index, r.scaler_index, r.back.clv_index,
+            r.back.scaler_index, r.pmatrix_index)
+    part.update_prob_matrices(params, pidx, br)
+    part.update_partials(ops)
+    full = part.compute_edge_loglikelihood(*edge, params)
+    st = part.update_sumtable(r.clv_index, r.back.clv_index, r.scaler_index,
+                              r.back.scaler_index, params)
+    d = part.compute_likelihood_derivatives(st, params, r.length)
+    mat = next(o.child1_matrix_index for o in ops
+               if o.child1_clv_index < part.tips)
+    bad = set()
+    for o in ops:
+        if (mat in (o.child1_matrix_index, o.child2_matrix_index)
+                or o.child1_clv_index in bad or o.child2_clv_index in bad):
+            bad.add(o.parent_clv_index)
+    partial, _, _ = create_operations(traverse(
+        r, cbtrav=lambda n: not n.is_tip() and n.clv_index in bad))
+    part.update_prob_matrices(params, [mat], [3.0 * br[pidx.index(mat)]])
+    part.update_partials(partial)
+    return full, d, part.compute_edge_loglikelihood(*edge, params)
+
+
+def f64_close(what, got, want, tol=TOL_F64_LOGL, floor=0.0):
+    rel = abs(got - want) / max(abs(want), floor)
+    print(f"  {what}: {got!r} vs CPU {want!r} (rel {rel:.2e})", flush=True)
+    check(rel < tol, f"{what}: rel err {rel:.2e} >= {tol}")
+    return rel
+
+
+def f64_card_phase(device, gpu, big, big_by, flagship, eng32):
+    """Phase 26d: float64 partitions on the card, on the routes JAX takes
+    for float64 ('levels', 'scan', 'pool': the plain versions; no kernel
+    launches): bench.py's DNA problem and the 246 x 4465 repeats problem,
+    each against the same partition in float64 on the CPU:
+    loglikelihood() and newton_step() (TOL_F64_LOGL, d1/d2 TOL_F64_D), the
+    step-by-step API's full and partial traversals, the first iteration of
+    a streamed SPR round (every candidate's score) and one
+    newton_smooth_all pass (its logL and lengths); each call's ms beside
+    the float32 fused call's on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.optimize import newton_smooth_all
+
+    f64 = torch.float64
+    out = {}
+    parts = [dna_partition(big, big_by, N_SITES, dev, dtype=f64)
+             for dev in (device, "cpu")]
+    engines = [TreeEngine(p, big, pallas="auto" if p.device.type == "cuda"
+                          else False) for p in parts]
+    out["dna_path"] = engines[0].execution_path
+    check(out["dna_path"] == "levels", f"float64 DNA on the card took "
+          f"{out['dna_path']!r}, JAX's route is 'levels'")
+    reset_counts()
+    (lk, lk_ms), (st, st_ms) = timed(engines[0].loglikelihood), timed(
+        engines[0].newton_step)
+    step_by_step = f64_step_by_step(parts[0], big)
+    check_counts("float64 DNA on the card: loglikelihood(), newton_step(), "
+                 "the step-by-step API", counts(), {})
+    out["dna_loglikelihood_ms"] = median_ms(engines[0].loglikelihood, reps=5)
+    out["dna_newton_step_ms"] = st_ms
+    out["f32_fused_loglikelihood_ms"] = median_ms(eng32.loglikelihood,
+                                                  reps=5)
+    ref_lk, ref_st = engines[1].loglikelihood(), engines[1].newton_step()
+    ref_sbs = f64_step_by_step(parts[1], big)
+    print(f"float64 DNA {N_TAXA} x {N_SITES} on the card ({gpu}): "
+          f"execution_path {out['dna_path']!r}, loglikelihood() "
+          f"{out['dna_loglikelihood_ms']:.2f} ms (float32 'fused' "
+          f"{out['f32_fused_loglikelihood_ms']:.2f} ms), newton_step() "
+          f"{st_ms:.2f} ms (host clock, first call)", flush=True)
+    rels = [f64_close("loglikelihood()", lk, ref_lk),
+            f64_close("newton_step() logL", st[0], ref_st[0]),
+            f64_close("newton_step() d1", st[1], ref_st[1], TOL_F64_D, 1e-3),
+            f64_close("newton_step() d2", st[2], ref_st[2], TOL_F64_D, 1e-3),
+            f64_close("step-by-step full traversal", step_by_step[0],
+                      ref_sbs[0]),
+            f64_close("step-by-step d1", step_by_step[1][0], ref_sbs[1][0],
+                      TOL_F64_D, 1e-3),
+            f64_close("step-by-step d2", step_by_step[1][1], ref_sbs[1][1],
+                      TOL_F64_D, 1e-3),
+            f64_close("step-by-step partial traversal", step_by_step[2],
+                      ref_sbs[2])]
+    del engines, parts
+    # a streamed SPR iteration and a sweep pass, each from fresh partitions
+    parts = [dna_partition(big, big_by, N_SITES, dev, dtype=f64)
+             for dev in (device, "cpu")]
+    reset_counts()
+    (got, path), spr_ms = timed(lambda: f64_streamed_scores(parts[0],
+                                                            copy.deepcopy(
+                                                                big)))
+    want, _ = f64_streamed_scores(parts[1], copy.deepcopy(big), pallas=False)
+    spr_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    print(f"  streamed SPR iteration (radius {S64_F64_RADIUS}, engine "
+          f"{path!r}): {len(got)} scores, max rel err against the CPU "
+          f"{spr_rel:.2e}, {spr_ms:.1f} ms (host clock)", flush=True)
+    check(spr_rel < TOL_F64_LOGL, f"float64 streamed scores: rel err "
+          f"{spr_rel:.2e}")
+    sweep = []
+    for p in parts:
+        tree = copy.deepcopy(big)
+        eng = TreeEngine(p, tree, pallas="auto" if p.device.type == "cuda"
+                         else False)
+        t0 = time.perf_counter()
+        lk = newton_smooth_all(eng, tree, passes=1,
+                               iterations=S64_F64_ITERATIONS)
+        if p.device.type == "cuda":
+            torch.cuda.synchronize()
+        sweep.append((lk, eng.branches.cpu().numpy(),
+                      (time.perf_counter() - t0) * 1e3))
+    blen_rel = float(np.max(np.abs(sweep[0][1] - sweep[1][1])
+                            / np.abs(sweep[1][1])))
+    print(f"  newton_smooth_all (1 pass, {S64_F64_ITERATIONS} iterations an "
+          f"edge): {sweep[0][2]:.1f} ms on the card, {sweep[1][2]:.1f} ms "
+          f"on the CPU; lengths max rel err {blen_rel:.2e}", flush=True)
+    rels.append(f64_close("newton_smooth_all logL", sweep[0][0],
+                          sweep[1][0]))
+    check(blen_rel < TOL_F64_D, f"float64 sweep lengths: rel err "
+          f"{blen_rel:.2e}")
+    check_counts("float64 DNA on the card: a streamed SPR iteration and a "
+                 "sweep pass", counts(), {})
+    out.update(spr_ms=spr_ms, spr_candidates=len(got),
+               spr_max_rel_err=spr_rel, sweep_ms=sweep[0][2],
+               sweep_cpu_ms=sweep[1][2], sweep_lengths_max_rel_err=blen_rel)
+    del parts
+    # the repeats problem
+    rep_tree, _, rep_make = flagship
+    parts = [rep_make(dev, dtype=f64) for dev in (device, "cpu")]
+    engines = [TreeEngine(p, rep_tree, pallas="auto"
+                          if p.device.type == "cuda" else False)
+               for p in parts]
+    out["repeats_path"] = engines[0].execution_path
+    check(out["repeats_path"] == "pool", f"float64 repeats on the card "
+          f"took {out['repeats_path']!r}, JAX's route is 'pool'")
+    reset_counts()
+    (lk, _), (st, st_ms) = timed(engines[0].loglikelihood), timed(
+        engines[0].newton_step)
+    check_counts("float64 repeats on the card", counts(), {})
+    out["repeats_loglikelihood_ms"] = median_ms(engines[0].loglikelihood,
+                                                reps=5)
+    ref_lk, ref_st = engines[1].loglikelihood(), engines[1].newton_step()
+    print(f"float64 repeats {REP_TAXA} x {REP_SITES} on the card ({gpu}): "
+          f"execution_path {out['repeats_path']!r}, loglikelihood() "
+          f"{out['repeats_loglikelihood_ms']:.2f} ms, newton_step() "
+          f"{st_ms:.2f} ms (host clock, first call)", flush=True)
+    rels += [f64_close("repeats loglikelihood()", lk, ref_lk),
+             f64_close("repeats newton_step() logL", st[0], ref_st[0]),
+             f64_close("repeats newton_step() d1", st[1], ref_st[1],
+                       TOL_F64_D, 1e-3),
+             f64_close("repeats newton_step() d2", st[2], ref_st[2],
+                       TOL_F64_D, 1e-3)]
+    out["max_rel_err"] = max(rels + [spr_rel])
+    return out
+
+
+def states64_phase(device, gpu, lib_path, big, big_by, flagship, eng32):
+    """Phase 26 (see the module docstring): the 64-state instantiations
+    against their plain versions, the 61-state dense and repeats paths at
+    full width with their launches counted (every count set to 0 before,
+    read after, each kernel launched), their times beside the bounds, the
+    instantiations' registers and spills, and the float64 partitions on
+    the card. Returns the phase's numbers."""
+    t0 = time.perf_counter()
+    regs = ptxas_report(lib_path)
+    for name, r in sorted(regs.items()):
+        print(f"ptxas, {name}: {r.get('registers')} registers, spill "
+              f"stores/loads {r.get('spills')} bytes", flush=True)
+    check(len(regs) == 4 and all(r.get("spills") == (0, 0)
+                                 for r in regs.values()),
+          f"the 64-state instantiations' ptxas report: {regs}")
+    level_err, pool_err = s64_kernel_cases(device)
+    reset_counts()
+    dense = s64_dense_path(device, gpu)
+    rep = s64_repeats_path(device, gpu)
+    print(f"{S64_STATES}-state paths: level-kernel launches "
+          f"{dense['launches']}, pool-kernel launches {rep['launches']}",
+          flush=True)
+    check(dense["launches"] > 0 and rep["launches"] > 0,
+          "a 64-state instantiation was not launched on its path")
+    f64 = f64_card_phase(device, gpu, big, big_by, flagship, eng32)
+    s = time.perf_counter() - t0
+    print(f"phase 26 (33-64 states, float64 on the card): {s:.1f} s",
+          flush=True)
+    return {"ptxas": regs, "level_err": level_err, "pool_err": pool_err,
+            "dense": dense, "repeats": rep, "f64": f64, "s": s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
@@ -7396,6 +7926,10 @@ def main() -> int:
                     help="only build the kernels and run phase 25 (site "
                     "sharding on the card), and print its numbers as one "
                     "JSON line")
+    ap.add_argument("--states64-only", action="store_true",
+                    help="only build the kernels and run phase 26 (33-64 "
+                    "states and float64 partitions on the card), and print "
+                    "its numbers as one JSON line")
     args = ap.parse_args()
     other = (args.rows_only or args.fused_only or args.pool_only
              or args.levels_only or args.generic_only)
@@ -7465,6 +7999,16 @@ def main() -> int:
             elif ("registers" in line or "spill" in line
                     or line.startswith("==")):
                 print(f"  ptxas: {line.strip()}", flush=True)
+
+    if args.states64_only:
+        headers_big, seqs = random_alignment(N_TAXA, N_SITES, seed=SEED)
+        big = random_utree(headers_big, seed=SEED)
+        big_by = dict(zip(headers_big, seqs))
+        eng32 = build_engine(big, big_by, N_SITES, device)[1]
+        print(json.dumps({"states64_only": states64_phase(
+            device, gpu, lib_path, big, big_by, flagship_repeats(), eng32),
+            "gpu": gpu}), flush=True)
+        return 0
 
     if args.mesh_only:
         headers_big, seqs = random_alignment(N_TAXA, N_SITES, seed=SEED)
@@ -7666,6 +8210,9 @@ def main() -> int:
 
     # 25. site sharding on the card
     mesh = mesh_phase(device, gpu, big, big_by, aa_tree, aa_by, flagship)
+
+    # 26. 33-64-state alphabets and float64 partitions on the card
+    s64 = states64_phase(device, gpu, lib_path, big, big_by, flagship, eng)
     if args.profile:
         profile([("DNA main path", eng), ("protein main path", aa_eng),
                  ("DNA levels-kernel path", dna[3]),
@@ -7770,6 +8317,28 @@ def main() -> int:
                 "bound_by": first["bound"][1], "library_ms": None,
                 "trials": first["k"], "chunk": first["chunk"],
                 "device_ms": first["device_ms"], "cases": cases}
+
+    def states64(name, source, replaces, path, err, kernel):
+        """Phase 26: a 64-state instantiation's launches on its 61-state
+        path, its largest error against the plain version, its call, plain
+        time, device time and bound over one traversal, its registers and
+        spills, and the trial form of its maximize_fused step."""
+        p, form = s64[path], s64[path]["trial_form"]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "states": S64_STATES,
+                "padded_states": 64, "launches": p["launches"],
+                "max_abs_err": max(err, form["max_abs_err"]),
+                "ms": p["ms"], "plain_ms": p["plain_ms"],
+                "bound_ms": p["bound"][0], "bound_by": p["bound"][1],
+                "library_ms": None, "device_ms": p["device_ms"],
+                "ptxas": {k: v for k, v in s64["ptxas"].items()
+                          if k.startswith(kernel)},
+                "trial_ms": form["ms"], "trial_plain_ms": form["plain_ms"],
+                "trial_device_ms": form["device_ms"],
+                "trial_bound_ms": form["bound"][0],
+                "trial_trials": form["k"], "trial_chunk": form["chunk"],
+                "step_launches": p["trial"]["step_launches"],
+                "step_ms": p["trial"]["step_ms"]}
 
     def variant(prefix, key, launches):
         k, p, (b, by), *bf = var_ms[key]
@@ -8025,7 +8594,18 @@ def main() -> int:
         "bound_ms": cert_dna["bound"][0], "bound_by": cert_dna["bound"][1],
         "library_ms": None, "device_ms": cert_dna["device_ms"],
         "cases": cert["cases"], "flagship": cert["flagship"],
-        "annotations": cert["annotations"]}]}),
+        "annotations": cert["annotations"]},
+        states64("level_update[64 states]",
+                 "libpll2_tpu_torch/csrc/level_update.cu level_generic64 "
+                 "(csrc/states64.cuh)",
+                 ["libpll2_tpu/ops/pallas_partials.py:48",
+                  "libpll2_tpu/ops/pallas_partials.py:170"], "dense",
+                 s64["level_err"], "level_generic64"),
+        states64("pool_update[64 states]",
+                 "libpll2_tpu_torch/csrc/pool_update.cu pool_generic64 "
+                 "(csrc/states64.cuh)",
+                 "libpll2_tpu/ops/pallas_repeats.py:45", "repeats",
+                 s64["pool_err"], "pool_generic64")]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

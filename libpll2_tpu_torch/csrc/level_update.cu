@@ -156,6 +156,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "states64.cuh"
+
 namespace {
 
 // 4x4 variant (ops/_kernels.py: LEVEL_FIXED_*): lanes a block (a rate each,
@@ -741,6 +743,82 @@ void launch_generic(const Args& a, int n_ops, int trials, int tx, int ty,
       <<<dim3(blocks, n_ops, trials), dim3(tx, ty), smem, st>>>(a, rc, tiles);
 }
 
+// 33 to 64 states (states64.cuh): a thread owns one site of one op across
+// its rates, a block kThreads sites; per rate the block stages both
+// P-matrices (one rate, 64 x 64 padded) and each thread its own child
+// entries into shared memory, then the thread makes its parent rows in
+// groups. The per-site rescale takes the maximum over all the thread's
+// rates and re-reads only rows it has stored; per rate, each rate on its
+// own. Grid: (tiles of the sites, ops, trials).
+template <bool TRIALS>
+__global__ void __launch_bounds__(states64::kThreads, states64::kBlocksPerSm)
+    level_generic64(Args a) {
+  // [2][64][16] float4: rate r of P[m1], then of P[m2]; then [2][64]
+  // [blockDim.x] floats: the block's child entries of rate r
+  extern __shared__ float4 stage[];
+  constexpr int SP = states64::kSP;
+  Op op = load_op(a, blockIdx.y);
+  if constexpr (TRIALS) resolve(op, a, blockIdx.z);
+  const int s = a.states;
+  const int RS = a.rates * s;
+  const size_t S = a.sites;
+  const float* left = child_row<TRIALS>(a, op.c1, (size_t)RS * S);
+  const float* right = child_row<TRIALS>(a, op.c2, (size_t)RS * S);
+  float* dst = a.clv + (size_t)op.parent * RS * S;
+  const float* pl = a.pmat + (size_t)op.m1 * RS * s;
+  const float* pr = a.pmat + (size_t)op.m2 * RS * s;
+  const int bx = blockDim.x, x = threadIdx.x;
+  float* ch = reinterpret_cast<float*>(stage + SP * SP / 2);
+  const size_t site = (size_t)blockIdx.x * bx + x;
+  const bool in = site < S;
+  const int sj = (s + 3) & ~3;  // child entries the contraction reads
+  float m = 0.0f;
+  for (int r = 0; r < a.rates; ++r) {
+    if (r > 0) __syncthreads();  // every thread is done with rate r - 1
+    stage_p<SP, false>(stage, pl, pr, s, r, 1);
+    // the thread's own entries: plain loads, as the op may write its child
+#pragma unroll 4
+    for (int j = 0; j < sj; ++j) {
+      const bool ok = in && j < s;
+      const size_t row = (size_t)(r * s + j) * S + site;
+      ch[j * bx + x] = ok ? left[row] : 0.0f;
+      ch[(SP + j) * bx + x] = ok ? right[row] : 0.0f;
+    }
+    __syncthreads();
+    const float mr = states64::contract(
+        stage, stage + SP * SP / 4, ch + x, ch + SP * bx + x, bx, s,
+        [&](int i, float v) {
+          if (in) dst[(size_t)(r * s + i) * S + site] = v;
+        });
+    if (!a.rate_scalers) {
+      m = mr > m ? mr : m;
+    } else if (in) {  // this rate's count and rescale
+      const int rescale = op.has && mr < a.threshold;
+      if (rescale) rescale_rows(dst, S, site, r * s, (r + 1) * s, a.factor);
+      write_scaler(a, op, r, site, rescale);
+    }
+  }
+  if (a.rate_scalers || !in) return;
+  const int rescale = op.has && m < a.threshold;
+  if (rescale) rescale_rows(dst, S, site, 0, RS, a.factor);
+  write_scaler(a, op, 0, site, rescale);
+}
+
+// One launch of the 64-state variant: a block a tile of kThreads sites of
+// one op (and trial), 96 KB of shared memory, which it must ask for.
+template <bool TRIALS>
+cudaError_t launch_generic64(const Args& a, int n_ops, int trials,
+                             cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      level_generic64<TRIALS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      states64::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int tiles = (a.sites + states64::kThreads - 1) / states64::kThreads;
+  level_generic64<TRIALS><<<dim3(tiles, n_ops, trials), states64::kThreads,
+                            states64::kSmemBytes, st>>>(a);
+  return cudaSuccess;
+}
+
 // The current device's SM count, asked of the driver once per device (the
 // launches of a traversal are host-bound; every call writes the same value).
 int sm_count() {
@@ -837,8 +915,11 @@ int launch_level(const Args& a, int n_ops, int trials, int sites_per_lane,
       launch_generic<8, 1, false, TRIALS>(a, n_ops, trials, tx, ty, sms, st);
     } else if (states <= 16) {
       launch_generic<16, 1, false, TRIALS>(a, n_ops, trials, tx, ty, sms, st);
-    } else {
+    } else if (states <= 32) {
       launch_generic<32, 1, false, TRIALS>(a, n_ops, trials, tx, ty, sms, st);
+    } else {
+      const cudaError_t err = launch_generic64<TRIALS>(a, n_ops, trials, st);
+      if (err != cudaSuccess) return static_cast<int>(err);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -868,7 +949,8 @@ extern "C" int pll_level_update(float* clv, int* scaler, const float* pmat,
                          (clv_rows > sc_rows ? (clv_rows > n_mats ? clv_rows : n_mats)
                                              : (sc_rows > n_mats ? sc_rows : n_mats));
   if (trials < 0 || base < 0 || (base > 0 && tips == nullptr) ||
-      (trials == 0 && base != 0) || most > 2147483647LL)
+      (trials == 0 && base != 0) || most > 2147483647LL || states < 1 ||
+      states > states64::kSP || rates < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{clv, scaler, pmat, table, ld, sites, rates, states, threshold, factor,
          rate_scalers, tips, base, clv_rows, sc_rows, n_mats};

@@ -193,6 +193,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "states64.cuh"
+
 namespace {
 
 // 4x4 traversal kernel: threads a block (4 lanes a column, 32 columns a
@@ -668,11 +670,103 @@ void launch_generic(const Args& a, const int* map, int granules, int ty,
       <<<dim3(blocks, trials), dim3(w, ty), smem, st>>>(a, tl);
 }
 
+// 33 to 64 states (states64.cuh): a thread owns one class column of a
+// tile across its rates (blockDim.y is 1, a tile is kThreads columns); per
+// rate the block stages both P-matrices (one rate, 64 x 64 padded, by
+// cp.async) and each thread gathers its own child entries into shared
+// memory, then makes its parent rows in groups. The rescales and counts
+// are pool_generic's.
 template <bool TRIALS>
-void launch_update(const Args& a, const int* map, int granules, int ty,
-                   int per_block, int trials, cudaStream_t st) {
+__global__ void __launch_bounds__(states64::kThreads, states64::kBlocksPerSm)
+    pool_generic64(Args a, Tiles tl) {
+  // [2][64][16] float4: rate r of P[m1], then of P[m2]; then [2][64][w]
+  // floats: the tile's child entries of rate r
+  extern __shared__ float4 stage[];
+  constexpr int SP = states64::kSP;
+  const int s = a.states;
+  const int RS = a.rates * s;
+  const int w = blockDim.x, lx = threadIdx.x;
+  const size_t T = a.T;
+  float* const pool = trial_buf<TRIALS>(a.pool, a.pool_trial, blockIdx.y);
+  int* const sc_all = trial_buf<TRIALS>(a.sc, a.sc_trial, blockIdx.y);
+  const float* const pmat = trial_buf<TRIALS>(a.pmat, a.p_trial, blockIdx.y);
+  float* ch = reinterpret_cast<float*>(stage + SP * SP / 2);
+  const int sj = (s + 3) & ~3;  // child entries the contraction reads
+  bool first = true;
+  const int t0 = blockIdx.x * tl.per_block;
+  const int t1 = min(t0 + tl.per_block, tl.count);
+  for (int t = t0; t < t1; ++t) {
+    const int2 e = __ldg(tl.map + t / tl.per_granule);
+    const Op op = load_op(a, e.x);
+    const long long c = e.y + (long long)(t % tl.per_granule) * w + lx;
+    const bool in = c < op.w;
+    const int gl = in ? __ldg(a.gl + op.g + c) : 0;
+    const int gr = in ? __ldg(a.gr + op.g + c) : 0;
+    const float* left = pool + op.c1 + gl;
+    const float* right = pool + op.c2 + gr;
+    float* dst = pool + op.p + c;
+    const float* pl = pmat + op.m1 * RS * s;
+    const float* pr = pmat + op.m2 * RS * s;
+    float m = 0.0f;
+    for (int r = 0; r < a.rates; ++r) {
+      if (!first) __syncthreads();  // every thread is done with the stage
+      first = false;
+      stage_p<SP, false>(stage, pl, pr, s, r, 1);
+#pragma unroll 4
+      for (int j = 0; j < sj; ++j) {
+        const bool ok = in && j < s;
+        const size_t row = (size_t)(r * s + j) * T;
+        ch[j * w + lx] = ok ? __ldg(left + row) : 0.0f;
+        ch[(SP + j) * w + lx] = ok ? __ldg(right + row) : 0.0f;
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      const float mr = states64::contract(
+          stage, stage + SP * SP / 4, ch + lx, ch + SP * w + lx, w, s,
+          [&](int i, float v) {
+            if (in) dst[(size_t)(r * s + i) * T] = v;
+          });
+      if (!a.rate_scalers) {
+        m = mr > m ? mr : m;
+      } else if (in) {  // this rate's count and rescale
+        const int rescale = op.has && mr < a.threshold;
+        if (rescale) rescale_rows(dst, T, r * s, (r + 1) * s, a.factor);
+        write_count(a, sc_all, op, r, c, gl, gr, rescale);
+      }
+    }
+    if (a.rate_scalers || !in) continue;
+    const int rescale = op.has && m < a.threshold;
+    if (rescale) rescale_rows(dst, T, 0, RS, a.factor);
+    write_count(a, sc_all, op, 0, c, gl, gr, rescale);
+  }
+}
+
+// One launch of the 64-state variant: tiles of kThreads columns (one rate
+// warp), `per_block` of them a block, 96 KB of shared memory, which it
+// must ask for.
+template <bool TRIALS>
+cudaError_t launch_generic64(const Args& a, const int* map, int granules,
+                             int per_block, int trials, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      pool_generic64<TRIALS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      states64::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  Tiles tl{reinterpret_cast<const int2*>(map),
+           kGranule / states64::kThreads, 0, per_block, 1};
+  tl.count = granules * tl.per_granule;
+  const int blocks = (tl.count + per_block - 1) / per_block;
+  pool_generic64<TRIALS><<<dim3(blocks, trials), states64::kThreads,
+                           states64::kSmemBytes, st>>>(a, tl);
+  return cudaSuccess;
+}
+
+template <bool TRIALS>
+cudaError_t launch_update(const Args& a, const int* map, int granules, int ty,
+                          int per_block, int trials, cudaStream_t st) {
   const int states = a.states;
-  if (states == 20) {
+  if (states > 32) {
+    return launch_generic64<TRIALS>(a, map, granules, per_block, trials, st);
+  } else if (states == 20) {
     launch_generic<20, true, TRIALS>(a, map, granules, ty, per_block, trials, st);
   } else if (states <= 4) {
     launch_generic<4, false, TRIALS>(a, map, granules, ty, per_block, trials, st);
@@ -685,6 +779,7 @@ void launch_update(const Args& a, const int* map, int granules, int ty,
   } else {
     launch_generic<32, false, TRIALS>(a, map, granules, ty, per_block, trials, st);
   }
+  return cudaSuccess;
 }
 
 template <bool TRIALS>
@@ -703,9 +798,10 @@ void launch_traversal(const Args& a, const Trav& tv, int blocks,
 // cudaGetLastError() (0 on success). T2 is the scaler pool's column count
 // (its row stride in per-rate mode). The grid covers the level's tile map
 // (`map`, `granules` int32 pairs) with the layout of
-// ops/_kernels.py:pool_plan: `rate_threads` warps over the rates,
-// `per_block` tiles a block. `trials` 0 is the one-topology form; trials >
-// 0 the trial form over that many trials, the trials' strides in elements.
+// ops/_kernels.py:pool_plan: `rate_threads` warps over the rates (1 above
+// 32 states), `per_block` tiles a block. `trials` 0 is the one-topology
+// form; trials > 0 the trial form over that many trials, the trials'
+// strides in elements.
 // The 4x4 size runs pll_pool_traversal.
 extern "C" int pll_pool_update(float* pool, int* sc, const float* pmat,
                                const long long* table, int ld, long long T,
@@ -722,14 +818,15 @@ extern "C" int pll_pool_update(float* pool, int* sc, const float* pmat,
   const int ty = rate_threads;
   if ((states == 4 && rates == 4) || !(ty == 1 || ty == 2 || ty == 4) ||
       granules < 1 || per_block < 1 || map == nullptr || trials < 0 ||
-      trials > 65535) {
+      trials > 65535 || states < 1 || states > states64::kSP || rates < 1 ||
+      (states > 32 && ty != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (trials > 0) {
-    launch_update<true>(a, map, granules, ty, per_block, trials, st);
-  } else {
-    launch_update<false>(a, map, granules, ty, per_block, 1, st);
-  }
+  const cudaError_t err =
+      trials > 0
+          ? launch_update<true>(a, map, granules, ty, per_block, trials, st)
+          : launch_update<false>(a, map, granules, ty, per_block, 1, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

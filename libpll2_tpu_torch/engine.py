@@ -73,7 +73,7 @@ from __future__ import annotations
 
 import copy
 import functools
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -92,7 +92,7 @@ from .partition import (Operation, Partition, PartitionShard,
 from .trees import create_operations, traverse
 from .utils.profiling import annotate
 
-__all__ = ["TreeEngine", "pack_repeats"]
+__all__ = ["TreeEngine", "Route", "choose_route", "pack_repeats"]
 
 # candidates a launch of the fused kernel takes (libpll2_tpu/engine.py:718)
 CANDIDATE_CHUNK = 128
@@ -109,6 +109,67 @@ TRIAL_LAUNCH_BYTES = 3 << 30
 # wrappers do by themselves for CPU tensors
 PALLAS_MODES = ("auto", True, "interpret", "levels-kernel",
                 "levels-interpret", "pool", "pool-interpret", False)
+
+
+class Route(NamedTuple):
+    """The kernels a TreeEngine may run (`choose_route`): the fused
+    whole-traversal kernel (over a repeats partition: 'repeats-dense-fused'),
+    the level kernel on a dense partition, the pool kernel on a repeats
+    one; `repeats` and `levels` (level_schedule) name the plain paths."""
+    fused: bool
+    levels_kernel: bool
+    pool_kernel: bool
+    repeats: bool
+    levels: bool
+
+    @property
+    def path(self) -> str:
+        """The engine's `execution_path` when the fused kernel, if chosen,
+        packs its op list (`pack_fused_schedule`)."""
+        if self.fused:
+            return "repeats-dense-fused" if self.repeats else "fused"
+        if self.repeats:
+            return "pool-pallas" if self.pool_kernel else "pool"
+        if self.levels_kernel:
+            return "levels-kernel"
+        return "levels" if self.levels else "scan"
+
+
+def choose_route(pallas="auto", *, dtype=torch.float32, device_type="cuda",
+                 states: int = 4, repeats: bool = False,
+                 tips_set: bool = True, rate_scalers: bool = False,
+                 rate_cats: int = 4, meshed: bool = False,
+                 level_schedule: bool = True) -> Route:
+    """The route a TreeEngine takes, from plain values: `pallas` (the
+    engine's argument), the partition's dtype, device type, states,
+    storage (`repeats`), whether every tip is set, per-rate scalers and
+    categories, and whether it lies on a mesh.
+
+    - The kernels are float32. A float64 partition on CUDA takes no kernel
+      route: 'levels' or 'scan' (dense) and 'pool' (repeats), the plain
+      versions of the paths JAX reports for it (its XLA paths,
+      libpll2_tpu/engine.py:843-845, :903-906). On the CPU the wrappers run
+      their plain versions by themselves, so a float64 CPU partition keeps
+      the kernel routes' names (ROADMAP, Rules: routing difference 2).
+    - The fused kernels take at most ops/fused.py:FUSED_MAX_STATES states
+      (32-bit tip codes); above that the dense default is 'levels-kernel'
+      and the repeats default 'pool-pallas' (JAX's 'fused' returns -inf
+      there: ROADMAP C-J1).
+    - The fused kernel needs every tip set; with per-rate scalers the rows
+      route (16+ states) keeps JAX's 8-category bound, and under a mesh
+      both routes do (libpll2_tpu/engine.py:835-839)."""
+    want_fused = pallas in ("auto", True, "interpret")
+    want_pool = pallas in ("pool", "pool-interpret")
+    kernels = not (dtype == torch.float64 and device_type == "cuda")
+    fused_ok = kernels and tips_set and states <= ops_fused.FUSED_MAX_STATES \
+        and (not rate_scalers
+             or rate_cats <= ops_fused.ROWS_RATE_SCALERS_MAX
+             or (states < ops_fused.ROWS_STATES_MIN and not meshed))
+    levelk = want_fused or pallas in ("levels-kernel", "levels-interpret")
+    return Route(fused=want_fused and fused_ok,
+                 levels_kernel=kernels and not repeats and levelk,
+                 pool_kernel=kernels and repeats and (want_fused or want_pool),
+                 repeats=repeats, levels=level_schedule)
 
 
 def _pmatrices(eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
@@ -376,7 +437,7 @@ def _dense_loglikelihood(clv, scaler, eigenvals, inv_eigenvecs, eigenvecs,
                          params_idx_rates, branches, path: str, plan,
                          root_idx, pattern_weights, invariant,
                          scale_threshold: float, scale_factor: float,
-                         level=ops_levels.level_update, edge_params=None,
+                         level=None, edge_params=None,
                          rate_scalers: bool = False,
                          asc_type: int = C.AB_NONE, n_real: int = -1,
                          col0=None, pmatrix=None):
@@ -384,8 +445,9 @@ def _dense_loglikelihood(clv, scaler, eigenvals, inv_eigenvecs, eigenvecs,
     [K+2, S] ([K+2, R, S] with `rate_scalers`), which it updates in
     place. `path` and `plan`:
     'levels-kernel' with the level tables on the device (each level run by
-    `level`: the dispatching wrapper, or its plain version for a comparison
-    on the card), 'levels' with (Operations [L, W], valid), 'scan' with
+    `level`: by default ops/levels.py:level_for, the dispatching wrapper
+    for float32 buffers; or the plain version for a comparison on the
+    card), 'levels' with (Operations [L, W], valid), 'scan' with
     Operations [n]; `pmatrix` as in `_fused_loglikelihood`. Returns (total
     logL, per-site weighted logL, P-matrices, root rows)."""
     if pmatrix is None:
@@ -615,11 +677,12 @@ class TreeEngine:
           'auto', True, 'interpret' -- the fused whole-traversal kernel
               when every tip is set (from state codes or set_tip_clv), the
               op list is a postorder whose ops all have scaler buffers
-              (`pack_fused_schedule`) and, with per-rate scalers on a 16+
-              state alphabet, at most 8 rate categories (as in JAX); else
-              the per-level kernel, or on a site-repeats partition the pool
-              kernel ('repeats-dense-fused' runs the fused kernel over a
-              repeats partition, which keeps its pooled storage);
+              (`pack_fused_schedule`), the alphabet has at most 32
+              states and, with per-rate scalers on a 16+ state alphabet,
+              at most 8 rate categories (as in JAX); else the per-level
+              kernel, or on a site-repeats partition the pool kernel
+              ('repeats-dense-fused' runs the fused kernel over a repeats
+              partition, which keeps its pooled storage);
           'levels-kernel', 'levels-interpret' -- the per-level kernel (on a
               repeats partition: the plain pooled path);
           'pool', 'pool-interpret' -- on a repeats partition the pool
@@ -628,12 +691,14 @@ class TreeEngine:
               else one op at a time; the plain pooled path on a repeats
               partition.
         The kernels' wrappers run their plain versions for CPU tensors, so
-        the 'interpret' names equal the others. `mxu` picks the fused
-        traversal's contraction mode for 16+-state alphabets: 'split'
-        (default) and 'highest' run exact float32, 'bf16' rounds the
-        operands to bf16 (ops/fused.py). `edge_params` [prob_matrices]
-        gives the rate-matrix index of every P-matrix slot (per-branch
-        heterotachy).
+        the 'interpret' names equal the others. The kernels are float32: a
+        float64 partition on CUDA takes the plain paths whatever `pallas`
+        says, as JAX takes XLA (`choose_route` decides the route). `mxu`
+        picks the fused traversal's contraction mode for 16+-state
+        alphabets: 'split' (default) and 'highest' run exact float32,
+        'bf16' rounds the operands to bf16 (ops/fused.py). `edge_params`
+        [prob_matrices] gives the rate-matrix index of every P-matrix slot
+        (per-branch heterotachy).
 
         Where libpll2_tpu falls back to XLA only because its level or pool
         kernel has no per-rate scaler mode, the port's kernels run theirs:
@@ -662,30 +727,24 @@ class TreeEngine:
         self.dtype = p.dtype
         self.params_index = params_index
         self.levels = level_schedule
-        want_fused = pallas in ("auto", True, "interpret")
-        want_pool = pallas in ("pool", "pool-interpret")
         # every tip set, from state codes or raw probabilities (is_tip 2
-        # rows of the op table); the rows route keeps JAX's 8-category
-        # bound on per-rate scalers (libpll2_tpu/engine.py:835-839; the
-        # small-alphabet kernel takes any count)
-        # (under a mesh JAX keeps the 8-category bound on both routes,
-        # libpll2_tpu/engine.py:835-837)
-        meshed = p.shards is not None or isinstance(p, PartitionShard)
-        fused_ok = bool(np.all(p._tips_set | p._tips_clv_set)) and (
-            not p.rate_scalers or p.rate_cats <= ops_fused.ROWS_RATE_SCALERS_MAX
-            or (p.states < ops_fused.ROWS_STATES_MIN and not meshed))
-        self.repeats_mode = p.repeats is not None
+        # rows of the op table)
+        route = choose_route(
+            pallas, dtype=p.dtype, device_type=p.device.type,
+            states=p.states, repeats=p.repeats is not None,
+            tips_set=bool(np.all(p._tips_set | p._tips_clv_set)),
+            rate_scalers=p.rate_scalers, rate_cats=p.rate_cats,
+            meshed=p.shards is not None or isinstance(p, PartitionShard),
+            level_schedule=level_schedule)
+        self.repeats_mode = route.repeats
         # the fused kernel over a repeats partition: it reads only tip codes
         # and writes nothing back, so the pooled storage stays as it is
-        self.repeats_dense_fused = self.repeats_mode and want_fused \
-            and fused_ok
+        self.repeats_dense_fused = route.repeats and route.fused
         if self.repeats_dense_fused:
             self.repeats_mode = False
-        self._fused_wanted = want_fused and fused_ok
-        self._levelk_wanted = p.repeats is None and (
-            want_fused or pallas in ("levels-kernel", "levels-interpret"))
-        self._pool_kernel_wanted = p.repeats is not None and (
-            want_fused or want_pool)
+        self._fused_wanted = route.fused
+        self._levelk_wanted = route.levels_kernel
+        self._pool_kernel_wanted = route.pool_kernel
         self._edge_params_host = None
         self.edge_params = None
         if edge_params is not None:
@@ -1497,7 +1556,7 @@ class TreeEngine:
         with annotate("pll.partials.trials"):
             ops_levels.update_partials_kernel(
                 clv, sc, pmat, self._ops, p.scale_threshold, p.scale_factor,
-                level=level or ops_levels.level_update, tips=tips)
+                level=level, tips=tips)
         p_clv, p_sc, c_clv, c_sc, _ = self.root_idx
         zero = p.scale_buffer.shape[0] - 1   # a missing scaler reads it
 

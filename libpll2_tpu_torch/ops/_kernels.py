@@ -193,6 +193,13 @@ def _check(cond: bool, msg: str, name: str = "fused_traversal") -> None:
         raise ValueError(f"{name}: {msg}")
 
 
+# the states the level and pool kernels take (their runtime-size variants,
+# padded to 4, 8, 16, 20 or 32, and from WIDE_STATES_MIN to 64 in
+# csrc/states64.cuh); the fused kernels' tip codes are 32-bit masks, so they
+# stop at 32 (ops/fused.py:FUSED_MAX_STATES)
+KERNEL_MAX_STATES = 64
+WIDE_STATES_MIN = 33
+
 # the candidates one launch of a traversal kernel takes (the grid's y), and
 # the queries (the grid's z)
 MAX_CANDIDATES = 65535
@@ -910,9 +917,9 @@ def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
            f"{clv2d.dtype} and {pmatrix.dtype}", name)
     _check(scaler.dtype == torch.int32 and table.dtype == torch.int32,
            "scaler and table must be int32", name)
-    _check(1 <= states <= 32 and rates >= 1,
+    _check(1 <= states <= KERNEL_MAX_STATES and rates >= 1,
            f"rates={rates}, states={states}: needs rates >= 1 and "
-           f"1 <= states <= 32", name)
+           f"1 <= states <= {KERNEL_MAX_STATES}", name)
     trials = clv2d.shape[0] if clv2d.dim() == 4 else 0
     lead = 1 if trials else 0
     _check(clv2d.dim() in (3, 4) and clv2d.shape[-2] == rates * states
@@ -987,9 +994,12 @@ def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
 
 # pool_update.cu's runtime-size variant: threads a block, blocks resident
 # on an SM (its launch bounds), and the class columns a tile-map entry
-# covers (ops/pool.py:tile_map)
+# covers (ops/pool.py:tile_map); from WIDE_STATES_MIN states its 64-state
+# instantiation (csrc/states64.cuh), whose 96 KB of shared memory keep
+# POOL_WIDE_BLOCKS_PER_SM blocks an SM
 POOL_BLOCK = 128
 POOL_BLOCKS_PER_SM = 4
+POOL_WIDE_BLOCKS_PER_SM = 2
 POOL_GRANULE = 128
 
 
@@ -1012,16 +1022,22 @@ def pool_plan(columns: int, rates: int, states: int, sms: int) -> PoolLaunch:
     with `sms` SMs: a column's rates split over the largest power of two
     of warps up to 4 that the rates fill, whatever the level's width;
     blocks take runs of tiles, as many blocks as POOL_BLOCKS_PER_SM an SM
-    fill. The 4x4 size runs the traversal kernel (`pool_fixed_plan`)."""
-    if (rates < 1 or not 1 <= states <= 32 or (rates, states) == (4, 4)
+    fill. From WIDE_STATES_MIN states the 64-state instantiation stages P
+    one rate at a time, so a column's rates stay on one thread (one rate
+    warp, tiles of POOL_BLOCK columns), POOL_WIDE_BLOCKS_PER_SM blocks an
+    SM. The 4x4 size runs the traversal kernel (`pool_fixed_plan`)."""
+    if (rates < 1 or not 1 <= states <= KERNEL_MAX_STATES
+            or (rates, states) == (4, 4)
             or columns < 1 or columns % POOL_GRANULE or sms < 1):
         raise ValueError(f"pool_plan: no runtime-size plan for {columns} "
                          f"columns, {rates} rates, {states} states, {sms} "
                          f"SMs")
-    ty = min(4, 1 << (rates.bit_length() - 1))
+    wide = states >= WIDE_STATES_MIN
+    ty = 1 if wide else min(4, 1 << (rates.bit_length() - 1))
     tile = POOL_BLOCK // ty
     tiles = columns // tile
-    per = -(-tiles // (POOL_BLOCKS_PER_SM * sms))
+    resident = POOL_WIDE_BLOCKS_PER_SM if wide else POOL_BLOCKS_PER_SM
+    per = -(-tiles // (resident * sms))
     return PoolLaunch(ty, tile, tiles, per, -(-tiles // per))
 
 
@@ -1125,9 +1141,9 @@ def _check_pool_args(name: str, pool2d, sc, pmatrix, gl, gr, rates: int,
            f"{pool2d.dtype} and {pmatrix.dtype}", name)
     _check(sc.dtype == torch.int32 and gl.dtype == torch.int32
            and gr.dtype == torch.int32, "sc, gl and gr must be int32", name)
-    _check(1 <= states <= 32 and rates >= 1,
+    _check(1 <= states <= KERNEL_MAX_STATES and rates >= 1,
            f"rates={rates}, states={states}: needs rates >= 1 and "
-           f"1 <= states <= 32", name)
+           f"1 <= states <= {KERNEL_MAX_STATES}", name)
     trials = pool2d.shape[0] if pool2d.dim() == 3 else 0
     lead = 1 if trials else 0
     _check(pool2d.dim() in (2, 3) and pool2d.shape[-2] == rates * states

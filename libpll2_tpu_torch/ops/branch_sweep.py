@@ -166,7 +166,7 @@ def newton_sweep(clv, scaler, pmatrix, branches,
                  scale_threshold: float, scale_factor: float,
                  passes: int = 2, iterations: int = 8, n_aux: int = 0,
                  asc_type: int = C.AB_NONE, n_real: int = -1,
-                 level=ops_levels.level_update):
+                 level=None):
     """Multi-pass all-edges Newton smoothing (libpll2_tpu/ops/branch_sweep.py
     :144 `newton_sweep`).
 
@@ -175,11 +175,13 @@ def newton_sweep(clv, scaler, pmatrix, branches,
     combined buffers (`pack_pallas_levels` with trash row K + n_aux and
     zero row K + n_aux + 1, on the device); `steps` the schedule of
     `build_smoothing_schedule`. Each step's CLV op and every postorder
-    level run through `level` (the dispatching wrapper, or its plain
-    version for a comparison on the card). A scaler buffer with a rate axis
-    is read as JAX reads it: every decision is per site (the step and the
-    postorder rescale a site when all its rates and states underflow) and
-    every count the same for all rates, broadcast back on return.
+    level run through `level` (by default ops/levels.py:level_for: the
+    dispatching wrapper, or the plain version for float64 buffers; or the
+    plain version for a comparison on the card). A scaler buffer with a
+    rate axis is read as JAX reads it: every decision is per site (the step
+    and the postorder rescale a site when all its rates and states
+    underflow) and every count the same for all rates, broadcast back on
+    return.
 
     Returns (branches, pmatrix, clv, scaler) with every edge optimized
     `passes` times; clv and scaler partition-shaped (aux rows stripped),
@@ -227,7 +229,7 @@ def newton_sweep_shards(blocks, mesh, pmatrix, branches,
                         scale_factor: float, passes: int = 2,
                         iterations: int = 8, n_aux: int = 0,
                         asc_type: int = C.AB_NONE, n_real: int = -1,
-                        level=ops_levels.level_update):
+                        level=None):
     """`newton_sweep` over column blocks: `blocks` holds (clv, scaler,
     pattern_weights, invariant, col0) a block, in shard order: one whole
     partition (col0 None, `mesh` None) or the shards of a site mesh that
@@ -240,6 +242,7 @@ def newton_sweep_shards(blocks, mesh, pmatrix, branches,
     Returns (branches, pmatrix, [(clv, scaler) a block])."""
     from ..parallel.sharding import psum
 
+    level = level or ops_levels.level_for(blocks[0][0])
     n_nodes = blocks[0][0].shape[0] - 1
     k = blocks[0][1].shape[0] - 2
     rates_n, states = blocks[0][0].shape[1], blocks[0][0].shape[2]

@@ -31,9 +31,11 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from ..partition import pack_level_operations
 from ..trees import create_operations, traverse
 from . import fused as ops_fused
 from . import likelihood as ops_likelihood
+from . import partials as ops_partials
 
 __all__ = ["loglikelihood_df64", "pmatrix_host64", "walk_inputs"]
 
@@ -97,12 +99,35 @@ def walk_inputs(partition, tree, operations, branches, pmatrix_indices,
                 tip_clvs=tip_clvs)
 
 
+def _levels_f64(p, tree, operations, pmatrix):
+    """The root edge's rows (parent and child CLVs, their counts) of the
+    postorder `operations` in float64 through the plain level path
+    (ops/partials.py:update_partials_levels), with float64's window: for
+    alphabets above ops/fused.py:FUSED_MAX_STATES, whose 64-bit tip states
+    the float64 walk's 32-bit tip codes cannot carry. JAX's df64 evaluation
+    is XLA, not a Pallas kernel, and reads the same dense tip rows."""
+    f64, dev = torch.float64, p.device
+    clv = torch.zeros((p.nodes + 1, p.rate_cats, p.states, p.sites_padded),
+                      dtype=f64, device=dev)
+    clv[:p.tips] = p.dense_tip_rows().to(f64)[:, None]
+    scaler = torch.zeros((p.scale_buffers + 2, p.sites_padded),
+                         dtype=torch.int32, device=dev)
+    ops, valid = pack_level_operations(operations, p.tips,
+                                       scratch_clv=p.nodes, device=dev)
+    ops_partials.update_partials_levels(clv, scaler, pmatrix, ops, valid,
+                                        C.SCALE_THRESHOLD, C.SCALE_FACTOR)
+    r = tree.vroot
+    return (clv[r.clv_index], clv[r.back.clv_index], scaler[r.scaler_index],
+            scaler[r.back.scaler_index])
+
+
 def loglikelihood_df64(partition, tree, params_index: int = 0) -> float:
     """Certified final evaluation: full-tree edge logL of `tree` on a DENSE
     partition, computed on the partition's device in float64 end to end
     (host-float64 P-matrices, float64 CLV pruning in one launch of
-    `fused_traversal_f64`, float64 per-site logs and sum). Budget: 1e-8 of
-    a float64 evaluation on the CPU (gate case `dna_df64`).
+    `fused_traversal_f64`, or above 32 states the plain float64 level path,
+    float64 per-site logs and sum). Budget: 1e-8 of a float64 evaluation
+    on the CPU (gate case `dna_df64`).
 
     Scope, JAX's (raise PllError otherwise): no site repeats (dense rows),
     no asc bias, pinv == 0, per-site scalers, homogeneous model, and a
@@ -129,7 +154,11 @@ def loglikelihood_df64(partition, tree, params_index: int = 0) -> float:
             "(the certified path's aggressive scaling cannot thread "
             "counts through SCALE_BUFFER_NONE parents)")
     walk = walk_inputs(p, tree, operations, branches, pidx, params_index)
-    clv_p, clv_c, sc_p, sc_c = ops_fused.fused_traversal_f64(**walk)
+    if p.states > ops_fused.FUSED_MAX_STATES:
+        clv_p, clv_c, sc_p, sc_c = _levels_f64(p, tree, operations,
+                                               walk["pmatrix"])
+    else:
+        clv_p, clv_c, sc_p, sc_c = ops_fused.fused_traversal_f64(**walk)
     f64, dev = torch.float64, p.device
     total, _ = ops_likelihood.edge_loglikelihood(
         clv_p, clv_c, sc_p, sc_c, walk["pmatrix"][tree.vroot.pmatrix_index],

@@ -72,12 +72,18 @@ __all__ = ["pack_fused_schedule", "fused_candidate_from_tree",
            "fused_traversal", "fused_traversal_rows", "fused_traversal_f64",
            "fused_traversal_reference", "round_bf16", "round_bf16_rne",
            "query_edge_split", "query_spill_slots", "MXU_MODES",
-           "ROWS_STATES_MIN", "ROWS_RATE_SCALERS_MAX", "QUERY_LAUNCH_BYTES"]
+           "ROWS_STATES_MIN", "FUSED_MAX_STATES", "ROWS_RATE_SCALERS_MAX",
+           "QUERY_LAUNCH_BYTES"]
 
 MXU_MODES = ("split", "bf16", "highest")
 # alphabets from this size on take the row-layout kernel and the mxu modes
 # (libpll2_tpu/ops/pallas_fused.py:PLANE_STATES_MAX)
 ROWS_STATES_MIN = 16
+# the most states the fused kernels take: their tip codes are int32 masks
+# (`tip_code_matrix`); TreeEngine routes larger alphabets to the level and
+# pool kernels (JAX's 'fused' casts the uint64 masks to int32 there and
+# returns -inf: ROADMAP C-J1)
+FUSED_MAX_STATES = 32
 # the rows route takes per-rate scalers for at most this many categories,
 # as libpll2_tpu's row-layout kernel (pallas_fused.py:747-756), whose [8, T]
 # scaler block holds one count row per rate

@@ -28,7 +28,10 @@ has one, because its step-by-step API always launches it.
 `level_update` is the dispatching wrapper: CPU tensors run
 `level_update_reference`, the plain PyTorch version; CUDA tensors launch the
 kernel (float32) or raise. `level_update.launches` counts the launches.
-`update_partials_kernel` runs all levels of a traversal.
+`update_partials_kernel` runs all levels of a traversal. The kernel is
+float32, and JAX runs a float64 partition on XLA: callers take the plain
+version for float64 buffers by `level_for` (a float64 CUDA tensor passed to
+the wrapper raises).
 
 The trial form (libpll2_tpu/optimize.py:366 vmaps the TPU kernel over model
 trials) runs one level of K trials in one launch: a leading trial axis on
@@ -51,7 +54,7 @@ import torch
 
 __all__ = ["TABLE_ROWS", "schedule_levels", "pack_pallas_levels",
            "tables_to_device", "trial_rows", "level_update_reference",
-           "level_update", "update_partials_kernel"]
+           "level_update", "level_for", "update_partials_kernel"]
 
 TABLE_ROWS = 9
 
@@ -265,17 +268,28 @@ def level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
 level_update.launches = 0
 
 
+def level_for(clv: torch.Tensor):
+    """The level function for buffers like `clv`: the wrapper
+    `level_update` (the kernel for float32 CUDA tensors), or the plain
+    version for float64 ones, which the kernel does not take (JAX runs
+    them on XLA)."""
+    return (level_update_reference if clv.dtype == torch.float64
+            else level_update)
+
+
 def update_partials_kernel(clv: torch.Tensor,      # [N+1, R, s, S]
                            scaler: torch.Tensor,   # [K+2, (R,) S] int32
                            pmatrix: torch.Tensor,  # [E, R, s, s]
                            tables: Sequence,       # [9, W_l] per level
                            threshold: float, factor: float,
-                           level=level_update, tips=None):
-    """Run all levels in order through `level` (the dispatching wrapper,
-    or its plain version for a comparison on the card); returns (clv,
+                           level=None, tips=None):
+    """Run all levels in order through `level` (by default `level_for`:
+    the dispatching wrapper, or the plain version for float64 buffers; or
+    the plain version for a comparison on the card); returns (clv,
     scaler), updated in place. The trial form: `clv` [K, rows, R, s, S],
     `scaler` and `pmatrix` with the same leading K, `tips` [base, R, s, S]
     the shared rows (or None), each level one call of `level` for all K."""
+    level = level or level_for(clv)
     if clv.dim() == 5:
         k, n, rates, states, sites = clv.shape
         kw = {"tips": None if tips is None

@@ -57,9 +57,11 @@ ops/_kernels.py:pool_plan, or the 4x4 kernel over that level alone) or
 raise. `pool_update.launches` counts the kernel launches.
 `update_partials_pool` runs a whole plan: by default through the plan's
 kernels (the 4x4 kernel in one launch when the plan has a traversal and the
-pool lies on a CUDA device, else the wrapper a level at a time), or level by
-level through a given `level` (the wrapper itself, or the plain version for
-`TreeEngine(pallas=False)` ('pool') and float64 references).
+pool lies on a CUDA device in float32, else `pool_for` a level at a time:
+the wrapper, or the plain version for a float64 pool, which the kernel does
+not take), or level by level through a given `level` (the wrapper itself,
+or the plain version for `TreeEngine(pallas=False)` ('pool') and float64
+references).
 
 The trial form (libpll2_tpu/optimize.py:366 would vmap the TPU kernel over
 model trials) runs K trials of one plan at once: a leading trial axis on
@@ -88,7 +90,7 @@ from .levels import schedule_levels
 __all__ = ["POOL_ROWS", "PoolPlan", "schedule_pool_levels", "tile_map",
            "pack_pool_levels", "wait_lists", "traversal_arrays",
            "level_launches", "plan_to_device", "pool_update_reference",
-           "pool_update", "update_partials_pool", "pool_work"]
+           "pool_update", "pool_for", "update_partials_pool", "pool_work"]
 
 POOL_ROWS = 11
 
@@ -404,6 +406,14 @@ def pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
 pool_update.launches = 0
 
 
+def pool_for(pool: torch.Tensor):
+    """The level function for pools like `pool`: the wrapper `pool_update`
+    (the kernel for float32 CUDA tensors), or the plain version for
+    float64 ones, which the kernel does not take (JAX runs them on XLA)."""
+    return (pool_update_reference if pool.dtype == torch.float64
+            else pool_update)
+
+
 def update_partials_pool(clv_flat: torch.Tensor,   # [R, s, T]
                          sc_flat: torch.Tensor,    # [(R,) T2] int32
                          pmatrix: torch.Tensor,    # [E, R, s, s]
@@ -411,8 +421,9 @@ def update_partials_pool(clv_flat: torch.Tensor,   # [R, s, T]
                          threshold: float, factor: float, level=None):
     """Run the whole of `plan`. With no `level`: one launch of the 4x4
     kernel over the plan's traversal when the plan has one (plan_to_device
-    on a CUDA device at 4x4) and the pool lies on that device, else each
-    level through the wrapper `pool_update`. A given `level` (the wrapper,
+    on a CUDA device at 4x4) and the pool lies on that device in float32,
+    else each level through `pool_for` (the wrapper `pool_update`, or the
+    plain version for a float64 pool). A given `level` (the wrapper,
     one launch a level, or its plain version for a comparison on the card)
     runs each level. The trial form: `clv_flat` [K, R, s, T], `sc_flat` and
     `pmatrix` with the same leading K, all K trials in each launch (or
@@ -420,14 +431,15 @@ def update_partials_pool(clv_flat: torch.Tensor,   # [R, s, T]
     *lead, rates, states, total = clv_flat.shape
     pool2d = clv_flat.view(*lead, rates * states, total)
     if (level is None and plan.traversal is not None
-            and pool2d.device.type == "cuda"):
+            and pool2d.device.type == "cuda"
+            and pool2d.dtype == torch.float32):
         from . import _kernels
         _kernels.launch_pool_traversal(pool2d, sc_flat, pmatrix, plan.gl,
                                        plan.gr, threshold, factor,
                                        plan.traversal)
         pool_update.launches += 1
         return clv_flat, sc_flat
-    level = level or pool_update
+    level = level or pool_for(pool2d)
     for table, tiles, launch in zip(plan.tables, plan.tiles, plan.launches):
         level(pool2d, sc_flat, pmatrix, table, plan.gl, plan.gr, rates,
               states, threshold, factor, tiles=tiles, launch=launch)

@@ -30,14 +30,14 @@ one address space (partition rows | n_aux up rows | n_arows A rows |
 scratch; scalers likewise, then trash and zero rows).
 
 Device half (`nni_stream_scores`, `spr_stream_scores`): the three passes
-run through ops/levels.py:level_update, the CUDA level kernel for CUDA
-tensors and its plain version for CPU tensors (JAX runs XLA's
-update_partials_levels). Each wave's valid slots become one [9, w] level
-table (`pass_tables`); padded slots and empty waves launch nothing. The
-kernel writes in place, so a wave in which one op reads a row another op
-of the wave writes would not give JAX's result (JAX gathers a wave before
-it scatters it): `pass_tables` refuses such a wave; the builders never
-emit one. The extended
+run through ops/levels.py:level_for, the CUDA level kernel for float32
+CUDA tensors and its plain version for CPU tensors and float64 ones (JAX
+runs XLA's update_partials_levels). Each wave's valid slots become one
+[9, w] level table (`pass_tables`); padded slots and empty waves launch
+nothing. The kernel writes in place, so a wave in which one op reads a row
+another op of the wave writes would not give JAX's result (JAX gathers a
+wave before it scatters it): `pass_tables` refuses such a wave; the
+builders never emit one. The extended
 buffers hold the real rows only: the pow2-padded A rows and the scratch row
 are not allocated, and the padded zero-scaler row is mapped onto the
 compact one. The per-candidate compose and the edge-logL epilogue stay
@@ -714,8 +714,9 @@ def stream_passes(clv, scaler, pm, passes, n_aux: int, n_arows: int,
     sequence of (table [L, W, 8], valid [L, W]) in the builders' padded
     address space (post, up[, A]), `pm` the P-matrices they index ([E, ...]
     or [E + merged, ...]). Every index is checked on the host; each wave's
-    level table then runs through ops/levels.py:level_update (the level
-    kernel for CUDA tensors, its plain version for CPU tensors). The passes
+    level table then runs through ops/levels.py:level_for (the level
+    kernel for float32 CUDA tensors, its plain version for CPU tensors and
+    float64 ones). The passes
     write every row they read after writing it, so running `tables` again
     over the buffers gives the same buffers."""
     n_rows = base[0] if base is not None else clv.shape[0]

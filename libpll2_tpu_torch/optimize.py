@@ -550,8 +550,9 @@ def newton_smooth_all(engine: TreeEngine, tree, passes: int = 2,
     walk that optimizes every edge with `iterations` Newton updates,
     reorienting CLVs through auxiliary "up" rows (ops/branch_sweep.py).
     Every CLV op runs on the level kernel (its plain version for CPU
-    tensors). The tree's branch lengths, the engine's branches and the
-    partition's dense buffers are updated; returns the final
+    tensors and float64 ones: ops/levels.py:level_for). The tree's branch
+    lengths, the engine's branches and the partition's dense buffers are
+    updated; returns the final
     log-likelihood. On a sharded partition every CLV op and sumtable runs
     once a shard, and each Newton update takes the d1 and d2 summed over
     the shards (ops/branch_sweep.py:newton_sweep_shards)."""

@@ -47,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from .. import constants as C
+from ..ops.fused import FUSED_MAX_STATES
 
 __all__ = ["SITES_AXIS", "Mesh", "NamedSharding", "make_mesh",
            "shard_partition", "clv_sharding", "scaler_sharding",
@@ -380,13 +381,15 @@ class ShardedRepeatsEngine:
         self.use_pallas = pallas is not False
         want_dense = dense_fused is not False and pallas is not False
         dense_ok = (p0.dtype == torch.float32
+                    and p0.states <= FUSED_MAX_STATES
                     and (not p0.rate_scalers or p0.rate_cats <= 8)
                     and all(bool(np.all(p._tips_set)) for p in parts))
         if dense_fused and not dense_ok:
             raise C.PllError(
                 C.ERROR_PARAM_INVALID,
-                "dense_fused requires float32 shards with every tip set "
-                "from state codes")
+                f"dense_fused requires float32 shards of at most "
+                f"{FUSED_MAX_STATES} states with every tip set from state "
+                f"codes")
         mode = "auto" if (want_dense and dense_ok) else (
             "pool" if self.use_pallas else False)
         engines = [TreeEngine(p, tree, params_index=params_index,

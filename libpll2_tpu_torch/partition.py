@@ -54,10 +54,15 @@ tip masks) are numpy, as in the JAX package.
 only when asked for (`device="cpu"`). `dtype` is explicit and defaults to
 torch.float32, whose 2**-32 rescaling window keeps threshold**2 above
 float32's smallest normal; torch.float64 uses the reference's 2**-256
-window and runs only on the CPU (the kernels are float32).
+window. The kernels are float32, so a float64 partition on CUDA runs the
+plain PyTorch versions (ops/levels.py:level_for, ops/pool.py:pool_for), as
+JAX runs such a partition on XLA.
 
-Features outside this slice raise NotImplementedError naming the feature
-(ROADMAP.md lists the module or kernel that lifts each one).
+Alphabets of up to MAX_STATES (64) states: the tip states are uint64 masks,
+as in JAX. The level and pool kernels take them all (33-64 states through
+their 64-state instantiation, csrc/states64.cuh); the fused kernels take at
+most ops/fused.py:FUSED_MAX_STATES (32: their tip codes are int32 masks),
+and TreeEngine routes a larger alphabet off them.
 """
 from __future__ import annotations
 
@@ -83,8 +88,8 @@ from .repeats import RepeatsTable, build_flat_layout
 __all__ = ["Operation", "Partition", "PartitionShard", "pack_operations",
            "pack_level_operations", "resolve_device"]
 
-# both traversal kernels and tip_code_matrix carry tip states as int32 masks
-MAX_STATES = 32
+# tip states are uint64 masks (as libpll2_tpu/partition.py:229 keeps them)
+MAX_STATES = 64
 
 
 @dataclass
@@ -98,11 +103,6 @@ class Operation:
     child2_clv_index: int
     child2_matrix_index: int
     child2_scaler_index: int
-
-
-def not_ported(feature: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to libpll2_tpu_torch yet (see ROADMAP.md)")
 
 
 def resolve_device(device) -> torch.device:
@@ -183,17 +183,15 @@ class Partition:
             raise C.PllError(C.ERROR_PARAM_INVALID,
                              f"dtype must be torch.float32 or torch.float64, "
                              f"got {dtype!r}")
-        if self.device.type == "cuda" and dtype == torch.float64:
-            raise not_ported("float64 on CUDA (the kernels are float32)")
         asc_bias = C.AscBias(asc_bias)
         if asc_bias != C.AscBias.NONE and rate_scalers:
             raise C.PllError(C.ERROR_AB_NOSUPPORT,
                              "Per-rate scalers are not supported with asc "
                              "bias correction")
         if states > MAX_STATES:
-            raise not_ported(f"{states}-state alphabets (tip states travel "
-                             f"to the kernels as 32-bit masks, so at most "
-                             f"{MAX_STATES} states)")
+            raise C.PllError(C.ERROR_PARAM_INVALID,
+                             f"states={states}: tip states are 64-bit "
+                             f"masks, so at most {MAX_STATES} states")
         self.dtype = dtype
         if dtype == torch.float64:
             self.scale_threshold = C.SCALE_THRESHOLD
@@ -648,7 +646,8 @@ class Partition:
         (ops/levels.py:schedule_levels: its dependency levels, or one op
         per level where they would not equal the serial list), each level
         one launch of the level kernel on CUDA, or its plain version on the
-        CPU; parent rows and scaler rows are written in place.
+        CPU and for float64 (ops/levels.py:level_for); parent rows and
+        scaler rows are written in place.
 
         On a repeats partition the levels run over the pooled class columns
         through the pool kernel (ops/pool.py): at 4 states x 4 rates one

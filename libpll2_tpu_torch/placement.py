@@ -350,7 +350,7 @@ class EdgePlacer:
             torch.as_tensor(blen_full, dtype=p.dtype, device=p.device),
             torch.as_tensor(blen_half, dtype=p.dtype, device=p.device),
             p.scale_threshold, p.scale_factor, n_aux=n_aux,
-            level=ops_levels.level_update)
+            level=ops_levels.level_for(p.clv))
         pend = ops_pmatrix.update_prob_matrices(
             *margs[:5], margs[7],
             torch.tensor([self.pendant_length], dtype=p.dtype,
@@ -368,7 +368,7 @@ class EdgePlacer:
     def _query_codes_batch(self, seqs) -> np.ndarray:
         """All query bitmask rows in ONE vectorized pass (one charmap
         gather over the concatenated bytes). Returns [Q, sites_padded]
-        int32 (int8 for <= 8-state alphabets)."""
+        int32 (int8 for <= 8-state alphabets, int64 above 32 states)."""
         p = self.partition
         for s in seqs:
             if len(s) != p.sites:
@@ -384,7 +384,8 @@ class EdgePlacer:
             raise C.PllError(
                 C.ERROR_TIPDATA_ILLEGALSTATE,
                 f"illegal state in query sequence: {seqs[qi][si]!r}")
-        dt = np.int8 if p.states <= 8 else np.int32
+        dt = np.int8 if p.states <= 8 else \
+            np.int32 if p.states <= 32 else np.int64
         out = np.zeros((len(seqs), p.sites_padded), dt)
         out[:, :p.sites] = codes.astype(dt)    # masks fit: < 2^states
         return out

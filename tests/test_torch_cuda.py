@@ -49,13 +49,14 @@ for _i, _ch in enumerate("ACGTX"):
     CHARMAP5[ord(_ch)] = 1 << _i
 CHARMAP5[ord("-")] = 31
 LETTERS32 = "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdef"
+LETTERS64 = LETTERS32 + "ghijklmnopqrstuvwxyz0123456789@#"
 AA_NOISY = "ARNDCQEGHILKMFPSTWYVARNDCQEGHILKMFPSTWYVBZX-"
 
 
 def _charmap(states):
-    """States 0..s-1 as the first s of LETTERS32; '-' is every state."""
+    """States 0..s-1 as the first s of LETTERS64; '-' is every state."""
     cm = np.zeros(256, np.uint64)
-    for i, ch in enumerate(LETTERS32[:states]):
+    for i, ch in enumerate(LETTERS64[:states]):
         cm[ord(ch)] = 1 << i
     cm[ord("-")] = (1 << states) - 1
     return cm
@@ -395,7 +396,9 @@ LEVEL_CASES = ["ragged", "rates3", "states20", "states32", "caterpillar",
                "no_scaler", "partial", "self_child", "states5", "states2",
                "rates16_states32", "states20_wide", "per_rate_states20_wide",
                "states32_wide", "dna_wide", "dna_narrow", "dna_even_sites",
-               "dna_odd_sites", "per_rate_dna_wide", "dna_self_child"]
+               "dna_odd_sites", "per_rate_dna_wide", "dna_self_child",
+               "states33", "states40", "states61", "per_rate_states61",
+               "rates1_states61", "caterpillar61", "self_child61"]
 # The 4x4 variant's DNA cases on the 16-taxon tree (levels of 5, 3, 3, 2
 # and 1 ops): their sites, and the sites a lane their levels take on a
 # 132-SM H100 (ops/_kernels.py:level_fixed_plan): 60000 sites (4, 16-byte
@@ -416,7 +419,10 @@ def _level_case(case, device, dtype=torch.float32):
     """(partition with P-matrices set, the op list to run, the full list
     that must run first or None) for one level-kernel case. The runtime-size
     variant takes 'states20' exactly, 'states5' and 'states2' padded, and
-    'rates16_states32' (per-rate counts) with P's 128 KB staged in chunks.
+    'rates16_states32' (per-rate counts) with P's 128 KB staged in chunks;
+    33, 40 and 61 states take its 64-state instantiation (per site, per
+    rate, one rate, a caterpillar that rescales, an op that writes its own
+    child).
     It picks its threads from a level's ops x sites and the card's SM count:
     at 60000 sites ('_wide') the 16-taxon tree's levels of 5, 3, 3, 2 and 1
     ops take, on a 132-SM H100, what the 128 x 8192 protein tree's levels
@@ -435,6 +441,12 @@ def _level_case(case, device, dtype=torch.float32):
         case = "dna"
     if case == "caterpillar":
         tree, kw = _caterpillar(80), dict(kw, alphabet="ACGT")
+    elif case in ("caterpillar61", "self_child61", "rates1_states61"):
+        if case == "caterpillar61":
+            tree = _caterpillar(80)
+        kw.update(states=61, alphabet=LETTERS64[:61] + "-",
+                  rates=1 if case.startswith("rates1") else 4)
+        case = case[:-2] if case != "rates1_states61" else case
     elif case == "rates3":
         kw["rates"] = 3
     elif case == "self_child":
@@ -445,7 +457,7 @@ def _level_case(case, device, dtype=torch.float32):
     elif case.startswith("states"):
         s = int(case[6:])
         kw.update(states=s, alphabet={20: AA_NOISY, 5: "ACGTX-"}.get(
-            s, LETTERS32[:s] + "-"))
+            s, LETTERS64[:s] + "-"))
     part, _ = _engine(tree, sites, device, **kw)
     ops, br, pidx = create_operations(traverse(tree.vroot))
     part.update_prob_matrices([0] * part.rate_cats, pidx, br)
@@ -501,16 +513,17 @@ def test_level_kernel_matches_plain_on_card(cuda, case):
     site_max = want.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
     rel = ((got_clv[:part.nodes] - want).abs() / site_max).max()
     assert float(rel) <= 1e-5
-    if case == "caterpillar":
+    if case in ("caterpillar", "caterpillar61"):
         assert int(part.scale_buffer[:k].max()) > 0
     if case in DNA_LEVEL_CASES:
         assert _level_lanes(part, ops) == DNA_LEVEL_CASES[case][1]
 
 
-@pytest.mark.parametrize("states", [4, 20])
+@pytest.mark.parametrize("states", [4, 20, 61])
 def test_levels_kernel_engine_on_card_matches_cpu_float64(cuda, states):
     tree = random_utree([f"t{i}" for i in range(24)], seed=5)
-    kw = dict(states=states, alphabet=AA_NOISY) if states == 20 else {}
+    kw = {4: {}, 20: dict(states=20, alphabet=AA_NOISY),
+          61: dict(states=61, alphabet=LETTERS64[:61] + "-")}[states]
     gpu_part, _ = _engine(tree, 3000, cuda, **kw)
     cpu_part, _ = _engine(tree, 3000, "cpu", dtype=torch.float64, **kw)
     gpu = TreeEngine(gpu_part, tree, pallas="levels-kernel")
@@ -567,7 +580,7 @@ def test_level_wrapper_rejects_what_it_cannot_take(cuda):
                              + args[3:], kw),
         "host table": (args[:3] + (table.cpu(),), kw),
         "int64 table": (args[:3] + (table.long(),), kw),
-        "33 states": (args, dict(kw, states=33)),
+        "65 states": (args, dict(kw, states=65)),
     }
     for name, (a, k) in bad.items():
         with pytest.raises(ValueError):
@@ -578,18 +591,23 @@ POOL_CASES = ["dna", "rates3", "aa20", "caterpillar", "partial",
               "no_scaler", "identity", "states5", "states17", "states32",
               "aa20_per_rate", "rates3_per_rate", "rates1", "wide_aa",
               "mixed_widths", "war_serial", "back_to_back", "caterpillar80",
-              "big_grid", "dna_levels"]
+              "big_grid", "dna_levels", "states33", "states40", "states61",
+              "states61_per_rate", "states61_rates1", "caterpillar61"]
 # the runtime-size variant's threads a column (ops/_kernels.py:pool_plan,
 # read from each level's launch in the plan): a column's rates split over
 # the largest power of two up to 4 that the rates fill, so 'rates1' takes
 # 1, the 3-rate cases 2 and the 4-rate cases 4; 'wide_aa' (128 x 16384
 # simulated amino acids, levels 20,480-196,608 columns wide) runs blocks
 # over runs of tiles; 'mixed_widths' (64 x 4096 random DNA, 3 rates) holds
-# a level whose ops differ 16x in width; None: the 4x4 traversal kernel
+# a level whose ops differ 16x in width; the 64-state instantiation (33-64
+# states) keeps a column's rates on one thread; None: the 4x4 traversal
+# kernel
 POOL_LAYOUTS = {"rates3": {2}, "aa20": {4}, "states5": {4},
                 "states17": {4}, "states32": {4}, "aa20_per_rate": {4},
                 "rates3_per_rate": {2}, "rates1": {1}, "wide_aa": {4},
-                "mixed_widths": {2}}
+                "mixed_widths": {2}, "states33": {1}, "states40": {1},
+                "states61": {1}, "states61_per_rate": {1},
+                "states61_rates1": {1}, "caterpillar61": {1}}
 
 
 def _repeats_partition(tree, sites, device, states=4, rates=4, seed=11,
@@ -610,7 +628,7 @@ def _repeats_partition(tree, sites, device, states=4, rates=4, seed=11,
         headers, seqs = simulate_alignment(
             tree, sites, freqs, [1.0] * (states * (states - 1) // 2),
             alpha=0.8, seed=seed,
-            alphabet=None if states in (4, 20) else LETTERS32[:states])
+            alphabet=None if states in (4, 20) else LETTERS64[:states])
     else:
         headers, seqs = random_alignment(tree.tip_count, sites, seed=seed)
     by = dict(zip(headers, seqs))
@@ -643,7 +661,10 @@ def _pool_case(case, device):
     kw = {"rates3": dict(rates=3), "rates1": dict(rates=1),
           "aa20": dict(states=20),
           "states5": dict(states=5), "states17": dict(states=17),
-          "states32": dict(states=32),
+          "states32": dict(states=32), "states33": dict(states=33),
+          "states40": dict(states=40), "states61": dict(states=61),
+          "states61_per_rate": dict(states=61, rate_scalers=True),
+          "states61_rates1": dict(states=61, rates=1),
           "aa20_per_rate": dict(states=20, rate_scalers=True)}.get(case, {})
     sites = 600
     if case == "caterpillar":
@@ -670,6 +691,8 @@ def _pool_case(case, device):
         kw = dict(rates=3, conserved=False)
     elif case == "caterpillar80":
         tree, sites = _caterpillar(80), 1000
+    elif case == "caterpillar61":
+        tree, sites, kw = _caterpillar(150), 300, dict(states=61)
     elif case == "big_grid":
         kw = dict(rate_scalers=True)
     part = _repeats_partition(tree, sites, device, **kw)
@@ -781,7 +804,8 @@ def test_pool_kernel_matches_plain_on_card(cuda, case):
     want = part.clv_flat
     col_max = want.abs().amax(dim=(0, 1), keepdim=True).clamp(min=1e-30)
     assert float(((got_clv - want).abs() / col_max).max()) <= 1e-5
-    if case in ("caterpillar", "rates3_per_rate", "caterpillar80"):
+    if case in ("caterpillar", "rates3_per_rate", "caterpillar80",
+                "caterpillar61"):
         assert int(part.sc_flat[..., :lay.sc_trash].max()) > 0
     if case == "caterpillar80":
         assert len(plan.tables) == 78
@@ -814,6 +838,58 @@ def test_repeats_engine_on_card_matches_cpu_float64(cuda, pallas):
         assert abs(gl - wl) / abs(wl) < 5e-5
         for g, w in ((g1, w1), (g2, w2)):
             assert abs(g - w) / max(abs(w), 10.0) < 5e-3
+
+
+@pytest.mark.parametrize("storage", ["dense", "repeats"])
+def test_float64_engine_on_card_matches_cpu_float64(cuda, storage):
+    """A float64 partition on the card takes the routes JAX reports for
+    float64, 'levels' and 'pool' (the kernels are float32): no kernel
+    launches, and logL within 1e-12 and d1/d2 within 1e-10 of float64 on
+    the CPU; the step-by-step API (a full traversal, then a partial one)
+    runs the plain version too, its CLVs within 1e-12 of the CPU's."""
+    out = []
+    for device in (cuda, "cpu"):
+        tree = random_utree([f"t{i}" for i in range(24)], seed=5)
+        if storage == "dense":
+            part, _ = _engine(tree, 3000, device, dtype=torch.float64)
+        else:
+            part = _repeats_partition(tree, 3000, device,
+                                      dtype=torch.float64)
+        out.append((part, TreeEngine(part, tree)))
+    (gpart, gpu), (cpart, cpu) = out
+    assert gpu.execution_path == ("levels" if storage == "dense" else "pool")
+    counts = (fused.fused_traversal.launches, levels.level_update.launches,
+              pool.pool_update.launches)
+    got, want = gpu.loglikelihood(), cpu.loglikelihood()
+    assert abs(got - want) / abs(want) < 1e-12
+    for _ in range(3):
+        (gl, g1, g2), (wl, w1, w2) = gpu.newton_step(), cpu.newton_step()
+        assert abs(gl - wl) / abs(wl) < 1e-12
+        for g, w in ((g1, w1), (g2, w2)):
+            assert abs(g - w) / max(abs(w), 1e-3) < 1e-10
+    ops, br, pidx = create_operations(traverse(tree.vroot))
+    for part in (gpart, cpart):
+        part.update_prob_matrices([0] * part.rate_cats, pidx, br)
+        part.update_partials(ops)
+        part.update_partials(ops[len(ops) // 2:])
+    assert counts == (fused.fused_traversal.launches,
+                      levels.level_update.launches,
+                      pool.pool_update.launches)
+    if storage == "dense":
+        n = gpart.nodes    # the last row is scratch
+        assert torch.allclose(gpart.clv[:n].cpu(), cpart.clv[:n],
+                              rtol=1e-12, atol=0.0)
+
+
+def test_float64_tensors_do_not_enter_the_kernels(cuda):
+    """The level and pool wrappers refuse float64 CUDA tensors; the callers
+    take the plain versions for them (ops/levels.py:level_for,
+    ops/pool.py:pool_for)."""
+    x = torch.zeros(2, device=cuda, dtype=torch.float64)
+    assert levels.level_for(x) is levels.level_update_reference
+    assert pool.pool_for(x) is pool.pool_update_reference
+    assert levels.level_for(x.float()) is levels.level_update
+    assert pool.pool_for(x.float()) is pool.pool_update
 
 
 def test_pool_wrapper_needs_the_tile_map(cuda):
@@ -857,7 +933,7 @@ def test_pool_wrapper_rejects_what_it_cannot_take(cuda):
         "host table": (args[:3] + (table.cpu(),) + args[4:], kw),
         "int32 table": (args[:3] + (table.int(),) + args[4:], kw),
         "int64 gathers": (args[:4] + (plan.gl.long(), plan.gr), kw),
-        "33 states": (args, dict(kw, states=33)),
+        "65 states": (args, dict(kw, states=65)),
         "no level launch": (args, dict(kw, launch=None)),
         "another level's launch": (args, dict(kw, launch=plan.launches[1])),
     }
@@ -1959,10 +2035,12 @@ def test_sharded_repeats_engine_on_card(cuda, dense_fused):
 # at 20 states (wide: two sites a thread) and 32 states x 16 rates
 TRIAL_LEVEL_CASES = ["dna_wide", "dna_narrow", "per_rate_dna_wide",
                      "caterpillar", "no_scaler", "partial", "states20_wide",
-                     "rates3", "rates16_states32"]
+                     "rates3", "rates16_states32", "states33", "states61",
+                     "per_rate_states61", "caterpillar61"]
 TRIAL_POOL_CASES = ["dna", "caterpillar80", "big_grid", "no_scaler",
                     "partial", "war_serial", "dna_levels", "aa20", "rates3",
-                    "aa20_per_rate", "states5"]
+                    "aa20_per_rate", "states5", "states40", "states61",
+                    "states61_per_rate"]
 TRIALS = 5
 
 
@@ -2017,7 +2095,7 @@ def test_level_trial_form_matches_plain_on_card(cuda, case):
     assert bool(torch.isfinite(got).all())
     site_max = want.abs().amax(dim=(2, 3), keepdim=True).clamp(min=1e-30)
     assert float(((got - want).abs() / site_max).max()) <= 1e-5
-    if case == "caterpillar":
+    if case in ("caterpillar", "caterpillar61"):
         assert int(want_sc[:, written].max()) > 0
 
 

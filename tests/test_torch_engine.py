@@ -26,6 +26,7 @@ from libpll2_tpu.trees import random_alignment, random_utree
 
 import libpll2_tpu_torch as tp
 from libpll2_tpu_torch import convert
+from libpll2_tpu_torch import engine as tengine
 from libpll2_tpu_torch.io import maps as tmaps
 from libpll2_tpu_torch.ops import fused as tfused
 from libpll2_tpu_torch.trees import UTree
@@ -180,12 +181,6 @@ def test_partition_dtype_is_explicit():
         tp.Partition(4, 2, 4, 10, 1, 5, 4, 2, device="cpu", dtype=np.float64)
 
 
-def _fp64_on_cuda(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    tp.Partition(4, 2, 4, 10, 1, 5, 4, 2, device="cuda",
-                 dtype=torch.float64)
-
-
 def _rows_rate_scalers_above_8(mp):
     """The rows route (20 states) with per-rate scalers at 9 categories."""
     table = torch.tensor([[0, 1, 0, 0, 1, 1, 0, 1], [0, 0, 1, 2, 0, 0, 0, 0]],
@@ -224,9 +219,9 @@ CPU = {"device": "cpu"}
 # port lacks the feature, JAX's own error where JAX refuses it as well)
 OUT_OF_SLICE = {
     "mesh": (_mesh_that_does_not_divide_the_sites, ValueError),
-    "states_33": (lambda mp: tp.Partition(4, 2, 33, 10, 1, 5, 4, 2, **CPU),
-                  NotImplementedError),
-    "fp64_cuda": (_fp64_on_cuda, NotImplementedError),
+    # tip states are uint64 masks, as in JAX
+    "states_65": (lambda mp: tp.Partition(4, 2, 65, 10, 1, 5, 4, 2, **CPU),
+                  tp.PllError),
     "rate_scalers_with_asc": (lambda mp: tp.Partition(
         *SIZES, **CPU, rate_scalers=True, asc_bias=tp.AscBias.LEWIS),
         tp.PllError),
@@ -244,3 +239,29 @@ def test_out_of_slice_features_raise(feature, monkeypatch):
     call, exc = OUT_OF_SLICE[feature]
     with pytest.raises(exc):
         call(monkeypatch)
+
+
+def _states_33():
+    """33 states construct and leave the fused kernels (32-bit tip codes)
+    for the level kernel."""
+    part = tp.Partition(4, 2, 33, 10, 1, 5, 4, 2, **CPU)
+    return (part.states == 33 and tengine.choose_route(
+        states=33, device_type="cpu").path == "levels-kernel")
+
+
+def _fp64_cuda():
+    """A float64 partition on CUDA takes no kernel: the plain 'levels' and
+    'pool' paths JAX reports for float64 (its kernels are float32 too)."""
+    return [tengine.choose_route(p, dtype=torch.float64, device_type="cuda",
+                                 repeats=r).path
+            for p in ("auto", "levels-kernel", "pool")
+            for r in (False, True)] == ["levels", "pool"] * 3
+
+
+# the refusals that A5b-1 and A5c-1 lifted, and what the port does now
+LIFTED = {"states_33": _states_33, "fp64_cuda": _fp64_cuda}
+
+
+@pytest.mark.parametrize("feature", sorted(LIFTED))
+def test_lifted_refusals(feature):
+    assert LIFTED[feature]()

@@ -137,10 +137,10 @@ def test_wide_level_runs_in_runs_of_tiles():
 @pytest.mark.parametrize("args", [(4, 4, 4), (POOL_GRANULE, 4, 4),
                                   (POOL_GRANULE + 1, 4, 20),
                                   (0, 4, 20), (POOL_GRANULE, 0, 20),
-                                  (POOL_GRANULE, 4, 33)])
+                                  (POOL_GRANULE, 4, 65)])
 def test_pool_plan_refuses_what_has_no_runtime_size_plan(args):
     """The 4x4 size runs the traversal kernel; columns come in
-    granules."""
+    granules; the kernel takes at most 64 states."""
     with pytest.raises(ValueError):
         pool_plan(*args, SMS)
 

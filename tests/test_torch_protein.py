@@ -440,8 +440,13 @@ def test_mxu_validation():
 
 @pytest.mark.parametrize("states", [16, 32])
 def test_partition_takes_16_to_32_states(states):
+    """16 and 32 states, and 17 more (33, 49: the level and pool kernels'
+    64-state instantiations, off the fused kernels); past 64 the uint64 tip
+    masks end, and the partition refuses."""
     part = tp.Partition(4, 2, states, 10, 1, 5, 4, 2, device="cpu")
     assert part.states == states
-    with pytest.raises(NotImplementedError, match="32-bit"):
-        tp.Partition(4, 2, states + 17, 10, 1, 5, 4, 2, device="cpu")
+    assert tp.Partition(4, 2, states + 17, 10, 1, 5, 4, 2,
+                        device="cpu").states == states + 17
+    with pytest.raises(tp.PllError, match="64-bit"):
+        tp.Partition(4, 2, states + 49, 10, 1, 5, 4, 2, device="cpu")
 
