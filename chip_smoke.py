@@ -9,6 +9,7 @@
     python3 chip_smoke.py --levels-only CHECKOUT
     python3 chip_smoke.py --mesh-only
     python3 chip_smoke.py --states64-only
+    python3 chip_smoke.py --states64-times
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit's nvcc and PyTorch built for CUDA; jax is not needed. Phases,
@@ -318,13 +319,15 @@ each fatal on failure:
      the build) and prints its numbers as one JSON line.
  26. alphabets of 33-64 states and float64 partitions on the card: the
      `-Xptxas -v` registers and spills of the level and pool kernels'
-     64-state instantiations (csrc/states64.cuh; no spills allowed); each
-     against its plain version (scaler rows equal but at ties, CLVs
-     TOL_CLV): the level kernel at 40 states, 61 per rate, the 80-taxon
-     caterpillar at 61 (scaling must trigger), an op that writes its own
-     child and the full-width 61-state problem, the pool kernel at 40
-     states, 61 per rate and the conserved full-width problem (one rate
-     warp a column); a codon-sized alphabet at full width (61 states, the
+     64-state body (csrc/states64.cuh: a rate a block, a tile's rates in a
+     thread block cluster; no spills allowed); each against its plain
+     version (scaler rows equal but at ties, CLVs TOL_CLV): the level
+     kernel at 40 states, 61 per rate, the 80-taxon caterpillar at 61
+     (scaling must trigger), an op that writes its own child, 61 states at
+     5 rates (a cluster of 5), 40 states at 10 rates (2 rates a block) and
+     the full-width 61-state problem, the pool kernel at 40 states, 61 per
+     rate, 40 x 10 rates and the conserved full-width problem (one rate
+     warp); a codon-sized alphabet at full width (61 states, the
      DNA main path's tree, 128 taxa x 4096 sites simulated under seeded
      GTR parameters, Gamma(0.7) x 4): the step-by-step chain, a partial
      traversal and 'levels-kernel' with three Newton steps against the
@@ -335,14 +338,20 @@ each fatal on failure:
      default 'pool-pallas' (loglikelihood(), newton_step(), a
      maximize_fused step on the pool kernel's trial form); launches
      counted, each kernel's call, plain time, device time (torch.profiler)
-     and bound over one traversal; then float64 partitions on the card
+     and bound over one traversal, each level's device time beside its own
+     bound and its plan (the clusters checked), and a yardstick the port
+     never calls (one batched torch.matmul of the 42-op level's
+     contractions); then float64 partitions on the card
      (JAX's routes for float64: 'levels', 'scan', 'pool', no kernel
      launch): bench.py's DNA problem (loglikelihood(), newton_step(), the
      step-by-step API's full and partial traversals, the first iteration
      of a streamed SPR round at radius 2, one newton_smooth_all pass at 2
      iterations an edge) and the 246 x 4465 repeats problem, each against
      float64 on the CPU (logL 1e-12, d1/d2 1e-10), the calls' ms beside
-     the float32 fused call's. `--states64-only` runs this phase alone.
+     the float32 fused call's. `--states64-only` runs this phase alone;
+     `--states64-times` only times the two 64-state kernels on its
+     61-state problem, per site and per rate (each held against its
+     plain version), for one build against another on one card.
 
 The last three lines are the card's name and power limit, one JSON object
 listing every kernel (with its bound at the card's peaks), and {"ok": true,
@@ -7466,15 +7475,16 @@ def s64_problem(taxa, sites, states=S64_STATES, conserved=False,
 
 
 def s64_partition(tree, by_label, sites, device, states=S64_STATES,
-                  repeats=False, **options):
+                  repeats=False, rates=4, **options):
     """A float32 partition of `s64_problem`'s data (dense, or site repeats)
-    under `s64_model` with Gamma(0.7) x 4; `options` go to Partition."""
+    under `s64_model` with Gamma(0.7) x `rates`; `options` go to
+    Partition."""
     import torch
     from libpll2_tpu_torch import Partition, compute_gamma_cats
 
     options.setdefault("dtype", torch.float32)
     part = Partition(tree.tip_count, tree.inner_count, states, sites, 1,
-                     tree.edge_count, 4, tree.inner_count, device=device,
+                     tree.edge_count, rates, tree.inner_count, device=device,
                      site_repeats=repeats, **options)
     tips = list(tree.tips())
     part.set_tip_states_batch(charmap(states),
@@ -7483,7 +7493,7 @@ def s64_partition(tree, by_label, sites, device, states=S64_STATES,
     freqs, subst = s64_model(states)
     part.set_frequencies(0, freqs)
     part.set_subst_params(0, subst)
-    part.set_category_rates(compute_gamma_cats(0.7, 4))
+    part.set_category_rates(compute_gamma_cats(0.7, rates))
     return part
 
 
@@ -7519,13 +7529,15 @@ def ptxas_report(lib_path, names=S64_KERNELS):
 
 
 def s64_kernel_cases(device):
-    """Phase 26a: the level and pool kernels' 64-state instantiations
-    against their plain versions on the card: 40 states and 61 per rate at
-    16 x S64_SMALL, the 80-taxon caterpillar at 61 states (scaling must
-    trigger), an op that writes its own child, and the full-width 61-state
-    problem; pool cases at 40 states, 61 per rate and the conserved
-    full-width problem, each level one rate warp a column. Returns the
-    largest absolute error of each kernel."""
+    """Phase 26a: the level and pool kernels' 64-state body against their
+    plain versions on the card: 40 states and 61 per rate at 16 x
+    S64_SMALL, the 80-taxon caterpillar at 61 states (scaling must
+    trigger), an op that writes its own child, 5 rates (a cluster of 5
+    blocks), 10 rates at 40 states (a cluster of 8, two blocks taking 2
+    rates each) and the full-width 61-state problem; pool cases at 40
+    states, 61 per rate, 40 x 10 rates and the conserved full-width
+    problem, each level one rate warp. Returns the largest absolute error
+    of each kernel."""
     level_err, pool_err = 0.0, 0.0
     for name, taxa, sites, states, kw in (
             ("40 states", 16, S64_SMALL, 40, {}),
@@ -7535,6 +7547,10 @@ def s64_kernel_cases(device):
              {"caterpillar": True}),
             ("61 states, an op writing its own child", 16, S64_SMALL, 61,
              {"self_child": True}),
+            ("61 states, 5 rates (a cluster of 5)", 16, S64_SMALL, 61,
+             {"rates": 5}),
+            ("40 states, 10 rates (2 rates a block)", 16, S64_SMALL, 40,
+             {"rates": 10}),
             (f"61 states, {N_TAXA} x {S64_SITES}", N_TAXA, S64_SITES, 61,
              {})):
         cat, self_child = kw.pop("caterpillar", False), kw.pop("self_child",
@@ -7553,6 +7569,8 @@ def s64_kernel_cases(device):
             ("40 states", 24, S64_SMALL, 40, {}),
             ("61 states, per rate", 24, S64_SMALL, 61,
              {"rate_scalers": True}),
+            ("40 states, 10 rates (2 rates a block)", 24, S64_SMALL, 40,
+             {"rates": 10}),
             (f"61 states, conserved {N_TAXA} x {S64_SITES}", N_TAXA,
              S64_SITES, 61, {})):
         tree, by = s64_problem(taxa, sites, states, conserved=True)
@@ -7563,6 +7581,74 @@ def s64_kernel_cases(device):
                                                    layouts={1})[1])
         del part
     return level_err, pool_err
+
+
+def s64_level_bounds(part, widths):
+    """Each level's own bound over the level kernel (us, 'bytes' or
+    'operations'): its ops' two child rows read and parent row written
+    (`level_device`'s 3 rows an op) against `traversal_flops` of its ops."""
+    R, s, S = part.rate_cats, part.states, part.sites_padded
+    out = []
+    for w in widths:
+        t, by = bound_ms(3 * w * R * s * S * 4,
+                         traversal_flops(w, S, R, s))
+        out.append((t * 1e3, by))
+    return out
+
+
+def s64_plans(part, widths=None, plan=None):
+    """The 64-state body's layout of each level (csrc/states64.cuh), as
+    (blocks a cluster, tiles a block, blocks): the level kernel's from
+    ops/_kernels.py:level64_plan over the levels' ops `widths` with the
+    card's resident clusters, the pool kernel's from the pool plan's
+    launches (`plan`)."""
+    from libpll2_tpu_torch.ops import _kernels
+
+    if plan is not None:
+        return [(lay.cluster, lay.tiles_per_block, lay.blocks)
+                for lay in plan.launches]
+    resident = _kernels.device_states64_resident(part.device, "level",
+                                                 part.rate_cats)
+    return [(p.cluster, p.tiles_per_block, p.blocks) for p in (
+        _kernels.level64_plan(w, part.sites_padded, part.rate_cats, resident)
+        for w in widths)]
+
+
+def s64_levels_text(label, widths, level_us, bounds, plans, gpu):
+    """Prints each level's device time beside its own bound and its plan
+    (narrow and wide levels apart); `bounds` (us, by) or us."""
+    rows = []
+    for b, w, us, (cluster, per, blocks) in zip(bounds, widths, level_us,
+                                                plans):
+        b = b if isinstance(b, tuple) else (b, "")
+        rows.append(f"{w}, cluster {cluster} x {per} tile"
+                    f"{'s' if per > 1 else ''} a block, {blocks} blocks: "
+                    f"{us:.1f} / {b[0]:.1f}{' ' + b[1] if b[1] else ''} "
+                    f"({us / b[0]:.1f}x)")
+    print(f"{label} by level ({gpu}; width, plan: device us / its own bound "
+          f"us): " + "; ".join(rows), flush=True)
+
+
+def s64_matmul_yardstick(part, width, gpu):
+    """A yardstick the port never calls: one batched torch.matmul (float32,
+    TF32 off) that computes only the contractions of a level of `width`
+    ops, [ops x R x 2, 64, 64] @ [ops x R x 2, 64, S], on seeded random
+    inputs (no product of the two children, no rescale, no counts, so not
+    the level's function). Returns its ms (median of REPS, CUDA events)."""
+    import torch
+
+    n, S = width * part.rate_cats * 2, part.sites_padded
+    g = torch.Generator(device=part.device).manual_seed(S64_SEED)
+    a = torch.rand((n, 64, 64), generator=g, device=part.device)
+    b = torch.rand((n, 64, S), generator=g, device=part.device)
+    out = torch.empty((n, 64, S), device=part.device)
+    ms = median_ms(lambda: torch.matmul(a, b, out=out))
+    print(f"yardstick, not a port: one torch.matmul of the {width}-op "
+          f"level's contractions [{n}, 64, 64] @ [{n}, 64, {S}] ({gpu}): "
+          f"{ms:.4f} ms, {2 * n * 64 * 64 * S / ms / 1e9:.1f} TFLOP/s",
+          flush=True)
+    del a, b, out
+    return ms
 
 
 def s64_dense_path(device, gpu):
@@ -7593,10 +7679,21 @@ def s64_dense_path(device, gpu):
     kernel, plain, logl, step_ms = level_times(f"{S64_STATES}-state", part,
                                                eng, ops, gpu)
     dev = level_device(f"{S64_STATES}-state", part, ops, gpu)
+    widths = dev["level_ops"]
+    bounds = s64_level_bounds(part, widths)
+    plans = s64_plans(part, widths)
+    check({c for c, _, _ in plans} == {part.rate_cats},
+          f"61 states: the level plans' clusters {plans}")
+    s64_levels_text(f"level_generic64, {S64_STATES}-state {part.tips} x "
+                    f"{part.sites}", widths, dev["level_us"], bounds, plans,
+                    gpu)
+    yardstick = s64_matmul_yardstick(part, max(widths), gpu)
     return {"launches": launches + step["step_launches"]["level"],
             "levels": n_levels, "ms": kernel, "plain_ms": plain,
             "loglikelihood_ms": logl, "step_by_step_ms": step_ms,
             "device_ms": dev["ms"], "level_us": dev["level_us"],
+            "level_ops": widths, "level_bound_us": [b[0] for b in bounds],
+            "plans": plans, "yardstick_matmul_ms": yardstick,
             "bound": (dev["bound_ms"], dev["bound_by"]),
             "trial": step, "trial_form": form,
             "buffers_mb": part.clv_bytes() / 1e6}
@@ -7630,9 +7727,9 @@ def s64_repeats_path(device, gpu):
     step = eng.newton_step()
     torch.cuda.synchronize()
     got = counts()
-    per = pool_launches(eng._ops)
+    n_per = pool_launches(eng._ops)
     check_counts("61-state repeats: loglikelihood() + newton_step()", got,
-                 {"pool": 2 * per})
+                 {"pool": 2 * n_per})
     ops, _, _ = traversal_ops(part, tree)
     dense = s64_partition(tree, by, S64_SITES, device)
     r = tree.vroot
@@ -7656,17 +7753,64 @@ def s64_repeats_path(device, gpu):
     ms = median_ms(lambda: run_pool(part, ops))
     plain = median_ms(lambda: run_pool(part, ops, pool.pool_update_reference),
                       reps=3)
-    device_ms = pool_device(f"{S64_STATES}-state", part, ops, gpu)[0]
+    device_ms, per, level_bounds, cols, _ = pool_device(
+        f"{S64_STATES}-state", part, ops, gpu)
+    plans = s64_plans(part, plan=part._pool_plan(ops, True))
+    check({c for c, _, _ in plans} == {part.rate_cats},
+          f"61-state repeats: the pool plans' clusters {plans}")
+    s64_levels_text(f"pool_generic64, conserved {S64_STATES}-state "
+                    f"{part.tips} x {part.sites} (computed columns)",
+                    [c for c, _ in cols], per, level_bounds, plans, gpu)
     bound = pool_bound(part, levels)
     print(f"pool times, {S64_STATES}-state {part.tips} x {part.sites} "
           f"(median of {REPS}, CUDA events; {gpu}): kernel over "
           f"{len(levels)} levels {ms:.4f} ms (device {device_ms:.4f} ms, "
           f"bound {bound[0]:.4f} ms by {bound[1]}), plain {plain:.4f} ms",
           flush=True)
-    return {"launches": 2 * per + trial["step_launches"]["pool"],
+    return {"launches": 2 * n_per + trial["step_launches"]["pool"],
             "levels": len(levels), "ms": ms, "plain_ms": plain,
-            "device_ms": device_ms, "bound": bound, "trial": trial,
-            "trial_form": form}
+            "device_ms": device_ms, "level_us": per,
+            "level_columns": [c for c, _ in cols],
+            "level_bound_us": level_bounds, "plans": plans,
+            "bound": bound, "trial": trial, "trial_form": form}
+
+
+def s64_times(device, gpu):
+    """`--states64-times`: the two 64-state kernels alone on the 61-state
+    problem at full width (phase 26's), per site and per rate, for one
+    build against another on the same card: each held once against its
+    plain version (`compare_level_case`, `compare_pool_case`), then its
+    call over one traversal (median of REPS, CUDA events) and its device
+    time level by level (`level_device_us`, `pool_device`'s profiler)."""
+    out = {}
+    tree, by = s64_problem(N_TAXA, S64_SITES)
+    rtree, rby = s64_problem(N_TAXA, S64_SITES, conserved=True)
+    from libpll2_tpu_torch.ops import levels
+
+    for mode, kw in (("per site", {}), ("per rate", {"rate_scalers": True})):
+        part = s64_partition(tree, by, S64_SITES, device, **kw)
+        ops = traversal_ops(part, tree)[0]
+        err = compare_level_case(f"61 states {mode}", part, ops)[1]
+        tables, args = level_tables(part, ops)
+        call = median_ms(lambda: levels.update_partials_kernel(*args))
+        per = level_device_us(args, len(tables))
+        print(f"level_generic64 {mode} ({gpu}): call {call:.4f} ms, device "
+              f"{sum(per):.1f} us, by level "
+              + ", ".join(f"{u:.1f}" for u in per), flush=True)
+        out[f"level {mode}"] = {"ms": call, "device_us": sum(per),
+                                "level_us": per, "max_abs_err": err}
+        del part
+        part = s64_partition(rtree, rby, S64_SITES, device, repeats=True,
+                             **kw)
+        ops = traversal_ops(part, rtree)[0]
+        err = compare_pool_case(f"61 states {mode}", part, ops,
+                                layouts={1})[1]
+        call = median_ms(lambda: run_pool(part, ops))
+        dev, per = pool_device(f"61-state {mode}", part, ops, gpu)[:2]
+        out[f"pool {mode}"] = {"ms": call, "device_us": dev * 1e3,
+                               "level_us": per, "max_abs_err": err}
+        del part
+    return out
 
 
 def f64_streamed_scores(part, tree, **engine_kw):
@@ -7926,6 +8070,11 @@ def main() -> int:
                     help="only build the kernels and run phase 25 (site "
                     "sharding on the card), and print its numbers as one "
                     "JSON line")
+    ap.add_argument("--states64-times", action="store_true",
+                    help="only build the kernels and time the two 64-state "
+                    "kernels on phase 26's 61-state problem, per site and "
+                    "per rate (each held against its plain version), and "
+                    "print the times as one JSON line")
     ap.add_argument("--states64-only", action="store_true",
                     help="only build the kernels and run phase 26 (33-64 "
                     "states and float64 partitions on the card), and print "
@@ -7999,6 +8148,11 @@ def main() -> int:
             elif ("registers" in line or "spill" in line
                     or line.startswith("==")):
                 print(f"  ptxas: {line.strip()}", flush=True)
+
+    if args.states64_times:
+        print(json.dumps({"states64_times": s64_times(device, gpu),
+                          "gpu": gpu}), flush=True)
+        return 0
 
     if args.states64_only:
         headers_big, seqs = random_alignment(N_TAXA, N_SITES, seed=SEED)
@@ -8338,7 +8492,10 @@ def main() -> int:
                 "trial_bound_ms": form["bound"][0],
                 "trial_trials": form["k"], "trial_chunk": form["chunk"],
                 "step_launches": p["trial"]["step_launches"],
-                "step_ms": p["trial"]["step_ms"]}
+                "step_ms": p["trial"]["step_ms"],
+                "level_us": p["level_us"],
+                "level_bound_us": p["level_bound_us"], "plans": p["plans"],
+                "yardstick_matmul_ms": p.get("yardstick_matmul_ms")}
 
     def variant(prefix, key, launches):
         k, p, (b, by), *bf = var_ms[key]

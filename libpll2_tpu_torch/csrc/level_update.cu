@@ -146,6 +146,11 @@
 // computed without holding registers; levels of width 1 to 3 (the protein
 // tree's top) still cost 9-18 us each.
 //
+// 33 to 64 states: the 64-state body of states64.cuh (its note has the
+// design and the bound): one rate of one op a block over a run of 64-site
+// tiles of the level's flat (trial, op, tile) list, the tile's rates in a
+// thread block cluster, laid out by ops/_kernels.py:level64_plan.
+//
 // Offsets into the CLV and scaler buffers are 64-bit: (N+1) * R * s * S
 // passes 2^31 at 1000 taxa x 20 states x 4 rates x 30000 sites.
 //
@@ -743,80 +748,163 @@ void launch_generic(const Args& a, int n_ops, int trials, int tx, int ty,
       <<<dim3(blocks, n_ops, trials), dim3(tx, ty), smem, st>>>(a, rc, tiles);
 }
 
-// 33 to 64 states (states64.cuh): a thread owns one site of one op across
-// its rates, a block kThreads sites; per rate the block stages both
-// P-matrices (one rate, 64 x 64 padded) and each thread its own child
-// entries into shared memory, then the thread makes its parent rows in
-// groups. The per-site rescale takes the maximum over all the thread's
-// rates and re-reads only rows it has stored; per rate, each rate on its
-// own. Grid: (tiles of the sites, ops, trials).
+// 33 to 64 states (states64.cuh): one rate of one op a block, over a run
+// of 64-site tiles of the level's flat (trial, op, tile) list, the rates of
+// a tile in one thread block cluster (ops/_kernels.py:level64_plan).
 template <bool TRIALS>
-__global__ void __launch_bounds__(states64::kThreads, states64::kBlocksPerSm)
-    level_generic64(Args a) {
-  // [2][64][16] float4: rate r of P[m1], then of P[m2]; then [2][64]
-  // [blockDim.x] floats: the block's child entries of rate r
-  extern __shared__ float4 stage[];
-  constexpr int SP = states64::kSP;
-  Op op = load_op(a, blockIdx.y);
-  if constexpr (TRIALS) resolve(op, a, blockIdx.z);
-  const int s = a.states;
-  const int RS = a.rates * s;
-  const size_t S = a.sites;
-  const float* left = child_row<TRIALS>(a, op.c1, (size_t)RS * S);
-  const float* right = child_row<TRIALS>(a, op.c2, (size_t)RS * S);
-  float* dst = a.clv + (size_t)op.parent * RS * S;
-  const float* pl = a.pmat + (size_t)op.m1 * RS * s;
-  const float* pr = a.pmat + (size_t)op.m2 * RS * s;
-  const int bx = blockDim.x, x = threadIdx.x;
-  float* ch = reinterpret_cast<float*>(stage + SP * SP / 2);
-  const size_t site = (size_t)blockIdx.x * bx + x;
-  const bool in = site < S;
-  const int sj = (s + 3) & ~3;  // child entries the contraction reads
-  float m = 0.0f;
-  for (int r = 0; r < a.rates; ++r) {
-    if (r > 0) __syncthreads();  // every thread is done with rate r - 1
-    stage_p<SP, false>(stage, pl, pr, s, r, 1);
-    // the thread's own entries: plain loads, as the op may write its child
-#pragma unroll 4
-    for (int j = 0; j < sj; ++j) {
-      const bool ok = in && j < s;
-      const size_t row = (size_t)(r * s + j) * S + site;
-      ch[j * bx + x] = ok ? left[row] : 0.0f;
-      ch[(SP + j) * bx + x] = ok ? right[row] : 0.0f;
-    }
-    __syncthreads();
-    const float mr = states64::contract(
-        stage, stage + SP * SP / 4, ch + x, ch + SP * bx + x, bx, s,
-        [&](int i, float v) {
-          if (in) dst[(size_t)(r * s + i) * S + site] = v;
-        });
-    if (!a.rate_scalers) {
-      m = mr > m ? mr : m;
-    } else if (in) {  // this rate's count and rescale
-      const int rescale = op.has && mr < a.threshold;
-      if (rescale) rescale_rows(dst, S, site, r * s, (r + 1) * s, a.factor);
-      write_scaler(a, op, r, site, rescale);
+struct Dense64 {
+  Args a;
+  long long tiles_per_op;
+  int n_ops;
+  bool vec;  // rows start on 16 bytes and S % 4 == 0: 16-byte copies, stores
+  struct Ref {
+    Op op;
+    long long w;  // the op of the flat list (trial and op)
+    int site0;
+  };
+  __device__ __forceinline__ Ref ref(long long t) const {
+    Ref f;
+    f.w = t / tiles_per_op;
+    f.op = load_op_of<TRIALS>(a, f.w, n_ops);
+    f.site0 = (int)(t % tiles_per_op) * states64::kTile;
+    return f;
+  }
+  __device__ __forceinline__ Ref next(const Ref& cur, long long t) const {
+    if (t / tiles_per_op != cur.w) return ref(t);
+    Ref f = cur;
+    f.site0 = (int)(t % tiles_per_op) * states64::kTile;
+    return f;
+  }
+  __device__ __forceinline__ bool same_p(const Ref& x, const Ref& y) const {
+    return x.op.m1 == y.op.m1 && x.op.m2 == y.op.m2;
+  }
+  __device__ __forceinline__ const float* p(const Ref& f, int m, int q) const {
+    const int s = a.states;
+    return a.pmat + ((size_t)(m ? f.op.m2 : f.op.m1) * a.rates + q) * s * s;
+  }
+  __device__ __forceinline__ bool has(const Ref& f) const { return f.op.has; }
+  // rate q's rows of both children at the tile's sites; plain copies, not
+  // the read-only path: the op may write its own child
+  __device__ __forceinline__ void children(float* dst, const Ref& f, int q) const {
+    using namespace states64;
+    const size_t S = a.sites, RS = (size_t)a.rates * a.states;
+    const int s = a.states, tid = threadIdx.x;
+    const float* src[2] = {child_row<TRIALS>(a, f.op.c1, RS * S),
+                           child_row<TRIALS>(a, f.op.c2, RS * S)};
+    if (vec) {
+      const int c4 = tid % (kTile / 4), site = f.site0 + 4 * c4;
+      const bool ok = site < (int)S;
+      for (int c = 0; c < 2; ++c) {
+        const float* base = src[c] + (size_t)q * s * S + (ok ? site : 0);
+        for (int j = tid / (kTile / 4); j < s; j += kThreads / (kTile / 4))
+          copy16(dst + c * kChildFloats + j * kTile + 4 * c4, base + j * S, ok);
+      }
+    } else {
+      const int c1 = tid % kTile, site = f.site0 + c1;
+      const bool ok = site < (int)S;
+      for (int c = 0; c < 2; ++c) {
+        const float* base = src[c] + (size_t)q * s * S + (ok ? site : 0);
+        for (int j = tid / kTile; j < s; j += kThreads / kTile)
+          copy4(dst + c * kChildFloats + j * kTile + c1, base + j * S, ok);
+      }
     }
   }
-  if (a.rate_scalers || !in) return;
-  const int rescale = op.has && m < a.threshold;
-  if (rescale) rescale_rows(dst, S, site, 0, RS, a.factor);
-  write_scaler(a, op, 0, site, rescale);
+  __device__ __forceinline__ float* row(const Ref& f, int q, int i) const {
+    const size_t S = a.sites;
+    return a.clv + ((size_t)f.op.parent * a.rates * a.states +
+                    (size_t)q * a.states + i) * S;
+  }
+  __device__ __forceinline__ void store(
+      const Ref& f, int q, int rg, int sg, int s,
+      const float (&x)[states64::kRows][states64::kCols]) const {
+    using namespace states64;
+    const int site = f.site0 + sg * kCols, S = a.sites;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (rg * kRows + i >= s) break;
+      float* dst = row(f, q, rg * kRows + i) + site;
+      if (vec && site < S) {
+        *reinterpret_cast<float4*>(dst) = make_float4(x[i][0], x[i][1], x[i][2], x[i][3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < kCols; ++k)
+          if (site + k < S) dst[k] = x[i][k];
+      }
+    }
+  }
+  __device__ __forceinline__ void rescale(const Ref& f, int q, int rg, int sg,
+                                          int s, const bool (&d)[states64::kCols]) const {
+    using namespace states64;
+    const int site = f.site0 + sg * kCols, S = a.sites;
+    for (int i = 0; i < kRows && rg * kRows + i < s; ++i) {
+      float* dst = row(f, q, rg * kRows + i) + site;
+#pragma unroll
+      for (int k = 0; k < kCols; ++k)
+        if (d[k] && site + k < S) dst[k] *= a.factor;
+    }
+  }
+  // count group q's rows (a rate's in per-rate mode) of scaler row `row`
+  __device__ __forceinline__ int* counts(int row, int q) const {
+    return a.scaler + ((size_t)row * (a.rate_scalers ? a.rates : 1) + q) * a.sites;
+  }
+  __device__ __forceinline__ void child_counts(const Ref& f, int q, int sg,
+                                               int (&k)[states64::kCols]) const {
+    const int site = f.site0 + sg * states64::kCols;
+    const int* k1 = counts(f.op.s1, q) + site;
+    const int* k2 = counts(f.op.s2, q) + site;
+#pragma unroll
+    for (int j = 0; j < states64::kCols; ++j)
+      k[j] = site + j < a.sites ? k1[j] + k2[j] : 0;
+  }
+  __device__ __forceinline__ void count(const Ref& f, int q, int sg,
+                                        const int (&k)[states64::kCols],
+                                        const bool (&d)[states64::kCols]) const {
+    const int site = f.site0 + sg * states64::kCols;
+    int* dst = counts(f.op.psc, q) + site;
+#pragma unroll
+    for (int j = 0; j < states64::kCols; ++j)
+      if (site + j < a.sites) dst[j] = k[j] + d[j];
+  }
+};
+
+template <bool TRIALS>
+__global__ void __launch_bounds__(states64::kThreads, states64::kBlocksPerSm)
+    level_generic64(Dense64<TRIALS> src, long long n_tiles, long long per_block) {
+  const long long t0 = (long long)(blockIdx.x / cooperative_groups::this_cluster()
+                                                    .num_blocks()) * per_block;
+  const long long t1 = min(t0 + per_block, n_tiles);
+  states64::run(src, t0, t1, src.a.rates, src.a.states, src.a.threshold,
+                src.a.factor, src.a.rate_scalers != 0);
 }
 
-// One launch of the 64-state variant: a block a tile of kThreads sites of
-// one op (and trial), 96 KB of shared memory, which it must ask for.
+// The clusters of level_generic64 the current device keeps resident.
+int resident64(int cluster) {
+  return states64::resident(level_generic64<false>, 0, cluster);
+}
+
+// One launch of the 64-state variant: ops/_kernels.py:level64_plan's
+// layout, recomputed here; a launch whose cluster or run length differs,
+// or whose tiles pass an int's sites, is refused.
 template <bool TRIALS>
-cudaError_t launch_generic64(const Args& a, int n_ops, int trials,
-                             cudaStream_t st) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      level_generic64<TRIALS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      states64::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const int tiles = (a.sites + states64::kThreads - 1) / states64::kThreads;
-  level_generic64<TRIALS><<<dim3(tiles, n_ops, trials), states64::kThreads,
-                            states64::kSmemBytes, st>>>(a);
-  return cudaSuccess;
+int launch_generic64(const Args& a, int n_ops, int trials, int cluster,
+                     int tiles_per_block, cudaStream_t st) {
+  const long long tiles_per_op =
+      ((long long)a.sites + states64::kTile - 1) / states64::kTile;
+  const long long n_tiles = tiles_per_op * n_ops * trials;
+  const int c = a.rates < states64::kMaxCluster ? a.rates : states64::kMaxCluster;
+  const int resident = resident64(c);
+  if (resident < 0) return -resident;
+  const states64::Plan p = states64::plan(n_tiles, a.rates, resident);
+  if (p.cluster != cluster || p.per_block != tiles_per_block ||
+      p.runs * p.cluster > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  size_t ptrs = reinterpret_cast<size_t>(a.clv);
+  if (TRIALS && a.base > 0) ptrs |= reinterpret_cast<size_t>(a.tips);
+  Dense64<TRIALS> src{a, tiles_per_op, n_ops,
+                      a.sites % 4 == 0 && (ptrs & 15) == 0};
+  return static_cast<int>(states64::launch(level_generic64<TRIALS>, p.runs,
+                                           p.cluster, st, src, n_tiles,
+                                           p.per_block));
 }
 
 // The current device's SM count, asked of the driver once per device (the
@@ -872,7 +960,7 @@ void launch_fixed(const Args& a, const FixedPlan& p, int n_ops,
 // One level of `n_ops` ops, `trials` trials (1 in the one-topology form).
 template <bool TRIALS>
 int launch_level(const Args& a, int n_ops, int trials, int sites_per_lane,
-                 int tiles_per_block, cudaStream_t st) {
+                 int tiles_per_block, int cluster, cudaStream_t st) {
   const int sites = a.sites, rates = a.rates, states = a.states;
   if (states == 4 && rates == 4) {
     size_t ptrs = reinterpret_cast<size_t>(a.clv) |
@@ -918,8 +1006,9 @@ int launch_level(const Args& a, int n_ops, int trials, int sites_per_lane,
     } else if (states <= 32) {
       launch_generic<32, 1, false, TRIALS>(a, n_ops, trials, tx, ty, sms, st);
     } else {
-      const cudaError_t err = launch_generic64<TRIALS>(a, n_ops, trials, st);
-      if (err != cudaSuccess) return static_cast<int>(err);
+      const int err = launch_generic64<TRIALS>(a, n_ops, trials, cluster,
+                                               tiles_per_block, st);
+      if (err != 0) return err;
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -930,9 +1019,11 @@ int launch_level(const Args& a, int n_ops, int trials, int sites_per_lane,
 // Launches one level of `n_ops` ops on `stream` and returns
 // cudaGetLastError() (0 on success). 4 states x 4 rates take the layout of
 // ops/_kernels.py:level_fixed_plan, which the caller passes
-// (`sites_per_lane`, `tiles_per_block`; 0 for other sizes): a launch whose
-// layout differs from the one recomputed here, or whose P is not 16-byte
-// aligned, is refused with cudaErrorInvalidValue. `trials` 0 is the
+// (`sites_per_lane`, `tiles_per_block`); 33-64 states that of
+// level64_plan (`cluster`, the blocks of a cluster, and `tiles_per_block`);
+// 0 for other sizes. A launch whose layout differs from the one recomputed
+// here, or whose P is not 16-byte aligned at 4x4, is refused with
+// cudaErrorInvalidValue. `trials` 0 is the
 // one-topology form; trials > 0 the trial form over that many trials, with
 // the shared rows `tips` below `base` and a trial's `clv_rows` CLV rows,
 // `sc_rows` scaler rows and `n_mats` P-matrices (trials x each below
@@ -944,7 +1035,7 @@ extern "C" int pll_level_update(float* clv, int* scaler, const float* pmat,
                                 int sites_per_lane, int tiles_per_block,
                                 const float* tips, int base, int trials,
                                 int clv_rows, int sc_rows, int n_mats,
-                                void* stream) {
+                                int cluster, void* stream) {
   const long long most = (long long)trials *
                          (clv_rows > sc_rows ? (clv_rows > n_mats ? clv_rows : n_mats)
                                              : (sc_rows > n_mats ? sc_rows : n_mats));
@@ -956,7 +1047,12 @@ extern "C" int pll_level_update(float* clv, int* scaler, const float* pmat,
          rate_scalers, tips, base, clv_rows, sc_rows, n_mats};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return trials > 0 ? launch_level<true>(a, n_ops, trials, sites_per_lane,
-                                         tiles_per_block, st)
+                                         tiles_per_block, cluster, st)
                     : launch_level<false>(a, n_ops, 1, sites_per_lane,
-                                          tiles_per_block, st);
+                                          tiles_per_block, cluster, st);
 }
+
+// The clusters of `cluster` blocks of the 64-state variant that the current
+// device keeps resident at once (ops/_kernels.py:level64_plan's `resident`),
+// or a negative CUDA error.
+extern "C" int pll_level64_resident(int cluster) { return resident64(cluster); }

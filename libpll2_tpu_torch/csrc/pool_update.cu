@@ -183,6 +183,11 @@
 // level's latency chain (~4 us), the stores, the scattered child gathers
 // of the top levels and the FMA loop at 8-16 warps an SM.
 //
+// 33 to 64 states: the 64-state body of states64.cuh (one rate of one op a
+// block over a run of 64-column tiles, two a tile-map granule, of the
+// level's flat (trial, tile) list, the tile's rates in a thread block
+// cluster), laid out by ops/_kernels.py:pool_plan.
+//
 // Offsets into the pool are 64-bit (the table is int64): the pool holds
 // R * s * T floats, past 2^31 at 80 rows and 27M columns.
 //
@@ -670,102 +675,167 @@ void launch_generic(const Args& a, const int* map, int granules, int ty,
       <<<dim3(blocks, trials), dim3(w, ty), smem, st>>>(a, tl);
 }
 
-// 33 to 64 states (states64.cuh): a thread owns one class column of a
-// tile across its rates (blockDim.y is 1, a tile is kThreads columns); per
-// rate the block stages both P-matrices (one rate, 64 x 64 padded, by
-// cp.async) and each thread gathers its own child entries into shared
-// memory, then makes its parent rows in groups. The rescales and counts
-// are pool_generic's.
+// 33 to 64 states (states64.cuh): one rate of one op a block, over a run
+// of 64-column tiles (two a tile-map granule) of the level's flat (trial,
+// tile) list, the rates of a tile in one thread block cluster
+// (ops/_kernels.py:pool_plan). The counts are pool_generic's.
+template <bool TRIALS>
+struct Pooled64 {
+  Args a;
+  const int2* map;   // the level's tile map: (op, first column) a granule
+  long long tiles;   // a trial's tiles: its granules x 2
+  struct Ref {
+    Op op;
+    long long c0;    // the tile's first column
+    int k;           // its trial
+    int e;           // its op in the table
+  };
+  // tile t's trial, map entry and first column, and its op unless it is
+  // `cur`'s
+  __device__ __forceinline__ Ref locate(long long t, const Ref* cur) const {
+    constexpr int per = kGranule / states64::kTile;
+    Ref f;
+    f.k = TRIALS ? (int)(t / tiles) : 0;
+    const long long tile = TRIALS ? t - f.k * tiles : t;
+    const int2 e = __ldg(map + tile / per);
+    f.e = e.x;
+    if (cur != nullptr && cur->k == f.k && cur->e == e.x) f.op = cur->op;
+    else f.op = load_op(a, e.x);
+    f.c0 = e.y + (tile % per) * states64::kTile;
+    return f;
+  }
+  __device__ __forceinline__ Ref ref(long long t) const {
+    return locate(t, nullptr);
+  }
+  __device__ __forceinline__ Ref next(const Ref& cur, long long t) const {
+    return locate(t, &cur);
+  }
+  __device__ __forceinline__ bool same_p(const Ref& x, const Ref& y) const {
+    return x.k == y.k && x.op.m1 == y.op.m1 && x.op.m2 == y.op.m2;
+  }
+  __device__ __forceinline__ const float* p(const Ref& f, int m, int q) const {
+    const int s = a.states;
+    return trial_buf<TRIALS>(a.pmat, a.p_trial, f.k) +
+           ((m ? f.op.m2 : f.op.m1) * a.rates + q) * s * s;
+  }
+  __device__ __forceinline__ bool has(const Ref& f) const { return f.op.has; }
+  __device__ __forceinline__ float* pool(const Ref& f) const {
+    return trial_buf<TRIALS>(a.pool, a.pool_trial, f.k);
+  }
+  // rate q's entries of both children's gathered columns; no op of the
+  // level writes a column another reads (schedule_levels), so they come
+  // through L1
+  __device__ __forceinline__ void children(float* dst, const Ref& f, int q) const {
+    using namespace states64;
+    const int s = a.states, tid = threadIdx.x, lx = tid % kTile;
+    const long long c = f.c0 + lx;
+    const bool in = c < f.op.w;
+    const float* pl = pool(f);
+    const float* base[2] = {
+        pl + f.op.c1 + (in ? __ldg(a.gl + f.op.g + c) : 0) + (long long)q * s * a.T,
+        pl + f.op.c2 + (in ? __ldg(a.gr + f.op.g + c) : 0) + (long long)q * s * a.T};
+    for (int m = 0; m < 2; ++m)
+      for (int j = tid / kTile; j < s; j += kThreads / kTile)
+        copy4(dst + m * kChildFloats + j * kTile + lx, base[m] + j * a.T, in);
+  }
+  __device__ __forceinline__ float* row(const Ref& f, int q, int i) const {
+    return pool(f) + f.op.p + ((long long)q * a.states + i) * a.T;
+  }
+  __device__ __forceinline__ void store(
+      const Ref& f, int q, int rg, int sg, int s,
+      const float (&x)[states64::kRows][states64::kCols]) const {
+    using namespace states64;
+    const long long c = f.c0 + sg * kCols;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (rg * kRows + i >= s) break;
+      float* dst = row(f, q, rg * kRows + i) + c;
+#pragma unroll
+      for (int k = 0; k < kCols; ++k)
+        if (c + k < f.op.w) dst[k] = x[i][k];
+    }
+  }
+  __device__ __forceinline__ void rescale(const Ref& f, int q, int rg, int sg,
+                                          int s, const bool (&d)[states64::kCols]) const {
+    using namespace states64;
+    const long long c = f.c0 + sg * kCols;
+    for (int i = 0; i < kRows && rg * kRows + i < s; ++i) {
+      float* dst = row(f, q, rg * kRows + i) + c;
+#pragma unroll
+      for (int k = 0; k < kCols; ++k)
+        if (d[k] && c + k < f.op.w) dst[k] *= a.factor;
+    }
+  }
+  // count group q (a rate's in per-rate mode) of the trial's scaler pool
+  __device__ __forceinline__ int* counts(const Ref& f, int q) const {
+    return trial_buf<TRIALS>(a.sc, a.sc_trial, f.k) + q * a.T2;
+  }
+  __device__ __forceinline__ void child_counts(const Ref& f, int q, int sg,
+                                               int (&k)[states64::kCols]) const {
+    const long long c = f.c0 + sg * states64::kCols;
+    const int* sc = counts(f, q);
+#pragma unroll
+    for (int j = 0; j < states64::kCols; ++j)
+      k[j] = c + j < f.op.w ? sc[f.op.s1 + __ldg(a.gl + f.op.g + c + j)] +
+                                  sc[f.op.s2 + __ldg(a.gr + f.op.g + c + j)]
+                            : 0;
+  }
+  __device__ __forceinline__ void count(const Ref& f, int q, int sg,
+                                        const int (&k)[states64::kCols],
+                                        const bool (&d)[states64::kCols]) const {
+    const long long c = f.c0 + sg * states64::kCols;
+    int* sc = counts(f, q) + f.op.psc + c;
+#pragma unroll
+    for (int j = 0; j < states64::kCols; ++j)
+      if (c + j < f.op.w) sc[j] = k[j] + d[j];
+  }
+};
+
 template <bool TRIALS>
 __global__ void __launch_bounds__(states64::kThreads, states64::kBlocksPerSm)
-    pool_generic64(Args a, Tiles tl) {
-  // [2][64][16] float4: rate r of P[m1], then of P[m2]; then [2][64][w]
-  // floats: the tile's child entries of rate r
-  extern __shared__ float4 stage[];
-  constexpr int SP = states64::kSP;
-  const int s = a.states;
-  const int RS = a.rates * s;
-  const int w = blockDim.x, lx = threadIdx.x;
-  const size_t T = a.T;
-  float* const pool = trial_buf<TRIALS>(a.pool, a.pool_trial, blockIdx.y);
-  int* const sc_all = trial_buf<TRIALS>(a.sc, a.sc_trial, blockIdx.y);
-  const float* const pmat = trial_buf<TRIALS>(a.pmat, a.p_trial, blockIdx.y);
-  float* ch = reinterpret_cast<float*>(stage + SP * SP / 2);
-  const int sj = (s + 3) & ~3;  // child entries the contraction reads
-  bool first = true;
-  const int t0 = blockIdx.x * tl.per_block;
-  const int t1 = min(t0 + tl.per_block, tl.count);
-  for (int t = t0; t < t1; ++t) {
-    const int2 e = __ldg(tl.map + t / tl.per_granule);
-    const Op op = load_op(a, e.x);
-    const long long c = e.y + (long long)(t % tl.per_granule) * w + lx;
-    const bool in = c < op.w;
-    const int gl = in ? __ldg(a.gl + op.g + c) : 0;
-    const int gr = in ? __ldg(a.gr + op.g + c) : 0;
-    const float* left = pool + op.c1 + gl;
-    const float* right = pool + op.c2 + gr;
-    float* dst = pool + op.p + c;
-    const float* pl = pmat + op.m1 * RS * s;
-    const float* pr = pmat + op.m2 * RS * s;
-    float m = 0.0f;
-    for (int r = 0; r < a.rates; ++r) {
-      if (!first) __syncthreads();  // every thread is done with the stage
-      first = false;
-      stage_p<SP, false>(stage, pl, pr, s, r, 1);
-#pragma unroll 4
-      for (int j = 0; j < sj; ++j) {
-        const bool ok = in && j < s;
-        const size_t row = (size_t)(r * s + j) * T;
-        ch[j * w + lx] = ok ? __ldg(left + row) : 0.0f;
-        ch[(SP + j) * w + lx] = ok ? __ldg(right + row) : 0.0f;
-      }
-      cp_async_wait_all();
-      __syncthreads();
-      const float mr = states64::contract(
-          stage, stage + SP * SP / 4, ch + lx, ch + SP * w + lx, w, s,
-          [&](int i, float v) {
-            if (in) dst[(size_t)(r * s + i) * T] = v;
-          });
-      if (!a.rate_scalers) {
-        m = mr > m ? mr : m;
-      } else if (in) {  // this rate's count and rescale
-        const int rescale = op.has && mr < a.threshold;
-        if (rescale) rescale_rows(dst, T, r * s, (r + 1) * s, a.factor);
-        write_count(a, sc_all, op, r, c, gl, gr, rescale);
-      }
-    }
-    if (a.rate_scalers || !in) continue;
-    const int rescale = op.has && m < a.threshold;
-    if (rescale) rescale_rows(dst, T, 0, RS, a.factor);
-    write_count(a, sc_all, op, 0, c, gl, gr, rescale);
-  }
+    pool_generic64(Pooled64<TRIALS> src, long long n_tiles, long long per_block) {
+  const long long t0 = (long long)(blockIdx.x / cooperative_groups::this_cluster()
+                                                    .num_blocks()) * per_block;
+  const long long t1 = min(t0 + per_block, n_tiles);
+  states64::run(src, t0, t1, src.a.rates, src.a.states, src.a.threshold,
+                src.a.factor, src.a.rate_scalers != 0);
 }
 
-// One launch of the 64-state variant: tiles of kThreads columns (one rate
-// warp), `per_block` of them a block, 96 KB of shared memory, which it
-// must ask for.
+// The clusters of pool_generic64 the current device keeps resident.
+int resident64(int cluster) {
+  return states64::resident(pool_generic64<false>, 1, cluster);
+}
+
+// One launch of the 64-state variant over the level's tile map (`granules`
+// entries, each trial's), with ops/_kernels.py:pool_plan's layout
+// recomputed here; a launch whose cluster or run length differs is
+// refused.
 template <bool TRIALS>
 cudaError_t launch_generic64(const Args& a, const int* map, int granules,
-                             int per_block, int trials, cudaStream_t st) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      pool_generic64<TRIALS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      states64::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  Tiles tl{reinterpret_cast<const int2*>(map),
-           kGranule / states64::kThreads, 0, per_block, 1};
-  tl.count = granules * tl.per_granule;
-  const int blocks = (tl.count + per_block - 1) / per_block;
-  pool_generic64<TRIALS><<<dim3(blocks, trials), states64::kThreads,
-                           states64::kSmemBytes, st>>>(a, tl);
-  return cudaSuccess;
+                             int cluster, int per_block, int trials,
+                             cudaStream_t st) {
+  const long long tiles = (long long)granules * (kGranule / states64::kTile);
+  const long long n_tiles = tiles * trials;
+  const int c = a.rates < states64::kMaxCluster ? a.rates : states64::kMaxCluster;
+  const int resident = resident64(c);
+  if (resident < 0) return static_cast<cudaError_t>(-resident);
+  const states64::Plan p = states64::plan(n_tiles, a.rates, resident);
+  if (p.cluster != cluster || p.per_block != per_block ||
+      p.runs * p.cluster > 2147483647LL)
+    return cudaErrorInvalidValue;
+  Pooled64<TRIALS> src{a, reinterpret_cast<const int2*>(map), tiles};
+  return states64::launch(pool_generic64<TRIALS>, p.runs, p.cluster, st, src,
+                          n_tiles, p.per_block);
 }
 
 template <bool TRIALS>
 cudaError_t launch_update(const Args& a, const int* map, int granules, int ty,
-                          int per_block, int trials, cudaStream_t st) {
+                          int per_block, int trials, int cluster,
+                          cudaStream_t st) {
   const int states = a.states;
   if (states > 32) {
-    return launch_generic64<TRIALS>(a, map, granules, per_block, trials, st);
+    return launch_generic64<TRIALS>(a, map, granules, cluster, per_block,
+                                    trials, st);
   } else if (states == 20) {
     launch_generic<20, true, TRIALS>(a, map, granules, ty, per_block, trials, st);
   } else if (states <= 4) {
@@ -798,10 +868,11 @@ void launch_traversal(const Args& a, const Trav& tv, int blocks,
 // cudaGetLastError() (0 on success). T2 is the scaler pool's column count
 // (its row stride in per-rate mode). The grid covers the level's tile map
 // (`map`, `granules` int32 pairs) with the layout of
-// ops/_kernels.py:pool_plan: `rate_threads` warps over the rates (1 above
-// 32 states), `per_block` tiles a block. `trials` 0 is the one-topology
-// form; trials > 0 the trial form over that many trials, the trials'
-// strides in elements.
+// ops/_kernels.py:pool_plan: `rate_threads` warps over the rates and
+// `per_block` tiles a block; from 33 states on (1 rate warp) `cluster`
+// blocks a cluster, one rate a block, and `per_block` tiles a run over
+// every trial's tiles. `trials` 0 is the one-topology form; trials > 0 the
+// trial form over that many trials, the trials' strides in elements.
 // The 4x4 size runs pll_pool_traversal.
 extern "C" int pll_pool_update(float* pool, int* sc, const float* pmat,
                                const long long* table, int ld, long long T,
@@ -811,7 +882,7 @@ extern "C" int pll_pool_update(float* pool, int* sc, const float* pmat,
                                int granules, int rate_threads, int per_block,
                                int trials, long long pool_trial,
                                long long sc_trial, long long p_trial,
-                               void* stream) {
+                               int cluster, void* stream) {
   Args a{pool, sc, pmat, table, ld, T, gl, gr, rates, states, threshold,
          factor, T2, rate_scalers, pool_trial, sc_trial, p_trial};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -823,12 +894,18 @@ extern "C" int pll_pool_update(float* pool, int* sc, const float* pmat,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err =
-      trials > 0
-          ? launch_update<true>(a, map, granules, ty, per_block, trials, st)
-          : launch_update<false>(a, map, granules, ty, per_block, 1, st);
+      trials > 0 ? launch_update<true>(a, map, granules, ty, per_block,
+                                       trials, cluster, st)
+                 : launch_update<false>(a, map, granules, ty, per_block, 1,
+                                        cluster, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The clusters of `cluster` blocks of the 64-state variant that the current
+// device keeps resident at once (ops/_kernels.py:pool_plan's `resident`),
+// or a negative CUDA error.
+extern "C" int pll_pool64_resident(int cluster) { return resident64(cluster); }
 
 // Launches the 4x4 kernel over `n_tiles` tickets of 64 class columns on
 // `stream` and returns the first CUDA error (0 on success). `tickets` are

@@ -146,9 +146,12 @@ def library() -> ctypes.CDLL:
         _I, _I,            # level_fixed_plan: sites a lane, tiles a block
         _P, _I, _I,        # trial form: shared rows, their count, trials
         _I, _I, _I,        # a trial's CLV rows, scaler rows, P-matrices
+        _I,                # level64_plan: blocks a cluster
         _P,                # stream
     ]
     lib.pll_level_update.restype = _I
+    lib.pll_level64_resident.argtypes = [_I]
+    lib.pll_level64_resident.restype = _I
     lib.pll_pool_update.argtypes = [
         _P, _P, _P,        # pool, scaler pool, pmatrix
         _P, _I, _L,        # table, its leading dimension, pool columns
@@ -159,9 +162,12 @@ def library() -> ctypes.CDLL:
         _P, _I,            # tile map, its granules
         _I, _I,            # pool_plan: rate warps, tiles a block
         _I, _L, _L, _L,    # trials; their strides: pool, scaler pool, P
+        _I,                # pool_plan: blocks a cluster
         _P,                # stream
     ]
     lib.pll_pool_update.restype = _I
+    lib.pll_pool64_resident.argtypes = [_I]
+    lib.pll_pool64_resident.restype = _I
     lib.pll_pool_traversal.argtypes = [
         _P, _P, _P,        # pool, scaler pool, pmatrix
         _P, _I, _L,        # table, its leading dimension, pool columns
@@ -895,6 +901,95 @@ def level_fixed_plan(ops: int, sites: int, sms: int, aligned: bool = True,
                           -(-tiles // per))
 
 
+# csrc/states64.cuh, the level and pool kernels' body for WIDE_STATES_MIN
+# to 64 states: threads a block, its blocks resident on an SM (shared
+# memory), the sites (class columns) of a tile, and the blocks of a cluster
+# at most (the portable size)
+STATES64_THREADS = 128
+STATES64_BLOCKS_PER_SM = 2
+STATES64_TILE = 64
+STATES64_MAX_CLUSTER = 8
+
+
+class States64Plan(NamedTuple):
+    """How csrc/states64.cuh runs one level: one rate of one op a block,
+    the rates of a tile in a thread block cluster of `cluster` blocks
+    (`rates_per_block` rates each, one after another), over runs of
+    `tiles_per_block` consecutive tiles of `tile` sites or class columns
+    of the level's flat list of `tiles` (trial, op, tile) entries;
+    `blocks` in all (the cluster size divides it)."""
+    cluster: int
+    rates_per_block: int
+    tile: int
+    tiles: int
+    tiles_per_block: int
+    blocks: int
+
+
+def states64_resident(rates: int, sms: int) -> int:
+    """The clusters of the 64-state body a card of `sms` SMs keeps
+    resident if every SM holds STATES64_BLOCKS_PER_SM blocks of them; the
+    device's own count (`device_states64_resident`) can be lower, where a
+    cluster may not span its SM groups."""
+    return max(1, STATES64_BLOCKS_PER_SM * sms
+               // min(rates, STATES64_MAX_CLUSTER))
+
+
+def states64_plan(tiles: int, rates: int, resident: int) -> States64Plan:
+    """The 64-state body's layout of a level of `tiles` tiles (all its
+    trials') at `rates` rates, on a device that keeps `resident` clusters
+    of min(rates, STATES64_MAX_CLUSTER) blocks resident at once: a block
+    a rate (above STATES64_MAX_CLUSTER rates, ceil(rates / that) rates a
+    block, one after another), and runs of consecutive tiles, as many
+    runs as fill the card once, so that a narrow level spreads its tiles
+    over the card and a wide one stages P once for a long run.
+    csrc/states64.cuh's `plan` computes the same."""
+    if tiles < 1 or rates < 1 or resident < 1:
+        raise ValueError(f"states64_plan: no plan for {tiles} tiles, {rates} "
+                         f"rates, {resident} resident clusters")
+    cluster = min(rates, STATES64_MAX_CLUSTER)
+    per = -(-tiles // resident)
+    return States64Plan(cluster, -(-rates // cluster), STATES64_TILE, tiles,
+                        per, -(-tiles // per) * cluster)
+
+
+@functools.lru_cache(maxsize=4096)
+def level64_plan(ops: int, sites: int, rates: int, resident: int,
+                 trials: int = 1) -> States64Plan:
+    """`states64_plan` for one level of `ops` ops over `sites` sites
+    (`trials` times in the trial form): tiles of STATES64_TILE sites, the
+    flat list (trial, op, tile) with the trial outermost. level_update.cu's
+    launch_generic64 recomputes it and refuses a launch whose cluster or
+    run differs."""
+    if (not 1 <= ops <= LEVEL_MAX_OPS or not 1 <= trials <= LEVEL_MAX_TRIALS
+            or sites < 1):
+        raise ValueError(f"level64_plan: no plan for {ops} ops, {trials} "
+                         f"trials, {sites} sites")
+    return states64_plan(trials * ops * -(-sites // STATES64_TILE), rates,
+                         resident)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident64(kernel: str, index: int, cluster: int) -> int:
+    lib = library()
+    fn = (lib.pll_level64_resident if kernel == "level"
+          else lib.pll_pool64_resident)
+    with torch.cuda.device(index):
+        got = fn(cluster)
+    if got < 1:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed for the "
+                           f"64-state {kernel} kernel: CUDA error {-got}")
+    return got
+
+
+def device_states64_resident(device, kernel: str, rates: int) -> int:
+    """The clusters of the 64-state `kernel` ('level' or 'pool') at `rates`
+    rates that CUDA device `device` keeps resident at once, as its C entry
+    counts them (cudaOccupancyMaxActiveClusters)."""
+    return _resident64(kernel, _device_index(device),
+                       min(rates, STATES64_MAX_CLUSTER))
+
+
 def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
                         pmatrix: torch.Tensor, table: torch.Tensor,
                         rates: int, states: int, threshold: float,
@@ -962,7 +1057,13 @@ def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
                     ("pmatrix", pmatrix)):
         _check(t.is_contiguous(), f"{what} must be contiguous", name)
     layout = (0, 0)  # the runtime-size variant lays itself out
-    if (rates, states) == (4, 4):
+    cluster = 0
+    if states >= WIDE_STATES_MIN:
+        plan = level64_plan(table.shape[1], sites, rates,
+                            device_states64_resident(dev, "level", rates),
+                            max(trials, 1))
+        layout, cluster = (0, plan.tiles_per_block), plan.cluster
+    elif (rates, states) == (4, 4):
         # the 4x4 variant reads P 16 bytes at a time
         if pmatrix.data_ptr() % 16:
             pmatrix = pmatrix.clone()
@@ -986,7 +1087,7 @@ def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
             table.data_ptr(), table.stride(0), table.shape[1], sites, rates,
             states, float(threshold), float(factor), int(per_rate), *layout,
             tips.data_ptr() if base else None, base, trials, *per_trial,
-            stream)
+            cluster, stream)
     if err != 0:
         raise RuntimeError(f"level_update kernel launch failed: CUDA error "
                            f"{err}")
@@ -995,11 +1096,9 @@ def launch_level_update(clv2d: torch.Tensor, scaler: torch.Tensor,
 # pool_update.cu's runtime-size variant: threads a block, blocks resident
 # on an SM (its launch bounds), and the class columns a tile-map entry
 # covers (ops/pool.py:tile_map); from WIDE_STATES_MIN states its 64-state
-# instantiation (csrc/states64.cuh), whose 96 KB of shared memory keep
-# POOL_WIDE_BLOCKS_PER_SM blocks an SM
+# instantiation (csrc/states64.cuh: `states64_plan`)
 POOL_BLOCK = 128
 POOL_BLOCKS_PER_SM = 4
-POOL_WIDE_BLOCKS_PER_SM = 2
 POOL_GRANULE = 128
 
 
@@ -1008,36 +1107,47 @@ class PoolLaunch(NamedTuple):
     a class column, `rate_threads` warps sharing a column's rates (1, 2 or
     4); a tile is `tile` columns (POOL_BLOCK over the rate warps), the
     level `tiles` of them, each block a run of `tiles_per_block`, `blocks`
-    in all."""
+    in all. From WIDE_STATES_MIN states the 64-state body: one rate warp,
+    tiles of STATES64_TILE columns, a block a rate, `cluster` blocks a
+    cluster, runs over every trial's tiles."""
     rate_threads: int
     tile: int
     tiles: int
     tiles_per_block: int
     blocks: int
+    cluster: int = 1
 
 
-def pool_plan(columns: int, rates: int, states: int, sms: int) -> PoolLaunch:
+@functools.lru_cache(maxsize=4096)
+def pool_plan(columns: int, rates: int, states: int, sms: int,
+              trials: int = 1, resident: int = 0) -> PoolLaunch:
     """The runtime-size pool kernel's layout for one level of `columns`
     class columns (its tile map's granules times POOL_GRANULE) on a device
     with `sms` SMs: a column's rates split over the largest power of two
     of warps up to 4 that the rates fill, whatever the level's width;
     blocks take runs of tiles, as many blocks as POOL_BLOCKS_PER_SM an SM
-    fill. From WIDE_STATES_MIN states the 64-state instantiation stages P
-    one rate at a time, so a column's rates stay on one thread (one rate
-    warp, tiles of POOL_BLOCK columns), POOL_WIDE_BLOCKS_PER_SM blocks an
-    SM. The 4x4 size runs the traversal kernel (`pool_fixed_plan`)."""
+    fill. From WIDE_STATES_MIN states `states64_plan` over the level's
+    tiles of STATES64_TILE columns, `trials` times over (the trial form),
+    with `resident` clusters (0: `states64_resident` of `sms`; on a device
+    its own count, `device_states64_resident`); pool_update.cu recomputes
+    it and refuses a launch whose cluster or run differs. The 4x4 size
+    runs the traversal kernel (`pool_fixed_plan`)."""
     if (rates < 1 or not 1 <= states <= KERNEL_MAX_STATES
-            or (rates, states) == (4, 4)
+            or (rates, states) == (4, 4) or not 1 <= trials <= LEVEL_MAX_TRIALS
             or columns < 1 or columns % POOL_GRANULE or sms < 1):
         raise ValueError(f"pool_plan: no runtime-size plan for {columns} "
                          f"columns, {rates} rates, {states} states, {sms} "
-                         f"SMs")
-    wide = states >= WIDE_STATES_MIN
-    ty = 1 if wide else min(4, 1 << (rates.bit_length() - 1))
+                         f"SMs, {trials} trials")
+    if states >= WIDE_STATES_MIN:
+        tiles = columns // STATES64_TILE
+        plan = states64_plan(trials * tiles, rates,
+                             resident or states64_resident(rates, sms))
+        return PoolLaunch(1, STATES64_TILE, tiles, plan.tiles_per_block,
+                          plan.blocks, plan.cluster)
+    ty = min(4, 1 << (rates.bit_length() - 1))
     tile = POOL_BLOCK // ty
     tiles = columns // tile
-    resident = POOL_WIDE_BLOCKS_PER_SM if wide else POOL_BLOCKS_PER_SM
-    per = -(-tiles // (resident * sms))
+    per = -(-tiles // (POOL_BLOCKS_PER_SM * sms))
     return PoolLaunch(ty, tile, tiles, per, -(-tiles // per))
 
 
@@ -1257,6 +1367,12 @@ def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
            and tiles.shape[0] * POOL_GRANULE == launch.tiles * launch.tile,
            f"the runtime-size variant needs the level's tile map on "
            f"{dev} and its launch (ops/pool.py:plan_to_device)", name)
+    if states >= WIDE_STATES_MIN:
+        # the 64-state body's runs span the trials and its clusters are
+        # the device's own count
+        launch = pool_plan(tiles.shape[0] * POOL_GRANULE, rates, states,
+                           device_sm_count(dev), max(trials, 1),
+                           device_states64_resident(dev, "pool", rates))
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_pool_update(
@@ -1265,7 +1381,7 @@ def launch_pool_update(pool2d: torch.Tensor, sc: torch.Tensor,
             gl.data_ptr(), gr.data_ptr(), rates, states, float(threshold),
             float(factor), sc.shape[-1], int(per_rate),
             tiles.data_ptr(), tiles.shape[0], launch.rate_threads,
-            launch.tiles_per_block, trials, *strides, stream)
+            launch.tiles_per_block, trials, *strides, launch.cluster, stream)
     if err != 0:
         raise RuntimeError(f"pool_update kernel launch failed: CUDA error "
                            f"{err}")

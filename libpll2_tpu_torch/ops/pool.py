@@ -83,8 +83,9 @@ import torch
 from .. import constants as C
 from ..repeats import classify_operations, op_fields
 from ._kernels import (POOL_COUNTER_STRIDE, POOL_FIXED_TILE, POOL_GRANULE,
-                       PoolFixedLevel, PoolLaunch, PoolTraversal,
-                       device_sm_count, pool_fixed_plan, pool_plan)
+                       WIDE_STATES_MIN, PoolFixedLevel, PoolLaunch,
+                       PoolTraversal, device_sm_count,
+                       device_states64_resident, pool_fixed_plan, pool_plan)
 from .levels import schedule_levels
 
 __all__ = ["POOL_ROWS", "PoolPlan", "schedule_pool_levels", "tile_map",
@@ -255,13 +256,16 @@ def _views(parts, axis, device):
                        for a, b in zip(bounds[:-1], bounds[1:]))
 
 
-def level_launches(tiles, rates: int, states: int, sms: int) -> tuple:
+def level_launches(tiles, rates: int, states: int, sms: int,
+                   resident: int = 0) -> tuple:
     """Each level's ops/_kernels.py:pool_plan, from its tile map, on a
-    device of `sms` SMs; None at every level for the 4x4 size, which runs
-    the traversal kernel."""
+    device of `sms` SMs (from 33 states on with `resident` clusters of the
+    64-state body, 0 for pool_plan's count from `sms`); None at every
+    level for the 4x4 size, which runs the traversal kernel."""
     if (rates, states) == (4, 4):
         return (None,) * len(tiles)
-    return tuple(pool_plan(t.shape[0] * POOL_GRANULE, rates, states, sms)
+    return tuple(pool_plan(t.shape[0] * POOL_GRANULE, rates, states, sms,
+                           resident=resident)
                  for t in tiles)
 
 
@@ -300,7 +304,9 @@ def plan_to_device(tables, gl, gr, tiles, device, rates: int,
     launches, trav = (None,) * len(tiles), None
     if device.type == "cuda":
         sms = device_sm_count(device)
-        launches = level_launches(tiles, rates, states, sms)
+        resident = (device_states64_resident(device, "pool", rates)
+                    if states >= WIDE_STATES_MIN and tiles else 0)
+        launches = level_launches(tiles, rates, states, sms, resident)
         if (rates, states) == (4, 4) and tables:
             trav, launches = _traversal(tables, table, sms, device)
     return PoolPlan(level_tables, torch.as_tensor(gl, device=device),

@@ -398,7 +398,20 @@ LEVEL_CASES = ["ragged", "rates3", "states20", "states32", "caterpillar",
                "states32_wide", "dna_wide", "dna_narrow", "dna_even_sites",
                "dna_odd_sites", "per_rate_dna_wide", "dna_self_child",
                "states33", "states40", "states61", "per_rate_states61",
-               "rates1_states61", "caterpillar61", "self_child61"]
+               "rates1_states61", "caterpillar61", "self_child61",
+               "rates5_states61", "rates10_states40", "ragged_states61",
+               "caterpillar_spread61"]
+# the 64-state body's cases (csrc/states64.cuh, ops/_kernels.py:
+# level64_plan): 5 rates (a cluster of 5 blocks, not a power of two), 10
+# rates at 40 states (a cluster of 8, two blocks taking 2 rates each), 3
+# rates, 1001 sites (a ragged last tile, and rows off the 16-byte grain:
+# the one-entry copies), and the 80-taxon caterpillar under rates far
+# apart (S64_SPREAD_RATES), whose per-site rescale decisions need the
+# other rates' maxima: their states, rates and sites
+S64_CASES = {"rates5_states61": (61, 5, 1000), "rates10_states40": (40, 10, 1000),
+             "rates3_states61": (61, 3, 1000), "ragged_states61": (61, 4, 1001),
+             "caterpillar_spread61": (61, 4, 1000)}
+S64_SPREAD_RATES = [0.05, 0.35, 1.0, 2.6]
 # The 4x4 variant's DNA cases on the 16-taxon tree (levels of 5, 3, 3, 2
 # and 1 ops): their sites, and the sites a lane their levels take on a
 # 132-SM H100 (ops/_kernels.py:level_fixed_plan): 60000 sites (4, 16-byte
@@ -439,7 +452,13 @@ def _level_case(case, device, dtype=torch.float32):
         kw.update(alphabet="ACGT")
     elif case.startswith("dna"):
         case = "dna"
-    if case == "caterpillar":
+    if case in S64_CASES:
+        states, rates, sites = S64_CASES[case]
+        if case == "caterpillar_spread61":
+            tree = _caterpillar(80)
+        kw.update(states=states, rates=rates,
+                  alphabet=LETTERS64[:states] + "-")
+    elif case == "caterpillar":
         tree, kw = _caterpillar(80), dict(kw, alphabet="ACGT")
     elif case in ("caterpillar61", "self_child61", "rates1_states61"):
         if case == "caterpillar61":
@@ -459,6 +478,8 @@ def _level_case(case, device, dtype=torch.float32):
         kw.update(states=s, alphabet={20: AA_NOISY, 5: "ACGTX-"}.get(
             s, LETTERS64[:s] + "-"))
     part, _ = _engine(tree, sites, device, **kw)
+    if case == "caterpillar_spread61":
+        part.set_category_rates(S64_SPREAD_RATES)
     ops, br, pidx = create_operations(traverse(tree.vroot))
     part.update_prob_matrices([0] * part.rate_cats, pidx, br)
     if case == "no_scaler":
@@ -513,10 +534,23 @@ def test_level_kernel_matches_plain_on_card(cuda, case):
     site_max = want.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
     rel = ((got_clv[:part.nodes] - want).abs() / site_max).max()
     assert float(rel) <= 1e-5
-    if case in ("caterpillar", "caterpillar61"):
+    if case in ("caterpillar", "caterpillar61", "caterpillar_spread61"):
         assert int(part.scale_buffer[:k].max()) > 0
     if case in DNA_LEVEL_CASES:
         assert _level_lanes(part, ops) == DNA_LEVEL_CASES[case][1]
+    if case == "caterpillar_spread61":
+        assert _rates_rescale_apart(cuda, case)
+
+
+def _rates_rescale_apart(device, case):
+    """Whether the level case's rates, counted each on its own (per-rate
+    scalers, the plain version), rescale at different ops for some site:
+    then a per-site decision taken from one rate's maximum alone would
+    differ from the site's."""
+    part, ops, _ = _level_case("per_rate_" + case, device)
+    _run_levels(part, ops, levels.level_update_reference)
+    sc = part.scale_buffer[:part.scale_buffers]       # [K, R, S]
+    return bool((sc != sc[:, :1]).any())
 
 
 @pytest.mark.parametrize("states", [4, 20, 61])
@@ -592,22 +626,26 @@ POOL_CASES = ["dna", "rates3", "aa20", "caterpillar", "partial",
               "aa20_per_rate", "rates3_per_rate", "rates1", "wide_aa",
               "mixed_widths", "war_serial", "back_to_back", "caterpillar80",
               "big_grid", "dna_levels", "states33", "states40", "states61",
-              "states61_per_rate", "states61_rates1", "caterpillar61"]
+              "states61_per_rate", "states61_rates1", "caterpillar61",
+              "states61_rates5", "states40_rates10", "states61_rates3",
+              "caterpillar_spread61"]
 # the runtime-size variant's threads a column (ops/_kernels.py:pool_plan,
 # read from each level's launch in the plan): a column's rates split over
 # the largest power of two up to 4 that the rates fill, so 'rates1' takes
 # 1, the 3-rate cases 2 and the 4-rate cases 4; 'wide_aa' (128 x 16384
 # simulated amino acids, levels 20,480-196,608 columns wide) runs blocks
 # over runs of tiles; 'mixed_widths' (64 x 4096 random DNA, 3 rates) holds
-# a level whose ops differ 16x in width; the 64-state instantiation (33-64
-# states) keeps a column's rates on one thread; None: the 4x4 traversal
-# kernel
+# a level whose ops differ 16x in width; the 64-state body (33-64 states)
+# one rate warp, a block a rate and a tile's rates in a cluster (the test
+# checks the clusters); None: the 4x4 traversal kernel
 POOL_LAYOUTS = {"rates3": {2}, "aa20": {4}, "states5": {4},
                 "states17": {4}, "states32": {4}, "aa20_per_rate": {4},
                 "rates3_per_rate": {2}, "rates1": {1}, "wide_aa": {4},
                 "mixed_widths": {2}, "states33": {1}, "states40": {1},
                 "states61": {1}, "states61_per_rate": {1},
-                "states61_rates1": {1}, "caterpillar61": {1}}
+                "states61_rates1": {1}, "caterpillar61": {1},
+                "states61_rates5": {1}, "states40_rates10": {1},
+                "states61_rates3": {1}, "caterpillar_spread61": {1}}
 
 
 def _repeats_partition(tree, sites, device, states=4, rates=4, seed=11,
@@ -665,6 +703,9 @@ def _pool_case(case, device):
           "states40": dict(states=40), "states61": dict(states=61),
           "states61_per_rate": dict(states=61, rate_scalers=True),
           "states61_rates1": dict(states=61, rates=1),
+          "states61_rates5": dict(states=61, rates=5),
+          "states40_rates10": dict(states=40, rates=10),
+          "states61_rates3": dict(states=61, rates=3),
           "aa20_per_rate": dict(states=20, rate_scalers=True)}.get(case, {})
     sites = 600
     if case == "caterpillar":
@@ -691,11 +732,13 @@ def _pool_case(case, device):
         kw = dict(rates=3, conserved=False)
     elif case == "caterpillar80":
         tree, sites = _caterpillar(80), 1000
-    elif case == "caterpillar61":
+    elif case in ("caterpillar61", "caterpillar_spread61"):
         tree, sites, kw = _caterpillar(150), 300, dict(states=61)
     elif case == "big_grid":
         kw = dict(rate_scalers=True)
     part = _repeats_partition(tree, sites, device, **kw)
+    if case == "caterpillar_spread61":
+        part.set_category_rates(S64_SPREAD_RATES)
     ops, br, pidx = create_operations(traverse(tree.vroot))
     part.update_prob_matrices([0] * part.rate_cats, pidx, br)
     if case == "no_scaler":
@@ -805,8 +848,12 @@ def test_pool_kernel_matches_plain_on_card(cuda, case):
     col_max = want.abs().amax(dim=(0, 1), keepdim=True).clamp(min=1e-30)
     assert float(((got_clv - want).abs() / col_max).max()) <= 1e-5
     if case in ("caterpillar", "rates3_per_rate", "caterpillar80",
-                "caterpillar61"):
+                "caterpillar61", "caterpillar_spread61"):
         assert int(part.sc_flat[..., :lay.sc_trash].max()) > 0
+    if part.states >= _kernels.WIDE_STATES_MIN:
+        # the 64-state body: a tile's rates in one cluster
+        assert {launch.cluster for launch in plan.launches} == {
+            min(part.rate_cats, _kernels.STATES64_MAX_CLUSTER)}
     if case == "caterpillar80":
         assert len(plan.tables) == 78
     if case == "identity":
@@ -2036,11 +2083,13 @@ def test_sharded_repeats_engine_on_card(cuda, dense_fused):
 TRIAL_LEVEL_CASES = ["dna_wide", "dna_narrow", "per_rate_dna_wide",
                      "caterpillar", "no_scaler", "partial", "states20_wide",
                      "rates3", "rates16_states32", "states33", "states61",
-                     "per_rate_states61", "caterpillar61"]
+                     "per_rate_states61", "caterpillar61", "rates3_states61",
+                     "rates10_states40"]
 TRIAL_POOL_CASES = ["dna", "caterpillar80", "big_grid", "no_scaler",
                     "partial", "war_serial", "dna_levels", "aa20", "rates3",
                     "aa20_per_rate", "states5", "states40", "states61",
-                    "states61_per_rate"]
+                    "states61_per_rate", "states61_rates3",
+                    "states40_rates10"]
 TRIALS = 5
 
 

@@ -1,14 +1,18 @@
-"""The 4x4 level kernel's launch plan, a pure host function:
+"""The level kernel's launch plans, pure host functions. The 4x4 plan:
 ops/_kernels.py:level_fixed_plan lays one level out from its ops, its
 sites, whether the buffers are 16-byte aligned, the counting mode and the
 device's SM count (four lanes a site group, one per rate; 4, 2 or 1 sites
 a lane; blocks over runs of tiles, as many as the instantiation keeps
 resident fill the card). csrc/level_update.cu's fixed_plan computes the
-same, and its kernel walks the tiles as `_kernel_sites` does here. An H100
-has 132 SMs."""
+same, and its kernel walks the tiles as `_kernel_sites` does here. The
+33-64-state plan: ops/_kernels.py:level64_plan (one rate a block, a
+tile's rates in a thread block cluster, runs of tiles from the clusters
+the card keeps resident), which csrc/states64.cuh's `plan` recomputes; its
+kernel walks the tiles as `_s64_kernel_work` does. An H100 has 132 SMs."""
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
@@ -17,8 +21,10 @@ from libpll2_tpu_torch.ops import _kernels
 from libpll2_tpu_torch.ops._kernels import (
     LEVEL_FIXED_BLOCKS_PER_SM, LEVEL_FIXED_BLOCKS_PER_SM_NARROW,
     LEVEL_FIXED_BLOCKS_PER_SM_RATE, LEVEL_FIXED_MIN_TILES_PER_SM,
-    LEVEL_FIXED_THREADS, LEVEL_MAX_OPS, LEVEL_MAX_TRIALS, LevelFixedPlan,
-    level_fixed_blocks_per_sm, level_fixed_plan)
+    LEVEL_FIXED_THREADS, LEVEL_MAX_OPS, LEVEL_MAX_TRIALS,
+    STATES64_BLOCKS_PER_SM, STATES64_MAX_CLUSTER, STATES64_THREADS,
+    STATES64_TILE, LevelFixedPlan, level64_plan, level_fixed_blocks_per_sm,
+    level_fixed_plan, states64_resident)
 from libpll2_tpu_torch.ops.levels import schedule_levels
 from libpll2_tpu_torch.trees import (create_operations, random_utree,
                                      traverse)
@@ -203,3 +209,117 @@ def test_trial_tiles_cover_every_trial_op_and_site_once(ops, trials, sites,
     assert len(got) == trials * ops * sites
     assert set(got) == {(k, o, s) for k in range(trials)
                         for o in range(ops) for s in range(sites)}
+
+
+# ------------------------------------------- 33-64 states: level64_plan
+# The 61-state problem's tree is the DNA main path's (128 taxa, seed 7):
+# levels of 42, 25, 15, 11, 9, 6, 5, 4, 3, 2, 2, 1 and 1 ops.
+S64_SITES = 4096
+
+
+def _s64_kernel_work(plan, ops, sites, rates, trials=1):
+    """How often the 64-state kernel's blocks compute each (trial, op,
+    rate, site), in the order of csrc/states64.cuh's `run`: block b is rank
+    b % cluster of run b // cluster; a run takes tiles run * per .. (run +
+    1) * per - 1 of the flat (trial, op, tile) list; a block takes rates
+    rank, rank + cluster, ...; a tile covers sites tile * TILE .. + TILE -
+    1, those < S."""
+    per_op = -(-sites // plan.tile)
+    got = np.zeros((trials, ops, rates, sites), np.int64)
+    for b in range(plan.blocks):
+        run, rank = divmod(b, plan.cluster)
+        for t in range(run * plan.tiles_per_block,
+                       min((run + 1) * plan.tiles_per_block, plan.tiles)):
+            k, rest = divmod(t, ops * per_op)
+            op, tile = divmod(rest, per_op)
+            got[k, op, rank::plan.cluster,
+                tile * plan.tile:(tile + 1) * plan.tile] += 1
+    return got
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
+@given(ops=st.integers(1, 12), trials=st.integers(1, 4),
+       sites=st.integers(1, 700), rates=st.integers(1, 20),
+       sms=st.sampled_from([1, 2, 7, 132]))
+def test_states64_tiles_cover_every_trial_op_rate_and_site_once(
+        ops, trials, sites, rates, sms):
+    """For random levels, trials, rate counts and cards, the 64-state
+    kernel's blocks compute every (trial, op, rate, site) exactly once;
+    the cluster size divides the grid, and no more runs are launched than
+    clusters stay resident."""
+    resident = states64_resident(rates, sms)
+    plan = level64_plan(ops, sites, rates, resident, trials)
+    assert plan.tile == STATES64_TILE
+    assert plan.tiles == trials * ops * -(-sites // STATES64_TILE)
+    assert plan.blocks % plan.cluster == 0
+    assert plan.blocks // plan.cluster <= resident
+    assert (_s64_kernel_work(plan, ops, sites, rates, trials) == 1).all()
+
+
+@pytest.mark.parametrize("rates", [1, 2, 3, 4, 5, 7, 8, 9, 10, 16, 17, 33])
+def test_states64_cluster_holds_a_tiles_rates(rates):
+    """A cluster is min(rates, 8) blocks (8 is the portable cluster size),
+    one rate a block up to 8 rates, ceil(rates / 8) above; 5 and 7 rates
+    give clusters that are not powers of two. The cluster divides the
+    grid."""
+    plan = level64_plan(3, 1000, rates, states64_resident(rates, SMS))
+    assert plan.cluster == min(rates, STATES64_MAX_CLUSTER) <= 8
+    assert plan.rates_per_block == -(-rates // plan.cluster)
+    assert (plan.rates_per_block > 1) == (rates > STATES64_MAX_CLUSTER)
+    assert plan.blocks % plan.cluster == 0
+
+
+@pytest.mark.parametrize("rates,per,blocks", [(4, 1, 256), (8, 2, 256)])
+def test_states64_one_op_level_fills_a_wave(rates, per, blocks):
+    """A one-op level of the 61-state problem (4096 sites: 64 tiles) puts
+    a block on every SM of a 132-SM card: at 4 rates 64 clusters of 4,
+    256 blocks, one tile each; at 8 rates (33 resident clusters of 8)
+    32 runs of 2 tiles. Nothing waits for a second wave."""
+    resident = states64_resident(rates, SMS)
+    plan = level64_plan(1, S64_SITES, rates, resident)
+    assert (plan.tiles_per_block, plan.blocks) == (per, blocks)
+    assert plan.blocks >= SMS
+    assert plan.blocks // plan.cluster <= resident
+
+
+def test_states64_wide_levels_stage_p_once_a_run():
+    """The 61-state problem's levels on 132 SMs, 4 rates (66 resident
+    clusters of 4): from 2 ops up a level takes one wave of runs, the
+    42-op level 2688 tiles in runs of 41 (P staged once for each op a run
+    meets: at most 2), the one-op levels 64 runs of one tile."""
+    widths = _dna_level_widths()
+    assert widths == [42, 25, 15, 11, 9, 6, 5, 4, 3, 2, 2, 1, 1]
+    resident = states64_resident(4, SMS)
+    assert resident == 66
+    plans = [level64_plan(w, S64_SITES, 4, resident) for w in widths]
+    assert [p.tiles_per_block for p in plans] == [
+        41, 25, 15, 11, 9, 6, 5, 4, 3, 2, 2, 1, 1]
+    assert all(p.blocks // 4 <= resident for p in plans)
+    per_op = S64_SITES // STATES64_TILE
+    for p in plans:
+        runs = range(p.blocks // p.cluster)
+        assert max(len({t // per_op for t in range(
+            r * p.tiles_per_block,
+            min((r + 1) * p.tiles_per_block, p.tiles))}) for r in runs) <= 2
+
+
+def test_states64_constants_match_the_kernel_source():
+    """csrc/states64.cuh's `plan` recomputes the layout from the same
+    constants (the C entries refuse a launch whose layout differs)."""
+    src = (Path(_kernels.__file__).resolve().parent.parent / "csrc"
+           / "states64.cuh").read_text()
+    for name, value in (("kThreads", STATES64_THREADS),
+                        ("kBlocksPerSm", STATES64_BLOCKS_PER_SM),
+                        ("kTile", STATES64_TILE),
+                        ("kMaxCluster", STATES64_MAX_CLUSTER),
+                        ("kSP", _kernels.KERNEL_MAX_STATES)):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == value, name
+
+
+@pytest.mark.parametrize("args", [(0, 100, 4, 66), (1, 0, 4, 66),
+                                  (1, 100, 0, 66), (1, 100, 4, 0),
+                                  (LEVEL_MAX_OPS + 1, 100, 4, 66)])
+def test_states64_shapes_outside_the_kernel_raise(args):
+    with pytest.raises(ValueError):
+        level64_plan(*args)

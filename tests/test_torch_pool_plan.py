@@ -5,9 +5,13 @@ column's rates split over up to 4 warps as far as the rates go; blocks
 over runs of tiles), ops/pool.py:level_launches computes it once for each
 level of a plan, and ops/pool.py:tile_map gives each level's flat grid its
 (op, first column) pair per POOL_GRANULE class columns.
-csrc/pool_update.cu walks the map as `_kernel_columns` does here. An H100
-has 132 SMs."""
+csrc/pool_update.cu walks the map as `_kernel_columns` does here. From 33
+states on pool_plan is the 64-state body's layout (one rate a block, a
+tile's rates in a thread block cluster, runs of 64-column tiles over every
+trial's), walked as `_s64_kernel_columns` does. An H100 has 132 SMs."""
 import copy
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,8 +23,10 @@ from libpll2_tpu_torch.io import maps
 from libpll2_tpu_torch.models import load_aa_model
 from libpll2_tpu_torch.ops import pool
 from libpll2_tpu_torch.ops._kernels import (POOL_BLOCK, POOL_BLOCKS_PER_SM,
-                                            POOL_GRANULE, PoolLaunch,
-                                            pool_plan)
+                                            POOL_GRANULE,
+                                            STATES64_MAX_CLUSTER,
+                                            STATES64_TILE, PoolLaunch,
+                                            pool_plan, states64_resident)
 from libpll2_tpu_torch.repeats import op_fields
 from libpll2_tpu_torch.trees import (create_operations, random_utree,
                                      traverse)
@@ -258,3 +264,80 @@ def test_level_launches_lay_out_every_level(rates, states, want):
                                np.zeros(4452, np.int32), tiles, "cpu",
                                rates, states)
     assert plan.launches == (None, None)
+
+
+# ------------------------------------- 33-64 states: the 64-state body
+def _s64_kernel_columns(tiles, widths, plan, rates, trials):
+    """How often the 64-state kernel's blocks compute each (trial, op,
+    rate, column < W), in the order of csrc/states64.cuh's `run` over
+    pool_update.cu's Pooled64: block b is rank b % cluster of run b //
+    cluster; a run takes tiles run * per .. of the flat (trial, tile)
+    list (plan.tiles a trial); tile t is half t % 2 of granule t // 2; a
+    block takes rates rank, rank + cluster, ..."""
+    per_granule = POOL_GRANULE // plan.tile
+    got = np.zeros((trials, len(widths), rates, max(widths)), np.int64)
+    for b in range(plan.blocks):
+        run, rank = divmod(b, plan.cluster)
+        for t in range(run * plan.tiles_per_block,
+                       min((run + 1) * plan.tiles_per_block,
+                           trials * plan.tiles)):
+            k, tile = divmod(t, plan.tiles)
+            op, first = (int(v) for v in tiles[tile // per_granule])
+            c0 = first + (tile % per_granule) * plan.tile
+            c1 = min(c0 + plan.tile, widths[op])
+            got[k, op, rank::plan.cluster, c0:c1] += 1
+    return got
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
+@given(widths=st.lists(st.integers(1, 8).map(lambda k: 128 * k)
+                       | st.integers(1, 900), min_size=1, max_size=8),
+       rates=st.integers(1, 20), states=st.integers(33, 64),
+       trials=st.integers(1, 3), sms=st.sampled_from([1, 2, 7, 132]))
+def test_states64_tiles_cover_every_trial_op_rate_and_column_once(
+        widths, rates, states, trials, sms):
+    """From 33 states on, for random op widths, rates, trials and cards,
+    the 64-state kernel computes every (trial, op, rate, column < W)
+    exactly once; the cluster is min(rates, 8) blocks, divides the grid,
+    and no more runs are launched than clusters stay resident."""
+    tiles = pool.tile_map(widths)
+    plan = pool_plan(tiles.shape[0] * POOL_GRANULE, rates, states, sms,
+                     trials)
+    assert plan.rate_threads == 1 and plan.tile == STATES64_TILE
+    assert plan.cluster == min(rates, STATES64_MAX_CLUSTER) <= 8
+    assert plan.blocks % plan.cluster == 0
+    assert plan.blocks // plan.cluster <= states64_resident(rates, sms)
+    got = _s64_kernel_columns(tiles, widths, plan, rates, trials)
+    for k, w in enumerate(widths):
+        assert (got[:, k, :, :w] == 1).all()
+        assert not got[:, k, :, w:].any()
+
+
+@pytest.mark.parametrize("rates,cluster,per_block", [
+    (1, 1, 1), (3, 3, 1), (4, 4, 1), (5, 5, 2), (8, 8, 2), (10, 8, 2),
+    (16, 8, 2)])
+def test_states64_narrow_level_fills_the_card(rates, cluster, per_block):
+    """A level of 4096 class columns (64 tiles) at 61 states on 132 SMs: a
+    cluster holds a tile's rates (8 blocks at most, each taking
+    ceil(rates / 8) rates above that), runs of one tile where the
+    resident clusters allow it (66 clusters of 4), two at 5 rates and
+    more (52 of 5, 33 of 8); at 4 rates 256 blocks."""
+    plan = pool_plan(4096, rates, 61, SMS)
+    assert (plan.cluster, plan.tiles_per_block) == (cluster, per_block)
+    assert plan.tiles == 64
+    assert plan.blocks == -(-64 // per_block) * cluster
+    if rates == 4:
+        assert plan.blocks == 256
+
+
+def test_states64_constants_match_the_pool_source():
+    """pool_update.cu cuts each tile-map granule into tiles of
+    csrc/states64.cuh's kTile columns."""
+    csrc = Path(pool.__file__).resolve().parent.parent / "csrc"
+    pool_src = (csrc / "pool_update.cu").read_text()
+    m = re.search(r"constexpr int kGranule = (\d+);", pool_src)
+    assert m and int(m.group(1)) == POOL_GRANULE
+    m = re.search(r"constexpr int kTile = (\d+);",
+                  (csrc / "states64.cuh").read_text())
+    assert m and int(m.group(1)) == STATES64_TILE
+    assert POOL_GRANULE % STATES64_TILE == 0

@@ -334,21 +334,32 @@ def test_fitch_classer_and_stepwise_at_61_states_equal_jax():
 
 
 @pytest.mark.parametrize("states", [33, 40, 61, 64])
-def test_pool_plan_keeps_a_columns_rates_on_one_thread(states):
-    """ops/_kernels.py:pool_plan from 33 states on: the 64-state
-    instantiation stages P one rate at a time, so one rate warp (tiles of
-    POOL_BLOCK columns), whatever the rates or the level's width, and
-    POOL_WIDE_BLOCKS_PER_SM blocks an SM fill the card; 32 states keep
+def test_pool_plan_puts_a_tiles_rates_in_one_cluster(states):
+    """ops/_kernels.py:pool_plan from 33 states on: the 64-state body
+    (csrc/states64.cuh) runs one rate a block over tiles of
+    STATES64_TILE class columns, the rates of a tile in one cluster (at
+    most STATES64_MAX_CLUSTER blocks), and runs of tiles from the clusters
+    the card keeps resident, over every trial's tiles; 32 states keep
     their rate warps."""
     from libpll2_tpu_torch.ops import _kernels as K
 
-    cols = 40 * K.POOL_GRANULE
-    plan = K.pool_plan(cols, 4, states, 2)
-    assert plan == K.PoolLaunch(1, K.POOL_BLOCK, 40, 10, 4)
-    assert plan.blocks <= K.POOL_WIDE_BLOCKS_PER_SM * 2
-    assert K.pool_plan(K.POOL_GRANULE, 8, states, 2) == K.PoolLaunch(
-        1, K.POOL_BLOCK, 1, 1, 1)
+    cols = 40 * K.POOL_GRANULE            # 80 tiles of 64 columns
+    # 2 SMs keep one cluster of 4 resident: one run of all 80 tiles
+    assert K.pool_plan(cols, 4, states, 2) == K.PoolLaunch(
+        1, K.STATES64_TILE, 80, 80, 4, 4)
+    # 132 SMs keep 66: runs of 2 tiles, 40 clusters of 4
+    assert K.pool_plan(cols, 4, states, 132) == K.PoolLaunch(
+        1, K.STATES64_TILE, 80, 2, 160, 4)
+    # 3 trials: 240 tiles, runs of 4; and the device's own count
+    assert K.pool_plan(cols, 4, states, 132, trials=3) == K.PoolLaunch(
+        1, K.STATES64_TILE, 80, 4, 240, 4)
+    assert K.pool_plan(cols, 4, states, 132, resident=40).tiles_per_block \
+        == 2
+    # 10 rates: a cluster of 8, two blocks take 2 rates each
+    assert K.pool_plan(K.POOL_GRANULE, 10, states, 2) == K.PoolLaunch(
+        1, K.STATES64_TILE, 2, 2, 8, 8)
     assert K.pool_plan(cols, 4, 32, 2).rate_threads == 4
+    assert K.pool_plan(cols, 4, 32, 2).cluster == 1
     for bad in (65, 0):
         with pytest.raises(ValueError):
             K.pool_plan(cols, 4, bad, 2)
