@@ -10,6 +10,7 @@
     python3 chip_smoke.py --mesh-only
     python3 chip_smoke.py --states64-only
     python3 chip_smoke.py --states64-times
+    python3 chip_smoke.py --probe-only CHECKOUT
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a), the
 CUDA toolkit's nvcc and PyTorch built for CUDA; jax is not needed. Phases,
@@ -136,9 +137,8 @@ each fatal on failure:
      summed) and host enqueue time, the fused kernel and
      its plain version on the 'repeats-dense-fused' inputs,
      loglikelihood() on 'pool-pallas', 'repeats-dense-fused' and a dense
-     partition's fused path, one step-by-step traversal; and torch.matmul
-     of tools/mxu_probe.py's [80, 80] @ [80, 512] in float32 and bf16;
-     then the fused kernel's device time on the 'repeats-dense-fused'
+     partition's fused path, one step-by-step traversal; then the fused
+     kernel's device time on the 'repeats-dense-fused'
      inputs, and the pool kernel's runtime-size variant over one traversal
      of the conserved 128 x 8192 protein (kernel, plain version, device
      time and bound);
@@ -146,7 +146,12 @@ each fatal on failure:
      their plain versions (kernel 1 also in every plan and thread layout),
      and kernel 1's device time per rate and with all tips raw, the slice's
      paths at full width with their launches counted, their times, and the
-     matrix-unit probe;
+     matrix-unit probe (phase 18: every mode against its plain version at
+     every probe shape, and its `pack` kernel against its own; its
+     kernels' registers, spills (and those inside the loops that issue
+     HGMMA, from cuobjdump's SASS) and HGMMA count; its table at 8 and 264
+     column tiles beside each row's bound and one torch.matmul of the same
+     products a call; `pack`'s device time);
  19. candidate scoring (TreeEngine.evaluate_topologies, pack_candidate +
      evaluate_packed, evaluate_packed_arrays): the full NNI neighbourhood
      of the DNA main path's tree (250 candidates, 2 chunks of the fused
@@ -383,6 +388,10 @@ first chunk's call, device time, bound and plain time): `--levels-only`
 DNA per site and per rate and the protein on 'levels-kernel',
 `--pool-only` the 246 x 4465 repeats and the conserved protein on
 'pool-pallas'.
+`--probe-only CHECKOUT` builds the kernels of CHECKOUT and runs phase 18
+alone (the probe against its plain version, its registers, spills and
+HGMMA count, its table at 8 and 264 column tiles, and `pack`'s checks and
+times at every shape), printing one JSON line.
 `--profile DIR` also writes a torch.profiler breakdown of one
 loglikelihood() and one newton_step() of each main path (fused and
 levels-kernel) to DIR/profile.txt.
@@ -450,10 +459,13 @@ PROFILE_WARMUP_S = 0.05    # sentinel kernels opening a profiled session
 FUSED_LAYOUT_SITES = ((40003, 2), (4465, 2), (4159, 4))
 FUSED_SPILL_SLOTS = 250
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and float32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores (132 SMs x 256 FLOP a clock at 1980 MHz)
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOP_PER_S = 67e12
-H100_BF16_FLOP_PER_S = 989e12      # dense, tensor cores
+# bf16 dense on the tensor cores at the same 1980 MHz: 132 SMs x 4096 FLOP
+# a clock. The data sheet's 989 TFLOP/s is taken at 1830 MHz, and the
+# probe's 'bf16' runs faster than that on a card at 1980 MHz.
+H100_BF16_FLOP_PER_S = 132 * 4096 * 1.98e9
 
 
 class SmokeFailure(Exception):
@@ -3820,14 +3832,12 @@ def slice_times(keep, gpu):
     return out
 
 
-def probe_phase(gpu):
-    """Phase 18: the matrix-unit probe (libpll2_tpu_torch/tools/
+def probe_checks():
+    """Phase 18's correctness checks: the probe (libpll2_tpu_torch/tools/
     mxu_probe.py, csrc/mxu_probe.cu) against its plain version in every
-    mode at every probe shape ('split' also within float32-class error of
-    the float64 product), then its table at 8 and 264 column tiles with
-    torch.matmul's time beside each, its launches counted. Returns the
-    kernels-line entry."""
-    import numpy as np
+    mode at every probe shape, 7 iterations, 8 column tiles ('split' also
+    within float32-class error of the float64 product). Returns (the
+    largest absolute error, 'split''s relative error against float64)."""
     import torch
     from libpll2_tpu_torch.tools import mxu_probe as mp
 
@@ -3855,47 +3865,330 @@ def probe_phase(gpu):
           f"float64 product: rel {split_rel:.2e}", flush=True)
     check(split_rel < TOL_PROBE_MMA, f"'split' rel err {split_rel:.2e} is "
           f"not float32-class")
-    # the plain version's time per product at the yardstick shape
-    a, x = mp.make(80, 80, 512, tiles=264)
-    plain = {mode: median_ms(lambda: mp.probe_reference(a, x, 80, 20, mode))
-             / (20 * 264) for mode in mp.MODES}
-    reps = 3
+    return max_abs, split_rel
+
+
+def _packed_values(packed, mode):
+    """The values a `pack` output holds: float32, or bf16 as float32."""
+    import torch
+
+    if mode == "f32":
+        return packed.view(torch.float32)
+    bits = packed.view(torch.int16).to(torch.int32) & 0xFFFF
+    return (bits << 16).view(torch.float32)
+
+
+def pack_checks():
+    """The probe's `pack` kernel (csrc/mxu_probe.cu) against its plain
+    version (ops/_kernels.py:probe_packed) in every mode at every probe
+    shape: the same bytes. Returns the largest absolute difference of the
+    values they hold."""
+    import torch
+    from libpll2_tpu_torch.ops import _kernels
+    from libpll2_tpu_torch.tools import mxu_probe as mp
+
+    max_abs = 0.0
+    for m, k, t, _, _ in mp.SHAPES:
+        a, _ = mp.make(m, k, t, tiles=1, seed=2)
+        for mode in mp.MODES:
+            plan = _kernels.probe_plan(m, k, t, 1, mode)
+            got = mp.pack(a, m, mode, t)
+            want = _kernels.probe_packed(a, m, 8, plan, mode)
+            err = float((_packed_values(got, mode)
+                         - _packed_values(want, mode)).abs().max())
+            check(torch.equal(got, want), f"mxu_probe pack {mode} [{m},{k}]"
+                  f": bytes differ from its plain version (max abs err "
+                  f"{err:.3e})")
+            max_abs = max(max_abs, err)
+    print(f"mxu_probe pack vs plain: 3 modes x {len(mp.SHAPES)} shapes, "
+          f"the same bytes, max abs err {max_abs:.3e}", flush=True)
+    return max_abs
+
+
+def pack_times(shapes=None):
+    """The `pack` kernel for each probe shape and mode: its call (CUDA
+    events, median of REPS, the host's enqueue included) and its device
+    time (torch.profiler), beside its plain version's call and its bound:
+    A [8 m, k] read once and its 8 slices written once as laid out."""
+    from libpll2_tpu_torch.ops import _kernels
+    from libpll2_tpu_torch.tools import mxu_probe as mp
+
+    rows = []
+    for m, k, t, _, _ in shapes or mp.SHAPES:
+        a, _ = mp.make(m, k, t, tiles=1, seed=2)
+        for mode in mp.MODES:
+            plan = _kernels.probe_plan(m, k, t, 1, mode)
+            b = bound_ms(8 * m * k * 4 + 8 * plan.slice_bytes, 0)
+            rows.append({
+                "m": m, "k": k, "t": t, "mode": mode,
+                "ms": median_ms(lambda: mp.pack(a, m, mode, t)),
+                "device_ms": kernel_device_us(
+                    lambda: mp.pack(a, m, mode, t), "pack") * 1e-3,
+                "plain_ms": median_ms(lambda: _kernels.probe_packed(
+                    a, m, 8, plan, mode)),
+                "bound_ms": b[0], "bound_by": b[1]})
+    for r in rows:
+        print(f"  mxu_probe pack {r['mode']:5s} [{r['m']},{r['k']}]: "
+              f"device {r['device_ms'] * 1e3:.3f} us (bound "
+              f"{r['bound_ms'] * 1e3:.3f} us by {r['bound_by']}), call "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms", flush=True)
+    return rows
+
+
+def _loop_spills(body):
+    """Of one function's SASS [(address, instruction)]: the spill accesses
+    (LDL, STL) inside the innermost loops that issue HGMMA, a loop being
+    the range from a backward branch's target to the branch."""
+    import re
+
+    loops = []
+    for addr, ins in body:
+        m = re.search(r"\bBRA(?:\.\S+)?\s+(?:[^;]*?,\s*)?(?:`\()?0x([0-9a-f]+)",
+                      ins)
+        if m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
+    inner = set()
+    for addr, ins in body:
+        if "HGMMA" in ins:
+            around = [lp for lp in loops if lp[0] <= addr <= lp[1]]
+            if around:
+                inner.add(min(around, key=lambda lp: lp[1] - lp[0]))
+    return sum(1 for addr, ins in body
+               if re.search(r"\b(LDL|STL)\b", ins)
+               and any(lo <= addr <= hi for lo, hi in inner)), len(inner)
+
+
+def probe_build_report(lib_path):
+    """The probe kernels as built: per kernel (probe_f32, probe_wgmma<N,
+    KS, bf16 or split>) its registers and spills from the `-Xptxas -v` log,
+    the log's wgmma serialization notes, and its HGMMA / FFMA / spill
+    instructions in the SASS (cuobjdump, beside nvcc), with the spill
+    accesses inside the innermost loops that issue HGMMA (`_loop_spills`).
+    Prints a summary and returns it as a dict."""
+    import re
+    import shutil
+
+    out = {"kernels": {}, "serialized": [], "sass": {}}
+    log = lib_path.with_suffix(".log")
+    label = None
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            label = _probe_label(m.group(1))
+            continue
+        if "serialized" in line:
+            m = re.search(r"function '([^']+)'", line)
+            if m and _probe_label(m.group(1)):
+                out["serialized"].append(_probe_label(m.group(1)))
+        if label is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out["kernels"].setdefault(label, {})["spills"] = [
+                int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out["kernels"].setdefault(label, {})["registers"] = int(
+                m.group(1))
+            label = None
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    check(os.path.exists(tool), "cuobjdump (the CUDA toolkit's, beside "
+          "nvcc) not found: the probe's SASS cannot be read")
+    sass = subprocess.run([tool, "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    sample, label, bodies = None, None, {}
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            label = _probe_label(m.group(1))
+            continue
+        if label is None:
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s*(.*)", line)
+        if m:
+            bodies.setdefault(label, []).append((int(m.group(1), 16),
+                                                 m.group(2)))
+        for op in ("HGMMA", "FFMA", "LDS.128", "LDL", "STL"):
+            if re.search(rf"\b{re.escape(op)}\b", line):
+                counts = out["sass"].setdefault(label, {})
+                counts[op] = counts.get(op, 0) + 1
+                if op == "HGMMA" and sample is None:
+                    sample = f"{label}: " + line.split(";")[0].strip()
+    for label, body in bodies.items():
+        if label.startswith("probe_wgmma"):
+            spills, loops = _loop_spills(body)
+            out["sass"].setdefault(label, {}).update(
+                {"hgmma_loops": loops, "spills_in_hgmma_loops": spills})
+    regs = {k: v.get("registers") for k, v in out["kernels"].items()}
+    spills = {k: v["spills"] for k, v in out["kernels"].items()
+              if any(v.get("spills", [0]))}
+    print(f"mxu_probe build: registers {regs}; spills {spills or 'none'}; "
+          f"wgmma serialized in {out['serialized'] or 'none'}", flush=True)
+    hg = {k: v.get("HGMMA", 0) for k, v in out["sass"].items()}
+    inner = {k: (v.get("LDL", 0) + v.get("STL", 0),
+                 v.get("spills_in_hgmma_loops"), v.get("hgmma_loops"))
+             for k, v in out["sass"].items() if k.startswith("probe_wgmma")}
+    print(f"mxu_probe SASS: HGMMA {hg}; probe_f32 "
+          f"{out['sass'].get('probe_f32', {})}; e.g. {sample}", flush=True)
+    print(f"mxu_probe SASS spill accesses (LDL + STL in all, inside the "
+          f"innermost loops that issue HGMMA, those loops): {inner}",
+          flush=True)
+    out["sass_sample"] = sample
+    return out
+
+
+def _probe_label(mangled):
+    """'probe_f32', 'probe_wgmma<80, 8, split>' (N, X's fragment k steps,
+    mode) for a probe kernel's mangled name, else None."""
+    import re
+
+    if "probe_f32" in mangled:
+        return "probe_f32"
+    m = re.search(r"probe_wgmmaILi(\d+)ELi(\d+)ELb([01])E", mangled)
+    if m:
+        return (f"probe_wgmma<{m.group(1)}, {m.group(2)}, "
+                f"{'split' if m.group(3) == '1' else 'bf16'}>")
+    return None
+
+
+def probe_bounds(m, k, t, tiles, iters):
+    """Per product [m, k] @ [k, t], the least time (ms) of a probe launch
+    of `iters` iterations over `tiles` column tiles, divided by its
+    products, in each mode: A, X read once and out written once (float32)
+    against 2 m k t FLOP a product at the mode's peak ('split': three bf16
+    passes)."""
+    n_prod, cols = iters * tiles, t * tiles
+    n_bytes = (8 * m * k + k * cols + m * cols) * 4
+    out = {}
+    for mode, passes, peak in (("f32", 1, H100_F32_FLOP_PER_S),
+                               ("bf16", 1, H100_BF16_FLOP_PER_S),
+                               ("split", 3, H100_BF16_FLOP_PER_S)):
+        b = bound_ms(n_bytes, passes * 2 * m * k * t * n_prod, peak)
+        out[mode] = (b[0] / n_prod, b[1])
+    return out
+
+
+def probe_table_rows(gpu, reps=3):
+    """The probe's table at 8 and 264 column tiles (tools/mxu_probe.py:
+    probe_table; each row's bound from `probe_bounds`), printed; returns
+    the rows and the launches they made."""
+    import torch
+    from libpll2_tpu_torch.tools import mxu_probe as mp
+
+    has_pack = hasattr(mp, "pack")      # a checkout before `pack` has none
     mp.probe.launches = 0
+    if has_pack:
+        mp.pack.launches = 0
     rows = mp.probe_table(tiles=(8, 264), reps=reps)
     torch.cuda.synchronize()
     launches = mp.probe.launches
     print(f"mxu_probe table ({gpu}; per product [m,k]@[k,t] of one column "
-          f"tile; torch.matmul of the same product beside):", flush=True)
+          f"tile, beside its bound and torch.matmul's time a product):",
+          flush=True)
+    hi = {(m, k, t): high for m, k, t, _, high in mp.SHAPES}
     for r in rows:
-        print("  " + mp.format_row(r), flush=True)
+        b = probe_bounds(r["m"], r["k"], r["t"], r["tiles"],
+                         hi[(r["m"], r["k"], r["t"])])[r["mode"]]
+        r["bound_us"] = b[0] * 1e3
+        print(f"  {mp.format_row(r)}; bound {r['bound_us']:.4f} us "
+              f"({r['bound_us'] / r['us']:.0%})", flush=True)
     # two trip counts a row, each a warm-up and `reps` timed launches
     check(launches == 2 * (1 + reps) * len(rows), f"{launches} probe "
           f"launches for {len(rows)} table rows")
+    if has_pack:
+        check(mp.pack.launches == launches, f"{mp.pack.launches} pack "
+              f"launches for {launches} probe launches")
+    return rows, launches
+
+
+def probe_phase(gpu, lib_path):
+    """Phase 18: `probe_checks` and `pack_checks`, the build's report
+    (`probe_build_report`: the tensor-core modes must issue HGMMA), then
+    the probe's table at 8 and 264 column tiles, its launches and its
+    `pack` launches counted, and `pack`'s times at [80,80]. Returns the
+    kernels-line entries of the probe and of `pack`."""
+    from libpll2_tpu_torch.tools import mxu_probe as mp
+
+    max_abs, split_rel = probe_checks()
+    pack_err = pack_checks()
+    build = probe_build_report(lib_path)
+    wgmma = [k for k in build["sass"] if k.startswith("probe_wgmma")]
+    check(len(wgmma) > 0, "no probe_wgmma kernel in the library's SASS")
+    for label in wgmma:
+        check(build["sass"][label].get("HGMMA", 0) > 0,
+              f"{label} has no HGMMA")
+    # the plain version's time per product at the yardstick shape
+    a, x = mp.make(80, 80, 512, tiles=264)
+    plain = {mode: median_ms(lambda: mp.probe_reference(a, x, 80, 20, mode))
+             / (20 * 264) for mode in mp.MODES}
+    rows, launches = probe_table_rows(gpu)
+    pack_launches = mp.pack.launches
     main = {r["mode"]: r for r in rows
             if (r["m"], r["k"], r["t"], r["tiles"]) == (80, 80, 512, 264)}
-    # per product, the bound of the table's longer call (500 iterations x
-    # 264 tiles of [80,80]@[80,512] in bf16) over its products: A, X read
-    # once and out written once (float32), 2 m k t FLOP a product at the
-    # bf16 tensor-core peak
-    n_prod, cols = 500 * 264, 512 * 264
-    bound = bound_ms((8 * 80 * 80 + 80 * cols + 80 * cols) * 4,
-                     2 * 80 * 80 * 512 * n_prod, H100_BF16_FLOP_PER_S)
-    bound = (bound[0] / n_prod, bound[1])
-    return {"name": "mxu_probe", "route": "cuda",
+    bounds = probe_bounds(80, 80, 512, 264, 500)
+    packs = {r["mode"]: r for r in pack_times(((80, 80, 512, 0, 0),))}
+    pack_entry = {
+        "name": "mxu_probe_pack", "route": "cuda",
+        "source": "libpll2_tpu_torch/csrc/mxu_probe.cu",
+        "replaces": "tools/mxu_probe.py:34", "launches": pack_launches,
+        "max_abs_err": pack_err, "shape": "bf16, A [8 x 80, 80], one call",
+        **{k: packs["bf16"][k] for k in ("ms", "device_ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
+        "library_ms": None,
+        **{f"{mode}_{k}": packs[mode][k] for mode in ("f32", "split")
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms")}}
+    return [{"name": "mxu_probe", "route": "cuda",
             "source": "libpll2_tpu_torch/csrc/mxu_probe.cu",
             "replaces": "tools/mxu_probe.py:34", "launches": launches,
             "max_abs_err": max_abs, "shape": "bf16 [80,80]@[80,512], 264 "
             "column tiles, per product",
             "ms": main["bf16"]["us"] * 1e-3, "plain_ms": plain["bf16"],
-            "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": main["bf16"]["matmul_us"] * 1e-3,
+            "bound_ms": bounds["bf16"][0], "bound_by": bounds["bf16"][1],
+            "library_ms": main["bf16"]["library_us"] * 1e-3,
             "f32_ms": main["f32"]["us"] * 1e-3,
             "f32_plain_ms": plain["f32"],
-            "f32_library_ms": main["f32"]["matmul_us"] * 1e-3,
+            "f32_bound_ms": bounds["f32"][0],
+            "f32_library_ms": main["f32"]["library_us"] * 1e-3,
             "split_ms": main["split"]["us"] * 1e-3,
             "split_plain_ms": plain["split"],
+            "split_bound_ms": bounds["split"][0],
+            "split_library_ms": main["split"]["library_us"] * 1e-3,
             "split_float64_rel_err": split_rel,
-            "tflops": {m: r["tflops"] for m, r in main.items()}}
+            "tflops": {m: r["tflops"] for m, r in main.items()},
+            "registers": {k: v.get("registers")
+                          for k, v in build["kernels"].items()},
+            "hgmma": {k: v.get("HGMMA", 0)
+                      for k, v in build["sass"].items()}}, pack_entry]
+
+
+def probe_only(gpu, lib_path):
+    """`--probe-only`: phase 18's checks, the build's report and the
+    probe's table of the checkout's port, and where it has `pack` (an
+    older checkout lays A out inside the probe) its checks and times at
+    every shape, as one dict."""
+    from libpll2_tpu_torch.tools import mxu_probe as mp
+
+    max_abs, split_rel = probe_checks()
+    has_pack = hasattr(mp, "pack")
+    pack_err = pack_checks() if has_pack else None
+    build = probe_build_report(lib_path)
+    rows, launches = probe_table_rows(gpu)
+    packs = pack_times() if has_pack else []
+    keep = ("m", "k", "t", "mode", "tiles", "us", "us_call", "tflops",
+            "bound_us", "library_us")
+    return {"max_abs_err": max_abs, "split_float64_rel_err": split_rel,
+            "launches": launches, "pack_max_abs_err": pack_err,
+            "pack": packs,
+            "registers": {k: v.get("registers")
+                          for k, v in build["kernels"].items()},
+            "spills": {k: v.get("spills")
+                       for k, v in build["kernels"].items()},
+            "serialized": build["serialized"],
+            "sass": build["sass"],
+            "rows": [{key: r[key] for key in keep if key in r}
+                     for r in rows]}
 
 
 # phase 19: candidate scoring. Candidates held against the float64 plain
@@ -8075,13 +8368,18 @@ def main() -> int:
                     "kernels on phase 26's 61-state problem, per site and "
                     "per rate (each held against its plain version), and "
                     "print the times as one JSON line")
+    ap.add_argument("--probe-only", metavar="REPO", default=None,
+                    help="only build the kernels of the checkout REPO and "
+                    "run phase 18 (the matrix-unit probe: its checks, its "
+                    "build report and its table at 8 and 264 column "
+                    "tiles), and print its numbers as one JSON line")
     ap.add_argument("--states64-only", action="store_true",
                     help="only build the kernels and run phase 26 (33-64 "
                     "states and float64 partitions on the card), and print "
                     "its numbers as one JSON line")
     args = ap.parse_args()
     other = (args.rows_only or args.fused_only or args.pool_only
-             or args.levels_only or args.generic_only)
+             or args.levels_only or args.generic_only or args.probe_only)
 
     import torch
     if not torch.cuda.is_available():
@@ -8145,9 +8443,15 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "Compiling entry function" in line:
                 print(f"  ptxas: {line.split(chr(39))[1]}", flush=True)
-            elif ("registers" in line or "spill" in line
+            elif ("Used" in line and "registers" in line or "spill" in line
                     or line.startswith("==")):
                 print(f"  ptxas: {line.strip()}", flush=True)
+
+    if args.probe_only:
+        print(f"probe of {os.path.abspath(args.probe_only)}", flush=True)
+        print(json.dumps({"probe_only": probe_only(gpu, lib_path),
+                          "gpu": gpu}), flush=True)
+        return 0
 
     if args.states64_times:
         print(json.dumps({"states64_times": s64_times(device, gpu),
@@ -8336,7 +8640,7 @@ def main() -> int:
                               gpu)[0]
 
     # 18. the matrix-unit probe
-    probe_entry = probe_phase(gpu)
+    probe_entries = probe_phase(gpu, lib_path)
 
     # 19. candidate scoring
     cand_dna = dna_candidates(device, big, big_by, gpu)
@@ -8661,7 +8965,7 @@ def main() -> int:
         "analysis_rel_err_vs_dense": ana["pool_rel_err"],
         **sharded(mesh["repeats"]["pool-pallas"],
                   mesh["repeats"]["pool-pallas"]["launches"])},
-        probe_entry, {
+        *probe_entries, {
         "name": "fused_traversal[candidates]", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal.cu",
         "replaces": "libpll2_tpu/ops/pallas_fused.py:299",

@@ -10,46 +10,140 @@
 // column tile j (one block each) and every column c of it,
 //   out[:, c] = sum over i < iters of A[(i mod nmat) * m : +m, :] @ X[:, c]
 // accumulated in float32. Three modes:
-//   0 'f32'   -- CUDA-core float32 FMAs, A's slice and a 64-column sub-tile
-//                of X staged in shared memory;
-//   1 'bf16'  -- mma.sync.m16n8k16 with A and X rounded to bf16 (to nearest,
-//                ties to even, as astype(bfloat16) and .to(torch.bfloat16))
-//                and float32 accumulation; m and k padded with zeros to the
-//                16-row, 16-deep tile;
+//   0 'f32'   -- CUDA-core float32 FMAs;
+//   1 'bf16'  -- the tensor cores (wgmma) on A and X rounded to bf16 (to
+//                nearest, ties to even, as astype(bfloat16) and
+//                .to(torch.bfloat16)), float32 accumulation;
 //   2 'split' -- three bf16 passes, hi.hi + hi.lo + lo.hi, with lo the bf16
 //                rounding of x - hi: float32-class products from the bf16
-//                tensor cores, the candidate for the 20-state kernel's
-//                'split' mode.
-// The sum runs slice by slice (every i with i mod nmat == j after A's slice
-// j is staged), which reorders the float32 additions of the plain version's
-// loop over i; the products are the same.
+//                tensor cores.
+// The sum runs slice by slice (every i with i mod nmat == j, one after
+// another, in k chunks of a ring stage), which reorders the float32
+// additions of the plain version's loop over i; the products are the same.
 //
-// What bounds it on an H100: operations, by design. Per block and
-// iteration 2 * m * k * t FLOP against nothing read from device memory (A's
-// slices and X's sub-tile stay in shared memory). Shared-memory loads feed
-// each FMA or mma here (a register-tiled FMA loop: 4 columns x up to 8 rows
-// a thread; one warp per 8-column n-tile over all 16-row m-tiles for mma),
-// so the rates are those of this simple design, not the card's peaks
-// (67 TFLOP/s float32, 989 TFLOP/s bf16 dense); wgmma and register-resident
-// operands are the redesign's work. With `tiles` = 8 (the TPU probe's grid)
-// 8 of 132 SMs work; a tile count that fills the card gives its rate.
+// What bounds it on an H100: operations, by design (2 m k t FLOP a product
+// against nothing read per product from device memory), at about 1070
+// TFLOP/s in bf16 and 67 TFLOP/s in float32 (132 SMs at 1980 MHz). The
+// design keeps both operands out of the way of the contraction engine:
+//   - One block a column tile (8 tiles: 8 SMs; 264: the whole card), 8
+//     consumer warps and one producer warp. The producer's lane 0 streams
+//     A's slices, pre-laid by `pack` (a kernel of this file, its own entry
+//     pll_mxu_probe_pack, launched by the wrapper just before the probe) in
+//     the shared-memory layout the consumers read, through a ring of
+//     stages: one bulk copy (cp.async.bulk) a stage, counted on the
+//     stage's full mbarrier; each consumer warp arrives on its empty
+//     mbarrier when done with it. Slice j is streamed once per pass and
+//     used reps(j) times from shared memory.
+//   - 'bf16' and 'split' compute out^T = X^T A_slice^T with
+//     wgmma.mma_async.m64nNk16 (wgmma.cuh): the 64 rows are 64 columns of X
+//     (a row tile; a pass gives each of the two consumer warpgroups one),
+//     N is m rounded up to 8 (20 -> 24, 80, 128), K is k rounded up to 16.
+//     X's fragment (hi, and lo for 'split') is loaded once a pass into
+//     registers, 4 a k step (the array holds 8 k steps up to k = 128, 16
+//     above: two instantiations), and is wgmma's A operand in every
+//     product; in 'split' above k = 128 the lo part lies in shared memory
+//     instead (hi.lo's wgmma reads both operands there): hi, lo and the
+//     accumulators would pass the 168 registers ptxas gives a thread of
+//     288, and it serializes wgmmas it cannot keep in registers. A's
+//     slice (hi, and lo) is B, K-major bf16 in 128-byte swizzled rows
+//     (`sw128_byte`; a stage is one swizzle atom of 64 k values of all N
+//     rows). The float32 accumulators (N / 2 registers a thread) live
+//     across all iters products; the wgmmas of a stage chain back to back,
+//     one commit group a stage, and a warp waits only for the stage before
+//     (wait_group 1) before it releases that stage.
+//   - 'f32': a thread holds an 8-row x 8-column register tile; a k step
+//     reads 2 float4 of the slice (staged transposed, rows padded to 8) and
+//     2 float4 of X (a pass's columns, staged once a pass, a thread's 8
+//     columns 4 + 4 half a pass apart so that a warp's loads are
+//     contiguous) for 64 FMAs, with no bound check. The pass width
+//     (`cols`) and the slice's k chunk a stage come from the plan.
+// ops/_kernels.py:probe_plan lays this out (N, K, chunks, stages, shared
+// bytes); pll_mxu_probe recomputes the plan and refuses another.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSub = 64;       // columns of X staged at once
-constexpr int kMaxMt = 8;      // 16-row m-tiles: m <= 128
+constexpr int kConsumers = 256;            // 8 warps: 2 warpgroups
+constexpr int kThreads = kConsumers + 32;  // and the producer warp
+constexpr int kConsumerWarps = kConsumers / 32;
+constexpr int kSmemMax = 232448;           // a block's shared memory on an H100
+constexpr int kRowTile = 64;               // wgmma's rows: columns of X
+constexpr int kAtom = 64;                  // bf16 k values of a 128-byte row
+constexpr int kMaxKSteps = 16;             // k <= 256
+constexpr int kMaxStages = 8;
+constexpr int kAlign = 1024;               // the swizzle atom's alignment
+constexpr int kF32Stages = 2;
+constexpr unsigned kCopyBytes = 32768;     // a bulk copy's largest piece
+constexpr int kRefused = -1;               // pll_mxu_probe: another plan
 
 struct Args {
-  const float* a;   // [nmat * m, k]
-  const float* x;   // [k, tiles * t]
-  float* out;       // [m, tiles * t]
+  const float* a;              // [nmat * m, k]
+  const float* x;              // [k, tiles * t]
+  float* out;                  // [m, tiles * t]
+  unsigned char* packed;       // A's slices as the consumers read them
   int m, k, nmat, t, tiles, iters;
 };
+
+// ops/_kernels.py:probe_plan, field for field
+struct Plan {
+  int n;                  // 'bf16'/'split': wgmma's N; 'f32': rows padded to 8
+  int k_pad;              // K padded: to 16 (wgmma) or 4 ('f32')
+  int chunk, chunks;      // k values a stage, stages a slice
+  int cols;               // columns a pass: 64 a warpgroup, or 'f32''s own
+  int passes;             // a tile's passes
+  int stages;             // the ring's
+  int frag;               // 'bf16'/'split': k steps of X's fragment: 8 or 16
+  long long stage_bytes, smem_bytes, slice_bytes;
+  long long x_bytes;      // 'split' at frag 16: X's lo part in shared memory
+};
+
+inline int round_up(int v, int to) { return (v + to - 1) / to * to; }
+
+Plan make_plan(int m, int k, int t, int mode) {
+  Plan p{};
+  if (mode == 0) {
+    p.n = round_up(m, 8);
+    p.k_pad = round_up(k, 4);
+    const int rgs = p.n / 8;
+    int cg = kConsumers / rgs;
+    if (cg > (t + 7) / 8) cg = (t + 7) / 8;
+    const long long bars = 2LL * kF32Stages * 8;
+    while (cg > 1 && 4LL * p.k_pad * 8 * cg + kF32Stages * 16LL * p.n + bars > kSmemMax) --cg;
+    p.cols = 8 * cg;
+    const long long room =
+        (kSmemMax - 4LL * p.k_pad * p.cols - bars) / (kF32Stages * 4LL * p.n);
+    p.chunk = 4;
+    for (int d = 4; d <= p.k_pad && d <= room; d += 4)
+      if (p.k_pad % d == 0) p.chunk = d;
+    p.stages = kF32Stages;
+    p.stage_bytes = 4LL * p.chunk * p.n;
+    p.smem_bytes = 4LL * p.k_pad * p.cols + p.stages * p.stage_bytes + bars;
+    p.passes = (t + p.cols - 1) / p.cols;
+  } else {
+    const int parts = mode == 2 ? 2 : 1;
+    p.n = round_up(m, 8);
+    p.k_pad = round_up(k, 16);
+    p.chunk = kAtom;
+    p.frag = p.k_pad <= 8 * 16 ? kMaxKSteps / 2 : kMaxKSteps;
+    p.x_bytes = mode == 2 && p.frag == kMaxKSteps
+                    ? 2LL * ((p.k_pad + kAtom - 1) / kAtom) * kRowTile * 128
+                    : 0;
+    p.stage_bytes = 128LL * p.n * parts;
+    long long stages = (kSmemMax - kAlign - p.x_bytes - 16LL * kMaxStages) / p.stage_bytes;
+    p.stages = static_cast<int>(stages < kMaxStages ? stages : kMaxStages);
+    p.smem_bytes = kAlign + p.x_bytes + p.stages * p.stage_bytes + 16LL * p.stages;
+    p.cols = kRowTile;
+    p.passes = ((t + kRowTile - 1) / kRowTile + 1) / 2;
+  }
+  p.chunks = (p.k_pad + p.chunk - 1) / p.chunk;
+  p.slice_bytes = p.chunks * p.stage_bytes;
+  return p;
+}
 
 // the iterations i < iters with i mod nmat == j
 __device__ __forceinline__ int reps(const Args& p, int j) {
@@ -65,170 +159,411 @@ __device__ __forceinline__ float bf16_value(uint16_t h) {
   return __uint_as_float(static_cast<uint32_t>(h) << 16);
 }
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ---------------------------------------------------------------------------
+// Byte of (row r, k value kk) in a K-major bf16 matrix of `rows` rows in
+// 128-byte swizzled rows, the layout wgmma's descriptors name (sw128_desc):
+// a 64-k atom after another, row r at byte 128 r of its atom, its 16-byte
+// chunk q (k values 8 q ..) at chunk index q ^ (r % 8).
+// ops/_kernels.py:probe_layout lays a slice out the same way.
+__device__ __forceinline__ int sw128_byte(int r, int kk, int rows) {
+  return (kk / kAtom) * rows * 128 + r * 128 + (((kk % kAtom) / 8) ^ (r % 8)) * 16 +
+         (kk % 8) * 2;
+}
+
+// A's slices as the consumers read them, one thread an element, zero past m
+// and k. 'bf16'/'split': slice j, stage c: the hi part, then (for 'split')
+// the lo part, each the N x 64 block of k values 64 c .. 64 c + 63 as
+// sw128_byte lays it out. 'f32': slice j transposed, k_pad x n floats.
+__global__ void pack(Args p, Plan pl, int mode) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (mode == 0) {
+    const long long per = (long long)pl.k_pad * pl.n;
+    if (i >= per * p.nmat) return;
+    const int j = static_cast<int>(i / per), kk = static_cast<int>(i % per / pl.n);
+    const int r = static_cast<int>(i % pl.n);
+    reinterpret_cast<float*>(p.packed)[i] =
+        r < p.m && kk < p.k ? __ldg(p.a + ((size_t)j * p.m + r) * p.k + kk) : 0.0f;
+    return;
+  }
+  const int parts = mode == 2 ? 2 : 1;
+  const long long atom = (long long)kAtom * pl.n;   // elements of a stage's part
+  if (i >= atom * pl.chunks * p.nmat) return;
+  const int j = static_cast<int>(i / (atom * pl.chunks));
+  const int c = static_cast<int>(i / atom % pl.chunks);
+  const int r = static_cast<int>(i % atom / kAtom), kk = static_cast<int>(i % kAtom);
+  const float v = r < p.m && c * kAtom + kk < p.k
+                      ? __ldg(p.a + ((size_t)j * p.m + r) * p.k + c * kAtom + kk)
+                      : 0.0f;
+  const uint16_t h = bf16_rne(v);
+  unsigned char* const stage = p.packed + ((long long)j * pl.chunks + c) * pl.stage_bytes;
+  const int at = sw128_byte(r, kk, pl.n);
+  *reinterpret_cast<uint16_t*>(stage + at) = h;
+  if (parts == 2) {
+    *reinterpret_cast<uint16_t*>(stage + kAtom * 2 * pl.n + at) = bf16_rne(v - bf16_value(h));
+  }
 }
 
 // ---------------------------------------------------------------------------
-// 'f32': thread (tx, ty) of 16 x 16 owns columns 4 tx .. 4 tx + 3 of the
-// sub-tile and rows ty, ty + 16, ... (at most 8).
-__global__ void __launch_bounds__(kThreads) probe_f32(Args p) {
-  extern __shared__ float4 smem4[];
-  float* const smem = reinterpret_cast<float*>(smem4);
-  const int ka = p.k + 1;              // padded A row: no bank conflicts
-  float* const xs = smem;              // [k][kSub]
-  float* const as = xs + p.k * kSub;   // [m][k + 1]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const size_t W = (size_t)p.t * p.tiles;
-  const size_t col0 = (size_t)blockIdx.x * p.t;
-  for (int c0 = 0; c0 < p.t; c0 += kSub) {
-    float acc[kMaxMt][4];
-#pragma unroll
-    for (int q = 0; q < kMaxMt; ++q) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
-    }
-    __syncthreads();  // the previous sub-tile is done with xs
-    for (int q = threadIdx.x; q < p.k * kSub; q += kThreads) {
-      const int kk = q / kSub, n = q % kSub;
-      xs[q] = c0 + n < p.t ? __ldg(p.x + (size_t)kk * W + col0 + c0 + n) : 0.0f;
-    }
+// The ring.
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// one arrival on `bar`, and `bytes` more to land on it by bulk copies
+__device__ __forceinline__ void mbar_arrive_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned long long* bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// until the phase of `bar` with this parity has completed; a wait of 10 s
+// (a lost arrival) traps, and the launch fails, instead of hanging the card
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = global_ns();
+  while (!mbar_try_wait(bar, parity)) {
+    if (global_ns() - t0 > 10000000000ULL) __trap();
+  }
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from device memory,
+// counted on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The producer (one lane): stage n of the stream (a pass, a slice j with
+// reps(j) > 0, a chunk c) into ring entry n % stages once every consumer
+// warp is done with the entry's previous use.
+__device__ void produce(const Args& p, const Plan& pl, unsigned char* ring,
+                        unsigned long long* full, unsigned long long* empty) {
+  int n = 0;
+  for (int pass = 0; pass < pl.passes; ++pass) {
     for (int j = 0; j < p.nmat; ++j) {
-      __syncthreads();  // the previous slice is done with as
-      const float* aj = p.a + (size_t)j * p.m * p.k;
-      for (int q = threadIdx.x; q < p.m * p.k; q += kThreads) {
-        as[(q / p.k) * ka + q % p.k] = __ldg(aj + q);
-      }
-      __syncthreads();
-      const int n = reps(p, j);
-      for (int it = 0; it < n; ++it) {
-        for (int kk = 0; kk < p.k; ++kk) {
-          const float4 xv = *reinterpret_cast<const float4*>(xs + kk * kSub + 4 * tx);
-#pragma unroll
-          for (int q = 0; q < kMaxMt; ++q) {
-            const int r = ty + 16 * q;
-            if (r < p.m) {
-              const float av = as[r * ka + kk];
-              acc[q][0] += av * xv.x;
-              acc[q][1] += av * xv.y;
-              acc[q][2] += av * xv.z;
-              acc[q][3] += av * xv.w;
-            }
-          }
+      if (reps(p, j) == 0) continue;
+      for (int c = 0; c < pl.chunks; ++c, ++n) {
+        const int s = n % pl.stages;
+        mbar_wait(empty + s, ((n / pl.stages) & 1) ^ 1);
+        const unsigned bytes = static_cast<unsigned>(pl.stage_bytes);
+        mbar_arrive_tx(full + s, bytes);
+        const unsigned char* src = p.packed + ((long long)j * pl.chunks + c) * pl.stage_bytes;
+        unsigned char* dst = ring + s * pl.stage_bytes;
+        for (unsigned o = 0; o < bytes; o += kCopyBytes) {
+          bulk_copy(dst + o, src + o, bytes - o < kCopyBytes ? bytes - o : kCopyBytes,
+                    full + s);
         }
       }
     }
+  }
+}
+
+// a consumer warp is done with ring entry s
+__device__ __forceinline__ void release(unsigned long long* empty, int s) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(empty + s);
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// 'f32': consumer thread (rg, cg) = (tid / (cols / 8), tid % (cols / 8)) owns
+// rows 8 rg .. 8 rg + 7 and columns 4 cg + e, cols / 2 + 4 cg + e (e < 4) of
+// a pass; threads past the rows idle.
+__global__ void __launch_bounds__(kThreads, 1) probe_f32(Args p, Plan pl) {
+  extern __shared__ float4 smem4[];
+  float* const xs = reinterpret_cast<float*>(smem4);               // [k_pad][cols]
+  unsigned char* const ring = reinterpret_cast<unsigned char*>(xs + pl.k_pad * pl.cols);
+  unsigned long long* const full =
+      reinterpret_cast<unsigned long long*>(ring + pl.stages * pl.stage_bytes);
+  unsigned long long* const empty = full + pl.stages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < pl.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) produce(p, pl, ring, full, empty);
+    return;
+  }
+  const int tid = threadIdx.x;
+  const int cgs = pl.cols / 8;
+  const int rg = tid / cgs, cg = tid % cgs;
+  const bool active = rg < pl.n / 8;
+  const size_t W = (size_t)p.t * p.tiles;
+  const size_t col0 = (size_t)blockIdx.x * p.t;
+  const int n4 = pl.n / 4, c4 = pl.cols / 4;
+  int n = 0;
+  for (int pass = 0; pass < pl.passes; ++pass) {
+    const int cb = pass * pl.cols;
+    consumers_sync();  // the previous pass is done with xs
+    for (int q = tid; q < pl.k_pad * pl.cols; q += kConsumers) {
+      const int kk = q / pl.cols, c = cb + q % pl.cols;
+      xs[q] = kk < p.k && c < p.t ? __ldg(p.x + (size_t)kk * W + col0 + c) : 0.0f;
+    }
+    consumers_sync();
+    float acc[8][8];
 #pragma unroll
-    for (int q = 0; q < kMaxMt; ++q) {
-      const int r = ty + 16 * q;
-      if (r >= p.m) continue;
+    for (int i = 0; i < 8; ++i) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = c0 + 4 * tx + e;
-        if (c < p.t) p.out[(size_t)r * W + col0 + c] = acc[q][e];
+      for (int e = 0; e < 8; ++e) acc[i][e] = 0.0f;
+    }
+    for (int j = 0; j < p.nmat; ++j) {
+      const int r = reps(p, j);
+      if (r == 0) continue;
+      for (int c = 0; c < pl.chunks; ++c, ++n) {
+        const int s = n % pl.stages;
+        mbar_wait(full + s, (n / pl.stages) & 1);
+        if (active) {
+          const float4* as = reinterpret_cast<const float4*>(ring + s * pl.stage_bytes) + 2 * rg;
+          const float4* xv = reinterpret_cast<const float4*>(xs + c * pl.chunk * pl.cols) + cg;
+          for (int it = 0; it < r; ++it) {
+#pragma unroll 4
+            for (int kk = 0; kk < pl.chunk; ++kk) {
+              const float4 a0 = as[kk * n4], a1 = as[kk * n4 + 1];
+              const float4 x0 = xv[kk * c4], x1 = xv[kk * c4 + cgs];
+              const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+              const float xw[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+#pragma unroll
+                for (int e = 0; e < 8; ++e) acc[i][e] = fmaf(av[i], xw[e], acc[i][e]);
+              }
+            }
+          }
+        }
+        release(empty, s);
+      }
+    }
+    if (!active) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = 8 * rg + i;
+      if (row >= p.m) break;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int c = cb + (e < 4 ? 4 * cg + e : pl.cols / 2 + 4 * cg + e - 4);
+        if (c < p.t) p.out[(size_t)row * W + col0 + c] = acc[i][e];
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// 'bf16' and 'split': warp w owns the 8-column n-tile w of the sub-tile and
-// every 16-row m-tile. Operands are bf16 in shared memory, A as [row][k] and
-// X as [column][k] (the col-major B of mma), rows padded by 8 values so that
-// the 32 lanes' fragment loads fall in 32 banks.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1)
-      : "memory");
+// 'bf16' and 'split': warpgroup g of the block takes row tile 2 pass + g
+// (64 columns of the tile) in each pass; a warpgroup past the tile's row
+// tiles only keeps step with the ring.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-__host__ __device__ inline int padded16(int v) { return (v + 15) & ~15; }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 
-template <bool kSplit>
-__global__ void __launch_bounds__(kThreads) probe_mma(Args p) {
+template <int K>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(K) : "memory");
+}
+
+// keeps the compiler from moving the accumulators' reads and writes across
+// the asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A shared-memory operand's descriptor (sw128_byte's layout): start
+// address, leading byte offset 16 (unused in K-major swizzled layouts),
+// stride byte offset 1024 (8 rows of 128 bytes), 128-byte swizzle
+__device__ __forceinline__ uint64_t sw128_desc(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
+  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
+// this warpgroup's named barrier (0: __syncthreads, 1: the consumers)
+__device__ __forceinline__ void warpgroup_sync(int g) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + g) : "memory");
+}
+
+// this thread's shared-memory writes, visible to the tensor cores' reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// KS: the k steps X's fragment holds (8: k <= 128, 16: k <= 256). In
+// 'split' at KS 16 the fragment's lo part would not fit beside the hi part
+// and the accumulators (the wgmmas would be serialized), so it lies in
+// shared memory (a warpgroup's 64 rows x K, laid out as A's slices) and
+// hi.lo's product reads it from there.
+template <int N, int KS, bool kSplit>
+__global__ void __launch_bounds__(kThreads, 1) probe_wgmma(Args p, Plan pl) {
+  constexpr int R = N / 2;
+  constexpr bool kLoShared = kSplit && KS > kMaxKSteps / 2;
   extern __shared__ float4 smem4[];
-  uint16_t* const hs = reinterpret_cast<uint16_t*>(smem4);
-  const int mp = padded16(p.m), kp = padded16(p.k), ld = kp + 8;
-  const int n_buf = kSplit ? 2 : 1;
-  uint16_t* const xh = hs;                     // [kSub][ld] (hi, then lo)
-  uint16_t* const ah = hs + n_buf * kSub * ld; // [mp][ld] (hi, then lo)
-  uint16_t* const xl = xh + kSub * ld;
-  uint16_t* const al = ah + mp * ld;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int mt_n = mp / 16;
+  unsigned char* const raw = reinterpret_cast<unsigned char*>(smem4);
+  unsigned char* const ring = raw + ((kAlign - (smem_addr(raw) & (kAlign - 1))) & (kAlign - 1));
+  unsigned char* const x_lo = ring + pl.stages * pl.stage_bytes;  // [2][chunks] atoms
+  unsigned long long* const full = reinterpret_cast<unsigned long long*>(x_lo + pl.x_bytes);
+  unsigned long long* const empty = full + pl.stages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < pl.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumerWarps);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  // the warp's index, broadcast from lane 0 so that the compiler sees the
+  // branches on it (and the warpgroup's) as uniform: a wgmma on a path it
+  // takes for divergent is serialized
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp >= kConsumerWarps) {
+    if (threadIdx.x == kConsumers) produce(p, pl, ring, full, empty);
+    return;
+  }
+  const int g = warp / 4, w = warp % 4, lane = threadIdx.x % 32;
+  const int row0 = 16 * w + lane / 4, q = lane % 4;
+  const int ksteps = pl.k_pad / 16;
   const size_t W = (size_t)p.t * p.tiles;
   const size_t col0 = (size_t)blockIdx.x * p.t;
-  for (int c0 = 0; c0 < p.t; c0 += kSub) {
-    float acc[kMaxMt][4];
+  unsigned char* const my_lo = x_lo + g * (pl.x_bytes / 2);
+  int n = 0;
+  for (int pass = 0; pass < pl.passes; ++pass) {
+    const int c0 = (2 * pass + g) * kRowTile;
+    const bool active = c0 < p.t;
+    float acc[R];
 #pragma unroll
-    for (int q = 0; q < kMaxMt; ++q) {
+    for (int i = 0; i < R; ++i) acc[i] = 0.0f;
+    // the previous pass's products (reading my_lo) are done in every warp
+    if constexpr (kLoShared) warpgroup_sync(g);
+    // X's fragment: register h of k step s holds columns c0 + row0 + 8 (h &
+    // 1) at k = 16 s + 2 q + 8 (h >> 1) and the k after it
+    uint32_t xh[KS][4], xl[kSplit && !kLoShared ? KS : 1][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
-    }
-    __syncthreads();  // the previous sub-tile is done with xh, xl
-    for (int q = threadIdx.x; q < kp * kSub; q += kThreads) {
-      const int kk = q / kSub, n = q % kSub;
-      const float v = kk < p.k && c0 + n < p.t
-                          ? __ldg(p.x + (size_t)kk * W + col0 + c0 + n)
-                          : 0.0f;
-      const uint16_t h = bf16_rne(v);
-      xh[n * ld + kk] = h;
-      if (kSplit) xl[n * ld + kk] = bf16_rne(v - bf16_value(h));
-    }
-    for (int j = 0; j < p.nmat; ++j) {
-      __syncthreads();  // the previous slice is done with ah, al
-      const float* aj = p.a + (size_t)j * p.m * p.k;
-      for (int q = threadIdx.x; q < mp * kp; q += kThreads) {
-        const int r = q / kp, kk = q % kp;
-        const float v = r < p.m && kk < p.k ? __ldg(aj + (size_t)r * p.k + kk) : 0.0f;
-        const uint16_t h = bf16_rne(v);
-        ah[r * ld + kk] = h;
-        if (kSplit) al[r * ld + kk] = bf16_rne(v - bf16_value(h));
-      }
-      __syncthreads();
-      const int n = reps(p, j);
-      const uint16_t* xb = xh + (warp * 8 + gid) * ld + 2 * tig;
-      for (int it = 0; it < n; ++it) {
-        for (int kk = 0; kk < kp; kk += 16) {
-          const uint32_t b0 = ld32(xb + kk), b1 = ld32(xb + kk + 8);
-          uint32_t bl0 = 0, bl1 = 0;
-          if (kSplit) {
-            bl0 = ld32(xb + kSub * ld + kk);
-            bl1 = ld32(xb + kSub * ld + kk + 8);
-          }
+    for (int s = 0; s < KS; ++s) {
 #pragma unroll
-          for (int mt = 0; mt < kMaxMt; ++mt) {
-            if (mt >= mt_n) break;
-            const uint16_t* ab = ah + (mt * 16 + gid) * ld + kk + 2 * tig;
-            const uint32_t a0 = ld32(ab), a1 = ld32(ab + 8 * ld);
-            const uint32_t a2 = ld32(ab + 8), a3 = ld32(ab + 8 * ld + 8);
-            mma_bf16(acc[mt], a0, a1, a2, a3, b0, b1);
-            if (kSplit) {
-              mma_bf16(acc[mt], a0, a1, a2, a3, bl0, bl1);
-              const uint16_t* lb = ab + mp * ld;
-              mma_bf16(acc[mt], ld32(lb), ld32(lb + 8 * ld), ld32(lb + 8),
-                       ld32(lb + 8 * ld + 8), b0, b1);
-            }
+      for (int h = 0; h < 4; ++h) {
+        const int r = row0 + 8 * (h & 1), c = c0 + r, kk = 16 * s + 2 * q + 8 * (h >> 1);
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = active && s < ksteps && kk + e < p.k && c < p.t
+                     ? __ldg(p.x + (size_t)(kk + e) * W + col0 + c)
+                     : 0.0f;
+        }
+        const uint16_t h0 = bf16_rne(v[0]), h1 = bf16_rne(v[1]);
+        xh[s][h] = pack2(h0, h1);
+        if constexpr (kSplit) {
+          const uint32_t lo = pack2(bf16_rne(v[0] - bf16_value(h0)),
+                                    bf16_rne(v[1] - bf16_value(h1)));
+          if constexpr (kLoShared) {
+            if (s < ksteps) *reinterpret_cast<uint32_t*>(my_lo + sw128_byte(r, kk, kRowTile)) = lo;
+          } else {
+            xl[s][h] = lo;
           }
         }
       }
     }
+    if constexpr (kLoShared) {
+      fence_proxy_async();
+      warpgroup_sync(g);
+    }
+    fence_operands(acc);
+    if (active) wgmma_fence();
+    int prev = -1;
+    for (int j = 0; j < p.nmat; ++j) {
+      const int r = reps(p, j);
+      if (r == 0) continue;
 #pragma unroll
-    for (int mt = 0; mt < kMaxMt; ++mt) {
-      if (mt >= mt_n) break;
+      for (int c = 0; c < KS / 4; ++c) {
+        if (c >= pl.chunks) break;
+        const int s = n % pl.stages;
+        mbar_wait(full + s, (n / pl.stages) & 1);
+        if (active) {
+          const unsigned hi = smem_addr(ring + s * pl.stage_bytes), lo = hi + 128 * N;
+          const unsigned xlo = smem_addr(my_lo) + c * kRowTile * 128;
+          for (int it = 0; it < r; ++it) {
+#pragma unroll
+            for (int ks = 0; ks < kAtom / 16; ++ks) {
+              if (4 * c + ks < ksteps) {
+                Mma<N>::rs(acc, xh[4 * c + ks], sw128_desc(hi + 32 * ks));
+                if constexpr (kLoShared) {
+                  Mma<N>::ss(acc, sw128_desc(xlo + 32 * ks), sw128_desc(hi + 32 * ks));
+                } else if constexpr (kSplit) {
+                  Mma<N>::rs(acc, xl[4 * c + ks], sw128_desc(hi + 32 * ks));
+                }
+                if constexpr (kSplit) Mma<N>::rs(acc, xh[4 * c + ks], sw128_desc(lo + 32 * ks));
+              }
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<1>();
+        }
+        if (prev >= 0) release(empty, prev);
+        prev = s;
+        ++n;
+      }
+    }
+    if (active) wgmma_wait<0>();
+    fence_operands(acc);
+    if (prev >= 0) release(empty, prev);
+    if (!active) continue;
+#pragma unroll
+    for (int jn = 0; jn < N / 8; ++jn) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = mt * 16 + gid + 8 * h;
+        const int c = c0 + row0 + 8 * h;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int c = c0 + warp * 8 + 2 * tig + e;
-          if (r < p.m && c < p.t) p.out[(size_t)r * W + col0 + c] = acc[mt][2 * h + e];
+          const int row = 8 * jn + 2 * q + e;
+          if (row < p.m && c < p.t) p.out[(size_t)row * W + col0 + c] = acc[4 * jn + 2 * h + e];
         }
       }
     }
@@ -236,36 +571,82 @@ __global__ void __launch_bounds__(kThreads) probe_mma(Args p) {
 }
 
 template <typename K>
-int launch(K kernel, const Args& p, size_t bytes, cudaStream_t st) {
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<p.tiles, kThreads, bytes, st>>>(p);
+int launch(K kernel, const Args& p, const Plan& pl, int threads, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(pl.smem_bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<p.tiles, threads, pl.smem_bytes, st>>>(p, pl);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int N, bool kSplit>
+int launch_wgmma(const Args& p, const Plan& pl, cudaStream_t st) {
+  if constexpr (N > 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (pl.n != N) return launch_wgmma<N + 8, kSplit>(p, pl, st);
+    if (pl.frag == kMaxKSteps / 2)
+      return launch(probe_wgmma<N, kMaxKSteps / 2, kSplit>, p, pl, kThreads, st);
+    return launch(probe_wgmma<N, kMaxKSteps, kSplit>, p, pl, kThreads, st);
+  }
+}
+
+// 0 when (m, k, nmat, t, tiles, iters, mode) fit the kernel and the caller's
+// plan (n, k_pad, chunk, cols, stages, smem_bytes: ops/_kernels.py:
+// probe_plan) is this one's, set in *pl; else an error code, or kRefused
+int checked_plan(int m, int k, int nmat, int t, int tiles, int iters, int mode, int n,
+                 int k_pad, int chunk, int cols, int stages, long long smem_bytes, Plan* pl) {
+  if (m < 1 || m > 128 || k < 1 || k > kMaxKSteps * 16 || nmat < 1 || t < 1 ||
+      tiles < 1 || iters < 0 || mode < 0 || mode > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  *pl = make_plan(m, k, t, mode);
+  if (pl->n != n || pl->k_pad != k_pad || pl->chunk != chunk || pl->cols != cols ||
+      pl->stages != stages || pl->smem_bytes != smem_bytes) {
+    return kRefused;
+  }
+  return 0;
 }
 
 }  // namespace
 
-// Launches one probe of `iters` products per column tile on `stream` and
-// returns cudaGetLastError() (0 on success), or an error code without
-// launching when the shapes do not fit (m <= 128, k <= 256).
-extern "C" int pll_mxu_probe(const float* a, const float* x, float* out, int m,
-                             int k, int nmat, int t, int tiles, int iters,
-                             int mode, void* stream) {
-  if (m < 1 || m > 16 * kMaxMt || k < 1 || k > 256 || nmat < 1 || t < 1 ||
-      tiles < 1 || iters < 0 || mode < 0 || mode > 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Args p{a, x, out, m, k, nmat, t, tiles, iters};
+// Launches `pack` on `stream`: A's nmat slices laid out in `packed` (nmat *
+// the plan's slice bytes) as the probe reads them. Returns
+// cudaGetLastError() (0 on success), an error code without launching when
+// the shapes do not fit (m <= 128, k <= 256), and kRefused (-1) when the
+// caller's plan is not this one's (checked_plan).
+extern "C" int pll_mxu_probe_pack(const float* a, void* packed, int m, int k, int nmat,
+                                  int t, int mode, int n, int k_pad, int chunk, int cols,
+                                  int stages, long long smem_bytes, void* stream) {
+  Plan pl;
+  const int bad = checked_plan(m, k, nmat, t, 1, 0, mode, n, k_pad, chunk, cols, stages,
+                               smem_bytes, &pl);
+  if (bad != 0) return bad;
+  const Args p{a, nullptr, nullptr, static_cast<unsigned char*>(packed), m, k, nmat, t, 1, 0};
+  // one thread a float ('f32') or a (hi, lo) pair of bf16
+  const long long elems =
+      (mode == 0 ? pl.slice_bytes / 4 : pl.slice_bytes / 2 / (mode == 2 ? 2 : 1)) * nmat;
+  pack<<<static_cast<unsigned>((elems + 255) / 256), 256, 0,
+         static_cast<cudaStream_t>(stream)>>>(p, pl, mode);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one probe of `iters` products per column tile on `stream`,
+// reading A's slices from `packed` as pll_mxu_probe_pack laid them out with
+// the same plan. Returns as pll_mxu_probe_pack does.
+extern "C" int pll_mxu_probe(const float* x, const void* packed, float* out, int m, int k,
+                             int nmat, int t, int tiles, int iters, int mode, int n,
+                             int k_pad, int chunk, int cols, int stages,
+                             long long smem_bytes, void* stream) {
+  Plan pl;
+  const int bad = checked_plan(m, k, nmat, t, tiles, iters, mode, n, k_pad, chunk, cols,
+                               stages, smem_bytes, &pl);
+  if (bad != 0) return bad;
+  const Args p{nullptr, x, out,
+               static_cast<unsigned char*>(const_cast<void*>(packed)), m, k, nmat, t,
+               tiles, iters};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == 0) {
-    const size_t bytes = ((size_t)k * kSub + (size_t)m * (k + 1)) * sizeof(float);
-    return launch(probe_f32, p, bytes, st);
-  }
-  const size_t ld = padded16(k) + 8;
-  const size_t bytes = (mode == 2 ? 2 : 1) * (kSub + padded16(m)) * ld * sizeof(uint16_t);
-  if (mode == 2) return launch(probe_mma<true>, p, bytes, st);
-  return launch(probe_mma<false>, p, bytes, st);
+  if (mode == 0) return launch(probe_f32, p, pl, kThreads, st);
+  if (mode == 2) return launch_wgmma<8, true>(p, pl, st);
+  return launch_wgmma<8, false>(p, pl, st);
 }

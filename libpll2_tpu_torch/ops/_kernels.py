@@ -183,11 +183,22 @@ def library() -> ctypes.CDLL:
         _P,                # stream
     ]
     lib.pll_pool_traversal.restype = _I
+    lib.pll_mxu_probe_pack.argtypes = [
+        _P, _P,            # a, packed
+        _I, _I, _I, _I,    # m, k, nmat, tile width t
+        _I,                # mode
+        _I, _I, _I, _I,    # probe_plan: n, k_pad, chunk, cols,
+        _I, _L,            # stages, shared-memory bytes
+        _P,                # stream
+    ]
+    lib.pll_mxu_probe_pack.restype = _I
     lib.pll_mxu_probe.argtypes = [
-        _P, _P, _P,        # a, x, out
+        _P, _P, _P,        # x, packed, out
         _I, _I, _I,        # m, k, nmat
         _I, _I, _I,        # tile width t, tiles, iters
         _I,                # mode
+        _I, _I, _I, _I,    # probe_plan: n, k_pad, chunk, cols,
+        _I, _L,            # stages, shared-memory bytes
         _P,                # stream
     ]
     lib.pll_mxu_probe.restype = _I
@@ -1436,38 +1447,238 @@ def launch_pool_traversal(pool2d: torch.Tensor, sc: torch.Tensor,
 
 # the probe's contraction modes, as the C entry numbers them
 PROBE_MODES = {"f32": 0, "bf16": 1, "split": 2}
+# csrc/mxu_probe.cu's constants: a block's shared memory, its consumer
+# threads (8 warps, 2 warpgroups; one producer warp more), wgmma's row tile
+# (64 columns of X), the bf16 k values of a 128-byte swizzled row, the
+# ring's most stages, the ring's alignment (the swizzle atom's) and 'f32''s
+# stages
+PROBE_SMEM_MAX = 232448
+PROBE_CONSUMERS = 256
+PROBE_ROW_TILE = 64
+PROBE_ATOM = 64
+PROBE_MAX_STAGES = 8
+PROBE_ALIGN = 1024
+PROBE_F32_STAGES = 2
+# pll_mxu_probe(_pack)'s return for a plan other than its own
+PROBE_REFUSED = -1
 
 
-def launch_mxu_probe(a: torch.Tensor, x: torch.Tensor, m: int, iters: int,
-                     mode: str, nmat: int, tiles: int) -> torch.Tensor:
-    """Launch csrc/mxu_probe.cu on the current stream and return its output
-    [m, tiles * t]; see tools/mxu_probe.py:probe for the contract."""
+class ProbePlan(NamedTuple):
+    """csrc/mxu_probe.cu's layout of one probe launch (`probe_plan`)."""
+    n: int            # 'bf16'/'split': wgmma's N (m up to 8); 'f32': m up to 8
+    k_pad: int        # K: k up to 16 ('bf16'/'split') or 4 ('f32')
+    chunk: int        # k values a ring stage holds (a swizzle atom: 64)
+    chunks: int       # stages a slice
+    cols: int         # columns of a tile a pass: 64 a warpgroup, or 'f32''s
+    passes: int       # passes a tile
+    stages: int       # the ring's
+    frag: int         # 'bf16'/'split': k steps of X's fragment, 8 or 16
+    stage_bytes: int
+    smem_bytes: int   # the block's dynamic shared memory
+    slice_bytes: int  # a slice as `pack` lays it out
+    x_bytes: int      # 'split' at frag 16: X's lo part in shared memory
+
+
+def probe_plan(m: int, k: int, t: int, tiles: int, mode: str) -> ProbePlan:
+    """The probe's layout of A [nmat * m, k] @ X [k, tiles * t] in `mode`
+    (csrc/mxu_probe.cu's header). 'bf16'/'split': N = m and K = k rounded
+    up to 8 and 16, a pass a pair of 64-column row tiles (one a
+    warpgroup), a ring stage one 128-byte swizzle atom (64 k values) of a
+    slice's N rows (hi, and lo for 'split'), as many stages as fit, at
+    most PROBE_MAX_STAGES; X's fragment (4 registers a k step, 8 k steps
+    up to K = 128 and 16 above; twice that in 'split') and the
+    accumulators (N / 2) stay in registers, but for 'split''s lo part
+    above K = 128, which lies in shared memory (`x_bytes`: 64 rows x 64 k
+    values a warpgroup and atom).
+    'f32': rows up to 8, a thread an 8 x 8 tile, a pass `cols` columns
+    (as many as the consumer threads and shared memory take), X's pass
+    in shared memory and the slice streamed transposed in `chunk` k values
+    a stage, the largest divisor of K that fits two stages. The C entry
+    recomputes it and refuses another."""
+    if (mode not in PROBE_MODES or not 1 <= m <= 128 or not 1 <= k <= 256
+            or t < 1 or tiles < 1):
+        raise ValueError(f"probe_plan: no plan for m={m}, k={k}, t={t}, "
+                         f"tiles={tiles}, mode={mode!r}")
+    n = -(-m // 8) * 8
+    if mode == "f32":
+        k_pad = -(-k // 4) * 4
+        cg = min(PROBE_CONSUMERS // (n // 8), -(-t // 8))
+        bars = 2 * PROBE_F32_STAGES * 8
+        while (cg > 1 and 4 * k_pad * 8 * cg + PROBE_F32_STAGES * 16 * n
+               + bars > PROBE_SMEM_MAX):
+            cg -= 1
+        cols = 8 * cg
+        room = ((PROBE_SMEM_MAX - 4 * k_pad * cols - bars)
+                // (PROBE_F32_STAGES * 4 * n))
+        chunk = max(d for d in range(4, min(k_pad, room) + 1, 4)
+                    if k_pad % d == 0)
+        stages, stage = PROBE_F32_STAGES, 4 * chunk * n
+        smem = 4 * k_pad * cols + stages * stage + bars
+        passes = -(-t // cols)
+        frag, x_bytes = 0, 0
+    else:
+        parts = 2 if mode == "split" else 1
+        k_pad = -(-k // 16) * 16
+        chunk, stage, cols = PROBE_ATOM, 128 * n * parts, PROBE_ROW_TILE
+        frag = 8 if k_pad <= 128 else 16
+        lo_shared = mode == "split" and frag == 16
+        x_bytes = (2 * -(-k_pad // PROBE_ATOM) * PROBE_ROW_TILE * 128
+                   if lo_shared else 0)
+        stages = min(PROBE_MAX_STAGES, (PROBE_SMEM_MAX - PROBE_ALIGN - x_bytes
+                                        - 16 * PROBE_MAX_STAGES) // stage)
+        smem = PROBE_ALIGN + x_bytes + stages * stage + 16 * stages
+        passes = -(-(-(-t // PROBE_ROW_TILE)) // 2)
+    chunks = -(-k_pad // chunk)
+    return ProbePlan(n, k_pad, chunk, chunks, cols, passes, stages, frag,
+                     stage, smem, chunks * stage, x_bytes)
+
+
+def _bf16_bits(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> bf16 bits (int32), to nearest, ties to even."""
+    return (v.to(torch.bfloat16).view(torch.int16).to(torch.int32)
+            & 0xFFFF)
+
+
+def _bf16_from_bits(b: torch.Tensor) -> torch.Tensor:
+    return (b.to(torch.int32) << 16).view(torch.float32)
+
+
+def _sw128_index(plan: ProbePlan, device=None) -> torch.Tensor:
+    """[N, K'] (K' = k_pad up to 64): the bf16 element of a part (hi or
+    lo) of a stage's chunks, counted from the slice's start, that holds
+    (row r, k value kk): chunk kk // 64, row r at byte 128 r of it, its
+    16-byte chunk q = (kk % 64) // 8 at chunk index q ^ (r % 8)."""
+    kk = torch.arange(plan.chunks * PROBE_ATOM, device=device)
+    r = torch.arange(plan.n, device=device)[:, None]
+    q = ((kk % PROBE_ATOM) // 8) ^ (r % 8)
+    return ((kk // PROBE_ATOM) * (plan.stage_bytes // 2)
+            + r * 64 + q * 8 + kk % 8)
+
+
+def probe_layout(a_slice: torch.Tensor, plan: ProbePlan,
+                 mode: str) -> torch.Tensor:
+    """One slice [m, k] (float32) as csrc/mxu_probe.cu's `pack` lays it out
+    for the ring: 'bf16'/'split' int32 bf16 bits, slice_bytes / 2 of them
+    (stage c: its hi block, then its lo block, each N x 64 in 128-byte
+    swizzled rows), 'f32' float32, the slice transposed [k_pad, n]; zero
+    past m and k; on a_slice's device."""
+    m, k = a_slice.shape
+    dev = a_slice.device
+    if mode == "f32":
+        out = torch.zeros(plan.k_pad, plan.n, dtype=torch.float32, device=dev)
+        out[:k, :m] = a_slice.t()
+        return out.reshape(-1)
+    full = torch.zeros(plan.n, plan.chunks * PROBE_ATOM, dtype=torch.float32,
+                       device=dev)
+    full[:m, :k] = a_slice
+    hi = _bf16_bits(full)
+    out = torch.zeros(plan.slice_bytes // 2, dtype=torch.int32, device=dev)
+    idx = _sw128_index(plan, dev)
+    out[idx.reshape(-1)] = hi.reshape(-1)
+    if mode == "split":
+        lo = _bf16_bits(full - _bf16_from_bits(hi))
+        out[(idx + plan.n * PROBE_ATOM).reshape(-1)] = lo.reshape(-1)
+    return out
+
+
+def probe_unlayout(packed: torch.Tensor, plan: ProbePlan, mode: str,
+                   m: int, k: int) -> list:
+    """`probe_layout`'s inverse: the slice's parts as float32 [m, k]
+    tensors ([hi], [hi, lo] in 'split'; 'f32': [the slice])."""
+    if mode == "f32":
+        return [packed.reshape(plan.k_pad, plan.n)[:k, :m].t()]
+    idx = _sw128_index(plan, packed.device)
+    parts = [packed[idx]]
+    if mode == "split":
+        parts.append(packed[idx + plan.n * PROBE_ATOM])
+    return [_bf16_from_bits(p)[:m, :k] for p in parts]
+
+
+def probe_packed(a: torch.Tensor, m: int, nmat: int, plan: ProbePlan,
+                 mode: str) -> torch.Tensor:
+    """The plain version of csrc/mxu_probe.cu's `pack`: A's nmat slices
+    laid out by `probe_layout` one after another, as the bytes the kernel
+    writes (uint8, nmat * slice_bytes), on a's device."""
+    out = []
+    for j in range(nmat):
+        s = probe_layout(a[j * m:(j + 1) * m], plan, mode)
+        out.append((s if mode == "f32" else s.to(torch.int16)).view(
+            torch.uint8))
+    return torch.cat(out)
+
+
+def _probe_result(err: int, what: str, plan: ProbePlan) -> None:
+    if err == PROBE_REFUSED:
+        raise RuntimeError(f"{what}: the kernel refused the plan {plan}")
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def launch_mxu_probe_pack(a: torch.Tensor, m: int, mode: str, nmat: int,
+                          t: int) -> torch.Tensor:
+    """Launch csrc/mxu_probe.cu's `pack` on the current stream: A's nmat
+    slices laid out as the probe reads them (`probe_packed`'s bytes) in a
+    new uint8 tensor of nmat * slice_bytes; t is the probe's tile width
+    (the plan's)."""
     name = "mxu_probe"
-    dev = a.device
-    _check(dev.type == "cuda" and x.device == dev,
-           f"expected CUDA tensors on one device, got {dev}, {x.device}",
-           name)
-    _check(a.dtype == torch.float32 and x.dtype == torch.float32,
-           "a and x must be float32", name)
+    _check(a.device.type == "cuda", f"expected a CUDA tensor, got "
+           f"{a.device}", name)
+    _check(a.dtype == torch.float32 and a.is_contiguous(),
+           "a must be contiguous float32", name)
     _check(mode in PROBE_MODES, f"mode must be one of {tuple(PROBE_MODES)}",
            name)
-    _check(a.dim() == 2 and a.shape[0] == nmat * m and x.dim() == 2
-           and x.shape[0] == a.shape[1] and x.shape[1] % tiles == 0,
-           f"a {tuple(a.shape)} is not [{nmat} * {m}, k] or x "
-           f"{tuple(x.shape)} not [k, {tiles} * t]", name)
-    _check(1 <= m <= 128 and 1 <= a.shape[1] <= 256 and iters >= 0,
+    _check(a.dim() == 2 and a.shape[0] == nmat * m,
+           f"a {tuple(a.shape)} is not [{nmat} * {m}, k]", name)
+    _check(1 <= m <= 128 and 1 <= a.shape[1] <= 256,
+           "the kernel takes 1 <= m <= 128, 1 <= k <= 256", name)
+    plan = probe_plan(m, a.shape[1], t, 1, mode)
+    packed = torch.empty(nmat * plan.slice_bytes, dtype=torch.uint8,
+                         device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        err = library().pll_mxu_probe_pack(
+            a.data_ptr(), packed.data_ptr(), m, a.shape[1], nmat, t,
+            PROBE_MODES[mode], plan.n, plan.k_pad, plan.chunk, plan.cols,
+            plan.stages, plan.smem_bytes, stream)
+    _probe_result(err, "mxu_probe pack", plan)
+    return packed
+
+
+def launch_mxu_probe(x: torch.Tensor, packed: torch.Tensor, m: int,
+                     iters: int, mode: str, nmat: int,
+                     tiles: int) -> torch.Tensor:
+    """Launch csrc/mxu_probe.cu's probe on the current stream and return
+    its output [m, tiles * t]; see tools/mxu_probe.py:probe for the
+    contract. A's nmat slices of [m, k] (k = x's rows) are read from
+    `packed`, as `launch_mxu_probe_pack` laid them out for the same plan
+    (`probe_plan`'s)."""
+    name = "mxu_probe"
+    dev = x.device
+    _check(dev.type == "cuda" and packed.device == dev,
+           f"expected CUDA tensors on one device, got {dev}, "
+           f"{packed.device}", name)
+    _check(x.dtype == torch.float32 and x.is_contiguous(),
+           "x must be contiguous float32", name)
+    _check(mode in PROBE_MODES, f"mode must be one of {tuple(PROBE_MODES)}",
+           name)
+    _check(x.dim() == 2 and x.shape[1] % tiles == 0,
+           f"x {tuple(x.shape)} is not [k, {tiles} * t]", name)
+    k = x.shape[0]
+    _check(1 <= m <= 128 and 1 <= k <= 256 and iters >= 0,
            "the kernel takes 1 <= m <= 128, 1 <= k <= 256, iters >= 0",
            name)
-    _check(a.is_contiguous() and x.is_contiguous(),
-           "a and x must be contiguous", name)
     t = x.shape[1] // tiles
+    plan = probe_plan(m, k, t, tiles, mode)
+    _check(packed.dtype == torch.uint8 and packed.is_contiguous()
+           and packed.numel() == nmat * plan.slice_bytes,
+           f"packed must be {nmat} * {plan.slice_bytes} contiguous bytes",
+           name)
     out = torch.empty((m, x.shape[1]), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_mxu_probe(
-            a.data_ptr(), x.data_ptr(), out.data_ptr(), m, a.shape[1], nmat,
-            t, tiles, iters, PROBE_MODES[mode], stream)
-    if err != 0:
-        raise RuntimeError(f"mxu_probe kernel launch failed: CUDA error "
-                           f"{err}")
+            x.data_ptr(), packed.data_ptr(), out.data_ptr(), m, k, nmat, t,
+            tiles, iters, PROBE_MODES[mode], plan.n, plan.k_pad, plan.chunk,
+            plan.cols, plan.stages, plan.smem_bytes, stream)
+    _probe_result(err, "mxu_probe", plan)
     return out

@@ -20,10 +20,10 @@ sizes one launch a level) to equal scaler regions (the trash region aside,
 which ops without a scaler buffer write at once) and class columns to
 1e-5 of each column's largest entry. Their per-rate and raw-tip
 modes are held the same way, counts compared per rate; the matrix-unit
-probe (csrc/mxu_probe.cu) to 1e-5 of its output's largest entry in 'f32'
-(the two versions add the same products in another order) and 5e-5 in
-'bf16' and 'split' (the tensor cores' float32 accumulation rounds toward
-zero)."""
+probe (csrc/mxu_probe.cu: CUDA-core FMAs, wgmma) to 1e-5 of its output's
+largest entry in 'f32' (the two versions add the same products in another
+order) and 5e-5 in 'bf16' and 'split' (the tensor cores' float32
+accumulation rounds toward zero), zero at no iteration."""
 import copy
 
 import numpy as np
@@ -1139,15 +1139,85 @@ def test_mxu_probe_matches_plain_on_card(cuda, mode):
 
     for m, k, t in ((80, 80, 512), (20, 20, 96), (128, 240, 64)):
         a, x = mp.make(m, k, t, tiles=3, device=cuda)
-        before = mp.probe.launches
+        before = mp.probe.launches, mp.pack.launches
         got = mp.probe(a, x, m, 9, mode, tiles=3)
-        assert mp.probe.launches == before + 1
+        assert (mp.probe.launches, mp.pack.launches) == (before[0] + 1,
+                                                         before[1] + 1)
         want = mp.probe_reference(a, x, m, 9, mode)
         torch.cuda.synchronize()
         # the tensor cores' float32 accumulation rounds toward zero, a bias
         # of ~1e-5 over these sums against the plain version's rounding
         tol = 1e-5 if mode == "f32" else 5e-5
         assert float((got - want).abs().max() / want.abs().max()) < tol
+
+
+# (m, k, t, iters): t not a multiple of 64 (nor of 4), m = 20, k = 240 and
+# 256 (X's fragment of 16 k steps, 'split''s lo part in shared memory), no
+# iteration, fewer than the 8 slices
+PROBE_EDGE_CASES = [(80, 80, 100, 9), (20, 240, 130, 9), (20, 20, 96, 0),
+                    (80, 80, 64, 3), (128, 256, 70, 5), (7, 33, 1, 2)]
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "split"])
+@pytest.mark.parametrize("case", PROBE_EDGE_CASES,
+                         ids=[f"{m}x{k}x{t}_i{i}"
+                              for m, k, t, i in PROBE_EDGE_CASES])
+def test_mxu_probe_edges_on_card(cuda, mode, case):
+    from libpll2_tpu_torch.tools import mxu_probe as mp
+
+    m, k, t, iters = case
+    a, x = mp.make(m, k, t, tiles=3, device=cuda)
+    before = mp.probe.launches, mp.pack.launches
+    got = mp.probe(a, x, m, iters, mode, tiles=3)
+    assert (mp.probe.launches, mp.pack.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    want = mp.probe_reference(a, x, m, iters, mode)
+    torch.cuda.synchronize()
+    if iters == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+        return
+    tol = 1e-5 if mode == "f32" else 5e-5
+    assert float((got - want).abs().max() / want.abs().max()) < tol
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "split"])
+@pytest.mark.parametrize("m,k,t", [(80, 80, 512), (20, 240, 130),
+                                   (7, 33, 1)])
+def test_mxu_probe_pack_matches_plain_on_card(cuda, mode, m, k, t):
+    """csrc/mxu_probe.cu's `pack` writes the bytes of its plain version
+    (ops/_kernels.py:probe_packed) on the same input, every byte."""
+    from libpll2_tpu_torch.tools import mxu_probe as mp
+
+    a, _ = mp.make(m, k, t, tiles=1, device=cuda)
+    before = mp.pack.launches
+    got = mp.pack(a, m, mode, t)
+    assert mp.pack.launches == before + 1
+    plan = _kernels.probe_plan(m, k, t, 1, mode)
+    assert torch.equal(got, _kernels.probe_packed(a, m, 8, plan, mode))
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "split"])
+def test_mxu_probe_refused_plan_raises(cuda, mode, monkeypatch):
+    """Both C entries (pll_mxu_probe_pack, pll_mxu_probe) recompute
+    ops/_kernels.py:probe_plan and refuse a launch laid out otherwise;
+    the wrappers raise and launch nothing."""
+    from libpll2_tpu_torch.tools import mxu_probe as mp
+
+    a, x = mp.make(80, 80, 128, tiles=2, device=cuda)
+    packed = _kernels.launch_mxu_probe_pack(a, 80, mode, 8, 64)
+    plan = _kernels.probe_plan
+    for field in ("stages", "cols", "smem_bytes"):
+        monkeypatch.setattr(_kernels, "probe_plan", lambda *args, f=field: (
+            plan(*args)._replace(**{f: getattr(plan(*args), f) + 8})))
+        with pytest.raises(RuntimeError, match="refused"):
+            _kernels.launch_mxu_probe_pack(a, 80, mode, 8, 64)
+        with pytest.raises(RuntimeError, match="refused"):
+            _kernels.launch_mxu_probe(x, packed, 80, 3, mode, 8, 2)
+    monkeypatch.setattr(_kernels, "probe_plan", plan)
+    got = mp.probe(a, x, 80, 3, mode, tiles=2)
+    want = mp.probe_reference(a, x, 80, 3, mode)
+    tol = 1e-5 if mode == "f32" else 5e-5
+    assert float((got - want).abs().max() / want.abs().max()) < tol
 
 
 # ------------------------------------------------------- candidate scoring
