@@ -8,6 +8,7 @@
     python3 chip_smoke.py --pool-only CHECKOUT
     python3 chip_smoke.py --levels-only CHECKOUT
     python3 chip_smoke.py --mesh-only
+    python3 chip_smoke.py --loops-only
     python3 chip_smoke.py --states64-only
     python3 chip_smoke.py --states64-times
     python3 chip_smoke.py --probe-only CHECKOUT
@@ -356,7 +357,24 @@ each fatal on failure:
      the float32 fused call's. `--states64-only` runs this phase alone;
      `--states64-times` only times the two 64-state kernels on its
      61-state problem, per site and per rate (each held against its
-     plain version), for one build against another on one card.
+     plain version), for one build against another on one card;
+ 27. the loops (`--loops-only` runs this phase alone after the build):
+     `loglikelihood_loop(k)` and `newton_loop(k)` (engine.py:run_chained:
+     the first iteration eager, the next captured once in a CUDA graph and
+     replayed k - 1 times) on bench.py's DNA ('fused', 'levels-kernel'),
+     the protein ('split', 'bf16'), the 246 x 4465 repeats problem
+     ('repeats-dense-fused', 'pool-pallas'), the DNA on a 4-shard mesh of
+     the card and a ShardedRepeatsEngine (dense-fused and pooled shards):
+     loglikelihood_loop at k = 0, 1, 5 and 65 against the eager chain of k
+     evaluations summed in float32 and against k x loglikelihood()
+     (TOL_LOGL), newton_loop(5) against 5 chained newton_step()s on a twin
+     engine (logL, d1/d2 to TOL_D1 / ATOL_D1, the branches), the launch
+     counters against k x one evaluation's and against the profiler's count
+     of our kernels in one loglikelihood_loop(65); then bench.py's metric
+     (trip counts 5 and 65 differenced, best of 7 in turns) beside one eager
+     loglikelihood(), the capture's host ms, and the device-idle share of
+     loglikelihood_loop(65) and of 65 eager calls (torch.profiler). The
+     JSON line's kernel entries gain `loop_launches` and `loop`.
 
 The last three lines are the card's name and power limit, one JSON object
 listing every kernel (with its bound at the card's peaks), and {"ok": true,
@@ -8326,6 +8344,306 @@ def states64_phase(device, gpu, lib_path, big, big_by, flagship, eng32):
             "dense": dense, "repeats": rep, "f64": f64, "s": s}
 
 
+# ------------------------------------------------------- 27. the loops
+LOOP_KS = (0, 1, 5, 65)       # loglikelihood_loop's trip counts checked
+LOOP_NEWTON = 5               # newton_loop's, against chained newton_step()
+LOOP_BENCH = (5, 65)          # bench.py:86's trip counts, differenced
+LOOP_REPS = 7                 # best of, as bench.py:90-95 takes it
+LOOP_KERNELS = ("fused_onchip", "fused_fixed", "fused_generic", "fused_rows",
+                "level_fixed", "level_generic", "pool_traversal",
+                "pool_generic")
+
+
+def loop_cases(device, big, big_by, aa_tree, aa_by, flagship):
+    """(label, a maker of fresh engines, the kernel its path launches) of
+    every phase-27 problem: bench.py's DNA on 'fused' and 'levels-kernel',
+    the protein in 'split' and 'bf16', the 246 x 4465 repeats problem on
+    'repeats-dense-fused' and 'pool-pallas', the DNA on a 4-shard mesh of
+    the card and a ShardedRepeatsEngine's dense-fused and pooled shards."""
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.parallel import ShardedRepeatsEngine
+
+    rep_tree, rep_by, rep_make = flagship
+    w = REP_MESH_SITES // MESH_SHARDS
+    model = ([0.25] * 4, [1, 2, 1, 1, 2, 1.0])
+
+    def sharded_repeats(**kw):
+        parts = [repeats_partition(rep_tree, {k: v[i * w:(i + 1) * w]
+                                              for k, v in rep_by.items()},
+                                   w, MESH_DEVICE, model=model, alpha=0.7)
+                 for i in range(MESH_SHARDS)]
+        return ShardedRepeatsEngine(rep_tree, parts, mesh_of(), **kw)
+
+    return [
+        (f"DNA {N_TAXA} x {N_SITES} fused", lambda: build_engine(
+            big, big_by, N_SITES, device)[1], "fused"),
+        (f"DNA {N_TAXA} x {N_SITES} levels-kernel", lambda: TreeEngine(
+            dna_partition(big, big_by, N_SITES, device), big,
+            pallas="levels-kernel"), "level"),
+        (f"protein {AA_TAXA} x {AA_SITES} split", lambda: TreeEngine(
+            protein_partition(aa_tree, aa_by, AA_SITES, device), aa_tree),
+         "rows"),
+        (f"protein {AA_TAXA} x {AA_SITES} bf16", lambda: TreeEngine(
+            protein_partition(aa_tree, aa_by, AA_SITES, device), aa_tree,
+            mxu="bf16"), "rows"),
+        (f"repeats {REP_TAXA} x {REP_SITES} repeats-dense-fused",
+         lambda: TreeEngine(rep_make(device), rep_tree), "fused"),
+        (f"repeats {REP_TAXA} x {REP_SITES} pool-pallas",
+         lambda: TreeEngine(rep_make(device), rep_tree, pallas="pool"),
+         "pool"),
+        (f"DNA {N_TAXA} x {N_SITES} on {MESH_SHARDS} shards of the card",
+         lambda: TreeEngine(dna_partition(
+             big, big_by, N_SITES, MESH_DEVICE, sites_alignment=MESH_SHARDS,
+             mesh=mesh_of()), big), "fused"),
+        (f"ShardedRepeatsEngine {MESH_SHARDS} x {w} dense-fused",
+         sharded_repeats, "fused"),
+        (f"ShardedRepeatsEngine {MESH_SHARDS} x {w} pooled",
+         lambda: sharded_repeats(dense_fused=False), "pool")]
+
+
+def idle_share(device, t0, t1):
+    """The share of [t0, t1] (profiler us) in which no device span of
+    `device` ((start, end) pairs sorted by start) ran."""
+    busy, end = 0.0, t0
+    for s, e in device:
+        s, e = max(s, end), min(e, t1)
+        if e > s:
+            busy += e - s
+            end = e
+    return 1.0 - busy / (t1 - t0)
+
+
+def profiled_window(fn):
+    """One call of `fn` under torch.profiler: {"ours": the kernels of ours
+    it launched, "idle": its device-idle share, "ms": its host window,
+    "counted": the launch counters over it, and, where the call replays a
+    graph (run_chained's `pll.loop.replays` range), "replay_idle" and
+    "replay_ms": the same from the replays' first enqueue to the device's
+    last activity}. The idle share is the share of the call's host window
+    (from its start until its result is on the host) in which no device
+    activity (kernel, copy or memset) ran; the annotations' device-side
+    spans (record_function, the engine's `pll.*` ranges) are not activity.
+    The session opens with PROFILE_WARMUP_S of sentinel kernels and a lead
+    call that is not read, and is run again, up to PROFILE_SESSIONS times,
+    when the trace lacks the window or any device event in it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, record_function
+
+    sentinel = torch.zeros(1, device="cuda")
+    for _ in range(PROFILE_SESSIONS):
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            warm_end = time.perf_counter() + PROFILE_WARMUP_S
+            while time.perf_counter() < warm_end:
+                sentinel.add_(1)
+                torch.cuda.synchronize()
+                time.sleep(0.001)
+            fn()
+            torch.cuda.synchronize()
+            reset_counts()
+            with record_function("pll.loop_window"):
+                fn()
+                torch.cuda.synchronize()
+            counted = counts()
+            for _ in range(8):
+                sentinel.add_(1)
+            torch.cuda.synchronize()
+        events = prof.events()
+        win = [e for e in events if e.name == "pll.loop_window"
+               and e.device_type == DeviceType.CPU]
+        if not win:
+            continue
+        t0, t1 = win[0].time_range.start, win[0].time_range.end
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in events if e.device_type == DeviceType.CUDA
+                       and not getattr(e, "is_user_annotation", False)
+                       and not e.name.startswith(("pll.", "sweep."))
+                       and t0 <= e.time_range.start < t1)
+        if not spans:
+            continue
+        device = [(a, b) for a, b, _ in spans]
+        out = {"ours": sum(1 for _, _, n in spans
+                           if any(k in n for k in LOOP_KERNELS)),
+               "idle": idle_share(device, t0, t1), "ms": (t1 - t0) / 1e3,
+               "counted": counted}
+        rep = [e for e in events if e.name == "pll.loop.replays"
+               and e.device_type == DeviceType.CPU
+               and t0 <= e.time_range.start < t1]
+        if rep:
+            r0 = rep[0].time_range.start
+            r1 = max(b for _, b in device)
+            out.update(replay_idle=idle_share(device, r0, r1),
+                       replay_ms=(r1 - r0) / 1e3)
+        return out
+    check(False, f"the profiler recorded no window with device events in "
+          f"{PROFILE_SESSIONS} sessions")
+
+
+def best_ms(fns, reps=LOOP_REPS) -> list:
+    """bench.py:90-95: the least host-clock ms of `reps` calls of each of
+    `fns` (each returns its result to the host), the functions called in
+    turns after one call each, so that a slow stretch of the host (a
+    capture that allocates its pool, say) reaches each alike."""
+    for fn in fns:
+        fn()
+    best = [float("inf")] * len(fns)
+    for _ in range(reps):
+        for i, fn in enumerate(fns):
+            t0 = time.perf_counter()
+            fn()
+            best[i] = min(best[i], (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def loop_case(label, make, kernel):
+    """One problem of phase 27: loglikelihood_loop(k) at LOOP_KS against the
+    eager chain of k evaluations summed in the partition's dtype (the
+    replays run its kernels: equal to the last bit expected) and against k
+    x loglikelihood() (TOL_LOGL), launches counted against k x one
+    evaluation's; newton_loop(LOOP_NEWTON) against as many chained
+    newton_step()s on a twin engine (logL, d1 and d2, the branches); the
+    counters against the profiler's count of our kernels in one
+    loglikelihood_loop(65); then bench.py's differenced time, the capture's
+    host ms and the device-idle share of the loop and of 65 eager calls."""
+    import torch
+
+    eng, twin = make(), make()
+    check(eng.execution_path == twin.execution_path, f"{label}: paths")
+    reset_counts()
+    lk = twin.loglikelihood()
+    per_eval = counts()
+    check(per_eval[kernel] > 0 and sum(per_eval.values())
+          == per_eval[kernel], f"{label}: one evaluation launched "
+          f"{per_eval}")
+    chain, acc = {}, None
+    for i in range(1, max(LOOP_KS) + 1):
+        total = twin._evaluate()[0].reshape(())
+        acc = total.clone() if acc is None else acc + total
+        if i in LOOP_KS:
+            chain[i] = float(acc)
+    rec = {"path": eng.execution_path, "kernel": kernel,
+           "launches_per_evaluation": per_eval[kernel], "loglikelihood": lk}
+    worst, equal = 0.0, True
+    for k in LOOP_KS:
+        reset_counts()
+        got = eng.loglikelihood_loop(k)
+        torch.cuda.synchronize()
+        n = counts()
+        run = eng._last_loop if k else None
+        if k == 0:
+            check(got == 0.0 and sum(n.values()) == 0,
+                  f"{label}: loglikelihood_loop(0) = {got!r}, launches {n}")
+            continue
+        check(run.route == "graph" and run.k == k, f"{label}: route "
+              f"{run.route} at k = {k}")
+        check(n[kernel] == k * per_eval[kernel] and sum(n.values())
+              == n[kernel], f"{label}: loglikelihood_loop({k}) counted "
+              f"{n}, expected {k * per_eval[kernel]} {kernel}")
+        rel = abs(got - k * lk) / abs(k * lk)
+        chain_rel = abs(got - chain[k]) / abs(chain[k])
+        worst = max(worst, rel, chain_rel)
+        equal = equal and got == chain[k]
+        print(f"  {label}: loglikelihood_loop({k}) = {got!r}; eager chain "
+              f"{chain[k]!r} ({'equal' if got == chain[k] else f'rel {chain_rel:.2e}'}"
+              f"), {k} x loglikelihood() {k * lk!r} (rel {rel:.2e}); "
+              f"{n[kernel]} {kernel} launches", flush=True)
+        check(chain_rel < TOL_LOGL and rel < TOL_LOGL,
+              f"{label}: loglikelihood_loop({k}) rel err "
+              f"{max(rel, chain_rel):.2e}")
+    steps = [twin.newton_step() for _ in range(LOOP_NEWTON)]
+    reset_counts()
+    got = eng.newton_loop(LOOP_NEWTON)
+    torch.cuda.synchronize()
+    n = counts()
+    check(n[kernel] == LOOP_NEWTON * per_eval[kernel],
+          f"{label}: newton_loop({LOOP_NEWTON}) counted {n}")
+    want = steps[-1]
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    d_err = max(abs(g - w) / max(abs(w), ATOL_D1 / TOL_D1)
+                for g, w in zip(got[1:], want[1:]))
+    b_err = float((eng.branches - twin.branches).abs().max())
+    same = got == want and b_err == 0.0
+    print(f"  {label}: newton_loop({LOOP_NEWTON}) = {got!r}; chained "
+          f"newton_step() {want!r} ({'equal, branches equal' if same else f'logL rel {rel:.2e}, d1/d2 err {d_err:.2e}, branches max diff {b_err:.2e}'})",
+          flush=True)
+    check(rel < TOL_LOGL and d_err < TOL_D1 and b_err < 1e-5,
+          f"{label}: newton_loop rel {rel:.2e}, d err {d_err:.2e}, "
+          f"branches {b_err:.2e}")
+    # the counters against the profiler's count of the card's launches
+    prof_loop = profiled_window(lambda: eng.loglikelihood_loop(65))
+    ours = prof_loop["ours"]
+    check(ours == 65 * per_eval[kernel] == prof_loop["counted"][kernel]
+          and "replay_idle" in prof_loop,
+          f"{label}: the profiler saw {ours} of our kernels in "
+          f"loglikelihood_loop(65), the counters {prof_loop['counted']}")
+    prof_eager = profiled_window(
+        lambda: [twin.loglikelihood() for _ in range(65)])
+    # bench.py's metric: differenced trip counts, best of LOOP_REPS
+    k1, k2 = LOOP_BENCH
+    t1, t2 = best_ms([lambda: eng.loglikelihood_loop(k1),
+                      lambda: eng.loglikelihood_loop(k2)])
+    per_ms = max((t2 - t1) / (k2 - k1), 1e-9)
+    eager_ms = host_ms(twin.loglikelihood, reps=20)
+    captures = []
+    for _ in range(LOOP_REPS):
+        eng.loglikelihood_loop(2)
+        captures.append(eng._last_loop.capture_ms)
+    rec.update(
+        max_rel_err=worst, equal_to_eager_chain=equal,
+        newton=got, newton_chained=want, newton_equal=same,
+        newton_rel_err=rel, newton_d_err=d_err, branches_max_diff=b_err,
+        launches_per_iteration=dict(eng._last_loop.launches),
+        profiler_launches_in_loop65=ours, loop5_ms=t1, loop65_ms=t2,
+        ms_per_evaluation=per_ms, evals_per_s=1e3 / per_ms,
+        eager_loglikelihood_ms=eager_ms[1],
+        eager_loglikelihood_least_ms=eager_ms[0],
+        capture_ms=statistics.median(captures),
+        idle_share_loop65=prof_loop["idle"],
+        window_loop65_ms=prof_loop["ms"],
+        idle_share_replays=prof_loop["replay_idle"],
+        window_replays_ms=prof_loop["replay_ms"],
+        idle_share_eager65=prof_eager["idle"],
+        window_eager65_ms=prof_eager["ms"])
+    print(f"  {label}: {per_ms:.4f} ms an evaluation differenced "
+          f"(loglikelihood_loop {k1}: {t1:.3f} ms, {k2}: {t2:.3f} ms; "
+          f"{1e3 / per_ms:.1f} evals/s) beside one eager loglikelihood() "
+          f"{eager_ms[1]:.4f} ms (least {eager_ms[0]:.4f}); capture "
+          f"{rec['capture_ms']:.2f} ms host; device idle (profiled) "
+          f"{100 * prof_loop['idle']:.1f} % of loglikelihood_loop(65)'s "
+          f"{prof_loop['ms']:.2f} ms ({100 * prof_loop['replay_idle']:.1f} "
+          f"% of its 64 replays' {prof_loop['replay_ms']:.2f} ms), "
+          f"{100 * prof_eager['idle']:.1f} % of 65 eager calls' "
+          f"{prof_eager['ms']:.2f} ms; the profiler's launches {ours} = "
+          f"the counters'", flush=True)
+    return rec
+
+
+def loops_phase(device, gpu, big, big_by, aa_tree, aa_by, flagship):
+    """Phase 27: `loglikelihood_loop` and `newton_loop` on every problem of
+    `loop_cases`, each on its kernels, captured once in a CUDA graph and
+    replayed (`loop_case`). Returns {label: record} and the launches the
+    phase counted by kernel (the loop calls' and the lead calls', the
+    twins' eager chains not among them)."""
+    import torch
+
+    print(f"phase 27, the loops (k chained evaluations captured once in a "
+          f"CUDA graph and replayed; {gpu}):", flush=True)
+    out = {}
+    for label, make, kernel in loop_cases(device, big, big_by, aa_tree,
+                                          aa_by, flagship):
+        out[label] = loop_case(label, make, kernel)
+        torch.cuda.empty_cache()
+    return out
+
+
+def loop_launches(loops, kernel) -> int:
+    """The launches of `kernel` in phase 27's checked loop calls
+    (loglikelihood_loop at LOOP_KS and newton_loop(LOOP_NEWTON))."""
+    return sum((sum(LOOP_KS) + LOOP_NEWTON) * r["launches_per_evaluation"]
+               for r in loops.values() if r["kernel"] == kernel)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
@@ -8373,6 +8691,11 @@ def main() -> int:
                     "run phase 18 (the matrix-unit probe: its checks, its "
                     "build report and its table at 8 and 264 column "
                     "tiles), and print its numbers as one JSON line")
+    ap.add_argument("--loops-only", action="store_true",
+                    help="after the build, run only phase 27 (the loops: "
+                    "loglikelihood_loop and newton_loop captured in a CUDA "
+                    "graph on every problem) and print its numbers as one "
+                    "JSON line")
     ap.add_argument("--states64-only", action="store_true",
                     help="only build the kernels and run phase 26 (33-64 "
                     "states and float64 partitions on the card), and print "
@@ -8466,6 +8789,16 @@ def main() -> int:
         print(json.dumps({"states64_only": states64_phase(
             device, gpu, lib_path, big, big_by, flagship_repeats(), eng32),
             "gpu": gpu}), flush=True)
+        return 0
+
+    if args.loops_only:
+        headers_big, seqs = random_alignment(N_TAXA, N_SITES, seed=SEED)
+        aa_tree, aa_by = protein_alignment()
+        loops = loops_phase(device, gpu, random_utree(headers_big,
+                                                      seed=SEED),
+                            dict(zip(headers_big, seqs)), aa_tree, aa_by,
+                            flagship_repeats())
+        print(json.dumps({"loops_only": loops, "gpu": gpu}), flush=True)
         return 0
 
     if args.mesh_only:
@@ -8671,6 +9004,9 @@ def main() -> int:
 
     # 26. 33-64-state alphabets and float64 partitions on the card
     s64 = states64_phase(device, gpu, lib_path, big, big_by, flagship, eng)
+
+    # 27. the loops: k chained evaluations in one captured CUDA graph
+    loops = loops_phase(device, gpu, big, big_by, aa_tree, aa_by, flagship)
     if args.profile:
         profile([("DNA main path", eng), ("protein main path", aa_eng),
                  ("DNA levels-kernel path", dna[3]),
@@ -8801,6 +9137,22 @@ def main() -> int:
                 "level_bound_us": p["level_bound_us"], "plans": p["plans"],
                 "yardstick_matmul_ms": p.get("yardstick_matmul_ms")}
 
+    def loop(kernel, *labels):
+        """Phase 27: the kernel's launches in the checked loop calls, and
+        bench.py's differenced ms an evaluation beside one eager
+        loglikelihood(), the capture's host ms and the device-idle shares
+        of each of its problems."""
+        keys = ("path", "ms_per_evaluation", "evals_per_s",
+                "eager_loglikelihood_ms", "capture_ms", "idle_share_loop65",
+                "idle_share_replays", "idle_share_eager65", "max_rel_err",
+                "equal_to_eager_chain",
+                "newton_equal", "launches_per_iteration")
+        return {"loop_launches": loop_launches(loops, kernel),
+                "loop": {lb: {k: loops[lb][k] for k in keys}
+                         for lb in loops if any(lb.startswith(x)
+                                                for x in labels)
+                         and loops[lb]["kernel"] == kernel}}
+
     def variant(prefix, key, launches):
         k, p, (b, by), *bf = var_ms[key]
         out = {f"{prefix}_ms": k, f"{prefix}_plain_ms": p,
@@ -8867,7 +9219,8 @@ def main() -> int:
         "mesh_repeats_unsharded_ms":
             mesh["repeats"]["repeats-dense-fused"]["unsharded_ms"],
         "mesh": {k: v for k, v in mesh.items()
-                 if k not in ("dna", "protein")}}, {
+                 if k not in ("dna", "protein")},
+        **loop("fused", "DNA", "repeats", "ShardedRepeatsEngine")}, {
         "name": "fused_traversal_rows", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal_rows.cu",
         "replaces": "libpll2_tpu/ops/pallas_fused.py:419",
@@ -8894,7 +9247,8 @@ def main() -> int:
             v["launches"] for v in mesh["protein"].values())
             + mesh["partitioned"]["launches"]["rows"]),
         "mesh_bf16_ms_per_shard": mesh["protein"]["bf16"]["ms_per_shard"],
-        "mesh_bf16_unsharded_ms": mesh["protein"]["bf16"]["unsharded_ms"]},
+        "mesh_bf16_unsharded_ms": mesh["protein"]["bf16"]["unsharded_ms"],
+        **loop("rows", "protein")},
         {
         "name": "level_update", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/level_update.cu",
@@ -8930,7 +9284,8 @@ def main() -> int:
         "trial_max_abs_err": opt["others"]["levels-kernel"]["max_abs_err"],
         **analysis("level"),
         **sharded(mesh["dna"]["levels"], mesh["dna"]["levels"]["launches"]
-                  + mesh["search"]["launches"]["level"])},
+                  + mesh["search"]["launches"]["level"]),
+        **loop("level", "DNA")},
         {
         "name": "pool_update", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/pool_update.cu",
@@ -8964,7 +9319,8 @@ def main() -> int:
         "analysis_bound_by": ana["pool_bound"][1],
         "analysis_rel_err_vs_dense": ana["pool_rel_err"],
         **sharded(mesh["repeats"]["pool-pallas"],
-                  mesh["repeats"]["pool-pallas"]["launches"])},
+                  mesh["repeats"]["pool-pallas"]["launches"]),
+        **loop("pool", "repeats", "ShardedRepeatsEngine")},
         *probe_entries, {
         "name": "fused_traversal[candidates]", "route": "cuda",
         "source": "libpll2_tpu_torch/csrc/fused_traversal.cu",

@@ -1,10 +1,9 @@
 """Full-tree evaluation, in PyTorch.
 
 Port of libpll2_tpu/engine.py (`_fused_loglikelihood`, `_fused_newton_step`,
-`_repeats_loglikelihood`, a single repeats Newton step, candidate scoring
-and `TreeEngine`, with per-rate scalers, raw tip CLVs,
-ascertainment-bias corrections and site sharding), without its k-chained
-loop parts:
+`_repeats_loglikelihood`, a single repeats Newton step, candidate scoring,
+the k-chained loops and `TreeEngine`, with per-rate scalers, raw tip CLVs,
+ascertainment-bias corrections and site sharding):
 
     branches -> P-matrices -> CLVs -> root-edge logL
              (-> sumtable -> d1/d2 -> guarded Newton step on the root edge)
@@ -60,6 +59,13 @@ way through the pool kernel's plain trial form; the plain dense paths
 ('levels', 'scan') run the trials one after another on scratch copies of
 the partition's buffers.
 
+`loglikelihood_loop(k)` and `newton_loop(k)` run k chained evaluations
+(JAX's one-dispatch `fori_loop`s, libpll2_tpu/engine.py:309-440): on one
+card the first iteration runs eagerly and the next is captured once in a
+CUDA graph and replayed k - 1 times, with one host sync at the end
+(`choose_loop`, `run_chained`); the fused path writes the root rows back
+once, after the loop.
+
 On a sharded partition (parallel/sharding.py:shard_partition) the engine
 holds one TreeEngine a shard (`_Shards`), each on its shard's column block
 and device, and every evaluation, Newton step, candidate batch and trial
@@ -73,6 +79,8 @@ from __future__ import annotations
 
 import copy
 import functools
+import operator
+import time
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -86,13 +94,14 @@ from .ops import likelihood as ops_likelihood
 from .ops import partials as ops_partials
 from .ops import pmatrix as ops_pmatrix
 from .ops import pool as ops_pool
-from .parallel.sharding import psum
+from .parallel.sharding import is_multiprocess, psum
 from .partition import (Operation, Partition, PartitionShard,
                         pack_level_operations, pack_operations)
 from .trees import create_operations, traverse
 from .utils.profiling import annotate
 
-__all__ = ["TreeEngine", "Route", "choose_route", "pack_repeats"]
+__all__ = ["TreeEngine", "Route", "choose_route", "pack_repeats",
+           "choose_loop", "run_chained", "LoopRun"]
 
 # candidates a launch of the fused kernel takes (libpll2_tpu/engine.py:718)
 CANDIDATE_CHUNK = 128
@@ -559,6 +568,219 @@ def _on_device(x, device):
     return x
 
 
+def choose_loop(devices, multiprocess: bool = False) -> str:
+    """How `loglikelihood_loop` and `newton_loop` run their k iterations,
+    from plain values: the devices of the engine's units (its own, or one
+    a shard) and whether its mesh spans processes.
+      'graph' every unit on one CUDA device in one process (a mesh of
+              shards of one card too): the first iteration runs eagerly,
+              the next is captured once in a CUDA graph and replayed k - 1
+              times on torch's current stream (`run_chained`);
+      'eager' the same iteration in a Python loop, with no host sync but
+              the result's at the end and what a collective needs: on the
+              CPU (the kernels' plain versions), across processes (every
+              iteration's psum runs a host collective, gloo's all_reduce,
+              which a graph cannot hold) and across cards (a capture
+              records the work of one device's stream)."""
+    devs = {torch.device(d) for d in devices}
+    one_card = len(devs) == 1 and next(iter(devs)).type == "cuda"
+    return "graph" if one_card and not multiprocess else "eager"
+
+
+class LoopRun(NamedTuple):
+    """A run of `run_chained`: its route ('graph' or 'eager'), trip count,
+    the capture's host ms (None without a capture), the kernel wrappers'
+    launches an iteration ({"level_update": n, ...}), and the
+    graph, which holds the replays' outputs until the caller has read
+    them."""
+    route: str
+    k: int
+    capture_ms: Optional[float]
+    launches: dict
+    graph: object
+
+
+def _launch_counters() -> tuple:
+    """The kernel wrappers whose `launches` count their launches."""
+    return (ops_fused.fused_traversal, ops_fused.fused_traversal_rows,
+            ops_fused.fused_traversal_f64, ops_levels.level_update,
+            ops_pool.pool_update)
+
+
+def _counts(counters) -> list:
+    return [f.launches for f in counters]
+
+
+def run_chained(k: int, step, route: str, device, state) -> LoopRun:
+    """Run `step()` k >= 1 times on `route` (`choose_loop`). 'graph': the
+    first call runs eagerly (it fills the engine's device caches and sets
+    the kernels' attributes), the second is captured once in a CUDA graph
+    on a side stream of `device`, then the graph is replayed k - 1 times on
+    the current stream, with no host sync. `step` keeps its carry in
+    tensors it updates in place, and what it leaves in Python names after
+    the capture lives in the graph's memory pool, holding the last replay's
+    values. The kernel wrappers' launch counters count the capture's
+    launches once an iteration: after the loop they read the launches the
+    card ran, the eager iteration's and the replays'. `state()`, what the
+    iteration read through the engine's caches, must be the same after the
+    capture as before it (nothing was uploaded in the graph). A capture
+    that fails raises: nothing falls back to an eager loop."""
+    counters = _launch_counters()
+    start = _counts(counters)
+    step()
+    per = [n - s for n, s in zip(_counts(counters), start)]
+    graph = capture_ms = None
+    if route == "eager":
+        for _ in range(k - 1):
+            step()
+    elif k > 1:
+        graph, capture_ms, per = _capture(step, device, state, counters)
+        with torch.cuda.device(device), annotate("pll.loop.replays"):
+            for _ in range(k - 1):
+                graph.replay()
+        for f, n in zip(counters, per):
+            f.launches += n * (k - 1)
+    launches = {f.__name__: n for f, n in zip(counters, per) if n}
+    return LoopRun(route, k, capture_ms, launches, graph)
+
+
+def _capture(step, device, state, counters):
+    """One call of `step` captured in a CUDA graph: (graph, host ms, the
+    launches it counted, which the counters then give back)."""
+    want = state()
+    before = _counts(counters)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    t0 = time.perf_counter()
+    try:
+        with torch.cuda.device(device), torch.cuda.stream(side):
+            graph.capture_begin()
+            try:
+                step()
+            except Exception as exc:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise RuntimeError(f"capturing the loop's iteration in a "
+                                   f"CUDA graph failed: {exc}") from exc
+            graph.capture_end()
+    finally:
+        per = [n - b for n, b in zip(_counts(counters), before)]
+        for f, b in zip(counters, before):
+            f.launches = b
+    ms = (time.perf_counter() - t0) * 1e3
+    if state() != want:
+        raise C.PllError(C.ERROR_PARAM_INVALID,
+                         "the loop's captured iteration rebuilt a cached "
+                         "device operand (the model, the tips or the pooled "
+                         "layout changed during the call)")
+    return graph, ms, per
+
+
+def _loop_state(units) -> tuple:
+    """The device operands each unit's iteration reads through its caches
+    (model, tip codes, pooled layout and plan), by identity."""
+    return tuple((id(getattr(e, "_model_cache", None)),
+                  id(getattr(e, "_tip_codes_cache", None)),
+                  id(getattr(e, "_layout", None)), id(e._ops))
+                 for e in units)
+
+
+def _write_root_rows(units, rows) -> None:
+    """The fused path's write-back of each unit's root rows into its
+    partition's dense buffers (none on 'repeats-dense-fused')."""
+    for e, r in zip(units, rows):
+        if e.use_fused and not e.repeats_dense_fused:
+            _scatter_root_rows(e.partition.clv, e.partition.scale_buffer,
+                               e.root_idx, r)
+
+
+def _own_pmatrices(units) -> None:
+    """After a graph's replays: each unit's partition gets its own copy of
+    the P-matrices the captured iteration left in the graph's pool."""
+    copies = {}
+    for e in units:
+        t = e.partition.pmatrix
+        if id(t) not in copies:
+            copies[id(t)] = t.clone()
+        e.partition.pmatrix = copies[id(t)]
+
+
+def _bind_branches(owner, branches) -> None:
+    owner.branches = branches
+    if owner._shards is not None:
+        owner._shards.bind(branches)
+
+
+def _run_loop(owner, k: int, step) -> LoopRun:
+    """`run_chained` on `owner`'s route, its record kept as
+    `owner._last_loop`."""
+    units = owner._units()
+    mesh = owner._shards.mesh if owner._shards is not None else None
+    route = choose_loop([e.device for e in units],
+                        mesh is not None and is_multiprocess(mesh))
+    run = run_chained(k, step, route, units[0].device,
+                      lambda: _loop_state(units))
+    # the record without the graph: its pool goes once the loop has read it
+    owner._last_loop = run._replace(graph=None)
+    return run
+
+
+def chained_loglikelihood(owner, k: int) -> float:
+    """The sum of k chained full evaluations of `owner` (a TreeEngine or a
+    ShardedRepeatsEngine), accumulated in its dtype; 0.0 and nothing
+    touched for k <= 0 (libpll2_tpu/engine.py:_scatter_if_ran). The fused
+    path writes its root rows back once, after the loop."""
+    k = operator.index(k)
+    if k <= 0:
+        return 0.0
+    units = owner._units()
+    acc = torch.zeros((), dtype=owner.dtype, device=units[0].device)
+    last = []
+
+    def step():
+        total, _, rows = owner._evaluate(scatter=False)
+        acc.add_(total.reshape(()))
+        last[:] = [rows if owner._shards is not None else [rows]]
+
+    run = _run_loop(owner, k, step)
+    _write_root_rows(units, last[0])
+    if run.graph is not None:
+        _own_pmatrices(units)
+    return float(acc)
+
+
+def chained_newton(owner, k: int):
+    """k chained guarded Newton updates of `owner`'s root branch, each on a
+    fresh evaluation: (logL, d1, d2) of the last iteration, the branches
+    left updated; (0.0, 0.0, 0.0) and nothing touched for k <= 0. The
+    branches are the loop's carry, one tensor updated in place."""
+    k = operator.index(k)
+    if k <= 0:
+        return 0.0, 0.0, 0.0
+    units = owner._units()
+    branches = owner.branches.clone()
+    _bind_branches(owner, branches)
+    last = []
+
+    def step():
+        total, d1, d2, new, rows = owner._newton_once()
+        branches.copy_(new)
+        _bind_branches(owner, branches)
+        last[:] = [(total, d1, d2), rows]
+
+    run = _run_loop(owner, k, step)
+    values, rows = last
+    _write_root_rows(units, rows)
+    if run.graph is not None:
+        _own_pmatrices(units)
+    total, d1, d2 = torch.stack([v.reshape(()).to(torch.float64)
+                                 for v in values]).tolist()
+    return total, d1, d2
+
+
 class _Shards:
     """The per-shard TreeEngines of a site mesh, in shard order, and the
     reductions over them. The site-independent work runs once: the op
@@ -597,12 +819,12 @@ class _Shards:
         (from the first shard's model, as JAX replicates it)."""
         return self.engines[0]._pmatrix(self.engines[0].branches)
 
-    def evaluate(self, branches):
+    def evaluate(self, branches, scatter: bool = True):
         """(total, per-site concatenated in shard order, each shard's root
-        rows)."""
+        rows); `scatter` as in TreeEngine._evaluate."""
         self.bind(branches)
         pmatrix = self._pmatrix()
-        outs = [e._evaluate(pmatrix=pmatrix.to(e.device))
+        outs = [e._evaluate(pmatrix=pmatrix.to(e.device), scatter=scatter)
                 for e in self.engines]
         dev = self.engines[0].device
         return (self.reduce([o[0] for o in outs]),
@@ -613,12 +835,14 @@ class _Shards:
         """Evaluate, then one Newton update of the root branch from the d1
         and d2 summed over the shards (logL, d1 and d2 reduced as one packed
         tensor), applied on every shard. Returns (total, d1, d2, new
-        branches)."""
+        branches, each shard's root rows, not written back)."""
         self.bind(branches)
         pmatrix = self._pmatrix()
-        parts = []
+        parts, shard_rows = [], []
         for e in self.engines:
-            total, _, rows = e._evaluate(pmatrix=pmatrix.to(e.device))
+            total, _, rows = e._evaluate(pmatrix=pmatrix.to(e.device),
+                                         scatter=False)
+            shard_rows.append(rows)
             p = e.partition
             d = _root_derivatives(rows, e.branches, e.root_idx[4],
                                   *e._model_args(), *e._site_args(),
@@ -636,7 +860,7 @@ class _Shards:
         branches = _newton_update(branches, self.engines[0].root_idx[4], d1,
                                   d2)
         self.bind(branches)
-        return total, d1, d2, branches
+        return total, d1, d2, branches, shard_rows
 
     def score_fused(self, tables, blens, roots, n_slots) -> torch.Tensor:
         """Fused candidates: checked once and their P-matrices computed once
@@ -1088,22 +1312,22 @@ class TreeEngine:
         total, per, _ = self._evaluate(branches)
         return total, per
 
-    def _evaluate(self, branches=None, pmatrix=None):
-        """One full evaluation: (total, per-site, root rows). The
-        partition's P-matrices and the CLV and scaler rows the path computes
-        (all of them; the root edge's on the fused path; none on
-        'repeats-dense-fused') are updated. `pmatrix`: the branches'
-        P-matrices, when the caller computed them."""
+    def _evaluate(self, branches=None, pmatrix=None, scatter: bool = True):
+        """One full evaluation: (total, per-site, root rows; on a mesh each
+        shard's). The partition's P-matrices and the CLV and scaler rows the
+        path computes (all of them; the root edge's on the fused path, with
+        `scatter`; none on 'repeats-dense-fused') are updated. `pmatrix`:
+        the branches' P-matrices, when the caller computed them."""
         if branches is not None:
             self._set_branches(branches)
         p = self.partition
         if self._shards is not None:
-            return self._shards.evaluate(self.branches)
+            return self._shards.evaluate(self.branches, scatter)
         if self.use_fused:
             total, per, rows, p.pmatrix = _fused_loglikelihood(
                 *self._args(), mxu=self.mxu, edge_params=self.edge_params,
                 pmatrix=pmatrix, **self._fused_kw())
-            if not self.repeats_dense_fused:
+            if scatter and not self.repeats_dense_fused:
                 _scatter_root_rows(p.clv, p.scale_buffer, self.root_idx,
                                    rows)
         elif self.repeats_mode:
@@ -1129,24 +1353,48 @@ class TreeEngine:
     def newton_step(self):
         """Evaluate + one Newton update of the root branch; returns
         (logL, d1, d2)."""
+        total, d1, d2, self.branches, rows = self._newton_once()
+        _write_root_rows(self._units(), rows)
+        return float(total), float(d1), float(d2)
+
+    def _newton_once(self):
+        """Evaluate and one Newton update of the root branch, without
+        writing the fused path's root rows back: (total, d1, d2, new
+        branches, each unit's root rows). On a mesh the new branches are
+        bound to every shard."""
         p = self.partition
         if self._shards is not None:
-            total, d1, d2, self.branches = self._shards.newton(self.branches)
-            return float(total), float(d1), float(d2)
+            return self._shards.newton(self.branches)
         if self.use_fused:
-            total, d1, d2, self.branches, rows, p.pmatrix = \
-                _fused_newton_step(*self._args(), mxu=self.mxu,
-                                   edge_params=self.edge_params,
-                                   **self._fused_kw())
-            if not self.repeats_dense_fused:
-                _scatter_root_rows(p.clv, p.scale_buffer, self.root_idx,
-                                   rows)
-            return float(total), float(d1), float(d2)
+            total, d1, d2, branches, rows, p.pmatrix = _fused_newton_step(
+                *self._args(), mxu=self.mxu, edge_params=self.edge_params,
+                **self._fused_kw())
+            return total, d1, d2, branches, [rows]
         total, _, rows = self._evaluate()
-        d1, d2, self.branches = _root_newton(
+        d1, d2, branches = _root_newton(
             rows, self.branches, self.root_idx[4], *self._model_args(),
             *self._site_args(), p.scale_threshold, **p._modes())
-        return float(total), float(d1), float(d2)
+        return total, d1, d2, branches, [rows]
+
+    def loglikelihood_loop(self, k: int) -> float:
+        """The sum of k chained full-traversal evaluations, accumulated in
+        the partition's dtype (libpll2_tpu/engine.py:1546-1568); 0.0 for k
+        <= 0, with every buffer left as it was. On one card (a mesh of
+        shards of one card too) the first evaluation runs eagerly and the
+        next is captured once in a CUDA graph and replayed k - 1 times, one
+        host sync at the end; on the CPU, across processes and across cards
+        the same evaluation runs in a Python loop (`choose_loop`). The fused
+        path writes the root edge's rows back once, after the loop; the
+        kernels' launch counters count every iteration."""
+        return chained_loglikelihood(self, k)
+
+    def newton_loop(self, k: int):
+        """k chained guarded Newton updates of the root branch, each on a
+        fresh evaluation (libpll2_tpu/engine.py:1509-1544): returns the last
+        iteration's (logL, d1, d2) and leaves the branches updated; (0.0,
+        0.0, 0.0) for k <= 0, with the branches and every buffer left as
+        they were. Runs as `loglikelihood_loop` does."""
+        return chained_newton(self, k)
 
     # ------------------------------------------------------ candidate scoring
     def _branch_vector(self, branches, pmatrix_indices) -> np.ndarray:

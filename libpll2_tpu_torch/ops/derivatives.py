@@ -148,8 +148,8 @@ def _derivative_sums(site, deriv1, deriv2, pw, asc_scalers,
         raise ValueError(f"unknown asc type {asc_type}")
     asc_cols = (idxs >= n_real) & (idxs < n_real + states)
     zero = torch.zeros_like(site[0])
-    scaling = torch.pow(torch.tensor(scale_threshold, dtype=dtype,
-                                     device=site.device),
+    scaling = torch.pow(torch.full((), scale_threshold, dtype=dtype,
+                                   device=site.device),
                         asc_scalers.to(dtype))
     asc_lk = torch.sum(torch.where(asc_cols[None, :],
                                    site * scaling[None, :], zero[None, :]),

@@ -60,8 +60,8 @@ def _finalize_site_lk(terma, terminv, site_sc, threshold: float, dtype):
     """Reference scaling/invariant interaction (core_likelihood.c:1463-1486).
     A zero site likelihood gives -inf, as the reference reports it."""
     capped = torch.clamp(site_sc, max=SCALE_RATE_MAXDIFF).to(dtype)
-    cap_factor = torch.pow(torch.tensor(threshold, dtype=dtype,
-                                        device=terma.device), capped)
+    cap_factor = torch.pow(torch.full((), threshold, dtype=dtype,
+                                      device=terma.device), capped)
     has_sc = site_sc > 0
     has_inv = terminv > 0.0
     log_arg = torch.where(has_sc,
@@ -113,7 +113,7 @@ def _apply_asc(site_lk, terma, site_sc, pattern_weights, asc_type: int,
         elif asc_type in (AB_LEWIS, AB_FELSENSTEIN):
             asc_cols = (idxs >= n_real) & (idxs < n_real + states)
             base = torch.sum(torch.where(asc_cols, terma * torch.pow(
-                torch.tensor(threshold, dtype=dtype, device=terma.device),
+                torch.full((), threshold, dtype=dtype, device=terma.device),
                 site_sc.to(dtype)), zero))
             # the weight the correction scales by: the main columns'
             # (Lewis) or the synthetic columns' (Felsenstein)

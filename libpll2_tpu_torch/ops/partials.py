@@ -75,6 +75,26 @@ def _rescale(x: torch.Tensor, threshold: float, factor: float,
     return scaled, mask.to(torch.int32)
 
 
+def host_rows(table) -> list:
+    """`table` (a tensor, or packed Operations: one row an op) as Python
+    rows. A CUDA table is read back once and the rows are kept on the
+    tensor: the op tables are packed once and never written, and a loop's
+    captured iteration (engine.py:run_chained) must not read device memory
+    back on the host."""
+    first = table[0] if isinstance(table, Operations) else table
+    key = tuple(id(f) for f in table) if isinstance(table, Operations) \
+        else None
+    kept = getattr(first, "_host_rows", None)
+    if kept is not None and kept[0] == key:
+        return kept[1]
+    t = (torch.stack(list(table), dim=1) if isinstance(table, Operations)
+         else torch.as_tensor(table))
+    rows = t.tolist()
+    if isinstance(first, torch.Tensor) and first.device.type == "cuda":
+        first._host_rows = (key, rows)
+    return rows
+
+
 def update_partials(clv: torch.Tensor,        # [N+1, R, s, S]
                     scaler: torch.Tensor,     # [K+2, S] or [K+2, R, S] int32
                     pmatrix: torch.Tensor,    # [E, R, s, s]
@@ -85,7 +105,7 @@ def update_partials(clv: torch.Tensor,        # [N+1, R, s, S]
     """Execute the operation list in order; returns (clv, scaler), updated
     in place. The list is walked on the host, one op at a time."""
     trash = scaler.shape[0] - 2
-    rows = torch.stack(list(ops), dim=1).tolist()
+    rows = host_rows(ops)
     for parent, psc, c1, m1, s1, c2, m2, s2 in rows:
         x = (torch.einsum('rij,rjs->ris', pmatrix[m1], clv[c1])
              * torch.einsum('rij,rjs->ris', pmatrix[m2], clv[c2]))

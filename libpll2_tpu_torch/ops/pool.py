@@ -87,6 +87,7 @@ from ._kernels import (POOL_COUNTER_STRIDE, POOL_FIXED_TILE, POOL_GRANULE,
                        PoolTraversal, device_sm_count,
                        device_states64_resident, pool_fixed_plan, pool_plan)
 from .levels import schedule_levels
+from .partials import host_rows
 
 __all__ = ["POOL_ROWS", "PoolPlan", "schedule_pool_levels", "tile_map",
            "pack_pool_levels", "wait_lists", "traversal_arrays",
@@ -327,7 +328,7 @@ def pool_update_reference(pool2d: torch.Tensor,    # [R*s, T]
     `pool2d` and `sc` in place, one op after another (the ops of a level
     are independent). `tiles` and `launch` are not read: each op has its
     own W. A scaler pool with a rate axis selects the per-rate mode."""
-    rows = torch.as_tensor(table).cpu().tolist()
+    rows = host_rows(table)
     dev = pool2d.device
     if pool2d.dim() == 3:
         _trials_reference(pool2d, sc, pmatrix, rows, gl, gr, rates, states,

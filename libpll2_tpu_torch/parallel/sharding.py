@@ -335,8 +335,10 @@ class ShardedRepeatsEngine:
 
     The per-shard tables need no common shape (the JAX package's
     `pack_repeats_canonical` gives XLA one program; the port compiles
-    nothing per shape), and the k-chained loops are left out (ROADMAP,
-    Rules of the port). The batched search rounds drive it like a
+    nothing per shape). `loglikelihood_loop` and `newton_loop` run k
+    chained iterations as TreeEngine's do (engine.py:choose_loop: on one
+    card captured once in a CUDA graph and replayed; across processes or
+    cards an eager loop). The batched search rounds drive it like a
     TreeEngine (`TreeSearch(None, tree, engine=eng)`), on the dense-fused
     path only."""
 
@@ -441,16 +443,47 @@ class ShardedRepeatsEngine:
     def execution_path(self) -> str:
         return self.engines[0].execution_path
 
+    def _units(self) -> list:
+        """The engines that hold the columns (the loops' units)."""
+        return self.engines
+
+    def _evaluate(self, scatter: bool = True):
+        """(total, per-site, each shard's root rows) of one evaluation."""
+        return self._shards.evaluate(self.branches, scatter)
+
+    def _newton_once(self):
+        """Evaluate and one Newton update: (total, d1, d2, new branches,
+        each shard's root rows)."""
+        return self._shards.newton(self.branches)
+
     def loglikelihood(self) -> float:
-        total, _, _ = self._shards.evaluate(self.branches)
+        total, _, _ = self._evaluate()
         return float(total)
 
     def newton_step(self):
         """Evaluate and one Newton update of the root branch across the
         shards (summed d1/d2, one update applied on every shard); returns
         (logL, d1, d2)."""
-        total, d1, d2, self.branches = self._shards.newton(self.branches)
+        total, d1, d2, self.branches, _ = self._newton_once()
         return float(total), float(d1), float(d2)
+
+    def loglikelihood_loop(self, k: int) -> float:
+        """The sum of k chained sharded evaluations (libpll2_tpu/parallel/
+        sharding.py:693-709), each shard's launches and the psum in every
+        iteration; 0.0 for k <= 0. Runs as TreeEngine.loglikelihood_loop
+        does: on one card captured once in a CUDA graph and replayed."""
+        from ..engine import chained_loglikelihood
+
+        return chained_loglikelihood(self, k)
+
+    def newton_loop(self, k: int):
+        """k chained Newton iterations on the root branch across the
+        shards (summed d1/d2, one update applied on every shard): the last
+        iteration's (logL, d1, d2), the branches left updated; (0.0, 0.0,
+        0.0) for k <= 0."""
+        from ..engine import chained_newton
+
+        return chained_newton(self, k)
 
     def _require_fused(self):
         if not self.dense_fused:

@@ -66,9 +66,10 @@ and TreeEngine routes a larger alphabet off them.
 """
 from __future__ import annotations
 
+import operator
 from dataclasses import dataclass
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -119,6 +120,12 @@ def resolve_device(device) -> torch.device:
         raise C.PllError(C.ERROR_PARAM_INVALID,
                          f"device must be cpu or cuda, got {device!r}")
     return dev
+
+
+def _is_packed(operations) -> bool:
+    """Packed Operations (this package's or JAX's: a named tuple of the
+    same eight fields) rather than a sequence of Operation."""
+    return getattr(operations, "_fields", None) == Operations._fields
 
 
 def _fields(op: Operation):
@@ -610,6 +617,18 @@ class Partition:
         self._index(f[:, [1, 4, 7]], "scaler index", self.scale_buffers,
                     low=C.SCALE_BUFFER_NONE)
 
+    def _unpack(self, packed) -> list:
+        """Packed Operations [n] as Operation objects, without JAX's
+        padding entries (parent: the scratch CLV row `nodes`)."""
+        cols = [np.asarray(f.cpu() if isinstance(f, torch.Tensor) else f)
+                for f in packed]
+        if any(c.ndim != 1 for c in cols):
+            raise C.PllError(C.ERROR_PARAM_INVALID,
+                             "packed Operations must hold [n] arrays (the "
+                             "serial op list)")
+        rows = np.stack(cols, axis=1).astype(np.int64).tolist()
+        return [Operation(*r) for r in rows if r[0] != self.nodes]
+
     # -------------------------------------------------------------- pmatrix
     def update_prob_matrices(self, params_indices, matrix_indices,
                              branch_lengths) -> None:
@@ -641,8 +660,15 @@ class Partition:
 
     # -------------------------------------------------------------- partials
     def update_partials(self, operations: Sequence[Operation],
+                        pad_to: Optional[int] = None,
                         update_repeats: bool = True) -> None:
-        """partials.c:237-291. The op list runs level by level
+        """partials.c:237-291. `operations` is a list of Operation or, on a
+        dense partition, packed Operations (`pack_operations`, or JAX's,
+        whose padding entries write the scratch CLV row and are dropped
+        here); a repeats partition refuses packed ones (PllError), as JAX
+        does. `pad_to` (JAX's op count to pad to, an int or None) pads
+        nothing: the port compiles nothing per op count. The op list runs
+        level by level
         (ops/levels.py:schedule_levels: its dependency levels, or one op
         per level where they would not equal the serial list), each level
         one launch of the level kernel on CUDA, or its plain version on the
@@ -658,11 +684,20 @@ class Partition:
         (pll_update_partials_rep with update_repeats=0). With per-rate
         scalers both kernels run their per-rate mode (each rate category
         rescales on its own, one count per rate)."""
+        if pad_to is not None:
+            operator.index(pad_to)
+        if _is_packed(operations):
+            if self.repeats is not None:
+                raise C.PllError(C.ERROR_PARAM_INVALID,
+                                 "site-repeats partitions need the host-side "
+                                 "Operation list (class columns), not packed "
+                                 "Operations")
+            operations = self._unpack(operations)
         operations = list(operations)
         self._check_operations(operations)
         if self.shards is not None:
             for sh in self.shards:
-                sh.update_partials(operations, update_repeats)
+                sh.update_partials(operations, update_repeats=update_repeats)
             return
         if self.repeats is not None:
             plan = self._pool_plan(operations, update_repeats)

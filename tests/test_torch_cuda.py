@@ -2305,3 +2305,131 @@ def test_trials_on_card_one_launch_a_level_a_chunk(cuda, path, monkeypatch):
     chunks = -(-X.shape[0] // 2)
     assert counter.launches - n0 == chunks * per_chunk
     assert float(((chunked - got).abs() / got.abs()).max()) < 1e-6
+
+
+# ------------------------------------------------------------ the loops
+# loglikelihood_loop / newton_loop on the card: the first iteration eager,
+# the next captured once in a CUDA graph and replayed (engine.py:
+# run_chained), on every route; each case builds the same engine twice,
+# one for the loop and one for the eager chain it is held against
+LOOP_CASES = ["fused", "fused_r3", "rows_split", "rows_bf16", "levels_4x4",
+              "levels_aa", "levels_40", "pool_4x4", "pool_r3", "pool_40",
+              "repeats_dense_fused", "f64_levels", "f64_scan", "f64_pool",
+              "sharded_fused", "sharded_levels", "sharded_repeats_fused",
+              "sharded_repeats_pool"]
+LOOP_K = 5
+
+
+def _loop_engine(case, device):
+    """A fresh engine (TreeEngine or ShardedRepeatsEngine) of one loop
+    case."""
+    from libpll2_tpu_torch.parallel import ShardedRepeatsEngine, make_mesh
+
+    tree = random_utree([f"t{i}" for i in range(16)], seed=3)
+    if case.startswith("sharded_repeats"):
+        parts = [_repeats_partition(tree, 500, device, seed=11 + k)
+                 for k in range(MESH_SHARDS)]
+        return ShardedRepeatsEngine(
+            tree, parts, make_mesh(devices=[device] * MESH_SHARDS),
+            dense_fused=case.endswith("fused"))
+    if case.startswith("sharded"):
+        tree, part, _ = _sharded_problem(4, 2004, device)
+        return TreeEngine(part, tree, pallas="auto" if case.endswith("fused")
+                          else "levels-kernel")
+    if case.startswith("pool") or case == "repeats_dense_fused":
+        kw = {"pool_r3": dict(rates=3), "pool_40": dict(states=40)}
+        part = _repeats_partition(tree, 600, device, **kw.get(case, {}))
+        return TreeEngine(part, tree, pallas="auto" if case.startswith(
+            "repeats") else "pool")
+    if case == "f64_pool":
+        part = _repeats_partition(tree, 600, device, dtype=torch.float64)
+        return TreeEngine(part, tree)
+    states = {"rows_split": 20, "rows_bf16": 20, "levels_aa": 20,
+              "levels_40": 40}.get(case, 4)
+    part, _ = _engine(
+        tree, 700, device, states=states,
+        rates=3 if case == "fused_r3" else 4,
+        dtype=torch.float64 if case.startswith("f64") else torch.float32,
+        alphabet=(AA_NOISY if states == 20 else LETTERS64[:states] + "-"
+                  if states == 40 else "ACGT-NRY"))
+    kw = {"rows_bf16": dict(mxu="bf16"), "f64_scan": dict(
+        level_schedule=False), "levels_4x4": dict(pallas="levels-kernel"),
+          "levels_aa": dict(pallas="levels-kernel")}
+    return TreeEngine(part, tree, **kw.get(case, {}))
+
+
+def _all_launches():
+    return (fused.fused_traversal.launches
+            + fused.fused_traversal_rows.launches
+            + levels.level_update.launches + pool.pool_update.launches)
+
+
+@pytest.mark.parametrize("case", LOOP_CASES)
+def test_loops_on_card_match_the_eager_chain(cuda, case):
+    """loglikelihood_loop(k) against k loglikelihood() calls summed in the
+    partition's dtype, and newton_loop(k) against k chained newton_step()s
+    (logL, d1, d2 and the branches), each on a twin engine: captured in a
+    graph on every route (a 4-shard mesh of the card too), equal within
+    float32 summation order (the replays run the eager iteration's
+    kernels; the epilogue's cuBLAS calls may take another workspace), and
+    the launch counters read k times one evaluation's launches."""
+    eng, twin = _loop_engine(case, cuda), _loop_engine(case, cuda)
+    n0 = _all_launches()
+    acc = None
+    for _ in range(LOOP_K):
+        total = twin._evaluate()[0].reshape(())
+        acc = total.clone() if acc is None else acc + total
+    want = float(acc)
+    per_eval = (_all_launches() - n0) // LOOP_K
+    assert per_eval * LOOP_K == _all_launches() - n0
+    assert per_eval > 0 or case.startswith("f64")
+    n0 = _all_launches()
+    got = eng.loglikelihood_loop(LOOP_K)
+    torch.cuda.synchronize()
+    assert eng._last_loop.route == "graph"
+    assert eng._last_loop.capture_ms is not None
+    assert _all_launches() - n0 == LOOP_K * per_eval
+    tol = 1e-12 if case.startswith("f64") else 5e-5
+    assert abs(got - want) <= tol * abs(want), (got, want)
+    assert eng.loglikelihood_loop(0) == 0.0
+    want_n = [twin.newton_step() for _ in range(3)][-1]
+    got_n = eng.newton_loop(3)
+    assert eng._last_loop.route == "graph"
+    assert abs(got_n[0] - want_n[0]) <= tol * abs(want_n[0])
+    np.testing.assert_allclose(got_n[1:], want_n[1:], rtol=tol * 100,
+                               atol=tol * 1e3)
+    np.testing.assert_allclose(eng.branches.cpu().numpy(),
+                               twin.branches.cpu().numpy(), rtol=tol * 10)
+    # the engine goes on after a loop: its buffers are its own
+    assert abs(eng.loglikelihood() - twin.loglikelihood()) <= tol * abs(
+        want_n[0])
+
+
+def test_loop_counters_and_buffers_after_a_graph(cuda):
+    """After a graph loop on the fused path the partition's P-matrices are
+    its own tensor (not the graph pool's), the root rows written back equal
+    an eager evaluation's, and k = 0 leaves every buffer as it was."""
+    eng = _loop_engine("fused", cuda)
+    twin = _loop_engine("fused", cuda)
+    eng.loglikelihood()
+    p = eng.partition
+    before = [t.clone() for t in (p.clv, p.scale_buffer, p.pmatrix,
+                                  eng.branches)]
+    assert eng.loglikelihood_loop(0) == 0.0
+    assert eng.newton_loop(0) == (0.0, 0.0, 0.0)
+    for t, b in zip((p.clv, p.scale_buffer, p.pmatrix, eng.branches),
+                    before):
+        assert torch.equal(t, b)
+    fused.fused_traversal.launches = 0
+    eng.loglikelihood_loop(7)
+    torch.cuda.synchronize()
+    assert fused.fused_traversal.launches == 7
+    assert eng._last_loop.launches == {"fused_traversal": 1}
+    twin.loglikelihood()
+    r = eng.root_idx
+    for row in (r[0], r[2]):
+        torch.testing.assert_close(p.clv[row], twin.partition.clv[row],
+                                   rtol=1e-6, atol=0)
+    pm = p.pmatrix
+    eng.newton_loop(4)
+    assert p.pmatrix is not pm and bool(torch.isfinite(p.pmatrix).all())
