@@ -46,19 +46,26 @@ each fatal on failure:
      (loglikelihood() and one newton_step(), 2 launches counted, logL
      against the float64 plain path), its call, device time, bound, plain
      time and plan;
-  6. rows kernel vs plain: ops/fused.py:fused_traversal_rows (the CUDA
-     kernel for 16 or more states) against the plain version on the card,
+  6. rows kernel vs plain: first the rows kernel's build report
+     (`rows_build_report`: each instantiation's registers and spills, the
+     log's wgmma serialization notes, the HGMMA count in its SASS; every
+     tensor-core body must issue HGMMA, unserialized and without spills);
+     then ops/fused.py:fused_traversal_rows (the CUDA kernel for 16 or
+     more states) against the plain version of each mode on the card,
      float32: 16 taxa x 1000 ragged AA sites with B/Z/X/gaps, an 80-taxon
      caterpillar where scaling must trigger, a 3-category case, 16-, 17-,
      21- and 32-state alphabets through a custom charmap (17 and 21: P
-     padded to 20 and 24 states), 40003 sites (a tail tile of 3), the
-     spill plan (ops/_kernels.py:rows_plan) at 8 rates x 32 states with
-     per-rate counts and at 16 and 32 rates x 32 states (P staged in
-     chunks), and the protein main path's 128 x 8192 shape; each case
-     prints the plan it ran and must run the one expected. Mode 'highest'
-     ('split' runs the same code; its outputs must be equal) is held to
-     equal scaler counts and TOL_CLV; mode 'bf16' at the logL level
-     (TOL_BF16_LOGL);
+     padded to 20 and 24 states), 40003 sites (a tail tile of 3), 12
+     slots forced (the tensor cores' slots in device memory), the spill
+     plans (ops/_kernels.py:rows_plan) at 8 rates x 32 states with per-rate
+     counts and at 16 and 32 rates x 32 states, and the protein main
+     path's 128 x 8192 shape; each case prints the plan each mode ran and
+     must run the one expected ('highest' on the CUDA cores; 'split' and
+     'bf16' on the tensor cores, 'tc-on-chip' or 'tc-spill', but at 32
+     rates x 32 states). 'highest' is held to equal scaler counts and
+     TOL_CLV; 'split' to equal counts but at ties (TOL_SPLIT_TIE) and
+     TOL_SPLIT_CLV; 'bf16' to equal counts but at ties (TOL_BF16_TIE);
+     both rounded modes at the logL level (TOL_BF16_LOGL);
   7. protein main path: tools/benchmarks.py:163's problem (128 taxa x 8192
      sites simulated with 20 equal-rate states, alpha 0.9, seed 11,
      evaluated under LG+G4) through Partition(device="cuda") and
@@ -66,11 +73,14 @@ each fatal on failure:
      mxu='split', one loglikelihood() with mxu='bf16', counted rows-kernel
      launches, and the same problem through the plain path in float64 on
      the card;
-  8. times at 128 x 8192: the rows kernel and its plain version per mode,
-     one loglikelihood() and one newton_step(); then the rows kernel's
-     device time over one traversal per mode from torch.profiler (and per
-     op), and the spill plan at 16 rates x 32 states on the protein tree
-     at 128 x 4096 (against its plain version, then timed);
+  8. times at 128 x 8192: the rows kernel and its plain version per mode
+     ('split', 'bf16', 'highest'), one loglikelihood() and one
+     newton_step(); then the rows kernel's device time over one traversal
+     per mode from torch.profiler (and per op, with the plan each ran),
+     its bounds per mode ('split' and 'bf16' on the tensor cores at the
+     bf16 peak, three passes and one; 'highest' at the float32 peak; the
+     bytes), and 16 rates x 32 states on the protein tree at 128 x 4096
+     (against its plain version, then timed: 'tc-spill' in 'split');
   9. level kernel vs plain: ops/levels.py:level_update (csrc/level_update.cu)
      against level_update_reference over whole op lists on the card,
      float32, from the same buffers: 16 x 1000 ragged DNA, 3 categories,
@@ -381,8 +391,11 @@ listing every kernel (with its bound at the card's peaks), and {"ok": true,
 "device": ...}.
 Exits non-zero, printing no result, when there is no CUDA device.
 `--rows-only CHECKOUT` runs only phase 8's rows-kernel times on the protein
-main path, importing the port from CHECKOUT (a checkout of another commit),
-and prints them as one JSON line: two commits compared on one card.
+main path, importing the port from CHECKOUT (a checkout of another commit):
+the build report, a walk in each mode (call and device time, the plan),
+and one launch per mode of 64 candidates, 41 model trials and 4 queries x
+the pruned tree's edges, and loglikelihood_loop's ms an evaluation; it
+prints them as one JSON line: two commits compared on one card.
 `--fused-only CHECKOUT` does the same for the DNA fused kernel: its call
 and device times on the DNA main path, per rate, with all tips raw and on
 the 246 x 4465 'repeats-dense-fused' inputs. `--generic-only CHECKOUT`
@@ -443,10 +456,18 @@ TOL_CLV = 1e-5
 TOL_LOGL = 5e-5
 TOL_D1 = 5e-3
 ATOL_D1 = 5e-2
-# 'bf16' mode, rows kernel vs plain version: both round the same operands to
-# bf16, but a last-bit difference of a float32 sum can round a value to the
-# other bf16 neighbour, so the two are held at the logL level
+# 'bf16' and 'split' modes, rows kernel (the tensor cores) vs plain version:
+# both round the same operands to bf16, but a last-bit difference of a
+# float32 sum can round a value to the other bf16 neighbour (one bf16 step,
+# <= 2^-7 relative, in 'bf16'; hi + lo moves by <= 2^-16 in 'split'), and
+# the tensor cores' float32 accumulation rounds toward zero. Both modes are
+# held at the logL level; 'split''s root CLVs to TOL_SPLIT_CLV of each
+# site's max, and the counts of both to equal but at ties within
+# TOL_SPLIT_TIE ('split') or TOL_BF16_TIE ('bf16') of the threshold
 TOL_BF16_LOGL = 1e-4
+TOL_SPLIT_CLV = 5e-4
+TOL_SPLIT_TIE = 1e-3
+TOL_BF16_TIE = 2.0 ** -5
 # mxu_probe kernel vs plain, relative to the output's largest entry: 'f32'
 # adds the same float32 products in another order; 'bf16' and 'split' go
 # through the tensor cores, whose float32 accumulation rounds toward zero
@@ -495,17 +516,31 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+def mode_tolerances(states: int, mxu: str):
+    """(CLV tolerance or None, tie tolerance) of a fused kernel against its
+    plain version in contraction mode `mxu`: the rows kernel's rounded
+    modes (16 or more states) TOL_SPLIT_CLV / TOL_SPLIT_TIE in 'split' and
+    TOL_BF16_TIE in 'bf16' (whose CLVs are held at the logL level), every
+    other walk TOL_CLV / TOL_TIE."""
+    if states >= 16 and mxu == "split":
+        return TOL_SPLIT_CLV, TOL_SPLIT_TIE
+    if states >= 16 and mxu == "bf16":
+        return None, TOL_BF16_TIE
+    return TOL_CLV, TOL_TIE
+
+
 def match_counts(name, got_sc, want_sc, got_clv, want_clv, block, factor,
-                 threshold) -> int:
+                 threshold, clv_tol=TOL_CLV, tie_tol=TOL_TIE) -> int:
     """Hold a kernel's scaler counts to its plain version's. They may
     differ only at a tie: a block whose max lies within rounding of the
     threshold, which the two versions' different FMA order puts on opposite
     sides of it. There the counts differ by one, the block's values by
-    `factor` (to TOL_CLV), and the smaller of the two maxima is the
-    threshold to TOL_TIE; `want_clv` is brought to the kernel's scale in
-    place, so that the values can be compared after. At most MAX_TIES such
-    entries. `block(entry)` gives the index into the CLVs of the block a
-    count entry scales. Returns the number of ties."""
+    `factor` (to `clv_tol`, TOL_CLV by default), and the smaller of the two
+    maxima is the threshold to `tie_tol` (TOL_TIE); `want_clv` is brought
+    to the kernel's scale in place, so that the values can be compared
+    after. At most MAX_TIES such entries. `block(entry)` gives the index
+    into the CLVs of the block a count entry scales. Returns the number of
+    ties."""
     diff = got_sc.long() - want_sc.long()
     entries = diff.nonzero().tolist()
     check(len(entries) <= MAX_TIES, f"{name}: scaler counts differ at "
@@ -521,7 +556,7 @@ def match_counts(name, got_sc, want_sc, got_clv, want_clv, block, factor,
               f"values by factor**{d} to {rel:.2e}, unscaled max = "
               f"threshold * (1 {'+' if low >= threshold else '-'} "
               f"{tie:.1e})", flush=True)
-        check(abs(d) == 1 and rel <= TOL_CLV and tie <= TOL_TIE,
+        check(abs(d) == 1 and rel <= clv_tol and tie <= tie_tol,
               f"{name}: counts differ at {e} by {d}, not at a tie (values "
               f"{rel:.2e}, max {tie:.2e} off the threshold)")
         want_clv[b] = w
@@ -855,33 +890,58 @@ def build_protein_engine(tree, by_label, sites, device, states=20,
 
 def compare_rows_case(name, tree, by_label, sites, device, states=20,
                       rate_cats=4, must_scale=False, plan="on-chip",
-                      **options):
-    """Rows kernel vs plain traversal on one problem: 'highest' (and
-    'split', the same code) to equal counts and TOL_CLV, 'bf16' at the logL
-    level; the kernel must run `plan`. `options` (rate_scalers) go to
-    Partition. Returns (max relative error, max absolute error)."""
+                      rounded_plan="tc-on-chip", n_slots=None, **options):
+    """Rows kernel vs plain traversal on one problem in each mode
+    (`compare_rows_traversal`); the kernel must run `plan` in 'highest'
+    and `rounded_plan` in 'split' and 'bf16'. `n_slots` forces the slot
+    count; `options` (rate_scalers) go to Partition. Returns 'split''s
+    (max relative error, max absolute error)."""
     from libpll2_tpu_torch import TreeEngine
 
     part = protein_partition(tree, by_label, sites, device, states,
                              rate_cats, **options)
     return compare_rows_traversal(name, part, TreeEngine(part, tree),
-                                  must_scale, plan)
+                                  must_scale, plan, rounded_plan, n_slots)
 
 
-def rows_plan_of(part, eng):
+def rows_plan_of(part, eng, mxu=None, n_slots=None):
     """The rows kernel's plan (ops/_kernels.py:rows_plan) for an engine's
-    traversal on the current device."""
+    traversal on the current device in mode `mxu` (the engine's own by
+    default; a package whose plan takes no mode gets none), with the
+    engine's slots or `n_slots`."""
+    import inspect
+
     from libpll2_tpu_torch.ops import _kernels
 
-    return _kernels.device_rows_plan(part.device, part.rate_cats,
-                                     part.states, eng.fused_slots,
-                                     part.rate_scalers, part.sites_padded)
+    args = (part.device, part.rate_cats, part.states,
+            n_slots or eng.fused_slots, part.rate_scalers, part.sites_padded)
+    if "mxu" not in inspect.signature(_kernels.device_rows_plan).parameters:
+        return _kernels.device_rows_plan(*args)
+    return _kernels.device_rows_plan(*args, mxu=mxu or eng.mxu)
+
+
+def rows_plan_line(plan) -> str:
+    """A RowsPlan as chip_smoke prints it."""
+    return (f"plan {plan.plan} ({plan.sites_per_thread} site(s) a thread, "
+            f"{plan.smem_bytes} bytes of shared memory, P padded to "
+            f"{plan.padded_states}, {plan.rate_chunk} rates staged at once, "
+            f"{plan.groups} "
+            f"{'warpgroups' if plan.plan.startswith('tc') else 'warp groups'})")
 
 
 def compare_rows_traversal(name, part, eng, must_scale=False,
-                           plan="on-chip"):
+                           plan="on-chip", rounded_plan="tc-on-chip",
+                           n_slots=None):
     """`compare_rows_case` on the inputs a fused engine hands the rows
-    kernel, in the partition's modes (per-rate counts, raw tips)."""
+    kernel, in the partition's modes (per-rate counts, raw tips): in each
+    contraction mode the kernel against the plain version of that mode on
+    the same inputs, printing the plan it ran ('highest' must run `plan`,
+    'split' and 'bf16' `rounded_plan`). 'highest': counts equal but at
+    ties, CLVs TOL_CLV; 'split': counts equal but at ties (TOL_SPLIT_TIE),
+    CLVs TOL_SPLIT_CLV; 'bf16': counts equal but at ties (TOL_BF16_TIE);
+    'split' and 'bf16' also at the logL level (TOL_BF16_LOGL; not with a
+    forced slot count `n_slots`, which the engine's logL does not take).
+    Returns 'split''s (max relative error, max absolute error)."""
     import torch
     from libpll2_tpu_torch.engine import _fused_loglikelihood
     from libpll2_tpu_torch.ops.fused import (fused_traversal,
@@ -889,59 +949,64 @@ def compare_rows_traversal(name, part, eng, must_scale=False,
 
     codes, pm, table = traversal_inputs(eng)
     kw = traversal_kw(part, eng)
-    ran = rows_plan_of(part, eng)
-    check(ran.plan == plan, f"{name}: the rows kernel runs the {ran.plan} "
-          f"plan, not {plan}")
-    got = fused_traversal(codes, pm, table, mxu="highest", **kw)
-    split = fused_traversal(codes, pm, table, mxu="split", **kw)
-    want = fused_traversal_reference(codes, pm, table, mxu="highest", **kw)
-    torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(split, got)),
-          f"{name}: mxu='split' differs from mxu='highest'")
-    ties = sum(match_counts(f"{name}, {which}", g_sc, w_sc, g_clv, w_clv,
-                            root_block(part), part.scale_factor,
-                            part.scale_threshold)
-               for g_sc, w_sc, g_clv, w_clv, which in (
-                   (got[2], want[2], got[0], want[0], "parent"),
-                   (got[3], want[3], got[1], want[1], "child")))
-    rel, abs_err = 0.0, 0.0
-    for g, w in zip(got[:2], want[:2]):
-        check(bool(torch.isfinite(g).all()), f"{name}: non-finite CLVs")
-        site_max = w.abs().amax(dim=(0, 1)).clamp(min=1e-30)
-        rel = max(rel, float(((g - w).abs() / site_max).max()))
-        abs_err = max(abs_err, float((g - w).abs().max()))
-    scaled = int(max(want[2].max(), want[3].max()))
-    check(rel <= TOL_CLV, f"{name}: max_rel_err {rel:.3e} > {TOL_CLV}")
-    if must_scale:
-        check(scaled > 0, f"{name}: scaling never triggered")
-
-    # 'bf16': the kernel path against the plain path, at the logL level
-    lk, rows = [], []
-    for trav in (fused_traversal, fused_traversal_reference):
-        total, _, r, _ = _fused_loglikelihood(*eng._args(), traversal=trav,
-                                              mxu="bf16", **eng._fused_kw())
-        lk.append(float(total))
-        rows.append(r)
-    torch.cuda.synchronize()
-    bf_rel = abs(lk[0] - lk[1]) / abs(lk[1])
-    sc_diff = sum(int((rows[0][i] != rows[1][i]).sum()) for i in (2, 3))
+    if n_slots:
+        kw["n_slots"] = n_slots
     raw = int((table[:-1, [1, 4]] == 2).sum())
     print(f"rows kernel vs plain [{name}]: {part.tips} taxa x {part.sites} "
           f"sites, {part.states} states, {part.rate_cats} rates, "
-          f"{eng.fused_slots} slots, plan {ran.plan} ({ran.sites_per_thread} "
-          f"site(s) a thread, {ran.smem_bytes} "
-          f"bytes of shared memory, P padded to {ran.padded_states}, "
-          f"{ran.rate_chunk} rates staged at once)"
+          f"{kw['n_slots']} slots"
           + (", per-rate counts" if part.rate_scalers else "")
-          + (f", {raw} raw-tip children" if raw else "")
-          + f": highest/split scaler counts equal (max {scaled}"
-          + (f"; {ties} ties" if ties else "") + "), "
-          f"max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}; bf16 logL "
-          f"rel {bf_rel:.3e}, bf16 scaler counts differing at {sc_diff} "
-          f"sites", flush=True)
-    check(math.isfinite(lk[0]) and bf_rel < TOL_BF16_LOGL,
-          f"{name}: bf16 logL rel err {bf_rel:.3e} >= {TOL_BF16_LOGL}")
-    return rel, abs_err
+          + (f", {raw} raw-tip children" if raw else ""), flush=True)
+    errs = {}
+    for mode, want_plan in (("highest", plan), ("split", rounded_plan),
+                            ("bf16", rounded_plan)):
+        clv_tol, tie_tol = mode_tolerances(part.states, mode)
+        ran = rows_plan_of(part, eng, mode, n_slots)
+        check(ran.plan == want_plan, f"{name}: the rows kernel runs the "
+              f"{ran.plan} plan in {mode!r}, not {want_plan}")
+        got = fused_traversal(codes, pm, table, mxu=mode, **kw)
+        want = fused_traversal_reference(codes, pm, table, mxu=mode, **kw)
+        torch.cuda.synchronize()
+        ties = sum(match_counts(f"{name}, {mode}, {which}", g_sc, w_sc,
+                                g_clv, w_clv, root_block(part),
+                                part.scale_factor, part.scale_threshold,
+                                clv_tol or 1.0, tie_tol)
+                   for g_sc, w_sc, g_clv, w_clv, which in (
+                       (got[2], want[2], got[0], want[0], "parent"),
+                       (got[3], want[3], got[1], want[1], "child")))
+        rel, abs_err = 0.0, 0.0
+        for g, w in zip(got[:2], want[:2]):
+            check(bool(torch.isfinite(g).all()),
+                  f"{name}: non-finite CLVs in {mode!r}")
+            site_max = w.abs().amax(dim=(0, 1)).clamp(min=1e-30)
+            rel = max(rel, float(((g - w).abs() / site_max).max()))
+            abs_err = max(abs_err, float((g - w).abs().max()))
+        errs[mode] = (rel, abs_err)
+        scaled = int(max(want[2].max(), want[3].max()))
+        line = (f"  [{mode}] {rows_plan_line(ran)}: scaler counts equal "
+                f"(max {scaled}" + (f"; {ties} ties" if ties else "")
+                + f"), max_rel_err {rel:.3e}, max_abs_err {abs_err:.3e}")
+        if mode != "highest" and not n_slots:
+            # the kernel path against the plain path, at the logL level
+            lk = []
+            for trav in (fused_traversal, fused_traversal_reference):
+                total = _fused_loglikelihood(*eng._args(), traversal=trav,
+                                             mxu=mode, **eng._fused_kw())[0]
+                lk.append(float(total))
+            torch.cuda.synchronize()
+            lk_rel = abs(lk[0] - lk[1]) / abs(lk[1])
+            line += f", logL rel {lk_rel:.3e}"
+        print(line, flush=True)
+        if clv_tol is not None:
+            check(rel <= clv_tol, f"{name}: {mode!r} max_rel_err {rel:.3e} "
+                  f"> {clv_tol}")
+        if mode != "highest" and not n_slots:
+            check(math.isfinite(lk[0]) and lk_rel < TOL_BF16_LOGL,
+                  f"{name}: {mode!r} logL rel err {lk_rel:.3e} >= "
+                  f"{TOL_BF16_LOGL}")
+        if must_scale:
+            check(scaled > 0, f"{name}: scaling never triggered")
+    return errs["split"]
 
 
 def protein_alignment():
@@ -2455,19 +2520,48 @@ def traversal_flops(n_ops: int, sites: int, rates: int, states: int) -> int:
     return n_ops * sites * rates * states * (4 * states + 1)
 
 
-def fused_bound(eng, part):
+# the rows kernel's passes over its products on the tensor cores in each
+# rounded mode: one bf16 pass in 'bf16', three ('split': Ph ch + Ph cl + Pl
+# ch); 'highest' (and every mode below 16 states) runs float32 FMAs
+ROWS_TC_PASSES = {"bf16": 1, "split": 3}
+
+
+def rows_bound(n_bytes: int, flops: int, states: int, mxu: str,
+               plan: str = "tc-on-chip"):
+    """`bound_ms` of a fused walk in contraction mode `mxu`: its useful
+    FLOP at the float32 CUDA-core peak, or, on the rows kernel's tensor
+    cores (16 or more states, 'bf16' and 'split'), its passes over them at
+    the bf16 peak (as `probe_bounds` counts the probe's); the spill plan's
+    'split' runs two float32 FMAs a term on the CUDA cores."""
+    if states >= 16 and mxu in ROWS_TC_PASSES:
+        if plan == "spill":
+            return bound_ms(n_bytes, (2 if mxu == "split" else 1) * flops)
+        return bound_ms(n_bytes, ROWS_TC_PASSES[mxu] * flops,
+                        H100_BF16_FLOP_PER_S)
+    return bound_ms(n_bytes, flops)
+
+
+def fused_bound(eng, part, mxu="highest", plan="tc-on-chip"):
     """One fused traversal: the state-code tips' codes (4 bytes a site) and
     the raw tips' rows (4 s bytes a site), P and the op table read once,
     the root edge's two CLVs and counts (one per rate with per-rate
-    scalers) written once."""
+    scalers) written once; its operations at `rows_bound`'s peak for the
+    contraction mode `mxu` on `plan`."""
     n_ops = eng.table.shape[0] - 1
+    S, R, s = part.sites_padded, part.rate_cats, part.states
+    return rows_bound(fused_bytes(eng, part), traversal_flops(n_ops, S, R, s),
+                      s, mxu, plan)
+
+
+def fused_bytes(eng, part) -> int:
+    """`fused_bound`'s bytes: one traversal's inputs read once, its root
+    rows written once."""
     S, R, s = part.sites_padded, part.rate_cats, part.states
     n_raw = int(part._tips_clv_set.sum())
     sc_rows = R if part.rate_scalers else 1
-    n_bytes = ((part.tips - n_raw) * S * 4 + n_raw * s * S * 4
-               + part.prob_matrices * R * s * s * 4 + eng.table.numel() * 4
-               + 2 * R * s * S * 4 + 2 * sc_rows * S * 4)
-    return bound_ms(n_bytes, traversal_flops(n_ops, S, R, s))
+    return ((part.tips - n_raw) * S * 4 + n_raw * s * S * 4
+            + part.prob_matrices * R * s * s * 4 + eng.table.numel() * 4
+            + 2 * R * s * S * 4 + 2 * sc_rows * S * 4)
 
 
 def level_bound(part, ops, trials=1):
@@ -2878,9 +2972,13 @@ def kernel_device_us(fn, name: str, reps=5) -> float:
     return launches_device_us(fn, name, 1, reps)[0]
 
 
-def rows_device(eng, part, gpu, modes=("split", "bf16")):
+def rows_device(eng, part, gpu, modes=("split", "bf16", "highest")):
     """Phase 8, after the timings: the rows kernel's device time (ms) over
-    one traversal of the protein main path per mode, and per op."""
+    one traversal of the protein main path per mode, and per op, each with
+    the plan it ran (`rows_plan_of`, where the package has modes)."""
+    import inspect
+
+    from libpll2_tpu_torch.ops import _kernels
     from libpll2_tpu_torch.ops.fused import fused_traversal
 
     codes, pm, table = traversal_inputs(eng)
@@ -2891,11 +2989,15 @@ def rows_device(eng, part, gpu, modes=("split", "bf16")):
     out = {mode: kernel_device_us(lambda: fused_traversal(
         codes, pm, table, mxu=mode, **kw), "fused_rows") * 1e-3
         for mode in modes}
+    moded = "mxu" in inspect.signature(_kernels.device_rows_plan).parameters
+    plans = {m: rows_plan_of(part, eng, m).plan if moded
+             else rows_plan_of(part, eng).plan for m in modes}
     print(f"rows kernel device time, {part.tips} x {part.sites} "
           f"(torch.profiler, median of 5 traversals; {gpu}): "
           + ", ".join(f"[{m}] {v * 1e3:.1f} us ({v * 1e3 / n_ops:.3f} us "
-                      f"an op over {n_ops} ops)" for m, v in out.items()),
-          flush=True)
+                      f"an op over {n_ops} ops, plan {plans[m]})"
+                      for m, v in out.items()), flush=True)
+    out["plans"] = plans
     return out
 
 
@@ -3343,7 +3445,7 @@ def rows_spill_case(device, aa_tree, gpu):
     eng = TreeEngine(part, aa_tree)
     err = compare_rows_traversal(
         f"spill timing shape, {SPILL_RATES} rates x {SPILL_STATES} states",
-        part, eng, plan="spill")[1]
+        part, eng, plan="spill", rounded_plan="tc-spill")[1]
     codes, pm, table = traversal_inputs(eng)
     kw = traversal_kw(part, eng)
     kernel = median_ms(lambda: fused_traversal(codes, pm, table, **kw))
@@ -3351,8 +3453,8 @@ def rows_spill_case(device, aa_tree, gpu):
                                                         **kw))
     dev = kernel_device_us(lambda: fused_traversal(codes, pm, table, **kw),
                            "fused_rows") * 1e-3
-    bound = fused_bound(eng, part)
-    print(f"rows kernel, spill plan, {AA_TAXA} x {SPILL_SITES}, "
+    bound = fused_bound(eng, part, eng.mxu, "tc-spill")
+    print(f"rows kernel, spill plan ('{eng.mxu}'), {AA_TAXA} x {SPILL_SITES}, "
           f"{SPILL_RATES} rates x {SPILL_STATES} states (median of {REPS}, "
           f"CUDA events; {gpu}): kernel {kernel:.4f} ms, device "
           f"{dev * 1e3:.1f} us (bound {bound[0]:.4f} ms by {bound[1]}), "
@@ -3361,16 +3463,120 @@ def rows_spill_case(device, aa_tree, gpu):
 
 
 def rows_only(device, gpu) -> dict:
-    """`--rows-only`: the protein main path's rows-kernel times (phase 8)
-    of the package that was imported, which may be another checkout's."""
+    """`--rows-only`: the protein main path's rows-kernel times of the
+    package that was imported, which may be another checkout's, in each
+    mode with the plan it ran (phase 8's walk: call and device time), and
+    its build report (registers, spills, HGMMA count); then the device
+    time of one launch per mode of the kernel's other forms on the main
+    path's problems: 64 NNI candidates (phase 19), one maximize_fused step's
+    41 frequency trials (phase 21), 4 queries x the pruned tree's edges
+    (phase 23), and loglikelihood_loop's ms an evaluation (phase 27,
+    differenced trip counts)."""
+    from libpll2_tpu_torch.ops import _kernels
+
     aa_tree, aa_by = protein_alignment()
     part, eng = build_protein_engine(aa_tree, aa_by, AA_SITES, device)
-    ms = times(eng, part, gpu, AA_TAXA, AA_SITES, modes=("split", "bf16"))
+    build = rows_build_report(_kernels.library_path(), require_tc=False)
+    ms = times(eng, part, gpu, AA_TAXA, AA_SITES,
+               modes=("split", "bf16", "highest"))
     dev = rows_device(eng, part, gpu)
-    return {"ms": ms["split"][0], "plain_ms": ms["split"][1],
-            "bf16_ms": ms["bf16"][0], "bf16_plain_ms": ms["bf16"][1],
-            "device_ms": dev["split"], "bf16_device_ms": dev["bf16"],
-            "ops": len(eng.table) - 1}
+    out = {"ms": ms["split"][0], "plain_ms": ms["split"][1],
+           "bf16_ms": ms["bf16"][0], "bf16_plain_ms": ms["bf16"][1],
+           "highest_ms": ms["highest"][0],
+           "highest_plain_ms": ms["highest"][1],
+           "device_ms": dev["split"], "bf16_device_ms": dev["bf16"],
+           "highest_device_ms": dev["highest"], "plans": dev["plans"],
+           "hgmma": build["hgmma"], "ops": len(eng.table) - 1}
+    out.update(rows_forms(device, gpu, aa_tree, aa_by, part, eng))
+    return out
+
+
+def rows_forms(device, gpu, aa_tree, aa_by, part, eng) -> dict:
+    """`rows_only`'s launches of the candidate, trial and query forms and
+    the loop, each per mode: {form: {mode: device ms}}, and the loop's
+    {mode: ms an evaluation}."""
+    import torch
+    from libpll2_tpu_torch import EdgePlacer, TreeEngine, compute_gamma_cats
+    from libpll2_tpu_torch.engine import _pmatrices
+    from libpll2_tpu_torch.models import load_aa_model
+    from libpll2_tpu_torch.ops import fused
+    from libpll2_tpu_torch.optimize import make_fused_loglikelihood_fn
+    from libpll2_tpu_torch.trees.utils import utree_clone
+
+    modes = ("split", "bf16", "highest")
+
+    def per_mode(label, args, kw, unit):
+        got = {}
+        for mode in modes:
+            kw = dict(kw, mxu=mode)
+            got[mode] = kernel_device_us(lambda: fused.fused_traversal(
+                *args, **kw), "fused_rows") * 1e-3
+        print(f"rows kernel device time, {label} (torch.profiler, median of "
+              f"5; {gpu}): " + ", ".join(
+                  f"[{m}] {v * 1e3:.1f} us ({v * 1e3 / unit:.2f} us a walk)"
+                  for m, v in got.items()), flush=True)
+        return got
+
+    out = {}
+    packed = at_neighbours(aa_tree, lambda: eng.pack_candidate(
+        aa_tree.vroot), CAND_AA)
+    args, kw = candidate_inputs(part, eng, packed)
+    out["candidates"] = per_mode(f"{len(packed)} candidates", args, kw,
+                                 len(packed))
+    # one maximize_fused step's 2n+1 frequency trials, their launch captured
+    tree = utree_clone(aa_tree)
+    t_eng = TreeEngine(part, tree)
+    fnb, x0, _ = make_fused_loglikelihood_fn(t_eng, ("freqs",))
+    captured = {}
+
+    def capture(*a, **k_):
+        captured["args"], captured["kw"] = a, k_
+        return fused.fused_traversal(*a, **k_)
+
+    with trials_through(t_eng, traversal=capture):
+        fnb(fd_batch(x0))
+    n_trials = captured["args"][2].shape[0]
+    out["trials"] = per_mode(f"{n_trials} model trials", captured["args"],
+                             captured["kw"], n_trials)
+    # the query form: 4 queries x the pruned tree's edges (phase 23b)
+    ref, ref_by, victim, _ = pruned_reference(aa_tree, aa_by,
+                                              f"t{AA_TAXA - 1}")
+    placer = EdgePlacer(ref, ref_by, states=20, device=device)
+    load_aa_model(placer.partition, "lg")
+    placer.partition.set_category_rates(compute_gamma_cats(0.9, 4))
+    placer._engine = placer._stream = None
+    q_eng = placer._ensure_engine()
+    tables, blens, _, n_slots = placer._fused_batch_inputs()
+    m = q_eng._model_args()
+    pm = _pmatrices(*m[:5], m[7], blens.reshape(-1))
+    pm = pm.view(tables.shape[0], -1, *pm.shape[1:])
+    batch = mutated_queries(ref_by, 4, 4, "ARNDCQEGHILKMFPSTWYV",
+                            start={"victim": victim})
+    codes = torch.as_tensor(placer._query_codes_batch(list(batch.values()))
+                            .astype("int32"), device=device)
+    p = placer.partition
+    q_kw = dict(rates=p.rate_cats, states=p.states, n_slots=n_slots,
+                threshold=p.scale_threshold, factor=p.scale_factor,
+                query_codes=codes, query_row=placer.query_row)
+    out["queries"] = per_mode(f"{codes.shape[0]} queries x "
+                              f"{tables.shape[0]} edges",
+                              (q_eng._tip_codes(), pm, tables.contiguous()),
+                              q_kw, codes.shape[0] * tables.shape[0])
+    del placer
+    # the loop's evaluation, bench.py's metric (phase 27)
+    loop = {}
+    k1, k2 = LOOP_BENCH
+    for mode in ("split", "bf16"):
+        l_eng = TreeEngine(part, utree_clone(aa_tree), mxu=mode)
+        t1, t2 = best_ms([lambda: l_eng.loglikelihood_loop(k1),
+                          lambda: l_eng.loglikelihood_loop(k2)])
+        loop[mode] = (t2 - t1) / (k2 - k1)
+    print(f"protein loglikelihood_loop, ms an evaluation ({k1} and {k2} "
+          f"differenced, best of {LOOP_REPS}; {gpu}): "
+          + ", ".join(f"[{m}] {v:.4f}" for m, v in loop.items()),
+          flush=True)
+    out["loop_ms_per_evaluation"] = loop
+    return out
 
 
 # ---------------------------------- per-rate scalers, raw tips, asc bias
@@ -3976,6 +4182,92 @@ def _loop_spills(body):
                and any(lo <= addr <= hi for lo, hi in inner)), len(inner)
 
 
+def _rows_label(mangled):
+    """'fused_rows_tc<20, split>' (SP, mode) or 'fused_rows<20, 2, on-chip>'
+    (SP, sites a thread, plan, ', split' for the spilled 'split' body) for
+    a rows kernel's mangled name, else None."""
+    import re
+
+    m = re.search(r"fused_rows_tcILi(\d+)ELb([01])E", mangled)
+    if m:
+        return (f"fused_rows_tc<{m.group(1)}, "
+                f"{'split' if m.group(2) == '1' else 'bf16'}>")
+    m = re.search(r"fused_rowsILi(\d+)ELi(\d+)ELb([01])E(?:Lb([01])E)?",
+                  mangled)
+    if m:
+        return (f"fused_rows<{m.group(1)}, {m.group(2)}, "
+                f"{'on-chip' if m.group(3) == '1' else 'spill'}"
+                f"{', split' if m.group(4) == '1' else ''}>")
+    return None
+
+
+def rows_build_report(lib_path, require_tc=True):
+    """The rows kernel's instantiations as built: registers and spills
+    from the `-Xptxas -v` log, the log's wgmma serialization notes, and the
+    HGMMA instructions in each one's SASS (cuobjdump). Prints them; where
+    `require_tc`, fails unless every tensor-core body (fused_rows_tc)
+    issues HGMMA, unserialized and without spills. Returns them as a
+    dict."""
+    import re
+    import shutil
+
+    out = {"kernels": {}, "serialized": [], "hgmma": {}}
+    log = lib_path.with_suffix(".log")
+    label = None
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            label = _rows_label(m.group(1))
+            continue
+        if "serialized" in line:
+            m = re.search(r"function '([^']+)'", line)
+            if m and _rows_label(m.group(1)):
+                out["serialized"].append(_rows_label(m.group(1)))
+        if label is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out["kernels"].setdefault(label, {})["spills"] = [
+                int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out["kernels"].setdefault(label, {})["registers"] = int(
+                m.group(1))
+            label = None
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    check(os.path.exists(tool), "cuobjdump (the CUDA toolkit's, beside "
+          "nvcc) not found: the rows kernel's SASS cannot be read")
+    sass = subprocess.run([tool, "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    label = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            label = _rows_label(m.group(1))
+            if label:
+                out["hgmma"].setdefault(label, 0)
+            continue
+        if label and re.search(r"\bHGMMA\b", line):
+            out["hgmma"][label] += 1
+    tc = sorted(k for k in out["hgmma"] if k.startswith("fused_rows_tc"))
+    print(f"rows kernel build: registers and spill bytes (stores, loads) "
+          f"{ {k: (v.get('registers'), v.get('spills')) for k, v in sorted(out['kernels'].items())} }; "
+          f"wgmma serialized in {out['serialized'] or 'none'}; HGMMA in "
+          f"the SASS {out['hgmma']}", flush=True)
+    if require_tc:
+        check(tc and all(out["hgmma"][k] > 0 for k in tc),
+              f"a tensor-core body of the rows kernel issues no HGMMA: "
+              f"{out['hgmma']}")
+        check(not out["serialized"], f"wgmma serialized in "
+              f"{out['serialized']}")
+        spilled = [k for k in tc if any(out["kernels"].get(k, {}).get(
+            "spills", [0]))]
+        check(not spilled, f"the tensor-core bodies {spilled} spill")
+    return out
+
+
 def probe_build_report(lib_path):
     """The probe kernels as built: per kernel (probe_f32, probe_wgmma<N,
     KS, bf16 or split>) its registers and spills from the `-Xptxas -v` log,
@@ -4266,17 +4558,18 @@ def candidate_inputs(part, eng, packed):
     return (eng._tip_codes(), pm, tables), kw
 
 
-def candidate_bound(part, k, n_ops):
+def candidate_bound(part, k, n_ops, mxu="highest"):
     """One launch of K candidates: the shared tip codes (raw tip rows) read
     once, each candidate's P and table read once and its two root CLVs and
-    counts written once; K traversals' operations."""
+    counts written once; K traversals' operations (`rows_bound`'s peak
+    for the contraction mode `mxu`)."""
     S, R, s = part.sites_padded, part.rate_cats, part.states
     n_raw = int(part._tips_clv_set.sum())
     sc_rows = R if part.rate_scalers else 1
     n_bytes = ((part.tips - n_raw) * S * 4 + n_raw * s * S * 4
                + k * (part.prob_matrices * R * s * s * 4 + (n_ops + 1) * 32
                       + 2 * R * s * S * 4 + 2 * sc_rows * S * 4))
-    return bound_ms(n_bytes, k * traversal_flops(n_ops, S, R, s))
+    return rows_bound(n_bytes, k * traversal_flops(n_ops, S, R, s), s, mxu)
 
 
 def _kernels_plan(part, n_slots, k):
@@ -4288,14 +4581,14 @@ def _kernels_plan(part, n_slots, k):
                                       k)
 
 
-def rows_plan_text(part, n_slots, k):
+def rows_plan_text(part, n_slots, k, mxu="split"):
     from libpll2_tpu_torch.ops import _kernels
 
     plan = _kernels.device_rows_plan(part.device, part.rate_cats,
                                      part.states, n_slots, part.rate_scalers,
-                                     part.sites_padded, k)
-    return (f"rows plan {plan.plan}, {plan.sites_per_thread} site(s) a "
-            f"thread, {plan.smem_bytes} bytes of shared memory")
+                                     part.sites_padded, k, mxu=mxu)
+    return (f"rows plan {plan.plan} ('{mxu}'), {plan.sites_per_thread} "
+            f"site(s) a thread, {plan.smem_bytes} bytes of shared memory")
 
 
 def sequential_scores(part, tree, mxu="split", k=None, **engine_kw):
@@ -4355,7 +4648,8 @@ def candidate_kernel(label, part, eng, packed, gpu, mxu="split"):
     """One chunk of K candidates, at the main path's own K, through the
     candidate form's kernel (one launch) and its plain version on the same
     inputs: counts equal but at ties, CLVs within TOL_CLV of each site's
-    max ('highest'/'split'); in 'bf16' the K logLs within TOL_BF16_LOGL.
+    max ('highest', and 'split' below 16 states; the rows kernel's 'split'
+    to `mode_tolerances`); in 'bf16' the K logLs within TOL_BF16_LOGL.
     Then the kernel's call (CUDA events, median of REPS) and device time
     (torch.profiler, median of 5) beside the bound, and the plain
     version's call (once). None of these launches is the path's. Returns
@@ -4370,7 +4664,7 @@ def candidate_kernel(label, part, eng, packed, gpu, mxu="split"):
     if part.states < 16:
         plan = plan_text(_kernels_plan(part, kw["n_slots"], k))
     else:
-        plan = rows_plan_text(part, kw["n_slots"], k)
+        plan = rows_plan_text(part, kw["n_slots"], k, mxu)
     plain_ms = []
 
     def plain(*a, **k_):
@@ -4410,9 +4704,10 @@ def candidate_kernel(label, part, eng, packed, gpu, mxu="split"):
                 return (e[0], e[1], slice(None), e[2])
             return (e[0], slice(None), slice(None), e[1])
 
+        tol, tie_tol = mode_tolerances(part.states, mxu)
         ties = sum(match_counts(f"{label}, {which}", g_sc, w_sc, g_clv,
                                 w_clv, block, part.scale_factor,
-                                part.scale_threshold)
+                                part.scale_threshold, tol, tie_tol)
                    for g_sc, w_sc, g_clv, w_clv, which in (
                        (got[2], want[2], got[0], want[0], "parent"),
                        (got[3], want[3], got[1], want[1], "child")))
@@ -4425,7 +4720,6 @@ def candidate_kernel(label, part, eng, packed, gpu, mxu="split"):
             err = max(err, float((g - w).abs().max()))
         agree = (f"scaler counts equal{f' ({ties} ties)' if ties else ''}, "
                  f"max_rel_err {rel:.3e}, max_abs_err {err:.3e}")
-        tol = TOL_CLV
     print(f"candidate kernel vs plain [{label}, {mxu}]: {k} candidates in "
           f"one launch, {part.tips} taxa x {part.sites} sites, {plan}: "
           f"{agree}", flush=True)
@@ -4435,7 +4729,7 @@ def candidate_kernel(label, part, eng, packed, gpu, mxu="split"):
     name = "fused_rows" if part.states >= 16 else "fused_"
     dev = kernel_device_us(lambda: fused.fused_traversal(
         *args, mxu=mxu, **kw), name) * 1e-3
-    bound = candidate_bound(part, k, n_ops)
+    bound = candidate_bound(part, k, n_ops, mxu)
     print(f"candidate kernel times [{label}, {mxu}] ({gpu}): {k} candidates "
           f"of {n_ops} ops in one launch: call {ms:.4f} ms, device "
           f"{dev * 1e3:.1f} us ({dev * 1e3 / k:.2f} us a candidate, "
@@ -5268,7 +5562,7 @@ def trial_step(label, eng, groups, gpu, timed=True):
         name = "fused_rows" if eng.partition.states >= 16 else "fused_"
         dev = kernel_device_us(lambda: fused.fused_traversal(*args, **kw),
                                name) * 1e-3
-        bound = candidate_bound(eng.partition, k, n_ops)
+        bound = candidate_bound(eng.partition, k, n_ops, eng.mxu)
         out.update(ms=ms, plain_ms=plain_ms[0], device_ms=dev, bound=bound)
         text += (f"; the trial launch ({gpu}): {k} trials of {n_ops} ops, "
                  f"call {ms:.4f} ms, device {dev * 1e3:.1f} us "
@@ -6356,8 +6650,9 @@ def query_checker(results, label):
     form (`EdgePlacer._traversal`): each launch (the path's own, counted by
     the wrapper), then the plain version on the same inputs: counts equal
     but at ties (`match_counts`), root CLVs within TOL_CLV of each site's
-    max. Appends each launch's (queries, edges, max_abs_err, its inputs) to
-    `results` and returns the kernel's rows."""
+    max (the rows kernel's rounded modes to `mode_tolerances`). Appends
+    each launch's (queries, edges, max_abs_err, its inputs) to `results`
+    and returns the kernel's rows."""
     import torch
     from libpll2_tpu_torch.ops import fused
 
@@ -6366,6 +6661,8 @@ def query_checker(results, label):
         want = fused.fused_traversal_reference(tip_codes, pmatrix, table,
                                                **kw)
         q, e = got[0].shape[:2]
+        clv_tol, tie_tol = mode_tolerances(kw["states"],
+                                           kw.get("mxu", "split"))
 
         def block(en):
             """(query, edge, site) or (query, edge, rate, site)."""
@@ -6374,7 +6671,8 @@ def query_checker(results, label):
             return (en[0], en[1], slice(None), slice(None), en[2])
 
         ties = sum(match_counts(f"{label}, {which}", g_sc, w_sc, g_clv,
-                                w_clv, block, kw["factor"], kw["threshold"])
+                                w_clv, block, kw["factor"], kw["threshold"],
+                                clv_tol or 1.0, tie_tol)
                    for g_sc, w_sc, g_clv, w_clv, which in (
                        (got[2], want[2], got[0], want[0], "parent"),
                        (got[3], want[3], got[1], want[1], "child")))
@@ -6385,8 +6683,8 @@ def query_checker(results, label):
             rel = max(rel, float(((g - w).abs()
                                   / site_max[:, :, None, None]).max()))
             err = max(err, float((g - w).abs().max()))
-        check(rel <= TOL_CLV, f"{label}: query form vs plain, max rel err "
-              f"{rel:.3e} > {TOL_CLV}")
+        check(clv_tol is None or rel <= clv_tol, f"{label}: query form vs "
+              f"plain, max rel err {rel:.3e} > {clv_tol}")
         results.append({"q": q, "e": e, "max_abs_err": err, "rel": rel,
                         "ties": ties,
                         "inputs": ((tip_codes, pmatrix, table), kw)})
@@ -6410,16 +6708,17 @@ def query_counts():
             "rows": fused.fused_traversal_rows.query_launches}
 
 
-def query_bound(part, q, k, n_ops):
+def query_bound(part, q, k, n_ops, mxu="highest"):
     """One launch of the query form: the shared tip codes and the Q query
     rows read once, each candidate's P and table read once, the Q x K
     walks' two root CLVs and counts written once; Q x K traversals'
-    operations."""
+    operations (`rows_bound`'s peak for the contraction mode `mxu`)."""
     S, R, s = part.sites_padded, part.rate_cats, part.states
     n_bytes = (part.tips * S * 4 + q * S * 4
                + k * (part.prob_matrices * R * s * s * 4 + (n_ops + 1) * 32)
                + q * k * (2 * R * s * S * 4 + 2 * S * 4))
-    return bound_ms(n_bytes, q * k * traversal_flops(n_ops, S, R, s))
+    return rows_bound(n_bytes, q * k * traversal_flops(n_ops, S, R, s), s,
+                      mxu)
 
 
 def leaves_behind(h):
@@ -6577,8 +6876,9 @@ def placement_case(label, placer, batch, stream, chunk, gpu, jplace=False,
     name = "fused_rows" if kernel == "rows" else "fused_"
     dev = kernel_device_us(lambda: fused.fused_traversal(*args, **kw), name)
     _, plain_ms = timed(lambda: fused.fused_traversal_reference(*args, **kw))
-    bound = query_bound(p, q, e, n_ops)
-    plan = (rows_plan_text(p, kw["n_slots"], q * e) if kernel == "rows"
+    bound = query_bound(p, q, e, n_ops, kw.get("mxu", "split"))
+    plan = (rows_plan_text(p, kw["n_slots"], q * e, kw.get("mxu", "split"))
+            if kernel == "rows"
             else plan_text(_kernels_plan(p, kw["n_slots"], q * e)))
     print(f"placement times [{label}] ({gpu}): place_batch {ms:.1f} ms "
           f"({ms / len(batch):.2f} ms a query, {len(batch) / ms * 1e3:.1f} "
@@ -8846,6 +9146,7 @@ def main() -> int:
     generic = generic_phase(device, gpu)
 
     # 6. rows kernel vs plain on the card
+    rows_build = rows_build_report(lib_path)
     headers, seqs = random_alignment(16, 1000, alphabet=AA_NOISY, seed=3)
     aa_small_by = dict(zip(headers, seqs))
     compare_rows_case("ragged AA", small, aa_small_by, 1000, device)
@@ -8869,13 +9170,18 @@ def main() -> int:
         compare_rows_case(f"{'per-rate, ' if per_rate else ''}{rates} rates "
                           f"x 32 states", small, dict(zip(headers, seqs)),
                           300, device, states=32, rate_cats=rates,
-                          plan="spill", rate_scalers=per_rate)
+                          plan="spill", rounded_plan=(
+                              "spill" if rates == 32 else "tc-spill"),
+                          rate_scalers=per_rate)
     headers, seqs = random_alignment(16, 40003, alphabet=AA_NOISY, seed=3)
     compare_rows_case("wide: 40003 sites, 64-site tiles, a tail of 3", small,
                       dict(zip(headers, seqs)), 40003, device)
     headers, seqs = random_alignment(80, 1000, alphabet=AA_NOISY, seed=3)
     compare_rows_case("caterpillar", cat, dict(zip(headers, seqs)), 1000,
                       device, must_scale=True)
+    compare_rows_case("12 slots: the tensor cores' slots in device memory",
+                      small, aa_small_by, 1000, device, n_slots=12,
+                      rounded_plan="tc-spill")
     aa_tree, aa_by = protein_alignment()
     _, rows_max_abs = compare_rows_case("main-path shape", aa_tree, aa_by,
                                         AA_SITES, device)
@@ -8886,11 +9192,20 @@ def main() -> int:
 
     # 8. times
     rows_ms = times(aa_eng, aa_part, gpu, AA_TAXA, AA_SITES,
-                    modes=("split", "bf16"))
+                    modes=("split", "bf16", "highest"))
     rows_dev = rows_device(aa_eng, aa_part, gpu)
     rows_spill = rows_spill_case(device, aa_tree, gpu)
     bounds = {"fused_traversal": fused_bound(eng, part),
-              "fused_traversal_rows": fused_bound(aa_eng, aa_part)}
+              "fused_traversal_rows": fused_bound(aa_eng, aa_part, "split")}
+    rows_bounds = {f"{m}_bound_ms": fused_bound(aa_eng, aa_part, m)[0]
+                   for m in ("split", "bf16", "highest")}
+    rows_bounds["byte_bound_ms"] = (fused_bytes(aa_eng, aa_part)
+                                    / H100_BYTES_PER_S * 1e3)
+    print(f"rows kernel bounds, protein main path: 'split' on the tensor "
+          f"cores {rows_bounds['split_bound_ms']:.4f} ms, 'bf16' "
+          f"{rows_bounds['bf16_bound_ms']:.4f} ms, 'highest' on the CUDA "
+          f"cores {rows_bounds['highest_bound_ms']:.4f} ms, bytes "
+          f"{rows_bounds['byte_bound_ms']:.4f} ms", flush=True)
 
     # 9. level kernel vs plain on the card
     big = random_utree(headers_big, seed=SEED)
@@ -9228,12 +9543,17 @@ def main() -> int:
         "ms": rows_ms["split"][0], "plain_ms": rows_ms["split"][1],
         **bound("fused_traversal_rows"),
         "plan": rows_plan_of(aa_part, aa_eng).plan,
+        "plans": rows_dev["plans"],
         "sites_per_thread": rows_plan_of(aa_part, aa_eng).sites_per_thread,
+        "hgmma": rows_build["hgmma"], **rows_bounds,
         "device_ms": rows_dev["split"],
         "us_per_op": rows_dev["split"] * 1e3 / (len(aa_eng.table) - 1),
         "bf16_ms": rows_ms["bf16"][0],
         "bf16_plain_ms": rows_ms["bf16"][1],
         "bf16_device_ms": rows_dev["bf16"],
+        "highest_ms": rows_ms["highest"][0],
+        "highest_plain_ms": rows_ms["highest"][1],
+        "highest_device_ms": rows_dev["highest"],
         "spill_shape": f"{AA_TAXA} x {SPILL_SITES}, {SPILL_RATES} rates x "
                        f"{SPILL_STATES} states",
         "spill_max_abs_err": rows_spill[0], "spill_ms": rows_spill[1],

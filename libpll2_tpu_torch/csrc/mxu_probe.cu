@@ -160,16 +160,6 @@ __device__ __forceinline__ float bf16_value(uint16_t h) {
 }
 
 // ---------------------------------------------------------------------------
-// Byte of (row r, k value kk) in a K-major bf16 matrix of `rows` rows in
-// 128-byte swizzled rows, the layout wgmma's descriptors name (sw128_desc):
-// a 64-k atom after another, row r at byte 128 r of its atom, its 16-byte
-// chunk q (k values 8 q ..) at chunk index q ^ (r % 8).
-// ops/_kernels.py:probe_layout lays a slice out the same way.
-__device__ __forceinline__ int sw128_byte(int r, int kk, int rows) {
-  return (kk / kAtom) * rows * 128 + r * 128 + (((kk % kAtom) / 8) ^ (r % 8)) * 16 +
-         (kk % 8) * 2;
-}
-
 // A's slices as the consumers read them, one thread an element, zero past m
 // and k. 'bf16'/'split': slice j, stage c: the hi part, then (for 'split')
 // the lo part, each the N x 64 block of k values 64 c .. 64 c + 63 as
@@ -205,10 +195,6 @@ __global__ void pack(Args p, Plan pl, int mode) {
 
 // ---------------------------------------------------------------------------
 // The ring.
-__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
-}
-
 __device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
                "r"(count));
@@ -394,35 +380,6 @@ __global__ void __launch_bounds__(kThreads, 1) probe_f32(Args p, Plan pl) {
 // 'bf16' and 'split': warpgroup g of the block takes row tile 2 pass + g
 // (64 columns of the tile) in each pass; a warpgroup past the tile's row
 // tiles only keeps step with the ring.
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int K>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(K) : "memory");
-}
-
-// keeps the compiler from moving the accumulators' reads and writes across
-// the asynchronous products
-template <int R>
-__device__ __forceinline__ void fence_operands(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// A shared-memory operand's descriptor (sw128_byte's layout): start
-// address, leading byte offset 16 (unused in K-major swizzled layouts),
-// stride byte offset 1024 (8 rows of 128 bytes), 128-byte swizzle
-__device__ __forceinline__ uint64_t sw128_desc(unsigned addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
 __device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
   return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
 }
@@ -430,11 +387,6 @@ __device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
 // this warpgroup's named barrier (0: __syncthreads, 1: the consumers)
 __device__ __forceinline__ void warpgroup_sync(int g) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(2 + g) : "memory");
-}
-
-// this thread's shared-memory writes, visible to the tensor cores' reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // KS: the k steps X's fragment holds (8: k <= 128, 16: k <= 256). In

@@ -1,7 +1,9 @@
 // wgmma.mma_async on bf16 operands with float32 accumulators, one
 // specialization a width N = 8, 16, ..., 128, each generated by WG_MMA: the
-// instruction names N and lists its N / 2 accumulator registers a thread.
-// Used by mxu_probe.cu.
+// instruction names N and lists its N / 2 accumulator registers a thread;
+// and the helpers around it (the 128-byte swizzled layout of a K-major
+// operand in shared memory and its descriptor, the fences and the group
+// waits). Used by mxu_probe.cu and fused_traversal_rows.cu.
 //
 // Mma<N>::rs(d, a, b) and Mma<N>::ss(d, a, b) issue
 //   D[64, N] += A[64, 16] . B[16, N]
@@ -95,3 +97,53 @@ WG_MMA(104, 52, 52, 53, 54, 55, 56, 57)
 WG_MMA(112, 56, 56, 57, 58, 59, 60, 61)
 WG_MMA(120, 60, 60, 61, 62, 63, 64, 65)
 WG_MMA(128, 64, 64, 65, 66, 67, 68, 69)
+
+// A shared memory address as the instructions take it
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+// Byte of (row r, k value kk) in a K-major bf16 matrix of `rows` rows in
+// 128-byte swizzled rows, the layout wgmma's descriptors name (sw128_desc):
+// a 64-k atom after another, row r at byte 128 r of its atom, its 16-byte
+// chunk q (k values 8 q ..) at chunk index q ^ (r % 8).
+// ops/_kernels.py:probe_layout lays a slice out the same way.
+__device__ __forceinline__ int sw128_byte(int r, int kk, int rows) {
+  return (kk / 64) * rows * 128 + r * 128 + (((kk % 64) / 8) ^ (r % 8)) * 16 + (kk % 8) * 2;
+}
+
+// A shared-memory operand's descriptor (sw128_byte's layout): start
+// address, leading byte offset 16 (unused in K-major swizzled layouts),
+// stride byte offset 1024 (8 rows of 128 bytes), 128-byte swizzle; the
+// layout's atoms start 1024-byte aligned
+__device__ __forceinline__ uint64_t sw128_desc(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most K of this warpgroup's committed groups are pending
+template <int K>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(K) : "memory");
+}
+
+// keeps the compiler from moving the accumulators' reads and writes across
+// the asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// this thread's shared-memory writes, visible to the tensor cores' reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}

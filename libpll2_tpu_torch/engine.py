@@ -919,8 +919,9 @@ class TreeEngine:
         float64 partition on CUDA takes the plain paths whatever `pallas`
         says, as JAX takes XLA (`choose_route` decides the route). `mxu`
         picks the fused traversal's contraction mode for 16+-state
-        alphabets: 'split' (default) and 'highest' run exact float32,
-        'bf16' rounds the operands to bf16 (ops/fused.py). `edge_params`
+        alphabets: 'split' (default) is JAX's three-term bf16 product and
+        'bf16' its one-term one (the rows kernel runs both on the tensor
+        cores), 'highest' exact float32 (ops/fused.py). `edge_params`
         [prob_matrices] gives the rate-matrix index of every P-matrix slot
         (per-branch heterotachy).
 

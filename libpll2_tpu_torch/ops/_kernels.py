@@ -117,8 +117,8 @@ def library() -> ctypes.CDLL:
     ]                      # width and ring depth (0, 0 at 4 x 4)
     lib.pll_fused_traversal.restype = _I
     lib.pll_fused_traversal_rows.argtypes = traversal + [
-        _I, _P,            # bf16 flag, stream
-        _I, _I, _I,        # rows_plan: on chip, sites a thread, SP,
+        _I, _P,            # contraction mode, stream
+        _I, _I, _I,        # rows_plan: plan, sites a thread, SP,
         _I, _I, _L,        # rate chunk, groups, shared-memory bytes
     ]
     lib.pll_fused_traversal_rows.restype = _I
@@ -507,7 +507,7 @@ def device_generic_plan(device, rates: int, states: int, n_slots: int,
 def spill_slots(plan, n_slots: int) -> int:
     """The slots a walk of `plan` (a FusedPlan, GenericPlan or RowsPlan)
     keeps in device memory: none on chip, `n_slots` on a spill plan."""
-    return 0 if plan.plan == "on-chip" else n_slots
+    return n_slots if plan.plan in ("spill", "tc-spill") else 0
 
 
 def generic_pmatrix(pmatrix: torch.Tensor, padded_states: int) -> torch.Tensor:
@@ -683,16 +683,32 @@ ROWS_SPILL_P_BYTES = 64 * 1024
 # two sites a thread where tiles of 64 sites give at least this share of
 # the SMs a block
 ROWS_SPT2_SM_SHARE = 0.9
+# the tensor-core plan (fused_rows_tc): sites a block (wgmma's M), a slot
+# row's words (the tile and 4 of padding), the swizzle atoms' alignment
+ROWS_TC_TILE = 64
+ROWS_TC_STRIDE = 68
+ROWS_TC_ALIGN = 1024
+# the modes the tensor-core plan runs, from ops/fused.py:ROWS_STATES_MIN
+# states on (below it every mode contracts exactly)
+ROWS_TC_MODES = ("bf16", "split")
+ROWS_TC_STATES_MIN = 16
+# the kernel's `plan` argument for each plan's name, and its `mode`
+ROWS_PLAN_CODES = {"spill": 0, "on-chip": 1, "tc-on-chip": 2, "tc-spill": 3}
+ROWS_MODE_CODES = {"highest": 0, "bf16": 1, "split": 2}
 
 
 class RowsPlan(NamedTuple):
-    """How fused_traversal_rows.cu runs one shape: `plan` 'on-chip' (the
-    block's slots in shared memory, the next op's P prefetched) or 'spill'
-    (slots in device memory, P staged `rate_chunk` rates at a time);
-    `sites_per_thread` 1 or 2 (a block's tile is 32 of them per lane);
-    `smem_bytes` the block's dynamic shared memory; `padded_states` SP, the
-    kernel's instantiation (P is padded to SP x SP); `groups` the warp
-    groups that share out the rates."""
+    """How fused_traversal_rows.cu runs one shape: `plan` 'tc-on-chip'
+    ('bf16' and 'split': the tensor cores, tiles of 64 sites, two
+    warpgroups, the block's slots in shared memory), 'tc-spill' (the same
+    with the slots in device memory), 'on-chip' ('highest': CUDA-core
+    FMAs, the block's slots in shared memory, the next op's P prefetched)
+    or 'spill' (CUDA-core FMAs, every mode: slots in device memory, P
+    staged `rate_chunk` rates at a time); `sites_per_thread` 1 or 2 (a block's
+    tile is 32 of them per lane); `smem_bytes` the block's dynamic shared
+    memory; `padded_states` SP, the kernel's instantiation (P is padded to
+    SP x SP); `groups` the warp groups (on the tensor cores the
+    warpgroups) that share out the rates."""
     plan: str
     sites_per_thread: int
     smem_bytes: int
@@ -701,42 +717,78 @@ class RowsPlan(NamedTuple):
     groups: int
 
 
+def rows_tc_bytes(rates: int, states: int, padded_states: int,
+                  n_slots: int, rate_scalers: bool,
+                  onchip: bool = True) -> int:
+    """A block's shared memory on the tensor-core plans (fused_traversal_
+    rows.cu:tc_smem_bytes): the atoms' alignment, P's bf16 atoms (both
+    sides, every rate, N = SP padded to 8 rows of 128 bytes), two buffers
+    of two code rows, the maxima (and per rate the children's counts) and,
+    `onchip`, the slots [R * s][68] with their counts [SR][64]."""
+    n = -(-padded_states // 8) * 8
+    tile, sr = ROWS_TC_TILE, rates if rate_scalers else 1
+    words = 2 * 2 * tile + (2 * rates if rate_scalers else 2) * tile
+    if onchip:
+        words += n_slots * (rates * states * ROWS_TC_STRIDE + sr * tile)
+    return ROWS_TC_ALIGN + 2 * rates * n * 128 + 4 * words
+
+
 def rows_plan(rates: int, states: int, n_slots: int, rate_scalers: bool,
               smem_bytes: int, sites: int, sms: int,
-              candidates: int = 1) -> RowsPlan:
-    """The rows kernel's plan for one shape on a device with `sms` SMs whose
-    blocks may use `smem_bytes` of shared memory, for a launch of
-    `candidates` topologies (each its own row of tiles): on chip where the
-    slots, their counts, two buffers of both P-matrices and the rest fit,
-    with two sites a thread (one block of 64 sites an SM) where the
-    launch's tiles of 64 sites (the candidates' together) still give nearly
-    every SM a block, else one (two blocks of 32 an SM); else spilled. The
-    bytes follow the layout in fused_traversal_rows.cu (smem_words), which
-    refuses a launch whose count differs."""
+              candidates: int = 1, mxu: str = "highest") -> RowsPlan:
+    """The rows kernel's plan for one shape and contraction mode `mxu` on a
+    device with `sms` SMs whose blocks may use `smem_bytes` of shared
+    memory, for a launch of `candidates` topologies (each its own row of
+    tiles). 'bf16' and 'split' (from ROWS_TC_STATES_MIN states) run on the
+    tensor cores: with the slots on chip where they, their counts, P's
+    atoms and the rest fit ('tc-on-chip'), else with the slots in device
+    memory where P's atoms fit ('tc-spill'), else spilled on the CUDA
+    cores ('split' staging Pl beside Ph). 'highest' (and every mode below
+    ROWS_TC_STATES_MIN states) runs on chip where the slots, their counts,
+    two buffers of both P-matrices and the rest fit, with two sites a
+    thread (one block of 64 sites an SM) where the launch's tiles of 64
+    sites (the candidates' together) still give nearly every SM a block,
+    else one (two blocks of 32 an SM); else spilled. The bytes follow the layouts in fused_traversal_rows.cu
+    (smem_words, tc_smem_bytes), which refuses a launch whose count
+    differs."""
     sp = next((p for p in ROWS_PADDED_STATES if p >= states), None)
     if sp is None or rates < 1 or n_slots < 1 or candidates < 1:
         raise ValueError(f"rows_plan: no plan for {rates} rates, {states} "
                          f"states, {n_slots} slots, {candidates} candidates")
+    if mxu not in ROWS_MODE_CODES:
+        raise ValueError(f"rows_plan: mxu must be one of "
+                         f"{tuple(ROWS_MODE_CODES)}, got {mxu!r}")
+    tc = mxu in ROWS_TC_MODES and states >= ROWS_TC_STATES_MIN
     groups = 1 << (min(rates, ROWS_WARPS).bit_length() - 1)
     h = ROWS_WARPS // groups
     # the maxima (and per rate the children's counts) beside P and codes
     red = rates * h + rates if rate_scalers else ROWS_WARPS
+    p_parts = 2 if tc and mxu == "split" else 1   # spilled 'split': Ph, Pl
 
     def nbytes(onchip: bool, spt: int, rc: int) -> int:
         nb, tile = (2 if onchip else 1), ROWS_LANES * spt
-        words = nb * 2 * rc * sp * sp + (nb * 2 + red) * tile
+        words = nb * 2 * rc * sp * sp * p_parts + (nb * 2 + red) * tile
         if onchip:
             sr = rates if rate_scalers else 1
             words += n_slots * (rates * states + sr) * tile
         return 4 * words
 
-    wide = candidates * -(-sites // (2 * ROWS_LANES)) \
-        >= ROWS_SPT2_SM_SHARE * sms
-    for spt in ((2, 1) if wide else (1,)):
-        if nbytes(True, spt, rates) <= smem_bytes:
-            return RowsPlan("on-chip", spt, nbytes(True, spt, rates), sp,
-                            rates, groups)
-    rc = max(1, min(rates, ROWS_SPILL_P_BYTES // (2 * sp * sp * 4)))
+    if tc:
+        for onchip, name in ((True, "tc-on-chip"), (False, "tc-spill")):
+            tc_bytes = rows_tc_bytes(rates, states, sp, n_slots,
+                                     rate_scalers, onchip)
+            if tc_bytes <= smem_bytes:
+                return RowsPlan(name, 2, tc_bytes, sp, rates,
+                                2 if rates > 1 else 1)
+    else:
+        wide = candidates * -(-sites // (2 * ROWS_LANES)) \
+            >= ROWS_SPT2_SM_SHARE * sms
+        for spt in ((2, 1) if wide else (1,)):
+            if nbytes(True, spt, rates) <= smem_bytes:
+                return RowsPlan("on-chip", spt, nbytes(True, spt, rates),
+                                sp, rates, groups)
+    rc = max(1, min(rates, ROWS_SPILL_P_BYTES
+                    // (2 * sp * sp * 4 * p_parts)))
     if nbytes(False, 1, rc) > smem_bytes:
         raise ValueError(f"rows_plan: {nbytes(False, 1, rc)} bytes of "
                          f"shared memory exceed the device's {smem_bytes}")
@@ -767,26 +819,28 @@ def _device_index(device) -> int:
 
 def device_rows_plan(device, rates: int, states: int, n_slots: int,
                      rate_scalers: bool, sites: int,
-                     candidates: int = 1) -> RowsPlan:
-    """`rows_plan` for one shape on CUDA device `device`."""
+                     candidates: int = 1, mxu: str = "highest") -> RowsPlan:
+    """`rows_plan` for one shape and mode on CUDA device `device`."""
     index = _device_index(device)
     return rows_plan(rates, states, n_slots, rate_scalers,
-                     smem_optin(index), sites, sm_count(index), candidates)
+                     smem_optin(index), sites, sm_count(index), candidates,
+                     mxu)
 
 
 def launch_fused_traversal_rows(tip_codes: torch.Tensor,
                                 pmatrix: torch.Tensor, table: torch.Tensor,
                                 rates: int, states: int, n_slots: int,
                                 threshold: float, factor: float,
-                                bf16: bool, rate_scalers: bool = False,
+                                mxu: str, rate_scalers: bool = False,
                                 tip_clvs=None, query_codes=None,
                                 query_row: int = -1):
     """Launch csrc/fused_traversal_rows.cu once on the current stream for
     K candidates, `table` [K, n_ops+1, 8] and `pmatrix` [K, E, R, s, s];
     returns the root rows with a leading K, or [Q, K] in the query form (see
-    ops/fused.py:fused_traversal_rows for the contract). `bf16` rounds P
-    and inner-child CLVs (half-up) and raw tip rows (to nearest even) to
-    bf16 (the 'bf16' contraction mode)."""
+    ops/fused.py:fused_traversal_rows for the contract). `mxu` is the
+    contraction mode ('highest', 'bf16', 'split'; ops/fused.py's module
+    docstring), which below ROWS_TC_STATES_MIN states contracts exactly;
+    the plan is `device_rows_plan`'s for it."""
     name = "fused_traversal_rows"
     _check_inputs(name, tip_codes, pmatrix, table, rates, states, n_slots,
                   tip_clvs)
@@ -797,8 +851,10 @@ def launch_fused_traversal_rows(tip_codes: torch.Tensor,
     dev = pmatrix.device
     sites = tip_codes.shape[1]
     k = table.shape[0]
+    if states < ROWS_TC_STATES_MIN:
+        mxu = "highest"
     plan = device_rows_plan(dev, rates, states, n_slots, rate_scalers,
-                            sites, q * k)
+                            sites, q * k, mxu)
     sp = plan.padded_states
     # the kernel copies P in 16-byte units of zero-padded SP x SP blocks (a
     # candidate's P, E x R x SP x SP words, keeps the first one's alignment)
@@ -810,7 +866,7 @@ def launch_fused_traversal_rows(tip_codes: torch.Tensor,
     out_p, out_c, sc_p, sc_c = _outputs(q * k, rates, states, sites, dev,
                                         rate_scalers)
     slots = slot_sc = None
-    if plan.plan == "spill":
+    if spill_slots(plan, n_slots):
         slots = torch.empty((q * k, spill_slots(plan, n_slots),
                              rates * states, sites),
                             dtype=torch.float32, device=dev)
@@ -826,8 +882,8 @@ def launch_fused_traversal_rows(tip_codes: torch.Tensor,
             _ptr(slots), _ptr(slot_sc), n_slots,
             out_p.data_ptr(), out_c.data_ptr(), sc_p.data_ptr(),
             sc_c.data_ptr(), float(threshold), float(factor),
-            int(rate_scalers), int(bf16), stream,
-            int(plan.plan == "on-chip"), plan.sites_per_thread, sp,
+            int(rate_scalers), ROWS_MODE_CODES[mxu], stream,
+            ROWS_PLAN_CODES[plan.plan], plan.sites_per_thread, sp,
             plan.rate_chunk, plan.groups, plan.smem_bytes)
     if err != 0:
         raise RuntimeError(f"fused_traversal_rows kernel launch failed: "

@@ -43,19 +43,24 @@ are added, tips count 0. With `rate_scalers` (PLL_ATTRIB_RATE_SCALERS,
 core_partials.c:760-771) each rate block is compared with the threshold
 and rescaled on its own, and the counts are [R, S], one per rate.
 
-Contraction modes (`mxu`, libpll2_tpu's names; they act on float32 with
-`ROWS_STATES_MIN` or more states, as in JAX, and smaller alphabets always
-contract exactly):
-  'split', 'highest' -- exact float32 products and sums. On the TPU 'split'
-      was a hi/lo bf16 triple pass that recovers fp32-class accuracy from a
-      bf16 matrix unit; a CUDA core's float32 FMA gives that directly, so
-      both names run the same code and give the same answer.
-  'bf16' -- the TPU's throughput mode, numerics kept: P and every
-      inner-child CLV value are rounded to bf16 (half-up, `round_bf16`, as
-      libpll2_tpu's split_bf16 hi part); raw tip values are rounded to
-      nearest even (`round_bf16_rne`, the `astype(bfloat16)` that JAX's
-      kernel applies to them); state-code tips' 0/1 indicators are exact;
-      products and sums stay float32.
+Contraction modes (`mxu`, libpll2_tpu's names and numerics; they act on
+float32 with `ROWS_STATES_MIN` or more states, as in JAX, and smaller
+alphabets always contract exactly):
+  'split' -- JAX's three-term bf16 product (pallas_fused.py:_fused_kernel's
+      unified MXU path): P and every child, slot rows, raw tip rows and
+      state-code tips alike, are split into a bf16 pair (`split_bf16`: hi
+      the half-up rounding, lo the residual rounded to nearest even; a
+      code tip's lo is 0), and each rate's product is Ph.ch + Ph.cl + Pl.ch
+      with float32 products (exact: bf16 times bf16) and float32 sums.
+      The rows kernel runs it on the tensor cores (wgmma).
+  'bf16' -- one bf16 term: P and every inner-child CLV value rounded to
+      bf16 half-up (`round_bf16`, the hi part of split_bf16), raw tip
+      values to nearest even (`round_bf16_rne`, the `astype(bfloat16)` that
+      JAX's kernel applies to them), state-code tips' 0/1 indicators exact;
+      products and sums float32. Also on the tensor cores in the rows
+      kernel.
+  'highest' -- exact float32 products and sums (CUDA-core FMAs in the
+      rows kernel).
 float64 contracts exactly in every mode, as libpll2_tpu's float64 path
 does. `fused_traversal_f64` is the walk in float64 on the card (the certified
 final evaluation, ops/df64.py): csrc/fused_traversal.cu's runtime-size body
@@ -71,6 +76,7 @@ __all__ = ["pack_fused_schedule", "fused_candidate_from_tree",
            "tip_code_matrix", "ctip_rows", "tip_clv_matrix",
            "fused_traversal", "fused_traversal_rows", "fused_traversal_f64",
            "fused_traversal_reference", "round_bf16", "round_bf16_rne",
+           "split_bf16",
            "query_edge_split", "query_spill_slots", "MXU_MODES",
            "ROWS_STATES_MIN", "FUSED_MAX_STATES", "ROWS_RATE_SCALERS_MAX",
            "QUERY_LAUNCH_BYTES"]
@@ -119,7 +125,7 @@ def query_edge_split(queries: int, edges: int, rates: int, states: int,
 
 def query_spill_slots(device, rates: int, states: int, n_slots: int,
                       rate_scalers: bool, sites: int,
-                      raw_tips: bool = False) -> int:
+                      raw_tips: bool = False, mxu: str = "split") -> int:
     """The slots a walk of the query form keeps in device memory on
     `device`: the spill plan's (ops/_kernels.py:spill_slots; the rows
     kernel's from ROWS_STATES_MIN states, else fused_plan's, with raw tip
@@ -131,7 +137,7 @@ def query_spill_slots(device, rates: int, states: int, n_slots: int,
 
     if states >= ROWS_STATES_MIN:
         plan = _kernels.device_rows_plan(device, rates, states, n_slots,
-                                         rate_scalers, sites)
+                                         rate_scalers, sites, mxu=mxu)
     else:
         plan = _kernels.device_fused_plan(device, rates, states, n_slots,
                                           rate_scalers, sites,
@@ -161,6 +167,42 @@ def round_bf16_rne(x: torch.Tensor) -> torch.Tensor:
     float32 (`x.astype(bfloat16)` in JAX, `.to(torch.bfloat16)` here). The
     rows kernel rounds raw tip values with the same bit operation."""
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def split_bf16(x: torch.Tensor):
+    """float32 values split into a bf16 pair kept as float32, (hi, lo):
+    hi = `round_bf16(x)`, lo = `round_bf16_rne(x - hi)`, so that hi + lo is
+    x to ~2^-17 relative (libpll2_tpu/ops/pallas_fused.py:split_bf16, the
+    operands of the 'split' mode). The rows kernel splits with the same
+    bit operations."""
+    hi = round_bf16(x)
+    return hi, round_bf16_rne(x - hi)
+
+
+def _mode_operands(mxu: str, states: int, dtype):
+    """(bf16, split): which rounded contraction a walk in `dtype` runs."""
+    rounded = states >= ROWS_STATES_MIN and dtype == torch.float32
+    return rounded and mxu == "bf16", rounded and mxu == "split"
+
+
+def _split_p(pmatrix: torch.Tensor) -> torch.Tensor:
+    """P [..., s, s] as 'split''s K-stacked weights [..., s, 3s]: [Ph | Ph |
+    Pl], against a child stacked as [ch; cl; ch] (`_split_child`), as JAX
+    concatenates them (pallas_fused.py:_fused_kernel's mv_inner)."""
+    ph, pl = split_bf16(pmatrix)
+    return torch.cat([ph, ph, pl], dim=-1)
+
+
+def _split_child(clv: torch.Tensor, is_code_tip) -> torch.Tensor:
+    """A child [..., s, S] stacked as [ch; cl; ch] along its states: a
+    state-code tip's 0/1 indicator is its own hi and its lo is 0."""
+    if is_code_tip is True:
+        return torch.cat([clv, torch.zeros_like(clv), clv], dim=-2)
+    hi, lo = split_bf16(clv)
+    if is_code_tip is not False:     # a mask over the walks (query form)
+        lo = torch.where(is_code_tip, torch.zeros_like(lo), lo)
+        hi = torch.where(is_code_tip, clv, hi)
+    return torch.cat([hi, lo, hi], dim=-2)
 
 
 def pack_fused_schedule(operations, n_tips: int, root_pair,
@@ -426,10 +468,11 @@ def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32
     fac = torch.tensor(factor, dtype=dtype, device=device)
     one = torch.ones((), dtype=dtype, device=device)
     slots: list = [None] * n_slots
-    bf16 = (mxu == "bf16" and states >= ROWS_STATES_MIN
-            and dtype == torch.float32)
+    bf16, split = _mode_operands(mxu, states, dtype)
     if bf16:
         pmatrix = round_bf16(pmatrix)
+    if split:
+        pmatrix = _split_p(pmatrix)
 
     def child(is_tip, idx):
         if is_tip == 1:
@@ -445,6 +488,8 @@ def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32
         clv, sc = child(is_tip, idx)
         if bf16 and is_tip != 1:
             clv = round_bf16(clv) if is_tip == 0 else round_bf16_rne(clv)
+        if split:
+            clv = _split_child(clv, is_tip == 1)
         return clv, sc
 
     for row in rows[:n_ops]:
@@ -496,10 +541,11 @@ def _query_reference(tip_codes, pmatrix, table, rates, states, n_slots,
     kk = torch.arange(k, device=device)
     shifts = torch.arange(states, device=device, dtype=torch.int64)
     codes, qcodes = tip_codes.long(), query_codes.long()
-    bf16 = (mxu == "bf16" and states >= ROWS_STATES_MIN
-            and dtype == torch.float32)
+    bf16, split = _mode_operands(mxu, states, dtype)
     if bf16:
         pmatrix = round_bf16(pmatrix)
+    if split:
+        pmatrix = _split_p(pmatrix)
     sc_tail = (rates, sites) if rate_scalers else (sites,)
     slots = torch.zeros((q_n, k, n_slots, rates, states, sites), dtype=dtype,
                         device=device)
@@ -510,8 +556,9 @@ def _query_reference(tip_codes, pmatrix, table, rates, states, n_slots,
 
     def operand(is_tip, idx, rounded):
         """Each walk's child (is_tip [K], idx [K]): CLVs [Q, K, R, s, S]
-        and counts [Q, K, ...], rounded to bf16 as the kernel reads them
-        where `rounded`."""
+        and counts [Q, K, ...], where `rounded` as the kernel's contraction
+        reads them: rounded to bf16 in 'bf16', stacked as [ch; cl; ch] in
+        'split'."""
         tip_idx = idx.clamp(0, codes.shape[0] - 1)
         c = torch.where((tip_idx == query_row)[None, :, None],
                         qcodes[:, None, :], codes[tip_idx][None])
@@ -520,24 +567,27 @@ def _query_reference(tip_codes, pmatrix, table, rates, states, n_slots,
         pick = (is_tip == 1)[None, :, None, None, None]
         if tip_clvs is not None:
             raw = tip_clvs[idx.clamp(0, tip_clvs.shape[0] - 1)].to(dtype)
-            if rounded:
+            if rounded and bf16:
                 raw = round_bf16_rne(raw)
             x = torch.where((is_tip == 2)[None, :, None, None, None],
                             raw[None, :, None], x)
             pick = pick | (is_tip == 2)[None, :, None, None, None]
         slot_idx = idx.clamp(0, n_slots - 1)
         sl = slots[:, kk, slot_idx]
-        if rounded:
+        if rounded and bf16:
             sl = round_bf16(sl)
         inner = (is_tip == 0)
         sc = torch.where(inner.view((1, k) + (1,) * len(sc_tail)),
                          slot_sc[:, kk, slot_idx], 0)
-        return torch.where(pick, x, sl), sc
+        x = torch.where(pick, x, sl)
+        if rounded and split:
+            x = _split_child(x, (is_tip == 1)[None, :, None, None, None])
+        return x, sc
 
     for op in range(n_ops):
         row = t[:, op]
-        left, lsc = operand(row[:, 1], row[:, 2], bf16)
-        right, rsc = operand(row[:, 4], row[:, 5], bf16)
+        left, lsc = operand(row[:, 1], row[:, 2], True)
+        right, rsc = operand(row[:, 4], row[:, 5], True)
         x = (torch.einsum('krij,qkrjs->qkris', pmatrix[kk, row[:, 3]], left)
              * torch.einsum('krij,qkrjs->qkris', pmatrix[kk, row[:, 6]],
                             right))
@@ -659,8 +709,7 @@ def fused_traversal_rows(tip_codes: torch.Tensor,   # [n_tips, S] int32
     from . import _kernels
     out = _launch(
         _kernels.launch_fused_traversal_rows, tip_codes, pmatrix, table,
-        rates, states, n_slots, threshold, factor,
-        bf16=(mxu == "bf16" and states >= ROWS_STATES_MIN),
+        rates, states, n_slots, threshold, factor, mxu,
         rate_scalers=rate_scalers, tip_clvs=tip_clvs,
         query_codes=query_codes, query_row=query_row)
     fused_traversal_rows.launches += 1

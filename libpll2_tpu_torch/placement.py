@@ -584,7 +584,7 @@ def _place_scores(codes_q,            # [Q, S] int32 query codes
         q_n, n_edges, R, s, sites, rate_scalers, budget,
         ops_fused.query_spill_slots(tip_codes.device, R, s, n_slots,
                                     rate_scalers, sites,
-                                    tip_clvs is not None))
+                                    tip_clvs is not None, mxu))
     root_p = pmat[torch.arange(n_edges, device=pmat.device), root_mats]
     out = []
     for e0 in range(0, n_edges, step):

@@ -15,9 +15,10 @@ libpll2_tpu_torch.convert) and each builds its NNI candidates with its own
     candidate, the budget JAX holds its own two paths to
     (tests/test_pallas.py:157); protein 'split' and 'bf16' at TOL_LOGL 5e-5
     (bench_validate.py:61-63), the budget of the port's single-topology
-    protein engine against JAX's (tests/test_torch_protein.py): JAX's
-    'split' is a hi/lo bf16 product, the port's exact float32, and 'bf16'
-    can round a value to the other bf16 neighbour;
+    protein engine against JAX's (tests/test_torch_protein.py): both
+    'split's are the same hi/lo bf16 product and both 'bf16's round the
+    same operands, but a last-bit difference of a float32 sum can round a
+    value to the other bf16 neighbour;
   * the port against itself: each score against `set_topology` +
     `loglikelihood()` of that candidate at 1e-12 (float64) and 1e-6
     (float32: its P-matrices come from one batch of K * E edges);

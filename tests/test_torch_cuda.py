@@ -8,10 +8,14 @@ Run on a machine with an NVIDIA GPU and nvcc, from the repository root:
 have; this file imports only torch and the port.) Each kernel is held
 against its plain PyTorch version on the same CUDA tensors: scaler counts
 equal, root CLVs to 1e-5 of each site's largest entry (FMA contraction vs
-PyTorch's summation order). In the rows kernel's 'bf16' mode both versions
-round the same operands to bf16, but a last-bit difference of a float32
-sum can round a value to the other bf16 neighbour, so that mode is held at
-the logL level, to 1e-4 relative. The level kernel (csrc/level_update.cu)
+PyTorch's summation order). In the rows kernel's 'bf16' and 'split' modes
+(the tensor cores, `test_rows_kernel_rounded_modes_match_plain_on_card`)
+both versions round the same operands to bf16, but a last-bit difference
+of a float32 sum can round a value to the other bf16 neighbour, and the
+tensor cores' float32 accumulation rounds toward zero: counts equal but
+at ties (at most 8 entries, by one), 'split''s root CLVs to 5e-4 of each
+site's largest entry (measured 1.0e-4), 'bf16''s to 2^-4 (measured
+1.2e-2) and both at the logL level, to 1e-4 relative. The level kernel (csrc/level_update.cu)
 is held to equal scaler rows and CLV rows to 1e-5 of each site's largest
 entry over a whole traversal, level by level; the pool kernel
 (csrc/pool_update.cu: the 4x4 size one launch a traversal, on device
@@ -326,10 +330,17 @@ def test_rows_kernel_matches_plain_on_card(cuda, case, mode):
     kw.update(rate_scalers=part.rate_scalers)
     plan = _kernels.device_rows_plan(cuda, part.rate_cats, part.states,
                                      eng.fused_slots, part.rate_scalers,
-                                     part.sites_padded)
-    assert plan.plan == ("spill" if case in ROWS_SPILL_CASES else "on-chip")
-    # 64-site tiles (two sites a thread) only where they fill the card
-    assert plan.sites_per_thread == (2 if case == "wide" else 1)
+                                     part.sites_padded, mxu=mode)
+    if mode == "bf16":   # the tensor cores' 64-site tiles where P fits
+        assert (plan.plan, plan.sites_per_thread) == (
+            ("spill", 1) if case == "rates32_states32" else
+            ("tc-spill", 2) if case in ROWS_SPILL_CASES else
+            ("tc-on-chip", 2))
+    else:
+        assert plan.plan == ("spill" if case in ROWS_SPILL_CASES
+                             else "on-chip")
+        # 64-site tiles (two sites a thread) only where they fill the card
+        assert plan.sites_per_thread == (2 if case == "wide" else 1)
     before = (fused.fused_traversal.launches,
               fused.fused_traversal_rows.launches)
     got = fused.fused_traversal(*args, mxu=mode, **kw)
@@ -353,9 +364,104 @@ def test_rows_kernel_matches_plain_on_card(cuda, case, mode):
     for g, w in zip(got[:2], want[:2]):
         site_max = w.abs().amax(dim=(0, 1)).clamp(min=1e-30)
         assert float(((g - w).abs() / site_max).max()) <= 1e-5
-    # 'split' is the same exact contraction as 'highest'
-    for g, w in zip(fused.fused_traversal(*args, mxu="split", **kw), got):
-        assert torch.equal(g, w)
+    # 'split' is JAX's three-term bf16 product, not 'highest''s exact one
+    # (test_rows_kernel_rounded_modes_match_plain_on_card holds it)
+    split = fused.fused_traversal(*args, mxu="split", **kw)
+    assert not torch.equal(split[0], got[0])
+
+
+# the rows kernel's rounded modes in every form it takes: one topology
+# (16 x 1000 AA unless named: `_protein_case`; 'rates1' one category),
+# per-rate counts and raw tips (`_mode_engine`), 3 and 130 candidates, 3
+# queries x 43 edges, 12 slots (more than the tensor cores' layout holds
+# on chip: their slots in device memory), 8 rates per rate and 16 rates x
+# 32 states (the same), and 32 rates x 32 states (P's atoms do not fit:
+# the CUDA cores' spill plan); the plan each must run
+ROUNDED_FORMS = {"walk": "tc-on-chip", "rates1": "tc-on-chip",
+                 "rates3": "tc-on-chip", "states16": "tc-on-chip",
+                 "states17": "tc-on-chip", "states21": "tc-on-chip",
+                 "states32": "tc-on-chip", "caterpillar": "tc-on-chip",
+                 "wide": "tc-on-chip", "per_rate": "tc-on-chip",
+                 "raw": "tc-on-chip", "raw_per_rate": "tc-on-chip",
+                 "k3": "tc-on-chip", "k130": "tc-on-chip",
+                 "q3": "tc-on-chip", "slots12": "tc-spill",
+                 "spill": "tc-spill", "spill_per_rate": "tc-spill",
+                 "spill_fma": "spill"}
+
+
+def _rounded_inputs(form, device):
+    """(partition, engine, args, kw) of one of ROUNDED_FORMS."""
+    if form == "q3":
+        placer, queries = _placement_problem(20, 24, 600, device)
+        args, kw = _query_inputs(placer, queries, 3, 43)
+        return placer.partition, placer._ensure_engine(), args, kw
+    if form in ("k3", "k130"):
+        part, eng, tree = _candidate_engine("aa", device)
+        args, kw = _candidate_inputs(part, eng, tree, int(form[1:]))
+        return part, eng, args, kw
+    if form in ("per_rate", "raw", "raw_per_rate"):
+        part, eng = _mode_engine({"per_rate": "aa_rate_cat", "raw": "aa_raw",
+                                  "raw_per_rate": "aa_raw_rate_r3"}[form],
+                                 device)
+    elif form == "rates1":
+        part, eng = _engine(random_utree([f"t{i}" for i in range(16)],
+                                         seed=3), 1000, device, states=20,
+                            rates=1, alphabet=AA_NOISY)
+    else:
+        part, eng = _protein_case({"spill": "rates16_states32",
+                                   "spill_per_rate":
+                                   "per_rate_rates8_states32",
+                                   "spill_fma": "rates32_states32"}.get(
+                                       form, form), device)
+    args, kw = _inputs(part, eng)
+    kw.update(rate_scalers=part.rate_scalers, tip_clvs=eng._tip_clvs())
+    if form == "slots12":
+        kw["n_slots"] = 12
+    return part, eng, args, kw
+
+
+@pytest.mark.parametrize("mode", ["split", "bf16"])
+@pytest.mark.parametrize("form", sorted(ROUNDED_FORMS))
+def test_rows_kernel_rounded_modes_match_plain_on_card(cuda, form, mode):
+    """The rows kernel in 'split' and 'bf16' (the tensor cores, or the
+    spill plan's rounded FMAs) against the plain version of the same mode
+    on the same inputs, one launch (module docstring's tolerances)."""
+    part, eng, args, kw = _rounded_inputs(form, cuda)
+    walks = args[2].shape[0] if args[2].dim() == 3 else 1
+    if kw.get("query_codes") is not None:
+        walks *= kw["query_codes"].shape[0]
+    plan = _kernels.device_rows_plan(cuda, part.rate_cats, part.states,
+                                     kw["n_slots"],
+                                     kw.get("rate_scalers", False),
+                                     args[0].shape[1], walks, mxu=mode)
+    assert plan.plan == ROUNDED_FORMS[form]
+    before = fused.fused_traversal_rows.launches
+    got = fused.fused_traversal(*args, mxu=mode, **kw)
+    assert fused.fused_traversal_rows.launches == before + 1
+    want = fused.fused_traversal_reference(*args, mxu=mode, **kw)
+    torch.cuda.synchronize()
+    agree = None
+    for g, w in zip(got[2:], want[2:]):
+        assert g.shape == w.shape
+        diff = (g.long() - w.long()).abs()
+        assert int((diff > 0).sum()) <= 8 and int(diff.max()) <= 1
+        # the sites whose counts agree (per rate: in every rate)
+        same = diff == 0 if not kw.get("rate_scalers") else \
+            (diff == 0).all(dim=-2)
+        agree = same if agree is None else agree & same
+    for g, w in zip(got[:2], want[:2]):
+        assert bool(torch.isfinite(g).all())
+        site_max = w.abs().amax(dim=(-3, -2)).clamp(min=1e-30)
+        err = ((g - w).abs().amax(dim=(-3, -2)) / site_max)[agree]
+        assert float(err.max()) <= (5e-4 if mode == "split" else 2.0 ** -4)
+    if form == "caterpillar":
+        assert int(want[2].max()) > 0
+    if args[2].dim() == 2 and form != "slots12":   # one topology: the logL
+        lk = [float(_fused_loglikelihood(*eng._args(), traversal=t,
+                                         mxu=mode, **eng._fused_kw())[0])
+              for t in (fused.fused_traversal,
+                        fused.fused_traversal_reference)]
+        assert abs(lk[0] - lk[1]) / abs(lk[1]) < 1e-4
 
 
 def test_protein_engine_on_card_matches_cpu_float64(cuda):

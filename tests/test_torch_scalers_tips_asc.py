@@ -159,8 +159,9 @@ def _rate_case(name, dtype):
 @pytest.mark.parametrize("case", sorted(RATE_CASES))
 def test_rate_scalers_fused_f32_matches_jax_interpret(case):
     """The port's fused path against JAX's fused Pallas kernel (plane
-    layout below 16 states, rows layout with mxu='highest' above; the port's
-    'split' is exact float32) in per-rate mode."""
+    layout below 16 states, rows layout with mxu='highest' above, the
+    port's engine in the same mode: both exact float32) in per-rate
+    mode."""
     tree, jp = _rate_case(case, jnp.float32)
     mxu = "highest" if jp.states >= 16 else "split"
     je = JTreeEngine(jp, tree, pallas="interpret", mxu=mxu)
@@ -168,7 +169,7 @@ def test_rate_scalers_fused_f32_matches_jax_interpret(case):
     part = _port(jp, torch.float32)
     assert part.scale_buffer.shape == (part.scale_buffers + 2,
                                        part.rate_cats, part.sites)
-    te = tp.TreeEngine(part, tree)
+    te = tp.TreeEngine(part, tree, mxu=mxu)
     assert te.execution_path == "fused"
     got, want = te.loglikelihood(), je.loglikelihood()
     assert abs(got - want) / abs(want) < TOL_LOGL
