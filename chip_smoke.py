@@ -24,9 +24,13 @@ each fatal on failure:
      fused_traversal_reference (plain PyTorch) on the card, float32: 16 taxa
      x 1000 ragged sites with gaps and ambiguity codes, an 80-taxon
      caterpillar where scaling must trigger, the 128 x 16384 main-path
-     shape, and every plan and thread layout of ops/_kernels.py:fused_plan
-     (40003 and 4465 sites: two sites a thread, ragged tails; 4159: one;
-     250 slots: the spill plan); then the runtime-size body (fused_generic,
+     shape (a thread block cluster of 2 blocks, FUSED_MAIN_PLAN), and
+     every plan and thread layout of ops/_kernels.py:fused_plan (40003 and
+     4465 sites: two sites a thread, ragged tails; 4159: one; 250 slots:
+     the spill plan), each 4 x 4 on-chip case equal to its walk at 1, 2, 4
+     and 8 blocks a cluster to the bit (`cluster_walks_equal`; the
+     246 x 4465 repeats walk of phase 13 in clusters of 4,
+     FUSED_REPEATS_PLAN); then the runtime-size body (fused_generic,
      every shape but 4 x 4: `generic_cases`) at 1, 3, 8 and 33 rates and at
      2, 5 and 15 states, each as the walk is, per rate, with raw tip rows,
      as 3 candidates, as 3 queries of 2 candidates and spilled (1000 slots,
@@ -398,7 +402,10 @@ the pruned tree's edges, and loglikelihood_loop's ms an evaluation; it
 prints them as one JSON line: two commits compared on one card.
 `--fused-only CHECKOUT` does the same for the DNA fused kernel: its call
 and device times on the DNA main path, per rate, with all tips raw and on
-the 246 x 4465 'repeats-dense-fused' inputs. `--generic-only CHECKOUT`
+the 246 x 4465 'repeats-dense-fused' inputs, each with its plan (G, SPT,
+blocks, clusters) and bound; where the checkout has them, the walk at each
+cluster size (`cluster_sweep`), a chunk of 128 DNA candidates, a query
+launch of 16 x 60 walks and the DNA loop's evaluation. `--generic-only CHECKOUT`
 does the same for the runtime-size body: phase 5b's three float32 shapes
 and the float64 walk on phase 24a's problems (the flagship's native
 stepwise tree over its 3581 patterns standing in for the final tree, which
@@ -489,6 +496,7 @@ WARMUP = 3
 # (`launches_device_us`)
 PROFILE_SESSIONS = 5
 PROFILE_WARMUP_S = 0.05    # sentinel kernels opening a profiled session
+PROFILE_MARKER_CYCLES = 1000   # a marker kernel's spin (`between_markers`)
 # fused_traversal.cu's thread layouts on an H100 (ops/_kernels.py:fused_plan,
 # 132 SMs): site counts and the threads a site each takes (40003 and 4465,
 # the repeats problem's width: two sites a thread, 64-site blocks with tails
@@ -497,6 +505,12 @@ PROFILE_WARMUP_S = 0.05    # sentinel kernels opening a profiled session
 # spill plan
 FUSED_LAYOUT_SITES = ((40003, 2), (4465, 2), (4159, 4))
 FUSED_SPILL_SLOTS = 250
+# the 4 x 4 on-chip body's plans (plan, threads a site, blocks a cluster)
+# at the DNA main path's 128 x 16384 (126 ops: two subtree streams side by
+# side) and the 246 x 4465 repeats problem (244 ops: four); the cases above
+# keep one block a walk
+FUSED_MAIN_PLAN = ("on-chip", 2, 2)
+FUSED_REPEATS_PLAN = ("on-chip", 2, 4)
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and float32 FLOP/s
 # outside the tensor cores (132 SMs x 256 FLOP a clock at 1980 MHz)
 H100_BYTES_PER_S = 3.35e12
@@ -645,10 +659,17 @@ def fused_plan_of(part, eng, n_slots=None, walks=1):
     engine's by default) and `walks` walks a launch, raw tip rows staged
     where the engine has them (a package without the runtime-size body's
     plan takes no such argument)."""
+    import inspect
+
     from libpll2_tpu_torch.ops import _kernels
 
     raw = ({"raw_tips": eng._tip_clvs() is not None}
            if hasattr(_kernels, "generic_plan") else {})
+    if walks == 1 and "split" in inspect.signature(
+            _kernels.device_fused_plan).parameters:
+        # the 4 x 4 on-chip body's cluster, from the engine's table's
+        # subtree splits (the launcher's plan)
+        raw["split"] = eng.fused_splits
     return _kernels.device_fused_plan(
         part.device, part.rate_cats, part.states,
         n_slots or eng.fused_slots, part.rate_scalers, part.sites_padded,
@@ -664,7 +685,161 @@ def plan_text(plan) -> str:
         text += (f", width {plan.padded_states}, {plan.warps} compute "
                  f"warp{'s' if plan.warps > 1 else ''}, a ring of "
                  f"{plan.depth}")
+    if hasattr(plan, "cluster"):         # the 4 x 4 on-chip body's
+        text += f", {plan.cluster} block{'s' if plan.cluster > 1 else ''} "\
+                f"a cluster"
     return text
+
+
+def cluster_of(plan) -> int:
+    """The blocks of a fused_traversal.cu plan's thread block cluster (1
+    where the package's plans have none)."""
+    return getattr(plan, "cluster", 1)
+
+
+def launch_text(plan, sites, walks=1) -> str:
+    """A 4 x 4 plan's launch: G (blocks a cluster), SPT (sites a compute
+    thread), its blocks and clusters over `walks` walks of `sites` sites."""
+    g = cluster_of(plan)
+    blocks = walks * -(-sites // plan.sites_per_block) * g
+    return (f"G {g}, SPT {4 // plan.threads_per_site if plan.plan == 'on-chip' else 1}, "
+            f"{blocks} blocks, {blocks // g} cluster{'s' if blocks > g else ''}"
+            + (f" of {g}" if g > 1 else " (no cluster)"))
+
+
+def cluster_walks_equal(name, codes, pm, table, kw, got, plan):
+    """A 4 x 4 on-chip walk launched at every cluster size (1, 2, 4, 8,
+    through the launcher's plan argument: launches that compare and are
+    not counted) equals `got`, the walk at its own plan's, bit for bit.
+    Returns the sizes compared."""
+    import torch
+    from libpll2_tpu_torch.ops import _kernels
+
+    if kw.get("splits") is None or plan.plan != "on-chip" \
+            or (kw["rates"], kw["states"]) != (4, 4):
+        return ()
+    base = _kernels.device_fused_plan(
+        pm.device, 4, 4, kw["n_slots"], kw.get("rate_scalers", False),
+        codes.shape[1], 1, kw.get("tip_clvs") is not None)
+    sizes = (1, 2, 4, 8)
+    for g in sizes:
+        if g == plan.cluster:
+            continue
+        out = _kernels.launch_fused_traversal(
+            codes, pm[None], table[None], kw["rates"], kw["states"],
+            kw["n_slots"], kw["threshold"], kw["factor"],
+            kw.get("rate_scalers", False), kw.get("tip_clvs"),
+            plan=base._replace(cluster=g), splits=kw["splits"])
+        torch.cuda.synchronize()
+        check(all(torch.equal(a[0], b) for a, b in zip(out, got)),
+              f"{name}: the walk at G {g} differs from G {plan.cluster}")
+    return sizes
+
+
+# a walk's cluster launches in a CUDA graph (`graph_replays`): the walks
+# captured, one a P-matrix set (loglikelihood_loop(65)'s evaluations), and
+# the replays checked in the main run
+GRAPH_WALKS = 65
+GRAPH_REPLAYS = 8
+
+
+def graph_replays(codes, pm, table, kw, plan, replays=GRAPH_REPLAYS,
+                  sessions=0):
+    """A 4 x 4 on-chip walk at `plan` (its cluster forced through the
+    launcher's plan argument: launches that are not counted) on GRAPH_WALKS
+    sets of P-matrices (P scaled by 1 - i / (4 GRAPH_WALKS), so that every
+    walk computes other rows), all captured in one CUDA graph, each
+    launch's root rows copied out and then overwritten with -1 inside the
+    graph; the graph replayed `replays` times, the copies set to -2 before
+    each. A launch that did not run in a replay leaves -1 (its rows from
+    the replay before were overwritten), one that ran out of turn another
+    walk's rows. Returns {"replays", "walks", "launches", "bad": the launches
+    whose rows differ from their eager walk's, bit for bit, "profiled": per
+    profiled session (`sessions` more replays under torch.profiler, each
+    after a lead replay) [our kernels in the window replay's host window,
+    our kernels in the whole trace, expected in the window, in all, ours
+    between the window's markers (`between_markers`; -1 without them)]}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, record_function
+    from libpll2_tpu_torch.ops import _kernels
+
+    walks = GRAPH_WALKS
+    pms = torch.stack([pm * (1.0 - i / (4.0 * walks))
+                       for i in range(walks)])
+
+    def launch(i):
+        return _kernels.launch_fused_traversal(
+            codes, pms[i][None], table[None], kw["rates"], kw["states"],
+            kw["n_slots"], kw["threshold"], kw["factor"],
+            kw.get("rate_scalers", False), kw.get("tip_clvs"), plan=plan,
+            splits=kw["splits"])
+
+    want = [launch(i) for i in range(walks)]
+    got = [tuple(torch.empty_like(o) for o in w) for w in want]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(walks):
+            for g, o in zip(got[i], launch(i)):
+                g.copy_(o)
+                o.fill_(-1)
+
+    def replay():
+        for g in got:
+            for t in g:
+                t.fill_(-2)
+        graph.replay()
+        torch.cuda.synchronize()
+        return sum(not all(torch.equal(a, b) for a, b in zip(g, w))
+                   for g, w in zip(got, want))
+
+    bad = sum(replay() for _ in range(replays))
+    profiled = []
+    sentinel = torch.zeros(1, device="cuda")
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            warm_end = time.perf_counter() + PROFILE_WARMUP_S
+            while time.perf_counter() < warm_end:
+                sentinel.add_(1)
+                torch.cuda.synchronize()
+                time.sleep(0.001)
+            bad += replay()
+            torch.cuda._sleep(PROFILE_MARKER_CYCLES)
+            torch.cuda.synchronize()
+            with record_function("pll.graph_window"):
+                bad += replay()
+            torch.cuda._sleep(PROFILE_MARKER_CYCLES)
+            for _ in range(8):
+                sentinel.add_(1)
+            torch.cuda.synchronize()
+        events = prof.events()
+        win = [e for e in events if e.name == "pll.graph_window"
+               and e.device_type == DeviceType.CPU]
+        ours = [e.time_range.start for e in events
+                if e.device_type == DeviceType.CUDA
+                and "fused_onchip" in e.name]
+        t0, t1 = ((win[0].time_range.start, win[0].time_range.end) if win
+                  else (0, 0))
+        marked = between_markers(events, ("fused_onchip",))
+        profiled.append([sum(t0 <= t < t1 for t in ours), len(ours), walks,
+                         2 * walks, -1 if marked is None else marked])
+    return {"replays": replays + 2 * sessions, "walks": walks,
+            "launches": walks * (replays + 2 * sessions), "bad": bad,
+            "profiled": profiled}
+
+
+def graph_replays_equal(name, codes, pm, table, kw, plan) -> str:
+    """`graph_replays` of a cluster plan: every launch of every replay
+    equal to its eager walk bit for bit. Returns the text that says so."""
+    got = graph_replays(codes, pm, table, kw, plan)
+    check(got["bad"] == 0, f"{name}: {got['bad']} of {got['launches']} "
+          f"launches at G {plan.cluster} replayed in a CUDA graph differ "
+          f"from their eager walks")
+    return (f"; {got['walks']} walks at G {plan.cluster} captured in a CUDA "
+            f"graph and replayed {got['replays']} times: all "
+            f"{got['launches']} launches equal to their eager walks")
 
 
 def root_block(part):
@@ -677,11 +852,15 @@ def root_block(part):
 
 def traversal_kw(part, eng):
     """The keyword arguments of the fused traversal for an engine's
-    partition: sizes, scaling, per-rate mode and raw tip rows."""
-    return dict(rates=part.rate_cats, states=part.states,
-                n_slots=eng.fused_slots, threshold=part.scale_threshold,
-                factor=part.scale_factor, rate_scalers=part.rate_scalers,
-                tip_clvs=eng._tip_clvs())
+    partition: sizes, scaling, per-rate mode, raw tip rows and the table's
+    subtree splits (where the package has them)."""
+    kw = dict(rates=part.rate_cats, states=part.states,
+              n_slots=eng.fused_slots, threshold=part.scale_threshold,
+              factor=part.scale_factor, rate_scalers=part.rate_scalers,
+              tip_clvs=eng._tip_clvs())
+    if hasattr(eng, "fused_splits"):
+        kw["splits"] = eng.fused_splits
+    return kw
 
 
 def compare_traversal(name, part, eng, must_scale=False, plan=None,
@@ -702,15 +881,28 @@ def compare_traversal(name, part, eng, must_scale=False, plan=None,
     if n_slots is not None:
         kw["n_slots"] = n_slots
     ran = ""
+    got_plan = None
     if part.states < 16:
         got_plan = fused_plan_of(part, eng, kw["n_slots"])
         ran = f"; {plan_text(got_plan)}"
+        if isinstance(got_plan, tuple) and hasattr(got_plan, "cluster"):
+            ran += f" ({launch_text(got_plan, part.sites_padded)})"
         if plan is not None:
-            check((got_plan.plan, got_plan.threads_per_site) == plan,
+            have = (got_plan.plan, got_plan.threads_per_site,
+                    cluster_of(got_plan))[:len(plan)]
+            check(have == tuple(plan),
                   f"{name}: ran {plan_text(got_plan)}, expected {plan}")
     got = fused_traversal(codes, pm, table, **kw)
     want = fused_traversal_reference(codes, pm, table, **kw)
     torch.cuda.synchronize()
+    if got_plan is not None and hasattr(got_plan, "cluster"):
+        sizes = cluster_walks_equal(name, codes, pm, table, kw, got,
+                                    got_plan)
+        if sizes:
+            ran += f"; equal to the walk at G {', '.join(map(str, sizes))} " \
+                   f"bit for bit"
+        if sizes and got_plan.cluster > 1:
+            ran += graph_replays_equal(name, codes, pm, table, kw, got_plan)
     ties = sum(match_counts(f"{name}, {which}", g_sc, w_sc, g_clv, w_clv,
                             root_block(part), part.scale_factor,
                             part.scale_threshold)
@@ -2129,7 +2321,7 @@ def repeats_main_path(device, tree, make, label, dense_ref):
     check(part.clv is None, "the dense-fused engine allocated dense rows")
     # the fused kernel against its plain version at this path's shape
     rdf_err = compare_traversal(f"repeats-dense-fused {label} shape", part,
-                                eng_rdf, plan=("on-chip", 2))[1]
+                                eng_rdf, plan=FUSED_REPEATS_PLAN)[1]
 
     ref = f64_edge(dense_ref, ops, blen, params, r)
     check_logl("step-by-step edge", lnl, ref[0], d, ref[1:3])
@@ -2223,7 +2415,7 @@ def repeats_times(part, engines, dense, levels, tree, gpu):
     codes, pm, table = traversal_inputs(eng_rdf)
     kw = dict(rates=part.rate_cats, states=part.states,
               n_slots=eng_rdf.fused_slots, threshold=part.scale_threshold,
-              factor=part.scale_factor)
+              factor=part.scale_factor, splits=eng_rdf.fused_splits)
     f_kernel = median_ms(lambda: fused.fused_traversal(codes, pm, table,
                                                        **kw))
     f_plain = median_ms(lambda: fused.fused_traversal_reference(
@@ -3004,7 +3196,8 @@ def rows_device(eng, part, gpu, modes=("split", "bf16", "highest")):
 def fused_device(label, part, eng, gpu) -> float:
     """The DNA fused kernel's device time (ms) over one traversal of an
     engine's inputs, from torch.profiler (median of 5), printed with its
-    time an op and the plan it ran."""
+    time an op, its bound and the plan it ran (on the 4 x 4 on-chip body:
+    G, SPT, blocks and clusters)."""
     from libpll2_tpu_torch.ops import _kernels
     from libpll2_tpu_torch.ops.fused import fused_traversal
 
@@ -3013,23 +3206,212 @@ def fused_device(label, part, eng, gpu) -> float:
     n_ops = len(table) - 1
     dev = kernel_device_us(lambda: fused_traversal(codes, pm, table, **kw),
                            "fused_") * 1e-3
-    ran = (f"; {plan_text(fused_plan_of(part, eng))}"
-           if hasattr(_kernels, "device_fused_plan") else "")
+    ran = ""
+    if hasattr(_kernels, "device_fused_plan"):
+        plan = fused_plan_of(part, eng)
+        ran = f"; {plan_text(plan)}"
+        if not hasattr(plan, "padded_states"):
+            ran += f"; {launch_text(plan, part.sites_padded)}"
+    bound = fused_bound(eng, part)
     print(f"fused kernel device time, {label}, {part.tips} x {part.sites} "
           f"(torch.profiler, median of 5 traversals; {gpu}): "
           f"{dev * 1e3:.1f} us ({dev * 1e3 / n_ops:.3f} us an op over "
-          f"{n_ops} ops){ran}", flush=True)
+          f"{n_ops} ops), bound {bound[0] * 1e3:.1f} us by {bound[1]}"
+          f"{ran}", flush=True)
     return dev
+
+
+def query_walk_inputs(placer, queries, q, n_edges):
+    """The query form's operands on a placer: the shared tip codes, the
+    first `n_edges` attachment edges' P [E, B, R, s, s] and tables, the
+    first `q` queries' codes; and its keywords."""
+    import numpy as np
+    import torch
+    from libpll2_tpu_torch.engine import _pmatrices
+
+    eng = placer._ensure_engine()
+    tables, blens, _, n_slots = placer._fused_batch_inputs()
+    m = eng._model_args()
+    pm = _pmatrices(*m[:5], m[7], blens[:n_edges].reshape(-1))
+    pm = pm.view(n_edges, -1, *pm.shape[1:])
+    seqs = [queries[k] for k in list(queries)[:q]]
+    codes = torch.as_tensor(placer._query_codes_batch(seqs).astype(np.int32),
+                            device=placer.partition.device)
+    p = placer.partition
+    kw = dict(rates=p.rate_cats, states=p.states, n_slots=n_slots,
+              threshold=p.scale_threshold, factor=p.scale_factor,
+              query_codes=codes, query_row=placer.query_row)
+    return (eng._tip_codes(), pm, tables[:n_edges].contiguous()), kw
+
+
+def cluster_sweep(label, part, eng, gpu) -> dict:
+    """The 4 x 4 on-chip walk of an engine at every cluster size G (1, 2,
+    4, 8; forced through the launcher's plan argument, launches that are
+    not counted): device us from torch.profiler, each with its critical
+    ops (`split_fused_schedule`), slots and blocks, where the package has
+    clusters."""
+    from libpll2_tpu_torch.ops import _kernels
+
+    codes, pm, table = traversal_inputs(eng)
+    kw = traversal_kw(part, eng)
+    splits = kw.get("splits")
+    if splits is None:
+        return {}
+    base = _kernels.device_fused_plan(
+        part.device, 4, 4, kw["n_slots"], part.rate_scalers,
+        part.sites_padded, 1, kw["tip_clvs"] is not None)
+    out = {}
+    for g in (1, 2, 4, 8):
+        plan = base._replace(cluster=g)
+        out[g] = kernel_device_us(lambda: _kernels.launch_fused_traversal(
+            codes, pm[None], table[None], 4, 4, kw["n_slots"],
+            kw["threshold"], kw["factor"], part.rate_scalers,
+            kw["tip_clvs"], plan=plan, splits=splits), "fused_")
+    print(f"fused kernel device time at each cluster size, {label}, "
+          f"{part.tips} x {part.sites} (torch.profiler, median of 5; {gpu}): "
+          + "; ".join(f"G {g}: {us:.1f} us ({splits(g)[1]} ops one after "
+                      f"another, {splits(g)[0]} slots, "
+                      f"{launch_text(base._replace(cluster=g), part.sites_padded)})"
+                      for g, us in out.items()), flush=True)
+    return out
+
+
+# `--fused-only`'s query launch: 16 queries x the first 60 attachment edges
+# of the DNA main path's tree with t127 pruned (phase 23's launches: 14
+# slots)
+FUSED_ONLY_QUERIES = (16, 60)
+
+
+# `--graph-replays`: profiled sessions a form
+GRAPH_SESSIONS = 30
+
+
+def graph_replays_only(device, gpu) -> dict:
+    """`--graph-replays`: on the DNA main path (G 2) and the 246 x 4465
+    repeats problem (G 4), `graph_replays` at the plan's cluster and at
+    G 1, GRAPH_SESSIONS of its replays under torch.profiler; then phase
+    27's profiled loglikelihood_loop(65) (`profiled_window`) as many times
+    with the engine's splits (its cluster) and without them (one block a
+    walk). Prints and returns, for each, the launches whose rows differed
+    and, per session, the profiler's count of our kernels against the
+    launches."""
+    from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.ops import _kernels
+    from libpll2_tpu_torch.trees import random_alignment, random_utree
+
+    headers, seqs = random_alignment(N_TAXA, N_SITES, seed=SEED)
+    tree = random_utree(headers, seed=SEED)
+    cases = {"dna": build_engine(tree, dict(zip(headers, seqs)), N_SITES,
+                                 device)}
+    rep_tree, _, make = flagship_repeats()
+    part = make(device)
+    cases["repeats"] = (part, TreeEngine(part, rep_tree))
+    out = {}
+    for key, (part, eng) in cases.items():
+        codes, pm, table = traversal_inputs(eng)
+        kw = traversal_kw(part, eng)
+        g_plan = cluster_of(fused_plan_of(part, eng))
+        base = _kernels.device_fused_plan(
+            part.device, 4, 4, kw["n_slots"], part.rate_scalers,
+            part.sites_padded, 1, kw["tip_clvs"] is not None)
+        rec = out[key] = {"cluster": g_plan}
+        for g in (g_plan, 1):
+            got = graph_replays(codes, pm, table, kw,
+                                base._replace(cluster=g),
+                                sessions=GRAPH_SESSIONS)
+            rec[f"graph_g{g}"] = got
+            prof = got["profiled"]
+            print(f"{key}, G {g}: {got['walks']} walks in a CUDA graph, "
+                  f"{got['replays']} replays, {got['bad']} of "
+                  f"{got['launches']} launches differing from their eager "
+                  f"walks; profiled: {sum(p[0] < p[2] for p in prof)} of "
+                  f"{len(prof)} sessions short in the window "
+                  f"({sum(p[2] - p[0] for p in prof)} kernels missing), "
+                  f"{sum(p[1] < p[3] for p in prof)} short in the whole "
+                  f"trace ({sum(p[3] - p[1] for p in prof)} missing), "
+                  f"{sum(p[4] != p[2] for p in prof)} between the markers "
+                  f"differing from {got['walks']}; {gpu}", flush=True)
+        kept = eng.fused_splits
+        for splits in (kept, None):
+            eng.fused_splits = splits
+            g = cluster_of(fused_plan_of(part, eng)) if splits else 1
+            loop = []
+            for _ in range(GRAPH_SESSIONS):
+                win = profiled_window(lambda: eng.loglikelihood_loop(65))
+                loop.append([win["ours"], sum(win["counted"].values())])
+            rec[f"loop_g{g}"] = loop
+            print(f"{key}, G {g}: profiled loglikelihood_loop(65), "
+                  f"{sum(a < b for a, b in loop)} of {len(loop)} sessions "
+                  f"with fewer of our kernels than counted "
+                  f"({sum(b - a for a, b in loop)} missing); {gpu}",
+                  flush=True)
+        eng.fused_splits = kept
+    return out
+
+
+def fused_registers_check(lib_path) -> dict:
+    """The 4 x 4 on-chip body's cluster instantiations (fused_onchip<SPT,
+    PER_RATE, true>) as built: the most registers a thread at each SPT from
+    the `-Xptxas -v` log, which must be allocated as many a warp as the
+    plan's residency model assumes (ops/_kernels.py:FUSED_REGISTERS).
+    Prints and returns them."""
+    import re
+
+    from libpll2_tpu_torch.ops import _kernels
+
+    log = lib_path.with_suffix(".log")
+    regs, spt = {}, None
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            m = re.search(r"fused_onchipILi(\d)ELb[01]ELb1E", m.group(1))
+            spt = int(m.group(1)) if m else None
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and spt is not None:
+            regs[spt] = max(regs.get(spt, 0), int(m.group(1)))
+            spt = None
+    unit = _kernels.WARP_REGISTER_UNIT // 32
+    print(f"fused_onchip's cluster body as built: registers a thread "
+          f"{regs} (the plan assumes {_kernels.FUSED_REGISTERS}, allocated "
+          f"{unit} at a time)", flush=True)
+    check(sorted(regs) == sorted(_kernels.FUSED_REGISTERS) and all(
+        -(-regs[s] // unit) * unit == w
+        for s, w in _kernels.FUSED_REGISTERS.items()),
+        f"the cluster body's registers {regs} differ from the plan's "
+        f"FUSED_REGISTERS {_kernels.FUSED_REGISTERS}")
+    return regs
+
+
+def topology_change_ms(eng, trees, reps=None) -> tuple:
+    """Host ms of `eng.set_topology(tree)` then `eng.loglikelihood()` (its
+    value on the host), the `trees` taken in turn, after one change to
+    each: (least, median) of `reps` (LOOP_REPS) changes. The engine is
+    left on the last of `trees`."""
+    reps = reps or LOOP_REPS
+    times = []
+    for i in range(reps + len(trees)):
+        t0 = time.perf_counter()
+        eng.set_topology(trees[i % len(trees)])
+        eng.loglikelihood()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times = times[len(trees):]
+    return min(times), statistics.median(times)
 
 
 def fused_only(device, gpu) -> dict:
     """`--fused-only`: the DNA fused kernel's call and device times (ms)
     on the DNA main path, per rate, with all 128 tips raw and on the
-    246 x 4465 'repeats-dense-fused' inputs, and the device time of a
-    chunk of the DNA tree's NNI neighbours where the package has the
-    candidate form, of the package that was imported, which may be
-    another checkout's."""
+    246 x 4465 'repeats-dense-fused' inputs, each with the plan it ran;
+    where the package has them, the walk at each cluster size
+    (`cluster_sweep`: DNA, repeats and a 16-taxon walk at 1000 sites), the
+    device time of a chunk of the DNA tree's NNI neighbours (the candidate
+    form), of one query-form launch (FUSED_ONLY_QUERIES) and the DNA
+    'fused' loglikelihood_loop's ms an evaluation (bench.py's differenced
+    trip counts), of the package that was imported, which may be another
+    checkout's."""
     from libpll2_tpu_torch import TreeEngine
+    from libpll2_tpu_torch.ops import _kernels
     from libpll2_tpu_torch.ops.fused import fused_traversal
     from libpll2_tpu_torch.trees import random_alignment, random_utree
 
@@ -3051,9 +3433,25 @@ def fused_only(device, gpu) -> dict:
         kw = traversal_kw(part, eng)
         ms = median_ms(lambda: fused_traversal(codes, pm, table, **kw))
         dev = fused_device(key, part, eng, gpu)
+        plan = fused_plan_of(part, eng)
         out[key] = {"ms": ms, "device_ms": dev,
-                    "us_per_op": dev * 1e3 / (len(table) - 1)}
+                    "us_per_op": dev * 1e3 / (len(table) - 1),
+                    "bound_ms": fused_bound(eng, part)[0],
+                    "threads_per_site": plan.threads_per_site,
+                    "cluster": cluster_of(plan)}
         print(f"  fused kernel call, {key}: {ms:.4f} ms", flush=True)
+    # the cluster sizes side by side: the two problems above and a
+    # 16-taxon walk at 1000 sites, where a cluster costs more than it gains
+    headers16, seqs16 = random_alignment(16, 1000, alphabet="ACGT-NRY",
+                                         seed=3)
+    small = build_engine(random_utree(headers16, seed=3),
+                         dict(zip(headers16, seqs16)), 1000, device)
+    for key, (part, eng) in (("dna", cases["dna"]),
+                             ("repeats", cases["repeats"]),
+                             ("small", small)):
+        sweep = cluster_sweep(key, part, eng, gpu)
+        if sweep:
+            out.setdefault("clusters_us", {})[key] = sweep
     from libpll2_tpu_torch import engine
     if hasattr(engine, "CANDIDATE_CHUNK"):  # a package with candidates
         part, eng = cases["dna"]
@@ -3062,12 +3460,75 @@ def fused_only(device, gpu) -> dict:
         args, kw = candidate_inputs(part, eng, packed)
         dev = kernel_device_us(lambda: fused_traversal(*args, **kw),
                                "fused_") * 1e-3
+        plan = _kernels_plan(part, kw["n_slots"], len(packed),
+                             kw.get("splits"))
+        bound = candidate_bound(part, len(packed), args[2].shape[1] - 1)
         out["candidates"] = {"device_ms": dev, "candidates": len(packed),
-                             "us_per_candidate": dev * 1e3 / len(packed)}
+                             "us_per_candidate": dev * 1e3 / len(packed),
+                             "bound_ms": bound[0],
+                             "cluster": cluster_of(plan)}
         print(f"fused kernel device time, a chunk of {len(packed)} DNA "
               f"candidates (torch.profiler, median of 5; {gpu}): "
               f"{dev * 1e3:.1f} us ({dev * 1e3 / len(packed):.2f} us a "
-              f"candidate)", flush=True)
+              f"candidate), bound {bound[0] * 1e3:.1f} us by {bound[1]}; "
+              f"{plan_text(plan)}; "
+              f"{launch_text(plan, part.sites_padded, len(packed))}",
+              flush=True)
+    if hasattr(fused_traversal, "query_launches"):   # the query form
+        from libpll2_tpu_torch import EdgePlacer
+
+        ref, ref_by, victim, _ = pruned_reference(tree, by,
+                                                  f"t{N_TAXA - 1}")
+        placer = EdgePlacer(ref, ref_by, device=device)
+        freqs, subst = dna_model()
+        placer.set_model(freqs, subst, alpha=0.8)
+        q, e = FUSED_ONLY_QUERIES
+        queries = mutated_queries(ref_by, q, 2, "ACGT",
+                                  start={"victim": victim})
+        args, kw = query_walk_inputs(placer, queries, q, e)
+        dev = kernel_device_us(lambda: fused_traversal(*args, **kw),
+                               "fused_") * 1e-3
+        p = placer.partition
+        plan = _kernels_plan(p, kw["n_slots"], q * e, kw.get("splits"))
+        bound = query_bound(p, q, e, args[2].shape[1] - 1)
+        out["query"] = {"device_ms": dev, "walks": q * e,
+                        "us_per_walk": dev * 1e3 / (q * e),
+                        "slots": kw["n_slots"], "bound_ms": bound[0],
+                        "cluster": cluster_of(plan)}
+        print(f"fused kernel device time, a query launch of {q} x {e} "
+              f"walks, {kw['n_slots']} slots (torch.profiler, median of 5; "
+              f"{gpu}): {dev * 1e3:.1f} us ({dev * 1e3 / (q * e):.2f} us a "
+              f"walk), bound {bound[0] * 1e3:.1f} us by {bound[1]}; "
+              f"{plan_text(plan)}; {launch_text(plan, p.sites_padded, q * e)}",
+              flush=True)
+        del placer
+    # a walk right after a topology change: set_topology, then
+    # loglikelihood() (the new table packed, its splits made where the
+    # package makes them, the walk, its value on the host), the main
+    # path's and the repeats problem's trees taken in turn with a second
+    # random tree of as many taxa (same tip buffers, other tips paired)
+    for key, first in (("dna", tree), ("repeats", rep_tree)):
+        part, eng = cases[key]
+        second = random_utree([n.label for n in first.tips()],
+                              seed=SEED + 1)
+        change = topology_change_ms(eng, (second, first))
+        steady = host_ms(eng.loglikelihood, reps=20)
+        out[key].update(topology_change_ms=change[1],
+                        topology_change_least_ms=change[0],
+                        loglikelihood_ms=steady[1])
+        print(f"  {key}: set_topology + loglikelihood() {change[1]:.3f} ms "
+              f"(least {change[0]:.3f}; {LOOP_REPS} changes) beside "
+              f"loglikelihood() alone {steady[1]:.3f} ms (least "
+              f"{steady[0]:.3f})", flush=True)
+    part, eng = cases["dna"]
+    if hasattr(eng, "loglikelihood_loop"):   # the loops
+        k1, k2 = LOOP_BENCH
+        t1, t2 = best_ms([lambda: eng.loglikelihood_loop(k1),
+                          lambda: eng.loglikelihood_loop(k2)])
+        out["loop_ms_per_evaluation"] = (t2 - t1) / (k2 - k1)
+        print(f"DNA 'fused' loglikelihood_loop, ms an evaluation ({k1} and "
+              f"{k2} differenced, best of {LOOP_REPS}; {gpu}): "
+              f"{out['loop_ms_per_evaluation']:.4f}", flush=True)
     return out
 
 
@@ -3698,7 +4159,7 @@ def slice_kernel_cases(device, small, small_by, cat, cat_by, big, big_by,
                              rate_scalers=True)
     note("fused_per_rate", compare_traversal("per-rate, main-path shape",
                                              part, eng,
-                                             plan=("on-chip", 2))[1])
+                                             plan=FUSED_MAIN_PLAN)[1])
     keep["fused_per_rate"] = (part, eng)
     # kernel 1 per rate and with raw tips in every plan and thread layout
     for sites, tps in FUSED_LAYOUT_SITES:
@@ -3730,7 +4191,7 @@ def slice_kernel_cases(device, small, small_by, cat, cat_by, big, big_by,
     check(int((eng.table[:-1, [1, 4]] == 2).sum()) == N_TAXA,
           "not every tip is a raw row")
     note("fused_raw", compare_traversal("raw tips, all 128", part, eng,
-                                        plan=("on-chip", 2))[1])
+                                        plan=FUSED_MAIN_PLAN)[1])
     keep["fused_raw"] = (part, eng)
     part = dna_partition(small, small_by, 1000, device, rate_scalers=True)
     set_raw_tips(part, small, small_by, every=2)
@@ -4555,6 +5016,10 @@ def candidate_inputs(part, eng, packed):
     pm = pm.view(len(packed), -1, *pm.shape[1:])
     kw = traversal_kw(part, eng)
     kw["n_slots"] = max(q[3] for q in packed)
+    if "splits" in kw:   # the candidates' own
+        from libpll2_tpu_torch.ops.fused import FusedSplits
+
+        kw["splits"] = FusedSplits(np.stack([q[0] for q in packed]))
     return (eng._tip_codes(), pm, tables), kw
 
 
@@ -4572,13 +5037,19 @@ def candidate_bound(part, k, n_ops, mxu="highest"):
     return rows_bound(n_bytes, k * traversal_flops(n_ops, S, R, s), s, mxu)
 
 
-def _kernels_plan(part, n_slots, k):
+def _kernels_plan(part, n_slots, k, splits=None):
+    """fused_traversal.cu's plan of a launch of `k` walks; with the
+    launch's `splits` (ops/fused.py:FusedSplits of its tables) the 4 x 4
+    on-chip body's cluster too, as the launcher plans it."""
     from libpll2_tpu_torch.ops import _kernels
 
+    extra = {}
+    if splits is not None:
+        extra["split"] = splits
     return _kernels.device_fused_plan(part.device, part.rate_cats,
                                       part.states, n_slots,
                                       part.rate_scalers, part.sites_padded,
-                                      k)
+                                      k, **extra)
 
 
 def rows_plan_text(part, n_slots, k, mxu="split"):
@@ -4662,7 +5133,8 @@ def candidate_kernel(label, part, eng, packed, gpu, mxu="split"):
     args, kw = candidate_inputs(part, eng, packed)
     k, n_ops = len(packed), args[2].shape[1] - 1
     if part.states < 16:
-        plan = plan_text(_kernels_plan(part, kw["n_slots"], k))
+        plan = plan_text(_kernels_plan(part, kw["n_slots"], k,
+                                       kw.get("splits")))
     else:
         plan = rows_plan_text(part, kw["n_slots"], k, mxu)
     plain_ms = []
@@ -6879,7 +7351,8 @@ def placement_case(label, placer, batch, stream, chunk, gpu, jplace=False,
     bound = query_bound(p, q, e, n_ops, kw.get("mxu", "split"))
     plan = (rows_plan_text(p, kw["n_slots"], q * e, kw.get("mxu", "split"))
             if kernel == "rows"
-            else plan_text(_kernels_plan(p, kw["n_slots"], q * e)))
+            else plan_text(_kernels_plan(p, kw["n_slots"], q * e,
+                                         kw.get("splits"))))
     print(f"placement times [{label}] ({gpu}): place_batch {ms:.1f} ms "
           f"({ms / len(batch):.2f} ms a query, {len(batch) / ms * 1e3:.1f} "
           f"queries/s, host clock); a launch of {q} x {e} walks of {n_ops} "
@@ -8715,7 +9188,8 @@ def idle_share(device, t0, t1):
 
 def profiled_window(fn):
     """One call of `fn` under torch.profiler: {"ours": the kernels of ours
-    it launched, "idle": its device-idle share, "ms": its host window,
+    it launched (`between_markers`), "idle": its device-idle share, "ms":
+    its host window,
     "counted": the launch counters over it, and, where the call replays a
     graph (run_chained's `pll.loop.replays` range), "replay_idle" and
     "replay_ms": the same from the replays' first enqueue to the device's
@@ -8742,9 +9216,12 @@ def profiled_window(fn):
             fn()
             torch.cuda.synchronize()
             reset_counts()
+            torch.cuda._sleep(PROFILE_MARKER_CYCLES)
+            torch.cuda.synchronize()
             with record_function("pll.loop_window"):
                 fn()
                 torch.cuda.synchronize()
+            torch.cuda._sleep(PROFILE_MARKER_CYCLES)
             counted = counts()
             for _ in range(8):
                 sentinel.add_(1)
@@ -8752,7 +9229,8 @@ def profiled_window(fn):
         events = prof.events()
         win = [e for e in events if e.name == "pll.loop_window"
                and e.device_type == DeviceType.CPU]
-        if not win:
+        ours = between_markers(events, LOOP_KERNELS)
+        if not win or ours is None:
             continue
         t0, t1 = win[0].time_range.start, win[0].time_range.end
         spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -8763,10 +9241,8 @@ def profiled_window(fn):
         if not spans:
             continue
         device = [(a, b) for a, b, _ in spans]
-        out = {"ours": sum(1 for _, _, n in spans
-                           if any(k in n for k in LOOP_KERNELS)),
-               "idle": idle_share(device, t0, t1), "ms": (t1 - t0) / 1e3,
-               "counted": counted}
+        out = {"ours": ours, "idle": idle_share(device, t0, t1),
+               "ms": (t1 - t0) / 1e3, "counted": counted}
         rep = [e for e in events if e.name == "pll.loop.replays"
                and e.device_type == DeviceType.CPU
                and t0 <= e.time_range.start < t1]
@@ -8778,6 +9254,24 @@ def profiled_window(fn):
         return out
     check(False, f"the profiler recorded no window with device events in "
           f"{PROFILE_SESSIONS} sessions")
+
+
+def between_markers(events, names):
+    """The device kernels whose names hold one of `names` that started
+    between the two marker kernels (torch.cuda._sleep's `spin_kernel`) of
+    a profiled session, by the device's own timestamps: a count that no
+    offset between the host's clock and the device's can move (the host
+    window, by the host's clock, lost up to 15 of 65 kernels that all ran:
+    PERF.md, Findings, PR 27). None without exactly two markers."""
+    from torch.autograd import DeviceType
+
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    marks = sorted(e.time_range.start for e in device
+                   if "spin_kernel" in e.name)
+    if len(marks) != 2:
+        return None
+    return sum(marks[0] < e.time_range.start < marks[1] for e in device
+               if any(n in e.name for n in names))
 
 
 def best_ms(fns, reps=LOOP_REPS) -> list:
@@ -8952,6 +9446,11 @@ def main() -> int:
                     "path, importing the port from the checkout REPO (for "
                     "one commit against another on the same card), and "
                     "print the times as one JSON line")
+    ap.add_argument("--graph-replays", action="store_true",
+                    help="only replay the DNA fused kernel's cluster "
+                    "launches in CUDA graphs, every launch's rows checked, "
+                    "and count them under torch.profiler beside one block "
+                    "a walk, and print the counts as one JSON line")
     ap.add_argument("--fused-only", metavar="REPO", default=None,
                     help="only time the DNA fused kernel (main path, per "
                     "rate, raw tips, the repeats problem, and a chunk of "
@@ -9028,6 +9527,10 @@ def main() -> int:
         print(f"rows kernel of {os.path.abspath(args.rows_only)}",
               flush=True)
         print(json.dumps({"rows_only": rows_only(device, gpu),
+                          "gpu": gpu}), flush=True)
+        return 0
+    if args.graph_replays:
+        print(json.dumps({"graph_replays": graph_replays_only(device, gpu),
                           "gpu": gpu}), flush=True)
         return 0
     if args.fused_only:
@@ -9133,7 +9636,8 @@ def main() -> int:
     big_by = dict(zip(headers_big, seqs))
     _, max_abs = compare_case("main-path shape", random_utree(headers_big,
                                                               seed=SEED),
-                              big_by, N_SITES, device, plan=("on-chip", 2))
+                              big_by, N_SITES, device,
+                              plan=FUSED_MAIN_PLAN)
 
     # 4. main path
     eng, part, launches = main_path(device)
@@ -9141,6 +9645,7 @@ def main() -> int:
     # 5. times
     ms_kernel, ms_plain = times(eng, part, gpu, N_TAXA, N_SITES)["split"]
     fused_dev = fused_device("DNA main path", part, eng, gpu)
+    fused_registers = fused_registers_check(_kernels.library_path())
 
     # 5b. the runtime-size body at full width
     generic = generic_phase(device, gpu)
@@ -9489,6 +9994,7 @@ def main() -> int:
         **bound("fused_traversal"),
         "plan": fused_plan_of(part, eng).plan,
         "threads_per_site": fused_plan_of(part, eng).threads_per_site,
+        "cluster": cluster_of(fused_plan_of(part, eng)),
         "device_ms": fused_dev,
         "us_per_op": fused_dev * 1e3 / (len(eng.table) - 1),
         "repeats_launches": rep[6][0], "repeats_max_abs_err": rep[6][1],
@@ -9498,6 +10004,8 @@ def main() -> int:
         "repeats_device_ms": rep_fused_dev,
         "repeats_threads_per_site": fused_plan_of(
             rep[2], rep[3][1]).threads_per_site,
+        "repeats_cluster": cluster_of(fused_plan_of(rep[2], rep[3][1])),
+        "cluster_registers": fused_registers,
         **variant("per_rate", "fused_per_rate", pr_fused),
         "per_rate_device_ms": var_dev["fused_per_rate"],
         **variant("raw_tips", "fused_raw", raw_fused),

@@ -88,7 +88,27 @@
 //     waits on one mbarrier an op and arrives on another; there is no block
 //     barrier after the barriers' initialisation. A rate's 4 x 4 block of P
 //     is padded to 20 floats, so the 4 rates' rows fall in distinct banks.
-//     DNA (7 slots) takes 48,832 bytes a block at two sites a thread.
+//     DNA (7 slots) takes 48,848 bytes a block at two sites a thread.
+//   on-chip in a thread block cluster (the same body, `cluster` blocks): a
+//     walk's only parallelism is its sites, and its ops run one after
+//     another, so a walk alone leaves most of the card's warps idle (at 128
+//     x 16384, 256 blocks: 8 compute warps an SM). A walk's disjoint
+//     subtrees are independent: ops/fused.py:split_fused_schedule splits
+//     the table into one program a block, each with its own slots, and a
+//     top stream (the ops above the subtree roots). The cluster's blocks
+//     take the same block of sites, each walks its program side by side in
+//     its own shared memory; a peer then arrives on block 0's join mbarrier
+//     (release at cluster scope, one arrival a compute warp), block 0
+//     walks the top stream after it (acquire), reading the roots from the
+//     peers' shared memory (distributed shared memory: mapa and
+//     ld.shared::cluster; the peer's thread of the same index wrote the
+//     column and the count copy a thread reads), writes the root rows and
+//     arrives on each peer's done mbarrier, which keeps the peer resident
+//     until its roots have been read. Every op is the same row with other
+//     slots, so each block computes what the whole walk computes, to the
+//     bit. ops/_kernels.py:fused_plan picks the cluster from a model of
+//     the waves and the issue limit; launches that fill the card's block
+//     slots without it keep one block a walk.
 //   spill (fused_fixed, 4 x 4): where the slots do not fit in a block's
 //     shared memory, one thread owns one site and the slots stay in device
 //     memory [K][n_slots][R * s][S], as the launcher allocates them.
@@ -132,6 +152,14 @@ constexpr int kOnchipThreads = kComputeThreads + 32;
 constexpr int kDepth = 4;
 constexpr int kRateWords = 20;
 constexpr int kSideWords = 4 * kRateWords;
+// the split table of a cluster (ops/fused.py:split_fused_schedule): a
+// child in a peer's shared memory (is_tip kRemote, index rank <<
+// kRankShift | slot), the header's rows after the root row, the blocks a
+// cluster at most (the portable limit)
+constexpr int kRemote = 3;
+constexpr int kRankShift = 16;
+constexpr int kSplitHeader = 3;
+constexpr int kMaxCluster = 8;
 
 template <typename T>
 struct ArgsT {
@@ -157,6 +185,9 @@ struct ArgsT {
   // (slots, outputs), in elements (0 for the slots on chip)
   long long table_stride, pmat_stride, slot_stride, slot_sc_stride;
   long long out_stride, sc_stride;
+  // the on-chip 4 x 4 body's thread block cluster: blocks that walk the
+  // same sites, each its part of a split table (1: the packed table)
+  int cluster;
 };
 
 // the float32 walks; the generic one is also instantiated in float64
@@ -241,7 +272,9 @@ __device__ __forceinline__ T tip_bit(unsigned code, int j) {
 // block holds SPB = 32 * SPT sites. Shared memory layout, in 4-byte words
 // (every part a multiple of 16 bytes):
 //   barriers [2][kDepth] uint64: full (the producer's copies of an entry
-//            landed) and empty (the compute threads are done with it)
+//            landed) and empty (the compute threads are done with it);
+//            then [2] uint64 of a cluster: join (block 0: the peers' streams
+//            are done) and done (a peer: block 0 has read its roots)
 //   ring     [kDepth][ring_words(SPT)]: one op's inputs,
 //            [row 8 int][P 2 sides x 4 rates x kRateWords]
 //            [raw tips 2 x SPB sites x 4 float][tip codes 2 x SPB int]
@@ -254,7 +287,7 @@ __host__ __device__ constexpr int ring_words(int spt) {
 
 __host__ __device__ inline size_t onchip_smem_words(int n_slots, int spt) {
   const size_t spb = 32 * spt;
-  return 4 * kDepth + (size_t)kDepth * ring_words(spt) +
+  return 4 * kDepth + 4 + (size_t)kDepth * ring_words(spt) +
          (size_t)n_slots * (spb * 16 + (size_t)spt * kComputeThreads);
 }
 
@@ -312,32 +345,126 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned pari
   }
 }
 
+// Distributed shared memory. `addr` (a shared::cta address of this block)
+// as the same place in the cluster's block `rank`
+__device__ __forceinline__ unsigned peer_addr(unsigned addr, unsigned rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float4 peer_load4(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int peer_load(unsigned addr) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// one arrival on a peer's mbarrier, ordered after this thread's earlier
+// shared-memory accesses for the cluster
+__device__ __forceinline__ void peer_arrive(unsigned addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+
+// mbar_wait whose reads after it see the peers' writes before their
+// arrivals (peer_arrive)
+__device__ __forceinline__ void mbar_wait_cluster(unsigned long long* bar, unsigned parity) {
+  for (unsigned n = 0;; ++n) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 24)) __trap();
+  }
+}
+
+// The cluster barrier, split: every thread of the cluster arrives once its
+// block's mbarriers are initialised (fence.mbarrier_init by the thread that
+// initialised them), and waits before its first access to a peer's shared
+// memory, so that the barrier's latency hides behind the walk.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The column `col` of the slot that `idx` (rank << kRankShift | slot)
+// names in the cluster's block `rank`, and in `sc` the count copy
+// `count_at` there (the same place in the peer's shared memory as this
+// block's slot and count of that index)
+template <int SPT>
+__device__ __forceinline__ float4 peer_slot(const float4* slots, const int* cnt, int idx,
+                                            int col, int count_at, int& sc) {
+  const unsigned peer = static_cast<unsigned>(idx) >> kRankShift;
+  const int sl = idx & ((1 << kRankShift) - 1);
+  sc = peer_load(peer_addr(smem_addr(cnt + sl * SPT * kComputeThreads + count_at), peer));
+  return peer_load4(peer_addr(smem_addr(slots + sl * 32 * SPT * 4 + col), peer));
+}
+
+// The rows [begin, begin + n) of the candidate's table that this block
+// walks, and for block 0 of a cluster the op `join` (counted from begin)
+// from which it reads its peers' subtree roots: after the top stream's
+// first op, or after its last op when the top stream is empty (n). Without
+// a cluster the whole table, no join (-1).
+struct Program {
+  int begin, n, join;
+};
+
+template <bool CLUSTER>
+__device__ __forceinline__ Program program(const Args& a, const int* table) {
+  if (!CLUSTER) return {0, a.n_ops, -1};
+  const int rank = blockIdx.x % a.cluster;
+  const int* const head = table + (size_t)(a.n_ops + 1) * kRow;
+  const int begin = __ldg(head + rank);
+  return {begin, __ldg(head + kRow + rank) - begin,
+          rank == 0 ? __ldg(head + 2 * kRow) - begin : -1};
+}
+
 // The producer warp: op k's inputs into ring entry k % kDepth once the
 // compute threads are done with it, as one arrival a lane on its full
 // barrier: its table row, its rows of P[m1] and P[m2] (4 rates x 4 rows x 16
 // bytes each, one 16-byte copy a lane) and, for the block's SPB sites (past
 // the last site: the last), its tip codes or its raw tips' rows. Table rows
 // are read one op ahead.
-template <int SPT>
-__device__ __forceinline__ void produce(const Args& a, float* ring,
+template <int SPT, bool CLUSTER>
+__device__ __forceinline__ void produce(const Args& a, const Program& pg, float* ring,
                                         unsigned long long* full,
                                         unsigned long long* empty, int lane) {
   constexpr int SPB = 32 * SPT;
   constexpr int E = ring_words(SPT);
   const size_t S = a.sites;
+  const size_t site0 = (size_t)(CLUSTER ? blockIdx.x / a.cluster : blockIdx.x) * SPB;
   size_t sites[SPT];
 #pragma unroll
-  for (int t = 0; t < SPT; ++t) sites[t] = min((size_t)blockIdx.x * SPB + lane + 32 * t, S - 1);
-  // the candidate's table rows (two int4 a row); P is offset at each copy
-  const int4* const table = reinterpret_cast<const int4*>(a.table + cand_index() * a.table_stride);
+  for (int t = 0; t < SPT; ++t) sites[t] = min(site0 + lane + 32 * t, S - 1);
+  // the block's rows of the candidate's table (two int4 a row); P is
+  // offset at each copy
+  const int4* const table =
+      reinterpret_cast<const int4*>(a.table + cand_index() * a.table_stride) + 2 * pg.begin;
   int4 r0 = make_int4(0, 0, 0, 0), r1 = r0;
-  if (a.n_ops > 0) {
+  if (pg.n > 0) {
     r0 = __ldg(table);
     r1 = __ldg(table + 1);
   }
-  for (int k = 0; k < a.n_ops; ++k) {
+  for (int k = 0; k < pg.n; ++k) {
     const int4 c0 = r0, c1 = r1;
-    if (k + 1 < a.n_ops) {
+    if (k + 1 < pg.n) {
       r0 = __ldg(table + 2 * (k + 1));
       r1 = __ldg(table + 2 * (k + 1) + 1);
     }
@@ -377,7 +504,16 @@ __device__ __forceinline__ void produce(const Args& a, float* ring,
 
 // SPT sites a compute thread (8 apart), one rate; PER_RATE: one count per
 // rate. Warps 0 .. kComputeWarps - 1 compute, the last one produces.
-template <int SPT, bool PER_RATE>
+// CLUSTER: the block is one of a cluster of a.cluster blocks (consecutive
+// blockIdx.x, one block of sites) and walks its program of the split
+// table; each compute warp of a peer then arrives on block 0's join
+// barrier (one lane, after the warp's __syncwarp: the warp's slot stores
+// come before the arrival's release) and keeps the block's shared memory
+// until each compute warp of block 0, which walks the top stream after its
+// join and writes the root rows, has arrived on its done barrier. Without
+// CLUSTER the body walks the packed table with none of the cluster's code,
+// which cost the one-block walk 7 % (PERF.md).
+template <int SPT, bool PER_RATE, bool CLUSTER>
 __global__ void __launch_bounds__(kOnchipThreads) fused_onchip(Args a) {
   constexpr int SW = 8 * SPT;                   // sites a compute warp
   constexpr int SPB = 32 * SPT;                 // sites a block
@@ -385,7 +521,9 @@ __global__ void __launch_bounds__(kOnchipThreads) fused_onchip(Args a) {
   extern __shared__ float4 smem4[];
   unsigned long long* const full = reinterpret_cast<unsigned long long*>(smem4);
   unsigned long long* const empty = full + kDepth;
-  float* const ring = reinterpret_cast<float*>(smem4) + 4 * kDepth;
+  unsigned long long* const join = empty + kDepth;
+  unsigned long long* const done = join + 1;
+  float* const ring = reinterpret_cast<float*>(smem4) + 4 * kDepth + 4;
   float4* const slots = reinterpret_cast<float4*>(ring + kDepth * E);
   int* const cnt = reinterpret_cast<int*>(slots + (size_t)a.n_slots * SPB * 4);
 
@@ -394,15 +532,24 @@ __global__ void __launch_bounds__(kOnchipThreads) fused_onchip(Args a) {
     mbar_init(full + tid, 32);                 // the producer's lanes
     mbar_init(empty + tid, kComputeThreads);
   }
+  if (CLUSTER && tid == 0) {
+    mbar_init(join, (a.cluster - 1) * kComputeWarps);
+    mbar_init(done, kComputeWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
+  if (CLUSTER) cluster_arrive();
+  const Program pg = program<CLUSTER>(a, a.table + cand_index() * a.table_stride);
   if (warp == kComputeWarps) {
-    produce<SPT>(a, ring, full, empty, lane);
+    produce<SPT, CLUSTER>(a, pg, ring, full, empty, lane);
+    if (CLUSTER) cluster_wait();
     return;
   }
 
   const int rate = lane & 3, q = lane >> 2;
   const size_t S = a.sites;
-  const size_t wsite0 = (size_t)blockIdx.x * SPB + warp * SW;
+  const size_t wsite0 =
+      (size_t)(CLUSTER ? blockIdx.x / a.cluster : blockIdx.x) * SPB + warp * SW;
   // the thread's sites wsite0 + q + 8 k; threads past the last site run on
   // a copy of it (every lane of a warp takes part in its votes) and write
   // nothing out
@@ -416,7 +563,11 @@ __global__ void __launch_bounds__(kOnchipThreads) fused_onchip(Args a) {
     col[k] = bcol[k] * 4 + rate;
   }
 
-  for (int op = 0; op < a.n_ops; ++op) {
+  for (int op = 0; op < pg.n; ++op) {
+    if (CLUSTER && op == pg.join) {   // the peers' roots are stored
+      mbar_wait_cluster(join, 0);
+      cluster_wait();
+    }
     const int s = op % kDepth;
     mbar_wait(full + s, (op / kDepth) & 1);
     const float* const e = ring + s * E;
@@ -454,6 +605,15 @@ __global__ void __launch_bounds__(kOnchipThreads) fused_onchip(Args a) {
         for (int k = 0; k < SPT; ++k) {
           const float4 w = *reinterpret_cast<const float4*>(raw + (ch * SPB + bcol[k]) * 4);
           c[k][ch][0] = w.x; c[k][ch][1] = w.y; c[k][ch][2] = w.z; c[k][ch][3] = w.w;
+        }
+      } else if (CLUSTER && is_tip[ch] == kRemote) {   // a subtree root in a peer
+#pragma unroll
+        for (int k = 0; k < SPT; ++k) {
+          int sc;
+          const float4 w =
+              peer_slot<SPT>(slots, cnt, idx[ch], col[k], k * kComputeThreads + tid, sc);
+          c[k][ch][0] = w.x; c[k][ch][1] = w.y; c[k][ch][2] = w.z; c[k][ch][3] = w.w;
+          csc[k] += sc;
         }
       } else {
 #pragma unroll
@@ -497,8 +657,23 @@ __global__ void __launch_bounds__(kOnchipThreads) fused_onchip(Args a) {
     }
   }
 
+  if (CLUSTER) {
+    if (blockIdx.x % a.cluster != 0) {   // block 0 reads this block's roots
+      cluster_wait();
+      __syncwarp();
+      if (lane == 0) peer_arrive(peer_addr(smem_addr(join), 0));
+      mbar_wait(done, 0);
+      return;
+    }
+    if (pg.join == pg.n) {   // no top stream
+      mbar_wait_cluster(join, 0);
+      cluster_wait();
+    }
+  }
+
   // the root edge: each thread writes its rate's rows of its sites, which it
-  // stored itself (a slot end) or decodes (a tip end)
+  // stored itself (a slot end), a peer stored (a remote end) or it decodes
+  // (a tip end)
   const int* root = candidate(a).table + (size_t)a.n_ops * kRow;
 #pragma unroll
   for (int end = 0; end < 2; ++end) {
@@ -517,6 +692,9 @@ __global__ void __launch_bounds__(kOnchipThreads) fused_onchip(Args a) {
         const float* src = a.ctips + (size_t)idx * 4 * S + site[k];
 #pragma unroll
         for (int j = 0; j < 4; ++j) v[j] = __ldg(src + (size_t)j * S);
+      } else if (CLUSTER && is_tip == kRemote) {
+        const float4 w = peer_slot<SPT>(slots, cnt, idx, col[k], k * kComputeThreads + tid, sc);
+        v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
       } else {
         const float4 w = slots[idx * SPB * 4 + col[k]];
         v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
@@ -530,6 +708,12 @@ __global__ void __launch_bounds__(kOnchipThreads) fused_onchip(Args a) {
       } else if (rate == 0) {
         osc[site[k]] = sc;
       }
+    }
+  }
+  if (CLUSTER) {   // the peers may leave: the warp has read their roots
+    __syncwarp();
+    if (lane == 0) {
+      for (int r = 1; r < a.cluster; ++r) peer_arrive(peer_addr(smem_addr(done), r));
     }
   }
 }
@@ -1207,18 +1391,70 @@ int launch_generic(const ArgsT<T>& a, int n_cand, int n_query, int onchip, int g
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Whether the current device keeps at least one cluster of `cfg`'s size of
+// `kernel` resident (cudaOccupancyMaxActiveClusters), asked once per device,
+// kernel, cluster size and bytes; a CUDA error on failure, and
+// cudaErrorInvalidConfiguration where none fits.
+template <class K>
+cudaError_t cluster_fits(K kernel, const cudaLaunchConfig_t& cfg, int cluster) {
+  struct Seen {
+    int dev, cluster;
+    const void* kernel;
+    size_t bytes;
+  };
+  constexpr int kSeen = 64;
+  static Seen seen[kSeen];
+  static int n_seen = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* k = reinterpret_cast<const void*>(kernel);
+  for (int i = 0; i < n_seen && i < kSeen; ++i) {
+    const Seen& e = seen[i];
+    if (e.dev == dev && e.cluster == cluster && e.kernel == k && e.bytes == cfg.dynamicSmemBytes)
+      return cudaSuccess;
+  }
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (n < 1) return cudaErrorInvalidConfiguration;
+  seen[n_seen++ % kSeen] = {dev, cluster, k, cfg.dynamicSmemBytes};
+  return cudaSuccess;
+}
+
 template <int SPT>
 int launch_onchip(const Args& a, int n_cand, int n_query, bool per_rate,
                   size_t bytes, cudaStream_t st) {
-  auto kernel = per_rate ? fused_onchip<SPT, true> : fused_onchip<SPT, false>;
+  const bool cluster = a.cluster > 1;
+  auto kernel = per_rate ? (cluster ? fused_onchip<SPT, true, true> : fused_onchip<SPT, true, false>)
+                         : (cluster ? fused_onchip<SPT, false, true> : fused_onchip<SPT, false, false>);
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int spb = 32 * SPT;
-  const dim3 grid((a.sites + spb - 1) / spb, n_cand, n_query);
-  kernel<<<grid, kOnchipThreads, bytes, st>>>(a);
+  // a cluster's blocks are consecutive along x, one block of sites
+  const dim3 grid((a.sites + spb - 1) / spb * a.cluster, n_cand, n_query);
+  if (!cluster) {
+    kernel<<<grid, kOnchipThreads, bytes, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kOnchipThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cluster_fits(kernel, cfg, a.cluster);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1256,20 +1492,22 @@ extern "C" int pll_fused_traversal(const int* table, int n_ops,
                                    void* stream, int onchip,
                                    int threads_per_site, int sites_per_block,
                                    long long smem_bytes, int padded_states,
-                                   int depth) {
+                                   int depth, int cluster) {
   const long long S = sites, RS = (long long)rates * states;
   const long long SR = rate_scalers ? rates : 1;
   const bool spill = !onchip;
   Args a{table, n_ops, pmat, tips, ctips, qcodes, query_row, sites, rates, states, slots, slot_sc,
          n_slots, out_p, out_c, sc_p, sc_c, threshold, factor, rate_scalers,
          table_stride, pmat_stride, spill ? n_slots * RS * S : 0,
-         spill ? n_slots * SR * S : 0, RS * S, SR * S};
+         spill ? n_slots * SR * S : 0, RS * S, SR * S, cluster};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int head = cluster > 1 ? kSplitHeader : 0;   // the split table's
   if (sites < 1 || n_ops < 0 || n_slots < 1 || rates < 1 || states < 1 ||
       states > 32 || n_cand < 1 || n_cand > 65535 || n_query < 1 ||
       n_query > 65535 || (qcodes == nullptr) != (query_row < 0) ||
-      (qcodes == nullptr && n_query != 1) ||
-      table_stride < (long long)(n_ops + 1) * kRow || pmat_stride < 0) {
+      (qcodes == nullptr && n_query != 1) || cluster < 1 || cluster > kMaxCluster ||
+      (cluster > 1 && (!onchip || states != 4 || rates != 4 || padded_states != 0)) ||
+      table_stride < (long long)(n_ops + 1 + head) * kRow || pmat_stride < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (padded_states != 0) {
@@ -1346,7 +1584,7 @@ extern "C" int pll_fused_traversal_f64(const int* table, int n_ops,
   ArgsT<double> a{table, n_ops, pmat, tips, ctips, nullptr, -1, sites, rates, states,
                   slots, slot_sc, n_slots, out_p, out_c, sc_p, sc_c, threshold, factor,
                   0, (long long)(n_ops + 1) * kRow, 0, onchip ? 0 : n_slots * RS * S,
-                  onchip ? 0 : n_slots * S, RS * S, S};
+                  onchip ? 0 : n_slots * S, RS * S, S, 1};
   return launch_generic<double>(a, 1, 1, onchip, threads_per_site, sites_per_block,
                                 smem_bytes, padded_states, depth,
                                 static_cast<cudaStream_t>(stream));

@@ -268,7 +268,7 @@ def _fused_loglikelihood(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
                          mxu: str = "split", edge_params=None,
                          rate_scalers: bool = False, tip_clvs=None,
                          asc_type: int = C.AB_NONE, n_real: int = -1,
-                         col0=None, pmatrix=None):
+                         col0=None, pmatrix=None, splits=None):
     """The fused path. branches[e] is ordered by pmatrix index e. Returns
     (total logL, per-site weighted logL, root rows (clv_p, clv_c, sc_p,
     sc_c), P-matrices). `traversal` is the fused traversal to run: the
@@ -277,7 +277,9 @@ def _fused_loglikelihood(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
     rows) its modes (ops/fused.py); `asc_type`, `n_real` and `col0` the
     likelihood's asc correction (with `col0` on a shard, the total is its
     partial sums); `pmatrix` the P-matrices of `branches` when the caller
-    has them (a mesh computes them once for its shards)."""
+    has them (a mesh computes them once for its shards); `splits` the
+    table's subtree splits (ops/fused.py:FusedSplits), which the 4 x 4
+    on-chip body may walk on a thread block cluster."""
     if pmatrix is None:
         with annotate("pll.pmatrix"):
             pmatrix = _pmatrices(eigenvals, inv_eigenvecs, eigenvecs,
@@ -288,7 +290,7 @@ def _fused_loglikelihood(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
                          states=pmatrix.shape[2], n_slots=n_slots,
                          threshold=scale_threshold, factor=scale_factor,
                          mxu=mxu, rate_scalers=rate_scalers,
-                         tip_clvs=tip_clvs)
+                         tip_clvs=tip_clvs, splits=splits)
     clv_p, clv_c, sc_p, sc_c = rows
     with annotate("pll.edge_logl"):
         total, per = ops_likelihood.edge_loglikelihood(
@@ -307,7 +309,8 @@ def _fused_newton_step(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
                        traversal=ops_fused.fused_traversal,
                        mxu: str = "split", edge_params=None,
                        rate_scalers: bool = False, tip_clvs=None,
-                       asc_type: int = C.AB_NONE, n_real: int = -1):
+                       asc_type: int = C.AB_NONE, n_real: int = -1,
+                       splits=None):
     """Evaluate the tree on the fused path, then Newton-update the root
     branch length from d1/d2. Returns (total, d1, d2, new branches, root
     rows, P-matrices)."""
@@ -317,7 +320,7 @@ def _fused_newton_step(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
         root_mat, pattern_weights, invariant, n_slots, scale_threshold,
         scale_factor, traversal=traversal, mxu=mxu, edge_params=edge_params,
         rate_scalers=rate_scalers, tip_clvs=tip_clvs, asc_type=asc_type,
-        n_real=n_real)
+        n_real=n_real, splits=splits)
     d1, d2, branches = _root_newton(
         rows, branches, root_mat, eigenvals, inv_eigenvecs, eigenvecs,
         prop_invar, rates, rate_weights, freqs, params_idx_rates,
@@ -335,7 +338,7 @@ def _fused_multi_topology(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
                           mxu: str = "split", edge_params=None,
                           rate_scalers: bool = False, tip_clvs=None,
                           asc_type: int = C.AB_NONE, n_real: int = -1,
-                          col0=None, pmatrix=None):
+                          col0=None, pmatrix=None, splits=None):
     """logL [K] of K candidate topologies in ONE launch of the fused
     traversal's candidate form (libpll2_tpu/engine.py:_fused_multi_topology):
     branches_k [K, E] (pmatrix order), tables_k [K, n_ops+1, 8] int32 and
@@ -345,7 +348,8 @@ def _fused_multi_topology(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
     candidate's P-matrices use the per-edge table and its likelihood mixing
     its own root edge's rate matrix, as `set_topology` + `loglikelihood`
     compute it. `pmatrix` [K, E, R, s, s]: the candidates' P-matrices when
-    the caller has them (`_candidate_pmatrices`)."""
+    the caller has them (`_candidate_pmatrices`); `splits` the tables'
+    subtree splits (ops/fused.py:FusedSplits)."""
     k = branches_k.shape[0]
     pmat = pmatrix if pmatrix is not None else _candidate_pmatrices(
         eigenvals, inv_eigenvecs, eigenvecs, prop_invar, rates,
@@ -354,7 +358,7 @@ def _fused_multi_topology(eigenvals, inv_eigenvecs, eigenvecs, prop_invar,
         tip_codes, pmat, tables_k, rates=pmat.shape[2],
         states=pmat.shape[3], n_slots=n_slots, threshold=scale_threshold,
         factor=scale_factor, mxu=mxu, rate_scalers=rate_scalers,
-        tip_clvs=tip_clvs)
+        tip_clvs=tip_clvs, splits=splits)
     root_p = pmat[torch.arange(k, device=pmat.device), root_mats]
     pidx = params_idx_rates if edge_params is None else edge_params[root_mats]
     return ops_likelihood.edge_loglikelihood_candidates(
@@ -1123,7 +1127,7 @@ class TreeEngine:
                              f"of range [0, {p.prob_matrices})")
         self.use_fused = self.use_levelkernel = False
         self.table, self.fused_slots, self._ops = None, 0, None
-        self._trial_rows = None
+        self.fused_splits = self._trial_rows = None
         self.branches = torch.as_tensor(
             self._branch_vector(branches, pmatrix_indices), dtype=self.dtype,
             device=self.device)
@@ -1146,6 +1150,7 @@ class TreeEngine:
             if table is not None:
                 self.use_fused = True
                 self.table = torch.as_tensor(table, device=self.device)
+                self.fused_splits = ops_fused.FusedSplits(table)
                 self.fused_slots = n_slots
                 self._packed_ctips = frozenset(
                     np.flatnonzero(p._tips_clv_set).tolist())
@@ -1176,7 +1181,8 @@ class TreeEngine:
 
     # what a shard's engine takes from the engine that packed the topology
     _SHARED_TOPOLOGY = ("use_fused", "use_levelkernel", "fused_slots",
-                        "root_idx", "_packed_ctips", "_trial_rows")
+                        "fused_splits", "root_idx", "_packed_ctips",
+                        "_trial_rows")
 
     def _bind_shards(self) -> None:
         """Hand the topology this engine packed to one engine a shard of
@@ -1327,7 +1333,8 @@ class TreeEngine:
         if self.use_fused:
             total, per, rows, p.pmatrix = _fused_loglikelihood(
                 *self._args(), mxu=self.mxu, edge_params=self.edge_params,
-                pmatrix=pmatrix, **self._fused_kw())
+                pmatrix=pmatrix, splits=self.fused_splits,
+                **self._fused_kw())
             if scatter and not self.repeats_dense_fused:
                 _scatter_root_rows(p.clv, p.scale_buffer, self.root_idx,
                                    rows)
@@ -1369,7 +1376,7 @@ class TreeEngine:
         if self.use_fused:
             total, d1, d2, branches, rows, p.pmatrix = _fused_newton_step(
                 *self._args(), mxu=self.mxu, edge_params=self.edge_params,
-                **self._fused_kw())
+                splits=self.fused_splits, **self._fused_kw())
             return total, d1, d2, branches, [rows]
         total, _, rows = self._evaluate()
         d1, d2, branches = _root_newton(
@@ -1477,8 +1484,8 @@ class TreeEngine:
     def _candidate_chunks(self, tables, blens, roots, n_slots) -> list:
         """Fused candidates checked (`_check_candidate_tables`) and cut into
         chunks of CANDIDATE_CHUNK: (branches [k, E], op tables [k, n_ops+1,
-        8], root matrices [k], on the device, and the chunk's largest slot
-        count)."""
+        8], root matrices [k], on the device, the chunk's largest slot
+        count and its tables' subtree splits, ops/fused.py:FusedSplits)."""
         p = self.partition
         tables = np.ascontiguousarray(tables, dtype=np.int32)
         blens = np.asarray(blens, dtype=np.float64)
@@ -1501,7 +1508,8 @@ class TreeEngine:
                  torch.as_tensor(tables[i:i + CANDIDATE_CHUNK], device=dev),
                  torch.as_tensor(roots[i:i + CANDIDATE_CHUNK, 4],
                                  device=dev),
-                 int(np.max(n_slots[i:i + CANDIDATE_CHUNK])))
+                 int(np.max(n_slots[i:i + CANDIDATE_CHUNK])),
+                 ops_fused.FusedSplits(tables[i:i + CANDIDATE_CHUNK]))
                 for i in range(0, k, CANDIDATE_CHUNK)]
 
     def _score_chunk(self, chunk, pmatrix=None) -> torch.Tensor:
@@ -1509,14 +1517,14 @@ class TreeEngine:
         `_candidate_chunks` (a shard's partial sums on a shard partition);
         `pmatrix` the chunk's P-matrices when the caller has them."""
         p = self.partition
-        blens, tables, root_mats, n_slots = (
+        blens, tables, root_mats, n_slots, splits = (
             _on_device(x, self.device) for x in chunk)
         pw, inv = self._site_args()
         return _fused_multi_topology(
             *self._model_args(), blens, tables, self._tip_codes(), root_mats,
             pw, inv, n_slots, p.scale_threshold, p.scale_factor,
             mxu=self.mxu, edge_params=self.edge_params, pmatrix=pmatrix,
-            **self._fused_kw())
+            splits=splits, **self._fused_kw())
 
     def _evaluate_topologies_dense_dev(self, candidates, blens,
                                        roots) -> torch.Tensor:

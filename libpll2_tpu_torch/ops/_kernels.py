@@ -114,7 +114,8 @@ def library() -> ctypes.CDLL:
         _P,                # stream
         _I, _I, _I, _L,    # fused_plan: on chip, threads a site, sites a
         _I, _I,            # block, shared-memory bytes; the generic body's
-    ]                      # width and ring depth (0, 0 at 4 x 4)
+        _I,                # width and ring depth (0, 0 at 4 x 4); the
+    ]                      # cluster (1 but on the 4 x 4 on-chip body)
     lib.pll_fused_traversal.restype = _I
     lib.pll_fused_traversal_rows.argtypes = traversal + [
         _I, _P,            # contraction mode, stream
@@ -312,6 +313,27 @@ FUSED_COMPUTE_THREADS = 128
 FUSED_SPT2_SM_SHARE = 0.5
 FUSED_DEPTH = 4
 FUSED_SPILL_BLOCK = 64
+# the on-chip plan's thread block clusters: the sizes tried (a walk's
+# subtrees side by side on the cluster's blocks, ops/fused.py:
+# split_fused_schedule); an SM's shared memory (an H100's 228 KB) and what
+# each resident block reserves of it, its threads and registers and the
+# registers' allocation unit a warp; the cluster body's registers a thread
+# at one and two sites a thread (ptxas on sm_90a: 64 and 94-96; the body
+# without a cluster takes 56 and 72); and the launch time's model
+# (`fused_walk_cost`): an op's time a + b x (the SM's compute warps), with
+# a = FUSED_LATENCY_WARPS x b, and FUSED_CLUSTER_COST x b a block of a
+# cluster for the cluster's own costs (the launch, the join, the top
+# stream's reads of the peers), fitted to the walk's times at 4 to 16 warps
+# an SM and 1 to 8 blocks a cluster on an H100 (PERF.md, Findings)
+FUSED_CLUSTERS = (2, 4, 8)
+SM_SMEM_BYTES = 233472
+SMEM_BLOCK_RESERVE = 1024
+SM_MAX_THREADS = 2048
+SM_REGISTERS = 65536
+WARP_REGISTER_UNIT = 256
+FUSED_REGISTERS = {1: 64, 2: 96}
+FUSED_LATENCY_WARPS = 8
+FUSED_CLUSTER_COST = 40
 
 
 class FusedPlan(NamedTuple):
@@ -321,26 +343,103 @@ class FusedPlan(NamedTuple):
     site, `threads_per_site` 4, or of two, 2) or 'spill' (slots in device
     memory, one thread a site, where the slots do not fit);
     `sites_per_block` the block's sites; `smem_bytes` its dynamic shared
-    memory (0 when spilled). Other shapes take a GenericPlan."""
+    memory (0 when spilled); `cluster` the blocks of a thread block cluster
+    that walk the same sites, each its own subtrees of the walk
+    (`split_fused_schedule`'s parts; 1: the whole walk a block). Other
+    shapes take a GenericPlan."""
     plan: str
     threads_per_site: int
     sites_per_block: int
     smem_bytes: int
+    cluster: int = 1
 
 
 def fused_onchip_bytes(n_slots: int, sites_per_thread: int) -> int:
     """Shared memory of one on-chip block (fused_traversal.cu,
-    onchip_smem_words): the ring's 2 x FUSED_DEPTH barriers (8 bytes
-    each), its FUSED_DEPTH entries of one op's inputs (the table row, 8
-    words; P[m1] and P[m2], 2 x 4 rates x 20 words; the block's 32 *
-    sites_per_thread sites' raw tip rows and tip codes, 5 words a site and
-    child), then per slot the block's site columns (4 rates x 4 floats a
-    site) and one count a site of each compute thread. Per-rate counts
-    take the same bytes: each thread keeps one a site."""
+    onchip_smem_words): the ring's 2 x FUSED_DEPTH barriers and the
+    cluster's two (8 bytes each), its FUSED_DEPTH entries of one op's
+    inputs (the table row, 8 words; P[m1] and P[m2], 2 x 4 rates x 20
+    words; the block's 32 * sites_per_thread sites' raw tip rows and tip
+    codes, 5 words a site and child), then per slot the block's site
+    columns (4 rates x 4 floats a site) and one count a site of each
+    compute thread. Per-rate counts take the same bytes: each thread keeps
+    one a site."""
     spt = sites_per_thread
     sites = 32 * spt
-    ring = 2 * FUSED_DEPTH * 2 + FUSED_DEPTH * (8 + 2 * 4 * 20 + 2 * sites * 5)
+    ring = (2 * (2 * FUSED_DEPTH + 2)
+            + FUSED_DEPTH * (8 + 2 * 4 * 20 + 2 * sites * 5))
     return 4 * (ring + n_slots * (sites * 16 + spt * FUSED_COMPUTE_THREADS))
+
+
+def fused_resident_blocks(smem_bytes: int, sites_per_thread: int) -> int:
+    """The on-chip body's blocks of `smem_bytes` that an SM holds at once,
+    by its shared memory, its threads and its registers
+    (FUSED_REGISTERS)."""
+    warps = FUSED_COMPUTE_THREADS // 32 + 1
+    unit = WARP_REGISTER_UNIT
+    per_warp = -(-FUSED_REGISTERS[sites_per_thread] * 32 // unit) * unit
+    return min(SM_SMEM_BYTES // (smem_bytes + SMEM_BLOCK_RESERVE),
+               SM_MAX_THREADS // (32 * warps),
+               SM_REGISTERS // per_warp // warps)
+
+
+def fused_walk_cost(blocks: int, resident: int, critical: int, sms: int,
+                    cluster: int = 1):
+    """The on-chip body's launch time as the plan models it, in units of
+    an op's time per compute warp an SM: `blocks` blocks (in clusters of
+    `cluster`) on `sms` SMs that hold `resident` each at once all run in
+    one wave (None where they do not: a second wave of clusters lost every
+    time it was measured); the SM with the most blocks walks `critical`
+    ops one after another, each in FUSED_LATENCY_WARPS + its compute warps
+    (latency-bound with few warps, issue-bound with many), and a cluster
+    adds FUSED_CLUSTER_COST a block."""
+    per_sm = -(-blocks // sms)
+    if per_sm > resident:
+        return None
+    return (critical * (FUSED_LATENCY_WARPS
+                        + per_sm * FUSED_COMPUTE_THREADS // 32)
+            + (FUSED_CLUSTER_COST * cluster if cluster > 1 else 0))
+
+
+def _cluster_plan(plan: FusedPlan, smem_bytes: int, sites: int, sms: int,
+                  candidates: int, split) -> FusedPlan:
+    """The on-chip `plan` with the cluster size of FUSED_CLUSTERS (or 1)
+    whose `fused_walk_cost` is least, from `split(parts)` -> (slots,
+    critical ops) of the launch's walks (their largest), each size at its
+    own slots' bytes where they fit `smem_bytes`; of equal costs the
+    smaller size. A launch whose blocks fill every SM's block slots
+    without clusters keeps one block a walk. Each size's least possible
+    cost (its ops shared evenly, as many blocks an SM as one slot allows)
+    comes first, and a size is split only where that could beat the best
+    so far: `split` is the host's work after each topology change."""
+    spt = 4 // plan.threads_per_site
+    blocks = candidates * -(-sites // plan.sites_per_block)
+    resident = fused_resident_blocks(plan.smem_bytes, spt)
+    if blocks >= sms * resident:
+        return plan
+    n_ops = split(1)[1]
+    best = (fused_walk_cost(blocks, resident, n_ops, sms), 1, plan)
+    most = fused_resident_blocks(fused_onchip_bytes(1, spt), spt)
+    lows = []
+    for parts in FUSED_CLUSTERS:
+        low = fused_walk_cost(blocks * parts, most, -(-n_ops // parts), sms,
+                              parts)
+        if low is not None:
+            lows.append((low, parts))
+    for low, parts in sorted(lows):
+        if (low, parts) >= best[:2]:
+            continue
+        n_slots, critical = split(parts)
+        nbytes = fused_onchip_bytes(n_slots, spt)
+        if nbytes > smem_bytes:
+            continue
+        c = fused_walk_cost(blocks * parts,
+                            fused_resident_blocks(nbytes, spt), critical,
+                            sms, parts)
+        if c is not None and (c, parts) < best[:2]:
+            best = (c, parts,
+                    plan._replace(smem_bytes=nbytes, cluster=parts))
+    return best[2]
 
 
 # fused_traversal.cu's runtime-size body (fused_generic): the state widths it
@@ -457,14 +556,17 @@ def generic_plan(rates: int, states: int, n_slots: int, rate_scalers: bool,
 
 def fused_plan(rates: int, states: int, n_slots: int, rate_scalers: bool,
                smem_bytes: int, sites: int, sms: int,
-               candidates: int = 1, raw_tips: bool = False):
+               candidates: int = 1, raw_tips: bool = False, split=None):
     """fused_traversal.cu's plan for one float32 shape on a device with
     `sms` SMs whose blocks may use `smem_bytes` of shared memory, for a
     launch of `candidates` topologies (each its own row of blocks). 4
     states x 4 rates run on chip (a FusedPlan), with two sites a thread
     where the launch's blocks of 64 sites (the candidates' together) still
     reach FUSED_SPT2_SM_SHARE of the SMs and fit, else one site; they spill
-    where neither fits. Other sizes take the runtime-size body's plan
+    where neither fits. On chip, `split` (parts -> the largest slots and
+    critical ops of the walks' `split_fused_schedule` at that many parts;
+    None: one block a walk) gives the thread block cluster
+    (`_cluster_plan`). Other sizes take the runtime-size body's plan
     (`generic_plan`, a GenericPlan; `raw_tips` there). `rate_scalers` does
     not change the 4 x 4 layout."""
     if (rates < 1 or not 1 <= states <= 32 or n_slots < 1 or sites < 1
@@ -479,18 +581,23 @@ def fused_plan(rates: int, states: int, n_slots: int, rate_scalers: bool,
     for spt in ((2, 1) if wide else (1,)):
         nbytes = fused_onchip_bytes(n_slots, spt)
         if nbytes <= smem_bytes:
-            return FusedPlan("on-chip", 4 // spt, 32 * spt, nbytes)
+            plan = FusedPlan("on-chip", 4 // spt, 32 * spt, nbytes)
+            if split is None:
+                return plan
+            return _cluster_plan(plan, smem_bytes, sites, sms, candidates,
+                                 split)
     return FusedPlan("spill", 1, FUSED_SPILL_BLOCK, 0)
 
 
 def device_fused_plan(device, rates: int, states: int, n_slots: int,
                       rate_scalers: bool, sites: int,
-                      candidates: int = 1, raw_tips: bool = False):
+                      candidates: int = 1, raw_tips: bool = False,
+                      split=None):
     """`fused_plan` for one shape on CUDA device `device`."""
     index = _device_index(device)
     return fused_plan(rates, states, n_slots, rate_scalers,
                       smem_optin(index), sites, sm_count(index), candidates,
-                      raw_tips)
+                      raw_tips, split)
 
 
 def device_generic_plan(device, rates: int, states: int, n_slots: int,
@@ -541,12 +648,14 @@ def _generic_operands(plan, pmatrix, table):
 
 
 def _plan_args(plan) -> tuple:
-    """The plan's trailing arguments of the C entries."""
+    """The plan's trailing arguments of pll_fused_traversal (the float64
+    walk's take all but the last, the cluster)."""
     generic = isinstance(plan, GenericPlan)
     return (int(plan.plan == "on-chip"), plan.threads_per_site,
             plan.sites_per_block, plan.smem_bytes,
             plan.padded_states if generic else 0,
-            plan.depth if generic else 0)
+            plan.depth if generic else 0,
+            1 if generic else plan.cluster)
 
 
 def _query_outputs(out, q: int, k: int, query_codes):
@@ -560,20 +669,39 @@ def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
                            table: torch.Tensor, rates: int, states: int,
                            n_slots: int, threshold: float, factor: float,
                            rate_scalers: bool = False, tip_clvs=None,
-                           query_codes=None, query_row: int = -1):
+                           query_codes=None, query_row: int = -1,
+                           plan=None, splits=None):
     """Launch csrc/fused_traversal.cu once on the current stream for K
     candidates, `table` [K, n_ops+1, 8] and `pmatrix` [K, E, R, s, s], with
-    `device_fused_plan`'s plan; returns the root rows with a leading K, or
-    [Q, K] with Q queries' codes `query_codes` [Q, S] in tip row `query_row`
-    (see ops/fused.py:fused_traversal for the contract)."""
+    `device_fused_plan`'s plan (the 4 x 4 on-chip body's cluster from
+    `splits`, the tables' ops/fused.py:FusedSplits, where given; one block a
+    walk without them), or with `plan` where given (a FusedPlan whose
+    cluster size is forced, which then needs `splits`: its bytes follow the
+    split's slots); returns the root rows with a leading K, or [Q, K] with
+    Q queries' codes `query_codes` [Q, S] in tip row `query_row` (see
+    ops/fused.py:fused_traversal for the contract)."""
     _check_inputs("fused_traversal", tip_codes, pmatrix, table, rates,
                   states, n_slots, tip_clvs)
     q = _check_queries("fused_traversal", tip_codes, query_codes, query_row)
     dev = pmatrix.device
     sites = tip_codes.shape[1]
-    k = table.shape[0]
-    plan = device_fused_plan(dev, rates, states, n_slots, rate_scalers, sites,
-                             q * k, tip_clvs is not None)
+    k, n_ops = table.shape[0], table.shape[1] - 1
+    if (rates, states) != (4, 4):
+        splits = None
+    _check(splits is None or splits.host.shape[:2] == (k, n_ops + 1),
+           f"splits of tables {tuple(splits.host.shape) if splits else ()}"
+           f" for tables {tuple(table.shape)}")
+    if plan is None:
+        plan = device_fused_plan(dev, rates, states, n_slots, rate_scalers,
+                                 sites, q * k, tip_clvs is not None, splits)
+    if isinstance(plan, FusedPlan) and plan.cluster > 1:
+        _check(splits is not None, f"a plan of {plan.cluster} blocks a "
+               f"cluster needs the tables' splits")
+        # the split's table, its slots and their bytes
+        n_slots = splits(plan.cluster)[0]
+        plan = plan._replace(smem_bytes=fused_onchip_bytes(
+            n_slots, 4 // plan.threads_per_site))
+        table = splits.table(plan.cluster, dev)
     out_p, out_c, sc_p, sc_c = _outputs(q * k, rates, states, sites, dev,
                                         rate_scalers)
     pmatrix, table = _generic_operands(plan, pmatrix, table)
@@ -587,7 +715,7 @@ def launch_fused_traversal(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = library().pll_fused_traversal(
-            table.data_ptr(), table.shape[1] - 1, pmatrix.data_ptr(), k,
+            table.data_ptr(), n_ops, pmatrix.data_ptr(), k,
             table.stride(0), pmatrix.stride(0),
             tip_codes.data_ptr(), _ptr(tip_clvs), _ptr(query_codes),
             query_row, q, sites, rates, states,
@@ -663,7 +791,7 @@ def launch_fused_traversal_f64(tip_codes: torch.Tensor,
             tip_codes.data_ptr(), _ptr(tip_clvs), sites, rates, states,
             _ptr(slots), _ptr(slot_sc), n_slots, out_p.data_ptr(),
             out_c.data_ptr(), sc_p.data_ptr(), sc_c.data_ptr(),
-            float(threshold), float(factor), stream, *_plan_args(plan))
+            float(threshold), float(factor), stream, *_plan_args(plan)[:6])
     if err != 0:
         raise RuntimeError(f"fused_traversal_f64 kernel launch failed: CUDA "
                            f"error {err}")

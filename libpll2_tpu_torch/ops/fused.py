@@ -69,6 +69,8 @@ instantiated on double, one topology, per-site counts, counted in
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -76,7 +78,8 @@ __all__ = ["pack_fused_schedule", "fused_candidate_from_tree",
            "tip_code_matrix", "ctip_rows", "tip_clv_matrix",
            "fused_traversal", "fused_traversal_rows", "fused_traversal_f64",
            "fused_traversal_reference", "round_bf16", "round_bf16_rne",
-           "split_bf16",
+           "split_bf16", "split_fused_schedule", "fused_split_reference",
+           "FusedSplit", "FusedSplits",
            "query_edge_split", "query_spill_slots", "MXU_MODES",
            "ROWS_STATES_MIN", "FUSED_MAX_STATES", "ROWS_RATE_SCALERS_MAX",
            "QUERY_LAUNCH_BYTES"]
@@ -288,6 +291,257 @@ def pack_fused_schedule(operations, n_tips: int, root_pair,
     return table, max(n_slots, 1)
 
 
+class FusedSplit(NamedTuple):
+    """One walk's table split over the `parts` blocks of a thread block
+    cluster (`split_fused_schedule`): `table` [n_ops + 1 +
+    FUSED_SPLIT_HEADER, 8] int32, the blocks' programs one after another,
+    the root edge's row at n_ops as in the packed table, then the header;
+    `n_slots` the slots of the largest program; `critical` the ops run one
+    after another: the longest block's stream, then the top stream."""
+    table: np.ndarray
+    parts: int
+    n_slots: int
+    critical: int
+
+
+# The split table (csrc/fused_traversal.cu, fused_onchip in a cluster):
+# after the root edge's row, FUSED_SPLIT_HEADER rows: the first row of each
+# block's program, the row past its last, then [join, parts, n_slots, 0...],
+# `join` the first row of the top stream, which block 0 runs after its own
+# stream once every peer has finished its own. A child entry with is_tip
+# FUSED_REMOTE is a slot in a peer's shared memory, its index rank <<
+# FUSED_RANK_SHIFT | slot. FUSED_MAX_PARTS blocks a cluster at most (the
+# portable cluster size).
+FUSED_SPLIT_HEADER = 3
+FUSED_REMOTE = 3
+FUSED_RANK_SHIFT = 16
+FUSED_MAX_PARTS = 8
+
+
+def _trivial_split(table: np.ndarray) -> FusedSplit:
+    """The packed table as a split of one part: the walk as it is."""
+    n_ops = len(table) - 1
+    out = np.zeros((n_ops + 1 + FUSED_SPLIT_HEADER, 8), dtype=np.int32)
+    out[:n_ops + 1] = table
+    n_slots = int(table[:n_ops, 0].max()) + 1 if n_ops else 1
+    out[n_ops + 2, 0] = n_ops
+    out[n_ops + 3, :3] = [n_ops, 1, n_slots]
+    return FusedSplit(out, 1, n_slots, n_ops)
+
+
+def _op_children(rows: list):
+    """Each op's producing ops, by child position (None for a tip), from a
+    packed table's rows (lists) whose slots are reused, and the ops the
+    root row reads; None where an op's output is read twice or before it
+    is written (no tree to split)."""
+    n_ops = len(rows) - 1
+    writer: dict = {}
+    read = [False] * n_ops
+    kids = []
+    for k in range(n_ops):
+        row = rows[k]
+        pair = []
+        for pos in (0, 1):
+            j = None
+            if row[1 + 3 * pos] == 0:
+                j = writer.get(row[2 + 3 * pos])
+                if j is None or read[j]:
+                    return None
+                read[j] = True
+            pair.append(j)
+        kids.append(pair)
+        writer[row[0]] = k
+    ends = []
+    for pos in (0, 1):
+        j = None
+        if rows[n_ops][2 * pos] == 0:
+            j = writer.get(rows[n_ops][2 * pos + 1])
+            if j is None or read[j]:
+                return None
+            read[j] = True
+        ends.append(j)
+    return kids, ends, read
+
+
+def _pack_bins(parts, size, n_bins):
+    """Longest first onto the least loaded bin (ties to the lower bin):
+    the bins' op counts and their parts."""
+    load = [0] * n_bins
+    bins: list = [[] for _ in range(n_bins)]
+    for p in sorted(parts, key=lambda p: (-size[p], p)):
+        b = load.index(min(load))
+        load[b] += size[p]
+        bins[b].append(p)
+    return load, bins
+
+
+def _allocate(program, kids, inside):
+    """Linear-scan slots of one block's program, as pack_fused_schedule
+    allocates them: a child read here frees its slot at its last read
+    before the parent takes one; an op read elsewhere (the root row, a peer)
+    or never keeps its slot. Returns ({op: slot}, slots)."""
+    last = {}
+    for i, k in enumerate(program):
+        for j in kids[k]:
+            if j is not None and j in inside:
+                last[j] = i
+    free: list = []
+    slot: dict = {}
+    n = 0
+    for i, k in enumerate(program):
+        for j in kids[k]:
+            if j is not None and last.get(j) == i:
+                free.append(slot[j])
+        if free:
+            slot[k] = free.pop()
+        else:
+            slot[k] = n
+            n += 1
+    return slot, max(n, 1)
+
+
+def split_fused_schedule(table, parts: int) -> FusedSplit:
+    """A packed table (`pack_fused_schedule`) split over `parts` blocks
+    that walk the same sites side by side: disjoint subtrees on each block,
+    each a postorder with its own slots (the same linear scan), then the
+    top stream, the ops above the subtree roots, which block 0 runs after
+    its own, reading the roots that its peers hold (FUSED_REMOTE). The
+    split starts from the root edge's two subtrees and splits the largest
+    part at its root (the root op joins the top stream) while that shortens
+    the critical path; the parts go longest first onto the least loaded
+    block; block 0 is the least loaded, the top stream after it. A table
+    that does not split (a single op, or an op read twice) and `parts` 1
+    give the packed table as it is. Every op keeps its row but for its
+    slots, so each block computes what the whole walk computes, to the
+    bit."""
+    table = np.asarray(table, dtype=np.int32)
+    n_ops = len(table) - 1
+    if not 1 <= parts <= FUSED_MAX_PARTS:
+        raise ValueError(f"split_fused_schedule: {parts} parts, not 1 to "
+                         f"{FUSED_MAX_PARTS}")
+    rows = table.tolist()
+    tree = _op_children(rows) if parts > 1 and n_ops > 1 else None
+    if tree is None:
+        return _trivial_split(table)
+    kids, ends, read = tree
+    size = [0] * n_ops
+    for k in range(n_ops):
+        size[k] = 1 + sum(size[j] for j in kids[k] if j is not None)
+    # the parts: subtrees nothing reads but the root row (or nothing)
+    current = [k for k in range(n_ops) if not read[k]] + [
+        j for j in ends if j is not None]
+    top: list = []
+
+    def critical(cur, n_top):
+        return max(_pack_bins(cur, size, parts)[0]) + n_top
+
+    best = (critical(current, 0), list(current), [])
+    while len(current) < 4 * parts:
+        big = max(current, key=lambda p: (size[p], p))
+        inner = [j for j in kids[big] if j is not None]
+        # every later split adds one op to the top stream, and no block
+        # runs fewer than its share
+        if not inner or len(top) + 1 + -(-(n_ops - len(top) - 1)
+                                        // parts) >= best[0]:
+            break
+        current.remove(big)
+        current.extend(inner)
+        top.append(big)
+        c = critical(current, len(top))
+        if c < best[0]:
+            best = (c, list(current), list(top))
+    crit, current, top = best
+    if crit >= n_ops:
+        return _trivial_split(table)
+    top_set = set(top)
+    load, bins = _pack_bins(current, size, parts)
+    owner = {}
+
+    def collect(p, b):
+        stack = [p]
+        while stack:
+            k = stack.pop()
+            owner[k] = b
+            stack.extend(j for j in kids[k]
+                         if j is not None and j not in top_set)
+
+    for b, ps in enumerate(bins):
+        for p in ps:
+            collect(p, b)
+    # block 0 takes the least loaded bin, then the top stream
+    order = sorted(range(parts), key=lambda b: (load[b], b))
+    programs = [sorted(k for k in owner if owner[k] == b) for b in order]
+    programs[0] += sorted(top)
+    where = {}
+    n_slots = 1
+    for rank, prog in enumerate(programs):
+        slot, n = _allocate(prog, kids, set(prog))
+        n_slots = max(n_slots, n)
+        for k in prog:
+            where[k] = (rank, slot[k])
+
+    def entry(j, rank):
+        r, s = where[j]
+        return (0, s) if r == rank else (FUSED_REMOTE,
+                                          r << FUSED_RANK_SHIFT | s)
+
+    out = np.zeros((n_ops + 1 + FUSED_SPLIT_HEADER, 8), dtype=np.int32)
+    head = n_ops + 1
+    at = 0
+    for rank in list(range(1, parts)) + [0]:
+        out[head, rank] = at
+        for k in programs[rank]:
+            row = list(rows[k])
+            row[0] = where[k][1]
+            for pos, j in enumerate(kids[k]):
+                if j is not None:
+                    row[1 + 3 * pos], row[2 + 3 * pos] = entry(j, rank)
+            out[at] = row
+            at += 1
+        out[head + 1, rank] = at
+    out[n_ops] = table[n_ops]
+    for pos, j in enumerate(ends):
+        if j is not None:
+            out[n_ops, 2 * pos], out[n_ops, 2 * pos + 1] = entry(j, 0)
+    out[head + 2, :3] = [n_ops - len(top), parts, n_slots]
+    return FusedSplit(out, parts, n_slots, crit)
+
+
+class FusedSplits:
+    """The subtree splits (`split_fused_schedule`) of a packed table
+    [n_ops+1, 8], or of K candidates' tables [K, n_ops+1, 8], held on the
+    host, each part count split at its first use: called with `parts`, the
+    largest slots and critical ops over the candidates (the `split` of
+    ops/_kernels.py:fused_plan); `table(parts, device)`, the kernel's split
+    tables [K, n_ops+1+FUSED_SPLIT_HEADER, 8] on `device`, uploaded once.
+    Whoever packs a table builds its splits from the same array (the
+    engine a topology, `_candidate_chunks` a chunk), so a launch never
+    reads a table back from the card."""
+
+    def __init__(self, table):
+        table = np.asarray(table, dtype=np.int32)
+        self.host = table[None] if table.ndim == 2 else table
+        self._splits: dict = {}
+        self._tables: dict = {}
+
+    def of(self, parts: int) -> list:
+        if parts not in self._splits:
+            self._splits[parts] = [split_fused_schedule(t, parts)
+                                   for t in self.host]
+        return self._splits[parts]
+
+    def __call__(self, parts: int) -> tuple:
+        got = self.of(parts)
+        return (max(x.n_slots for x in got), max(x.critical for x in got))
+
+    def table(self, parts: int, device) -> torch.Tensor:
+        key = (parts, torch.device(device))
+        if key not in self._tables:
+            self._tables[key] = torch.as_tensor(
+                np.stack([x.table for x in self.of(parts)]), device=device)
+        return self._tables[key]
+
+
 def fused_candidate_from_tree(vroot, n_tips: int, n_matrices: int,
                               clv_tip_rows=None):
     """The fused kernel's (table, branch vector, root_info, n_slots) for the
@@ -433,7 +687,7 @@ def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32
                               mxu: str = "split", rate_scalers: bool = False,
                               tip_clvs: torch.Tensor = None,
                               query_codes: torch.Tensor = None,
-                              query_row: int = -1):
+                              query_row: int = -1, splits=None):
     """Plain PyTorch version of the fused traversal, in the dtype of
     `pmatrix` (float32 or float64) and on its device: the op table is
     walked in Python, each op vectorised over sites. `mxu` is the
@@ -444,7 +698,9 @@ def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32
     `pmatrix` [K, E, R, s, s]) the candidates one after another, each
     output with a leading K; in the query form (`query_codes` [Q, S] in tip
     row `query_row`, the candidate form's table and P) every output with a
-    leading [Q, K], all walks an op at a time (`_query_reference`)."""
+    leading [Q, K], all walks an op at a time (`_query_reference`).
+    `splits`, the kernel's subtree splits of the table (`FusedSplits`),
+    does not change the function and is not read here."""
     _check_mxu(mxu)
     if query_codes is not None:
         return _query_reference(tip_codes, pmatrix, table, rates, states,
@@ -465,8 +721,7 @@ def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32
     shifts = torch.arange(states, device=device, dtype=torch.int32)
     zero_sc = torch.zeros((rates, sites) if rate_scalers else (sites,),
                           dtype=torch.int32, device=device)
-    fac = torch.tensor(factor, dtype=dtype, device=device)
-    one = torch.ones((), dtype=dtype, device=device)
+    scale_values = _scale_values(factor, pmatrix)
     slots: list = [None] * n_slots
     bf16, split = _mode_operands(mxu, states, dtype)
     if bf16:
@@ -493,24 +748,97 @@ def fused_traversal_reference(tip_codes: torch.Tensor,   # [n_tips, S] int32
         return clv, sc
 
     for row in rows[:n_ops]:
-        left, lsc = operand(row[1], row[2])
-        right, rsc = operand(row[4], row[5])
-        x = (torch.einsum('rij,rjs->ris', pmatrix[row[3]], left)
-             * torch.einsum('rij,rjs->ris', pmatrix[row[6]], right))
-        sc = lsc + rsc
-        if row[7]:
-            if rate_scalers:
-                scale = torch.amax(x, dim=1) < threshold            # [R, S]
-                x = x * torch.where(scale, fac, one)[:, None, :]
-            else:
-                scale = torch.amax(x, dim=(0, 1)) < threshold       # [S]
-                x = x * torch.where(scale, fac, one)
-            sc = sc + scale.to(torch.int32)
-        slots[row[0]] = (x, sc)
+        slots[row[0]] = _reference_op(pmatrix, row, operand(row[1], row[2]),
+                                      operand(row[4], row[5]), threshold,
+                                      scale_values, rate_scalers)
 
     root = rows[n_ops]
     clv_p, sc_p = child(root[0], root[1])
     clv_c, sc_c = child(root[2], root[3])
+    return (clv_p.contiguous(), clv_c.contiguous(), sc_p.clone(),
+            sc_c.clone())
+
+
+def _scale_values(factor, pmatrix):
+    """The rescale factor and 1 as 0-d tensors of P's dtype and device."""
+    return (torch.tensor(factor, dtype=pmatrix.dtype, device=pmatrix.device),
+            torch.ones((), dtype=pmatrix.dtype, device=pmatrix.device))
+
+
+def _reference_op(pmatrix, row, left, right, threshold, scale_values,
+                  rate_scalers):
+    """One op of the plain walk on its children's (CLVs [R, s, S], counts)
+    `left` and `right`: the two products, the rescale test by the factor
+    of `scale_values` (`_scale_values`) and the counts (module docstring).
+    Returns the parent's (CLVs, counts)."""
+    (lclv, lsc), (rclv, rsc) = left, right
+    x = (torch.einsum('rij,rjs->ris', pmatrix[row[3]], lclv)
+         * torch.einsum('rij,rjs->ris', pmatrix[row[6]], rclv))
+    sc = lsc + rsc
+    if row[7]:
+        fac, one = scale_values
+        if rate_scalers:
+            scale = torch.amax(x, dim=1) < threshold                # [R, S]
+            x = x * torch.where(scale, fac, one)[:, None, :]
+        else:
+            scale = torch.amax(x, dim=(0, 1)) < threshold           # [S]
+            x = x * torch.where(scale, fac, one)
+        sc = sc + scale.to(torch.int32)
+    return x, sc
+
+
+def fused_split_reference(tip_codes: torch.Tensor, pmatrix: torch.Tensor,
+                          split_table, rates: int, states: int,
+                          threshold: float, factor: float,
+                          rate_scalers: bool = False,
+                          tip_clvs: torch.Tensor = None):
+    """The plain version of a walk split over a cluster's blocks
+    (`split_fused_schedule`'s table [n_ops + 1 + FUSED_SPLIT_HEADER, 8], or
+    K of them with P [K, E, R, s, s]), as the cluster runs it: each peer's
+    program in slots of its own, then block 0's, whose top stream reads the
+    peers' subtree roots (FUSED_REMOTE entries), then the root row in block
+    0. Every op is `fused_traversal_reference`'s arithmetic on the same
+    children, so the outputs equal its walk of the packed table to the bit.
+    Returns (clv_p, clv_c, sc_p, sc_c) as that function does."""
+    if split_table.ndim == 3:
+        outs = [fused_split_reference(tip_codes, pmatrix[k], split_table[k],
+                                      rates, states, threshold, factor,
+                                      rate_scalers, tip_clvs)
+                for k in range(split_table.shape[0])]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    dtype, device = pmatrix.dtype, pmatrix.device
+    sites = tip_codes.shape[1]
+    rows = torch.as_tensor(split_table).cpu().tolist()
+    n_ops = len(rows) - 1 - FUSED_SPLIT_HEADER
+    begin, end, (_, parts, n_slots) = (rows[n_ops + 1], rows[n_ops + 2],
+                                       rows[n_ops + 3][:3])
+    shifts = torch.arange(states, device=device, dtype=torch.int32)
+    zero_sc = torch.zeros((rates, sites) if rate_scalers else (sites,),
+                          dtype=torch.int32, device=device)
+    scale_values = _scale_values(factor, pmatrix)
+    slots = [[None] * n_slots for _ in range(parts)]
+    mask = (1 << FUSED_RANK_SHIFT) - 1
+
+    def child(is_tip, idx, rank):
+        if is_tip == 1:
+            bits = (tip_codes[idx][None, :] >> shifts[:, None]) & 1
+            return bits.to(dtype).expand(rates, states, sites), zero_sc
+        if is_tip == 2:
+            return (tip_clvs[idx].to(dtype).expand(rates, states, sites),
+                    zero_sc)
+        if is_tip == FUSED_REMOTE:
+            return slots[idx >> FUSED_RANK_SHIFT][idx & mask]
+        return slots[rank][idx]
+
+    for rank in list(range(1, parts)) + [0]:
+        for row in rows[begin[rank]:end[rank]]:
+            slots[rank][row[0]] = _reference_op(
+                pmatrix, row, child(row[1], row[2], rank),
+                child(row[4], row[5], rank), threshold, scale_values,
+                rate_scalers)
+    root = rows[n_ops]
+    clv_p, sc_p = child(root[0], root[1], 0)
+    clv_c, sc_c = child(root[2], root[3], 0)
     return (clv_p.contiguous(), clv_c.contiguous(), sc_p.clone(),
             sc_c.clone())
 
@@ -625,7 +953,8 @@ def fused_traversal(tip_codes: torch.Tensor,   # [n_tips, S] int32 bitmasks
                     threshold: float, factor: float, mxu: str = "split",
                     rate_scalers: bool = False,
                     tip_clvs: torch.Tensor = None,
-                    query_codes: torch.Tensor = None, query_row: int = -1):
+                    query_codes: torch.Tensor = None, query_row: int = -1,
+                    splits: FusedSplits = None):
     """One full postorder; returns (clv_p, clv_c, sc_p, sc_c) for the root
     edge: CLVs [R, s, S], scaler counts [S] int32 ([R, S] with
     `rate_scalers`). `mxu` is the contraction mode (module docstring);
@@ -637,6 +966,10 @@ def fused_traversal(tip_codes: torch.Tensor,   # [n_tips, S] int32 bitmasks
     candidates. The query form adds `query_codes` [Q, S] int32, the codes
     of Q queries that stand in for tip row `query_row` (placement): the Q x
     K walks run in one launch and every output gains a leading [Q, K].
+    `splits`, the `FusedSplits` of the host array `table` was uploaded
+    from, lets the 4 x 4 on-chip body walk each table's subtrees on the
+    blocks of a thread block cluster where the plan finds that faster
+    (ops/_kernels.py:fused_plan); without it a block walks a whole table.
 
     CUDA tensors launch a hand-written kernel (float32 only) on the
     current stream, without synchronising, or raise: fused_traversal.cu
@@ -665,7 +998,8 @@ def fused_traversal(tip_codes: torch.Tensor,   # [n_tips, S] int32 bitmasks
     from . import _kernels
     out = _launch(_kernels.launch_fused_traversal, tip_codes, pmatrix, table,
                   rates, states, n_slots, threshold, factor, rate_scalers,
-                  tip_clvs, query_codes=query_codes, query_row=query_row)
+                  tip_clvs, query_codes=query_codes, query_row=query_row,
+                  splits=splits)
     fused_traversal.launches += 1
     fused_traversal.query_launches += query_codes is not None
     return out
@@ -689,7 +1023,7 @@ def fused_traversal_rows(tip_codes: torch.Tensor,   # [n_tips, S] int32
                          mxu: str = "split", rate_scalers: bool = False,
                          tip_clvs: torch.Tensor = None,
                          query_codes: torch.Tensor = None,
-                         query_row: int = -1):
+                         query_row: int = -1, splits=None):
     """The same walk through the row-layout kernel
     (csrc/fused_traversal_rows.cu, any states <= 32, one thread block per
     tile of sites), which replaces libpll2_tpu's `_fused_kernel`.
@@ -697,7 +1031,8 @@ def fused_traversal_rows(tip_codes: torch.Tensor,   # [n_tips, S] int32
     here, one topology, K candidates or the query form as there. Per-rate
     scalers are refused above ROWS_RATE_SCALERS_MAX categories
     (ValueError), as in JAX. CUDA tensors launch the kernel (float32 only)
-    or raise; CPU tensors run `fused_traversal_reference`."""
+    or raise; CPU tensors run `fused_traversal_reference`. A block walks a
+    whole table here: `splits` is not read."""
     _check_mxu(mxu)
     _check_query_form(table, query_codes)
     _check_rows_rate_scalers(rates, rate_scalers)

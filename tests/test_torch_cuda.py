@@ -104,7 +104,7 @@ def _inputs(part, eng):
                               eng.branches)
     kw = dict(rates=part.rate_cats, states=part.states,
               n_slots=eng.fused_slots, threshold=part.scale_threshold,
-              factor=part.scale_factor)
+              factor=part.scale_factor, splits=eng.fused_splits)
     return (eng._tip_codes(), pm, eng.table), kw
 
 
@@ -132,13 +132,59 @@ FUSED_SPILL_SLOTS = 250
 GENERIC_SPILL_SLOTS = 1000
 
 
-def _assert_fused_plan(part, n_slots, want):
+def _assert_fused_plan(part, n_slots, want, splits=None, raw_tips=False):
+    """The plan the launcher takes for an engine's walk (with `splits`, its
+    table's ops/fused.py:FusedSplits, the thread block cluster on the 4 x 4
+    on-chip body): (plan, threads a site) and, where `want` names it,
+    blocks a cluster, which is 1 otherwise."""
     from libpll2_tpu_torch.ops import _kernels
 
     plan = _kernels.device_fused_plan(part.device, part.rate_cats,
                                       part.states, n_slots,
-                                      part.rate_scalers, part.sites_padded)
-    assert (plan.plan, plan.threads_per_site) == want
+                                      part.rate_scalers, part.sites_padded,
+                                      1, raw_tips, splits)
+    want = tuple(want) + (1,) * (3 - len(want))
+    assert (plan.plan, plan.threads_per_site,
+            getattr(plan, "cluster", 1)) == want
+    return plan
+
+
+CLUSTER_SIZES = (1, 2, 4, 8)
+
+
+def _assert_clusters_equal(args, kw):
+    """A 4 x 4 on-chip launch (one walk, K candidates or Q x K queries) at
+    every cluster size, forced through the launcher's plan argument, equals
+    the one at G = 1 bit for bit; other plans are not clustered. Returns
+    the sizes compared."""
+    codes, pm, table = args
+    if (kw["rates"], kw["states"]) != (4, 4):
+        return ()
+    one = table.dim() == 2
+    t, p = (table[None], pm[None]) if one else (table, pm)
+    q = kw["query_codes"].shape[0] if kw.get("query_codes") is not None \
+        else 1
+    base = _kernels.device_fused_plan(
+        pm.device, 4, 4, kw["n_slots"], kw.get("rate_scalers", False),
+        codes.shape[1], q * t.shape[0], kw.get("tip_clvs") is not None)
+    if base.plan != "on-chip":
+        return ()
+    splits = fused.FusedSplits(t.cpu().numpy())
+
+    def launch(g):
+        return _kernels.launch_fused_traversal(
+            codes, p, t, 4, 4, kw["n_slots"], kw["threshold"], kw["factor"],
+            kw.get("rate_scalers", False), kw.get("tip_clvs"),
+            kw.get("query_codes"), kw.get("query_row", -1),
+            plan=base._replace(cluster=g), splits=splits)
+
+    ref = launch(1)
+    for g in CLUSTER_SIZES[1:]:
+        got = launch(g)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert a.shape == b.shape and torch.equal(a, b), g
+    return CLUSTER_SIZES
 
 
 @pytest.mark.parametrize("case", ["ragged", "rates3", "states5",
@@ -156,10 +202,14 @@ def test_kernel_matches_plain_on_card(cuda, case):
     args, kw = _inputs(part, eng)
     if case == "spill":
         kw["n_slots"] = FUSED_SPILL_SLOTS
-    _assert_fused_plan(part, kw["n_slots"], FUSED_PLANS[case])
+    _assert_fused_plan(part, kw["n_slots"], FUSED_PLANS[case],
+                       eng.fused_splits)
     before = fused.fused_traversal.launches
     got = fused.fused_traversal(*args, **kw)
     assert fused.fused_traversal.launches == before + 1
+    assert bool(_assert_clusters_equal(args, kw)) == (
+        FUSED_PLANS[case][0] == "on-chip" and case not in ("rates3",
+                                                            "states5"))
     want = fused.fused_traversal_reference(*args, **kw)
     torch.cuda.synchronize()
     for g, w in zip(got[2:], want[2:]):
@@ -169,6 +219,125 @@ def test_kernel_matches_plain_on_card(cuda, case):
         assert float(((g - w).abs() / site_max).max()) <= 1e-5
     if case == "caterpillar":
         assert int(want[2].max()) > 0
+
+
+# launches whose plan takes a thread block cluster on an H100 (132 SMs;
+# ops/_kernels.py:fused_plan from ops/fused.py:split_fused_schedule): name
+# -> (taxa, tree seed, sites, per-rate counts, raw tips on every other tip,
+# blocks a cluster). The DNA main path's 128 x 16384 walk (126 ops) takes
+# 2, the 246 x 4465 repeats shape (244 ops) 4, a 128 x 4096 shard 4
+CLUSTER_CASES = {"dna_main": (128, 7, 16384, False, False, 2),
+                 "dna_main_per_rate": (128, 7, 16384, True, False, 2),
+                 "dna_main_raw": (128, 7, 16384, False, True, 2),
+                 "repeats_246": (246, 13, 4465, False, False, 4),
+                 "shard_4096": (128, 7, 4096, True, False, 4)}
+
+
+@pytest.mark.parametrize("case", sorted(CLUSTER_CASES))
+def test_cluster_walk_matches_plain_on_card(cuda, case):
+    """The 4 x 4 on-chip body where its plan takes a cluster: the plan's G
+    asserted, one launch (counted), equal to the walk at every other
+    cluster size and at G = 1 bit for bit, and to the plain version
+    (counts equal, CLVs to 1e-5 of each site's max)."""
+    taxa, seed, sites, per_rate, raw, want_g = CLUSTER_CASES[case]
+    tree = random_utree([f"t{i}" for i in range(taxa)], seed=seed)
+    part, eng = _engine(tree, sites, cuda, alphabet="ACGT-NRY",
+                        rate_scalers=per_rate)
+    if raw:
+        rng = np.random.default_rng(7)
+        for tip in sorted(tree.tips(), key=lambda t: t.clv_index)[::2]:
+            part.set_tip_clv(tip.clv_index, rng.dirichlet(
+                np.ones(4), size=sites).astype(np.float32))
+        eng = TreeEngine(part, tree)
+    args, kw = _inputs(part, eng)
+    kw.update(rate_scalers=per_rate, tip_clvs=eng._tip_clvs())
+    plan = _assert_fused_plan(part, kw["n_slots"],
+                              ("on-chip", 2 if sites > 4159 else 4, want_g),
+                              eng.fused_splits, raw)
+    assert plan.smem_bytes < _kernels.fused_onchip_bytes(
+        kw["n_slots"], 4 // plan.threads_per_site)
+    before = fused.fused_traversal.launches
+    got = fused.fused_traversal(*args, **kw)
+    assert fused.fused_traversal.launches == before + 1
+    assert _assert_clusters_equal(args, kw) == CLUSTER_SIZES
+    ref = _kernels.launch_fused_traversal(
+        args[0], args[1][None], args[2][None], 4, 4, kw["n_slots"],
+        kw["threshold"], kw["factor"], per_rate, kw["tip_clvs"],
+        plan=plan._replace(cluster=1, smem_bytes=_kernels.fused_onchip_bytes(
+            kw["n_slots"], 4 // plan.threads_per_site)))
+    want = fused.fused_traversal_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r[0])
+    for g, w in zip(got[2:], want[2:]):
+        assert torch.equal(g, w)
+    for g, w in zip(got[:2], want[:2]):
+        site_max = w.abs().amax(dim=(0, 1)).clamp(min=1e-30)
+        assert float(((g - w).abs() / site_max).max()) <= 1e-5
+
+
+def _onchip_cluster_registers(log: str) -> dict:
+    """{sites a thread: the most registers a thread} of the 4 x 4 on-chip
+    body's cluster instantiations (fused_onchip<SPT, PER_RATE, true>) in a
+    build's `-Xptxas -v` log."""
+    import re
+
+    regs, spt = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            m = re.search(r"fused_onchipILi(\d)ELb[01]ELb1E", m.group(1))
+            spt = int(m.group(1)) if m else None
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and spt is not None:
+            regs[spt] = max(regs.get(spt, 0), int(m.group(1)))
+            spt = None
+    return regs
+
+
+def test_plan_registers_match_the_build(cuda):
+    """The plan's residency (ops/_kernels.py:fused_resident_blocks) takes
+    the cluster body's registers a thread from FUSED_REGISTERS: the built
+    kernels must be allocated as many a warp at each sites-a-thread, so
+    that a changed body or compiler fails here and does not silently
+    change the cluster size the plan picks."""
+    _kernels.library()
+    regs = _onchip_cluster_registers(
+        _kernels.library_path().with_suffix(".log").read_text())
+    unit = _kernels.WARP_REGISTER_UNIT // 32
+    assert sorted(regs) == sorted(_kernels.FUSED_REGISTERS)
+    for spt, want in _kernels.FUSED_REGISTERS.items():
+        assert -(-regs[spt] // unit) * unit == want, (spt, regs[spt])
+
+
+def test_cluster_launch_refuses_a_bad_plan(cuda):
+    """A cluster plan the C entry does not take (a cluster on the spill
+    body) raises, and nothing falls back to another plan; a split into
+    more blocks than a portable cluster holds raises before any launch."""
+    tree = random_utree([f"t{i}" for i in range(128)], seed=7)
+    part, eng = _engine(tree, 4096, cuda)
+    args, kw = _inputs(part, eng)
+    base = _kernels.device_fused_plan(cuda, 4, 4, kw["n_slots"], False,
+                                      4096)
+    launch = (args[0], args[1][None], args[2][None], 4, 4, kw["n_slots"],
+              kw["threshold"], kw["factor"])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _kernels.launch_fused_traversal(
+            *launch, plan=base._replace(plan="spill", cluster=2),
+            splits=kw["splits"])
+    with pytest.raises(ValueError, match="parts"):
+        _kernels.launch_fused_traversal(*launch,
+                                        plan=base._replace(cluster=16),
+                                        splits=kw["splits"])
+    # a cluster needs the tables' splits, and splits of other tables are
+    # refused
+    with pytest.raises(ValueError, match="splits"):
+        _kernels.launch_fused_traversal(*launch,
+                                        plan=base._replace(cluster=2))
+    other = fused.FusedSplits(np.zeros((2, *args[2].shape), np.int32))
+    with pytest.raises(ValueError, match="splits"):
+        _kernels.launch_fused_traversal(*launch, splits=other)
 
 
 # fused_traversal.cu's runtime-size body in float32 (fused_generic): name ->
@@ -1147,12 +1316,16 @@ def test_fused_kernels_modes_match_plain_on_card(cuda, case):
     if part.states == 4:   # fused_traversal.cu's plan (FUSED_PLANS)
         _assert_fused_plan(part, kw["n_slots"], (
             "on-chip", 4) if part.rate_cats != 4 else (
-            "on-chip", 2 if "wide" in case else 4))
+            "on-chip", 2 if "wide" in case else 4), eng.fused_splits,
+            kw["tip_clvs"] is not None)
     counter = (fused.fused_traversal_rows if part.states >= 16
                else fused.fused_traversal)
     before = counter.launches
     got = fused.fused_traversal(*args, mxu="highest", **kw)
     assert counter.launches == before + 1
+    if part.states == 4:
+        assert bool(_assert_clusters_equal(args, kw)) == (
+            part.rate_cats == 4)
     want = fused.fused_traversal_reference(*args, mxu="highest", **kw)
     torch.cuda.synchronize()
     for g, w in zip(got[2:], want[2:]):
@@ -1432,14 +1605,19 @@ def test_candidate_kernel_matches_plain_on_card(cuda, case):
                                          part.sites_padded, k)
         assert (plan.plan, plan.sites_per_thread) == want_plan
     else:
-        plan = _kernels.device_fused_plan(cuda, part.rate_cats, part.states,
-                                          kw["n_slots"], part.rate_scalers,
-                                          part.sites_padded, k)
+        plan = _kernels.device_fused_plan(
+            cuda, part.rate_cats, part.states, kw["n_slots"],
+            part.rate_scalers, part.sites_padded, k,
+            kw.get("tip_clvs") is not None, fused.FusedSplits(args[2].cpu().numpy()))
         assert (plan.plan, plan.threads_per_site) == want_plan
+        assert getattr(plan, "cluster", 1) == 1
     counter = fused.fused_traversal_rows if rows else fused.fused_traversal
     before = counter.launches
     got = fused.fused_traversal(*args, mxu="highest", **kw)
     assert counter.launches == before + 1
+    if not rows:
+        assert bool(_assert_clusters_equal(args, kw)) == (
+            want_plan[0] == "on-chip" and part.rate_cats == 4)
     want = fused.fused_traversal_reference(*args, mxu="highest", **kw)
     torch.cuda.synchronize()
     assert got[0].shape[0] == k
@@ -1924,6 +2102,13 @@ def test_query_form_matches_plain_on_card(cuda, case):
     got = fused.fused_traversal(*args, mxu="highest", **kw)
     assert (counter.launches, counter.query_launches) == \
         (before[0] + 1, before[1] + 1)
+    if states == 4:
+        assert getattr(_kernels.device_fused_plan(
+            cuda, rates, states, kw["n_slots"], per_rate, args[0].shape[1],
+            q * e, False, fused.FusedSplits(args[2].cpu().numpy())),
+            "cluster", 1) == 1
+        assert bool(_assert_clusters_equal(args, kw)) == (
+            rates == 4 and case not in QUERY_SPILL)
     want = fused.fused_traversal_reference(*args, mxu="highest", **kw)
     torch.cuda.synchronize()
     assert got[0].shape[:2] == (q, e)

@@ -8,7 +8,12 @@ sites still reach FUSED_SPT2_SM_SHARE of the SMs and fit, else of one site
 (4 threads a site), and spill to device memory where neither fits; every
 other size takes the runtime-size body's plan.
 The bytes are those of the layout in csrc/fused_traversal.cu
-(onchip_smem_words), which refuses a launch whose count differs.
+(onchip_smem_words), which refuses a launch whose count differs. On chip,
+given the launch's subtree splits (`split`), the plan takes a thread block
+cluster of 2, 4 or 8 blocks where its model (`fused_walk_cost`: one wave
+of resident blocks, an op's time from the SM's compute warps, a cost a
+block of a cluster) puts it below one block a walk; a launch that fills
+the card's block slots without one keeps one.
 
 `generic_plan`, the runtime-size body's (fused_generic, float32 and the
 float64 walk): a site's rates on G neighbouring lanes, the state count
@@ -18,14 +23,19 @@ spilled with P read through L1; its bytes are generic_layout's in
 csrc/fused_traversal.cu. An H100 has 132 SMs and lets a block use 232,448
 bytes."""
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
-from libpll2_tpu_torch.ops._kernels import (FUSED_COMPUTE_THREADS,
-                                            FUSED_DEPTH, FUSED_SPILL_BLOCK,
+from libpll2_tpu_torch.ops._kernels import (FUSED_CLUSTER_COST,
+                                            FUSED_COMPUTE_THREADS,
+                                            FUSED_DEPTH, FUSED_LATENCY_WARPS,
+                                            FUSED_SPILL_BLOCK,
                                             FUSED_SPT2_SM_SHARE,
                                             GENERIC_DEPTHS, GENERIC_MAX_WARPS,
                                             GENERIC_WIDTHS, FusedPlan,
                                             GenericPlan, fused_onchip_bytes,
-                                            fused_plan, generic_bytes,
+                                            fused_plan, fused_resident_blocks,
+                                            fused_walk_cost, generic_bytes,
                                             generic_plan, spill_slots)
 
 H100, SMS = 232448, 132
@@ -38,7 +48,8 @@ SPILL = FusedPlan("spill", 1, FUSED_SPILL_BLOCK, 0)
 def _words(n_slots, spt):
     """The on-chip layout's 4-byte words, spelled out part by part."""
     sites = 32 * spt                          # the block's
-    barriers = 2 * FUSED_DEPTH * 2            # full and empty, 8 bytes each
+    # full and empty, and the cluster's join and done: 8 bytes each
+    barriers = (2 * FUSED_DEPTH + 2) * 2
     row, p = 8, 2 * 4 * 20                    # table row; P[m1], P[m2] padded
     tips = 2 * sites * (4 + 1)                # raw rows and codes, 2 children
     ring = barriers + FUSED_DEPTH * (row + p + tips)
@@ -54,7 +65,7 @@ def _plan(n_slots, sites, rate_scalers=False, smem=H100, rates=4, states=4):
 def test_dna_main_path_runs_two_sites_a_thread(rate_scalers):
     """128 x 16384, 7 slots: 64 sites a block of 128 threads, 256 blocks."""
     plan = _plan(7, DNA, rate_scalers)
-    assert plan == FusedPlan("on-chip", 2, 64, 48832)
+    assert plan == FusedPlan("on-chip", 2, 64, 48848)
     assert plan.smem_bytes == 4 * _words(7, 2)
 
 
@@ -68,7 +79,7 @@ def test_repeats_shape_runs_two_sites_a_thread(rate_scalers):
 @pytest.mark.parametrize("rate_scalers", [False, True])
 def test_narrow_alignment_runs_one_site_a_thread(rate_scalers):
     plan = _plan(7, NARROW, rate_scalers)
-    assert plan == FusedPlan("on-chip", 4, 32, 25792)
+    assert plan == FusedPlan("on-chip", 4, 32, 25808)
     assert plan.smem_bytes == 4 * _words(7, 1)
 
 
@@ -87,12 +98,12 @@ def test_bytes_follow_the_layout(n_slots, rate_scalers):
 
 
 def test_seven_and_ten_slots_bytes():
-    """The ring (7,872 bytes at one site a thread, 12,992 at two), then
+    """The ring (7,888 bytes at one site a thread, 13,008 at two), then
     2,560 or 5,120 bytes a slot."""
-    assert fused_onchip_bytes(7, 1) == 7872 + 7 * 2560 == 25792
-    assert fused_onchip_bytes(7, 2) == 12992 + 7 * 5120 == 48832
-    assert fused_onchip_bytes(10, 1) == 7872 + 10 * 2560 == 33472
-    assert fused_onchip_bytes(10, 2) == 12992 + 10 * 5120 == 64192
+    assert fused_onchip_bytes(7, 1) == 7888 + 7 * 2560 == 25808
+    assert fused_onchip_bytes(7, 2) == 13008 + 7 * 5120 == 48848
+    assert fused_onchip_bytes(10, 1) == 7888 + 10 * 2560 == 33488
+    assert fused_onchip_bytes(10, 2) == 13008 + 10 * 5120 == 64208
 
 
 def test_site_count_boundary_for_two_sites_a_thread():
@@ -363,3 +374,175 @@ def test_generic_refuses_what_no_plan_takes():
         generic_plan(4, 5, 7, False, 256, DNA, SMS)
     with pytest.raises(ValueError):
         fused_plan(4, 17, 7, False, H100, DNA, SMS)
+
+
+# The 4 x 4 on-chip body's thread block clusters (fused_plan's `split`,
+# ops/fused.py:split_fused_schedule of the launch's tables): the trees of
+# the DNA main path (128 taxa, 126 ops, 7 slots) and of the 246 x 4465
+# repeats problem (244 ops, 10 slots)
+def _tree_table(taxa, seed):
+    from libpll2_tpu_torch.ops.fused import pack_fused_schedule
+    from libpll2_tpu_torch.trees import (create_operations, random_utree,
+                                         traverse)
+
+    tree = random_utree([f"t{i}" for i in range(taxa)], seed=seed)
+    ops, _, _ = create_operations(traverse(tree.vroot))
+    root = tree.vroot
+    return pack_fused_schedule(ops, tree.tip_count,
+                               (root.clv_index, root.back.clv_index))
+
+
+def _split_of(table, calls=None):
+    """fused_plan's `split` for one table, recording the parts asked."""
+    from libpll2_tpu_torch.ops.fused import split_fused_schedule
+
+    def split(parts):
+        if calls is not None:
+            calls.append(parts)
+        sp = split_fused_schedule(table, parts)
+        return sp.n_slots, sp.critical
+    return split
+
+
+def _cluster_plan(taxa, seed, sites, candidates=1, rate_scalers=False):
+    table, n_slots = _tree_table(taxa, seed)
+    calls = []
+    plan = fused_plan(4, 4, n_slots, rate_scalers, H100, sites, SMS,
+                      candidates, split=_split_of(table, calls))
+    return plan, calls
+
+
+@pytest.mark.parametrize("rate_scalers", [False, True])
+def test_dna_main_path_walk_takes_a_cluster_of_two(rate_scalers):
+    """128 x 16384: two subtree streams (5 slots, 66 ops on the critical
+    path) on 512 blocks of 64 sites, 256 clusters of 2, one wave of the
+    card's 4 blocks an SM; 4 and 8 blocks a cluster would take two and four
+    waves (both lost on an H100: PERF.md, Findings)."""
+    plan, calls = _cluster_plan(128, 7, DNA, rate_scalers=rate_scalers)
+    assert plan == FusedPlan("on-chip", 2, 64, fused_onchip_bytes(5, 2), 2)
+    # 4 and 8 blocks a cluster take more than one wave whatever the split:
+    # only the walk's op count and the split into 2 are asked for
+    assert calls == [1, 2]
+
+
+def test_repeats_walk_takes_a_cluster_of_four():
+    """246 x 4465: four streams (8 slots, 67 ops) on 280 blocks; 8 blocks
+    a cluster (560 blocks) would not fit one wave. The split into 4 is
+    asked for first (its least possible cost is the lowest), and then 2
+    blocks a cluster cannot beat it even split evenly: it is not split."""
+    plan, calls = _cluster_plan(246, 13, REPEATS)
+    assert plan == FusedPlan("on-chip", 2, 64, fused_onchip_bytes(8, 2), 4)
+    assert calls == [1, 4]
+
+
+def _exhaustive_cluster(plan, smem_bytes, sites, sms, candidates, split):
+    """The cluster plan by every size's own cost, least first, of equal
+    costs the smaller size: what `fused_plan` picks without splitting
+    every size."""
+    spt = 4 // plan.threads_per_site
+    blocks = candidates * -(-sites // plan.sites_per_block)
+    resident = fused_resident_blocks(plan.smem_bytes, spt)
+    if blocks >= sms * resident:
+        return plan
+    best = (fused_walk_cost(blocks, resident, split(1)[1], sms), 1, plan)
+    for parts in (2, 4, 8):
+        n_slots, critical = split(parts)
+        nbytes = fused_onchip_bytes(n_slots, spt)
+        if nbytes > smem_bytes:
+            continue
+        c = fused_walk_cost(blocks * parts,
+                            fused_resident_blocks(nbytes, spt), critical,
+                            sms, parts)
+        if c is not None and (c, parts) < best[:2]:
+            best = (c, parts, plan._replace(smem_bytes=nbytes,
+                                            cluster=parts))
+    return best[2]
+
+
+@settings(max_examples=40, deadline=None, derandomize=True, database=None)
+@given(taxa=st.integers(4, 300), seed=st.integers(0, 2**16),
+       sites=st.sampled_from([300, 1000, 4096, 4465, 9000, 16384]),
+       candidates=st.sampled_from([1, 2, 3]))
+def test_cluster_plan_splits_only_what_could_win(taxa, seed, sites,
+                                                 candidates):
+    """The plan that splits a size only where its least possible cost
+    could beat the best so far picks what splitting every size picks."""
+    table, n_slots = _tree_table(taxa, seed)
+    split = _split_of(table)
+    plan = fused_plan(4, 4, n_slots, False, H100, sites, SMS, candidates,
+                      split=split)
+    base = fused_plan(4, 4, n_slots, False, H100, sites, SMS, candidates)
+    if base.plan != "on-chip":
+        assert plan == base
+        return
+    assert plan == _exhaustive_cluster(base, H100, sites, SMS, candidates,
+                                       split)
+
+
+def test_a_shard_of_the_main_path_takes_a_cluster_of_four():
+    """A 4096-site shard: one site a thread, 128 blocks of 32 sites, four
+    streams of 5 slots."""
+    plan, _ = _cluster_plan(128, 7, 4096)
+    assert plan == FusedPlan("on-chip", 4, 32, fused_onchip_bytes(5, 1), 4)
+
+
+@pytest.mark.parametrize("walks", [128, 16 * 60, 19])
+def test_launches_that_fill_the_card_keep_one_block_a_walk(walks):
+    """A chunk of 128 candidates, a 14-slot query launch of 16 queries x
+    60 edges and 19 model trials at 128 x 16384 fill every SM's block
+    slots with one block a walk: no split is asked for."""
+    table, _ = _tree_table(128, 7)
+    calls = []
+    plan = fused_plan(4, 4, 14 if walks == 960 else 7, False, H100, DNA,
+                      SMS, walks, split=_split_of(table, calls))
+    assert plan.cluster == 1 and plan.threads_per_site == 2
+    assert calls == []
+
+
+def test_small_and_chained_walks_keep_one_block_a_walk():
+    """A 16-taxon walk at 1000 sites (14 ops) gains less than a cluster
+    costs; a caterpillar has no subtrees to split."""
+    assert _cluster_plan(16, 3, NARROW)[0] == FusedPlan(
+        "on-chip", 4, 32, fused_onchip_bytes(4, 1))
+    from libpll2_tpu_torch.ops.fused import pack_fused_schedule
+    from libpll2_tpu_torch.trees import (create_operations, parse_newick,
+                                         traverse)
+
+    text = "t79:0.1"
+    for i in range(78, 1, -1):
+        text = f"(t{i}:0.1,{text}):0.1"
+    tree = parse_newick(f"(t0:0.1,t1:0.1,{text});")
+    ops, _, _ = create_operations(traverse(tree.vroot))
+    root = tree.vroot
+    table, n_slots = pack_fused_schedule(
+        ops, tree.tip_count, (root.clv_index, root.back.clv_index))
+    plan = fused_plan(4, 4, n_slots, False, H100, DNA, SMS,
+                      split=_split_of(table))
+    assert plan.cluster == 1
+
+
+def test_spill_and_other_sizes_take_no_cluster():
+    table, _ = _tree_table(128, 7)
+    calls = []
+    assert fused_plan(4, 4, 250, False, H100, DNA, SMS,
+                      split=_split_of(table, calls)) == SPILL
+    plan = fused_plan(3, 4, 7, False, H100, DNA, SMS,
+                      split=_split_of(table, calls))
+    assert isinstance(plan, GenericPlan) and calls == []
+
+
+def test_resident_blocks_and_the_cost_model():
+    """An SM holds the cluster body's blocks by shared memory (228 KB, 1
+    KB reserved a block), threads (12 blocks of 160) and registers (96 a
+    thread at two sites a thread: 4 blocks; 64 at one: 6); the model
+    refuses a second wave and charges a cluster FUSED_CLUSTER_COST a
+    block."""
+    assert fused_resident_blocks(fused_onchip_bytes(7, 2), 2) == 4
+    assert fused_resident_blocks(fused_onchip_bytes(10, 2), 2) == 3
+    assert fused_resident_blocks(fused_onchip_bytes(5, 1), 1) == 6
+    assert fused_resident_blocks(2048, 1) == 6
+    assert fused_walk_cost(529, 4, 10, SMS) is None
+    assert fused_walk_cost(528, 4, 10, SMS) == 10 * (FUSED_LATENCY_WARPS
+                                                     + 16)
+    assert fused_walk_cost(264, 4, 10, SMS, 2) == (
+        10 * (FUSED_LATENCY_WARPS + 8) + 2 * FUSED_CLUSTER_COST)
